@@ -1,0 +1,78 @@
+"""Carry the JAX package's MSV parameters and DP state into the port.
+
+Every function takes numpy arrays (``np.asarray`` of the JAX arrays) in
+the JAX package's layouts and returns the port's device tensors, so that
+both packages can score the same inputs:
+
+* a profile: an ``MSVProfile``, or the JAX scanner's device pack
+  ``(scores_t [1, M_pad, 20], tr_consts [1, 3])``;
+* a staged database: ``tokens_i8_t [L_pad, B_pad]``, ``lengths [B_pad]``
+  and ``tr_rows [2, B_pad]`` of a JAX ``StagedDatabase``;
+* the DP carry of ``msv_pallas_call``: ``m [M_pad, B_pad]`` and
+  ``s [4, B_pad]``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hmm_fasta_viterbi_tpu.models.msv import MSVProfile
+
+from .ops import msv_cuda
+from .pipeline import M_BUCKET, StagedDatabase
+
+
+def device_profile(profile: MSVProfile, device):
+    """``(emit [20, M_pad], tr_consts [3])`` of an ``MSVProfile``."""
+    m_pad = msv_cuda.round_up(profile.num_states, M_BUCKET)
+    return msv_cuda.pack_profile(profile, m_pad, device)
+
+
+def device_profile_from_jax(
+    scores_t: np.ndarray, tr_consts: np.ndarray, num_states: int, device
+):
+    """The port's pack from a JAX scanner's ``(scores_t [1, M_pad, 20],
+    tr_consts [1, 3])``; ``num_states`` is the profile's Mr (rows beyond it
+    are the TPU pack's padding)."""
+    scores_t = np.asarray(scores_t, dtype=np.float32).reshape(-1, msv_cuda.NUM_AA)
+    emit = msv_cuda.prepare_emit(
+        np.ascontiguousarray(scores_t[:num_states].T),
+        msv_cuda.round_up(num_states, M_BUCKET),
+    )
+    consts = np.asarray(tr_consts, dtype=np.float32).reshape(3)
+    return torch.from_numpy(emit).to(device), torch.from_numpy(consts.copy()).to(device)
+
+
+def staged_from_jax(
+    tokens_i8_t: np.ndarray, lengths: np.ndarray, tr_rows: np.ndarray,
+    num_sequences: int, device,
+) -> StagedDatabase:
+    """A port ``StagedDatabase`` from a JAX one's arrays, its tr_rows kept
+    as they are. Ragged tails are blanked again (a JAX ``stage_device``
+    caller may have broken that contract)."""
+    tokens_t = np.array(tokens_i8_t, dtype=np.int8)  # a copy: blanked in place
+    lengths = np.asarray(lengths, dtype=np.int32)
+    msv_cuda.blank_ragged_tail(tokens_t, lengths)
+    return StagedDatabase(
+        tokens=torch.from_numpy(np.ascontiguousarray(tokens_t.T)).to(device),
+        lengths=torch.from_numpy(lengths.copy()).to(device),
+        tr_rows=torch.from_numpy(np.asarray(tr_rows, dtype=np.float32).copy()).to(device),
+        num_sequences=num_sequences,
+    )
+
+
+def carry_from_jax(m: np.ndarray, s: np.ndarray, num_states: int, device):
+    """``(m [B_pad, M_pad], s [4, B_pad])`` from a ``msv_pallas_call`` carry
+    ``(m [M_pad_tpu, B_pad], s [4, B_pad])``: the real states are
+    transposed, the port's pad states are -inf."""
+    m = np.asarray(m, dtype=np.float32)
+    out = np.full(
+        (m.shape[1], msv_cuda.round_up(num_states, M_BUCKET)), msv_cuda.NEG_INF,
+        dtype=np.float32,
+    )
+    out[:, :num_states] = m[:num_states].T
+    return (
+        torch.from_numpy(out).to(device),
+        torch.from_numpy(np.asarray(s, dtype=np.float32).copy()).to(device),
+    )

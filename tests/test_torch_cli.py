@@ -1,0 +1,48 @@
+"""The PyTorch port's `scan` CLI (--device cpu) against the JAX CLI
+(--backend xla): the TSV and JSON reports must be byte-equal."""
+
+import logging
+
+import pytest
+
+from hmm_fasta_viterbi_tpu import cli as jax_cli
+from hmm_fasta_viterbi_tpu_torch import cli as port_cli
+
+
+@pytest.mark.parametrize(
+    "extra", [[], ["--top", "2"], ["--max-evalue", "3.5"]], ids=["all", "top", "evalue"]
+)
+@pytest.mark.parametrize("fmt", ["tsv", "json"])
+@pytest.mark.parametrize("fasta", ["fasta_like_example.fsa", "random_FASTA.fsa"])
+def test_report_byte_equal_to_jax(profile_dir, fasta_dir, tmp_path, fasta, fmt, extra):
+    common = [
+        "scan", "--hmm", str(profile_dir / "100.hmm"),
+        "--fasta", str(fasta_dir / fasta), "--format", fmt, *extra,
+    ]
+    jax_out, port_out = tmp_path / "jax.out", tmp_path / "port.out"
+    assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0
+    assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
+    want = jax_out.read_bytes()
+    assert want.count(b"Pfam-B_229") >= 1
+    assert port_out.read_bytes() == want
+
+
+def test_cuda_device_without_cuda_exits_nonzero(profile_dir, fasta_dir, monkeypatch, caplog):
+    """--device cuda (the default) on a machine without CUDA fails with a
+    clear message; it never carries on on the CPU."""
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    argv = [
+        "scan", "--hmm", str(profile_dir / "100.hmm"),
+        "--fasta", str(fasta_dir / "fasta_like_example.fsa"),
+    ]
+    with caplog.at_level(logging.ERROR):
+        assert port_cli.main(argv) == 2
+    assert "torch.cuda.is_available() is false" in caplog.text
+
+
+def test_only_msv_stage():
+    with pytest.raises(SystemExit) as exc:
+        port_cli.build_parser().parse_args(
+            ["scan", "--hmm", "x.hmm", "--fasta", "y.fsa", "--stage", "viterbi"]
+        )
+    assert exc.value.code == 2

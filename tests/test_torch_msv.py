@@ -1,0 +1,156 @@
+"""The PyTorch port's MSV scan (its plain version, which CPU tensors run)
+against the NumPy oracle and the JAX package.
+
+Every comparison is exact (np.array_equal): the port keeps the float32
+operation order of ops/recurrence.py, and the JAX Pallas kernel's bf16
+split reconstructs every f32 score exactly, so no tolerance is needed.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hmm_fasta_viterbi_tpu import MSVProfile, msv_oracle_batch, parse_hmm
+from hmm_fasta_viterbi_tpu.ops import pallas_msv
+from hmm_fasta_viterbi_tpu.ops.xla_scan import msv_xla
+from hmm_fasta_viterbi_tpu_torch import convert
+from hmm_fasta_viterbi_tpu_torch.ops import msv_cuda
+from hmm_fasta_viterbi_tpu_torch.pipeline import MSVScanner
+
+RAGGED = np.array([0, 1, 2, 31, 32, 33, 64, 17], dtype=np.int32)
+
+
+def _profile(profile_dir, stem):
+    return MSVProfile.from_profile(parse_hmm(profile_dir / f"{stem}.hmm"))
+
+
+def _tokens(seed, batch, width):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 20, size=(batch, width)).astype(np.int32)
+
+
+def _port_scores(profile, tokens, lengths):
+    sc = MSVScanner(device="cpu")
+    return sc.scan(profile, sc.stage(tokens, lengths)).numpy()
+
+
+@pytest.mark.parametrize("stem", ["100", "1001", "1400"])
+def test_plain_equals_oracle(profile_dir, stem):
+    profile = _profile(profile_dir, stem)
+    tokens = _tokens(0, len(RAGGED), 64)
+    got = _port_scores(profile, tokens, RAGGED)
+    want = msv_oracle_batch(profile, tokens, RAGGED)
+    assert np.array_equal(got, want)
+    assert np.isneginf(got[RAGGED == 0]).all()  # empty sequences, by design
+
+
+@pytest.mark.parametrize("stem", ["100", "1001"])
+def test_plain_equals_jax_xla(profile_dir, stem):
+    profile = _profile(profile_dir, stem)
+    tokens = _tokens(1, len(RAGGED), 64)
+    got = _port_scores(profile, tokens, RAGGED)
+    want = np.asarray(msv_xla(profile, tokens, RAGGED))
+    assert np.array_equal(got, want)
+
+
+def test_plain_equals_jax_pallas_interpret_with_carries(profile_dir):
+    """msv_pallas_call (interpret mode) and the port's msv_scan from the
+    same non-trivial carries, all inputs carried over by convert.py:
+    scores and both carries out are equal."""
+    profile = _profile(profile_dir, "100")
+    mr = profile.num_states
+    tokens = _tokens(2, len(RAGGED), 64)
+    tokens_t, lengths_p, tr_rows, b, l_chunk = pallas_msv._prepare_batch(
+        tokens, RAGGED, 64
+    )
+    scores_t = pallas_msv.prepare_scores_t(profile)[None]
+    tr_consts = np.array(
+        [[profile.tr_B_Mk, profile.tr_E_C, profile.tr_E_J]], dtype=np.float32
+    )
+    rng = np.random.default_rng(3)
+    b_pad = tokens_t.shape[1]
+    m_init = np.full((scores_t.shape[1], b_pad), -np.inf, dtype=np.float32)
+    m_init[:mr] = rng.normal(-8.0, 3.0, size=(mr, b_pad)).astype(np.float32)
+    s_init = rng.normal(-6.0, 2.0, size=(4, b_pad)).astype(np.float32)
+
+    score, m_out, s_out = pallas_msv.msv_pallas_call(
+        jnp.asarray(scores_t), jnp.asarray(tokens_t, dtype=jnp.int32),
+        jnp.asarray(lengths_p), jnp.asarray(tr_rows), jnp.asarray(tr_consts),
+        jnp.asarray(m_init), jnp.asarray(s_init),
+        l_chunk=l_chunk, interpret=True,
+    )
+
+    staged = convert.staged_from_jax(tokens_t, lengths_p, tr_rows, b, "cpu")
+    emit, consts = convert.device_profile_from_jax(scores_t, tr_consts, mr, "cpu")
+    m, s = convert.carry_from_jax(m_init, s_init, mr, "cpu")
+    got_score, got_m, got_s = msv_cuda.msv_scan(
+        emit, staged.tokens, staged.lengths, staged.tr_rows, consts, m, s
+    )
+    assert np.array_equal(got_score.numpy(), np.asarray(score)[0])
+    assert np.array_equal(got_m[:, :mr].numpy(), np.asarray(m_out)[:mr].T)
+    assert np.array_equal(got_s.numpy(), np.asarray(s_out))
+    assert np.isneginf(got_m[:, mr:].numpy()).all()  # port pad states
+
+
+@pytest.mark.parametrize("stem,split", [("100", 29), ("1001", 32)])
+def test_carry_chain_equals_one_call(profile_dir, stem, split):
+    """Two calls over L split at ``split`` (second call: lengths less the
+    split, clipped at 0) equal one call, carries included."""
+    profile = _profile(profile_dir, stem)
+    tokens = _tokens(4, len(RAGGED), 64)
+    staged = MSVScanner(device="cpu").stage(tokens, RAGGED)
+    emit, consts = convert.device_profile(profile, "cpu")
+    m0, s0 = msv_cuda.init_carry(staged.tr_rows, emit.shape[1])
+    whole = msv_cuda.msv_scan(
+        emit, staged.tokens, staged.lengths, staged.tr_rows, consts, m0, s0
+    )
+    first = msv_cuda.msv_scan(
+        emit, staged.tokens[:, :split].contiguous(),
+        staged.lengths.clamp(max=split), staged.tr_rows, consts, m0, s0,
+    )
+    second = msv_cuda.msv_scan(
+        emit, staged.tokens[:, split:].contiguous(),
+        (staged.lengths - split).clamp(min=0), staged.tr_rows, consts,
+        first[1], first[2],
+    )
+    for a, b in zip(second, whole):
+        assert torch.equal(a, b)
+    assert np.array_equal(
+        whole[0].numpy(), msv_oracle_batch(profile, tokens, RAGGED)
+    )
+
+
+@pytest.mark.parametrize("stem,m_pad", [("100", None), ("1001", 1024)])
+def test_prepare_scores_t_byte_equal(profile_dir, stem, m_pad):
+    profile = _profile(profile_dir, stem)
+    scores = profile.scores_real.copy()
+    scores[3, 5] = -np.inf  # exercises the PAD_SCORE clamp
+    profile = dataclasses.replace(profile, scores_real=scores)
+    got = msv_cuda.prepare_scores_t(profile, m_pad)
+    want = pallas_msv.prepare_scores_t(profile, m_pad)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+
+
+def test_blank_ragged_tail_byte_equal():
+    rng = np.random.default_rng(5)
+    tokens_t = rng.integers(0, 20, size=(96, 128)).astype(np.int8)
+    lengths = rng.integers(0, 97, size=128).astype(np.int32)
+    got = msv_cuda.blank_ragged_tail(tokens_t.copy(), lengths)
+    want = pallas_msv.blank_ragged_tail(tokens_t.copy(), lengths)
+    assert got.tobytes() == want.tobytes()
+    assert msv_cuda.PAD_TOKEN == pallas_msv.PAD_TOKEN
+    assert msv_cuda.PAD_SCORE == pallas_msv.PAD_SCORE
+
+
+@pytest.mark.parametrize("m_pad,per", [(104, 4), (1400, 44), (1408, 44), (2405, 76), (2432, 76)])
+def test_kernel_states_per_lane(m_pad, per):
+    assert msv_cuda.kernel_per(m_pad) == per
+
+
+def test_kernel_limit_names_itself():
+    with pytest.raises(ValueError, match="2432"):
+        msv_cuda.kernel_per(msv_cuda.MAX_KERNEL_STATES + 1)
