@@ -1,10 +1,13 @@
 """Command-line interface of the PyTorch port.
 
     python -m hmm_fasta_viterbi_tpu_torch scan --hmm P.hmm --fasta DB.fsa
+        [--stage msv|viterbi|forward|search]
 
-The MSV scan of ``hmm_fasta_viterbi_tpu``'s ``scan`` with the same flags
-and the same TSV/JSON report; ``--device`` (default ``cuda``) names the
-torch device, and ``--device cpu`` runs the kernel's plain version.
+``hmm_fasta_viterbi_tpu``'s ``scan`` with the same flags and the same
+TSV/JSON reports: one stage's scores, or (``--stage search``) the MSV ->
+Viterbi -> Forward cascade with a row for every MSV survivor. ``--device``
+(default ``cuda``) names the torch device, and ``--device cpu`` runs the
+kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -22,10 +25,17 @@ import torch
 from hmm_fasta_viterbi_tpu.io.loader import load_fasta, load_profile
 from hmm_fasta_viterbi_tpu.models import stats
 from hmm_fasta_viterbi_tpu.models.msv import MSVProfile
+from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
 
-from .pipeline import MSVScanner
+from .pipeline import MSVScanner, SearchPipeline
 
 logger = logging.getLogger(__name__)
+
+_PVALUE_FNS = {
+    "msv": stats.msv_pvalue,
+    "viterbi": stats.viterbi_pvalue,
+    "forward": stats.forward_pvalue,
+}
 
 
 def _finite_or_none(x) -> float | None:
@@ -50,9 +60,9 @@ def _out_sink(args):
         yield sys.stdout
 
 
-def _report(profile, db, scores: np.ndarray, args, out) -> None:
+def _report(profile, db, scores: np.ndarray, args, out, stage: str = "msv") -> None:
     bits = stats.nats_to_bits(scores)
-    pvals = stats.msv_pvalue(scores, profile)
+    pvals = _PVALUE_FNS[stage](scores, profile)
     evals = stats.evalue(pvals, len(db))
     order = np.argsort(-scores)
     if args.top:
@@ -83,12 +93,50 @@ def _report(profile, db, scores: np.ndarray, args, out) -> None:
             )
 
 
+def _report_search(hmm, db, result, args, out) -> None:
+    """One row per MSV survivor, ordered by Forward score (rows Forward
+    never reached last), as the JAX CLI's search report without domains or
+    alignments."""
+    evals = stats.evalue(result.forward_pvalues, len(db))
+    order = np.flatnonzero(result.passed_msv)
+    order = order[np.argsort(-np.nan_to_num(result.forward_scores[order], nan=-np.inf))]
+    if args.top:
+        order = order[: args.top]
+    if args.max_evalue is not None:
+        # a NaN E-value (Forward never ran on the row) fails any cutoff
+        order = order[evals[order] <= args.max_evalue]
+    rows = [
+        {
+            "target": db.records[i].header or f"seq{i}",
+            "profile": hmm.name,
+            "msv_bits": round(float(stats.nats_to_bits(result.msv_scores[i])), 4),
+            "msv_p": _finite_or_none(result.msv_pvalues[i]),
+            "viterbi_p": _finite_or_none(result.viterbi_pvalues[i]),
+            "forward_p": _finite_or_none(result.forward_pvalues[i]),
+            "evalue": _finite_or_none(evals[i]),
+            "hit": bool(result.passed_forward[i]),
+        }
+        for i in order
+    ]
+    if args.format == "json":
+        json.dump(rows, out, indent=1)
+        out.write("\n")
+    else:
+        out.write("# target\tprofile\tmsv_bits\tmsv_p\tviterbi_p\tforward_p\tevalue\thit\n")
+        for r in rows:
+            out.write(
+                f"{r['target']}\t{r['profile']}\t{r['msv_bits']}\t{_fmt_e(r['msv_p'])}\t"
+                f"{_fmt_e(r['viterbi_p'])}\t{_fmt_e(r['forward_p'])}\t"
+                f"{_fmt_e(r['evalue'])}\t{int(r['hit'])}\n"
+            )
+
+
 def cmd_scan(args) -> int:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         logger.error(
             "--device %s: torch.cuda.is_available() is false (no CUDA card or "
-            "a CPU-only torch); pass --device cpu to run the plain version",
+            "a CPU-only torch); pass --device cpu to run the plain versions",
             args.device,
         )
         return 2
@@ -103,24 +151,44 @@ def cmd_scan(args) -> int:
     tokens, lengths = db.encode()
     scanner = MSVScanner(device=device)
     t0 = time.perf_counter()
-    profile = MSVProfile.from_profile(hmm)
     staged = scanner.stage(tokens, lengths)
     if device.type == "cuda":
         torch.cuda.synchronize(device)  # the upload belongs to the stage time
     t_staged = time.perf_counter()
-    scores = scanner.scan(profile, staged).cpu().numpy()
-    t_scanned = time.perf_counter()
-    dt = t_scanned - t0
-    cells = int(lengths.astype(np.int64).sum()) * profile.num_states
+    phases = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
+    if args.stage == "search":
+        pipeline = SearchPipeline(scanner)
+        result = pipeline.search(hmm, staged, tokens, lengths)
+        phases = pipeline.phase_seconds
+        t_scanned = time.perf_counter()
+        logger.info(
+            "search %s: %d seqs -> %d past MSV -> %d past Viterbi -> %d hits (%.3fs)",
+            hmm.name, len(db), int(result.passed_msv.sum()),
+            int(result.passed_viterbi.sum()), int(result.passed_forward.sum()),
+            t_scanned - t0,
+        )
+        with _out_sink(args) as sink:
+            _report_search(hmm, db, result, args, out=sink)
+    else:
+        if args.stage == "msv":
+            scores = scanner.scan(MSVProfile.from_profile(hmm), staged)
+        else:
+            scores = scanner.scan_p7(P7Profile.from_profile(hmm), staged, stage=args.stage)
+        scores = scores.cpu().numpy()
+        t_scanned = time.perf_counter()
+        phases[args.stage] = t_scanned - t_staged
+        dt = t_scanned - t0
+        cells = int(lengths.astype(np.int64).sum()) * (hmm.model_length - 1)
+        logger.info(
+            "scanned %d seqs x %s (%s) in %.3fs (%.2f GCUPS)",
+            len(db), hmm.name, args.stage, dt, cells / dt / 1e9,
+        )
+        with _out_sink(args) as sink:
+            _report(hmm, db, scores, args, out=sink, stage=args.stage)
     logger.info(
-        "scanned %d seqs x %s (%s) in %.3fs (%.2f GCUPS)",
-        len(db), hmm.name, args.stage, dt, cells / dt / 1e9,
-    )
-    with _out_sink(args) as sink:
-        _report(hmm, db, scores, args, out=sink)
-    logger.info(
-        "seconds: parse %.6f stage %.6f scan %.6f report %.6f total %.6f",
-        t0 - t_start, t_staged - t0, t_scanned - t_staged,
+        "seconds: parse %.6f stage %.6f msv %.6f viterbi %.6f forward %.6f "
+        "report %.6f total %.6f",
+        t0 - t_start, t_staged - t0, phases["msv"], phases["viterbi"], phases["forward"],
         time.perf_counter() - t_scanned, time.perf_counter() - t_start,
     )
     return 0
@@ -138,12 +206,12 @@ def build_parser() -> argparse.ArgumentParser:
     scan.add_argument("--hmm", required=True, help="HMMER3 .hmm profile")
     scan.add_argument("--fasta", required=True, help="protein FASTA database")
     scan.add_argument(
-        "--stage", default="msv", choices=["msv"],
-        help="scoring stage (the port has the MSV filter so far)",
+        "--stage", default="msv", choices=["msv", "viterbi", "forward", "search"],
+        help="scoring stage, or search: the MSV -> Viterbi -> Forward cascade",
     )
     scan.add_argument(
         "--device", default="cuda",
-        help="torch device: cuda (the kernel) or cpu (its plain version)",
+        help="torch device: cuda (the kernels) or cpu (their plain versions)",
     )
     scan.add_argument("--format", default="tsv", choices=["tsv", "json"])
     scan.add_argument("--top", type=int, default=0, help="report only the top K hits (0 = all)")

@@ -1,4 +1,4 @@
-"""Carry the JAX package's MSV parameters and DP state into the port.
+"""Carry the JAX package's parameters and DP state into the port.
 
 Every function takes numpy arrays (``np.asarray`` of the JAX arrays) in
 the JAX package's layouts and returns the port's device tensors, so that
@@ -6,10 +6,15 @@ both packages can score the same inputs:
 
 * a profile: an ``MSVProfile``, or the JAX scanner's device pack
   ``(scores_t [1, M_pad, 20], tr_consts [1, 3])``;
-* a staged database: ``tokens_i8_t [L_pad, B_pad]``, ``lengths [B_pad]``
-  and ``tr_rows [2, B_pad]`` of a JAX ``StagedDatabase``;
+* a staged database: ``tokens_i8_t [L_pad, B_pad]``, ``lengths [B_pad]``,
+  ``tr_rows [2, B_pad]`` and ``tr_probs [2, B_pad]`` of a JAX
+  ``StagedDatabase``;
 * the DP carry of ``msv_pallas_call``: ``m [M_pad, B_pad]`` and
-  ``s [4, B_pad]``.
+  ``s [4, B_pad]``;
+* a Viterbi/Forward pack: the outputs of ``pallas_p7.prepare_p7_device``,
+  ``prepare_p7_device_lazy`` or ``prepare_p7_device_prob`` (``[M_pad, …]``);
+* the DP carry of ``p7_pallas_call`` / ``fwd_prob_pallas_call``:
+  ``m, i, d [M_pad, B_pad]`` and ``s [4 | 8, B_pad]``.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 
 from hmm_fasta_viterbi_tpu.models.msv import MSVProfile
 
-from .ops import msv_cuda
+from .ops import msv_cuda, p7_cuda
 from .pipeline import M_BUCKET, StagedDatabase
 
 
@@ -46,18 +51,22 @@ def device_profile_from_jax(
 
 def staged_from_jax(
     tokens_i8_t: np.ndarray, lengths: np.ndarray, tr_rows: np.ndarray,
-    num_sequences: int, device,
+    num_sequences: int, device, tr_probs: np.ndarray | None = None,
 ) -> StagedDatabase:
-    """A port ``StagedDatabase`` from a JAX one's arrays, its tr_rows kept
-    as they are. Ragged tails are blanked again (a JAX ``stage_device``
-    caller may have broken that contract)."""
+    """A port ``StagedDatabase`` from a JAX one's arrays, its tr_rows (and
+    tr_probs, built from the lengths when not given) kept as they are.
+    Ragged tails are blanked again (a JAX ``stage_device`` caller may have
+    broken that contract)."""
     tokens_t = np.array(tokens_i8_t, dtype=np.int8)  # a copy: blanked in place
     lengths = np.asarray(lengths, dtype=np.int32)
     msv_cuda.blank_ragged_tail(tokens_t, lengths)
+    if tr_probs is None:
+        tr_probs = p7_cuda.length_transition_probs(lengths)
     return StagedDatabase(
         tokens=torch.from_numpy(np.ascontiguousarray(tokens_t.T)).to(device),
         lengths=torch.from_numpy(lengths.copy()).to(device),
         tr_rows=torch.from_numpy(np.asarray(tr_rows, dtype=np.float32).copy()).to(device),
+        tr_probs=torch.from_numpy(np.asarray(tr_probs, dtype=np.float32).copy()).to(device),
         num_sequences=num_sequences,
     )
 
@@ -76,3 +85,21 @@ def carry_from_jax(m: np.ndarray, s: np.ndarray, num_states: int, device):
         torch.from_numpy(out).to(device),
         torch.from_numpy(np.asarray(s, dtype=np.float32).copy()).to(device),
     )
+
+
+def p7_pack_from_jax(msc_t, isc_t, trans_t, chain_t, tr_consts, device, lazy_k: int = 0):
+    """The port's ``P7Pack`` from a JAX p7 pack (``prepare_p7_device*``
+    output, ``[M_pad, …]`` arrays); ``lazy_k`` is the lazy packer's window,
+    0 for the eager and Forward packs."""
+    return p7_cuda.device_pack(msc_t, isc_t, trans_t, chain_t, tr_consts, device, lazy_k)
+
+
+def p7_carry_from_jax(m, i, d, s, device):
+    """``(m, i, d [B_pad, M_pad], s)`` from a ``p7_pallas_call`` or
+    ``fwd_prob_pallas_call`` carry ``(m, i, d [M_pad, B_pad], s [4 | 8,
+    B_pad])``; the M_pad of both packages' p7 packs is the same."""
+
+    def rows(x):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=np.float32).T)).to(device)
+
+    return rows(m), rows(i), rows(d), torch.from_numpy(np.array(s, dtype=np.float32)).to(device)

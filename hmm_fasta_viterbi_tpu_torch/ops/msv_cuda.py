@@ -159,7 +159,7 @@ def msv_scan_plain(emit, tokens, lengths, tr_rows, tr_consts, m, s):
 
 @functools.cache
 def _kernel_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_build.build()[0]))
+    lib = _build.load_library()
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.msv_scan_launch.argtypes = [

@@ -1,0 +1,676 @@
+"""Full-profile Viterbi and Forward scans: the host packers, the plain
+PyTorch versions and the wrappers of the CUDA kernels.
+
+The counterparts of ``hmm_fasta_viterbi_tpu/ops/pallas_p7.py``:
+
+* ``_p7_kernel`` (Viterbi): :func:`viterbi_scan`, eager, the whole delete
+  chain every residue;
+* ``_p7_lazy_kernel``: :func:`viterbi_lazy_scan`, the truncated chain with
+  the per-row certificate and a full-chain replay of a chunk that fires;
+* ``_fwd_prob_kernel``: :func:`forward_prob_scan`, Forward in scaled
+  probability space.
+
+The host packers are numpy copies of the JAX ones (that module imports
+jax) and return the same arrays byte for byte, in the TPU's ``[M_pad, …]``
+layout with ``M_pad = round_up(max(Mr, 8), 8)``. :func:`device_pack`
+transposes them into the port's layout, one row per constant:
+
+* ``emit_m`` / ``emit_i`` f32 ``[20, M_pad]``: match and insert scores
+  (Viterbi, pad states PAD_SCORE) or odds ratios (Forward, pad states 0);
+* ``trans`` f32 ``[8, M_pad]``: tmm tmi tmd tim tii tdm tdd_s pad, as log
+  scores (Viterbi, pad -inf) or probabilities (Forward, pad 0);
+* ``chain`` f32 ``[16, M_pad]`` (Viterbi: the Hillis-Steele pass constants,
+  row 15 the lazy certificate's Cmax) or ``[W, M_pad]`` (Forward: the
+  window products of the ``W`` passes kept);
+* ``consts`` f32 ``[3]`` (tr_B_Mk, tr_E_C, tr_E_J; probabilities for
+  Forward) or ``[5]`` for the lazy kernel (… aux, tmd_max).
+
+Tokens are int8 ``[B_pad, L_pad]`` and ``lengths`` int32 ``[B_pad]``, as in
+``msv_cuda``. The DP carries go in and come out as ``p7_pallas_call`` /
+``fwd_prob_pallas_call`` return them, transposed: ``m``, ``i``, ``d`` f32
+``[B_pad, M_pad]`` and ``s`` f32 ``[4, B_pad]`` (J, C, N, B) or, for
+Forward, ``[8, B_pad]`` (J, C, N, B, log_scale, Kahan compensation, 0, 0).
+The lazy kernel's ``d`` slot carries ``pre_diag = max(M + tmm, I + tim,
+D + tdm)``, as in the JAX kernel. Steps at or past a sequence's length
+leave every carry unchanged, so a second call with the residues from a
+split on and the lengths less the split (clipped at 0) continues the
+first; for Forward the split must be a multiple of
+:data:`FWD_RESCALE_GROUP` to give the one call's scores bit for bit.
+
+Each scan runs its plain version on CPU tensors and its kernel on CUDA
+tensors; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
+
+from . import _build
+from .msv_cuda import NEG_INF, NUM_AA, PAD_SCORE, _check, round_up
+
+# residues per lazy-certificate chunk: a fire replays this many steps of
+# one sequence with the full chain (the JAX kernel replays an L-chunk of
+# 128 residues of a whole lane block)
+LAZY_CHUNK = 128
+# Forward renormalises after every this many residues of a call; one
+# group of steps grows the scaled values by at most the largest odds
+# ratio to the power 8, far inside float32's range
+FWD_RESCALE_GROUP = 8
+# threads that follow one sequence in the kernels; state j lives in
+# thread j % 128, register slot j // 128
+KERNEL_THREADS = 128
+# states per thread: one template case each in csrc/p7_*_kernel.cu
+KERNEL_PER = tuple(range(1, 20))
+MAX_KERNEL_STATES = KERNEL_THREADS * KERNEL_PER[-1]  # 2432 >= 2405
+
+# auto-picked lazy window and truncated prob-space chain: the constants of
+# pallas_p7 (LAZY_TAIL_DAMP_NATS, PROB_CHAIN_L_MAX, PROB_CHAIN_REL_ERR)
+LAZY_TAIL_DAMP_NATS = 12.0
+PROB_CHAIN_L_MAX = 1.0e6
+PROB_CHAIN_REL_ERR = 1e-9
+
+
+# -- host packers (numpy copies of pallas_p7's, byte for byte) -------------
+
+def chain_passes(m_pad: int) -> int:
+    """Hillis-Steele passes of the full delete chain over ``m_pad`` states."""
+    return max(1, int(np.ceil(np.log2(max(m_pad, 2)))))
+
+
+def default_m_pad(p7: P7Profile) -> int:
+    return round_up(max(p7.num_states, 8), 8)
+
+
+def prepare_p7_device(p7: P7Profile, m_pad: int | None = None):
+    """``(msc_t, isc_t, trans_t, chain_t, tr_consts)`` of
+    ``pallas_p7.prepare_p7_device``: emissions clamped and padded with
+    PAD_SCORE, transitions -inf padded, ``chain_t[:, k]`` the pass-k tdd
+    window sums with rows j < 2^k at -inf."""
+    mr = p7.num_states
+    m_pad = m_pad or default_m_pad(p7)
+    msc_t = np.full((m_pad, 20), PAD_SCORE, dtype=np.float32)
+    msc_t[:mr] = np.maximum(p7.msc.T, PAD_SCORE)
+    isc_t = np.full((m_pad, 20), PAD_SCORE, dtype=np.float32)
+    isc_t[:mr] = np.maximum(p7.isc.T, PAD_SCORE)
+    trans_t = np.full((m_pad, 8), NEG_INF, dtype=np.float32)
+    tdd_s = np.concatenate(([np.float32(NEG_INF)], p7.tdd[:-1]))
+    for col, vec in enumerate(
+        (p7.tmm, p7.tmi, p7.tmd, p7.tim, p7.tii, p7.tdm, tdd_s)
+    ):
+        trans_t[:mr, col] = vec
+
+    chain_t = np.full((m_pad, 16), NEG_INF, dtype=np.float32)
+    n_passes = chain_passes(m_pad)
+    if n_passes > 16:
+        raise ValueError(f"chain_t supports m_pad <= 65536, got {m_pad}")
+    rows = np.arange(m_pad)
+    c_cur = np.full(m_pad, NEG_INF, dtype=np.float32)
+    c_cur[:mr] = tdd_s
+    for k in range(n_passes):
+        s = 1 << k
+        chain_t[:, k] = np.where(rows < s, np.float32(NEG_INF), c_cur)
+        rolled = np.roll(c_cur, s)
+        with np.errstate(invalid="ignore"):
+            c_cur = (c_cur + np.where(rows < s, np.float32(0.0), rolled)).astype(
+                np.float32
+            )
+
+    tr_consts = np.array([[p7.tr_B_Mk, p7.tr_E_C, p7.tr_E_J]], dtype=np.float32)
+    return msc_t, isc_t, trans_t, chain_t, tr_consts
+
+
+def pick_lazy_window(chain_t: np.ndarray, trans_t: np.ndarray, n_passes: int) -> int:
+    """Smallest window K whose certificate constant ``max_j (Cmax_j(K) +
+    tdm_j)`` is at least LAZY_TAIL_DAMP_NATS below 0; the full chain when
+    none is (``pallas_p7.pick_lazy_window``)."""
+    tdm = trans_t[:, 5]
+    for k in range(1, n_passes):
+        cmax = chain_t[:, k:n_passes].max(axis=1)
+        if float((cmax + tdm).max()) <= -LAZY_TAIL_DAMP_NATS:
+            return k
+    return n_passes
+
+
+def prepare_p7_device_lazy(
+    p7: P7Profile, m_pad: int | None = None, lazy_k: int | None = None
+):
+    """``(msc_t, isc_t, trans_t, chain_t, consts5, lazy_k)`` of
+    ``pallas_p7.prepare_p7_device_lazy``: column 15 of ``chain_t`` holds the
+    per-row max of the dropped passes' constants (Cmax), ``consts5`` is
+    ``[tr_B_Mk, tr_E_C, tr_E_J, aux, tmd_max]``."""
+    m_pad = m_pad or default_m_pad(p7)
+    msc_t, isc_t, trans_t, chain_t, _ = prepare_p7_device(p7, m_pad)
+    n_passes = chain_passes(m_pad)
+    if n_passes > 15:
+        lazy_k = n_passes  # column 15 is chain data: no truncated window
+    elif lazy_k is None:
+        lazy_k = pick_lazy_window(chain_t, trans_t, n_passes)
+    lazy_k = min(max(lazy_k, 1), n_passes)
+
+    chain_t = np.array(chain_t, copy=True)
+    if lazy_k < n_passes:
+        chain_t[:, 15] = chain_t[:, lazy_k:n_passes].max(axis=1)
+    elif n_passes <= 15:
+        chain_t[:, 15] = NEG_INF
+    dropped = chain_t[:, lazy_k:n_passes]
+    finite = dropped[np.isfinite(dropped)]
+    finite = finite[finite > NEG_INF / 2]
+    aux = np.float32(finite.max()) if finite.size else np.float32(NEG_INF)
+    tmd_fin = p7.tmd[np.isfinite(p7.tmd)]
+    tmd_max = np.float32(tmd_fin.max()) if tmd_fin.size else np.float32(NEG_INF)
+    consts5 = np.array(
+        [[p7.tr_B_Mk, p7.tr_E_C, p7.tr_E_J, aux, tmd_max]], dtype=np.float32
+    )
+    return msc_t, isc_t, trans_t, chain_t, consts5, lazy_k
+
+
+def e_skip_d_ok(p7: P7Profile) -> bool:
+    """True when every finite tmd and tdd is <= 0: then no D state can win
+    the E max, which the lazy kernel's certificate needs
+    (``pallas_p7.e_skip_d_ok``)."""
+    return bool(
+        np.all(p7.tmd[np.isfinite(p7.tmd)] <= 0.0)
+        and np.all(p7.tdd[np.isfinite(p7.tdd)] <= 0.0)
+    )
+
+
+def pick_prob_chain_window(p7: P7Profile, m_pad: int | None = None) -> int:
+    """Smallest window K whose dropped delete-chain mass is below a relative
+    PROB_CHAIN_REL_ERR over PROB_CHAIN_L_MAX residues
+    (``pallas_p7.pick_prob_chain_window``)."""
+    mr = p7.num_states
+    m_pad = m_pad or default_m_pad(p7)
+    n_passes = chain_passes(m_pad)
+    tdd_s = np.concatenate(([np.float64(-np.inf)], p7.tdd[:-1].astype(np.float64)))
+    rows = np.arange(m_pad)
+    c_cur = np.full(m_pad, -np.inf)
+    c_cur[:mr] = tdd_s
+    chain_log = np.full((m_pad, n_passes), -np.inf)
+    for k in range(n_passes):
+        s = 1 << k
+        chain_log[:, k] = np.where(rows < s, -np.inf, c_cur)
+        with np.errstate(invalid="ignore"):
+            c_cur = c_cur + np.where(rows < s, 0.0, np.roll(c_cur, s))
+    fin = tdd_s[np.isfinite(tdd_s)]
+    if fin.size == 0:
+        return 1
+    tdd_max_p = float(np.exp(fin.max()))
+    if tdd_max_p >= 1.0:
+        return n_passes
+    need = np.log(PROB_CHAIN_L_MAX / PROB_CHAIN_REL_ERR) - np.log1p(-tdd_max_p)
+    for k in range(1, n_passes):
+        if -chain_log[:, k:n_passes].max() >= need:
+            return k
+    return n_passes
+
+
+def prepare_p7_device_prob(p7: P7Profile, m_pad: int | None = None):
+    """``(modds_t, iodds_t, trans_probs_t, chain_prod_t, tr_consts_prob)`` of
+    ``pallas_p7.prepare_p7_device_prob``: odds ratios and probabilities, 0
+    padded; the chain array has ``pick_prob_chain_window`` columns."""
+    mr = p7.num_states
+    m_pad = m_pad or default_m_pad(p7)
+    with np.errstate(over="ignore"):
+        modds = np.exp(p7.msc.T.astype(np.float64)).astype(np.float32)
+        iodds = np.exp(p7.isc.T.astype(np.float64)).astype(np.float32)
+        tprob = [
+            np.exp(v.astype(np.float64)).astype(np.float32)
+            for v in (p7.tmm, p7.tmi, p7.tmd, p7.tim, p7.tii, p7.tdm)
+        ]
+        tdd_p = np.exp(p7.tdd.astype(np.float64)).astype(np.float32)
+
+    modds_t = np.zeros((m_pad, 20), dtype=np.float32)
+    modds_t[:mr] = modds
+    iodds_t = np.zeros((m_pad, 20), dtype=np.float32)
+    iodds_t[:mr] = iodds
+    trans_t = np.zeros((m_pad, 8), dtype=np.float32)
+    for col, vec in enumerate(tprob):
+        trans_t[:mr, col] = vec
+
+    window = pick_prob_chain_window(p7, m_pad)
+    chain_t = np.zeros((m_pad, window), dtype=np.float32)
+    rows = np.arange(m_pad)
+    c_cur = np.zeros(m_pad, dtype=np.float32)
+    c_cur[1:mr] = tdd_p[: mr - 1]
+    for k in range(window):
+        s = 1 << k
+        chain_t[:, k] = np.where(rows < s, np.float32(0.0), c_cur)
+        c_cur = (c_cur * np.where(rows < s, np.float32(1.0), np.roll(c_cur, s))).astype(
+            np.float32
+        )
+
+    tr_consts = np.exp(
+        np.array([[p7.tr_B_Mk, p7.tr_E_C, p7.tr_E_J]], dtype=np.float64)
+    ).astype(np.float32)
+    return modds_t, iodds_t, trans_t, chain_t, tr_consts
+
+
+def length_transition_probs(lengths: np.ndarray) -> np.ndarray:
+    """``[2, B]`` p_loop = L/(L+3), p_move = 3/(L+3), each the correctly
+    rounded float32 of the f64 quotient (no log/exp round trip)."""
+    lengths = np.asarray(lengths, dtype=np.float64)
+    p_loop = lengths / (lengths + 3.0)
+    p_move = 3.0 / (lengths + 3.0)
+    return np.stack([p_loop, p_move]).astype(np.float32)
+
+
+# -- the port's packs and carries ------------------------------------------
+
+class P7Pack(NamedTuple):
+    """One profile's constants on a device, in the port's layout."""
+
+    emit_m: torch.Tensor  # [20, M_pad]
+    emit_i: torch.Tensor  # [20, M_pad]
+    trans: torch.Tensor  # [8, M_pad]
+    chain: torch.Tensor  # [16 | W, M_pad]
+    consts: torch.Tensor  # [3] | [5]
+    lazy_k: int  # the lazy kernel's window; 0 for the eager and Forward packs
+
+    @property
+    def m_pad(self) -> int:
+        return self.emit_m.shape[1]
+
+
+def device_pack(msc_t, isc_t, trans_t, chain_t, consts, device, lazy_k: int = 0) -> P7Pack:
+    """The port's pack from a host packer's ``[M_pad, …]`` arrays."""
+
+    def rows(x):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=np.float32).T)).to(device)
+
+    return P7Pack(
+        rows(msc_t), rows(isc_t), rows(trans_t), rows(chain_t),
+        torch.from_numpy(np.asarray(consts, dtype=np.float32).reshape(-1).copy()).to(device),
+        int(lazy_k),
+    )
+
+
+def viterbi_pack(p7: P7Profile, device, lazy: bool, lazy_k: int | None = None) -> P7Pack:
+    """The lazy kernel's pack (window ``lazy_k``, auto-picked when None) or
+    the eager kernel's."""
+    if lazy:
+        *arrays, k = prepare_p7_device_lazy(p7, lazy_k=lazy_k)
+        return device_pack(*arrays, device=device, lazy_k=k)
+    return device_pack(*prepare_p7_device(p7), device=device)
+
+
+def forward_pack(p7: P7Profile, device) -> P7Pack:
+    return device_pack(*prepare_p7_device_prob(p7), device=device)
+
+
+def viterbi_init_carry(tr_rows: torch.Tensor, m_pad: int):
+    """Row-0 carry: M = I = D = J = C = -inf, N = 0, B = tr_move."""
+    b_pad = tr_rows.shape[1]
+    core = torch.full((b_pad, m_pad), NEG_INF, dtype=torch.float32, device=tr_rows.device)
+    s = torch.stack([
+        torch.full_like(tr_rows[1], NEG_INF),
+        torch.full_like(tr_rows[1], NEG_INF),
+        torch.zeros_like(tr_rows[1]),
+        tr_rows[1],
+    ])
+    return core, core.clone(), core.clone(), s
+
+
+def forward_init_carry(tr_probs: torch.Tensor, m_pad: int):
+    """Row-0 carry in probability space: M = I = D = J = C = 0, N = 1,
+    B = p_move, log scale and its compensation 0."""
+    b_pad = tr_probs.shape[1]
+    core = torch.zeros((b_pad, m_pad), dtype=torch.float32, device=tr_probs.device)
+    s = torch.zeros((8, b_pad), dtype=torch.float32, device=tr_probs.device)
+    s[2] = 1.0
+    s[3] = tr_probs[1]
+    return core, core.clone(), core.clone(), s
+
+
+# -- the plain versions ----------------------------------------------------
+
+def _shift(x: torch.Tensor, s: int, fill: float) -> torch.Tensor:
+    """``out[:, j] = x[:, j - s]``, ``fill`` where j < s."""
+    b, m = x.shape
+    if s >= m:
+        return torch.full_like(x, fill)
+    return torch.cat([torch.full((b, s), fill, dtype=x.dtype, device=x.device), x[:, :-s]], dim=1)
+
+
+def _max_chain(a: torch.Tensor, chain: torch.Tensor, passes: int) -> torch.Tensor:
+    """Hillis-Steele max-plus delete chain, ``passes`` passes in the order
+    of ``_p7_kernel``: rows j < 2^k hold -inf constants, so a shifted-in
+    -inf leaves them as they are, as the TPU's wrapped roll does."""
+    for k in range(passes):
+        a = torch.maximum(a, _shift(a, 1 << k, NEG_INF) + chain[k])
+    return a
+
+
+def _emissions(emit: torch.Tensor, tokens: torch.Tensor, t: int) -> torch.Tensor:
+    # clamp: PAD_TOKEN must not index a row (its steps are frozen)
+    return emit[tokens[:, t].long().clamp(0, NUM_AA - 1)]
+
+
+def _specials(e, st_j, st_c, st_n, tr_loop, tr_move, tr_e_c, tr_e_j):
+    new_j = torch.maximum(st_j + tr_loop, e + tr_e_j)
+    new_c = torch.maximum(st_c + tr_loop, e + tr_e_c)
+    new_n = st_n + tr_loop
+    new_b = torch.maximum(new_n + tr_move, new_j + tr_move)
+    return new_j, new_c, new_n, new_b
+
+
+def _freeze(valid, new, old):
+    return tuple(
+        torch.where(valid[:, None] if n.dim() == 2 else valid, n, o)
+        for n, o in zip(new, old)
+    )
+
+
+def _num_steps(tokens: torch.Tensor, lengths: torch.Tensor) -> int:
+    return min(tokens.shape[1], int(lengths.max())) if tokens.shape[0] else 0
+
+
+def viterbi_scan_plain(msc, isc, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):
+    """The eager Viterbi scan in plain PyTorch; same arguments and results
+    as :func:`viterbi_scan`. Every float32 operation is a max or one add
+    with the operands of ``_p7_kernel``'s Viterbi mode, so the scores equal
+    the JAX kernel's bit for bit. E takes the max over M and D; when
+    ``e_skip_d_ok`` holds that is max(M) exactly, as ``e_skip_d`` assumes."""
+    m_pad = msc.shape[1]
+    n_passes = chain_passes(m_pad)
+    tmm, tmi, tmd, tim, tii, tdm = trans[:6]
+    tr_loop, tr_move = tr_rows[0], tr_rows[1]
+    tr_b_mk, tr_e_c, tr_e_j = consts[0], consts[1], consts[2]
+    st = tuple(s)
+    lengths = lengths.long()
+    for t in range(_num_steps(tokens, lengths)):
+        st_j, st_c, st_n, st_b = st
+        diag = _shift(torch.maximum(torch.maximum(m + tmm, i + tim), d + tdm), 1, NEG_INF)
+        new_m = _emissions(msc, tokens, t) + torch.maximum(diag, (st_b + tr_b_mk)[:, None])
+        new_i = _emissions(isc, tokens, t) + torch.maximum(m + tmi, i + tii)
+        new_d = _max_chain(_shift(new_m + tmd, 1, NEG_INF), chain, n_passes)
+        e = torch.maximum(new_m, new_d).amax(dim=1)
+        new_s = _specials(e, st_j, st_c, st_n, tr_loop, tr_move, tr_e_c, tr_e_j)
+        m, i, d, *st = _freeze(t < lengths, (new_m, new_i, new_d, *new_s), (m, i, d, *st))
+    return st[1] + tr_move, m.clone(), i.clone(), d.clone(), torch.stack(list(st))
+
+
+def _lazy_chunk(msc, isc, trans, chain, tokens, lengths, tr_rows, consts, carry,
+                t0, t1, passes, certify):
+    """Steps ``t0..t1-1`` of the lazy schedule from ``carry`` = (m, i, pd,
+    J, C, N, B); with ``certify``, also each sequence's certificate fire
+    over its valid steps."""
+    tmm, tmi, tmd, tim, tii, tdm = trans[:6]
+    tr_loop, tr_move = tr_rows[0], tr_rows[1]
+    tr_b_mk, tr_e_c, tr_e_j, tmd_max = consts[0], consts[1], consts[2], consts[4]
+    cmax = chain[15]
+    m, i, pd, *st = carry
+    fired = torch.zeros(tokens.shape[0], dtype=torch.bool, device=tokens.device)
+    for t in range(t0, t1):
+        st_j, st_c, st_n, st_b = st
+        new_m = _emissions(msc, tokens, t) + torch.maximum(
+            _shift(pd, 1, NEG_INF), (st_b + tr_b_mk)[:, None]
+        )
+        new_i = _emissions(isc, tokens, t) + torch.maximum(m + tmi, i + tii)
+        a = _max_chain(_shift(new_m + tmd, 1, NEG_INF), chain, passes)
+        e = new_m.amax(dim=1)  # exact under e_skip_d_ok
+        new_pd = torch.maximum(torch.maximum(new_m + tmm, new_i + tim), a + tdm)
+        valid = t < lengths
+        if certify:
+            # the bound's own rounding path: ((e + tmd_max) + Cmax) + tdm
+            t_row = ((e + tmd_max)[:, None] + cmax) + tdm
+            fired |= (t_row > new_pd).any(dim=1) & valid
+        new_s = _specials(e, st_j, st_c, st_n, tr_loop, tr_move, tr_e_c, tr_e_j)
+        m, i, pd, *st = _freeze(valid, (new_m, new_i, new_pd, *new_s), (m, i, pd, *st))
+    return (m, i, pd, *st), fired
+
+
+def viterbi_lazy_scan_plain(msc, isc, trans, chain, tokens, lengths, tr_rows, consts,
+                            m, i, d, s, lazy_k):
+    """The lazy Viterbi scan in plain PyTorch; same arguments and results
+    as :func:`viterbi_lazy_scan`. Each LAZY_CHUNK of residues runs
+    ``lazy_k`` chain passes and checks, per row and step, ``t_row > new_pd``
+    with ``t_row = ((E + tmd_max) + Cmax) + tdm``; a sequence whose
+    certificate fired anywhere in the chunk replays the chunk from its entry
+    state with the full chain. Equals :func:`viterbi_scan_plain` bit for
+    bit (the ``d`` slot then holds its ``pre_diag``)."""
+    n_passes = chain_passes(msc.shape[1])
+    k_run = min(max(int(lazy_k), 1), n_passes)
+    args = (msc, isc, trans, chain, tokens, lengths.long(), tr_rows, consts)
+    carry = (m, i, d, *s)
+    replays = torch.zeros(tokens.shape[0], dtype=torch.int32, device=tokens.device)
+    steps = _num_steps(tokens, lengths)
+    for t0 in range(0, steps, LAZY_CHUNK):
+        t1 = min(t0 + LAZY_CHUNK, steps)
+        if k_run >= n_passes:
+            carry, _ = _lazy_chunk(*args, carry, t0, t1, n_passes, False)
+            continue
+        lazy, fired = _lazy_chunk(*args, carry, t0, t1, k_run, True)
+        if bool(fired.any()):
+            full, _ = _lazy_chunk(*args, carry, t0, t1, n_passes, False)
+            lazy = _freeze(fired, full, lazy)
+            replays += fired.int()
+        carry = lazy
+    m, i, d, *st = carry
+    return st[1] + tr_rows[1], m.clone(), i.clone(), d.clone(), torch.stack(list(st)), replays
+
+
+def forward_prob_scan_plain(modds, iodds, trans, chain, tokens, lengths, tr_rows,
+                            tr_probs, consts, m, i, d, s):
+    """The probability-space Forward scan in plain PyTorch; same arguments
+    and results as :func:`forward_prob_scan`. It follows
+    ``_fwd_prob_kernel``: odds ratios and transition probabilities, the
+    ``W``-pass window of ``chain`` products, the host-exact p_loop/p_move of
+    ``tr_probs``, and after every FWD_RESCALE_GROUP residues of a sequence a
+    rescale by ``max(max(M), C, N, 1e-30)`` with the Kahan-compensated log
+    scale. The score is ``log C + log_scale + tr_move``."""
+    tmm, tmi, tmd, tim, tii, tdm = trans[:6]
+    p_loop, p_move = tr_probs[0], tr_probs[1]
+    p_b_mk, p_e_c, p_e_j = consts[0], consts[1], consts[2]
+    st = tuple(s[:6])
+    lengths = lengths.long()
+    for t in range(_num_steps(tokens, lengths)):
+        st_j, st_c, st_n, st_b, log_scale, comp = st
+        diag = _shift(m * tmm + i * tim + d * tdm, 1, 0.0)
+        new_m = _emissions(modds, tokens, t) * (diag + (st_b * p_b_mk)[:, None])
+        new_i = _emissions(iodds, tokens, t) * (m * tmi + i * tii)
+        a = _shift(new_m * tmd, 1, 0.0)
+        for k in range(chain.shape[0]):
+            a = a + _shift(a, 1 << k, 0.0) * chain[k]
+        e = (new_m + a).sum(dim=1)
+        new_j = st_j * p_loop + e * p_e_j
+        new_c = st_c * p_loop + e * p_e_c
+        new_n = st_n * p_loop
+        new_b = new_n * p_move + new_j * p_move
+        valid = t < lengths
+        m, i, d, st_j, st_c, st_n, st_b = _freeze(
+            valid, (new_m, new_i, a, new_j, new_c, new_n, new_b),
+            (m, i, d, st_j, st_c, st_n, st_b),
+        )
+        if (t + 1) % FWD_RESCALE_GROUP == 0:
+            scale = torch.maximum(
+                torch.maximum(m.amax(dim=1), st_c), torch.clamp(st_n, min=1e-30)
+            )
+            inv = 1.0 / scale
+            y = torch.log(scale) - comp
+            t_sum = log_scale + y
+            new = (m * inv[:, None], i * inv[:, None], d * inv[:, None], st_j * inv,
+                   st_c * inv, st_n * inv, st_b * inv, t_sum, (t_sum - log_scale) - y)
+            m, i, d, st_j, st_c, st_n, st_b, log_scale, comp = _freeze(
+                valid, new, (m, i, d, st_j, st_c, st_n, st_b, log_scale, comp)
+            )
+        st = (st_j, st_c, st_n, st_b, log_scale, comp)
+    score = torch.log(st[1]) + st[4] + tr_rows[1]
+    return score, m.clone(), i.clone(), d.clone(), torch.cat([torch.stack(list(st)), s[6:]])
+
+
+# -- the kernels -----------------------------------------------------------
+
+@functools.cache
+def _kernel_library() -> ctypes.CDLL:
+    lib = _build.load_library()
+    p = ctypes.c_void_p
+    c = ctypes.c_int
+    lib.p7_viterbi_launch.argtypes = [
+        c, c, c, p, p, p, p, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
+    ]
+    lib.p7_viterbi_launch.restype = c
+    lib.p7_forward_launch.argtypes = [
+        c, c, p, p, p, p, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
+    ]
+    lib.p7_forward_launch.restype = c
+    lib.msv_error_string.argtypes = [c]
+    lib.msv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def kernel_per(m_pad: int) -> int:
+    """States per thread for ``m_pad`` states over KERNEL_THREADS threads."""
+    per = -(-m_pad // KERNEL_THREADS)
+    if per > KERNEL_PER[-1]:
+        raise ValueError(
+            f"M_pad = {m_pad} exceeds the p7 kernels' limit of {MAX_KERNEL_STATES} "
+            f"states ({KERNEL_THREADS} threads x {KERNEL_PER[-1]})"
+        )
+    return max(per, 1)
+
+
+def _check_scan(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
+                n_consts, m, i, d, s, n_specials):
+    device = tokens.device
+    if device.type != "cuda":
+        raise ValueError(f"the p7 kernels need CUDA tensors, got {device}")
+    b_pad, l_pad = tokens.shape
+    m_pad = emit_m.shape[1]
+    per = kernel_per(m_pad)
+    _check("emit_m", emit_m, torch.float32, (NUM_AA, m_pad), device)
+    _check("emit_i", emit_i, torch.float32, (NUM_AA, m_pad), device)
+    _check("trans", trans, torch.float32, (8, m_pad), device)
+    _check("chain", chain, torch.float32, (chain.shape[0], m_pad), device)
+    _check("tokens", tokens, torch.int8, (b_pad, l_pad), device)
+    _check("lengths", lengths, torch.int32, (b_pad,), device)
+    _check("tr_rows", tr_rows, torch.float32, (2, b_pad), device)
+    _check("consts", consts, torch.float32, (n_consts,), device)
+    for name, t in (("m", m), ("i", i), ("d", d)):
+        _check(name, t, torch.float32, (b_pad, m_pad), device)
+    _check("s", s, torch.float32, (n_specials, b_pad), device)
+    return device, b_pad, l_pad, m_pad, per
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _kernel_library().msv_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
+
+
+def _viterbi_cuda(lazy, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
+                  m, i, d, s, lazy_k):
+    device, b_pad, l_pad, m_pad, per = _check_scan(
+        emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
+        5 if lazy else 3, m, i, d, s, 4,
+    )
+    if chain.shape[0] != 16:
+        raise ValueError(f"chain has {chain.shape[0]} rows, expected 16")
+    n_passes = chain_passes(m_pad)
+    k_run = min(max(int(lazy_k), 1), n_passes) if lazy else n_passes
+    scores = torch.empty(b_pad, dtype=torch.float32, device=device)
+    out = (torch.empty_like(m), torch.empty_like(i), torch.empty_like(d), torch.empty_like(s))
+    replays = torch.zeros(b_pad, dtype=torch.int32, device=device) if lazy else None
+    if b_pad:
+        rc = _kernel_library().p7_viterbi_launch(
+            device.index, per, int(lazy),
+            emit_m.data_ptr(), emit_i.data_ptr(), trans.data_ptr(), chain.data_ptr(),
+            m_pad, n_passes, k_run, tokens.data_ptr(), l_pad, lengths.data_ptr(),
+            tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(), i.data_ptr(),
+            d.data_ptr(), s.data_ptr(), scores.data_ptr(), *(o.data_ptr() for o in out),
+            replays.data_ptr() if lazy else None, b_pad,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+        _raise_on(rc, "lazy Viterbi" if lazy else "Viterbi")
+        (viterbi_lazy_scan_cuda if lazy else viterbi_scan_cuda).launches += 1
+    return (scores, *out, replays) if lazy else (scores, *out)
+
+
+def viterbi_scan_cuda(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):
+    """Launch the eager kernel of ``csrc/p7_viterbi_kernel.cu``; same
+    arguments and results as :func:`viterbi_scan`. Raises on what the kernel
+    does not take and on a refused launch; never falls back."""
+    return _viterbi_cuda(False, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows,
+                         consts, m, i, d, s, 0)
+
+
+def viterbi_lazy_scan_cuda(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
+                           m, i, d, s, lazy_k):
+    """Launch the lazy kernel of ``csrc/p7_viterbi_kernel.cu``; same
+    arguments and results as :func:`viterbi_lazy_scan`."""
+    return _viterbi_cuda(True, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows,
+                         consts, m, i, d, s, lazy_k)
+
+
+def forward_prob_scan_cuda(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs,
+                           consts, m, i, d, s):
+    """Launch ``csrc/p7_forward_kernel.cu``; same arguments and results as
+    :func:`forward_prob_scan`."""
+    device, b_pad, l_pad, m_pad, per = _check_scan(
+        modds, iodds, trans, chain, tokens, lengths, tr_rows, consts, 3, m, i, d, s, 8,
+    )
+    _check("tr_probs", tr_probs, torch.float32, (2, b_pad), device)
+    window = chain.shape[0]
+    if not 1 <= window <= chain_passes(m_pad):
+        raise ValueError(f"chain window {window} outside 1..{chain_passes(m_pad)}")
+    scores = torch.empty(b_pad, dtype=torch.float32, device=device)
+    out = (torch.empty_like(m), torch.empty_like(i), torch.empty_like(d), torch.empty_like(s))
+    if b_pad:
+        rc = _kernel_library().p7_forward_launch(
+            device.index, per, modds.data_ptr(), iodds.data_ptr(), trans.data_ptr(),
+            chain.data_ptr(), m_pad, window, FWD_RESCALE_GROUP, tokens.data_ptr(), l_pad,
+            lengths.data_ptr(), tr_rows.data_ptr(), tr_probs.data_ptr(), consts.data_ptr(),
+            m.data_ptr(), i.data_ptr(), d.data_ptr(), s.data_ptr(), scores.data_ptr(),
+            *(o.data_ptr() for o in out), b_pad,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+        _raise_on(rc, "Forward")
+        forward_prob_scan_cuda.launches += 1
+    return (scores, *out)
+
+
+viterbi_scan_cuda.launches = 0  # kernel launches in this process
+viterbi_lazy_scan_cuda.launches = 0
+forward_prob_scan_cuda.launches = 0
+
+
+def viterbi_scan(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):
+    """Eager Viterbi over a staged batch, threading the DP carry.
+
+    Returns ``(scores [B_pad], m, i, d [B_pad, M_pad], s [4, B_pad])``. CPU
+    tensors run :func:`viterbi_scan_plain`; any other device runs the kernel
+    (:func:`viterbi_scan_cuda`) or raises."""
+    fn = viterbi_scan_plain if tokens.device.type == "cpu" else viterbi_scan_cuda
+    return fn(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s)
+
+
+def viterbi_lazy_scan(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
+                      m, i, d, s, lazy_k):
+    """Lazy exact Viterbi (``consts`` [5], ``chain`` row 15 = Cmax from
+    :func:`prepare_p7_device_lazy`); valid only when ``e_skip_d_ok``.
+
+    Returns ``(scores, m, i, pre_diag, s, replays)``: ``replays`` int32
+    ``[B_pad]`` counts each sequence's chunks replayed with the full chain.
+    CPU tensors run :func:`viterbi_lazy_scan_plain`; any other device the
+    kernel (:func:`viterbi_lazy_scan_cuda`) or raises."""
+    fn = viterbi_lazy_scan_plain if tokens.device.type == "cpu" else viterbi_lazy_scan_cuda
+    return fn(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s,
+              lazy_k)
+
+
+def forward_prob_scan(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs,
+                      consts, m, i, d, s):
+    """Probability-space Forward over a staged batch, threading the carry.
+
+    Returns ``(scores [B_pad] in nats, m, i, d [B_pad, M_pad], s [8,
+    B_pad])``. CPU tensors run :func:`forward_prob_scan_plain`; any other
+    device the kernel (:func:`forward_prob_scan_cuda`) or raises."""
+    fn = forward_prob_scan_plain if tokens.device.type == "cpu" else forward_prob_scan_cuda
+    return fn(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs, consts,
+              m, i, d, s)

@@ -1,9 +1,12 @@
-"""MSV scan pipeline of the PyTorch port: stage a sequence database on a
-device once, then scan profiles against it.
+"""Scan pipeline of the PyTorch port: stage a sequence database on a device
+once, then scan profiles against it, one stage or the whole cascade.
 
-The counterpart of the MSV path of ``hmm_fasta_viterbi_tpu/pipeline.py``
-(``StagedDatabase``, ``MSVScanner.stage / stage_fasta / stage_device /
-scan``). Differences that follow from the device:
+The counterpart of ``hmm_fasta_viterbi_tpu/pipeline.py``: ``StagedDatabase``,
+``MSVScanner.stage / stage_fasta / stage_device / scan / scan_p7``, the
+host-staged single-stage entry (``select_p7_fns``, ``viterbi_scores``,
+``forward_scores``) and the hmmsearch-style ``SearchPipeline`` (MSV ->
+Viterbi -> Forward, each stage rescoring the survivors of the one before).
+Differences that follow from the device:
 
 * the device is named by the caller (``"cuda"``, ``"cuda:1"``, ``"cpu"``);
   nothing picks the CPU when CUDA is missing, and a CUDA scanner without
@@ -11,21 +14,28 @@ scan``). Differences that follow from the device:
 * tokens stay int8 ``[B, L_pad]``, one sequence's residues contiguous for
   the kernel's warp; the TPU's ``[L_pad, B_pad]`` lane layout and its
   device transpose are not needed, and B is not padded;
-* ``m_bucket`` pads the M row to a multiple of it (default ``M_BUCKET``).
+* ``m_bucket`` pads the MSV M row to a multiple of it (default
+  ``M_BUCKET``); the Viterbi/Forward packs keep the JAX packers' M_pad;
+* the TPU's compile fallback from the lazy Viterbi kernel to the eager one
+  is not carried over: a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
+import time
 
 import numpy as np
 import torch
 
 from hmm_fasta_viterbi_tpu.io.fastaio import FastaDatabase
+from hmm_fasta_viterbi_tpu.models import stats
 from hmm_fasta_viterbi_tpu.models.msv import MSVProfile, length_transitions
+from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
 
-from .ops import msv_cuda
+from .ops import msv_cuda, p7_cuda
 
 # M row padding of the port's profile packs and carries (as the JAX XLA
 # path's); the kernel pads further to its lane tile internally
@@ -47,6 +57,7 @@ class StagedDatabase:
     tokens: torch.Tensor  # [B_pad, L_pad] int8, tails PAD_TOKEN
     lengths: torch.Tensor  # [B_pad] int32
     tr_rows: torch.Tensor  # [2, B_pad] f32 (tr_loop; tr_move)
+    tr_probs: torch.Tensor  # [2, B_pad] f32 (host-exact p_loop; p_move)
     num_sequences: int  # true B before padding
 
     @property
@@ -136,6 +147,9 @@ class MSVScanner:
             tokens=_blank_tail(tokens, lengths_dev),
             lengths=lengths_dev,
             tr_rows=torch.from_numpy(np.stack([tr_loop, tr_move])).to(self.device),
+            tr_probs=torch.from_numpy(
+                p7_cuda.length_transition_probs(lengths_p)
+            ).to(self.device),
             num_sequences=(
                 num_sequences if num_sequences is not None else tokens.shape[0]
             ),
@@ -162,3 +176,208 @@ class MSVScanner:
             emit, staged.tokens, staged.lengths, staged.tr_rows, tr_consts, m, s
         )
         return scores[: staged.num_sequences]
+
+    # -- full-profile stages -------------------------------------------
+    def _p7_pack(self, p7: P7Profile, stage: str) -> p7_cuda.P7Pack:
+        """The stage's pack of ``p7`` (cached, keyed ``(id(p7), "p7",
+        stage)`` and pinned like the MSV packs): Forward's probability pack,
+        or for Viterbi the lazy kernel's when ``e_skip_d_ok(p7)`` holds and
+        the eager kernel's otherwise."""
+        key = (id(p7), "p7", stage)
+        hit = self._cache_get(key, p7)
+        if hit is not None:
+            return hit
+        if stage == "forward":
+            pack = p7_cuda.forward_pack(p7, self.device)
+        else:
+            pack = p7_cuda.viterbi_pack(p7, self.device, lazy=p7_cuda.e_skip_d_ok(p7))
+        return self._cache_put(key, p7, pack)
+
+    def scan_p7(self, p7: P7Profile, staged: StagedDatabase, stage: str = "viterbi") -> torch.Tensor:
+        """Viterbi or Forward scores of every staged sequence -> f32 [B] on
+        the scanner's device."""
+        if stage not in ("viterbi", "forward"):
+            raise ValueError(f"stage must be 'viterbi' or 'forward', got {stage!r}")
+        pack = self._p7_pack(p7, stage)
+        if stage == "forward":
+            scores = _forward(pack, staged)
+        else:
+            scores = _viterbi(pack, staged)
+        return scores[: staged.num_sequences]
+
+
+def _viterbi(pack: p7_cuda.P7Pack, staged: StagedDatabase) -> torch.Tensor:
+    """Viterbi scores [B_pad] from a fresh carry: the lazy kernel for a pack
+    with a window, the eager one otherwise."""
+    m, i, d, s = p7_cuda.viterbi_init_carry(staged.tr_rows, pack.m_pad)
+    args = (*pack[:4], staged.tokens, staged.lengths, staged.tr_rows, pack.consts, m, i, d, s)
+    if pack.lazy_k:
+        return p7_cuda.viterbi_lazy_scan(*args, pack.lazy_k)[0]
+    return p7_cuda.viterbi_scan(*args)[0]
+
+
+def _forward(pack: p7_cuda.P7Pack, staged: StagedDatabase) -> torch.Tensor:
+    m, i, d, s = p7_cuda.forward_init_carry(staged.tr_probs, pack.m_pad)
+    return p7_cuda.forward_prob_scan(
+        *pack[:4], staged.tokens, staged.lengths, staged.tr_rows, staged.tr_probs,
+        pack.consts, m, i, d, s,
+    )[0]
+
+
+# -- host-staged single-stage entry (select_p7_fns / viterbi_pallas /
+# forward_pallas of the JAX package) ---------------------------------------
+
+def viterbi_scores(
+    p7: P7Profile, tokens, lengths, device="cuda", lazy: bool = True,
+    lazy_k: int | None = None,
+) -> torch.Tensor:
+    """Full local Viterbi scores of a host token batch -> f32 [B].
+
+    The lazy kernel when ``lazy`` and ``e_skip_d_ok(p7)`` (window ``lazy_k``,
+    auto-picked when None), the eager one otherwise; both give the same
+    scores."""
+    scanner = MSVScanner(device=device)
+    staged = scanner.stage(tokens, lengths)
+    lazy = lazy and p7_cuda.e_skip_d_ok(p7)
+    pack = p7_cuda.viterbi_pack(p7, scanner.device, lazy=lazy, lazy_k=lazy_k)
+    return _viterbi(pack, staged)[: staged.num_sequences]
+
+
+def forward_scores(p7: P7Profile, tokens, lengths, device="cuda") -> torch.Tensor:
+    """Forward scores (nats) of a host token batch -> f32 [B], through the
+    probability-space scan."""
+    scanner = MSVScanner(device=device)
+    staged = scanner.stage(tokens, lengths)
+    return _forward(p7_cuda.forward_pack(p7, scanner.device), staged)[: staged.num_sequences]
+
+
+def select_p7_fns(device="cuda"):
+    """``(viterbi_fn, forward_fn)``, each ``fn(p7, tokens, lengths)`` -> f32
+    [B] on ``device``: the kernels on a CUDA device, their plain versions on
+    the CPU."""
+    return (
+        functools.partial(viterbi_scores, device=device),
+        functools.partial(forward_scores, device=device),
+    )
+
+
+# -- the search cascade ----------------------------------------------------
+
+@dataclasses.dataclass
+class SearchResult:
+    """Outcome of the cascade for one profile (host arrays)."""
+
+    msv_scores: np.ndarray  # [B] f32 (all sequences)
+    msv_pvalues: np.ndarray
+    viterbi_scores: np.ndarray  # [B] f32, NaN where not computed
+    viterbi_pvalues: np.ndarray
+    forward_scores: np.ndarray  # [B] f32, NaN where not computed
+    forward_pvalues: np.ndarray
+    passed_msv: np.ndarray  # [B] bool
+    passed_viterbi: np.ndarray
+    passed_forward: np.ndarray
+
+    @property
+    def hits(self) -> np.ndarray:
+        return np.flatnonzero(self.passed_forward)
+
+
+class SearchPipeline:
+    """hmmsearch-style cascade: MSV -> Viterbi -> Forward, with HMMER3's
+    stage thresholds; each stage rescores only the previous stage's
+    survivors, restaged compactly. ``phase_seconds`` holds the last search's
+    host-clock seconds of each stage (each ends by copying its scores to the
+    host, so the device work is inside)."""
+
+    def __init__(
+        self,
+        scanner: MSVScanner | None = None,
+        msv_p: float = 0.02,
+        viterbi_p: float = 1e-3,
+        forward_p: float = 1e-5,
+    ):
+        self.scanner = scanner or MSVScanner()
+        self.msv_p = msv_p
+        self.viterbi_p = viterbi_p
+        self.forward_p = forward_p
+        self.phase_seconds = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
+        # derived MSVProfile/P7Profile per hmm object, pinned and LRU-bounded
+        # like MSVScanner._profile_cache: repeated searches with one hmm must
+        # hand the scanner the same derived objects, or its id-keyed pack
+        # cache would grow by one entry a call
+        self._derived_cache: collections.OrderedDict = collections.OrderedDict()
+
+    _DERIVED_MAX = 32
+
+    def _derived(self, hmm):
+        hit = self._derived_cache.get(id(hmm))
+        if hit is not None and hit[0] is hmm:
+            self._derived_cache.move_to_end(id(hmm))
+            return hit[1], hit[2]
+        msvp = MSVProfile.from_profile(hmm)
+        p7 = P7Profile.from_profile(hmm)
+        self._derived_cache[id(hmm)] = (hmm, msvp, p7)
+        while len(self._derived_cache) > self._DERIVED_MAX:
+            self._derived_cache.popitem(last=False)
+        return msvp, p7
+
+    def search(self, hmm, staged: StagedDatabase, tokens: np.ndarray, lengths: np.ndarray) -> SearchResult:
+        """Run the cascade. ``hmm`` is a ProfileHMM; ``tokens``/``lengths``
+        are the host arrays the survivor subsets are restaged from."""
+        msv_profile, p7 = self._derived(hmm)
+        t0 = time.perf_counter()
+        msv_scores = self.scanner.scan(msv_profile, staged).cpu().numpy()
+        self.phase_seconds = {"msv": time.perf_counter() - t0, "viterbi": 0.0, "forward": 0.0}
+        return self._finish_cascade(hmm, p7, msv_scores, tokens, lengths)
+
+    def _finish_cascade(
+        self, hmm, p7: P7Profile, msv_scores: np.ndarray,
+        tokens: np.ndarray, lengths: np.ndarray,
+    ) -> SearchResult:
+        """Viterbi and Forward rescoring of the MSV survivors."""
+        b = len(msv_scores)
+        msv_pv = stats.msv_pvalue(msv_scores, hmm)
+        passed_msv = msv_pv <= self.msv_p
+
+        vit_scores = np.full(b, np.nan, dtype=np.float32)
+        vit_pv = np.full(b, np.nan)
+        fwd_scores = np.full(b, np.nan, dtype=np.float32)
+        fwd_pv = np.full(b, np.nan)
+        passed_vit = np.zeros(b, dtype=bool)
+        passed_fwd = np.zeros(b, dtype=bool)
+
+        def _stage_subset(sel: np.ndarray) -> StagedDatabase:
+            l_max = max(int(lengths[sel].max()), 1)
+            return self.scanner.stage(tokens[sel, :l_max], lengths[sel])
+
+        def _p7_stage(sel: np.ndarray, stage: str) -> np.ndarray:
+            t0 = time.perf_counter()
+            out = self.scanner.scan_p7(p7, _stage_subset(sel), stage=stage).cpu().numpy()
+            self.phase_seconds[stage] += time.perf_counter() - t0
+            return out
+
+        idx = np.flatnonzero(passed_msv)
+        if idx.size:
+            vs = _p7_stage(idx, "viterbi")
+            vit_scores[idx] = vs
+            vit_pv[idx] = stats.viterbi_pvalue(vs, hmm)
+            passed_vit[idx] = vit_pv[idx] <= self.viterbi_p
+
+            idx2 = np.flatnonzero(passed_vit)
+            if idx2.size:
+                fs = _p7_stage(idx2, "forward")
+                fwd_scores[idx2] = fs
+                fwd_pv[idx2] = stats.forward_pvalue(fs, hmm)
+                passed_fwd[idx2] = fwd_pv[idx2] <= self.forward_p
+
+        return SearchResult(
+            msv_scores=msv_scores,
+            msv_pvalues=msv_pv,
+            viterbi_scores=vit_scores,
+            viterbi_pvalues=vit_pv,
+            forward_scores=fwd_scores,
+            forward_pvalues=fwd_pv,
+            passed_msv=passed_msv,
+            passed_viterbi=passed_vit,
+            passed_forward=passed_fwd,
+        )

@@ -41,8 +41,13 @@ def test_cuda_device_without_cuda_exits_nonzero(profile_dir, fasta_dir, monkeypa
 
 
 def test_only_msv_stage():
+    """The port's stages are msv (the default), viterbi, forward and search;
+    any other stage is refused by the parser."""
+    parser = port_cli.build_parser()
+    base = ["scan", "--hmm", "x.hmm", "--fasta", "y.fsa"]
+    assert parser.parse_args(base).stage == "msv"
+    for stage in ("viterbi", "forward", "search"):
+        assert parser.parse_args([*base, "--stage", stage]).stage == stage
     with pytest.raises(SystemExit) as exc:
-        port_cli.build_parser().parse_args(
-            ["scan", "--hmm", "x.hmm", "--fasta", "y.fsa", "--stage", "viterbi"]
-        )
+        parser.parse_args([*base, "--stage", "posterior"])
     assert exc.value.code == 2

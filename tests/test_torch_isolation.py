@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from hmm_fasta_viterbi_tpu_torch import MSVScanner
-from hmm_fasta_viterbi_tpu_torch.ops import _build, msv_cuda
+from hmm_fasta_viterbi_tpu_torch.ops import _build, msv_cuda, p7_cuda
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -22,9 +22,12 @@ import hmm_fasta_viterbi_tpu_torch
 import hmm_fasta_viterbi_tpu_torch.__main__
 import hmm_fasta_viterbi_tpu_torch.convert
 import hmm_fasta_viterbi_tpu_torch.ops._build
+import hmm_fasta_viterbi_tpu_torch.ops.p7_cuda
 from hmm_fasta_viterbi_tpu_torch import cli
 assert cli.main(["scan", "--device", "cpu", "--hmm", sys.argv[1],
                  "--fasta", sys.argv[2], "--out", sys.argv[3]]) == 0
+assert cli.main(["scan", "--device", "cpu", "--stage", "search", "--hmm", sys.argv[1],
+                 "--fasta", sys.argv[2], "--out", sys.argv[3] + ".search"]) == 0
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 """
@@ -32,7 +35,7 @@ assert not loaded, loaded
 
 def test_port_and_chip_smoke_import_no_jax(profile_dir, fasta_dir, tmp_path):
     """In a fresh interpreter: import the port, its CLI and chip_smoke.py,
-    run a CPU scan, and find no jax module loaded."""
+    run a CPU scan and a CPU search, and find no jax module loaded."""
     proc = subprocess.run(
         [
             sys.executable, "-c", _NO_JAX, str(profile_dir / "100.hmm"),
@@ -42,6 +45,7 @@ def test_port_and_chip_smoke_import_no_jax(profile_dir, fasta_dir, tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert (tmp_path / "out.tsv").read_text().startswith("# target")
+    assert (tmp_path / "out.tsv.search").read_text().startswith("# target\tprofile\tmsv_bits")
 
 
 def test_cuda_scanner_without_cuda_raises(monkeypatch):
@@ -77,12 +81,17 @@ def test_non_cpu_tensors_never_reach_the_plain_version(monkeypatch):
 
 
 def test_nvcc_command_targets_hopper_without_fast_math():
-    cmd = _build.nvcc_command("nvcc", pathlib.Path("lib.so"))
-    joined = " ".join(cmd)
-    assert "arch=compute_90a,code=sm_90a" in joined
-    assert "fast_math" not in joined and "fast-math" not in joined
-    assert "-shared" in cmd and "-O3" in cmd
-    assert str(_build.CSRC_DIR / "msv_kernel.cu") in cmd
+    """One nvcc a source (they run side by side), then one link into the
+    shared library."""
+    compiles, link = _build.nvcc_commands("nvcc", pathlib.Path("out"), pathlib.Path("lib.so"))
+    srcs = {cmd[-1] for cmd in compiles}
+    for name in ("msv_kernel.cu", "p7_viterbi_kernel.cu", "p7_forward_kernel.cu"):
+        assert str(_build.CSRC_DIR / name) in srcs
+    for cmd in compiles:
+        joined = " ".join(cmd)
+        assert "arch=compute_90a,code=sm_90a" in joined and "-c" in cmd and "-O3" in cmd
+        assert "fast_math" not in joined and "fast-math" not in joined
+    assert "-shared" in link and len(link) == 4 + len(compiles)
 
 
 def test_kernel_supports_every_profile(all_profile_paths):
@@ -97,3 +106,64 @@ def test_kernel_supports_every_profile(all_profile_paths):
     assert len(lengs) == 24 and max(lengs) == 2405
     assert all(32 * msv_cuda.kernel_per(n) >= n for n in lengs)
     assert np.all(np.diff(msv_cuda.KERNEL_PER) == 8)
+
+
+def _meta_p7_args(n_specials, consts, chain_rows=16):
+    b, l, m = 4, 8, 16
+    return [
+        torch.empty((20, m), device="meta"),
+        torch.empty((20, m), device="meta"),
+        torch.empty((8, m), device="meta"),
+        torch.empty((chain_rows, m), device="meta"),
+        torch.empty((b, l), dtype=torch.int8, device="meta"),
+        torch.empty((b,), dtype=torch.int32, device="meta"),
+        torch.empty((2, b), device="meta"),
+        torch.empty((consts,), device="meta"),
+        torch.empty((b, m), device="meta"),
+        torch.empty((b, m), device="meta"),
+        torch.empty((b, m), device="meta"),
+        torch.empty((n_specials, b), device="meta"),
+    ]
+
+
+def test_p7_scans_never_fall_back(monkeypatch):
+    """viterbi_scan, viterbi_lazy_scan and forward_prob_scan send every
+    tensor that is not on the CPU to their kernel wrappers, which raise for
+    a device they cannot launch on; no launch is counted."""
+
+    def plain(*args):
+        raise AssertionError("fell back to the plain version")
+
+    for name in ("viterbi_scan_plain", "viterbi_lazy_scan_plain", "forward_prob_scan_plain"):
+        monkeypatch.setattr(p7_cuda, name, plain)
+    wrappers = (p7_cuda.viterbi_scan_cuda, p7_cuda.viterbi_lazy_scan_cuda,
+                p7_cuda.forward_prob_scan_cuda)
+    before = [w.launches for w in wrappers]
+    vit = _meta_p7_args(4, 3)
+    lazy = _meta_p7_args(4, 5)
+    fwd = _meta_p7_args(8, 3, chain_rows=3)
+    fwd.insert(7, torch.empty((2, 4), device="meta"))  # tr_probs
+    for scan, args in ((p7_cuda.viterbi_scan, vit), (p7_cuda.viterbi_lazy_scan, lazy + [2]),
+                       (p7_cuda.forward_prob_scan, fwd)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            scan(*args)
+    cpu = [torch.zeros(a.shape, dtype=a.dtype) for a in vit]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        p7_cuda.viterbi_scan_cuda(*cpu)
+    assert [w.launches for w in wrappers] == before
+
+
+def test_p7_kernels_support_every_profile(all_profile_paths):
+    """Every profile's p7 pack (JAX M_pad convention) fits the p7 kernels'
+    threads, and the thread counts match the C++ switches."""
+    from hmm_fasta_viterbi_tpu import parse_hmm
+    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
+
+    for name, macro in (("p7_viterbi_kernel.cu", "P7_CASE"), ("p7_forward_kernel.cu", "FWD_CASE")):
+        source = (_build.CSRC_DIR / name).read_text()
+        assert all(f"{macro}({per})" in source for per in p7_cuda.KERNEL_PER)
+    for path in all_profile_paths:
+        p7 = P7Profile.from_profile(parse_hmm(path))
+        m_pad = p7_cuda.default_m_pad(p7)
+        assert p7_cuda.KERNEL_THREADS * p7_cuda.kernel_per(m_pad) >= m_pad
+        assert p7_cuda.e_skip_d_ok(p7)  # the lazy kernel carries every real profile

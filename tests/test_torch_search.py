@@ -1,0 +1,199 @@
+"""The PyTorch port's search cascade (MSV -> Viterbi -> Forward) and its
+`scan --stage search|viterbi|forward` CLI, on the CPU (the kernels' plain
+versions), against the JAX package's SearchPipeline and CLI on the XLA
+backend.
+
+MSV scores are equal bit for bit; Viterbi scores agree within 1e-4 and
+Forward scores within 2e-3 (the JAX XLA path runs log-space Forward); the
+stage decisions (the passed_* sets) are the same.
+"""
+
+import copy
+import json
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+from hmm_fasta_viterbi_tpu import cli as jax_cli
+from hmm_fasta_viterbi_tpu import parse_fasta, parse_hmm
+from hmm_fasta_viterbi_tpu.io.alphabet import AMINO_ACIDS
+from hmm_fasta_viterbi_tpu.io.fastaio import FastaRecord, write_fasta
+from hmm_fasta_viterbi_tpu.models.sample import sample_sequences
+from hmm_fasta_viterbi_tpu.ops.reference import viterbi_oracle_batch
+from hmm_fasta_viterbi_tpu.pipeline import MSVScanner as JaxScanner
+from hmm_fasta_viterbi_tpu.pipeline import SearchPipeline as JaxPipeline
+from hmm_fasta_viterbi_tpu_torch import P7Profile, SearchPipeline, cli as port_cli
+from hmm_fasta_viterbi_tpu_torch.ops import p7_cuda
+from hmm_fasta_viterbi_tpu_torch.pipeline import MSVScanner, select_p7_fns
+
+VIT_TOL = 1e-4
+FWD_TOL = 2e-3
+
+
+def _letters(tokens) -> str:
+    return "".join(AMINO_ACIDS[int(t)] for t in tokens)
+
+
+@pytest.fixture(scope="module")
+def hmm100(profile_dir):
+    return parse_hmm(profile_dir / "100.hmm")
+
+
+@pytest.fixture(scope="module")
+def search_fasta(hmm100, tmp_path_factory):
+    """Random sequences, the consensus, homologs sampled from the profile
+    and a consensus fragment inside random residues: sequences that stop at
+    every stage of the cascade."""
+    rng = np.random.default_rng(41)
+    consensus = np.argmax(hmm100.match_emissions[1:], axis=1)
+    records = [FastaRecord(f"rand{k}", _letters(rng.integers(0, 20, 120 + 7 * k)))
+               for k in range(6)]
+    records.insert(2, FastaRecord("consensus", _letters(consensus)))
+    for k, seq in enumerate(sample_sequences(hmm100, 3, seed=5)):
+        records.insert(4 + k, FastaRecord(f"homolog{k}", _letters(seq)))
+    # short consensus pieces: some pass MSV only, some MSV and Viterbi only
+    for start, stop in ((60, 76), (60, 80), (30, 46), (30, 48), (30, 50), (30, 62)):
+        piece = [rng.integers(0, 20, 50), consensus[start:stop], rng.integers(0, 20, 40)]
+        records.append(FastaRecord(f"fragment{start}_{stop}", _letters(np.concatenate(piece))))
+    path = tmp_path_factory.mktemp("search") / "search.fsa"
+    write_fasta(path, records)
+    return path
+
+
+def test_search_pipeline_matches_jax(hmm100, search_fasta):
+    db = parse_fasta(search_fasta)
+    tokens, lengths = db.encode()
+    port_sc = MSVScanner(device="cpu")
+    got = SearchPipeline(port_sc).search(hmm100, port_sc.stage(tokens, lengths), tokens, lengths)
+    jax_sc = JaxScanner(backend="xla")
+    want = JaxPipeline(jax_sc).search(hmm100, jax_sc.stage(tokens, lengths), tokens, lengths)
+
+    assert np.array_equal(got.msv_scores, want.msv_scores)
+    for name in ("passed_msv", "passed_viterbi", "passed_forward"):
+        assert np.array_equal(getattr(got, name), getattr(want, name)), name
+    assert np.array_equal(np.isnan(got.viterbi_scores), np.isnan(want.viterbi_scores))
+    assert np.array_equal(np.isnan(got.forward_scores), np.isnan(want.forward_scores))
+    np.testing.assert_allclose(got.viterbi_scores, want.viterbi_scores, atol=VIT_TOL, rtol=0)
+    np.testing.assert_allclose(got.forward_scores, want.forward_scores, atol=FWD_TOL, rtol=0)
+    # every stage both keeps and drops sequences on this batch
+    assert (got.passed_forward.any() and (~got.passed_msv).any()
+            and (got.passed_msv & ~got.passed_viterbi).any()
+            and (got.passed_viterbi & ~got.passed_forward).any())
+    names = [db.records[i].header for i in got.hits]
+    assert "consensus" in names and "homolog0" in names
+
+
+def test_search_stage_phases_and_derived_cache(hmm100, search_fasta):
+    """The pipeline records each stage's seconds, and hands the scanner the
+    same derived profiles on every call with one hmm (pinned LRU), so its
+    pack cache does not grow per call."""
+    tokens, lengths = parse_fasta(search_fasta).encode()
+    sc = MSVScanner(device="cpu")
+    pipeline = SearchPipeline(sc)
+    staged = sc.stage(tokens, lengths)
+    first = pipeline.search(hmm100, staged, tokens, lengths)
+    n_cached = len(sc._profile_cache)
+    second = pipeline.search(hmm100, staged, tokens, lengths)
+    assert len(sc._profile_cache) == n_cached == 3  # msv, viterbi, forward
+    assert np.array_equal(first.passed_forward, second.passed_forward)
+    assert set(pipeline.phase_seconds) == {"msv", "viterbi", "forward"}
+    assert all(v > 0 for v in pipeline.phase_seconds.values())
+    assert pipeline._derived(hmm100)[1] is pipeline._derived(hmm100)[1]
+    copies = [copy.copy(hmm100) for _ in range(pipeline._DERIVED_MAX + 3)]
+    for h in copies:
+        pipeline._derived(h)
+    assert len(pipeline._derived_cache) == pipeline._DERIVED_MAX
+    assert id(copies[0]) not in pipeline._derived_cache  # evicted (LRU)
+
+
+def test_scan_p7_picks_eager_without_e_skip_d(hmm100):
+    """A profile with a positive tdd breaks e_skip_d_ok: scan_p7 then runs
+    the eager scan (no lazy window) and still matches the oracle."""
+    p7 = P7Profile.from_profile(hmm100)
+    bad = type(p7)(**{**p7.__dict__, "tdd": np.where(
+        np.isfinite(p7.tdd), np.float32(0.01), p7.tdd).astype(np.float32)})
+    assert not p7_cuda.e_skip_d_ok(bad) and p7_cuda.e_skip_d_ok(p7)
+    sc = MSVScanner(device="cpu")
+    rng = np.random.default_rng(8)
+    tokens = rng.integers(0, 20, size=(4, 60)).astype(np.int32)
+    lengths = np.array([60, 31, 0, 5], dtype=np.int32)
+    staged = sc.stage(tokens, lengths)
+    for prof, lazy in ((bad, False), (p7, True)):
+        got = sc.scan_p7(prof, staged, stage="viterbi").numpy()
+        assert bool(sc._p7_pack(prof, "viterbi").lazy_k) == lazy
+        np.testing.assert_allclose(got, viterbi_oracle_batch(prof, tokens, lengths),
+                                   atol=VIT_TOL, rtol=0)
+    with pytest.raises(ValueError, match="stage"):
+        sc.scan_p7(p7, staged, stage="msv")
+    vit_fn, fwd_fn = select_p7_fns("cpu")
+    assert torch.equal(vit_fn(p7, tokens, lengths), sc.scan_p7(p7, staged, "viterbi"))
+    assert torch.equal(fwd_fn(p7, tokens, lengths), sc.scan_p7(p7, staged, "forward"))
+
+
+def _rows(path, fmt):
+    text = path.read_text()
+    if fmt == "json":
+        return json.loads(text)
+    lines = text.splitlines()
+    header = lines[0].lstrip("# ").split("\t")
+    return [dict(zip(header, line.split("\t"))) for line in lines[1:]]
+
+
+def _close(a, b, rtol):
+    if a in (None, "nan") or b in (None, "nan"):
+        return a == b
+    return abs(float(a) - float(b)) <= rtol * abs(float(b))
+
+
+@pytest.mark.parametrize("fmt", ["tsv", "json"])
+@pytest.mark.parametrize("extra", [[], ["--top", "5"], ["--max-evalue", "1e-3"]],
+                         ids=["all", "top", "evalue"])
+def test_cli_search_matches_jax(profile_dir, search_fasta, tmp_path, fmt, extra):
+    """Same rows in the same order, the same hit flags, equal msv_bits and
+    msv_p, and Viterbi/Forward p- and E-values within what the score
+    tolerances allow (a score error of d nats moves a p-value by a factor
+    of about exp(lambda d))."""
+    common = ["scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(search_fasta),
+              "--stage", "search", "--format", fmt, *extra]
+    jax_out, port_out = tmp_path / "jax.out", tmp_path / "port.out"
+    assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0
+    assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
+    want, got = _rows(jax_out, fmt), _rows(port_out, fmt)
+    assert [r["target"] for r in got] == [r["target"] for r in want]
+    assert want and any(str(r["hit"]) in ("1", "True") for r in want)
+    for g, w in zip(got, want):
+        assert str(g["hit"]) == str(w["hit"]) and g["profile"] == w["profile"]
+        assert g["msv_bits"] == w["msv_bits"] and g["msv_p"] == w["msv_p"]
+        assert _close(g["viterbi_p"], w["viterbi_p"], 1e-3)
+        for key in ("forward_p", "evalue"):
+            assert _close(g[key], w[key], 1e-2), (key, g, w)
+
+
+@pytest.mark.parametrize("stage", ["viterbi", "forward"])
+def test_cli_single_stage_matches_jax(profile_dir, search_fasta, tmp_path, stage):
+    common = ["scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(search_fasta),
+              "--stage", stage]
+    jax_out, port_out = tmp_path / "jax.tsv", tmp_path / "port.tsv"
+    assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0
+    assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
+    want, got = _rows(jax_out, "tsv"), _rows(port_out, "tsv")
+    assert [r["target"] for r in got] == [r["target"] for r in want]
+    tol = (VIT_TOL if stage == "viterbi" else FWD_TOL) + 1e-4  # 4-decimal rounding
+    for g, w in zip(got, want):
+        assert abs(float(g["score_nats"]) - float(w["score_nats"])) <= tol
+        assert _close(g["pvalue"], w["pvalue"], 1e-2)
+
+
+def test_cli_search_log_lines(profile_dir, search_fasta, tmp_path, caplog):
+    with caplog.at_level(logging.INFO, logger=port_cli.__name__):
+        assert port_cli.main(["scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta",
+                              str(search_fasta), "--stage", "search", "--device", "cpu",
+                              "--out", str(tmp_path / "o.tsv")]) == 0
+    msgs = [r.getMessage() for r in caplog.records]
+    assert any(m.startswith("search ") and "past MSV" in m and "past Viterbi" in m
+               for m in msgs)
+    phases = next(r for r in caplog.records if r.msg.startswith("seconds:"))
+    parse_s, stage_s, msv_s, vit_s, fwd_s, report_s, total_s = phases.args
+    assert min(msv_s, vit_s, fwd_s) > 0 and total_s >= msv_s + vit_s + fwd_s
