@@ -6,9 +6,12 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
 2. build: compiles csrc/*.cu from this checkout, one nvcc a source;
-3. MSV kernel against plain: for all 24 profiles of data/profile_HMMs, the
-   MSV kernel and its plain PyTorch version on one ragged batch, and a
-   two-call carry chain against one call, must be equal (max |d| = 0.0);
+3. MSV kernels against plain: for all 24 profiles of data/profile_HMMs, on
+   one ragged batch, the MSV kernel and the MSV filter kernel (bf16 table)
+   each equal their plain PyTorch version, and a two-call carry chain one
+   call (max |d| = 0.0); the filter is >= the exact kernel on every
+   sequence; one scan_many over all 24 profiles in each mode (the stacked
+   kernel) equals the single-profile kernels bit for bit;
 4. MSV kernel against the NumPy oracle on 8 sequences of 1400.hmm and
    2405.hmm;
 5. Viterbi and Forward kernels against plain, all 24 profiles, on a ragged
@@ -16,24 +19,38 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    among them): eager Viterbi == plain, lazy == eager (scores and carries,
    bit for bit), lazy at lazy_k = 1 on 100.hmm replays chunks and equals
    the plain lazy version, replay counts included; Forward within FWD_TOL
-   of plain; two-call carry chains equal one call (Forward split at a
-   multiple of FWD_RESCALE_GROUP);
-6. Viterbi and Forward kernels against the oracles on short sequences of
-   100.hmm and 1400.hmm (1e-4, 2e-3);
+   of plain; the Viterbi filter kernel == plain (carries included) and >=
+   eager Viterbi on every sequence; two-call carry chains equal one call
+   (Forward split at a multiple of FWD_RESCALE_GROUP); the Viterbi filter
+   at every window 1..full_passes on 100.hmm and 1400.hmm, and on 100.hmm
+   made to fail e_skip_d (a positive tdd: the full chain; a positive tmd: a
+   truncated window whose tail reaches E);
+6. Viterbi, Viterbi filter and Forward kernels against the oracles on short
+   sequences of 100.hmm and 1400.hmm (1e-4, filter >= oracle, 2e-3);
 7. main paths, each with every launch count set to 0 just before it and
    read just after, on a seeded FASTA of 16384 x 3500 random residues with
    32 sequences sampled from 1400.hmm at known rows:
    `scan --stage msv` (the MSV kernel; the top 8 rows equal the oracle),
    `scan --stage search` (MSV, then the lazy Viterbi and the Forward
-   kernels; every planted row is a hit; survivor counts and per-phase
-   seconds printed), `scan --stage viterbi` and `--stage forward` (every
-   row scored, the planted rows on top), and the single-stage Viterbi entry
-   with lazy=False at 4096 x 3500 (the eager kernel);
+   kernels; every planted row is a hit), `scan --stage viterbi` and
+   `--stage forward` (every row scored, the planted rows on top), the
+   single-stage Viterbi entry with lazy=False at 4096 x 3500 (the eager
+   kernel), `scan --stage search --fast` (the MSV filter, MSV, Viterbi
+   filter, lazy Viterbi and Forward kernels; the non-fast search's hit set
+   and hit rows), `sweep --hmm-dir data/profile_HMMs` (the stacked kernel;
+   its 1400.hmm rows equal the scan's) and `sweep --stage search --fast`
+   over the 24 profiles (both filter kernels); survivor counts and
+   per-phase seconds printed;
 8. timings with CUDA events: the MSV kernel (best of 3) at 16384 x 3500
-   against 1400.hmm and 2405.hmm and its plain version at 1400.hmm; the
-   lazy and eager Viterbi and the Forward kernels (best of 3) at 4096 x
-   3500 against 1400.hmm, the lazy fire rate, and each plain version once
-   at that shape, held against the kernel.
+   against 1400.hmm and 2405.hmm and its plain version at 1400.hmm; the MSV
+   filter at 16384 x 3500 x 1400 (filter_1400) and its plain version once;
+   the lazy and eager Viterbi, the Viterbi filter (auto window) and the
+   Forward kernels (best of 3) at 4096 x 3500 against 1400.hmm, the lazy
+   fire rate, and each plain version once at that shape, held against the
+   kernel; the stacked sweep over all 24 profiles at 8192 x 3500 in both
+   modes (sweep24, sweep24_filter; best of 3), the plain exact sweep once
+   over all 24 and the plain filter sweep once over every fourth profile,
+   scaled by cells.
 
 Prints a JSON line about the kernels and, last, {"ok": true, ...}. Any
 failed check raises, and the script exits non-zero without that line.
@@ -82,19 +99,38 @@ STAGE_BATCH = 4096
 PLANTED = 32
 VIT_TOL, FWD_TOL = 1e-4, 2e-3
 
+# the sweep timing batch (sweep24, sweep24_filter) and the profiles the plain
+# filter sweep is timed on (every fourth, scaled to all 24 by cells)
+SWEEP_BATCH = 8192
+PLAIN_SWEEP_EVERY = 4
+
+# name: (source, TPU kernel body file:line, the body's mode)
 KERNELS = {
-    "msv_scan": ("csrc/msv_kernel.cu", "hmm_fasta_viterbi_tpu/ops/pallas_msv.py:100"),
-    "viterbi_scan": ("csrc/p7_viterbi_kernel.cu", "hmm_fasta_viterbi_tpu/ops/pallas_p7.py:166"),
+    "msv_scan": ("csrc/msv_kernel.cu", "hmm_fasta_viterbi_tpu/ops/pallas_msv.py:100",
+                 "exact, one profile"),
+    "viterbi_scan": ("csrc/p7_viterbi_kernel.cu", "hmm_fasta_viterbi_tpu/ops/pallas_p7.py:166",
+                     "Viterbi (eager)"),
     "viterbi_lazy_scan": ("csrc/p7_viterbi_kernel.cu",
-                          "hmm_fasta_viterbi_tpu/ops/pallas_p7.py:923"),
+                          "hmm_fasta_viterbi_tpu/ops/pallas_p7.py:923", "lazy Viterbi"),
     "forward_prob_scan": ("csrc/p7_forward_kernel.cu",
-                          "hmm_fasta_viterbi_tpu/ops/pallas_p7.py:474"),
+                          "hmm_fasta_viterbi_tpu/ops/pallas_p7.py:474",
+                          "probability-space Forward"),
+    "msv_filter_scan": ("csrc/msv_kernel.cu", "hmm_fasta_viterbi_tpu/ops/pallas_msv.py:100",
+                        "filter: exact=False, skip_row0_guard=True (bf16 round-up table)"),
+    "msv_stacked_scan": ("csrc/msv_kernel.cu", "hmm_fasta_viterbi_tpu/ops/pallas_msv.py:100",
+                         "profile stack: grid dimension P > 1 (exact and filter)"),
+    "viterbi_filter_scan": ("csrc/p7_filter_kernel.cu",
+                            "hmm_fasta_viterbi_tpu/ops/pallas_p7.py:682",
+                            "upper-bound Viterbi filter"),
 }
 WRAPPERS = {
     "msv_scan": msv_cuda.msv_scan_cuda,
     "viterbi_scan": p7_cuda.viterbi_scan_cuda,
     "viterbi_lazy_scan": p7_cuda.viterbi_lazy_scan_cuda,
     "forward_prob_scan": p7_cuda.forward_prob_scan_cuda,
+    "msv_filter_scan": msv_cuda.msv_filter_scan_cuda,
+    "msv_stacked_scan": msv_cuda.msv_stacked_scan_cuda,
+    "viterbi_filter_scan": p7_cuda.viterbi_filter_scan_cuda,
 }
 
 
@@ -117,6 +153,19 @@ def require_equal(got, want, what: str) -> float:
     require(all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want)),
             f"{what}: not equal, max |d| {err}")
     return err
+
+
+def require_geq(upper, lower, what: str) -> None:
+    """upper >= lower on every sequence (both -inf for an empty one)."""
+    upper, lower = upper.cpu(), lower.cpu()
+    ok = (upper >= lower) | (torch.isneginf(upper) & torch.isneginf(lower))
+    require(bool(ok.all()), f"{what}: filter below exact on {int((~ok).sum())} sequences")
+
+
+def stems() -> list[str]:
+    found = sorted((p.stem for p in PROFILES.glob("*.hmm")), key=int)
+    require(len(found) == 24, f"24 profiles, found {len(found)}")
+    return found
 
 
 def profile(stem: str) -> MSVProfile:
@@ -177,13 +226,15 @@ def ptxas_summary(log: str) -> list[str]:
     source took."""
     lines = [line for line in log.splitlines() if line.startswith(("$ nvcc", "built "))]
     for entry in re.split(r"Compiling entry function ", log)[1:]:
-        case = re.search(r"(msv_kernel|viterbi_kernel|forward_kernel)ILi(\d+)E(?:Lb(\d))?",
-                         entry.split("'")[1])
+        case = re.search(
+            r"(msv_kernel|viterbi_kernel|forward_kernel|filter_kernel)ILi(\d+)E(?:Lb(\d)|([ft]))?",
+            entry.split("'")[1])
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
         smem = re.search(r"(\d+) bytes smem", entry)
         if case and regs:
-            mode = {None: "", "0": ",eager", "1": ",lazy"}[case.group(3)]
+            mode = {None: "", "0": ",eager", "1": ",lazy", "f": ",f32", "t": ",bf16"}[
+                case.group(3) or case.group(4)]
             lines.append(
                 f"{case.group(1)}<{case.group(2)}{mode}>: {regs.group(1)} registers, spill "
                 f"{spill.group(1) if spill else '?'}/{spill.group(2) if spill else '?'} bytes, "
@@ -216,30 +267,81 @@ class Phase:
 
 # -- MSV (phases 3, 4) ---------------------------------------------------------
 
-def msv_args(scanner, prof, staged):
-    emit, consts = convert.device_profile(prof, scanner.device)
+def msv_args(scanner, prof, staged, filter_mode: bool = False):
+    """The arguments of one MSV scan of ``prof`` from the row-0 carry: the
+    exact f32 pack, or with ``filter_mode`` the filter's bf16 one."""
+    if filter_mode:
+        emit, consts = msv_cuda.pack_profile_filter(
+            prof, msv_cuda.round_up(prof.num_states, 8), scanner.device)
+    else:
+        emit, consts = convert.device_profile(prof, scanner.device)
     m, s = msv_cuda.init_carry(staged.tr_rows, emit.shape[1])
     return emit, staged.tokens, staged.lengths, staged.tr_rows, consts, m, s
 
 
-def msv_compare(args) -> float:
-    got = msv_cuda.msv_scan_cuda(*args)
+MSV_FNS = {False: (msv_cuda.msv_scan_cuda, msv_cuda.msv_scan_plain, "MSV"),
+           True: (msv_cuda.msv_filter_scan_cuda, msv_cuda.msv_filter_scan_plain, "MSV filter")}
+
+
+def msv_compare(args, filter_mode: bool = False):
+    """Kernel vs plain, bit for bit; returns (max |d|, the kernel's scores)."""
+    cuda_fn, plain_fn, what = MSV_FNS[filter_mode]
+    got = cuda_fn(*args)
     torch.cuda.synchronize()
-    return require_equal(got, msv_cuda.msv_scan_plain(*args), "MSV kernel vs plain")
+    return require_equal(got, plain_fn(*args), f"{what} kernel vs plain"), got[0]
 
 
-def msv_chain_error(args) -> float:
+def msv_chain_error(args, filter_mode: bool = False) -> float:
+    cuda_fn, _, what = MSV_FNS[filter_mode]
     emit, tokens, lengths, tr_rows, consts, m, s = args
-    whole = msv_cuda.msv_scan_cuda(*args)
-    first = msv_cuda.msv_scan_cuda(
+    whole = cuda_fn(*args)
+    first = cuda_fn(
         emit, tokens[:, :SPLIT].contiguous(), lengths.clamp(max=SPLIT), tr_rows, consts, m, s,
     )
-    second = msv_cuda.msv_scan_cuda(
+    second = cuda_fn(
         emit, tokens[:, SPLIT:].contiguous(), (lengths - SPLIT).clamp(min=0),
         tr_rows, consts, first[1], first[2],
     )
     torch.cuda.synchronize()
-    return require_equal(second, whole, "MSV carry chain vs one call")
+    return require_equal(second, whole, f"{what} carry chain vs one call")
+
+
+def msv_kernels_vs_plain(scanner, rng, errors: dict) -> None:
+    lengths = rng.integers(0, RAGGED_LEN + 1, size=RAGGED_BATCH).astype(np.int32)
+    lengths[:12] = np.minimum([0, 1, 2, 31, 32, 33, 64, 96, 256, 257, 512, 600], RAGGED_LEN)
+    tokens = rng.integers(0, 20, size=(RAGGED_BATCH, RAGGED_LEN)).astype(np.int8)
+    staged = scanner.stage(tokens, lengths)
+    for stem in stems():
+        prof = profile(stem)
+        args = msv_args(scanner, prof, staged)
+        err, exact = msv_compare(args)
+        chain = msv_chain_error(args)
+        f_args = msv_args(scanner, prof, staged, filter_mode=True)
+        f_err, filt = msv_compare(f_args, filter_mode=True)
+        f_chain = msv_chain_error(f_args, filter_mode=True)
+        require_geq(filt, exact, f"{stem}.hmm MSV filter kernel vs MSV kernel")
+        errors["msv_scan"] = max(errors["msv_scan"], err, chain)
+        errors["msv_filter_scan"] = max(errors["msv_filter_scan"], f_err, f_chain)
+        gap = (filt - exact)[torch.isfinite(exact)]
+        print(f"MSV kernels vs plain {stem}.hmm: B={RAGGED_BATCH} L<={RAGGED_LEN} exact "
+              f"max|d|={err} chain at {SPLIT} max|d|={chain}; filter max|d|={f_err} chain "
+              f"max|d|={f_chain}; filter - exact in [{float(gap.min()):.4f}, "
+              f"{float(gap.max()):.4f}] nats")
+
+    # one stacked launch per register case over all 24 profiles, both modes
+    profs = [profile(stem) for stem in stems()]
+    for mode, single in (("exact", scanner.scan), ("filter", scanner.scan_filter)):
+        res = scanner.scan_many(profs, staged, mode=mode)
+        err = 0.0
+        for p in profs:
+            want = single(p, staged)
+            err = max(err, max_abs_diff(torch.from_numpy(res[p.name]), want))
+            require(np.array_equal(res[p.name], want.cpu().numpy()),
+                    f"stacked {mode} scan of {p.name} vs its single-profile kernel")
+        errors["msv_stacked_scan"] = max(errors["msv_stacked_scan"], err)
+        groups = len({msv_cuda.kernel_per(msv_cuda.round_up(p.num_states, 8)) for p in profs})
+        print(f"stacked MSV kernel ({mode}): {len(profs)} profiles in {groups} launches == the "
+              f"single-profile kernels (max|d|={err})")
 
 
 # -- Viterbi / Forward (phases 5, 6) -------------------------------------------
@@ -252,6 +354,12 @@ def p7_calls(kind: str, pack, staged):
         def run(fn, tokens, lengths, c):
             return fn(*pack[:4], tokens, lengths, staged.tr_rows, staged.tr_probs,
                       pack.consts, *c)
+    elif kind == "filter":
+        carry = p7_cuda.viterbi_init_carry(staged.tr_rows, pack.m_pad)
+
+        def run(fn, tokens, lengths, c):
+            return fn(*pack[:4], tokens, lengths, staged.tr_rows, pack.consts, *c,
+                      pack.window, pack.e_skip_d)
     else:
         carry = p7_cuda.viterbi_init_carry(staged.tr_rows, pack.m_pad)
 
@@ -262,9 +370,11 @@ def p7_calls(kind: str, pack, staged):
 
 
 CUDA_FNS = {"eager": p7_cuda.viterbi_scan_cuda, "lazy": p7_cuda.viterbi_lazy_scan_cuda,
-            "forward": p7_cuda.forward_prob_scan_cuda}
+            "forward": p7_cuda.forward_prob_scan_cuda,
+            "filter": p7_cuda.viterbi_filter_scan_cuda}
 PLAIN_FNS = {"eager": p7_cuda.viterbi_scan_plain, "lazy": p7_cuda.viterbi_lazy_scan_plain,
-             "forward": p7_cuda.forward_prob_scan_plain}
+             "forward": p7_cuda.forward_prob_scan_plain,
+             "filter": p7_cuda.viterbi_filter_scan_plain}
 
 
 def p7_chain_error(kind: str, pack, staged) -> float:
@@ -285,13 +395,37 @@ def pre_diag(pack, m, i, d):
     return torch.maximum(torch.maximum(m + tmm, i + tim), d + tdm)
 
 
+def filter_vs_plain(p7, staged, eager_scores, window=None) -> tuple[float, int]:
+    """The Viterbi filter kernel at ``window`` (None: auto) against its
+    plain version (scores and carries, bit for bit) and >= eager Viterbi;
+    returns (max |d|, the window run)."""
+    pack = p7_cuda.filter_pack(p7, staged.tokens.device, window_log2=window)
+    run, carry = p7_calls("filter", pack, staged)
+    got = run(p7_cuda.viterbi_filter_scan_cuda, staged.tokens, staged.lengths, carry)
+    torch.cuda.synchronize()
+    want = run(p7_cuda.viterbi_filter_scan_plain, staged.tokens, staged.lengths, carry)
+    err = require_equal(got, want, f"Viterbi filter kernel (window {pack.window}) vs plain")
+    require_geq(got[0], eager_scores, f"Viterbi filter (window {pack.window}) vs eager")
+    return err, pack.window
+
+
+def without_e_skip_d(p7: P7Profile, field: str) -> P7Profile:
+    """``p7`` with every finite ``field`` (tdd or tmd) set to 0.01, which
+    breaks e_skip_d_ok: E must take D."""
+    vec = getattr(p7, field)
+    bad = type(p7)(**{**p7.__dict__, field: np.where(
+        np.isfinite(vec), np.float32(0.01), vec).astype(np.float32)})
+    require(not p7_cuda.e_skip_d_ok(bad), f"{field} = 0.01 kept e_skip_d_ok")
+    return bad
+
+
 def p7_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     lengths = rng.integers(0, RAGGED_LEN + 1, size=P7_BATCH).astype(np.int32)
     lengths[:10] = [0, 1, 31, 32, 33, 257, 128, 129, 600, 599]
     tokens = rng.integers(0, 20, size=(P7_BATCH, RAGGED_LEN)).astype(np.int8)
     staged = scanner.stage(tokens, lengths)
-    stems = sorted((p.stem for p in PROFILES.glob("*.hmm")), key=int)
-    for stem in stems:
+    eager_scores = {}
+    for stem in stems():
         p7 = p7_profile(stem)
         eager_pack = p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)
         lazy_pack = p7_cuda.viterbi_pack(p7, scanner.device, lazy=True)
@@ -313,15 +447,38 @@ def p7_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         fwd_plain = run_f(p7_cuda.forward_prob_scan_plain, staged.tokens, staged.lengths, carry_f)
         f_err = max_abs_diff(fwd[0], fwd_plain[0])
         require(f_err <= FWD_TOL, f"{stem}.hmm Forward kernel vs plain: max |d| {f_err}")
+        vf_err, window = filter_vs_plain(p7, staged, eager[0])
+        filt_pack = p7_cuda.filter_pack(p7, scanner.device)
         chains = [p7_chain_error(k, pk, staged)
-                  for k, pk in (("eager", eager_pack), ("lazy", lazy_pack), ("forward", fwd_pack))]
+                  for k, pk in (("eager", eager_pack), ("lazy", lazy_pack), ("forward", fwd_pack),
+                                ("filter", filt_pack))]
+        eager_scores[stem] = eager[0]
         errors["viterbi_scan"] = max(errors["viterbi_scan"], e_err, chains[0])
         errors["viterbi_lazy_scan"] = max(errors["viterbi_lazy_scan"], l_err, chains[1])
         errors["forward_prob_scan"] = max(errors["forward_prob_scan"], f_err, chains[2])
+        errors["viterbi_filter_scan"] = max(errors["viterbi_filter_scan"], vf_err, chains[3])
         print(f"p7 kernels vs plain {stem}.hmm: B={P7_BATCH} L<={RAGGED_LEN} eager max|d|={e_err} "
               f"lazy(k={lazy_pack.lazy_k}) vs eager max|d|={l_err} replays={int(lazy[5].sum())} "
-              f"forward(W={fwd_pack.chain.shape[0]}) max|d|={f_err:.3g}; chains at {P7_SPLIT} "
-              f"max|d|={max(chains)}", flush=True)
+              f"forward(W={fwd_pack.chain.shape[0]}) max|d|={f_err:.3g} filter(window={window}) "
+              f"max|d|={vf_err}, >= eager; chains at {P7_SPLIT} max|d|={max(chains)}", flush=True)
+
+    # the Viterbi filter at every window, and without e_skip_d
+    for stem in ("100", "1400"):
+        p7 = p7_profile(stem)
+        full = p7_cuda.chain_passes(p7_cuda.default_m_pad(p7))
+        errs = [filter_vs_plain(p7, staged, eager_scores[stem], w)[0] for w in range(1, full + 1)]
+        errors["viterbi_filter_scan"] = max(errors["viterbi_filter_scan"], *errs)
+        print(f"Viterbi filter {stem}.hmm windows 1..{full}: == plain (max|d|={max(errs)}), "
+              f">= eager on all")
+    for field in ("tdd", "tmd"):
+        bad = without_e_skip_d(p7_profile("100"), field)
+        eager_pack = p7_cuda.viterbi_pack(bad, scanner.device, lazy=False)
+        run_e, carry_v = p7_calls("eager", eager_pack, staged)
+        eager = run_e(p7_cuda.viterbi_scan_cuda, staged.tokens, staged.lengths, carry_v)
+        err, window = filter_vs_plain(bad, staged, eager[0])
+        errors["viterbi_filter_scan"] = max(errors["viterbi_filter_scan"], err)
+        print(f"Viterbi filter 100.hmm without e_skip_d ({field} = 0.01, window {window}): "
+              f"== plain (max|d|={err}), >= eager")
 
     # lazy_k = 1 on 100.hmm: the certificate fires, the replay is counted
     k1 = p7_cuda.viterbi_pack(p7_profile("100"), scanner.device, lazy=True, lazy_k=1)
@@ -344,6 +501,7 @@ def p7_kernels_vs_oracle(scanner, rng, errors: dict) -> None:
         staged = scanner.stage(tokens, lengths)
         vit = scanner.scan_p7(p7, staged, "viterbi").cpu().numpy()
         eager = viterbi_scores(p7, tokens, lengths, device=scanner.device, lazy=False).cpu().numpy()
+        filt = scanner.scan_p7_filter(p7, staged)
         fwd = scanner.scan_p7(p7, staged, "forward").cpu().numpy()
         want_v = viterbi_oracle_batch(p7, tokens, lengths)
         want_f = forward_oracle_batch(p7, tokens, lengths)
@@ -351,6 +509,7 @@ def p7_kernels_vs_oracle(scanner, rng, errors: dict) -> None:
         f_err = max_abs_diff(torch.from_numpy(fwd), torch.from_numpy(want_f))
         require(v_err <= VIT_TOL, f"{stem}.hmm Viterbi kernels vs oracle: max |d| {v_err}")
         require(f_err <= FWD_TOL, f"{stem}.hmm Forward kernel vs oracle: max |d| {f_err}")
+        require_geq(filt, torch.from_numpy(want_v), f"{stem}.hmm Viterbi filter vs oracle")
         print(f"p7 kernels vs oracle {stem}.hmm: lengths {lengths.tolist()} Viterbi (lazy, eager) "
               f"max|d|={v_err} (tol {VIT_TOL}), Forward max|d|={f_err:.3g} (tol {FWD_TOL})")
 
@@ -473,7 +632,76 @@ def main_paths(tmp: pathlib.Path, rng) -> dict:
     counts["viterbi_scan"] = got["viterbi_scan"]
     print(f"main path viterbi entry (lazy=False): {STAGE_BATCH} x <= {SEQ_LEN} vs 1400.hmm in "
           f"{time.perf_counter() - t0:.3f} s, launches {got}")
+
+    # scan --stage search --fast: the prefilters, then the exact stages
+    out = tmp / "search_fast.tsv"
+    got, e2e, secs, records = run_cli(["scan", "--stage", "search", "--fast", "--hmm", hmm,
+                                       "--fasta", str(fasta), "--device", DEVICE, "--out",
+                                       str(out)])
+    for name in ("msv_filter_scan", "msv_scan", "viterbi_filter_scan", "viterbi_lazy_scan",
+                 "forward_prob_scan"):
+        require(got[name] > 0, f"the fast search did not launch {name}")
+    counts["msv_filter_scan"] = got["msv_filter_scan"]
+    counts["viterbi_filter_scan"] = got["viterbi_filter_scan"]
+    plain_hits = hit_rows(tmp / "search.tsv")
+    fast_hits = hit_rows(out)
+    require(set(fast_hits) == set(plain_hits), "the fast search's hits differ from the search's")
+    require(fast_hits == plain_hits, "the fast search's hit rows differ from the search's")
+    require(set(planted.tolist()) <= {int(t[3:]) for t in fast_hits},
+            "the fast search missed a planted homolog")
+    summary = next(r.getMessage() for r in records if r.getMessage().startswith("search "))
+    print(f"main path search --fast: {summary}; {len(fast_hits)} hits, equal to the search's "
+          f"hit rows, all {PLANTED} planted rows among them; launches {got}")
+    print_seconds("main path search --fast", secs, e2e)
+
+    # sweep (msv) over the 24 profiles: the stacked kernel
+    out = tmp / "sweep.tsv"
+    got, e2e, secs, records = run_cli(["sweep", "--hmm-dir", str(PROFILES), "--fasta",
+                                       str(fasta), "--device", DEVICE, "--out", str(out)])
+    require(got["msv_stacked_scan"] > 0, "the sweep did not launch the stacked MSV kernel")
+    counts["msv_stacked_scan"] = got["msv_stacked_scan"]
+    name_1400 = load_profile(hmm).name
+    sweep_rows = [line for line in out.read_text().splitlines()
+                  if not line.startswith("#") and line.split("\t")[1] == name_1400]
+    scan_rows = (tmp / "scan.tsv").read_text().splitlines()[1:]
+    require(sweep_rows == scan_rows, "the sweep's 1400.hmm rows differ from scan's report")
+    n_rows = sum(1 for line in out.read_text().splitlines() if not line.startswith("#"))
+    require(n_rows == 24 * BATCH, f"the sweep reported {n_rows} rows, expected {24 * BATCH}")
+    summary = next(r.getMessage() for r in records if r.getMessage().startswith("swept "))
+    print(f"main path sweep: {summary}; {n_rows} rows, the 1400.hmm rows equal to scan's; "
+          f"launches {got}")
+    print_seconds("main path sweep", secs, e2e)
+
+    # sweep --stage search --fast over the 24 profiles: both filter kernels
+    out = tmp / "sweep_search.tsv"
+    got, e2e, secs, records = run_cli(["sweep", "--stage", "search", "--fast", "--hmm-dir",
+                                       str(PROFILES), "--fasta", str(fasta), "--device", DEVICE,
+                                       "--out", str(out)])
+    for name in ("msv_filter_scan", "viterbi_filter_scan"):
+        require(got[name] > 0, f"the fast search sweep did not launch {name}")
+    lines = [r.getMessage() for r in records if r.getMessage().startswith("search ")]
+    require(len(lines) == 24, f"{len(lines)} survivor lines, expected 24")
+    sweep_hits = {t for (t, prof) in hit_rows(out, with_profile=True) if prof == name_1400}
+    require(sweep_hits == set(fast_hits), "the sweep's 1400.hmm hits differ from the search's")
+    print("main path sweep search --fast, survivors per profile:")
+    for line in lines:
+        print(f"  {line}")
+    print(f"  launches {got}")
+    print_seconds("main path sweep search --fast", secs, e2e)
     return counts
+
+
+def hit_rows(path: pathlib.Path, with_profile: bool = False) -> dict:
+    """The report rows of a search report's hits, keyed by target (and
+    profile)."""
+    out = {}
+    for line in path.read_text().splitlines():
+        if line.startswith("#"):
+            continue
+        row = line.split("\t")
+        if row[7] == "1":
+            out[(row[0], row[1]) if with_profile else row[0]] = line
+    return out
 
 
 # -- timings (phase 8) ---------------------------------------------------------
@@ -485,7 +713,7 @@ def msv_timings(scanner, rng, errors: dict) -> dict:
     for stem, label in (("1400", "GCUPS_M1400"), ("2405", "headline_2405")):
         prof = profile(stem)
         args = msv_args(scanner, prof, staged)
-        err = msv_compare(args)
+        err, exact = msv_compare(args)
         errors["msv_scan"] = max(errors["msv_scan"], err)
         cells = staged.total_residues * prof.num_states
         ms = best_ms(lambda: msv_cuda.msv_scan_cuda(*args), reps=3)
@@ -497,6 +725,17 @@ def msv_timings(scanner, rng, errors: dict) -> dict:
             out["plain"] = plain_ms
             print(f"plain_GCUPS_M1400: {cells / plain_ms / 1e6:.2f} GCUPS "
                   f"({plain_ms:.3f} ms, best of 2)")
+            f_args = msv_args(scanner, prof, staged, filter_mode=True)
+            f_ms = best_ms(lambda: msv_cuda.msv_filter_scan_cuda(*f_args), reps=3)
+            f_plain_ms, want = once_ms(lambda: msv_cuda.msv_filter_scan_plain(*f_args))
+            got = msv_cuda.msv_filter_scan_cuda(*f_args)
+            f_err = require_equal(got, want, "MSV filter kernel vs plain at 16384 x 3500")
+            require_geq(got[0], exact, "MSV filter vs MSV at 16384 x 3500")
+            errors["msv_filter_scan"] = max(errors["msv_filter_scan"], f_err)
+            out["filter"] = (f_ms, f_plain_ms)
+            print(f"filter_1400: {cells / f_ms / 1e6:.2f} GCUPS ({f_ms:.3f} ms, best of 3); "
+                  f"plain version {f_plain_ms:.3f} ms ({cells / f_plain_ms / 1e6:.2f} GCUPS, "
+                  f"once), kernel vs plain max|d|={f_err}")
     return out
 
 
@@ -509,6 +748,7 @@ def p7_timings(scanner, rng, errors: dict) -> dict:
         "viterbi_lazy_scan": ("lazy", p7_cuda.viterbi_pack(p7, scanner.device, lazy=True)),
         "viterbi_scan": ("eager", p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)),
         "forward_prob_scan": ("forward", p7_cuda.forward_pack(p7, scanner.device)),
+        "viterbi_filter_scan": ("filter", p7_cuda.filter_pack(p7, scanner.device)),
     }
     out = {}
     for name, (kind, pack) in packs.items():
@@ -529,10 +769,55 @@ def p7_timings(scanner, rng, errors: dict) -> dict:
             fired = int(got[5].sum())
             extra = (f", lazy_k={pack.lazy_k}, {fired} of {chunks} chunks replayed "
                      f"({100.0 * fired / chunks:.4f}%)")
+        if kind == "filter":
+            full = p7_cuda.chain_passes(pack.m_pad)
+            extra = f", auto window {pack.window} of {full} passes"
         print(f"{name}_1400: {cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
               f"{STAGE_BATCH} x {SEQ_LEN} x M={p7.num_states}{extra}); plain version "
               f"{plain_ms:.3f} ms ({cells / plain_ms / 1e6:.2f} GCUPS, once), kernel vs plain "
               f"max|d|={err:.3g}", flush=True)
+    return out
+
+
+def sweep_timings(scanner, rng, errors: dict) -> dict:
+    """sweep24 / sweep24_filter: the stacked kernel over all 24 profiles at
+    SWEEP_BATCH x SEQ_LEN (one launch per register case), best of 3; the
+    plain exact sweep once over all 24 profiles, the plain filter sweep
+    once over every PLAIN_SWEEP_EVERY-th profile, scaled by cells."""
+    tokens = rng.integers(0, 20, size=(SWEEP_BATCH, SEQ_LEN)).astype(np.int8)
+    staged = scanner.stage(tokens, np.full(SWEEP_BATCH, SEQ_LEN, dtype=np.int32))
+    profs = [profile(stem) for stem in stems()]
+    cells = staged.total_residues * sum(p.num_states for p in profs)
+    groups = {}
+    for p in profs:
+        groups.setdefault(msv_cuda.kernel_per(msv_cuda.round_up(p.num_states, 8)), []).append(p)
+    args = (staged.tokens, staged.lengths, staged.tr_rows)
+    out = {}
+    for mode, label in (("exact", "sweep24"), ("filter", "sweep24_filter")):
+        packs = [scanner._stacked_pack(tuple(g), mode) for g in groups.values()]
+        ms = best_ms(lambda: [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs],
+                     reps=3)
+        got = [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs]
+        subset = profs if mode == "exact" else profs[::PLAIN_SWEEP_EVERY]
+        sub_packs = [scanner._stacked_pack((p,), mode) for p in subset]
+        plain_ms, want = once_ms(
+            lambda: [msv_cuda.msv_stacked_scan_plain(e, *args, c) for e, c in sub_packs])
+        sub_cells = staged.total_residues * sum(p.num_states for p in subset)
+        scale = cells / sub_cells
+        # the subset's rows of the stacked launches against its plain rows
+        rows = {p.name: g[k] for g, grp in zip(got, groups.values()) for k, p in enumerate(grp)}
+        err = require_equal([rows[p.name] for p in subset], [w[0] for w in want],
+                            f"stacked {mode} sweep vs plain at {SWEEP_BATCH} x {SEQ_LEN}")
+        errors["msv_stacked_scan"] = max(errors["msv_stacked_scan"], err)
+        out[label] = (ms, plain_ms * scale)
+        what = ("all 24 profiles" if scale == 1.0 else
+                f"{len(subset)} profiles ({', '.join(p.name for p in subset)}), "
+                f"{plain_ms:.3f} ms scaled by cells x{scale:.4f}")
+        print(f"{label}: {cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, {SWEEP_BATCH} x "
+              f"{SEQ_LEN} x 24 profiles, sum Mr = {sum(p.num_states for p in profs)}, "
+              f"{len(groups)} launches); plain version {plain_ms * scale:.3f} ms "
+              f"({cells / (plain_ms * scale) / 1e6:.2f} GCUPS, once, {what}); kernel vs plain "
+              f"max|d|={err}", flush=True)
     return out
 
 
@@ -558,20 +843,8 @@ def main() -> int:
         print(f"library: {lib_path}")
         print("\n".join(ptxas_summary(log)))
 
-    with Phase("3. MSV kernel vs plain, 24 profiles"):
-        lengths = rng.integers(0, RAGGED_LEN + 1, size=RAGGED_BATCH).astype(np.int32)
-        lengths[:12] = np.minimum([0, 1, 2, 31, 32, 33, 64, 96, 256, 257, 512, 600], RAGGED_LEN)
-        tokens = rng.integers(0, 20, size=(RAGGED_BATCH, RAGGED_LEN)).astype(np.int8)
-        staged = scanner.stage(tokens, lengths)
-        stems = sorted((p.stem for p in PROFILES.glob("*.hmm")), key=int)
-        require(len(stems) == 24, f"24 profiles, found {len(stems)}")
-        for stem in stems:
-            args = msv_args(scanner, profile(stem), staged)
-            err = msv_compare(args)
-            chain = msv_chain_error(args)
-            errors["msv_scan"] = max(errors["msv_scan"], err, chain)
-            print(f"kernel vs plain {stem}.hmm: B={RAGGED_BATCH} L<={RAGGED_LEN} max|d|={err} "
-                  f"chain at {SPLIT}: max|d|={chain}")
+    with Phase("3. MSV kernels (exact, filter, stacked) vs plain, 24 profiles"):
+        msv_kernels_vs_plain(scanner, rng, errors)
 
     with Phase("4. MSV kernel vs oracle"):
         lengths8 = np.minimum([0, 1, 32, 100, 257, 1000, 2048, SEQ_LEN], SEQ_LEN).astype(np.int32)
@@ -584,7 +857,7 @@ def main() -> int:
                     f"kernel != oracle on {stem}.hmm")
             print(f"kernel vs oracle {stem}.hmm: 8 seqs, equal (max|d|=0.0)")
 
-    with Phase("5. Viterbi/Forward kernels vs plain, 24 profiles"):
+    with Phase("5. Viterbi/Viterbi filter/Forward kernels vs plain, 24 profiles"):
         p7_kernels_vs_plain(scanner, rng, errors)
 
     with Phase("6. Viterbi/Forward kernels vs oracle"):
@@ -597,9 +870,11 @@ def main() -> int:
     with Phase("8. timings"):
         msv_ms = msv_timings(scanner, rng, errors)
         p7_ms = p7_timings(scanner, rng, errors)
+        sweep_ms = sweep_timings(scanner, rng, errors)
         print("card after timing:", nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
-    times = {"msv_scan": (msv_ms["1400"], msv_ms["plain"]), **p7_ms}
+    times = {"msv_scan": (msv_ms["1400"], msv_ms["plain"]), "msv_filter_scan": msv_ms["filter"],
+             "msv_stacked_scan": sweep_ms["sweep24"], **p7_ms}
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {
@@ -607,12 +882,13 @@ def main() -> int:
             "route": "cuda",
             "source": f"hmm_fasta_viterbi_tpu_torch/{source}",
             "replaces": replaces,
+            "mode": mode,
             "launches": counts[name],
             "max_abs_err": errors[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
         }
-        for name, (source, replaces) in KERNELS.items()
+        for name, (source, replaces, mode) in KERNELS.items()
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ It stands beside ``hmm_fasta_viterbi_tpu``, the JAX/Pallas package that is
 its reference, and imports only that package's JAX-free modules: the
 parsers, the MSV and P7 models, the score statistics and the NumPy
 oracles. So far it runs the MSV scan, the full-profile Viterbi and Forward
-scans and the MSV -> Viterbi -> Forward search cascade, through
-hand-written CUDA kernels on the card (``csrc/*.cu``) or their plain
-PyTorch versions on the CPU.
+scans, the MSV -> Viterbi -> Forward search cascade with or without the
+upper-bound MSV and Viterbi prefilters (``--fast``), and the stacked
+profile sweep, through hand-written CUDA kernels on the card
+(``csrc/*.cu``) or their plain PyTorch versions on the CPU.
 """
 
 from hmm_fasta_viterbi_tpu.io.fastaio import parse_fasta

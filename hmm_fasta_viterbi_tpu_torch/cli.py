@@ -1,13 +1,17 @@
 """Command-line interface of the PyTorch port.
 
     python -m hmm_fasta_viterbi_tpu_torch scan --hmm P.hmm --fasta DB.fsa
-        [--stage msv|viterbi|forward|search]
+        [--stage msv|viterbi|forward|search] [--fast]
+    python -m hmm_fasta_viterbi_tpu_torch sweep --hmm-dir DIR | --hmm-db FILE
+        --fasta DB.fsa [--stage msv|search] [--fast]
 
-``hmm_fasta_viterbi_tpu``'s ``scan`` with the same flags and the same
-TSV/JSON reports: one stage's scores, or (``--stage search``) the MSV ->
-Viterbi -> Forward cascade with a row for every MSV survivor. ``--device``
-(default ``cuda``) names the torch device, and ``--device cpu`` runs the
-kernels' plain versions.
+``hmm_fasta_viterbi_tpu``'s ``scan`` and ``sweep`` with the same flags and
+the same TSV/JSON reports: one stage's scores, or (``--stage search``) the
+MSV -> Viterbi -> Forward cascade with a row for every MSV survivor
+(``--fast``: behind the upper-bound MSV and Viterbi prefilters); a sweep
+scores many profiles against one staged database. ``--device`` (default
+``cuda``) names the torch device, and ``--device cpu`` runs the kernels'
+plain versions.
 """
 
 from __future__ import annotations
@@ -16,13 +20,14 @@ import argparse
 import contextlib
 import json
 import logging
+import pathlib
 import sys
 import time
 
 import numpy as np
 import torch
 
-from hmm_fasta_viterbi_tpu.io.loader import load_fasta, load_profile
+from hmm_fasta_viterbi_tpu.io.loader import load_fasta, load_profile, load_profiles
 from hmm_fasta_viterbi_tpu.models import stats
 from hmm_fasta_viterbi_tpu.models.msv import MSVProfile
 from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
@@ -60,7 +65,32 @@ def _out_sink(args):
         yield sys.stdout
 
 
-def _report(profile, db, scores: np.ndarray, args, out, stage: str = "msv") -> None:
+@contextlib.contextmanager
+def _json_accumulator(args, sink):
+    """A sweep in JSON format writes ONE document: every profile's rows are
+    collected and dumped as one array at the end (also after a failure
+    part way, as --out was already truncated)."""
+    if args.format != "json":
+        yield None
+        return
+    rows: list = []
+    try:
+        yield rows
+    finally:
+        json.dump(rows, sink, indent=1)
+        sink.write("\n")
+
+
+def _write_json(rows, out, rows_sink) -> None:
+    if rows_sink is not None:
+        rows_sink.extend(rows)
+    else:
+        json.dump(rows, out, indent=1)
+        out.write("\n")
+
+
+def _report(profile, db, scores: np.ndarray, args, out, stage: str = "msv",
+            rows_sink=None) -> None:
     bits = stats.nats_to_bits(scores)
     pvals = _PVALUE_FNS[stage](scores, profile)
     evals = stats.evalue(pvals, len(db))
@@ -82,8 +112,7 @@ def _report(profile, db, scores: np.ndarray, args, out, stage: str = "msv") -> N
             }
         )
     if args.format == "json":
-        json.dump(rows, out, indent=1)
-        out.write("\n")
+        _write_json(rows, out, rows_sink)
     else:
         out.write("# target\tprofile\tscore_nats\tscore_bits\tpvalue\tevalue\n")
         for r in rows:
@@ -93,7 +122,7 @@ def _report(profile, db, scores: np.ndarray, args, out, stage: str = "msv") -> N
             )
 
 
-def _report_search(hmm, db, result, args, out) -> None:
+def _report_search(hmm, db, result, args, out, rows_sink=None) -> None:
     """One row per MSV survivor, ordered by Forward score (rows Forward
     never reached last), as the JAX CLI's search report without domains or
     alignments."""
@@ -119,8 +148,7 @@ def _report_search(hmm, db, result, args, out) -> None:
         for i in order
     ]
     if args.format == "json":
-        json.dump(rows, out, indent=1)
-        out.write("\n")
+        _write_json(rows, out, rows_sink)
     else:
         out.write("# target\tprofile\tmsv_bits\tmsv_p\tviterbi_p\tforward_p\tevalue\thit\n")
         for r in rows:
@@ -131,7 +159,9 @@ def _report_search(hmm, db, result, args, out) -> None:
             )
 
 
-def cmd_scan(args) -> int:
+def _device(args) -> torch.device | None:
+    """``--device``, or None (after logging why) when it names CUDA and
+    torch has none: the CLI never carries on on the CPU."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         logger.error(
@@ -139,6 +169,22 @@ def cmd_scan(args) -> int:
             "a CPU-only torch); pass --device cpu to run the plain versions",
             args.device,
         )
+        return None
+    return device
+
+
+def _log_seconds(t_start, t0, t_staged, phases, report_s) -> None:
+    logger.info(
+        "seconds: parse %.6f stage %.6f msv %.6f viterbi %.6f forward %.6f "
+        "report %.6f total %.6f",
+        t0 - t_start, t_staged - t0, phases["msv"], phases["viterbi"], phases["forward"],
+        report_s, time.perf_counter() - t_start,
+    )
+
+
+def cmd_scan(args) -> int:
+    device = _device(args)
+    if device is None:
         return 2
     if args.out:
         open(args.out, "w").close()  # fail fast on a bad --out path
@@ -157,7 +203,7 @@ def cmd_scan(args) -> int:
     t_staged = time.perf_counter()
     phases = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
     if args.stage == "search":
-        pipeline = SearchPipeline(scanner)
+        pipeline = SearchPipeline(scanner, fast_msv=args.fast, fast_viterbi=args.fast)
         result = pipeline.search(hmm, staged, tokens, lengths)
         phases = pipeline.phase_seconds
         t_scanned = time.perf_counter()
@@ -185,13 +231,115 @@ def cmd_scan(args) -> int:
         )
         with _out_sink(args) as sink:
             _report(hmm, db, scores, args, out=sink, stage=args.stage)
-    logger.info(
-        "seconds: parse %.6f stage %.6f msv %.6f viterbi %.6f forward %.6f "
-        "report %.6f total %.6f",
-        t0 - t_start, t_staged - t0, phases["msv"], phases["viterbi"], phases["forward"],
-        time.perf_counter() - t_scanned, time.perf_counter() - t_start,
-    )
+    _log_seconds(t_start, t0, t_staged, phases, time.perf_counter() - t_scanned)
     return 0
+
+
+def _load_sweep_profiles(args) -> list | None:
+    """The sweep's profiles: ``--hmm-dir`` (a directory of .hmm files) or
+    ``--hmm-db`` (one concatenated //-separated file). None (a usage error)
+    unless exactly one is given or when two profiles share a NAME (the
+    results are keyed by it); [] when there is nothing to load."""
+    hmm_db = args.hmm_db
+    if bool(hmm_db) == bool(args.hmm_dir):
+        logger.error("sweep needs exactly one of --hmm-dir / --hmm-db")
+        return None
+    if args.hmm_dir and not pathlib.Path(args.hmm_dir).is_dir():
+        logger.error("--hmm-dir %s is not a directory", args.hmm_dir)
+        return []
+    if hmm_db and not pathlib.Path(hmm_db).is_file():
+        logger.error("--hmm-db %s is not a file", hmm_db)
+        return []
+    hmms = load_profiles(hmm_db or args.hmm_dir, prefer=args.loader)
+    if not hmms:
+        logger.error("no profiles in %s", hmm_db or args.hmm_dir)
+        return hmms
+    seen: dict[str, int] = {}
+    for h in hmms:
+        seen[h.name] = seen.get(h.name, 0) + 1
+    dupes = sorted(n for n, c in seen.items() if c > 1)
+    if dupes:
+        logger.error("duplicate profile NAME(s) in %s: %s", hmm_db or args.hmm_dir,
+                     ", ".join(dupes))
+        return None
+    return hmms
+
+
+def cmd_sweep(args) -> int:
+    device = _device(args)
+    if device is None:
+        return 2
+    if args.out:
+        open(args.out, "w").close()  # fail fast on a bad --out path
+    t_start = time.perf_counter()
+    hmms = _load_sweep_profiles(args)
+    if hmms is None:
+        return 2
+    if not hmms:
+        return 1
+    db = load_fasta(args.fasta, prefer=args.loader)
+    tokens, lengths = db.encode()
+    scanner = MSVScanner(device=device)
+    t0 = time.perf_counter()
+    staged = scanner.stage(tokens, lengths)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # the upload belongs to the stage time
+    t_staged = time.perf_counter()
+    phases = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
+    if args.stage == "search":
+        # the cascade per profile against the one staged database, each
+        # profile's rows reported before the next profile runs
+        pipeline = SearchPipeline(scanner, fast_msv=args.fast, fast_viterbi=args.fast)
+        report_s = 0.0
+        with _out_sink(args) as sink, _json_accumulator(args, sink) as acc:
+            for hmm in hmms:
+                result = pipeline.search(hmm, staged, tokens, lengths)
+                for name, sec in pipeline.phase_seconds.items():
+                    phases[name] += sec
+                logger.info(
+                    "search %s: %d past MSV -> %d past Viterbi -> %d hits",
+                    hmm.name, int(result.passed_msv.sum()),
+                    int(result.passed_viterbi.sum()), int(result.passed_forward.sum()),
+                )
+                t_report = time.perf_counter()
+                _report_search(hmm, db, result, args, out=sink, rows_sink=acc)
+                report_s += time.perf_counter() - t_report
+    else:
+        profiles = [MSVProfile.from_profile(h) for h in hmms]
+        results = scanner.scan_many(profiles, staged)
+        t_scanned = time.perf_counter()
+        phases["msv"] = t_scanned - t_staged
+        cells = int(lengths.astype(np.int64).sum()) * sum(p.num_states for p in profiles)
+        logger.info(
+            "swept %d seqs x %d profiles (msv) in %.3fs (%.2f GCUPS)",
+            len(db), len(profiles), phases["msv"], cells / phases["msv"] / 1e9,
+        )
+        with _out_sink(args) as sink, _json_accumulator(args, sink) as acc:
+            for profile in profiles:
+                _report(profile, db, results[profile.name], args, out=sink, rows_sink=acc)
+        report_s = time.perf_counter() - t_scanned
+    _log_seconds(t_start, t0, t_staged, phases, report_s)
+    return 0
+
+
+def _add_common(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--fasta", required=True, help="protein FASTA database")
+    ap.add_argument(
+        "--device", default="cuda",
+        help="torch device: cuda (the kernels) or cpu (their plain versions)",
+    )
+    ap.add_argument("--format", default="tsv", choices=["tsv", "json"])
+    ap.add_argument("--top", type=int, default=0, help="report only the top K hits (0 = all)")
+    ap.add_argument("--max-evalue", type=float, default=None, help="E-value cutoff")
+    ap.add_argument(
+        "--loader", default="auto", choices=["auto", "native", "python"],
+        help="data loader: native C++ fast path or pure-Python parsers",
+    )
+    ap.add_argument("--out", default=None, help="write results to FILE instead of stdout")
+
+
+_FAST_HELP = ("search stage: bf16 upper-bound MSV + Viterbi prefilters "
+              "with exact rescore of survivors")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -204,24 +352,31 @@ def build_parser() -> argparse.ArgumentParser:
 
     scan = sub.add_parser("scan", help="scan a FASTA database against one profile")
     scan.add_argument("--hmm", required=True, help="HMMER3 .hmm profile")
-    scan.add_argument("--fasta", required=True, help="protein FASTA database")
     scan.add_argument(
         "--stage", default="msv", choices=["msv", "viterbi", "forward", "search"],
         help="scoring stage, or search: the MSV -> Viterbi -> Forward cascade",
     )
-    scan.add_argument(
-        "--device", default="cuda",
-        help="torch device: cuda (the kernels) or cpu (their plain versions)",
-    )
-    scan.add_argument("--format", default="tsv", choices=["tsv", "json"])
-    scan.add_argument("--top", type=int, default=0, help="report only the top K hits (0 = all)")
-    scan.add_argument("--max-evalue", type=float, default=None, help="E-value cutoff")
-    scan.add_argument(
-        "--loader", default="auto", choices=["auto", "native", "python"],
-        help="data loader: native C++ fast path or pure-Python parsers",
-    )
-    scan.add_argument("--out", default=None, help="write results to FILE instead of stdout")
+    scan.add_argument("--fast", action="store_true", help=_FAST_HELP)
+    _add_common(scan)
     scan.set_defaults(fn=cmd_scan)
+
+    sweep = sub.add_parser(
+        "sweep",
+        help="scan a FASTA database against a profile directory or a "
+        "concatenated .hmm database",
+    )
+    sweep.add_argument("--hmm-dir", default=None, help="directory of per-model .hmm files")
+    sweep.add_argument(
+        "--hmm-db", default=None, metavar="FILE",
+        help="ONE concatenated //-separated .hmm database (the hmmscan Pfam.hmm shape)",
+    )
+    sweep.add_argument(
+        "--stage", default="msv", choices=["msv", "search"],
+        help="msv scores per profile, or the full cascade (hmmscan-shaped)",
+    )
+    sweep.add_argument("--fast", action="store_true", help=_FAST_HELP)
+    _add_common(sweep)
+    sweep.set_defaults(fn=cmd_sweep)
     return ap
 
 

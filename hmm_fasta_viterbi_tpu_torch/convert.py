@@ -6,13 +6,17 @@ both packages can score the same inputs:
 
 * a profile: an ``MSVProfile``, or the JAX scanner's device pack
   ``(scores_t [1, M_pad, 20], tr_consts [1, 3])``;
+* the MSV filter's pack ``(prepare_scores_t_filter [1, M_pad, 20] bf16,
+  tr_consts [1, 3])`` and a stacked sweep pack ``(scores_t [P, M_pad, 20]
+  f32 or bf16, tr_consts [P, 3])``;
 * a staged database: ``tokens_i8_t [L_pad, B_pad]``, ``lengths [B_pad]``,
   ``tr_rows [2, B_pad]`` and ``tr_probs [2, B_pad]`` of a JAX
   ``StagedDatabase``;
 * the DP carry of ``msv_pallas_call``: ``m [M_pad, B_pad]`` and
   ``s [4, B_pad]``;
 * a Viterbi/Forward pack: the outputs of ``pallas_p7.prepare_p7_device``,
-  ``prepare_p7_device_lazy`` or ``prepare_p7_device_prob`` (``[M_pad, …]``);
+  ``prepare_p7_device_lazy`` or ``prepare_p7_device_prob`` (``[M_pad, …]``),
+  and the Viterbi filter's ``prepare_p7_device_filter`` tuple;
 * the DP carry of ``p7_pallas_call`` / ``fwd_prob_pallas_call``:
   ``m, i, d [M_pad, B_pad]`` and ``s [4 | 8, B_pad]``.
 """
@@ -47,6 +51,43 @@ def device_profile_from_jax(
     )
     consts = np.asarray(tr_consts, dtype=np.float32).reshape(3)
     return torch.from_numpy(emit).to(device), torch.from_numpy(consts.copy()).to(device)
+
+
+def filter_profile_from_jax(
+    scores_t_bf16: np.ndarray, tr_consts: np.ndarray, num_states: int, device
+):
+    """The port's filter pack ``(emit bf16 [20, M_pad], tr_consts [3])``
+    from the JAX scanner's ``(prepare_scores_t_filter(...)[None] [1, M_pad,
+    20] bf16, tr_consts [1, 3])``: the same bf16 numbers on the real
+    states, -inf on the port's pad states."""
+    bits = msv_cuda.prepare_emit_filter(
+        scores_t_bf16, num_states, msv_cuda.round_up(num_states, M_BUCKET)
+    )
+    consts = np.asarray(tr_consts, dtype=np.float32).reshape(3)
+    return msv_cuda.bf16_tensor(bits, device), torch.from_numpy(consts.copy()).to(device)
+
+
+def stacked_profiles_from_jax(
+    scores_t: np.ndarray, tr_consts: np.ndarray, num_states, device
+):
+    """The port's stacked pack ``(emit [P, 20, M_pad], tr_consts [P, 3])``
+    from a JAX stacked sweep pack ``(scores_t [P, M_pad, 20], tr_consts [P,
+    3])``: f32 tables (``prepare_scores_t``, the exact sweep) stay f32,
+    bf16 ones (``prepare_scores_t_filter``, the filter sweep) stay bf16.
+    ``num_states`` lists each profile's Mr."""
+    scores_t = np.asarray(scores_t)
+    m_pad = msv_cuda.round_up(max(num_states), M_BUCKET)
+    if scores_t.dtype.itemsize == 2:
+        emit = msv_cuda.bf16_tensor(np.stack([
+            msv_cuda.prepare_emit_filter(x, n, m_pad) for x, n in zip(scores_t, num_states)
+        ]), device)
+    else:
+        emit = torch.from_numpy(np.stack([
+            msv_cuda.prepare_emit(np.ascontiguousarray(np.asarray(x, np.float32)[:n].T), m_pad)
+            for x, n in zip(scores_t, num_states)
+        ])).to(device)
+    consts = np.asarray(tr_consts, dtype=np.float32).reshape(-1, 3)
+    return emit, torch.from_numpy(consts.copy()).to(device)
 
 
 def staged_from_jax(
@@ -92,6 +133,15 @@ def p7_pack_from_jax(msc_t, isc_t, trans_t, chain_t, tr_consts, device, lazy_k: 
     output, ``[M_pad, …]`` arrays); ``lazy_k`` is the lazy packer's window,
     0 for the eager and Forward packs."""
     return p7_cuda.device_pack(msc_t, isc_t, trans_t, chain_t, tr_consts, device, lazy_k)
+
+
+def p7_filter_pack_from_jax(msc_bf, isc_bf, trans_t, chain_t, tr_consts, window, e_skip_d,
+                            device) -> p7_cuda.P7FilterPack:
+    """The port's ``P7FilterPack`` from ``pallas_p7.prepare_p7_device_filter``'s
+    tuple ``(msc_bf, isc_bf [M_pad, 20] bf16, trans_t, chain_t, tr_consts
+    [1, 4], window, e_skip_d)``: the same numbers, transposed."""
+    return p7_cuda.filter_device_pack(msc_bf, isc_bf, trans_t, chain_t, tr_consts, window,
+                                      e_skip_d, device)
 
 
 def p7_carry_from_jax(m, i, d, s, device):

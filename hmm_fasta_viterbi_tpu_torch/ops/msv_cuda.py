@@ -1,10 +1,19 @@
-"""MSV max-plus DP scan: the CUDA kernel's wrapper, its plain PyTorch
-version, and the host packers.
+"""MSV max-plus DP scan: the CUDA kernel's wrappers, their plain PyTorch
+versions, and the host packers.
 
 The counterpart of ``hmm_fasta_viterbi_tpu/ops/pallas_msv.py`` (the Pallas
-TPU kernel, exact mode, one profile) and of ``ops/xla_scan.py`` with the
-recurrence of ``ops/recurrence.py``. The TPU layout is not carried over;
-the contract is the scores and the DP carry:
+TPU kernel) and of ``ops/xla_scan.py`` with the recurrence of
+``ops/recurrence.py``, in the TPU kernel's three modes:
+
+* :func:`msv_scan`: exact, one profile, f32 table;
+* :func:`msv_filter_scan`: the filter, one profile, the host's bf16
+  round-up of the table (:func:`prepare_scores_t_filter`), every score an
+  upper bound on the exact one;
+* :func:`msv_stacked_scan`: P profiles of one padded width in one launch,
+  f32 (exact) or bf16 (filter) tables, scores only.
+
+The TPU layout is not carried over; the contract is the scores and the DP
+carry:
 
 * ``emit`` f32 ``[20, M_pad]``: row ``aa`` holds the emission scores of the
   ``Mr`` real match states (``MSVProfile.scores_real``, not clamped), and
@@ -20,7 +29,12 @@ the contract is the scores and the DP carry:
   takes the first's carries, the residues from the split on and the
   lengths less the split, clipped at 0.
 
-``msv_scan`` runs the plain version on CPU tensors and the kernel on CUDA
+The filter's ``emit`` is bf16 ``[20, M_pad]`` (torch.bfloat16) with -inf
+pad columns; its carries are the exact scan's. The stacked scan takes
+``emit [P, 20, M_pad]`` and ``tr_consts [P, 3]`` and returns ``scores [P,
+B_pad]`` from the row-0 carry.
+
+Each scan runs its plain version on CPU tensors and its kernel on CUDA
 tensors; it never falls back from one to the other.
 """
 
@@ -78,13 +92,52 @@ def prepare_scores_t(profile: MSVProfile, m_pad: int | None = None) -> np.ndarra
     prepare_scores_t``): ``[M_pad, 20]`` real-state scores, -inf clamped to
     PAD_SCORE and pad rows PAD_SCORE. The port's kernel reads
     :func:`prepare_emit` instead; this is the pack a JAX scanner hands to
-    ``convert.device_profile_from_jax``, and the base of the MSV filter
-    mode's bf16 round-up, which is still to be ported."""
+    ``convert.device_profile_from_jax``, and the base of the filter's bf16
+    round-up (:func:`prepare_scores_t_filter`)."""
     mr = profile.num_states
     m_pad = m_pad or round_up(mr, 8)
     out = np.full((m_pad, NUM_AA), PAD_SCORE, dtype=np.float32)
+    # clamp: -inf must not reach the bf16 round-up (PAD_SCORE loses every
+    # max as -inf does)
     out[:mr, :] = np.maximum(profile.scores_real.T, PAD_SCORE)
     return out
+
+
+BF16_NEG_INF = 0xFF80  # the bits of bf16 -inf
+
+
+def bf16_round_up(f32: np.ndarray) -> np.ndarray:
+    """Round f32 values to bf16 toward +inf (every output >= its input), as
+    the bits of the bf16 values (uint16), byte for byte those of
+    ``pallas_msv.bf16_round_up(...).view(np.uint16)``.
+
+    Round to nearest even on the uint32 view (JAX's cast), then one bf16
+    ulp up where that fell below: raw + 1 for a positive value (and +0,
+    whose next value up is the smallest subnormal), raw - 1 for a negative
+    one. ±inf and -0 are exact and stay; NaN becomes a quiet NaN."""
+    f32 = np.ascontiguousarray(f32, dtype=np.float32)
+    u = f32.view(np.uint32).astype(np.uint64)
+    nearest = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+    nearest = np.where(np.isnan(f32), (u >> 16).astype(np.uint16) | np.uint16(0x40), nearest)
+    widened = (nearest.astype(np.uint32) << 16).view(np.float32)
+    bumped = np.where(nearest & 0x8000, nearest - np.uint16(1), nearest + np.uint16(1))
+    return np.where(widened < f32, bumped, nearest).astype(np.uint16)
+
+
+def f32_round_up(x: np.ndarray) -> np.ndarray:
+    """Bump finite f32 entries one ulp toward +inf; ±inf stay
+    (``pallas_msv.f32_round_up``)."""
+    x = np.asarray(x, dtype=np.float32)
+    out = np.nextafter(x, np.float32(np.inf), dtype=np.float32)
+    return np.where(np.isfinite(x), out, x)
+
+
+def prepare_scores_t_filter(profile: MSVProfile, m_pad: int | None = None) -> np.ndarray:
+    """The TPU filter's ``[M_pad, 20]`` table: :func:`prepare_scores_t`
+    rounded up to bf16, as uint16 bits (``pallas_msv.
+    prepare_scores_t_filter``). Max-plus DP is monotone in every score, so
+    the filter's score bounds the exact one from above."""
+    return bf16_round_up(prepare_scores_t(profile, m_pad))
 
 
 def prepare_emit(scores_real: np.ndarray, m_pad: int) -> np.ndarray:
@@ -98,14 +151,55 @@ def prepare_emit(scores_real: np.ndarray, m_pad: int) -> np.ndarray:
     return out
 
 
+def prepare_emit_filter(scores_t_bits: np.ndarray, num_states: int, m_pad: int) -> np.ndarray:
+    """The port's filter pack, ``[20, M_pad]`` bf16 bits: the real rows of
+    a TPU filter table (:func:`prepare_scores_t_filter`) transposed, -inf
+    in the pad columns."""
+    bits = np.asarray(scores_t_bits).view(np.uint16).reshape(-1, NUM_AA)
+    if m_pad < num_states or bits.shape[0] < num_states:
+        raise ValueError(f"{bits.shape[0]} table rows, {num_states} states, M_pad {m_pad}")
+    out = np.full((NUM_AA, m_pad), BF16_NEG_INF, dtype=np.uint16)
+    out[:, :num_states] = bits[:num_states].T
+    return out
+
+
+def bf16_tensor(bits: np.ndarray, device) -> torch.Tensor:
+    """A torch.bfloat16 tensor on ``device`` holding these bf16 bits."""
+    return torch.from_numpy(np.ascontiguousarray(bits, dtype=np.uint16).view(np.int16)).view(
+        torch.bfloat16).to(device)
+
+
+def _tr_consts(profile: MSVProfile) -> np.ndarray:
+    return np.array([profile.tr_B_Mk, profile.tr_E_C, profile.tr_E_J], dtype=np.float32)
+
+
 def pack_profile(profile: MSVProfile, m_pad: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """``(emit [20, M_pad], tr_consts [3])`` of one profile on ``device``."""
     emit = torch.from_numpy(prepare_emit(profile.scores_real, m_pad)).to(device)
-    tr_consts = torch.tensor(
-        [profile.tr_B_Mk, profile.tr_E_C, profile.tr_E_J],
-        dtype=torch.float32, device=device,
-    )
-    return emit, tr_consts
+    return emit, torch.from_numpy(_tr_consts(profile)).to(device)
+
+
+def pack_profile_filter(profile: MSVProfile, m_pad: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(emit bf16 [20, M_pad], tr_consts [3])``: the filter's pack of one
+    profile on ``device``."""
+    bits = prepare_emit_filter(prepare_scores_t_filter(profile), profile.num_states, m_pad)
+    return bf16_tensor(bits, device), torch.from_numpy(_tr_consts(profile)).to(device)
+
+
+def pack_stacked(profiles, m_pad: int, device, filter_mode: bool):
+    """``(emit [P, 20, M_pad], tr_consts [P, 3])`` of a profile stack: f32
+    tables, or with ``filter_mode`` the filter's bf16 ones."""
+    if filter_mode:
+        bits = np.stack([
+            prepare_emit_filter(prepare_scores_t_filter(p), p.num_states, m_pad)
+            for p in profiles
+        ])
+        emit = bf16_tensor(bits, device)
+    else:
+        emit = torch.from_numpy(
+            np.stack([prepare_emit(p.scores_real, m_pad) for p in profiles])).to(device)
+    consts = torch.from_numpy(np.stack([_tr_consts(p) for p in profiles])).to(device)
+    return emit, consts
 
 
 def init_carry(tr_rows: torch.Tensor, m_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -155,6 +249,24 @@ def msv_scan_plain(emit, tokens, lengths, tr_rows, tr_consts, m, s):
     return st_c + tr_move, m.clone(), torch.stack([st_j, st_c, st_n, st_b])
 
 
+def msv_filter_scan_plain(emit, tokens, lengths, tr_rows, tr_consts, m, s):
+    """The filter in plain PyTorch; same arguments and results as
+    :func:`msv_filter_scan`: the exact scan over the bf16 table widened to
+    f32 (exact), which is what the TPU kernel's one-hot select of a single
+    bf16 term computes."""
+    return msv_scan_plain(emit.float(), tokens, lengths, tr_rows, tr_consts, m, s)
+
+
+def msv_stacked_scan_plain(emit, tokens, lengths, tr_rows, tr_consts):
+    """The stacked scan in plain PyTorch, one profile after the other from
+    the row-0 carry; same arguments and results as :func:`msv_stacked_scan`."""
+    out = []
+    for p in range(emit.shape[0]):
+        m, s = init_carry(tr_rows, emit.shape[2])
+        out.append(msv_scan_plain(emit[p].float(), tokens, lengths, tr_rows, tr_consts[p], m, s)[0])
+    return torch.stack(out) if out else torch.empty((0, tokens.shape[0]), device=tokens.device)
+
+
 # -- the kernel ------------------------------------------------------------
 
 @functools.cache
@@ -163,7 +275,7 @@ def _kernel_library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.msv_scan_launch.argtypes = [
-        i, i, i, p, i, p, i, p, p, p, p, p, p, p, p, i, p,
+        i, i, i, i, i, p, i, p, i, p, p, p, p, p, p, p, p, i, p,
     ]
     lib.msv_scan_launch.restype = i
     lib.msv_error_string.argtypes = [i]
@@ -193,48 +305,104 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def msv_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s):
-    """Launch ``csrc/msv_kernel.cu`` on the current stream; same arguments
-    and results as :func:`msv_scan`. Raises on anything the kernel does not
-    take and on a refused launch; never falls back."""
+# the SM's shared memory a block may take (227 KB); a table over half of it
+# leaves room for one block an SM
+SMEM_PER_SM = 232448
+
+
+def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry):
+    """Check the operands and launch the kernel on the current stream.
+    ``emit`` is ``[P, 20, M_pad]`` f32 or bf16 and ``tr_consts`` ``[P, 3]``;
+    ``carry`` is ``(m, s)`` (P = 1: the carries come back) or None (the
+    row-0 carry, scores only). Returns ``(scores [P, B_pad], m_out,
+    s_out)``."""
     device = tokens.device
     if device.type != "cuda":
-        raise ValueError(f"msv_scan_cuda needs CUDA tensors, got {device}")
+        raise ValueError(f"{what} needs CUDA tensors, got {device}")
+    num_p, _, m_pad = emit.shape
     b_pad, l_pad = tokens.shape
-    m_pad = emit.shape[1]
     per = kernel_per(m_pad)
-    _check("emit", emit, torch.float32, (NUM_AA, m_pad), device)
+    if emit.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"emit is {emit.dtype}, expected float32 or bfloat16")
+    if num_p < 1:
+        raise ValueError("no profile to scan")
+    _check("emit", emit, emit.dtype, (num_p, NUM_AA, m_pad), device)
     _check("tokens", tokens, torch.int8, (b_pad, l_pad), device)
     _check("lengths", lengths, torch.int32, (b_pad,), device)
     _check("tr_rows", tr_rows, torch.float32, (2, b_pad), device)
-    _check("tr_consts", tr_consts, torch.float32, (3,), device)
-    _check("m", m, torch.float32, (b_pad, m_pad), device)
-    _check("s", s, torch.float32, (4, b_pad), device)
-    scores = torch.empty(b_pad, dtype=torch.float32, device=device)
-    m_out = torch.empty_like(m)
-    s_out = torch.empty_like(s)
+    _check("tr_consts", tr_consts, torch.float32, (num_p, 3), device)
+    scores = torch.empty((num_p, b_pad), dtype=torch.float32, device=device)
+    m_in = s_in = m_out = s_out = None
+    if carry is not None:
+        m_in, s_in = carry
+        _check("m", m_in, torch.float32, (b_pad, m_pad), device)
+        _check("s", s_in, torch.float32, (4, b_pad), device)
+        m_out, s_out = torch.empty_like(m_in), torch.empty_like(s_in)
     if b_pad == 0:
         return scores, m_out, s_out
-    # one block holds the table once per SM when it is over half of the
-    # SM's shared memory; give it 16 warps then, else 8 per block
-    warps = 16 if per >= 52 else 8
+    # a table over half of the SM's shared memory fits once an SM: give
+    # that block 16 warps, else 8
+    table_bytes = emit.element_size() * NUM_AA * 32 * per
+    warps = 16 if 2 * table_bytes > SMEM_PER_SM else 8
     lib = _kernel_library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     rc = lib.msv_scan_launch(
-        device.index, per, warps,
+        device.index, per, warps, int(emit.dtype == torch.bfloat16), num_p,
         emit.data_ptr(), m_pad, tokens.data_ptr(), l_pad, lengths.data_ptr(),
-        tr_rows.data_ptr(), tr_consts.data_ptr(), m.data_ptr(), s.data_ptr(),
-        scores.data_ptr(), m_out.data_ptr(), s_out.data_ptr(), b_pad,
+        tr_rows.data_ptr(), tr_consts.data_ptr(), ptr(m_in), ptr(s_in),
+        scores.data_ptr(), ptr(m_out), ptr(s_out), b_pad,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
-            f"MSV kernel launch failed: {lib.msv_error_string(rc).decode()} ({rc})"
+            f"{what} kernel launch failed: {lib.msv_error_string(rc).decode()} ({rc})"
         )
-    msv_scan_cuda.launches += 1
     return scores, m_out, s_out
 
 
+def _single(what, dtype, emit, tokens, lengths, tr_rows, tr_consts, m, s):
+    if emit.dtype != dtype:
+        raise ValueError(f"emit is {emit.dtype}, expected {dtype}")
+    scores, m_out, s_out = _launch(what, emit.unsqueeze(0), tokens, lengths, tr_rows,
+                                   tr_consts.unsqueeze(0), (m, s))
+    return scores[0], m_out, s_out
+
+
+def msv_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s):
+    """Launch ``csrc/msv_kernel.cu`` (f32 table) on the current stream; same
+    arguments and results as :func:`msv_scan`. Raises on anything the
+    kernel does not take and on a refused launch; never falls back."""
+    out = _single("MSV", torch.float32, emit, tokens, lengths, tr_rows, tr_consts, m, s)
+    if tokens.shape[0]:
+        msv_scan_cuda.launches += 1
+    return out
+
+
+def msv_filter_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s):
+    """Launch ``csrc/msv_kernel.cu`` with the filter's bf16 table; same
+    arguments and results as :func:`msv_filter_scan`."""
+    out = _single("MSV filter", torch.bfloat16, emit, tokens, lengths, tr_rows, tr_consts,
+                  m, s)
+    if tokens.shape[0]:
+        msv_filter_scan_cuda.launches += 1
+    return out
+
+
+def msv_stacked_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts):
+    """Launch ``csrc/msv_kernel.cu`` over a profile stack (one grid row a
+    profile); same arguments and results as :func:`msv_stacked_scan`."""
+    scores, _, _ = _launch("stacked MSV", emit, tokens, lengths, tr_rows, tr_consts, None)
+    if tokens.shape[0]:
+        msv_stacked_scan_cuda.launches += 1
+    return scores
+
+
 msv_scan_cuda.launches = 0  # kernel launches in this process
+msv_filter_scan_cuda.launches = 0
+msv_stacked_scan_cuda.launches = 0
 
 
 def msv_scan(emit, tokens, lengths, tr_rows, tr_consts, m, s):
@@ -243,6 +411,25 @@ def msv_scan(emit, tokens, lengths, tr_rows, tr_consts, m, s):
     Returns ``(scores [B_pad], m [B_pad, M_pad], s [4, B_pad])``. CPU
     tensors run :func:`msv_scan_plain`; any other device runs the kernel
     (:func:`msv_scan_cuda`) or raises."""
-    if tokens.device.type == "cpu":
-        return msv_scan_plain(emit, tokens, lengths, tr_rows, tr_consts, m, s)
-    return msv_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s)
+    fn = msv_scan_plain if tokens.device.type == "cpu" else msv_scan_cuda
+    return fn(emit, tokens, lengths, tr_rows, tr_consts, m, s)
+
+
+def msv_filter_scan(emit, tokens, lengths, tr_rows, tr_consts, m, s):
+    """The MSV filter over a staged batch: ``emit`` is the bf16 round-up
+    table, so every score is >= the exact scan's. Carries and results as
+    :func:`msv_scan`. CPU tensors run :func:`msv_filter_scan_plain`; any
+    other device the kernel (:func:`msv_filter_scan_cuda`) or raises."""
+    fn = msv_filter_scan_plain if tokens.device.type == "cpu" else msv_filter_scan_cuda
+    return fn(emit, tokens, lengths, tr_rows, tr_consts, m, s)
+
+
+def msv_stacked_scan(emit, tokens, lengths, tr_rows, tr_consts):
+    """Score a staged batch against a stack of profiles from the row-0
+    carry: ``emit [P, 20, M_pad]`` (f32: exact; bf16: the filter),
+    ``tr_consts [P, 3]`` -> ``scores [P, B_pad]``, row p equal to the
+    single-profile scan of profile p. CPU tensors run
+    :func:`msv_stacked_scan_plain`; any other device the kernel
+    (:func:`msv_stacked_scan_cuda`) or raises."""
+    fn = msv_stacked_scan_plain if tokens.device.type == "cpu" else msv_stacked_scan_cuda
+    return fn(emit, tokens, lengths, tr_rows, tr_consts)

@@ -8,7 +8,10 @@ The counterparts of ``hmm_fasta_viterbi_tpu/ops/pallas_p7.py``:
 * ``_p7_lazy_kernel``: :func:`viterbi_lazy_scan`, the truncated chain with
   the per-row certificate and a full-chain replay of a chunk that fires;
 * ``_fwd_prob_kernel``: :func:`forward_prob_scan`, Forward in scaled
-  probability space.
+  probability space;
+* ``_p7_filter_kernel``: :func:`viterbi_filter_scan`, the upper-bound
+  Viterbi filter of the fast cascade: bf16 round-up emissions, a chain of
+  ``window`` passes and a tail term bounding the longer delete runs.
 
 The host packers are numpy copies of the JAX ones (that module imports
 jax) and return the same arrays byte for byte, in the TPU's ``[M_pad, …]``
@@ -24,6 +27,11 @@ transposes them into the port's layout, one row per constant:
   window products of the ``W`` passes kept);
 * ``consts`` f32 ``[3]`` (tr_B_Mk, tr_E_C, tr_E_J; probabilities for
   Forward) or ``[5]`` for the lazy kernel (… aux, tmd_max).
+
+The filter's pack (:class:`P7FilterPack`) holds the emissions as bf16
+``[20, M_pad]`` (torch.bfloat16; the packer returns their bits as uint16),
+the chain's rounded-up window sums, ``consts`` ``[4]`` (… aux) and the
+window; its carries are the eager kernel's.
 
 Tokens are int8 ``[B_pad, L_pad]`` and ``lengths`` int32 ``[B_pad]``, as in
 ``msv_cuda``. The DP carries go in and come out as ``p7_pallas_call`` /
@@ -53,7 +61,9 @@ import torch
 from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
 
 from . import _build
-from .msv_cuda import NEG_INF, NUM_AA, PAD_SCORE, _check, round_up
+from .msv_cuda import (
+    NEG_INF, NUM_AA, PAD_SCORE, _check, bf16_round_up, bf16_tensor, f32_round_up, round_up,
+)
 
 # residues per lazy-certificate chunk: a fire replays this many steps of
 # one sequence with the full chain (the JAX kernel replays an L-chunk of
@@ -75,6 +85,9 @@ MAX_KERNEL_STATES = KERNEL_THREADS * KERNEL_PER[-1]  # 2432 >= 2405
 LAZY_TAIL_DAMP_NATS = 12.0
 PROB_CHAIN_L_MAX = 1.0e6
 PROB_CHAIN_REL_ERR = 1e-9
+# the Viterbi filter's auto-picked window: the smallest whose tail penalty
+# 2^K * |max(tdd)| reaches this many nats (pallas_p7.FILTER_TAIL_DAMP_NATS)
+FILTER_TAIL_DAMP_NATS = 5.75
 
 
 # -- host packers (numpy copies of pallas_p7's, byte for byte) -------------
@@ -252,6 +265,75 @@ def prepare_p7_device_prob(p7: P7Profile, m_pad: int | None = None):
     return modds_t, iodds_t, trans_t, chain_t, tr_consts
 
 
+def _f32_up(x64: np.ndarray) -> np.ndarray:
+    """Round f64 values to f32 toward +inf; -inf stays (``pallas_p7._f32_up``)."""
+    y = x64.astype(np.float32)
+    below = y.astype(np.float64) < x64
+    bumped = np.nextafter(y, np.float32(np.inf), dtype=np.float32)
+    return np.where(below, bumped, y).astype(np.float32)
+
+
+def pick_filter_window(p7: P7Profile, m_pad: int) -> int:
+    """Smallest chain window K whose tail penalty 2^K * |max(tdd)| reaches
+    FILTER_TAIL_DAMP_NATS (``pallas_p7.pick_filter_window``)."""
+    full_passes = chain_passes(m_pad)
+    finite = p7.tdd[np.isfinite(p7.tdd)]
+    tdd_max = float(finite.max()) if finite.size else float(NEG_INF)
+    if tdd_max >= 0.0 or not np.isfinite(tdd_max):
+        return full_passes
+    need = FILTER_TAIL_DAMP_NATS / -tdd_max
+    return int(np.clip(np.ceil(np.log2(max(need, 1.0))), 1, full_passes))
+
+
+def prepare_p7_device_filter(
+    p7: P7Profile, m_pad: int | None = None, window_log2: int | None = None
+):
+    """``(msc_bf, isc_bf, trans_t, chain_t, tr_consts4, window, e_skip_d)``
+    of ``pallas_p7.prepare_p7_device_filter``, the emissions as bf16 bits
+    (uint16): emissions rounded up to bf16, chain constants from one-ulp
+    bumped tdd links with f64 window sums rounded up to f32 (only
+    ``window`` columns live), and ``aux = 2^window * max(tdd)`` rounded up
+    in ``tr_consts4[0, 3]`` when the window truncates the chain (else
+    -inf). Every score of the filter is then >= the exact Viterbi score."""
+    mr = p7.num_states
+    m_pad = m_pad or default_m_pad(p7)
+    msc_t, isc_t, trans_t, _, _ = prepare_p7_device(p7, m_pad)
+    msc_bf = bf16_round_up(msc_t)
+    isc_bf = bf16_round_up(isc_t)
+
+    tdd_s = np.concatenate(([np.float32(NEG_INF)], p7.tdd[:-1]))
+    tdd_up = f32_round_up(tdd_s)
+    finite = tdd_up[np.isfinite(tdd_up)]
+    tdd_max = float(finite.max()) if finite.size else float(NEG_INF)
+
+    full_passes = chain_passes(m_pad)
+    if window_log2 is None:
+        window_log2 = pick_filter_window(p7, m_pad)
+    window = min(max(window_log2, 1), full_passes)
+    if tdd_max > 0.0:
+        # a tdd > 0 breaks the geometric tail bound: the full chain
+        window = full_passes
+    aux = (
+        _f32_up(np.float64(tdd_max) * (1 << window))
+        if window < full_passes
+        else np.float32(NEG_INF)
+    )
+
+    chain_t = np.full((m_pad, 16), NEG_INF, dtype=np.float32)
+    rows = np.arange(m_pad)
+    c_cur = np.full(m_pad, -np.inf, dtype=np.float64)
+    c_cur[:mr] = tdd_up[:mr].astype(np.float64)
+    with np.errstate(invalid="ignore"):
+        for k in range(window):
+            s = 1 << k
+            chain_t[:, k] = np.where(rows < s, np.float32(NEG_INF), _f32_up(c_cur))
+            rolled = np.roll(c_cur, s)
+            c_cur = c_cur + np.where(rows < s, 0.0, rolled)
+
+    tr_consts = np.array([[p7.tr_B_Mk, p7.tr_E_C, p7.tr_E_J, aux]], dtype=np.float32)
+    return msc_bf, isc_bf, trans_t, chain_t, tr_consts, window, e_skip_d_ok(p7)
+
+
 def length_transition_probs(lengths: np.ndarray) -> np.ndarray:
     """``[2, B]`` p_loop = L/(L+3), p_move = 3/(L+3), each the correctly
     rounded float32 of the f64 quotient (no log/exp round trip)."""
@@ -278,16 +360,20 @@ class P7Pack(NamedTuple):
         return self.emit_m.shape[1]
 
 
+def _rows(x, device) -> torch.Tensor:
+    """A host packer's ``[M_pad, k]`` f32 array as ``[k, M_pad]`` on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=np.float32).T)).to(device)
+
+
+def _flat(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, dtype=np.float32).reshape(-1).copy()).to(device)
+
+
 def device_pack(msc_t, isc_t, trans_t, chain_t, consts, device, lazy_k: int = 0) -> P7Pack:
     """The port's pack from a host packer's ``[M_pad, …]`` arrays."""
-
-    def rows(x):
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=np.float32).T)).to(device)
-
     return P7Pack(
-        rows(msc_t), rows(isc_t), rows(trans_t), rows(chain_t),
-        torch.from_numpy(np.asarray(consts, dtype=np.float32).reshape(-1).copy()).to(device),
-        int(lazy_k),
+        _rows(msc_t, device), _rows(isc_t, device), _rows(trans_t, device),
+        _rows(chain_t, device), _flat(consts, device), int(lazy_k),
     )
 
 
@@ -302,6 +388,42 @@ def viterbi_pack(p7: P7Profile, device, lazy: bool, lazy_k: int | None = None) -
 
 def forward_pack(p7: P7Profile, device) -> P7Pack:
     return device_pack(*prepare_p7_device_prob(p7), device=device)
+
+
+class P7FilterPack(NamedTuple):
+    """The Viterbi filter's constants on a device, in the port's layout."""
+
+    emit_m: torch.Tensor  # [20, M_pad] bf16, rounded up
+    emit_i: torch.Tensor  # [20, M_pad] bf16, rounded up
+    trans: torch.Tensor  # [8, M_pad] f32
+    chain: torch.Tensor  # [16, M_pad] f32, rows >= window unused
+    consts: torch.Tensor  # [4]: tr_B_Mk, tr_E_C, tr_E_J, aux
+    window: int  # chain passes run
+    e_skip_d: bool  # E = max(M) (every finite tmd, tdd <= 0)
+
+    @property
+    def m_pad(self) -> int:
+        return self.emit_m.shape[1]
+
+
+def filter_device_pack(msc_bf, isc_bf, trans_t, chain_t, consts, window, e_skip_d,
+                       device) -> P7FilterPack:
+    """The port's filter pack from :func:`prepare_p7_device_filter`'s (or
+    the JAX packer's) ``[M_pad, …]`` arrays."""
+
+    def bf16_rows(x):
+        return bf16_tensor(np.asarray(x).view(np.uint16).T, device)
+
+    return P7FilterPack(bf16_rows(msc_bf), bf16_rows(isc_bf), _rows(trans_t, device),
+                        _rows(chain_t, device), _flat(consts, device), int(window),
+                        bool(e_skip_d))
+
+
+def filter_pack(p7: P7Profile, device, window_log2: int | None = None) -> P7FilterPack:
+    """The Viterbi filter's pack; ``window_log2`` None auto-picks the window
+    (:func:`pick_filter_window`)."""
+    return filter_device_pack(*prepare_p7_device_filter(p7, window_log2=window_log2),
+                              device=device)
 
 
 def viterbi_init_carry(tr_rows: torch.Tensor, m_pad: int):
@@ -391,6 +513,39 @@ def viterbi_scan_plain(msc, isc, trans, chain, tokens, lengths, tr_rows, consts,
         new_i = _emissions(isc, tokens, t) + torch.maximum(m + tmi, i + tii)
         new_d = _max_chain(_shift(new_m + tmd, 1, NEG_INF), chain, n_passes)
         e = torch.maximum(new_m, new_d).amax(dim=1)
+        new_s = _specials(e, st_j, st_c, st_n, tr_loop, tr_move, tr_e_c, tr_e_j)
+        m, i, d, *st = _freeze(t < lengths, (new_m, new_i, new_d, *new_s), (m, i, d, *st))
+    return st[1] + tr_move, m.clone(), i.clone(), d.clone(), torch.stack(list(st))
+
+
+def viterbi_filter_scan_plain(msc, isc, trans, chain, tokens, lengths, tr_rows, consts,
+                              m, i, d, s, window, e_skip_d):
+    """The Viterbi filter in plain PyTorch; same arguments and results as
+    :func:`viterbi_filter_scan`. It follows ``_p7_filter_kernel``: the bf16
+    emissions widened to f32 (exact), ``window`` chain passes and, when
+    they truncate the chain, ``D = max(D, max_j(a0_j) + aux)`` on every row
+    (a0 the row entering the chain; its max over all rows is the max of
+    ``M + tmd``, as the TPU's roll only permutes it). E is max(M) with
+    ``e_skip_d``, else max over M and D."""
+    m_pad = msc.shape[1]
+    full = chain_passes(m_pad)
+    passes = min(max(int(window), 1), full)
+    msc, isc = msc.float(), isc.float()
+    tmm, tmi, tmd, tim, tii, tdm = trans[:6]
+    tr_loop, tr_move = tr_rows[0], tr_rows[1]
+    tr_b_mk, tr_e_c, tr_e_j, aux = consts[0], consts[1], consts[2], consts[3]
+    st = tuple(s)
+    lengths = lengths.long()
+    for t in range(_num_steps(tokens, lengths)):
+        st_j, st_c, st_n, st_b = st
+        diag = _shift(torch.maximum(torch.maximum(m + tmm, i + tim), d + tdm), 1, NEG_INF)
+        new_m = _emissions(msc, tokens, t) + torch.maximum(diag, (st_b + tr_b_mk)[:, None])
+        new_i = _emissions(isc, tokens, t) + torch.maximum(m + tmi, i + tii)
+        to_d = new_m + tmd
+        new_d = _max_chain(_shift(to_d, 1, NEG_INF), chain, passes)
+        if passes < full:
+            new_d = torch.maximum(new_d, (to_d.amax(dim=1) + aux)[:, None])
+        e = (new_m if e_skip_d else torch.maximum(new_m, new_d)).amax(dim=1)
         new_s = _specials(e, st_j, st_c, st_n, tr_loop, tr_move, tr_e_c, tr_e_j)
         m, i, d, *st = _freeze(t < lengths, (new_m, new_i, new_d, *new_s), (m, i, d, *st))
     return st[1] + tr_move, m.clone(), i.clone(), d.clone(), torch.stack(list(st))
@@ -520,6 +675,10 @@ def _kernel_library() -> ctypes.CDLL:
         c, c, p, p, p, p, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
     ]
     lib.p7_forward_launch.restype = c
+    lib.p7_filter_launch.argtypes = [
+        c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
+    ]
+    lib.p7_filter_launch.restype = c
     lib.msv_error_string.argtypes = [c]
     lib.msv_error_string.restype = ctypes.c_char_p
     return lib
@@ -537,15 +696,15 @@ def kernel_per(m_pad: int) -> int:
 
 
 def _check_scan(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
-                n_consts, m, i, d, s, n_specials):
+                n_consts, m, i, d, s, n_specials, emit_dtype=torch.float32):
     device = tokens.device
     if device.type != "cuda":
         raise ValueError(f"the p7 kernels need CUDA tensors, got {device}")
     b_pad, l_pad = tokens.shape
     m_pad = emit_m.shape[1]
     per = kernel_per(m_pad)
-    _check("emit_m", emit_m, torch.float32, (NUM_AA, m_pad), device)
-    _check("emit_i", emit_i, torch.float32, (NUM_AA, m_pad), device)
+    _check("emit_m", emit_m, emit_dtype, (NUM_AA, m_pad), device)
+    _check("emit_i", emit_i, emit_dtype, (NUM_AA, m_pad), device)
     _check("trans", trans, torch.float32, (8, m_pad), device)
     _check("chain", chain, torch.float32, (chain.shape[0], m_pad), device)
     _check("tokens", tokens, torch.int8, (b_pad, l_pad), device)
@@ -635,9 +794,39 @@ def forward_prob_scan_cuda(modds, iodds, trans, chain, tokens, lengths, tr_rows,
     return (scores, *out)
 
 
+def viterbi_filter_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, consts,
+                             m, i, d, s, window, e_skip_d):
+    """Launch ``csrc/p7_filter_kernel.cu``; same arguments and results as
+    :func:`viterbi_filter_scan`. Raises on what the kernel does not take and
+    on a refused launch; never falls back."""
+    device, b_pad, l_pad, m_pad, per = _check_scan(
+        msc, isc, trans, chain, tokens, lengths, tr_rows, consts, 4, m, i, d, s, 4,
+        emit_dtype=torch.bfloat16,
+    )
+    if chain.shape[0] != 16:
+        raise ValueError(f"chain has {chain.shape[0]} rows, expected 16")
+    full = chain_passes(m_pad)
+    passes = min(max(int(window), 1), full)
+    scores = torch.empty(b_pad, dtype=torch.float32, device=device)
+    out = (torch.empty_like(m), torch.empty_like(i), torch.empty_like(d), torch.empty_like(s))
+    if b_pad:
+        rc = _kernel_library().p7_filter_launch(
+            device.index, per, msc.data_ptr(), isc.data_ptr(), trans.data_ptr(),
+            chain.data_ptr(), m_pad, full, passes, int(bool(e_skip_d)), tokens.data_ptr(),
+            l_pad, lengths.data_ptr(), tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(),
+            i.data_ptr(), d.data_ptr(), s.data_ptr(), scores.data_ptr(),
+            *(o.data_ptr() for o in out), b_pad,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+        _raise_on(rc, "Viterbi filter")
+        viterbi_filter_scan_cuda.launches += 1
+    return (scores, *out)
+
+
 viterbi_scan_cuda.launches = 0  # kernel launches in this process
 viterbi_lazy_scan_cuda.launches = 0
 forward_prob_scan_cuda.launches = 0
+viterbi_filter_scan_cuda.launches = 0
 
 
 def viterbi_scan(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):
@@ -674,3 +863,18 @@ def forward_prob_scan(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_p
     fn = forward_prob_scan_plain if tokens.device.type == "cpu" else forward_prob_scan_cuda
     return fn(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs, consts,
               m, i, d, s)
+
+
+def viterbi_filter_scan(msc, isc, trans, chain, tokens, lengths, tr_rows, consts,
+                        m, i, d, s, window, e_skip_d):
+    """The upper-bound Viterbi filter over a staged batch, threading the
+    carry: a :class:`P7FilterPack`'s bf16 ``msc``/``isc``, ``trans``,
+    ``chain`` and ``consts`` [4], its ``window`` and ``e_skip_d``. Every
+    score is >= the exact Viterbi score of the sequence.
+
+    Returns ``(scores [B_pad], m, i, d [B_pad, M_pad], s [4, B_pad])``. CPU
+    tensors run :func:`viterbi_filter_scan_plain`; any other device the
+    kernel (:func:`viterbi_filter_scan_cuda`) or raises."""
+    fn = viterbi_filter_scan_plain if tokens.device.type == "cpu" else viterbi_filter_scan_cuda
+    return fn(msc, isc, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s, window,
+              e_skip_d)

@@ -2,10 +2,12 @@
 once, then scan profiles against it, one stage or the whole cascade.
 
 The counterpart of ``hmm_fasta_viterbi_tpu/pipeline.py``: ``StagedDatabase``,
-``MSVScanner.stage / stage_fasta / stage_device / scan / scan_p7``, the
-host-staged single-stage entry (``select_p7_fns``, ``viterbi_scores``,
-``forward_scores``) and the hmmsearch-style ``SearchPipeline`` (MSV ->
-Viterbi -> Forward, each stage rescoring the survivors of the one before).
+``MSVScanner.stage / stage_fasta / stage_device / scan / scan_filter /
+scan_p7 / scan_p7_filter / scan_many``, the host-staged single-stage entry
+(``select_p7_fns``, ``viterbi_scores``, ``forward_scores``,
+``viterbi_filter_scores``) and the hmmsearch-style ``SearchPipeline`` (MSV
+-> Viterbi -> Forward, each stage rescoring the survivors of the one
+before, optionally behind the upper-bound MSV and Viterbi prefilters).
 Differences that follow from the device:
 
 * the device is named by the caller (``"cuda"``, ``"cuda:1"``, ``"cpu"``);
@@ -17,7 +19,13 @@ Differences that follow from the device:
 * ``m_bucket`` pads the MSV M row to a multiple of it (default
   ``M_BUCKET``); the Viterbi/Forward packs keep the JAX packers' M_pad;
 * the TPU's compile fallback from the lazy Viterbi kernel to the eager one
-  is not carried over: a kernel that fails to build or launch raises.
+  is not carried over: a kernel that fails to build or launch raises;
+* the prefilters (``scan_filter``, ``scan_p7_filter``, ``scan_many(mode=
+  "filter")``, ``SearchPipeline(fast_msv=, fast_viterbi=)``) run on every
+  device, their plain versions on the CPU; the JAX package runs them on its
+  Pallas backend only;
+* ``scan_many`` groups profiles by the MSV kernel's register case, not by
+  an M bucket, and caches each group's stacked pack.
 """
 
 from __future__ import annotations
@@ -95,8 +103,11 @@ class MSVScanner:
         self._profile_cache: collections.OrderedDict = collections.OrderedDict()
 
     def _cache_get(self, key, obj):
+        """The payload cached under ``key`` for ``obj`` (a profile, or a
+        tuple of profiles for a stacked pack: each element must be the one
+        pinned), else None."""
         hit = self._profile_cache.get(key)
-        if hit is not None and hit[0] is obj:
+        if hit is not None and _same(hit[0], obj):
             self._profile_cache.move_to_end(key)
             return hit[1]
         return None
@@ -166,6 +177,16 @@ class MSVScanner:
             key, profile, msv_cuda.pack_profile(profile, m_pad, self.device)
         )
 
+    def _device_profile_filter(self, profile: MSVProfile):
+        key = (id(profile), "filter")
+        hit = self._cache_get(key, profile)
+        if hit is not None:
+            return hit
+        m_pad = msv_cuda.round_up(profile.num_states, self.m_bucket)
+        return self._cache_put(
+            key, profile, msv_cuda.pack_profile_filter(profile, m_pad, self.device)
+        )
+
     # -- scan ------------------------------------------------------------
     def scan(self, profile: MSVProfile, staged: StagedDatabase) -> torch.Tensor:
         """Score every staged sequence against one profile -> f32 [B] on
@@ -176,6 +197,60 @@ class MSVScanner:
             emit, staged.tokens, staged.lengths, staged.tr_rows, tr_consts, m, s
         )
         return scores[: staged.num_sequences]
+
+    def scan_filter(self, profile: MSVProfile, staged: StagedDatabase) -> torch.Tensor:
+        """The MSV prefilter -> f32 [B] on the scanner's device: the scan
+        over the bf16 round-up of the emission table, so every score is an
+        upper bound on :meth:`scan`'s (max-plus DP is monotone). Thresholding
+        on it drops no sequence the exact scan would keep. The pack is
+        cached under ``(id(profile), "filter")``."""
+        emit, tr_consts = self._device_profile_filter(profile)
+        m, s = msv_cuda.init_carry(staged.tr_rows, emit.shape[1])
+        scores, _, _ = msv_cuda.msv_filter_scan(
+            emit, staged.tokens, staged.lengths, staged.tr_rows, tr_consts, m, s
+        )
+        return scores[: staged.num_sequences]
+
+    def _stacked_pack(self, group: tuple, mode: str):
+        """The stacked ``(emit [P, 20, M_pad], tr_consts [P, 3])`` of a group
+        of profiles, cached and pinned on the group (the profiles' ids in
+        order, each profile object held)."""
+        key = ("stacked", mode, tuple(id(p) for p in group))
+        hit = self._cache_get(key, group)
+        if hit is not None:
+            return hit
+        m_pad = msv_cuda.round_up(max(p.num_states for p in group), self.m_bucket)
+        pack = msv_cuda.pack_stacked(group, m_pad, self.device, filter_mode=mode == "filter")
+        return self._cache_put(key, group, pack)
+
+    def scan_many(
+        self, profiles: list[MSVProfile], staged: StagedDatabase, mode: str = "exact"
+    ) -> dict[str, np.ndarray]:
+        """Sweep: score the staged database against many profiles -> {name:
+        f32 [B] host array}.
+
+        Profiles that fall in one register case of the MSV kernel
+        (``msv_cuda.kernel_per``) run as one stacked launch, one grid row a
+        profile; each group's stacked pack is cached. ``mode="filter"``
+        scans the bf16 round-up tables instead (:meth:`scan_filter`'s
+        upper bounds). Each profile's scores equal its single-profile
+        scan's bit for bit."""
+        if mode not in ("exact", "filter"):
+            raise ValueError(f"mode must be 'exact' or 'filter', got {mode!r}")
+        groups: dict[int, list[MSVProfile]] = {}
+        for p in profiles:
+            m_pad = msv_cuda.round_up(p.num_states, self.m_bucket)
+            groups.setdefault(msv_cuda.kernel_per(m_pad), []).append(p)
+        results: dict[str, np.ndarray] = {}
+        for _, group in sorted(groups.items()):
+            emit, tr_consts = self._stacked_pack(tuple(group), mode)
+            scores = msv_cuda.msv_stacked_scan(
+                emit, staged.tokens, staged.lengths, staged.tr_rows, tr_consts
+            )
+            out = scores[:, : staged.num_sequences].cpu().numpy()
+            for p, row in zip(group, out):
+                results[p.name] = row
+        return results
 
     # -- full-profile stages -------------------------------------------
     def _p7_pack(self, p7: P7Profile, stage: str) -> p7_cuda.P7Pack:
@@ -192,6 +267,26 @@ class MSVScanner:
         else:
             pack = p7_cuda.viterbi_pack(p7, self.device, lazy=p7_cuda.e_skip_d_ok(p7))
         return self._cache_put(key, p7, pack)
+
+    def _p7_filter_pack(self, p7: P7Profile, window_log2: int | None) -> p7_cuda.P7FilterPack:
+        key = (id(p7), "p7_filter", window_log2)
+        hit = self._cache_get(key, p7)
+        if hit is not None:
+            return hit
+        return self._cache_put(
+            key, p7, p7_cuda.filter_pack(p7, self.device, window_log2=window_log2)
+        )
+
+    def scan_p7_filter(
+        self, p7: P7Profile, staged: StagedDatabase, window_log2: int | None = None
+    ) -> torch.Tensor:
+        """The upper-bound Viterbi prefilter -> f32 [B] on the scanner's
+        device: every score >= :meth:`scan_p7`'s Viterbi score, so
+        thresholding on it drops no sequence the exact stage would keep.
+        ``window_log2`` None auto-picks the chain window per profile
+        (``p7_cuda.pick_filter_window``)."""
+        pack = self._p7_filter_pack(p7, window_log2)
+        return _viterbi_filter(pack, staged)[: staged.num_sequences]
 
     def scan_p7(self, p7: P7Profile, staged: StagedDatabase, stage: str = "viterbi") -> torch.Tensor:
         """Viterbi or Forward scores of every staged sequence -> f32 [B] on
@@ -214,6 +309,22 @@ def _viterbi(pack: p7_cuda.P7Pack, staged: StagedDatabase) -> torch.Tensor:
     if pack.lazy_k:
         return p7_cuda.viterbi_lazy_scan(*args, pack.lazy_k)[0]
     return p7_cuda.viterbi_scan(*args)[0]
+
+
+def _viterbi_filter(pack: p7_cuda.P7FilterPack, staged: StagedDatabase) -> torch.Tensor:
+    m, i, d, s = p7_cuda.viterbi_init_carry(staged.tr_rows, pack.m_pad)
+    return p7_cuda.viterbi_filter_scan(
+        *pack[:4], staged.tokens, staged.lengths, staged.tr_rows, pack.consts, m, i, d, s,
+        pack.window, pack.e_skip_d,
+    )[0]
+
+
+def _same(held, obj) -> bool:
+    """``held`` is ``obj``, or both are tuples of the same objects."""
+    if isinstance(obj, tuple):
+        return (isinstance(held, tuple) and len(held) == len(obj)
+                and all(a is b for a, b in zip(held, obj)))
+    return held is obj
 
 
 def _forward(pack: p7_cuda.P7Pack, staged: StagedDatabase) -> torch.Tensor:
@@ -249,6 +360,18 @@ def forward_scores(p7: P7Profile, tokens, lengths, device="cuda") -> torch.Tenso
     scanner = MSVScanner(device=device)
     staged = scanner.stage(tokens, lengths)
     return _forward(p7_cuda.forward_pack(p7, scanner.device), staged)[: staged.num_sequences]
+
+
+def viterbi_filter_scores(
+    p7: P7Profile, tokens, lengths, device="cuda", window_log2: int | None = None,
+) -> torch.Tensor:
+    """Upper-bound Viterbi filter scores of a host token batch -> f32 [B],
+    each >= the exact Viterbi score (``viterbi_filter_pallas`` of the JAX
+    package). ``window_log2`` None auto-picks the chain window."""
+    scanner = MSVScanner(device=device)
+    staged = scanner.stage(tokens, lengths)
+    pack = p7_cuda.filter_pack(p7, scanner.device, window_log2=window_log2)
+    return _viterbi_filter(pack, staged)[: staged.num_sequences]
 
 
 def select_p7_fns(device="cuda"):
@@ -287,7 +410,16 @@ class SearchPipeline:
     stage thresholds; each stage rescores only the previous stage's
     survivors, restaged compactly. ``phase_seconds`` holds the last search's
     host-clock seconds of each stage (each ends by copying its scores to the
-    host, so the device work is inside)."""
+    host, so the device work is inside; a prefilter counts into its
+    stage).
+
+    ``fast_msv`` runs the upper-bound MSV filter over the whole database
+    and rescores only its candidates exactly; ``fast_viterbi`` does the same
+    with the Viterbi filter over the MSV survivors. A filter's score bounds
+    the exact one from above, so its p-value bounds the exact one from
+    below: a sequence the filter rejects is rejected by the exact stage
+    too, and the hits are the plain cascade's. A sequence the filter
+    rejects keeps the filter's score and p-value in the result."""
 
     def __init__(
         self,
@@ -295,11 +427,15 @@ class SearchPipeline:
         msv_p: float = 0.02,
         viterbi_p: float = 1e-3,
         forward_p: float = 1e-5,
+        fast_msv: bool = False,
+        fast_viterbi: bool = False,
     ):
         self.scanner = scanner or MSVScanner()
         self.msv_p = msv_p
         self.viterbi_p = viterbi_p
         self.forward_p = forward_p
+        self.fast_msv = fast_msv
+        self.fast_viterbi = fast_viterbi
         self.phase_seconds = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
         # derived MSVProfile/P7Profile per hmm object, pinned and LRU-bounded
         # like MSVScanner._profile_cache: repeated searches with one hmm must
@@ -326,7 +462,16 @@ class SearchPipeline:
         are the host arrays the survivor subsets are restaged from."""
         msv_profile, p7 = self._derived(hmm)
         t0 = time.perf_counter()
-        msv_scores = self.scanner.scan(msv_profile, staged).cpu().numpy()
+        if self.fast_msv:
+            # a copy: the candidates' exact scores are written into it
+            msv_scores = self.scanner.scan_filter(msv_profile, staged).cpu().numpy().copy()
+            cand = np.flatnonzero(stats.msv_pvalue(msv_scores, hmm) <= self.msv_p)
+            if cand.size:
+                l_max = max(int(lengths[cand].max()), 1)
+                sub = self.scanner.stage(tokens[cand, :l_max], lengths[cand])
+                msv_scores[cand] = self.scanner.scan(msv_profile, sub).cpu().numpy()
+        else:
+            msv_scores = self.scanner.scan(msv_profile, staged).cpu().numpy()
         self.phase_seconds = {"msv": time.perf_counter() - t0, "viterbi": 0.0, "forward": 0.0}
         return self._finish_cascade(hmm, p7, msv_scores, tokens, lengths)
 
@@ -358,10 +503,20 @@ class SearchPipeline:
 
         idx = np.flatnonzero(passed_msv)
         if idx.size:
-            vs = _p7_stage(idx, "viterbi")
-            vit_scores[idx] = vs
-            vit_pv[idx] = stats.viterbi_pvalue(vs, hmm)
-            passed_vit[idx] = vit_pv[idx] <= self.viterbi_p
+            if self.fast_viterbi:
+                # the filter's p-values bound the exact ones from below: a
+                # filter rejection is an exact rejection
+                t0 = time.perf_counter()
+                vf = self.scanner.scan_p7_filter(p7, _stage_subset(idx)).cpu().numpy()
+                self.phase_seconds["viterbi"] += time.perf_counter() - t0
+                vit_scores[idx] = vf
+                vit_pv[idx] = stats.viterbi_pvalue(vf, hmm)
+                idx = idx[vit_pv[idx] <= self.viterbi_p]
+            if idx.size:
+                vs = _p7_stage(idx, "viterbi")
+                vit_scores[idx] = vs
+                vit_pv[idx] = stats.viterbi_pvalue(vs, hmm)
+                passed_vit[idx] = vit_pv[idx] <= self.viterbi_p
 
             idx2 = np.flatnonzero(passed_vit)
             if idx2.size:

@@ -51,3 +51,23 @@ def test_only_msv_stage():
     with pytest.raises(SystemExit) as exc:
         parser.parse_args([*base, "--stage", "posterior"])
     assert exc.value.code == 2
+
+
+def test_fast_and_sweep_flags():
+    """scan takes --fast; sweep takes --hmm-dir or --hmm-db, --stage
+    msv|search and --fast, with the common flags; neither offers the flags
+    of later slices."""
+    parser = port_cli.build_parser()
+    base = ["scan", "--hmm", "x.hmm", "--fasta", "y.fsa"]
+    assert parser.parse_args([*base, "--stage", "search", "--fast"]).fast
+    assert not parser.parse_args(base).fast
+    sweep = parser.parse_args(["sweep", "--hmm-dir", "d", "--fasta", "y.fsa", "--stage",
+                               "search", "--fast", "--format", "json", "--top", "3",
+                               "--device", "cpu", "--loader", "python", "--out", "o"])
+    assert (sweep.hmm_dir, sweep.hmm_db, sweep.stage, sweep.fast, sweep.top) == (
+        "d", None, "search", True, 3)
+    assert parser.parse_args(["sweep", "--hmm-db", "p.hmm", "--fasta", "y.fsa"]).stage == "msv"
+    for flag in (["--bucketed"], ["--checkpoint", "c"], ["--stream", "4"], ["--mesh", "4"],
+                 ["--config", "c.json"], ["--stage", "viterbi"]):
+        with pytest.raises(SystemExit):
+            parser.parse_args(["sweep", "--hmm-dir", "d", "--fasta", "y.fsa", *flag])

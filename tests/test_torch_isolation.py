@@ -28,6 +28,12 @@ assert cli.main(["scan", "--device", "cpu", "--hmm", sys.argv[1],
                  "--fasta", sys.argv[2], "--out", sys.argv[3]]) == 0
 assert cli.main(["scan", "--device", "cpu", "--stage", "search", "--hmm", sys.argv[1],
                  "--fasta", sys.argv[2], "--out", sys.argv[3] + ".search"]) == 0
+assert cli.main(["scan", "--device", "cpu", "--stage", "search", "--fast", "--hmm",
+                 sys.argv[1], "--fasta", sys.argv[2], "--out", sys.argv[3] + ".fast"]) == 0
+for stage in ("msv", "search"):
+    assert cli.main(["sweep", "--device", "cpu", "--stage", stage, "--fast", "--hmm-db",
+                     sys.argv[1], "--fasta", sys.argv[2],
+                     "--out", sys.argv[3] + ".sweep_" + stage]) == 0
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 """
@@ -35,7 +41,8 @@ assert not loaded, loaded
 
 def test_port_and_chip_smoke_import_no_jax(profile_dir, fasta_dir, tmp_path):
     """In a fresh interpreter: import the port, its CLI and chip_smoke.py,
-    run a CPU scan and a CPU search, and find no jax module loaded."""
+    run a CPU scan, a CPU search with and without --fast and CPU sweeps,
+    and find no jax module loaded."""
     proc = subprocess.run(
         [
             sys.executable, "-c", _NO_JAX, str(profile_dir / "100.hmm"),
@@ -46,6 +53,9 @@ def test_port_and_chip_smoke_import_no_jax(profile_dir, fasta_dir, tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert (tmp_path / "out.tsv").read_text().startswith("# target")
     assert (tmp_path / "out.tsv.search").read_text().startswith("# target\tprofile\tmsv_bits")
+    assert (tmp_path / "out.tsv.fast").read_text().startswith("# target\tprofile\tmsv_bits")
+    assert (tmp_path / "out.tsv.sweep_msv").read_text().startswith("# target\tprofile\tscore")
+    assert (tmp_path / "out.tsv.sweep_search").read_text().startswith("# target\tprofile\tmsv")
 
 
 def test_cuda_scanner_without_cuda_raises(monkeypatch):
@@ -85,7 +95,8 @@ def test_nvcc_command_targets_hopper_without_fast_math():
     shared library."""
     compiles, link = _build.nvcc_commands("nvcc", pathlib.Path("out"), pathlib.Path("lib.so"))
     srcs = {cmd[-1] for cmd in compiles}
-    for name in ("msv_kernel.cu", "p7_viterbi_kernel.cu", "p7_forward_kernel.cu"):
+    for name in ("msv_kernel.cu", "p7_viterbi_kernel.cu", "p7_forward_kernel.cu",
+                 "p7_filter_kernel.cu"):
         assert str(_build.CSRC_DIR / name) in srcs
     for cmd in compiles:
         joined = " ".join(cmd)
@@ -159,7 +170,8 @@ def test_p7_kernels_support_every_profile(all_profile_paths):
     from hmm_fasta_viterbi_tpu import parse_hmm
     from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
 
-    for name, macro in (("p7_viterbi_kernel.cu", "P7_CASE"), ("p7_forward_kernel.cu", "FWD_CASE")):
+    for name, macro in (("p7_viterbi_kernel.cu", "P7_CASE"), ("p7_forward_kernel.cu", "FWD_CASE"),
+                        ("p7_filter_kernel.cu", "FILTER_CASE")):
         source = (_build.CSRC_DIR / name).read_text()
         assert all(f"{macro}({per})" in source for per in p7_cuda.KERNEL_PER)
     for path in all_profile_paths:
@@ -167,3 +179,48 @@ def test_p7_kernels_support_every_profile(all_profile_paths):
         m_pad = p7_cuda.default_m_pad(p7)
         assert p7_cuda.KERNEL_THREADS * p7_cuda.kernel_per(m_pad) >= m_pad
         assert p7_cuda.e_skip_d_ok(p7)  # the lazy kernel carries every real profile
+
+
+def test_filter_and_stacked_scans_never_fall_back(monkeypatch):
+    """msv_filter_scan, msv_stacked_scan and viterbi_filter_scan send every
+    tensor that is not on the CPU to their kernel wrappers, which raise for
+    a device they cannot launch on; no launch is counted."""
+
+    def plain(*args):
+        raise AssertionError("fell back to the plain version")
+
+    for mod, name in ((msv_cuda, "msv_filter_scan_plain"), (msv_cuda, "msv_stacked_scan_plain"),
+                      (p7_cuda, "viterbi_filter_scan_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    wrappers = (msv_cuda.msv_filter_scan_cuda, msv_cuda.msv_stacked_scan_cuda,
+                p7_cuda.viterbi_filter_scan_cuda)
+    before = [w.launches for w in wrappers]
+    b, l, m = 4, 8, 16
+    tok = torch.empty((b, l), dtype=torch.int8, device="meta")
+    lens = torch.empty((b,), dtype=torch.int32, device="meta")
+    rows = torch.empty((2, b), device="meta")
+    carry = (torch.empty((b, m), device="meta"), torch.empty((4, b), device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        msv_cuda.msv_filter_scan(torch.empty((20, m), dtype=torch.bfloat16, device="meta"),
+                                 tok, lens, rows, torch.empty((3,), device="meta"), *carry)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        msv_cuda.msv_stacked_scan(torch.empty((2, 20, m), device="meta"), tok, lens, rows,
+                                  torch.empty((2, 3), device="meta"))
+    vit = _meta_p7_args(4, 4)
+    vit[0] = torch.empty((20, m), dtype=torch.bfloat16, device="meta")
+    vit[1] = torch.empty((20, m), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        p7_cuda.viterbi_filter_scan(*vit, 2, True)
+    cpu = [torch.zeros(a.shape, dtype=a.dtype) for a in vit]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        p7_cuda.viterbi_filter_scan_cuda(*cpu, 2, True)
+    assert [w.launches for w in wrappers] == before
+
+
+def test_msv_table_types_and_stack_in_one_source():
+    """The MSV source carries the f32 and the bf16 table and the profile grid
+    axis; the filter's bf16 table widens by a shift (no float conversion
+    that could round)."""
+    source = (_build.CSRC_DIR / "msv_kernel.cu").read_text()
+    assert "struct Entries<uint16_t>" in source and "struct Entries<float>" in source
+    assert "blockIdx.y" in source and "raw.x << 16" in source

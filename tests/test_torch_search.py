@@ -1,11 +1,14 @@
 """The PyTorch port's search cascade (MSV -> Viterbi -> Forward) and its
 `scan --stage search|viterbi|forward` CLI, on the CPU (the kernels' plain
 versions), against the JAX package's SearchPipeline and CLI on the XLA
-backend.
+backend; and the fast cascade (the MSV and Viterbi prefilters) against the
+JAX fast cascade on its Pallas backend in interpret mode.
 
 MSV scores are equal bit for bit; Viterbi scores agree within 1e-4 and
 Forward scores within 2e-3 (the JAX XLA path runs log-space Forward); the
-stage decisions (the passed_* sets) are the same.
+stage decisions (the passed_* sets) are the same. Against the Pallas
+kernels the MSV and Viterbi scores (filter scores included) are equal bit
+for bit (tolerance 0.0) and Forward within 2e-3.
 """
 
 import copy
@@ -197,3 +200,75 @@ def test_cli_search_log_lines(profile_dir, search_fasta, tmp_path, caplog):
     phases = next(r for r in caplog.records if r.msg.startswith("seconds:"))
     parse_s, stage_s, msv_s, vit_s, fwd_s, report_s, total_s = phases.args
     assert min(msv_s, vit_s, fwd_s) > 0 and total_s >= msv_s + vit_s + fwd_s
+
+
+def test_fast_cascade_matches_jax_pallas(hmm100, search_fasta):
+    """SearchPipeline(fast_msv=True, fast_viterbi=True) on the CPU gives the
+    JAX fast cascade's SearchResult (MSVScanner(backend="pallas",
+    interpret=True, l_chunk=64)): MSV and Viterbi scores and p-values equal
+    NaN-aware (tolerance 0.0; a filter-rejected row keeps the filter's
+    score and p-value), Forward within 2e-3, the same passed_* sets. Its
+    hits are the plain cascade's."""
+    tokens, lengths = parse_fasta(search_fasta).encode()
+    sc = MSVScanner(device="cpu")
+    staged = sc.stage(tokens, lengths)
+    got = SearchPipeline(sc, fast_msv=True, fast_viterbi=True).search(
+        hmm100, staged, tokens, lengths)
+    jsc = JaxScanner(backend="pallas", interpret=True, l_chunk=64)
+    want = JaxPipeline(jsc, fast_msv=True, fast_viterbi=True).search(
+        hmm100, jsc.stage(tokens, lengths), tokens, lengths)
+    for name in ("msv_scores", "msv_pvalues", "viterbi_scores", "viterbi_pvalues"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=name)
+    for name in ("passed_msv", "passed_viterbi", "passed_forward"):
+        assert np.array_equal(getattr(got, name), getattr(want, name)), name
+    assert np.array_equal(np.isnan(got.forward_scores), np.isnan(want.forward_scores))
+    np.testing.assert_allclose(got.forward_scores, want.forward_scores, atol=FWD_TOL, rtol=0)
+
+    plain = SearchPipeline(sc).search(hmm100, staged, tokens, lengths)
+    assert got.hits.tolist() == plain.hits.tolist() and got.hits.size
+    for name in ("passed_msv", "passed_viterbi", "passed_forward"):
+        assert np.array_equal(getattr(got, name), getattr(plain, name)), name
+    # the prefilters pass survivors the exact stages reject, and record
+    # their filter scores there: rescored rows carry the plain cascade's
+    # exact scores bit for bit
+    rescored = ~np.isnan(plain.viterbi_scores) & got.passed_msv
+    assert np.array_equal(got.msv_scores[got.passed_msv], plain.msv_scores[got.passed_msv])
+    assert (got.msv_scores >= plain.msv_scores).all()
+    vit_exact = got.passed_viterbi
+    assert np.array_equal(got.viterbi_scores[vit_exact], plain.viterbi_scores[vit_exact])
+    assert (got.viterbi_scores[rescored] >= plain.viterbi_scores[rescored]).all()
+    # both prefilters reject rows here, which keep their filter scores
+    assert (got.msv_scores > plain.msv_scores).any()
+    assert (got.viterbi_scores[rescored] > plain.viterbi_scores[rescored]).any()
+
+
+def test_fast_search_phases_and_caches(hmm100, search_fasta):
+    """The prefilters' time counts into the msv and viterbi phases; the
+    filter packs are cached beside the exact ones."""
+    tokens, lengths = parse_fasta(search_fasta).encode()
+    sc = MSVScanner(device="cpu")
+    pipeline = SearchPipeline(sc, fast_msv=True, fast_viterbi=True)
+    pipeline.search(hmm100, sc.stage(tokens, lengths), tokens, lengths)
+    assert set(pipeline.phase_seconds) == {"msv", "viterbi", "forward"}
+    assert all(v > 0 for v in pipeline.phase_seconds.values())
+    msv_profile, p7 = pipeline._derived(hmm100)
+    assert sc._cache_get((id(msv_profile), "filter"), msv_profile) is not None
+    assert sc._cache_get((id(p7), "p7_filter", None), p7) is not None
+
+
+@pytest.mark.parametrize("fmt", ["tsv", "json"])
+def test_cli_scan_fast_same_hits(profile_dir, search_fasta, tmp_path, fmt):
+    """scan --stage search --fast reports the plain search's hit set; the
+    JAX CLI ignores --fast off its Pallas backend, so the hits (not the
+    filter-scored rows) are what the two CLIs share."""
+    common = ["scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(search_fasta),
+              "--stage", "search", "--format", fmt]
+    fast_out, plain_out, jax_out = (tmp_path / f"{n}.out" for n in ("fast", "plain", "jax"))
+    assert port_cli.main([*common, "--fast", "--device", "cpu", "--out", str(fast_out)]) == 0
+    assert port_cli.main([*common, "--device", "cpu", "--out", str(plain_out)]) == 0
+    assert jax_cli.main([*common, "--fast", "--backend", "xla", "--out", str(jax_out)]) == 0
+
+    def hits(path):
+        return {r["target"] for r in _rows(path, fmt) if str(r["hit"]) in ("1", "True")}
+
+    assert hits(fast_out) == hits(plain_out) == hits(jax_out) and hits(plain_out)
