@@ -5,16 +5,24 @@
 Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: compiles csrc/*.cu from this checkout, one nvcc a source;
-3. MSV kernels against plain: for all 24 profiles of data/profile_HMMs, on
+2. build: compiles csrc/*.cu from this checkout, one nvcc a source, and
+   prints each kernel case's registers and spills;
+3. log-space Forward and posterior kernels against plain, all 24 profiles:
+   the log-space Forward kernel within LOG_FWD_TOL of its plain version on
+   a ragged batch of 64 sequences up to 600 residues, and a two-call carry
+   chain equal to one call; the row-saving Forward kernel's scores and
+   carries equal to the Forward kernel's bit for bit; the posterior
+   kernels' coverage and totals within COV_TOL / TOT_TOL of the plain
+   decode on the card, coverage 0 past each length;
+4. MSV kernels against plain: for all 24 profiles of data/profile_HMMs, on
    one ragged batch, the MSV kernel and the MSV filter kernel (bf16 table)
    each equal their plain PyTorch version, and a two-call carry chain one
    call (max |d| = 0.0); the filter is >= the exact kernel on every
    sequence; one scan_many over all 24 profiles in each mode (the stacked
    kernel) equals the single-profile kernels bit for bit;
-4. MSV kernel against the NumPy oracle on 8 sequences of 1400.hmm and
+5. MSV kernel against the NumPy oracle on 8 sequences of 1400.hmm and
    2405.hmm;
-5. Viterbi and Forward kernels against plain, all 24 profiles, on a ragged
+6. Viterbi and Forward kernels against plain, all 24 profiles, on a ragged
    batch of 64 sequences up to 600 residues (lengths 0, 1, 31, 32, 33, 257
    among them): eager Viterbi == plain, lazy == eager (scores and carries,
    bit for bit), lazy at lazy_k = 1 on 100.hmm replays chunks and equals
@@ -25,9 +33,11 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    at every window 1..full_passes on 100.hmm and 1400.hmm, and on 100.hmm
    made to fail e_skip_d (a positive tdd: the full chain; a positive tmd: a
    truncated window whose tail reaches E);
-6. Viterbi, Viterbi filter and Forward kernels against the oracles on short
-   sequences of 100.hmm and 1400.hmm (1e-4, filter >= oracle, 2e-3);
-7. main paths, each with every launch count set to 0 just before it and
+7. Viterbi, Viterbi filter, Forward and log-space Forward kernels against
+   the oracles on short sequences of 100.hmm and 1400.hmm (1e-4, filter >=
+   oracle, 2e-3, 2e-3), and the posterior kernels against
+   reference.posterior_match there (COV_TOL, TOT_TOL);
+8. main paths, each with every launch count set to 0 just before it and
    read just after, on a seeded FASTA of 16384 x 3500 random residues with
    32 sequences sampled from 1400.hmm at known rows:
    `scan --stage msv` (the MSV kernel; the top 8 rows equal the oracle),
@@ -38,22 +48,35 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    kernel), `scan --stage search --fast` (the MSV filter, MSV, Viterbi
    filter, lazy Viterbi and Forward kernels; the non-fast search's hit set
    and hit rows), `sweep --hmm-dir data/profile_HMMs` (the stacked kernel;
-   its 1400.hmm rows equal the scan's) and `sweep --stage search --fast`
-   over the 24 profiles (both filter kernels); survivor counts and
-   per-phase seconds printed;
-8. timings with CUDA events: the MSV kernel (best of 3) at 16384 x 3500
+   its 1400.hmm rows equal the scan's), `sweep --stage search --fast`
+   over the 24 profiles (both filter kernels), `scan --stage search
+   --domains` (the posterior kernels and the Forward kernel's domain
+   rescoring; every planted row a hit with its envelope inside it, the
+   envelopes those of the kernels' coverage and of the plain decode's on
+   the card), and the log-space Forward entry as validate_hw.py's long-L
+   referee (one sequence of 36864 residues of 100.hmm, the probability-space
+   Forward within 5e-3 of it); survivor counts and per-phase seconds
+   printed;
+9. timings with CUDA events: the MSV kernel (best of 3) at 16384 x 3500
    against 1400.hmm and 2405.hmm and its plain version at 1400.hmm; the MSV
    filter at 16384 x 3500 x 1400 (filter_1400) and its plain version once;
-   the lazy and eager Viterbi, the Viterbi filter (auto window) and the
-   Forward kernels (best of 3) at 4096 x 3500 against 1400.hmm, the lazy
-   fire rate, and each plain version once at that shape, held against the
-   kernel; the stacked sweep over all 24 profiles at 8192 x 3500 in both
-   modes (sweep24, sweep24_filter; best of 3), the plain exact sweep once
-   over all 24 and the plain filter sweep once over every fourth profile,
-   scaled by cells.
+   the lazy and eager Viterbi, the Viterbi filter (auto window), the
+   Forward and the log-space Forward kernels (best of 3) at 4096 x 3500
+   against 1400.hmm (forward_log_1400 the last), the lazy fire rate, and
+   each plain version once at that shape, held against the kernel; the
+   stacked sweep over all 24 profiles at 8192 x 3500 in both modes
+   (sweep24, sweep24_filter; best of 3), the plain exact sweep once over
+   all 24 and the plain filter sweep once over every fourth profile,
+   scaled by cells; the posterior kernels at 1024 x 1024 against 1400.hmm
+   (posterior_1400, posterior_mask_1400; best of 3) and their plain
+   versions once. Each kernel's bound is the larger of its FP32
+   operations (counted a cell from its source) at 67 TFLOP/s and the bytes
+   it must move (each input once, each output once) at 3.35 TB/s, at the
+   timed shape.
 
-Prints a JSON line about the kernels and, last, {"ok": true, ...}. Any
-failed check raises, and the script exits non-zero without that line.
+Prints a JSON line about the kernels, then the card's name and power limit
+and, last, {"ok": true, ...}. Any failed check raises, and the script exits
+non-zero without those lines.
 """
 
 from __future__ import annotations
@@ -70,17 +93,17 @@ import time
 import numpy as np
 import torch
 
-from hmm_fasta_viterbi_tpu.io.alphabet import AMINO_ACIDS
-from hmm_fasta_viterbi_tpu.io.fastaio import FastaRecord, write_fasta
-from hmm_fasta_viterbi_tpu.io.loader import load_profile
-from hmm_fasta_viterbi_tpu.models.sample import sample_sequences
+from hmm_fasta_viterbi_tpu_torch.io.alphabet import AMINO_ACIDS
+from hmm_fasta_viterbi_tpu_torch.io.fastaio import FastaRecord, write_fasta
+from hmm_fasta_viterbi_tpu_torch.io.loader import load_profile
+from hmm_fasta_viterbi_tpu_torch.models.sample import sample_sequences
 from hmm_fasta_viterbi_tpu_torch import (
     MSVProfile, MSVScanner, P7Profile, forward_oracle_batch, msv_oracle_batch, parse_hmm,
-    viterbi_oracle_batch,
+    posterior_match, viterbi_oracle_batch,
 )
 from hmm_fasta_viterbi_tpu_torch import cli, convert
-from hmm_fasta_viterbi_tpu_torch.ops import _build, msv_cuda, p7_cuda
-from hmm_fasta_viterbi_tpu_torch.pipeline import viterbi_scores
+from hmm_fasta_viterbi_tpu_torch.ops import _build, msv_cuda, p7_cuda, posterior_cuda
+from hmm_fasta_viterbi_tpu_torch.pipeline import forward_scores, viterbi_scores
 
 REPO = pathlib.Path(__file__).resolve().parent
 PROFILES = REPO / "data" / "profile_HMMs"
@@ -98,6 +121,23 @@ P7_BATCH, P7_SPLIT = 64, 200
 STAGE_BATCH = 4096
 PLANTED = 32
 VIT_TOL, FWD_TOL = 1e-4, 2e-3
+# the log-space Forward kernel against its plain version (the same
+# semiring; expf/log1pf and the E sum round differently on the card)
+LOG_FWD_TOL = 1e-4
+# posterior coverage and totals (the forward rows are bf16)
+COV_TOL, TOT_TOL = 4e-3, 2e-3
+# the posterior ragged batch of the 24-profile check
+POST_BATCH, POST_LEN = 16, 300
+# validate_hw.py's long-sequence drift check: the probability-space Forward
+# against the log-space referee on one sequence of 100.hmm
+LONG_L, LONG_TOL = 36864, 5e-3
+# the bench's posterior shape (posterior_1400, posterior_mask_1400)
+POST_TIME_BATCH, POST_TIME_LEN = 1024, 1024
+
+# the card's published peaks (NVIDIA H100 SXM data sheet): FP32 outside the
+# tensor cores and HBM3 bandwidth, for each kernel's bound
+PEAK_FP32_OPS = 67e12
+PEAK_BYTES = 3.35e12
 
 # the sweep timing batch (sweep24, sweep24_filter) and the profiles the plain
 # filter sweep is timed on (every fourth, scaled to all 24 by cells)
@@ -122,6 +162,15 @@ KERNELS = {
     "viterbi_filter_scan": ("csrc/p7_filter_kernel.cu",
                             "hmm_fasta_viterbi_tpu/ops/pallas_p7.py:682",
                             "upper-bound Viterbi filter"),
+    "forward_log_scan": ("csrc/p7_forward_log_kernel.cu",
+                         "hmm_fasta_viterbi_tpu/ops/pallas_p7.py:166",
+                         "log-space Forward (forward=True)"),
+    "forward_save_scan": ("csrc/p7_forward_kernel.cu",
+                          "hmm_fasta_viterbi_tpu/ops/pallas_posterior.py:97",
+                          "posterior forward pass: bf16 rows and log scales saved"),
+    "backward_coverage_scan": ("csrc/posterior_kernel.cu",
+                               "hmm_fasta_viterbi_tpu/ops/pallas_posterior.py:225",
+                               "posterior backward pass emitting coverage"),
 }
 WRAPPERS = {
     "msv_scan": msv_cuda.msv_scan_cuda,
@@ -131,6 +180,9 @@ WRAPPERS = {
     "msv_filter_scan": msv_cuda.msv_filter_scan_cuda,
     "msv_stacked_scan": msv_cuda.msv_stacked_scan_cuda,
     "viterbi_filter_scan": p7_cuda.viterbi_filter_scan_cuda,
+    "forward_log_scan": p7_cuda.forward_log_scan_cuda,
+    "forward_save_scan": posterior_cuda.forward_save_scan_cuda,
+    "backward_coverage_scan": posterior_cuda.backward_coverage_scan_cuda,
 }
 
 
@@ -212,6 +264,39 @@ def once_ms(fn):
     return start.elapsed_time(end), out
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# FP32 operations a DP cell (a residue against a match state) in each
+# kernel's source: adds, multiplies, maxes and compares, a transcendental
+# (expf, log1pf, logf) counted as one; passes = the chain passes run
+OPS_PER_CELL = {
+    "msv": lambda passes: 3,  # M = emit + max(M_{j-1}, B + tr); E max
+    # pre_diag 5, M 2, I 4, M + tmd 1, chain 2 a pass, E 2
+    "eager": lambda passes: 14 + 2 * passes,
+    # M 2, I 4, M + tmd 1, chain 2 a pass, E 1, pre_diag 5, certificate 4
+    "lazy": lambda passes: 17 + 2 * passes,
+    # the eager step with a truncated chain, max(a0) 1 and the tail 1
+    "filter": lambda passes: 16 + 2 * passes,
+    # diag 5, M 2, I 4, M * tmd 1, chain 2 a pass, E 2 (and the row store)
+    "forward": lambda passes: 14 + 2 * passes,
+    # the eager step with every max a logaddexp (max, min, sub, exp, log1p,
+    # add: 6): pre_diag 15, M 8, I 9, M + tmd 1, chain 7 a pass, E 10
+    "log": lambda passes: 43 + 7 * passes,
+    # coverage 2, memit 1, iemit 1, B sum 1, I 3, chain entry 2, chain 2 a
+    # pass, M 6
+    "backward": lambda passes: 16 + 2 * passes,
+}
+
+
+def bound(ops: float, moved: int) -> tuple[float, str]:
+    """(least ms, the term that binds): FP32 operations at the card's
+    published FP32 peak against bytes at its memory rate."""
+    op_ms, byte_ms = ops / PEAK_FP32_OPS * 1e3, moved / PEAK_BYTES * 1e3
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
 def nvidia_smi(query: str) -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -220,23 +305,38 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def template_args(mangled: str) -> list[str]:
+    """The template arguments of a mangled kernel name's first ``I...E``
+    list: ints, bools, float (f32) and unsigned short (bf16)."""
+    out = []
+    rest = mangled
+    while rest and rest[0] != "E":
+        m = re.match(r"L([ib])(\d+)E", rest)
+        if m:
+            out.append(m.group(2) if m.group(1) == "i" else ("false", "true")[int(m.group(2))])
+            rest = rest[m.end():]
+        elif rest[0] in "ft":
+            out.append({"f": "f32", "t": "bf16"}[rest[0]])
+            rest = rest[1:]
+        else:
+            break
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line a compiled kernel case from nvcc's -Xptxas -v output:
     registers, spill stores/loads and shared memory, and the seconds each
     source took."""
     lines = [line for line in log.splitlines() if line.startswith(("$ nvcc", "built "))]
     for entry in re.split(r"Compiling entry function ", log)[1:]:
-        case = re.search(
-            r"(msv_kernel|viterbi_kernel|forward_kernel|filter_kernel)ILi(\d+)E(?:Lb(\d)|([ft]))?",
-            entry.split("'")[1])
+        case = re.search(r"(msv|viterbi|forward|filter|backward)_kernelI(\w+)", entry.split("'")[1])
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
         smem = re.search(r"(\d+) bytes smem", entry)
         if case and regs:
-            mode = {None: "", "0": ",eager", "1": ",lazy", "f": ",f32", "t": ",bf16"}[
-                case.group(3) or case.group(4)]
             lines.append(
-                f"{case.group(1)}<{case.group(2)}{mode}>: {regs.group(1)} registers, spill "
+                f"{case.group(1)}_kernel<{','.join(template_args(case.group(2)))}>: "
+                f"{regs.group(1)} registers, spill "
                 f"{spill.group(1) if spill else '?'}/{spill.group(2) if spill else '?'} bytes, "
                 f"smem {smem.group(1) if smem else 0} bytes"
             )
@@ -265,7 +365,7 @@ class Phase:
             print(f"== {self.name}: {time.perf_counter() - self.t0:.2f} s", flush=True)
 
 
-# -- MSV (phases 3, 4) ---------------------------------------------------------
+# -- MSV (phases 4, 5) ---------------------------------------------------------
 
 def msv_args(scanner, prof, staged, filter_mode: bool = False):
     """The arguments of one MSV scan of ``prof`` from the row-0 carry: the
@@ -344,7 +444,7 @@ def msv_kernels_vs_plain(scanner, rng, errors: dict) -> None:
               f"single-profile kernels (max|d|={err})")
 
 
-# -- Viterbi / Forward (phases 5, 6) -------------------------------------------
+# -- Viterbi / Forward (phases 6, 7) -------------------------------------------
 
 def p7_calls(kind: str, pack, staged):
     """``(run(tokens, lengths, carry), fresh carry)`` of one p7 scan."""
@@ -360,6 +460,12 @@ def p7_calls(kind: str, pack, staged):
         def run(fn, tokens, lengths, c):
             return fn(*pack[:4], tokens, lengths, staged.tr_rows, pack.consts, *c,
                       pack.window, pack.e_skip_d)
+    elif kind == "save":
+        carry = p7_cuda.forward_init_carry(staged.tr_probs, pack.m_pad)
+
+        def run(fn, tokens, lengths, c):
+            return fn(*pack[:4], tokens, lengths, staged.tr_rows, staged.tr_probs,
+                      pack.consts, *c)
     else:
         carry = p7_cuda.viterbi_init_carry(staged.tr_rows, pack.m_pad)
 
@@ -371,10 +477,14 @@ def p7_calls(kind: str, pack, staged):
 
 CUDA_FNS = {"eager": p7_cuda.viterbi_scan_cuda, "lazy": p7_cuda.viterbi_lazy_scan_cuda,
             "forward": p7_cuda.forward_prob_scan_cuda,
-            "filter": p7_cuda.viterbi_filter_scan_cuda}
+            "filter": p7_cuda.viterbi_filter_scan_cuda,
+            "log": p7_cuda.forward_log_scan_cuda,
+            "save": posterior_cuda.forward_save_scan_cuda}
 PLAIN_FNS = {"eager": p7_cuda.viterbi_scan_plain, "lazy": p7_cuda.viterbi_lazy_scan_plain,
              "forward": p7_cuda.forward_prob_scan_plain,
-             "filter": p7_cuda.viterbi_filter_scan_plain}
+             "filter": p7_cuda.viterbi_filter_scan_plain,
+             "log": p7_cuda.forward_log_scan_plain,
+             "save": posterior_cuda.forward_save_scan_plain}
 
 
 def p7_chain_error(kind: str, pack, staged) -> float:
@@ -514,7 +624,197 @@ def p7_kernels_vs_oracle(scanner, rng, errors: dict) -> None:
               f"max|d|={v_err} (tol {VIT_TOL}), Forward max|d|={f_err:.3g} (tol {FWD_TOL})")
 
 
-# -- main paths (phase 7) ------------------------------------------------------
+# -- log-space Forward and posterior kernels (phases 3, 7) -------------------------
+
+KERNEL_DECODE = (posterior_cuda.forward_save_scan_cuda, posterior_cuda.backward_coverage_scan_cuda)
+PLAIN_DECODE = (posterior_cuda.forward_save_scan_plain,
+                posterior_cuda.backward_coverage_scan_plain)
+
+
+def posterior_decode(fwd_fn, bwd_fn, pack, schain, staged):
+    """(coverage, totals) of one posterior decode: the row-saving Forward,
+    then the backward coverage pass (the kernels or the plain versions)."""
+    carry = p7_cuda.forward_init_carry(staged.tr_probs, pack.m_pad)
+    total, *_, fm, ls = fwd_fn(*pack[:4], staged.tokens, staged.lengths, staged.tr_rows,
+                                staged.tr_probs, pack.consts, *carry)
+    cov = bwd_fn(pack.emit_m, pack.emit_i, pack.trans, schain, staged.tokens, staged.lengths,
+                 staged.tr_probs, pack.consts, total, fm, ls)
+    return cov, total
+
+
+def new_kernels_vs_plain(scanner, rng, errors: dict) -> None:
+    """For all 24 profiles: the log-space Forward kernel against its plain
+    version (LOG_FWD_TOL) on the ragged batch of phase 6, and its two-call
+    carry chain against one call (bit for bit); the row-saving Forward
+    kernel's scores and carries against the Forward kernel's (bit for bit);
+    the posterior kernels' coverage and totals against the plain decode on
+    the card (COV_TOL, TOT_TOL) on a ragged batch of POST_BATCH sequences,
+    coverage 0 past each length."""
+    lengths = rng.integers(0, RAGGED_LEN + 1, size=P7_BATCH).astype(np.int32)
+    lengths[:10] = [0, 1, 31, 32, 33, 257, 128, 129, 600, 599]
+    tokens = rng.integers(0, 20, size=(P7_BATCH, RAGGED_LEN)).astype(np.int8)
+    staged = scanner.stage(tokens, lengths)
+    post_lengths = rng.integers(0, POST_LEN + 1, size=POST_BATCH).astype(np.int32)
+    post_lengths[:6] = [0, 1, 7, 8, 9, POST_LEN]
+    post = scanner.stage(rng.integers(0, 20, size=(POST_BATCH, POST_LEN)).astype(np.int8),
+                         post_lengths)
+    past = torch.arange(POST_LEN, device=post.tokens.device)[None, :] >= post.lengths[:, None]
+    for stem in stems():
+        p7 = p7_profile(stem)
+        vpack = p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)
+        run_l, carry_l = p7_calls("log", vpack, staged)
+        got = run_l(p7_cuda.forward_log_scan_cuda, staged.tokens, staged.lengths, carry_l)
+        torch.cuda.synchronize()
+        want = run_l(p7_cuda.forward_log_scan_plain, staged.tokens, staged.lengths, carry_l)
+        l_err = max_abs_diff(got[0], want[0])
+        require(l_err <= LOG_FWD_TOL, f"{stem}.hmm log-space Forward kernel vs plain: {l_err}")
+        l_chain = p7_chain_error("log", vpack, staged)
+
+        fpack = p7_cuda.forward_pack(p7, scanner.device)
+        run_f, carry_f = p7_calls("forward", fpack, staged)
+        plain_fwd = run_f(p7_cuda.forward_prob_scan_cuda, staged.tokens, staged.lengths, carry_f)
+        saved = run_f(posterior_cuda.forward_save_scan_cuda, staged.tokens, staged.lengths,
+                      carry_f)
+        torch.cuda.synchronize()
+        s_err = require_equal(saved[:5], plain_fwd,
+                              f"{stem}.hmm row-saving Forward kernel vs Forward kernel")
+
+        schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
+        cov, tot = posterior_decode(*KERNEL_DECODE, fpack, schain, post)
+        torch.cuda.synchronize()
+        cov_p, tot_p = posterior_decode(*PLAIN_DECODE, fpack, schain, post)
+        c_err, t_err = max_abs_diff(cov, cov_p), max_abs_diff(tot, tot_p)
+        require(c_err <= COV_TOL and t_err <= TOT_TOL,
+                f"{stem}.hmm posterior kernels vs plain: coverage {c_err}, totals {t_err}")
+        require(not bool(cov[past].any()), f"{stem}.hmm posterior kernels: coverage past a length")
+        errors["forward_log_scan"] = max(errors["forward_log_scan"], l_err, l_chain)
+        errors["forward_save_scan"] = max(errors["forward_save_scan"], s_err, t_err)
+        errors["backward_coverage_scan"] = max(errors["backward_coverage_scan"], c_err)
+        print(f"log Forward / posterior kernels vs plain {stem}.hmm: log Forward B={P7_BATCH} "
+              f"L<={RAGGED_LEN} max|d|={l_err:.3g} chain at {P7_SPLIT} max|d|={l_chain}; "
+              f"row-saving Forward == Forward kernel (max|d|={s_err}); posterior B={POST_BATCH} "
+              f"L<={POST_LEN} coverage max|d|={c_err:.3g} totals max|d|={t_err:.3g}, "
+              f"max coverage {float(cov.max()):.4f}", flush=True)
+
+
+def new_kernels_vs_oracle(scanner, rng, errors: dict) -> None:
+    """The log-space Forward entry against the oracle (FWD_TOL) and the
+    posterior decode against reference.posterior_match (COV_TOL, TOT_TOL)
+    on short sequences of 100.hmm and 1400.hmm."""
+    lengths = np.array([0, 1, 100, 300], dtype=np.int32)
+    tokens = rng.integers(0, 20, size=(4, 300)).astype(np.int32)
+    post_lengths = np.array([1, 40, 96], dtype=np.int32)
+    post_tokens = rng.integers(0, 20, size=(3, 96)).astype(np.int32)
+    for stem in ("100", "1400"):
+        p7 = p7_profile(stem)
+        log = forward_scores(p7, tokens, lengths, device=scanner.device, prob_space=False)
+        f_err = max_abs_diff(log, torch.from_numpy(forward_oracle_batch(p7, tokens, lengths)))
+        require(f_err <= FWD_TOL, f"{stem}.hmm log-space Forward kernel vs oracle: {f_err}")
+        cov, tot = posterior_cuda.posterior_coverage_batch(p7, post_tokens, post_lengths,
+                                                           device=scanner.device)
+        c_err = t_err = 0.0
+        for b, n in enumerate(post_lengths):
+            want, total = posterior_match(p7, post_tokens[b, :n])
+            c_err = max(c_err, float(np.abs(cov[b, :n] - want.sum(axis=1)).max()))
+            t_err = max(t_err, abs(float(tot[b]) - float(total)))
+        require(c_err <= COV_TOL and t_err <= TOT_TOL,
+                f"{stem}.hmm posterior kernels vs posterior_match: {c_err}, {t_err}")
+        errors["forward_log_scan"] = max(errors["forward_log_scan"], f_err)
+        errors["backward_coverage_scan"] = max(errors["backward_coverage_scan"], c_err)
+        errors["forward_save_scan"] = max(errors["forward_save_scan"], t_err)
+        print(f"log Forward / posterior kernels vs oracle {stem}.hmm: log Forward lengths "
+              f"{lengths.tolist()} max|d|={f_err:.3g} (tol {FWD_TOL}); coverage vs "
+              f"posterior_match lengths {post_lengths.tolist()} max|d|={c_err:.3g} "
+              f"(tol {COV_TOL}), totals max|d|={t_err:.3g} (tol {TOT_TOL})")
+
+
+def domains_path(tmp: pathlib.Path, fasta: pathlib.Path, tokens, lengths, planted,
+                 scanner) -> dict:
+    """`scan --stage search --domains` through the CLI, launch counts zeroed
+    around it: every planted row a hit with ndom >= 1 and its envelope
+    inside the sequence; the reported envelopes equal those of the kernels'
+    coverage; the kernels' coverage >= 0.5 equals the plain decode's on the
+    card wherever the plain coverage is more than COV_TOL from 0.5, and so
+    do the envelopes of the hits without such positions."""
+    hmm = str(PROFILES / "1400.hmm")
+    out = tmp / "domains.tsv"
+    got, e2e, secs, records = run_cli(["scan", "--stage", "search", "--domains", "--hmm", hmm,
+                                       "--fasta", str(fasta), "--device", DEVICE, "--out",
+                                       str(out)])
+    for name in ("forward_prob_scan", "forward_save_scan", "backward_coverage_scan"):
+        require(got[name] > 0, f"scan --domains did not launch {name}")
+    lines = out.read_text().splitlines()
+    header = lines[0].lstrip("# ").split("\t")
+    require(header[-4:] == ["env_from", "env_to", "ndom", "dom_scores"],
+            f"scan --domains header {header}")
+    hits = [dict(zip(header, line.split("\t"))) for line in lines[1:]]
+    hits = {int(r["target"][3:]): r for r in hits if r["hit"] == "1"}
+    for row in planted.tolist():
+        r = hits.get(row)
+        require(r is not None and int(r["ndom"]) >= 1, f"planted row {row}: no domain")
+        require(1 <= int(r["env_from"]) <= int(r["env_to"]) <= int(lengths[row]),
+                f"planted row {row}: envelope {r['env_from']}-{r['env_to']} outside "
+                f"1-{lengths[row]}")
+
+    idx = np.array(sorted(hits))
+    staged = scanner.stage(tokens[idx, : int(lengths[idx].max())], lengths[idx])
+    p7 = P7Profile.from_profile(load_profile(hmm))  # as the CLI loads it
+    fpack = p7_cuda.forward_pack(p7, scanner.device)
+    schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
+    cov_k = posterior_decode(*KERNEL_DECODE, fpack, schain, staged)[0].cpu().numpy()
+    cov_p = posterior_decode(*PLAIN_DECODE, fpack, schain, staged)[0].cpu().numpy()
+    near = 0
+    for k, row in enumerate(idx):
+        n = int(lengths[row])
+        env = cli._envelope_from_coverage(cov_k[k], n) or (0, 0, 0)
+        r = hits[int(row)]
+        require(env == (int(r["env_from"]), int(r["env_to"]), int(r["ndom"])),
+                f"row {row}: reported envelope {r['env_from']}-{r['env_to']} x{r['ndom']} != "
+                f"the kernels' coverage {env}")
+        close = np.abs(cov_p[k, :n] - 0.5) <= COV_TOL
+        same = (cov_k[k, :n] >= 0.5) == (cov_p[k, :n] >= 0.5)
+        require(bool(same[~close].all()), f"row {row}: coverage mask differs from plain")
+        if close.any():
+            near += 1
+        else:
+            require(env == (cli._envelope_from_coverage(cov_p[k], n) or (0, 0, 0)),
+                    f"row {row}: envelope differs from the plain decode's")
+    summary = next(r.getMessage() for r in records if r.getMessage().startswith("search "))
+    ndoms = [int(hits[int(r)]["ndom"]) for r in idx]
+    print(f"main path search --domains: {summary}; {len(hits)} hits decoded, ndom "
+          f"{min(ndoms)}-{max(ndoms)}, every planted row a hit with its envelope inside it; "
+          f"envelopes equal the kernels' coverage and the plain decode's on the card "
+          f"({near} hits with plain coverage within {COV_TOL} of 0.5 somewhere); "
+          f"coverage max|d| kernel vs plain {float(np.abs(cov_k - cov_p).max()):.3g}; "
+          f"launches {got}")
+    print_seconds("main path search --domains", secs, e2e)
+    return got
+
+
+def long_l_referee(rng) -> dict:
+    """validate_hw.py's long-sequence drift check through the entry point:
+    forward_scores on one LONG_L-residue sequence of 100.hmm in probability
+    space against the log-space referee (LONG_TOL), launch counts zeroed
+    around both."""
+    p7 = p7_profile("100")
+    tokens = rng.integers(0, 20, size=(1, LONG_L)).astype(np.int8)
+    lengths = np.array([LONG_L], dtype=np.int32)
+    zero_launches()
+    t0 = time.perf_counter()
+    ref = forward_scores(p7, tokens, lengths, device=DEVICE, prob_space=False).cpu()
+    prob = forward_scores(p7, tokens, lengths, device=DEVICE).cpu()
+    got = launches()
+    require(got["forward_log_scan"] > 0 and got["forward_prob_scan"] > 0,
+            "the long-L check did not launch both Forward kernels")
+    drift = max_abs_diff(prob, ref)
+    require(drift <= LONG_TOL, f"long-L prob-vs-log Forward drift {drift}")
+    print(f"main path log-space Forward entry: long-L prob-vs-log Forward drift {drift:.3e} "
+          f"(tol {LONG_TOL}) at L = {LONG_L} on 100.hmm (scores {float(prob[0]):.4f} / "
+          f"{float(ref[0]):.4f}) in {time.perf_counter() - t0:.3f} s; launches {got}")
+    return got
+
+
+# -- main paths (phase 8) ------------------------------------------------------
 
 def write_database(rng, path: pathlib.Path):
     """16384 random sequences of 3500 residues with PLANTED sequences
@@ -550,13 +850,13 @@ def run_cli(argv):
 
 
 def print_seconds(label, args, e2e) -> None:
-    parse_s, stage_s, msv_s, vit_s, fwd_s, report_s, total_s = args
+    parse_s, stage_s, msv_s, vit_s, fwd_s, dom_s, report_s, total_s = args
     print(f"{label} seconds: parse {parse_s:.3f} stage {stage_s:.3f} msv {msv_s:.3f} "
-          f"viterbi {vit_s:.3f} forward {fwd_s:.3f} report {report_s:.3f} "
+          f"viterbi {vit_s:.3f} forward {fwd_s:.3f} domains {dom_s:.3f} report {report_s:.3f} "
           f"cli total {total_s:.3f} end-to-end {e2e:.3f}")
 
 
-def main_paths(tmp: pathlib.Path, rng) -> dict:
+def main_paths(tmp: pathlib.Path, rng, scanner) -> dict:
     fasta = tmp / "headline.fsa"
     t0 = time.perf_counter()
     tokens, lengths, planted = write_database(rng, fasta)
@@ -688,6 +988,11 @@ def main_paths(tmp: pathlib.Path, rng) -> dict:
         print(f"  {line}")
     print(f"  launches {got}")
     print_seconds("main path sweep search --fast", secs, e2e)
+
+    got = domains_path(tmp, fasta, tokens, lengths, planted, scanner)
+    counts["forward_save_scan"] = got["forward_save_scan"]
+    counts["backward_coverage_scan"] = got["backward_coverage_scan"]
+    counts["forward_log_scan"] = long_l_referee(rng)["forward_log_scan"]
     return counts
 
 
@@ -704,9 +1009,9 @@ def hit_rows(path: pathlib.Path, with_profile: bool = False) -> dict:
     return out
 
 
-# -- timings (phase 8) ---------------------------------------------------------
+# -- timings (phase 9) ---------------------------------------------------------
 
-def msv_timings(scanner, rng, errors: dict) -> dict:
+def msv_timings(scanner, rng, errors: dict, work: dict) -> dict:
     tokens = rng.integers(0, 20, size=(BATCH, SEQ_LEN)).astype(np.int8)
     staged = scanner.stage(tokens, np.full(BATCH, SEQ_LEN, dtype=np.int32))
     out = {}
@@ -721,6 +1026,9 @@ def msv_timings(scanner, rng, errors: dict) -> dict:
         print(f"{label}: {cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
               f"{BATCH} x {SEQ_LEN} x M={prof.num_states}; kernel vs plain max|d|={err})")
         if stem == "1400":
+            # inputs once; the outputs are the scores and carries of the inputs' sizes
+            moved = nbytes(*args) + nbytes(exact, *args[5:])
+            work["msv_scan"] = work["msv_filter_scan"] = (OPS_PER_CELL["msv"](0) * cells, moved)
             plain_ms = best_ms(lambda: msv_cuda.msv_scan_plain(*args), reps=2)
             out["plain"] = plain_ms
             print(f"plain_GCUPS_M1400: {cells / plain_ms / 1e6:.2f} GCUPS "
@@ -739,7 +1047,7 @@ def msv_timings(scanner, rng, errors: dict) -> dict:
     return out
 
 
-def p7_timings(scanner, rng, errors: dict) -> dict:
+def p7_timings(scanner, rng, errors: dict, work: dict) -> dict:
     tokens = rng.integers(0, 20, size=(STAGE_BATCH, SEQ_LEN)).astype(np.int8)
     staged = scanner.stage(tokens, np.full(STAGE_BATCH, SEQ_LEN, dtype=np.int32))
     p7 = p7_profile("1400")
@@ -749,6 +1057,7 @@ def p7_timings(scanner, rng, errors: dict) -> dict:
         "viterbi_scan": ("eager", p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)),
         "forward_prob_scan": ("forward", p7_cuda.forward_pack(p7, scanner.device)),
         "viterbi_filter_scan": ("filter", p7_cuda.filter_pack(p7, scanner.device)),
+        "forward_log_scan": ("log", p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)),
     }
     out = {}
     for name, (kind, pack) in packs.items():
@@ -756,13 +1065,30 @@ def p7_timings(scanner, rng, errors: dict) -> dict:
         ms = best_ms(lambda: run(CUDA_FNS[kind], staged.tokens, staged.lengths, carry), reps=3)
         got = run(CUDA_FNS[kind], staged.tokens, staged.lengths, carry)
         plain_ms, want = once_ms(lambda: run(PLAIN_FNS[kind], staged.tokens, staged.lengths, carry))
-        if kind == "forward":
+        if kind in ("forward", "log"):
+            # 3500 residues of rounding: the Forward tolerance
             err = max_abs_diff(got[0], want[0])
-            require(err <= FWD_TOL, f"Forward kernel vs plain at the stage shape: {err}")
+            require(err <= FWD_TOL, f"{kind} Forward kernel vs plain at the stage shape: {err}")
         else:
             err = require_equal(got, want, f"{kind} Viterbi kernel vs plain at the stage shape")
         errors[name] = max(errors[name], err)
         out[name] = (ms, plain_ms)
+        if kind == "lazy":
+            passes = pack.lazy_k
+        elif kind == "filter":
+            passes = pack.window
+        elif kind == "forward":
+            passes = pack.chain.shape[0]
+        else:
+            passes = p7_cuda.chain_passes(pack.m_pad)
+        ops = OPS_PER_CELL[kind](passes) * cells
+        if kind == "lazy":  # each replay reruns a chunk (at least its last one) with the full chain
+            ops += (int(got[5].sum()) * (SEQ_LEN % p7_cuda.LAZY_CHUNK or p7_cuda.LAZY_CHUNK)
+                    * p7.num_states * OPS_PER_CELL["eager"](p7_cuda.chain_passes(pack.m_pad)))
+        inputs = (*pack[:4], pack.consts, staged.tokens, staged.lengths, staged.tr_rows, *carry)
+        if kind == "forward":
+            inputs += (staged.tr_probs,)
+        work[name] = (ops, nbytes(*inputs, *got))
         extra = ""
         if kind == "lazy":
             chunks = STAGE_BATCH * -(-SEQ_LEN // p7_cuda.LAZY_CHUNK)
@@ -779,7 +1105,7 @@ def p7_timings(scanner, rng, errors: dict) -> dict:
     return out
 
 
-def sweep_timings(scanner, rng, errors: dict) -> dict:
+def sweep_timings(scanner, rng, errors: dict, work: dict) -> dict:
     """sweep24 / sweep24_filter: the stacked kernel over all 24 profiles at
     SWEEP_BATCH x SEQ_LEN (one launch per register case), best of 3; the
     plain exact sweep once over all 24 profiles, the plain filter sweep
@@ -810,6 +1136,9 @@ def sweep_timings(scanner, rng, errors: dict) -> dict:
                             f"stacked {mode} sweep vs plain at {SWEEP_BATCH} x {SEQ_LEN}")
         errors["msv_stacked_scan"] = max(errors["msv_stacked_scan"], err)
         out[label] = (ms, plain_ms * scale)
+        if mode == "exact":
+            work["msv_stacked_scan"] = (OPS_PER_CELL["msv"](0) * cells,
+                                        nbytes(*args, *(x for pk in packs for x in pk), *got))
         what = ("all 24 profiles" if scale == 1.0 else
                 f"{len(subset)} profiles ({', '.join(p.name for p in subset)}), "
                 f"{plain_ms:.3f} ms scaled by cells x{scale:.4f}")
@@ -819,6 +1148,52 @@ def sweep_timings(scanner, rng, errors: dict) -> dict:
               f"({cells / (plain_ms * scale) / 1e6:.2f} GCUPS, once, {what}); kernel vs plain "
               f"max|d|={err}", flush=True)
     return out
+
+
+def posterior_timings(scanner, rng, errors: dict, work: dict) -> dict:
+    """posterior_1400 / posterior_mask_1400: the two posterior kernels at
+    POST_TIME_BATCH x POST_TIME_LEN against 1400.hmm, each alone and the
+    decode without and with the uint8 mask (best of 3); each plain version
+    once, held against the kernels (COV_TOL, TOT_TOL)."""
+    tokens = rng.integers(0, 20, size=(POST_TIME_BATCH, POST_TIME_LEN)).astype(np.int8)
+    staged = scanner.stage(tokens, np.full(POST_TIME_BATCH, POST_TIME_LEN, dtype=np.int32))
+    p7 = p7_profile("1400")
+    cells = staged.total_residues * p7.num_states
+    fpack = p7_cuda.forward_pack(p7, scanner.device)
+    schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
+    fwd_in = (*fpack[:4], staged.tokens, staged.lengths, staged.tr_rows, staged.tr_probs,
+              fpack.consts, *p7_cuda.forward_init_carry(staged.tr_probs, fpack.m_pad))
+    save_ms = best_ms(lambda: posterior_cuda.forward_save_scan_cuda(*fwd_in), reps=3)
+    saved = posterior_cuda.forward_save_scan_cuda(*fwd_in)
+    bwd_in = (fpack.emit_m, fpack.emit_i, fpack.trans, schain, staged.tokens, staged.lengths,
+              staged.tr_probs, fpack.consts, saved[0], saved[5], saved[6])
+    bwd_ms = best_ms(lambda: posterior_cuda.backward_coverage_scan_cuda(*bwd_in), reps=3)
+    cov = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
+    post_ms = best_ms(lambda: posterior_decode(*KERNEL_DECODE, fpack, schain, staged), reps=3)
+    mask_ms = best_ms(lambda: (posterior_decode(*KERNEL_DECODE, fpack, schain, staged)[0]
+                               >= 0.5).to(torch.uint8), reps=3)
+    work["forward_save_scan"] = (OPS_PER_CELL["forward"](fpack.chain.shape[0]) * cells,
+                                 nbytes(*fwd_in, *saved))
+    work["backward_coverage_scan"] = (OPS_PER_CELL["backward"](schain.shape[0]) * cells,
+                                      nbytes(*bwd_in, cov))
+    plain_save_ms, p_saved = once_ms(lambda: posterior_cuda.forward_save_scan_plain(*fwd_in))
+    p_bwd_in = (*bwd_in[:8], p_saved[0], p_saved[5], p_saved[6])
+    plain_bwd_ms, cov_p = once_ms(lambda: posterior_cuda.backward_coverage_scan_plain(*p_bwd_in))
+    c_err, t_err = max_abs_diff(cov, cov_p), max_abs_diff(saved[0], p_saved[0])
+    require(c_err <= COV_TOL and t_err <= TOT_TOL,
+            f"posterior kernels vs plain at the bench shape: coverage {c_err}, totals {t_err}")
+    errors["backward_coverage_scan"] = max(errors["backward_coverage_scan"], c_err)
+    errors["forward_save_scan"] = max(errors["forward_save_scan"], t_err)
+    shape = f"{POST_TIME_BATCH} x {POST_TIME_LEN} x M={p7.num_states}"
+    print(f"posterior_1400: {cells / post_ms / 1e6:.2f} GCUPS ({post_ms:.3f} ms, best of 3, "
+          f"{shape}; the row-saving Forward {save_ms:.3f} ms, the backward coverage pass "
+          f"{bwd_ms:.3f} ms, each best of 3); plain versions {plain_save_ms:.3f} + "
+          f"{plain_bwd_ms:.3f} ms (once); kernels vs plain coverage max|d|={c_err:.3g} "
+          f"totals max|d|={t_err:.3g}")
+    print(f"posterior_mask_1400: {cells / mask_ms / 1e6:.2f} GCUPS ({mask_ms:.3f} ms, best of 3, "
+          f"{shape}, the decode and the uint8 cov >= 0.5 mask)", flush=True)
+    return {"forward_save_scan": (save_ms, plain_save_ms),
+            "backward_coverage_scan": (bwd_ms, plain_bwd_ms)}
 
 
 def main() -> int:
@@ -843,10 +1218,13 @@ def main() -> int:
         print(f"library: {lib_path}")
         print("\n".join(ptxas_summary(log)))
 
-    with Phase("3. MSV kernels (exact, filter, stacked) vs plain, 24 profiles"):
+    with Phase("3. log-space Forward and posterior kernels vs plain, 24 profiles"):
+        new_kernels_vs_plain(scanner, rng, errors)
+
+    with Phase("4. MSV kernels (exact, filter, stacked) vs plain, 24 profiles"):
         msv_kernels_vs_plain(scanner, rng, errors)
 
-    with Phase("4. MSV kernel vs oracle"):
+    with Phase("5. MSV kernel vs oracle"):
         lengths8 = np.minimum([0, 1, 32, 100, 257, 1000, 2048, SEQ_LEN], SEQ_LEN).astype(np.int32)
         tokens8 = rng.integers(0, 20, size=(8, SEQ_LEN)).astype(np.int32)
         staged8 = scanner.stage(tokens8, lengths8)
@@ -857,24 +1235,33 @@ def main() -> int:
                     f"kernel != oracle on {stem}.hmm")
             print(f"kernel vs oracle {stem}.hmm: 8 seqs, equal (max|d|=0.0)")
 
-    with Phase("5. Viterbi/Viterbi filter/Forward kernels vs plain, 24 profiles"):
+    with Phase("6. Viterbi/Viterbi filter/Forward kernels vs plain, 24 profiles"):
         p7_kernels_vs_plain(scanner, rng, errors)
 
-    with Phase("6. Viterbi/Forward kernels vs oracle"):
+    with Phase("7. Viterbi/Forward/log-space Forward/posterior kernels vs oracle"):
         p7_kernels_vs_oracle(scanner, rng, errors)
+        new_kernels_vs_oracle(scanner, rng, errors)
 
-    with Phase("7. main paths through the CLI and the entry point"):
+    with Phase("8. main paths through the CLI and the entry points"):
         with tempfile.TemporaryDirectory() as tmp:
-            counts = main_paths(pathlib.Path(tmp), rng)
+            counts = main_paths(pathlib.Path(tmp), rng, scanner)
 
-    with Phase("8. timings"):
-        msv_ms = msv_timings(scanner, rng, errors)
-        p7_ms = p7_timings(scanner, rng, errors)
-        sweep_ms = sweep_timings(scanner, rng, errors)
+    work = {}
+    with Phase("9. timings"):
+        msv_ms = msv_timings(scanner, rng, errors, work)
+        p7_ms = p7_timings(scanner, rng, errors, work)
+        sweep_ms = sweep_timings(scanner, rng, errors, work)
+        post_ms = posterior_timings(scanner, rng, errors, work)
         print("card after timing:", nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
     times = {"msv_scan": (msv_ms["1400"], msv_ms["plain"]), "msv_filter_scan": msv_ms["filter"],
-             "msv_stacked_scan": sweep_ms["sweep24"], **p7_ms}
+             "msv_stacked_scan": sweep_ms["sweep24"], **p7_ms, **post_ms}
+    bounds = {name: bound(*work[name]) for name in KERNELS}
+    for name, (ms, by) in bounds.items():
+        ops, moved = work[name]
+        print(f"bound {name}: {ms:.3f} ms by {by} ({ops:.4g} FP32 operations, {moved:.4g} "
+              f"bytes); the kernel {times[name][0]:.3f} ms, roofline share "
+              f"{ms / times[name][0]:.2%}")
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {
@@ -887,6 +1274,10 @@ def main() -> int:
             "max_abs_err": errors[name],
             "ms": times[name][0],
             "plain_ms": times[name][1],
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            # no single PyTorch call computes one of these DP scans
+            "library_ms": None,
         }
         for name, (source, replaces, mode) in KERNELS.items()
     ]}))

@@ -2,25 +2,29 @@
 scan engine, for NVIDIA Hopper cards.
 
 It stands beside ``hmm_fasta_viterbi_tpu``, the JAX/Pallas package that is
-its reference, and imports only that package's JAX-free modules: the
-parsers, the MSV and P7 models, the score statistics and the NumPy
-oracles. So far it runs the MSV scan, the full-profile Viterbi and Forward
-scans, the MSV -> Viterbi -> Forward search cascade with or without the
-upper-bound MSV and Viterbi prefilters (``--fast``), and the stacked
+its reference, and imports nothing of it: the parsers (``io``), the MSV
+and P7 models, score statistics and homolog sampler (``models``) and the
+NumPy oracles (``ops.reference``) are the port's own copies of the JAX
+package's framework-free modules. It runs the MSV scan, the full-profile
+Viterbi and Forward scans (probability-space, and the log-space semiring
+that referees it), the MSV -> Viterbi -> Forward search cascade with or
+without the upper-bound MSV and Viterbi prefilters (``--fast``), the
+posterior domain decode of its hits (``--domains``), and the stacked
 profile sweep, through hand-written CUDA kernels on the card
 (``csrc/*.cu``) or their plain PyTorch versions on the CPU.
 """
 
-from hmm_fasta_viterbi_tpu.io.fastaio import parse_fasta
-from hmm_fasta_viterbi_tpu.io.hmmio import parse_hmm
-from hmm_fasta_viterbi_tpu.models.msv import MSVProfile, length_transitions
-from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-from hmm_fasta_viterbi_tpu.ops.reference import (
+from .io.fastaio import parse_fasta
+from .io.hmmio import parse_hmm
+from .models.msv import MSVProfile, length_transitions
+from .models.p7 import P7Profile
+from .ops.reference import (
+    backward_oracle,
     forward_oracle_batch,
     msv_oracle_batch,
+    posterior_match,
     viterbi_oracle_batch,
 )
-
 from .pipeline import MSVScanner, SearchPipeline, SearchResult, StagedDatabase
 
 __all__ = [
@@ -30,10 +34,12 @@ __all__ = [
     "SearchPipeline",
     "SearchResult",
     "StagedDatabase",
+    "backward_oracle",
     "forward_oracle_batch",
     "length_transitions",
     "msv_oracle_batch",
     "parse_fasta",
     "parse_hmm",
+    "posterior_match",
     "viterbi_oracle_batch",
 ]

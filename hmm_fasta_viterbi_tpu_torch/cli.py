@@ -1,17 +1,18 @@
 """Command-line interface of the PyTorch port.
 
     python -m hmm_fasta_viterbi_tpu_torch scan --hmm P.hmm --fasta DB.fsa
-        [--stage msv|viterbi|forward|search] [--fast]
+        [--stage msv|viterbi|forward|search] [--fast] [--domains]
     python -m hmm_fasta_viterbi_tpu_torch sweep --hmm-dir DIR | --hmm-db FILE
         --fasta DB.fsa [--stage msv|search] [--fast]
 
 ``hmm_fasta_viterbi_tpu``'s ``scan`` and ``sweep`` with the same flags and
 the same TSV/JSON reports: one stage's scores, or (``--stage search``) the
 MSV -> Viterbi -> Forward cascade with a row for every MSV survivor
-(``--fast``: behind the upper-bound MSV and Viterbi prefilters); a sweep
-scores many profiles against one staged database. ``--device`` (default
-``cuda``) names the torch device, and ``--device cpu`` runs the kernels'
-plain versions.
+(``--fast``: behind the upper-bound MSV and Viterbi prefilters;
+``--domains``: each reported hit's posterior envelope and domains, each
+domain rescored by Forward); a sweep scores many profiles against one
+staged database. ``--device`` (default ``cuda``) names the torch device,
+and ``--device cpu`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -27,12 +28,12 @@ import time
 import numpy as np
 import torch
 
-from hmm_fasta_viterbi_tpu.io.loader import load_fasta, load_profile, load_profiles
-from hmm_fasta_viterbi_tpu.models import stats
-from hmm_fasta_viterbi_tpu.models.msv import MSVProfile
-from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
-
-from .pipeline import MSVScanner, SearchPipeline
+from .io.loader import load_fasta, load_profile, load_profiles
+from .models import stats
+from .models.msv import MSVProfile
+from .models.p7 import P7Profile
+from .ops.posterior_cuda import posterior_coverage_batch
+from .pipeline import MSVScanner, SearchPipeline, forward_scores
 
 logger = logging.getLogger(__name__)
 
@@ -122,11 +123,97 @@ def _report(profile, db, scores: np.ndarray, args, out, stage: str = "msv",
             )
 
 
-def _report_search(hmm, db, result, args, out, rows_sink=None) -> None:
+def _coverage_segments(cov_row: np.ndarray, length: int) -> list:
+    """1-based (from, to) spans of contiguous positions with summed
+    match-posterior coverage >= 0.5 (HMMER-envelope-style: the position
+    sits in the model core with posterior majority). Each segment is one
+    domain of the multihit (nu = 2) model."""
+    covered = cov_row[:length] >= 0.5
+    idx = np.flatnonzero(covered)
+    if not idx.size:
+        return []
+    breaks = np.flatnonzero(np.diff(idx) > 1)
+    starts = np.concatenate(([0], breaks + 1))
+    ends = np.concatenate((breaks, [idx.size - 1]))
+    return [(int(idx[s]) + 1, int(idx[e]) + 1) for s, e in zip(starts, ends)]
+
+
+def _envelope_from_coverage(cov_row: np.ndarray, length: int):
+    """(env_from, env_to, ndom) summary of :func:`_coverage_segments`."""
+    segs = _coverage_segments(cov_row, length)
+    if not segs:
+        return None
+    return segs[0][0], segs[-1][1], len(segs)
+
+
+def _hit_envelopes(p7, tokens, lengths, hit_idx: np.ndarray, device) -> dict:
+    """Batched posterior decode of all hits, {hit index: segments}: one
+    coverage call over the hits (the forward-save and backward-coverage
+    kernels on the card), thresholded at 0.5 on the device."""
+    if not hit_idx.size:
+        return {}
+    l_max = max(int(lengths[hit_idx].max()), 1)
+    cov, _ = posterior_coverage_batch(
+        p7, tokens[hit_idx, :l_max], lengths[hit_idx], device=device, mask_threshold=0.5,
+    )
+    return {
+        int(i): _coverage_segments(cov[k], int(lengths[i]))
+        for k, i in enumerate(hit_idx)
+    }
+
+
+def _domain_scores(p7, tokens, lengths, segments: dict, device) -> dict:
+    """Per-domain Forward scores: each envelope span rescored as its own
+    subsequence in ONE batched probability-space Forward call (HMMER's
+    envelope-rescoring shape). Returns {(hit_index, domain_rank):
+    score_nats}."""
+    spans = [
+        (i, k, f, t)
+        for i, segs in segments.items()
+        for k, (f, t) in enumerate(segs)
+    ]
+    if not spans:
+        return {}
+    max_len = max(t - f + 1 for _, _, f, t in spans)
+    sub = np.zeros((len(spans), max_len), dtype=np.int32)
+    sub_len = np.zeros(len(spans), dtype=np.int32)
+    for r, (i, _, f, t) in enumerate(spans):
+        sub[r, : t - f + 1] = tokens[i, f - 1 : t]
+        sub_len[r] = t - f + 1
+    scores = forward_scores(p7, sub, sub_len, device=device).cpu().numpy()
+    return {
+        (i, k): float(scores[r]) for r, (i, k, _, _) in enumerate(spans)
+    }
+
+
+def _domain_rows(hmm, segs: list, dom_scores: dict, i: int, n_db: int) -> list:
+    """The JSON ``domains`` of hit ``i``: each envelope with its rescored
+    Forward score and its i-Evalue (that score through the Forward tail
+    calibration, times the database size)."""
+    out = []
+    for k, (f, t) in enumerate(segs):
+        s = dom_scores.get((i, k), 0.0)
+        dp = float(stats.forward_pvalue(np.float64(s), hmm))
+        out.append({
+            "env_from": f,
+            "env_to": t,
+            "score_nats": round(float(s), 4),
+            "score_bits": round(float(stats.nats_to_bits(s)), 4),
+            "ievalue": dp * n_db,
+        })
+    return out
+
+
+def _report_search(hmm, db, result, args, out, rows_sink=None, tokens=None, lengths=None,
+                   device=None, phases=None) -> None:
     """One row per MSV survivor, ordered by Forward score (rows Forward
-    never reached last), as the JAX CLI's search report without domains or
-    alignments."""
+    never reached last), as the JAX CLI's search report without alignments.
+    With ``--domains`` (and the host ``tokens``/``lengths``), the hits
+    that survive --top/--max-evalue are decoded on ``device`` and get
+    env_from/env_to/ndom and their domains; the decode's seconds go into
+    ``phases["domains"]``."""
     evals = stats.evalue(result.forward_pvalues, len(db))
+    want_domains = bool(getattr(args, "domains", False)) and tokens is not None
     order = np.flatnonzero(result.passed_msv)
     order = order[np.argsort(-np.nan_to_num(result.forward_scores[order], nan=-np.inf))]
     if args.top:
@@ -134,8 +221,19 @@ def _report_search(hmm, db, result, args, out, rows_sink=None) -> None:
     if args.max_evalue is not None:
         # a NaN E-value (Forward never ran on the row) fails any cutoff
         order = order[evals[order] <= args.max_evalue]
-    rows = [
-        {
+    envelopes, dom_scores = {}, {}
+    if want_domains:
+        # decode only the reported hits: the decode is O(L * M) device work a hit
+        t0 = time.perf_counter()
+        p7 = P7Profile.from_profile(hmm)
+        envelopes = _hit_envelopes(p7, tokens, lengths, order[result.passed_forward[order]],
+                                   device)
+        dom_scores = _domain_scores(p7, tokens, lengths, envelopes, device)
+        if phases is not None:
+            phases["domains"] = time.perf_counter() - t0
+    rows = []
+    for i in order:
+        row = {
             "target": db.records[i].header or f"seq{i}",
             "profile": hmm.name,
             "msv_bits": round(float(stats.nats_to_bits(result.msv_scores[i])), 4),
@@ -145,18 +243,33 @@ def _report_search(hmm, db, result, args, out, rows_sink=None) -> None:
             "evalue": _finite_or_none(evals[i]),
             "hit": bool(result.passed_forward[i]),
         }
-        for i in order
-    ]
+        if want_domains and result.passed_forward[i]:
+            segs = envelopes.get(int(i)) or []
+            row["env_from"], row["env_to"], row["ndom"] = (
+                (segs[0][0], segs[-1][1], len(segs)) if segs else (0, 0, 0))
+            row["domains"] = _domain_rows(hmm, segs, dom_scores, int(i), len(db))
+        rows.append(row)
     if args.format == "json":
         _write_json(rows, out, rows_sink)
     else:
-        out.write("# target\tprofile\tmsv_bits\tmsv_p\tviterbi_p\tforward_p\tevalue\thit\n")
+        cols = "# target\tprofile\tmsv_bits\tmsv_p\tviterbi_p\tforward_p\tevalue\thit"
+        out.write(cols + ("\tenv_from\tenv_to\tndom\tdom_scores" if want_domains else "") + "\n")
         for r in rows:
-            out.write(
+            line = (
                 f"{r['target']}\t{r['profile']}\t{r['msv_bits']}\t{_fmt_e(r['msv_p'])}\t"
                 f"{_fmt_e(r['viterbi_p'])}\t{_fmt_e(r['forward_p'])}\t"
-                f"{_fmt_e(r['evalue'])}\t{int(r['hit'])}\n"
+                f"{_fmt_e(r['evalue'])}\t{int(r['hit'])}"
             )
+            if want_domains:
+                doms = ";".join(
+                    f"{d['env_from']}-{d['env_to']}:{d['score_nats']}"
+                    for d in r.get("domains", [])
+                )
+                line += (
+                    f"\t{r.get('env_from', '')}\t{r.get('env_to', '')}"
+                    f"\t{r.get('ndom', '')}\t{doms}"
+                )
+            out.write(line + "\n")
 
 
 def _device(args) -> torch.device | None:
@@ -176,9 +289,9 @@ def _device(args) -> torch.device | None:
 def _log_seconds(t_start, t0, t_staged, phases, report_s) -> None:
     logger.info(
         "seconds: parse %.6f stage %.6f msv %.6f viterbi %.6f forward %.6f "
-        "report %.6f total %.6f",
+        "domains %.6f report %.6f total %.6f",
         t0 - t_start, t_staged - t0, phases["msv"], phases["viterbi"], phases["forward"],
-        report_s, time.perf_counter() - t_start,
+        phases.get("domains", 0.0), report_s, time.perf_counter() - t_start,
     )
 
 
@@ -205,7 +318,7 @@ def cmd_scan(args) -> int:
     if args.stage == "search":
         pipeline = SearchPipeline(scanner, fast_msv=args.fast, fast_viterbi=args.fast)
         result = pipeline.search(hmm, staged, tokens, lengths)
-        phases = pipeline.phase_seconds
+        phases = dict(pipeline.phase_seconds)
         t_scanned = time.perf_counter()
         logger.info(
             "search %s: %d seqs -> %d past MSV -> %d past Viterbi -> %d hits (%.3fs)",
@@ -214,7 +327,8 @@ def cmd_scan(args) -> int:
             t_scanned - t0,
         )
         with _out_sink(args) as sink:
-            _report_search(hmm, db, result, args, out=sink)
+            _report_search(hmm, db, result, args, out=sink, tokens=tokens, lengths=lengths,
+                           device=device, phases=phases)
     else:
         if args.stage == "msv":
             scores = scanner.scan(MSVProfile.from_profile(hmm), staged)
@@ -231,7 +345,8 @@ def cmd_scan(args) -> int:
         )
         with _out_sink(args) as sink:
             _report(hmm, db, scores, args, out=sink, stage=args.stage)
-    _log_seconds(t_start, t0, t_staged, phases, time.perf_counter() - t_scanned)
+    report_s = time.perf_counter() - t_scanned - phases.get("domains", 0.0)
+    _log_seconds(t_start, t0, t_staged, phases, report_s)
     return 0
 
 
@@ -357,6 +472,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="scoring stage, or search: the MSV -> Viterbi -> Forward cascade",
     )
     scan.add_argument("--fast", action="store_true", help=_FAST_HELP)
+    scan.add_argument(
+        "--domains", action="store_true",
+        help="search stage: posterior-decode an alignment envelope per hit",
+    )
     _add_common(scan)
     scan.set_defaults(fn=cmd_scan)
 

@@ -1,8 +1,12 @@
 """Carry the JAX package's parameters and DP state into the port.
 
-Every function takes numpy arrays (``np.asarray`` of the JAX arrays) in
-the JAX package's layouts and returns the port's device tensors, so that
-both packages can score the same inputs:
+``profile_hmm_from_jax``, ``msv_profile_from_jax`` and
+``p7_profile_from_jax`` build the port's own ``ProfileHMM``, ``MSVProfile``
+and ``P7Profile`` from the JAX package's objects (copying their numpy
+fields); the port never imports those classes. Every other function takes
+numpy arrays (``np.asarray`` of the JAX arrays) in the JAX package's
+layouts and returns the port's device tensors, so that both packages can
+score the same inputs:
 
 * a profile: an ``MSVProfile``, or the JAX scanner's device pack
   ``(scores_t [1, M_pad, 20], tr_consts [1, 3])``;
@@ -23,13 +27,41 @@ both packages can score the same inputs:
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from hmm_fasta_viterbi_tpu.models.msv import MSVProfile
-
+from .io.hmmio import ProfileHMM
+from .models.msv import MSVProfile
+from .models.p7 import P7Profile
 from .ops import msv_cuda, p7_cuda
 from .pipeline import M_BUCKET, StagedDatabase
+
+
+def _port_dataclass(cls, obj):
+    """A ``cls`` instance holding the fields of ``obj`` (the JAX package's
+    dataclass of the same name and fields); arrays are copied."""
+    return cls(**{
+        f.name: np.array(v, copy=True) if isinstance(v := getattr(obj, f.name), np.ndarray)
+        else v
+        for f in dataclasses.fields(cls)
+    })
+
+
+def profile_hmm_from_jax(hmm) -> ProfileHMM:
+    """The port's ``ProfileHMM`` from a JAX ``ProfileHMM``."""
+    return _port_dataclass(ProfileHMM, hmm)
+
+
+def msv_profile_from_jax(profile) -> MSVProfile:
+    """The port's ``MSVProfile`` from a JAX ``MSVProfile``."""
+    return _port_dataclass(MSVProfile, profile)
+
+
+def p7_profile_from_jax(p7) -> P7Profile:
+    """The port's ``P7Profile`` from a JAX ``P7Profile``."""
+    return _port_dataclass(P7Profile, p7)
 
 
 def device_profile(profile: MSVProfile, device):

@@ -1,8 +1,15 @@
 // Forward scan in scaled probability space, written by hand for Hopper
-// (sm_90a).
+// (sm_90a), with or without saving its rows for the posterior decode.
 //
 // Replaces: hmm_fasta_viterbi_tpu/ops/pallas_p7.py::_fwd_prob_kernel, as
-// launched by fwd_prob_pallas_call. For every residue t < length of a
+// launched by fwd_prob_pallas_call (the SAVE = false cases), and
+// hmm_fasta_viterbi_tpu/ops/pallas_posterior.py::_fwd_save_kernel, as
+// launched by _posterior_padded (the SAVE = true cases: the same math, and
+// each step's scaled M row stored as bf16, round to nearest, into
+// fm [b_pad, l_pad, m_pad] with the log scale in effect for that row in
+// ls [b_pad, l_pad]; rows at and past the length are stored as 0). Both
+// cases are one template, so the saved pass scores each sequence bit for bit
+// as the plain Forward kernel does. For every residue t < length of a
 // sequence, over odds ratios and transition probabilities:
 //     M_j = modds[tok][j] * (diag_{j-1} + B * p_B_Mk)
 //           diag = M * tmm + I * tim + D * tdm            (old rows)
@@ -22,7 +29,10 @@
 // What bounds it on the H100: as the Viterbi kernel, the serial chain of
 // one step (the j-1 diagonal, the W-pass prefix scan along the states, the
 // E sum) rather than memory; per cell about 2 * W + 12 FP32 instructions
-// and W + 2 shared-memory shifts.
+// and W + 2 shared-memory shifts. The SAVE cases add one 2-byte store a
+// cell: at 1024 x 1024 x 1408 that is 2.95 GB, under 1 ms of the card's
+// 3.35 TB/s, against tens of ms of latency-bound steps; a warp's store of
+// one register slot covers 64 contiguous bytes of the row.
 //
 // What the design does about it (the layout of p7_viterbi_kernel.cu):
 //  * one block of 128 threads per sequence, its residue loop stopping at
@@ -42,6 +52,7 @@
 //  * It launches on the caller's stream, allocates nothing and does not
 //    synchronise. The C entry point returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -76,6 +87,8 @@ struct ForwardArgs {
   float* i_out;
   float* d_out;
   float* s_out;
+  __nv_bfloat16* fm;  // [b_pad, l_pad, m_pad] (SAVE)
+  float* ls;          // [b_pad, l_pad] (SAVE)
   int b_pad;
 };
 
@@ -112,7 +125,20 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
              : fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
 }
 
+// Store row `pos` of fm (bf16 round to nearest of v, 0 past m_pad) and ls.
 template <int PER>
+__device__ __forceinline__ void save_row(const ForwardArgs& a, int seq, int pos,
+                                         const float (&v)[PER], float log_scale) {
+  __nv_bfloat16* row = a.fm + (static_cast<size_t>(seq) * a.l_pad + pos) * a.m_pad;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = k * kThreads + threadIdx.x;
+    if (j < a.m_pad) row[j] = __float2bfloat16_rn(v[k]);
+  }
+  if (threadIdx.x == 0) a.ls[static_cast<size_t>(seq) * a.l_pad + pos] = log_scale;
+}
+
+template <int PER, bool SAVE>
 __global__ void __launch_bounds__(kThreads) forward_kernel(const ForwardArgs a) {
   __shared__ float xbuf[2][kThreads * PER];
   __shared__ float red_e[kWarps];
@@ -195,6 +221,7 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(const ForwardArgs a) 
         for (int k = 0; k < PER; ++k) ac[k] = ac[k] + sh[k] * ld(c, k * kThreads + t, m_pad);
       }
 
+      if (SAVE) save_row<PER>(a, seq, c0 + step, nm, log_scale);
       float e = 0.0f;
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
@@ -233,6 +260,12 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(const ForwardArgs a) 
     }
   }
 
+  if (SAVE) {
+    float zero[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) zero[k] = 0.0f;
+    for (int pos = n; pos < a.l_pad; ++pos) save_row<PER>(a, seq, pos, zero, 0.0f);
+  }
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int j = k * kThreads + t;
@@ -257,7 +290,11 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(const ForwardArgs a) 
 
 template <int PER>
 cudaError_t launch(const ForwardArgs& a, cudaStream_t stream) {
-  forward_kernel<PER><<<a.b_pad, kThreads, 0, stream>>>(a);
+  if (a.fm != nullptr) {
+    forward_kernel<PER, true><<<a.b_pad, kThreads, 0, stream>>>(a);
+  } else {
+    forward_kernel<PER, false><<<a.b_pad, kThreads, 0, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
@@ -266,7 +303,8 @@ cudaError_t launch(const ForwardArgs& a, cudaStream_t stream) {
 // Plain C entry point, bound with ctypes. `per` is the number of states a
 // thread holds, one of the cases below, with 128 * per >= m_pad; `window`
 // is the chain's row count; the kernel rescales after every `group`
-// residues. Returns a cudaError_t.
+// residues. `fm` and `ls` null run the plain Forward, both set the saving
+// pass. Returns a cudaError_t.
 extern "C" int p7_forward_launch(int device, int per, const void* modds, const void* iodds,
                                  const void* trans, const void* chain, int m_pad, int window,
                                  int group, const void* tokens, int l_pad,
@@ -274,9 +312,10 @@ extern "C" int p7_forward_launch(int device, int per, const void* modds, const v
                                  const void* tr_probs, const void* consts, const void* m_in,
                                  const void* i_in, const void* d_in, const void* s_in,
                                  void* scores, void* m_out, void* i_out, void* d_out,
-                                 void* s_out, int b_pad, void* stream) {
+                                 void* s_out, void* fm, void* ls, int b_pad,
+                                 void* stream) {
   if (m_pad < 1 || m_pad > kThreads * per || window < 1 || window > 16 || group < 1 ||
-      b_pad < 1) {
+      b_pad < 1 || (fm == nullptr) != (ls == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -304,6 +343,8 @@ extern "C" int p7_forward_launch(int device, int per, const void* modds, const v
   a.i_out = static_cast<float*>(i_out);
   a.d_out = static_cast<float*>(d_out);
   a.s_out = static_cast<float*>(s_out);
+  a.fm = static_cast<__nv_bfloat16*>(fm);
+  a.ls = static_cast<float*>(ls);
   a.b_pad = b_pad;
   auto* st = static_cast<cudaStream_t>(stream);
 #define FWD_CASE(P) \

@@ -6,7 +6,8 @@ library with a plain C interface, which the kernel wrappers load with
 ``ctypes``. No PyTorch headers are included, so a build takes seconds
 rather than the minutes of ``torch.utils.cpp_extension.load``. The library
 goes into ``hmm_fasta_viterbi_tpu_torch/_kernels/<key>/``, where ``key``
-hashes the sources and the commands, so an edit to a source rebuilds and
+hashes the sources, the ``csrc/*.cuh`` headers they include and the
+commands, so an edit to a source or a header rebuilds and
 an unchanged tree reuses the earlier build. Nothing is built when a module
 is imported.
 """
@@ -61,6 +62,11 @@ def sources() -> list[pathlib.Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> list[pathlib.Path]:
+    """The ``csrc/*.cuh`` files the sources include."""
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def nvcc_commands(nvcc: str, out_dir: pathlib.Path, lib: pathlib.Path):
     """``(compile commands, one a source, link command)``."""
     compiles = [
@@ -79,7 +85,7 @@ def build() -> tuple[pathlib.Path, str]:
     earlier build was reused)."""
     nvcc = find_nvcc()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]

@@ -46,7 +46,7 @@ import functools
 import numpy as np
 import torch
 
-from hmm_fasta_viterbi_tpu.models.msv import MSVProfile
+from ..models.msv import MSVProfile
 
 from . import _build
 

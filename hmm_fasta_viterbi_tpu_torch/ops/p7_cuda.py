@@ -5,6 +5,8 @@ The counterparts of ``hmm_fasta_viterbi_tpu/ops/pallas_p7.py``:
 
 * ``_p7_kernel`` (Viterbi): :func:`viterbi_scan`, eager, the whole delete
   chain every residue;
+* ``_p7_kernel`` (Forward, ``forward=True``): :func:`forward_log_scan`, the
+  same scan in the (logsumexp, +) semiring, with Viterbi's operands;
 * ``_p7_lazy_kernel``: :func:`viterbi_lazy_scan`, the truncated chain with
   the per-row certificate and a full-chain replay of a chunk that fires;
 * ``_fwd_prob_kernel``: :func:`forward_prob_scan`, Forward in scaled
@@ -19,12 +21,14 @@ layout with ``M_pad = round_up(max(Mr, 8), 8)``. :func:`device_pack`
 transposes them into the port's layout, one row per constant:
 
 * ``emit_m`` / ``emit_i`` f32 ``[20, M_pad]``: match and insert scores
-  (Viterbi, pad states PAD_SCORE) or odds ratios (Forward, pad states 0);
+  (Viterbi and log-space Forward, pad states PAD_SCORE) or odds ratios
+  (probability-space Forward, pad states 0);
 * ``trans`` f32 ``[8, M_pad]``: tmm tmi tmd tim tii tdm tdd_s pad, as log
-  scores (Viterbi, pad -inf) or probabilities (Forward, pad 0);
-* ``chain`` f32 ``[16, M_pad]`` (Viterbi: the Hillis-Steele pass constants,
-  row 15 the lazy certificate's Cmax) or ``[W, M_pad]`` (Forward: the
-  window products of the ``W`` passes kept);
+  scores (pad -inf) or probabilities (probability-space Forward, pad 0);
+* ``chain`` f32 ``[16, M_pad]`` (Viterbi and log-space Forward: the
+  Hillis-Steele pass constants, row 15 the lazy certificate's Cmax) or
+  ``[W, M_pad]`` (probability-space Forward: the window products of the
+  ``W`` passes kept);
 * ``consts`` f32 ``[3]`` (tr_B_Mk, tr_E_C, tr_E_J; probabilities for
   Forward) or ``[5]`` for the lazy kernel (… aux, tmd_max).
 
@@ -36,8 +40,9 @@ window; its carries are the eager kernel's.
 Tokens are int8 ``[B_pad, L_pad]`` and ``lengths`` int32 ``[B_pad]``, as in
 ``msv_cuda``. The DP carries go in and come out as ``p7_pallas_call`` /
 ``fwd_prob_pallas_call`` return them, transposed: ``m``, ``i``, ``d`` f32
-``[B_pad, M_pad]`` and ``s`` f32 ``[4, B_pad]`` (J, C, N, B) or, for
-Forward, ``[8, B_pad]`` (J, C, N, B, log_scale, Kahan compensation, 0, 0).
+``[B_pad, M_pad]`` and ``s`` f32 ``[4, B_pad]`` (J, C, N, B; log space for
+Viterbi and the log-space Forward) or, for the probability-space Forward,
+``[8, B_pad]`` (J, C, N, B, log_scale, Kahan compensation, 0, 0).
 The lazy kernel's ``d`` slot carries ``pre_diag = max(M + tmm, I + tim,
 D + tdm)``, as in the JAX kernel. Steps at or past a sequence's length
 leave every carry unchanged, so a second call with the residues from a
@@ -58,7 +63,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
+from ..models.p7 import P7Profile
 
 from . import _build
 from .msv_cuda import (
@@ -460,12 +465,14 @@ def _shift(x: torch.Tensor, s: int, fill: float) -> torch.Tensor:
     return torch.cat([torch.full((b, s), fill, dtype=x.dtype, device=x.device), x[:, :-s]], dim=1)
 
 
-def _max_chain(a: torch.Tensor, chain: torch.Tensor, passes: int) -> torch.Tensor:
-    """Hillis-Steele max-plus delete chain, ``passes`` passes in the order
-    of ``_p7_kernel``: rows j < 2^k hold -inf constants, so a shifted-in
-    -inf leaves them as they are, as the TPU's wrapped roll does."""
+def _max_chain(a: torch.Tensor, chain: torch.Tensor, passes: int,
+               combine=torch.maximum) -> torch.Tensor:
+    """Hillis-Steele delete chain, ``passes`` passes in the order of
+    ``_p7_kernel``, in the max-plus semiring (or ``combine``'s): rows
+    j < 2^k hold -inf constants, so a shifted-in -inf leaves them as they
+    are, as the TPU's wrapped roll does."""
     for k in range(passes):
-        a = torch.maximum(a, _shift(a, 1 << k, NEG_INF) + chain[k])
+        a = combine(a, _shift(a, 1 << k, NEG_INF) + chain[k])
     return a
 
 
@@ -474,12 +481,29 @@ def _emissions(emit: torch.Tensor, tokens: torch.Tensor, t: int) -> torch.Tensor
     return emit[tokens[:, t].long().clamp(0, NUM_AA - 1)]
 
 
-def _specials(e, st_j, st_c, st_n, tr_loop, tr_move, tr_e_c, tr_e_j):
-    new_j = torch.maximum(st_j + tr_loop, e + tr_e_j)
-    new_c = torch.maximum(st_c + tr_loop, e + tr_e_c)
+def _specials(e, st_j, st_c, st_n, tr_loop, tr_move, tr_e_c, tr_e_j, combine=torch.maximum):
+    new_j = combine(st_j + tr_loop, e + tr_e_j)
+    new_c = combine(st_c + tr_loop, e + tr_e_c)
     new_n = st_n + tr_loop
-    new_b = torch.maximum(new_n + tr_move, new_j + tr_move)
+    new_b = combine(new_n + tr_move, new_j + tr_move)
     return new_j, new_c, new_n, new_b
+
+
+def _lse2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """logaddexp as ``pallas_p7._lse2``: mx + log1p(exp(min - mx)), with
+    (-inf, -inf) giving -inf, never NaN."""
+    mx = torch.maximum(x, y)
+    d = torch.minimum(x, y) - mx
+    return torch.where(torch.isnan(d), mx, mx + torch.log1p(torch.exp(d)))
+
+
+def _lse_reduce(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the states (dim 1) as ``pallas_p7._lse_reduce0``: a
+    max, then exp(x - max) summed, where x == max contributes exp(0) (an
+    all -inf row stays -inf)."""
+    mx = x.amax(dim=1, keepdim=True)
+    sub = torch.where(x == mx, torch.zeros_like(x), x - mx)
+    return (mx + torch.log(torch.exp(sub).sum(dim=1, keepdim=True)))[:, 0]
 
 
 def _freeze(valid, new, old):
@@ -493,14 +517,11 @@ def _num_steps(tokens: torch.Tensor, lengths: torch.Tensor) -> int:
     return min(tokens.shape[1], int(lengths.max())) if tokens.shape[0] else 0
 
 
-def viterbi_scan_plain(msc, isc, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):
-    """The eager Viterbi scan in plain PyTorch; same arguments and results
-    as :func:`viterbi_scan`. Every float32 operation is a max or one add
-    with the operands of ``_p7_kernel``'s Viterbi mode, so the scores equal
-    the JAX kernel's bit for bit. E takes the max over M and D; when
-    ``e_skip_d_ok`` holds that is max(M) exactly, as ``e_skip_d`` assumes."""
-    m_pad = msc.shape[1]
-    n_passes = chain_passes(m_pad)
+def _semiring_scan(combine, reduce, msc, isc, trans, chain, tokens, lengths, tr_rows, consts,
+                   m, i, d, s):
+    """``_p7_kernel``'s scan in the semiring of ``combine`` (max or
+    logaddexp) with E = ``reduce(combine(M, D))`` over the states."""
+    n_passes = chain_passes(msc.shape[1])
     tmm, tmi, tmd, tim, tii, tdm = trans[:6]
     tr_loop, tr_move = tr_rows[0], tr_rows[1]
     tr_b_mk, tr_e_c, tr_e_j = consts[0], consts[1], consts[2]
@@ -508,14 +529,35 @@ def viterbi_scan_plain(msc, isc, trans, chain, tokens, lengths, tr_rows, consts,
     lengths = lengths.long()
     for t in range(_num_steps(tokens, lengths)):
         st_j, st_c, st_n, st_b = st
-        diag = _shift(torch.maximum(torch.maximum(m + tmm, i + tim), d + tdm), 1, NEG_INF)
-        new_m = _emissions(msc, tokens, t) + torch.maximum(diag, (st_b + tr_b_mk)[:, None])
-        new_i = _emissions(isc, tokens, t) + torch.maximum(m + tmi, i + tii)
-        new_d = _max_chain(_shift(new_m + tmd, 1, NEG_INF), chain, n_passes)
-        e = torch.maximum(new_m, new_d).amax(dim=1)
-        new_s = _specials(e, st_j, st_c, st_n, tr_loop, tr_move, tr_e_c, tr_e_j)
+        diag = _shift(combine(combine(m + tmm, i + tim), d + tdm), 1, NEG_INF)
+        new_m = _emissions(msc, tokens, t) + combine(diag, (st_b + tr_b_mk)[:, None])
+        new_i = _emissions(isc, tokens, t) + combine(m + tmi, i + tii)
+        new_d = _max_chain(_shift(new_m + tmd, 1, NEG_INF), chain, n_passes, combine)
+        e = reduce(combine(new_m, new_d))
+        new_s = _specials(e, st_j, st_c, st_n, tr_loop, tr_move, tr_e_c, tr_e_j, combine)
         m, i, d, *st = _freeze(t < lengths, (new_m, new_i, new_d, *new_s), (m, i, d, *st))
     return st[1] + tr_move, m.clone(), i.clone(), d.clone(), torch.stack(list(st))
+
+
+def viterbi_scan_plain(msc, isc, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):
+    """The eager Viterbi scan in plain PyTorch; same arguments and results
+    as :func:`viterbi_scan`. Every float32 operation is a max or one add
+    with the operands of ``_p7_kernel``'s Viterbi mode, so the scores equal
+    the JAX kernel's bit for bit. E takes the max over M and D; when
+    ``e_skip_d_ok`` holds that is max(M) exactly, as ``e_skip_d`` assumes."""
+    return _semiring_scan(torch.maximum, lambda x: x.amax(dim=1), msc, isc, trans, chain,
+                          tokens, lengths, tr_rows, consts, m, i, d, s)
+
+
+def forward_log_scan_plain(msc, isc, trans, chain, tokens, lengths, tr_rows, consts,
+                           m, i, d, s):
+    """The log-space Forward scan in plain PyTorch; same arguments and
+    results as :func:`forward_log_scan`. It is :func:`viterbi_scan_plain`
+    in the (logsumexp, +) semiring of ``_p7_kernel(forward=True)``: every
+    max becomes :func:`_lse2` and E is :func:`_lse_reduce` over
+    ``_lse2(M, D)``."""
+    return _semiring_scan(_lse2, _lse_reduce, msc, isc, trans, chain, tokens, lengths, tr_rows,
+                          consts, m, i, d, s)
 
 
 def viterbi_filter_scan_plain(msc, isc, trans, chain, tokens, lengths, tr_rows, consts,
@@ -620,6 +662,21 @@ def forward_prob_scan_plain(modds, iodds, trans, chain, tokens, lengths, tr_rows
     ``tr_probs``, and after every FWD_RESCALE_GROUP residues of a sequence a
     rescale by ``max(max(M), C, N, 1e-30)`` with the Kahan-compensated log
     scale. The score is ``log C + log_scale + tr_move``."""
+    return forward_rows_plain(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs,
+                              consts, m, i, d, s, save=False)
+
+
+def forward_rows_plain(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs,
+                       consts, m, i, d, s, save: bool):
+    """:func:`forward_prob_scan_plain`; with ``save``, its results and
+    ``fm`` bf16 ``[B_pad, L_pad, M_pad]`` (each step's scaled M row, round to
+    nearest, 0 at and past the length) and ``ls`` f32 ``[B_pad, L_pad]``
+    (the log scale in effect for that row, 0 past the length)."""
+    b_pad, l_pad = tokens.shape
+    if save:
+        fm = torch.zeros((b_pad, l_pad, modds.shape[1]), dtype=torch.bfloat16,
+                         device=tokens.device)
+        ls = torch.zeros((b_pad, l_pad), dtype=torch.float32, device=tokens.device)
     tmm, tmi, tmd, tim, tii, tdm = trans[:6]
     p_loop, p_move = tr_probs[0], tr_probs[1]
     p_b_mk, p_e_c, p_e_j = consts[0], consts[1], consts[2]
@@ -633,12 +690,15 @@ def forward_prob_scan_plain(modds, iodds, trans, chain, tokens, lengths, tr_rows
         a = _shift(new_m * tmd, 1, 0.0)
         for k in range(chain.shape[0]):
             a = a + _shift(a, 1 << k, 0.0) * chain[k]
+        valid = t < lengths
+        if save:
+            fm[:, t] = torch.where(valid[:, None], new_m, 0.0).to(torch.bfloat16)
+            ls[:, t] = torch.where(valid, log_scale, 0.0)
         e = (new_m + a).sum(dim=1)
         new_j = st_j * p_loop + e * p_e_j
         new_c = st_c * p_loop + e * p_e_c
         new_n = st_n * p_loop
         new_b = new_n * p_move + new_j * p_move
-        valid = t < lengths
         m, i, d, st_j, st_c, st_n, st_b = _freeze(
             valid, (new_m, new_i, a, new_j, new_c, new_n, new_b),
             (m, i, d, st_j, st_c, st_n, st_b),
@@ -657,7 +717,8 @@ def forward_prob_scan_plain(modds, iodds, trans, chain, tokens, lengths, tr_rows
             )
         st = (st_j, st_c, st_n, st_b, log_scale, comp)
     score = torch.log(st[1]) + st[4] + tr_rows[1]
-    return score, m.clone(), i.clone(), d.clone(), torch.cat([torch.stack(list(st)), s[6:]])
+    out = (score, m.clone(), i.clone(), d.clone(), torch.cat([torch.stack(list(st)), s[6:]]))
+    return (*out, fm, ls) if save else out
 
 
 # -- the kernels -----------------------------------------------------------
@@ -672,9 +733,13 @@ def _kernel_library() -> ctypes.CDLL:
     ]
     lib.p7_viterbi_launch.restype = c
     lib.p7_forward_launch.argtypes = [
-        c, c, p, p, p, p, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
+        c, c, p, p, p, p, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
     ]
     lib.p7_forward_launch.restype = c
+    lib.p7_forward_log_launch.argtypes = [
+        c, c, p, p, p, p, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
+    ]
+    lib.p7_forward_log_launch.restype = c
     lib.p7_filter_launch.argtypes = [
         c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
     ]
@@ -767,10 +832,11 @@ def viterbi_lazy_scan_cuda(emit_m, emit_i, trans, chain, tokens, lengths, tr_row
                          consts, m, i, d, s, lazy_k)
 
 
-def forward_prob_scan_cuda(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs,
-                           consts, m, i, d, s):
-    """Launch ``csrc/p7_forward_kernel.cu``; same arguments and results as
-    :func:`forward_prob_scan`."""
+def forward_launch(wrapper, modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs,
+                   consts, m, i, d, s, save: bool):
+    """Check the operands and launch ``csrc/p7_forward_kernel.cu`` (with
+    ``save``, its row-saving case, and ``(fm, ls)`` allocated and returned
+    after the results); counts the launch on ``wrapper``."""
     device, b_pad, l_pad, m_pad, per = _check_scan(
         modds, iodds, trans, chain, tokens, lengths, tr_rows, consts, 3, m, i, d, s, 8,
     )
@@ -780,17 +846,55 @@ def forward_prob_scan_cuda(modds, iodds, trans, chain, tokens, lengths, tr_rows,
         raise ValueError(f"chain window {window} outside 1..{chain_passes(m_pad)}")
     scores = torch.empty(b_pad, dtype=torch.float32, device=device)
     out = (torch.empty_like(m), torch.empty_like(i), torch.empty_like(d), torch.empty_like(s))
+    saved = ()
+    if save:
+        saved = (torch.empty((b_pad, l_pad, m_pad), dtype=torch.bfloat16, device=device),
+                 torch.empty((b_pad, l_pad), dtype=torch.float32, device=device))
+    saved_ptrs = [x.data_ptr() for x in saved] if save else [None, None]
     if b_pad:
         rc = _kernel_library().p7_forward_launch(
             device.index, per, modds.data_ptr(), iodds.data_ptr(), trans.data_ptr(),
             chain.data_ptr(), m_pad, window, FWD_RESCALE_GROUP, tokens.data_ptr(), l_pad,
             lengths.data_ptr(), tr_rows.data_ptr(), tr_probs.data_ptr(), consts.data_ptr(),
             m.data_ptr(), i.data_ptr(), d.data_ptr(), s.data_ptr(), scores.data_ptr(),
+            *(o.data_ptr() for o in out), *saved_ptrs, b_pad,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+        _raise_on(rc, "Forward (row-saving)" if save else "Forward")
+        wrapper.launches += 1
+    return (scores, *out, *saved)
+
+
+def forward_prob_scan_cuda(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs,
+                           consts, m, i, d, s):
+    """Launch ``csrc/p7_forward_kernel.cu``; same arguments and results as
+    :func:`forward_prob_scan`."""
+    return forward_launch(forward_prob_scan_cuda, modds, iodds, trans, chain, tokens, lengths,
+                          tr_rows, tr_probs, consts, m, i, d, s, save=False)
+
+
+def forward_log_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):
+    """Launch ``csrc/p7_forward_log_kernel.cu``; same arguments and results
+    as :func:`forward_log_scan`. Raises on what the kernel does not take and
+    on a refused launch; never falls back."""
+    device, b_pad, l_pad, m_pad, per = _check_scan(
+        msc, isc, trans, chain, tokens, lengths, tr_rows, consts, 3, m, i, d, s, 4,
+    )
+    if chain.shape[0] != 16:
+        raise ValueError(f"chain has {chain.shape[0]} rows, expected 16")
+    scores = torch.empty(b_pad, dtype=torch.float32, device=device)
+    out = (torch.empty_like(m), torch.empty_like(i), torch.empty_like(d), torch.empty_like(s))
+    if b_pad:
+        rc = _kernel_library().p7_forward_log_launch(
+            device.index, per, msc.data_ptr(), isc.data_ptr(), trans.data_ptr(),
+            chain.data_ptr(), m_pad, chain_passes(m_pad), tokens.data_ptr(), l_pad,
+            lengths.data_ptr(), tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(),
+            i.data_ptr(), d.data_ptr(), s.data_ptr(), scores.data_ptr(),
             *(o.data_ptr() for o in out), b_pad,
             torch.cuda.current_stream(device).cuda_stream,
         )
-        _raise_on(rc, "Forward")
-        forward_prob_scan_cuda.launches += 1
+        _raise_on(rc, "log-space Forward")
+        forward_log_scan_cuda.launches += 1
     return (scores, *out)
 
 
@@ -826,6 +930,7 @@ def viterbi_filter_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, c
 viterbi_scan_cuda.launches = 0  # kernel launches in this process
 viterbi_lazy_scan_cuda.launches = 0
 forward_prob_scan_cuda.launches = 0
+forward_log_scan_cuda.launches = 0
 viterbi_filter_scan_cuda.launches = 0
 
 
@@ -863,6 +968,19 @@ def forward_prob_scan(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_p
     fn = forward_prob_scan_plain if tokens.device.type == "cpu" else forward_prob_scan_cuda
     return fn(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs, consts,
               m, i, d, s)
+
+
+def forward_log_scan(msc, isc, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):
+    """Log-space Forward over a staged batch, threading the carry: the
+    eager Viterbi pack and carries (:func:`viterbi_pack` with
+    ``lazy=False``, :func:`viterbi_init_carry`) in the (logsumexp, +)
+    semiring, the full chain of ``chain_passes(M_pad)`` passes.
+
+    Returns ``(scores [B_pad] in nats, m, i, d [B_pad, M_pad], s [4,
+    B_pad])``. CPU tensors run :func:`forward_log_scan_plain`; any other
+    device the kernel (:func:`forward_log_scan_cuda`) or raises."""
+    fn = forward_log_scan_plain if tokens.device.type == "cpu" else forward_log_scan_cuda
+    return fn(msc, isc, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s)
 
 
 def viterbi_filter_scan(msc, isc, trans, chain, tokens, lengths, tr_rows, consts,

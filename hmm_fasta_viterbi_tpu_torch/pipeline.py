@@ -20,6 +20,8 @@ Differences that follow from the device:
   ``M_BUCKET``); the Viterbi/Forward packs keep the JAX packers' M_pad;
 * the TPU's compile fallback from the lazy Viterbi kernel to the eager one
   is not carried over: a kernel that fails to build or launch raises;
+* ``forward_scores(prob_space=False)`` runs the log-space Forward kernel,
+  as ``forward_pallas(prob_space=False)`` does;
 * the prefilters (``scan_filter``, ``scan_p7_filter``, ``scan_many(mode=
   "filter")``, ``SearchPipeline(fast_msv=, fast_viterbi=)``) run on every
   device, their plain versions on the CPU; the JAX package runs them on its
@@ -38,10 +40,10 @@ import time
 import numpy as np
 import torch
 
-from hmm_fasta_viterbi_tpu.io.fastaio import FastaDatabase
-from hmm_fasta_viterbi_tpu.models import stats
-from hmm_fasta_viterbi_tpu.models.msv import MSVProfile, length_transitions
-from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
+from .io.fastaio import FastaDatabase
+from .models import stats
+from .models.msv import MSVProfile, length_transitions
+from .models.p7 import P7Profile
 
 from .ops import msv_cuda, p7_cuda
 
@@ -354,12 +356,24 @@ def viterbi_scores(
     return _viterbi(pack, staged)[: staged.num_sequences]
 
 
-def forward_scores(p7: P7Profile, tokens, lengths, device="cuda") -> torch.Tensor:
+def forward_scores(
+    p7: P7Profile, tokens, lengths, device="cuda", prob_space: bool = True,
+) -> torch.Tensor:
     """Forward scores (nats) of a host token batch -> f32 [B], through the
-    probability-space scan."""
+    probability-space scan, or with ``prob_space=False`` the log-space
+    semiring scan (``forward_pallas(prob_space=False)``), the careful
+    referee of the first on long sequences."""
     scanner = MSVScanner(device=device)
     staged = scanner.stage(tokens, lengths)
-    return _forward(p7_cuda.forward_pack(p7, scanner.device), staged)[: staged.num_sequences]
+    if prob_space:
+        scores = _forward(p7_cuda.forward_pack(p7, scanner.device), staged)
+    else:
+        pack = p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)
+        scores = p7_cuda.forward_log_scan(
+            *pack[:4], staged.tokens, staged.lengths, staged.tr_rows, pack.consts,
+            *p7_cuda.viterbi_init_carry(staged.tr_rows, pack.m_pad),
+        )[0]
+    return scores[: staged.num_sequences]
 
 
 def viterbi_filter_scores(

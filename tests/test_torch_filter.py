@@ -5,7 +5,8 @@ packers and its Pallas kernels in interpret mode.
 Every comparison here is bitwise (tolerance 0.0): the packers must give
 the JAX arrays byte for byte, and the plain filters the JAX kernels'
 scores bit for bit. Each filter must also bound its exact oracle from
-above on every sequence (filter >= exact, tolerance 0.0).
+above on every sequence (filter >= exact, tolerance 0.0). The port gets
+its own copies of the JAX profiles (convert.*_profile_from_jax).
 """
 
 import copy
@@ -28,6 +29,13 @@ from hmm_fasta_viterbi_tpu_torch.pipeline import (
 
 STEMS = ("100", "200", "1400")
 L_CHUNK = 64
+
+
+def _port(profile):
+    """The port's copy of a JAX MSVProfile or P7Profile."""
+    if isinstance(profile, P7Profile):
+        return convert.p7_profile_from_jax(profile)
+    return convert.msv_profile_from_jax(profile)
 
 
 def _bits(x) -> np.ndarray:
@@ -65,7 +73,7 @@ def _no_e_skip_d(p7, field="tdd"):
     vec = getattr(p7, field)
     bad = type(p7)(**{**p7.__dict__, field: np.where(
         np.isfinite(vec), np.float32(0.01), vec).astype(np.float32)})
-    assert not p7_cuda.e_skip_d_ok(bad)
+    assert not p7_cuda.e_skip_d_ok(_port(bad))
     return bad
 
 
@@ -115,7 +123,7 @@ def test_msv_filter_packer_every_profile(all_profile_paths):
     for path in all_profile_paths:
         prof = MSVProfile.from_profile(parse_hmm(path))
         m_pad = msv_cuda.round_up(prof.num_states + 1, 256)
-        got = msv_cuda.prepare_scores_t_filter(prof, m_pad)
+        got = msv_cuda.prepare_scores_t_filter(_port(prof), m_pad)
         assert np.array_equal(got, _bits(pallas_msv.prepare_scores_t_filter(prof, m_pad))), path
 
 
@@ -128,7 +136,7 @@ def test_neg_inf_score_clamped_before_round_up(profiles):
     scores[3, 7] = -np.inf
     scores[0, 0] = -np.inf
     prof.scores_real = scores
-    got = msv_cuda.prepare_scores_t_filter(prof)
+    got = msv_cuda.prepare_scores_t_filter(_port(prof))
     assert np.array_equal(got, _bits(pallas_msv.prepare_scores_t_filter(prof)))
     assert np.isfinite(_widen(got)).all()
     assert _widen(got)[7, 3] >= msv_cuda.PAD_SCORE
@@ -140,12 +148,13 @@ def test_viterbi_filter_packer_every_profile_and_window(all_profile_paths):
     profiles, for the auto window and every window 1..full_passes + 1."""
     for path in all_profile_paths:
         p7 = P7Profile.from_profile(parse_hmm(path))
-        m_pad = p7_cuda.default_m_pad(p7)
+        port = _port(p7)
+        m_pad = p7_cuda.default_m_pad(port)
         full = p7_cuda.chain_passes(m_pad)
-        assert p7_cuda.pick_filter_window(p7, m_pad) == pallas_p7.pick_filter_window(p7, m_pad)
+        assert p7_cuda.pick_filter_window(port, m_pad) == pallas_p7.pick_filter_window(p7, m_pad)
         for window in (None, *range(1, full + 2)):
             want = pallas_p7.prepare_p7_device_filter(p7, window_log2=window)
-            got = p7_cuda.prepare_p7_device_filter(p7, window_log2=window)
+            got = p7_cuda.prepare_p7_device_filter(port, window_log2=window)
             assert np.array_equal(got[0], _bits(want[0])) and np.array_equal(got[1], _bits(want[1]))
             for g, w in zip(got[2:5], want[2:5]):
                 assert g.tobytes() == np.asarray(w).tobytes(), (path, window)
@@ -158,7 +167,7 @@ def test_filter_window_auto_truncates_and_full_when_tdd_positive(profiles):
     -inf. Both byte-equal to JAX."""
     p7 = profiles["1400"][1]
     for prof, window, finite_aux in ((p7, 4, True), (_no_e_skip_d(p7), 11, False)):
-        got = p7_cuda.prepare_p7_device_filter(prof)
+        got = p7_cuda.prepare_p7_device_filter(_port(prof))
         want = pallas_p7.prepare_p7_device_filter(prof)
         assert got[5] == want[5] == window
         assert got[4].tobytes() == np.asarray(want[4]).tobytes()
@@ -185,20 +194,21 @@ def test_msv_filter_plain_matches_jax_interpret(profiles, batch, stem):
     """scan_filter on the CPU == JAX's filter kernel bit for bit (tolerance
     0.0), and >= the exact oracle on every sequence."""
     prof = profiles[stem][0]
+    port = _port(prof)
     tokens, lengths = batch
     sc = MSVScanner(device="cpu")
-    got = sc.scan_filter(prof, sc.stage(tokens, lengths)).numpy()
+    got = sc.scan_filter(port, sc.stage(tokens, lengths)).numpy()
     assert np.array_equal(got, _jax_msv_filter(prof, tokens, lengths))
     exact = msv_oracle_batch(prof, tokens, lengths)
     assert _filter_geq(got, exact)
     assert (got > exact).any()  # the round-up is live
-    assert sc._cache_get((id(prof), "filter"), prof) is not None
+    assert sc._cache_get((id(port), "filter"), port) is not None
 
 
 def test_msv_filter_carry_chain(profiles, batch):
     """Two filter calls split at 100 residues == one call: scores, M row
     and specials (tolerance 0.0)."""
-    prof = profiles["200"][0]
+    prof = _port(profiles["200"][0])
     tokens, lengths = batch
     sc = MSVScanner(device="cpu")
     staged = sc.stage(tokens, lengths)
@@ -233,7 +243,8 @@ def test_viterbi_filter_plain_matches_jax_interpret(profiles, batch, stem, windo
     if no_e_skip:
         p7 = _no_e_skip_d(p7, no_e_skip)
     tokens, lengths = batch
-    got = viterbi_filter_scores(p7, tokens, lengths, device="cpu", window_log2=window).numpy()
+    got = viterbi_filter_scores(_port(p7), tokens, lengths, device="cpu",
+                                window_log2=window).numpy()
     want = np.asarray(pallas_p7.viterbi_filter_pallas(
         p7, tokens, lengths, l_chunk=L_CHUNK, interpret=True, window_log2=window))
     assert np.array_equal(got, want)
@@ -242,7 +253,7 @@ def test_viterbi_filter_plain_matches_jax_interpret(profiles, batch, stem, windo
     # tests/test_torch_p7.py) the whole batch
     n = 8 if stem == "1400" else len(lengths)
     assert _filter_geq(got[:n], viterbi_oracle_batch(p7, tokens[:n], lengths[:n]))
-    eager = viterbi_scores(p7, tokens, lengths, device="cpu", lazy=False).numpy()
+    eager = viterbi_scores(_port(p7), tokens, lengths, device="cpu", lazy=False).numpy()
     assert _filter_geq(got, eager)
 
 
@@ -250,7 +261,7 @@ def test_viterbi_filter_tail_is_live(profiles, batch):
     """At window 1 on 100.hmm the tail term lands on every row (row 0 and
     the pad rows included): the scores differ from the full-chain filter's
     and still equal JAX's (tolerance 0.0)."""
-    p7 = profiles["100"][1]
+    p7 = _port(profiles["100"][1])
     tokens, lengths = batch
     w1 = viterbi_filter_scores(p7, tokens, lengths, device="cpu", window_log2=1).numpy()
     full = viterbi_filter_scores(p7, tokens, lengths, device="cpu").numpy()
@@ -261,7 +272,7 @@ def test_viterbi_filter_tail_is_live(profiles, batch):
 def test_viterbi_filter_carry_chain(profiles, batch, window):
     """Two Viterbi filter calls split at 100 residues == one call: scores
     and every carry (M, I, D, J/C/N/B; tolerance 0.0)."""
-    p7 = profiles["100"][1]
+    p7 = _port(profiles["100"][1])
     tokens, lengths = batch
     sc = MSVScanner(device="cpu")
     staged = sc.stage(tokens, lengths)
@@ -284,7 +295,7 @@ def test_viterbi_filter_carry_chain(profiles, batch, window):
 def test_scan_p7_filter_cache_and_entry(profiles, batch):
     """scan_p7_filter caches its pack under (id(p7), "p7_filter",
     window_log2) and equals the host entry viterbi_filter_scores."""
-    p7 = profiles["200"][1]
+    p7 = _port(profiles["200"][1])
     tokens, lengths = batch
     sc = MSVScanner(device="cpu")
     staged = sc.stage(tokens, lengths)
@@ -306,7 +317,7 @@ def test_convert_filter_packs_round_trip(profiles):
                                                                            256))[None]
     consts = np.array([[prof.tr_B_Mk, prof.tr_E_C, prof.tr_E_J]], dtype=np.float32)
     emit, tc = convert.filter_profile_from_jax(jax_table, consts, prof.num_states, "cpu")
-    own = msv_cuda.pack_profile_filter(prof, emit.shape[1], "cpu")
+    own = msv_cuda.pack_profile_filter(_port(prof), emit.shape[1], "cpu")
     assert torch.equal(emit.view(torch.int16), own[0].view(torch.int16))
     assert torch.equal(tc, own[1])
 
@@ -318,7 +329,8 @@ def test_convert_filter_packs_round_trip(profiles):
         jax_stack = np.stack([prep(p, 256) for p in group])
         emit, tc = convert.stacked_profiles_from_jax(
             jax_stack, jax_consts, [p.num_states for p in group], "cpu")
-        own_emit, own_tc = msv_cuda.pack_stacked(group, m_pad, "cpu", filter_mode=filt)
+        own_emit, own_tc = msv_cuda.pack_stacked([_port(p) for p in group], m_pad, "cpu",
+                                                 filter_mode=filt)
         assert emit.dtype == own_emit.dtype == (torch.bfloat16 if filt else torch.float32)
         assert torch.equal(emit.view(torch.int16) if filt else emit,
                            own_emit.view(torch.int16) if filt else own_emit)
@@ -327,7 +339,7 @@ def test_convert_filter_packs_round_trip(profiles):
     for window in (None, 3):
         pack = convert.p7_filter_pack_from_jax(
             *pallas_p7.prepare_p7_device_filter(p7, window_log2=window), device="cpu")
-        own = p7_cuda.filter_pack(p7, "cpu", window_log2=window)
+        own = p7_cuda.filter_pack(_port(p7), "cpu", window_log2=window)
         for g, w in zip(pack[:5], own[:5]):
             assert g.dtype == w.dtype and torch.equal(g.view(torch.int16) if g.dtype ==
                                                       torch.bfloat16 else g,

@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: it loads no JAX, it never falls back
-from the kernel to its plain version, and it builds for Hopper without
-fast math."""
+"""The PyTorch port stands alone: it loads no JAX and nothing of the JAX
+package, it never falls back from the kernel to its plain version, and it
+builds for Hopper without fast math."""
 
+import ast
 import pathlib
 import subprocess
 import sys
@@ -11,9 +12,11 @@ import pytest
 import torch
 
 from hmm_fasta_viterbi_tpu_torch import MSVScanner
-from hmm_fasta_viterbi_tpu_torch.ops import _build, msv_cuda, p7_cuda
+from hmm_fasta_viterbi_tpu_torch.ops import _build, msv_cuda, p7_cuda, posterior_cuda
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_DIR = REPO_ROOT / "hmm_fasta_viterbi_tpu_torch"
+JAX_PACKAGE = "hmm_fasta_viterbi_tpu"
 
 _NO_JAX = """
 import sys
@@ -30,32 +33,73 @@ assert cli.main(["scan", "--device", "cpu", "--stage", "search", "--hmm", sys.ar
                  "--fasta", sys.argv[2], "--out", sys.argv[3] + ".search"]) == 0
 assert cli.main(["scan", "--device", "cpu", "--stage", "search", "--fast", "--hmm",
                  sys.argv[1], "--fasta", sys.argv[2], "--out", sys.argv[3] + ".fast"]) == 0
+assert cli.main(["scan", "--device", "cpu", "--stage", "search", "--domains", "--hmm",
+                 sys.argv[1], "--fasta", sys.argv[4], "--out", sys.argv[3] + ".domains"]) == 0
 for stage in ("msv", "search"):
     assert cli.main(["sweep", "--device", "cpu", "--stage", stage, "--fast", "--hmm-db",
                      sys.argv[1], "--fasta", sys.argv[2],
                      "--out", sys.argv[3] + ".sweep_" + stage]) == 0
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                or m == "hmm_fasta_viterbi_tpu" or m.startswith("hmm_fasta_viterbi_tpu."))
 assert not loaded, loaded
 """
 
 
 def test_port_and_chip_smoke_import_no_jax(profile_dir, fasta_dir, tmp_path):
     """In a fresh interpreter: import the port, its CLI and chip_smoke.py,
-    run a CPU scan, a CPU search with and without --fast and CPU sweeps,
-    and find no jax module loaded."""
+    run a CPU scan, a CPU search with and without --fast, a CPU search with
+    --domains on a consensus hit and CPU sweeps, and find no jax module and
+    no module of the JAX package loaded."""
+    from hmm_fasta_viterbi_tpu_torch import parse_hmm
+    from hmm_fasta_viterbi_tpu_torch.io.alphabet import AMINO_ACIDS
+
+    hmm = parse_hmm(profile_dir / "100.hmm")
+    consensus = "".join(AMINO_ACIDS[a] for a in np.argmax(hmm.match_emissions[1:], axis=1))
+    hit = tmp_path / "hit.fsa"
+    hit.write_text(f">consensus\n{consensus}\n>junk\nACDEFGHIKLMNPQRSTVWY\n")
     proc = subprocess.run(
         [
             sys.executable, "-c", _NO_JAX, str(profile_dir / "100.hmm"),
-            str(fasta_dir / "fasta_like_example.fsa"), str(tmp_path / "out.tsv"),
+            str(fasta_dir / "fasta_like_example.fsa"), str(tmp_path / "out.tsv"), str(hit),
         ],
         cwd=REPO_ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+    domains = (tmp_path / "out.tsv.domains").read_text().splitlines()
+    assert domains[0].endswith("\tenv_from\tenv_to\tndom\tdom_scores")
+    assert domains[1].startswith("consensus") and domains[1].split("\t")[-2] == "1"
     assert (tmp_path / "out.tsv").read_text().startswith("# target")
     assert (tmp_path / "out.tsv.search").read_text().startswith("# target\tprofile\tmsv_bits")
     assert (tmp_path / "out.tsv.fast").read_text().startswith("# target\tprofile\tmsv_bits")
     assert (tmp_path / "out.tsv.sweep_msv").read_text().startswith("# target\tprofile\tscore")
     assert (tmp_path / "out.tsv.sweep_search").read_text().startswith("# target\tprofile\tmsv")
+
+
+def _jax_package_imports(path: pathlib.Path) -> list[str]:
+    """The imports of the JAX package (or of jax) in one Python file."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [n for n in names if n.split(".")[0] in (JAX_PACKAGE, "jax")]
+    return found
+
+
+def test_no_file_of_the_port_imports_the_jax_package():
+    """An AST scan of every .py file of the port and of chip_smoke.py finds
+    no import of hmm_fasta_viterbi_tpu (or jax), at any depth."""
+    files = sorted(PORT_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    assert {f.name for f in files} >= {"hmmio.py", "loader.py", "reference.py", "stats.py",
+                                       "posterior_cuda.py", "chip_smoke.py"}
+    bad = {str(f.relative_to(REPO_ROOT)): _jax_package_imports(f) for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+    # the scan finds such imports where they are
+    assert _jax_package_imports(REPO_ROOT / "tests" / "test_torch_p7.py")
 
 
 def test_cuda_scanner_without_cuda_raises(monkeypatch):
@@ -96,8 +140,13 @@ def test_nvcc_command_targets_hopper_without_fast_math():
     compiles, link = _build.nvcc_commands("nvcc", pathlib.Path("out"), pathlib.Path("lib.so"))
     srcs = {cmd[-1] for cmd in compiles}
     for name in ("msv_kernel.cu", "p7_viterbi_kernel.cu", "p7_forward_kernel.cu",
-                 "p7_filter_kernel.cu"):
+                 "p7_filter_kernel.cu", "p7_forward_log_kernel.cu", "posterior_kernel.cu"):
         assert str(_build.CSRC_DIR / name) in srcs
+    assert len(srcs) == 6
+    # the shared Viterbi / log-space Forward template is a header both include
+    assert [h.name for h in _build.headers()] == ["p7_viterbi.cuh"]
+    for name in ("p7_viterbi_kernel.cu", "p7_forward_log_kernel.cu"):
+        assert '#include "p7_viterbi.cuh"' in (_build.CSRC_DIR / name).read_text()
     for cmd in compiles:
         joined = " ".join(cmd)
         assert "arch=compute_90a,code=sm_90a" in joined and "-c" in cmd and "-O3" in cmd
@@ -108,7 +157,7 @@ def test_nvcc_command_targets_hopper_without_fast_math():
 def test_kernel_supports_every_profile(all_profile_paths):
     """Every profile of data/profile_HMMs fits the kernel's register row
     (LENG 100-2405); the lane counts match the C++ switch."""
-    from hmm_fasta_viterbi_tpu import parse_hmm
+    from hmm_fasta_viterbi_tpu_torch import parse_hmm
 
     source = (_build.CSRC_DIR / "msv_kernel.cu").read_text()
     for per in msv_cuda.KERNEL_PER:
@@ -167,11 +216,12 @@ def test_p7_scans_never_fall_back(monkeypatch):
 def test_p7_kernels_support_every_profile(all_profile_paths):
     """Every profile's p7 pack (JAX M_pad convention) fits the p7 kernels'
     threads, and the thread counts match the C++ switches."""
-    from hmm_fasta_viterbi_tpu import parse_hmm
-    from hmm_fasta_viterbi_tpu.models.p7 import P7Profile
+    from hmm_fasta_viterbi_tpu_torch import P7Profile, parse_hmm
 
     for name, macro in (("p7_viterbi_kernel.cu", "P7_CASE"), ("p7_forward_kernel.cu", "FWD_CASE"),
-                        ("p7_filter_kernel.cu", "FILTER_CASE")):
+                        ("p7_filter_kernel.cu", "FILTER_CASE"),
+                        ("p7_forward_log_kernel.cu", "LOG_CASE"),
+                        ("posterior_kernel.cu", "POST_CASE")):
         source = (_build.CSRC_DIR / name).read_text()
         assert all(f"{macro}({per})" in source for per in p7_cuda.KERNEL_PER)
     for path in all_profile_paths:
@@ -224,3 +274,50 @@ def test_msv_table_types_and_stack_in_one_source():
     source = (_build.CSRC_DIR / "msv_kernel.cu").read_text()
     assert "struct Entries<uint16_t>" in source and "struct Entries<float>" in source
     assert "blockIdx.y" in source and "raw.x << 16" in source
+
+
+def test_log_forward_and_posterior_scans_never_fall_back(monkeypatch):
+    """forward_log_scan, forward_save_scan and backward_coverage_scan send
+    every tensor that is not on the CPU to their kernel wrappers, which
+    raise for a device they cannot launch on; no launch is counted."""
+
+    def plain(*args):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(p7_cuda, "forward_log_scan_plain", plain)
+    for name in ("forward_save_scan_plain", "backward_coverage_scan_plain"):
+        monkeypatch.setattr(posterior_cuda, name, plain)
+    wrappers = (p7_cuda.forward_log_scan_cuda, posterior_cuda.forward_save_scan_cuda,
+                posterior_cuda.backward_coverage_scan_cuda)
+    before = [w.launches for w in wrappers]
+    b, l, m = 4, 8, 16
+    log = _meta_p7_args(4, 3)
+    fwd = _meta_p7_args(8, 3, chain_rows=3)
+    fwd.insert(7, torch.empty((2, b), device="meta"))  # tr_probs
+    bwd = [
+        torch.empty((20, m), device="meta"), torch.empty((20, m), device="meta"),
+        torch.empty((8, m), device="meta"), torch.empty((3, m), device="meta"),
+        torch.empty((b, l), dtype=torch.int8, device="meta"),
+        torch.empty((b,), dtype=torch.int32, device="meta"),
+        torch.empty((2, b), device="meta"), torch.empty((3,), device="meta"),
+        torch.empty((b,), device="meta"),
+        torch.empty((b, l, m), dtype=torch.bfloat16, device="meta"),
+        torch.empty((b, l), device="meta"),
+    ]
+    for scan, args in ((p7_cuda.forward_log_scan, log), (posterior_cuda.forward_save_scan, fwd),
+                       (posterior_cuda.backward_coverage_scan, bwd)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            scan(*args)
+    for wrapper, args in zip(wrappers, (log, fwd, bwd)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            wrapper(*[torch.zeros(a.shape, dtype=a.dtype) for a in args])
+    assert [w.launches for w in wrappers] == before
+
+
+def test_log_forward_kernel_uses_accurate_math_only():
+    """The log-space Forward's combine and E reduce call the accurate expf,
+    log1pf and logf, never the fast intrinsics."""
+    source = (_build.CSRC_DIR / "p7_viterbi.cuh").read_text()
+    assert "log1pf(expf(d))" in source and "logf(block_reduce<true>" in source
+    for fast in ("__expf", "__logf", "__log1pf", "__fdividef"):
+        assert f"{fast}(" not in source

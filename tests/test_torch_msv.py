@@ -33,8 +33,9 @@ def _tokens(seed, batch, width):
 
 
 def _port_scores(profile, tokens, lengths):
+    """The port's scores of a JAX MSVProfile, through its own copy."""
     sc = MSVScanner(device="cpu")
-    return sc.scan(profile, sc.stage(tokens, lengths)).numpy()
+    return sc.scan(convert.msv_profile_from_jax(profile), sc.stage(tokens, lengths)).numpy()
 
 
 @pytest.mark.parametrize("stem", ["100", "1001", "1400"])
@@ -102,7 +103,7 @@ def test_carry_chain_equals_one_call(profile_dir, stem, split):
     profile = _profile(profile_dir, stem)
     tokens = _tokens(4, len(RAGGED), 64)
     staged = MSVScanner(device="cpu").stage(tokens, RAGGED)
-    emit, consts = convert.device_profile(profile, "cpu")
+    emit, consts = convert.device_profile(convert.msv_profile_from_jax(profile), "cpu")
     m0, s0 = msv_cuda.init_carry(staged.tr_rows, emit.shape[1])
     whole = msv_cuda.msv_scan(
         emit, staged.tokens, staged.lengths, staged.tr_rows, consts, m0, s0
@@ -129,7 +130,7 @@ def test_prepare_scores_t_byte_equal(profile_dir, stem, m_pad):
     scores = profile.scores_real.copy()
     scores[3, 5] = -np.inf  # exercises the PAD_SCORE clamp
     profile = dataclasses.replace(profile, scores_real=scores)
-    got = msv_cuda.prepare_scores_t(profile, m_pad)
+    got = msv_cuda.prepare_scores_t(convert.msv_profile_from_jax(profile), m_pad)
     want = pallas_msv.prepare_scores_t(profile, m_pad)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert got.tobytes() == want.tobytes()

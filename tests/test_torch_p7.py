@@ -4,7 +4,11 @@ mode, its host packers and the NumPy oracles.
 
 Tolerances are the JAX suite's own: Viterbi 1e-4 against the oracle, with
 0.0 expected against the JAX kernel (same operands, same operation order);
-the lazy scan equals the eager one bit for bit; Forward 2e-3.
+the lazy scan equals the eager one bit for bit; Forward 2e-3. The
+log-space Forward is held to 1e-4 against the JAX log-space kernel (the
+same semiring with the same operands; the logarithms and the E sum's order
+round differently) and 2e-3 against the oracle. The port gets its own
+copies of the JAX profiles (convert.p7_profile_from_jax).
 """
 
 import dataclasses
@@ -26,6 +30,7 @@ from test_hmm_parsing import MINI_HMM
 
 VIT_TOL = 1e-4
 FWD_TOL = 2e-3
+LOG_FWD_TOL = 1e-4
 RAGGED = np.array([64, 1, 33, 128, 17, 2, 0, 100], dtype=np.int32)
 
 
@@ -33,6 +38,11 @@ def _p7(profile_dir, stem):
     if stem == "mini":
         return P7Profile.from_profile(parse_hmm_text(MINI_HMM))
     return P7Profile.from_profile(parse_hmm(profile_dir / f"{stem}.hmm"))
+
+
+def _port(p7):
+    """The port's copy of a JAX P7Profile."""
+    return convert.p7_profile_from_jax(p7)
 
 
 def _weak_damping(p7):
@@ -67,25 +77,26 @@ def _pre_diag(pack, m, i, d):
 @pytest.mark.parametrize("stem", ["100", "200", "1400", "2405", "mini"])
 def test_packers_byte_equal_to_jax(profile_dir, stem):
     p7 = _p7(profile_dir, stem)
-    for got, want in zip(p7_cuda.prepare_p7_device(p7), pallas_p7.prepare_p7_device(p7)):
+    for got, want in zip(p7_cuda.prepare_p7_device(_port(p7)), pallas_p7.prepare_p7_device(p7)):
         assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
-    got_lazy = p7_cuda.prepare_p7_device_lazy(p7)
+    got_lazy = p7_cuda.prepare_p7_device_lazy(_port(p7))
     want_lazy = pallas_p7.prepare_p7_device_lazy(p7)
     assert got_lazy[5] == want_lazy[5]
     for got, want in zip(got_lazy[:5], want_lazy[:5]):
         assert got.tobytes() == want.tobytes()
-    for got, want in zip(p7_cuda.prepare_p7_device_prob(p7), pallas_p7.prepare_p7_device_prob(p7)):
+    for got, want in zip(p7_cuda.prepare_p7_device_prob(_port(p7)),
+                         pallas_p7.prepare_p7_device_prob(p7)):
         assert got.shape == want.shape and got.tobytes() == want.tobytes()
-    assert p7_cuda.e_skip_d_ok(p7) == pallas_p7.e_skip_d_ok(p7)
-    assert p7_cuda.pick_prob_chain_window(p7) == pallas_p7.pick_prob_chain_window(p7)
-    m_pad = p7_cuda.default_m_pad(p7)
+    assert p7_cuda.e_skip_d_ok(_port(p7)) == pallas_p7.e_skip_d_ok(p7)
+    assert p7_cuda.pick_prob_chain_window(_port(p7)) == pallas_p7.pick_prob_chain_window(p7)
+    m_pad = p7_cuda.default_m_pad(_port(p7))
     assert p7_cuda.chain_passes(m_pad) == max(1, int(np.ceil(np.log2(m_pad))))
 
 
 def test_lazy_packer_every_window_and_length_probs(profile_dir):
     p7 = _p7(profile_dir, "100")
     for k in range(1, 8):
-        got = p7_cuda.prepare_p7_device_lazy(p7, lazy_k=k)
+        got = p7_cuda.prepare_p7_device_lazy(_port(p7), lazy_k=k)
         want = pallas_p7.prepare_p7_device_lazy(p7, lazy_k=k)
         assert got[5] == want[5] == k
         assert got[3].tobytes() == want[3].tobytes() and got[4].tobytes() == want[4].tobytes()
@@ -101,7 +112,7 @@ def test_plain_eager_equals_jax_kernel_and_oracle(profile_dir, stem, width):
     p7 = _p7(profile_dir, stem)
     lengths = np.minimum(RAGGED, width)
     tokens = _tokens(1, len(lengths), width)
-    got = viterbi_scores(p7, tokens, lengths, device="cpu", lazy=False).numpy()
+    got = viterbi_scores(_port(p7), tokens, lengths, device="cpu", lazy=False).numpy()
     want = np.asarray(pallas_p7.viterbi_pallas(p7, tokens, lengths, interpret=True, lazy=False))
     assert np.array_equal(got, want)  # max |d| = 0.0
     oracle = viterbi_oracle_batch(p7, tokens, lengths)
@@ -158,12 +169,12 @@ def test_plain_lazy_equals_eager_every_window(profile_dir, stem, width):
     p7 = _weak_damping(_p7(profile_dir, "mini")) if stem == "weak" else _p7(profile_dir, stem)
     lengths = np.minimum(np.array([width, width - 7, 1, 0, width], dtype=np.int32), width)
     staged = _staged(_tokens(4, len(lengths), width), lengths)
-    eager_pack = p7_cuda.viterbi_pack(p7, "cpu", lazy=False)
+    eager_pack = p7_cuda.viterbi_pack(_port(p7), "cpu", lazy=False)
     eager = p7_cuda.viterbi_scan(*_viterbi_args(eager_pack, staged))
     n_passes = p7_cuda.chain_passes(eager_pack.m_pad)
     fired = 0
     for k in range(1, n_passes + 1):
-        pack = p7_cuda.viterbi_pack(p7, "cpu", lazy=True, lazy_k=k)
+        pack = p7_cuda.viterbi_pack(_port(p7), "cpu", lazy=True, lazy_k=k)
         assert pack.lazy_k == k
         lazy = p7_cuda.viterbi_lazy_scan(*_viterbi_args(pack, staged), k)
         assert torch.equal(lazy[0], eager[0])
@@ -187,7 +198,7 @@ def test_weak_damping_lazy_equals_jax_lazy_kernel():
     tokens = _tokens(23, 3, 40)
     lengths = np.array([40, 17, 40], dtype=np.int32)
     want = np.asarray(pallas_p7.viterbi_pallas(p7, tokens, lengths, interpret=True, lazy_k=1))
-    got = viterbi_scores(p7, tokens, lengths, device="cpu", lazy_k=1).numpy()
+    got = viterbi_scores(_port(p7), tokens, lengths, device="cpu", lazy_k=1).numpy()
     assert np.array_equal(got, want)
     np.testing.assert_allclose(got, viterbi_oracle_batch(p7, tokens, lengths), atol=VIT_TOL, rtol=0)
 
@@ -199,12 +210,30 @@ def test_plain_forward_vs_jax_kernel_and_oracle(profile_dir, stem, width):
     p7 = _p7(profile_dir, stem)
     lengths = np.minimum(RAGGED, width)
     tokens = _tokens(6, len(lengths), width)
-    got = forward_scores(p7, tokens, lengths, device="cpu").numpy()
+    got = forward_scores(_port(p7), tokens, lengths, device="cpu").numpy()
     want = np.asarray(pallas_p7.forward_pallas(p7, tokens, lengths, interpret=True))
     oracle = forward_oracle_batch(p7, tokens, lengths)
     assert np.isneginf(got[lengths == 0]).all() and np.isfinite(got[lengths > 0]).all()
     np.testing.assert_allclose(got, want, atol=FWD_TOL, rtol=0)
     np.testing.assert_allclose(got, oracle, atol=FWD_TOL, rtol=0)
+
+
+def test_plain_log_forward_vs_jax_kernel_and_oracle(profile_dir):
+    """forward_scores(prob_space=False) on the CPU (the plain log-space
+    scan) against forward_pallas(prob_space=False, interpret=True): 1e-4;
+    against the oracle: 2e-3; an empty sequence scores -inf."""
+    p7 = _p7(profile_dir, "100")
+    lengths = np.array([0, 1, 7, 33, 96], dtype=np.int32)
+    tokens = _tokens(12, len(lengths), 96)
+    got = forward_scores(_port(p7), tokens, lengths, device="cpu", prob_space=False).numpy()
+    want = np.asarray(pallas_p7.forward_pallas(p7, tokens, lengths, interpret=True,
+                                               prob_space=False))
+    assert np.isneginf(got[0]) and np.isneginf(want[0]) and np.isfinite(got[1:]).all()
+    np.testing.assert_allclose(got[1:], want[1:], atol=LOG_FWD_TOL, rtol=0)
+    np.testing.assert_allclose(got, forward_oracle_batch(p7, tokens, lengths), atol=FWD_TOL,
+                               rtol=0)
+    prob = forward_scores(_port(p7), tokens, lengths, device="cpu").numpy()
+    np.testing.assert_allclose(prob, got, atol=FWD_TOL, rtol=0)
 
 
 def test_forward_ragged_long_tail_regression():
@@ -220,11 +249,11 @@ def test_forward_ragged_long_tail_regression():
     tokens[0] = np.random.default_rng(7).integers(0, 20, size=width)
     lengths = np.array([width, 6], dtype=np.int32)
     want = forward_oracle_batch(p7, tokens, lengths)
-    got = forward_scores(p7, tokens, lengths, device="cpu").numpy()
+    got = forward_scores(_port(p7), tokens, lengths, device="cpu").numpy()
     assert np.isfinite(got).all(), got
     np.testing.assert_allclose(got, want, atol=FWD_TOL, rtol=0)
 
-    pack = p7_cuda.forward_pack(p7, "cpu")
+    pack = p7_cuda.forward_pack(_port(p7), "cpu")
     tr_probs = torch.from_numpy(p7_cuda.length_transition_probs(lengths))
     staged = _staged(tokens, lengths)
     raw = p7_cuda.forward_prob_scan(
@@ -242,14 +271,14 @@ def test_forward_long_l_accumulation_drift():
     length = 16384
     tokens = _tokens(5, 1, length)
     lengths = np.array([length], dtype=np.int32)
-    got = forward_scores(p7, tokens, lengths, device="cpu").numpy()
+    got = forward_scores(_port(p7), tokens, lengths, device="cpu").numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, forward_oracle_batch(p7, tokens, lengths), atol=5e-3, rtol=0)
 
 
 # -- carry chains ----------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["eager", "lazy", "lazy_k1", "forward"])
+@pytest.mark.parametrize("kind", ["eager", "lazy", "lazy_k1", "forward", "forward_log"])
 def test_carry_chain_equals_one_call(profile_dir, kind):
     """Two calls over L split at 40 (a multiple of FWD_RESCALE_GROUP; the
     second call takes the lengths less the split, clipped at 0) equal one
@@ -260,14 +289,21 @@ def test_carry_chain_equals_one_call(profile_dir, kind):
     lengths = np.array([150, 93, 1, 0, 40, 41], dtype=np.int32)
     staged = _staged(_tokens(9, len(lengths), 150), lengths)
     if kind == "forward":
-        pack = p7_cuda.forward_pack(p7, "cpu")
+        pack = p7_cuda.forward_pack(_port(p7), "cpu")
         carry = p7_cuda.forward_init_carry(staged.tr_probs, pack.m_pad)
 
         def run(tokens, lens, c):
             return p7_cuda.forward_prob_scan(*pack[:4], tokens, lens, staged.tr_rows,
                                              staged.tr_probs, pack.consts, *c)
+    elif kind == "forward_log":
+        pack = p7_cuda.viterbi_pack(_port(p7), "cpu", lazy=False)
+        carry = p7_cuda.viterbi_init_carry(staged.tr_rows, pack.m_pad)
+
+        def run(tokens, lens, c):
+            return p7_cuda.forward_log_scan(*pack[:4], tokens, lens, staged.tr_rows,
+                                            pack.consts, *c)
     else:
-        pack = p7_cuda.viterbi_pack(p7, "cpu", lazy=kind != "eager",
+        pack = p7_cuda.viterbi_pack(_port(p7), "cpu", lazy=kind != "eager",
                                     lazy_k=1 if kind == "lazy_k1" else None)
         carry = p7_cuda.viterbi_init_carry(staged.tr_rows, pack.m_pad)
 
@@ -285,7 +321,7 @@ def test_carry_chain_equals_one_call(profile_dir, kind):
         assert torch.equal(a, b)
     if kind == "lazy_k1":
         assert int(whole[5].sum()) > 0  # the chained calls replayed too
-    if kind == "forward":
+    if kind in ("forward", "forward_log"):
         want = forward_oracle_batch(p7, np.asarray(staged.tokens, dtype=np.int32), lengths)
         np.testing.assert_allclose(whole[0].numpy(), want, atol=FWD_TOL, rtol=0)
 
@@ -299,12 +335,12 @@ def test_convert_round_trips(profile_dir):
     p7 = _p7(profile_dir, "200")
     for got, want in (
         (convert.p7_pack_from_jax(*pallas_p7.prepare_p7_device(p7), "cpu"),
-         p7_cuda.viterbi_pack(p7, "cpu", lazy=False)),
+         p7_cuda.viterbi_pack(_port(p7), "cpu", lazy=False)),
         (convert.p7_pack_from_jax(*pallas_p7.prepare_p7_device_lazy(p7)[:5], "cpu",
                                   lazy_k=pallas_p7.prepare_p7_device_lazy(p7)[5]),
-         p7_cuda.viterbi_pack(p7, "cpu", lazy=True)),
+         p7_cuda.viterbi_pack(_port(p7), "cpu", lazy=True)),
         (convert.p7_pack_from_jax(*pallas_p7.prepare_p7_device_prob(p7), "cpu"),
-         p7_cuda.forward_pack(p7, "cpu")),
+         p7_cuda.forward_pack(_port(p7), "cpu")),
     ):
         assert got.lazy_k == want.lazy_k
         for g, w in zip(got[:5], want[:5]):

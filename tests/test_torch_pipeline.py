@@ -12,6 +12,7 @@ from hmm_fasta_viterbi_tpu import MSVProfile, msv_oracle_batch, parse_fasta, par
 from hmm_fasta_viterbi_tpu.ops import pallas_msv
 from hmm_fasta_viterbi_tpu.pipeline import MSVScanner as JaxScanner
 from hmm_fasta_viterbi_tpu_torch import MSVScanner, convert
+from hmm_fasta_viterbi_tpu_torch import parse_fasta as port_parse_fasta
 from hmm_fasta_viterbi_tpu_torch.ops import msv_cuda
 
 
@@ -25,7 +26,8 @@ def test_stage_and_scan_equal_jax_xla(profile_dir, fasta_dir, fasta, stem):
     profile = _profile(profile_dir, stem)
     db = parse_fasta(fasta_dir / fasta)
     port = MSVScanner(device="cpu")
-    got = port.scan(profile, port.stage_fasta(db)).numpy()
+    got = port.scan(convert.msv_profile_from_jax(profile),
+                    port.stage_fasta(port_parse_fasta(fasta_dir / fasta))).numpy()
     jax_sc = JaxScanner(backend="xla")
     want = np.asarray(jax_sc.scan(profile, jax_sc.stage_fasta(db)))
     assert got.shape == (len(db),)
@@ -48,7 +50,7 @@ def test_converted_jax_staging_gives_same_scores(profile_dir):
         np.asarray(jax_staged.tr_rows), jax_staged.num_sequences, "cpu",
     )
     assert staged.tokens.shape == jax_staged.tokens_i8_t.shape[::-1]
-    got = MSVScanner(device="cpu").scan(profile, staged).numpy()
+    got = MSVScanner(device="cpu").scan(convert.msv_profile_from_jax(profile), staged).numpy()
     assert np.array_equal(got, want)
 
     scores_t, tr_consts, mr = jax_sc._device_profile(profile)
@@ -97,9 +99,10 @@ def test_profile_cache_id_reuse_regression(profile_dir):
     for i in range(12):
         stem = ("100", "200")[i % 2]
         profile = _profile(profile_dir, stem)
-        got = sc.scan(profile, staged).numpy()
+        port = convert.msv_profile_from_jax(profile)
+        got = sc.scan(port, staged).numpy()
         assert np.array_equal(got, msv_oracle_batch(profile, tokens, lengths))
-        del profile
+        del profile, port
         gc.collect()
 
 

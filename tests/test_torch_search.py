@@ -8,7 +8,10 @@ MSV scores are equal bit for bit; Viterbi scores agree within 1e-4 and
 Forward scores within 2e-3 (the JAX XLA path runs log-space Forward); the
 stage decisions (the passed_* sets) are the same. Against the Pallas
 kernels the MSV and Viterbi scores (filter scores included) are equal bit
-for bit (tolerance 0.0) and Forward within 2e-3.
+for bit (tolerance 0.0) and Forward within 2e-3. ``scan --stage search
+--domains`` gives the JAX CLI's rows, envelopes and domain spans, domain
+scores within 2e-3 nats and i-Evalues within 1e-2 relative. The port gets
+its own copy of the JAX profile (convert.profile_hmm_from_jax).
 """
 
 import copy
@@ -27,7 +30,8 @@ from hmm_fasta_viterbi_tpu.models.sample import sample_sequences
 from hmm_fasta_viterbi_tpu.ops.reference import viterbi_oracle_batch
 from hmm_fasta_viterbi_tpu.pipeline import MSVScanner as JaxScanner
 from hmm_fasta_viterbi_tpu.pipeline import SearchPipeline as JaxPipeline
-from hmm_fasta_viterbi_tpu_torch import P7Profile, SearchPipeline, cli as port_cli
+from hmm_fasta_viterbi_tpu_torch import P7Profile, SearchPipeline, convert
+from hmm_fasta_viterbi_tpu_torch import cli as port_cli
 from hmm_fasta_viterbi_tpu_torch.ops import p7_cuda
 from hmm_fasta_viterbi_tpu_torch.pipeline import MSVScanner, select_p7_fns
 
@@ -69,7 +73,8 @@ def test_search_pipeline_matches_jax(hmm100, search_fasta):
     db = parse_fasta(search_fasta)
     tokens, lengths = db.encode()
     port_sc = MSVScanner(device="cpu")
-    got = SearchPipeline(port_sc).search(hmm100, port_sc.stage(tokens, lengths), tokens, lengths)
+    got = SearchPipeline(port_sc).search(convert.profile_hmm_from_jax(hmm100),
+                                         port_sc.stage(tokens, lengths), tokens, lengths)
     jax_sc = JaxScanner(backend="xla")
     want = JaxPipeline(jax_sc).search(hmm100, jax_sc.stage(tokens, lengths), tokens, lengths)
 
@@ -93,18 +98,19 @@ def test_search_stage_phases_and_derived_cache(hmm100, search_fasta):
     same derived profiles on every call with one hmm (pinned LRU), so its
     pack cache does not grow per call."""
     tokens, lengths = parse_fasta(search_fasta).encode()
+    hmm = convert.profile_hmm_from_jax(hmm100)
     sc = MSVScanner(device="cpu")
     pipeline = SearchPipeline(sc)
     staged = sc.stage(tokens, lengths)
-    first = pipeline.search(hmm100, staged, tokens, lengths)
+    first = pipeline.search(hmm, staged, tokens, lengths)
     n_cached = len(sc._profile_cache)
-    second = pipeline.search(hmm100, staged, tokens, lengths)
+    second = pipeline.search(hmm, staged, tokens, lengths)
     assert len(sc._profile_cache) == n_cached == 3  # msv, viterbi, forward
     assert np.array_equal(first.passed_forward, second.passed_forward)
     assert set(pipeline.phase_seconds) == {"msv", "viterbi", "forward"}
     assert all(v > 0 for v in pipeline.phase_seconds.values())
-    assert pipeline._derived(hmm100)[1] is pipeline._derived(hmm100)[1]
-    copies = [copy.copy(hmm100) for _ in range(pipeline._DERIVED_MAX + 3)]
+    assert pipeline._derived(hmm)[1] is pipeline._derived(hmm)[1]
+    copies = [copy.copy(hmm) for _ in range(pipeline._DERIVED_MAX + 3)]
     for h in copies:
         pipeline._derived(h)
     assert len(pipeline._derived_cache) == pipeline._DERIVED_MAX
@@ -114,7 +120,7 @@ def test_search_stage_phases_and_derived_cache(hmm100, search_fasta):
 def test_scan_p7_picks_eager_without_e_skip_d(hmm100):
     """A profile with a positive tdd breaks e_skip_d_ok: scan_p7 then runs
     the eager scan (no lazy window) and still matches the oracle."""
-    p7 = P7Profile.from_profile(hmm100)
+    p7 = P7Profile.from_profile(convert.profile_hmm_from_jax(hmm100))
     bad = type(p7)(**{**p7.__dict__, "tdd": np.where(
         np.isfinite(p7.tdd), np.float32(0.01), p7.tdd).astype(np.float32)})
     assert not p7_cuda.e_skip_d_ok(bad) and p7_cuda.e_skip_d_ok(p7)
@@ -198,8 +204,9 @@ def test_cli_search_log_lines(profile_dir, search_fasta, tmp_path, caplog):
     assert any(m.startswith("search ") and "past MSV" in m and "past Viterbi" in m
                for m in msgs)
     phases = next(r for r in caplog.records if r.msg.startswith("seconds:"))
-    parse_s, stage_s, msv_s, vit_s, fwd_s, report_s, total_s = phases.args
+    parse_s, stage_s, msv_s, vit_s, fwd_s, dom_s, report_s, total_s = phases.args
     assert min(msv_s, vit_s, fwd_s) > 0 and total_s >= msv_s + vit_s + fwd_s
+    assert dom_s == 0.0  # no --domains
 
 
 def test_fast_cascade_matches_jax_pallas(hmm100, search_fasta):
@@ -210,10 +217,11 @@ def test_fast_cascade_matches_jax_pallas(hmm100, search_fasta):
     score and p-value), Forward within 2e-3, the same passed_* sets. Its
     hits are the plain cascade's."""
     tokens, lengths = parse_fasta(search_fasta).encode()
+    hmm = convert.profile_hmm_from_jax(hmm100)
     sc = MSVScanner(device="cpu")
     staged = sc.stage(tokens, lengths)
     got = SearchPipeline(sc, fast_msv=True, fast_viterbi=True).search(
-        hmm100, staged, tokens, lengths)
+        hmm, staged, tokens, lengths)
     jsc = JaxScanner(backend="pallas", interpret=True, l_chunk=64)
     want = JaxPipeline(jsc, fast_msv=True, fast_viterbi=True).search(
         hmm100, jsc.stage(tokens, lengths), tokens, lengths)
@@ -224,7 +232,7 @@ def test_fast_cascade_matches_jax_pallas(hmm100, search_fasta):
     assert np.array_equal(np.isnan(got.forward_scores), np.isnan(want.forward_scores))
     np.testing.assert_allclose(got.forward_scores, want.forward_scores, atol=FWD_TOL, rtol=0)
 
-    plain = SearchPipeline(sc).search(hmm100, staged, tokens, lengths)
+    plain = SearchPipeline(sc).search(hmm, staged, tokens, lengths)
     assert got.hits.tolist() == plain.hits.tolist() and got.hits.size
     for name in ("passed_msv", "passed_viterbi", "passed_forward"):
         assert np.array_equal(getattr(got, name), getattr(plain, name)), name
@@ -246,12 +254,13 @@ def test_fast_search_phases_and_caches(hmm100, search_fasta):
     """The prefilters' time counts into the msv and viterbi phases; the
     filter packs are cached beside the exact ones."""
     tokens, lengths = parse_fasta(search_fasta).encode()
+    hmm = convert.profile_hmm_from_jax(hmm100)
     sc = MSVScanner(device="cpu")
     pipeline = SearchPipeline(sc, fast_msv=True, fast_viterbi=True)
-    pipeline.search(hmm100, sc.stage(tokens, lengths), tokens, lengths)
+    pipeline.search(hmm, sc.stage(tokens, lengths), tokens, lengths)
     assert set(pipeline.phase_seconds) == {"msv", "viterbi", "forward"}
     assert all(v > 0 for v in pipeline.phase_seconds.values())
-    msv_profile, p7 = pipeline._derived(hmm100)
+    msv_profile, p7 = pipeline._derived(hmm)
     assert sc._cache_get((id(msv_profile), "filter"), msv_profile) is not None
     assert sc._cache_get((id(p7), "p7_filter", None), p7) is not None
 
@@ -272,3 +281,91 @@ def test_cli_scan_fast_same_hits(profile_dir, search_fasta, tmp_path, fmt):
         return {r["target"] for r in _rows(path, fmt) if str(r["hit"]) in ("1", "True")}
 
     assert hits(fast_out) == hits(plain_out) == hits(jax_out) and hits(plain_out)
+
+
+# -- scan --stage search --domains ---------------------------------------------
+
+@pytest.fixture(scope="module")
+def domains_fasta(hmm100, tmp_path_factory):
+    """The consensus of 100.hmm, a junk sequence, and two consensus copies
+    joined by junk (JAX test_backward_posterior.py's --domains fixtures)."""
+    seq = _letters(np.argmax(hmm100.match_emissions[1:], axis=1))
+    junk = "ACDEFGHIKLMNPQRSTVWY"
+    path = tmp_path_factory.mktemp("domains") / "domains.fsa"
+    path.write_text(f">consensus\n{seq}\n>junk\n{junk}\n>double\n{seq}{junk * 3}{seq}\n")
+    return path
+
+
+def _domain_fields(rows, fmt):
+    """Per reported row: (target, hit, env_from, env_to, ndom, [(from, to,
+    score_nats, ievalue or None)])."""
+    out = []
+    for r in rows:
+        if fmt == "json":
+            doms = [(d["env_from"], d["env_to"], d["score_nats"], d["ievalue"])
+                    for d in r.get("domains", [])]
+            out.append((r["target"], bool(r["hit"]), r.get("env_from"), r.get("env_to"),
+                        r.get("ndom"), doms))
+        else:
+            doms = []
+            for d in filter(None, r["dom_scores"].split(";")):
+                span, score = d.split(":")
+                f, t = span.split("-")
+                doms.append((int(f), int(t), float(score), None))
+            env = [int(r[k]) if r[k] else None for k in ("env_from", "env_to", "ndom")]
+            out.append((r["target"], r["hit"] == "1", *env, doms))
+    return out
+
+
+def _same_domains(got, want):
+    assert [g[:5] for g in got] == [w[:5] for w in want]
+    for g, w in zip(got, want):
+        assert [d[:2] for d in g[5]] == [d[:2] for d in w[5]], (g, w)
+        for gd, wd in zip(g[5], w[5]):
+            assert abs(gd[2] - wd[2]) <= FWD_TOL + 1e-4  # 4-decimal rounding
+            if wd[3] is not None:
+                assert _close(gd[3], wd[3], 1e-2), (gd, wd)
+
+
+@pytest.mark.parametrize("fmt", ["tsv", "json"])
+@pytest.mark.parametrize("which", ["domains", "search"])
+def test_cli_search_domains_matches_jax(profile_dir, domains_fasta, search_fasta, tmp_path,
+                                        which, fmt):
+    """scan --stage search --domains on the CPU against the JAX CLI
+    (--backend xla, the lax.scan decode): the same rows, hit flags,
+    env_from/env_to/ndom and domain spans; domain scores within 2e-3 nats,
+    i-Evalues within 1e-2 relative; the double consensus decodes as >= 2
+    domains, each a strong match."""
+    fasta = domains_fasta if which == "domains" else search_fasta
+    common = ["scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(fasta),
+              "--stage", "search", "--domains", "--format", fmt]
+    jax_out, port_out = tmp_path / "jax.out", tmp_path / "port.out"
+    assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0
+    assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
+    want = _domain_fields(_rows(jax_out, fmt), fmt)
+    got = _domain_fields(_rows(port_out, fmt), fmt)
+    _same_domains(got, want)
+    hits = [g for g in got if g[1]]
+    assert hits and all(g[4] >= 1 for g in hits)
+    if which == "domains":
+        double = next(g for g in got if g[0] == "double")
+        assert double[4] >= 2 and all(d[2] > 0 for d in double[5])
+        consensus = next(g for g in got if g[0] == "consensus")
+        assert consensus[2] <= 5 and consensus[3] >= 95 and consensus[4] == 1
+
+
+def test_cli_search_domains_matches_jax_pallas(profile_dir, domains_fasta, tmp_path, caplog):
+    """The same against the JAX CLI on its Pallas backend (the two-pass
+    Pallas posterior kernels in interpret mode); the seconds line carries
+    the domains phase."""
+    common = ["scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(domains_fasta),
+              "--stage", "search", "--domains"]
+    jax_out, port_out = tmp_path / "jax.tsv", tmp_path / "port.tsv"
+    assert jax_cli.main([*common, "--backend", "pallas", "--out", str(jax_out)]) == 0
+    with caplog.at_level(logging.INFO, logger=port_cli.__name__):
+        assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
+    _same_domains(_domain_fields(_rows(port_out, "tsv"), "tsv"),
+                  _domain_fields(_rows(jax_out, "tsv"), "tsv"))
+    phases = next(r for r in caplog.records if r.msg.startswith("seconds:"))
+    parse_s, stage_s, msv_s, vit_s, fwd_s, dom_s, report_s, total_s = phases.args
+    assert dom_s > 0 and total_s >= msv_s + vit_s + fwd_s + dom_s

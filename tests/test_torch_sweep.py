@@ -26,10 +26,16 @@ from hmm_fasta_viterbi_tpu.ops.pallas_msv import msv_pallas_stacked
 from hmm_fasta_viterbi_tpu.ops.reference import msv_oracle_batch
 from hmm_fasta_viterbi_tpu.pipeline import MSVScanner as JaxScanner
 from hmm_fasta_viterbi_tpu_torch import cli as port_cli
+from hmm_fasta_viterbi_tpu_torch import convert
 from hmm_fasta_viterbi_tpu_torch.ops import msv_cuda
 from hmm_fasta_viterbi_tpu_torch.pipeline import MSVScanner
 
 STEMS = ("100", "200", "1400")
+
+
+def _ports(profiles) -> list:
+    """The port's copies of JAX MSVProfiles."""
+    return [convert.msv_profile_from_jax(p) for p in profiles]
 
 
 def _letters(tokens) -> str:
@@ -91,7 +97,7 @@ def test_stacked_plain_matches_jax_interpret(profiles, batch):
     0.0)."""
     tokens, lengths = batch
     sc = MSVScanner(device="cpu")
-    got = sc.scan_many(profiles, sc.stage(tokens, lengths))
+    got = sc.scan_many(_ports(profiles), sc.stage(tokens, lengths))
     want = np.asarray(msv_pallas_stacked(profiles[:2], tokens, lengths, l_chunk=64,
                                          interpret=True))
     for k, p in enumerate(profiles[:2]):
@@ -107,7 +113,7 @@ def test_scan_many_matches_jax_pallas_scan_many(profiles, batch, mode):
     (tolerance 0.0); filter >= exact on every sequence."""
     tokens, lengths = batch
     sc = MSVScanner(device="cpu")
-    got = sc.scan_many(profiles, sc.stage(tokens, lengths), mode=mode)
+    got = sc.scan_many(_ports(profiles), sc.stage(tokens, lengths), mode=mode)
     jsc = JaxScanner(backend="pallas", interpret=True, l_chunk=64)
     want = jsc.scan_many(profiles, jsc.stage(tokens, lengths), mode=mode)
     assert set(got) == set(want) == {p.name for p in profiles}
@@ -127,7 +133,7 @@ def test_scan_many_groups_cache_and_singles(profiles, profile_dir, batch):
     tokens, lengths = batch
     sc = MSVScanner(device="cpu")
     staged = sc.stage(tokens, lengths)
-    profs = [*profiles, MSVProfile.from_profile(parse_hmm(profile_dir / "1301.hmm"))]
+    profs = _ports([*profiles, MSVProfile.from_profile(parse_hmm(profile_dir / "1301.hmm"))])
     pers = [msv_cuda.kernel_per(msv_cuda.round_up(p.num_states, 8)) for p in profs]
     assert len(set(pers)) == 3 and pers[2] == pers[3]
     for mode, single in (("exact", sc.scan), ("filter", sc.scan_filter)):
@@ -143,7 +149,7 @@ def test_scan_many_groups_cache_and_singles(profiles, profile_dir, batch):
     assert len(sc._profile_cache) == n + 3  # new objects: new packs
     assert np.array_equal(res[profs[3].name], sc.scan(profs[3], staged).numpy())
     with pytest.raises(ValueError, match="mode"):
-        sc.scan_many(profiles, staged, mode="viterbi")
+        sc.scan_many(profs, staged, mode="viterbi")
 
 
 # -- the sweep CLI -------------------------------------------------------------
@@ -228,9 +234,9 @@ def test_cli_sweep_fast_same_hits(hmm_dir, sweep_fasta, tmp_path, caplog):
     msgs = [r.getMessage() for r in caplog.records]
     assert sum(m.startswith("search ") and "past Viterbi" in m for m in msgs) == 3
     seconds = next(r for r in caplog.records if r.msg.startswith("seconds:"))
-    parse_s, stage_s, msv_s, vit_s, fwd_s, report_s, total_s = seconds.args
+    parse_s, stage_s, msv_s, vit_s, fwd_s, dom_s, report_s, total_s = seconds.args
     # the reports, written after each profile's cascade, are timed apart
-    assert min(msv_s, vit_s, report_s) > 0
+    assert min(msv_s, vit_s, report_s) > 0 and dom_s == 0.0
     assert total_s >= parse_s + stage_s + msv_s + vit_s + fwd_s + report_s
 
 
