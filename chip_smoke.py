@@ -6,14 +6,17 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
 2. build: compiles csrc/*.cu from this checkout, one nvcc a source, and
-   prints each kernel case's registers and spills;
+   prints each kernel case's registers and spills, and the launch plan of
+   each redesigned p7 case against 1400.hmm (groups G, grid, staged chain
+   rows, dynamic shared memory) at the timed shapes;
 3. log-space Forward and posterior kernels against plain, all 24 profiles:
    the log-space Forward kernel within LOG_FWD_TOL of its plain version on
    a ragged batch of 64 sequences up to 600 residues, and a two-call carry
    chain equal to one call; the row-saving Forward kernel's scores and
-   carries equal to the Forward kernel's bit for bit; the posterior
-   kernels' coverage and totals within COV_TOL / TOT_TOL of the plain
-   decode on the card, coverage 0 past each length;
+   carries equal to the Forward kernel's bit for bit; both kernels at the
+   most groups a block that fit (G > 1) equal to themselves at G = 1; the
+   posterior kernels' coverage and totals within COV_TOL / TOT_TOL of the
+   plain decode on the card, coverage 0 past each length;
 4. MSV kernels against plain: for all 24 profiles of data/profile_HMMs, on
    one ragged batch, the MSV kernel and the MSV filter kernel (bf16 table)
    each equal their plain PyTorch version, and a two-call carry chain one
@@ -27,8 +30,11 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    among them): eager Viterbi == plain, lazy == eager (scores and carries,
    bit for bit), lazy at lazy_k = 1 on 100.hmm replays chunks and equals
    the plain lazy version, replay counts included; Forward within FWD_TOL
-   of plain; the Viterbi filter kernel == plain (carries included) and >=
-   eager Viterbi on every sequence; two-call carry chains equal one call
+   of plain; the eager, lazy and Forward kernels at G = 1 (the launch
+   plan's pick for 64 rows) equal to themselves at the most groups a block
+   that fit (G > 1 on most profiles), bit for bit; the Viterbi filter
+   kernel == plain (carries included) and >= eager Viterbi on every
+   sequence; two-call carry chains equal one call
    (Forward split at a multiple of FWD_RESCALE_GROUP); the Viterbi filter
    at every window 1..full_passes on 100.hmm and 1400.hmm, and on 100.hmm
    made to fail e_skip_d (a positive tdd: the full chain; a positive tmd: a
@@ -64,7 +70,10 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    Forward and the log-space Forward kernels (best of 3) at 4096 x 3500
    against 1400.hmm (forward_log_1400 the last), the lazy fire rate, and
    each plain version once at that shape, held against the kernel; the
-   stacked sweep over all 24 profiles at 8192 x 3500 in both modes
+   lazy and eager Viterbi, Forward and log-space Forward kernels at the
+   survivor shape 64 x 3500 (<kernel>_1400_b64, best of 3), each line with
+   its launch plan; the stacked sweep over all 24 profiles at 8192 x 3500
+   in both modes
    (sweep24, sweep24_filter; best of 3), the plain exact sweep once over
    all 24 and the plain filter sweep once over every fourth profile,
    scaled by cells; the posterior kernels at 1024 x 1024 against 1400.hmm
@@ -119,6 +128,9 @@ RAGGED_BATCH, RAGGED_LEN, SPLIT = 300, 600, 257
 P7_BATCH, P7_SPLIT = 64, 200
 # the bench's Viterbi/Forward stage shape (viterbi_1400, forward_1400)
 STAGE_BATCH = 4096
+# the cascade's survivor batch (33 rows reach Viterbi on the CLI database),
+# rounded up: <kernel>_1400_b64
+SURVIVOR_BATCH = 64
 PLANTED = 32
 VIT_TOL, FWD_TOL = 1e-4, 2e-3
 # the log-space Forward kernel against its plain version (the same
@@ -235,6 +247,42 @@ def zero_launches() -> None:
 
 def launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def with_groups(fn, groups):
+    """``fn`` with its launch forced to ``groups`` sequences a block."""
+    return lambda *args: fn(*args, groups=groups)
+
+
+def passes_of(kind: str, pack) -> int:
+    """Chain passes a step of a redesigned p7 case runs (its plan's key)."""
+    if kind == "lazy":
+        return pack.lazy_k
+    if kind in ("forward", "save"):
+        return pack.chain.shape[0]
+    return p7_cuda.chain_passes(pack.m_pad)
+
+
+def plan_text(kind: str, pack, batch: int) -> str:
+    plan = p7_cuda.device_plan(kind, pack.m_pad, passes_of(kind, pack), batch, DEVICE)
+    regs = p7_cuda.kernel_regs(kind, p7_cuda.kernel_per(pack.m_pad))
+    return (f"G={plan.groups} (of {plan.max_groups}), grid={plan.grid}, chain rows staged "
+            f"{plan.n_chain}/{passes_of(kind, pack)}, dynamic smem {plan.smem} bytes, "
+            f"{regs} registers")
+
+
+def print_plans(scanner) -> None:
+    """Each redesigned p7 case's launch plan against 1400.hmm at the timed
+    shapes."""
+    p7 = p7_profile("1400")
+    packs = {"lazy": p7_cuda.viterbi_pack(p7, scanner.device, lazy=True),
+             "eager": p7_cuda.viterbi_pack(p7, scanner.device, lazy=False),
+             "forward": p7_cuda.forward_pack(p7, scanner.device)}
+    packs["log"], packs["save"] = packs["eager"], packs["forward"]
+    for kind, pack in packs.items():
+        batches = (POST_TIME_BATCH,) if kind == "save" else (STAGE_BATCH, SURVIVOR_BATCH)
+        for batch in batches:
+            print(f"plan {kind} 1400.hmm x {batch} rows: {plan_text(kind, pack, batch)}")
 
 
 def best_ms(fn, reps: int) -> float:
@@ -535,6 +583,7 @@ def p7_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     tokens = rng.integers(0, 20, size=(P7_BATCH, RAGGED_LEN)).astype(np.int8)
     staged = scanner.stage(tokens, lengths)
     eager_scores = {}
+    groups_seen = {1}
     for stem in stems():
         p7 = p7_profile(stem)
         eager_pack = p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)
@@ -557,6 +606,19 @@ def p7_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         fwd_plain = run_f(p7_cuda.forward_prob_scan_plain, staged.tokens, staged.lengths, carry_f)
         f_err = max_abs_diff(fwd[0], fwd_plain[0])
         require(f_err <= FWD_TOL, f"{stem}.hmm Forward kernel vs plain: max |d| {f_err}")
+        # the same launches at the most groups a block that fit, against G = 1
+        forced = []
+        for kind, run, pack, got in (("eager", run_e, eager_pack, eager),
+                                     ("lazy", run_l, lazy_pack, lazy),
+                                     ("forward", run_f, fwd_pack, fwd)):
+            plan = p7_cuda.device_plan(kind, pack.m_pad, passes_of(kind, pack), P7_BATCH, DEVICE)
+            require(plan.groups == 1, f"{kind} plan for {P7_BATCH} rows picked G={plan.groups}")
+            grouped = run(with_groups(CUDA_FNS[kind], plan.max_groups), staged.tokens,
+                          staged.lengths, carry_f if kind == "forward" else carry_v)
+            torch.cuda.synchronize()
+            require_equal(grouped, got, f"{stem}.hmm {kind} kernel at G={plan.max_groups} vs G=1")
+            forced.append(plan.max_groups)
+        groups_seen.update(forced)
         vf_err, window = filter_vs_plain(p7, staged, eager[0])
         filt_pack = p7_cuda.filter_pack(p7, scanner.device)
         chains = [p7_chain_error(k, pk, staged)
@@ -570,7 +632,11 @@ def p7_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         print(f"p7 kernels vs plain {stem}.hmm: B={P7_BATCH} L<={RAGGED_LEN} eager max|d|={e_err} "
               f"lazy(k={lazy_pack.lazy_k}) vs eager max|d|={l_err} replays={int(lazy[5].sum())} "
               f"forward(W={fwd_pack.chain.shape[0]}) max|d|={f_err:.3g} filter(window={window}) "
-              f"max|d|={vf_err}, >= eager; chains at {P7_SPLIT} max|d|={max(chains)}", flush=True)
+              f"max|d|={vf_err}, >= eager; chains at {P7_SPLIT} max|d|={max(chains)}; eager/lazy/"
+              f"forward at G={forced} == G=1", flush=True)
+
+    require(max(groups_seen) > 1, "no profile ran the p7 kernels at G > 1")
+    print(f"p7 kernels at G = 1 and at G in {sorted(groups_seen - {1})}: equal on every profile")
 
     # the Viterbi filter at every window, and without e_skip_d
     for stem in ("100", "1400"):
@@ -669,6 +735,12 @@ def new_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         l_err = max_abs_diff(got[0], want[0])
         require(l_err <= LOG_FWD_TOL, f"{stem}.hmm log-space Forward kernel vs plain: {l_err}")
         l_chain = p7_chain_error("log", vpack, staged)
+        log_g = p7_cuda.device_plan("log", vpack.m_pad, passes_of("log", vpack), P7_BATCH,
+                                    DEVICE).max_groups
+        grouped = run_l(with_groups(p7_cuda.forward_log_scan_cuda, log_g), staged.tokens,
+                        staged.lengths, carry_l)
+        torch.cuda.synchronize()
+        require_equal(grouped, got, f"{stem}.hmm log-space Forward kernel at G={log_g} vs G=1")
 
         fpack = p7_cuda.forward_pack(p7, scanner.device)
         run_f, carry_f = p7_calls("forward", fpack, staged)
@@ -678,6 +750,12 @@ def new_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         torch.cuda.synchronize()
         s_err = require_equal(saved[:5], plain_fwd,
                               f"{stem}.hmm row-saving Forward kernel vs Forward kernel")
+        save_g = p7_cuda.device_plan("save", fpack.m_pad, passes_of("save", fpack), P7_BATCH,
+                                     DEVICE).max_groups
+        grouped = run_f(with_groups(posterior_cuda.forward_save_scan_cuda, save_g),
+                        staged.tokens, staged.lengths, carry_f)
+        torch.cuda.synchronize()
+        require_equal(grouped, saved, f"{stem}.hmm row-saving Forward at G={save_g} vs G=1")
 
         schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
         cov, tot = posterior_decode(*KERNEL_DECODE, fpack, schain, post)
@@ -692,7 +770,8 @@ def new_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         errors["backward_coverage_scan"] = max(errors["backward_coverage_scan"], c_err)
         print(f"log Forward / posterior kernels vs plain {stem}.hmm: log Forward B={P7_BATCH} "
               f"L<={RAGGED_LEN} max|d|={l_err:.3g} chain at {P7_SPLIT} max|d|={l_chain}; "
-              f"row-saving Forward == Forward kernel (max|d|={s_err}); posterior B={POST_BATCH} "
+              f"row-saving Forward == Forward kernel (max|d|={s_err}); log-space Forward at "
+              f"G={log_g} and row-saving Forward at G={save_g} == G=1; posterior B={POST_BATCH} "
               f"L<={POST_LEN} coverage max|d|={c_err:.3g} totals max|d|={t_err:.3g}, "
               f"max coverage {float(cov.max()):.4f}", flush=True)
 
@@ -1098,10 +1177,25 @@ def p7_timings(scanner, rng, errors: dict, work: dict) -> dict:
         if kind == "filter":
             full = p7_cuda.chain_passes(pack.m_pad)
             extra = f", auto window {pack.window} of {full} passes"
+        else:
+            extra += f"; {plan_text(kind, pack, STAGE_BATCH)}"
         print(f"{name}_1400: {cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
               f"{STAGE_BATCH} x {SEQ_LEN} x M={p7.num_states}{extra}); plain version "
               f"{plain_ms:.3f} ms ({cells / plain_ms / 1e6:.2f} GCUPS, once), kernel vs plain "
               f"max|d|={err:.3g}", flush=True)
+
+    # the survivor shape: one partial wave, G = 1, one step's latency a residue
+    few = scanner.stage(tokens[:SURVIVOR_BATCH], np.full(SURVIVOR_BATCH, SEQ_LEN, dtype=np.int32))
+    few_cells = few.total_residues * p7.num_states
+    for name, (kind, pack) in packs.items():
+        if kind == "filter":
+            continue
+        run, carry = p7_calls(kind, pack, few)
+        ms = best_ms(lambda: run(CUDA_FNS[kind], few.tokens, few.lengths, carry), reps=3)
+        out[f"{name}_b64"] = ms
+        print(f"{name}_1400_b64: {few_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
+              f"{SURVIVOR_BATCH} x {SEQ_LEN} x M={p7.num_states}; "
+              f"{plan_text(kind, pack, SURVIVOR_BATCH)})", flush=True)
     return out
 
 
@@ -1186,7 +1280,8 @@ def posterior_timings(scanner, rng, errors: dict, work: dict) -> dict:
     errors["forward_save_scan"] = max(errors["forward_save_scan"], t_err)
     shape = f"{POST_TIME_BATCH} x {POST_TIME_LEN} x M={p7.num_states}"
     print(f"posterior_1400: {cells / post_ms / 1e6:.2f} GCUPS ({post_ms:.3f} ms, best of 3, "
-          f"{shape}; the row-saving Forward {save_ms:.3f} ms, the backward coverage pass "
+          f"{shape}; the row-saving Forward {save_ms:.3f} ms "
+          f"({plan_text('save', fpack, POST_TIME_BATCH)}), the backward coverage pass "
           f"{bwd_ms:.3f} ms, each best of 3); plain versions {plain_save_ms:.3f} + "
           f"{plain_bwd_ms:.3f} ms (once); kernels vs plain coverage max|d|={c_err:.3g} "
           f"totals max|d|={t_err:.3g}")
@@ -1217,6 +1312,7 @@ def main() -> int:
         lib_path, log = _build.build()
         print(f"library: {lib_path}")
         print("\n".join(ptxas_summary(log)))
+        print_plans(scanner)
 
     with Phase("3. log-space Forward and posterior kernels vs plain, 24 profiles"):
         new_kernels_vs_plain(scanner, rng, errors)
@@ -1255,7 +1351,8 @@ def main() -> int:
         print("card after timing:", nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
     times = {"msv_scan": (msv_ms["1400"], msv_ms["plain"]), "msv_filter_scan": msv_ms["filter"],
-             "msv_stacked_scan": sweep_ms["sweep24"], **p7_ms, **post_ms}
+             "msv_stacked_scan": sweep_ms["sweep24"], **post_ms,
+             **{name: p7_ms[name] for name in KERNELS if name in p7_ms}}
     bounds = {name: bound(*work[name]) for name in KERNELS}
     for name, (ms, by) in bounds.items():
         ops, moved = work[name]

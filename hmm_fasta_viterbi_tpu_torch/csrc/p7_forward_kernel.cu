@@ -25,27 +25,44 @@
 // s = max(max_j M_j, C, max(N, 1e-30)) and log s is added to the log scale
 // with Kahan compensation; the score is log C + log_scale + tr_move. The
 // only transcendental is logf of the rescale factor, as in the JAX kernel.
+// E sums each thread's contiguous states in order, then a warp butterfly,
+// then the four warps: a fixed order (a run is deterministic, and a carry
+// chain split at a multiple of `group` equals one call bit for bit), but
+// another one than the plain version's.
 //
-// What bounds it on the H100: as the Viterbi kernel, the serial chain of
-// one step (the j-1 diagonal, the W-pass prefix scan along the states, the
-// E sum) rather than memory; per cell about 2 * W + 12 FP32 instructions
-// and W + 2 shared-memory shifts. The SAVE cases add one 2-byte store a
-// cell: at 1024 x 1024 x 1408 that is 2.95 GB, under 1 ms of the card's
-// 3.35 TB/s, against tens of ms of latency-bound steps; a warp's store of
-// one register slot covers 64 contiguous bytes of the row.
+// What bounds it on the H100: as the Viterbi kernel (p7_viterbi.cuh), the
+// serial chain of one step (the j-1 diagonal, the W-pass prefix scan along
+// the states, the E sum: 2 + W + 1 barriers, one more a rescale group)
+// and the step-invariant constants each cell reads: 6 transitions and W
+// chain rows, plus 2 emissions. Read from L1/L2 (a 128-thread block a
+// sequence), their traffic held the kernel near 17,900 cycles a residue step
+// per wave. From shared memory they are bounded by its 128 bytes a cycle
+// per SM, and the step's latency by the sequences sharing an SM (4096 x
+// 3500 x 1400: 116, 120, 95 and 77 ms with 1 to 4 groups a block). The
+// SAVE cases add one 2-byte store a cell: at 1024 x 1024 x 1408 that is
+// 2.95 GB, under 1 ms of the card's 3.35 TB/s.
 //
-// What the design does about it (the layout of p7_viterbi_kernel.cu):
-//  * one block of 128 threads per sequence, its residue loop stopping at
-//    the sequence's length, so finished sequences neither step nor rescale
-//    (a pad token never reaches the tables, and a frozen C cannot be
+// What the design does about it (p7_blocked.cuh has the layout; the same
+// as the Viterbi template's):
+//  * the block stages the 6 transition rows and the first n_chain of the W
+//    chain rows in shared memory once (all W unless that would not fit: the
+//    launcher's plan says), fill 0 past M_pad; G groups of 128 threads share
+//    them, one sequence each, on their own named barriers, in a persistent
+//    grid that walks the batch with a stride; each group's residue loop
+//    stops at its sequence's length, so finished sequences neither step nor
+//    rescale (a pad token never reaches the tables, and a frozen C cannot be
 //    rescaled against a growing neighbour until it underflows);
-//  * state j in thread j % 128, slot j / 128; M, I, D in registers;
-//  * each shift one conflict-free store / barrier / load through two
-//    alternating shared-memory rows;
+//  * thread t owns the contiguous states t * PER + k in registers; a shift
+//    by s < PER moves registers and passes s slots through shared memory, a
+//    larger one reads the row at j - s; one barrier a shift;
+//  * the next step's emission rows arrive by cp.async while a step runs;
 //  * E and the rescale max are warp butterflies plus a 4-entry shared
-//    reduction summed in a fixed order, so a run is deterministic and a
-//    carry chain split at a multiple of `group` equals one call bit for bit;
-//  * pad states past M_pad read 0 constants and stay 0;
+//    reduction summed in a fixed order;
+//  * SAVE: each thread writes its PER bf16 values into a shared row (two
+//    alternate), and after the E barrier the group stores the row with
+//    16-byte stores: one coalesced store of the row a step;
+//  * the carries cross global memory as [B, M_pad] rows, coalesced through
+//    a shift buffer, at the start and end of a sequence;
 //  * no --use_fast_math: 1 / s is a correctly rounded division and logf is
 //    the accurate one. Products and sums may contract to FMA, so the kernel
 //    differs from the plain PyTorch version by rounding only.
@@ -53,16 +70,10 @@
 //    synchronise. The C entry point returns cudaGetLastError().
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 
-#include <cstdint>
+#include "p7_blocked.cuh"
 
 namespace {
-
-constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 128;  // residues per token load
 
 struct ForwardArgs {
   const float* modds;  // [20, m_pad]
@@ -71,6 +82,7 @@ struct ForwardArgs {
   const float* chain;  // [window, m_pad]: tdd window products
   int m_pad;
   int window;
+  int n_chain;  // chain rows staged in shared memory
   int group;
   const int8_t* tokens;  // [b_pad, l_pad]
   int l_pad;
@@ -92,264 +104,244 @@ struct ForwardArgs {
   int b_pad;
 };
 
-template <int PER>
-__device__ __forceinline__ void shift_states(const float (&v)[PER], float (&out)[PER], int s,
-                                             float* buf) {
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) buf[k * kThreads + t] = v[k];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int j = k * kThreads + t;
-    out[k] = j >= s ? buf[j - s] : 0.0f;
-  }
-}
-
-__device__ __forceinline__ float ld(const float* p, int j, int m_pad) {
-  return j < m_pad ? __ldg(p + j) : 0.0f;
-}
-
-// Block-wide reduction of one value a thread: sum (SUM) or max, the four
-// warp results combined in a fixed order.
-template <bool SUM>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(kFullMask, v, off);
-    v = SUM ? v + o : fmaxf(v, o);
-  }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  return SUM ? (red[0] + red[1]) + (red[2] + red[3])
-             : fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-}
-
-// Store row `pos` of fm (bf16 round to nearest of v, 0 past m_pad) and ls.
-template <int PER>
-__device__ __forceinline__ void save_row(const ForwardArgs& a, int seq, int pos,
-                                         const float (&v)[PER], float log_scale) {
-  __nv_bfloat16* row = a.fm + (static_cast<size_t>(seq) * a.l_pad + pos) * a.m_pad;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int j = k * kThreads + threadIdx.x;
-    if (j < a.m_pad) row[j] = __float2bfloat16_rn(v[k]);
-  }
-  if (threadIdx.x == 0) a.ls[static_cast<size_t>(seq) * a.l_pad + pos] = log_scale;
-}
-
 template <int PER, bool SAVE>
-__global__ void __launch_bounds__(kThreads) forward_kernel(const ForwardArgs a) {
-  __shared__ float xbuf[2][kThreads * PER];
-  __shared__ float red_e[kWarps];
-  __shared__ float red_s[kWarps];
-  __shared__ int toks[kChunk];
-
-  const int seq = blockIdx.x;
-  const int t = threadIdx.x;
+__global__ void forward_kernel(const ForwardArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int ROW = row_floats<PER>();
+  constexpr int SP = stride<PER>();
   const int m_pad = a.m_pad;
-  const int b_pad = a.b_pad;
-  const size_t row = static_cast<size_t>(seq) * m_pad;
+  const int n_rows = 6 + a.n_chain;
 
-  float m[PER], iv[PER], d[PER];
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int j = k * kThreads + t;
-    const bool in = j < m_pad;
-    m[k] = in ? a.m_in[row + j] : 0.0f;
-    iv[k] = in ? a.i_in[row + j] : 0.0f;
-    d[k] = in ? a.d_in[row + j] : 0.0f;
+  for (int q = 0; q < 6; ++q) stage_row<PER>(smem + q * ROW, a.trans + q * m_pad, m_pad, 0.0f);
+  for (int p = 0; p < a.n_chain; ++p) {
+    stage_row<PER>(smem + (6 + p) * ROW, a.chain + p * m_pad, m_pad, 0.0f);
   }
-  float sj = a.s_in[seq];
-  float sc = a.s_in[b_pad + seq];
-  float sn = a.s_in[2 * b_pad + seq];
-  float sb = a.s_in[3 * b_pad + seq];
-  float log_scale = a.s_in[4 * b_pad + seq];
-  float comp = a.s_in[5 * b_pad + seq];
-  const float p_loop = a.tr_probs[seq];
-  const float p_move = a.tr_probs[b_pad + seq];
+
+  const int groups = blockDim.x / kThreads;
+  const int g = threadIdx.x / kThreads;
+  const int t = threadIdx.x % kThreads;
+  const int bar = 1 + g;
+  float* base = smem + n_rows * ROW + g * (6 * ROW + kRed + kChunk / 4 + (SAVE ? ROW : 0));
+  // buffers by parity (no array indexed at run time: it would live in local memory)
+  auto xbuf = [=](int par) { return base + par * ROW; };
+  auto em = [=](int q) { return base + (2 + 2 * q) * ROW; };
+  auto ei = [=](int q) { return base + (3 + 2 * q) * ROW; };
+  float* red_e = base + 6 * ROW;
+  float* red_s = red_e + kWarps;
+  int8_t* toks = reinterpret_cast<int8_t*>(base + 6 * ROW + kRed);
+  // two bf16 rows of kThreads * SP values (SAVE)
+  __nv_bfloat16* srow = reinterpret_cast<__nv_bfloat16*>(base + 6 * ROW + kRed + kChunk / 4);
+  for (int q = 0; q < 2; ++q) {
+    fill_tail<PER>(em(q), m_pad, 0.0f, t);
+    fill_tail<PER>(ei(q), m_pad, 0.0f, t);
+  }
+  __syncthreads();  // the staged rows; from here on each group keeps to itself
+
+  const int off = t * SP;
+  const float* tmm = smem + off;
+  const float* tmi = smem + ROW + off;
+  const float* tmd = smem + 2 * ROW + off;
+  const float* tim = smem + 3 * ROW + off;
+  const float* tii = smem + 4 * ROW + off;
+  const float* tdm = smem + 5 * ROW + off;
+  const float* chain_s = smem + 6 * ROW + off;
   const float p_b_mk = a.consts[0];
   const float p_e_c = a.consts[1];
   const float p_e_j = a.consts[2];
-  const float* tmm = a.trans;
-  const float* tmi = a.trans + m_pad;
-  const float* tmd = a.trans + 2 * m_pad;
-  const float* tim = a.trans + 3 * m_pad;
-  const float* tii = a.trans + 4 * m_pad;
-  const float* tdm = a.trans + 5 * m_pad;
+  const int b_pad = a.b_pad;
 
-  const int n = min(max(a.lengths[seq], 0), a.l_pad);
-  const int8_t* tok_row = a.tokens + static_cast<size_t>(seq) * a.l_pad;
-  int par = 0;
+  for (int seq = blockIdx.x * groups + g; seq < b_pad; seq += gridDim.x * groups) {
+    const size_t row = static_cast<size_t>(seq) * m_pad;
+    float m[PER], iv[PER], d[PER];
+    load_row<PER>(m, a.m_in + row, m_pad, 0.0f, xbuf(0), t, bar);
+    load_row<PER>(iv, a.i_in + row, m_pad, 0.0f, xbuf(0), t, bar);
+    load_row<PER>(d, a.d_in + row, m_pad, 0.0f, xbuf(0), t, bar);
+    float sj = a.s_in[seq];
+    float sc = a.s_in[b_pad + seq];
+    float sn = a.s_in[2 * b_pad + seq];
+    float sb = a.s_in[3 * b_pad + seq];
+    float log_scale = a.s_in[4 * b_pad + seq];
+    float comp = a.s_in[5 * b_pad + seq];
+    const float p_loop = a.tr_probs[seq];
+    const float p_move = a.tr_probs[b_pad + seq];
+    const int n = min(max(a.lengths[seq], 0), a.l_pad);
+    const int8_t* tok_row = a.tokens + static_cast<size_t>(seq) * a.l_pad;
+    int par = 0;
 
-  for (int c0 = 0; c0 < n; c0 += kChunk) {
-    const int count = min(kChunk, n - c0);
-    __syncthreads();
-    if (t < count) toks[t] = tok_row[c0 + t];
-    __syncthreads();
-    for (int step = 0; step < count; ++step) {
-      const int aa = min(max(toks[step], 0), 19);
-      const float* mo = a.modds + aa * m_pad;
-      const float* io = a.iodds + aa * m_pad;
+    for (int c0 = 0; c0 < n; c0 += kChunk) {
+      const int count = min(kChunk, n - c0);
+      if (t < count) toks[t] = tok_row[c0 + t];
+      group_sync(bar);
+      prefetch_emissions<PER>(em(0), ei(0), a.modds, a.iodds, token(toks, 0), m_pad, t);
+      cp_async_commit();
+      for (int step = 0; step < count; ++step) {
+        const int q = step & 1;
+        if (step + 1 < count) {
+          prefetch_emissions<PER>(em(q ^ 1), ei(q ^ 1), a.modds, a.iodds, token(toks, step + 1),
+                                  m_pad, t);
+        }
+        cp_async_commit();
 
-      float x[PER], diag[PER];
+        float x[PER], diag[PER];
 #pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int j = k * kThreads + t;
-        x[k] = m[k] * ld(tmm, j, m_pad) + iv[k] * ld(tim, j, m_pad) + d[k] * ld(tdm, j, m_pad);
-      }
-      shift_states<PER>(x, diag, 1, xbuf[par]);
-      par ^= 1;
-
-      const float bp = sb * p_b_mk;
-      float nm[PER], ac[PER];
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int j = k * kThreads + t;
-        nm[k] = ld(mo, j, m_pad) * (diag[k] + bp);
-        iv[k] = ld(io, j, m_pad) * (m[k] * ld(tmi, j, m_pad) + iv[k] * ld(tii, j, m_pad));
-        x[k] = nm[k] * ld(tmd, j, m_pad);
-      }
-      shift_states<PER>(x, ac, 1, xbuf[par]);
-      par ^= 1;
-      for (int p = 0; p < a.window; ++p) {
-        const float* c = a.chain + p * m_pad;
-        float sh[PER];
-        shift_states<PER>(ac, sh, 1 << p, xbuf[par]);
+        for (int k = 0; k < PER; ++k) x[k] = m[k] * tmm[k] + iv[k] * tim[k] + d[k] * tdm[k];
+        cp_async_wait_prev();  // this step's emission rows (the barrier publishes them)
+        shift<PER>(x, diag, 1, 0.0f, xbuf(par), t, bar);
         par ^= 1;
-#pragma unroll
-        for (int k = 0; k < PER; ++k) ac[k] = ac[k] + sh[k] * ld(c, k * kThreads + t, m_pad);
-      }
 
-      if (SAVE) save_row<PER>(a, seq, c0 + step, nm, log_scale);
-      float e = 0.0f;
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        e += nm[k] + ac[k];
-        m[k] = nm[k];
-        d[k] = ac[k];
-      }
-      e = block_reduce<true>(e, red_e);
-      sj = sj * p_loop + e * p_e_j;
-      sc = sc * p_loop + e * p_e_c;
-      sn = sn * p_loop;
-      sb = sn * p_move + sj * p_move;
-
-      if ((c0 + step + 1) % a.group == 0) {
-        float mx = 0.0f;
-#pragma unroll
-        for (int k = 0; k < PER; ++k) mx = fmaxf(mx, m[k]);
-        mx = block_reduce<false>(mx, red_s);
-        const float s = fmaxf(fmaxf(mx, sc), fmaxf(sn, 1e-30f));
-        const float inv = 1.0f / s;
-        const float y = logf(s) - comp;
-        const float t_sum = log_scale + y;
-        comp = (t_sum - log_scale) - y;
-        log_scale = t_sum;
+        const float* mo = em(q) + off;
+        const float* io = ei(q) + off;
+        const float bp = sb * p_b_mk;
+        float nm[PER], ac[PER];
 #pragma unroll
         for (int k = 0; k < PER; ++k) {
-          m[k] *= inv;
-          iv[k] *= inv;
-          d[k] *= inv;
+          nm[k] = mo[k] * (diag[k] + bp);
+          iv[k] = io[k] * (m[k] * tmi[k] + iv[k] * tii[k]);
+          x[k] = nm[k] * tmd[k];
         }
-        sj *= inv;
-        sc *= inv;
-        sn *= inv;
-        sb *= inv;
+        shift<PER>(x, ac, 1, 0.0f, xbuf(par), t, bar);
+        par ^= 1;
+        for (int p = 0; p < a.window; ++p) {
+          float sh[PER];
+          shift<PER>(ac, sh, 1 << p, 0.0f, xbuf(par), t, bar);
+          par ^= 1;
+          if (p < a.n_chain) {
+            const float* c = chain_s + p * ROW;
+#pragma unroll
+            for (int k = 0; k < PER; ++k) ac[k] = ac[k] + sh[k] * c[k];
+          } else {
+            const float* c = a.chain + static_cast<size_t>(p) * m_pad;
+#pragma unroll
+            for (int k = 0; k < PER; ++k) {
+              const int j = t * PER + k;
+              ac[k] = ac[k] + sh[k] * (j < m_pad ? __ldg(c + j) : 0.0f);
+            }
+          }
+        }
+
+        const int pos = c0 + step;
+        __nv_bfloat16* sr = srow + q * (kThreads * SP);
+        if (SAVE) {
+#pragma unroll
+          for (int k = 0; k < PER; ++k) {
+            if (t * PER + k < m_pad) sr[t * PER + k] = __float2bfloat16_rn(nm[k]);
+          }
+        }
+        float e = 0.0f;
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+          e += nm[k] + ac[k];
+          m[k] = nm[k];
+          d[k] = ac[k];
+        }
+        e = group_reduce<true>(e, red_e, t, bar);
+        if (SAVE) {
+          // the row is complete after the reduction's barrier; it is
+          // rewritten two steps on, after this step's and the next's barriers
+          const size_t frow = (static_cast<size_t>(seq) * a.l_pad + pos) * m_pad;
+          uint4* dst = reinterpret_cast<uint4*>(a.fm + frow);
+          const uint4* src = reinterpret_cast<const uint4*>(sr);
+          for (int c = t; c < m_pad / 8; c += kThreads) dst[c] = src[c];
+          if (t == 0) a.ls[static_cast<size_t>(seq) * a.l_pad + pos] = log_scale;
+        }
+        sj = sj * p_loop + e * p_e_j;
+        sc = sc * p_loop + e * p_e_c;
+        sn = sn * p_loop;
+        sb = sn * p_move + sj * p_move;
+
+        if ((pos + 1) % a.group == 0) {
+          float mx = 0.0f;
+#pragma unroll
+          for (int k = 0; k < PER; ++k) mx = fmaxf(mx, m[k]);
+          mx = group_reduce<false>(mx, red_s, t, bar);
+          const float s = fmaxf(fmaxf(mx, sc), fmaxf(sn, 1e-30f));
+          const float inv = 1.0f / s;
+          const float y = logf(s) - comp;
+          const float t_sum = log_scale + y;
+          comp = (t_sum - log_scale) - y;
+          log_scale = t_sum;
+#pragma unroll
+          for (int k = 0; k < PER; ++k) {
+            m[k] *= inv;
+            iv[k] *= inv;
+            d[k] *= inv;
+          }
+          sj *= inv;
+          sc *= inv;
+          sn *= inv;
+          sb *= inv;
+        }
+      }
+      group_sync(bar);  // every step's reads of the shift buffers and toks are done
+    }
+
+    if (SAVE) {
+      // rows n .. l_pad - 1 are 0: one contiguous run of 16-byte stores
+      const size_t first = (static_cast<size_t>(seq) * a.l_pad + n) * m_pad / 8;
+      const size_t last = static_cast<size_t>(seq + 1) * a.l_pad * m_pad / 8;
+      uint4* fm16 = reinterpret_cast<uint4*>(a.fm);
+      for (size_t c = first + t; c < last; c += kThreads) fm16[c] = make_uint4(0, 0, 0, 0);
+      for (int pos = n + t; pos < a.l_pad; pos += kThreads) {
+        a.ls[static_cast<size_t>(seq) * a.l_pad + pos] = 0.0f;
       }
     }
-  }
-
-  if (SAVE) {
-    float zero[PER];
-#pragma unroll
-    for (int k = 0; k < PER; ++k) zero[k] = 0.0f;
-    for (int pos = n; pos < a.l_pad; ++pos) save_row<PER>(a, seq, pos, zero, 0.0f);
-  }
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int j = k * kThreads + t;
-    if (j < m_pad) {
-      a.m_out[row + j] = m[k];
-      a.i_out[row + j] = iv[k];
-      a.d_out[row + j] = d[k];
+    store_row<PER>(m, a.m_out + row, m_pad, xbuf(0), t, bar);
+    store_row<PER>(iv, a.i_out + row, m_pad, xbuf(0), t, bar);
+    store_row<PER>(d, a.d_out + row, m_pad, xbuf(0), t, bar);
+    if (t == 0) {
+      a.s_out[seq] = sj;
+      a.s_out[b_pad + seq] = sc;
+      a.s_out[2 * b_pad + seq] = sn;
+      a.s_out[3 * b_pad + seq] = sb;
+      a.s_out[4 * b_pad + seq] = log_scale;
+      a.s_out[5 * b_pad + seq] = comp;
+      a.s_out[6 * b_pad + seq] = a.s_in[6 * b_pad + seq];
+      a.s_out[7 * b_pad + seq] = a.s_in[7 * b_pad + seq];
+      a.scores[seq] = (logf(sc) + log_scale) + a.tr_rows[b_pad + seq];
     }
   }
-  if (t == 0) {
-    a.s_out[seq] = sj;
-    a.s_out[b_pad + seq] = sc;
-    a.s_out[2 * b_pad + seq] = sn;
-    a.s_out[3 * b_pad + seq] = sb;
-    a.s_out[4 * b_pad + seq] = log_scale;
-    a.s_out[5 * b_pad + seq] = comp;
-    a.s_out[6 * b_pad + seq] = a.s_in[6 * b_pad + seq];
-    a.s_out[7 * b_pad + seq] = a.s_in[7 * b_pad + seq];
-    a.scores[seq] = (logf(sc) + log_scale) + a.tr_rows[b_pad + seq];
-  }
 }
+
+unsigned smem_set[2][20];  // devices whose kernel case allows kMaxSmem
 
 template <int PER>
-cudaError_t launch(const ForwardArgs& a, cudaStream_t stream) {
-  if (a.fm != nullptr) {
-    forward_kernel<PER, true><<<a.b_pad, kThreads, 0, stream>>>(a);
-  } else {
-    forward_kernel<PER, false><<<a.b_pad, kThreads, 0, stream>>>(a);
+struct Case {
+  static cudaError_t launch(const ForwardArgs& a, int device, int groups, int grid, int smem,
+                            cudaStream_t stream) {
+    const bool save = a.fm != nullptr;
+    if (a.m_pad > kThreads * PER ||
+        !plan_ok<PER>(groups, grid, smem, 6 + a.n_chain, save)) {
+      return cudaErrorInvalidValue;
+    }
+    cudaError_t err;
+    if (save) {
+      err = allow_smem(forward_kernel<PER, true>, device, smem_set[1][PER]);
+      if (err != cudaSuccess) return err;
+      forward_kernel<PER, true><<<grid, groups * kThreads, smem, stream>>>(a);
+    } else {
+      err = allow_smem(forward_kernel<PER, false>, device, smem_set[0][PER]);
+      if (err != cudaSuccess) return err;
+      forward_kernel<PER, false><<<grid, groups * kThreads, smem, stream>>>(a);
+    }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
-}
 
-}  // namespace
-
-// Plain C entry point, bound with ctypes. `per` is the number of states a
-// thread holds, one of the cases below, with 128 * per >= m_pad; `window`
-// is the chain's row count; the kernel rescales after every `group`
-// residues. `fm` and `ls` null run the plain Forward, both set the saving
-// pass. Returns a cudaError_t.
-extern "C" int p7_forward_launch(int device, int per, const void* modds, const void* iodds,
-                                 const void* trans, const void* chain, int m_pad, int window,
-                                 int group, const void* tokens, int l_pad,
-                                 const void* lengths, const void* tr_rows,
-                                 const void* tr_probs, const void* consts, const void* m_in,
-                                 const void* i_in, const void* d_in, const void* s_in,
-                                 void* scores, void* m_out, void* i_out, void* d_out,
-                                 void* s_out, void* fm, void* ls, int b_pad,
-                                 void* stream) {
-  if (m_pad < 1 || m_pad > kThreads * per || window < 1 || window > 16 || group < 1 ||
-      b_pad < 1 || (fm == nullptr) != (ls == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  static cudaError_t regs(bool save, int* out) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = save ? cudaFuncGetAttributes(&attr, forward_kernel<PER, true>)
+                                 : cudaFuncGetAttributes(&attr, forward_kernel<PER, false>);
+    *out = attr.numRegs;
+    return err;
   }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ForwardArgs a;
-  a.modds = static_cast<const float*>(modds);
-  a.iodds = static_cast<const float*>(iodds);
-  a.trans = static_cast<const float*>(trans);
-  a.chain = static_cast<const float*>(chain);
-  a.m_pad = m_pad;
-  a.window = window;
-  a.group = group;
-  a.tokens = static_cast<const int8_t*>(tokens);
-  a.l_pad = l_pad;
-  a.lengths = static_cast<const int*>(lengths);
-  a.tr_rows = static_cast<const float*>(tr_rows);
-  a.tr_probs = static_cast<const float*>(tr_probs);
-  a.consts = static_cast<const float*>(consts);
-  a.m_in = static_cast<const float*>(m_in);
-  a.i_in = static_cast<const float*>(i_in);
-  a.d_in = static_cast<const float*>(d_in);
-  a.s_in = static_cast<const float*>(s_in);
-  a.scores = static_cast<float*>(scores);
-  a.m_out = static_cast<float*>(m_out);
-  a.i_out = static_cast<float*>(i_out);
-  a.d_out = static_cast<float*>(d_out);
-  a.s_out = static_cast<float*>(s_out);
-  a.fm = static_cast<__nv_bfloat16*>(fm);
-  a.ls = static_cast<float*>(ls);
-  a.b_pad = b_pad;
-  auto* st = static_cast<cudaStream_t>(stream);
+};
+
+// Calls fn(Case<per>{}).
 #define FWD_CASE(P) \
   case P:           \
-    return static_cast<int>(launch<P>(a, st));
+    return fn(Case<P>{});
+
+template <typename Fn>
+cudaError_t with_per(int per, Fn fn) {
   switch (per) {
     FWD_CASE(1)
     FWD_CASE(2)
@@ -371,7 +363,71 @@ extern "C" int p7_forward_launch(int device, int per, const void* modds, const v
     FWD_CASE(18)
     FWD_CASE(19)
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return cudaErrorInvalidValue;
   }
+}
 #undef FWD_CASE
+
+}  // namespace
+
+// Plain C entry point, bound with ctypes. `per` is the number of states a
+// thread holds, one of the cases above, with 128 * per >= m_pad (a multiple
+// of 8); `window` is the chain's row count, the first `n_chain` staged in
+// shared memory; the kernel rescales after every `group` residues. `fm`
+// and `ls` null run the plain Forward, both set the saving pass. `groups`,
+// `grid` and `smem` are the launch plan of ops/p7_cuda.py::plan_launch
+// (checked). Returns a cudaError_t.
+extern "C" int p7_forward_launch(int device, int per, const void* modds, const void* iodds,
+                                 const void* trans, const void* chain, int m_pad, int window,
+                                 int n_chain, int group, const void* tokens, int l_pad,
+                                 const void* lengths, const void* tr_rows,
+                                 const void* tr_probs, const void* consts, const void* m_in,
+                                 const void* i_in, const void* d_in, const void* s_in,
+                                 void* scores, void* m_out, void* i_out, void* d_out,
+                                 void* s_out, void* fm, void* ls, int b_pad, int groups,
+                                 int grid, int smem, void* stream) {
+  if (m_pad < 1 || m_pad % 8 != 0 || window < 1 || window > 16 || n_chain < 0 ||
+      n_chain > window || group < 1 || b_pad < 1 || (fm == nullptr) != (ls == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ForwardArgs a;
+  a.modds = static_cast<const float*>(modds);
+  a.iodds = static_cast<const float*>(iodds);
+  a.trans = static_cast<const float*>(trans);
+  a.chain = static_cast<const float*>(chain);
+  a.m_pad = m_pad;
+  a.window = window;
+  a.n_chain = n_chain;
+  a.group = group;
+  a.tokens = static_cast<const int8_t*>(tokens);
+  a.l_pad = l_pad;
+  a.lengths = static_cast<const int*>(lengths);
+  a.tr_rows = static_cast<const float*>(tr_rows);
+  a.tr_probs = static_cast<const float*>(tr_probs);
+  a.consts = static_cast<const float*>(consts);
+  a.m_in = static_cast<const float*>(m_in);
+  a.i_in = static_cast<const float*>(i_in);
+  a.d_in = static_cast<const float*>(d_in);
+  a.s_in = static_cast<const float*>(s_in);
+  a.scores = static_cast<float*>(scores);
+  a.m_out = static_cast<float*>(m_out);
+  a.i_out = static_cast<float*>(i_out);
+  a.d_out = static_cast<float*>(d_out);
+  a.s_out = static_cast<float*>(s_out);
+  a.fm = static_cast<__nv_bfloat16*>(fm);
+  a.ls = static_cast<float*>(ls);
+  a.b_pad = b_pad;
+  auto* st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_per(per, [&](auto c) {
+    return decltype(c)::launch(a, device, groups, grid, smem, st);
+  }));
+}
+
+// Registers a thread of the `per` case uses (`save`: the row-saving case),
+// for the launch plan. Returns a cudaError_t.
+extern "C" int p7_forward_regs(int per, int save, int* regs) {
+  return static_cast<int>(
+      with_per(per, [&](auto c) { return decltype(c)::regs(save != 0, regs); }));
 }

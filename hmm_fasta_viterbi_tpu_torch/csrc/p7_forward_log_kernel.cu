@@ -16,37 +16,34 @@
 
 namespace {
 
+unsigned smem_set[20];  // devices whose kernel case allows kMaxSmem
+
 template <int PER>
-cudaError_t launch(const ViterbiArgs& a, cudaStream_t stream) {
-  viterbi_kernel<PER, false, true><<<a.b_pad, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// Plain C entry point, bound with ctypes. `per` is the number of states a
-// thread holds, one of the cases below, with 128 * per >= m_pad; the chain
-// runs `n_passes` passes. Returns a cudaError_t.
-extern "C" int p7_forward_log_launch(int device, int per, const void* msc, const void* isc,
-                                     const void* trans, const void* chain, int m_pad,
-                                     int n_passes, const void* tokens, int l_pad,
-                                     const void* lengths, const void* tr_rows,
-                                     const void* consts, const void* m_in, const void* i_in,
-                                     const void* d_in, const void* s_in, void* scores,
-                                     void* m_out, void* i_out, void* d_out, void* s_out,
-                                     int b_pad, void* stream) {
-  if (m_pad < 1 || m_pad > kThreads * per || n_passes < 1 || n_passes > 16 || b_pad < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
+struct Case {
+  static cudaError_t launch(const ViterbiArgs& a, int device, int groups, int grid, int smem,
+                            cudaStream_t stream) {
+    if (!viterbi_plan_ok<PER>(a, false, groups, grid, smem)) return cudaErrorInvalidValue;
+    const cudaError_t err = allow_smem(viterbi_kernel<PER, false, true>, device, smem_set[PER]);
+    if (err != cudaSuccess) return err;
+    viterbi_kernel<PER, false, true><<<grid, groups * kThreads, smem, stream>>>(a);
+    return cudaGetLastError();
   }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const ViterbiArgs a = make_args(msc, isc, trans, chain, m_pad, n_passes, n_passes, tokens,
-                                  l_pad, lengths, tr_rows, consts, m_in, i_in, d_in, s_in,
-                                  scores, m_out, i_out, d_out, s_out, nullptr, b_pad);
-  auto* st = static_cast<cudaStream_t>(stream);
+
+  static cudaError_t regs(int* out) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, viterbi_kernel<PER, false, true>);
+    *out = attr.numRegs;
+    return err;
+  }
+};
+
+// Calls fn(Case<per>{}).
 #define LOG_CASE(P) \
   case P:           \
-    return static_cast<int>(launch<P>(a, st));
+    return fn(Case<P>{});
+
+template <typename Fn>
+cudaError_t with_per(int per, Fn fn) {
   switch (per) {
     LOG_CASE(1)
     LOG_CASE(2)
@@ -68,7 +65,39 @@ extern "C" int p7_forward_log_launch(int device, int per, const void* msc, const
     LOG_CASE(18)
     LOG_CASE(19)
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return cudaErrorInvalidValue;
   }
+}
 #undef LOG_CASE
+
+}  // namespace
+
+// Plain C entry point, bound with ctypes. `per` is the number of states a
+// thread holds, one of the cases above, with 128 * per >= m_pad; the chain
+// runs `n_passes` passes, the first `n_chain` rows staged in shared memory;
+// `groups`, `grid` and `smem` are the launch plan (checked). Returns a
+// cudaError_t.
+extern "C" int p7_forward_log_launch(int device, int per, const void* msc, const void* isc,
+                                     const void* trans, const void* chain, int m_pad,
+                                     int n_passes, int n_chain, const void* tokens, int l_pad,
+                                     const void* lengths, const void* tr_rows,
+                                     const void* consts, const void* m_in, const void* i_in,
+                                     const void* d_in, const void* s_in, void* scores,
+                                     void* m_out, void* i_out, void* d_out, void* s_out,
+                                     int b_pad, int groups, int grid, int smem, void* stream) {
+  if (n_passes > 16) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ViterbiArgs a = make_args(msc, isc, trans, chain, m_pad, n_passes, n_passes, n_chain,
+                                  tokens, l_pad, lengths, tr_rows, consts, m_in, i_in, d_in,
+                                  s_in, scores, m_out, i_out, d_out, s_out, nullptr, b_pad);
+  auto* st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_per(per, [&](auto c) {
+    return decltype(c)::launch(a, device, groups, grid, smem, st);
+  }));
+}
+
+// Registers a thread of the `per` case uses, for the launch plan.
+extern "C" int p7_forward_log_regs(int per, int* regs) {
+  return static_cast<int>(with_per(per, [&](auto c) { return decltype(c)::regs(regs); }));
 }

@@ -67,7 +67,8 @@ from ..models.p7 import P7Profile
 
 from . import _build
 from .msv_cuda import (
-    NEG_INF, NUM_AA, PAD_SCORE, _check, bf16_round_up, bf16_tensor, f32_round_up, round_up,
+    NEG_INF, NUM_AA, PAD_SCORE, SMEM_PER_SM, _check, bf16_round_up, bf16_tensor, f32_round_up,
+    round_up,
 )
 
 # residues per lazy-certificate chunk: a fire replays this many steps of
@@ -78,12 +79,28 @@ LAZY_CHUNK = 128
 # group of steps grows the scaled values by at most the largest odds
 # ratio to the power 8, far inside float32's range
 FWD_RESCALE_GROUP = 8
-# threads that follow one sequence in the kernels; state j lives in
-# thread j % 128, register slot j // 128
+# threads that follow one sequence in the kernels. The Viterbi filter and
+# the posterior backward pass stripe the states: state j lives in thread
+# j % 128, register slot j // 128. The Viterbi, log-space Forward and
+# Forward kernels block them: thread t owns states t * per .. t * per +
+# per - 1 (csrc/p7_blocked.cuh)
 KERNEL_THREADS = 128
 # states per thread: one template case each in csrc/p7_*_kernel.cu
 KERNEL_PER = tuple(range(1, 20))
 MAX_KERNEL_STATES = KERNEL_THREADS * KERNEL_PER[-1]  # 2432 >= 2405
+
+# the blocked kernels' launch plan (csrc/p7_blocked.cuh): at most this many
+# groups of KERNEL_THREADS threads a block, one sequence each, on named
+# barriers 1..8; each group's reduction scratch in floats; an SM's registers
+# and threads
+MAX_GROUPS = 8
+RED_FLOATS = 8
+REGS_PER_SM = 65536
+THREADS_PER_SM = 2048
+# the blocked kernels' cases, and the rows each stages besides its chain
+# rows: the six transitions (tmm tmi tmd tim tii tdm) and, for the lazy
+# kernel's certificate, Cmax
+BLOCKED_KINDS = ("eager", "lazy", "log", "forward", "save")
 
 # auto-picked lazy window and truncated prob-space chain: the constants of
 # pallas_p7 (LAZY_TAIL_DAMP_NATS, PROB_CHAIN_L_MAX, PROB_CHAIN_REL_ERR)
@@ -729,17 +746,25 @@ def _kernel_library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     c = ctypes.c_int
     lib.p7_viterbi_launch.argtypes = [
-        c, c, c, p, p, p, p, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
+        c, c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, c,
+        c, c, c, p,
     ]
     lib.p7_viterbi_launch.restype = c
     lib.p7_forward_launch.argtypes = [
-        c, c, p, p, p, p, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
+        c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p, c,
+        c, c, c, p,
     ]
     lib.p7_forward_launch.restype = c
     lib.p7_forward_log_launch.argtypes = [
-        c, c, p, p, p, p, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
+        c, c, p, p, p, p, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, c, c, c, c, p,
     ]
     lib.p7_forward_log_launch.restype = c
+    regs = ctypes.POINTER(c)
+    lib.p7_viterbi_regs.argtypes = [c, c, regs]
+    lib.p7_forward_log_regs.argtypes = [c, regs]
+    lib.p7_forward_regs.argtypes = [c, c, regs]
+    for fn in (lib.p7_viterbi_regs, lib.p7_forward_log_regs, lib.p7_forward_regs):
+        fn.restype = c
     lib.p7_filter_launch.argtypes = [
         c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
     ]
@@ -758,6 +783,130 @@ def kernel_per(m_pad: int) -> int:
             f"states ({KERNEL_THREADS} threads x {KERNEL_PER[-1]})"
         )
     return max(per, 1)
+
+
+def blocked_stride(per: int) -> int:
+    """Floats between two threads' slots in a shared row of the blocked
+    kernels: ``per`` rounded up to odd, so a warp's 32 reads of one slot hit
+    32 banks."""
+    return per | 1
+
+
+def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False) -> int:
+    """Dynamic shared memory of a blocked kernel's block
+    (``csrc/p7_blocked.cuh::smem_floats``): ``n_rows`` staged rows, then
+    per group two shift rows, four emission rows, the reduction scratch,
+    the token chunk (int8) and, for the row-saving Forward, two bf16 rows."""
+    row = KERNEL_THREADS * blocked_stride(per)
+    group = 6 * row + RED_FLOATS + LAZY_CHUNK // 4 + (row if save else 0)
+    return 4 * (n_rows * row + groups * group)
+
+
+class LaunchPlan(NamedTuple):
+    """How a blocked kernel launches: ``groups`` sequences a block (groups
+    of KERNEL_THREADS threads), ``grid`` blocks walking the batch with a
+    stride, ``n_chain`` chain rows staged in shared memory (the rest read
+    from global memory) and ``smem`` bytes of dynamic shared memory;
+    ``max_groups`` is the most that fit."""
+
+    groups: int
+    grid: int
+    n_chain: int
+    smem: int
+    max_groups: int
+
+
+def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: int,
+                groups: int | None = None) -> LaunchPlan:
+    """The launch plan of a blocked kernel case (``kind`` one of
+    BLOCKED_KINDS) that runs ``passes`` chain passes a step (the eager and
+    log-space kernels all of ``chain_passes(m_pad)``, the lazy one its
+    window, Forward its W) over ``b_pad`` sequences, with ``regs`` registers
+    a thread on a card of ``sms`` multiprocessors.
+
+    Every chain row the case runs is staged unless that leaves no room for
+    one group. ``groups`` None picks 1 for a batch no larger than ``sms`` (a
+    survivor batch runs one sequence an SM, at one step's latency), else
+    as many as registers, shared memory (at most SMEM_PER_SM bytes a block)
+    and MAX_GROUPS allow, but no more than ``ceil(b_pad / sms)``; a given
+    ``groups`` must fit. Raises ``ValueError`` past M_pad 2432."""
+    if kind not in BLOCKED_KINDS:
+        raise ValueError(f"unknown blocked kernel case {kind!r}")
+    per = kernel_per(m_pad)
+    if not 1 <= passes <= chain_passes(m_pad):
+        raise ValueError(f"{passes} chain passes outside 1..{chain_passes(m_pad)}")
+    extra = 1 if kind == "lazy" and passes < chain_passes(m_pad) else 0
+    save = kind == "save"
+
+    def smem(n_chain, g):
+        return blocked_smem_bytes(per, 6 + n_chain + extra, g, save)
+
+    n_chain = passes
+    while n_chain > 0 and smem(n_chain, 1) > SMEM_PER_SM:
+        n_chain -= 1
+    warp_regs = round_up(max(int(regs), 1), 8) * 32  # allocated by the warp, 8 at a time
+    by_regs = REGS_PER_SM // (warp_regs * (KERNEL_THREADS // 32))
+    by_smem = 0
+    while by_smem < MAX_GROUPS and smem(n_chain, by_smem + 1) <= SMEM_PER_SM:
+        by_smem += 1
+    most = min(MAX_GROUPS, by_regs, by_smem)
+    if most < 1:
+        raise ValueError(
+            f"the {kind} kernel at M_pad = {m_pad} does not fit one group in a block "
+            f"({regs} registers a thread, {smem(n_chain, 1)} bytes of shared memory)"
+        )
+    if groups is None:
+        groups = 1 if b_pad <= sms else min(most, -(-b_pad // sms))
+    elif not 1 <= groups <= most:
+        raise ValueError(f"{groups} groups a block: the {kind} kernel takes 1..{most} here")
+    nbytes = smem(n_chain, groups)
+    threads = groups * KERNEL_THREADS
+    per_sm = max(1, min(REGS_PER_SM // (warp_regs * threads // 32),
+                        SMEM_PER_SM // nbytes, THREADS_PER_SM // threads))
+    grid = max(1, min(-(-b_pad // groups), sms * per_sm))
+    return LaunchPlan(groups, grid, n_chain, nbytes, most)
+
+
+@functools.cache
+def kernel_regs(kind: str, per: int) -> int:
+    """Registers a thread of the blocked kernel case uses, as compiled."""
+    lib = _kernel_library()
+    out = ctypes.c_int(0)
+    if kind in ("eager", "lazy"):
+        rc = lib.p7_viterbi_regs(per, int(kind == "lazy"), ctypes.byref(out))
+    elif kind == "log":
+        rc = lib.p7_forward_log_regs(per, ctypes.byref(out))
+    else:
+        rc = lib.p7_forward_regs(per, int(kind == "save"), ctypes.byref(out))
+    if rc != 0:
+        msg = lib.msv_error_string(rc).decode()
+        raise RuntimeError(f"{kind} kernel (per {per}) attribute query failed: {msg} ({rc})")
+    return out.value
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_plan(kind: str, m_pad: int, passes: int, b_pad: int, device,
+                groups: int | None = None) -> LaunchPlan:
+    """:func:`plan_launch` with the compiled case's registers and the
+    card's multiprocessors."""
+    index = torch.device(device).index or 0
+    return plan_launch(kind, m_pad, passes, b_pad, kernel_regs(kind, kernel_per(m_pad)),
+                       _sm_count(index), groups)
+
+
+def _check_blocked(emit_m, emit_i, m_pad: int) -> None:
+    """What the blocked kernels add to :func:`_check_scan`: M_pad a multiple
+    of 8 and 16-byte aligned emission tables (they are copied 16 bytes at a
+    time)."""
+    if m_pad % 8:
+        raise ValueError(f"M_pad = {m_pad} is not a multiple of 8")
+    for name, t in (("emit_m", emit_m), ("emit_i", emit_i)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
 
 
 def _check_scan(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
@@ -789,26 +938,28 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def _viterbi_cuda(lazy, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
-                  m, i, d, s, lazy_k):
+                  m, i, d, s, lazy_k, groups):
     device, b_pad, l_pad, m_pad, per = _check_scan(
         emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
         5 if lazy else 3, m, i, d, s, 4,
     )
     if chain.shape[0] != 16:
         raise ValueError(f"chain has {chain.shape[0]} rows, expected 16")
+    _check_blocked(emit_m, emit_i, m_pad)
     n_passes = chain_passes(m_pad)
     k_run = min(max(int(lazy_k), 1), n_passes) if lazy else n_passes
     scores = torch.empty(b_pad, dtype=torch.float32, device=device)
     out = (torch.empty_like(m), torch.empty_like(i), torch.empty_like(d), torch.empty_like(s))
     replays = torch.zeros(b_pad, dtype=torch.int32, device=device) if lazy else None
     if b_pad:
+        plan = device_plan("lazy" if lazy else "eager", m_pad, k_run, b_pad, device, groups)
         rc = _kernel_library().p7_viterbi_launch(
             device.index, per, int(lazy),
             emit_m.data_ptr(), emit_i.data_ptr(), trans.data_ptr(), chain.data_ptr(),
-            m_pad, n_passes, k_run, tokens.data_ptr(), l_pad, lengths.data_ptr(),
+            m_pad, n_passes, k_run, plan.n_chain, tokens.data_ptr(), l_pad, lengths.data_ptr(),
             tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(), i.data_ptr(),
             d.data_ptr(), s.data_ptr(), scores.data_ptr(), *(o.data_ptr() for o in out),
-            replays.data_ptr() if lazy else None, b_pad,
+            replays.data_ptr() if lazy else None, b_pad, plan.groups, plan.grid, plan.smem,
             torch.cuda.current_stream(device).cuda_stream,
         )
         _raise_on(rc, "lazy Viterbi" if lazy else "Viterbi")
@@ -816,31 +967,36 @@ def _viterbi_cuda(lazy, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, 
     return (scores, *out, replays) if lazy else (scores, *out)
 
 
-def viterbi_scan_cuda(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):
+def viterbi_scan_cuda(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s,
+                      groups: int | None = None):
     """Launch the eager kernel of ``csrc/p7_viterbi_kernel.cu``; same
-    arguments and results as :func:`viterbi_scan`. Raises on what the kernel
+    arguments and results as :func:`viterbi_scan`. ``groups`` sequences a
+    block, None for :func:`plan_launch`'s pick. Raises on what the kernel
     does not take and on a refused launch; never falls back."""
     return _viterbi_cuda(False, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows,
-                         consts, m, i, d, s, 0)
+                         consts, m, i, d, s, 0, groups)
 
 
 def viterbi_lazy_scan_cuda(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
-                           m, i, d, s, lazy_k):
+                           m, i, d, s, lazy_k, groups: int | None = None):
     """Launch the lazy kernel of ``csrc/p7_viterbi_kernel.cu``; same
-    arguments and results as :func:`viterbi_lazy_scan`."""
+    arguments and results as :func:`viterbi_lazy_scan`; ``groups`` as for
+    :func:`viterbi_scan_cuda`."""
     return _viterbi_cuda(True, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows,
-                         consts, m, i, d, s, lazy_k)
+                         consts, m, i, d, s, lazy_k, groups)
 
 
 def forward_launch(wrapper, modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs,
-                   consts, m, i, d, s, save: bool):
+                   consts, m, i, d, s, save: bool, groups: int | None = None):
     """Check the operands and launch ``csrc/p7_forward_kernel.cu`` (with
     ``save``, its row-saving case, and ``(fm, ls)`` allocated and returned
-    after the results); counts the launch on ``wrapper``."""
+    after the results) with ``groups`` sequences a block (None: the
+    plan's pick); counts the launch on ``wrapper``."""
     device, b_pad, l_pad, m_pad, per = _check_scan(
         modds, iodds, trans, chain, tokens, lengths, tr_rows, consts, 3, m, i, d, s, 8,
     )
     _check("tr_probs", tr_probs, torch.float32, (2, b_pad), device)
+    _check_blocked(modds, iodds, m_pad)
     window = chain.shape[0]
     if not 1 <= window <= chain_passes(m_pad):
         raise ValueError(f"chain window {window} outside 1..{chain_passes(m_pad)}")
@@ -852,13 +1008,14 @@ def forward_launch(wrapper, modds, iodds, trans, chain, tokens, lengths, tr_rows
                  torch.empty((b_pad, l_pad), dtype=torch.float32, device=device))
     saved_ptrs = [x.data_ptr() for x in saved] if save else [None, None]
     if b_pad:
+        plan = device_plan("save" if save else "forward", m_pad, window, b_pad, device, groups)
         rc = _kernel_library().p7_forward_launch(
             device.index, per, modds.data_ptr(), iodds.data_ptr(), trans.data_ptr(),
-            chain.data_ptr(), m_pad, window, FWD_RESCALE_GROUP, tokens.data_ptr(), l_pad,
-            lengths.data_ptr(), tr_rows.data_ptr(), tr_probs.data_ptr(), consts.data_ptr(),
-            m.data_ptr(), i.data_ptr(), d.data_ptr(), s.data_ptr(), scores.data_ptr(),
-            *(o.data_ptr() for o in out), *saved_ptrs, b_pad,
-            torch.cuda.current_stream(device).cuda_stream,
+            chain.data_ptr(), m_pad, window, plan.n_chain, FWD_RESCALE_GROUP, tokens.data_ptr(),
+            l_pad, lengths.data_ptr(), tr_rows.data_ptr(), tr_probs.data_ptr(),
+            consts.data_ptr(), m.data_ptr(), i.data_ptr(), d.data_ptr(), s.data_ptr(),
+            scores.data_ptr(), *(o.data_ptr() for o in out), *saved_ptrs, b_pad, plan.groups,
+            plan.grid, plan.smem, torch.cuda.current_stream(device).cuda_stream,
         )
         _raise_on(rc, "Forward (row-saving)" if save else "Forward")
         wrapper.launches += 1
@@ -866,31 +1023,36 @@ def forward_launch(wrapper, modds, iodds, trans, chain, tokens, lengths, tr_rows
 
 
 def forward_prob_scan_cuda(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs,
-                           consts, m, i, d, s):
+                           consts, m, i, d, s, groups: int | None = None):
     """Launch ``csrc/p7_forward_kernel.cu``; same arguments and results as
-    :func:`forward_prob_scan`."""
+    :func:`forward_prob_scan`; ``groups`` as for :func:`viterbi_scan_cuda`."""
     return forward_launch(forward_prob_scan_cuda, modds, iodds, trans, chain, tokens, lengths,
-                          tr_rows, tr_probs, consts, m, i, d, s, save=False)
+                          tr_rows, tr_probs, consts, m, i, d, s, save=False, groups=groups)
 
 
-def forward_log_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):
+def forward_log_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s,
+                          groups: int | None = None):
     """Launch ``csrc/p7_forward_log_kernel.cu``; same arguments and results
-    as :func:`forward_log_scan`. Raises on what the kernel does not take and
-    on a refused launch; never falls back."""
+    as :func:`forward_log_scan`; ``groups`` as for :func:`viterbi_scan_cuda`.
+    Raises on what the kernel does not take and on a refused launch; never
+    falls back."""
     device, b_pad, l_pad, m_pad, per = _check_scan(
         msc, isc, trans, chain, tokens, lengths, tr_rows, consts, 3, m, i, d, s, 4,
     )
     if chain.shape[0] != 16:
         raise ValueError(f"chain has {chain.shape[0]} rows, expected 16")
+    _check_blocked(msc, isc, m_pad)
+    n_passes = chain_passes(m_pad)
     scores = torch.empty(b_pad, dtype=torch.float32, device=device)
     out = (torch.empty_like(m), torch.empty_like(i), torch.empty_like(d), torch.empty_like(s))
     if b_pad:
+        plan = device_plan("log", m_pad, n_passes, b_pad, device, groups)
         rc = _kernel_library().p7_forward_log_launch(
             device.index, per, msc.data_ptr(), isc.data_ptr(), trans.data_ptr(),
-            chain.data_ptr(), m_pad, chain_passes(m_pad), tokens.data_ptr(), l_pad,
+            chain.data_ptr(), m_pad, n_passes, plan.n_chain, tokens.data_ptr(), l_pad,
             lengths.data_ptr(), tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(),
             i.data_ptr(), d.data_ptr(), s.data_ptr(), scores.data_ptr(),
-            *(o.data_ptr() for o in out), b_pad,
+            *(o.data_ptr() for o in out), b_pad, plan.groups, plan.grid, plan.smem,
             torch.cuda.current_stream(device).cuda_stream,
         )
         _raise_on(rc, "log-space Forward")

@@ -170,12 +170,14 @@ def _kernel_library() -> ctypes.CDLL:
 
 
 def forward_save_scan_cuda(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs,
-                           consts, m, i, d, s):
+                           consts, m, i, d, s, groups: int | None = None):
     """Launch the row-saving case of ``csrc/p7_forward_kernel.cu``; same
-    arguments and results as :func:`forward_save_scan`. Raises on what the
+    arguments and results as :func:`forward_save_scan`; ``groups`` sequences
+    a block, None for ``p7_cuda.plan_launch``'s pick. Raises on what the
     kernel does not take and on a refused launch; never falls back."""
     return p7_cuda.forward_launch(forward_save_scan_cuda, modds, iodds, trans, chain, tokens,
-                                  lengths, tr_rows, tr_probs, consts, m, i, d, s, save=True)
+                                  lengths, tr_rows, tr_probs, consts, m, i, d, s, save=True,
+                                  groups=groups)
 
 
 def backward_coverage_scan_cuda(modds, iodds, trans, schain, tokens, lengths, tr_probs,

@@ -90,12 +90,15 @@ def _jax_package_imports(path: pathlib.Path) -> list[str]:
 
 
 def test_no_file_of_the_port_imports_the_jax_package():
-    """An AST scan of every .py file of the port and of chip_smoke.py finds
-    no import of hmm_fasta_viterbi_tpu (or jax), at any depth."""
-    files = sorted(PORT_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]
+    """An AST scan of every .py file of the port, of chip_smoke.py and of
+    the port's timing tool finds no import of hmm_fasta_viterbi_tpu (or
+    jax), at any depth."""
+    files = sorted(PORT_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py",
+                                              REPO_ROOT / "tools" / "torch_p7_timing.py"]
     assert len(files) > 20
     assert {f.name for f in files} >= {"hmmio.py", "loader.py", "reference.py", "stats.py",
-                                       "posterior_cuda.py", "chip_smoke.py"}
+                                       "posterior_cuda.py", "chip_smoke.py",
+                                       "torch_p7_timing.py"}
     bad = {str(f.relative_to(REPO_ROOT)): _jax_package_imports(f) for f in files}
     assert not {k: v for k, v in bad.items() if v}
     # the scan finds such imports where they are
@@ -143,10 +146,13 @@ def test_nvcc_command_targets_hopper_without_fast_math():
                  "p7_filter_kernel.cu", "p7_forward_log_kernel.cu", "posterior_kernel.cu"):
         assert str(_build.CSRC_DIR / name) in srcs
     assert len(srcs) == 6
-    # the shared Viterbi / log-space Forward template is a header both include
-    assert [h.name for h in _build.headers()] == ["p7_viterbi.cuh"]
+    # the shared Viterbi / log-space Forward template is a header both
+    # include; it and the Forward kernel include the blocked layout's header
+    assert [h.name for h in _build.headers()] == ["p7_blocked.cuh", "p7_viterbi.cuh"]
     for name in ("p7_viterbi_kernel.cu", "p7_forward_log_kernel.cu"):
         assert '#include "p7_viterbi.cuh"' in (_build.CSRC_DIR / name).read_text()
+    for name in ("p7_viterbi.cuh", "p7_forward_kernel.cu"):
+        assert '#include "p7_blocked.cuh"' in (_build.CSRC_DIR / name).read_text()
     for cmd in compiles:
         joined = " ".join(cmd)
         assert "arch=compute_90a,code=sm_90a" in joined and "-c" in cmd and "-O3" in cmd
@@ -318,6 +324,7 @@ def test_log_forward_kernel_uses_accurate_math_only():
     """The log-space Forward's combine and E reduce call the accurate expf,
     log1pf and logf, never the fast intrinsics."""
     source = (_build.CSRC_DIR / "p7_viterbi.cuh").read_text()
-    assert "log1pf(expf(d))" in source and "logf(block_reduce<true>" in source
+    assert "log1pf(expf(d))" in source and "logf(group_reduce<true>" in source
+    source += (_build.CSRC_DIR / "p7_blocked.cuh").read_text()
     for fast in ("__expf", "__logf", "__log1pf", "__fdividef"):
         assert f"{fast}(" not in source
