@@ -7,8 +7,9 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
 2. build: compiles csrc/*.cu from this checkout, one nvcc a source, and
    prints each kernel case's registers and spills, and the launch plan of
-   each redesigned p7 case against 1400.hmm (groups G, grid, staged chain
-   rows, dynamic shared memory) at the timed shapes;
+   each blocked p7 case (the Viterbi filter's included) against 1400.hmm and
+   the wider wide profile at the timed shapes (threads a group, groups G,
+   grid, staged chain and transition rows, dynamic shared memory);
 3. log-space Forward and posterior kernels against plain, all 24 profiles:
    the log-space Forward kernel within LOG_FWD_TOL of its plain version on
    a ragged batch of 64 sequences up to 600 residues, and a two-call carry
@@ -30,11 +31,11 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    among them): eager Viterbi == plain, lazy == eager (scores and carries,
    bit for bit), lazy at lazy_k = 1 on 100.hmm replays chunks and equals
    the plain lazy version, replay counts included; Forward within FWD_TOL
-   of plain; the eager, lazy and Forward kernels at G = 1 (the launch
-   plan's pick for 64 rows) equal to themselves at the most groups a block
-   that fit (G > 1 on most profiles), bit for bit; the Viterbi filter
-   kernel == plain (carries included) and >= eager Viterbi on every
-   sequence; two-call carry chains equal one call
+   of plain; the eager, lazy, Forward and Viterbi filter kernels at G = 1
+   (the launch plan's pick for 64 rows) equal to themselves at the most
+   groups a block that fit (G > 1 on most profiles), bit for bit; the
+   Viterbi filter kernel == plain (carries included) and >= eager Viterbi
+   on every sequence; two-call carry chains equal one call
    (Forward split at a multiple of FWD_RESCALE_GROUP); the Viterbi filter
    at every window 1..full_passes on 100.hmm and 1400.hmm, and on 100.hmm
    made to fail e_skip_d (a positive tdd: the full chain; a positive tmd: a
@@ -43,9 +44,16 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    the oracles on short sequences of 100.hmm and 1400.hmm (1e-4, filter >=
    oracle, 2e-3, 2e-3), and the posterior kernels against
    reference.posterior_match there (COV_TOL, TOT_TOL);
-8. main paths, each with every launch count set to 0 just before it and
+8. the profiles wider than 2432 states (WIDE_PAIRS: the nodes of 1400.hmm
+   and 1301.hmm, LENG 2701, and of 2405.hmm and 2365.hmm, LENG 4770, joined
+   into one ProfileHMM each): every kernel's wide case against its plain
+   version on a ragged batch of 8 sequences up to 300 residues, at G = 1
+   and at the most groups that fit, and the stacked kernel over 100.hmm
+   and both (wide_kernels_vs_plain);
+9. main paths, each with every launch count set to 0 just before it and
    read just after, on a seeded FASTA of 16384 x 3500 random residues with
-   32 sequences sampled from 1400.hmm at known rows:
+   32 sequences sampled from 1400.hmm and 4 from the LENG 4770 profile at
+   known rows:
    `scan --stage msv` (the MSV kernel; the top 8 rows equal the oracle),
    `scan --stage search` (MSV, then the lazy Viterbi and the Forward
    kernels; every planted row is a hit), `scan --stage viterbi` and
@@ -59,39 +67,46 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    --domains` (the posterior kernels and the Forward kernel's domain
    rescoring; every planted row a hit with its envelope inside it, the
    envelopes those of the kernels' coverage and of the plain decode's on
-   the card), and the log-space Forward entry as validate_hw.py's long-L
+   the card), the log-space Forward entry as validate_hw.py's long-L
    referee (one sequence of 36864 residues of 100.hmm, the probability-space
-   Forward within 5e-3 of it); survivor counts and per-phase seconds
-   printed;
-9. timings with CUDA events: the MSV kernel (best of 3) at 16384 x 3500
+   Forward within 5e-3 of it), and the wide cases (wide_paths): `sweep
+   --stage search --fast` over the 24 profiles and the two wide ones, `sweep`
+   over 100.hmm and the wide ones, and the eager, log-space and posterior
+   entry points on the planted wide rows; survivor counts and per-phase
+   seconds printed;
+10. timings with CUDA events: the MSV kernel (best of 3) at 16384 x 3500
    against 1400.hmm and 2405.hmm and its plain version at 1400.hmm; the MSV
    filter at 16384 x 3500 x 1400 (filter_1400) and its plain version once;
    the lazy and eager Viterbi, the Viterbi filter (auto window), the
    Forward and the log-space Forward kernels (best of 3) at 4096 x 3500
    against 1400.hmm (forward_log_1400 the last), the lazy fire rate, and
    each plain version once at that shape, held against the kernel; the
-   lazy and eager Viterbi, Forward and log-space Forward kernels at the
-   survivor shape 64 x 3500 (<kernel>_1400_b64, best of 3), each line with
-   its launch plan; the stacked sweep over all 24 profiles at 8192 x 3500
-   in both modes
-   (sweep24, sweep24_filter; best of 3), the plain exact sweep once over
-   all 24 and the plain filter sweep once over every fourth profile,
-   scaled by cells; the posterior kernels at 1024 x 1024 against 1400.hmm
-   (posterior_1400, posterior_mask_1400; best of 3) and their plain
-   versions once. Each kernel's bound is the larger of its FP32
-   operations (counted a cell from its source) at 67 TFLOP/s and the bytes
-   it must move (each input once, each output once) at 3.35 TB/s, at the
-   timed shape.
+   same five kernels at the survivor shape 64 x 3500 (<kernel>_1400_b64,
+   best of 3), each line with its launch plan; the stacked sweep over all
+   24 profiles at 8192 x 3500 in both modes, one line a stacked launch
+   (a kernel case) and the whole (sweep24, sweep24_filter; best of 3), the
+   plain exact sweep once over all 24 and the plain filter sweep once over
+   every fourth profile, scaled by cells; the posterior kernels at 1024 x
+   1024 against 1400.hmm (posterior_1400, posterior_mask_1400; best of 3)
+   and their plain versions once; each wide case once against the LENG 4770
+   profile (wide_timings: MSV at 2048 x 3500, the p7 kernels at 64 x 3500,
+   the posterior kernels at 64 x 1024). Each kernel's bound is the larger
+   of its FP32 operations (counted a cell from its source) at 67 TFLOP/s
+   and the bytes it must move (each input once, each output once) at 3.35
+   TB/s, at the timed shape.
 
-Prints a JSON line about the kernels, then the card's name and power limit
-and, last, {"ok": true, ...}. Any failed check raises, and the script exits
+Prints a JSON line about the kernels (every case, the wide ones as
+`<kernel>_wide`), then the card's name and power limit and, last,
+{"ok": true, ...}. Any failed check raises, and the script exits
 non-zero without those lines.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
+import math
 import pathlib
 import re
 import subprocess
@@ -145,6 +160,14 @@ POST_BATCH, POST_LEN = 16, 300
 LONG_L, LONG_TOL = 36864, 5e-3
 # the bench's posterior shape (posterior_1400, posterior_mask_1400)
 POST_TIME_BATCH, POST_TIME_LEN = 1024, 1024
+# the profiles wider than 2432 states, each joined from two of the repo's
+# (LENG 2701 and 4770), and the ragged batch they are checked on
+WIDE_PAIRS = (("1400", "1301"), ("2405", "2365"))
+WIDE_BATCH, WIDE_LEN = 8, 300
+# homologs of the wider profile planted in the CLI database, and the batch the
+# wide MSV cases are timed at
+WIDE_PLANTED = 4
+WIDE_MSV_BATCH = 2048
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): FP32 outside the
 # tensor cores and HBM3 bandwidth, for each kernel's bound
@@ -171,9 +194,9 @@ KERNELS = {
                         "filter: exact=False, skip_row0_guard=True (bf16 round-up table)"),
     "msv_stacked_scan": ("csrc/msv_kernel.cu", "hmm_fasta_viterbi_tpu/ops/pallas_msv.py:100",
                          "profile stack: grid dimension P > 1 (exact and filter)"),
-    "viterbi_filter_scan": ("csrc/p7_filter_kernel.cu",
+    "viterbi_filter_scan": ("csrc/p7_viterbi_filter_kernel.cu",
                             "hmm_fasta_viterbi_tpu/ops/pallas_p7.py:682",
-                            "upper-bound Viterbi filter"),
+                            "upper-bound Viterbi filter (a case of csrc/p7_viterbi.cuh)"),
     "forward_log_scan": ("csrc/p7_forward_log_kernel.cu",
                          "hmm_fasta_viterbi_tpu/ops/pallas_p7.py:166",
                          "log-space Forward (forward=True)"),
@@ -196,6 +219,14 @@ WRAPPERS = {
     "forward_save_scan": posterior_cuda.forward_save_scan_cuda,
     "backward_coverage_scan": posterior_cuda.backward_coverage_scan_cuda,
 }
+# every case past 2432 states (two warps a sequence for MSV, 256 threads for
+# the p7 and posterior kernels): a line of its own in the JSON, its launches
+# counted by the same wrapper's wide_launches
+WIDE = "_wide"
+KERNELS.update({
+    name + WIDE: (source, replaces, f"{mode}; M_pad 2440..4864")
+    for name, (source, replaces, mode) in list(KERNELS.items())
+})
 
 
 def require(cond: bool, what: str) -> None:
@@ -240,13 +271,68 @@ def p7_profile(stem: str) -> P7Profile:
     return P7Profile.from_profile(parse_hmm(PROFILES / f"{stem}.hmm"))
 
 
+def join_profiles(first, second):
+    """One profile HMM whose match nodes are ``first``'s and then
+    ``second``'s (a ProfileHMM of either package: the same fields). The
+    joint node, ``first``'s last, takes the transitions of the node before
+    it (a last node has none onward); the rest, and the STATS lines, are
+    ``first``'s."""
+    trans = np.concatenate([first.transitions, second.transitions[1:]]).copy()
+    trans[first.model_length - 1] = first.transitions[first.model_length - 2]
+    return dataclasses.replace(
+        first, name=f"{first.name}+{second.name}",
+        model_length=first.model_length + second.model_length - 1,
+        match_emissions=np.concatenate([first.match_emissions, second.match_emissions[1:]]),
+        insert_emissions=np.concatenate([first.insert_emissions, second.insert_emissions[1:]]),
+        transitions=trans)
+
+
+def wide_profile(pair: tuple[str, str]):
+    """The wide profile of WIDE_PAIRS built from two of the repo's profiles."""
+    return join_profiles(*(parse_hmm(PROFILES / f"{stem}.hmm") for stem in pair))
+
+
+def format_hmm(hmm) -> str:
+    """HMMER3 text of a ProfileHMM as the parsers read it back: probabilities
+    as negative natural logs (5 decimals), 0 as '*', the last node's m->d and
+    d->d as '*'."""
+
+    def fields(probs):
+        return "  ".join("        *" if p <= 0.0 else f"{max(-math.log(p), 0.0):9.5f}"
+                         for p in np.asarray(probs, dtype=np.float64))
+
+    leng = hmm.model_length - 1
+    lines = [
+        "HMMER3/b [chip_smoke]", f"NAME  {hmm.name}", f"LENG  {leng}", "ALPH  amino",
+        f"STATS LOCAL MSV      {hmm.stats_local_msv_mu:9.4f}  {hmm.stats_local_msv_lambda:.5f}",
+        f"STATS LOCAL VITERBI  {hmm.stats_local_viterbi_mu:9.4f}  "
+        f"{hmm.stats_local_viterbi_lambda:.5f}",
+        f"STATS LOCAL FORWARD  {hmm.stats_local_forward_theta:9.4f}  "
+        f"{hmm.stats_local_forward_lambda:.5f}",
+        "HMM    " + "  ".join(f"{a:>9s}" for a in AMINO_ACIDS),
+        "        m->m     m->i     m->d     i->m     i->i     d->m     d->d",
+        f"  COMPO  {fields(np.asarray(hmm.match_emissions[1:], dtype=np.float64).mean(axis=0))}",
+        f"         {fields(hmm.insert_emissions[0])}",
+        f"         {fields(hmm.transitions[0])}",
+    ]
+    for k in range(1, hmm.model_length):
+        trans = np.asarray(hmm.transitions[k], dtype=np.float64).copy()
+        if k == leng:
+            trans[[2, 6]] = 0.0
+        lines += [f"{k:7d}  {fields(hmm.match_emissions[k])}  {k:7d} - -",
+                  f"         {fields(hmm.insert_emissions[k])}", f"         {fields(trans)}"]
+    return "\n".join(lines + ["//"]) + "\n"
+
+
 def zero_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        fn.wide_launches = 0
 
 
 def launches() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {**{name: fn.launches for name, fn in WRAPPERS.items()},
+            **{name + WIDE: fn.wide_launches for name, fn in WRAPPERS.items()}}
 
 
 def with_groups(fn, groups):
@@ -260,29 +346,35 @@ def passes_of(kind: str, pack) -> int:
         return pack.lazy_k
     if kind in ("forward", "save"):
         return pack.chain.shape[0]
+    if kind == "filter":
+        return pack.window
     return p7_cuda.chain_passes(pack.m_pad)
 
 
 def plan_text(kind: str, pack, batch: int) -> str:
     plan = p7_cuda.device_plan(kind, pack.m_pad, passes_of(kind, pack), batch, DEVICE)
-    regs = p7_cuda.kernel_regs(kind, p7_cuda.kernel_per(pack.m_pad))
-    return (f"G={plan.groups} (of {plan.max_groups}), grid={plan.grid}, chain rows staged "
-            f"{plan.n_chain}/{passes_of(kind, pack)}, dynamic smem {plan.smem} bytes, "
-            f"{regs} registers")
+    threads, per = p7_cuda.kernel_case(pack.m_pad)
+    regs = p7_cuda.kernel_regs(kind, per, threads)
+    return (f"{threads} threads x {per}, G={plan.groups} (of {plan.max_groups}), grid="
+            f"{plan.grid}, chain rows staged {plan.n_chain}/{passes_of(kind, pack)}, transition "
+            f"rows staged {plan.n_trans}/6, dynamic smem {plan.smem} bytes, {regs} registers")
 
 
 def print_plans(scanner) -> None:
     """Each redesigned p7 case's launch plan against 1400.hmm at the timed
     shapes."""
     p7 = p7_profile("1400")
-    packs = {"lazy": p7_cuda.viterbi_pack(p7, scanner.device, lazy=True),
-             "eager": p7_cuda.viterbi_pack(p7, scanner.device, lazy=False),
-             "forward": p7_cuda.forward_pack(p7, scanner.device)}
-    packs["log"], packs["save"] = packs["eager"], packs["forward"]
-    for kind, pack in packs.items():
-        batches = (POST_TIME_BATCH,) if kind == "save" else (STAGE_BATCH, SURVIVOR_BATCH)
-        for batch in batches:
-            print(f"plan {kind} 1400.hmm x {batch} rows: {plan_text(kind, pack, batch)}")
+    wide = P7Profile.from_profile(wide_profile(WIDE_PAIRS[1]))
+    for name, prof in (("1400.hmm", p7), (f"{wide.name} (M {wide.num_states})", wide)):
+        packs = {"lazy": p7_cuda.viterbi_pack(prof, scanner.device, lazy=True),
+                 "eager": p7_cuda.viterbi_pack(prof, scanner.device, lazy=False),
+                 "forward": p7_cuda.forward_pack(prof, scanner.device),
+                 "filter": p7_cuda.filter_pack(prof, scanner.device)}
+        packs["log"], packs["save"] = packs["eager"], packs["forward"]
+        for kind, pack in packs.items():
+            batches = (POST_TIME_BATCH,) if kind == "save" else (STAGE_BATCH, SURVIVOR_BATCH)
+            for batch in batches:
+                print(f"plan {kind} {name} x {batch} rows: {plan_text(kind, pack, batch)}")
 
 
 def best_ms(fn, reps: int) -> float:
@@ -487,7 +579,7 @@ def msv_kernels_vs_plain(scanner, rng, errors: dict) -> None:
             require(np.array_equal(res[p.name], want.cpu().numpy()),
                     f"stacked {mode} scan of {p.name} vs its single-profile kernel")
         errors["msv_stacked_scan"] = max(errors["msv_stacked_scan"], err)
-        groups = len({msv_cuda.kernel_per(msv_cuda.round_up(p.num_states, 8)) for p in profs})
+        groups = len({msv_cuda.kernel_case(msv_cuda.round_up(p.num_states, 8)) for p in profs})
         print(f"stacked MSV kernel ({mode}): {len(profs)} profiles in {groups} launches == the "
               f"single-profile kernels (max|d|={err})")
 
@@ -607,10 +699,14 @@ def p7_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         f_err = max_abs_diff(fwd[0], fwd_plain[0])
         require(f_err <= FWD_TOL, f"{stem}.hmm Forward kernel vs plain: max |d| {f_err}")
         # the same launches at the most groups a block that fit, against G = 1
+        filt_pack = p7_cuda.filter_pack(p7, scanner.device)
+        run_vf, _ = p7_calls("filter", filt_pack, staged)
+        filt = run_vf(p7_cuda.viterbi_filter_scan_cuda, staged.tokens, staged.lengths, carry_v)
         forced = []
         for kind, run, pack, got in (("eager", run_e, eager_pack, eager),
                                      ("lazy", run_l, lazy_pack, lazy),
-                                     ("forward", run_f, fwd_pack, fwd)):
+                                     ("forward", run_f, fwd_pack, fwd),
+                                     ("filter", run_vf, filt_pack, filt)):
             plan = p7_cuda.device_plan(kind, pack.m_pad, passes_of(kind, pack), P7_BATCH, DEVICE)
             require(plan.groups == 1, f"{kind} plan for {P7_BATCH} rows picked G={plan.groups}")
             grouped = run(with_groups(CUDA_FNS[kind], plan.max_groups), staged.tokens,
@@ -620,7 +716,6 @@ def p7_kernels_vs_plain(scanner, rng, errors: dict) -> None:
             forced.append(plan.max_groups)
         groups_seen.update(forced)
         vf_err, window = filter_vs_plain(p7, staged, eager[0])
-        filt_pack = p7_cuda.filter_pack(p7, scanner.device)
         chains = [p7_chain_error(k, pk, staged)
                   for k, pk in (("eager", eager_pack), ("lazy", lazy_pack), ("forward", fwd_pack),
                                 ("filter", filt_pack))]
@@ -633,7 +728,7 @@ def p7_kernels_vs_plain(scanner, rng, errors: dict) -> None:
               f"lazy(k={lazy_pack.lazy_k}) vs eager max|d|={l_err} replays={int(lazy[5].sum())} "
               f"forward(W={fwd_pack.chain.shape[0]}) max|d|={f_err:.3g} filter(window={window}) "
               f"max|d|={vf_err}, >= eager; chains at {P7_SPLIT} max|d|={max(chains)}; eager/lazy/"
-              f"forward at G={forced} == G=1", flush=True)
+              f"forward/filter at G={forced} == G=1", flush=True)
 
     require(max(groups_seen) > 1, "no profile ran the p7 kernels at G > 1")
     print(f"p7 kernels at G = 1 and at G in {sorted(groups_seen - {1})}: equal on every profile")
@@ -893,25 +988,303 @@ def long_l_referee(rng) -> dict:
     return got
 
 
-# -- main paths (phase 8) ------------------------------------------------------
+# -- profiles wider than 2432 states (phases 8, 9, 10) ----------------------------
+
+def wide_profiles() -> list:
+    return [wide_profile(pair) for pair in WIDE_PAIRS]
+
+
+def wide_kernels_vs_plain(scanner, rng, errors: dict) -> None:
+    """Both wide profiles (the 64-lane MSV cases and the 256-thread p7 and
+    posterior cases) through every kernel against its plain version on a
+    ragged batch of WIDE_BATCH sequences up to WIDE_LEN residues: MSV and
+    the MSV filter bit for bit, with a carry chain, the filter >= exact;
+    eager == plain, lazy == eager, the Viterbi filter == plain and >= eager,
+    Forward within FWD_TOL, the row-saving Forward == Forward, the log-space
+    Forward within LOG_FWD_TOL, every p7 kernel at the most groups a block
+    that fit == G = 1; the posterior kernels within COV_TOL / TOT_TOL; the
+    stacked kernel over 100.hmm and both == the single scans."""
+    lengths = rng.integers(0, WIDE_LEN + 1, size=WIDE_BATCH).astype(np.int32)
+    lengths[:4] = [0, 1, 129, WIDE_LEN]
+    tokens = rng.integers(0, 20, size=(WIDE_BATCH, WIDE_LEN)).astype(np.int8)
+    staged = scanner.stage(tokens, lengths)
+    hmms = wide_profiles()
+    for hmm in hmms:
+        msv = MSVProfile.from_profile(hmm)
+        p7 = P7Profile.from_profile(hmm)
+        require(msv_cuda.kernel_case(msv_cuda.round_up(msv.num_states, 8))[0] == 64
+                and p7_cuda.kernel_case(p7_cuda.default_m_pad(p7))[0] == p7_cuda.WIDE_THREADS,
+                f"{hmm.name} is not a wide case")
+        args = msv_args(scanner, msv, staged)
+        err, exact = msv_compare(args)
+        chain = msv_chain_error(args)
+        f_args = msv_args(scanner, msv, staged, filter_mode=True)
+        f_err, filt = msv_compare(f_args, filter_mode=True)
+        require_geq(filt, exact, f"{hmm.name} MSV filter kernel vs MSV kernel")
+        errors["msv_scan" + WIDE] = max(errors["msv_scan" + WIDE], err, chain)
+        errors["msv_filter_scan" + WIDE] = max(errors["msv_filter_scan" + WIDE], f_err)
+
+        packs = {"eager": p7_cuda.viterbi_pack(p7, scanner.device, lazy=False),
+                 "lazy": p7_cuda.viterbi_pack(p7, scanner.device, lazy=True),
+                 "forward": p7_cuda.forward_pack(p7, scanner.device),
+                 "filter": p7_cuda.filter_pack(p7, scanner.device)}
+        packs["log"], packs["save"] = packs["eager"], packs["forward"]
+        got, want, plans = {}, {}, {}
+        for kind, pack in packs.items():
+            run, carry = p7_calls(kind, pack, staged)
+            got[kind] = run(CUDA_FNS[kind], staged.tokens, staged.lengths, carry)
+            torch.cuda.synchronize()
+            want[kind] = run(PLAIN_FNS[kind], staged.tokens, staged.lengths, carry)
+            plan = p7_cuda.device_plan(kind, pack.m_pad, passes_of(kind, pack), WIDE_BATCH,
+                                       DEVICE)
+            grouped = run(with_groups(CUDA_FNS[kind], plan.max_groups), staged.tokens,
+                          staged.lengths, carry)
+            torch.cuda.synchronize()
+            require_equal(grouped, got[kind], f"{hmm.name} {kind} kernel at G={plan.max_groups} "
+                          "vs G=1")
+            plans[kind] = f"G<={plan.max_groups} n_trans={plan.n_trans} n_chain={plan.n_chain}"
+        e_err = require_equal(got["eager"], want["eager"], f"{hmm.name} eager kernel vs plain")
+        l_err = require_equal(
+            got["lazy"][:5], (*got["eager"][:3], pre_diag(packs["eager"], *got["eager"][1:4]),
+                              got["eager"][4]), f"{hmm.name} lazy kernel vs eager kernel")
+        vf_err = require_equal(got["filter"], want["filter"], f"{hmm.name} filter kernel vs plain")
+        require_geq(got["filter"][0], got["eager"][0], f"{hmm.name} Viterbi filter vs eager")
+        f_err = max_abs_diff(got["forward"][0], want["forward"][0])
+        g_err = max_abs_diff(got["log"][0], want["log"][0])
+        require(f_err <= FWD_TOL and g_err <= LOG_FWD_TOL,
+                f"{hmm.name} Forward / log-space Forward vs plain: {f_err}, {g_err}")
+        s_err = require_equal(got["save"][:5], got["forward"],
+                              f"{hmm.name} row-saving Forward vs Forward kernel")
+        schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
+        cov, tot = posterior_decode(*KERNEL_DECODE, packs["forward"], schain, staged)
+        torch.cuda.synchronize()
+        cov_p, tot_p = posterior_decode(*PLAIN_DECODE, packs["forward"], schain, staged)
+        c_err, t_err = max_abs_diff(cov, cov_p), max_abs_diff(tot, tot_p)
+        require(c_err <= COV_TOL and t_err <= TOT_TOL,
+                f"{hmm.name} posterior kernels vs plain: coverage {c_err}, totals {t_err}")
+        for name, e in (("viterbi_scan", e_err), ("viterbi_lazy_scan", l_err),
+                        ("viterbi_filter_scan", vf_err), ("forward_prob_scan", f_err),
+                        ("forward_log_scan", g_err), ("forward_save_scan", max(s_err, t_err)),
+                        ("backward_coverage_scan", c_err)):
+            errors[name + WIDE] = max(errors[name + WIDE], e)
+        print(f"wide {hmm.name} (M {msv.num_states}): B={WIDE_BATCH} L<={WIDE_LEN} MSV max|d|={err} "
+              f"chain max|d|={chain}, filter max|d|={f_err} (>= exact); eager max|d|={e_err}, "
+              f"lazy == eager, filter(window={packs['filter'].window}) max|d|={vf_err} (>= eager), "
+              f"Forward {f_err:.3g}, log-space {g_err:.3g}, row-saving == Forward, coverage "
+              f"{c_err:.3g} totals {t_err:.3g}; every kernel at G=max == G=1; plans {plans}",
+              flush=True)
+
+    profs = [profile("100")] + [MSVProfile.from_profile(h) for h in hmms]
+    for mode, single in (("exact", scanner.scan), ("filter", scanner.scan_filter)):
+        res = scanner.scan_many(profs, staged, mode=mode)
+        for p in profs:
+            require(np.array_equal(res[p.name], single(p, staged).cpu().numpy()),
+                    f"stacked {mode} scan of {p.name} vs its single-profile kernel")
+    print(f"stacked MSV kernel, 100.hmm and the wide profiles, both modes: == the single-profile "
+          f"kernels (max|d|=0.0)")
+
+
+def wide_paths(tmp: pathlib.Path, fasta: pathlib.Path, tokens, lengths, planted_wide) -> dict:
+    """The wide cases on the main paths, launch counts zeroed around each:
+    `sweep --stage search --fast` over the 24 profiles and the two wide ones
+    (written to .hmm files; the MSV filter, MSV, Viterbi filter, lazy
+    Viterbi and Forward kernels at their wide cases; every planted homolog
+    of the wider profile one of its hits), `sweep` over 100.hmm and the wide
+    ones (the stacked kernel), and on the planted rows the entry points
+    viterbi_scores(lazy=False) (eager), forward_scores(prob_space=False)
+    (log-space) and posterior_coverage_batch (both posterior kernels)."""
+    hmm_dir, msv_dir = tmp / "hmms_wide", tmp / "hmms_wide_msv"
+    hmm_dir.mkdir()
+    msv_dir.mkdir()
+    for stem in stems():
+        (hmm_dir / f"{stem}.hmm").write_bytes((PROFILES / f"{stem}.hmm").read_bytes())
+    (msv_dir / "100.hmm").write_bytes((PROFILES / "100.hmm").read_bytes())
+    for k, hmm in enumerate(wide_profiles()):
+        for d in (hmm_dir, msv_dir):
+            (d / f"wide{k}.hmm").write_text(format_hmm(hmm))
+    wide = load_profile(hmm_dir / "wide1.hmm")  # as the CLI loads it
+    wide_p7 = P7Profile.from_profile(wide)
+    require(p7_cuda.e_skip_d_ok(wide_p7), f"{wide.name} fails e_skip_d: no lazy kernel")
+    counts = {}
+
+    out = tmp / "sweep_wide.tsv"
+    got, e2e, secs, records = run_cli(["sweep", "--stage", "search", "--fast", "--hmm-dir",
+                                       str(hmm_dir), "--fasta", str(fasta), "--device", DEVICE,
+                                       "--out", str(out)])
+    for name in ("msv_filter_scan", "msv_scan", "viterbi_filter_scan", "viterbi_lazy_scan",
+                 "forward_prob_scan"):
+        require(got[name + WIDE] > 0, f"the wide sweep did not launch {name}'s wide case")
+        counts[name + WIDE] = got[name + WIDE]
+    lines = [r.getMessage() for r in records if r.getMessage().startswith("search ")]
+    require(len(lines) == 26, f"{len(lines)} survivor lines, expected 26")
+    hits = {t for (t, prof) in hit_rows(out, with_profile=True) if prof == wide.name}
+    missed = sorted(set(f"seq{r}" for r in planted_wide.tolist()) - hits)
+    require(not missed, f"planted homologs of {wide.name} not reported as its hits: {missed}")
+    print(f"main path sweep search --fast, 24 profiles and the wide ones: "
+          f"{[line for line in lines if '+' in line]}; all {len(planted_wide)} planted homologs "
+          f"of {wide.name} among its {len(hits)} hits; launches {got}")
+    print_seconds("main path sweep search --fast (26 profiles)", secs, e2e)
+
+    out = tmp / "sweep_wide_msv.tsv"
+    got, e2e, secs, _ = run_cli(["sweep", "--hmm-dir", str(msv_dir), "--fasta", str(fasta),
+                                 "--device", DEVICE, "--out", str(out)])
+    require(got["msv_stacked_scan" + WIDE] > 0, "the sweep did not launch the stacked wide case")
+    counts["msv_stacked_scan" + WIDE] = got["msv_stacked_scan" + WIDE]
+    rows = [line.split("\t") for line in out.read_text().splitlines() if not line.startswith("#")]
+    require(len(rows) == 3 * BATCH and all(np.isfinite(float(r[3])) for r in rows),
+            f"the wide sweep reported {len(rows)} rows or a non-finite score")
+    print(f"main path sweep, 100.hmm and the wide profiles: {len(rows)} rows; launches {got}")
+
+    rows = np.asarray(planted_wide)
+    l_max = int(lengths[rows].max())
+    zero_launches()
+    vit = viterbi_scores(wide_p7, tokens[rows, :l_max], lengths[rows], device=DEVICE,
+                         lazy=False).cpu().numpy()
+    log = forward_scores(wide_p7, tokens[rows, :l_max], lengths[rows], device=DEVICE,
+                         prob_space=False).cpu().numpy()
+    cov, tot = posterior_cuda.posterior_coverage_batch(wide_p7, tokens[rows, :l_max],
+                                                       lengths[rows], device=DEVICE)
+    got = launches()
+    for name in ("viterbi_scan", "forward_log_scan", "forward_save_scan", "backward_coverage_scan"):
+        require(got[name + WIDE] > 0, f"the wide entry points did not launch {name}'s wide case")
+        counts[name + WIDE] = got[name + WIDE]
+    require(np.isfinite(vit).all() and np.isfinite(log).all() and np.isfinite(tot).all(),
+            "wide entry points: non-finite scores")
+    require(all(cov[k, : lengths[r]].max() >= 0.5 for k, r in enumerate(rows)),
+            "wide posterior: a planted homolog without a covered position")
+    print(f"main path wide entries on the {len(rows)} planted rows of {wide.name}: Viterbi "
+          f"(eager) {np.round(vit, 2).tolist()}, log-space Forward {np.round(log, 2).tolist()}, "
+          f"coverage >= 0.5 on {[int((cov[k] >= 0.5).sum()) for k in range(len(rows))]} "
+          f"positions; launches {got}")
+    return counts
+
+
+def wide_timings(scanner, rng, errors: dict, work: dict) -> dict:
+    """Each wide case at one shape against the wider profile (M 4770): MSV,
+    the MSV filter and the stacked kernel (both wide profiles, one launch a
+    case) at WIDE_MSV_BATCH x 3500; the p7 kernels at the survivor shape 64 x
+    3500; the posterior kernels at 64 x 1024; best of 3, each plain version
+    once, held against the kernel."""
+    hmms = wide_profiles()
+    msv = MSVProfile.from_profile(hmms[1])
+    p7 = P7Profile.from_profile(hmms[1])
+    out = {}
+    tokens = rng.integers(0, 20, size=(WIDE_MSV_BATCH, SEQ_LEN)).astype(np.int8)
+    staged = scanner.stage(tokens, np.full(WIDE_MSV_BATCH, SEQ_LEN, dtype=np.int32))
+    cells = staged.total_residues * msv.num_states
+    for name, fmode in (("msv_scan", False), ("msv_filter_scan", True)):
+        args = msv_args(scanner, msv, staged, filter_mode=fmode)
+        cuda_fn, plain_fn, what = MSV_FNS[fmode]
+        ms = best_ms(lambda: cuda_fn(*args), reps=3)
+        plain_ms, want = once_ms(lambda: plain_fn(*args))
+        err = require_equal(cuda_fn(*args), want, f"wide {what} kernel vs plain at the timed shape")
+        errors[name + WIDE] = max(errors[name + WIDE], err)
+        out[name + WIDE] = (ms, plain_ms)
+        work[name + WIDE] = (OPS_PER_CELL["msv"](0) * cells, nbytes(*args) + nbytes(*want))
+        print(f"{name}{WIDE}: {cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
+              f"{WIDE_MSV_BATCH} x {SEQ_LEN} x M={msv.num_states}); plain version "
+              f"{plain_ms:.3f} ms (once)", flush=True)
+    both = [MSVProfile.from_profile(h) for h in hmms]
+    packs = [scanner._stacked_pack((p,), "exact") for p in both]
+    args = (staged.tokens, staged.lengths, staged.tr_rows)
+    ms = best_ms(lambda: [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs], reps=3)
+    got = [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs]
+    plain_ms, want = once_ms(lambda: [msv_cuda.msv_stacked_scan_plain(e, *args, c)
+                                      for e, c in packs])
+    err = require_equal(got, want, "wide stacked kernel vs plain at the timed shape")
+    both_cells = staged.total_residues * sum(p.num_states for p in both)
+    errors["msv_stacked_scan" + WIDE] = max(errors["msv_stacked_scan" + WIDE], err)
+    out["msv_stacked_scan" + WIDE] = (ms, plain_ms)
+    work["msv_stacked_scan" + WIDE] = (OPS_PER_CELL["msv"](0) * both_cells,
+                                       nbytes(*args, *(x for pk in packs for x in pk), *got))
+    print(f"msv_stacked_scan{WIDE}: {both_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
+          f"{WIDE_MSV_BATCH} x {SEQ_LEN} x M {'+'.join(str(p.num_states) for p in both)}, "
+          f"{len(packs)} launches); plain version {plain_ms:.3f} ms (once)", flush=True)
+
+    few = scanner.stage(tokens[:SURVIVOR_BATCH], np.full(SURVIVOR_BATCH, SEQ_LEN, dtype=np.int32))
+    few_cells = few.total_residues * p7.num_states
+    packs = {"viterbi_lazy_scan": ("lazy", p7_cuda.viterbi_pack(p7, scanner.device, lazy=True)),
+             "viterbi_scan": ("eager", p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)),
+             "forward_prob_scan": ("forward", p7_cuda.forward_pack(p7, scanner.device)),
+             "viterbi_filter_scan": ("filter", p7_cuda.filter_pack(p7, scanner.device)),
+             "forward_log_scan": ("log", p7_cuda.viterbi_pack(p7, scanner.device, lazy=False))}
+    for name, (kind, pack) in packs.items():
+        run, carry = p7_calls(kind, pack, few)
+        ms = best_ms(lambda: run(CUDA_FNS[kind], few.tokens, few.lengths, carry), reps=3)
+        got = run(CUDA_FNS[kind], few.tokens, few.lengths, carry)
+        plain_ms, want = once_ms(lambda: run(PLAIN_FNS[kind], few.tokens, few.lengths, carry))
+        if kind in ("forward", "log"):
+            err = max_abs_diff(got[0], want[0])
+            require(err <= FWD_TOL, f"wide {kind} kernel vs plain at the timed shape: {err}")
+        else:
+            err = require_equal(got, want, f"wide {kind} kernel vs plain at the timed shape")
+        errors[name + WIDE] = max(errors[name + WIDE], err)
+        out[name + WIDE] = (ms, plain_ms)
+        inputs = (*pack[:4], pack.consts, few.tokens, few.lengths, few.tr_rows, *carry)
+        work[name + WIDE] = (OPS_PER_CELL[kind](passes_of(kind, pack)) * few_cells,
+                             nbytes(*inputs, *got))
+        print(f"{name}{WIDE}: {few_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
+              f"{SURVIVOR_BATCH} x {SEQ_LEN} x M={p7.num_states}; "
+              f"{plan_text(kind, pack, SURVIVOR_BATCH)}); plain version {plain_ms:.3f} ms "
+              f"(once), kernel vs plain max|d|={err:.3g}", flush=True)
+
+    post = scanner.stage(tokens[:SURVIVOR_BATCH, :POST_TIME_LEN],
+                         np.full(SURVIVOR_BATCH, POST_TIME_LEN, dtype=np.int32))
+    post_cells = post.total_residues * p7.num_states
+    fpack = p7_cuda.forward_pack(p7, scanner.device)
+    schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
+    fwd_in = (*fpack[:4], post.tokens, post.lengths, post.tr_rows, post.tr_probs, fpack.consts,
+              *p7_cuda.forward_init_carry(post.tr_probs, fpack.m_pad))
+    save_ms = best_ms(lambda: posterior_cuda.forward_save_scan_cuda(*fwd_in), reps=3)
+    saved = posterior_cuda.forward_save_scan_cuda(*fwd_in)
+    bwd_in = (fpack.emit_m, fpack.emit_i, fpack.trans, schain, post.tokens, post.lengths,
+              post.tr_probs, fpack.consts, saved[0], saved[5], saved[6])
+    bwd_ms = best_ms(lambda: posterior_cuda.backward_coverage_scan_cuda(*bwd_in), reps=3)
+    cov = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
+    plain_save_ms, p_saved = once_ms(lambda: posterior_cuda.forward_save_scan_plain(*fwd_in))
+    plain_bwd_ms, cov_p = once_ms(lambda: posterior_cuda.backward_coverage_scan_plain(*bwd_in))
+    c_err, t_err = max_abs_diff(cov, cov_p), max_abs_diff(saved[0], p_saved[0])
+    require(c_err <= COV_TOL and t_err <= TOT_TOL,
+            f"wide posterior kernels vs plain at the timed shape: {c_err}, {t_err}")
+    errors["backward_coverage_scan" + WIDE] = max(errors["backward_coverage_scan" + WIDE], c_err)
+    errors["forward_save_scan" + WIDE] = max(errors["forward_save_scan" + WIDE], t_err)
+    out["forward_save_scan" + WIDE] = (save_ms, plain_save_ms)
+    out["backward_coverage_scan" + WIDE] = (bwd_ms, plain_bwd_ms)
+    work["forward_save_scan" + WIDE] = (OPS_PER_CELL["forward"](fpack.chain.shape[0]) * post_cells,
+                                        nbytes(*fwd_in, *saved))
+    work["backward_coverage_scan" + WIDE] = (
+        OPS_PER_CELL["backward"](schain.shape[0]) * post_cells, nbytes(*bwd_in, cov))
+    print(f"posterior{WIDE}: the row-saving Forward {save_ms:.3f} ms, the backward coverage pass "
+          f"{bwd_ms:.3f} ms (each best of 3, {SURVIVOR_BATCH} x {POST_TIME_LEN} x "
+          f"M={p7.num_states}; {plan_text('save', fpack, SURVIVOR_BATCH)}); plain versions "
+          f"{plain_save_ms:.3f} + {plain_bwd_ms:.3f} ms (once); coverage max|d|={c_err:.3g}",
+          flush=True)
+    return out
+
+
+# -- main paths (phase 9) ------------------------------------------------------
 
 def write_database(rng, path: pathlib.Path):
     """16384 random sequences of 3500 residues with PLANTED sequences
-    sampled from 1400.hmm at known rows; returns (tokens, lengths, rows)."""
+    sampled from 1400.hmm and WIDE_PLANTED from the wider of the wide
+    profiles (cut at 3500 residues) at known rows; returns (tokens, lengths,
+    rows, wide rows)."""
     tokens = rng.integers(0, 20, size=(BATCH, SEQ_LEN)).astype(np.int8)
     lengths = np.full(BATCH, SEQ_LEN, dtype=np.int32)
     stride = BATCH // PLANTED
     rows = (np.arange(PLANTED) * stride + stride // 3).astype(np.int64)
-    for row, seq in zip(rows, sample_sequences(parse_hmm(PROFILES / "1400.hmm"), PLANTED,
-                                               seed=SEED)):
-        seq = seq[:SEQ_LEN]
-        tokens[row, : len(seq)] = seq
-        lengths[row] = len(seq)
+    wide_rows = (np.arange(WIDE_PLANTED) * stride + 2 * stride // 3).astype(np.int64)
+    for planted, hmm, n in ((rows, parse_hmm(PROFILES / "1400.hmm"), PLANTED),
+                            (wide_rows, wide_profile(WIDE_PAIRS[1]), WIDE_PLANTED)):
+        for row, seq in zip(planted, sample_sequences(hmm, n, seed=SEED)):
+            seq = seq[:SEQ_LEN]
+            tokens[row, : len(seq)] = seq
+            lengths[row] = len(seq)
     letters = np.frombuffer(AMINO_ACIDS.encode(), dtype=np.uint8)[tokens]
     write_fasta(path, [
         FastaRecord(f"seq{i}", letters[i, : lengths[i]].tobytes().decode()) for i in range(BATCH)
     ])
-    return tokens, lengths, rows
+    return tokens, lengths, rows, wide_rows
 
 
 def run_cli(argv):
@@ -938,7 +1311,7 @@ def print_seconds(label, args, e2e) -> None:
 def main_paths(tmp: pathlib.Path, rng, scanner) -> dict:
     fasta = tmp / "headline.fsa"
     t0 = time.perf_counter()
-    tokens, lengths, planted = write_database(rng, fasta)
+    tokens, lengths, planted, planted_wide = write_database(rng, fasta)
     print(f"wrote {fasta.stat().st_size} bytes of FASTA ({PLANTED} planted homologs of "
           f"1400.hmm, lengths {int(lengths[planted].min())}-{int(lengths[planted].max())}) "
           f"in {time.perf_counter() - t0:.2f} s")
@@ -1072,6 +1445,7 @@ def main_paths(tmp: pathlib.Path, rng, scanner) -> dict:
     counts["forward_save_scan"] = got["forward_save_scan"]
     counts["backward_coverage_scan"] = got["backward_coverage_scan"]
     counts["forward_log_scan"] = long_l_referee(rng)["forward_log_scan"]
+    counts.update(wide_paths(tmp, fasta, tokens, lengths, planted_wide))
     return counts
 
 
@@ -1088,7 +1462,7 @@ def hit_rows(path: pathlib.Path, with_profile: bool = False) -> dict:
     return out
 
 
-# -- timings (phase 9) ---------------------------------------------------------
+# -- timings (phase 10) --------------------------------------------------------
 
 def msv_timings(scanner, rng, errors: dict, work: dict) -> dict:
     tokens = rng.integers(0, 20, size=(BATCH, SEQ_LEN)).astype(np.int8)
@@ -1102,8 +1476,10 @@ def msv_timings(scanner, rng, errors: dict, work: dict) -> dict:
         cells = staged.total_residues * prof.num_states
         ms = best_ms(lambda: msv_cuda.msv_scan_cuda(*args), reps=3)
         out[stem] = ms
+        b_ms, b_by = bound(OPS_PER_CELL["msv"](0) * cells, nbytes(*args) + nbytes(exact, *args[5:]))
         print(f"{label}: {cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
-              f"{BATCH} x {SEQ_LEN} x M={prof.num_states}; kernel vs plain max|d|={err})")
+              f"{BATCH} x {SEQ_LEN} x M={prof.num_states}; kernel vs plain max|d|={err}; "
+              f"bound {b_ms:.3f} ms by {b_by})")
         if stem == "1400":
             # inputs once; the outputs are the scores and carries of the inputs' sizes
             moved = nbytes(*args) + nbytes(exact, *args[5:])
@@ -1177,8 +1553,7 @@ def p7_timings(scanner, rng, errors: dict, work: dict) -> dict:
         if kind == "filter":
             full = p7_cuda.chain_passes(pack.m_pad)
             extra = f", auto window {pack.window} of {full} passes"
-        else:
-            extra += f"; {plan_text(kind, pack, STAGE_BATCH)}"
+        extra += f"; {plan_text(kind, pack, STAGE_BATCH)}"
         print(f"{name}_1400: {cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
               f"{STAGE_BATCH} x {SEQ_LEN} x M={p7.num_states}{extra}); plain version "
               f"{plain_ms:.3f} ms ({cells / plain_ms / 1e6:.2f} GCUPS, once), kernel vs plain "
@@ -1188,14 +1563,17 @@ def p7_timings(scanner, rng, errors: dict, work: dict) -> dict:
     few = scanner.stage(tokens[:SURVIVOR_BATCH], np.full(SURVIVOR_BATCH, SEQ_LEN, dtype=np.int32))
     few_cells = few.total_residues * p7.num_states
     for name, (kind, pack) in packs.items():
-        if kind == "filter":
-            continue
         run, carry = p7_calls(kind, pack, few)
         ms = best_ms(lambda: run(CUDA_FNS[kind], few.tokens, few.lengths, carry), reps=3)
         out[f"{name}_b64"] = ms
+        got = run(CUDA_FNS[kind], few.tokens, few.lengths, carry)
+        inputs = (*pack[:4], pack.consts, few.tokens, few.lengths, few.tr_rows, *carry)
+        b_ms, b_by = bound(OPS_PER_CELL[kind](passes_of(kind, pack)) * few_cells,
+                           nbytes(*inputs, *got))
         print(f"{name}_1400_b64: {few_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
               f"{SURVIVOR_BATCH} x {SEQ_LEN} x M={p7.num_states}; "
-              f"{plan_text(kind, pack, SURVIVOR_BATCH)})", flush=True)
+              f"{plan_text(kind, pack, SURVIVOR_BATCH)}; bound {b_ms:.3f} ms by {b_by})",
+              flush=True)
     return out
 
 
@@ -1210,11 +1588,21 @@ def sweep_timings(scanner, rng, errors: dict, work: dict) -> dict:
     cells = staged.total_residues * sum(p.num_states for p in profs)
     groups = {}
     for p in profs:
-        groups.setdefault(msv_cuda.kernel_per(msv_cuda.round_up(p.num_states, 8)), []).append(p)
+        groups.setdefault(msv_cuda.kernel_case(msv_cuda.round_up(p.num_states, 8)), []).append(p)
     args = (staged.tokens, staged.lengths, staged.tr_rows)
     out = {}
     for mode, label in (("exact", "sweep24"), ("filter", "sweep24_filter")):
         packs = [scanner._stacked_pack(tuple(g), mode) for g in groups.values()]
+        for (lanes, per), grp, (e, c) in zip(groups, groups.values(), packs):
+            g_ms = best_ms(lambda: msv_cuda.msv_stacked_scan_cuda(e, *args, c), reps=3)
+            mr = sum(p.num_states for p in grp)
+            b_ms, b_by = bound(OPS_PER_CELL["msv"](0) * staged.total_residues * mr,
+                               nbytes(*args, e, c) + 4 * len(grp) * staged.tokens.shape[0])
+            print(f"{label} group {lanes} lanes x {per}: {g_ms:.3f} ms (best of 3), "
+                  f"{', '.join(p.name for p in grp)}, sum Mr = {mr} of "
+                  f"{len(grp) * lanes * per} kernel states, "
+                  f"{staged.total_residues * mr / g_ms / 1e6:.2f} GCUPS; bound {b_ms:.3f} ms "
+                  f"by {b_by}")
         ms = best_ms(lambda: [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs],
                      reps=3)
         got = [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs]
@@ -1248,7 +1636,9 @@ def posterior_timings(scanner, rng, errors: dict, work: dict) -> dict:
     """posterior_1400 / posterior_mask_1400: the two posterior kernels at
     POST_TIME_BATCH x POST_TIME_LEN against 1400.hmm, each alone and the
     decode without and with the uint8 mask (best of 3); each plain version
-    once, held against the kernels (COV_TOL, TOT_TOL)."""
+    once on the kernel's inputs, held against it: the row-saving Forward's
+    totals (TOT_TOL), the backward pass's coverage on the kernel's rows
+    (COV_TOL)."""
     tokens = rng.integers(0, 20, size=(POST_TIME_BATCH, POST_TIME_LEN)).astype(np.int8)
     staged = scanner.stage(tokens, np.full(POST_TIME_BATCH, POST_TIME_LEN, dtype=np.int32))
     p7 = p7_profile("1400")
@@ -1271,8 +1661,10 @@ def posterior_timings(scanner, rng, errors: dict, work: dict) -> dict:
     work["backward_coverage_scan"] = (OPS_PER_CELL["backward"](schain.shape[0]) * cells,
                                       nbytes(*bwd_in, cov))
     plain_save_ms, p_saved = once_ms(lambda: posterior_cuda.forward_save_scan_plain(*fwd_in))
-    p_bwd_in = (*bwd_in[:8], p_saved[0], p_saved[5], p_saved[6])
-    plain_bwd_ms, cov_p = once_ms(lambda: posterior_cuda.backward_coverage_scan_plain(*p_bwd_in))
+    # the backward pass's plain version on the kernel's own rows: two
+    # forward passes round their rows to bf16 apart (one bf16 ulp moves a
+    # coverage by up to 7e-3 on long hits), which is no error of either
+    plain_bwd_ms, cov_p = once_ms(lambda: posterior_cuda.backward_coverage_scan_plain(*bwd_in))
     c_err, t_err = max_abs_diff(cov, cov_p), max_abs_diff(saved[0], p_saved[0])
     require(c_err <= COV_TOL and t_err <= TOT_TOL,
             f"posterior kernels vs plain at the bench shape: coverage {c_err}, totals {t_err}")
@@ -1338,20 +1730,24 @@ def main() -> int:
         p7_kernels_vs_oracle(scanner, rng, errors)
         new_kernels_vs_oracle(scanner, rng, errors)
 
-    with Phase("8. main paths through the CLI and the entry points"):
+    with Phase("8. profiles wider than 2432 states: every kernel vs plain"):
+        wide_kernels_vs_plain(scanner, rng, errors)
+
+    with Phase("9. main paths through the CLI and the entry points"):
         with tempfile.TemporaryDirectory() as tmp:
             counts = main_paths(pathlib.Path(tmp), rng, scanner)
 
     work = {}
-    with Phase("9. timings"):
+    with Phase("10. timings"):
         msv_ms = msv_timings(scanner, rng, errors, work)
         p7_ms = p7_timings(scanner, rng, errors, work)
         sweep_ms = sweep_timings(scanner, rng, errors, work)
         post_ms = posterior_timings(scanner, rng, errors, work)
+        wide_ms = wide_timings(scanner, rng, errors, work)
         print("card after timing:", nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
     times = {"msv_scan": (msv_ms["1400"], msv_ms["plain"]), "msv_filter_scan": msv_ms["filter"],
-             "msv_stacked_scan": sweep_ms["sweep24"], **post_ms,
+             "msv_stacked_scan": sweep_ms["sweep24"], **post_ms, **wide_ms,
              **{name: p7_ms[name] for name in KERNELS if name in p7_ms}}
     bounds = {name: bound(*work[name]) for name in KERNELS}
     for name, (ms, by) in bounds.items():

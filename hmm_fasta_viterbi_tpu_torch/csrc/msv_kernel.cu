@@ -21,27 +21,43 @@
 //
 // What bounds it on the H100: not device memory. A scan reads each token
 // byte once and the emission table once per block, so at M = 1400 the whole
-// 80 G-cell scan moves well under a gigabyte. The bound is the SM's issue
-// rate and the serial chain of one step: every cell costs one emission read
-// plus three FP32 operations (max, add, max into E), and each step ends in a
-// 32-lane max-reduce and the J/C/N/B chain before the next step may start.
+// 80 G-cell scan moves well under a gigabyte. Every cell costs one emission
+// read (a quarter of a 16-byte shared-memory load) plus three FP32
+// instructions (max, add, max into E); the SM's shared-memory pipe (128 B a
+// cycle, 32 f32 cells a cycle) and its issue rate (4 warp-instructions a
+// cycle, about 33 cells a cycle with the step's own work) bound it at about
+// 9.6 ms at 16384 x 3500 x 1400. Each step also carries a serial tail: the
+// warp's max-reduce of E and the J/C/N/B chain, before the next step's
+// first cell may start (it needs B). With a 5-shuffle E butterfly and a
+// token shuffled and clamped every step, about 28 instructions a lane a step
+// went to that tail, the token broadcast and the loop: 0.6 extra
+// instructions a cell at 44 states a lane, 7 at 4; and the butterfly put
+// about 150 cycles of latency on every step.
 //
 // What the design does about it:
-//  * One warp per sequence. The row M_0..M_{32*PER-1} lives in registers,
-//    PER consecutive states per lane, so a step is a map over j with no
-//    memory traffic for the DP state. The j-1 shift stays in registers except
-//    at a lane boundary, which is one __shfl_up_sync. E is a 5-shuffle
-//    butterfly. The whole warp follows one sequence, so its residue loop
-//    simply stops at that sequence's length: there are no masked pad steps,
-//    and a pad token (PAD_TOKEN = 127) is never used to index the table.
+//  * One warp per sequence up to 32 * 76 = 2432 states (LANES = 32). The
+//    row M_0..M_{32*PER-1} lives in registers, PER consecutive states per
+//    lane, so a step is a map over j with no memory traffic for the DP
+//    state. The j-1 shift stays in registers except at a lane boundary,
+//    which is one __shfl_up_sync. The whole warp follows one sequence, so
+//    its residue loop stops at that sequence's length: there are no masked
+//    pad steps, and a pad token (PAD_TOKEN = 127) never indexes the table.
+//  * E is one __reduce_max_sync (redux.sync) over an order-preserving int
+//    image of the float (the sign bit flips the magnitude bits: integer
+//    order is float order, -0 below +0), one instruction instead of a
+//    5-shuffle butterfly. E enters only E + tr_E_J and E + tr_E_C, whose
+//    constants are never 0, so the sign of a zero E cannot show.
+//  * Tokens: each lane loads one of 32 consecutive residues, clamps it to
+//    0..19 once and stores it pre-multiplied by the row length; a step's
+//    row offset is then one __shfl_sync, taken one step ahead (before the
+//    tail of the step before). (Loading the next row's first four entries
+//    there too, measured: the 68 and 76 cases spill under the 128-register
+//    cap, and the narrow cases lose 2-7%; not kept.)
 //  * The emission table of one profile sits in shared memory as [20][32*PER]
 //    entries, padded with -inf beyond M_pad (a -inf state never wins a max,
-//    so pad states stay -inf and never reach E or a real state). Shared
-//    memory was chosen over the read-only cache because the table (up to
-//    194.5 KB of f32 at M = 2405) is read at every step by every warp of the
-//    SM: in shared memory those reads have a fixed latency and cannot be
-//    evicted by the token stream. A block loads the table once for all its
-//    warps. PER is 8q + 4, and a lane reads its PER entries four at a time:
+//    so pad states stay -inf and never reach E or a real state). A block
+//    loads the table once for all its warps. PER is 8q + 4, and a lane reads
+//    its PER entries four at a time:
 //    - f32 entries as float4s: the 16-byte reads of the 8 lanes of a
 //      quarter-warp start 12 banks apart and never share a bank;
 //    - bf16 entries (filter mode) as 8-byte uint2s, half the table and half
@@ -52,9 +68,21 @@
 //      exactly (a 16-bit shift), and the one-hot select of the TPU kernel
 //      also adds a single bf16 term exactly, so the filter equals the exact
 //      recurrence run on float(bf16 table) bit for bit.
-//  * Tokens are int8 [B, L]; each lane loads one of 32 consecutive tokens and
-//    the warp broadcasts them one per step with __shfl_sync.
-//  * The profile of a block is blockIdx.y: it loads its own table and
+//  * Past 2432 states (up to 64 * 76 = 4864, LANES = 64) two warps follow
+//    one sequence, 32 * PER states each. The f32 table there (389 KB at
+//    4864 states) is larger than an SM's shared memory, so the wide case
+//    keeps no table: each lane copies its own PER entries of the next
+//    step's row from global memory (L2) into a private double buffer with
+//    cp.async while the step runs, and waits only on its own copies (no
+//    barrier publishes them). The bf16 table would fit; one layout serves
+//    both. (A 2-block cluster holding half the f32 table each would keep
+//    the table on the chip, at the price of a cluster launch and a
+//    distributed-shared-memory exchange every step; the wide case aims at
+//    being right, not fast.) The j-1 shift between the warps and E cross
+//    through shared memory: at the end of each step warp 0's last state
+//    and each warp's E go into a parity buffer, one named barrier (bar.sync
+//    1 + pair, 64 threads) orders them, and both warps read both.
+//  * The profile of a block is blockIdx.y: it reads its own table and
 //    constants and writes row y of scores [P, B]. P = 1 is the single scan.
 //  * Float32 operations run in the order of ops/recurrence.py::msv_step
 //    (B + tr_B_Mk formed once per step, then the max, then the add of the
@@ -74,8 +102,9 @@ constexpr int kMaxThreads = 512;
 
 __device__ __forceinline__ float f32_neg_inf() { return -__int_as_float(0x7f800000); }
 
-// Entries of one table type: the -inf fill and the read of four
-// consecutive entries (4g .. 4g + 3 of a lane's row) as floats.
+// Entries of one table type: the -inf fill, the read of four consecutive
+// entries (4g .. 4g + 3 of a lane's row) as floats, and the 4-entry copy
+// from global memory into shared memory (cp.async, 16 or 8 bytes).
 template <typename T>
 struct Entries;
 
@@ -84,6 +113,10 @@ struct Entries<float> {
   static __device__ __forceinline__ float neg_inf() { return f32_neg_inf(); }
   static __device__ __forceinline__ float4 load4(const float* row, int g) {
     return reinterpret_cast<const float4*>(row)[g];
+  }
+  static __device__ __forceinline__ void copy4(float* dst, const float* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
   }
 };
 
@@ -96,57 +129,104 @@ struct Entries<uint16_t> {
     return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
                        __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
   }
+  static __device__ __forceinline__ void copy4(uint16_t* dst, const uint16_t* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s), "l"(src) : "memory");
+  }
 };
 
-template <int PER, typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-msv_kernel(const T* __restrict__ emit,          // [P, 20, m_pad]
-           int m_pad,
-           const int8_t* __restrict__ tokens,   // [b_pad, l_pad]
-           int l_pad,
-           const int* __restrict__ lengths,     // [b_pad]
-           const float* __restrict__ tr_rows,   // [2, b_pad]: tr_loop, tr_move
-           const float* __restrict__ tr_consts, // [P, 3]: tr_B_Mk, tr_E_C, tr_E_J
-           const float* __restrict__ m_in,      // [b_pad, m_pad] or null
-           const float* __restrict__ s_in,      // [4, b_pad]: J, C, N, B
-           float* __restrict__ scores,          // [P, b_pad]
-           float* __restrict__ m_out,           // [b_pad, m_pad] or null
-           float* __restrict__ s_out,           // [4, b_pad]
-           int b_pad) {
+// An order-preserving int image of a float (an involution): integer order
+// is float order for every non-NaN value, -0 just below +0.
+__device__ __forceinline__ int order_key(int bits) { return bits ^ ((bits >> 31) & 0x7fffffff); }
+
+// The warp's max of one float a lane, in every lane: one redux.sync.
+__device__ __forceinline__ int warp_max_key(float v) {
+  return __reduce_max_sync(kFullMask, order_key(__float_as_int(v)));
+}
+
+__device__ __forceinline__ float key_float(int key) { return __int_as_float(order_key(key)); }
+
+struct MsvArgs {
+  const void* emit;         // [P, 20, m_pad]: f32, or bf16 bits
+  int m_pad;
+  const int8_t* tokens;     // [b_pad, l_pad]
+  int l_pad;
+  const int* lengths;       // [b_pad]
+  const float* tr_rows;     // [2, b_pad]: tr_loop, tr_move
+  const float* tr_consts;   // [P, 3]: tr_B_Mk, tr_E_C, tr_E_J
+  const float* m_in;        // [b_pad, m_pad] or null
+  const float* s_in;        // [4, b_pad]: J, C, N, B
+  float* scores;            // [P, b_pad]
+  float* m_out;             // [b_pad, m_pad] or null
+  float* s_out;             // [4, b_pad] or null
+  int b_pad;
+};
+
+// Dynamic shared memory of a block of `warps` warps, in bytes: the table
+// (LANES = 32), or each warp's two row buffers and each pair's exchange
+// slots (LANES = 64).
+template <int PER, int LANES, typename T>
+__host__ __device__ constexpr size_t msv_smem_bytes(int warps) {
+  return LANES == 32 ? sizeof(T) * 20 * 32 * PER
+                     : static_cast<size_t>(warps) * 2 * 32 * PER * sizeof(T) +
+                           static_cast<size_t>(warps / 2) * 2 * 4 * sizeof(float);
+}
+
+template <int PER, int LANES, typename T>
+__global__ void __launch_bounds__(kMaxThreads) msv_kernel(const MsvArgs a) {
   static_assert(PER % 8 == 4, "PER = 8q + 4 keeps the table reads conflict-free");
-  constexpr int kRow = 32 * PER;
+  static_assert(LANES == 32 || LANES == 64, "one or two warps a sequence");
+  constexpr bool kWide = LANES == 64;
+  constexpr int kRow = 32 * PER;  // a warp's states: the shared row length
+  constexpr int kGroups = PER / 4;
   const float neg_inf = f32_neg_inf();
   const int prof = blockIdx.y;
-
-  extern __shared__ float4 table4[];
-  T* table = reinterpret_cast<T*>(table4);
-  const T* my_emit = emit + static_cast<size_t>(prof) * 20 * m_pad;
-  for (int i = threadIdx.x; i < 20 * kRow; i += blockDim.x) {
-    const int r = i / kRow;
-    const int c = i - r * kRow;
-    table[i] = c < m_pad ? my_emit[static_cast<size_t>(r) * m_pad + c] : Entries<T>::neg_inf();
-  }
-  __syncthreads();
-
+  const int m_pad = a.m_pad;
   const int lane = threadIdx.x & 31;
-  const int seq = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (seq >= b_pad) return;  // whole warp: no later barrier
+  const int warp = threadIdx.x >> 5;
+  const int half = kWide ? (warp & 1) : 0;  // which warp of the sequence
+  const int j0 = (half * 32 + lane) * PER;
+  const T* my_emit = static_cast<const T*>(a.emit) + static_cast<size_t>(prof) * 20 * m_pad;
 
-  const int j0 = lane * PER;
-  const float tr_loop = tr_rows[seq];
-  const float tr_move = tr_rows[b_pad + seq];
-  float m[PER];
-  float st_j, st_c, st_n, st_b;
-  if (m_in != nullptr) {
-    const float* m_row_in = m_in + static_cast<size_t>(seq) * m_pad;
+  extern __shared__ float4 smem4[];
+  T* table = reinterpret_cast<T*>(smem4);
+  // the wide case: this warp's two row buffers, then the pairs' exchange slots
+  T* rowbuf = table + static_cast<size_t>(warp) * 2 * kRow;
+  float* xchg = reinterpret_cast<float*>(table + static_cast<size_t>(blockDim.x >> 5) * 2 * kRow) +
+                (warp >> 1) * 8;
+  if constexpr (!kWide) {
+    for (int i = threadIdx.x; i < 20 * kRow; i += blockDim.x) {
+      const int r = i / kRow;
+      const int c = i - r * kRow;
+      table[i] = c < m_pad ? my_emit[static_cast<size_t>(r) * m_pad + c] : Entries<T>::neg_inf();
+    }
+    __syncthreads();
+  } else {
+    // the slots past m_pad are -inf in both buffers; no copy writes them
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
-      m[k] = j0 + k < m_pad ? m_row_in[j0 + k] : neg_inf;
+      if (j0 + k >= m_pad) {
+        rowbuf[lane * PER + k] = Entries<T>::neg_inf();
+        rowbuf[kRow + lane * PER + k] = Entries<T>::neg_inf();
+      }
     }
-    st_j = s_in[seq];
-    st_c = s_in[b_pad + seq];
-    st_n = s_in[2 * b_pad + seq];
-    st_b = s_in[3 * b_pad + seq];
+  }
+
+  const int seq = blockIdx.x * (blockDim.x / LANES) + threadIdx.x / LANES;
+  if (seq >= a.b_pad) return;  // the whole sequence's warps: no later block barrier
+  const int b_pad = a.b_pad;
+  const float tr_loop = a.tr_rows[seq];
+  const float tr_move = a.tr_rows[b_pad + seq];
+  float m[PER];
+  float st_j, st_c, st_n, st_b;
+  if (a.m_in != nullptr) {
+    const float* m_row_in = a.m_in + static_cast<size_t>(seq) * m_pad;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) m[k] = j0 + k < m_pad ? m_row_in[j0 + k] : neg_inf;
+    st_j = a.s_in[seq];
+    st_c = a.s_in[b_pad + seq];
+    st_n = a.s_in[2 * b_pad + seq];
+    st_b = a.s_in[3 * b_pad + seq];
   } else {  // the row-0 carry (MSV_HMM.cpp:96-97)
 #pragma unroll
     for (int k = 0; k < PER; ++k) m[k] = neg_inf;
@@ -155,30 +235,66 @@ msv_kernel(const T* __restrict__ emit,          // [P, 20, m_pad]
     st_n = 0.0f;
     st_b = tr_move;
   }
-  const float tr_b_mk = tr_consts[3 * prof];
-  const float tr_e_c = tr_consts[3 * prof + 1];
-  const float tr_e_j = tr_consts[3 * prof + 2];
+  const float tr_b_mk = a.tr_consts[3 * prof];
+  const float tr_e_c = a.tr_consts[3 * prof + 1];
+  const float tr_e_j = a.tr_consts[3 * prof + 2];
 
-  const int n = min(max(lengths[seq], 0), l_pad);
-  const int8_t* tok_row = tokens + static_cast<size_t>(seq) * l_pad;
-  const T* my_cols = table + j0;
+  // the wide case: the second warp's first state takes the first warp's
+  // last one through the exchange slots, which start with the carry's
+  const int bar = 1 + (warp >> 1);
+  float bnd = neg_inf;
+  if constexpr (kWide) {
+    if (half == 0 && lane == 31) xchg[4] = m[PER - 1];
+    asm volatile("bar.sync %0, 64;" ::"r"(bar) : "memory");
+    bnd = xchg[4];
+  }
+  int par = 0;
+
+  const int n = min(max(a.lengths[seq], 0), a.l_pad);
+  const int8_t* tok_row = a.tokens + static_cast<size_t>(seq) * a.l_pad;
+  // a row offset in table entries: the shared table's, or the global one's
+  const int row_len = kWide ? m_pad : kRow;
+  const T* my_cols = kWide ? rowbuf + lane * PER : table + j0;
+
+  // copies of row `off` (in my_emit) into the row buffer of parity q (wide)
+  auto fetch = [&](int off, int q) {
+    if constexpr (kWide) {
+      T* dst = rowbuf + q * kRow + lane * PER;
+      const T* src = my_emit + off + j0;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        if (j0 + 4 * g < m_pad) Entries<T>::copy4(dst + 4 * g, src + 4 * g);
+      }
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    }
+  };
 
   for (int t0 = 0; t0 < n; t0 += 32) {
-    const int mine = t0 + lane < n ? static_cast<int>(tok_row[t0 + lane]) : 0;
+    // clamped once, as a row offset: a token outside 0..19 is clamped like
+    // an XLA gather; encoded residues are always inside
+    const int mine = t0 + lane < n
+                         ? min(max(static_cast<int>(tok_row[t0 + lane]), 0), 19) * row_len
+                         : 0;
     const int count = min(32, n - t0);
+    int off = __shfl_sync(kFullMask, mine, 0);
+    fetch(off, par);
+    const T* row = my_cols + (kWide ? par * kRow : off);
+    if constexpr (kWide) asm volatile("cp.async.wait_group 0;" ::: "memory");
     for (int i = 0; i < count; ++i) {
-      // a token outside 0..19 is clamped like an XLA gather; encoded
-      // residues are always inside
-      const int aa = min(max(__shfl_sync(kFullMask, mine, i), 0), 19);
-      const T* row = my_cols + aa * kRow;
       const float bt = st_b + tr_b_mk;
+      // the next step's row: its offset now, and for the wide case its copy
+      const int next = __shfl_sync(kFullMask, mine, i + 1 < 32 ? i + 1 : 0);
+      const bool more = i + 1 < count;
+      if constexpr (kWide) {
+        if (more) fetch(next, par ^ 1);
+      }
       float prev = __shfl_up_sync(kFullMask, m[PER - 1], 1);
-      if (lane == 0) prev = neg_inf;
+      if (lane == 0) prev = half == 0 ? neg_inf : bnd;
 
       // in place, highest j first, so m[k - 1] still holds the old row
       float e0 = neg_inf, e1 = neg_inf, e2 = neg_inf, e3 = neg_inf;
 #pragma unroll
-      for (int g = PER / 4 - 1; g >= 0; --g) {
+      for (int g = kGroups - 1; g >= 0; --g) {
         const float4 e = Entries<T>::load4(row, g);
         m[4 * g + 3] = e.w + fmaxf(m[4 * g + 2], bt);
         m[4 * g + 2] = e.z + fmaxf(m[4 * g + 1], bt);
@@ -190,11 +306,22 @@ msv_kernel(const T* __restrict__ emit,          // [P, 20, m_pad]
         e1 = fmaxf(e1, m[4 * g + 1]);
         e0 = fmaxf(e0, m[4 * g]);
       }
-      float e_st = fmaxf(fmaxf(e0, e1), fmaxf(e2, e3));
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        e_st = fmaxf(e_st, __shfl_xor_sync(kFullMask, e_st, off));
+      int key = warp_max_key(fmaxf(fmaxf(e0, e1), fmaxf(e2, e3)));
+      if constexpr (kWide) {
+        // both warps' E and the first warp's last state, one barrier
+        float* x = xchg + 4 * par;
+        if (lane == 0) reinterpret_cast<int*>(x)[1 + half] = key;
+        if (half == 0 && lane == 31) x[0] = m[PER - 1];
+        asm volatile("bar.sync %0, 64;" ::"r"(bar) : "memory");
+        key = max(reinterpret_cast<const int*>(x)[1], reinterpret_cast<const int*>(x)[2]);
+        bnd = x[0];
+        par ^= 1;
+        row = my_cols + par * kRow;
+        if (more) asm volatile("cp.async.wait_group 0;" ::: "memory");
+      } else {
+        row = my_cols + next;
       }
+      const float e_st = key_float(key);
       st_j = fmaxf(st_j + tr_loop, e_st + tr_e_j);
       st_c = fmaxf(st_c + tr_loop, e_st + tr_e_c);
       st_n = st_n + tr_loop;
@@ -202,110 +329,113 @@ msv_kernel(const T* __restrict__ emit,          // [P, 20, m_pad]
     }
   }
 
-  if (m_out != nullptr) {
-    float* m_row_out = m_out + static_cast<size_t>(seq) * m_pad;
+  if (a.m_out != nullptr) {
+    float* m_row_out = a.m_out + static_cast<size_t>(seq) * m_pad;
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
       if (j0 + k < m_pad) m_row_out[j0 + k] = m[k];
     }
   }
-  if (lane == 0) {
-    if (s_out != nullptr) {
-      s_out[seq] = st_j;
-      s_out[b_pad + seq] = st_c;
-      s_out[2 * b_pad + seq] = st_n;
-      s_out[3 * b_pad + seq] = st_b;
+  if (half == 0 && lane == 0) {
+    if (a.s_out != nullptr) {
+      a.s_out[seq] = st_j;
+      a.s_out[b_pad + seq] = st_c;
+      a.s_out[2 * b_pad + seq] = st_n;
+      a.s_out[3 * b_pad + seq] = st_b;
     }
-    scores[static_cast<size_t>(prof) * b_pad + seq] = st_c + tr_move;
+    a.scores[static_cast<size_t>(prof) * b_pad + seq] = st_c + tr_move;
   }
 }
 
-template <int PER, typename T>
-cudaError_t launch(int warps, int num_p, const void* emit, int m_pad,
-                   const int8_t* tokens, int l_pad, const int* lengths,
-                   const float* tr_rows, const float* tr_consts,
-                   const float* m_in, const float* s_in, float* scores,
-                   float* m_out, float* s_out, int b_pad,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(T) * 20 * 32 * PER;
+template <int PER, int LANES, typename T>
+cudaError_t launch(int warps, int num_p, const MsvArgs& a, cudaStream_t stream) {
+  const size_t smem = msv_smem_bytes<PER, LANES, T>(warps);
   cudaError_t err = cudaFuncSetAttribute(
-      msv_kernel<PER, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      msv_kernel<PER, LANES, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((b_pad + warps - 1) / warps, num_p);
-  msv_kernel<PER, T><<<grid, warps * 32, smem, stream>>>(
-      static_cast<const T*>(emit), m_pad, tokens, l_pad, lengths, tr_rows,
-      tr_consts, m_in, s_in, scores, m_out, s_out, b_pad);
+  const int seqs = warps * 32 / LANES;
+  const dim3 grid((a.b_pad + seqs - 1) / seqs, num_p);
+  msv_kernel<PER, LANES, T><<<grid, warps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int PER>
-cudaError_t launch_mode(int bf16, int warps, int num_p, const void* emit, int m_pad,
-                        const int8_t* tokens, int l_pad, const int* lengths,
-                        const float* tr_rows, const float* tr_consts,
-                        const float* m_in, const float* s_in, float* scores,
-                        float* m_out, float* s_out, int b_pad, cudaStream_t stream) {
-  if (bf16) {
-    return launch<PER, uint16_t>(warps, num_p, emit, m_pad, tokens, l_pad, lengths,
-                                 tr_rows, tr_consts, m_in, s_in, scores, m_out, s_out,
-                                 b_pad, stream);
-  }
-  return launch<PER, float>(warps, num_p, emit, m_pad, tokens, l_pad, lengths, tr_rows,
-                            tr_consts, m_in, s_in, scores, m_out, s_out, b_pad, stream);
+template <int PER, int LANES>
+cudaError_t launch_mode(int bf16, int warps, int num_p, const MsvArgs& a, cudaStream_t stream) {
+  return bf16 ? launch<PER, LANES, uint16_t>(warps, num_p, a, stream)
+              : launch<PER, LANES, float>(warps, num_p, a, stream);
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `per` is the number of M states
-// each lane holds; it must be one of the cases below (the Python wrapper's
-// KERNEL_PER), and 32 * per >= m_pad. `warps` is the number of sequences
-// per block, at most kMaxThreads / 32. `bf16` selects the filter's bf16
+// Plain C entry point, bound with ctypes. `lanes` (32: one warp a sequence;
+// 64: two) and `per`, the number of M states each lane holds, name the
+// kernel case: per 4, 12, ..., 76 at 32 lanes and 44, ..., 76 at 64 (the
+// Python wrapper's KERNEL_PER, WIDE_PER), with lanes * per >= m_pad (a
+// multiple of 8 at 64 lanes: the row copies are 16 or 8 bytes). `warps` is the number of warps a block, at most
+// kMaxThreads / 32 (even at 64 lanes). `bf16` selects the filter's bf16
 // table (16-bit entries) over f32; `num_p` profiles are stacked in emit
 // [num_p, 20, m_pad] and tr_consts [num_p, 3], and scores is [num_p, b_pad].
 // A null m_in starts from the row-0 carry (s_in is then not read); a null
 // m_out or s_out skips that carry's store. Returns a cudaError_t.
-extern "C" int msv_scan_launch(int device, int per, int warps, int bf16, int num_p,
+extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf16, int num_p,
                                const void* emit, int m_pad,
                                const void* tokens, int l_pad,
                                const void* lengths, const void* tr_rows,
                                const void* tr_consts, const void* m_in,
                                const void* s_in, void* scores, void* m_out,
                                void* s_out, int b_pad, void* stream) {
-  if (warps < 1 || warps * 32 > kMaxThreads || m_pad > 32 * per || num_p < 1 ||
-      num_p > 65535) {
+  if (warps < 1 || warps * 32 > kMaxThreads || (warps * 32) % lanes != 0 ||
+      m_pad > lanes * per || (lanes == 64 && m_pad % 8 != 0) || num_p < 1 || num_p > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* tk = static_cast<const int8_t*>(tokens);
-  const auto* ln = static_cast<const int*>(lengths);
-  const auto* tr = static_cast<const float*>(tr_rows);
-  const auto* tc = static_cast<const float*>(tr_consts);
-  const auto* mi = static_cast<const float*>(m_in);
-  const auto* si = static_cast<const float*>(s_in);
-  auto* sc = static_cast<float*>(scores);
-  auto* mo = static_cast<float*>(m_out);
-  auto* so = static_cast<float*>(s_out);
+  MsvArgs a;
+  a.emit = emit;
+  a.m_pad = m_pad;
+  a.tokens = static_cast<const int8_t*>(tokens);
+  a.l_pad = l_pad;
+  a.lengths = static_cast<const int*>(lengths);
+  a.tr_rows = static_cast<const float*>(tr_rows);
+  a.tr_consts = static_cast<const float*>(tr_consts);
+  a.m_in = static_cast<const float*>(m_in);
+  a.s_in = static_cast<const float*>(s_in);
+  a.scores = static_cast<float*>(scores);
+  a.m_out = static_cast<float*>(m_out);
+  a.s_out = static_cast<float*>(s_out);
+  a.b_pad = b_pad;
   auto* st = static_cast<cudaStream_t>(stream);
-#define MSV_CASE(P)                                                              \
-  case P:                                                                        \
-    return static_cast<int>(launch_mode<P>(bf16, warps, num_p, emit, m_pad, tk,  \
-                                           l_pad, ln, tr, tc, mi, si, sc, mo, so, \
-                                           b_pad, st));
-  switch (per) {
-    MSV_CASE(4)
-    MSV_CASE(12)
-    MSV_CASE(20)
-    MSV_CASE(28)
-    MSV_CASE(36)
-    MSV_CASE(44)
-    MSV_CASE(52)
-    MSV_CASE(60)
-    MSV_CASE(68)
-    MSV_CASE(76)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+#define MSV_CASE(P, L) \
+  case P:              \
+    return static_cast<int>(launch_mode<P, L>(bf16, warps, num_p, a, st));
+  if (lanes == 32) {
+    switch (per) {
+      MSV_CASE(4, 32)
+      MSV_CASE(12, 32)
+      MSV_CASE(20, 32)
+      MSV_CASE(28, 32)
+      MSV_CASE(36, 32)
+      MSV_CASE(44, 32)
+      MSV_CASE(52, 32)
+      MSV_CASE(60, 32)
+      MSV_CASE(68, 32)
+      MSV_CASE(76, 32)
+      default:
+        break;
+    }
+  } else if (lanes == 64) {
+    switch (per) {
+      MSV_CASE(44, 64)
+      MSV_CASE(52, 64)
+      MSV_CASE(60, 64)
+      MSV_CASE(68, 64)
+      MSV_CASE(76, 64)
+      default:
+        break;
+    }
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 #undef MSV_CASE
 }
 

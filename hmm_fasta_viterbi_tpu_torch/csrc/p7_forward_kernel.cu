@@ -83,6 +83,7 @@ struct ForwardArgs {
   int m_pad;
   int window;
   int n_chain;  // chain rows staged in shared memory
+  int n_trans;  // transition rows staged in shared memory (6 at 128 threads)
   int group;
   const int8_t* tokens;  // [b_pad, l_pad]
   int l_pad;
@@ -104,47 +105,47 @@ struct ForwardArgs {
   int b_pad;
 };
 
-template <int PER, bool SAVE>
+template <int PER, int KT, bool SAVE>
 __global__ void forward_kernel(const ForwardArgs a) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int ROW = row_floats<PER>();
+  constexpr int ROW = row_floats<PER, KT>();
   constexpr int SP = stride<PER>();
+  constexpr int W = warps<KT>();
   const int m_pad = a.m_pad;
-  const int n_rows = 6 + a.n_chain;
+  const int n_trans = KT == 128 ? kTransRows : a.n_trans;
+  const int n_rows = n_trans + a.n_chain;
 
-  for (int q = 0; q < 6; ++q) stage_row<PER>(smem + q * ROW, a.trans + q * m_pad, m_pad, 0.0f);
+  for (int q = 0; q < n_trans; ++q) {
+    stage_row<PER, KT>(smem + q * ROW, a.trans + q * m_pad, m_pad, 0.0f);
+  }
   for (int p = 0; p < a.n_chain; ++p) {
-    stage_row<PER>(smem + (6 + p) * ROW, a.chain + p * m_pad, m_pad, 0.0f);
+    stage_row<PER, KT>(smem + (n_trans + p) * ROW, a.chain + p * m_pad, m_pad, 0.0f);
   }
 
-  const int groups = blockDim.x / kThreads;
-  const int g = threadIdx.x / kThreads;
-  const int t = threadIdx.x % kThreads;
+  const int groups = blockDim.x / KT;
+  const int g = threadIdx.x / KT;
+  const int t = threadIdx.x % KT;
   const int bar = 1 + g;
-  float* base = smem + n_rows * ROW + g * (6 * ROW + kRed + kChunk / 4 + (SAVE ? ROW : 0));
+  float* base = smem + n_rows * ROW + g * group_floats<PER, KT, false>(SAVE);
   // buffers by parity (no array indexed at run time: it would live in local memory)
   auto xbuf = [=](int par) { return base + par * ROW; };
   auto em = [=](int q) { return base + (2 + 2 * q) * ROW; };
   auto ei = [=](int q) { return base + (3 + 2 * q) * ROW; };
   float* red_e = base + 6 * ROW;
-  float* red_s = red_e + kWarps;
-  int8_t* toks = reinterpret_cast<int8_t*>(base + 6 * ROW + kRed);
-  // two bf16 rows of kThreads * SP values (SAVE)
-  __nv_bfloat16* srow = reinterpret_cast<__nv_bfloat16*>(base + 6 * ROW + kRed + kChunk / 4);
+  float* red_s = red_e + W;
+  int8_t* toks = reinterpret_cast<int8_t*>(base + 6 * ROW + red_floats<KT>());
+  // two bf16 rows of KT * SP values (SAVE)
+  __nv_bfloat16* srow =
+      reinterpret_cast<__nv_bfloat16*>(base + 6 * ROW + red_floats<KT>() + kChunk / 4);
   for (int q = 0; q < 2; ++q) {
-    fill_tail<PER>(em(q), m_pad, 0.0f, t);
-    fill_tail<PER>(ei(q), m_pad, 0.0f, t);
+    fill_tail<PER, KT>(em(q), m_pad, 0.0f, t);
+    fill_tail<PER, KT>(ei(q), m_pad, 0.0f, t);
   }
   __syncthreads();  // the staged rows; from here on each group keeps to itself
 
   const int off = t * SP;
-  const float* tmm = smem + off;
-  const float* tmi = smem + ROW + off;
-  const float* tmd = smem + 2 * ROW + off;
-  const float* tim = smem + 3 * ROW + off;
-  const float* tii = smem + 4 * ROW + off;
-  const float* tdm = smem + 5 * ROW + off;
-  const float* chain_s = smem + 6 * ROW + off;
+  const TransRows<PER, KT> tr{smem + off, a.trans, n_trans, m_pad, t * PER, 0.0f};
+  const float* chain_s = smem + n_trans * ROW + off;
   const float p_b_mk = a.consts[0];
   const float p_e_c = a.consts[1];
   const float p_e_j = a.consts[2];
@@ -153,9 +154,9 @@ __global__ void forward_kernel(const ForwardArgs a) {
   for (int seq = blockIdx.x * groups + g; seq < b_pad; seq += gridDim.x * groups) {
     const size_t row = static_cast<size_t>(seq) * m_pad;
     float m[PER], iv[PER], d[PER];
-    load_row<PER>(m, a.m_in + row, m_pad, 0.0f, xbuf(0), t, bar);
-    load_row<PER>(iv, a.i_in + row, m_pad, 0.0f, xbuf(0), t, bar);
-    load_row<PER>(d, a.d_in + row, m_pad, 0.0f, xbuf(0), t, bar);
+    load_row<PER, KT>(m, a.m_in + row, m_pad, 0.0f, xbuf(0), t, bar);
+    load_row<PER, KT>(iv, a.i_in + row, m_pad, 0.0f, xbuf(0), t, bar);
+    load_row<PER, KT>(d, a.d_in + row, m_pad, 0.0f, xbuf(0), t, bar);
     float sj = a.s_in[seq];
     float sc = a.s_in[b_pad + seq];
     float sn = a.s_in[2 * b_pad + seq];
@@ -171,22 +172,22 @@ __global__ void forward_kernel(const ForwardArgs a) {
     for (int c0 = 0; c0 < n; c0 += kChunk) {
       const int count = min(kChunk, n - c0);
       if (t < count) toks[t] = tok_row[c0 + t];
-      group_sync(bar);
-      prefetch_emissions<PER>(em(0), ei(0), a.modds, a.iodds, token(toks, 0), m_pad, t);
+      group_sync<KT>(bar);
+      prefetch_emissions<PER, KT>(em(0), ei(0), a.modds, a.iodds, token(toks, 0), m_pad, t);
       cp_async_commit();
       for (int step = 0; step < count; ++step) {
         const int q = step & 1;
         if (step + 1 < count) {
-          prefetch_emissions<PER>(em(q ^ 1), ei(q ^ 1), a.modds, a.iodds, token(toks, step + 1),
-                                  m_pad, t);
+          prefetch_emissions<PER, KT>(em(q ^ 1), ei(q ^ 1), a.modds, a.iodds,
+                                      token(toks, step + 1), m_pad, t);
         }
         cp_async_commit();
 
         float x[PER], diag[PER];
 #pragma unroll
-        for (int k = 0; k < PER; ++k) x[k] = m[k] * tmm[k] + iv[k] * tim[k] + d[k] * tdm[k];
+        for (int k = 0; k < PER; ++k) x[k] = m[k] * tr(0, k) + iv[k] * tr(3, k) + d[k] * tr(5, k);
         cp_async_wait_prev();  // this step's emission rows (the barrier publishes them)
-        shift<PER>(x, diag, 1, 0.0f, xbuf(par), t, bar);
+        shift<PER, KT>(x, diag, 1, 0.0f, xbuf(par), t, bar);
         par ^= 1;
 
         const float* mo = em(q) + off;
@@ -196,14 +197,14 @@ __global__ void forward_kernel(const ForwardArgs a) {
 #pragma unroll
         for (int k = 0; k < PER; ++k) {
           nm[k] = mo[k] * (diag[k] + bp);
-          iv[k] = io[k] * (m[k] * tmi[k] + iv[k] * tii[k]);
-          x[k] = nm[k] * tmd[k];
+          iv[k] = io[k] * (m[k] * tr(1, k) + iv[k] * tr(4, k));
+          x[k] = nm[k] * tr(2, k);
         }
-        shift<PER>(x, ac, 1, 0.0f, xbuf(par), t, bar);
+        shift<PER, KT>(x, ac, 1, 0.0f, xbuf(par), t, bar);
         par ^= 1;
         for (int p = 0; p < a.window; ++p) {
           float sh[PER];
-          shift<PER>(ac, sh, 1 << p, 0.0f, xbuf(par), t, bar);
+          shift<PER, KT>(ac, sh, 1 << p, 0.0f, xbuf(par), t, bar);
           par ^= 1;
           if (p < a.n_chain) {
             const float* c = chain_s + p * ROW;
@@ -220,7 +221,7 @@ __global__ void forward_kernel(const ForwardArgs a) {
         }
 
         const int pos = c0 + step;
-        __nv_bfloat16* sr = srow + q * (kThreads * SP);
+        __nv_bfloat16* sr = srow + q * (KT * SP);
         if (SAVE) {
 #pragma unroll
           for (int k = 0; k < PER; ++k) {
@@ -234,14 +235,14 @@ __global__ void forward_kernel(const ForwardArgs a) {
           m[k] = nm[k];
           d[k] = ac[k];
         }
-        e = group_reduce<true>(e, red_e, t, bar);
+        e = group_reduce<true, KT>(e, red_e, t, bar);
         if (SAVE) {
           // the row is complete after the reduction's barrier; it is
           // rewritten two steps on, after this step's and the next's barriers
           const size_t frow = (static_cast<size_t>(seq) * a.l_pad + pos) * m_pad;
           uint4* dst = reinterpret_cast<uint4*>(a.fm + frow);
           const uint4* src = reinterpret_cast<const uint4*>(sr);
-          for (int c = t; c < m_pad / 8; c += kThreads) dst[c] = src[c];
+          for (int c = t; c < m_pad / 8; c += KT) dst[c] = src[c];
           if (t == 0) a.ls[static_cast<size_t>(seq) * a.l_pad + pos] = log_scale;
         }
         sj = sj * p_loop + e * p_e_j;
@@ -253,7 +254,7 @@ __global__ void forward_kernel(const ForwardArgs a) {
           float mx = 0.0f;
 #pragma unroll
           for (int k = 0; k < PER; ++k) mx = fmaxf(mx, m[k]);
-          mx = group_reduce<false>(mx, red_s, t, bar);
+          mx = group_reduce<false, KT>(mx, red_s, t, bar);
           const float s = fmaxf(fmaxf(mx, sc), fmaxf(sn, 1e-30f));
           const float inv = 1.0f / s;
           const float y = logf(s) - comp;
@@ -272,7 +273,7 @@ __global__ void forward_kernel(const ForwardArgs a) {
           sb *= inv;
         }
       }
-      group_sync(bar);  // every step's reads of the shift buffers and toks are done
+      group_sync<KT>(bar);  // every step's reads of the shift buffers and toks are done
     }
 
     if (SAVE) {
@@ -280,14 +281,14 @@ __global__ void forward_kernel(const ForwardArgs a) {
       const size_t first = (static_cast<size_t>(seq) * a.l_pad + n) * m_pad / 8;
       const size_t last = static_cast<size_t>(seq + 1) * a.l_pad * m_pad / 8;
       uint4* fm16 = reinterpret_cast<uint4*>(a.fm);
-      for (size_t c = first + t; c < last; c += kThreads) fm16[c] = make_uint4(0, 0, 0, 0);
-      for (int pos = n + t; pos < a.l_pad; pos += kThreads) {
+      for (size_t c = first + t; c < last; c += KT) fm16[c] = make_uint4(0, 0, 0, 0);
+      for (int pos = n + t; pos < a.l_pad; pos += KT) {
         a.ls[static_cast<size_t>(seq) * a.l_pad + pos] = 0.0f;
       }
     }
-    store_row<PER>(m, a.m_out + row, m_pad, xbuf(0), t, bar);
-    store_row<PER>(iv, a.i_out + row, m_pad, xbuf(0), t, bar);
-    store_row<PER>(d, a.d_out + row, m_pad, xbuf(0), t, bar);
+    store_row<PER, KT>(m, a.m_out + row, m_pad, xbuf(0), t, bar);
+    store_row<PER, KT>(iv, a.i_out + row, m_pad, xbuf(0), t, bar);
+    store_row<PER, KT>(d, a.d_out + row, m_pad, xbuf(0), t, bar);
     if (t == 0) {
       a.s_out[seq] = sj;
       a.s_out[b_pad + seq] = sc;
@@ -302,84 +303,52 @@ __global__ void forward_kernel(const ForwardArgs a) {
   }
 }
 
-unsigned smem_set[2][20];  // devices whose kernel case allows kMaxSmem
+unsigned smem_set[2][kCaseSlots];  // devices whose kernel case allows kMaxSmem
 
-template <int PER>
+template <int PER, int KT>
 struct Case {
   static cudaError_t launch(const ForwardArgs& a, int device, int groups, int grid, int smem,
                             cudaStream_t stream) {
     const bool save = a.fm != nullptr;
-    if (a.m_pad > kThreads * PER ||
-        !plan_ok<PER>(groups, grid, smem, 6 + a.n_chain, save)) {
+    const int n_trans = a.n_trans;
+    if (a.m_pad > KT * PER ||
+        !plan_ok<PER, KT, false>(groups, grid, smem, n_trans + a.n_chain, n_trans, save)) {
       return cudaErrorInvalidValue;
     }
-    cudaError_t err;
+    unsigned& done = smem_set[save][case_slot(KT, PER)];
+    const cudaError_t err = save ? allow_smem(forward_kernel<PER, KT, true>, device, done)
+                                 : allow_smem(forward_kernel<PER, KT, false>, device, done);
+    if (err != cudaSuccess) return err;
     if (save) {
-      err = allow_smem(forward_kernel<PER, true>, device, smem_set[1][PER]);
-      if (err != cudaSuccess) return err;
-      forward_kernel<PER, true><<<grid, groups * kThreads, smem, stream>>>(a);
+      forward_kernel<PER, KT, true><<<grid, groups * KT, smem, stream>>>(a);
     } else {
-      err = allow_smem(forward_kernel<PER, false>, device, smem_set[0][PER]);
-      if (err != cudaSuccess) return err;
-      forward_kernel<PER, false><<<grid, groups * kThreads, smem, stream>>>(a);
+      forward_kernel<PER, KT, false><<<grid, groups * KT, smem, stream>>>(a);
     }
     return cudaGetLastError();
   }
 
   static cudaError_t regs(bool save, int* out) {
     cudaFuncAttributes attr;
-    const cudaError_t err = save ? cudaFuncGetAttributes(&attr, forward_kernel<PER, true>)
-                                 : cudaFuncGetAttributes(&attr, forward_kernel<PER, false>);
+    const cudaError_t err = save ? cudaFuncGetAttributes(&attr, forward_kernel<PER, KT, true>)
+                                 : cudaFuncGetAttributes(&attr, forward_kernel<PER, KT, false>);
     *out = attr.numRegs;
     return err;
   }
 };
 
-// Calls fn(Case<per>{}).
-#define FWD_CASE(P) \
-  case P:           \
-    return fn(Case<P>{});
-
-template <typename Fn>
-cudaError_t with_per(int per, Fn fn) {
-  switch (per) {
-    FWD_CASE(1)
-    FWD_CASE(2)
-    FWD_CASE(3)
-    FWD_CASE(4)
-    FWD_CASE(5)
-    FWD_CASE(6)
-    FWD_CASE(7)
-    FWD_CASE(8)
-    FWD_CASE(9)
-    FWD_CASE(10)
-    FWD_CASE(11)
-    FWD_CASE(12)
-    FWD_CASE(13)
-    FWD_CASE(14)
-    FWD_CASE(15)
-    FWD_CASE(16)
-    FWD_CASE(17)
-    FWD_CASE(18)
-    FWD_CASE(19)
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-#undef FWD_CASE
-
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `per` is the number of states a
-// thread holds, one of the cases above, with 128 * per >= m_pad (a multiple
-// of 8); `window` is the chain's row count, the first `n_chain` staged in
-// shared memory; the kernel rescales after every `group` residues. `fm`
+// Plain C entry point, bound with ctypes. `threads` (128 or 256) and `per`
+// name the kernel case, with threads * per >= m_pad (a multiple of 8);
+// `window` is the chain's row count, the first `n_chain` staged in shared
+// memory with the first `n_trans` transition rows; the kernel rescales after every `group` residues. `fm`
 // and `ls` null run the plain Forward, both set the saving pass. `groups`,
 // `grid` and `smem` are the launch plan of ops/p7_cuda.py::plan_launch
 // (checked). Returns a cudaError_t.
-extern "C" int p7_forward_launch(int device, int per, const void* modds, const void* iodds,
-                                 const void* trans, const void* chain, int m_pad, int window,
-                                 int n_chain, int group, const void* tokens, int l_pad,
+extern "C" int p7_forward_launch(int device, int threads, int per, const void* modds,
+                                 const void* iodds, const void* trans, const void* chain,
+                                 int m_pad, int window, int n_chain, int n_trans, int group,
+                                 const void* tokens, int l_pad,
                                  const void* lengths, const void* tr_rows,
                                  const void* tr_probs, const void* consts, const void* m_in,
                                  const void* i_in, const void* d_in, const void* s_in,
@@ -400,6 +369,7 @@ extern "C" int p7_forward_launch(int device, int per, const void* modds, const v
   a.m_pad = m_pad;
   a.window = window;
   a.n_chain = n_chain;
+  a.n_trans = n_trans;
   a.group = group;
   a.tokens = static_cast<const int8_t*>(tokens);
   a.l_pad = l_pad;
@@ -420,14 +390,14 @@ extern "C" int p7_forward_launch(int device, int per, const void* modds, const v
   a.ls = static_cast<float*>(ls);
   a.b_pad = b_pad;
   auto* st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_per(per, [&](auto c) {
+  return static_cast<int>(with_case<Case>(threads, per, [&](auto c) {
     return decltype(c)::launch(a, device, groups, grid, smem, st);
   }));
 }
 
-// Registers a thread of the `per` case uses (`save`: the row-saving case),
-// for the launch plan. Returns a cudaError_t.
-extern "C" int p7_forward_regs(int per, int save, int* regs) {
-  return static_cast<int>(
-      with_per(per, [&](auto c) { return decltype(c)::regs(save != 0, regs); }));
+// Registers a thread of the case uses (`save`: the row-saving case), for
+// the launch plan. Returns a cudaError_t.
+extern "C" int p7_forward_regs(int threads, int per, int save, int* regs) {
+  return static_cast<int>(with_case<Case>(
+      threads, per, [&](auto c) { return decltype(c)::regs(save != 0, regs); }));
 }

@@ -16,88 +16,54 @@
 
 namespace {
 
-unsigned smem_set[20];  // devices whose kernel case allows kMaxSmem
+unsigned smem_set[kCaseSlots];  // devices whose kernel case allows kMaxSmem
 
-template <int PER>
+template <int PER, int KT>
 struct Case {
   static cudaError_t launch(const ViterbiArgs& a, int device, int groups, int grid, int smem,
                             cudaStream_t stream) {
-    if (!viterbi_plan_ok<PER>(a, false, groups, grid, smem)) return cudaErrorInvalidValue;
-    const cudaError_t err = allow_smem(viterbi_kernel<PER, false, true>, device, smem_set[PER]);
-    if (err != cudaSuccess) return err;
-    viterbi_kernel<PER, false, true><<<grid, groups * kThreads, smem, stream>>>(a);
-    return cudaGetLastError();
+    if (!viterbi_plan_ok<PER, KT, false>(a, false, false, groups, grid, smem)) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_planned(viterbi_kernel<PER, KT, false, true, false>, a, device,
+                          smem_set[case_slot(KT, PER)], groups, KT, grid, smem, stream);
   }
 
   static cudaError_t regs(int* out) {
-    cudaFuncAttributes attr;
-    const cudaError_t err = cudaFuncGetAttributes(&attr, viterbi_kernel<PER, false, true>);
-    *out = attr.numRegs;
-    return err;
+    return kernel_regs(viterbi_kernel<PER, KT, false, true, false>, out);
   }
 };
 
-// Calls fn(Case<per>{}).
-#define LOG_CASE(P) \
-  case P:           \
-    return fn(Case<P>{});
-
-template <typename Fn>
-cudaError_t with_per(int per, Fn fn) {
-  switch (per) {
-    LOG_CASE(1)
-    LOG_CASE(2)
-    LOG_CASE(3)
-    LOG_CASE(4)
-    LOG_CASE(5)
-    LOG_CASE(6)
-    LOG_CASE(7)
-    LOG_CASE(8)
-    LOG_CASE(9)
-    LOG_CASE(10)
-    LOG_CASE(11)
-    LOG_CASE(12)
-    LOG_CASE(13)
-    LOG_CASE(14)
-    LOG_CASE(15)
-    LOG_CASE(16)
-    LOG_CASE(17)
-    LOG_CASE(18)
-    LOG_CASE(19)
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-#undef LOG_CASE
-
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `per` is the number of states a
-// thread holds, one of the cases above, with 128 * per >= m_pad; the chain
-// runs `n_passes` passes, the first `n_chain` rows staged in shared memory;
-// `groups`, `grid` and `smem` are the launch plan (checked). Returns a
-// cudaError_t.
-extern "C" int p7_forward_log_launch(int device, int per, const void* msc, const void* isc,
-                                     const void* trans, const void* chain, int m_pad,
-                                     int n_passes, int n_chain, const void* tokens, int l_pad,
-                                     const void* lengths, const void* tr_rows,
-                                     const void* consts, const void* m_in, const void* i_in,
-                                     const void* d_in, const void* s_in, void* scores,
-                                     void* m_out, void* i_out, void* d_out, void* s_out,
-                                     int b_pad, int groups, int grid, int smem, void* stream) {
+// Plain C entry point, bound with ctypes. `threads` (128 or 256) and `per`
+// name the kernel case, with threads * per >= m_pad; the chain runs
+// `n_passes` passes, the first `n_chain` rows staged in shared memory with
+// the first `n_trans` transition rows; `groups`, `grid` and `smem` are the
+// launch plan (checked). Returns a cudaError_t.
+extern "C" int p7_forward_log_launch(int device, int threads, int per, const void* msc,
+                                     const void* isc, const void* trans, const void* chain,
+                                     int m_pad, int n_passes, int n_chain, int n_trans,
+                                     const void* tokens, int l_pad, const void* lengths,
+                                     const void* tr_rows, const void* consts, const void* m_in,
+                                     const void* i_in, const void* d_in, const void* s_in,
+                                     void* scores, void* m_out, void* i_out, void* d_out,
+                                     void* s_out, int b_pad, int groups, int grid, int smem,
+                                     void* stream) {
   if (n_passes > 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const ViterbiArgs a = make_args(msc, isc, trans, chain, m_pad, n_passes, n_passes, n_chain,
-                                  tokens, l_pad, lengths, tr_rows, consts, m_in, i_in, d_in,
-                                  s_in, scores, m_out, i_out, d_out, s_out, nullptr, b_pad);
+                                  n_trans, tokens, l_pad, lengths, tr_rows, consts, m_in, i_in,
+                                  d_in, s_in, scores, m_out, i_out, d_out, s_out, nullptr, b_pad);
   auto* st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_per(per, [&](auto c) {
+  return static_cast<int>(with_case<Case>(threads, per, [&](auto c) {
     return decltype(c)::launch(a, device, groups, grid, smem, st);
   }));
 }
 
-// Registers a thread of the `per` case uses, for the launch plan.
-extern "C" int p7_forward_log_regs(int per, int* regs) {
-  return static_cast<int>(with_per(per, [&](auto c) { return decltype(c)::regs(regs); }));
+// Registers a thread of the case uses, for the launch plan.
+extern "C" int p7_forward_log_regs(int threads, int per, int* regs) {
+  return static_cast<int>(
+      with_case<Case>(threads, per, [&](auto c) { return decltype(c)::regs(regs); }));
 }

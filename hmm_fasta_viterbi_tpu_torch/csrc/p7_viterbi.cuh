@@ -1,13 +1,15 @@
-// The full-profile Viterbi step and its log-space Forward semiring twin,
-// written by hand for Hopper (sm_90a): the kernel template shared by
-// p7_viterbi_kernel.cu (the eager and lazy Viterbi cases) and
-// p7_forward_log_kernel.cu (the log-space Forward case). Each source
-// instantiates its own cases, so the two compile side by side.
+// The full-profile Viterbi step, its log-space Forward semiring twin and
+// its upper-bound filter, written by hand for Hopper (sm_90a): the kernel
+// template shared by p7_viterbi_kernel.cu (the eager and lazy Viterbi
+// cases), p7_forward_log_kernel.cu (the log-space Forward case) and
+// p7_viterbi_filter_kernel.cu (the Viterbi filter case). Each source
+// instantiates its own cases, so the three compile side by side.
 //
 // Replaces: hmm_fasta_viterbi_tpu/ops/pallas_p7.py::_p7_kernel in Viterbi
 // mode (the eager kernel) and in Forward mode (forward=True, the log-space
 // semiring), and ::_p7_lazy_kernel (the lazy one), all launched by
-// p7_pallas_call. For every residue t < length of a sequence, with M, I, D
+// p7_pallas_call, and ::_p7_filter_kernel (the filter), launched by
+// _p7_filter_padded. For every residue t < length of a sequence, with M, I, D
 // rows over the Mr match states and (+) the semiring's combine (max for
 // Viterbi, logaddexp for Forward):
 //     M_j = msc[tok][j] + ((pre_diag_{j-1}) (+) (B + tr_B_Mk))
@@ -27,6 +29,26 @@
 // when it fired, replays the chunk from its entry state with the full chain;
 // its D slot carries pre_diag. It needs tmd, tdd <= 0 (e_skip_d_ok), where
 // E = max_j M_j exactly.
+//
+// The filter (HMMER ViterbiFilter's role in the --fast cascade) is the eager
+// Viterbi step with three changes, each of which keeps every value >= its
+// exact counterpart, so its score bounds the exact Viterbi score from above:
+//  * msc/isc are the host's bf16 round-up of the emission tables; a bf16
+//    entry widens to f32 exactly (the TPU's one-hot select of one bf16 term
+//    is exact too);
+//  * the delete chain runs `window` passes (k_run), with the host's
+//    rounded-up window sums, instead of ceil(log2 M_pad) (n_passes);
+//  * when window < n_passes, D-runs longer than the window are bounded by one
+//    tail term on every row j < M_pad: D_j = max(D_j, max_i(a0_i) + aux)
+//    (aux = 2^window * max(tdd), consts[3]), where a0 = shift(M + tmd, 1) is
+//    the row entering the chain; its max is taken over M + tmd before the
+//    shift (the value the shift drops, row M_pad - 1, is -inf, as its tmd
+//    is), and each warp's share is published before the shift's barrier.
+// Its E is max_j M_j with e_skip_d, else max_j max(M_j, D_j). The tail lands
+// on row 0 and on the JAX pack's pad rows Mr..M_pad-1 too, as on the TPU;
+// the kernel's own slots past M_pad stay -inf. Every float32 operation is a
+// max or one add with _p7_filter_kernel's operands, so its scores equal the
+// JAX kernel's and the plain version's bit for bit.
 //
 // In Forward mode the combine is JAX's _lse2: mx + log1p(exp(min - mx)),
 // with (-inf, -inf) giving -inf and never NaN, and E is _lse_reduce0 over
@@ -58,19 +80,21 @@
 //
 // What the design does about it (p7_blocked.cuh has the layout):
 //  * The block stages the rows the case reads every step into shared
-//    memory once: tmm tmi tmd tim tii tdm, the first n_chain chain rows
-//    (all the passes the case runs, unless that would not fit: the
-//    launcher's plan says how many) and, for the lazy certificate, Cmax;
-//    the remaining passes (the lazy replay's, or a wide eager profile's
-//    last) read the chain from global memory. Every staged read is an
-//    unpredicated, conflict-free shared load; states past M_pad read the
-//    fill -inf and stay -inf.
-//  * G groups of 128 threads share the staged rows, one sequence each, and
-//    synchronise on their own named barriers; the grid is persistent (the
-//    launcher's plan) and walks the batch with a stride. G = 1 for a batch
-//    no larger than the SMs, so a survivor batch pays one step's latency;
-//    a full batch takes as many groups as registers and shared memory
-//    allow (4 at 1400.hmm: 128 registers a thread, 199-232 KB a block).
+//    memory once: tmm tmi tmd tim tii tdm (at 256 threads a group, the
+//    first n_trans of them), the first n_chain chain rows (all the passes
+//    the case runs, unless that would not fit: the launcher's plan says how
+//    many) and, for the lazy certificate, Cmax; the remaining rows (the
+//    lazy replay's passes, a wide profile's last chain rows and, at 256
+//    threads, the last transitions) are read from global memory. Every
+//    staged read is an unpredicated, conflict-free shared load; states past
+//    M_pad read the fill -inf and stay -inf.
+//  * G groups of KT = 128 threads (256 past M_pad 2432) share the staged
+//    rows, one sequence each, and synchronise on their own named barriers;
+//    the grid is persistent (the launcher's plan) and walks the batch with
+//    a stride. G = 1 for a batch no larger than the SMs, so a survivor batch
+//    pays one step's latency; a full batch takes as many groups as
+//    registers and shared memory allow (4 at 1400.hmm: 128 registers a
+//    thread, 199-232 KB a block).
 //  * Thread t owns the contiguous states t * PER + k. A shift by s < PER
 //    moves registers and passes only the last s slots through shared
 //    memory; a larger shift reads the whole row at j - s. One barrier a
@@ -78,9 +102,12 @@
 //  * The emission rows of step t + 1 are copied into the group's shared
 //    memory with cp.async while step t runs; the first barrier of step t+1
 //    publishes them. (Read with __ldg in the blocked layout instead, each
-//    warp load spans 11 lines: 8-13% slower at 4096 rows, measured.)
-//  * E is a warp butterfly and a 4-entry shared reduction a group (two of
-//    them, the max and the sum, in Forward mode).
+//    warp load spans 11 lines: 8-13% slower at 4096 rows, measured.) The
+//    filter's rows stay bf16 there: half the bytes, one integer widening an
+//    entry (p7_blocked.cuh::load_bf16).
+//  * E is a warp butterfly and a KT / 32-entry shared reduction a group (two
+//    of them, the max and the sum, in Forward mode; E and max(a0) in the
+//    filter).
 //  * The carries cross global memory as [B, M_pad] rows, coalesced through
 //    a shift buffer: at the start and end of a sequence, and, for the lazy
 //    kernel, at each chunk entry (saved in the output carries) and on a
@@ -96,19 +123,21 @@
 namespace {
 
 struct ViterbiArgs {
-  const float* msc;    // [20, m_pad]
-  const float* isc;    // [20, m_pad]
+  const void* msc;     // [20, m_pad]: f32, or bf16 bits (filter)
+  const void* isc;     // [20, m_pad]
   const float* trans;  // [8, m_pad]: tmm tmi tmd tim tii tdm tdd_s pad
   const float* chain;  // [16, m_pad]: pass constants; row 15 = Cmax (lazy)
   int m_pad;
-  int n_passes;
-  int k_run;    // passes of the certified schedule (lazy)
-  int n_chain;  // chain rows staged in shared memory
+  int n_passes;  // ceil(log2 m_pad): the full chain
+  int k_run;     // passes of the certified schedule (lazy) or the window (filter)
+  int n_chain;   // chain rows staged in shared memory
+  int n_trans;   // transition rows staged in shared memory (6 at 128 threads)
+  int e_skip_d;  // filter: E = max_j M_j
   const int8_t* tokens;  // [b_pad, l_pad]
   int l_pad;
   const int* lengths;    // [b_pad]
   const float* tr_rows;  // [2, b_pad]: tr_loop, tr_move
-  const float* consts;   // [3] or [5]: tr_B_Mk, tr_E_C, tr_E_J, aux, tmd_max
+  const float* consts;   // [3], [4] or [5]: tr_B_Mk, tr_E_C, tr_E_J, aux, tmd_max
   const float* m_in;     // [b_pad, m_pad]
   const float* i_in;
   const float* d_in;
@@ -132,29 +161,30 @@ __device__ __forceinline__ float combine(float x, float y) {
 }
 
 // A group's shared memory: buffers addressed by parity, never through an
-// array indexed at run time (which would live in local memory).
-template <int PER>
+// array indexed at run time (which would live in local memory). The
+// emission rows are bf16 in the filter (FILT).
+template <int PER, int KT, bool FILT>
 struct GroupSmem {
   float* base;  // two shift buffers, then (match, insert) emissions of even and odd steps
-  float* red;   // 2 * kWarps
+  float* red;   // red_floats<KT>()
   int8_t* toks;  // kChunk
 
-  __device__ __forceinline__ float* xbuf(int par) const { return base + par * row_floats<PER>(); }
-  __device__ __forceinline__ float* em(int q) const {
-    return base + (2 + 2 * q) * row_floats<PER>();
-  }
+  static constexpr int ROW = row_floats<PER, KT>();
+  static constexpr int EROW = erow_floats<PER, KT, FILT>();
+  __device__ __forceinline__ float* xbuf(int par) const { return base + par * ROW; }
+  __device__ __forceinline__ float* em(int q) const { return base + 2 * ROW + 2 * q * EROW; }
   __device__ __forceinline__ float* ei(int q) const {
-    return base + (3 + 2 * q) * row_floats<PER>();
+    return base + 2 * ROW + (2 * q + 1) * EROW;
   }
 };
 
-template <int PER>
-__device__ __forceinline__ GroupSmem<PER> group_smem(float* base) {
-  constexpr int ROW = row_floats<PER>();
-  GroupSmem<PER> s;
+template <int PER, int KT, bool FILT>
+__device__ __forceinline__ GroupSmem<PER, KT, FILT> group_smem(float* base) {
+  using G = GroupSmem<PER, KT, FILT>;
+  G s;
   s.base = base;
-  s.red = base + 6 * ROW;
-  s.toks = reinterpret_cast<int8_t*>(base + 6 * ROW + kRed);
+  s.red = base + 2 * G::ROW + 4 * G::EROW;
+  s.toks = reinterpret_cast<int8_t*>(s.red + red_floats<KT>());
   return s;
 }
 
@@ -163,44 +193,56 @@ template <int PER>
 struct Rows {
   float m[PER];
   float i[PER];
-  float d[PER];  // D (eager, Forward) or pre_diag (lazy)
+  float d[PER];  // D (eager, Forward, filter) or pre_diag (lazy)
   float sj, sc, sn, sb;
 };
 
+// Copy step `step`'s emission rows into the group's buffers of parity q.
+template <int PER, int KT, bool FILT>
+__device__ __forceinline__ void prefetch_step(const ViterbiArgs& a,
+                                              const GroupSmem<PER, KT, FILT>& gs, int q, int aa,
+                                              int t) {
+  if constexpr (FILT) {
+    prefetch_emissions_bf16<PER, KT>(reinterpret_cast<uint16_t*>(gs.em(q)),
+                                     reinterpret_cast<uint16_t*>(gs.ei(q)),
+                                     static_cast<const uint16_t*>(a.msc),
+                                     static_cast<const uint16_t*>(a.isc), aa, a.m_pad, t);
+  } else {
+    prefetch_emissions<PER, KT>(gs.em(q), gs.ei(q), static_cast<const float*>(a.msc),
+                                static_cast<const float*>(a.isc), aa, a.m_pad, t);
+  }
+}
+
 // Steps [0, count) of the chunk whose tokens are in gs.toks. Returns whether
 // the certificate fired (CERT only). `cs` is the block's staged rows.
-template <int PER, bool LAZY, bool LSE, bool CERT>
+template <int PER, int KT, bool LAZY, bool LSE, bool CERT, bool FILT>
 __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
-                                          const GroupSmem<PER>& gs, Rows<PER>& r, int count,
-                                          int passes, int& par, float tr_loop, float tr_move,
-                                          int t, int bar) {
-  static_assert(!(LAZY && LSE), "the lazy schedule is Viterbi only");
-  constexpr int ROW = row_floats<PER>();
+                                          const GroupSmem<PER, KT, FILT>& gs, Rows<PER>& r,
+                                          int count, int passes, int& par, float tr_loop,
+                                          float tr_move, int t, int bar) {
+  static_assert(!(LAZY && LSE) && !(FILT && (LAZY || LSE)), "one case at a time");
+  constexpr int ROW = row_floats<PER, KT>();
+  constexpr int W = warps<KT>();
   const int m_pad = a.m_pad;
   const float ninf = neg_inf();
   const float tr_b_mk = a.consts[0];
   const float tr_e_c = a.consts[1];
   const float tr_e_j = a.consts[2];
+  const float aux = FILT ? a.consts[3] : 0.0f;
   const float tmd_max = LAZY ? a.consts[4] : 0.0f;
+  const bool truncated = FILT && passes < a.n_passes;
   const int off = t * stride<PER>();
-  const float* tmm = cs + off;
-  const float* tmi = cs + ROW + off;
-  const float* tmd = cs + 2 * ROW + off;
-  const float* tim = cs + 3 * ROW + off;
-  const float* tii = cs + 4 * ROW + off;
-  const float* tdm = cs + 5 * ROW + off;
-  const float* chain_s = cs + 6 * ROW + off;
-  const float* cmax = cs + (6 + a.n_chain) * ROW + off;
+  const int n_trans = KT == 128 ? kTransRows : a.n_trans;
+  const TransRows<PER, KT> tr{cs + off, a.trans, n_trans, m_pad, t * PER, ninf};
+  const float* chain_s = cs + n_trans * ROW + off;
+  const float* cmax = cs + (n_trans + a.n_chain) * ROW + off;
   bool viol = false;
 
-  prefetch_emissions<PER>(gs.em(0), gs.ei(0), a.msc, a.isc, token(gs.toks, 0), m_pad, t);
+  prefetch_step<PER, KT, FILT>(a, gs, 0, token(gs.toks, 0), t);
   cp_async_commit();
   for (int step = 0; step < count; ++step) {
     const int q = step & 1;
-    if (step + 1 < count) {
-      prefetch_emissions<PER>(gs.em(q ^ 1), gs.ei(q ^ 1), a.msc, a.isc,
-                              token(gs.toks, step + 1), m_pad, t);
-    }
+    if (step + 1 < count) prefetch_step<PER, KT, FILT>(a, gs, q ^ 1, token(gs.toks, step + 1), t);
     cp_async_commit();
 
     // the j-1 diagonal: pre_diag of the previous step, shifted by one
@@ -211,29 +253,48 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
     } else {
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
-        pd[k] = combine<LSE>(combine<LSE>(r.m[k] + tmm[k], r.i[k] + tim[k]), r.d[k] + tdm[k]);
+        pd[k] = combine<LSE>(combine<LSE>(r.m[k] + tr(0, k), r.i[k] + tr(3, k)),
+                             r.d[k] + tr(5, k));
       }
     }
     cp_async_wait_prev();  // this step's emission rows (the barrier publishes them)
     float diag[PER];
-    shift<PER>(pd, diag, 1, ninf, gs.xbuf(par), t, bar);
+    shift<PER, KT>(pd, diag, 1, ninf, gs.xbuf(par), t, bar);
     par ^= 1;
 
-    const float* ms = gs.em(q) + off;
-    const float* is = gs.ei(q) + off;
     const float bt = r.sb + tr_b_mk;
     float nm[PER], ni[PER], ac[PER];
+    if constexpr (FILT) {
+      float me[PER], ie[PER];
+      load_bf16<PER>(reinterpret_cast<const uint16_t*>(gs.em(q)), me, t);
+      load_bf16<PER>(reinterpret_cast<const uint16_t*>(gs.ei(q)), ie, t);
+      float a_max = ninf;
 #pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      nm[k] = ms[k] + combine<LSE>(diag[k], bt);
-      ni[k] = is[k] + combine<LSE>(r.m[k] + tmi[k], r.i[k] + tii[k]);
-      pd[k] = nm[k] + tmd[k];
+      for (int k = 0; k < PER; ++k) {
+        nm[k] = me[k] + fmaxf(diag[k], bt);
+        ni[k] = ie[k] + fmaxf(r.m[k] + tr(1, k), r.i[k] + tr(4, k));
+        pd[k] = nm[k] + tr(2, k);
+        a_max = fmaxf(a_max, pd[k]);
+      }
+      // the warp's share of max(a0) goes out before the shift's barrier,
+      // which then orders it for every reader
+      a_max = warp_reduce<false>(a_max);
+      if (truncated && (t & 31) == 0) gs.red[W + (t >> 5)] = a_max;
+    } else {
+      const float* ms = gs.em(q) + off;
+      const float* is = gs.ei(q) + off;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        nm[k] = ms[k] + combine<LSE>(diag[k], bt);
+        ni[k] = is[k] + combine<LSE>(r.m[k] + tr(1, k), r.i[k] + tr(4, k));
+        pd[k] = nm[k] + tr(2, k);
+      }
     }
-    shift<PER>(pd, ac, 1, ninf, gs.xbuf(par), t, bar);
+    shift<PER, KT>(pd, ac, 1, ninf, gs.xbuf(par), t, bar);
     par ^= 1;
     for (int p = 0; p < passes; ++p) {
       float sh[PER];
-      shift<PER>(ac, sh, 1 << p, ninf, gs.xbuf(par), t, bar);
+      shift<PER, KT>(ac, sh, 1 << p, ninf, gs.xbuf(par), t, bar);
       par ^= 1;
       if (p < a.n_chain) {
         const float* c = chain_s + p * ROW;
@@ -248,6 +309,13 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
         }
       }
     }
+    if (truncated) {
+      const float tail = combine_warps<false, KT>(gs.red + W) + aux;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        if (t * PER + k < m_pad) ac[k] = fmaxf(ac[k], tail);
+      }
+    }
 
     float e = ninf;
     if (LSE) {
@@ -257,25 +325,30 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
         x[k] = combine<true>(nm[k], ac[k]);
         e = fmaxf(e, x[k]);
       }
-      const float mx = group_reduce<false>(e, gs.red, t, bar);
+      const float mx = group_reduce<false, KT>(e, gs.red, t, bar);
       float sum = 0.0f;
 #pragma unroll
       for (int k = 0; k < PER; ++k) sum += expf(x[k] == mx ? 0.0f : x[k] - mx);
-      e = mx + logf(group_reduce<true>(sum, gs.red + kWarps, t, bar));
+      e = mx + logf(group_reduce<true, KT>(sum, gs.red + W, t, bar));
+    } else if (FILT) {
+      const bool skip_d = a.e_skip_d != 0;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) e = fmaxf(e, skip_d ? nm[k] : fmaxf(nm[k], ac[k]));
+      e = group_reduce<false, KT>(e, gs.red, t, bar);
     } else {
 #pragma unroll
       for (int k = 0; k < PER; ++k) e = fmaxf(e, LAZY ? nm[k] : fmaxf(nm[k], ac[k]));
-      e = group_reduce<false>(e, gs.red, t, bar);
+      e = group_reduce<false, KT>(e, gs.red, t, bar);
     }
 
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
       if (LAZY) {
-        const float stay = fmaxf(nm[k] + tmm[k], ni[k] + tim[k]);
-        const float npd = fmaxf(stay, ac[k] + tdm[k]);
+        const float stay = fmaxf(nm[k] + tr(0, k), ni[k] + tr(3, k));
+        const float npd = fmaxf(stay, ac[k] + tr(5, k));
         if (CERT) {
           // the bound's own rounding path, in this order
-          const float t_row = ((e + tmd_max) + cmax[k]) + tdm[k];
+          const float t_row = ((e + tmd_max) + cmax[k]) + tr(5, k);
           viol |= t_row > npd;
         }
         r.d[k] = npd;
@@ -293,62 +366,77 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
   return viol;
 }
 
-template <int PER>
+template <int PER, int KT>
 __device__ __forceinline__ void store_carries(const Rows<PER>& r, float* m, float* i, float* d,
                                               int m_pad, float* buf, int t, int bar) {
-  store_row<PER>(r.m, m, m_pad, buf, t, bar);
-  store_row<PER>(r.i, i, m_pad, buf, t, bar);
-  store_row<PER>(r.d, d, m_pad, buf, t, bar);
+  store_row<PER, KT>(r.m, m, m_pad, buf, t, bar);
+  store_row<PER, KT>(r.i, i, m_pad, buf, t, bar);
+  store_row<PER, KT>(r.d, d, m_pad, buf, t, bar);
 }
 
-template <int PER>
+template <int PER, int KT>
 __device__ __forceinline__ void load_carries(Rows<PER>& r, const float* m, const float* i,
                                              const float* d, int m_pad, float* buf, int t,
                                              int bar) {
   const float ninf = neg_inf();
-  load_row<PER>(r.m, m, m_pad, ninf, buf, t, bar);
-  load_row<PER>(r.i, i, m_pad, ninf, buf, t, bar);
-  load_row<PER>(r.d, d, m_pad, ninf, buf, t, bar);
+  load_row<PER, KT>(r.m, m, m_pad, ninf, buf, t, bar);
+  load_row<PER, KT>(r.i, i, m_pad, ninf, buf, t, bar);
+  load_row<PER, KT>(r.d, d, m_pad, ninf, buf, t, bar);
 }
 
-// Rows of shared memory the block stages: 6 transitions, n_chain chain
-// rows and, when the lazy kernel certifies, Cmax.
-__host__ __device__ inline int viterbi_rows(bool lazy, int k_run, int n_passes, int n_chain) {
-  return 6 + n_chain + ((lazy && k_run < n_passes) ? 1 : 0);
+// Rows of shared memory the block stages: n_trans transitions, n_chain
+// chain rows and, when the lazy kernel certifies, Cmax.
+__host__ __device__ inline int viterbi_rows(bool lazy, int k_run, int n_passes, int n_chain,
+                                            int n_trans) {
+  return n_trans + n_chain + ((lazy && k_run < n_passes) ? 1 : 0);
 }
 
-template <int PER, bool LAZY, bool LSE>
+template <int PER, int KT, bool LAZY, bool LSE, bool FILT>
 __global__ void viterbi_kernel(const ViterbiArgs a) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int ROW = row_floats<PER>();
+  constexpr int ROW = row_floats<PER, KT>();
   const int m_pad = a.m_pad;
   const float ninf = neg_inf();
   const bool certify = LAZY && a.k_run < a.n_passes;
-  const int n_rows = viterbi_rows(LAZY, a.k_run, a.n_passes, a.n_chain);
+  const int n_trans = KT == 128 ? kTransRows : a.n_trans;
+  const int n_rows = viterbi_rows(LAZY, a.k_run, a.n_passes, a.n_chain, n_trans);
 
-  for (int q = 0; q < 6; ++q) stage_row<PER>(smem + q * ROW, a.trans + q * m_pad, m_pad, ninf);
-  for (int p = 0; p < a.n_chain; ++p) {
-    stage_row<PER>(smem + (6 + p) * ROW, a.chain + p * m_pad, m_pad, ninf);
+  for (int q = 0; q < n_trans; ++q) {
+    stage_row<PER, KT>(smem + q * ROW, a.trans + q * m_pad, m_pad, ninf);
   }
-  if (certify) stage_row<PER>(smem + (6 + a.n_chain) * ROW, a.chain + 15 * m_pad, m_pad, ninf);
+  for (int p = 0; p < a.n_chain; ++p) {
+    stage_row<PER, KT>(smem + (n_trans + p) * ROW, a.chain + p * m_pad, m_pad, ninf);
+  }
+  if (certify) {
+    stage_row<PER, KT>(smem + (n_trans + a.n_chain) * ROW, a.chain + 15 * m_pad, m_pad, ninf);
+  }
 
-  const int groups = blockDim.x / kThreads;
-  const int g = threadIdx.x / kThreads;
-  const int t = threadIdx.x % kThreads;
+  const int groups = blockDim.x / KT;
+  const int g = threadIdx.x / KT;
+  const int t = threadIdx.x % KT;
   const int bar = 1 + g;
-  const GroupSmem<PER> gs =
-      group_smem<PER>(smem + n_rows * ROW + g * (6 * ROW + kRed + kChunk / 4));
+  const GroupSmem<PER, KT, FILT> gs = group_smem<PER, KT, FILT>(
+      smem + n_rows * ROW + g * group_floats<PER, KT, FILT>(false));
   for (int q = 0; q < 2; ++q) {
-    fill_tail<PER>(gs.em(q), m_pad, ninf, t);
-    fill_tail<PER>(gs.ei(q), m_pad, ninf, t);
+    if constexpr (FILT) {
+      fill_tail_bf16<PER, KT>(reinterpret_cast<uint16_t*>(gs.em(q)), m_pad, 0xff80u, t);
+      fill_tail_bf16<PER, KT>(reinterpret_cast<uint16_t*>(gs.ei(q)), m_pad, 0xff80u, t);
+    } else {
+      fill_tail<PER, KT>(gs.em(q), m_pad, ninf, t);
+      fill_tail<PER, KT>(gs.ei(q), m_pad, ninf, t);
+    }
   }
   __syncthreads();  // the staged rows; from here on each group keeps to itself
 
+  // the passes a step runs: the whole chain, the lazy window or the
+  // filter's window
+  const int passes = (LAZY || FILT) ? a.k_run : a.n_passes;
   const int b_pad = a.b_pad;
   for (int seq = blockIdx.x * groups + g; seq < b_pad; seq += gridDim.x * groups) {
     const size_t row = static_cast<size_t>(seq) * m_pad;
     Rows<PER> r;
-    load_carries<PER>(r, a.m_in + row, a.i_in + row, a.d_in + row, m_pad, gs.xbuf(0), t, bar);
+    load_carries<PER, KT>(r, a.m_in + row, a.i_in + row, a.d_in + row, m_pad, gs.xbuf(0), t,
+                          bar);
     r.sj = a.s_in[seq];
     r.sc = a.s_in[b_pad + seq];
     r.sn = a.s_in[2 * b_pad + seq];
@@ -363,33 +451,33 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
     for (int c0 = 0; c0 < n; c0 += kChunk) {
       const int count = min(kChunk, n - c0);
       if (t < count) gs.toks[t] = tok_row[c0 + t];  // the last chunk's readers passed barriers
-      group_sync(bar);
+      group_sync<KT>(bar);
       if (certify) {
-        store_carries<PER>(r, a.m_out + row, a.i_out + row, a.d_out + row, m_pad, gs.xbuf(0), t,
-                           bar);  // the chunk's entry
+        store_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, m_pad,
+                               gs.xbuf(0), t, bar);  // the chunk's entry
         const float ej = r.sj, ec = r.sc, en = r.sn, eb = r.sb;
-        const bool viol = run_chunk<PER, LAZY, LSE, true>(a, smem, gs, r, count, a.k_run, par,
-                                                          tr_loop, tr_move, t, bar);
-        if (group_any(bar, viol)) {
-          load_carries<PER>(r, a.m_out + row, a.i_out + row, a.d_out + row, m_pad, gs.xbuf(0),
-                            t, bar);
+        const bool viol = run_chunk<PER, KT, LAZY, LSE, true, FILT>(
+            a, smem, gs, r, count, a.k_run, par, tr_loop, tr_move, t, bar);
+        if (group_any<KT>(bar, viol)) {
+          load_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, m_pad,
+                                gs.xbuf(0), t, bar);
           r.sj = ej;
           r.sc = ec;
           r.sn = en;
           r.sb = eb;
-          run_chunk<PER, LAZY, LSE, false>(a, smem, gs, r, count, a.n_passes, par, tr_loop,
-                                           tr_move, t, bar);
+          run_chunk<PER, KT, LAZY, LSE, false, FILT>(a, smem, gs, r, count, a.n_passes, par,
+                                                     tr_loop, tr_move, t, bar);
           ++replays;
         }
       } else {
-        run_chunk<PER, LAZY, LSE, false>(a, smem, gs, r, count, a.n_passes, par, tr_loop,
-                                         tr_move, t, bar);
+        run_chunk<PER, KT, LAZY, LSE, false, FILT>(a, smem, gs, r, count, passes, par, tr_loop,
+                                                   tr_move, t, bar);
       }
-      group_sync(bar);  // every step's reads of the shift buffers and toks are done
+      group_sync<KT>(bar);  // every step's reads of the shift buffers and toks are done
     }
 
-    store_carries<PER>(r, a.m_out + row, a.i_out + row, a.d_out + row, m_pad, gs.xbuf(0), t,
-                       bar);
+    store_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, m_pad, gs.xbuf(0),
+                           t, bar);
     if (t == 0) {
       a.s_out[seq] = r.sj;
       a.s_out[b_pad + seq] = r.sc;
@@ -401,23 +489,25 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
   }
 }
 
-// The pointer arguments of both C entry points, in their order.
+// The pointer arguments of the C entry points, in their order.
 inline ViterbiArgs make_args(const void* msc, const void* isc, const void* trans,
                              const void* chain, int m_pad, int n_passes, int k_run, int n_chain,
-                             const void* tokens, int l_pad, const void* lengths,
+                             int n_trans, const void* tokens, int l_pad, const void* lengths,
                              const void* tr_rows, const void* consts, const void* m_in,
                              const void* i_in, const void* d_in, const void* s_in,
                              void* scores, void* m_out, void* i_out, void* d_out, void* s_out,
                              void* replays, int b_pad) {
   ViterbiArgs a;
-  a.msc = static_cast<const float*>(msc);
-  a.isc = static_cast<const float*>(isc);
+  a.msc = msc;
+  a.isc = isc;
   a.trans = static_cast<const float*>(trans);
   a.chain = static_cast<const float*>(chain);
   a.m_pad = m_pad;
   a.n_passes = n_passes;
   a.k_run = k_run;
   a.n_chain = n_chain;
+  a.n_trans = n_trans;
+  a.e_skip_d = 0;
   a.tokens = static_cast<const int8_t*>(tokens);
   a.l_pad = l_pad;
   a.lengths = static_cast<const int*>(lengths);
@@ -437,15 +527,37 @@ inline ViterbiArgs make_args(const void* msc, const void* isc, const void* trans
   return a;
 }
 
-// Checks both entry points share: the operands' limits and the plan.
-template <int PER>
-bool viterbi_plan_ok(const ViterbiArgs& a, bool lazy, int groups, int grid, int smem_bytes) {
-  const int passes_run = lazy ? a.k_run : a.n_passes;
-  return a.m_pad >= 1 && a.m_pad <= kThreads * PER && a.m_pad % 4 == 0 && a.n_passes >= 1 &&
+// Checks every entry point shares: the operands' limits and the plan.
+// `windowed`: the lazy and filter cases, which run k_run passes a step.
+template <int PER, int KT, bool FILT>
+bool viterbi_plan_ok(const ViterbiArgs& a, bool lazy, bool windowed, int groups, int grid,
+                     int smem_bytes) {
+  const int passes_run = windowed ? a.k_run : a.n_passes;
+  return a.m_pad >= 1 && a.m_pad <= KT * PER && a.m_pad % 8 == 0 && a.n_passes >= 1 &&
          a.k_run >= 1 && a.k_run <= a.n_passes && a.n_chain >= 0 && a.n_chain <= passes_run &&
          a.b_pad >= 1 &&
-         plan_ok<PER>(groups, grid, smem_bytes,
-                      viterbi_rows(lazy, a.k_run, a.n_passes, a.n_chain), false);
+         plan_ok<PER, KT, FILT>(groups, grid, smem_bytes,
+                                viterbi_rows(lazy, a.k_run, a.n_passes, a.n_chain, a.n_trans),
+                                a.n_trans, false);
+}
+
+// Runs a kernel case on the plan after setting its shared-memory limit once
+// per device; `done` is that case's flag word.
+template <typename Kernel>
+cudaError_t launch_planned(Kernel kernel, const ViterbiArgs& a, int device, unsigned& done,
+                           int groups, int kt, int grid, int smem, cudaStream_t stream) {
+  const cudaError_t err = allow_smem(kernel, device, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, groups * kt, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename Kernel>
+cudaError_t kernel_regs(Kernel kernel, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  *out = attr.numRegs;
+  return err;
 }
 
 }  // namespace

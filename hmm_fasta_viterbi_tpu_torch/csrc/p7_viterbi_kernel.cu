@@ -11,80 +11,41 @@
 
 namespace {
 
-unsigned smem_set[2][20];  // devices whose kernel case allows kMaxSmem
+unsigned smem_set[2][kCaseSlots];  // devices whose kernel case allows kMaxSmem
 
-template <int PER>
+template <int PER, int KT>
 struct Case {
   static cudaError_t launch(bool lazy, const ViterbiArgs& a, int device, int groups, int grid,
                             int smem, cudaStream_t stream) {
-    if (!viterbi_plan_ok<PER>(a, lazy, groups, grid, smem)) return cudaErrorInvalidValue;
-    cudaError_t err;
-    if (lazy) {
-      err = allow_smem(viterbi_kernel<PER, true, false>, device, smem_set[1][PER]);
-      if (err != cudaSuccess) return err;
-      viterbi_kernel<PER, true, false><<<grid, groups * kThreads, smem, stream>>>(a);
-    } else {
-      err = allow_smem(viterbi_kernel<PER, false, false>, device, smem_set[0][PER]);
-      if (err != cudaSuccess) return err;
-      viterbi_kernel<PER, false, false><<<grid, groups * kThreads, smem, stream>>>(a);
+    if (!viterbi_plan_ok<PER, KT, false>(a, lazy, lazy, groups, grid, smem)) {
+      return cudaErrorInvalidValue;
     }
-    return cudaGetLastError();
+    unsigned& done = smem_set[lazy][case_slot(KT, PER)];
+    return lazy ? launch_planned(viterbi_kernel<PER, KT, true, false, false>, a, device, done,
+                                 groups, KT, grid, smem, stream)
+                : launch_planned(viterbi_kernel<PER, KT, false, false, false>, a, device, done,
+                                 groups, KT, grid, smem, stream);
   }
 
   static cudaError_t regs(bool lazy, int* out) {
-    cudaFuncAttributes attr;
-    const cudaError_t err = lazy ? cudaFuncGetAttributes(&attr, viterbi_kernel<PER, true, false>)
-                                 : cudaFuncGetAttributes(&attr, viterbi_kernel<PER, false, false>);
-    *out = attr.numRegs;
-    return err;
+    return lazy ? kernel_regs(viterbi_kernel<PER, KT, true, false, false>, out)
+                : kernel_regs(viterbi_kernel<PER, KT, false, false, false>, out);
   }
 };
 
-// Calls Case<per>::fn(args...).
-#define P7_CASE(P) \
-  case P:          \
-    return fn(Case<P>{});
-
-template <typename Fn>
-cudaError_t with_per(int per, Fn fn) {
-  switch (per) {
-    P7_CASE(1)
-    P7_CASE(2)
-    P7_CASE(3)
-    P7_CASE(4)
-    P7_CASE(5)
-    P7_CASE(6)
-    P7_CASE(7)
-    P7_CASE(8)
-    P7_CASE(9)
-    P7_CASE(10)
-    P7_CASE(11)
-    P7_CASE(12)
-    P7_CASE(13)
-    P7_CASE(14)
-    P7_CASE(15)
-    P7_CASE(16)
-    P7_CASE(17)
-    P7_CASE(18)
-    P7_CASE(19)
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-#undef P7_CASE
-
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `per` is the number of states a
-// thread holds, one of the cases above, with 128 * per >= m_pad; `lazy`
-// selects the lazy kernel, which runs `k_run` passes under the certificate
-// (k_run == n_passes: the full chain, no certificate). `n_chain` chain
-// rows are staged in shared memory; `groups` sequences a block, `grid`
-// blocks and `smem` bytes of dynamic shared memory are the launch plan of
-// ops/p7_cuda.py::plan_launch (checked here). Returns a cudaError_t.
-extern "C" int p7_viterbi_launch(int device, int per, int lazy, const void* msc,
+// Plain C entry point, bound with ctypes. `threads` (128 or 256) and `per`
+// name the kernel case, with threads * per >= m_pad; `lazy` selects the lazy
+// kernel, which runs `k_run` passes under the certificate (k_run ==
+// n_passes: the full chain, no certificate). `n_trans` transition rows and
+// `n_chain` chain rows are staged in shared memory; `groups` sequences a
+// block, `grid` blocks and `smem` bytes of dynamic shared memory are the
+// launch plan of ops/p7_cuda.py::plan_launch (checked here). Returns a
+// cudaError_t.
+extern "C" int p7_viterbi_launch(int device, int threads, int per, int lazy, const void* msc,
                                  const void* isc, const void* trans, const void* chain,
-                                 int m_pad, int n_passes, int k_run, int n_chain,
+                                 int m_pad, int n_passes, int k_run, int n_chain, int n_trans,
                                  const void* tokens, int l_pad, const void* lengths,
                                  const void* tr_rows, const void* consts, const void* m_in,
                                  const void* i_in, const void* d_in, const void* s_in,
@@ -95,17 +56,17 @@ extern "C" int p7_viterbi_launch(int device, int per, int lazy, const void* msc,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const ViterbiArgs a = make_args(msc, isc, trans, chain, m_pad, n_passes, k_run, n_chain,
-                                  tokens, l_pad, lengths, tr_rows, consts, m_in, i_in, d_in,
-                                  s_in, scores, m_out, i_out, d_out, s_out, replays, b_pad);
+                                  n_trans, tokens, l_pad, lengths, tr_rows, consts, m_in, i_in,
+                                  d_in, s_in, scores, m_out, i_out, d_out, s_out, replays, b_pad);
   auto* st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_per(per, [&](auto c) {
+  return static_cast<int>(with_case<Case>(threads, per, [&](auto c) {
     return decltype(c)::launch(lazy != 0, a, device, groups, grid, smem, st);
   }));
 }
 
-// Registers a thread of the `per` case uses (`lazy`: the lazy kernel), for
-// the launch plan. Returns a cudaError_t.
-extern "C" int p7_viterbi_regs(int per, int lazy, int* regs) {
-  return static_cast<int>(
-      with_per(per, [&](auto c) { return decltype(c)::regs(lazy != 0, regs); }));
+// Registers a thread of the case uses (`lazy`: the lazy kernel), for the
+// launch plan. Returns a cudaError_t.
+extern "C" int p7_viterbi_regs(int threads, int per, int lazy, int* regs) {
+  return static_cast<int>(with_case<Case>(
+      threads, per, [&](auto c) { return decltype(c)::regs(lazy != 0, regs); }));
 }

@@ -34,14 +34,15 @@
 // not memory: the pass reads each fm row once (2 bytes a cell, 2.95 GB at
 // 1024 x 1024 x 1408, under 1 ms at 3.35 TB/s).
 //
-// What the design does about it: the p7 kernels' layout. One block of 128
-// threads follows one sequence from its own last residue down to 0 (no
-// masked steps, no pad token reaches the tables); state j lives in thread
-// j % 128, register slot j / 128, beta rows in registers; each shift toward
-// lower j is one store, one barrier and one load at j + s through two
-// alternating shared-memory rows; the coverage sum and the B sum are one
-// warp butterfly of two values and a 4-entry shared reduction, summed in a
-// fixed order. Slots at and past M_pad hold 0 and read 0 constants. The fm
+// What the design does about it: the p7 kernels' layout. One block of KT
+// threads (128, or 256 past M_pad 128 * 19 = 2432, up to 256 * 19 = 4864)
+// follows one sequence from its own last residue down to 0 (no masked
+// steps, no pad token reaches the tables); state j lives in thread j % KT,
+// register slot j / KT, beta rows in registers; each shift toward lower j is
+// one store, one barrier and one load at j + s through two alternating
+// shared-memory rows; the coverage sum and the B sum are one warp butterfly
+// of two values and a KT / 32-entry shared reduction, summed in a fixed
+// order. Slots at and past M_pad hold 0 and read 0 constants. The fm
 // row's bf16 widens to f32 exactly. Accurate expf and logf only (no
 // --use_fast_math). It launches on the caller's stream, allocates nothing
 // and does not synchronise; the C entry point returns cudaGetLastError().
@@ -53,8 +54,6 @@
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 128;  // residues per token load
 
 struct BackwardArgs {
@@ -77,18 +76,31 @@ struct BackwardArgs {
   int b_pad;
 };
 
-// out[k] = value of state j + s (j = k * kThreads + t), 0 past the row.
-template <int PER>
+// out[k] = value of state j + s (j = k * KT + t), 0 past the row.
+template <int PER, int KT>
 __device__ __forceinline__ void shift_up(const float (&v)[PER], float (&out)[PER], int s,
                                          float* buf) {
   const int t = threadIdx.x;
 #pragma unroll
-  for (int k = 0; k < PER; ++k) buf[k * kThreads + t] = v[k];
+  for (int k = 0; k < PER; ++k) buf[k * KT + t] = v[k];
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
-    const int j = k * kThreads + t + s;
-    out[k] = j < kThreads * PER ? buf[j] : 0.0f;
+    const int j = k * KT + t + s;
+    out[k] = j < KT * PER ? buf[j] : 0.0f;
+  }
+}
+
+// The block's sum or max of its warps' values, in a fixed order: pairs of
+// neighbours, then pairs of pairs.
+template <bool SUM, int KT>
+__device__ __forceinline__ float combine_warps(const float* r) {
+  if constexpr (KT == 128) {
+    return SUM ? (r[0] + r[1]) + (r[2] + r[3]) : fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3]));
+  } else {
+    return SUM ? ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
+               : fmaxf(fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3])),
+                       fmaxf(fmaxf(r[4], r[5]), fmaxf(r[6], r[7])));
   }
 }
 
@@ -97,23 +109,25 @@ __device__ __forceinline__ float ld(const float* p, int j, int m_pad) {
 }
 
 // The suffix delete chain in place: `window` passes a_j += a_{j+2^k} * c_k[j].
-template <int PER>
+template <int PER, int KT>
 __device__ __forceinline__ void suffix_chain(float (&ac)[PER], const BackwardArgs& a,
-                                             float (*xbuf)[kThreads * PER], int& par) {
+                                             float (*xbuf)[KT * PER], int& par) {
   for (int p = 0; p < a.window; ++p) {
     const float* c = a.schain + p * a.m_pad;
     float sh[PER];
-    shift_up<PER>(ac, sh, 1 << p, xbuf[par]);
+    shift_up<PER, KT>(ac, sh, 1 << p, xbuf[par]);
     par ^= 1;
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
-      ac[k] = ac[k] + sh[k] * ld(c, k * kThreads + threadIdx.x, a.m_pad);
+      ac[k] = ac[k] + sh[k] * ld(c, k * KT + threadIdx.x, a.m_pad);
     }
   }
 }
 
-template <int PER>
-__global__ void __launch_bounds__(kThreads) backward_kernel(const BackwardArgs a) {
+template <int PER, int KT>
+__global__ void __launch_bounds__(KT) backward_kernel(const BackwardArgs a) {
+  constexpr int kThreads = KT;
+  constexpr int kWarps = KT / 32;
   __shared__ float xbuf[2][kThreads * PER];
   __shared__ float red2[2][kWarps];
   __shared__ float red_s[kWarps];
@@ -155,8 +169,8 @@ __global__ void __launch_bounds__(kThreads) backward_kernel(const BackwardArgs a
     float bd[PER], up[PER];
 #pragma unroll
     for (int k = 0; k < PER; ++k) bd[k] = k * kThreads + t < m_pad ? be : 0.0f;
-    suffix_chain<PER>(bd, a, xbuf, par);
-    shift_up<PER>(bd, up, 1, xbuf[par]);
+    suffix_chain<PER, KT>(bd, a, xbuf, par);
+    shift_up<PER, KT>(bd, up, 1, xbuf[par]);
     par ^= 1;
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
@@ -199,13 +213,13 @@ __global__ void __launch_bounds__(kThreads) backward_kernel(const BackwardArgs a
         red2[1][warp] = bs;
       }
       __syncthreads();
-      cv = (red2[0][0] + red2[0][1]) + (red2[0][2] + red2[0][3]);
-      bs = (red2[1][0] + red2[1][1]) + (red2[1][2] + red2[1][3]);
+      cv = combine_warps<true, KT>(red2[0]);
+      bs = combine_warps<true, KT>(red2[1]);
       if (t == 0) cov_row[pos] = cv * expf(ls_row[pos] + lsb - total);
       if (pos == 0) break;  // the betas before the first residue are not needed
 
       float m_next[PER];
-      shift_up<PER>(memit, m_next, 1, xbuf[par]);
+      shift_up<PER, KT>(memit, m_next, 1, xbuf[par]);
       par ^= 1;
       const float bspec = p_b_mk * bs;
       bj = p_loop * bj + p_move * bspec;
@@ -219,9 +233,9 @@ __global__ void __launch_bounds__(kThreads) backward_kernel(const BackwardArgs a
         bi[k] = ld(tim, j, m_pad) * m_next[k] + ld(tii, j, m_pad) * iemit[k];
         ac[k] = j < m_pad ? ld(tdm, j, m_pad) * m_next[k] + e : 0.0f;
       }
-      suffix_chain<PER>(ac, a, xbuf, par);
+      suffix_chain<PER, KT>(ac, a, xbuf, par);
       float up[PER];
-      shift_up<PER>(ac, up, 1, xbuf[par]);
+      shift_up<PER, KT>(ac, up, 1, xbuf[par]);
       par ^= 1;
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
@@ -239,7 +253,7 @@ __global__ void __launch_bounds__(kThreads) backward_kernel(const BackwardArgs a
         for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, off));
         if (lane == 0) red_s[warp] = mx;
         __syncthreads();
-        mx = fmaxf(fmaxf(red_s[0], red_s[1]), fmaxf(red_s[2], red_s[3]));
+        mx = combine_warps<false, KT>(red_s);
         const float s = fmaxf(fmaxf(mx, bc), fmaxf(bn, 1e-30f));
         const float inv = 1.0f / s;
         const float y = logf(s) - comp;
@@ -259,26 +273,27 @@ __global__ void __launch_bounds__(kThreads) backward_kernel(const BackwardArgs a
   }
 }
 
-template <int PER>
+template <int PER, int KT>
 cudaError_t launch(const BackwardArgs& a, cudaStream_t stream) {
-  backward_kernel<PER><<<a.b_pad, kThreads, 0, stream>>>(a);
+  backward_kernel<PER, KT><<<a.b_pad, KT, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `per` is the number of states a
-// thread holds, one of the cases below, with 128 * per >= m_pad; `window`
+// Plain C entry point, bound with ctypes. `threads` (128 or 256) and `per`
+// name the kernel case (per 1..19 at 128 threads, 10..19 at 256), with
+// threads * per >= m_pad; `window`
 // is the suffix chain's row count; the pass rescales after every `group`
 // steps of a sequence. Returns a cudaError_t.
-extern "C" int posterior_backward_launch(int device, int per, const void* modds,
+extern "C" int posterior_backward_launch(int device, int threads, int per, const void* modds,
                                          const void* iodds, const void* trans,
                                          const void* schain, int m_pad, int window, int group,
                                          const void* tokens, int l_pad, const void* lengths,
                                          const void* tr_probs, const void* consts,
                                          const void* total, const void* fm, const void* ls,
                                          void* cov, int b_pad, void* stream) {
-  if (m_pad < 1 || m_pad > kThreads * per || window < 1 || window > 16 || group < 1 ||
+  if (m_pad < 1 || m_pad > threads * per || window < 1 || window > 16 || group < 1 ||
       b_pad < 1 || l_pad < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -303,31 +318,49 @@ extern "C" int posterior_backward_launch(int device, int per, const void* modds,
   a.cov = static_cast<float*>(cov);
   a.b_pad = b_pad;
   auto* st = static_cast<cudaStream_t>(stream);
-#define POST_CASE(P) \
-  case P:            \
-    return static_cast<int>(launch<P>(a, st));
-  switch (per) {
-    POST_CASE(1)
-    POST_CASE(2)
-    POST_CASE(3)
-    POST_CASE(4)
-    POST_CASE(5)
-    POST_CASE(6)
-    POST_CASE(7)
-    POST_CASE(8)
-    POST_CASE(9)
-    POST_CASE(10)
-    POST_CASE(11)
-    POST_CASE(12)
-    POST_CASE(13)
-    POST_CASE(14)
-    POST_CASE(15)
-    POST_CASE(16)
-    POST_CASE(17)
-    POST_CASE(18)
-    POST_CASE(19)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+#define POST_CASE(P, T) \
+  case P:               \
+    return static_cast<int>(launch<P, T>(a, st));
+  if (threads == 128) {
+    switch (per) {
+      POST_CASE(1, 128)
+      POST_CASE(2, 128)
+      POST_CASE(3, 128)
+      POST_CASE(4, 128)
+      POST_CASE(5, 128)
+      POST_CASE(6, 128)
+      POST_CASE(7, 128)
+      POST_CASE(8, 128)
+      POST_CASE(9, 128)
+      POST_CASE(10, 128)
+      POST_CASE(11, 128)
+      POST_CASE(12, 128)
+      POST_CASE(13, 128)
+      POST_CASE(14, 128)
+      POST_CASE(15, 128)
+      POST_CASE(16, 128)
+      POST_CASE(17, 128)
+      POST_CASE(18, 128)
+      POST_CASE(19, 128)
+      default:
+        break;
+    }
+  } else if (threads == 256) {
+    switch (per) {
+      POST_CASE(10, 256)
+      POST_CASE(11, 256)
+      POST_CASE(12, 256)
+      POST_CASE(13, 256)
+      POST_CASE(14, 256)
+      POST_CASE(15, 256)
+      POST_CASE(16, 256)
+      POST_CASE(17, 256)
+      POST_CASE(18, 256)
+      POST_CASE(19, 256)
+      default:
+        break;
+    }
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 #undef POST_CASE
 }

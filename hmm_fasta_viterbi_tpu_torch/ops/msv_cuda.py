@@ -62,9 +62,12 @@ NUM_AA = 20
 # M states per lane of the kernel's register row, one case each in the
 # switch of csrc/msv_kernel.cu: a warp holds 32 * PER states. Each is
 # 8q + 4 so that a quarter-warp's float4 reads of the table miss each
-# other's banks.
+# other's banks. Past 32 * 76 = 2432 states two warps (64 lanes) follow one
+# sequence, at the WIDE_PER cases, up to 64 * 76 = 4864.
 KERNEL_PER = (4, 12, 20, 28, 36, 44, 52, 60, 68, 76)
-MAX_KERNEL_STATES = 32 * KERNEL_PER[-1]  # 2432 >= 2405, the largest profile
+WIDE_PER = (44, 52, 60, 68, 76)
+MAX_WARP_STATES = 32 * KERNEL_PER[-1]  # 2432 >= 2405, the largest of the 24 profiles
+MAX_KERNEL_STATES = 64 * WIDE_PER[-1]  # 4864
 
 
 def round_up(x: int, m: int) -> int:
@@ -275,7 +278,7 @@ def _kernel_library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.msv_scan_launch.argtypes = [
-        i, i, i, i, i, p, i, p, i, p, p, p, p, p, p, p, p, i, p,
+        i, i, i, i, i, i, p, i, p, i, p, p, p, p, p, p, p, p, i, p,
     ]
     lib.msv_scan_launch.restype = i
     lib.msv_error_string.argtypes = [i]
@@ -283,15 +286,24 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
-def kernel_per(m_pad: int) -> int:
-    """States per lane for an M row of ``m_pad`` states."""
-    for per in KERNEL_PER:
-        if 32 * per >= m_pad:
-            return per
+def kernel_case(m_pad: int) -> tuple[int, int]:
+    """``(lanes, per)``: the kernel case of an M row of ``m_pad`` states,
+    one warp a sequence (32 lanes) up to MAX_WARP_STATES, two warps (64)
+    past it; each lane holds ``per`` states. Raises ``ValueError`` past
+    MAX_KERNEL_STATES."""
+    for lanes, pers in ((32, KERNEL_PER), (64, WIDE_PER)):
+        for per in pers:
+            if lanes * per >= m_pad:
+                return lanes, per
     raise ValueError(
         f"M_pad = {m_pad} exceeds the MSV kernel's limit of "
-        f"{MAX_KERNEL_STATES} states (32 lanes x {KERNEL_PER[-1]})"
+        f"{MAX_KERNEL_STATES} states (64 lanes x {WIDE_PER[-1]})"
     )
+
+
+def kernel_per(m_pad: int) -> int:
+    """States per lane for an M row of ``m_pad`` states (:func:`kernel_case`)."""
+    return kernel_case(m_pad)[1]
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -310,6 +322,25 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 SMEM_PER_SM = 232448
 
 
+def block_warps(lanes: int, per: int, entry_bytes: int) -> int:
+    """Warps a block of the kernel case runs (``csrc/msv_kernel.cu``,
+    ``msv_smem_bytes``): at 32 lanes 16 when the table takes over half the
+    SM's shared memory (one block an SM), else 8; at 64 lanes 16 when the
+    warps' two row buffers (and each pair's 32-byte exchange slots) fit,
+    else 8."""
+    if lanes == 32:
+        return 16 if 2 * entry_bytes * NUM_AA * 32 * per > SMEM_PER_SM else 8
+    wide = 16 * 2 * 32 * per * entry_bytes + 8 * 32
+    return 16 if wide <= SMEM_PER_SM else 8
+
+
+def count_launch(wrapper, wide: bool) -> None:
+    """One more launch of ``wrapper``'s kernel; ``wide`` counts it also in
+    ``wrapper.wide_launches`` (a case past 2432 states)."""
+    wrapper.launches += 1
+    wrapper.wide_launches += int(wide)
+
+
 def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry):
     """Check the operands and launch the kernel on the current stream.
     ``emit`` is ``[P, 20, M_pad]`` f32 or bf16 and ``tr_consts`` ``[P, 3]``;
@@ -321,7 +352,9 @@ def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry):
         raise ValueError(f"{what} needs CUDA tensors, got {device}")
     num_p, _, m_pad = emit.shape
     b_pad, l_pad = tokens.shape
-    per = kernel_per(m_pad)
+    lanes, per = kernel_case(m_pad)
+    if lanes == 64 and m_pad % 8:
+        raise ValueError(f"M_pad = {m_pad} is not a multiple of 8")
     if emit.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"emit is {emit.dtype}, expected float32 or bfloat16")
     if num_p < 1:
@@ -340,17 +373,14 @@ def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry):
         m_out, s_out = torch.empty_like(m_in), torch.empty_like(s_in)
     if b_pad == 0:
         return scores, m_out, s_out
-    # a table over half of the SM's shared memory fits once an SM: give
-    # that block 16 warps, else 8
-    table_bytes = emit.element_size() * NUM_AA * 32 * per
-    warps = 16 if 2 * table_bytes > SMEM_PER_SM else 8
+    warps = block_warps(lanes, per, emit.element_size())
     lib = _kernel_library()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     rc = lib.msv_scan_launch(
-        device.index, per, warps, int(emit.dtype == torch.bfloat16), num_p,
+        device.index, lanes, per, warps, int(emit.dtype == torch.bfloat16), num_p,
         emit.data_ptr(), m_pad, tokens.data_ptr(), l_pad, lengths.data_ptr(),
         tr_rows.data_ptr(), tr_consts.data_ptr(), ptr(m_in), ptr(s_in),
         scores.data_ptr(), ptr(m_out), ptr(s_out), b_pad,
@@ -377,7 +407,7 @@ def msv_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s):
     kernel does not take and on a refused launch; never falls back."""
     out = _single("MSV", torch.float32, emit, tokens, lengths, tr_rows, tr_consts, m, s)
     if tokens.shape[0]:
-        msv_scan_cuda.launches += 1
+        count_launch(msv_scan_cuda, emit.shape[1] > MAX_WARP_STATES)
     return out
 
 
@@ -387,7 +417,7 @@ def msv_filter_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s):
     out = _single("MSV filter", torch.bfloat16, emit, tokens, lengths, tr_rows, tr_consts,
                   m, s)
     if tokens.shape[0]:
-        msv_filter_scan_cuda.launches += 1
+        count_launch(msv_filter_scan_cuda, emit.shape[1] > MAX_WARP_STATES)
     return out
 
 
@@ -396,13 +426,13 @@ def msv_stacked_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts):
     profile); same arguments and results as :func:`msv_stacked_scan`."""
     scores, _, _ = _launch("stacked MSV", emit, tokens, lengths, tr_rows, tr_consts, None)
     if tokens.shape[0]:
-        msv_stacked_scan_cuda.launches += 1
+        count_launch(msv_stacked_scan_cuda, emit.shape[2] > MAX_WARP_STATES)
     return scores
 
 
-msv_scan_cuda.launches = 0  # kernel launches in this process
-msv_filter_scan_cuda.launches = 0
-msv_stacked_scan_cuda.launches = 0
+# kernel launches in this process, and those of them past MAX_WARP_STATES
+for _fn in (msv_scan_cuda, msv_filter_scan_cuda, msv_stacked_scan_cuda):
+    _fn.launches = _fn.wide_launches = 0
 
 
 def msv_scan(emit, tokens, lengths, tr_rows, tr_consts, m, s):

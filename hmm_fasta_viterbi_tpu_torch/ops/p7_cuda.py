@@ -15,6 +15,10 @@ The counterparts of ``hmm_fasta_viterbi_tpu/ops/pallas_p7.py``:
   Viterbi filter of the fast cascade: bf16 round-up emissions, a chain of
   ``window`` passes and a tail term bounding the longer delete runs.
 
+The kernels take M_pad up to MAX_KERNEL_STATES = 4864: groups of
+KERNEL_THREADS threads a sequence up to 2432 states, WIDE_THREADS past it
+(:func:`kernel_case`); the plain versions have no cap.
+
 The host packers are numpy copies of the JAX ones (that module imports
 jax) and return the same arrays byte for byte, in the TPU's ``[M_pad, …]``
 layout with ``M_pad = round_up(max(Mr, 8), 8)``. :func:`device_pack`
@@ -67,8 +71,8 @@ from ..models.p7 import P7Profile
 
 from . import _build
 from .msv_cuda import (
-    NEG_INF, NUM_AA, PAD_SCORE, SMEM_PER_SM, _check, bf16_round_up, bf16_tensor, f32_round_up,
-    round_up,
+    NEG_INF, NUM_AA, PAD_SCORE, SMEM_PER_SM, _check, bf16_round_up, bf16_tensor, count_launch,
+    f32_round_up, round_up,
 )
 
 # residues per lazy-certificate chunk: a fire replays this many steps of
@@ -79,28 +83,36 @@ LAZY_CHUNK = 128
 # group of steps grows the scaled values by at most the largest odds
 # ratio to the power 8, far inside float32's range
 FWD_RESCALE_GROUP = 8
-# threads that follow one sequence in the kernels. The Viterbi filter and
-# the posterior backward pass stripe the states: state j lives in thread
-# j % 128, register slot j // 128. The Viterbi, log-space Forward and
-# Forward kernels block them: thread t owns states t * per .. t * per +
-# per - 1 (csrc/p7_blocked.cuh)
+# threads that follow one sequence in the kernels: KERNEL_THREADS up to
+# KERNEL_THREADS * 19 = 2432 states, WIDE_THREADS past it. The posterior
+# backward pass stripes the states: state j lives in thread j % threads,
+# register slot j // threads. The Viterbi, log-space Forward, Viterbi
+# filter and Forward kernels block them: thread t owns states t * per ..
+# t * per + per - 1 (csrc/p7_blocked.cuh)
 KERNEL_THREADS = 128
-# states per thread: one template case each in csrc/p7_*_kernel.cu
+WIDE_THREADS = 256
+# states per thread: one template case each in csrc/p7_*_kernel.cu, at
+# KERNEL_THREADS (KERNEL_PER) and at WIDE_THREADS (WIDE_PER)
 KERNEL_PER = tuple(range(1, 20))
-MAX_KERNEL_STATES = KERNEL_THREADS * KERNEL_PER[-1]  # 2432 >= 2405
+WIDE_PER = tuple(range(10, 20))
+MAX_GROUP_STATES = KERNEL_THREADS * KERNEL_PER[-1]  # 2432 >= 2405, the largest of the 24
+MAX_KERNEL_STATES = WIDE_THREADS * WIDE_PER[-1]  # 4864
 
-# the blocked kernels' launch plan (csrc/p7_blocked.cuh): at most this many
-# groups of KERNEL_THREADS threads a block, one sequence each, on named
-# barriers 1..8; each group's reduction scratch in floats; an SM's registers
-# and threads
-MAX_GROUPS = 8
-RED_FLOATS = 8
+# the blocked kernels' launch plan (csrc/p7_blocked.cuh): at most
+# MAX_BLOCK_THREADS threads a block (MAX_GROUPS groups of KERNEL_THREADS, 4
+# of WIDE_THREADS), one sequence a group, on named barriers 1..8; an SM's
+# registers and threads
+MAX_BLOCK_THREADS = 1024
+MAX_GROUPS = MAX_BLOCK_THREADS // KERNEL_THREADS
 REGS_PER_SM = 65536
 THREADS_PER_SM = 2048
-# the blocked kernels' cases, and the rows each stages besides its chain
-# rows: the six transitions (tmm tmi tmd tim tii tdm) and, for the lazy
-# kernel's certificate, Cmax
-BLOCKED_KINDS = ("eager", "lazy", "log", "forward", "save")
+# transition rows a blocked kernel reads every step (tmm tmi tmd tim tii
+# tdm); the plan stages all of them at KERNEL_THREADS
+TRANS_ROWS = 6
+# the blocked kernels' cases: each stages its transition rows, its chain
+# rows and, for the lazy kernel's certificate, Cmax; the filter keeps its
+# emission rows as bf16
+BLOCKED_KINDS = ("eager", "lazy", "log", "forward", "save", "filter")
 
 # auto-picked lazy window and truncated prob-space chain: the constants of
 # pallas_p7 (LAZY_TAIL_DAMP_NATS, PROB_CHAIN_L_MAX, PROB_CHAIN_REL_ERR)
@@ -746,43 +758,53 @@ def _kernel_library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     c = ctypes.c_int
     lib.p7_viterbi_launch.argtypes = [
-        c, c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, c,
-        c, c, c, p,
+        c, c, c, c, p, p, p, p, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p,
+        c, c, c, c, p,
     ]
-    lib.p7_viterbi_launch.restype = c
     lib.p7_forward_launch.argtypes = [
-        c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p, c,
+        c, c, c, p, p, p, p, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
+        p, c, c, c, c, p,
+    ]
+    lib.p7_forward_log_launch.argtypes = [
+        c, c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, c, c, c,
+        c, p,
+    ]
+    lib.p7_filter_launch.argtypes = [
+        c, c, c, p, p, p, p, c, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, c,
         c, c, c, p,
     ]
-    lib.p7_forward_launch.restype = c
-    lib.p7_forward_log_launch.argtypes = [
-        c, c, p, p, p, p, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, c, c, c, c, p,
-    ]
-    lib.p7_forward_log_launch.restype = c
     regs = ctypes.POINTER(c)
-    lib.p7_viterbi_regs.argtypes = [c, c, regs]
-    lib.p7_forward_log_regs.argtypes = [c, regs]
-    lib.p7_forward_regs.argtypes = [c, c, regs]
-    for fn in (lib.p7_viterbi_regs, lib.p7_forward_log_regs, lib.p7_forward_regs):
+    lib.p7_viterbi_regs.argtypes = [c, c, c, regs]
+    lib.p7_forward_log_regs.argtypes = [c, c, regs]
+    lib.p7_forward_regs.argtypes = [c, c, c, regs]
+    lib.p7_filter_regs.argtypes = [c, c, regs]
+    for fn in (lib.p7_viterbi_launch, lib.p7_forward_launch, lib.p7_forward_log_launch,
+               lib.p7_filter_launch, lib.p7_viterbi_regs, lib.p7_forward_log_regs,
+               lib.p7_forward_regs, lib.p7_filter_regs):
         fn.restype = c
-    lib.p7_filter_launch.argtypes = [
-        c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, c, p,
-    ]
-    lib.p7_filter_launch.restype = c
     lib.msv_error_string.argtypes = [c]
     lib.msv_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def kernel_case(m_pad: int) -> tuple[int, int]:
+    """``(threads, per)``: the kernel case of ``m_pad`` states, KERNEL_THREADS
+    threads a sequence up to MAX_GROUP_STATES, WIDE_THREADS past it, each
+    thread holding ``per`` states. Raises ``ValueError`` past
+    MAX_KERNEL_STATES."""
+    if m_pad <= MAX_GROUP_STATES:
+        return KERNEL_THREADS, max(-(-m_pad // KERNEL_THREADS), 1)
+    if m_pad <= MAX_KERNEL_STATES:
+        return WIDE_THREADS, -(-m_pad // WIDE_THREADS)
+    raise ValueError(
+        f"M_pad = {m_pad} exceeds the p7 kernels' limit of {MAX_KERNEL_STATES} "
+        f"states ({WIDE_THREADS} threads x {WIDE_PER[-1]})"
+    )
+
+
 def kernel_per(m_pad: int) -> int:
-    """States per thread for ``m_pad`` states over KERNEL_THREADS threads."""
-    per = -(-m_pad // KERNEL_THREADS)
-    if per > KERNEL_PER[-1]:
-        raise ValueError(
-            f"M_pad = {m_pad} exceeds the p7 kernels' limit of {MAX_KERNEL_STATES} "
-            f"states ({KERNEL_THREADS} threads x {KERNEL_PER[-1]})"
-        )
-    return max(per, 1)
+    """States per thread for ``m_pad`` states (:func:`kernel_case`)."""
+    return kernel_case(m_pad)[1]
 
 
 def blocked_stride(per: int) -> int:
@@ -792,95 +814,116 @@ def blocked_stride(per: int) -> int:
     return per | 1
 
 
-def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False) -> int:
+def bf16_stride(per: int) -> int:
+    """Halfwords between two threads' slots in a bf16 shared row (the
+    Viterbi filter's emissions, ``csrc/p7_blocked.cuh::hstride``): ``per``
+    when odd (the global row's contiguous copy), else twice an odd number of
+    32-bit words."""
+    return per if per % 2 else 2 * ((per // 2) | 1)
+
+
+def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
+                       threads: int = KERNEL_THREADS, bf16: bool = False) -> int:
     """Dynamic shared memory of a blocked kernel's block
     (``csrc/p7_blocked.cuh::smem_floats``): ``n_rows`` staged rows, then
-    per group two shift rows, four emission rows, the reduction scratch,
-    the token chunk (int8) and, for the row-saving Forward, two bf16 rows."""
-    row = KERNEL_THREADS * blocked_stride(per)
-    group = 6 * row + RED_FLOATS + LAZY_CHUNK // 4 + (row if save else 0)
+    per group two shift rows, four emission rows (f32, or with ``bf16`` the
+    filter's bf16 rows), the reduction scratch (two floats a warp), the
+    token chunk (int8) and, for the row-saving Forward, two bf16 rows."""
+    row = threads * blocked_stride(per)
+    erow = threads * bf16_stride(per) // 2 if bf16 else row
+    group = 2 * row + 4 * erow + 2 * (threads // 32) + LAZY_CHUNK // 4 + (row if save else 0)
     return 4 * (n_rows * row + groups * group)
 
 
 class LaunchPlan(NamedTuple):
     """How a blocked kernel launches: ``groups`` sequences a block (groups
-    of KERNEL_THREADS threads), ``grid`` blocks walking the batch with a
-    stride, ``n_chain`` chain rows staged in shared memory (the rest read
-    from global memory) and ``smem`` bytes of dynamic shared memory;
-    ``max_groups`` is the most that fit."""
+    of ``threads`` threads), ``grid`` blocks walking the batch with a
+    stride, ``n_chain`` chain rows and ``n_trans`` transition rows staged in
+    shared memory (the rest read from global memory) and ``smem`` bytes of
+    dynamic shared memory; ``max_groups`` is the most that fit."""
 
     groups: int
     grid: int
     n_chain: int
     smem: int
     max_groups: int
+    threads: int = KERNEL_THREADS
+    n_trans: int = TRANS_ROWS
 
 
 def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: int,
                 groups: int | None = None) -> LaunchPlan:
     """The launch plan of a blocked kernel case (``kind`` one of
     BLOCKED_KINDS) that runs ``passes`` chain passes a step (the eager and
-    log-space kernels all of ``chain_passes(m_pad)``, the lazy one its
-    window, Forward its W) over ``b_pad`` sequences, with ``regs`` registers
-    a thread on a card of ``sms`` multiprocessors.
+    log-space kernels all of ``chain_passes(m_pad)``, the lazy one and the
+    filter their window, Forward its W) over ``b_pad`` sequences, with
+    ``regs`` registers a thread on a card of ``sms`` multiprocessors.
 
-    Every chain row the case runs is staged unless that leaves no room for
-    one group. ``groups`` None picks 1 for a batch no larger than ``sms`` (a
+    Every transition row and every chain row the case runs is staged unless
+    that leaves no room for one group: then the last chain rows, and after
+    them (only at WIDE_THREADS) the last transition rows, stay in global
+    memory. ``groups`` None picks 1 for a batch no larger than ``sms`` (a
     survivor batch runs one sequence an SM, at one step's latency), else
     as many as registers, shared memory (at most SMEM_PER_SM bytes a block)
-    and MAX_GROUPS allow, but no more than ``ceil(b_pad / sms)``; a given
-    ``groups`` must fit. Raises ``ValueError`` past M_pad 2432."""
+    and MAX_BLOCK_THREADS allow, but no more than ``ceil(b_pad / sms)``; a
+    given ``groups`` must fit. Raises ``ValueError`` past M_pad 4864."""
     if kind not in BLOCKED_KINDS:
         raise ValueError(f"unknown blocked kernel case {kind!r}")
-    per = kernel_per(m_pad)
+    kt, per = kernel_case(m_pad)
     if not 1 <= passes <= chain_passes(m_pad):
         raise ValueError(f"{passes} chain passes outside 1..{chain_passes(m_pad)}")
     extra = 1 if kind == "lazy" and passes < chain_passes(m_pad) else 0
     save = kind == "save"
+    bf16 = kind == "filter"
 
-    def smem(n_chain, g):
-        return blocked_smem_bytes(per, 6 + n_chain + extra, g, save)
+    def smem(n_trans, n_chain, g):
+        return blocked_smem_bytes(per, n_trans + n_chain + extra, g, save, kt, bf16)
 
-    n_chain = passes
-    while n_chain > 0 and smem(n_chain, 1) > SMEM_PER_SM:
+    n_trans, n_chain = TRANS_ROWS, passes
+    while n_chain > 0 and smem(n_trans, n_chain, 1) > SMEM_PER_SM:
         n_chain -= 1
+    while n_trans > 0 and smem(n_trans, n_chain, 1) > SMEM_PER_SM:
+        n_trans -= 1
     warp_regs = round_up(max(int(regs), 1), 8) * 32  # allocated by the warp, 8 at a time
-    by_regs = REGS_PER_SM // (warp_regs * (KERNEL_THREADS // 32))
+    by_regs = REGS_PER_SM // (warp_regs * (kt // 32))
     by_smem = 0
-    while by_smem < MAX_GROUPS and smem(n_chain, by_smem + 1) <= SMEM_PER_SM:
+    while (by_smem + 1) * kt <= MAX_BLOCK_THREADS and smem(n_trans, n_chain, by_smem + 1) <= SMEM_PER_SM:
         by_smem += 1
-    most = min(MAX_GROUPS, by_regs, by_smem)
+    most = min(MAX_BLOCK_THREADS // kt, by_regs, by_smem)
     if most < 1:
         raise ValueError(
             f"the {kind} kernel at M_pad = {m_pad} does not fit one group in a block "
-            f"({regs} registers a thread, {smem(n_chain, 1)} bytes of shared memory)"
+            f"({regs} registers a thread, {smem(n_trans, n_chain, 1)} bytes of shared memory)"
         )
     if groups is None:
         groups = 1 if b_pad <= sms else min(most, -(-b_pad // sms))
     elif not 1 <= groups <= most:
         raise ValueError(f"{groups} groups a block: the {kind} kernel takes 1..{most} here")
-    nbytes = smem(n_chain, groups)
-    threads = groups * KERNEL_THREADS
+    nbytes = smem(n_trans, n_chain, groups)
+    threads = groups * kt
     per_sm = max(1, min(REGS_PER_SM // (warp_regs * threads // 32),
                         SMEM_PER_SM // nbytes, THREADS_PER_SM // threads))
     grid = max(1, min(-(-b_pad // groups), sms * per_sm))
-    return LaunchPlan(groups, grid, n_chain, nbytes, most)
+    return LaunchPlan(groups, grid, n_chain, nbytes, most, kt, n_trans)
 
 
 @functools.cache
-def kernel_regs(kind: str, per: int) -> int:
+def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS) -> int:
     """Registers a thread of the blocked kernel case uses, as compiled."""
     lib = _kernel_library()
     out = ctypes.c_int(0)
     if kind in ("eager", "lazy"):
-        rc = lib.p7_viterbi_regs(per, int(kind == "lazy"), ctypes.byref(out))
+        rc = lib.p7_viterbi_regs(threads, per, int(kind == "lazy"), ctypes.byref(out))
     elif kind == "log":
-        rc = lib.p7_forward_log_regs(per, ctypes.byref(out))
+        rc = lib.p7_forward_log_regs(threads, per, ctypes.byref(out))
+    elif kind == "filter":
+        rc = lib.p7_filter_regs(threads, per, ctypes.byref(out))
     else:
-        rc = lib.p7_forward_regs(per, int(kind == "save"), ctypes.byref(out))
+        rc = lib.p7_forward_regs(threads, per, int(kind == "save"), ctypes.byref(out))
     if rc != 0:
         msg = lib.msv_error_string(rc).decode()
-        raise RuntimeError(f"{kind} kernel (per {per}) attribute query failed: {msg} ({rc})")
+        raise RuntimeError(
+            f"{kind} kernel ({threads} threads, per {per}) attribute query failed: {msg} ({rc})")
     return out.value
 
 
@@ -894,7 +937,8 @@ def device_plan(kind: str, m_pad: int, passes: int, b_pad: int, device,
     """:func:`plan_launch` with the compiled case's registers and the
     card's multiprocessors."""
     index = torch.device(device).index or 0
-    return plan_launch(kind, m_pad, passes, b_pad, kernel_regs(kind, kernel_per(m_pad)),
+    threads, per = kernel_case(m_pad)
+    return plan_launch(kind, m_pad, passes, b_pad, kernel_regs(kind, per, threads),
                        _sm_count(index), groups)
 
 
@@ -916,7 +960,7 @@ def _check_scan(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
         raise ValueError(f"the p7 kernels need CUDA tensors, got {device}")
     b_pad, l_pad = tokens.shape
     m_pad = emit_m.shape[1]
-    per = kernel_per(m_pad)
+    kernel_case(m_pad)
     _check("emit_m", emit_m, emit_dtype, (NUM_AA, m_pad), device)
     _check("emit_i", emit_i, emit_dtype, (NUM_AA, m_pad), device)
     _check("trans", trans, torch.float32, (8, m_pad), device)
@@ -928,7 +972,7 @@ def _check_scan(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
     for name, t in (("m", m), ("i", i), ("d", d)):
         _check(name, t, torch.float32, (b_pad, m_pad), device)
     _check("s", s, torch.float32, (n_specials, b_pad), device)
-    return device, b_pad, l_pad, m_pad, per
+    return device, b_pad, l_pad, m_pad
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -939,7 +983,7 @@ def _raise_on(rc: int, what: str) -> None:
 
 def _viterbi_cuda(lazy, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
                   m, i, d, s, lazy_k, groups):
-    device, b_pad, l_pad, m_pad, per = _check_scan(
+    device, b_pad, l_pad, m_pad = _check_scan(
         emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts,
         5 if lazy else 3, m, i, d, s, 4,
     )
@@ -954,16 +998,18 @@ def _viterbi_cuda(lazy, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, 
     if b_pad:
         plan = device_plan("lazy" if lazy else "eager", m_pad, k_run, b_pad, device, groups)
         rc = _kernel_library().p7_viterbi_launch(
-            device.index, per, int(lazy),
+            device.index, plan.threads, kernel_per(m_pad), int(lazy),
             emit_m.data_ptr(), emit_i.data_ptr(), trans.data_ptr(), chain.data_ptr(),
-            m_pad, n_passes, k_run, plan.n_chain, tokens.data_ptr(), l_pad, lengths.data_ptr(),
+            m_pad, n_passes, k_run, plan.n_chain, plan.n_trans, tokens.data_ptr(), l_pad,
+            lengths.data_ptr(),
             tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(), i.data_ptr(),
             d.data_ptr(), s.data_ptr(), scores.data_ptr(), *(o.data_ptr() for o in out),
             replays.data_ptr() if lazy else None, b_pad, plan.groups, plan.grid, plan.smem,
             torch.cuda.current_stream(device).cuda_stream,
         )
         _raise_on(rc, "lazy Viterbi" if lazy else "Viterbi")
-        (viterbi_lazy_scan_cuda if lazy else viterbi_scan_cuda).launches += 1
+        count_launch(viterbi_lazy_scan_cuda if lazy else viterbi_scan_cuda,
+                     plan.threads == WIDE_THREADS)
     return (scores, *out, replays) if lazy else (scores, *out)
 
 
@@ -992,7 +1038,7 @@ def forward_launch(wrapper, modds, iodds, trans, chain, tokens, lengths, tr_rows
     ``save``, its row-saving case, and ``(fm, ls)`` allocated and returned
     after the results) with ``groups`` sequences a block (None: the
     plan's pick); counts the launch on ``wrapper``."""
-    device, b_pad, l_pad, m_pad, per = _check_scan(
+    device, b_pad, l_pad, m_pad = _check_scan(
         modds, iodds, trans, chain, tokens, lengths, tr_rows, consts, 3, m, i, d, s, 8,
     )
     _check("tr_probs", tr_probs, torch.float32, (2, b_pad), device)
@@ -1010,15 +1056,16 @@ def forward_launch(wrapper, modds, iodds, trans, chain, tokens, lengths, tr_rows
     if b_pad:
         plan = device_plan("save" if save else "forward", m_pad, window, b_pad, device, groups)
         rc = _kernel_library().p7_forward_launch(
-            device.index, per, modds.data_ptr(), iodds.data_ptr(), trans.data_ptr(),
-            chain.data_ptr(), m_pad, window, plan.n_chain, FWD_RESCALE_GROUP, tokens.data_ptr(),
+            device.index, plan.threads, kernel_per(m_pad), modds.data_ptr(), iodds.data_ptr(),
+            trans.data_ptr(), chain.data_ptr(), m_pad, window, plan.n_chain, plan.n_trans,
+            FWD_RESCALE_GROUP, tokens.data_ptr(),
             l_pad, lengths.data_ptr(), tr_rows.data_ptr(), tr_probs.data_ptr(),
             consts.data_ptr(), m.data_ptr(), i.data_ptr(), d.data_ptr(), s.data_ptr(),
             scores.data_ptr(), *(o.data_ptr() for o in out), *saved_ptrs, b_pad, plan.groups,
             plan.grid, plan.smem, torch.cuda.current_stream(device).cuda_stream,
         )
         _raise_on(rc, "Forward (row-saving)" if save else "Forward")
-        wrapper.launches += 1
+        count_launch(wrapper, plan.threads == WIDE_THREADS)
     return (scores, *out, *saved)
 
 
@@ -1036,7 +1083,7 @@ def forward_log_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, cons
     as :func:`forward_log_scan`; ``groups`` as for :func:`viterbi_scan_cuda`.
     Raises on what the kernel does not take and on a refused launch; never
     falls back."""
-    device, b_pad, l_pad, m_pad, per = _check_scan(
+    device, b_pad, l_pad, m_pad = _check_scan(
         msc, isc, trans, chain, tokens, lengths, tr_rows, consts, 3, m, i, d, s, 4,
     )
     if chain.shape[0] != 16:
@@ -1048,52 +1095,56 @@ def forward_log_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, cons
     if b_pad:
         plan = device_plan("log", m_pad, n_passes, b_pad, device, groups)
         rc = _kernel_library().p7_forward_log_launch(
-            device.index, per, msc.data_ptr(), isc.data_ptr(), trans.data_ptr(),
-            chain.data_ptr(), m_pad, n_passes, plan.n_chain, tokens.data_ptr(), l_pad,
+            device.index, plan.threads, kernel_per(m_pad), msc.data_ptr(), isc.data_ptr(),
+            trans.data_ptr(), chain.data_ptr(), m_pad, n_passes, plan.n_chain, plan.n_trans,
+            tokens.data_ptr(), l_pad,
             lengths.data_ptr(), tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(),
             i.data_ptr(), d.data_ptr(), s.data_ptr(), scores.data_ptr(),
             *(o.data_ptr() for o in out), b_pad, plan.groups, plan.grid, plan.smem,
             torch.cuda.current_stream(device).cuda_stream,
         )
         _raise_on(rc, "log-space Forward")
-        forward_log_scan_cuda.launches += 1
+        count_launch(forward_log_scan_cuda, plan.threads == WIDE_THREADS)
     return (scores, *out)
 
 
 def viterbi_filter_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, consts,
-                             m, i, d, s, window, e_skip_d):
-    """Launch ``csrc/p7_filter_kernel.cu``; same arguments and results as
-    :func:`viterbi_filter_scan`. Raises on what the kernel does not take and
-    on a refused launch; never falls back."""
-    device, b_pad, l_pad, m_pad, per = _check_scan(
+                             m, i, d, s, window, e_skip_d, groups: int | None = None):
+    """Launch the filter case of ``csrc/p7_viterbi.cuh`` (built from
+    ``csrc/p7_viterbi_filter_kernel.cu``); same arguments and results as
+    :func:`viterbi_filter_scan`; ``groups`` as for :func:`viterbi_scan_cuda`.
+    Raises on what the kernel does not take and on a refused launch; never
+    falls back."""
+    device, b_pad, l_pad, m_pad = _check_scan(
         msc, isc, trans, chain, tokens, lengths, tr_rows, consts, 4, m, i, d, s, 4,
         emit_dtype=torch.bfloat16,
     )
     if chain.shape[0] != 16:
         raise ValueError(f"chain has {chain.shape[0]} rows, expected 16")
+    _check_blocked(msc, isc, m_pad)
     full = chain_passes(m_pad)
     passes = min(max(int(window), 1), full)
     scores = torch.empty(b_pad, dtype=torch.float32, device=device)
     out = (torch.empty_like(m), torch.empty_like(i), torch.empty_like(d), torch.empty_like(s))
     if b_pad:
+        plan = device_plan("filter", m_pad, passes, b_pad, device, groups)
         rc = _kernel_library().p7_filter_launch(
-            device.index, per, msc.data_ptr(), isc.data_ptr(), trans.data_ptr(),
-            chain.data_ptr(), m_pad, full, passes, int(bool(e_skip_d)), tokens.data_ptr(),
-            l_pad, lengths.data_ptr(), tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(),
-            i.data_ptr(), d.data_ptr(), s.data_ptr(), scores.data_ptr(),
-            *(o.data_ptr() for o in out), b_pad,
-            torch.cuda.current_stream(device).cuda_stream,
+            device.index, plan.threads, kernel_per(m_pad), msc.data_ptr(), isc.data_ptr(),
+            trans.data_ptr(), chain.data_ptr(), m_pad, full, passes, plan.n_chain, plan.n_trans,
+            int(bool(e_skip_d)), tokens.data_ptr(), l_pad, lengths.data_ptr(),
+            tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(), i.data_ptr(), d.data_ptr(),
+            s.data_ptr(), scores.data_ptr(), *(o.data_ptr() for o in out), b_pad, plan.groups,
+            plan.grid, plan.smem, torch.cuda.current_stream(device).cuda_stream,
         )
         _raise_on(rc, "Viterbi filter")
-        viterbi_filter_scan_cuda.launches += 1
+        count_launch(viterbi_filter_scan_cuda, plan.threads == WIDE_THREADS)
     return (scores, *out)
 
 
-viterbi_scan_cuda.launches = 0  # kernel launches in this process
-viterbi_lazy_scan_cuda.launches = 0
-forward_prob_scan_cuda.launches = 0
-forward_log_scan_cuda.launches = 0
-viterbi_filter_scan_cuda.launches = 0
+# kernel launches in this process, and those of them at WIDE_THREADS
+for _fn in (viterbi_scan_cuda, viterbi_lazy_scan_cuda, forward_prob_scan_cuda,
+            forward_log_scan_cuda, viterbi_filter_scan_cuda):
+    _fn.launches = _fn.wide_launches = 0
 
 
 def viterbi_scan(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):

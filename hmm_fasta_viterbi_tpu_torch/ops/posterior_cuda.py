@@ -42,7 +42,7 @@ import torch
 from ..models.p7 import P7Profile
 from ..pipeline import MSVScanner
 from . import p7_cuda
-from .msv_cuda import NUM_AA, _check
+from .msv_cuda import NUM_AA, _check, count_launch
 
 # device bytes of the bf16 forward rows of one call (JAX's POST_HBM_BYTES);
 # a larger hit batch runs in chunks of sequences under it
@@ -163,7 +163,7 @@ def _kernel_library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     c = ctypes.c_int
     lib.posterior_backward_launch.argtypes = [
-        c, c, p, p, p, p, c, c, c, p, c, p, p, p, p, p, p, p, c, p,
+        c, c, c, p, p, p, p, c, c, c, p, c, p, p, p, p, p, p, p, c, p,
     ]
     lib.posterior_backward_launch.restype = c
     return lib
@@ -186,11 +186,11 @@ def backward_coverage_scan_cuda(modds, iodds, trans, schain, tokens, lengths, tr
     :func:`backward_coverage_scan`. Raises on what the kernel does not take
     and on a refused launch; never falls back."""
     device = tokens.device
-    if device.type != "cuda":
-        raise ValueError(f"the posterior kernels need CUDA tensors, got {device}")
     b_pad, l_pad = tokens.shape
     m_pad = modds.shape[1]
-    per = p7_cuda.kernel_per(m_pad)
+    threads, per = p7_cuda.kernel_case(m_pad)  # raises past MAX_KERNEL_STATES
+    if device.type != "cuda":
+        raise ValueError(f"the posterior kernels need CUDA tensors, got {device}")
     window = schain.shape[0]
     if not 1 <= window <= p7_cuda.chain_passes(m_pad):
         raise ValueError(f"suffix chain window {window} outside 1..{p7_cuda.chain_passes(m_pad)}")
@@ -208,19 +208,20 @@ def backward_coverage_scan_cuda(modds, iodds, trans, schain, tokens, lengths, tr
     cov = torch.empty((b_pad, l_pad), dtype=torch.float32, device=device)
     if b_pad:
         rc = _kernel_library().posterior_backward_launch(
-            device.index, per, modds.data_ptr(), iodds.data_ptr(), trans.data_ptr(),
+            device.index, threads, per, modds.data_ptr(), iodds.data_ptr(), trans.data_ptr(),
             schain.data_ptr(), m_pad, window, p7_cuda.FWD_RESCALE_GROUP, tokens.data_ptr(),
             l_pad, lengths.data_ptr(), tr_probs.data_ptr(), consts.data_ptr(), total.data_ptr(),
             fm.data_ptr(), ls.data_ptr(), cov.data_ptr(), b_pad,
             torch.cuda.current_stream(device).cuda_stream,
         )
         p7_cuda._raise_on(rc, "posterior backward")
-        backward_coverage_scan_cuda.launches += 1
+        count_launch(backward_coverage_scan_cuda, threads == p7_cuda.WIDE_THREADS)
     return cov
 
 
-forward_save_scan_cuda.launches = 0  # kernel launches in this process
-backward_coverage_scan_cuda.launches = 0
+# kernel launches in this process, and those of them at WIDE_THREADS
+for _fn in (forward_save_scan_cuda, backward_coverage_scan_cuda):
+    _fn.launches = _fn.wide_launches = 0
 
 
 def forward_save_scan(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs, consts,

@@ -26,8 +26,9 @@ Differences that follow from the device:
   "filter")``, ``SearchPipeline(fast_msv=, fast_viterbi=)``) run on every
   device, their plain versions on the CPU; the JAX package runs them on its
   Pallas backend only;
-* ``scan_many`` groups profiles by the MSV kernel's register case, not by
-  an M bucket, and caches each group's stacked pack.
+* ``scan_many`` groups profiles by the MSV kernel's case on the card
+  (``msv_cuda.kernel_case``) and by padded width on the CPU, not by an M
+  bucket, and caches each group's stacked pack.
 """
 
 from __future__ import annotations
@@ -231,18 +232,20 @@ class MSVScanner:
         """Sweep: score the staged database against many profiles -> {name:
         f32 [B] host array}.
 
-        Profiles that fall in one register case of the MSV kernel
-        (``msv_cuda.kernel_per``) run as one stacked launch, one grid row a
-        profile; each group's stacked pack is cached. ``mode="filter"``
+        On the card, profiles that fall in one case of the MSV kernel
+        (``msv_cuda.kernel_case``) run as one stacked launch, one grid row a
+        profile; on the CPU the plain version groups them by padded width,
+        which has no cap. Each group's stacked pack is cached. ``mode="filter"``
         scans the bf16 round-up tables instead (:meth:`scan_filter`'s
         upper bounds). Each profile's scores equal its single-profile
         scan's bit for bit."""
         if mode not in ("exact", "filter"):
             raise ValueError(f"mode must be 'exact' or 'filter', got {mode!r}")
-        groups: dict[int, list[MSVProfile]] = {}
+        case = msv_cuda.kernel_case if self.device.type == "cuda" else (lambda m: (0, m))
+        groups: dict[tuple, list[MSVProfile]] = {}
         for p in profiles:
             m_pad = msv_cuda.round_up(p.num_states, self.m_bucket)
-            groups.setdefault(msv_cuda.kernel_per(m_pad), []).append(p)
+            groups.setdefault(case(m_pad), []).append(p)
         results: dict[str, np.ndarray] = {}
         for _, group in sorted(groups.items()):
             emit, tr_consts = self._stacked_pack(tuple(group), mode)

@@ -91,14 +91,15 @@ def _jax_package_imports(path: pathlib.Path) -> list[str]:
 
 def test_no_file_of_the_port_imports_the_jax_package():
     """An AST scan of every .py file of the port, of chip_smoke.py and of
-    the port's timing tool finds no import of hmm_fasta_viterbi_tpu (or
+    the port's timing tools finds no import of hmm_fasta_viterbi_tpu (or
     jax), at any depth."""
     files = sorted(PORT_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py",
-                                              REPO_ROOT / "tools" / "torch_p7_timing.py"]
+                                              REPO_ROOT / "tools" / "torch_p7_timing.py",
+                                              REPO_ROOT / "tools" / "torch_msv_timing.py"]
     assert len(files) > 20
     assert {f.name for f in files} >= {"hmmio.py", "loader.py", "reference.py", "stats.py",
                                        "posterior_cuda.py", "chip_smoke.py",
-                                       "torch_p7_timing.py"}
+                                       "torch_p7_timing.py", "torch_msv_timing.py"}
     bad = {str(f.relative_to(REPO_ROOT)): _jax_package_imports(f) for f in files}
     assert not {k: v for k, v in bad.items() if v}
     # the scan finds such imports where they are
@@ -143,13 +144,17 @@ def test_nvcc_command_targets_hopper_without_fast_math():
     compiles, link = _build.nvcc_commands("nvcc", pathlib.Path("out"), pathlib.Path("lib.so"))
     srcs = {cmd[-1] for cmd in compiles}
     for name in ("msv_kernel.cu", "p7_viterbi_kernel.cu", "p7_forward_kernel.cu",
-                 "p7_filter_kernel.cu", "p7_forward_log_kernel.cu", "posterior_kernel.cu"):
+                 "p7_viterbi_filter_kernel.cu", "p7_forward_log_kernel.cu", "posterior_kernel.cu"):
         assert str(_build.CSRC_DIR / name) in srcs
     assert len(srcs) == 6
-    # the shared Viterbi / log-space Forward template is a header both
-    # include; it and the Forward kernel include the blocked layout's header
+    # the striped Viterbi filter is gone: the filter is a case of the template
+    assert not (_build.CSRC_DIR / "p7_filter_kernel.cu").exists()
+    # the shared Viterbi / log-space Forward / filter template is a header
+    # three sources include; it and the Forward kernel include the blocked
+    # layout's header
     assert [h.name for h in _build.headers()] == ["p7_blocked.cuh", "p7_viterbi.cuh"]
-    for name in ("p7_viterbi_kernel.cu", "p7_forward_log_kernel.cu"):
+    for name in ("p7_viterbi_kernel.cu", "p7_forward_log_kernel.cu",
+                 "p7_viterbi_filter_kernel.cu"):
         assert '#include "p7_viterbi.cuh"' in (_build.CSRC_DIR / name).read_text()
     for name in ("p7_viterbi.cuh", "p7_forward_kernel.cu"):
         assert '#include "p7_blocked.cuh"' in (_build.CSRC_DIR / name).read_text()
@@ -167,9 +172,12 @@ def test_kernel_supports_every_profile(all_profile_paths):
 
     source = (_build.CSRC_DIR / "msv_kernel.cu").read_text()
     for per in msv_cuda.KERNEL_PER:
-        assert per % 8 == 4 and f"MSV_CASE({per})" in source
+        assert per % 8 == 4 and f"MSV_CASE({per}, 32)" in source
+    for per in msv_cuda.WIDE_PER:  # two warps a sequence past 2432 states
+        assert per % 8 == 4 and f"MSV_CASE({per}, 64)" in source
     lengs = [parse_hmm(p).model_length - 1 for p in all_profile_paths]
     assert len(lengs) == 24 and max(lengs) == 2405
+    assert all(msv_cuda.kernel_case(n) == (32, msv_cuda.kernel_per(n)) for n in lengs)
     assert all(32 * msv_cuda.kernel_per(n) >= n for n in lengs)
     assert np.all(np.diff(msv_cuda.KERNEL_PER) == 8)
 
@@ -224,12 +232,14 @@ def test_p7_kernels_support_every_profile(all_profile_paths):
     threads, and the thread counts match the C++ switches."""
     from hmm_fasta_viterbi_tpu_torch import P7Profile, parse_hmm
 
-    for name, macro in (("p7_viterbi_kernel.cu", "P7_CASE"), ("p7_forward_kernel.cu", "FWD_CASE"),
-                        ("p7_filter_kernel.cu", "FILTER_CASE"),
-                        ("p7_forward_log_kernel.cu", "LOG_CASE"),
-                        ("posterior_kernel.cu", "POST_CASE")):
+    cases = [(p7_cuda.KERNEL_THREADS, per) for per in p7_cuda.KERNEL_PER]
+    cases += [(p7_cuda.WIDE_THREADS, per) for per in p7_cuda.WIDE_PER]
+    for name, macro in (("p7_blocked.cuh", "P7_CASE"), ("posterior_kernel.cu", "POST_CASE")):
         source = (_build.CSRC_DIR / name).read_text()
-        assert all(f"{macro}({per})" in source for per in p7_cuda.KERNEL_PER)
+        assert all(f"{macro}({per}, {threads})" in source for threads, per in cases)
+    for name in ("p7_viterbi_kernel.cu", "p7_forward_kernel.cu", "p7_viterbi_filter_kernel.cu",
+                 "p7_forward_log_kernel.cu"):
+        assert "with_case<Case>(threads, per" in (_build.CSRC_DIR / name).read_text()
     for path in all_profile_paths:
         p7 = P7Profile.from_profile(parse_hmm(path))
         m_pad = p7_cuda.default_m_pad(p7)
@@ -324,7 +334,7 @@ def test_log_forward_kernel_uses_accurate_math_only():
     """The log-space Forward's combine and E reduce call the accurate expf,
     log1pf and logf, never the fast intrinsics."""
     source = (_build.CSRC_DIR / "p7_viterbi.cuh").read_text()
-    assert "log1pf(expf(d))" in source and "logf(group_reduce<true>" in source
+    assert "log1pf(expf(d))" in source and "logf(group_reduce<true, KT>" in source
     source += (_build.CSRC_DIR / "p7_blocked.cuh").read_text()
     for fast in ("__expf", "__logf", "__log1pf", "__fdividef"):
         assert f"{fast}(" not in source

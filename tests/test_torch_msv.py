@@ -147,11 +147,19 @@ def test_blank_ragged_tail_byte_equal():
     assert msv_cuda.PAD_SCORE == pallas_msv.PAD_SCORE
 
 
-@pytest.mark.parametrize("m_pad,per", [(104, 4), (1400, 44), (1408, 44), (2405, 76), (2432, 76)])
+@pytest.mark.parametrize("m_pad,per", [(104, 4), (1400, 44), (1408, 44), (2405, 76), (2432, 76),
+                                       (2440, 44), (2704, 44), (4776, 76), (4864, 76)])
 def test_kernel_states_per_lane(m_pad, per):
+    """One warp a sequence up to 2432 states, two (64 lanes) up to 4864."""
     assert msv_cuda.kernel_per(m_pad) == per
+    assert msv_cuda.kernel_case(m_pad) == (32 if m_pad <= 2432 else 64, per)
 
 
 def test_kernel_limit_names_itself():
-    with pytest.raises(ValueError, match="2432"):
+    """Past 64 lanes x 76 = 4864 states the kernel raises, naming its limit;
+    the plain version has no cap."""
+    assert msv_cuda.MAX_KERNEL_STATES == 4864
+    with pytest.raises(ValueError, match="4864"):
         msv_cuda.kernel_per(msv_cuda.MAX_KERNEL_STATES + 1)
+    with pytest.raises(ValueError, match="4864"):
+        msv_cuda.kernel_case(4872)

@@ -376,11 +376,19 @@ def test_convert_round_trips(profile_dir):
 
 # -- the kernels' limits ---------------------------------------------------
 
-@pytest.mark.parametrize("m_pad,per", [(8, 1), (104, 1), (136, 2), (1400, 11), (2408, 19), (2432, 19)])
+@pytest.mark.parametrize("m_pad,per", [(8, 1), (104, 1), (136, 2), (1400, 11), (2408, 19), (2432, 19),
+                                       (2440, 10), (2704, 11), (4776, 19), (4864, 19)])
 def test_kernel_states_per_thread(m_pad, per):
+    """128 threads a sequence up to 2432 states, 256 up to 4864."""
     assert p7_cuda.kernel_per(m_pad) == per
+    assert p7_cuda.kernel_case(m_pad) == (128 if m_pad <= 2432 else 256, per)
 
 
 def test_kernel_limit_names_itself():
-    with pytest.raises(ValueError, match="2432"):
+    """Past 256 threads x 19 = 4864 states the kernels' case, their launch
+    plan and the posterior launch check raise, naming the limit."""
+    assert p7_cuda.MAX_KERNEL_STATES == 4864
+    with pytest.raises(ValueError, match="4864"):
         p7_cuda.kernel_per(p7_cuda.MAX_KERNEL_STATES + 1)
+    with pytest.raises(ValueError, match="4864"):
+        p7_cuda.plan_launch("lazy", 4872, 5, 64, 128, 132)

@@ -126,27 +126,30 @@ def test_scan_many_matches_jax_pallas_scan_many(profiles, batch, mode):
 
 
 def test_scan_many_groups_cache_and_singles(profiles, profile_dir, batch):
-    """Profiles group by the MSV kernel's register case (1301 and 1400 share
-    one, 100 and 200 have one each); each group's stacked pack is cached,
-    pinned on the very profile objects; every row equals the single-profile
-    scan (scan / scan_filter) bit for bit."""
+    """On the CPU profiles group by padded width, which has no cap (on the
+    card by the MSV kernel's case, where 1301 and 1400 share one and 100 and
+    200 have one each); each group's stacked pack is cached, pinned on the
+    very profile objects; every row equals the single-profile scan (scan /
+    scan_filter) bit for bit."""
     tokens, lengths = batch
     sc = MSVScanner(device="cpu")
     staged = sc.stage(tokens, lengths)
     profs = _ports([*profiles, MSVProfile.from_profile(parse_hmm(profile_dir / "1301.hmm"))])
     pers = [msv_cuda.kernel_per(msv_cuda.round_up(p.num_states, 8)) for p in profs]
     assert len(set(pers)) == 3 and pers[2] == pers[3]
+    widths = {msv_cuda.round_up(p.num_states, 8) for p in profs}
+    assert len(widths) == 4
     for mode, single in (("exact", sc.scan), ("filter", sc.scan_filter)):
         res = sc.scan_many(profs, staged, mode=mode)
         for p in profs:
             assert torch.equal(torch.from_numpy(res[p.name]), single(p, staged))
     n = len(sc._profile_cache)
-    assert n == 3 * 2 + 4 * 2  # 3 groups x 2 modes, 4 exact and 4 filter singles
+    assert n == 4 * 2 + 4 * 2  # 4 widths x 2 modes, 4 exact and 4 filter singles
     sc.scan_many(profs, staged)
     assert len(sc._profile_cache) == n  # cached
     again = [copy.copy(p) for p in profs]
     res = sc.scan_many(again, staged)
-    assert len(sc._profile_cache) == n + 3  # new objects: new packs
+    assert len(sc._profile_cache) == n + 4  # new objects: new packs
     assert np.array_equal(res[profs[3].name], sc.scan(profs[3], staged).numpy())
     with pytest.raises(ValueError, match="mode"):
         sc.scan_many(profs, staged, mode="viterbi")

@@ -2,8 +2,8 @@
 
     python3 tools/torch_p7_timing.py [--label NAME] [--batches 4096,64] [--groups 1,2,4]
 
-Times the eager and lazy Viterbi, the Forward and the log-space Forward
-kernels against 1400.hmm at B x 3500 for each batch B (random residues from
+Times the eager and lazy Viterbi, the Forward, the Viterbi filter (its
+auto window) and the log-space Forward kernels against 1400.hmm at B x 3500 for each batch B (random residues from
 a seed, all one length), and the row-saving Forward at 1024 x 1024; best of 3
 CUDA-event timings after one warm-up. Each line gives the card's name and
 power limit, and, where the tree under test has the blocked kernels' launch
@@ -57,7 +57,7 @@ def best_ms(fn, reps: int = 3) -> float:
 
 
 def plan_of(kind: str, pack, passes: int, b: int, device, groups=None) -> dict:
-    if not hasattr(p7_cuda, "device_plan"):
+    if not hasattr(p7_cuda, "device_plan") or kind not in p7_cuda.BLOCKED_KINDS:
         return {}
     plan = p7_cuda.device_plan(kind, pack.m_pad, passes, b, device, groups)
     return {**plan._asdict(), "regs": p7_cuda.kernel_regs(kind, p7_cuda.kernel_per(pack.m_pad))}
@@ -84,6 +84,7 @@ def main() -> int:
     eager = p7_cuda.viterbi_pack(p7, device, lazy=False)
     lazy = p7_cuda.viterbi_pack(p7, device, lazy=True)
     fwd = p7_cuda.forward_pack(p7, device)
+    filt = p7_cuda.filter_pack(p7, device)
     n_passes = p7_cuda.chain_passes(eager.m_pad)
 
     def emit(name, b, length, ms, kind, pack, passes, groups=None):
@@ -95,7 +96,7 @@ def main() -> int:
 
     def time_case(name, kind, pack, passes, b, length, fn):
         emit(name, b, length, best_ms(fn), kind, pack, passes)
-        for g in forced if hasattr(p7_cuda, "device_plan") else ():
+        for g in forced if plan_of(kind, pack, passes, b, device) else ():
             most = plan_of(kind, pack, passes, b, device)["max_groups"]
             if g <= most:
                 emit(name, b, length, best_ms(lambda: fn(groups=g)), kind, pack, passes, g)
@@ -115,6 +116,9 @@ def main() -> int:
             ("forward_prob_scan", "forward", fwd, fwd.chain.shape[0],
              lambda **g: p7_cuda.forward_prob_scan_cuda(*fwd[:4], *vargs, st.tr_probs,
                                                         fwd.consts, *fc, **g)),
+            ("viterbi_filter_scan", "filter", filt, filt.window,
+             lambda **g: p7_cuda.viterbi_filter_scan_cuda(*filt[:4], *vargs, filt.consts, *vc,
+                                                          filt.window, filt.e_skip_d, **g)),
             ("forward_log_scan", "log", eager, n_passes,
              lambda **g: p7_cuda.forward_log_scan_cuda(*eager[:4], *vargs, eager.consts, *vc,
                                                        **g)),
