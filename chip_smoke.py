@@ -5,11 +5,15 @@
 Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: compiles csrc/*.cu from this checkout, one nvcc a source, and
-   prints each kernel case's registers and spills, and the launch plan of
-   each blocked p7 case (the Viterbi filter's included) against 1400.hmm and
-   the wider wide profile at the timed shapes (threads a group, groups G,
-   grid, staged chain and transition rows, dynamic shared memory);
+2. build: loads the native loader (built with g++ into _kernels/ at first
+   use; the CLI parses with Python without it) and prints its library or
+   why it failed; compiles csrc/*.cu from this checkout, one nvcc a source, and
+   prints each kernel case's registers and spills (the rows-in-memory
+   kernels, `*_mem_kernel`, included), and the launch plan of each blocked
+   p7 case (the Viterbi filter's and the backward pass's included) against
+   1400.hmm, the wider wide profile and the three-profile join past 4864
+   states at the timed shapes (threads a group, groups G, grid, staged
+   chain and transition rows, dynamic shared memory);
 3. log-space Forward and posterior kernels against plain, all 24 profiles:
    the log-space Forward kernel within LOG_FWD_TOL of its plain version on
    a ragged batch of 64 sequences up to 600 residues, and a two-call carry
@@ -17,7 +21,10 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    carries equal to the Forward kernel's bit for bit; both kernels at the
    most groups a block that fit (G > 1) equal to themselves at G = 1; the
    posterior kernels' coverage and totals within COV_TOL / TOT_TOL of the
-   plain decode on the card, coverage 0 past each length;
+   plain decode on the card, coverage 0 past each length; the backward
+   kernel (a case of the blocked layout) on the row-saving kernel's own rows
+   within COV_TOL of its plain version, at G = 1 and, bit for bit, at the
+   most groups a block that fit;
 4. MSV kernels against plain: for all 24 profiles of data/profile_HMMs, on
    one ragged batch, the MSV kernel and the MSV filter kernel (bf16 table)
    each equal their plain PyTorch version, and a two-call carry chain one
@@ -49,7 +56,13 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    into one ProfileHMM each): every kernel's wide case against its plain
    version on a ragged batch of 8 sequences up to 300 residues, at G = 1
    and at the most groups that fit, and the stacked kernel over 100.hmm
-   and both (wide_kernels_vs_plain);
+   and both (wide_kernels_vs_plain); then the profiles past 4864 states
+   (MEM_JOINS: the nodes of 2405.hmm, 2365.hmm and 2207.hmm, LENG 6977, and
+   of all 24, LENG 30181, 15 chain passes) through every kernel's
+   rows-in-memory case against its plain version on the same kind of batch
+   (mem_kernels_vs_plain: MSV, its filter, eager, lazy and the Viterbi
+   filter bit for bit, Forward, log-space Forward and the posterior pair
+   within their tolerances);
 9. main paths, each with every launch count set to 0 just before it and
    read just after, on a seeded FASTA of 16384 x 3500 random residues with
    32 sequences sampled from 1400.hmm and 4 from the LENG 4770 profile at
@@ -72,8 +85,12 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    Forward within 5e-3 of it), and the wide cases (wide_paths): `sweep
    --stage search --fast` over the 24 profiles and the two wide ones, `sweep`
    over 100.hmm and the wide ones, and the eager, log-space and posterior
-   entry points on the planted wide rows; survivor counts and per-phase
-   seconds printed;
+   entry points on the planted wide rows; and the rows-in-memory cases
+   (mem_paths): `scan --stage search --domains` with the LENG 6977 join
+   against a FASTA of 2048 rows with 4 of its homologs planted (every planted
+   row a hit with its envelope inside it), `--fast` on it, `sweep` over both
+   joins and the eager and log-space entry points on the planted rows;
+   survivor counts and per-phase seconds printed;
 10. timings with CUDA events: the MSV kernel (best of 3) at 16384 x 3500
    against 1400.hmm and 2405.hmm and its plain version at 1400.hmm; the MSV
    filter at 16384 x 3500 x 1400 (filter_1400) and its plain version once;
@@ -90,13 +107,17 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    1024 against 1400.hmm (posterior_1400, posterior_mask_1400; best of 3)
    and their plain versions once; each wide case once against the LENG 4770
    profile (wide_timings: MSV at 2048 x 3500, the p7 kernels at 64 x 3500,
-   the posterior kernels at 64 x 1024). Each kernel's bound is the larger
+   the posterior kernels at 64 x 1024), and each rows-in-memory case once
+   against the LENG 6977 join (mem_timings: MSV at 2048 x 1000, the p7
+   kernels at 64 x 1000, the posterior pair at 64 x 1024), each plain
+   version once. Each kernel's bound is the larger
    of its FP32 operations (counted a cell from its source) at 67 TFLOP/s
    and the bytes it must move (each input once, each output once) at 3.35
    TB/s, at the timed shape.
 
 Prints a JSON line about the kernels (every case, the wide ones as
-`<kernel>_wide`), then the card's name and power limit and, last,
+`<kernel>_wide`, the rows-in-memory ones as `<kernel>_mem`), then the card's
+name and power limit and, last,
 {"ok": true, ...}. Any failed check raises, and the script exits
 non-zero without those lines.
 """
@@ -118,6 +139,7 @@ import numpy as np
 import torch
 
 from hmm_fasta_viterbi_tpu_torch.io.alphabet import AMINO_ACIDS
+from hmm_fasta_viterbi_tpu_torch.io import native
 from hmm_fasta_viterbi_tpu_torch.io.fastaio import FastaRecord, write_fasta
 from hmm_fasta_viterbi_tpu_torch.io.loader import load_profile
 from hmm_fasta_viterbi_tpu_torch.models.sample import sample_sequences
@@ -164,6 +186,17 @@ POST_TIME_BATCH, POST_TIME_LEN = 1024, 1024
 # (LENG 2701 and 4770), and the ragged batch they are checked on
 WIDE_PAIRS = (("1400", "1301"), ("2405", "2365"))
 WIDE_BATCH, WIDE_LEN = 8, 300
+# the profiles past 4864 states (the rows-in-memory cases), joined from the
+# repo's: 2405.hmm, 2365.hmm and 2207.hmm (LENG 6975), and all 24 (LENG
+# 30160, 15 chain passes), checked on the same ragged batch
+MEM_JOINS = (("2405", "2365", "2207"), tuple(
+    sorted((p.stem for p in PROFILES.glob("*.hmm")), key=int)))
+# the rows-in-memory main path: MEM_BATCH random rows of MEM_LEN residues
+# with MEM_PLANTED homologs of the three-profile join at known rows; each
+# rows-in-memory case is timed once at MEM_TIME_LEN residues (MSV at
+# WIDE_MSV_BATCH rows, the p7 kernels at SURVIVOR_BATCH)
+MEM_BATCH, MEM_LEN, MEM_PLANTED = 2048, 600, 4
+MEM_TIME_LEN = 1000
 # homologs of the wider profile planted in the CLI database, and the batch the
 # wide MSV cases are timed at
 WIDE_PLANTED = 4
@@ -203,9 +236,9 @@ KERNELS = {
     "forward_save_scan": ("csrc/p7_forward_kernel.cu",
                           "hmm_fasta_viterbi_tpu/ops/pallas_posterior.py:97",
                           "posterior forward pass: bf16 rows and log scales saved"),
-    "backward_coverage_scan": ("csrc/posterior_kernel.cu",
+    "backward_coverage_scan": ("csrc/p7_backward_kernel.cu",
                                "hmm_fasta_viterbi_tpu/ops/pallas_posterior.py:225",
-                               "posterior backward pass emitting coverage"),
+                               "posterior backward pass emitting coverage (a blocked p7 case)"),
 }
 WRAPPERS = {
     "msv_scan": msv_cuda.msv_scan_cuda,
@@ -223,9 +256,15 @@ WRAPPERS = {
 # the p7 and posterior kernels): a line of its own in the JSON, its launches
 # counted by the same wrapper's wide_launches
 WIDE = "_wide"
+# every case past 4864 states (the rows-in-memory cases: one 1024-thread
+# block a sequence, the DP rows in global memory): its own JSON line, its
+# launches counted by the wrapper's mem_launches
+MEM = "_mem"
 KERNELS.update({
-    name + WIDE: (source, replaces, f"{mode}; M_pad 2440..4864")
-    for name, (source, replaces, mode) in list(KERNELS.items())
+    **{name + WIDE: (source, replaces, f"{mode}; M_pad 2440..4864")
+       for name, (source, replaces, mode) in KERNELS.items()},
+    **{name + MEM: (source, replaces, f"{mode}; M_pad past 4864, rows in global memory")
+       for name, (source, replaces, mode) in KERNELS.items()},
 })
 
 
@@ -271,25 +310,31 @@ def p7_profile(stem: str) -> P7Profile:
     return P7Profile.from_profile(parse_hmm(PROFILES / f"{stem}.hmm"))
 
 
-def join_profiles(first, second):
-    """One profile HMM whose match nodes are ``first``'s and then
-    ``second``'s (a ProfileHMM of either package: the same fields). The
-    joint node, ``first``'s last, takes the transitions of the node before
-    it (a last node has none onward); the rest, and the STATS lines, are
-    ``first``'s."""
-    trans = np.concatenate([first.transitions, second.transitions[1:]]).copy()
-    trans[first.model_length - 1] = first.transitions[first.model_length - 2]
-    return dataclasses.replace(
-        first, name=f"{first.name}+{second.name}",
-        model_length=first.model_length + second.model_length - 1,
-        match_emissions=np.concatenate([first.match_emissions, second.match_emissions[1:]]),
-        insert_emissions=np.concatenate([first.insert_emissions, second.insert_emissions[1:]]),
-        transitions=trans)
+def join_profiles(first, *rest):
+    """One profile HMM whose match nodes are ``first``'s and then each of
+    ``rest``'s in turn (ProfileHMMs of either package: the same fields).
+    Each joint node, the last of the profile before it, takes the
+    transitions of the node before it (a last node has none onward); the
+    rest, and the STATS lines, are ``first``'s."""
+    joined = first
+    for second in rest:
+        trans = np.concatenate([joined.transitions, second.transitions[1:]]).copy()
+        trans[joined.model_length - 1] = joined.transitions[joined.model_length - 2]
+        joined = dataclasses.replace(
+            joined, name=f"{joined.name}+{second.name}",
+            model_length=joined.model_length + second.model_length - 1,
+            match_emissions=np.concatenate([joined.match_emissions,
+                                            second.match_emissions[1:]]),
+            insert_emissions=np.concatenate([joined.insert_emissions,
+                                             second.insert_emissions[1:]]),
+            transitions=trans)
+    return joined
 
 
-def wide_profile(pair: tuple[str, str]):
-    """The wide profile of WIDE_PAIRS built from two of the repo's profiles."""
-    return join_profiles(*(parse_hmm(PROFILES / f"{stem}.hmm") for stem in pair))
+def wide_profile(stems_: tuple[str, ...]):
+    """The wide profile of WIDE_PAIRS or MEM_JOINS built from the repo's
+    profiles ``stems_``, joined in that order."""
+    return join_profiles(*(parse_hmm(PROFILES / f"{stem}.hmm") for stem in stems_))
 
 
 def format_hmm(hmm) -> str:
@@ -326,13 +371,13 @@ def format_hmm(hmm) -> str:
 
 def zero_launches() -> None:
     for fn in WRAPPERS.values():
-        fn.launches = 0
-        fn.wide_launches = 0
+        fn.launches = fn.wide_launches = fn.mem_launches = 0
 
 
 def launches() -> dict:
     return {**{name: fn.launches for name, fn in WRAPPERS.items()},
-            **{name + WIDE: fn.wide_launches for name, fn in WRAPPERS.items()}}
+            **{name + WIDE: fn.wide_launches for name, fn in WRAPPERS.items()},
+            **{name + MEM: fn.mem_launches for name, fn in WRAPPERS.items()}}
 
 
 def with_groups(fn, groups):
@@ -344,8 +389,8 @@ def passes_of(kind: str, pack) -> int:
     """Chain passes a step of a redesigned p7 case runs (its plan's key)."""
     if kind == "lazy":
         return pack.lazy_k
-    if kind in ("forward", "save"):
-        return pack.chain.shape[0]
+    if kind in ("forward", "save", "backward"):
+        return pack.chain.shape[0]  # the backward pass's suffix window is the Forward's W
     if kind == "filter":
         return pack.window
     return p7_cuda.chain_passes(pack.m_pad)
@@ -360,19 +405,29 @@ def plan_text(kind: str, pack, batch: int) -> str:
             f"rows staged {plan.n_trans}/6, dynamic smem {plan.smem} bytes, {regs} registers")
 
 
+def p7_packs(p7: P7Profile, device) -> dict:
+    """The pack of each blocked p7 kind (the log-space Forward takes the
+    eager pack, the row-saving Forward and the backward pass the Forward's)."""
+    packs = {"lazy": p7_cuda.viterbi_pack(p7, device, lazy=True),
+             "eager": p7_cuda.viterbi_pack(p7, device, lazy=False),
+             "forward": p7_cuda.forward_pack(p7, device),
+             "filter": p7_cuda.filter_pack(p7, device)}
+    packs["log"], packs["save"], packs["backward"] = (packs["eager"], packs["forward"],
+                                                      packs["forward"])
+    return packs
+
+
 def print_plans(scanner) -> None:
-    """Each redesigned p7 case's launch plan against 1400.hmm at the timed
-    shapes."""
-    p7 = p7_profile("1400")
-    wide = P7Profile.from_profile(wide_profile(WIDE_PAIRS[1]))
-    for name, prof in (("1400.hmm", p7), (f"{wide.name} (M {wide.num_states})", wide)):
-        packs = {"lazy": p7_cuda.viterbi_pack(prof, scanner.device, lazy=True),
-                 "eager": p7_cuda.viterbi_pack(prof, scanner.device, lazy=False),
-                 "forward": p7_cuda.forward_pack(prof, scanner.device),
-                 "filter": p7_cuda.filter_pack(prof, scanner.device)}
-        packs["log"], packs["save"] = packs["eager"], packs["forward"]
-        for kind, pack in packs.items():
-            batches = (POST_TIME_BATCH,) if kind == "save" else (STAGE_BATCH, SURVIVOR_BATCH)
+    """Each blocked p7 case's launch plan against 1400.hmm, the wider wide
+    profile and the three-profile join past 4864 states (the rows-in-memory
+    cases) at the timed shapes."""
+    for hmm in (parse_hmm(PROFILES / "1400.hmm"), wide_profile(WIDE_PAIRS[1]),
+                wide_profile(MEM_JOINS[0])):
+        prof = P7Profile.from_profile(hmm)
+        name = f"{hmm.name} (M {prof.num_states})"
+        for kind, pack in p7_packs(prof, scanner.device).items():
+            posterior = kind in ("save", "backward")
+            batches = (POST_TIME_BATCH if posterior else STAGE_BATCH, SURVIVOR_BATCH)
             for batch in batches:
                 print(f"plan {kind} {name} x {batch} rows: {plan_text(kind, pack, batch)}")
 
@@ -469,13 +524,17 @@ def ptxas_summary(log: str) -> list[str]:
     source took."""
     lines = [line for line in log.splitlines() if line.startswith(("$ nvcc", "built "))]
     for entry in re.split(r"Compiling entry function ", log)[1:]:
-        case = re.search(r"(msv|viterbi|forward|filter|backward)_kernelI(\w+)", entry.split("'")[1])
+        # the kernel's own name follows its length; the file's anonymous
+        # namespace may hold the source's name too
+        case = re.search(r"(?<=\d)(msv|viterbi|forward|filter|backward)((?:_mem|_bounded)?)"
+                         r"_kernel(?:I(\w+))?", entry.split("'")[1])
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
         smem = re.search(r"(\d+) bytes smem", entry)
         if case and regs:
+            args = f"<{','.join(template_args(case.group(3)))}>" if case.group(3) else ""
             lines.append(
-                f"{case.group(1)}_kernel<{','.join(template_args(case.group(2)))}>: "
+                f"{case.group(1)}{case.group(2)}_kernel{args}: "
                 f"{regs.group(1)} registers, spill "
                 f"{spill.group(1) if spill else '?'}/{spill.group(2) if spill else '?'} bytes, "
                 f"smem {smem.group(1) if smem else 0} bytes"
@@ -803,6 +862,17 @@ def posterior_decode(fwd_fn, bwd_fn, pack, schain, staged):
     return cov, total
 
 
+def backward_inputs(fpack, schain, staged) -> tuple:
+    """The backward pass's arguments on the row-saving Forward kernel's own
+    rows of ``staged``."""
+    carry = p7_cuda.forward_init_carry(staged.tr_probs, fpack.m_pad)
+    total, *_, fm, ls = posterior_cuda.forward_save_scan_cuda(
+        *fpack[:4], staged.tokens, staged.lengths, staged.tr_rows, staged.tr_probs,
+        fpack.consts, *carry)
+    return (fpack.emit_m, fpack.emit_i, fpack.trans, schain, staged.tokens, staged.lengths,
+            staged.tr_probs, fpack.consts, total, fm, ls)
+
+
 def new_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     """For all 24 profiles: the log-space Forward kernel against its plain
     version (LOG_FWD_TOL) on the ragged batch of phase 6, and its two-call
@@ -810,7 +880,9 @@ def new_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     kernel's scores and carries against the Forward kernel's (bit for bit);
     the posterior kernels' coverage and totals against the plain decode on
     the card (COV_TOL, TOT_TOL) on a ragged batch of POST_BATCH sequences,
-    coverage 0 past each length."""
+    coverage 0 past each length; the backward kernel on the row-saving
+    kernel's own rows against its plain version (COV_TOL), and at the most
+    groups a block that fit against G = 1 (bit for bit)."""
     lengths = rng.integers(0, RAGGED_LEN + 1, size=P7_BATCH).astype(np.int32)
     lengths[:10] = [0, 1, 31, 32, 33, 257, 128, 129, 600, 599]
     tokens = rng.integers(0, 20, size=(P7_BATCH, RAGGED_LEN)).astype(np.int8)
@@ -860,15 +932,30 @@ def new_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         require(c_err <= COV_TOL and t_err <= TOT_TOL,
                 f"{stem}.hmm posterior kernels vs plain: coverage {c_err}, totals {t_err}")
         require(not bool(cov[past].any()), f"{stem}.hmm posterior kernels: coverage past a length")
+        # the backward pass (B10's blocked case) on the kernel's own saved
+        # rows: its plain version within COV_TOL, and at the most groups a
+        # block that fit equal to itself at G = 1 (the plan's pick here)
+        bwd_in = backward_inputs(fpack, schain, post)
+        bwd_plan = p7_cuda.device_plan("backward", fpack.m_pad, passes_of("backward", fpack),
+                                       POST_BATCH, DEVICE)
+        require(bwd_plan.groups == 1, f"backward plan for {POST_BATCH} rows: G={bwd_plan.groups}")
+        bwd = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
+        bwd_g = posterior_cuda.backward_coverage_scan_cuda(*bwd_in, groups=bwd_plan.max_groups)
+        torch.cuda.synchronize()
+        require_equal([bwd_g], [bwd], f"{stem}.hmm backward kernel at G={bwd_plan.max_groups} "
+                      "vs G=1")
+        b_err = max_abs_diff(bwd, posterior_cuda.backward_coverage_scan_plain(*bwd_in))
+        require(b_err <= COV_TOL, f"{stem}.hmm backward kernel vs plain on its rows: {b_err}")
         errors["forward_log_scan"] = max(errors["forward_log_scan"], l_err, l_chain)
         errors["forward_save_scan"] = max(errors["forward_save_scan"], s_err, t_err)
-        errors["backward_coverage_scan"] = max(errors["backward_coverage_scan"], c_err)
+        errors["backward_coverage_scan"] = max(errors["backward_coverage_scan"], c_err, b_err)
         print(f"log Forward / posterior kernels vs plain {stem}.hmm: log Forward B={P7_BATCH} "
               f"L<={RAGGED_LEN} max|d|={l_err:.3g} chain at {P7_SPLIT} max|d|={l_chain}; "
               f"row-saving Forward == Forward kernel (max|d|={s_err}); log-space Forward at "
               f"G={log_g} and row-saving Forward at G={save_g} == G=1; posterior B={POST_BATCH} "
               f"L<={POST_LEN} coverage max|d|={c_err:.3g} totals max|d|={t_err:.3g}, "
-              f"max coverage {float(cov.max()):.4f}", flush=True)
+              f"max coverage {float(cov.max()):.4f}; backward kernel on its rows "
+              f"max|d|={b_err:.3g}, at G={bwd_plan.max_groups} == G=1", flush=True)
 
 
 def new_kernels_vs_oracle(scanner, rng, errors: dict) -> None:
@@ -1024,13 +1111,10 @@ def wide_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         errors["msv_scan" + WIDE] = max(errors["msv_scan" + WIDE], err, chain)
         errors["msv_filter_scan" + WIDE] = max(errors["msv_filter_scan" + WIDE], f_err)
 
-        packs = {"eager": p7_cuda.viterbi_pack(p7, scanner.device, lazy=False),
-                 "lazy": p7_cuda.viterbi_pack(p7, scanner.device, lazy=True),
-                 "forward": p7_cuda.forward_pack(p7, scanner.device),
-                 "filter": p7_cuda.filter_pack(p7, scanner.device)}
-        packs["log"], packs["save"] = packs["eager"], packs["forward"]
+        packs = p7_packs(p7, scanner.device)
         got, want, plans = {}, {}, {}
-        for kind, pack in packs.items():
+        for kind in ("eager", "lazy", "forward", "filter", "log", "save"):
+            pack = packs[kind]
             run, carry = p7_calls(kind, pack, staged)
             got[kind] = run(CUDA_FNS[kind], staged.tokens, staged.lengths, carry)
             torch.cuda.synchronize()
@@ -1257,6 +1341,306 @@ def wide_timings(scanner, rng, errors: dict, work: dict) -> dict:
     print(f"posterior{WIDE}: the row-saving Forward {save_ms:.3f} ms, the backward coverage pass "
           f"{bwd_ms:.3f} ms (each best of 3, {SURVIVOR_BATCH} x {POST_TIME_LEN} x "
           f"M={p7.num_states}; {plan_text('save', fpack, SURVIVOR_BATCH)}); plain versions "
+          f"{plain_save_ms:.3f} + {plain_bwd_ms:.3f} ms (once); coverage max|d|={c_err:.3g}",
+          flush=True)
+    return out
+
+
+# -- profiles past 4864 states: the rows-in-memory cases (phases 8, 9, 10) ---------
+
+def mem_profiles() -> list:
+    return [wide_profile(stems) for stems in MEM_JOINS]
+
+
+def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
+    """Both joins of MEM_JOINS (LENG 6977 and 30181) through every kernel's
+    rows-in-memory case against its plain version on a ragged batch of
+    WIDE_BATCH sequences up to WIDE_LEN residues: MSV and the MSV filter bit
+    for bit, with a carry chain, the filter >= exact; eager, lazy (replay
+    counts included) and the Viterbi filter bit for bit, the filter >=
+    eager; Forward within FWD_TOL and log-space Forward within LOG_FWD_TOL
+    of plain, the row-saving Forward == Forward bit for bit, eager and
+    Forward carry chains == one call; the backward pass on the kernel's own
+    rows within COV_TOL of plain and the whole decode within COV_TOL /
+    TOT_TOL; the stacked kernel over both joins and 100.hmm == the single
+    scans. Every rows-in-memory case must have launched."""
+    lengths = rng.integers(0, WIDE_LEN + 1, size=WIDE_BATCH).astype(np.int32)
+    lengths[:4] = [0, 1, 129, WIDE_LEN]
+    tokens = rng.integers(0, 20, size=(WIDE_BATCH, WIDE_LEN)).astype(np.int8)
+    staged = scanner.stage(tokens, lengths)
+    hmms = mem_profiles()
+    zero_launches()
+    for hmm in hmms:
+        msv = MSVProfile.from_profile(hmm)
+        p7 = P7Profile.from_profile(hmm)
+        require(msv_cuda.kernel_case(msv_cuda.round_up(msv.num_states, 8))[0] == msv_cuda.MEM_LANES
+                and p7_cuda.kernel_case(p7_cuda.default_m_pad(p7))[0] == p7_cuda.MEM_THREADS,
+                f"{hmm.name} is not a rows-in-memory case")
+        args = msv_args(scanner, msv, staged)
+        err, exact = msv_compare(args)
+        chain = msv_chain_error(args)
+        f_args = msv_args(scanner, msv, staged, filter_mode=True)
+        f_err, filt = msv_compare(f_args, filter_mode=True)
+        require_geq(filt, exact, f"{hmm.name} MSV filter kernel vs MSV kernel")
+
+        packs = p7_packs(p7, scanner.device)
+        got, want = {}, {}
+        for kind in ("eager", "lazy", "forward", "filter", "log", "save"):
+            run, carry = p7_calls(kind, packs[kind], staged)
+            got[kind] = run(CUDA_FNS[kind], staged.tokens, staged.lengths, carry)
+            torch.cuda.synchronize()
+            want[kind] = run(PLAIN_FNS[kind], staged.tokens, staged.lengths, carry)
+        e_err = require_equal(got["eager"], want["eager"], f"{hmm.name} eager kernel vs plain")
+        l_err = require_equal(got["lazy"], want["lazy"], f"{hmm.name} lazy kernel vs plain")
+        vf_err = require_equal(got["filter"], want["filter"], f"{hmm.name} filter kernel vs plain")
+        require_geq(got["filter"][0], got["eager"][0], f"{hmm.name} Viterbi filter vs eager")
+        f_err2 = max_abs_diff(got["forward"][0], want["forward"][0])
+        g_err = max_abs_diff(got["log"][0], want["log"][0])
+        require(f_err2 <= FWD_TOL and g_err <= LOG_FWD_TOL,
+                f"{hmm.name} Forward / log-space Forward vs plain: {f_err2}, {g_err}")
+        s_err = require_equal(got["save"][:5], got["forward"],
+                              f"{hmm.name} row-saving Forward vs Forward kernel")
+        chains = [p7_chain_error(k, packs[k], staged) for k in ("eager", "forward")]
+        schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
+        bwd_in = backward_inputs(packs["forward"], schain, staged)
+        cov = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
+        torch.cuda.synchronize()
+        b_err = max_abs_diff(cov, posterior_cuda.backward_coverage_scan_plain(*bwd_in))
+        cov_p, tot_p = posterior_decode(*PLAIN_DECODE, packs["forward"], schain, staged)
+        c_err, t_err = max_abs_diff(cov, cov_p), max_abs_diff(bwd_in[8], tot_p)
+        require(b_err <= COV_TOL and c_err <= COV_TOL and t_err <= TOT_TOL,
+                f"{hmm.name} posterior kernels vs plain: on the kernel's rows {b_err}, the "
+                f"decode {c_err}, totals {t_err}")
+        for name, e in (("msv_scan", max(err, chain)), ("msv_filter_scan", f_err),
+                        ("viterbi_scan", max(e_err, chains[0])), ("viterbi_lazy_scan", l_err),
+                        ("viterbi_filter_scan", vf_err),
+                        ("forward_prob_scan", max(f_err2, chains[1])),
+                        ("forward_log_scan", g_err), ("forward_save_scan", max(s_err, t_err)),
+                        ("backward_coverage_scan", max(b_err, c_err))):
+            errors[name + MEM] = max(errors[name + MEM], e)
+        print(f"rows in memory {hmm.name[:40]} (M {msv.num_states}, "
+              f"{p7_cuda.chain_passes(p7_cuda.default_m_pad(p7))} chain passes): B={WIDE_BATCH} "
+              f"L<={WIDE_LEN} MSV max|d|={err} chain max|d|={chain}, filter max|d|={f_err} "
+              f"(>= exact); eager max|d|={e_err} chain {chains[0]}, lazy(k={packs['lazy'].lazy_k}) "
+              f"max|d|={l_err} replays {int(got['lazy'][5].sum())}, filter(window="
+              f"{packs['filter'].window}) max|d|={vf_err} (>= eager), Forward {f_err2:.3g} chain "
+              f"{chains[1]}, log-space {g_err:.3g}, row-saving == Forward; backward on its rows "
+              f"{b_err:.3g}, decode coverage {c_err:.3g} totals {t_err:.3g}", flush=True)
+
+    profs = [profile("100")] + [MSVProfile.from_profile(h) for h in hmms]
+    for mode, single in (("exact", scanner.scan), ("filter", scanner.scan_filter)):
+        res = scanner.scan_many(profs, staged, mode=mode)
+        for p in profs:
+            require(np.array_equal(res[p.name], single(p, staged).cpu().numpy()),
+                    f"stacked {mode} scan of {p.name[:40]} vs its single-profile kernel")
+    got = launches()
+    missing = [name for name in WRAPPERS if got[name + MEM] == 0]
+    require(not missing, f"rows-in-memory cases never launched: {missing}")
+    print(f"stacked MSV kernel, 100.hmm and both joins, both modes: == the single-profile "
+          f"kernels; rows-in-memory launches {({n: got[n + MEM] for n in WRAPPERS})}")
+
+
+def mem_paths(tmp: pathlib.Path, rng) -> dict:
+    """The rows-in-memory cases on the main paths, launch counts zeroed
+    around each, on MEM_BATCH random rows of MEM_LEN residues with
+    MEM_PLANTED sequences sampled from the three-profile join (LENG 6977) at
+    known rows: `scan --stage search --domains` (the MSV, Viterbi, Forward,
+    row-saving Forward and backward cases; every planted row a hit with its
+    envelope inside it), `scan --stage search --fast` (the MSV filter and
+    Viterbi filter cases; the plain search's hit rows), `sweep` over both
+    joins (the stacked case) and, on the planted rows, the entry points
+    viterbi_scores(lazy=False) (eager) and forward_scores(prob_space=False)
+    (log-space)."""
+    hmm_dir = tmp / "hmms_mem"
+    hmm_dir.mkdir()
+    joins = mem_profiles()
+    for k, hmm in enumerate(joins):
+        (hmm_dir / f"mem{k}.hmm").write_text(format_hmm(hmm))
+    path = hmm_dir / "mem0.hmm"
+    seqs = sample_sequences(joins[0], MEM_PLANTED, seed=SEED)
+    width = max(MEM_LEN, max(len(q) for q in seqs))
+    tokens = rng.integers(0, 20, size=(MEM_BATCH, width)).astype(np.int8)
+    lengths = np.full(MEM_BATCH, MEM_LEN, dtype=np.int32)
+    planted = (np.arange(MEM_PLANTED) * (MEM_BATCH // MEM_PLANTED) + 17).astype(np.int64)
+    for row, seq in zip(planted, seqs):
+        tokens[row, : len(seq)] = seq
+        lengths[row] = len(seq)
+    letters = np.frombuffer(AMINO_ACIDS.encode(), dtype=np.uint8)[tokens]
+    fasta = tmp / "mem.fsa"
+    write_fasta(fasta, [FastaRecord(f"seq{i}", letters[i, : lengths[i]].tobytes().decode())
+                        for i in range(MEM_BATCH)])
+    p7 = P7Profile.from_profile(load_profile(path))  # as the CLI loads it
+    vit = "viterbi_lazy_scan" if p7_cuda.e_skip_d_ok(p7) else "viterbi_scan"
+    counts = {}
+
+    out = tmp / "mem_domains.tsv"
+    got, e2e, secs, records = run_cli(["scan", "--stage", "search", "--domains", "--hmm",
+                                       str(path), "--fasta", str(fasta), "--device", DEVICE,
+                                       "--out", str(out)])
+    for name in ("msv_scan", vit, "forward_prob_scan", "forward_save_scan",
+                 "backward_coverage_scan"):
+        require(got[name + MEM] > 0, f"the search --domains did not launch {name}'s memory case")
+        counts[name + MEM] = got[name + MEM]
+    lines = out.read_text().splitlines()
+    header = lines[0].lstrip("# ").split("\t")
+    hits = [dict(zip(header, line.split("\t"))) for line in lines[1:]]
+    hits = {int(r["target"][3:]): r for r in hits if r["hit"] == "1"}
+    for row in planted.tolist():
+        r = hits.get(row)
+        require(r is not None and int(r["ndom"]) >= 1, f"planted row {row}: no domain")
+        require(1 <= int(r["env_from"]) <= int(r["env_to"]) <= int(lengths[row]),
+                f"planted row {row}: envelope {r['env_from']}-{r['env_to']} outside "
+                f"1-{lengths[row]}")
+    summary = next(r.getMessage() for r in records if r.getMessage().startswith("search "))
+    print(f"main path rows in memory, search --domains (M {p7.num_states}): {summary}; "
+          f"{len(hits)} hits, every planted row (lengths {lengths[planted].tolist()}) a hit with "
+          f"its envelope inside it; launches {got}")
+    print_seconds("main path rows in memory, search --domains", secs, e2e)
+
+    fast_out = tmp / "mem_fast.tsv"
+    got, e2e, secs, _ = run_cli(["scan", "--stage", "search", "--fast", "--hmm", str(path),
+                                 "--fasta", str(fasta), "--device", DEVICE, "--out",
+                                 str(fast_out)])
+    for name in ("msv_filter_scan", "viterbi_filter_scan"):
+        require(got[name + MEM] > 0, f"the fast search did not launch {name}'s memory case")
+        counts[name + MEM] = got[name + MEM]
+    require(set(hit_rows(fast_out)) == {f"seq{r}" for r in hits},
+            "the fast search's hits differ from the search's")
+    print(f"main path rows in memory, search --fast: the search's {len(hits)} hits; "
+          f"launches {got}")
+    print_seconds("main path rows in memory, search --fast", secs, e2e)
+
+    out = tmp / "mem_sweep.tsv"
+    got, e2e, secs, _ = run_cli(["sweep", "--hmm-dir", str(hmm_dir), "--fasta", str(fasta),
+                                 "--device", DEVICE, "--out", str(out)])
+    require(got["msv_stacked_scan" + MEM] > 0, "the sweep did not launch the stacked memory case")
+    counts["msv_stacked_scan" + MEM] = got["msv_stacked_scan" + MEM]
+    rows = [line.split("\t") for line in out.read_text().splitlines() if not line.startswith("#")]
+    require(len(rows) == 2 * MEM_BATCH and all(np.isfinite(float(r[3])) for r in rows),
+            f"the sweep over the joins reported {len(rows)} rows or a non-finite score")
+    print(f"main path rows in memory, sweep over both joins: {len(rows)} rows; launches {got}")
+    print_seconds("main path rows in memory, sweep", secs, e2e)
+
+    l_max = int(lengths[planted].max())
+    zero_launches()
+    t0 = time.perf_counter()
+    vit_s = viterbi_scores(p7, tokens[planted, :l_max], lengths[planted], device=DEVICE,
+                           lazy=False).cpu().numpy()
+    log_s = forward_scores(p7, tokens[planted, :l_max], lengths[planted], device=DEVICE,
+                           prob_space=False).cpu().numpy()
+    got = launches()
+    for name in ("viterbi_scan", "forward_log_scan"):
+        require(got[name + MEM] > 0, f"the entry points did not launch {name}'s memory case")
+        counts[name + MEM] = got[name + MEM]
+    require(np.isfinite(vit_s).all() and np.isfinite(log_s).all(),
+            "rows-in-memory entry points: non-finite scores")
+    print(f"main path rows in memory, entries on the {MEM_PLANTED} planted rows: Viterbi (eager) "
+          f"{np.round(vit_s, 2).tolist()}, log-space Forward {np.round(log_s, 2).tolist()} in "
+          f"{time.perf_counter() - t0:.3f} s; launches {got}")
+    return counts
+
+
+def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
+    """Each rows-in-memory case once, after a warm-up launch, against the
+    three-profile join (LENG 6977) at MEM_TIME_LEN residues: MSV and the MSV
+    filter at WIDE_MSV_BATCH rows, the stacked kernel over both joins there
+    (two launches), the p7 kernels at SURVIVOR_BATCH rows and the posterior
+    pair at SURVIVOR_BATCH x 1024; each plain version once, held against the
+    kernel."""
+    hmms = mem_profiles()
+    msv = MSVProfile.from_profile(hmms[0])
+    p7 = P7Profile.from_profile(hmms[0])
+    out = {}
+    tokens = rng.integers(0, 20, size=(WIDE_MSV_BATCH, MEM_TIME_LEN)).astype(np.int8)
+    staged = scanner.stage(tokens, np.full(WIDE_MSV_BATCH, MEM_TIME_LEN, dtype=np.int32))
+    cells = staged.total_residues * msv.num_states
+    for name, fmode in (("msv_scan", False), ("msv_filter_scan", True)):
+        args = msv_args(scanner, msv, staged, filter_mode=fmode)
+        cuda_fn, plain_fn, what = MSV_FNS[fmode]
+        ms = best_ms(lambda: cuda_fn(*args), reps=1)
+        got = cuda_fn(*args)
+        plain_ms, want = once_ms(lambda: plain_fn(*args))
+        err = require_equal(got, want, f"memory-case {what} kernel vs plain at the timed shape")
+        errors[name + MEM] = max(errors[name + MEM], err)
+        out[name + MEM] = (ms, plain_ms)
+        work[name + MEM] = (OPS_PER_CELL["msv"](0) * cells, nbytes(*args) + nbytes(*want))
+        print(f"{name}{MEM}: {cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, after a warm-up, "
+              f"{WIDE_MSV_BATCH} x "
+              f"{MEM_TIME_LEN} x M={msv.num_states}); plain version {plain_ms:.3f} ms (once)",
+              flush=True)
+    both = [MSVProfile.from_profile(h) for h in hmms]
+    packs = [scanner._stacked_pack((p,), "exact") for p in both]
+    args = (staged.tokens, staged.lengths, staged.tr_rows)
+    ms = best_ms(lambda: [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs], reps=1)
+    got = [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs]
+    plain_ms, want = once_ms(lambda: [msv_cuda.msv_stacked_scan_plain(e, *args, c)
+                                      for e, c in packs])
+    err = require_equal(got, want, "memory-case stacked kernel vs plain at the timed shape")
+    both_cells = staged.total_residues * sum(p.num_states for p in both)
+    errors["msv_stacked_scan" + MEM] = max(errors["msv_stacked_scan" + MEM], err)
+    out["msv_stacked_scan" + MEM] = (ms, plain_ms)
+    work["msv_stacked_scan" + MEM] = (OPS_PER_CELL["msv"](0) * both_cells,
+                                      nbytes(*args, *(x for pk in packs for x in pk), *got))
+    print(f"msv_stacked_scan{MEM}: {both_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, once, "
+          f"{WIDE_MSV_BATCH} x {MEM_TIME_LEN} x M {'+'.join(str(p.num_states) for p in both)}, "
+          f"{len(packs)} launches); plain version {plain_ms:.3f} ms (once)", flush=True)
+
+    few = scanner.stage(tokens[:SURVIVOR_BATCH],
+                        np.full(SURVIVOR_BATCH, MEM_TIME_LEN, dtype=np.int32))
+    few_cells = few.total_residues * p7.num_states
+    packs = p7_packs(p7, scanner.device)
+    for name, kind in (("viterbi_lazy_scan", "lazy"), ("viterbi_scan", "eager"),
+                       ("forward_prob_scan", "forward"), ("viterbi_filter_scan", "filter"),
+                       ("forward_log_scan", "log")):
+        pack = packs[kind]
+        run, carry = p7_calls(kind, pack, few)
+        ms = best_ms(lambda: run(CUDA_FNS[kind], few.tokens, few.lengths, carry), reps=1)
+        got = run(CUDA_FNS[kind], few.tokens, few.lengths, carry)
+        plain_ms, want = once_ms(lambda: run(PLAIN_FNS[kind], few.tokens, few.lengths, carry))
+        if kind in ("forward", "log"):
+            err = max_abs_diff(got[0], want[0])
+            require(err <= FWD_TOL, f"memory-case {kind} kernel vs plain at the timed shape: {err}")
+        else:
+            err = require_equal(got, want, f"memory-case {kind} kernel vs plain at the timed shape")
+        errors[name + MEM] = max(errors[name + MEM], err)
+        out[name + MEM] = (ms, plain_ms)
+        inputs = (*pack[:4], pack.consts, few.tokens, few.lengths, few.tr_rows, *carry)
+        work[name + MEM] = (OPS_PER_CELL[kind](passes_of(kind, pack)) * few_cells,
+                            nbytes(*inputs, *got))
+        print(f"{name}{MEM}: {few_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, once, "
+              f"{SURVIVOR_BATCH} x {MEM_TIME_LEN} x M={p7.num_states}; "
+              f"{plan_text(kind, pack, SURVIVOR_BATCH)}); plain version {plain_ms:.3f} ms "
+              f"(once), kernel vs plain max|d|={err:.3g}", flush=True)
+
+    post = scanner.stage(tokens[:SURVIVOR_BATCH, :POST_TIME_LEN],
+                         np.full(SURVIVOR_BATCH, POST_TIME_LEN, dtype=np.int32))
+    post_cells = post.total_residues * p7.num_states
+    fpack = packs["forward"]
+    schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
+    fwd_in = (*fpack[:4], post.tokens, post.lengths, post.tr_rows, post.tr_probs, fpack.consts,
+              *p7_cuda.forward_init_carry(post.tr_probs, fpack.m_pad))
+    save_ms = best_ms(lambda: posterior_cuda.forward_save_scan_cuda(*fwd_in), reps=1)
+    saved = posterior_cuda.forward_save_scan_cuda(*fwd_in)
+    bwd_in = (fpack.emit_m, fpack.emit_i, fpack.trans, schain, post.tokens, post.lengths,
+              post.tr_probs, fpack.consts, saved[0], saved[5], saved[6])
+    bwd_ms = best_ms(lambda: posterior_cuda.backward_coverage_scan_cuda(*bwd_in), reps=1)
+    cov = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
+    plain_save_ms, p_saved = once_ms(lambda: posterior_cuda.forward_save_scan_plain(*fwd_in))
+    plain_bwd_ms, cov_p = once_ms(lambda: posterior_cuda.backward_coverage_scan_plain(*bwd_in))
+    c_err, t_err = max_abs_diff(cov, cov_p), max_abs_diff(saved[0], p_saved[0])
+    require(c_err <= COV_TOL and t_err <= TOT_TOL,
+            f"memory-case posterior kernels vs plain at the timed shape: {c_err}, {t_err}")
+    errors["backward_coverage_scan" + MEM] = max(errors["backward_coverage_scan" + MEM], c_err)
+    errors["forward_save_scan" + MEM] = max(errors["forward_save_scan" + MEM], t_err)
+    out["forward_save_scan" + MEM] = (save_ms, plain_save_ms)
+    out["backward_coverage_scan" + MEM] = (bwd_ms, plain_bwd_ms)
+    work["forward_save_scan" + MEM] = (OPS_PER_CELL["forward"](fpack.chain.shape[0]) * post_cells,
+                                       nbytes(*fwd_in, *saved))
+    work["backward_coverage_scan" + MEM] = (
+        OPS_PER_CELL["backward"](schain.shape[0]) * post_cells, nbytes(*bwd_in, cov))
+    print(f"posterior{MEM}: the row-saving Forward {save_ms:.3f} ms, the backward coverage pass "
+          f"{bwd_ms:.3f} ms (each once, {SURVIVOR_BATCH} x {POST_TIME_LEN} x M={p7.num_states}; "
+          f"{plan_text('backward', fpack, SURVIVOR_BATCH)}); plain versions "
           f"{plain_save_ms:.3f} + {plain_bwd_ms:.3f} ms (once); coverage max|d|={c_err:.3g}",
           flush=True)
     return out
@@ -1674,7 +2058,9 @@ def posterior_timings(scanner, rng, errors: dict, work: dict) -> dict:
     print(f"posterior_1400: {cells / post_ms / 1e6:.2f} GCUPS ({post_ms:.3f} ms, best of 3, "
           f"{shape}; the row-saving Forward {save_ms:.3f} ms "
           f"({plan_text('save', fpack, POST_TIME_BATCH)}), the backward coverage pass "
-          f"{bwd_ms:.3f} ms, each best of 3); plain versions {plain_save_ms:.3f} + "
+          f"{bwd_ms:.3f} ms ({plan_text('backward', fpack, POST_TIME_BATCH)}), each best of 3; "
+          f"bound {bound(*work['backward_coverage_scan'])[0]:.3f} ms); plain versions "
+          f"{plain_save_ms:.3f} + "
           f"{plain_bwd_ms:.3f} ms (once); kernels vs plain coverage max|d|={c_err:.3g} "
           f"totals max|d|={t_err:.3g}")
     print(f"posterior_mask_1400: {cells / mask_ms / 1e6:.2f} GCUPS ({mask_ms:.3f} ms, best of 3, "
@@ -1701,6 +2087,10 @@ def main() -> int:
     errors = dict.fromkeys(KERNELS, 0.0)
 
     with Phase("2. build"):
+        t0 = time.perf_counter()
+        loaded = native.native_available()  # the CLI's parser; it falls back to Python without it
+        print(f"native loader: {native._lib_path().name if loaded else native._load_error} "
+              f"({time.perf_counter() - t0:.2f} s)")
         lib_path, log = _build.build()
         print(f"library: {lib_path}")
         print("\n".join(ptxas_summary(log)))
@@ -1730,12 +2120,15 @@ def main() -> int:
         p7_kernels_vs_oracle(scanner, rng, errors)
         new_kernels_vs_oracle(scanner, rng, errors)
 
-    with Phase("8. profiles wider than 2432 states: every kernel vs plain"):
+    with Phase("8. profiles wider than 2432 states: every kernel's wide and rows-in-memory "
+               "cases vs plain"):
         wide_kernels_vs_plain(scanner, rng, errors)
+        mem_kernels_vs_plain(scanner, rng, errors)
 
     with Phase("9. main paths through the CLI and the entry points"):
         with tempfile.TemporaryDirectory() as tmp:
             counts = main_paths(pathlib.Path(tmp), rng, scanner)
+            counts.update(mem_paths(pathlib.Path(tmp), rng))
 
     work = {}
     with Phase("10. timings"):
@@ -1744,10 +2137,11 @@ def main() -> int:
         sweep_ms = sweep_timings(scanner, rng, errors, work)
         post_ms = posterior_timings(scanner, rng, errors, work)
         wide_ms = wide_timings(scanner, rng, errors, work)
+        mem_ms = mem_timings(scanner, rng, errors, work)
         print("card after timing:", nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
     times = {"msv_scan": (msv_ms["1400"], msv_ms["plain"]), "msv_filter_scan": msv_ms["filter"],
-             "msv_stacked_scan": sweep_ms["sweep24"], **post_ms, **wide_ms,
+             "msv_stacked_scan": sweep_ms["sweep24"], **post_ms, **wide_ms, **mem_ms,
              **{name: p7_ms[name] for name in KERNELS if name in p7_ms}}
     bounds = {name: bound(*work[name]) for name in KERNELS}
     for name, (ms, by) in bounds.items():

@@ -82,6 +82,15 @@
 //    through shared memory: at the end of each step warp 0's last state
 //    and each warp's E go into a parity buffer, one named barrier (bar.sync
 //    1 + pair, 64 threads) orders them, and both warps read both.
+//  * Past 4864 states (the rows-in-memory case, LANES = 1024, no width cap)
+//    one block of 1024 threads follows one sequence and keeps the M rows of
+//    the last step and of this one in two scratch rows of global memory a
+//    block, which the wrapper allocates (they stay in L2 while they fit),
+//    with a persistent grid over the batch; thread t handles the states t,
+//    t + 1024, ... (coalesced). M_j reads only M_{j-1} of the last step, so
+//    one barrier a step orders everything: E's block max, whose warp values
+//    go through a parity buffer. The table rows are read from L2. It aims at
+//    being right, not fast: the same float32 operations.
 //  * The profile of a block is blockIdx.y: it reads its own table and
 //    constants and writes row y of scores [P, B]. P = 1 is the single scan.
 //  * Float32 operations run in the order of ops/recurrence.py::msv_step
@@ -99,6 +108,7 @@ namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxThreads = 512;
+constexpr int kMemLanes = 1024;  // the rows-in-memory case: one block a sequence
 
 __device__ __forceinline__ float f32_neg_inf() { return -__int_as_float(0x7f800000); }
 
@@ -111,6 +121,7 @@ struct Entries;
 template <>
 struct Entries<float> {
   static __device__ __forceinline__ float neg_inf() { return f32_neg_inf(); }
+  static __device__ __forceinline__ float at(const float* row, int j) { return row[j]; }
   static __device__ __forceinline__ float4 load4(const float* row, int g) {
     return reinterpret_cast<const float4*>(row)[g];
   }
@@ -124,6 +135,9 @@ struct Entries<float> {
 template <>
 struct Entries<uint16_t> {
   static __device__ __forceinline__ uint16_t neg_inf() { return 0xff80u; }
+  static __device__ __forceinline__ float at(const uint16_t* row, int j) {
+    return __uint_as_float(static_cast<uint32_t>(row[j]) << 16);
+  }
   static __device__ __forceinline__ float4 load4(const uint16_t* row, int g) {
     const uint2 raw = reinterpret_cast<const uint2*>(row)[g];
     return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
@@ -347,6 +361,79 @@ __global__ void __launch_bounds__(kMaxThreads) msv_kernel(const MsvArgs a) {
   }
 }
 
+// The rows-in-memory case: msv_kernel's step over two scratch rows a block,
+// [P, gridDim.x, 2, m_pad] in `scratch`, in the same float32 operations.
+template <typename T>
+__global__ void __launch_bounds__(kMemLanes) msv_mem_kernel(const MsvArgs a, float* scratch) {
+  __shared__ int red[2][kMemLanes / 32];
+  const float neg_inf = f32_neg_inf();
+  const int prof = blockIdx.y;
+  const int m_pad = a.m_pad;
+  const int t = threadIdx.x;
+  const int b_pad = a.b_pad;
+  const T* my_emit = static_cast<const T*>(a.emit) + static_cast<size_t>(prof) * 20 * m_pad;
+  float* rows = scratch + (static_cast<size_t>(prof) * gridDim.x + blockIdx.x) * 2 * m_pad;
+  const float tr_b_mk = a.tr_consts[3 * prof];
+  const float tr_e_c = a.tr_consts[3 * prof + 1];
+  const float tr_e_j = a.tr_consts[3 * prof + 2];
+
+  for (int seq = blockIdx.x; seq < b_pad; seq += gridDim.x) {
+    const float tr_loop = a.tr_rows[seq];
+    const float tr_move = a.tr_rows[b_pad + seq];
+    const size_t at = static_cast<size_t>(seq) * m_pad;
+    for (int j = t; j < m_pad; j += kMemLanes) rows[j] = a.m_in != nullptr ? a.m_in[at + j] : neg_inf;
+    float st_j = neg_inf, st_c = neg_inf, st_n = 0.0f, st_b = tr_move;  // the row-0 carry
+    if (a.m_in != nullptr) {
+      st_j = a.s_in[seq];
+      st_c = a.s_in[b_pad + seq];
+      st_n = a.s_in[2 * b_pad + seq];
+      st_b = a.s_in[3 * b_pad + seq];
+    }
+    const int n = min(max(a.lengths[seq], 0), a.l_pad);
+    const int8_t* tok_row = a.tokens + static_cast<size_t>(seq) * a.l_pad;
+    int par = 0;
+    __syncthreads();
+    for (int pos = 0; pos < n; ++pos) {
+      const T* er = my_emit + min(max(static_cast<int>(tok_row[pos]), 0), 19) * m_pad;
+      const float* mo = rows + par * m_pad;
+      float* mn = rows + (par ^ 1) * m_pad;
+      const float bt = st_b + tr_b_mk;
+      float e = neg_inf;
+      for (int j = t; j < m_pad; j += kMemLanes) {
+        const float nm = Entries<T>::at(er, j) + fmaxf(j > 0 ? mo[j - 1] : neg_inf, bt);
+        mn[j] = nm;
+        e = fmaxf(e, nm);
+      }
+      const int key = warp_max_key(e);
+      if ((t & 31) == 0) red[par][t >> 5] = key;
+      __syncthreads();  // E's warp values, and the new row for the next step
+      int best = red[par][0];
+#pragma unroll
+      for (int w = 1; w < kMemLanes / 32; ++w) best = max(best, red[par][w]);
+      const float e_st = key_float(best);
+      st_j = fmaxf(st_j + tr_loop, e_st + tr_e_j);
+      st_c = fmaxf(st_c + tr_loop, e_st + tr_e_c);
+      st_n = st_n + tr_loop;
+      st_b = fmaxf(st_n + tr_move, st_j + tr_move);
+      par ^= 1;
+    }
+    if (a.m_out != nullptr) {
+      float* m_row_out = a.m_out + static_cast<size_t>(seq) * m_pad;
+      for (int j = t; j < m_pad; j += kMemLanes) m_row_out[j] = rows[par * m_pad + j];
+    }
+    if (t == 0) {
+      if (a.s_out != nullptr) {
+        a.s_out[seq] = st_j;
+        a.s_out[b_pad + seq] = st_c;
+        a.s_out[2 * b_pad + seq] = st_n;
+        a.s_out[3 * b_pad + seq] = st_b;
+      }
+      a.scores[static_cast<size_t>(prof) * b_pad + seq] = st_c + tr_move;
+    }
+    __syncthreads();  // the next sequence's row goes into these
+  }
+}
+
 template <int PER, int LANES, typename T>
 cudaError_t launch(int warps, int num_p, const MsvArgs& a, cudaStream_t stream) {
   const size_t smem = msv_smem_bytes<PER, LANES, T>(warps);
@@ -369,11 +456,15 @@ cudaError_t launch_mode(int bf16, int warps, int num_p, const MsvArgs& a, cudaSt
 }  // namespace
 
 // Plain C entry point, bound with ctypes. `lanes` (32: one warp a sequence;
-// 64: two) and `per`, the number of M states each lane holds, name the
-// kernel case: per 4, 12, ..., 76 at 32 lanes and 44, ..., 76 at 64 (the
-// Python wrapper's KERNEL_PER, WIDE_PER), with lanes * per >= m_pad (a
-// multiple of 8 at 64 lanes: the row copies are 16 or 8 bytes). `warps` is the number of warps a block, at most
-// kMaxThreads / 32 (even at 64 lanes). `bf16` selects the filter's bf16
+// 64: two; kMemLanes: the rows-in-memory case) and `per`, the number of M
+// states each lane holds (tiles of kMemLanes states in the last case), name
+// the kernel case: per 4, 12, ..., 76 at 32 lanes and 44, ..., 76 at 64 (the
+// Python wrapper's KERNEL_PER, WIDE_PER), any at kMemLanes, with lanes * per
+// >= m_pad (a multiple of 8 at 64 lanes: the row copies are 16 or 8 bytes).
+// `warps` is the number of warps a block, at most kMaxThreads / 32 (even at
+// 64 lanes; ignored at kMemLanes, whose block is kMemLanes threads and whose
+// persistent grid is `grid` blocks a profile, with `scratch` [num_p, grid,
+// 2, m_pad] floats). `bf16` selects the filter's bf16
 // table (16-bit entries) over f32; `num_p` profiles are stacked in emit
 // [num_p, 20, m_pad] and tr_consts [num_p, 3], and scores is [num_p, b_pad].
 // A null m_in starts from the row-0 carry (s_in is then not read); a null
@@ -384,9 +475,12 @@ extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf
                                const void* lengths, const void* tr_rows,
                                const void* tr_consts, const void* m_in,
                                const void* s_in, void* scores, void* m_out,
-                               void* s_out, int b_pad, void* stream) {
-  if (warps < 1 || warps * 32 > kMaxThreads || (warps * 32) % lanes != 0 ||
-      m_pad > lanes * per || (lanes == 64 && m_pad % 8 != 0) || num_p < 1 || num_p > 65535) {
+                               void* s_out, int b_pad, int grid, void* scratch, void* stream) {
+  const bool mem = lanes == kMemLanes;
+  if ((!mem && (warps < 1 || warps * 32 > kMaxThreads || (warps * 32) % lanes != 0)) ||
+      (mem && (grid < 1 || scratch == nullptr)) || m_pad < 1 ||
+      static_cast<long>(lanes) * per < m_pad || (lanes == 64 && m_pad % 8 != 0) || num_p < 1 ||
+      num_p > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -406,6 +500,15 @@ extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf
   a.s_out = static_cast<float*>(s_out);
   a.b_pad = b_pad;
   auto* st = static_cast<cudaStream_t>(stream);
+  if (mem) {
+    auto* rows = static_cast<float*>(scratch);
+    if (bf16) {
+      msv_mem_kernel<uint16_t><<<dim3(grid, num_p), kMemLanes, 0, st>>>(a, rows);
+    } else {
+      msv_mem_kernel<float><<<dim3(grid, num_p), kMemLanes, 0, st>>>(a, rows);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
 #define MSV_CASE(P, L) \
   case P:              \
     return static_cast<int>(launch_mode<P, L>(bf16, warps, num_p, a, st));

@@ -1,6 +1,8 @@
 // The blocked state layout and the per-group primitives shared by the p7
-// Viterbi / log-space Forward / Viterbi filter template (p7_viterbi.cuh) and
-// the probability-space Forward kernel (p7_forward_kernel.cu).
+// Viterbi / log-space Forward / Viterbi filter template (p7_viterbi.cuh), the
+// probability-space Forward kernel (p7_forward_kernel.cu) and the posterior
+// backward coverage pass (p7_backward_kernel.cu); and, past 256 * 19 = 4864
+// states, the rows-in-memory case's helpers (at the end).
 //
 // A block holds G groups of KT threads, KT = 128 (M_pad <= 128 * 19 = 2432)
 // or 256 (the wide case, M_pad <= 256 * 19 = 4864); G = blockDim.x / KT, at
@@ -28,8 +30,10 @@
 //   [2 * KT / 32]              the reduction scratch (two reductions)
 //   [kChunk / 4]               the tokens of the current chunk (int8)
 //   [1 row, SAVE only]         two bf16 rows of the row-saving Forward
-// Every part is a multiple of 16 bytes. ops/p7_cuda.py::blocked_smem_bytes
-// computes the same size; the launchers check it.
+// The backward pass lays out its group's part otherwise
+// (backward_group_floats). Every part is a multiple of 16 bytes.
+// ops/p7_cuda.py::blocked_smem_bytes computes the same size; the launchers
+// check it.
 //
 // At KT = 128 the six transition rows always fit beside one group (at most
 // 7 of the 24 rows of 227 KB at PER = 19); at KT = 256 a row is twice as
@@ -104,6 +108,17 @@ __host__ __device__ constexpr size_t smem_floats(int n_rows, int groups, bool sa
          static_cast<size_t>(groups) * group_floats<PER, KT, BF16>(save);
 }
 
+// Floats of one group's part of the backward pass's dynamic shared memory:
+// two shift rows, the (match, insert) odds rows of two steps, the saved bf16
+// forward rows of two steps (hstride layout), the reduction scratch of three
+// reductions (the coverage and B sums, the rescale max), the chunk's tokens
+// (int8), and its log scales and coverage.
+template <int PER, int KT>
+__host__ __device__ constexpr int backward_group_floats() {
+  return 6 * row_floats<PER, KT>() + 2 * erow_floats<PER, KT, true>() + 3 * warps<KT>() +
+         kChunk / 4 + 2 * kChunk;
+}
+
 // Shared-memory index of state j.
 template <int PER>
 __device__ __forceinline__ int sidx(int j) {
@@ -162,6 +177,11 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
+// Wait for every copy this thread committed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
 // Copy emission rows `aa` of the [20, m_pad] f32 tables into the group's
 // buffers at sidx layout (16-byte copies for odd PER, where sidx(j) = j;
 // 4-byte ones otherwise). The caller commits.
@@ -205,6 +225,19 @@ __device__ __forceinline__ void prefetch_emissions_bf16(uint16_t* dm, uint16_t* 
       cp_async4(dm + hidx<PER>(j), gm + j);
       cp_async4(di + hidx<PER>(j), gi + j);
     }
+  }
+}
+
+// One bf16 row `src` [m_pad] (the backward pass's saved forward row) into a
+// group's buffer at hidx layout, copied as prefetch_emissions_bf16 copies.
+// The caller commits.
+template <int PER, int KT>
+__device__ __forceinline__ void prefetch_row_bf16(uint16_t* dst, const uint16_t* src, int m_pad,
+                                                  int t) {
+  if constexpr (hstride<PER>() == PER) {
+    for (int c = t; c < m_pad / 8; c += KT) cp_async16(dst + 8 * c, src + 8 * c);
+  } else {
+    for (int j = 2 * t; j < m_pad; j += 2 * KT) cp_async4(dst + hidx<PER>(j), src + j);
   }
 }
 
@@ -303,6 +336,63 @@ __device__ __forceinline__ void shift(const float (&v)[PER], float (&out)[PER], 
   shift_big<PER, KT>(v, out, s, fill, buf, t, bar);
 }
 
+// The mirror of shift_small, toward lower j: out[k] = state j + S of v, for
+// S < PER: slots k < PER - S are register moves; the last S come from thread
+// t + 1 through `buf` (`fill` in the group's last thread).
+template <int PER, int KT, int S>
+__device__ __forceinline__ void shift_up_small(const float (&v)[PER], float (&out)[PER],
+                                               float fill, float* buf, int t, int bar) {
+  constexpr int SP = stride<PER>();
+#pragma unroll
+  for (int k = 0; k < S; ++k) buf[t * SP + k] = v[k];
+  group_sync<KT>(bar);
+  const int next = (t + 1 < KT ? t + 1 : t) * SP;
+#pragma unroll
+  for (int k = 0; k < S; ++k) out[PER - S + k] = t + 1 < KT ? buf[next + k] : fill;
+#pragma unroll
+  for (int k = 0; k < PER - S; ++k) out[k] = v[k + S];
+}
+
+// The mirror of shift_big: the whole row goes through `buf`.
+template <int PER, int KT>
+__device__ __forceinline__ void shift_up_big(const float (&v)[PER], float (&out)[PER], int s,
+                                             float fill, float* buf, int t, int bar) {
+  constexpr int SP = stride<PER>();
+  constexpr int N = KT * PER;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) buf[t * SP + k] = v[k];
+  group_sync<KT>(bar);
+  const int base = t * PER + s;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = base + k;
+    out[k] = j < N ? buf[sidx<PER>(j < N ? j : 0)] : fill;
+  }
+}
+
+// out[k] = state j + s of v, `fill` past the group's KT * PER states: one
+// barrier. The shifts by 1, 2, 4, 8 and 16 below PER move registers.
+template <int PER, int KT>
+__device__ __forceinline__ void shift_up(const float (&v)[PER], float (&out)[PER], int s,
+                                         float fill, float* buf, int t, int bar) {
+  if constexpr (PER > 1) {
+    if (s == 1) return shift_up_small<PER, KT, 1>(v, out, fill, buf, t, bar);
+  }
+  if constexpr (PER > 2) {
+    if (s == 2) return shift_up_small<PER, KT, 2>(v, out, fill, buf, t, bar);
+  }
+  if constexpr (PER > 4) {
+    if (s == 4) return shift_up_small<PER, KT, 4>(v, out, fill, buf, t, bar);
+  }
+  if constexpr (PER > 8) {
+    if (s == 8) return shift_up_small<PER, KT, 8>(v, out, fill, buf, t, bar);
+  }
+  if constexpr (PER > 16) {
+    if (s == 16) return shift_up_small<PER, KT, 16>(v, out, fill, buf, t, bar);
+  }
+  shift_up_big<PER, KT>(v, out, s, fill, buf, t, bar);
+}
+
 // The group's max or sum of its warps' values in `red`, in a fixed order:
 // pairs of neighbours, then pairs of pairs.
 template <bool SUM, int KT>
@@ -337,6 +427,22 @@ __device__ __forceinline__ float group_reduce(float v, float* red, int t, int ba
   if ((t & 31) == 0) red[t >> 5] = v;
   group_sync<KT>(bar);
   return combine_warps<SUM, KT>(red);
+}
+
+// Group-wide sums of two values a thread, each combined as group_reduce
+// combines one (`red`: 2 * KT / 32 floats, a's then b's).
+template <int KT>
+__device__ __forceinline__ void group_sum2(float& a, float& b, float* red, int t, int bar) {
+  constexpr int W = warps<KT>();
+  a = warp_reduce<true>(a);
+  b = warp_reduce<true>(b);
+  if ((t & 31) == 0) {
+    red[t >> 5] = a;
+    red[W + (t >> 5)] = b;
+  }
+  group_sync<KT>(bar);
+  a = combine_warps<true, KT>(red);
+  b = combine_warps<true, KT>(red + W);
 }
 
 // One carry row of a sequence between global memory [m_pad] (coalesced)
@@ -464,5 +570,70 @@ __host__ inline int case_slot(int threads, int per) {
   return threads == 128 ? per - 1 : 19 + per - 10;
 }
 constexpr int kCaseSlots = 29;
+
+// -- the rows-in-memory case --------------------------------------------------
+//
+// Past 256 * 19 = 4864 states (up to 65536, the 16-row chain) neither a
+// group's registers nor an SM's shared memory hold the DP rows. One block of
+// kMemThreads threads follows one sequence (G = 1, a persistent grid) and
+// keeps every row in global memory: kMemRows scratch rows of m_pad floats a
+// block, [grid, kMemRows, m_pad], which the wrapper allocates (they stay in
+// L2 while they fit), the rows of the last step and of this one by parity,
+// and two rows for the chain's passes. Thread t handles the states t,
+// t + kMemThreads, ...: it walks the row a tile of kMemThreads contiguous
+// states at a time, so a warp's loads and stores are coalesced. A step is a
+// chain of phases, each a loop over the thread's states that reads what was
+// written before the last __syncthreads and writes only its own states, so
+// the block barrier orders every dependency across threads; a thread reads
+// back its own writes without one. The constant rows are read from global
+// memory (L2). The case is meant to be right, not fast: it runs the register
+// cases' float32 operations on the same operands.
+constexpr int kMemThreads = 1024;
+constexpr int kMemWarps = kMemThreads / 32;
+constexpr int kMemRows = 8;
+
+// Row r of this block's scratch rows.
+__device__ __forceinline__ float* mem_row(float* scratch, int r, int m_pad) {
+  return scratch + (static_cast<size_t>(blockIdx.x) * kMemRows + r) * m_pad;
+}
+
+// Block-wide max or sum of one value a thread: a warp butterfly, then the
+// 32 warps' values in a fixed order (pairs of neighbours, then pairs of
+// pairs). `red` holds 2 * kMemWarps floats; calls alternate halves (`n`
+// counts them), so a call never writes the half whose readers the last
+// call's barrier has not yet passed.
+struct BlockReduce {
+  float* red;
+  int n;
+
+  template <bool SUM>
+  __device__ __forceinline__ float run(float v) {
+    float* r = red + kMemWarps * (n++ & 1);
+    v = warp_reduce<SUM>(v);
+    if ((threadIdx.x & 31) == 0) r[threadIdx.x >> 5] = v;
+    __syncthreads();
+    float x[kMemWarps / 2];
+#pragma unroll
+    for (int i = 0; i < kMemWarps / 2; ++i) {
+      x[i] = SUM ? r[2 * i] + r[2 * i + 1] : fmaxf(r[2 * i], r[2 * i + 1]);
+    }
+#pragma unroll
+    for (int w = kMemWarps / 4; w >= 1; w >>= 1) {
+#pragma unroll
+      for (int i = 0; i < w; ++i) {
+        x[i] = SUM ? x[2 * i] + x[2 * i + 1] : fmaxf(x[2 * i], x[2 * i + 1]);
+      }
+    }
+    return x[0];
+  }
+};
+
+// The launch shape of the rows-in-memory case: one group of kMemThreads
+// threads a block, no dynamic shared memory, kMemThreads * per >= m_pad, and
+// the scratch rows.
+inline bool mem_plan_ok(int m_pad, int per, int groups, int grid, int smem, const void* scratch) {
+  return m_pad >= 1 && static_cast<long>(kMemThreads) * per >= m_pad && groups == 1 &&
+         grid >= 1 && smem == 0 && scratch != nullptr;
+}
 
 }  // namespace

@@ -68,6 +68,9 @@
 //    differs from the plain PyTorch version by rounding only.
 //  * It launches on the caller's stream, allocates nothing and does not
 //    synchronise. The C entry point returns cudaGetLastError().
+//  * Past 256 * 19 = 4864 states the rows-in-memory case
+//    (forward_mem_kernel, p7_blocked.cuh) runs the same step with every row
+//    in global memory, one 1024-thread block a sequence.
 
 #include <cuda_bf16.h>
 
@@ -303,6 +306,168 @@ __global__ void forward_kernel(const ForwardArgs a) {
   }
 }
 
+// SAVE: rows n .. l_pad - 1 of sequence `seq` are 0, as forward_kernel
+// stores them: one contiguous run of 16-byte stores.
+__device__ __forceinline__ void zero_saved_tail(const ForwardArgs& a, int seq, int n, int t,
+                                                int threads) {
+  const size_t first = (static_cast<size_t>(seq) * a.l_pad + n) * a.m_pad / 8;
+  const size_t last = static_cast<size_t>(seq + 1) * a.l_pad * a.m_pad / 8;
+  uint4* fm16 = reinterpret_cast<uint4*>(a.fm);
+  for (size_t c = first + t; c < last; c += threads) fm16[c] = make_uint4(0, 0, 0, 0);
+  for (int pos = n + t; pos < a.l_pad; pos += threads) {
+    a.ls[static_cast<size_t>(seq) * a.l_pad + pos] = 0.0f;
+  }
+}
+
+// The rows-in-memory case (p7_blocked.cuh, past 4864 states): one block of
+// kMemThreads threads a sequence, forward_kernel's step over the block's
+// scratch rows (`scratch`, [grid, kMemRows, m_pad]) with the same float32
+// operations on the same operands. Rows by parity p: M at 0 + p, I at 2 + p,
+// D at 4 + p, the chain's two rows at 6 and 7; the chain's first pass takes
+// the shift by one (it reads M * tmd at j - 1 and j - 2). E and the rescale
+// max are block reductions (the sum in another fixed order than the register
+// cases'). SAVE stores each thread's states of the bf16 row (coalesced
+// 2-byte stores).
+template <bool SAVE>
+__global__ void __launch_bounds__(kMemThreads)
+    forward_mem_kernel(const ForwardArgs a, float* scratch) {
+  __shared__ float red_buf[2 * kMemWarps];
+  BlockReduce red{red_buf, 0};
+  const int m_pad = a.m_pad;
+  const int t = threadIdx.x;
+  const int b_pad = a.b_pad;
+  const float p_b_mk = a.consts[0];
+  const float p_e_c = a.consts[1];
+  const float p_e_j = a.consts[2];
+  const float* tmm = a.trans;
+  const float* tmi = a.trans + m_pad;
+  const float* tmd = a.trans + 2 * m_pad;
+  const float* tim = a.trans + 3 * m_pad;
+  const float* tii = a.trans + 4 * m_pad;
+  const float* tdm = a.trans + 5 * m_pad;
+  auto row = [&](int r) { return mem_row(scratch, r, m_pad); };
+
+  for (int seq = blockIdx.x; seq < b_pad; seq += gridDim.x) {
+    const size_t base = static_cast<size_t>(seq) * m_pad;
+    for (int j = t; j < m_pad; j += kMemThreads) {
+      row(0)[j] = a.m_in[base + j];
+      row(2)[j] = a.i_in[base + j];
+      row(4)[j] = a.d_in[base + j];
+    }
+    float sj = a.s_in[seq];
+    float sc = a.s_in[b_pad + seq];
+    float sn = a.s_in[2 * b_pad + seq];
+    float sb = a.s_in[3 * b_pad + seq];
+    float log_scale = a.s_in[4 * b_pad + seq];
+    float comp = a.s_in[5 * b_pad + seq];
+    const float p_loop = a.tr_probs[seq];
+    const float p_move = a.tr_probs[b_pad + seq];
+    const int n = min(max(a.lengths[seq], 0), a.l_pad);
+    const int8_t* tok_row = a.tokens + static_cast<size_t>(seq) * a.l_pad;
+    int par = 0;
+    __syncthreads();
+
+    for (int pos = 0; pos < n; ++pos) {
+      const int aa = min(max(static_cast<int>(tok_row[pos]), 0), 19);
+      const float* mo = a.modds + static_cast<size_t>(aa) * m_pad;
+      const float* io = a.iodds + static_cast<size_t>(aa) * m_pad;
+      const float* mp = row(par);
+      const float* ip = row(2 + par);
+      const float* dp = row(4 + par);
+      float* mn = row(par ^ 1);
+      float* in = row(2 + (par ^ 1));
+      float* dn = row(4 + (par ^ 1));
+      const float bp = sb * p_b_mk;
+      __nv_bfloat16* frow =
+          SAVE ? a.fm + (static_cast<size_t>(seq) * a.l_pad + pos) * m_pad : nullptr;
+      for (int j = t; j < m_pad; j += kMemThreads) {
+        float diag = 0.0f;  // the j-1 diagonal, shifted in with 0
+        if (j > 0) {
+          const int i = j - 1;
+          diag = mp[i] * tmm[i] + ip[i] * tim[i] + dp[i] * tdm[i];
+        }
+        const float nm = mo[j] * (diag + bp);
+        in[j] = io[j] * (mp[j] * tmi[j] + ip[j] * tii[j]);
+        mn[j] = nm;
+        row(6)[j] = nm * tmd[j];
+        if (SAVE) frow[j] = __float2bfloat16_rn(nm);
+      }
+      if (SAVE && t == 0) a.ls[static_cast<size_t>(seq) * a.l_pad + pos] = log_scale;
+      __syncthreads();
+
+      const float* src = row(6);
+      float* dst = row(7);
+      for (int p = 0; p < a.window; ++p) {
+        const int s = 1 << p;
+        const float* c = a.chain + static_cast<size_t>(p) * m_pad;
+        for (int j = t; j < m_pad; j += kMemThreads) {
+          // pass 0 reads a = the M * tmd row shifted by one
+          const float cur = p == 0 ? (j >= 1 ? src[j - 1] : 0.0f) : src[j];
+          const int from = p == 0 ? j - 2 : j - s;
+          dst[j] = cur + (from >= 0 ? src[from] : 0.0f) * c[j];
+        }
+        __syncthreads();
+        const float* done = dst;
+        dst = const_cast<float*>(src);
+        src = done;
+      }
+
+      float e = 0.0f, mx = 0.0f;
+      for (int j = t; j < m_pad; j += kMemThreads) {
+        const float ac = src[j];
+        const float nm = mn[j];
+        dn[j] = ac;
+        e += nm + ac;
+        mx = fmaxf(mx, nm);
+      }
+      e = red.run<true>(e);
+      sj = sj * p_loop + e * p_e_j;
+      sc = sc * p_loop + e * p_e_c;
+      sn = sn * p_loop;
+      sb = sn * p_move + sj * p_move;
+      if ((pos + 1) % a.group == 0) {
+        mx = red.run<false>(mx);
+        const float s = fmaxf(fmaxf(mx, sc), fmaxf(sn, 1e-30f));
+        const float inv = 1.0f / s;
+        const float y = logf(s) - comp;
+        const float t_sum = log_scale + y;
+        comp = (t_sum - log_scale) - y;
+        log_scale = t_sum;
+        for (int j = t; j < m_pad; j += kMemThreads) {
+          mn[j] *= inv;
+          in[j] *= inv;
+          dn[j] *= inv;
+        }
+        sj *= inv;
+        sc *= inv;
+        sn *= inv;
+        sb *= inv;
+        __syncthreads();
+      }
+      par ^= 1;
+    }
+
+    if (SAVE) zero_saved_tail(a, seq, n, t, kMemThreads);
+    for (int j = t; j < m_pad; j += kMemThreads) {
+      a.m_out[base + j] = row(par)[j];
+      a.i_out[base + j] = row(2 + par)[j];
+      a.d_out[base + j] = row(4 + par)[j];
+    }
+    if (t == 0) {
+      a.s_out[seq] = sj;
+      a.s_out[b_pad + seq] = sc;
+      a.s_out[2 * b_pad + seq] = sn;
+      a.s_out[3 * b_pad + seq] = sb;
+      a.s_out[4 * b_pad + seq] = log_scale;
+      a.s_out[5 * b_pad + seq] = comp;
+      a.s_out[6 * b_pad + seq] = a.s_in[6 * b_pad + seq];
+      a.s_out[7 * b_pad + seq] = a.s_in[7 * b_pad + seq];
+      a.scores[seq] = (logf(sc) + log_scale) + a.tr_rows[b_pad + seq];
+    }
+    __syncthreads();  // the next sequence's carries go into these rows
+  }
+}
+
 unsigned smem_set[2][kCaseSlots];  // devices whose kernel case allows kMaxSmem
 
 template <int PER, int KT>
@@ -338,13 +503,15 @@ struct Case {
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `threads` (128 or 256) and `per`
-// name the kernel case, with threads * per >= m_pad (a multiple of 8);
-// `window` is the chain's row count, the first `n_chain` staged in shared
-// memory with the first `n_trans` transition rows; the kernel rescales after every `group` residues. `fm`
-// and `ls` null run the plain Forward, both set the saving pass. `groups`,
-// `grid` and `smem` are the launch plan of ops/p7_cuda.py::plan_launch
-// (checked). Returns a cudaError_t.
+// Plain C entry point, bound with ctypes. `threads` (128 or 256, or
+// kMemThreads for the rows-in-memory case) and `per` name the kernel case,
+// with threads * per >= m_pad (a multiple of 8); `window` is the chain's row
+// count, the first `n_chain` staged in shared memory with the first
+// `n_trans` transition rows; the kernel rescales after every `group`
+// residues. `fm` and `ls` null run the plain Forward, both set the saving
+// pass. `groups`, `grid` and `smem` are the launch plan of
+// ops/p7_cuda.py::plan_launch (checked); `scratch` the rows-in-memory
+// case's rows (null otherwise). Returns a cudaError_t.
 extern "C" int p7_forward_launch(int device, int threads, int per, const void* modds,
                                  const void* iodds, const void* trans, const void* chain,
                                  int m_pad, int window, int n_chain, int n_trans, int group,
@@ -353,8 +520,8 @@ extern "C" int p7_forward_launch(int device, int threads, int per, const void* m
                                  const void* tr_probs, const void* consts, const void* m_in,
                                  const void* i_in, const void* d_in, const void* s_in,
                                  void* scores, void* m_out, void* i_out, void* d_out,
-                                 void* s_out, void* fm, void* ls, int b_pad, int groups,
-                                 int grid, int smem, void* stream) {
+                                 void* s_out, void* fm, void* ls, void* scratch, int b_pad,
+                                 int groups, int grid, int smem, void* stream) {
   if (m_pad < 1 || m_pad % 8 != 0 || window < 1 || window > 16 || n_chain < 0 ||
       n_chain > window || group < 1 || b_pad < 1 || (fm == nullptr) != (ls == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -390,6 +557,18 @@ extern "C" int p7_forward_launch(int device, int threads, int per, const void* m
   a.ls = static_cast<float*>(ls);
   a.b_pad = b_pad;
   auto* st = static_cast<cudaStream_t>(stream);
+  if (threads == kMemThreads) {
+    if (!mem_plan_ok(m_pad, per, groups, grid, smem, scratch)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    auto* rows = static_cast<float*>(scratch);
+    if (fm != nullptr) {
+      forward_mem_kernel<true><<<grid, kMemThreads, 0, st>>>(a, rows);
+    } else {
+      forward_mem_kernel<false><<<grid, kMemThreads, 0, st>>>(a, rows);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   return static_cast<int>(with_case<Case>(threads, per, [&](auto c) {
     return decltype(c)::launch(a, device, groups, grid, smem, st);
   }));
@@ -398,6 +577,13 @@ extern "C" int p7_forward_launch(int device, int threads, int per, const void* m
 // Registers a thread of the case uses (`save`: the row-saving case), for
 // the launch plan. Returns a cudaError_t.
 extern "C" int p7_forward_regs(int threads, int per, int save, int* regs) {
+  if (threads == kMemThreads) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = save ? cudaFuncGetAttributes(&attr, forward_mem_kernel<true>)
+                                 : cudaFuncGetAttributes(&attr, forward_mem_kernel<false>);
+    *regs = attr.numRegs;
+    return static_cast<int>(err);
+  }
   return static_cast<int>(with_case<Case>(
       threads, per, [&](auto c) { return decltype(c)::regs(save != 0, regs); }));
 }

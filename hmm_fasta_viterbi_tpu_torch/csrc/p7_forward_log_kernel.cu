@@ -36,11 +36,13 @@ struct Case {
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `threads` (128 or 256) and `per`
-// name the kernel case, with threads * per >= m_pad; the chain runs
-// `n_passes` passes, the first `n_chain` rows staged in shared memory with
-// the first `n_trans` transition rows; `groups`, `grid` and `smem` are the
-// launch plan (checked). Returns a cudaError_t.
+// Plain C entry point, bound with ctypes. `threads` (128 or 256, or
+// kMemThreads for the rows-in-memory case) and `per` name the kernel case,
+// with threads * per >= m_pad; the chain runs `n_passes` passes, the first
+// `n_chain` rows staged in shared memory with the first `n_trans`
+// transition rows; `groups`, `grid` and `smem` are the launch plan
+// (checked); `scratch` the rows-in-memory case's rows (null otherwise).
+// Returns a cudaError_t.
 extern "C" int p7_forward_log_launch(int device, int threads, int per, const void* msc,
                                      const void* isc, const void* trans, const void* chain,
                                      int m_pad, int n_passes, int n_chain, int n_trans,
@@ -48,8 +50,8 @@ extern "C" int p7_forward_log_launch(int device, int threads, int per, const voi
                                      const void* tr_rows, const void* consts, const void* m_in,
                                      const void* i_in, const void* d_in, const void* s_in,
                                      void* scores, void* m_out, void* i_out, void* d_out,
-                                     void* s_out, int b_pad, int groups, int grid, int smem,
-                                     void* stream) {
+                                     void* s_out, void* scratch, int b_pad, int groups, int grid,
+                                     int smem, void* stream) {
   if (n_passes > 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -57,6 +59,10 @@ extern "C" int p7_forward_log_launch(int device, int threads, int per, const voi
                                   n_trans, tokens, l_pad, lengths, tr_rows, consts, m_in, i_in,
                                   d_in, s_in, scores, m_out, i_out, d_out, s_out, nullptr, b_pad);
   auto* st = static_cast<cudaStream_t>(stream);
+  if (threads == kMemThreads) {
+    return static_cast<int>(
+        launch_mem<false, true, false>(a, scratch, false, per, groups, grid, smem, st));
+  }
   return static_cast<int>(with_case<Case>(threads, per, [&](auto c) {
     return decltype(c)::launch(a, device, groups, grid, smem, st);
   }));
@@ -64,6 +70,9 @@ extern "C" int p7_forward_log_launch(int device, int threads, int per, const voi
 
 // Registers a thread of the case uses, for the launch plan.
 extern "C" int p7_forward_log_regs(int threads, int per, int* regs) {
+  if (threads == kMemThreads) {
+    return static_cast<int>(kernel_regs(viterbi_mem_kernel<false, true, false>, regs));
+  }
   return static_cast<int>(
       with_case<Case>(threads, per, [&](auto c) { return decltype(c)::regs(regs); }));
 }

@@ -115,6 +115,10 @@
 //    counted per sequence. The specials stay in registers.
 //  * It launches on the caller's stream, allocates nothing and does not
 //    synchronise. The C entry points return cudaGetLastError().
+//  * Past 256 * 19 = 4864 states (up to the chain's 65536) the
+//    rows-in-memory case (viterbi_mem_kernel, p7_blocked.cuh) runs the same
+//    step with every row in global memory, one 1024-thread block a
+//    sequence.
 
 #pragma once
 
@@ -489,6 +493,210 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
   }
 }
 
+// The rows-in-memory case (p7_blocked.cuh, past 4864 states): one block of
+// kMemThreads threads a sequence, run_chunk's step over the block's scratch
+// rows (`scratch`, [grid, kMemRows, m_pad]) with the same float32
+// operations on the same operands. Rows by parity p: M at 0 + p, I at 2 + p, D (or the lazy pre_diag) at 4 + p, the
+// chain's two rows at 6 and 7. The shift by one that enters the chain is
+// taken by its first pass, which reads a0 at j - 1 and j - 2 of the M + tmd
+// row. E is a block reduction (max; in Forward mode a max, then a sum in
+// another fixed order than the register cases'); the lazy certificate's
+// fire is a block OR at the chunk's end.
+template <bool LAZY, bool LSE, bool FILT>
+__global__ void __launch_bounds__(kMemThreads)
+    viterbi_mem_kernel(const ViterbiArgs a, float* scratch) {
+  __shared__ float red_buf[2 * kMemWarps];
+  BlockReduce red{red_buf, 0};
+  const int m_pad = a.m_pad;
+  const int t = threadIdx.x;
+  const float ninf = neg_inf();
+  const bool certify = LAZY && a.k_run < a.n_passes;
+  const int passes = (LAZY || FILT) ? a.k_run : a.n_passes;
+  const bool truncated = FILT && passes < a.n_passes;
+  const bool e_of_m = LAZY || (FILT && a.e_skip_d != 0);  // E = max_j M_j
+  const float tr_b_mk = a.consts[0];
+  const float tr_e_c = a.consts[1];
+  const float tr_e_j = a.consts[2];
+  const float aux = FILT ? a.consts[3] : 0.0f;
+  const float tmd_max = LAZY ? a.consts[4] : 0.0f;
+  const float* tmm = a.trans;
+  const float* tmi = a.trans + m_pad;
+  const float* tmd = a.trans + 2 * m_pad;
+  const float* tim = a.trans + 3 * m_pad;
+  const float* tii = a.trans + 4 * m_pad;
+  const float* tdm = a.trans + 5 * m_pad;
+  auto row = [&](int r) { return mem_row(scratch, r, m_pad); };
+  // entry j of emission row aa: f32, or bf16 widened exactly (FILT)
+  auto emit = [&](const void* tab, int aa, int j) -> float {
+    const size_t at = static_cast<size_t>(aa) * m_pad + j;
+    if constexpr (FILT) {
+      return __uint_as_float(static_cast<uint32_t>(static_cast<const uint16_t*>(tab)[at]) << 16);
+    } else {
+      return static_cast<const float*>(tab)[at];
+    }
+  };
+
+  for (int seq = blockIdx.x; seq < a.b_pad; seq += gridDim.x) {
+    const size_t base = static_cast<size_t>(seq) * m_pad;
+    for (int j = t; j < m_pad; j += kMemThreads) {
+      row(0)[j] = a.m_in[base + j];
+      row(2)[j] = a.i_in[base + j];
+      row(4)[j] = a.d_in[base + j];
+    }
+    float sj = a.s_in[seq];
+    float sc = a.s_in[a.b_pad + seq];
+    float sn = a.s_in[2 * a.b_pad + seq];
+    float sb = a.s_in[3 * a.b_pad + seq];
+    const float tr_loop = a.tr_rows[seq];
+    const float tr_move = a.tr_rows[a.b_pad + seq];
+    const int n = min(max(a.lengths[seq], 0), a.l_pad);
+    const int8_t* tok_row = a.tokens + static_cast<size_t>(seq) * a.l_pad;
+    int par = 0;
+    int replays = 0;
+    __syncthreads();
+
+    // steps [c0, c0 + count) with `run` chain passes; returns whether the
+    // certificate fired in this thread's states (cert only)
+    auto steps = [&](int c0, int count, int run, bool cert) {
+      bool viol = false;
+      for (int pos = c0; pos < c0 + count; ++pos) {
+        const int aa = min(max(static_cast<int>(tok_row[pos]), 0), 19);
+        const float* mo = row(par);
+        const float* io = row(2 + par);
+        const float* dp = row(4 + par);
+        float* mn = row(par ^ 1);
+        float* in = row(2 + (par ^ 1));
+        float* dn = row(4 + (par ^ 1));
+        const float bt = sb + tr_b_mk;
+        float e_m = ninf, a_max = ninf;
+        for (int j = t; j < m_pad; j += kMemThreads) {
+          float diag = ninf;  // the j-1 diagonal: pre_diag of the last step, shifted by one
+          if (j > 0) {
+            const int i = j - 1;
+            diag = LAZY ? dp[i]
+                        : combine<LSE>(combine<LSE>(mo[i] + tmm[i], io[i] + tim[i]), dp[i] + tdm[i]);
+          }
+          const float nm = emit(a.msc, aa, j) + combine<LSE>(diag, bt);
+          in[j] = emit(a.isc, aa, j) + combine<LSE>(mo[j] + tmi[j], io[j] + tii[j]);
+          mn[j] = nm;
+          const float pd = nm + tmd[j];
+          row(6)[j] = pd;
+          e_m = fmaxf(e_m, nm);
+          a_max = fmaxf(a_max, pd);
+        }
+        float e_nm = 0.0f, tail = 0.0f;
+        if (e_of_m) e_nm = red.run<false>(e_m);
+        if (truncated) tail = red.run<false>(a_max) + aux;
+        if (!e_of_m && !truncated) __syncthreads();
+
+        const float* src = row(6);
+        float* dst = row(7);
+        for (int p = 0; p < run; ++p) {
+          const int s = 1 << p;
+          const float* c = a.chain + static_cast<size_t>(p) * m_pad;
+          for (int j = t; j < m_pad; j += kMemThreads) {
+            // pass 0 reads a0 = the M + tmd row shifted by one
+            const float cur = p == 0 ? (j >= 1 ? src[j - 1] : ninf) : src[j];
+            const int from = p == 0 ? j - 2 : j - s;
+            const float sh = from >= 0 ? src[from] : ninf;
+            dst[j] = combine<LSE>(cur, sh + c[j]);
+          }
+          __syncthreads();
+          const float* done = dst;
+          dst = const_cast<float*>(src);
+          src = done;
+        }
+
+        float e_f = ninf;
+        for (int j = t; j < m_pad; j += kMemThreads) {
+          float ac = src[j];
+          if (truncated) ac = fmaxf(ac, tail);
+          const float nm = mn[j];
+          if (LAZY) {
+            const float stay = fmaxf(nm + tmm[j], in[j] + tim[j]);
+            const float npd = fmaxf(stay, ac + tdm[j]);
+            if (cert) {
+              // the bound's own rounding path, in this order
+              const float t_row = ((e_nm + tmd_max) + a.chain[15 * static_cast<size_t>(m_pad) + j]) +
+                                  tdm[j];
+              viol |= t_row > npd;
+            }
+            dn[j] = npd;
+          } else {
+            dn[j] = ac;
+            e_f = fmaxf(e_f, LSE ? combine<true>(nm, ac) : (e_of_m ? nm : fmaxf(nm, ac)));
+          }
+        }
+        float e;
+        if (e_of_m) {
+          e = e_nm;
+          __syncthreads();
+        } else if (LSE) {
+          const float mx = red.run<false>(e_f);
+          float sum = 0.0f;
+          for (int j = t; j < m_pad; j += kMemThreads) {
+            const float x = combine<true>(mn[j], dn[j]);
+            sum += expf(x == mx ? 0.0f : x - mx);
+          }
+          e = mx + logf(red.run<true>(sum));
+        } else {
+          e = red.run<false>(e_f);
+        }
+        sj = combine<LSE>(sj + tr_loop, e + tr_e_j);
+        sc = combine<LSE>(sc + tr_loop, e + tr_e_c);
+        sn = sn + tr_loop;
+        sb = combine<LSE>(sn + tr_move, sj + tr_move);
+        par ^= 1;
+      }
+      return viol;
+    };
+
+    for (int c0 = 0; c0 < n; c0 += kChunk) {
+      const int count = min(kChunk, n - c0);
+      if (certify) {
+        // the chunk's entry, in the output carries
+        for (int j = t; j < m_pad; j += kMemThreads) {
+          a.m_out[base + j] = row(par)[j];
+          a.i_out[base + j] = row(2 + par)[j];
+          a.d_out[base + j] = row(4 + par)[j];
+        }
+        const float ej = sj, ec = sc, en = sn, eb = sb;
+        if (__syncthreads_or(steps(c0, count, a.k_run, true))) {
+          for (int j = t; j < m_pad; j += kMemThreads) {
+            row(par)[j] = a.m_out[base + j];
+            row(2 + par)[j] = a.i_out[base + j];
+            row(4 + par)[j] = a.d_out[base + j];
+          }
+          sj = ej;
+          sc = ec;
+          sn = en;
+          sb = eb;
+          __syncthreads();
+          steps(c0, count, a.n_passes, false);
+          ++replays;
+        }
+      } else {
+        steps(c0, count, passes, false);
+      }
+    }
+
+    for (int j = t; j < m_pad; j += kMemThreads) {
+      a.m_out[base + j] = row(par)[j];
+      a.i_out[base + j] = row(2 + par)[j];
+      a.d_out[base + j] = row(4 + par)[j];
+    }
+    if (t == 0) {
+      a.s_out[seq] = sj;
+      a.s_out[a.b_pad + seq] = sc;
+      a.s_out[2 * a.b_pad + seq] = sn;
+      a.s_out[3 * a.b_pad + seq] = sb;
+      a.scores[seq] = sc + tr_move;
+      if (LAZY) a.replays[seq] = replays;
+    }
+    __syncthreads();  // the next sequence's carries go into these rows
+  }
+}
+
 // The pointer arguments of the C entry points, in their order.
 inline ViterbiArgs make_args(const void* msc, const void* isc, const void* trans,
                              const void* chain, int m_pad, int n_passes, int k_run, int n_chain,
@@ -549,6 +757,22 @@ cudaError_t launch_planned(Kernel kernel, const ViterbiArgs& a, int device, unsi
   const cudaError_t err = allow_smem(kernel, device, done);
   if (err != cudaSuccess) return err;
   kernel<<<grid, groups * kt, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Checks the rows-in-memory case's operands as viterbi_plan_ok checks a
+// register case's (the lazy kernel certifies only below 16 passes: row 15
+// of its chain holds Cmax), and launches it.
+template <bool LAZY, bool LSE, bool FILT>
+cudaError_t launch_mem(const ViterbiArgs& a, void* scratch, bool windowed, int per, int groups,
+                       int grid, int smem, cudaStream_t stream) {
+  const bool ok = a.m_pad % 8 == 0 && a.n_passes >= 1 && a.n_passes <= 16 && a.k_run >= 1 &&
+                  a.k_run <= a.n_passes && (windowed || a.k_run == a.n_passes) &&
+                  (!LAZY || a.k_run == a.n_passes || a.n_passes <= 15) && a.b_pad >= 1 &&
+                  mem_plan_ok(a.m_pad, per, groups, grid, smem, scratch);
+  if (!ok) return cudaErrorInvalidValue;
+  viterbi_mem_kernel<LAZY, LSE, FILT>
+      <<<grid, kMemThreads, 0, stream>>>(a, static_cast<float*>(scratch));
   return cudaGetLastError();
 }
 

@@ -34,14 +34,16 @@ struct Case {
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `threads` (128 or 256) and `per`
-// name the kernel case, with threads * per >= m_pad; msc/isc are the bf16
+// Plain C entry point, bound with ctypes. `threads` (128 or 256, or
+// kMemThreads for the rows-in-memory case) and `per` name the kernel case,
+// with threads * per >= m_pad; msc/isc are the bf16
 // round-up tables [20, m_pad]; `full_passes` = ceil(log2 m_pad) and 1 <=
 // window <= full_passes; a tail term (consts[3]) is applied when window <
 // full_passes; `e_skip_d` takes E over M alone. `n_chain` of the window's
 // chain rows and `n_trans` transition rows are staged; `groups`, `grid` and
-// `smem` are the launch plan of ops/p7_cuda.py::plan_launch (checked).
-// Returns a cudaError_t.
+// `smem` are the launch plan of ops/p7_cuda.py::plan_launch (checked);
+// `scratch` the rows-in-memory case's rows (null otherwise). Returns a
+// cudaError_t.
 extern "C" int p7_filter_launch(int device, int threads, int per, const void* msc,
                                 const void* isc, const void* trans, const void* chain,
                                 int m_pad, int full_passes, int window, int n_chain,
@@ -49,8 +51,8 @@ extern "C" int p7_filter_launch(int device, int threads, int per, const void* ms
                                 const void* lengths, const void* tr_rows, const void* consts,
                                 const void* m_in, const void* i_in, const void* d_in,
                                 const void* s_in, void* scores, void* m_out, void* i_out,
-                                void* d_out, void* s_out, int b_pad, int groups, int grid,
-                                int smem, void* stream) {
+                                void* d_out, void* s_out, void* scratch, int b_pad, int groups,
+                                int grid, int smem, void* stream) {
   if (full_passes > 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -59,6 +61,10 @@ extern "C" int p7_filter_launch(int device, int threads, int per, const void* ms
                             scores, m_out, i_out, d_out, s_out, nullptr, b_pad);
   a.e_skip_d = e_skip_d;
   auto* st = static_cast<cudaStream_t>(stream);
+  if (threads == kMemThreads) {
+    return static_cast<int>(
+        launch_mem<false, false, true>(a, scratch, true, per, groups, grid, smem, st));
+  }
   return static_cast<int>(with_case<Case>(threads, per, [&](auto c) {
     return decltype(c)::launch(a, device, groups, grid, smem, st);
   }));
@@ -66,6 +72,9 @@ extern "C" int p7_filter_launch(int device, int threads, int per, const void* ms
 
 // Registers a thread of the case uses, for the launch plan.
 extern "C" int p7_filter_regs(int threads, int per, int* regs) {
+  if (threads == kMemThreads) {
+    return static_cast<int>(kernel_regs(viterbi_mem_kernel<false, false, true>, regs));
+  }
   return static_cast<int>(
       with_case<Case>(threads, per, [&](auto c) { return decltype(c)::regs(regs); }));
 }

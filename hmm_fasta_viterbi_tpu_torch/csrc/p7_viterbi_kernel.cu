@@ -35,14 +35,16 @@ struct Case {
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `threads` (128 or 256) and `per`
-// name the kernel case, with threads * per >= m_pad; `lazy` selects the lazy
-// kernel, which runs `k_run` passes under the certificate (k_run ==
-// n_passes: the full chain, no certificate). `n_trans` transition rows and
-// `n_chain` chain rows are staged in shared memory; `groups` sequences a
-// block, `grid` blocks and `smem` bytes of dynamic shared memory are the
-// launch plan of ops/p7_cuda.py::plan_launch (checked here). Returns a
-// cudaError_t.
+// Plain C entry point, bound with ctypes. `threads` (128 or 256, or
+// kMemThreads for the rows-in-memory case) and `per` name the kernel case,
+// with threads * per >= m_pad; `lazy` selects the lazy kernel, which runs
+// `k_run` passes under the certificate (k_run == n_passes: the full chain,
+// no certificate). `n_trans` transition rows and `n_chain` chain rows are
+// staged in shared memory; `groups` sequences a block, `grid` blocks and
+// `smem` bytes of dynamic shared memory are the launch plan of
+// ops/p7_cuda.py::plan_launch (checked here); `scratch` holds the
+// rows-in-memory case's [grid, kMemRows, m_pad] rows (null otherwise).
+// Returns a cudaError_t.
 extern "C" int p7_viterbi_launch(int device, int threads, int per, int lazy, const void* msc,
                                  const void* isc, const void* trans, const void* chain,
                                  int m_pad, int n_passes, int k_run, int n_chain, int n_trans,
@@ -50,15 +52,21 @@ extern "C" int p7_viterbi_launch(int device, int threads, int per, int lazy, con
                                  const void* tr_rows, const void* consts, const void* m_in,
                                  const void* i_in, const void* d_in, const void* s_in,
                                  void* scores, void* m_out, void* i_out, void* d_out,
-                                 void* s_out, void* replays, int b_pad, int groups, int grid,
-                                 int smem, void* stream) {
-  if (n_passes > 15) return static_cast<int>(cudaErrorInvalidValue);
+                                 void* s_out, void* replays, void* scratch, int b_pad,
+                                 int groups, int grid, int smem, void* stream) {
+  if (n_passes > 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const ViterbiArgs a = make_args(msc, isc, trans, chain, m_pad, n_passes, k_run, n_chain,
                                   n_trans, tokens, l_pad, lengths, tr_rows, consts, m_in, i_in,
                                   d_in, s_in, scores, m_out, i_out, d_out, s_out, replays, b_pad);
   auto* st = static_cast<cudaStream_t>(stream);
+  if (threads == kMemThreads) {
+    return static_cast<int>(
+        lazy ? launch_mem<true, false, false>(a, scratch, true, per, groups, grid, smem, st)
+             : launch_mem<false, false, false>(a, scratch, false, per, groups, grid, smem, st));
+  }
+  if (n_passes > 15) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_case<Case>(threads, per, [&](auto c) {
     return decltype(c)::launch(lazy != 0, a, device, groups, grid, smem, st);
   }));
@@ -67,6 +75,10 @@ extern "C" int p7_viterbi_launch(int device, int threads, int per, int lazy, con
 // Registers a thread of the case uses (`lazy`: the lazy kernel), for the
 // launch plan. Returns a cudaError_t.
 extern "C" int p7_viterbi_regs(int threads, int per, int lazy, int* regs) {
+  if (threads == kMemThreads) {
+    return static_cast<int>(lazy ? kernel_regs(viterbi_mem_kernel<true, false, false>, regs)
+                                 : kernel_regs(viterbi_mem_kernel<false, false, false>, regs));
+  }
   return static_cast<int>(with_case<Case>(
       threads, per, [&](auto c) { return decltype(c)::regs(lazy != 0, regs); }));
 }

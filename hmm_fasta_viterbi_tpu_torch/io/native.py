@@ -5,16 +5,24 @@ its TPU-framework equivalent: a zero-copy-ish loader producing the dense
 arrays the device paths consume, with the pure-Python parsers
 (io.hmmio / io.fastaio) as the always-available semantic reference.
 
-Loading policy: try the prebuilt shared library; if missing, attempt one
-(quiet) compile with g++; on any failure every entry point raises
-``NativeUnavailable`` and callers fall back to Python parsing.
+Loading policy: the port builds its own copy of the library from
+``native/fastparse.cpp`` with the flags of ``native/Makefile`` into
+``hmm_fasta_viterbi_tpu_torch/_kernels/`` (never into ``native/build/``,
+which the JAX package builds and reads), under a name that hashes the
+source and the flags. The compiler writes a file of this process's own,
+which ``os.replace`` then puts under the final name, so no process can
+load a half-written library; only a finished file is loaded. On any
+failure every entry point raises ``NativeUnavailable`` and callers fall
+back to Python parsing.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import hashlib
 import logging
+import os
 import pathlib
 import subprocess
 
@@ -27,7 +35,10 @@ from .alphabet import NUM_AMINO_ACIDS
 logger = logging.getLogger(__name__)
 
 _NATIVE_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "native"
-_LIB_PATH = _NATIVE_DIR / "build" / "libfastparse.so"
+_SOURCE = _NATIVE_DIR / "fastparse.cpp"
+_BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_kernels"
+# native/Makefile's CXXFLAGS less its warnings, and -shared
+_CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared")
 _ABI_VERSION = 3
 
 
@@ -67,10 +78,24 @@ _lib = None
 _load_error: str | None = None
 
 
-def _build() -> bool:
+def _lib_path() -> pathlib.Path:
+    """The port's build of the library: ``_kernels/libfastparse-<key>.so``,
+    ``key`` hashing the source and the flags (an edited source builds
+    anew)."""
+    digest = hashlib.sha256(" ".join(_CXX_FLAGS).encode())
+    digest.update(_SOURCE.read_bytes())
+    return _BUILD_DIR / f"libfastparse-{digest.hexdigest()[:16]}.so"
+
+
+def _build(path: pathlib.Path) -> bool:
+    """Compile the library into a file of this process, then move it to
+    ``path`` with ``os.replace``: another process sees no file or a whole
+    one."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.tmp.{os.getpid()}")
     try:
         proc = subprocess.run(
-            ["make", "-C", str(_NATIVE_DIR)],
+            [os.environ.get("CXX", "g++"), *_CXX_FLAGS, str(_SOURCE), "-o", str(tmp)],
             capture_output=True,
             timeout=120,
             text=True,
@@ -78,10 +103,13 @@ def _build() -> bool:
         if proc.returncode != 0:
             logger.debug("native build failed: %s", proc.stderr[-500:])
             return False
-        return _LIB_PATH.exists()
+        os.replace(tmp, path)
+        return True
     except Exception as e:  # pragma: no cover
         logger.debug("native build error: %s", e)
         return False
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 def _load():
@@ -90,16 +118,20 @@ def _load():
         return _lib
     if _load_error is not None:
         raise NativeUnavailable(_load_error)
-    if not _LIB_PATH.exists() and not _build():
-        _load_error = "libfastparse.so not found and build failed"
+    try:
+        path = _lib_path()
+    except OSError as e:
+        _load_error = f"cannot read {_SOURCE}: {e}"
+        raise NativeUnavailable(_load_error) from e
+    if not path.exists() and not _build(path):
+        _load_error = f"{path.name} not found and build failed"
         raise NativeUnavailable(_load_error)
     try:
-        lib = ctypes.CDLL(str(_LIB_PATH))
+        lib = ctypes.CDLL(str(path))
         lib.fp_abi_version.restype = ctypes.c_int32
         if lib.fp_abi_version() != _ABI_VERSION:
-            # stale build from an older checkout: rebuild once instead
+            # a build of another ABI under this name: rebuild once instead
             # of disabling the native loader for the process lifetime
-            # (delete first — make would consider the old .so up to date)
             logger.info("fastparse ABI %d != %d, rebuilding",
                         lib.fp_abi_version(), _ABI_VERSION)
             import _ctypes
@@ -107,14 +139,10 @@ def _load():
             handle = lib._handle
             del lib
             _ctypes.dlclose(handle)  # or dlopen would return the stale mapping
-            try:
-                _LIB_PATH.unlink()
-            except OSError:
-                pass
-            if not _build():
+            if not _build(path):
                 _load_error = "fastparse ABI mismatch and rebuild failed"
                 raise NativeUnavailable(_load_error)
-            lib = ctypes.CDLL(str(_LIB_PATH))
+            lib = ctypes.CDLL(str(path))
             lib.fp_abi_version.restype = ctypes.c_int32
             if lib.fp_abi_version() != _ABI_VERSION:
                 _load_error = "fastparse ABI mismatch after rebuild"
@@ -139,7 +167,7 @@ def _load():
         lib.fp_fasta_next.restype = ctypes.c_int32
         lib.fp_fasta_close.argtypes = [ctypes.c_void_p]
     except OSError as e:  # pragma: no cover
-        _load_error = f"failed to load {_LIB_PATH}: {e}"
+        _load_error = f"failed to load {path}: {e}"
         raise NativeUnavailable(_load_error) from e
     _lib = lib
     return lib

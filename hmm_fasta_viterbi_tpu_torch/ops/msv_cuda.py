@@ -63,11 +63,16 @@ NUM_AA = 20
 # switch of csrc/msv_kernel.cu: a warp holds 32 * PER states. Each is
 # 8q + 4 so that a quarter-warp's float4 reads of the table miss each
 # other's banks. Past 32 * 76 = 2432 states two warps (64 lanes) follow one
-# sequence, at the WIDE_PER cases, up to 64 * 76 = 4864.
+# sequence, at the WIDE_PER cases, up to 64 * 76 = 4864. Past that the
+# rows-in-memory case (MEM_LANES threads a sequence, its M rows in global
+# memory) takes any width: the kernel has no cap, as the TPU kernel has none.
 KERNEL_PER = (4, 12, 20, 28, 36, 44, 52, 60, 68, 76)
 WIDE_PER = (44, 52, 60, 68, 76)
 MAX_WARP_STATES = 32 * KERNEL_PER[-1]  # 2432 >= 2405, the largest of the 24 profiles
-MAX_KERNEL_STATES = 64 * WIDE_PER[-1]  # 4864
+MAX_WIDE_STATES = 64 * WIDE_PER[-1]  # 4864
+MEM_LANES = 1024
+# blocks of the rows-in-memory case an SM runs at once (2048 threads)
+MEM_BLOCKS_PER_SM = 2
 
 
 def round_up(x: int, m: int) -> int:
@@ -278,7 +283,7 @@ def _kernel_library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.msv_scan_launch.argtypes = [
-        i, i, i, i, i, i, p, i, p, i, p, p, p, p, p, p, p, p, i, p,
+        i, i, i, i, i, i, p, i, p, i, p, p, p, p, p, p, p, p, i, i, p, p,
     ]
     lib.msv_scan_launch.restype = i
     lib.msv_error_string.argtypes = [i]
@@ -288,17 +293,15 @@ def _kernel_library() -> ctypes.CDLL:
 
 def kernel_case(m_pad: int) -> tuple[int, int]:
     """``(lanes, per)``: the kernel case of an M row of ``m_pad`` states,
-    one warp a sequence (32 lanes) up to MAX_WARP_STATES, two warps (64)
-    past it; each lane holds ``per`` states. Raises ``ValueError`` past
-    MAX_KERNEL_STATES."""
+    one warp a sequence (32 lanes) up to MAX_WARP_STATES, two warps (64) up
+    to MAX_WIDE_STATES, each lane holding ``per`` states in registers; past
+    that the rows-in-memory case, MEM_LANES threads walking ``per`` tiles of
+    MEM_LANES states. Any width has a case."""
     for lanes, pers in ((32, KERNEL_PER), (64, WIDE_PER)):
         for per in pers:
             if lanes * per >= m_pad:
                 return lanes, per
-    raise ValueError(
-        f"M_pad = {m_pad} exceeds the MSV kernel's limit of "
-        f"{MAX_KERNEL_STATES} states (64 lanes x {WIDE_PER[-1]})"
-    )
+    return MEM_LANES, -(-m_pad // MEM_LANES)
 
 
 def kernel_per(m_pad: int) -> int:
@@ -327,18 +330,29 @@ def block_warps(lanes: int, per: int, entry_bytes: int) -> int:
     ``msv_smem_bytes``): at 32 lanes 16 when the table takes over half the
     SM's shared memory (one block an SM), else 8; at 64 lanes 16 when the
     warps' two row buffers (and each pair's 32-byte exchange slots) fit,
-    else 8."""
+    else 8; MEM_LANES / 32 in the rows-in-memory case."""
+    if lanes == MEM_LANES:
+        return MEM_LANES // 32
     if lanes == 32:
         return 16 if 2 * entry_bytes * NUM_AA * 32 * per > SMEM_PER_SM else 8
     wide = 16 * 2 * 32 * per * entry_bytes + 8 * 32
     return 16 if wide <= SMEM_PER_SM else 8
 
 
-def count_launch(wrapper, wide: bool) -> None:
+def count_launch(wrapper, wide: bool, mem: bool = False) -> None:
     """One more launch of ``wrapper``'s kernel; ``wide`` counts it also in
-    ``wrapper.wide_launches`` (a case past 2432 states)."""
+    ``wrapper.wide_launches`` (a register case past 2432 states), ``mem`` in
+    ``wrapper.mem_launches`` (the rows-in-memory case, past 4864)."""
     wrapper.launches += 1
     wrapper.wide_launches += int(wide)
+    wrapper.mem_launches += int(mem)
+
+
+def _count(wrapper, m_pad: int) -> None:
+    """Count a launch of ``wrapper``'s kernel at ``m_pad`` states, apart for
+    the 64-lane and the rows-in-memory cases."""
+    lanes = kernel_case(m_pad)[0]
+    count_launch(wrapper, lanes == 64, lanes == MEM_LANES)
 
 
 def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry):
@@ -374,6 +388,12 @@ def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry):
     if b_pad == 0:
         return scores, m_out, s_out
     warps = block_warps(lanes, per, emit.element_size())
+    grid, scratch = 0, None
+    if lanes == MEM_LANES:
+        # a persistent grid; two scratch rows a block and profile
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        grid = min(b_pad, MEM_BLOCKS_PER_SM * sms)
+        scratch = torch.empty((num_p, grid, 2, m_pad), dtype=torch.float32, device=device)
     lib = _kernel_library()
 
     def ptr(t):
@@ -383,7 +403,7 @@ def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry):
         device.index, lanes, per, warps, int(emit.dtype == torch.bfloat16), num_p,
         emit.data_ptr(), m_pad, tokens.data_ptr(), l_pad, lengths.data_ptr(),
         tr_rows.data_ptr(), tr_consts.data_ptr(), ptr(m_in), ptr(s_in),
-        scores.data_ptr(), ptr(m_out), ptr(s_out), b_pad,
+        scores.data_ptr(), ptr(m_out), ptr(s_out), b_pad, grid, ptr(scratch),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
@@ -407,7 +427,7 @@ def msv_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s):
     kernel does not take and on a refused launch; never falls back."""
     out = _single("MSV", torch.float32, emit, tokens, lengths, tr_rows, tr_consts, m, s)
     if tokens.shape[0]:
-        count_launch(msv_scan_cuda, emit.shape[1] > MAX_WARP_STATES)
+        _count(msv_scan_cuda, emit.shape[1])
     return out
 
 
@@ -417,7 +437,7 @@ def msv_filter_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s):
     out = _single("MSV filter", torch.bfloat16, emit, tokens, lengths, tr_rows, tr_consts,
                   m, s)
     if tokens.shape[0]:
-        count_launch(msv_filter_scan_cuda, emit.shape[1] > MAX_WARP_STATES)
+        _count(msv_filter_scan_cuda, emit.shape[1])
     return out
 
 
@@ -426,13 +446,14 @@ def msv_stacked_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts):
     profile); same arguments and results as :func:`msv_stacked_scan`."""
     scores, _, _ = _launch("stacked MSV", emit, tokens, lengths, tr_rows, tr_consts, None)
     if tokens.shape[0]:
-        count_launch(msv_stacked_scan_cuda, emit.shape[2] > MAX_WARP_STATES)
+        _count(msv_stacked_scan_cuda, emit.shape[2])
     return scores
 
 
-# kernel launches in this process, and those of them past MAX_WARP_STATES
+# kernel launches in this process, those of them at 64 lanes and those of
+# the rows-in-memory case
 for _fn in (msv_scan_cuda, msv_filter_scan_cuda, msv_stacked_scan_cuda):
-    _fn.launches = _fn.wide_launches = 0
+    _fn.launches = _fn.wide_launches = _fn.mem_launches = 0
 
 
 def msv_scan(emit, tokens, lengths, tr_rows, tr_consts, m, s):

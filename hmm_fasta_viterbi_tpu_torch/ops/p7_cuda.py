@@ -15,9 +15,12 @@ The counterparts of ``hmm_fasta_viterbi_tpu/ops/pallas_p7.py``:
   Viterbi filter of the fast cascade: bf16 round-up emissions, a chain of
   ``window`` passes and a tail term bounding the longer delete runs.
 
-The kernels take M_pad up to MAX_KERNEL_STATES = 4864: groups of
-KERNEL_THREADS threads a sequence up to 2432 states, WIDE_THREADS past it
-(:func:`kernel_case`); the plain versions have no cap.
+The kernels take M_pad up to MAX_KERNEL_STATES = 65536 (the 16-row delete
+chain, as the TPU kernels): groups of KERNEL_THREADS threads a sequence up
+to 2432 states and of WIDE_THREADS up to 4864, with the rows in registers,
+and past that the rows-in-memory case, MEM_THREADS threads a sequence with
+its rows in global memory (:func:`kernel_case`); the plain versions have no
+cap.
 
 The host packers are numpy copies of the JAX ones (that module imports
 jax) and return the same arrays byte for byte, in the TPU's ``[M_pad, …]``
@@ -84,19 +87,22 @@ LAZY_CHUNK = 128
 # ratio to the power 8, far inside float32's range
 FWD_RESCALE_GROUP = 8
 # threads that follow one sequence in the kernels: KERNEL_THREADS up to
-# KERNEL_THREADS * 19 = 2432 states, WIDE_THREADS past it. The posterior
-# backward pass stripes the states: state j lives in thread j % threads,
-# register slot j // threads. The Viterbi, log-space Forward, Viterbi
-# filter and Forward kernels block them: thread t owns states t * per ..
-# t * per + per - 1 (csrc/p7_blocked.cuh)
+# KERNEL_THREADS * 19 = 2432 states, WIDE_THREADS up to 4864, each thread
+# owning states t * per .. t * per + per - 1 in registers
+# (csrc/p7_blocked.cuh); past that MEM_THREADS threads a sequence in the
+# rows-in-memory case, thread t handling states t, t + MEM_THREADS, ... of
+# rows kept in MEM_ROWS scratch rows of global memory a block
 KERNEL_THREADS = 128
 WIDE_THREADS = 256
+MEM_THREADS = 1024
+MEM_ROWS = 8
 # states per thread: one template case each in csrc/p7_*_kernel.cu, at
 # KERNEL_THREADS (KERNEL_PER) and at WIDE_THREADS (WIDE_PER)
 KERNEL_PER = tuple(range(1, 20))
 WIDE_PER = tuple(range(10, 20))
 MAX_GROUP_STATES = KERNEL_THREADS * KERNEL_PER[-1]  # 2432 >= 2405, the largest of the 24
-MAX_KERNEL_STATES = WIDE_THREADS * WIDE_PER[-1]  # 4864
+MAX_WIDE_STATES = WIDE_THREADS * WIDE_PER[-1]  # 4864
+MAX_KERNEL_STATES = 1 << 16  # 65536: the 16 rows of the delete chain
 
 # the blocked kernels' launch plan (csrc/p7_blocked.cuh): at most
 # MAX_BLOCK_THREADS threads a block (MAX_GROUPS groups of KERNEL_THREADS, 4
@@ -109,10 +115,16 @@ THREADS_PER_SM = 2048
 # transition rows a blocked kernel reads every step (tmm tmi tmd tim tii
 # tdm); the plan stages all of them at KERNEL_THREADS
 TRANS_ROWS = 6
+# the backward pass's cases held to 128 registers (__launch_bounds__ of
+# BOUNDED_THREADS, csrc/p7_backward_kernel.cu::backward_case): these slots
+# a thread at KERNEL_THREADS
+BACKWARD_BOUNDED_PER = range(9, 13)
+BOUNDED_THREADS = 512
 # the blocked kernels' cases: each stages its transition rows, its chain
 # rows and, for the lazy kernel's certificate, Cmax; the filter keeps its
-# emission rows as bf16
-BLOCKED_KINDS = ("eager", "lazy", "log", "forward", "save", "filter")
+# emission rows as bf16; the posterior backward pass its suffix chain, its
+# saved bf16 rows and its chunk's log scales and coverage
+BLOCKED_KINDS = ("eager", "lazy", "log", "forward", "save", "filter", "backward")
 
 # auto-picked lazy window and truncated prob-space chain: the constants of
 # pallas_p7 (LAZY_TAIL_DAMP_NATS, PROB_CHAIN_L_MAX, PROB_CHAIN_REL_ERR)
@@ -757,30 +769,36 @@ def _kernel_library() -> ctypes.CDLL:
     lib = _build.load_library()
     p = ctypes.c_void_p
     c = ctypes.c_int
+    # each launcher ends with: scratch, b_pad, groups, grid, smem, stream
+    tail = [p, c, c, c, c, p]
     lib.p7_viterbi_launch.argtypes = [
         c, c, c, c, p, p, p, p, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p,
-        c, c, c, c, p,
+        *tail,
     ]
     lib.p7_forward_launch.argtypes = [
         c, c, c, p, p, p, p, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-        p, c, c, c, c, p,
+        p, *tail,
     ]
     lib.p7_forward_log_launch.argtypes = [
-        c, c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, c, c, c,
-        c, p,
+        c, c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, *tail,
     ]
     lib.p7_filter_launch.argtypes = [
-        c, c, c, p, p, p, p, c, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, c,
-        c, c, c, p,
+        c, c, c, p, p, p, p, c, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p,
+        *tail,
+    ]
+    lib.p7_backward_launch.argtypes = [
+        c, c, c, p, p, p, p, c, c, c, c, c, p, c, p, p, p, p, p, p, p, *tail,
     ]
     regs = ctypes.POINTER(c)
     lib.p7_viterbi_regs.argtypes = [c, c, c, regs]
     lib.p7_forward_log_regs.argtypes = [c, c, regs]
     lib.p7_forward_regs.argtypes = [c, c, c, regs]
     lib.p7_filter_regs.argtypes = [c, c, regs]
+    lib.p7_backward_regs.argtypes = [c, c, regs]
     for fn in (lib.p7_viterbi_launch, lib.p7_forward_launch, lib.p7_forward_log_launch,
-               lib.p7_filter_launch, lib.p7_viterbi_regs, lib.p7_forward_log_regs,
-               lib.p7_forward_regs, lib.p7_filter_regs):
+               lib.p7_filter_launch, lib.p7_backward_launch, lib.p7_viterbi_regs,
+               lib.p7_forward_log_regs, lib.p7_forward_regs, lib.p7_filter_regs,
+               lib.p7_backward_regs):
         fn.restype = c
     lib.msv_error_string.argtypes = [c]
     lib.msv_error_string.restype = ctypes.c_char_p
@@ -789,16 +807,19 @@ def _kernel_library() -> ctypes.CDLL:
 
 def kernel_case(m_pad: int) -> tuple[int, int]:
     """``(threads, per)``: the kernel case of ``m_pad`` states, KERNEL_THREADS
-    threads a sequence up to MAX_GROUP_STATES, WIDE_THREADS past it, each
-    thread holding ``per`` states. Raises ``ValueError`` past
-    MAX_KERNEL_STATES."""
+    threads a sequence up to MAX_GROUP_STATES and WIDE_THREADS up to
+    MAX_WIDE_STATES, each thread holding ``per`` states in registers; past
+    that the rows-in-memory case, MEM_THREADS threads walking ``per`` tiles
+    of MEM_THREADS states. Raises ``ValueError`` past MAX_KERNEL_STATES."""
     if m_pad <= MAX_GROUP_STATES:
         return KERNEL_THREADS, max(-(-m_pad // KERNEL_THREADS), 1)
-    if m_pad <= MAX_KERNEL_STATES:
+    if m_pad <= MAX_WIDE_STATES:
         return WIDE_THREADS, -(-m_pad // WIDE_THREADS)
+    if m_pad <= MAX_KERNEL_STATES:
+        return MEM_THREADS, -(-m_pad // MEM_THREADS)
     raise ValueError(
         f"M_pad = {m_pad} exceeds the p7 kernels' limit of {MAX_KERNEL_STATES} "
-        f"states ({WIDE_THREADS} threads x {WIDE_PER[-1]})"
+        f"states (the delete chain's 16 rows)"
     )
 
 
@@ -823,15 +844,23 @@ def bf16_stride(per: int) -> int:
 
 
 def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
-                       threads: int = KERNEL_THREADS, bf16: bool = False) -> int:
+                       threads: int = KERNEL_THREADS, bf16: bool = False,
+                       backward: bool = False) -> int:
     """Dynamic shared memory of a blocked kernel's block
     (``csrc/p7_blocked.cuh::smem_floats``): ``n_rows`` staged rows, then
     per group two shift rows, four emission rows (f32, or with ``bf16`` the
     filter's bf16 rows), the reduction scratch (two floats a warp), the
-    token chunk (int8) and, for the row-saving Forward, two bf16 rows."""
+    token chunk (int8) and, for the row-saving Forward, two bf16 rows. With
+    ``backward``, the backward pass's group (``backward_group_floats``): two
+    shift rows, four f32 odds rows, two bf16 saved rows, three floats a
+    warp, the token chunk and the chunk's log scales and coverage."""
     row = threads * blocked_stride(per)
-    erow = threads * bf16_stride(per) // 2 if bf16 else row
-    group = 2 * row + 4 * erow + 2 * (threads // 32) + LAZY_CHUNK // 4 + (row if save else 0)
+    hrow = threads * bf16_stride(per) // 2
+    if backward:
+        group = 6 * row + 2 * hrow + 3 * (threads // 32) + LAZY_CHUNK // 4 + 2 * LAZY_CHUNK
+    else:
+        erow = hrow if bf16 else row
+        group = 2 * row + 4 * erow + 2 * (threads // 32) + LAZY_CHUNK // 4 + (row if save else 0)
     return 4 * (n_rows * row + groups * group)
 
 
@@ -840,7 +869,9 @@ class LaunchPlan(NamedTuple):
     of ``threads`` threads), ``grid`` blocks walking the batch with a
     stride, ``n_chain`` chain rows and ``n_trans`` transition rows staged in
     shared memory (the rest read from global memory) and ``smem`` bytes of
-    dynamic shared memory; ``max_groups`` is the most that fit."""
+    dynamic shared memory; ``max_groups`` is the most that fit. The
+    rows-in-memory case (``threads`` MEM_THREADS) stages nothing: one group
+    a block, no dynamic shared memory, MEM_ROWS scratch rows a block."""
 
     groups: int
     grid: int
@@ -866,30 +897,42 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     survivor batch runs one sequence an SM, at one step's latency), else
     as many as registers, shared memory (at most SMEM_PER_SM bytes a block)
     and MAX_BLOCK_THREADS allow, but no more than ``ceil(b_pad / sms)``; a
-    given ``groups`` must fit. Raises ``ValueError`` past M_pad 4864."""
+    given ``groups`` must fit. Past MAX_WIDE_STATES the rows-in-memory case
+    runs one sequence a block, as many blocks as registers and
+    THREADS_PER_SM let an SM hold. Raises ``ValueError`` past M_pad
+    65536."""
     if kind not in BLOCKED_KINDS:
         raise ValueError(f"unknown blocked kernel case {kind!r}")
     kt, per = kernel_case(m_pad)
     if not 1 <= passes <= chain_passes(m_pad):
         raise ValueError(f"{passes} chain passes outside 1..{chain_passes(m_pad)}")
+    warp_regs = round_up(max(int(regs), 1), 8) * 32  # allocated by the warp, 8 at a time
+    if kt == MEM_THREADS:
+        if groups not in (None, 1):
+            raise ValueError(f"{groups} groups a block: the rows-in-memory case takes 1")
+        per_sm = max(1, min(REGS_PER_SM // (warp_regs * MEM_THREADS // 32),
+                            THREADS_PER_SM // MEM_THREADS))
+        return LaunchPlan(1, max(1, min(b_pad, sms * per_sm)), 0, 0, 1, MEM_THREADS, 0)
     extra = 1 if kind == "lazy" and passes < chain_passes(m_pad) else 0
     save = kind == "save"
     bf16 = kind == "filter"
+    backward = kind == "backward"
 
     def smem(n_trans, n_chain, g):
-        return blocked_smem_bytes(per, n_trans + n_chain + extra, g, save, kt, bf16)
+        return blocked_smem_bytes(per, n_trans + n_chain + extra, g, save, kt, bf16, backward)
 
     n_trans, n_chain = TRANS_ROWS, passes
     while n_chain > 0 and smem(n_trans, n_chain, 1) > SMEM_PER_SM:
         n_chain -= 1
     while n_trans > 0 and smem(n_trans, n_chain, 1) > SMEM_PER_SM:
         n_trans -= 1
-    warp_regs = round_up(max(int(regs), 1), 8) * 32  # allocated by the warp, 8 at a time
+    bounded = backward and kt == KERNEL_THREADS and per in BACKWARD_BOUNDED_PER
+    block_threads = BOUNDED_THREADS if bounded else MAX_BLOCK_THREADS
     by_regs = REGS_PER_SM // (warp_regs * (kt // 32))
     by_smem = 0
-    while (by_smem + 1) * kt <= MAX_BLOCK_THREADS and smem(n_trans, n_chain, by_smem + 1) <= SMEM_PER_SM:
+    while (by_smem + 1) * kt <= block_threads and smem(n_trans, n_chain, by_smem + 1) <= SMEM_PER_SM:
         by_smem += 1
-    most = min(MAX_BLOCK_THREADS // kt, by_regs, by_smem)
+    most = min(block_threads // kt, by_regs, by_smem)
     if most < 1:
         raise ValueError(
             f"the {kind} kernel at M_pad = {m_pad} does not fit one group in a block "
@@ -918,6 +961,8 @@ def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS) -> int:
         rc = lib.p7_forward_log_regs(threads, per, ctypes.byref(out))
     elif kind == "filter":
         rc = lib.p7_filter_regs(threads, per, ctypes.byref(out))
+    elif kind == "backward":
+        rc = lib.p7_backward_regs(threads, per, ctypes.byref(out))
     else:
         rc = lib.p7_forward_regs(threads, per, int(kind == "save"), ctypes.byref(out))
     if rc != 0:
@@ -940,6 +985,25 @@ def device_plan(kind: str, m_pad: int, passes: int, b_pad: int, device,
     threads, per = kernel_case(m_pad)
     return plan_launch(kind, m_pad, passes, b_pad, kernel_regs(kind, per, threads),
                        _sm_count(index), groups)
+
+
+def mem_scratch(plan: LaunchPlan, m_pad: int, device) -> torch.Tensor | None:
+    """The rows-in-memory case's scratch rows, ``[grid, MEM_ROWS, M_pad]``
+    f32 (uninitialised: the kernel writes each row before it reads it), or
+    None for a register case."""
+    if plan.threads != MEM_THREADS:
+        return None
+    return torch.empty((plan.grid, MEM_ROWS, m_pad), dtype=torch.float32, device=device)
+
+
+def launched(wrapper, plan: LaunchPlan) -> None:
+    """Count a launch of ``wrapper``'s kernel on ``plan``: apart for the
+    WIDE_THREADS and the rows-in-memory cases."""
+    count_launch(wrapper, plan.threads == WIDE_THREADS, plan.threads == MEM_THREADS)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_blocked(emit_m, emit_i, m_pad: int) -> None:
@@ -997,6 +1061,7 @@ def _viterbi_cuda(lazy, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, 
     replays = torch.zeros(b_pad, dtype=torch.int32, device=device) if lazy else None
     if b_pad:
         plan = device_plan("lazy" if lazy else "eager", m_pad, k_run, b_pad, device, groups)
+        scratch = mem_scratch(plan, m_pad, device)
         rc = _kernel_library().p7_viterbi_launch(
             device.index, plan.threads, kernel_per(m_pad), int(lazy),
             emit_m.data_ptr(), emit_i.data_ptr(), trans.data_ptr(), chain.data_ptr(),
@@ -1004,12 +1069,11 @@ def _viterbi_cuda(lazy, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, 
             lengths.data_ptr(),
             tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(), i.data_ptr(),
             d.data_ptr(), s.data_ptr(), scores.data_ptr(), *(o.data_ptr() for o in out),
-            replays.data_ptr() if lazy else None, b_pad, plan.groups, plan.grid, plan.smem,
-            torch.cuda.current_stream(device).cuda_stream,
+            replays.data_ptr() if lazy else None, _ptr(scratch), b_pad, plan.groups, plan.grid,
+            plan.smem, torch.cuda.current_stream(device).cuda_stream,
         )
         _raise_on(rc, "lazy Viterbi" if lazy else "Viterbi")
-        count_launch(viterbi_lazy_scan_cuda if lazy else viterbi_scan_cuda,
-                     plan.threads == WIDE_THREADS)
+        launched(viterbi_lazy_scan_cuda if lazy else viterbi_scan_cuda, plan)
     return (scores, *out, replays) if lazy else (scores, *out)
 
 
@@ -1055,17 +1119,18 @@ def forward_launch(wrapper, modds, iodds, trans, chain, tokens, lengths, tr_rows
     saved_ptrs = [x.data_ptr() for x in saved] if save else [None, None]
     if b_pad:
         plan = device_plan("save" if save else "forward", m_pad, window, b_pad, device, groups)
+        scratch = mem_scratch(plan, m_pad, device)
         rc = _kernel_library().p7_forward_launch(
             device.index, plan.threads, kernel_per(m_pad), modds.data_ptr(), iodds.data_ptr(),
             trans.data_ptr(), chain.data_ptr(), m_pad, window, plan.n_chain, plan.n_trans,
             FWD_RESCALE_GROUP, tokens.data_ptr(),
             l_pad, lengths.data_ptr(), tr_rows.data_ptr(), tr_probs.data_ptr(),
             consts.data_ptr(), m.data_ptr(), i.data_ptr(), d.data_ptr(), s.data_ptr(),
-            scores.data_ptr(), *(o.data_ptr() for o in out), *saved_ptrs, b_pad, plan.groups,
-            plan.grid, plan.smem, torch.cuda.current_stream(device).cuda_stream,
+            scores.data_ptr(), *(o.data_ptr() for o in out), *saved_ptrs, _ptr(scratch), b_pad,
+            plan.groups, plan.grid, plan.smem, torch.cuda.current_stream(device).cuda_stream,
         )
         _raise_on(rc, "Forward (row-saving)" if save else "Forward")
-        count_launch(wrapper, plan.threads == WIDE_THREADS)
+        launched(wrapper, plan)
     return (scores, *out, *saved)
 
 
@@ -1094,17 +1159,18 @@ def forward_log_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, cons
     out = (torch.empty_like(m), torch.empty_like(i), torch.empty_like(d), torch.empty_like(s))
     if b_pad:
         plan = device_plan("log", m_pad, n_passes, b_pad, device, groups)
+        scratch = mem_scratch(plan, m_pad, device)
         rc = _kernel_library().p7_forward_log_launch(
             device.index, plan.threads, kernel_per(m_pad), msc.data_ptr(), isc.data_ptr(),
             trans.data_ptr(), chain.data_ptr(), m_pad, n_passes, plan.n_chain, plan.n_trans,
             tokens.data_ptr(), l_pad,
             lengths.data_ptr(), tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(),
             i.data_ptr(), d.data_ptr(), s.data_ptr(), scores.data_ptr(),
-            *(o.data_ptr() for o in out), b_pad, plan.groups, plan.grid, plan.smem,
-            torch.cuda.current_stream(device).cuda_stream,
+            *(o.data_ptr() for o in out), _ptr(scratch), b_pad, plan.groups, plan.grid,
+            plan.smem, torch.cuda.current_stream(device).cuda_stream,
         )
         _raise_on(rc, "log-space Forward")
-        count_launch(forward_log_scan_cuda, plan.threads == WIDE_THREADS)
+        launched(forward_log_scan_cuda, plan)
     return (scores, *out)
 
 
@@ -1128,23 +1194,25 @@ def viterbi_filter_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, c
     out = (torch.empty_like(m), torch.empty_like(i), torch.empty_like(d), torch.empty_like(s))
     if b_pad:
         plan = device_plan("filter", m_pad, passes, b_pad, device, groups)
+        scratch = mem_scratch(plan, m_pad, device)
         rc = _kernel_library().p7_filter_launch(
             device.index, plan.threads, kernel_per(m_pad), msc.data_ptr(), isc.data_ptr(),
             trans.data_ptr(), chain.data_ptr(), m_pad, full, passes, plan.n_chain, plan.n_trans,
             int(bool(e_skip_d)), tokens.data_ptr(), l_pad, lengths.data_ptr(),
             tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(), i.data_ptr(), d.data_ptr(),
-            s.data_ptr(), scores.data_ptr(), *(o.data_ptr() for o in out), b_pad, plan.groups,
-            plan.grid, plan.smem, torch.cuda.current_stream(device).cuda_stream,
+            s.data_ptr(), scores.data_ptr(), *(o.data_ptr() for o in out), _ptr(scratch), b_pad,
+            plan.groups, plan.grid, plan.smem, torch.cuda.current_stream(device).cuda_stream,
         )
         _raise_on(rc, "Viterbi filter")
-        count_launch(viterbi_filter_scan_cuda, plan.threads == WIDE_THREADS)
+        launched(viterbi_filter_scan_cuda, plan)
     return (scores, *out)
 
 
-# kernel launches in this process, and those of them at WIDE_THREADS
+# kernel launches in this process, those of them at WIDE_THREADS and those
+# of the rows-in-memory case
 for _fn in (viterbi_scan_cuda, viterbi_lazy_scan_cuda, forward_prob_scan_cuda,
             forward_log_scan_cuda, viterbi_filter_scan_cuda):
-    _fn.launches = _fn.wide_launches = 0
+    _fn.launches = _fn.wide_launches = _fn.mem_launches = 0
 
 
 def viterbi_scan(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):

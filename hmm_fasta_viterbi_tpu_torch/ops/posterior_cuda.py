@@ -33,16 +33,13 @@ decode to fall back to either: a batch whose bf16 rows exceed
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
 from ..models.p7 import P7Profile
 from ..pipeline import MSVScanner
 from . import p7_cuda
-from .msv_cuda import NUM_AA, _check, count_launch
+from .msv_cuda import NUM_AA, _check
 
 # device bytes of the bf16 forward rows of one call (JAX's POST_HBM_BYTES);
 # a larger hit batch runs in chunks of sequences under it
@@ -106,7 +103,7 @@ def backward_coverage_scan_plain(modds, iodds, trans, schain, tokens, lengths, t
                                  consts, total, fm, ls):
     """The backward coverage pass in plain PyTorch; same arguments and
     result as :func:`backward_coverage_scan`. It follows
-    ``csrc/posterior_kernel.cu`` step for step (each sequence from its own
+    ``csrc/p7_backward_kernel.cu`` step for step (each sequence from its own
     last residue, rescaled after every FWD_RESCALE_GROUP of its steps); the
     sums run in another order, so the two agree to rounding."""
     b_pad, l_pad = tokens.shape
@@ -157,18 +154,6 @@ def backward_coverage_scan_plain(modds, iodds, trans, schain, tokens, lengths, t
 
 # -- the kernels -----------------------------------------------------------
 
-@functools.cache
-def _kernel_library() -> ctypes.CDLL:
-    lib = p7_cuda._kernel_library()
-    p = ctypes.c_void_p
-    c = ctypes.c_int
-    lib.posterior_backward_launch.argtypes = [
-        c, c, c, p, p, p, p, c, c, c, p, c, p, p, p, p, p, p, p, c, p,
-    ]
-    lib.posterior_backward_launch.restype = c
-    return lib
-
-
 def forward_save_scan_cuda(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs,
                            consts, m, i, d, s, groups: int | None = None):
     """Launch the row-saving case of ``csrc/p7_forward_kernel.cu``; same
@@ -181,14 +166,16 @@ def forward_save_scan_cuda(modds, iodds, trans, chain, tokens, lengths, tr_rows,
 
 
 def backward_coverage_scan_cuda(modds, iodds, trans, schain, tokens, lengths, tr_probs,
-                                consts, total, fm, ls):
-    """Launch ``csrc/posterior_kernel.cu``; same arguments and result as
-    :func:`backward_coverage_scan`. Raises on what the kernel does not take
+                                consts, total, fm, ls, groups: int | None = None):
+    """Launch ``csrc/p7_backward_kernel.cu`` (the backward case of the
+    blocked p7 layout); same arguments and result as
+    :func:`backward_coverage_scan`; ``groups`` sequences a block, None for
+    ``p7_cuda.plan_launch``'s pick. Raises on what the kernel does not take
     and on a refused launch; never falls back."""
     device = tokens.device
     b_pad, l_pad = tokens.shape
     m_pad = modds.shape[1]
-    threads, per = p7_cuda.kernel_case(m_pad)  # raises past MAX_KERNEL_STATES
+    p7_cuda.kernel_case(m_pad)  # raises past MAX_KERNEL_STATES
     if device.type != "cuda":
         raise ValueError(f"the posterior kernels need CUDA tensors, got {device}")
     window = schain.shape[0]
@@ -205,23 +192,30 @@ def backward_coverage_scan_cuda(modds, iodds, trans, schain, tokens, lengths, tr
     _check("total", total, torch.float32, (b_pad,), device)
     _check("fm", fm, torch.bfloat16, (b_pad, l_pad, m_pad), device)
     _check("ls", ls, torch.float32, (b_pad, l_pad), device)
+    p7_cuda._check_blocked(modds, iodds, m_pad)
+    if fm.data_ptr() % 16:
+        raise ValueError("fm is not 16-byte aligned")
     cov = torch.empty((b_pad, l_pad), dtype=torch.float32, device=device)
     if b_pad:
-        rc = _kernel_library().posterior_backward_launch(
-            device.index, threads, per, modds.data_ptr(), iodds.data_ptr(), trans.data_ptr(),
-            schain.data_ptr(), m_pad, window, p7_cuda.FWD_RESCALE_GROUP, tokens.data_ptr(),
-            l_pad, lengths.data_ptr(), tr_probs.data_ptr(), consts.data_ptr(), total.data_ptr(),
-            fm.data_ptr(), ls.data_ptr(), cov.data_ptr(), b_pad,
-            torch.cuda.current_stream(device).cuda_stream,
+        plan = p7_cuda.device_plan("backward", m_pad, window, b_pad, device, groups)
+        scratch = p7_cuda.mem_scratch(plan, m_pad, device)
+        rc = p7_cuda._kernel_library().p7_backward_launch(
+            device.index, plan.threads, p7_cuda.kernel_per(m_pad), modds.data_ptr(),
+            iodds.data_ptr(), trans.data_ptr(), schain.data_ptr(), m_pad, window, plan.n_chain,
+            plan.n_trans, p7_cuda.FWD_RESCALE_GROUP, tokens.data_ptr(), l_pad,
+            lengths.data_ptr(), tr_probs.data_ptr(), consts.data_ptr(), total.data_ptr(),
+            fm.data_ptr(), ls.data_ptr(), cov.data_ptr(), p7_cuda._ptr(scratch), b_pad,
+            plan.groups, plan.grid, plan.smem, torch.cuda.current_stream(device).cuda_stream,
         )
         p7_cuda._raise_on(rc, "posterior backward")
-        count_launch(backward_coverage_scan_cuda, threads == p7_cuda.WIDE_THREADS)
+        p7_cuda.launched(backward_coverage_scan_cuda, plan)
     return cov
 
 
-# kernel launches in this process, and those of them at WIDE_THREADS
+# kernel launches in this process, those of them at WIDE_THREADS and those
+# of the rows-in-memory case
 for _fn in (forward_save_scan_cuda, backward_coverage_scan_cuda):
-    _fn.launches = _fn.wide_launches = 0
+    _fn.launches = _fn.wide_launches = _fn.mem_launches = 0
 
 
 def forward_save_scan(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs, consts,

@@ -26,9 +26,10 @@ Differences that follow from the device:
   "filter")``, ``SearchPipeline(fast_msv=, fast_viterbi=)``) run on every
   device, their plain versions on the CPU; the JAX package runs them on its
   Pallas backend only;
-* ``scan_many`` groups profiles by the MSV kernel's case on the card
-  (``msv_cuda.kernel_case``) and by padded width on the CPU, not by an M
-  bucket, and caches each group's stacked pack.
+* ``scan_many`` groups profiles by the MSV kernel's register case on the
+  card (``msv_cuda.kernel_case``) and by padded width past it (the
+  rows-in-memory case) and on the CPU, not by an M bucket, and caches each
+  group's stacked pack.
 """
 
 from __future__ import annotations
@@ -232,16 +233,24 @@ class MSVScanner:
         """Sweep: score the staged database against many profiles -> {name:
         f32 [B] host array}.
 
-        On the card, profiles that fall in one case of the MSV kernel
-        (``msv_cuda.kernel_case``) run as one stacked launch, one grid row a
-        profile; on the CPU the plain version groups them by padded width,
-        which has no cap. Each group's stacked pack is cached. ``mode="filter"``
+        On the card, profiles that fall in one register case of the MSV
+        kernel (``msv_cuda.kernel_case``) run as one stacked launch, one
+        grid row a profile, and those past it (the rows-in-memory case) one
+        launch a padded width; on the CPU the plain version groups them by
+        padded width, which has no cap. Each group's stacked pack is
+        cached. ``mode="filter"``
         scans the bf16 round-up tables instead (:meth:`scan_filter`'s
         upper bounds). Each profile's scores equal its single-profile
         scan's bit for bit."""
         if mode not in ("exact", "filter"):
             raise ValueError(f"mode must be 'exact' or 'filter', got {mode!r}")
-        case = msv_cuda.kernel_case if self.device.type == "cuda" else (lambda m: (0, m))
+        def case(m_pad):
+            if self.device.type == "cuda":
+                lanes, per = msv_cuda.kernel_case(m_pad)
+                if lanes != msv_cuda.MEM_LANES:
+                    return lanes, per
+            return 0, m_pad
+
         groups: dict[tuple, list[MSVProfile]] = {}
         for p in profiles:
             m_pad = msv_cuda.round_up(p.num_states, self.m_bucket)

@@ -8,7 +8,12 @@ statistics, the homolog sampler and the NumPy oracles; and the
 classes and back field for field.
 """
 
+import ctypes
 import dataclasses
+import fcntl
+import os
+import pathlib
+import time
 
 import numpy as np
 import pytest
@@ -29,6 +34,32 @@ from hmm_fasta_viterbi_tpu_torch.ops import reference
 from test_torch_posterior import STEMS
 
 FASTAS = ("fasta_like_example.fsa", "random_FASTA.fsa")
+# how long to wait for another process's build of native/build/libfastparse.so
+NATIVE_WAIT_S = 120
+
+
+@pytest.fixture(scope="module")
+def native_loaders():
+    """Both packages' native loaders, loaded. The port builds its own copy
+    (``_kernels/``, written through ``os.replace``). The JAX module builds
+    ``native/build/libfastparse.so`` in place, where another worker's build
+    may still be writing it: under a file lock shared by this fixture's
+    workers, it is loaded until it reads whole, a failure the JAX module
+    cached in this worker cleared before each try."""
+    assert native.native_available(), native._load_error
+    native._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lock_path = native._BUILD_DIR / "jax-native.lock"
+    with open(lock_path, "w") as lock, pytest.MonkeyPatch.context() as mp:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        deadline = time.monotonic() + NATIVE_WAIT_S
+        while True:
+            mp.setattr(jax_native, "_load_error", None)
+            try:
+                jax_native._load()
+                break
+            except jax_native.NativeUnavailable:
+                assert time.monotonic() < deadline, jax_native._load_error
+                time.sleep(0.5)
 
 
 def _same(got, want, where=""):
@@ -64,9 +95,9 @@ def _consensus_and_random(hmm, seed):
 
 
 @pytest.mark.parametrize("stem", STEMS)
-def test_profile_models_stats_and_oracles(profile_dir, stem):
-    """parse_hmm, load_profile (python, and native where its library is
-    built), MSVProfile/P7Profile.from_profile, the score statistics and
+def test_profile_models_stats_and_oracles(profile_dir, native_loaders, stem):
+    """parse_hmm, load_profile (python, and native: each package's own
+    build of the library), MSVProfile/P7Profile.from_profile, the score statistics and
     every oracle (MSV, Viterbi, Forward, Backward, posterior_match) on
     short sequences."""
     path = profile_dir / f"{stem}.hmm"
@@ -75,9 +106,8 @@ def test_profile_models_stats_and_oracles(profile_dir, stem):
     _same(got_hmm, want_hmm, "parse_hmm")
     _same(loader.load_profile(path, prefer="python"),
           jax_loader.load_profile(path, prefer="python"), "load_profile(python)")
-    if jax_native._LIB_PATH.is_file():
-        _same(loader.load_profile(path, prefer="native"),
-              jax_loader.load_profile(path, prefer="native"), "load_profile(native)")
+    _same(loader.load_profile(path, prefer="native"),
+          jax_loader.load_profile(path, prefer="native"), "load_profile(native)")
 
     want_msv = jax_msv.MSVProfile.from_profile(want_hmm)
     got_msv = msv.MSVProfile.from_profile(got_hmm)
@@ -116,9 +146,9 @@ def test_profile_models_stats_and_oracles(profile_dir, stem):
 
 
 @pytest.mark.parametrize("name", FASTAS)
-def test_fasta_parsers_and_loaders(fasta_dir, name):
-    """parse_fasta and load_fasta (python, and native where built) give the
-    JAX records, rejects and encoded batch."""
+def test_fasta_parsers_and_loaders(fasta_dir, native_loaders, name):
+    """parse_fasta and load_fasta (python and native) give the JAX records,
+    rejects and encoded batch."""
     path = fasta_dir / name
     want = jx.parse_fasta(path)
     got = fastaio.parse_fasta(path)
@@ -126,11 +156,10 @@ def test_fasta_parsers_and_loaders(fasta_dir, name):
     _same(list(got.encode()), list(want.encode()), "encode")
     _same(loader.load_fasta(path, prefer="python"),
           jax_loader.load_fasta(path, prefer="python"), "load_fasta(python)")
-    if jax_native._LIB_PATH.is_file():
-        got_n = loader.load_fasta(path, prefer="native")
-        want_n = jax_loader.load_fasta(path, prefer="native")
-        _same(list(got_n.encode()), list(want_n.encode()), "load_fasta(native).encode")
-        assert [r.header for r in got_n.records] == [r.header for r in want_n.records]
+    got_n = loader.load_fasta(path, prefer="native")
+    want_n = jax_loader.load_fasta(path, prefer="native")
+    _same(list(got_n.encode()), list(want_n.encode()), "load_fasta(native).encode")
+    assert [r.header for r in got_n.records] == [r.header for r in want_n.records]
     assert native._NATIVE_DIR == jax_native._NATIVE_DIR  # the repository's one native/
 
 
@@ -158,3 +187,31 @@ def test_converted_profiles_are_copies(profile_dir):
     before = want.tdd.copy()
     got.tdd[:] = 0.5
     assert np.array_equal(want.tdd, before)
+
+
+def test_port_native_build_is_atomic(tmp_path, monkeypatch):
+    """The port's native build writes the library into a file of its own
+    process and moves it under the final name with os.replace: while the
+    compiler runs the final name does not exist, and afterwards it holds a
+    library that loads and nothing else is left beside it."""
+    target = tmp_path / "libfastparse-test.so"
+    seen, moves = [], []
+    run, replace = native.subprocess.run, native.os.replace
+
+    def compile_(cmd, **kwargs):
+        seen.append(target.exists())
+        return run(cmd, **kwargs)
+
+    def move(src, dst):
+        moves.append((pathlib.Path(src), pathlib.Path(dst)))
+        replace(src, dst)
+
+    monkeypatch.setattr(native.subprocess, "run", compile_)
+    monkeypatch.setattr(native.os, "replace", move)
+    assert native._build(target)
+    assert seen == [False]
+    assert moves == [(target.with_name(f"{target.name}.tmp.{os.getpid()}"), target)]
+    assert [p.name for p in tmp_path.iterdir()] == [target.name]
+    lib = ctypes.CDLL(str(target))
+    lib.fp_abi_version.restype = ctypes.c_int32
+    assert lib.fp_abi_version() == native._ABI_VERSION

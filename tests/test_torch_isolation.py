@@ -144,11 +144,14 @@ def test_nvcc_command_targets_hopper_without_fast_math():
     compiles, link = _build.nvcc_commands("nvcc", pathlib.Path("out"), pathlib.Path("lib.so"))
     srcs = {cmd[-1] for cmd in compiles}
     for name in ("msv_kernel.cu", "p7_viterbi_kernel.cu", "p7_forward_kernel.cu",
-                 "p7_viterbi_filter_kernel.cu", "p7_forward_log_kernel.cu", "posterior_kernel.cu"):
+                 "p7_viterbi_filter_kernel.cu", "p7_forward_log_kernel.cu",
+                 "p7_backward_kernel.cu"):
         assert str(_build.CSRC_DIR / name) in srcs
     assert len(srcs) == 6
-    # the striped Viterbi filter is gone: the filter is a case of the template
+    # the striped Viterbi filter and backward pass are gone: both are cases
+    # of the blocked layout
     assert not (_build.CSRC_DIR / "p7_filter_kernel.cu").exists()
+    assert not (_build.CSRC_DIR / "posterior_kernel.cu").exists()
     # the shared Viterbi / log-space Forward / filter template is a header
     # three sources include; it and the Forward kernel include the blocked
     # layout's header
@@ -156,7 +159,7 @@ def test_nvcc_command_targets_hopper_without_fast_math():
     for name in ("p7_viterbi_kernel.cu", "p7_forward_log_kernel.cu",
                  "p7_viterbi_filter_kernel.cu"):
         assert '#include "p7_viterbi.cuh"' in (_build.CSRC_DIR / name).read_text()
-    for name in ("p7_viterbi.cuh", "p7_forward_kernel.cu"):
+    for name in ("p7_viterbi.cuh", "p7_forward_kernel.cu", "p7_backward_kernel.cu"):
         assert '#include "p7_blocked.cuh"' in (_build.CSRC_DIR / name).read_text()
     for cmd in compiles:
         joined = " ".join(cmd)
@@ -234,12 +237,15 @@ def test_p7_kernels_support_every_profile(all_profile_paths):
 
     cases = [(p7_cuda.KERNEL_THREADS, per) for per in p7_cuda.KERNEL_PER]
     cases += [(p7_cuda.WIDE_THREADS, per) for per in p7_cuda.WIDE_PER]
-    for name, macro in (("p7_blocked.cuh", "P7_CASE"), ("posterior_kernel.cu", "POST_CASE")):
-        source = (_build.CSRC_DIR / name).read_text()
-        assert all(f"{macro}({per}, {threads})" in source for threads, per in cases)
+    source = (_build.CSRC_DIR / "p7_blocked.cuh").read_text()
+    assert all(f"P7_CASE({per}, {threads})" in source for threads, per in cases)
+    assert f"kMemThreads = {p7_cuda.MEM_THREADS};" in source
+    assert f"kMemRows = {p7_cuda.MEM_ROWS};" in source
     for name in ("p7_viterbi_kernel.cu", "p7_forward_kernel.cu", "p7_viterbi_filter_kernel.cu",
-                 "p7_forward_log_kernel.cu"):
-        assert "with_case<Case>(threads, per" in (_build.CSRC_DIR / name).read_text()
+                 "p7_forward_log_kernel.cu", "p7_backward_kernel.cu"):
+        source = (_build.CSRC_DIR / name).read_text()
+        assert "with_case<Case>(threads, per" in source
+        assert "if (threads == kMemThreads)" in source
     for path in all_profile_paths:
         p7 = P7Profile.from_profile(parse_hmm(path))
         m_pad = p7_cuda.default_m_pad(p7)

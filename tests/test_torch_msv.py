@@ -148,18 +148,23 @@ def test_blank_ragged_tail_byte_equal():
 
 
 @pytest.mark.parametrize("m_pad,per", [(104, 4), (1400, 44), (1408, 44), (2405, 76), (2432, 76),
-                                       (2440, 44), (2704, 44), (4776, 76), (4864, 76)])
+                                       (2440, 44), (2704, 44), (4776, 76), (4864, 76),
+                                       (4872, 5), (6984, 7), (30184, 30), (65544, 65)])
 def test_kernel_states_per_lane(m_pad, per):
-    """One warp a sequence up to 2432 states, two (64 lanes) up to 4864."""
+    """One warp a sequence up to 2432 states, two (64 lanes) up to 4864, the
+    rows-in-memory case (1024 threads, ``per`` tiles of 1024 states) past
+    it."""
     assert msv_cuda.kernel_per(m_pad) == per
-    assert msv_cuda.kernel_case(m_pad) == (32 if m_pad <= 2432 else 64, per)
+    lanes = 32 if m_pad <= 2432 else 64 if m_pad <= 4864 else msv_cuda.MEM_LANES
+    assert msv_cuda.kernel_case(m_pad) == (lanes, per)
 
 
 def test_kernel_limit_names_itself():
-    """Past 64 lanes x 76 = 4864 states the kernel raises, naming its limit;
-    the plain version has no cap."""
-    assert msv_cuda.MAX_KERNEL_STATES == 4864
-    with pytest.raises(ValueError, match="4864"):
-        msv_cuda.kernel_per(msv_cuda.MAX_KERNEL_STATES + 1)
-    with pytest.raises(ValueError, match="4864"):
-        msv_cuda.kernel_case(4872)
+    """Past 64 lanes x 76 = 4864 states the rows-in-memory case takes over;
+    the MSV kernel has no cap, as the TPU kernel and the plain version have
+    none."""
+    assert msv_cuda.MAX_WIDE_STATES == 4864 and msv_cuda.MEM_LANES == 1024
+    assert msv_cuda.kernel_per(msv_cuda.MAX_WIDE_STATES + 1) == 5
+    assert msv_cuda.kernel_case(4872) == (1024, 5)
+    assert msv_cuda.kernel_case(1 << 20) == (1024, 1024)
+    assert msv_cuda.block_warps(1024, 5, 4) == msv_cuda.block_warps(1024, 5, 2) == 32

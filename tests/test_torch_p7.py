@@ -377,18 +377,24 @@ def test_convert_round_trips(profile_dir):
 # -- the kernels' limits ---------------------------------------------------
 
 @pytest.mark.parametrize("m_pad,per", [(8, 1), (104, 1), (136, 2), (1400, 11), (2408, 19), (2432, 19),
-                                       (2440, 10), (2704, 11), (4776, 19), (4864, 19)])
+                                       (2440, 10), (2704, 11), (4776, 19), (4864, 19),
+                                       (4872, 5), (6984, 7), (30184, 30), (65536, 64)])
 def test_kernel_states_per_thread(m_pad, per):
-    """128 threads a sequence up to 2432 states, 256 up to 4864."""
+    """128 threads a sequence up to 2432 states, 256 up to 4864, the
+    rows-in-memory case (1024 threads, ``per`` tiles of 1024 states) up to
+    65536."""
     assert p7_cuda.kernel_per(m_pad) == per
-    assert p7_cuda.kernel_case(m_pad) == (128 if m_pad <= 2432 else 256, per)
+    threads = 128 if m_pad <= 2432 else 256 if m_pad <= 4864 else p7_cuda.MEM_THREADS
+    assert p7_cuda.kernel_case(m_pad) == (threads, per)
 
 
 def test_kernel_limit_names_itself():
-    """Past 256 threads x 19 = 4864 states the kernels' case, their launch
-    plan and the posterior launch check raise, naming the limit."""
-    assert p7_cuda.MAX_KERNEL_STATES == 4864
-    with pytest.raises(ValueError, match="4864"):
+    """Past 65536 states (the delete chain's 16 rows, the JAX kernels' own
+    limit) the kernels' case, their launch plan and the posterior launch
+    check raise, naming the limit; past 4864 the rows-in-memory case runs."""
+    assert p7_cuda.MAX_KERNEL_STATES == 65536 and p7_cuda.MAX_WIDE_STATES == 4864
+    assert p7_cuda.kernel_case(4872) == (p7_cuda.MEM_THREADS, 5)
+    with pytest.raises(ValueError, match="65536"):
         p7_cuda.kernel_per(p7_cuda.MAX_KERNEL_STATES + 1)
-    with pytest.raises(ValueError, match="4864"):
-        p7_cuda.plan_launch("lazy", 4872, 5, 64, 128, 132)
+    with pytest.raises(ValueError, match="65536"):
+        p7_cuda.plan_launch("lazy", p7_cuda.MAX_KERNEL_STATES + 8, 5, 64, 128, 132)

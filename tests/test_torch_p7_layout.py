@@ -13,7 +13,11 @@ checked on the CPU: the kernels themselves run only on the card.
 * ``plan_launch`` keeps every case within the block's shared memory and the
   SM's registers, picks G = 1 up to one sequence an SM, leaves chain rows
   and then (at 256 threads) transition rows in global memory when a group
-  would not fit, and raises past M_pad 4864.
+  would not fit, runs the rows-in-memory case (1024 threads, one sequence
+  a block, nothing staged) past M_pad 4864 and raises past 65536.
+* The backward coverage pass's suffix shifts (``shift_up_small``,
+  ``shift_up_big``) equal ``posterior_cuda._up``, and its group layout
+  (``backward_group_floats``) is what ``blocked_smem_bytes`` counts.
 """
 
 import itertools
@@ -22,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from hmm_fasta_viterbi_tpu_torch.ops import p7_cuda
+from hmm_fasta_viterbi_tpu_torch.ops import p7_cuda, posterior_cuda
 from hmm_fasta_viterbi_tpu_torch.ops.msv_cuda import SMEM_PER_SM
 
 PERS = p7_cuda.KERNEL_PER
@@ -106,6 +110,41 @@ def _check_shifts(per: int, threads: int) -> None:
             assert torch.equal(got, p7_cuda._shift(x, s, fill)), (s, fill)
 
 
+def _kernel_shift_up(x: torch.Tensor, s: int, per: int, threads: int) -> torch.Tensor:
+    """csrc/p7_blocked.cuh::shift_up on a [B, threads * per] row, fill 0:
+    for s < per (by 1, 2, 4, 8, 16) slots k < per - s move within the
+    thread and the last s come from the next thread's first s slots (0 in
+    the last thread); otherwise each slot reads state t * per + k + s of the
+    row through shared memory at sidx."""
+    v = _blocked(x, per, threads)
+    if s < per and s in (1, 2, 4, 8, 16):
+        out = torch.zeros_like(v)
+        out[:, :, : per - s] = v[:, :, s:]
+        out[:, :-1, per - s:] = v[:, 1:, :s]
+        return out.reshape(x.shape)
+    stride = p7_cuda.blocked_stride(per)
+    buf = torch.zeros((x.shape[0], threads * stride), dtype=x.dtype)
+    t, k = np.meshgrid(np.arange(threads), np.arange(per), indexing="ij")
+    buf[:, torch.from_numpy(t * stride + k).reshape(-1)] = v.reshape(x.shape[0], -1)
+    j = (t * per + k + s).reshape(-1)
+    n = threads * per
+    got = buf[:, torch.from_numpy(np.array([_sidx(int(i) if i < n else 0, per) for i in j]))]
+    got[:, torch.from_numpy(j >= n)] = 0.0
+    return got.reshape(x.shape)
+
+
+@pytest.mark.parametrize("threads,per", CASES)
+def test_kernel_suffix_shifts_equal_the_plain_up_shift(threads, per):
+    """The backward pass's shifts toward lower j, as the kernel does them,
+    equal posterior_cuda._up (0 past the row) for every case and s = 2^p."""
+    rng = np.random.default_rng(100 + per)
+    m = threads * per
+    x = torch.from_numpy(rng.normal(size=(2, m)).astype(np.float32))
+    for p in range(p7_cuda.chain_passes(m) + 1):
+        s = 1 << p
+        assert torch.equal(_kernel_shift_up(x, s, per, threads), posterior_cuda._up(x, s)), s
+
+
 @pytest.mark.parametrize("per", PERS)
 def test_kernel_shifts_equal_the_plain_shift(per):
     _check_shifts(per, THREADS)
@@ -153,7 +192,8 @@ def _passes(kind: str, m_pad: int):
     lazy, Forward and filter cases, the full chain for the eager and
     log-space ones."""
     full = p7_cuda.chain_passes(m_pad)
-    return range(1, full + 1) if kind in ("lazy", "forward", "save", "filter") else (full,)
+    windowed = ("lazy", "forward", "save", "filter", "backward")
+    return range(1, full + 1) if kind in windowed else (full,)
 
 
 @pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
@@ -176,7 +216,7 @@ def test_plan_fits_the_block_for_every_case(kind):
                 if b_pad <= SMS:
                     assert plan.groups == 1 and plan.grid == b_pad
                 extra = 1 if kind == "lazy" and passes < p7_cuda.chain_passes(m_pad) else 0
-                args = (kind == "save", threads, kind == "filter")
+                args = (kind == "save", threads, kind == "filter", kind == "backward")
                 rows = plan.n_trans + plan.n_chain + extra
                 assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, plan.groups, *args)
                 # nothing more would fit: every row staged, or one more row
@@ -216,7 +256,7 @@ def test_plan_takes_a_forced_group_count():
 
 
 def test_plan_limits_raise():
-    with pytest.raises(ValueError, match="4864"):
+    with pytest.raises(ValueError, match="65536"):
         p7_cuda.plan_launch("eager", p7_cuda.MAX_KERNEL_STATES + 8, 13, 64, 128, SMS)
     with pytest.raises(ValueError, match="chain passes"):
         p7_cuda.plan_launch("forward", 1400, 12, 64, 128, SMS)
@@ -270,3 +310,55 @@ def test_shared_memory_matches_the_header_layout():
     wide = 4 * WIDE * 19
     assert (p7_cuda.blocked_smem_bytes(19, 5, 1, threads=WIDE)
             == 5 * wide + 6 * wide + 4 * 16 + 128)
+
+
+@pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
+def test_rows_in_memory_plan(kind):
+    """Past M_pad 4864 every kind plans the rows-in-memory case: one group
+    of 1024 threads a block, nothing staged, no dynamic shared memory, a
+    persistent grid of at most two blocks an SM (fewer when the registers
+    do not allow two) and no more blocks than sequences; a forced G > 1
+    raises. The three-profile and the 24-profile joins (LENG 6977, 30181)
+    and the widest M_pad, 65536 (16 chain passes), are such cases."""
+    for m_pad in (4872, 6984, 30184, 65536):
+        full = p7_cuda.chain_passes(m_pad)
+        assert p7_cuda.kernel_case(m_pad) == (p7_cuda.MEM_THREADS, -(-m_pad // 1024))
+        for regs, b_pad in itertools.product((32, 40, 64), (1, 8, 64, 300, 2048)):
+            plan = p7_cuda.plan_launch(kind, m_pad, full, b_pad, regs, SMS)
+            per_sm = 2 if regs <= 32 else 1
+            assert plan == p7_cuda.LaunchPlan(1, min(b_pad, per_sm * SMS), 0, 0, 1,
+                                              p7_cuda.MEM_THREADS, 0)
+        with pytest.raises(ValueError, match="takes 1"):
+            p7_cuda.plan_launch(kind, m_pad, full, 64, 40, SMS, groups=2)
+    assert p7_cuda.chain_passes(65536) == 16 and p7_cuda.chain_passes(30184) == 15
+
+
+def test_backward_plan_and_shared_memory():
+    """The backward case's group at 1400.hmm (11 slots, 128 threads): 6 f32
+    rows, 2 bf16 rows of 704 floats, 12 reduction floats, the token chunk
+    and the chunk's 256 log scales and coverage; with its W = 6 suffix rows
+    and 6 transitions, 3 groups at 142 registers (the kernel's free choice)
+    and 4 at 128 (its register bound at 9 to 12 slots). At 256 threads and 19
+    slots one group and 4 staged transition rows, no chain row. Never over
+    232,448 bytes."""
+    row = THREADS * 11
+    group = 6 * row + 2 * (THREADS * 11 // 2) + 12 + 32 + 256
+    assert p7_cuda.blocked_smem_bytes(11, 12, 3, backward=True) == 4 * (12 * row + 3 * group)
+    plan = p7_cuda.plan_launch("backward", 1408, 6, 1024, 142, SMS)
+    assert (plan.groups, plan.n_chain, plan.n_trans, plan.grid) == (3, 6, 6, SMS)
+    assert plan.smem == 4 * (12 * row + 3 * group) <= SMEM_PER_SM
+    assert p7_cuda.plan_launch("backward", 1408, 6, 1024, 128, SMS).groups == 4
+    # the bounded cases launch at most 512 threads a block, whatever the
+    # registers; below 9 slots the plan takes up to 8 groups
+    assert p7_cuda.plan_launch("backward", 1408, 6, 4096, 64, SMS).max_groups == 4
+    assert p7_cuda.plan_launch("backward", 104, 3, 4096, 64, SMS).max_groups == 8
+    few = p7_cuda.plan_launch("backward", 1408, 6, 64, 142, SMS)
+    assert (few.groups, few.grid) == (1, 64)
+    wide = p7_cuda.plan_launch("backward", 4864, 7, 64, 206, SMS)
+    wrow = WIDE * 19
+    wgroup = 6 * wrow + 2 * (WIDE * 19 // 2) + 24 + 32 + 256
+    assert (wide.threads, wide.groups, wide.n_trans, wide.n_chain) == (WIDE, 1, 4, 0)
+    assert wide.smem == 4 * (4 * wrow + wgroup) <= SMEM_PER_SM < 4 * (5 * wrow + wgroup)
+    source = (p7_cuda._build.CSRC_DIR / "p7_blocked.cuh").read_text()
+    assert ("return 6 * row_floats<PER, KT>() + 2 * erow_floats<PER, KT, true>() + "
+            "3 * warps<KT>() +\n         kChunk / 4 + 2 * kChunk;") in source

@@ -165,7 +165,7 @@ def test_cli_search_matches_jax(profile_dir, search_fasta, tmp_path, fmt, extra)
     tolerances allow (a score error of d nats moves a p-value by a factor
     of about exp(lambda d))."""
     common = ["scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(search_fasta),
-              "--stage", "search", "--format", fmt, *extra]
+              "--loader", "python", "--stage", "search", "--format", fmt, *extra]
     jax_out, port_out = tmp_path / "jax.out", tmp_path / "port.out"
     assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0
     assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
@@ -183,7 +183,7 @@ def test_cli_search_matches_jax(profile_dir, search_fasta, tmp_path, fmt, extra)
 @pytest.mark.parametrize("stage", ["viterbi", "forward"])
 def test_cli_single_stage_matches_jax(profile_dir, search_fasta, tmp_path, stage):
     common = ["scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(search_fasta),
-              "--stage", stage]
+              "--loader", "python", "--stage", stage]
     jax_out, port_out = tmp_path / "jax.tsv", tmp_path / "port.tsv"
     assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0
     assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
@@ -271,7 +271,7 @@ def test_cli_scan_fast_same_hits(profile_dir, search_fasta, tmp_path, fmt):
     JAX CLI ignores --fast off its Pallas backend, so the hits (not the
     filter-scored rows) are what the two CLIs share."""
     common = ["scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(search_fasta),
-              "--stage", "search", "--format", fmt]
+              "--loader", "python", "--stage", "search", "--format", fmt]
     fast_out, plain_out, jax_out = (tmp_path / f"{n}.out" for n in ("fast", "plain", "jax"))
     assert port_cli.main([*common, "--fast", "--device", "cpu", "--out", str(fast_out)]) == 0
     assert port_cli.main([*common, "--device", "cpu", "--out", str(plain_out)]) == 0
@@ -338,7 +338,7 @@ def test_cli_search_domains_matches_jax(profile_dir, domains_fasta, search_fasta
     domains, each a strong match."""
     fasta = domains_fasta if which == "domains" else search_fasta
     common = ["scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(fasta),
-              "--stage", "search", "--domains", "--format", fmt]
+              "--loader", "python", "--stage", "search", "--domains", "--format", fmt]
     jax_out, port_out = tmp_path / "jax.out", tmp_path / "port.out"
     assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0
     assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
@@ -359,7 +359,7 @@ def test_cli_search_domains_matches_jax_pallas(profile_dir, domains_fasta, tmp_p
     Pallas posterior kernels in interpret mode); the seconds line carries
     the domains phase."""
     common = ["scan", "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(domains_fasta),
-              "--stage", "search", "--domains"]
+              "--loader", "python", "--stage", "search", "--domains"]
     jax_out, port_out = tmp_path / "jax.tsv", tmp_path / "port.tsv"
     assert jax_cli.main([*common, "--backend", "pallas", "--out", str(jax_out)]) == 0
     with caplog.at_level(logging.INFO, logger=port_cli.__name__):

@@ -175,7 +175,7 @@ def test_cli_sweep_msv_byte_equal_to_jax(hmm_dir, hmm_db, fasta_dir, tmp_path, f
     to the JAX CLI's (--backend xla) for --hmm-dir and --hmm-db."""
     src = ["--hmm-dir", str(hmm_dir)] if source == "dir" else ["--hmm-db", str(hmm_db)]
     common = ["sweep", *src, "--fasta", str(fasta_dir / "fasta_like_example.fsa"),
-              "--format", fmt, *extra]
+              "--loader", "python", "--format", fmt, *extra]
     jax_out, port_out = tmp_path / "jax.out", tmp_path / "port.out"
     assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0
     assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
@@ -196,7 +196,7 @@ def test_cli_sweep_search_matches_jax(hmm_dir, sweep_fasta, tmp_path, fmt):
     """sweep --stage search: the same rows per profile in the same order and
     the same hit flags as the JAX CLI (--backend xla); msv_bits and msv_p
     equal, Viterbi/Forward p- and E-values within the score tolerances."""
-    common = ["sweep", "--hmm-dir", str(hmm_dir), "--fasta", str(sweep_fasta),
+    common = ["sweep", "--loader", "python", "--hmm-dir", str(hmm_dir), "--fasta", str(sweep_fasta),
               "--stage", "search", "--format", fmt]
     jax_out, port_out = tmp_path / "jax.out", tmp_path / "port.out"
     assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0

@@ -10,7 +10,12 @@ and L <= 64: the plain MSV equals ``msv_oracle_batch`` and ``msv_xla`` (1e-4,
 ``forward_xla`` (2e-3), the posterior decode ``posterior_coverage_batch_xla``
 (coverage 4e-3, totals 2e-3); the plain Viterbi filter is >= ``viterbi_xla``
 and equal to ``viterbi_filter_pallas(interpret=True)`` at L <= 16. The
-scanner and the plain versions take M_pad past the kernels' 4864.
+scanner and the plain versions take M_pad past the register cases' 4864,
+where the kernels' rows-in-memory cases take over: the three-profile join
+of chip_smoke.py's MEM_JOINS (2405.hmm, 2365.hmm and 2207.hmm, LENG 6977)
+through the plain MSV, Viterbi, Forward and posterior decode against the
+JAX oracle and XLA path at the same tolerances, and the all-24 join (LENG
+30181) through the plain MSV and the kernels' case and launch plan.
 """
 
 import numpy as np
@@ -59,6 +64,20 @@ def wide_files(profile_dir, tmp_path_factory):
         path = out_dir / f"wide_{'_'.join(pair)}.hmm"
         write_hmm(hmm, path)
         out[pair] = (path, jax_parse_hmm(path))
+    return out
+
+
+@pytest.fixture(scope="module")
+def mem_files(profile_dir, tmp_path_factory):
+    """{stems: (path, JAX ProfileHMM)}: each join of MEM_JOINS written with
+    the JAX writer."""
+    out_dir = tmp_path_factory.mktemp("mem")
+    out = {}
+    for stems in chip_smoke.MEM_JOINS:
+        hmm = chip_smoke.join_profiles(*(jax_parse_hmm(profile_dir / f"{s}.hmm") for s in stems))
+        path = out_dir / f"mem_{len(stems)}.hmm"
+        write_hmm(hmm, path)
+        out[stems] = (path, jax_parse_hmm(path))
     return out
 
 
@@ -171,24 +190,30 @@ def test_wide_plain_filter_bounds_viterbi(wide_files, batch):
 
 
 def test_plain_versions_take_any_width(wide_files, profile_dir, batch):
-    """Past the kernels' 4864 states the kernels' cases, launch plan and
-    the posterior launch raise, naming the limit, while the scanner and the plain versions still
-    scan: a profile of 4870 states (M_pad 4872; the LENG 4770 one joined
-    with 100.hmm) through MSV, the sweep and Viterbi on the CPU, MSV equal
-    to the JAX oracle."""
+    """Past the register cases' 4864 states the kernels' cases and launch
+    plan pick the rows-in-memory case, and past 65536 the p7 case, plan and
+    the posterior launch raise, naming that limit, while the scanner and the
+    plain versions scan: a profile of 4870 states (M_pad 4872; the LENG 4770
+    one joined with 100.hmm) through MSV, the sweep and Viterbi on the CPU,
+    MSV equal to the JAX oracle."""
     tokens, lengths = batch
     hmm = chip_smoke.join_profiles(jax_parse_hmm(wide_files[("2405", "2365")][0]),
                                    jax_parse_hmm(profile_dir / "100.hmm"))
     assert hmm.leng == 4870
     m_pad = msv_cuda.round_up(hmm.leng, 8)
-    for fn in (msv_cuda.kernel_case, p7_cuda.kernel_case, p7_cuda.kernel_per):
-        with pytest.raises(ValueError, match="4864"):
-            fn(m_pad)
-    with pytest.raises(ValueError, match="4864"):
-        p7_cuda.plan_launch("forward", m_pad, 4, B, 128, 132)
-    with pytest.raises(ValueError, match="4864"):  # the posterior launch's check
+    assert msv_cuda.kernel_case(m_pad) == (msv_cuda.MEM_LANES, 5)
+    assert p7_cuda.kernel_case(m_pad) == (p7_cuda.MEM_THREADS, 5) and p7_cuda.kernel_per(m_pad) == 5
+    plan = p7_cuda.plan_launch("forward", m_pad, 4, B, 128, 132)
+    assert (plan.threads, plan.groups, plan.grid, plan.smem) == (p7_cuda.MEM_THREADS, 1, B, 0)
+    too_wide = p7_cuda.MAX_KERNEL_STATES + 8
+    for fn in (p7_cuda.kernel_case, p7_cuda.kernel_per):
+        with pytest.raises(ValueError, match="65536"):
+            fn(too_wide)
+    with pytest.raises(ValueError, match="65536"):
+        p7_cuda.plan_launch("forward", too_wide, 4, B, 128, 132)
+    with pytest.raises(ValueError, match="65536"):  # the posterior launch's check
         posterior_cuda.backward_coverage_scan_cuda(
-            torch.zeros((20, m_pad)), None, None, None, torch.zeros((B, L), dtype=torch.int8),
+            torch.zeros((20, too_wide)), None, None, None, torch.zeros((B, L), dtype=torch.int8),
             None, None, None, None, None, None)
     path = wide_files[("2405", "2365")][0].parent / "w4870.hmm"
     write_hmm(hmm, path)
@@ -201,3 +226,90 @@ def test_plain_versions_take_any_width(wide_files, profile_dir, batch):
     assert np.array_equal(sc.scan_many([prof], staged)[prof.name], got)
     vit = viterbi_scores(P7Profile.from_profile(parse_hmm(path)), tokens, lengths, device="cpu")
     assert torch.isfinite(vit[torch.from_numpy(lengths > 0)]).all()
+
+
+@pytest.mark.parametrize("stems", chip_smoke.MEM_JOINS, ids=lambda s: f"{len(s)}-profile")
+def test_mem_join_round_trip(mem_files, stems):
+    """The joins past 4864 states, written by the JAX writer, parse to the
+    same arrays in both packages and as chip_smoke.py builds them; both
+    select the kernels' rows-in-memory cases."""
+    path, jax_hmm = mem_files[stems]
+    port = parse_hmm(path)
+    built = chip_smoke.wide_profile(stems)
+    assert port.leng == jax_hmm.leng == built.leng == {3: 6977, 24: 30181}[len(stems)]
+    for field in ("match_emissions", "insert_emissions", "transitions"):
+        assert np.array_equal(getattr(port, field), getattr(jax_hmm, field))
+        assert np.array_equal(getattr(built, field), getattr(port, field))
+    m_pad = msv_cuda.round_up(port.leng, 8)
+    assert msv_cuda.kernel_case(m_pad)[0] == msv_cuda.MEM_LANES
+    assert p7_cuda.kernel_case(m_pad)[0] == p7_cuda.MEM_THREADS
+
+
+@pytest.mark.parametrize("stems", chip_smoke.MEM_JOINS, ids=lambda s: f"{len(s)}-profile")
+def test_mem_join_plain_msv_matches_jax(mem_files, batch, stems):
+    """The scanner's plain MSV at LENG 6977 and 30181: exact ==
+    msv_oracle_batch bit for bit and msv_xla within 1e-4, the filter >=
+    exact, the sweep's row == the single scan."""
+    path, jax_hmm = mem_files[stems]
+    tokens, lengths = batch
+    prof = MSVProfile.from_profile(parse_hmm(path))
+    sc = MSVScanner(device="cpu")
+    staged = sc.stage(tokens, lengths)
+    got = sc.scan(prof, staged).numpy()
+    jprof = JaxMSVProfile.from_profile(jax_hmm)
+    assert np.array_equal(got, msv_oracle_batch(jprof, tokens, lengths))
+    assert _max_d(got, np.asarray(msv_xla(jprof, tokens, lengths))) <= MSV_TOL
+    filt = sc.scan_filter(prof, staged).numpy()
+    assert np.all((filt >= got) | np.isneginf(got))
+    assert np.array_equal(sc.scan_many([prof], staged)[prof.name], got)
+
+
+def test_mem_join_plain_p7_matches_jax(mem_files, batch):
+    """At LENG 6977 the plain eager and lazy Viterbi == viterbi_xla within
+    1e-4 (and each other bit for bit), Forward == forward_xla within 2e-3,
+    the Viterbi filter >= viterbi_xla."""
+    path, jax_hmm = mem_files[chip_smoke.MEM_JOINS[0]]
+    tokens, lengths = batch
+    p7 = P7Profile.from_profile(parse_hmm(path))
+    jp7 = JaxP7Profile.from_profile(jax_hmm)
+    eager = viterbi_scores(p7, tokens, lengths, device="cpu", lazy=False).numpy()
+    lazy = viterbi_scores(p7, tokens, lengths, device="cpu").numpy()
+    assert np.array_equal(eager, lazy)
+    exact = np.asarray(viterbi_xla(jp7, tokens, lengths))
+    assert _max_d(eager, exact) <= VIT_TOL
+    fwd = forward_scores(p7, tokens, lengths, device="cpu").numpy()
+    assert _max_d(fwd, np.asarray(forward_xla(jp7, tokens, lengths))) <= FWD_TOL
+    filt = viterbi_filter_scores(p7, tokens, lengths, device="cpu").numpy()
+    assert np.all((filt >= exact - 1e-4) | np.isneginf(exact))
+
+
+def test_mem_join_plain_posterior_matches_jax(mem_files, batch):
+    """The plain posterior decode at LENG 6977 against the JAX XLA decode:
+    coverage within 4e-3, totals within 2e-3."""
+    path, jax_hmm = mem_files[chip_smoke.MEM_JOINS[0]]
+    tokens, lengths = batch
+    p7 = P7Profile.from_profile(parse_hmm(path))
+    cov, tot = posterior_cuda.posterior_coverage_batch(p7, tokens, lengths, device="cpu")
+    want_cov, want_tot = posterior_coverage_batch_xla(JaxP7Profile.from_profile(jax_hmm),
+                                                      tokens, lengths)
+    live = lengths > 0  # the JAX decode of an empty sequence is NaN
+    assert not cov[~live].any()
+    assert _max_d(cov[live], np.asarray(want_cov)[live, : cov.shape[1]]) <= COV_TOL
+    assert _max_d(tot[live], np.asarray(want_tot)[live]) <= TOT_TOL
+
+
+def test_all_24_join_plans_the_rows_in_memory_case(mem_files):
+    """The all-24 join (LENG 30181, M_pad 30184, 15 chain passes): every
+    p7 kind plans the rows-in-memory case at each pass count it can run,
+    the posterior backward pass at its suffix window."""
+    path, _ = mem_files[chip_smoke.MEM_JOINS[1]]
+    p7 = P7Profile.from_profile(parse_hmm(path))
+    m_pad = p7_cuda.default_m_pad(p7)
+    assert m_pad == 30184 and p7_cuda.chain_passes(m_pad) == 15
+    assert p7_cuda.kernel_case(m_pad) == (p7_cuda.MEM_THREADS, 30)
+    window = posterior_cuda.prepare_suffix_chain(p7).shape[1]
+    for kind in p7_cuda.BLOCKED_KINDS:
+        passes = window if kind == "backward" else p7_cuda.chain_passes(m_pad)
+        plan = p7_cuda.plan_launch(kind, m_pad, passes, 8, 40, 132)
+        assert (plan.threads, plan.groups, plan.grid, plan.n_chain, plan.smem) == (
+            p7_cuda.MEM_THREADS, 1, 8, 0, 0)

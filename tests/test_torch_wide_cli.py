@@ -8,7 +8,9 @@ with the JAX package's writer; the database holds random sequences and one
 states. ``scan`` (the MSV stage) and ``sweep`` over 100.hmm and both give
 the JAX CLI's reports byte for byte; ``scan --stage search --domains`` the
 same rows, hit flags, envelopes and domain spans, domain scores within 2e-3
-nats; ``--fast`` the plain search's hits.
+nats; ``--fast`` the plain search's hits. The three-profile join past 4864
+states (LENG 6977) gives the JAX CLI's `scan` report too. Every comparison
+with the JAX CLI parses with --loader python on both sides.
 """
 
 import logging
@@ -75,7 +77,7 @@ def wide_dir(profile_dir, tmp_path_factory):
 def test_wide_scan_msv_byte_equal_to_jax(wide_dir, tmp_path, pair):
     """`scan` (MSV) with a wide profile: the report equals the JAX CLI's."""
     _, paths, fasta = wide_dir
-    common = ["scan", "--hmm", str(paths[pair]), "--fasta", str(fasta)]
+    common = ["scan", "--loader", "python", "--hmm", str(paths[pair]), "--fasta", str(fasta)]
     jax_out, port_out = tmp_path / "jax.tsv", tmp_path / "port.tsv"
     assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0
     assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
@@ -89,7 +91,7 @@ def test_wide_search_domains_matches_jax(wide_dir, tmp_path, pair):
     hit with one domain inside it."""
     _, paths, fasta = wide_dir
     common = ["scan", "--hmm", str(paths[pair]), "--fasta", str(fasta), "--stage", "search",
-              "--domains"]
+              "--loader", "python", "--domains"]
     jax_out, port_out = tmp_path / "jax.tsv", tmp_path / "port.tsv"
     assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0
     assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
@@ -123,10 +125,27 @@ def test_wide_sweep_byte_equal_to_jax(wide_dir, tmp_path):
     on the CPU the stacked plain version groups them by width): the report
     equals the JAX CLI's byte for byte."""
     directory, _, fasta = wide_dir
-    common = ["sweep", "--hmm-dir", str(directory), "--fasta", str(fasta)]
+    common = ["sweep", "--loader", "python", "--hmm-dir", str(directory), "--fasta", str(fasta)]
     jax_out, port_out = tmp_path / "jax.tsv", tmp_path / "port.tsv"
     assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0
     assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
     want = jax_out.read_bytes()
     assert port_out.read_bytes() == want
     assert len({r[1] for r in _rows(port_out, "tsv")}) == 3
+
+
+def test_mem_join_scan_msv_byte_equal_to_jax(wide_dir, profile_dir, tmp_path):
+    """`scan` (MSV) with the three-profile join of chip_smoke.MEM_JOINS (LENG
+    6977: the rows-in-memory case on the card), both CLIs parsing with
+    --loader python: the report equals the JAX CLI's byte for byte."""
+    _, _, fasta = wide_dir
+    stems = chip_smoke.MEM_JOINS[0]
+    hmm = chip_smoke.join_profiles(*(jax_parse_hmm(profile_dir / f"{s}.hmm") for s in stems))
+    assert hmm.leng == 6977
+    path = tmp_path / "mem.hmm"
+    write_hmm(hmm, path)
+    common = ["scan", "--loader", "python", "--hmm", str(path), "--fasta", str(fasta)]
+    jax_out, port_out = tmp_path / "jax.tsv", tmp_path / "port.tsv"
+    assert jax_cli.main([*common, "--backend", "xla", "--out", str(jax_out)]) == 0
+    assert port_cli.main([*common, "--device", "cpu", "--out", str(port_out)]) == 0
+    assert port_out.read_bytes() == jax_out.read_bytes()

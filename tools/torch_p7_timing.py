@@ -1,16 +1,20 @@
 """Time the PyTorch port's p7 kernels on the card, one JSON line a case.
 
     python3 tools/torch_p7_timing.py [--label NAME] [--batches 4096,64] [--groups 1,2,4]
+                                     [--kernels forward_save_scan,backward_coverage_scan]
 
 Times the eager and lazy Viterbi, the Forward, the Viterbi filter (its
-auto window) and the log-space Forward kernels against 1400.hmm at B x 3500 for each batch B (random residues from
-a seed, all one length), and the row-saving Forward at 1024 x 1024; best of 3
-CUDA-event timings after one warm-up. Each line gives the card's name and
-power limit, and, where the tree under test has the blocked kernels' launch
-plan (ops/p7_cuda.py::device_plan), the groups, grid, staged chain rows,
-shared-memory bytes and registers of the case. --groups also times each
-case at each of those group counts a block that fits (the wrappers'
-``groups`` argument), at every batch.
+auto window) and the log-space Forward kernels against 1400.hmm at B x 3500
+for each batch B (random residues from a seed, all one length), and the
+posterior pair at 1024 x 1024 (the row-saving Forward, then the backward
+coverage pass on its rows); best of 3 CUDA-event timings after one warm-up.
+--kernels times only the kernels named (the wrappers' names, as above).
+
+Each line gives the card's name and power limit, and, where the tree under
+test has the blocked kernels' launch plan (ops/p7_cuda.py::device_plan), the
+groups, grid, staged chain rows, shared-memory bytes and registers of the
+case. --groups also times each case at each of those group counts a block
+that fits (the wrappers' ``groups`` argument), at every batch.
 
 The script imports the port from the first `hmm_fasta_viterbi_tpu_torch` on
 sys.path, its own checkout last, so PYTHONPATH=<another checkout> times that
@@ -68,8 +72,10 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--batches", default="4096,64")
     ap.add_argument("--groups", default="")
+    ap.add_argument("--kernels", default="")
     args = ap.parse_args()
     forced = [int(x) for x in args.groups.split(",") if x]
+    only = {x for x in args.kernels.split(",") if x}
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is false; this needs a CUDA card", file=sys.stderr)
         return 1
@@ -95,13 +101,15 @@ def main() -> int:
               flush=True)
 
     def time_case(name, kind, pack, passes, b, length, fn):
+        if only and name not in only:
+            return
         emit(name, b, length, best_ms(fn), kind, pack, passes)
         for g in forced if plan_of(kind, pack, passes, b, device) else ():
             most = plan_of(kind, pack, passes, b, device)["max_groups"]
             if g <= most:
                 emit(name, b, length, best_ms(lambda: fn(groups=g)), kind, pack, passes, g)
 
-    for b in (int(x) for x in args.batches.split(",")):
+    for b in (int(x) for x in args.batches.split(",") if x):
         tokens = rng.integers(0, 20, size=(b, SEQ_LEN)).astype(np.int8)
         st = scanner.stage(tokens, np.full(b, SEQ_LEN, dtype=np.int32))
         vc = p7_cuda.viterbi_init_carry(st.tr_rows, eager.m_pad)
@@ -130,10 +138,15 @@ def main() -> int:
     tokens = rng.integers(0, 20, size=(b, length)).astype(np.int8)
     st = scanner.stage(tokens, np.full(b, length, dtype=np.int32))
     fc = p7_cuda.forward_init_carry(st.tr_probs, fwd.m_pad)
-    time_case("forward_save_scan", "save", fwd, fwd.chain.shape[0], b, length,
-              lambda **g: posterior_cuda.forward_save_scan_cuda(
-                  *fwd[:4], st.tokens, st.lengths, st.tr_rows, st.tr_probs, fwd.consts, *fc,
-                  **g))
+    save = lambda **g: posterior_cuda.forward_save_scan_cuda(  # noqa: E731
+        *fwd[:4], st.tokens, st.lengths, st.tr_rows, st.tr_probs, fwd.consts, *fc, **g)
+    time_case("forward_save_scan", "save", fwd, fwd.chain.shape[0], b, length, save)
+    total, *_, fm, ls = save()
+    schain = posterior_cuda.suffix_chain_rows(p7, device)
+    bwd = (fwd.emit_m, fwd.emit_i, fwd.trans, schain, st.tokens, st.lengths, st.tr_probs,
+           fwd.consts, total, fm, ls)
+    time_case("backward_coverage_scan", "backward", fwd, schain.shape[0], b, length,
+              lambda **g: posterior_cuda.backward_coverage_scan_cuda(*bwd, **g))
     return 0
 
 
