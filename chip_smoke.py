@@ -9,11 +9,14 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    use; the CLI parses with Python without it) and prints its library or
    why it failed; compiles csrc/*.cu from this checkout, one nvcc a source, and
    prints each kernel case's registers and spills (the rows-in-memory
-   kernels, `*_mem_kernel`, included), and the launch plan of each blocked
-   p7 case (the Viterbi filter's and the backward pass's included) against
-   1400.hmm, the wider wide profile and the three-profile join past 4864
-   states at the timed shapes (threads a group, groups G, grid, staged
-   chain and transition rows, dynamic shared memory);
+   kernels, `*_mem_kernel`, included; the MSV register cases once for each
+   block size W they are compiled for), the launch plan of each MSV case
+   at the timed shapes (W, grid, dynamic shared memory, with the registers
+   and spill bytes of that kernel) and the launch plan
+   of each blocked p7 case (the Viterbi filter's and the backward pass's
+   included) against 1400.hmm, the wider wide profile and the three-profile
+   join past 4864 states at the timed shapes (threads a group, groups G,
+   grid, staged chain and transition rows, dynamic shared memory);
 3. log-space Forward and posterior kernels against plain, all 24 profiles:
    the log-space Forward kernel within LOG_FWD_TOL of its plain version on
    a ragged batch of 64 sequences up to 600 residues, and a two-call carry
@@ -30,7 +33,11 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    each equal their plain PyTorch version, and a two-call carry chain one
    call (max |d| = 0.0); the filter is >= the exact kernel on every
    sequence; one scan_many over all 24 profiles in each mode (the stacked
-   kernel) equals the single-profile kernels bit for bit;
+   kernel) equals the single-profile kernels bit for bit; on 1400.hmm and
+   2405.hmm every block size W the kernel is compiled for equals the
+   default plan in both modes, and a stack of STRIDE_COPIES copies of the
+   profile (a few blocks a profile: each warp walks many sequences) equals
+   the single scan row for row;
 5. MSV kernel against the NumPy oracle on 8 sequences of 1400.hmm and
    2405.hmm;
 6. Viterbi and Forward kernels against plain, all 24 profiles, on a ragged
@@ -201,6 +208,10 @@ MEM_TIME_LEN = 1000
 # wide MSV cases are timed at
 WIDE_PLANTED = 4
 WIDE_MSV_BATCH = 2048
+# copies of one profile stacked in the MSV plan check: 132 // STRIDE_COPIES
+# blocks a profile, so that every warp walks several sequences of the
+# ragged batch
+STRIDE_COPIES = 44
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): FP32 outside the
 # tensor cores and HBM3 bandwidth, for each kernel's bound
@@ -432,6 +443,42 @@ def print_plans(scanner) -> None:
                 print(f"plan {kind} {name} x {batch} rows: {plan_text(kind, pack, batch)}")
 
 
+def msv_plan_text(emit: torch.Tensor, b_pad: int) -> str:
+    """The MSV launch plan of a launch over ``emit`` ([20, M_pad] or [P, 20,
+    M_pad]) and ``b_pad`` sequences, with its kernel's registers and spills."""
+    num_p = emit.shape[0] if emit.dim() == 3 else 1
+    m_pad = emit.shape[-1]
+    lanes, per = msv_cuda.kernel_case(m_pad)
+    plan = msv_cuda.device_plan(m_pad, emit.element_size(), b_pad, num_p, emit.device)
+    text = (f"{lanes} lanes x {per}, W={plan.warps} warps, grid={plan.grid} x P={num_p}, "
+            f"dynamic smem {plan.smem} bytes")
+    if lanes != msv_cuda.MEM_LANES:
+        regs, local = msv_cuda.kernel_attrs(lanes, per, plan.warps, emit.dtype == torch.bfloat16)
+        text += f", {regs} registers, {local} bytes spilled"
+    return text
+
+
+def print_msv_plans(scanner) -> None:
+    """Each MSV register case's launch plan at the timed shapes: 1400.hmm and
+    2405.hmm at BATCH rows, each stacked group of the sweep at SWEEP_BATCH,
+    in both modes."""
+    for stem in ("1400", "2405"):
+        prof = profile(stem)
+        m_pad = msv_cuda.round_up(prof.num_states, 8)
+        for mode, (emit, _) in (("exact", msv_cuda.pack_profile(prof, m_pad, scanner.device)),
+                                ("filter", msv_cuda.pack_profile_filter(prof, m_pad,
+                                                                        scanner.device))):
+            print(f"msv plan {stem}.hmm {mode} x {BATCH} rows: {msv_plan_text(emit, BATCH)}")
+    groups = {}
+    for p in (profile(stem) for stem in stems()):
+        groups.setdefault(msv_cuda.kernel_case(msv_cuda.round_up(p.num_states, 8)), []).append(p)
+    for grp in groups.values():
+        for mode in ("exact", "filter"):
+            emit, _ = scanner._stacked_pack(tuple(grp), mode)
+            print(f"msv plan sweep group {'+'.join(p.name for p in grp)} {mode} x "
+                  f"{SWEEP_BATCH} rows: {msv_plan_text(emit, SWEEP_BATCH)}")
+
+
 def best_ms(fn, reps: int) -> float:
     """Best of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
     fn()
@@ -641,6 +688,39 @@ def msv_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         groups = len({msv_cuda.kernel_case(msv_cuda.round_up(p.num_states, 8)) for p in profs})
         print(f"stacked MSV kernel ({mode}): {len(profs)} profiles in {groups} launches == the "
               f"single-profile kernels (max|d|={err})")
+    msv_plans_vs_default(scanner, staged, errors)
+
+
+def msv_plans_vs_default(scanner, staged, errors: dict) -> None:
+    """Every compiled block size W equals the default plan (scores and
+    carries) in both modes on 1400.hmm and 2405.hmm; STRIDE_COPIES stacked
+    copies, whose few blocks a profile walk the batch, equal the single
+    scan row for row at every W."""
+    for stem in ("1400", "2405"):
+        prof = profile(stem)
+        for filter_mode in (False, True):
+            args = msv_args(scanner, prof, staged, filter_mode=filter_mode)
+            cuda_fn, _, what = MSV_FNS[filter_mode]
+            name = "msv_filter_scan" if filter_mode else "msv_scan"
+            want = cuda_fn(*args)
+            for warps in msv_cuda.WARP_CHOICES:
+                got = cuda_fn(*args, warps=warps)
+                errors[name] = max(errors[name], require_equal(
+                    got, want, f"{what} {stem}.hmm at W={warps}"))
+            emit, consts = args[0], args[4]
+            stack = (emit.expand(STRIDE_COPIES, *emit.shape).contiguous(),
+                     consts.expand(STRIDE_COPIES, 3).contiguous())
+            for warps in msv_cuda.WARP_CHOICES:
+                rows = msv_cuda.msv_stacked_scan_cuda(stack[0], *args[1:4], stack[1], warps=warps)
+                err = require_equal(list(rows), [want[0]] * STRIDE_COPIES,
+                                    f"{STRIDE_COPIES} stacked {what} copies of {stem}.hmm at "
+                                    f"W={warps}")
+                errors["msv_stacked_scan"] = max(errors["msv_stacked_scan"], err)
+            plan = msv_cuda.device_plan(emit.shape[-1], emit.element_size(),
+                                        staged.tokens.shape[0], STRIDE_COPIES, emit.device)
+            print(f"MSV plans {stem}.hmm {'filter' if filter_mode else 'exact'}: W in "
+                  f"{msv_cuda.WARP_CHOICES} == the default plan; {STRIDE_COPIES} stacked copies "
+                  f"on {plan.grid} blocks a profile == the single scan at every W")
 
 
 # -- Viterbi / Forward (phases 6, 7) -------------------------------------------
@@ -1863,7 +1943,7 @@ def msv_timings(scanner, rng, errors: dict, work: dict) -> dict:
         b_ms, b_by = bound(OPS_PER_CELL["msv"](0) * cells, nbytes(*args) + nbytes(exact, *args[5:]))
         print(f"{label}: {cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
               f"{BATCH} x {SEQ_LEN} x M={prof.num_states}; kernel vs plain max|d|={err}; "
-              f"bound {b_ms:.3f} ms by {b_by})")
+              f"bound {b_ms:.3f} ms by {b_by}; plan {msv_plan_text(args[0], BATCH)})")
         if stem == "1400":
             # inputs once; the outputs are the scores and carries of the inputs' sizes
             moved = nbytes(*args) + nbytes(exact, *args[5:])
@@ -1882,7 +1962,8 @@ def msv_timings(scanner, rng, errors: dict, work: dict) -> dict:
             out["filter"] = (f_ms, f_plain_ms)
             print(f"filter_1400: {cells / f_ms / 1e6:.2f} GCUPS ({f_ms:.3f} ms, best of 3); "
                   f"plain version {f_plain_ms:.3f} ms ({cells / f_plain_ms / 1e6:.2f} GCUPS, "
-                  f"once), kernel vs plain max|d|={f_err}")
+                  f"once), kernel vs plain max|d|={f_err}; plan "
+                  f"{msv_plan_text(f_args[0], BATCH)}")
     return out
 
 
@@ -1986,7 +2067,7 @@ def sweep_timings(scanner, rng, errors: dict, work: dict) -> dict:
                   f"{', '.join(p.name for p in grp)}, sum Mr = {mr} of "
                   f"{len(grp) * lanes * per} kernel states, "
                   f"{staged.total_residues * mr / g_ms / 1e6:.2f} GCUPS; bound {b_ms:.3f} ms "
-                  f"by {b_by}")
+                  f"by {b_by}; plan {msv_plan_text(e, SWEEP_BATCH)}")
         ms = best_ms(lambda: [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs],
                      reps=3)
         got = [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs]
@@ -2012,7 +2093,8 @@ def sweep_timings(scanner, rng, errors: dict, work: dict) -> dict:
               f"{SEQ_LEN} x 24 profiles, sum Mr = {sum(p.num_states for p in profs)}, "
               f"{len(groups)} launches); plain version {plain_ms * scale:.3f} ms "
               f"({cells / (plain_ms * scale) / 1e6:.2f} GCUPS, once, {what}); kernel vs plain "
-              f"max|d|={err}", flush=True)
+              f"max|d|={err}; plans: "
+              f"{'; '.join(msv_plan_text(e, SWEEP_BATCH) for e, _ in packs)}", flush=True)
     return out
 
 
@@ -2094,6 +2176,7 @@ def main() -> int:
         lib_path, log = _build.build()
         print(f"library: {lib_path}")
         print("\n".join(ptxas_summary(log)))
+        print_msv_plans(scanner)
         print_plans(scanner)
 
     with Phase("3. log-space Forward and posterior kernels vs plain, 24 profiles"):

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -286,6 +287,8 @@ def _kernel_library() -> ctypes.CDLL:
         i, i, i, i, i, i, p, i, p, i, p, p, p, p, p, p, p, p, i, i, p, p,
     ]
     lib.msv_scan_launch.restype = i
+    lib.msv_kernel_attrs.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.msv_kernel_attrs.restype = i
     lib.msv_error_string.argtypes = [i]
     lib.msv_error_string.restype = ctypes.c_char_p
     return lib
@@ -320,23 +323,98 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-# the SM's shared memory a block may take (227 KB); a table over half of it
-# leaves room for one block an SM
+# the SM's shared memory a block may take (227 KB) and its registers
 SMEM_PER_SM = 232448
+REGS_PER_SM = 65536
+# warps a block of a register case (32 lanes): each is a kernel of its own,
+# compiled under __launch_bounds__(32 * warps, 1) (csrc/msv_kernel.cu,
+# kernel_of), so that ptxas holds its registers to register_cap(warps)
+WARP_CHOICES = (8, 12, 16, 20, 24, 28, 32)
+# the wide case's largest block: 16 warps, 8 sequences (its kernels'
+# __launch_bounds__(512, 1))
+WIDE_WARPS = 16
+# warps a block of each register case, keyed by PER: the fastest of
+# tools/torch_msv_timing.py --warps on an NVIDIA H100 (PERF.md, section 6).
+# The grid is persistent: one block an SM and profile (sms // P blocks a
+# profile), whose warps walk the batch with a stride.
+PLAN_WARPS = {4: 32, 12: 32, 20: 24, 28: 16, 36: 16, 44: 16, 52: 16, 60: 16, 68: 16, 76: 16}
 
 
-def block_warps(lanes: int, per: int, entry_bytes: int) -> int:
-    """Warps a block of the kernel case runs (``csrc/msv_kernel.cu``,
-    ``msv_smem_bytes``): at 32 lanes 16 when the table takes over half the
-    SM's shared memory (one block an SM), else 8; at 64 lanes 16 when the
-    warps' two row buffers (and each pair's 32-byte exchange slots) fit,
-    else 8; MEM_LANES / 32 in the rows-in-memory case."""
+class MsvPlan(NamedTuple):
+    """How the MSV kernel launches: ``warps`` warps a block, ``grid`` blocks
+    a profile (grid.x; grid.y is the profile) and ``smem`` bytes of dynamic
+    shared memory a block. A grid smaller than the batch needs makes the
+    warps walk it with a stride."""
+
+    warps: int
+    grid: int
+    smem: int
+
+
+def register_cap(warps: int) -> int:
+    """Registers a thread that ``__launch_bounds__(32 * warps, 1)`` leaves:
+    the SM's REGS_PER_SM over the block's threads, in the steps of 8 they
+    are allocated in, at most 255."""
+    return min(255, REGS_PER_SM // (32 * warps) // 8 * 8)
+
+
+def launch_plan(lanes: int, per: int, entry_bytes: int, b_pad: int, num_p: int, sms: int,
+                warps: int | None = None) -> MsvPlan:
+    """The launch plan of the kernel case ``(lanes, per)`` over ``b_pad``
+    sequences and ``num_p`` stacked profiles on a card of ``sms``
+    multiprocessors (``csrc/msv_kernel.cu``, ``msv_scan_launch``).
+
+    At 32 lanes ``warps`` (default PLAN_WARPS[per], else one of
+    WARP_CHOICES) warps a block stage one f32 table of 20 x 32 * per
+    entries whatever ``entry_bytes`` is (the filter's bf16 table is widened
+    while it is staged), on a persistent grid: one block an SM and table,
+    sms // num_p blocks a profile (at least 1, at most the batch needs). At
+    64 lanes 16 warps a block when their two row buffers of ``entry_bytes``
+    entries (and each pair's 32-byte exchange slots) fit, else 8, one pair
+    a sequence. The rows-in-memory case (MEM_LANES) runs one 1024-thread
+    block a sequence, MEM_BLOCKS_PER_SM blocks an SM, a persistent grid."""
     if lanes == MEM_LANES:
-        return MEM_LANES // 32
-    if lanes == 32:
-        return 16 if 2 * entry_bytes * NUM_AA * 32 * per > SMEM_PER_SM else 8
-    wide = 16 * 2 * 32 * per * entry_bytes + 8 * 32
-    return 16 if wide <= SMEM_PER_SM else 8
+        return MsvPlan(MEM_LANES // 32, max(1, min(b_pad, MEM_BLOCKS_PER_SM * sms)), 0)
+    if lanes == 64:
+        if warps is not None:
+            raise ValueError("the wide case's plan is fixed")
+        def wide_smem(w):
+            return w * 2 * 32 * per * entry_bytes + (w // 2) * 2 * 4 * 4
+        w = WIDE_WARPS if wide_smem(WIDE_WARPS) <= SMEM_PER_SM else WIDE_WARPS // 2
+        return MsvPlan(w, max(1, -(-b_pad // (w // 2))), wide_smem(w))
+    warps = PLAN_WARPS[per] if warps is None else warps
+    if warps not in WARP_CHOICES:
+        raise ValueError(f"{warps} warps a block: the MSV kernel takes one of {WARP_CHOICES}")
+    grid = max(1, min(-(-b_pad // warps), sms // num_p))
+    return MsvPlan(warps, grid, 4 * NUM_AA * 32 * per)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_plan(m_pad: int, entry_bytes: int, b_pad: int, num_p: int, device,
+                warps: int | None = None) -> MsvPlan:
+    """:func:`launch_plan` of the kernel case of ``m_pad`` states on the
+    card ``device``."""
+    lanes, per = kernel_case(m_pad)
+    return launch_plan(lanes, per, entry_bytes, b_pad, num_p,
+                       _sm_count(torch.device(device).index or 0), warps)
+
+
+@functools.cache
+def kernel_attrs(lanes: int, per: int, warps: int, bf16: bool) -> tuple[int, int]:
+    """``(registers, local-memory bytes)`` a thread of a register case's
+    kernel uses, as compiled (local memory: the registers ptxas spilled)."""
+    lib = _kernel_library()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.msv_kernel_attrs(lanes, per, warps, int(bf16), ctypes.byref(regs),
+                              ctypes.byref(local))
+    if rc != 0:
+        raise RuntimeError(f"MSV kernel ({lanes} lanes, per {per}, {warps} warps) attribute "
+                           f"query failed: {lib.msv_error_string(rc).decode()} ({rc})")
+    return regs.value, local.value
 
 
 def count_launch(wrapper, wide: bool, mem: bool = False) -> None:
@@ -355,11 +433,12 @@ def _count(wrapper, m_pad: int) -> None:
     count_launch(wrapper, lanes == 64, lanes == MEM_LANES)
 
 
-def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry):
+def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry, warps=None):
     """Check the operands and launch the kernel on the current stream.
     ``emit`` is ``[P, 20, M_pad]`` f32 or bf16 and ``tr_consts`` ``[P, 3]``;
     ``carry`` is ``(m, s)`` (P = 1: the carries come back) or None (the
-    row-0 carry, scores only). Returns ``(scores [P, B_pad], m_out,
+    row-0 carry, scores only); ``warps`` forces the register case's block
+    size (:func:`launch_plan`). Returns ``(scores [P, B_pad], m_out,
     s_out)``."""
     device = tokens.device
     if device.type != "cuda":
@@ -387,23 +466,21 @@ def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry):
         m_out, s_out = torch.empty_like(m_in), torch.empty_like(s_in)
     if b_pad == 0:
         return scores, m_out, s_out
-    warps = block_warps(lanes, per, emit.element_size())
-    grid, scratch = 0, None
+    plan = device_plan(m_pad, emit.element_size(), b_pad, num_p, device, warps)
+    scratch = None
     if lanes == MEM_LANES:
-        # a persistent grid; two scratch rows a block and profile
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        grid = min(b_pad, MEM_BLOCKS_PER_SM * sms)
-        scratch = torch.empty((num_p, grid, 2, m_pad), dtype=torch.float32, device=device)
+        # two scratch rows a block and profile
+        scratch = torch.empty((num_p, plan.grid, 2, m_pad), dtype=torch.float32, device=device)
     lib = _kernel_library()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     rc = lib.msv_scan_launch(
-        device.index, lanes, per, warps, int(emit.dtype == torch.bfloat16), num_p,
+        device.index, lanes, per, plan.warps, int(emit.dtype == torch.bfloat16), num_p,
         emit.data_ptr(), m_pad, tokens.data_ptr(), l_pad, lengths.data_ptr(),
         tr_rows.data_ptr(), tr_consts.data_ptr(), ptr(m_in), ptr(s_in),
-        scores.data_ptr(), ptr(m_out), ptr(s_out), b_pad, grid, ptr(scratch),
+        scores.data_ptr(), ptr(m_out), ptr(s_out), b_pad, plan.grid, ptr(scratch),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
@@ -413,38 +490,40 @@ def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry):
     return scores, m_out, s_out
 
 
-def _single(what, dtype, emit, tokens, lengths, tr_rows, tr_consts, m, s):
+def _single(what, dtype, emit, tokens, lengths, tr_rows, tr_consts, m, s, warps):
     if emit.dtype != dtype:
         raise ValueError(f"emit is {emit.dtype}, expected {dtype}")
     scores, m_out, s_out = _launch(what, emit.unsqueeze(0), tokens, lengths, tr_rows,
-                                   tr_consts.unsqueeze(0), (m, s))
+                                   tr_consts.unsqueeze(0), (m, s), warps)
     return scores[0], m_out, s_out
 
 
-def msv_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s):
+def msv_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s, warps=None):
     """Launch ``csrc/msv_kernel.cu`` (f32 table) on the current stream; same
-    arguments and results as :func:`msv_scan`. Raises on anything the
-    kernel does not take and on a refused launch; never falls back."""
-    out = _single("MSV", torch.float32, emit, tokens, lengths, tr_rows, tr_consts, m, s)
+    arguments and results as :func:`msv_scan`; ``warps`` forces the block
+    size (:func:`launch_plan`). Raises on anything the kernel does not take
+    and on a refused launch; never falls back."""
+    out = _single("MSV", torch.float32, emit, tokens, lengths, tr_rows, tr_consts, m, s, warps)
     if tokens.shape[0]:
         _count(msv_scan_cuda, emit.shape[1])
     return out
 
 
-def msv_filter_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s):
-    """Launch ``csrc/msv_kernel.cu`` with the filter's bf16 table; same
-    arguments and results as :func:`msv_filter_scan`."""
+def msv_filter_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s, warps=None):
+    """Launch ``csrc/msv_kernel.cu`` with the filter's bf16 table (staged
+    as f32); same arguments and results as :func:`msv_filter_scan`."""
     out = _single("MSV filter", torch.bfloat16, emit, tokens, lengths, tr_rows, tr_consts,
-                  m, s)
+                  m, s, warps)
     if tokens.shape[0]:
         _count(msv_filter_scan_cuda, emit.shape[1])
     return out
 
 
-def msv_stacked_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts):
+def msv_stacked_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, warps=None):
     """Launch ``csrc/msv_kernel.cu`` over a profile stack (one grid row a
     profile); same arguments and results as :func:`msv_stacked_scan`."""
-    scores, _, _ = _launch("stacked MSV", emit, tokens, lengths, tr_rows, tr_consts, None)
+    scores, _, _ = _launch("stacked MSV", emit, tokens, lengths, tr_rows, tr_consts, None,
+                           warps)
     if tokens.shape[0]:
         _count(msv_stacked_scan_cuda, emit.shape[2])
     return scores

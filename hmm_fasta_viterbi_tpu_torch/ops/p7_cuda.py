@@ -74,8 +74,8 @@ from ..models.p7 import P7Profile
 
 from . import _build
 from .msv_cuda import (
-    NEG_INF, NUM_AA, PAD_SCORE, SMEM_PER_SM, _check, bf16_round_up, bf16_tensor, count_launch,
-    f32_round_up, round_up,
+    NEG_INF, NUM_AA, PAD_SCORE, SMEM_PER_SM, _check, _sm_count, bf16_round_up, bf16_tensor,
+    count_launch, f32_round_up, round_up,
 )
 
 # residues per lazy-certificate chunk: a fire replays this many steps of
@@ -970,11 +970,6 @@ def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS) -> int:
         raise RuntimeError(
             f"{kind} kernel ({threads} threads, per {per}) attribute query failed: {msg} ({rc})")
     return out.value
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def device_plan(kind: str, m_pad: int, passes: int, b_pad: int, device,

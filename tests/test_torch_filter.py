@@ -108,6 +108,21 @@ def test_bf16_round_up_edge_values():
     assert got[0] == 0x0000 and got[1] == 0x8000 and got[2] == 0x7F80 and got[3] == 0xFF80
 
 
+def test_staging_widening_equals_torch_bf16_to_f32():
+    """The kernel stages the filter's bf16 table as f32 by ``bits << 16``
+    (csrc/msv_kernel.cu, Entries<uint16_t>::at); the plain version widens
+    with ``emit.float()``. Both give the same f32 bits for all 65,536 bf16
+    patterns, NaN payloads and both zeros and infinities included."""
+    bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    staged = (bits.astype(np.uint32) << 16).view(np.float32)
+    plain = msv_cuda.bf16_tensor(bits, "cpu").float().numpy()
+    assert np.array_equal(staged.view(np.uint32), plain.view(np.uint32))
+    nan = np.isnan(staged)
+    assert int(nan.sum()) == 2 * 127  # exponent all ones, a nonzero mantissa, either sign
+    assert np.array_equal(plain.view(np.uint32)[nan] >> 16, bits[nan].astype(np.uint32))
+    assert np.array_equal(_widen(bits).view(np.uint32), staged.view(np.uint32))
+
+
 def test_f32_round_up_matches_jax():
     rng = np.random.default_rng(1)
     x = np.concatenate([rng.normal(0, 5, 500), [0.0, -0.0, np.inf, -np.inf, -1e30]]).astype(

@@ -7,6 +7,8 @@ split reconstructs every f32 score exactly, so no tolerance is needed.
 """
 
 import dataclasses
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -167,4 +169,72 @@ def test_kernel_limit_names_itself():
     assert msv_cuda.kernel_per(msv_cuda.MAX_WIDE_STATES + 1) == 5
     assert msv_cuda.kernel_case(4872) == (1024, 5)
     assert msv_cuda.kernel_case(1 << 20) == (1024, 1024)
-    assert msv_cuda.block_warps(1024, 5, 4) == msv_cuda.block_warps(1024, 5, 2) == 32
+    mem = msv_cuda.launch_plan(1024, 5, 4, 16384, 1, 132)
+    assert mem == msv_cuda.launch_plan(1024, 5, 2, 16384, 1, 132) == (32, 264, 0)
+
+
+# -- the launch plan (ops/msv_cuda.py::launch_plan, csrc/msv_kernel.cu) ------
+
+SMS = 132  # an H100 SXM's multiprocessors
+
+
+@pytest.mark.parametrize("per", msv_cuda.KERNEL_PER)
+@pytest.mark.parametrize("b_pad,num_p", [(1, 1), (64, 1), (16384, 1), (8192, 3), (8192, 200)])
+def test_launch_plan_register_cases(per, b_pad, num_p):
+    """One f32 table a block in both modes, so exact and filter plan alike;
+    the block fits the SM's threads and, at its register cap, its registers;
+    the grid is one block an SM and profile, no more than the batch needs."""
+    plan = msv_cuda.launch_plan(32, per, 4, b_pad, num_p, SMS)
+    assert plan == msv_cuda.launch_plan(32, per, 2, b_pad, num_p, SMS)
+    warps = msv_cuda.PLAN_WARPS[per]
+    assert plan.warps == warps
+    assert plan.smem == 20 * 32 * per * 4 <= msv_cuda.SMEM_PER_SM == 232448
+    assert warps in msv_cuda.WARP_CHOICES and warps * 32 <= 1024
+    assert warps * 32 * msv_cuda.register_cap(warps) <= msv_cuda.REGS_PER_SM == 65536
+    assert plan.grid == max(1, min(-(-b_pad // warps), SMS // num_p))
+    assert plan.grid * num_p <= max(SMS, num_p)
+
+
+@pytest.mark.parametrize("warps,cap", [(8, 255), (12, 168), (16, 128), (20, 96), (24, 80),
+                                       (28, 72), (32, 64)])
+def test_launch_plan_forced_warps(warps, cap):
+    """Every compiled block size launches; the register cap is what
+    __launch_bounds__(32 * warps, 1) leaves, in steps of 8."""
+    assert msv_cuda.register_cap(warps) == cap
+    plan = msv_cuda.launch_plan(32, 44, 2, 16384, 1, SMS, warps)
+    assert plan == (warps, SMS, 20 * 32 * 44 * 4)
+    assert msv_cuda.launch_plan(32, 44, 2, 40, 1, SMS, warps).grid == -(-40 // warps)
+    for bad in (0, 4, 10, 36):
+        with pytest.raises(ValueError, match="warps a block"):
+            msv_cuda.launch_plan(32, 44, 4, 16384, 1, SMS, bad)
+
+
+@pytest.mark.parametrize("per", msv_cuda.WIDE_PER)
+@pytest.mark.parametrize("entry", [4, 2])
+def test_launch_plan_wide_and_memory_cases_unchanged(per, entry):
+    """The wide case (two warps a sequence, each warp's two row buffers of
+    the global entries) keeps 16 warps a block where they fit, else 8, one
+    pair a sequence; the rows-in-memory case one 1024-thread block a
+    sequence, two an SM."""
+    def row_buffers(warps):
+        return warps * 2 * 32 * per * entry + (warps // 2) * 32
+
+    warps = 16 if row_buffers(16) <= msv_cuda.SMEM_PER_SM else 8
+    plan = msv_cuda.launch_plan(64, per, entry, 2048, 2, SMS)
+    assert plan == (warps, -(-2048 // (warps // 2)), row_buffers(warps))
+    assert plan.smem <= msv_cuda.SMEM_PER_SM
+    with pytest.raises(ValueError, match="fixed"):
+        msv_cuda.launch_plan(64, per, entry, 2048, 1, SMS, warps=8)
+    assert msv_cuda.launch_plan(msv_cuda.MEM_LANES, 7, entry, 100, 3, SMS) == (32, 100, 0)
+
+
+def test_launch_plan_matches_kernel_source():
+    """The block sizes the Python plan picks from are the kernels the C
+    entry compiles (csrc/msv_kernel.cu, kernel_of), each under its own
+    launch bound, and the wide case's largest block is its bound's."""
+    source = (pathlib.Path(msv_cuda.__file__).parent.parent / "csrc" / "msv_kernel.cu").read_text()
+    cases = re.findall(r"case (\d+): return msv_kernel<PER, 32, T, (\d+)>;", source)
+    assert [(int(a), int(b)) for a, b in cases] == [(w, w) for w in msv_cuda.WARP_CHOICES]
+    assert "__launch_bounds__(32 * WARPS, 1) msv_kernel" in source
+    assert f"constexpr int kWideWarps = {msv_cuda.WIDE_WARPS};" in source
+    assert "return lanes == 32 ? sizeof(float) * 20 * 32 * per" in source
