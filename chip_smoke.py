@@ -120,7 +120,25 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    version once. Each kernel's bound is the larger
    of its FP32 operations (counted a cell from its source) at 67 TFLOP/s
    and the bytes it must move (each input once, each output once) at 3.35
-   TB/s, at the timed shape.
+   TB/s, at the timed shape;
+11. database-scale paths, on phase 9's database and profiles: `--stream
+   4096` against the whole-file run, in turns, for `scan --stage search
+   --domains` (also byte-equal to phase 9's report; every planted row a
+   hit), `scan`, `scan --stage search --fast`, `sweep` and `sweep --stage
+   search --fast` over the 24 profiles: every report byte-equal, the 4
+   batches staged on a side stream other than the consumer's (the stager's
+   log line), the MSV kernel launched once a batch at least, the phase line
+   (producer/parse, /encode, /stage, /put_wait, prefetch_wait) and both end
+   to end times printed; `--bucketed` against the unbucketed run on a
+   length-skewed FASTA (16384 sequences, lengths from a seeded lognormal of
+   median 300 and sigma 1.0 clipped to 10..10000) for `scan`, `scan
+   --stage search [--fast]` and `sweep`: reports byte-equal, the bucket
+   count, padded cells saved and both runs' seconds printed; `sweep
+   --checkpoint DIR --checkpoint-shard 4096` (msv, and `--stage search
+   --fast`): the report byte-equal to phase 9's sweep, then one profile's
+   chunk of shard 2 and every chunk of shard 3 deleted and the sweep rerun:
+   the report byte-equal again and only the deleted chunks recomputed (the
+   checkpoint's log lines, every other chunk file untouched).
 
 Prints a JSON line about the kernels (every case, the wide ones as
 `<kernel>_wide`, the rows-in-memory ones as `<kernel>_mem`), then the card's
@@ -212,6 +230,11 @@ WIDE_MSV_BATCH = 2048
 # blocks a profile, so that every warp walks several sequences of the
 # ragged batch
 STRIDE_COPIES = 44
+# phase 11: the streamed batch (4 batches of the headline database), the
+# checkpoint shard, and the length-skewed database of the bucketed runs
+STREAM_BATCH = 4096
+CHECKPOINT_SHARD = 4096
+SKEW_BATCH, SKEW_MEDIAN, SKEW_SIGMA, SKEW_CLIP = 16384, 300, 1.0, (10, 10000)
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): FP32 outside the
 # tensor cores and HBM3 bandwidth, for each kernel's bound
@@ -1728,6 +1751,12 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
 
 # -- main paths (phase 9) ------------------------------------------------------
 
+def planted_rows() -> np.ndarray:
+    """The rows of the headline database that hold the 1400.hmm homologs."""
+    stride = BATCH // PLANTED
+    return (np.arange(PLANTED) * stride + stride // 3).astype(np.int64)
+
+
 def write_database(rng, path: pathlib.Path):
     """16384 random sequences of 3500 residues with PLANTED sequences
     sampled from 1400.hmm and WIDE_PLANTED from the wider of the wide
@@ -1736,7 +1765,7 @@ def write_database(rng, path: pathlib.Path):
     tokens = rng.integers(0, 20, size=(BATCH, SEQ_LEN)).astype(np.int8)
     lengths = np.full(BATCH, SEQ_LEN, dtype=np.int32)
     stride = BATCH // PLANTED
-    rows = (np.arange(PLANTED) * stride + stride // 3).astype(np.int64)
+    rows = planted_rows()
     wide_rows = (np.arange(WIDE_PLANTED) * stride + 2 * stride // 3).astype(np.int64)
     for planted, hmm, n in ((rows, parse_hmm(PROFILES / "1400.hmm"), PLANTED),
                             (wide_rows, wide_profile(WIDE_PAIRS[1]), WIDE_PLANTED)):
@@ -1752,14 +1781,18 @@ def write_database(rng, path: pathlib.Path):
 
 
 def run_cli(argv):
+    """One CLI run with every launch count set to 0 before it: (launches,
+    end-to-end seconds, the `seconds:` line's values, the records of the
+    port's loggers)."""
     handler = _Records()
-    logging.getLogger(cli.__name__).addHandler(handler)
+    package = logging.getLogger("hmm_fasta_viterbi_tpu_torch")
+    package.addHandler(handler)
     zero_launches()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     e2e = time.perf_counter() - t0
     counts = launches()
-    logging.getLogger(cli.__name__).removeHandler(handler)
+    package.removeHandler(handler)
     require(rc == 0, f"{' '.join(argv[:3])} exited {rc}")
     phases = next(r for r in handler.records if r.msg.startswith("seconds:"))
     return counts, e2e, phases.args, handler.records
@@ -1924,6 +1957,201 @@ def hit_rows(path: pathlib.Path, with_profile: bool = False) -> dict:
         if row[7] == "1":
             out[(row[0], row[1]) if with_profile else row[0]] = line
     return out
+
+
+# -- database-scale paths (phase 11) -------------------------------------------
+
+def run_cli_logged(argv):
+    """:func:`run_cli` with the messages of its log records."""
+    counts, e2e, secs, records = run_cli(argv)
+    return counts, e2e, secs, [r.getMessage() for r in records]
+
+
+def phase_ms(messages: list, label: str) -> dict:
+    """The sections of a streamed command's phase line, in ms."""
+    line = next(m for m in messages if m.startswith(f"streamed {label} phases:"))
+    return {k: float(v) for k, v in re.findall(r"(\S+)=([0-9.]+)ms", line)}
+
+
+def side_stream(messages: list, batches: int, what: str) -> str:
+    """Require that the streamed batches were staged on a stream other than
+    the consumer's; the log line of the stager."""
+    line = next((m for m in messages if m.startswith("side-stream staging:")), None)
+    require(line is not None, f"{what}: no side-stream staging line")
+    n, side, consumer = re.match(
+        r"side-stream staging: (\d+) batches staged on stream (\S+), consumed on stream (\S+)",
+        line).groups()
+    require(int(n) == batches, f"{what}: {n} batches staged on the side stream, "
+                               f"expected {batches}")
+    require(side != consumer, f"{what}: batches staged on the consumer's stream {consumer}")
+    return line
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def streamed_paths(db: pathlib.Path, fasta: pathlib.Path, planted) -> None:
+    """`--stream 4096` against its whole-file run on phase 9's database, in
+    turns (whole, streamed), reports byte-equal: `scan --stage search
+    --domains` (also byte-equal to phase 9's report; every planted row a
+    hit), `scan` (msv), `scan --stage search --fast`, `sweep` and `sweep
+    --stage search --fast` over the 24 profiles. Each streamed run stages
+    its BATCH // STREAM_BATCH batches on the side stream (the MSV kernel
+    launched once a batch at least) and prints its phase line, producer
+    stage and prefetch wait beside the two end-to-end times."""
+    hmm = str(PROFILES / "1400.hmm")
+    batches = -(-BATCH // STREAM_BATCH)
+    runs = [
+        ("scan --stage search --domains", ["scan", "--stage", "search", "--domains", "--hmm", hmm],
+         "domains.tsv", "search"),
+        ("scan", ["scan", "--hmm", hmm], "scan.tsv", "scan"),
+        ("scan --stage search --fast", ["scan", "--stage", "search", "--fast", "--hmm", hmm],
+         "search_fast.tsv", "search"),
+        ("sweep", ["sweep", "--hmm-dir", str(PROFILES)], "sweep.tsv", "sweep"),
+        ("sweep --stage search --fast",
+         ["sweep", "--stage", "search", "--fast", "--hmm-dir", str(PROFILES)],
+         "sweep_search.tsv", "search"),
+    ]
+    for label, argv, phase9, kind in runs:
+        common = [*argv, "--fasta", str(fasta), "--device", DEVICE]
+        whole, streamed = db / f"whole_{phase9}", db / f"stream_{phase9}"
+        _, whole_e2e, whole_secs, _ = run_cli_logged([*common, "--out", str(whole)])
+        got, e2e, secs, messages = run_cli_logged(
+            [*common, "--stream", str(STREAM_BATCH), "--out", str(streamed)])
+        require(whole.read_bytes() == (fasta.parent / phase9).read_bytes(),
+                f"{label}: the whole-file report differs from phase 9's")
+        require(streamed.read_bytes() == whole.read_bytes(),
+                f"{label} --stream: the report differs from the whole-file one")
+        kernel = "msv_stacked_scan" if label == "sweep" else (
+            "msv_filter_scan" if "--fast" in argv else "msv_scan")
+        require(got[kernel] >= batches, f"{label} --stream: {got[kernel]} {kernel} launches "
+                                        f"for {batches} batches")
+        line = side_stream(messages, batches, f"{label} --stream")
+        ms = phase_ms(messages, kind)
+        print(f"database {label} --stream {STREAM_BATCH}: report byte-equal to the whole-file "
+              f"one; {line}; launches {nonzero(got)}")
+        print(f"  phases: {next(m for m in messages if m.startswith('streamed '))}")
+        print(f"  producer/stage {ms['producer/stage']:.1f} ms, prefetch_wait "
+              f"{ms['prefetch_wait']:.1f} ms, producer/parse {ms['producer/parse']:.1f} ms; "
+              f"end to end streamed {e2e:.3f} s, whole-file {whole_e2e:.3f} s")
+        print_seconds(f"  whole-file {label}", whole_secs, whole_e2e)
+        print_seconds(f"  streamed {label}", secs, e2e)
+        if "--domains" in argv:
+            hits = {int(t[3:]) for t in hit_rows(streamed)}
+            missed = sorted(set(planted.tolist()) - hits)
+            require(not missed, f"streamed --domains: planted rows not hits: {missed}")
+
+
+def write_skewed_database(path: pathlib.Path) -> np.ndarray:
+    """SKEW_BATCH random sequences with lengths from a seeded lognormal
+    (median SKEW_MEDIAN, sigma SKEW_SIGMA) clipped to SKEW_CLIP; returns
+    the lengths."""
+    rng = np.random.default_rng(SEED + 11)
+    lengths = np.clip(np.round(rng.lognormal(math.log(SKEW_MEDIAN), SKEW_SIGMA, SKEW_BATCH)),
+                      *SKEW_CLIP).astype(np.int64)
+    letters = np.frombuffer(AMINO_ACIDS.encode(), dtype=np.uint8)[
+        rng.integers(0, 20, size=int(lengths.sum()))].tobytes().decode()
+    ends = np.cumsum(lengths)
+    write_fasta(path, [FastaRecord(f"seq{i}", letters[e - n: e])
+                       for i, (n, e) in enumerate(zip(lengths, ends))])
+    return lengths
+
+
+def bucketed_paths(db: pathlib.Path) -> None:
+    """`--bucketed` against the unbucketed run on a length-skewed database,
+    in turns, reports byte-equal: `scan`, `scan --stage search`, `scan
+    --stage search --fast` and `sweep` over the 24 profiles; prints the
+    bucket count, the padded cells saved and both runs' seconds."""
+    fasta = db / "skewed.fsa"
+    lengths = write_skewed_database(fasta)
+    print(f"skewed database: {SKEW_BATCH} sequences, lengths {int(lengths.min())}-"
+          f"{int(lengths.max())}, median {float(np.median(lengths)):.0f}, "
+          f"{int(lengths.sum())} residues")
+    hmm = str(PROFILES / "1400.hmm")
+    runs = [
+        ("scan", ["scan", "--hmm", hmm]),
+        ("scan --stage search", ["scan", "--stage", "search", "--hmm", hmm]),
+        ("scan --stage search --fast", ["scan", "--stage", "search", "--fast", "--hmm", hmm]),
+        ("sweep", ["sweep", "--hmm-dir", str(PROFILES)]),
+    ]
+    for k, (label, argv) in enumerate(runs):
+        common = [*argv, "--fasta", str(fasta), "--device", DEVICE]
+        whole, bucketed = db / f"skew{k}.tsv", db / f"skew{k}_bucketed.tsv"
+        _, whole_e2e, whole_secs, _ = run_cli_logged([*common, "--out", str(whole)])
+        got, e2e, secs, messages = run_cli_logged([*common, "--bucketed", "--out",
+                                                   str(bucketed)])
+        require(bucketed.read_bytes() == whole.read_bytes(),
+                f"{label} --bucketed: the report differs from the unbucketed one")
+        line = next(m for m in messages if m.startswith("bucketed staging:"))
+        n_buckets = int(line.split()[2])
+        require(n_buckets > 1, f"{label} --bucketed: {line}")
+        rows = sum(1 for r in whole.read_text().splitlines() if not r.startswith("#"))
+        print(f"database {label} --bucketed: report byte-equal to the unbucketed one ({rows} "
+              f"rows); {line}; launches {nonzero(got)}")
+        print_seconds(f"  unbucketed {label}", whole_secs, whole_e2e)
+        print_seconds(f"  bucketed {label}", secs, e2e)
+
+
+def checkpoint_paths(db: pathlib.Path, fasta: pathlib.Path) -> None:
+    """`sweep --checkpoint DIR --checkpoint-shard 4096` (msv, and `--stage
+    search --fast`) over phase 9's database and the 24 profiles: the report
+    byte-equal to phase 9's uncheckpointed sweep; then one profile's chunk
+    of shard 2 and every chunk of shard 3 deleted and the sweep rerun: the
+    report byte-equal again, only the deleted chunks recomputed (the log's
+    chunk lines and count, every other chunk file untouched)."""
+    shards = -(-BATCH // CHECKPOINT_SHARD)
+    names = [load_profile(p).name for p in sorted(PROFILES.glob("*.hmm"))]
+    one = load_profile(PROFILES / "1400.hmm").name
+    for label, stage, phase9 in (("sweep", [], "sweep.tsv"),
+                                 ("sweep --stage search --fast",
+                                  ["--stage", "search", "--fast"], "sweep_search.tsv")):
+        ckpt = db / f"ckpt_{phase9[:-4]}"
+        argv = ["sweep", *stage, "--hmm-dir", str(PROFILES), "--fasta", str(fasta), "--device",
+                DEVICE, "--checkpoint", str(ckpt), "--checkpoint-shard", str(CHECKPOINT_SHARD)]
+        out = db / f"ckpt_{phase9}"
+        _, first_e2e, first_secs, _ = run_cli_logged([*argv, "--out", str(out)])
+        require(out.read_bytes() == (fasta.parent / phase9).read_bytes(),
+                f"{label} --checkpoint: the report differs from phase 9's")
+        chunks = sorted(ckpt.glob("*.npz"))
+        require(len(chunks) == shards * len(names),
+                f"{label} --checkpoint: {len(chunks)} chunks, expected {shards * len(names)}")
+        deleted = [ckpt / f"{one}.shard00002.npz", *ckpt.glob("*.shard00003.npz")]
+        kept = {p: p.stat().st_mtime_ns for p in chunks if p not in deleted}
+        for p in deleted:
+            p.unlink()
+        got, e2e, secs, messages = run_cli_logged([*argv, "--out", str(out)])
+        require(out.read_bytes() == (fasta.parent / phase9).read_bytes(),
+                f"{label} --checkpoint rerun: the report differs from phase 9's")
+        recomputed = [m for m in messages if m.startswith("checkpointed")]
+        if stage:
+            want = [f"checkpointed search {one} shard 3/{shards}"] + [
+                f"checkpointed search {n} shard 4/{shards}" for n in names]
+            require(sorted(recomputed) == sorted(want),
+                    f"{label} --checkpoint rerun recomputed {recomputed}")
+        else:
+            require(recomputed == [f"checkpointed shard 3/{shards} (1 profiles)",
+                                   f"checkpointed shard 4/{shards} ({len(names)} profiles)"],
+                    f"{label} --checkpoint rerun recomputed {recomputed}")
+        summary = next(m for m in messages if m.startswith("checkpoint "))
+        require(summary.endswith(f"{len(deleted)} chunks computed, "
+                                 f"{len(chunks) - len(deleted)} read back"), summary)
+        require(all(p.stat().st_mtime_ns == t for p, t in kept.items()),
+                f"{label} --checkpoint rerun rewrote a chunk it kept")
+        print(f"database {label} --checkpoint: report byte-equal to phase 9's; {len(deleted)} "
+              f"of {len(chunks)} chunks deleted and recomputed, no other chunk rewritten; "
+              f"{summary}; launches {nonzero(got)}")
+        print_seconds(f"  first {label} --checkpoint", first_secs, first_e2e)
+        print_seconds(f"  resumed {label} --checkpoint", secs, e2e)
+
+
+def database_paths(tmp: pathlib.Path) -> None:
+    db = tmp / "database"
+    db.mkdir()
+    fasta = tmp / "headline.fsa"
+    streamed_paths(db, fasta, planted_rows())
+    bucketed_paths(db)
+    checkpoint_paths(db, fasta)
 
 
 # -- timings (phase 10) --------------------------------------------------------
@@ -2208,20 +2436,26 @@ def main() -> int:
         wide_kernels_vs_plain(scanner, rng, errors)
         mem_kernels_vs_plain(scanner, rng, errors)
 
-    with Phase("9. main paths through the CLI and the entry points"):
-        with tempfile.TemporaryDirectory() as tmp:
-            counts = main_paths(pathlib.Path(tmp), rng, scanner)
-            counts.update(mem_paths(pathlib.Path(tmp), rng))
+    # phase 11 reads phase 9's database and reports
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = pathlib.Path(tmp_dir)
+        with Phase("9. main paths through the CLI and the entry points"):
+            counts = main_paths(tmp, rng, scanner)
+            counts.update(mem_paths(tmp, rng))
 
-    work = {}
-    with Phase("10. timings"):
-        msv_ms = msv_timings(scanner, rng, errors, work)
-        p7_ms = p7_timings(scanner, rng, errors, work)
-        sweep_ms = sweep_timings(scanner, rng, errors, work)
-        post_ms = posterior_timings(scanner, rng, errors, work)
-        wide_ms = wide_timings(scanner, rng, errors, work)
-        mem_ms = mem_timings(scanner, rng, errors, work)
-        print("card after timing:", nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+        work = {}
+        with Phase("10. timings"):
+            msv_ms = msv_timings(scanner, rng, errors, work)
+            p7_ms = p7_timings(scanner, rng, errors, work)
+            sweep_ms = sweep_timings(scanner, rng, errors, work)
+            post_ms = posterior_timings(scanner, rng, errors, work)
+            wide_ms = wide_timings(scanner, rng, errors, work)
+            mem_ms = mem_timings(scanner, rng, errors, work)
+            print("card after timing:",
+                  nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+
+        with Phase("11. database-scale paths: --stream, --bucketed, --checkpoint"):
+            database_paths(tmp)
 
     times = {"msv_scan": (msv_ms["1400"], msv_ms["plain"]), "msv_filter_scan": msv_ms["filter"],
              "msv_stacked_scan": sweep_ms["sweep24"], **post_ms, **wide_ms, **mem_ms,

@@ -11,7 +11,11 @@ that referees it), the MSV -> Viterbi -> Forward search cascade with or
 without the upper-bound MSV and Viterbi prefilters (``--fast``), the
 posterior domain decode of its hits (``--domains``), and the stacked
 profile sweep, through hand-written CUDA kernels on the card
-(``csrc/*.cu``) or their plain PyTorch versions on the CPU.
+(``csrc/*.cu``) or their plain PyTorch versions on the CPU; and it runs
+them over ragged databases in length buckets (``--bucketed``), over
+databases larger than host memory in streamed batches staged on a side
+CUDA stream (``--stream N``), and as resumable checkpointed sweeps
+(``runtime.checkpoint``, ``--checkpoint DIR``).
 """
 
 from .io.fastaio import parse_fasta
@@ -25,14 +29,23 @@ from .ops.reference import (
     posterior_match,
     viterbi_oracle_batch,
 )
-from .pipeline import MSVScanner, SearchPipeline, SearchResult, StagedDatabase
+from .pipeline import (
+    BucketedDatabase,
+    MSVScanner,
+    SearchPipeline,
+    SearchResult,
+    SideStreamStager,
+    StagedDatabase,
+)
 
 __all__ = [
+    "BucketedDatabase",
     "MSVProfile",
     "MSVScanner",
     "P7Profile",
     "SearchPipeline",
     "SearchResult",
+    "SideStreamStager",
     "StagedDatabase",
     "backward_oracle",
     "forward_oracle_batch",

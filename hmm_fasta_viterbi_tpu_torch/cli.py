@@ -2,8 +2,10 @@
 
     python -m hmm_fasta_viterbi_tpu_torch scan --hmm P.hmm --fasta DB.fsa
         [--stage msv|viterbi|forward|search] [--fast] [--domains]
+        [--bucketed | --stream N]
     python -m hmm_fasta_viterbi_tpu_torch sweep --hmm-dir DIR | --hmm-db FILE
         --fasta DB.fsa [--stage msv|search] [--fast]
+        [--bucketed | --stream N | --checkpoint DIR [--checkpoint-shard N]]
 
 ``hmm_fasta_viterbi_tpu``'s ``scan`` and ``sweep`` with the same flags and
 the same TSV/JSON reports: one stage's scores, or (``--stage search``) the
@@ -11,14 +13,22 @@ MSV -> Viterbi -> Forward cascade with a row for every MSV survivor
 (``--fast``: behind the upper-bound MSV and Viterbi prefilters;
 ``--domains``: each reported hit's posterior envelope and domains, each
 domain rescored by Forward); a sweep scores many profiles against one
-staged database. ``--device`` (default ``cuda``) names the torch device,
-and ``--device cpu`` runs the kernels' plain versions.
+staged database. ``--bucketed`` stages a ragged database in length
+buckets (msv and search stages); ``--stream N`` reads the FASTA in batches
+of N records, the next batch parsed, encoded and staged on a side CUDA
+stream while the card scans this one, so host memory holds a batch and the
+survivors; ``sweep --checkpoint DIR`` keeps each (profile, shard) result
+under DIR and a rerun computes only the missing ones. ``--device``
+(default ``cuda``) names the torch device, and ``--device cpu`` runs the
+kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import functools
 import json
 import logging
 import pathlib
@@ -28,12 +38,17 @@ import time
 import numpy as np
 import torch
 
-from .io.loader import load_fasta, load_profile, load_profiles
+from .io.fastaio import FastaDatabase, FastaRecord
+from .io.loader import load_fasta, load_profile, load_profiles, stream_fasta_prefetch
 from .models import stats
 from .models.msv import MSVProfile
 from .models.p7 import P7Profile
 from .ops.posterior_cuda import posterior_coverage_batch
-from .pipeline import MSVScanner, SearchPipeline, forward_scores
+from .pipeline import (
+    PREFETCH_DEPTH, MSVScanner, SearchPipeline, SearchResult, SideStreamStager, forward_scores,
+)
+from .runtime.checkpoint import ScanCheckpoint, resumable_search_sweep, resumable_sweep
+from .runtime.profiling import SectionTimer
 
 logger = logging.getLogger(__name__)
 
@@ -205,14 +220,17 @@ def _domain_rows(hmm, segs: list, dom_scores: dict, i: int, n_db: int) -> list:
 
 
 def _report_search(hmm, db, result, args, out, rows_sink=None, tokens=None, lengths=None,
-                   device=None, phases=None) -> None:
+                   device=None, phases=None, n_targets: int | None = None) -> None:
     """One row per MSV survivor, ordered by Forward score (rows Forward
     never reached last), as the JAX CLI's search report without alignments.
     With ``--domains`` (and the host ``tokens``/``lengths``), the hits
     that survive --top/--max-evalue are decoded on ``device`` and get
     env_from/env_to/ndom and their domains; the decode's seconds go into
-    ``phases["domains"]``."""
-    evals = stats.evalue(result.forward_pvalues, len(db))
+    ``phases["domains"]``. ``n_targets`` is the true database size for
+    E-values: a streamed search's ``db`` holds only the MSV survivors
+    (default ``len(db)``)."""
+    n_db = n_targets if n_targets is not None else len(db)
+    evals = stats.evalue(result.forward_pvalues, n_db)
     want_domains = bool(getattr(args, "domains", False)) and tokens is not None
     order = np.flatnonzero(result.passed_msv)
     order = order[np.argsort(-np.nan_to_num(result.forward_scores[order], nan=-np.inf))]
@@ -247,7 +265,7 @@ def _report_search(hmm, db, result, args, out, rows_sink=None, tokens=None, leng
             segs = envelopes.get(int(i)) or []
             row["env_from"], row["env_to"], row["ndom"] = (
                 (segs[0][0], segs[-1][1], len(segs)) if segs else (0, 0, 0))
-            row["domains"] = _domain_rows(hmm, segs, dom_scores, int(i), len(db))
+            row["domains"] = _domain_rows(hmm, segs, dom_scores, int(i), n_db)
         rows.append(row)
     if args.format == "json":
         _write_json(rows, out, rows_sink)
@@ -286,13 +304,31 @@ def _device(args) -> torch.device | None:
     return device
 
 
-def _log_seconds(t_start, t0, t_staged, phases, report_s) -> None:
+def _log_seconds(t_start, parse_s, stage_s, phases, report_s, streamed=False) -> None:
+    """The ``seconds:`` line. ``streamed``: parse (with encode) and stage
+    are the producer thread's sums and ran beside the device phases."""
     logger.info(
         "seconds: parse %.6f stage %.6f msv %.6f viterbi %.6f forward %.6f "
-        "domains %.6f report %.6f total %.6f",
-        t0 - t_start, t_staged - t0, phases["msv"], phases["viterbi"], phases["forward"],
+        "domains %.6f report %.6f total %.6f"
+        + (" (streamed: parse, encode and stage ran on the producer thread beside the "
+           "device phases, so the phases do not add up to the total)" if streamed else ""),
+        parse_s, stage_s, phases["msv"], phases["viterbi"], phases["forward"],
         phases.get("domains", 0.0), report_s, time.perf_counter() - t_start,
     )
+
+
+def _stage_bucketed_logged(scanner, tokens, lengths):
+    bucketed = scanner.stage_bucketed(tokens, lengths)
+    logger.info(
+        "bucketed staging: %d buckets, %.0f%% padded cells saved",
+        len(bucketed.buckets), 100 * bucketed.padded_cells_saved,
+    )
+    return bucketed
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # the upload belongs to the stage time
 
 
 def cmd_scan(args) -> int:
@@ -301,6 +337,14 @@ def cmd_scan(args) -> int:
         return 2
     if args.out:
         open(args.out, "w").close()  # fail fast on a bad --out path
+    if args.stream < 0:
+        logger.error("--stream must be at least 1 (0 reads the whole file)")
+        return 2
+    if args.stream:
+        if args.bucketed:
+            logger.error("--stream does not compose with --bucketed")
+            return 2
+        return _cmd_scan_stream(args, device)
     t_start = time.perf_counter()
     hmm = load_profile(args.hmm, prefer=args.loader)
     db = load_fasta(args.fasta, prefer=args.loader)
@@ -309,15 +353,23 @@ def cmd_scan(args) -> int:
         return 1
     tokens, lengths = db.encode()
     scanner = MSVScanner(device=device)
+    # --bucketed stages the msv and search stages in length buckets; the
+    # Viterbi and Forward stages stage whole, as in the JAX CLI
+    bucketed = args.bucketed and args.stage in ("msv", "search")
     t0 = time.perf_counter()
-    staged = scanner.stage(tokens, lengths)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)  # the upload belongs to the stage time
+    if bucketed:
+        staged = _stage_bucketed_logged(scanner, tokens, lengths)
+    else:
+        staged = scanner.stage(tokens, lengths)
+    _sync(device)
     t_staged = time.perf_counter()
     phases = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
     if args.stage == "search":
         pipeline = SearchPipeline(scanner, fast_msv=args.fast, fast_viterbi=args.fast)
-        result = pipeline.search(hmm, staged, tokens, lengths)
+        if bucketed:
+            result = pipeline.search_bucketed(hmm, staged, tokens, lengths)
+        else:
+            result = pipeline.search(hmm, staged, tokens, lengths)
         phases = dict(pipeline.phase_seconds)
         t_scanned = time.perf_counter()
         logger.info(
@@ -330,11 +382,13 @@ def cmd_scan(args) -> int:
             _report_search(hmm, db, result, args, out=sink, tokens=tokens, lengths=lengths,
                            device=device, phases=phases)
     else:
-        if args.stage == "msv":
-            scores = scanner.scan(MSVProfile.from_profile(hmm), staged)
+        if args.stage != "msv":
+            scores = scanner.scan_p7(P7Profile.from_profile(hmm), staged,
+                                     stage=args.stage).cpu().numpy()
+        elif bucketed:
+            scores = scanner.scan_bucketed(MSVProfile.from_profile(hmm), staged)
         else:
-            scores = scanner.scan_p7(P7Profile.from_profile(hmm), staged, stage=args.stage)
-        scores = scores.cpu().numpy()
+            scores = scanner.scan(MSVProfile.from_profile(hmm), staged).cpu().numpy()
         t_scanned = time.perf_counter()
         phases[args.stage] = t_scanned - t_staged
         dt = t_scanned - t0
@@ -346,7 +400,283 @@ def cmd_scan(args) -> int:
         with _out_sink(args) as sink:
             _report(hmm, db, scores, args, out=sink, stage=args.stage)
     report_s = time.perf_counter() - t_scanned - phases.get("domains", 0.0)
-    _log_seconds(t_start, t0, t_staged, phases, report_s)
+    _log_seconds(t_start, t0 - t_start, t_staged - t0, phases, report_s)
+    return 0
+
+
+class _Stream:
+    """The FASTA in batches of ``--stream`` records, each parsed, encoded
+    to int8 and staged for ``scanner`` by a :class:`SideStreamStager` on
+    the producer thread while the consumer scans the batch before. The
+    consumer's wait for each batch goes to ``timer``'s prefetch_wait, the
+    producer's seconds to ``producer`` (parse, encode, stage, put_wait)."""
+
+    def __init__(self, args, scanner: MSVScanner):
+        self.args = args
+        self.stager = SideStreamStager(scanner)
+        self.timer = SectionTimer()
+        self.producer: dict = {}
+
+    def __iter__(self):
+        """``(batch, tokens, lengths, staged)`` of every batch that holds a
+        valid record."""
+        # rows padded to a multiple of 256 as in the JAX CLI (one compiled
+        # shape a 256-residue bucket there); the kernels stop at each length
+        stream = stream_fasta_prefetch(
+            self.args.fasta, self.args.stream, prefer=self.args.loader,
+            encode_pad_multiple=256, depth=PREFETCH_DEPTH, producer_sections=self.producer,
+            stage_fn=self.stager,
+        )
+        while True:
+            with self.timer.section("prefetch_wait"):
+                item = next(stream, None)
+            if item is None:
+                return
+            if len(item[0]):
+                yield item
+
+    def log_phases(self, label: str) -> None:
+        """The JAX-shaped phase line, the consumer's sections beside the
+        producer's (``producer/parse``, ``/encode``, ``/stage``,
+        ``/put_wait``); on a card also the stream the batches were staged
+        on."""
+        for k, v in self.producer.items():
+            self.timer.sections[f"producer/{k}"] = v
+        logger.info("streamed %s phases: %s", label, self.timer.report())
+        stager = self.stager
+        if stager.stream is not None:
+            logger.info(
+                "side-stream staging: %d batches staged on stream %#x, consumed on stream %#x",
+                stager.batches, stager.stream.cuda_stream, stager.consumer.cuda_stream,
+            )
+
+    def log_seconds(self, t_start, phases: dict, report_s: float) -> None:
+        """The ``seconds:`` line: parse (with encode) and stage are the
+        producer's sums."""
+        _log_seconds(t_start, self.producer["parse"] + self.producer["encode"],
+                     self.producer["stage"], phases, report_s, streamed=True)
+
+
+def _headers_db(headers: list) -> FastaDatabase:
+    """A header-only database for the report of a streamed run."""
+    return FastaDatabase(records=[FastaRecord(h, "") for h in headers], rejected=[])
+
+
+def _cmd_scan_stream(args, device) -> int:
+    """Streaming scan (msv, viterbi, forward): the FASTA is read in bounded
+    record batches, each staged on the side stream while the card scores
+    the one before; host memory holds one batch plus a score and a header
+    a sequence. E-values use the true total database size, known once the
+    stream ends. ``--stage search`` streams through
+    :func:`_cmd_search_stream`."""
+    if args.stage == "search":
+        return _cmd_search_stream(args, device)
+    t_start = time.perf_counter()
+    hmm = load_profile(args.hmm, prefer=args.loader)
+    scanner = MSVScanner(device=device)
+    if args.stage == "msv":
+        batch_scores = functools.partial(scanner.scan, MSVProfile.from_profile(hmm))
+    else:
+        # one scanner for every batch: its Viterbi/Forward packs are cached
+        batch_scores = functools.partial(
+            scanner.scan_p7, P7Profile.from_profile(hmm), stage=args.stage)
+    stream = _Stream(args, scanner)
+    headers: list[str] = []
+    score_chunks: list[np.ndarray] = []
+    total_cells = 0
+    t0 = time.perf_counter()
+    for batch, tokens, lengths, staged in stream:
+        with stream.timer.section("scan"):
+            score_chunks.append(batch_scores(staged).cpu().numpy())
+        headers.extend(r.header for r in batch.records)
+        total_cells += int(lengths.astype(np.int64).sum()) * (hmm.model_length - 1)
+    stream.log_phases("scan")
+    if not headers:
+        logger.warning("no valid sequences in %s", args.fasta)
+        return 1
+    scores = np.concatenate(score_chunks)
+    dt = time.perf_counter() - t0
+    logger.info(
+        "streamed %d seqs x %s (%s) in %.3fs (%.2f GCUPS)",
+        len(headers), hmm.name, args.stage, dt, total_cells / dt / 1e9,
+    )
+    t_report = time.perf_counter()
+    with _out_sink(args) as sink:
+        _report(hmm, _headers_db(headers), scores, args, out=sink, stage=args.stage)
+    phases = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0,
+              args.stage: stream.timer.sections["scan"]}
+    stream.log_seconds(t_start, phases, time.perf_counter() - t_report)
+    return 0
+
+
+@dataclasses.dataclass
+class _StreamedSearch:
+    """A profile's aggregate over a streamed cascade: the MSV survivors'
+    rows of every SearchResult field, with their headers and (for
+    ``--domains``) their tokens."""
+
+    result: SearchResult | None  # over the survivors only; None without sequences
+    headers: list
+    tokens: np.ndarray | None  # [S, L_max] int32 survivor tokens (keep_tokens)
+    lengths: np.ndarray | None
+    n_vit: int
+    n_fwd: int
+
+
+def _stream_search(args, pipeline, hmms, keep_tokens: bool):
+    """ONE pass over the streamed FASTA, running the cascade of every
+    profile on each batch and keeping that batch's MSV survivors only, the
+    rows the search report prints. Per-sequence p-values do not depend on
+    the database size, so every decision and reported number equals the
+    whole-file search's; survivor token rows are kept only for
+    ``--domains``. The next batch is parsed, encoded and staged on the
+    producer thread (:class:`SideStreamStager`) while this one's cascade
+    runs; the consumer's seconds go to prefetch_wait (producer work not
+    hidden by device work), search and compact.
+
+    Returns ({profile name: _StreamedSearch}, total sequences, total
+    cells, the :class:`_Stream`)."""
+    fields = [f.name for f in dataclasses.fields(SearchResult)]
+    agg = {
+        h.name: {
+            "kept": {f: [] for f in fields}, "headers": [],
+            "tok_rows": [], "len_rows": [], "n_vit": 0, "n_fwd": 0,
+        }
+        for h in hmms
+    }
+    total_seqs = 0
+    total_cells = 0
+    stream = _Stream(args, pipeline.scanner)
+    for batch, tokens, lengths, staged in stream:
+        recs = batch.records
+        for hmm in hmms:
+            with stream.timer.section("search"):
+                res = pipeline.search(hmm, staged, tokens, lengths)
+            with stream.timer.section("compact"):
+                a = agg[hmm.name]
+                surv = np.flatnonzero(res.passed_msv)
+                for f in fields:
+                    a["kept"][f].append(getattr(res, f)[surv])
+                a["headers"].extend(recs[i].header for i in surv)
+                if keep_tokens:
+                    for i in surv:
+                        a["tok_rows"].append(tokens[i, : int(lengths[i])].astype(np.int32))
+                        a["len_rows"].append(int(lengths[i]))
+                a["n_vit"] += int(res.passed_viterbi.sum())
+                a["n_fwd"] += int(res.passed_forward.sum())
+        total_seqs += len(batch)
+        total_cells += int(lengths.astype(np.int64).sum()) * sum(
+            h.model_length - 1 for h in hmms
+        )
+    stream.log_phases("search")
+    out = {}
+    for hmm in hmms:
+        a = agg[hmm.name]
+        merged = (
+            SearchResult(**{f: np.concatenate(a["kept"][f]) for f in fields})
+            if total_seqs else None
+        )
+        toks = lens = None
+        if keep_tokens:
+            toks = np.zeros((len(a["tok_rows"]), max(a["len_rows"], default=1)), dtype=np.int32)
+            for r, row in enumerate(a["tok_rows"]):
+                toks[r, : row.size] = row
+            lens = np.asarray(a["len_rows"], dtype=np.int32)
+        out[hmm.name] = _StreamedSearch(
+            result=merged, headers=a["headers"], tokens=toks,
+            lengths=lens, n_vit=a["n_vit"], n_fwd=a["n_fwd"],
+        )
+    return out, total_seqs, total_cells, stream
+
+
+def _cmd_search_stream(args, device) -> int:
+    """scan --stage search --stream: see :func:`_stream_search`."""
+    t_start = time.perf_counter()
+    hmm = load_profile(args.hmm, prefer=args.loader)
+    pipeline = SearchPipeline(MSVScanner(device=device), fast_msv=args.fast,
+                              fast_viterbi=args.fast)
+    t0 = time.perf_counter()
+    per_hmm, total_seqs, total_cells, stream = _stream_search(
+        args, pipeline, [hmm], keep_tokens=args.domains)
+    if not total_seqs:
+        logger.warning("no valid sequences in %s", args.fasta)
+        return 1
+    agg = per_hmm[hmm.name]
+    dt = time.perf_counter() - t0
+    logger.info(
+        "streamed search %s: %d seqs -> %d past MSV -> %d past Viterbi "
+        "-> %d hits (%.3fs, %.2f GCUPS msv-equivalent)",
+        hmm.name, total_seqs, len(agg.headers), agg.n_vit, agg.n_fwd, dt,
+        total_cells / dt / 1e9,
+    )
+    phases = dict(pipeline.phase_totals)
+    t_report = time.perf_counter()
+    with _out_sink(args) as sink:
+        _report_search(hmm, _headers_db(agg.headers), agg.result, args, out=sink,
+                       tokens=agg.tokens, lengths=agg.lengths, device=device, phases=phases,
+                       n_targets=total_seqs)
+    stream.log_seconds(t_start, phases,
+                       time.perf_counter() - t_report - phases.get("domains", 0.0))
+    return 0
+
+
+def _cmd_sweep_stream(args, hmms, device, t_start) -> int:
+    """Streaming sweep: ONE pass over the FASTA; each batch is staged once
+    and scanned by every profile (msv: the stacked ``scan_many`` launches;
+    search: each profile's cascade, keeping each batch's MSV survivors).
+    Host memory holds one batch plus the per-profile results."""
+    scanner = MSVScanner(device=device)
+    t0 = time.perf_counter()
+    if args.stage == "search":
+        pipeline = SearchPipeline(scanner, fast_msv=args.fast, fast_viterbi=args.fast)
+        per_hmm, total_seqs, _cells, stream = _stream_search(
+            args, pipeline, hmms, keep_tokens=False)
+        if not total_seqs:
+            logger.warning("no valid sequences in %s", args.fasta)
+            return 1
+        logger.info(
+            "streamed search sweep: %d profiles x %d seqs in %.3fs",
+            len(hmms), total_seqs, time.perf_counter() - t0,
+        )
+        phases = dict(pipeline.phase_totals)
+        t_report = time.perf_counter()
+        with _out_sink(args) as sink, _json_accumulator(args, sink) as acc:
+            for hmm in hmms:
+                agg = per_hmm[hmm.name]
+                _report_search(hmm, _headers_db(agg.headers), agg.result, args, out=sink,
+                               rows_sink=acc, n_targets=total_seqs)
+    else:
+        profiles = [MSVProfile.from_profile(h) for h in hmms]
+        score_chunks: dict[str, list[np.ndarray]] = {p.name: [] for p in profiles}
+        headers: list[str] = []
+        total_cells = 0
+        stream = _Stream(args, scanner)
+        for batch, tokens, lengths, staged in stream:
+            with stream.timer.section("scan"):
+                results = scanner.scan_many(profiles, staged)
+            for p in profiles:
+                score_chunks[p.name].append(results[p.name])
+            headers.extend(r.header for r in batch.records)
+            total_cells += int(lengths.astype(np.int64).sum()) * sum(
+                h.model_length - 1 for h in hmms
+            )
+        stream.log_phases("sweep")
+        if not headers:
+            logger.warning("no valid sequences in %s", args.fasta)
+            return 1
+        dt = time.perf_counter() - t0
+        logger.info(
+            "streamed sweep: %d profiles x %d seqs in %.3fs (%.2f GCUPS)",
+            len(profiles), len(headers), dt, total_cells / dt / 1e9,
+        )
+        phases = {"msv": stream.timer.sections["scan"], "viterbi": 0.0, "forward": 0.0}
+        t_report = time.perf_counter()
+        db = _headers_db(headers)
+        with _out_sink(args) as sink, _json_accumulator(args, sink) as acc:
+            for p in profiles:
+                _report(p, db, np.concatenate(score_chunks[p.name]), args, out=sink,
+                        rows_sink=acc)
+    stream.log_seconds(t_start, phases, time.perf_counter() - t_report)
     return 0
 
 
@@ -386,31 +716,59 @@ def cmd_sweep(args) -> int:
         return 2
     if args.out:
         open(args.out, "w").close()  # fail fast on a bad --out path
+    # flag conflicts before the profile collection is parsed: a Pfam-scale
+    # --hmm-db must not be loaded just to reject the flags
+    if args.stream < 0:
+        logger.error("--stream must be at least 1 (0 reads the whole file)")
+        return 2
+    if args.stream and (args.bucketed or args.checkpoint):
+        logger.error("--stream does not compose with --bucketed or --checkpoint")
+        return 2
+    if args.checkpoint and args.bucketed:
+        # the checkpointed sweep stages shard by shard
+        logger.error("--checkpoint does not compose with --bucketed")
+        return 2
+    if args.checkpoint_shard < 1:
+        logger.error("--checkpoint-shard must be at least 1")
+        return 2
     t_start = time.perf_counter()
     hmms = _load_sweep_profiles(args)
     if hmms is None:
         return 2
     if not hmms:
         return 1
+    if args.stream:
+        return _cmd_sweep_stream(args, hmms, device, t_start)
     db = load_fasta(args.fasta, prefer=args.loader)
     tokens, lengths = db.encode()
     scanner = MSVScanner(device=device)
     t0 = time.perf_counter()
-    staged = scanner.stage(tokens, lengths)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)  # the upload belongs to the stage time
+    if args.checkpoint:
+        # each shard is staged inside the sweep, once for every profile
+        checkpoint = ScanCheckpoint(args.checkpoint)
+    elif args.bucketed:
+        staged = _stage_bucketed_logged(scanner, tokens, lengths)
+    else:
+        staged = scanner.stage(tokens, lengths)
+    _sync(device)
     t_staged = time.perf_counter()
     phases = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
     if args.stage == "search":
-        # the cascade per profile against the one staged database, each
-        # profile's rows reported before the next profile runs
+        # the cascade per profile, each profile's rows reported before the
+        # next profile runs (a checkpointed sweep computes them all first)
         pipeline = SearchPipeline(scanner, fast_msv=args.fast, fast_viterbi=args.fast)
+        if args.checkpoint:
+            results = resumable_search_sweep(pipeline, hmms, tokens, lengths, checkpoint,
+                                             shard_size=args.checkpoint_shard)
+            run = lambda hmm: results[hmm.name]  # noqa: E731
+        elif args.bucketed:
+            run = lambda hmm: pipeline.search_bucketed(hmm, staged, tokens, lengths)  # noqa: E731
+        else:
+            run = lambda hmm: pipeline.search(hmm, staged, tokens, lengths)  # noqa: E731
         report_s = 0.0
         with _out_sink(args) as sink, _json_accumulator(args, sink) as acc:
             for hmm in hmms:
-                result = pipeline.search(hmm, staged, tokens, lengths)
-                for name, sec in pipeline.phase_seconds.items():
-                    phases[name] += sec
+                result = run(hmm)
                 logger.info(
                     "search %s: %d past MSV -> %d past Viterbi -> %d hits",
                     hmm.name, int(result.passed_msv.sum()),
@@ -419,9 +777,16 @@ def cmd_sweep(args) -> int:
                 t_report = time.perf_counter()
                 _report_search(hmm, db, result, args, out=sink, rows_sink=acc)
                 report_s += time.perf_counter() - t_report
+        phases = dict(pipeline.phase_totals)
     else:
         profiles = [MSVProfile.from_profile(h) for h in hmms]
-        results = scanner.scan_many(profiles, staged)
+        if args.checkpoint:
+            results = resumable_sweep(scanner, profiles, tokens, lengths, checkpoint,
+                                      shard_size=args.checkpoint_shard)
+        elif args.bucketed:
+            results = scanner.scan_many_bucketed(profiles, staged)
+        else:
+            results = scanner.scan_many(profiles, staged)
         t_scanned = time.perf_counter()
         phases["msv"] = t_scanned - t_staged
         cells = int(lengths.astype(np.int64).sum()) * sum(p.num_states for p in profiles)
@@ -433,7 +798,7 @@ def cmd_sweep(args) -> int:
             for profile in profiles:
                 _report(profile, db, results[profile.name], args, out=sink, rows_sink=acc)
         report_s = time.perf_counter() - t_scanned
-    _log_seconds(t_start, t0, t_staged, phases, report_s)
+    _log_seconds(t_start, t0 - t_start, t_staged - t0, phases, report_s)
     return 0
 
 
@@ -455,6 +820,15 @@ def _add_common(ap: argparse.ArgumentParser) -> None:
 
 _FAST_HELP = ("search stage: bf16 upper-bound MSV + Viterbi prefilters "
               "with exact rescore of survivors")
+_BUCKETED_HELP = "length-bucketed staging for ragged databases (msv/search stages)"
+
+
+def _add_stream(ap: argparse.ArgumentParser, what: str) -> None:
+    ap.add_argument(
+        "--stream", type=int, default=0, metavar="N",
+        help=f"stream the FASTA in batches of N records, {what} (bounded host memory; "
+        "the next batch is staged on a side CUDA stream)",
+    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -476,6 +850,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--domains", action="store_true",
         help="search stage: posterior-decode an alignment envelope per hit",
     )
+    scan.add_argument("--bucketed", action="store_true", help=_BUCKETED_HELP)
+    _add_stream(scan, "search keeping only the MSV survivors between batches")
     _add_common(scan)
     scan.set_defaults(fn=cmd_scan)
 
@@ -494,6 +870,17 @@ def build_parser() -> argparse.ArgumentParser:
         help="msv scores per profile, or the full cascade (hmmscan-shaped)",
     )
     sweep.add_argument("--fast", action="store_true", help=_FAST_HELP)
+    sweep.add_argument("--bucketed", action="store_true", help=_BUCKETED_HELP)
+    sweep.add_argument(
+        "--checkpoint", default=None, metavar="DIR",
+        help="resumable sweep (msv or search stage): per-(profile, shard) results "
+        "persist atomically under DIR; a rerun skips completed chunks",
+    )
+    sweep.add_argument(
+        "--checkpoint-shard", type=int, default=4096, metavar="N",
+        help="sequences per checkpoint shard (default 4096)",
+    )
+    _add_stream(sweep, "one database pass scanning every profile a batch")
     _add_common(sweep)
     sweep.set_defaults(fn=cmd_sweep)
     return ap

@@ -78,6 +78,7 @@ class FastaDatabase:
         anyway, and the int32 round-trip is 4x the memory traffic on the
         producer thread (see io.loader.stream_fasta_prefetch).
         """
+        check_pad_token(pad_token, dtype)
         lengths = self.lengths
         max_len = padded_width(
             int(lengths.max()) if len(lengths) else 0, pad_to, pad_multiple
@@ -86,6 +87,20 @@ class FastaDatabase:
         for i, rec in enumerate(self.records):
             tokens[i, : len(rec)] = encode_sequence(rec.sequence)
         return tokens, lengths
+
+
+def check_pad_token(pad_token: int, dtype) -> None:
+    """Raise ValueError when the integer ``dtype`` cannot hold
+    ``pad_token``: ``np.full`` would wrap it silently (200 becomes -56 in
+    int8, the dtype the streamed producer encodes to). Shared by
+    :meth:`FastaDatabase.encode` and the native ``EncodedFastaBatch.encode``."""
+    dtype = np.dtype(dtype)
+    if dtype.kind in "iu":
+        info = np.iinfo(dtype)
+        if not info.min <= pad_token <= info.max:
+            raise ValueError(
+                f"pad_token {pad_token} does not fit {dtype} ({info.min}..{info.max})"
+            )
 
 
 def padded_width(max_len: int, pad_to: int | None, pad_multiple: int) -> int:

@@ -322,8 +322,9 @@ class EncodedFastaBatch:
         """Same contract as FastaDatabase.encode (fastaio.py). With
         dtype=int8 the rows are straight memcpys of the reader's flat
         int8 token stream — no widening pass at all."""
-        from .fastaio import padded_width
+        from .fastaio import check_pad_token, padded_width
 
+        check_pad_token(pad_token, dtype)
         lengths = self.lengths
         max_len = padded_width(
             int(lengths.max()) if len(lengths) else 0, pad_to, pad_multiple

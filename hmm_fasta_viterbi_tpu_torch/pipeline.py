@@ -3,12 +3,15 @@ once, then scan profiles against it, one stage or the whole cascade.
 
 The counterpart of ``hmm_fasta_viterbi_tpu/pipeline.py``: ``StagedDatabase``,
 ``MSVScanner.stage / stage_fasta / stage_device / scan / scan_filter /
-scan_p7 / scan_p7_filter / scan_many``, the host-staged single-stage entry
-(``select_p7_fns``, ``viterbi_scores``, ``forward_scores``,
-``viterbi_filter_scores``) and the hmmsearch-style ``SearchPipeline`` (MSV
--> Viterbi -> Forward, each stage rescoring the survivors of the one
-before, optionally behind the upper-bound MSV and Viterbi prefilters).
-Differences that follow from the device:
+scan_p7 / scan_p7_filter / scan_many``, the length-bucketed staging
+(``BucketedDatabase``, ``stage_bucketed``, ``scan_bucketed``,
+``scan_many_bucketed``, ``SearchPipeline.search_bucketed``), the
+host-staged single-stage entry (``select_p7_fns``, ``viterbi_scores``,
+``forward_scores``, ``viterbi_filter_scores``) and the hmmsearch-style
+``SearchPipeline`` (MSV -> Viterbi -> Forward, each stage rescoring the
+survivors of the one before, optionally behind the upper-bound MSV and
+Viterbi prefilters); and the streamed producer's stager,
+``SideStreamStager``. Differences that follow from the device:
 
 * the device is named by the caller (``"cuda"``, ``"cuda:1"``, ``"cpu"``);
   nothing picks the CPU when CUDA is missing, and a CUDA scanner without
@@ -29,7 +32,17 @@ Differences that follow from the device:
 * ``scan_many`` groups profiles by the MSV kernel's register case on the
   card (``msv_cuda.kernel_case``) and by padded width past it (the
   rows-in-memory case) and on the CPU, not by an M bucket, and caches each
-  group's stacked pack.
+  group's stacked pack;
+* ``stage_bucketed`` rounds each bucket's length cap to ``L_CHUNK`` (the
+  JAX package's default ``l_chunk``), so its bucket partition is the JAX
+  package's; a bucket is staged at its longest sequence, not rounded. The
+  kernels stop at each sequence's length, so on the card buckets save
+  staged bytes and change the load balance, not DP cells;
+* a batch staged by ``SideStreamStager`` (the streamed producer's
+  ``stage_fn`` on a CUDA device) was uploaded on a side stream from a
+  pinned ring; every scan entry makes the caller's current stream wait on
+  the batch's event before its first kernel, and refuses such a batch
+  without one.
 """
 
 from __future__ import annotations
@@ -52,6 +65,9 @@ from .ops import msv_cuda, p7_cuda
 # M row padding of the port's profile packs and carries (as the JAX XLA
 # path's); the kernel pads further to its lane tile internally
 M_BUCKET = 8
+# the granule of stage_bucketed's length caps: the JAX package's default
+# l_chunk (ops/pallas_msv.py DEFAULT_L_CHUNK), so the partitions agree
+L_CHUNK = 256
 
 
 def _blank_tail(tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -71,10 +87,51 @@ class StagedDatabase:
     tr_rows: torch.Tensor  # [2, B_pad] f32 (tr_loop; tr_move)
     tr_probs: torch.Tensor  # [2, B_pad] f32 (host-exact p_loop; p_move)
     num_sequences: int  # true B before padding
+    # the side stream the batch was uploaded on (SideStreamStager), None
+    # for the caller's own stream, and the event its uploads end with
+    stream: torch.cuda.Stream | None = None
+    ready: torch.cuda.Event | None = None
 
     @property
     def total_residues(self) -> int:
         return int(self.lengths.sum())
+
+
+def _wait_ready(staged) -> None:
+    """Make the current stream wait for a batch staged on a side stream
+    (its uploads and blanking ran there); a no-op for a batch staged on
+    the caller's stream."""
+    if staged.stream is None:
+        return
+    if staged.ready is None:
+        raise RuntimeError(
+            "a batch staged on a side stream reached a scan without its event"
+        )
+    torch.cuda.current_stream(staged.tokens.device).wait_event(staged.ready)
+
+
+@dataclasses.dataclass
+class BucketedDatabase:
+    """A ragged database staged as length-sorted buckets.
+
+    Sequences are sorted by length and grouped so that no bucket pads a
+    sequence by more than ``waste_factor`` of its rounded length; each
+    bucket is staged on its own, scans run per bucket and scores scatter
+    back to the original order."""
+
+    buckets: list[StagedDatabase]
+    order: list[np.ndarray]  # original indices per bucket
+    num_sequences: int
+
+    @property
+    def padded_cells_saved(self) -> float:
+        """Fraction of staged residues avoided against one staging padded
+        to the longest bucket's width."""
+        if not self.buckets:
+            return 0.0
+        per_bucket = sum(s.tokens.shape[1] * s.num_sequences for s in self.buckets)
+        single = max(s.tokens.shape[1] for s in self.buckets) * self.num_sequences
+        return 1.0 - per_bucket / single if single else 0.0
 
 
 class MSVScanner:
@@ -170,6 +227,52 @@ class MSVScanner:
             ),
         )
 
+    def stage_bucketed(
+        self,
+        tokens: np.ndarray,
+        lengths: np.ndarray,
+        waste_factor: float = 0.25,
+    ) -> BucketedDatabase:
+        """Stage a ragged batch as length-sorted buckets (see
+        :class:`BucketedDatabase`). ``waste_factor`` caps per-sequence
+        padding: a bucket closes when the next (longer) sequence's length
+        exceeds the bucket's shortest, times ``1 + waste_factor`` and
+        rounded up to ``L_CHUNK``."""
+        tokens = np.asarray(tokens)
+        lengths = np.asarray(lengths, dtype=np.int32)
+        b = tokens.shape[0]
+        order = np.argsort(lengths, kind="stable")
+
+        buckets: list[StagedDatabase] = []
+        bucket_order: list[np.ndarray] = []
+        start = 0
+        while start < b:
+            lo = max(int(lengths[order[start]]), 1)
+            cap = msv_cuda.round_up(max(int(lo * (1.0 + waste_factor)), 1), L_CHUNK)
+            end = start
+            while end < b and lengths[order[end]] <= cap:
+                end += 1
+            idx = order[start:end]
+            l_max = max(int(lengths[idx].max()), 1)
+            buckets.append(self.stage(tokens[idx, :l_max], lengths[idx]))
+            bucket_order.append(idx)
+            start = end
+        return BucketedDatabase(buckets=buckets, order=bucket_order, num_sequences=b)
+
+    def scan_bucketed(
+        self, profile: MSVProfile, bucketed: BucketedDatabase, mode: str = "exact"
+    ) -> np.ndarray:
+        """Score every sequence of a bucketed database -> f32 [B] host
+        array in the original order: :meth:`scan` a bucket, or with
+        ``mode="filter"`` :meth:`scan_filter`."""
+        if mode not in ("exact", "filter"):
+            raise ValueError(f"mode must be 'exact' or 'filter', got {mode!r}")
+        scan = self.scan if mode == "exact" else self.scan_filter
+        out = np.empty(bucketed.num_sequences, dtype=np.float32)
+        for staged, idx in zip(bucketed.buckets, bucketed.order):
+            out[idx] = scan(profile, staged).cpu().numpy()
+        return out
+
     # -- profile upload (cached) ----------------------------------------
     def _device_profile(self, profile: MSVProfile):
         key = id(profile)
@@ -195,6 +298,7 @@ class MSVScanner:
     def scan(self, profile: MSVProfile, staged: StagedDatabase) -> torch.Tensor:
         """Score every staged sequence against one profile -> f32 [B] on
         the scanner's device."""
+        _wait_ready(staged)
         emit, tr_consts = self._device_profile(profile)
         m, s = msv_cuda.init_carry(staged.tr_rows, emit.shape[1])
         scores, _, _ = msv_cuda.msv_scan(
@@ -208,6 +312,7 @@ class MSVScanner:
         upper bound on :meth:`scan`'s (max-plus DP is monotone). Thresholding
         on it drops no sequence the exact scan would keep. The pack is
         cached under ``(id(profile), "filter")``."""
+        _wait_ready(staged)
         emit, tr_consts = self._device_profile_filter(profile)
         m, s = msv_cuda.init_carry(staged.tr_rows, emit.shape[1])
         scores, _, _ = msv_cuda.msv_filter_scan(
@@ -244,6 +349,8 @@ class MSVScanner:
         scan's bit for bit."""
         if mode not in ("exact", "filter"):
             raise ValueError(f"mode must be 'exact' or 'filter', got {mode!r}")
+        _wait_ready(staged)
+
         def case(m_pad):
             if self.device.type == "cuda":
                 lanes, per = msv_cuda.kernel_case(m_pad)
@@ -264,6 +371,19 @@ class MSVScanner:
             out = scores[:, : staged.num_sequences].cpu().numpy()
             for p, row in zip(group, out):
                 results[p.name] = row
+        return results
+
+    def scan_many_bucketed(
+        self, profiles: list[MSVProfile], bucketed: BucketedDatabase, mode: str = "exact"
+    ) -> dict[str, np.ndarray]:
+        """:meth:`scan_many` over a length-bucketed database: the stacked
+        launches a bucket, scores scattered back to the original order."""
+        results = {
+            p.name: np.empty(bucketed.num_sequences, dtype=np.float32) for p in profiles
+        }
+        for staged, idx in zip(bucketed.buckets, bucketed.order):
+            for name, scores in self.scan_many(profiles, staged, mode=mode).items():
+                results[name][idx] = scores
         return results
 
     # -- full-profile stages -------------------------------------------
@@ -299,6 +419,7 @@ class MSVScanner:
         thresholding on it drops no sequence the exact stage would keep.
         ``window_log2`` None auto-picks the chain window per profile
         (``p7_cuda.pick_filter_window``)."""
+        _wait_ready(staged)
         pack = self._p7_filter_pack(p7, window_log2)
         return _viterbi_filter(pack, staged)[: staged.num_sequences]
 
@@ -307,12 +428,84 @@ class MSVScanner:
         the scanner's device."""
         if stage not in ("viterbi", "forward"):
             raise ValueError(f"stage must be 'viterbi' or 'forward', got {stage!r}")
+        _wait_ready(staged)
         pack = self._p7_pack(p7, stage)
         if stage == "forward":
             scores = _forward(pack, staged)
         else:
             scores = _viterbi(pack, staged)
         return scores[: staged.num_sequences]
+
+
+# batches the streamed producer may stage ahead of the consumer: the
+# ``depth`` the CLI gives ``io.loader.stream_fasta_prefetch``, and one less
+# than SideStreamStager's pinned buffers
+PREFETCH_DEPTH = 2
+
+
+class SideStreamStager:
+    """The streamed producer's ``stage_fn`` (``io.loader.
+    stream_fasta_prefetch`` with ``depth=PREFETCH_DEPTH``): stages each
+    batch for ``scanner`` on the producer thread while the consumer scans
+    the one before.
+
+    On a CUDA device each batch is copied into a pinned host buffer, one of
+    a ring of ``PREFETCH_DEPTH + 1``, and
+    uploaded with a non-blocking copy on one side stream, made current
+    inside the producer thread (PyTorch's current stream is per thread):
+    on the consumer's stream the upload would queue behind its kernels.
+    ``stage_device``'s blanking and its length and transition uploads run
+    on the same stream, and the event recorded after them travels with the
+    batch (``StagedDatabase.ready``): each scan entry makes the consumer's
+    stream wait on it. Every staged tensor is marked used by the consumer's
+    stream (``record_stream``), so the caching allocator does not hand its
+    block back to the side stream while the consumer's kernels read it, and
+    a ring slot is rewritten only after the event of its last copy. Making
+    the stream or pinning a buffer raises on failure. On the CPU it is
+    ``scanner.stage``.
+    """
+
+    def __init__(self, scanner: MSVScanner):
+        self.scanner = scanner
+        self.batches = 0  # batches staged on the side stream
+        self.stream: torch.cuda.Stream | None = None
+        if scanner.device.type == "cuda":
+            # made on the consumer's thread: its stream is the current one
+            self.consumer = torch.cuda.current_stream(scanner.device)
+            self.stream = torch.cuda.Stream(device=scanner.device)
+            self._ring: list[torch.Tensor | None] = [None] * (PREFETCH_DEPTH + 1)
+            self._done: list[torch.cuda.Event | None] = [None] * (PREFETCH_DEPTH + 1)
+            self._slot = 0
+
+    def __call__(self, tokens: np.ndarray, lengths: np.ndarray) -> StagedDatabase:
+        if self.stream is None:
+            return self.scanner.stage(tokens, lengths)
+        tokens = np.asarray(tokens)
+        b, seq_len = tokens.shape
+        width = max(seq_len, 1)
+        slot = self._slot
+        self._slot = (slot + 1) % len(self._ring)
+        if self._done[slot] is not None:
+            self._done[slot].synchronize()  # the slot's last upload has read it
+        buf = self._ring[slot]
+        if buf is None or buf.numel() < b * width:
+            buf = self._ring[slot] = torch.empty(b * width, dtype=torch.int8, pin_memory=True)
+        host = buf[: b * width].view(b, width)
+        rows = host.numpy()
+        rows[:, seq_len:] = msv_cuda.PAD_TOKEN
+        rows[:, :seq_len] = tokens  # contiguous cast-store, as stage()
+        with torch.cuda.stream(self.stream):
+            dev = torch.empty((b, width), dtype=torch.int8, device=self.scanner.device)
+            dev.copy_(host, non_blocking=True)
+            staged = self.scanner.stage_device(dev, lengths, num_sequences=b)
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        self._done[slot] = ready
+        for t in (staged.tokens, staged.lengths, staged.tr_rows, staged.tr_probs):
+            t.record_stream(self.consumer)
+        staged.stream, staged.ready = self.stream, ready
+        self.batches += 1
+        return staged
 
 
 def _viterbi(pack: p7_cuda.P7Pack, staged: StagedDatabase) -> torch.Tensor:
@@ -463,6 +656,8 @@ class SearchPipeline:
         self.fast_msv = fast_msv
         self.fast_viterbi = fast_viterbi
         self.phase_seconds = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
+        # the same, summed over every search of this pipeline
+        self.phase_totals = dict(self.phase_seconds)
         # derived MSVProfile/P7Profile per hmm object, pinned and LRU-bounded
         # like MSVScanner._profile_cache: repeated searches with one hmm must
         # hand the scanner the same derived objects, or its id-keyed pack
@@ -491,15 +686,38 @@ class SearchPipeline:
         if self.fast_msv:
             # a copy: the candidates' exact scores are written into it
             msv_scores = self.scanner.scan_filter(msv_profile, staged).cpu().numpy().copy()
-            cand = np.flatnonzero(stats.msv_pvalue(msv_scores, hmm) <= self.msv_p)
-            if cand.size:
-                l_max = max(int(lengths[cand].max()), 1)
-                sub = self.scanner.stage(tokens[cand, :l_max], lengths[cand])
-                msv_scores[cand] = self.scanner.scan(msv_profile, sub).cpu().numpy()
+            self._rescore_candidates(hmm, msv_profile, msv_scores, tokens, lengths)
         else:
             msv_scores = self.scanner.scan(msv_profile, staged).cpu().numpy()
         self.phase_seconds = {"msv": time.perf_counter() - t0, "viterbi": 0.0, "forward": 0.0}
         return self._finish_cascade(hmm, p7, msv_scores, tokens, lengths)
+
+    def search_bucketed(
+        self, hmm, bucketed: BucketedDatabase, tokens: np.ndarray, lengths: np.ndarray
+    ) -> SearchResult:
+        """The cascade over a length-bucketed staging
+        (:meth:`MSVScanner.stage_bucketed`): the MSV stage (with
+        ``fast_msv`` its filter) runs a bucket at a time, the later stages
+        restage survivors as :meth:`search` does."""
+        msv_profile, p7 = self._derived(hmm)
+        t0 = time.perf_counter()
+        msv_scores = self.scanner.scan_bucketed(
+            msv_profile, bucketed, mode="filter" if self.fast_msv else "exact"
+        )
+        if self.fast_msv:
+            self._rescore_candidates(hmm, msv_profile, msv_scores, tokens, lengths)
+        self.phase_seconds = {"msv": time.perf_counter() - t0, "viterbi": 0.0, "forward": 0.0}
+        return self._finish_cascade(hmm, p7, msv_scores, tokens, lengths)
+
+    def _rescore_candidates(self, hmm, msv_profile: MSVProfile, msv_scores: np.ndarray,
+                            tokens: np.ndarray, lengths: np.ndarray) -> None:
+        """Overwrite the MSV filter's scores of its candidates (p <=
+        ``msv_p``) with their exact scores, restaged compactly."""
+        cand = np.flatnonzero(stats.msv_pvalue(msv_scores, hmm) <= self.msv_p)
+        if cand.size:
+            l_max = max(int(lengths[cand].max()), 1)
+            sub = self.scanner.stage(tokens[cand, :l_max], lengths[cand])
+            msv_scores[cand] = self.scanner.scan(msv_profile, sub).cpu().numpy()
 
     def _finish_cascade(
         self, hmm, p7: P7Profile, msv_scores: np.ndarray,
@@ -551,6 +769,8 @@ class SearchPipeline:
                 fwd_pv[idx2] = stats.forward_pvalue(fs, hmm)
                 passed_fwd[idx2] = fwd_pv[idx2] <= self.forward_p
 
+        for name, sec in self.phase_seconds.items():
+            self.phase_totals[name] += sec
         return SearchResult(
             msv_scores=msv_scores,
             msv_pvalues=msv_pv,

@@ -75,9 +75,10 @@ def test_only_msv_stage():
 
 
 def test_fast_and_sweep_flags():
-    """scan takes --fast; sweep takes --hmm-dir or --hmm-db, --stage
-    msv|search and --fast, with the common flags; neither offers the flags
-    of later slices."""
+    """scan takes --fast, --bucketed and --stream N; sweep takes --hmm-dir
+    or --hmm-db, --stage msv|search, --fast, --bucketed, --stream N and
+    --checkpoint DIR [--checkpoint-shard N], with the common flags; neither
+    offers the flags of later slices."""
     parser = port_cli.build_parser()
     base = ["scan", "--hmm", "x.hmm", "--fasta", "y.fsa"]
     assert parser.parse_args([*base, "--stage", "search", "--fast"]).fast
@@ -88,7 +89,16 @@ def test_fast_and_sweep_flags():
     assert (sweep.hmm_dir, sweep.hmm_db, sweep.stage, sweep.fast, sweep.top) == (
         "d", None, "search", True, 3)
     assert parser.parse_args(["sweep", "--hmm-db", "p.hmm", "--fasta", "y.fsa"]).stage == "msv"
-    for flag in (["--bucketed"], ["--checkpoint", "c"], ["--stream", "4"], ["--mesh", "4"],
-                 ["--config", "c.json"], ["--stage", "viterbi"]):
+    scan = parser.parse_args([*base, "--bucketed", "--stream", "4"])
+    assert (scan.bucketed, scan.stream) == (True, 4)
+    assert (parser.parse_args(base).bucketed, parser.parse_args(base).stream) == (False, 0)
+    sweep = parser.parse_args(["sweep", "--hmm-dir", "d", "--fasta", "y.fsa", "--bucketed",
+                               "--stream", "8", "--checkpoint", "c", "--checkpoint-shard", "16"])
+    assert (sweep.bucketed, sweep.stream, sweep.checkpoint, sweep.checkpoint_shard) == (
+        True, 8, "c", 16)
+    sweep = parser.parse_args(["sweep", "--hmm-dir", "d", "--fasta", "y.fsa"])
+    assert (sweep.bucketed, sweep.stream, sweep.checkpoint, sweep.checkpoint_shard) == (
+        False, 0, None, 4096)
+    for flag in (["--mesh", "4"], ["--config", "c.json"], ["--stage", "viterbi"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["sweep", "--hmm-dir", "d", "--fasta", "y.fsa", *flag])

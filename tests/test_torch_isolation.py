@@ -39,6 +39,11 @@ for stage in ("msv", "search"):
     assert cli.main(["sweep", "--device", "cpu", "--stage", stage, "--fast", "--hmm-db",
                      sys.argv[1], "--fasta", sys.argv[2],
                      "--out", sys.argv[3] + ".sweep_" + stage]) == 0
+assert cli.main(["scan", "--device", "cpu", "--stream", "2", "--hmm", sys.argv[1],
+                 "--fasta", sys.argv[2], "--out", sys.argv[3] + ".stream"]) == 0
+for flags in (["--bucketed"], ["--checkpoint", sys.argv[3] + ".ckpt"]):
+    assert cli.main(["sweep", "--device", "cpu", "--hmm-db", sys.argv[1], "--fasta",
+                     sys.argv[2], *flags, "--out", sys.argv[3] + ".sweep" + flags[0]]) == 0
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "hmm_fasta_viterbi_tpu" or m.startswith("hmm_fasta_viterbi_tpu."))
 assert not loaded, loaded
@@ -48,8 +53,9 @@ assert not loaded, loaded
 def test_port_and_chip_smoke_import_no_jax(profile_dir, fasta_dir, tmp_path):
     """In a fresh interpreter: import the port, its CLI and chip_smoke.py,
     run a CPU scan, a CPU search with and without --fast, a CPU search with
-    --domains on a consensus hit and CPU sweeps, and find no jax module and
-    no module of the JAX package loaded."""
+    --domains on a consensus hit, CPU sweeps, a streamed scan, a bucketed
+    and a checkpointed sweep, and find no jax module and no module of the
+    JAX package loaded."""
     from hmm_fasta_viterbi_tpu_torch import parse_hmm
     from hmm_fasta_viterbi_tpu_torch.io.alphabet import AMINO_ACIDS
 
@@ -73,6 +79,11 @@ def test_port_and_chip_smoke_import_no_jax(profile_dir, fasta_dir, tmp_path):
     assert (tmp_path / "out.tsv.fast").read_text().startswith("# target\tprofile\tmsv_bits")
     assert (tmp_path / "out.tsv.sweep_msv").read_text().startswith("# target\tprofile\tscore")
     assert (tmp_path / "out.tsv.sweep_search").read_text().startswith("# target\tprofile\tmsv")
+    whole = (tmp_path / "out.tsv").read_bytes()
+    assert (tmp_path / "out.tsv.stream").read_bytes() == whole
+    assert (tmp_path / "out.tsv.sweep--bucketed").read_bytes() == whole
+    assert (tmp_path / "out.tsv.sweep--checkpoint").read_bytes() == whole
+    assert list((tmp_path / "out.tsv.ckpt").glob("*.shard00000.npz"))
 
 
 def _jax_package_imports(path: pathlib.Path) -> list[str]:
@@ -100,6 +111,9 @@ def test_no_file_of_the_port_imports_the_jax_package():
     assert {f.name for f in files} >= {"hmmio.py", "loader.py", "reference.py", "stats.py",
                                        "posterior_cuda.py", "chip_smoke.py",
                                        "torch_p7_timing.py", "torch_msv_timing.py"}
+    runtime = sorted((PORT_DIR / "runtime").glob("*.py"))
+    assert {f.name for f in runtime} == {"__init__.py", "checkpoint.py", "profiling.py"}
+    assert set(runtime) <= set(files)
     bad = {str(f.relative_to(REPO_ROOT)): _jax_package_imports(f) for f in files}
     assert not {k: v for k, v in bad.items() if v}
     # the scan finds such imports where they are
