@@ -138,7 +138,25 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    --fast`): the report byte-equal to phase 9's sweep, then one profile's
    chunk of shard 2 and every chunk of shard 3 deleted and the sweep rerun:
    the report byte-equal again and only the deleted chunks recomputed (the
-   checkpoint's log lines, every other chunk file untouched).
+   checkpoint's log lines, every other chunk file untouched);
+12. the host subcommands and alignments, each CLI run with every launch
+   count set to 0 just before it and read just after: `emit` BUILD_SAMPLES
+   samples of 1400.hmm, `align --format stockholm` them and `build` the MSA
+   with --device cuda (the MSV, eager Viterbi and log-space Forward kernels
+   each launched) and --device cpu: the files equal apart from the STATS
+   lines, which agree within MU_TOL (MSV and Viterbi mu) and TAU_TOL
+   (Forward tau) bits; the card's calibration traced (its kernel time and
+   busy share); calibrate_profile on the LENG 4770 join (the three wide
+   cases, held against plain in phase 8); on phase 9's database `scan --stage
+   search --align --msa-out` (every planted row a hit with an alignment
+   inside its sequence, the MSA a row a domain), with --domains (the
+   envelope rows kept, the alignments unchanged) and with --stream 4096
+   (report and MSA byte-equal to the whole-file run); `--config` with msv_p
+   CONFIG_MSV_P (the survivor counts of SearchPipeline(msv_p=CONFIG_MSV_P)
+   on the same batch); `scan --stage search --domains --profile-trace DIR`
+   (the kernels' device events under their symbol names, every phase
+   labelled, the device busy share of the labelled window printed); `info
+   --hmm-dir --consensus`, `emit` and `generate` once each.
 
 Prints a JSON line about the kernels (every case, the wide ones as
 `<kernel>_wide`, the rows-in-memory ones as `<kernel>_mem`), then the card's
@@ -173,8 +191,12 @@ from hmm_fasta_viterbi_tpu_torch import (
     posterior_match, viterbi_oracle_batch,
 )
 from hmm_fasta_viterbi_tpu_torch import cli, convert
+from hmm_fasta_viterbi_tpu_torch.io.loader import load_fasta
+from hmm_fasta_viterbi_tpu_torch.io.msaio import read_msa
+from hmm_fasta_viterbi_tpu_torch.models.build import calibrate_profile
 from hmm_fasta_viterbi_tpu_torch.ops import _build, msv_cuda, p7_cuda, posterior_cuda
-from hmm_fasta_viterbi_tpu_torch.pipeline import forward_scores, viterbi_scores
+from hmm_fasta_viterbi_tpu_torch.pipeline import SearchPipeline, forward_scores, viterbi_scores
+from hmm_fasta_viterbi_tpu_torch.runtime import profiling
 
 REPO = pathlib.Path(__file__).resolve().parent
 PROFILES = REPO / "data" / "profile_HMMs"
@@ -235,6 +257,15 @@ STRIDE_COPIES = 44
 STREAM_BATCH = 4096
 CHECKPOINT_SHARD = 4096
 SKEW_BATCH, SKEW_MEDIAN, SKEW_SIGMA, SKEW_CLIP = 16384, 300, 1.0, (10, 10000)
+# phase 12: the samples of 1400.hmm that `build` estimates a profile from;
+# its STATS against the plain versions' (bits: MSV and Viterbi mu, and
+# Forward tau, Forward's tolerance through nats_to_bits and the 96th
+# percentile); the MSV threshold of the `--config` search (HMMER3's is 0.02)
+BUILD_SAMPLES = 64
+MU_TOL, TAU_TOL = 1e-3, 5e-3
+CONFIG_MSV_P = 0.05
+# the kernels build's calibration runs (B1, B4, B8)
+CALIBRATION_KERNELS = ("msv_scan", "viterbi_scan", "forward_log_scan")
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): FP32 outside the
 # tensor cores and HBM3 bandwidth, for each kernel's bound
@@ -1782,8 +1813,8 @@ def write_database(rng, path: pathlib.Path):
 
 def run_cli(argv):
     """One CLI run with every launch count set to 0 before it: (launches,
-    end-to-end seconds, the `seconds:` line's values, the records of the
-    port's loggers)."""
+    end-to-end seconds, the `seconds:` line's values or None for a command
+    without one, the records of the port's loggers)."""
     handler = _Records()
     package = logging.getLogger("hmm_fasta_viterbi_tpu_torch")
     package.addHandler(handler)
@@ -1794,8 +1825,8 @@ def run_cli(argv):
     counts = launches()
     package.removeHandler(handler)
     require(rc == 0, f"{' '.join(argv[:3])} exited {rc}")
-    phases = next(r for r in handler.records if r.msg.startswith("seconds:"))
-    return counts, e2e, phases.args, handler.records
+    phases = next((r for r in handler.records if r.msg.startswith("seconds:")), None)
+    return counts, e2e, phases.args if phases is not None else None, handler.records
 
 
 def print_seconds(label, args, e2e) -> None:
@@ -2154,6 +2185,273 @@ def database_paths(tmp: pathlib.Path) -> None:
     checkpoint_paths(db, fasta)
 
 
+# -- host subcommands, alignments, --config and --profile-trace (phase 12) ----
+
+STATS_LINES = ("STATS LOCAL MSV", "STATS LOCAL VITERBI", "STATS LOCAL FORWARD")
+
+
+def stats_text(hmm) -> str:
+    return (f"MSV mu {hmm.stats_local_msv_mu:.4f} lambda {hmm.stats_local_msv_lambda:.5f}, "
+            f"Viterbi mu {hmm.stats_local_viterbi_mu:.4f}, "
+            f"Forward tau {hmm.stats_local_forward_theta:.4f}")
+
+
+def require_stats_close(got, want, what: str) -> float:
+    """build's STATS against the plain versions': mu within MU_TOL, tau
+    within TAU_TOL, every lambda equal; returns the largest difference."""
+    diffs = {
+        "msv mu": (got.stats_local_msv_mu - want.stats_local_msv_mu, MU_TOL),
+        "viterbi mu": (got.stats_local_viterbi_mu - want.stats_local_viterbi_mu, MU_TOL),
+        "forward tau": (got.stats_local_forward_theta - want.stats_local_forward_theta, TAU_TOL),
+    }
+    for name, (d, tol) in diffs.items():
+        require(abs(d) <= tol, f"{what}: {name} differs by {d:.3g} bits (tolerance {tol})")
+    for name in ("msv_lambda", "viterbi_lambda", "forward_lambda"):
+        require(getattr(got, f"stats_local_{name}") == getattr(want, f"stats_local_{name}"),
+                f"{what}: {name} differs")
+    return max(abs(d) for d, _ in diffs.values())
+
+
+def traced(fn, label: str, trace_dir: pathlib.Path):
+    """``fn()`` under a device trace, its call labelled ``label``: (result,
+    kernel µs summed, the trace's busy share over the labelled window,
+    the window µs)."""
+    with profiling.device_trace(str(trace_dir), DEVICE):
+        with torch.profiler.record_function(label):
+            out = fn()
+    trace = json.loads(max(trace_dir.glob("*.pt.trace.json"), key=lambda f: f.stat().st_mtime)
+                       .read_text())
+    kernels = profiling.kernel_events(trace)
+    require(kernels, f"{label}: the trace holds no CUDA kernel event (CUPTI recorded none)")
+    share, window = profiling.busy_share(trace, labels=(label,))
+    return out, sum(float(k.get("dur", 0)) for k in kernels), share, window
+
+
+def build_path(tmp: pathlib.Path) -> None:
+    """`emit` BUILD_SAMPLES samples of 1400.hmm, `align --format stockholm`
+    them and `build` the MSA on the card (the MSV, eager Viterbi and
+    log-space Forward kernels each launched) and through the plain versions
+    (--device cpu): the files equal apart from their STATS lines, which
+    agree within MU_TOL / TAU_TOL; the card's calibration traced; then
+    calibrate_profile on the LENG 4770 join (the three kernels' wide
+    cases)."""
+    src = str(PROFILES / "1400.hmm")
+    samples, msa = tmp / "build_samples.fsa", tmp / "build.sto"
+    run_cli(["emit", "--hmm", src, "--count", str(BUILD_SAMPLES), "--seed", str(SEED),
+             "--out", str(samples)])
+    _, e2e, _, _ = run_cli(["align", "--hmm", src, "--fasta", str(samples), "--format",
+                            "stockholm", "--out", str(msa)])
+    print(f"align --format stockholm: {BUILD_SAMPLES} samples of 1400.hmm in {e2e:.3f} s")
+    built = {}
+    for device in (DEVICE, "cpu"):
+        out = tmp / f"built_{device.replace(':', '')}.hmm"
+        got, e2e, _, records = run_cli(["build", "--msa", str(msa), "--out", str(out),
+                                        "--device", device])
+        line = next(r.getMessage() for r in records if r.getMessage().startswith("built "))
+        if device == DEVICE:
+            for name in CALIBRATION_KERNELS:
+                require(got[name] >= 1, f"build --device {device} did not launch {name}")
+        else:
+            require(not nonzero(got), f"build --device cpu launched kernels: {nonzero(got)}")
+        built[device] = out
+        print(f"build --device {device}: {line}; end to end {e2e:.3f} s; launches "
+              f"{nonzero(got)}")
+    card_text, plain_text = (built[d].read_text().splitlines() for d in (DEVICE, "cpu"))
+    require([x for x in card_text if not x.startswith(STATS_LINES)]
+            == [x for x in plain_text if not x.startswith(STATS_LINES)],
+            "build: the card's file differs from the plain versions' outside the STATS lines")
+    card, plain = parse_hmm(built[DEVICE]), parse_hmm(built["cpu"])
+    err = require_stats_close(card, plain, "build 1400.hmm samples")
+    print(f"build: files equal apart from STATS; card {stats_text(card)}; plain "
+          f"{stats_text(plain)}; max |d| {err:.3g} bits")
+
+    hmm = card
+    zero_launches()
+    (_, kernel_us, share, window) = traced(
+        lambda: calibrate_profile(hmm, seed=SEED, device=DEVICE), "calibrate", tmp / "cal_trace")
+    print(f"calibrate_profile (LENG {hmm.model_length - 1}, 256 x "
+          f"{min(400, max(100, hmm.model_length - 1))}) traced: kernels {kernel_us / 1e3:.3f} ms "
+          f"of a {window / 1e3:.3f} ms call, device busy share {share:.4f}")
+
+    # the wide cases, each held against its plain version in phase 8
+    wide = wide_profile(WIDE_PAIRS[1])
+    zero_launches()
+    t0 = time.perf_counter()
+    got_wide = calibrate_profile(wide, seed=SEED, device=DEVICE)
+    card_s = time.perf_counter() - t0
+    got = launches()
+    for name in CALIBRATION_KERNELS:
+        require(got[name + WIDE] >= 1, f"the LENG 4770 calibration did not launch {name}'s "
+                                       "wide case")
+    require(all(np.isfinite([got_wide.stats_local_msv_mu, got_wide.stats_local_viterbi_mu,
+                             got_wide.stats_local_forward_theta])),
+            "the LENG 4770 calibration: non-finite STATS")
+    print(f"calibrate_profile LENG 4770 (256 x 400) on the card: {card_s:.3f} s; "
+          f"{stats_text(got_wide)}; launches {nonzero(got)}")
+
+
+def alignment_rows(path: pathlib.Path) -> dict:
+    return {r["target"]: r for r in json.loads(path.read_text())}
+
+
+def align_paths(tmp: pathlib.Path, tokens, lengths, planted) -> None:
+    """`scan --stage search --align --msa-out` on phase 9's database: every
+    planted row a hit with an alignment inside its sequence, the MSA one
+    row a domain; with --domains the rows keep their envelopes; --stream
+    4096 byte-equal to the whole-file report and MSA."""
+    fasta, hmm = tmp / "headline.fsa", str(PROFILES / "1400.hmm")
+    base = ["scan", "--stage", "search", "--align", "--hmm", hmm, "--fasta", str(fasta),
+            "--device", DEVICE, "--format", "json"]
+    out, msa = tmp / "align.json", tmp / "align.sto"
+    got, e2e, secs, records = run_cli([*base, "--msa-out", str(msa), "--out", str(out)])
+    for name in ("msv_scan", "viterbi_lazy_scan", "forward_prob_scan"):
+        require(got[name] > 0, f"scan --align did not launch {name}")
+    rows = alignment_rows(out)
+    n_aln = 0
+    for row in planted.tolist():
+        r = rows.get(f"seq{row}")
+        require(r is not None and r["hit"], f"planted row {row}: not a hit")
+        spans = [(a["seq_from"], a["seq_to"]) for a in r["alignments"]]
+        require(any(1 <= f <= t <= int(lengths[row]) for f, t in spans),
+                f"planted row {row}: no alignment inside 1-{lengths[row]}: {spans}")
+    n_aln = sum(len(r.get("alignments", [])) for r in rows.values())
+    hits = sum(1 for r in rows.values() if r["hit"])
+    names, msa_rows, rf = read_msa(msa)
+    require(len(msa_rows) == n_aln and rf is not None,
+            f"--msa-out: {len(msa_rows)} MSA rows for {n_aln} aligned domains")
+    summary = next(r.getMessage() for r in records if r.getMessage().startswith("search "))
+    print(f"scan --align: {summary}; {hits} hits, {n_aln} aligned domains, every planted row "
+          f"aligned inside its sequence; --msa-out {len(msa_rows)} rows x {len(msa_rows[0])} "
+          f"columns; launches {nonzero(got)}")
+    print_seconds("scan --align (the traceback is the report phase)", secs, e2e)
+
+    dom_out = tmp / "align_domains.json"
+    got, e2e, secs, _ = run_cli([*base, "--domains", "--out", str(dom_out)])
+    for name in ("forward_save_scan", "backward_coverage_scan"):
+        require(got[name] > 0, f"scan --align --domains did not launch {name}")
+    dom_rows = alignment_rows(dom_out)
+    for row in planted.tolist():
+        r = dom_rows[f"seq{row}"]
+        require(r["ndom"] >= 1 and r["domains"] and r["alignments"],
+                f"planted row {row}: --align --domains lost its domains or alignments")
+    require([r.get("alignments") for r in dom_rows.values()]
+            == [r.get("alignments") for r in rows.values()],
+            "--align --domains: the alignments differ from --align's")
+    print(f"scan --align --domains: every planted row keeps env_from/env_to/ndom/domains and "
+          f"its alignments (equal to --align's); launches {nonzero(got)}")
+    print_seconds("scan --align --domains", secs, e2e)
+
+    stream_out, stream_msa = tmp / "align_stream.json", tmp / "align_stream.sto"
+    got, e2e, secs, messages = run_cli_logged([*base, "--stream", str(STREAM_BATCH),
+                                               "--msa-out", str(stream_msa),
+                                               "--out", str(stream_out)])
+    require(stream_out.read_bytes() == out.read_bytes(),
+            "scan --align --stream: the report differs from the whole-file one")
+    require(stream_msa.read_bytes() == msa.read_bytes(),
+            "scan --align --stream: the MSA differs from the whole-file one")
+    print(f"scan --align --stream {STREAM_BATCH}: report and MSA byte-equal to the whole-file "
+          f"run; {side_stream(messages, BATCH // STREAM_BATCH, 'scan --align --stream')}; "
+          f"launches {nonzero(got)}")
+    print_seconds("scan --align --stream", secs, e2e)
+
+
+def config_path(tmp: pathlib.Path, tokens, lengths) -> None:
+    """`scan --stage search --config` with msv_p CONFIG_MSV_P: the survivor
+    counts of SearchPipeline(msv_p=CONFIG_MSV_P) on the same batch staged
+    by hand."""
+    hmm_path = str(PROFILES / "1400.hmm")
+    cfg = tmp / "engine.json"
+    cfg.write_text(json.dumps({"msv_p": CONFIG_MSV_P}))
+    got, e2e, secs, messages = run_cli_logged(
+        ["scan", "--stage", "search", "--config", str(cfg), "--hmm", hmm_path, "--fasta",
+         str(tmp / "headline.fsa"), "--device", DEVICE, "--out", str(tmp / "config.tsv")])
+    line = next(m for m in messages if m.startswith("search "))
+    n_msv, n_vit, n_hits = (int(x) for x in re.search(
+        r"-> (\d+) past MSV -> (\d+) past Viterbi -> (\d+) hits", line).groups())
+    scanner = MSVScanner(device=DEVICE)
+    hmm = load_profile(hmm_path)
+    want = SearchPipeline(scanner, msv_p=CONFIG_MSV_P).search(
+        hmm, scanner.stage(tokens, lengths), tokens, lengths)
+    want_counts = (int(want.passed_msv.sum()), int(want.passed_viterbi.sum()),
+                   int(want.passed_forward.sum()))
+    require((n_msv, n_vit, n_hits) == want_counts,
+            f"--config msv_p {CONFIG_MSV_P}: {(n_msv, n_vit, n_hits)} survivors, "
+            f"SearchPipeline gives {want_counts}")
+    default = SearchPipeline(scanner).search(hmm, scanner.stage(tokens, lengths), tokens,
+                                             lengths)
+    print(f"scan --config (msv_p {CONFIG_MSV_P}): {line}; equal to SearchPipeline(msv_p="
+          f"{CONFIG_MSV_P}) on the same batch; the default msv_p 0.02 passes "
+          f"{int(default.passed_msv.sum())} past MSV")
+    print_seconds("scan --config", secs, e2e)
+
+
+def trace_path(tmp: pathlib.Path) -> None:
+    """`scan --stage search --domains --profile-trace DIR`: the trace holds
+    the kernels' device events under their symbol names; the device busy
+    share of the labelled window (parse to report)."""
+    trace_dir = tmp / "trace"
+    got, e2e, secs, _ = run_cli(["scan", "--stage", "search", "--domains", "--hmm",
+                                 str(PROFILES / "1400.hmm"), "--fasta",
+                                 str(tmp / "headline.fsa"), "--device", DEVICE,
+                                 "--profile-trace", str(trace_dir),
+                                 "--out", str(tmp / "traced.tsv")])
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    require(len(files) == 1, f"--profile-trace wrote {len(files)} trace files")
+    trace = json.loads(files[0].read_text())
+    kernels = profiling.kernel_events(trace)
+    require(kernels, "--profile-trace: no CUDA kernel event in the trace (CUPTI recorded none)")
+    names: dict = {}
+    for k in kernels:
+        key = re.sub(r"<.*", "", k["name"]).split("::")[-1].split("(")[0]
+        n, us = names.get(key, (0, 0.0))
+        names[key] = (n + 1, us + float(k.get("dur", 0)))
+    for kernel in ("msv", "viterbi", "forward", "backward"):
+        require(any(key.startswith(kernel) and key.endswith("_kernel") for key in names),
+                f"--profile-trace: no {kernel} kernel event among {sorted(names)}")
+    labels = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+    require(labels >= set(profiling.PHASES), f"--profile-trace labels {sorted(labels)}")
+    share, window = profiling.busy_share(trace)
+    print(f"--profile-trace: {files[0].name}, {files[0].stat().st_size} bytes, "
+          f"{len(kernels)} kernel events (launches counted {sum(got.values())}), labels "
+          f"{sorted(labels & set(profiling.PHASES))}")
+    for key, (n, us) in sorted(names.items(), key=lambda kv: -kv[1][1]):
+        print(f"  device events {key}: {n}, {us / 1e3:.3f} ms")
+    print(f"--profile-trace: device busy share {share:.6f} of the {window / 1e6:.6f} s "
+          f"window from the first phase label to the last")
+    print_seconds("scan --stage search --domains --profile-trace", secs, e2e)
+
+
+def host_commands(tmp: pathlib.Path) -> None:
+    """`info`, `emit` and `generate`, once each."""
+    out = tmp / "info.tsv"
+    _, e2e, _, _ = run_cli(["info", "--hmm-dir", str(PROFILES), "--consensus",
+                            "--out", str(out)])
+    lines = out.read_text().splitlines()
+    require(len(lines) == 25 and lines[0].endswith("\tconsensus"), "info: 24 rows expected")
+    print(f"info --hmm-dir --consensus: {len(lines) - 1} profiles in {e2e:.3f} s")
+    out = tmp / "emit.fsa"
+    _, e2e, _, _ = run_cli(["emit", "--hmm", str(PROFILES / "1400.hmm"), "--count", "8",
+                            "--seed", "1", "--out", str(out)])
+    require(out.read_text().count(">") == 8, "emit: 8 records expected")
+    print(f"emit --count 8: {out.stat().st_size} bytes in {e2e:.3f} s")
+    out = tmp / "generated.fsa"
+    _, e2e, _, _ = run_cli(["generate", "--count", "16", "--length", "3500", "--seed", "1",
+                            "--out", str(out)])
+    db = load_fasta(out, prefer="python")
+    require(len(db) == 16 and all(len(r.sequence) == 3500 for r in db.records),
+            "generate: 16 x 3500 expected")
+    print(f"generate --count 16 --length 3500: {out.stat().st_size} bytes in {e2e:.3f} s")
+
+
+def subcommand_paths(tmp: pathlib.Path) -> None:
+    build_path(tmp)
+    tokens, lengths = load_fasta(tmp / "headline.fsa").encode()
+    align_paths(tmp, tokens, lengths, planted_rows())
+    config_path(tmp, tokens, lengths)
+    trace_path(tmp)
+    host_commands(tmp)
+
+
 # -- timings (phase 10) --------------------------------------------------------
 
 def msv_timings(scanner, rng, errors: dict, work: dict) -> dict:
@@ -2456,6 +2754,10 @@ def main() -> int:
 
         with Phase("11. database-scale paths: --stream, --bucketed, --checkpoint"):
             database_paths(tmp)
+
+        with Phase("12. build on the card, scan --align/--msa-out, --config, --profile-trace, "
+                   "info/emit/generate"):
+            subcommand_paths(tmp)
 
     times = {"msv_scan": (msv_ms["1400"], msv_ms["plain"]), "msv_filter_scan": msv_ms["filter"],
              "msv_stacked_scan": sweep_ms["sweep24"], **post_ms, **wide_ms, **mem_ms,

@@ -15,11 +15,21 @@ profile sweep, through hand-written CUDA kernels on the card
 them over ragged databases in length buckets (``--bucketed``), over
 databases larger than host memory in streamed batches staged on a side
 CUDA stream (``--stream N``), and as resumable checkpointed sweeps
-(``runtime.checkpoint``, ``--checkpoint DIR``).
+(``runtime.checkpoint``, ``--checkpoint DIR``). Its host commands align
+sequences to a profile by Viterbi traceback (``ops.traceback``: ``scan
+--align``, ``--msa-out``, ``align``), summarise profiles (``info``), sample
+from them (``emit``), write random databases (``generate``) and build a
+profile from an MSA (``models.build``, ``io.msaio``, ``io.hmmwrite``:
+``build``), calibrating its STATS with the MSV, eager Viterbi and log-space
+Forward kernels. ``runtime.config.EngineConfig`` carries the cascade
+thresholds and ``m_bucket`` (``--config``), and
+``runtime.profiling.device_trace`` records a ``torch.profiler`` trace of a
+scan (``--profile-trace``).
 """
 
 from .io.fastaio import parse_fasta
 from .io.hmmio import parse_hmm
+from .models.build import build_profile, calibrate_profile
 from .models.msv import MSVProfile, length_transitions
 from .models.p7 import P7Profile
 from .ops.reference import (
@@ -37,9 +47,11 @@ from .pipeline import (
     SideStreamStager,
     StagedDatabase,
 )
+from .runtime.config import EngineConfig
 
 __all__ = [
     "BucketedDatabase",
+    "EngineConfig",
     "MSVProfile",
     "MSVScanner",
     "P7Profile",
@@ -48,6 +60,8 @@ __all__ = [
     "SideStreamStager",
     "StagedDatabase",
     "backward_oracle",
+    "build_profile",
+    "calibrate_profile",
     "forward_oracle_batch",
     "length_transitions",
     "msv_oracle_batch",

@@ -2,23 +2,38 @@
 
     python -m hmm_fasta_viterbi_tpu_torch scan --hmm P.hmm --fasta DB.fsa
         [--stage msv|viterbi|forward|search] [--fast] [--domains]
-        [--bucketed | --stream N]
+        [--align [--msa-out FILE]] [--bucketed | --stream N]
+        [--config FILE] [--profile-trace DIR]
     python -m hmm_fasta_viterbi_tpu_torch sweep --hmm-dir DIR | --hmm-db FILE
-        --fasta DB.fsa [--stage msv|search] [--fast]
+        --fasta DB.fsa [--stage msv|search] [--fast] [--config FILE]
         [--bucketed | --stream N | --checkpoint DIR [--checkpoint-shard N]]
+    python -m hmm_fasta_viterbi_tpu_torch align --hmm P.hmm --fasta F.fsa
+        [--format tsv|json|stockholm] [--stream N]
+    python -m hmm_fasta_viterbi_tpu_torch info --hmm P.hmm | --hmm-dir DIR | --hmm-db FILE
+        [--consensus]
+    python -m hmm_fasta_viterbi_tpu_torch build --msa MSA --out P.hmm [--device cuda|cpu]
+    python -m hmm_fasta_viterbi_tpu_torch emit --hmm P.hmm [--count N] [--consensus]
+    python -m hmm_fasta_viterbi_tpu_torch generate --out random.fsa [--count N]
 
-``hmm_fasta_viterbi_tpu``'s ``scan`` and ``sweep`` with the same flags and
-the same TSV/JSON reports: one stage's scores, or (``--stage search``) the
-MSV -> Viterbi -> Forward cascade with a row for every MSV survivor
-(``--fast``: behind the upper-bound MSV and Viterbi prefilters;
-``--domains``: each reported hit's posterior envelope and domains, each
-domain rescored by Forward); a sweep scores many profiles against one
-staged database. ``--bucketed`` stages a ragged database in length
-buckets (msv and search stages); ``--stream N`` reads the FASTA in batches
-of N records, the next batch parsed, encoded and staged on a side CUDA
-stream while the card scans this one, so host memory holds a batch and the
-survivors; ``sweep --checkpoint DIR`` keeps each (profile, shard) result
-under DIR and a rerun computes only the missing ones. ``--device``
+``hmm_fasta_viterbi_tpu``'s commands with the same flags and the same
+reports, apart from its ``--mesh`` and ``--fused``. ``scan`` reports one
+stage's scores, or (``--stage search``) the MSV -> Viterbi -> Forward
+cascade with a row for every MSV survivor (``--fast``: behind the
+upper-bound MSV and Viterbi prefilters; ``--domains``: each reported hit's
+posterior envelope and domains, each domain rescored by Forward;
+``--align``: each hit's Viterbi alignments, traced back on the host, and
+with ``--msa-out`` one Stockholm MSA of them); a sweep scores many profiles
+against one staged database. ``--bucketed`` stages a ragged database in
+length buckets (msv and search stages); ``--stream N`` reads the FASTA in
+batches of N records, the next batch parsed, encoded and staged on a side
+CUDA stream while the card scans this one, so host memory holds a batch and
+the survivors; ``sweep --checkpoint DIR`` keeps each (profile, shard)
+result under DIR and a rerun computes only the missing ones. ``--config``
+reads an ``EngineConfig`` JSON file (the cascade thresholds and
+``m_bucket``); ``--profile-trace DIR`` writes a ``torch.profiler`` trace of
+a whole-file scan, its phases labelled. ``align``, ``info``, ``emit`` and
+``generate`` are host commands; ``build`` calibrates the profile it builds
+with the MSV, eager Viterbi and log-space Forward kernels. ``--device``
 (default ``cuda``) names the torch device, and ``--device cpu`` runs the
 kernels' plain versions.
 """
@@ -38,17 +53,31 @@ import time
 import numpy as np
 import torch
 
-from .io.fastaio import FastaDatabase, FastaRecord
-from .io.loader import load_fasta, load_profile, load_profiles, stream_fasta_prefetch
+from .io.alphabet import decode_sequence
+from .io.fastaio import FastaDatabase, FastaRecord, write_fasta
+from .io.generate import generate_records
+from .io.hmmio import parse_hmm
+from .io.hmmwrite import write_hmm
+from .io.loader import (
+    load_fasta, load_profile, load_profiles, stream_fasta, stream_fasta_prefetch,
+)
+from .io.msaio import read_msa
 from .models import stats
+from .models.build import build_profile, calibrate_profile
 from .models.msv import MSVProfile
 from .models.p7 import P7Profile
+from .models.sample import sample_sequences
 from .ops.posterior_cuda import posterior_coverage_batch
+from .ops.traceback import (
+    alignment_row, consensus_string, domain_alignments, format_alignment, hit_alignments,
+    stockholm_msa,
+)
 from .pipeline import (
     PREFETCH_DEPTH, MSVScanner, SearchPipeline, SearchResult, SideStreamStager, forward_scores,
 )
 from .runtime.checkpoint import ScanCheckpoint, resumable_search_sweep, resumable_sweep
-from .runtime.profiling import SectionTimer
+from .runtime.config import EngineConfig
+from .runtime.profiling import SectionTimer, device_trace, phase
 
 logger = logging.getLogger(__name__)
 
@@ -222,16 +251,21 @@ def _domain_rows(hmm, segs: list, dom_scores: dict, i: int, n_db: int) -> list:
 def _report_search(hmm, db, result, args, out, rows_sink=None, tokens=None, lengths=None,
                    device=None, phases=None, n_targets: int | None = None) -> None:
     """One row per MSV survivor, ordered by Forward score (rows Forward
-    never reached last), as the JAX CLI's search report without alignments.
-    With ``--domains`` (and the host ``tokens``/``lengths``), the hits
-    that survive --top/--max-evalue are decoded on ``device`` and get
-    env_from/env_to/ndom and their domains; the decode's seconds go into
-    ``phases["domains"]``. ``n_targets`` is the true database size for
+    never reached last), as the JAX CLI's search report. With the host
+    ``tokens``/``lengths``: ``--domains`` decodes the hits that survive
+    --top/--max-evalue on ``device`` and gives them env_from/env_to/ndom
+    and their domains (the decode's seconds go into ``phases["domains"]``);
+    ``--align`` gives each such hit its Viterbi alignments, traced back on
+    the host (``ops.traceback``; past its DP budget each posterior envelope
+    of ``--domains`` is aligned instead), and ``--msa-out`` writes them all
+    as one Stockholm MSA. ``n_targets`` is the true database size for
     E-values: a streamed search's ``db`` holds only the MSV survivors
     (default ``len(db)``)."""
     n_db = n_targets if n_targets is not None else len(db)
     evals = stats.evalue(result.forward_pvalues, n_db)
     want_domains = bool(getattr(args, "domains", False)) and tokens is not None
+    want_align = bool(getattr(args, "align", False)) and tokens is not None
+    p7 = P7Profile.from_profile(hmm) if want_domains or want_align else None
     order = np.flatnonzero(result.passed_msv)
     order = order[np.argsort(-np.nan_to_num(result.forward_scores[order], nan=-np.inf))]
     if args.top:
@@ -243,10 +277,10 @@ def _report_search(hmm, db, result, args, out, rows_sink=None, tokens=None, leng
     if want_domains:
         # decode only the reported hits: the decode is O(L * M) device work a hit
         t0 = time.perf_counter()
-        p7 = P7Profile.from_profile(hmm)
-        envelopes = _hit_envelopes(p7, tokens, lengths, order[result.passed_forward[order]],
-                                   device)
-        dom_scores = _domain_scores(p7, tokens, lengths, envelopes, device)
+        with phase("domains"):
+            envelopes = _hit_envelopes(p7, tokens, lengths,
+                                       order[result.passed_forward[order]], device)
+            dom_scores = _domain_scores(p7, tokens, lengths, envelopes, device)
         if phases is not None:
             phases["domains"] = time.perf_counter() - t0
     rows = []
@@ -266,7 +300,22 @@ def _report_search(hmm, db, result, args, out, rows_sink=None, tokens=None, leng
             row["env_from"], row["env_to"], row["ndom"] = (
                 (segs[0][0], segs[-1][1], len(segs)) if segs else (0, 0, 0))
             row["domains"] = _domain_rows(hmm, segs, dom_scores, int(i), n_db)
+        if want_align and result.passed_forward[i]:
+            try:
+                doms = hit_alignments(p7, tokens[i, : int(lengths[i])],
+                                      envelopes=envelopes.get(int(i)))
+            except MemoryError as exc:
+                logger.warning("alignment skipped for %s: %s", row["target"], exc)
+                doms = []
+            row["alignments"] = [alignment_row(d) for d in doms]
         rows.append(row)
+    msa_path = getattr(args, "msa_out", None)
+    if msa_path and want_align:
+        # hmmsearch -A: one Stockholm MSA over every hit domain
+        entries = [(r["target"], a) for r in rows for a in r.get("alignments", [])]
+        with open(msa_path, "w") as fh:
+            fh.write(stockholm_msa(entries, p7.num_states, hmm.name))
+        logger.info("wrote %d aligned domains to %s", len(entries), msa_path)
     if args.format == "json":
         _write_json(rows, out, rows_sink)
     else:
@@ -288,6 +337,13 @@ def _report_search(hmm, db, result, args, out, rows_sink=None, tokens=None, leng
                     f"\t{r.get('ndom', '')}\t{doms}"
                 )
             out.write(line + "\n")
+        for r in rows:
+            for k, a in enumerate(r.get("alignments", [])):
+                out.write(
+                    f"\n== {r['target']} domain {k + 1} [hmm {a['hmm_from']}-{a['hmm_to']} / "
+                    f"seq {a['seq_from']}-{a['seq_to']}]\n"
+                )
+                out.write(format_alignment(a, hmm.name, r["target"]) + "\n")
 
 
 def _device(args) -> torch.device | None:
@@ -331,41 +387,110 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)  # the upload belongs to the stage time
 
 
+# the EngineConfig knobs of the JAX package's TPU kernels: a score depends
+# only on its own row, so the port's reports do not depend on them
+_TPU_KNOBS = ("backend", "l_chunk")
+
+
+def _load_config(args) -> bool:
+    """Read ``--config`` into ``args.engine_config`` (None without one), as
+    the JAX CLI reads it: the cascade thresholds (``msv_p``, ``viterbi_p``,
+    ``forward_p``) and ``m_bucket`` apply; ``loader`` does not (it comes
+    from ``--loader``); the TPU knobs are ignored with a warning each;
+    unknown keys raise ``ValueError``. False (after logging why) when the
+    file asks for the device mesh, which the port does not have."""
+    args.engine_config = None
+    if not args.config:
+        return True
+    cfg = EngineConfig.from_json(args.config)
+    if cfg.use_mesh:
+        logger.error("--config %s: use_mesh is true, and the device mesh (--mesh) is not "
+                     "ported yet", args.config)
+        return False
+    keys = json.loads(pathlib.Path(args.config).read_text())
+    for key in _TPU_KNOBS:
+        if key in keys:
+            logger.warning("--config %s: %s is a knob of the TPU kernels; the port ignores it",
+                           args.config, key)
+    args.engine_config = cfg
+    return True
+
+
+def _make_scanner(args, device) -> MSVScanner:
+    """The scanner on ``device``, its MSV M bucket from ``--config``."""
+    cfg = args.engine_config
+    if cfg is None:
+        return MSVScanner(device=device)
+    return MSVScanner(device=device, m_bucket=cfg.m_bucket)
+
+
+def _make_pipeline(args, scanner) -> SearchPipeline:
+    """The cascade with ``--fast``'s prefilters and ``--config``'s thresholds."""
+    kw = dict(fast_msv=args.fast, fast_viterbi=args.fast)
+    cfg = args.engine_config
+    if cfg is not None:
+        kw.update(msv_p=cfg.msv_p, viterbi_p=cfg.viterbi_p, forward_p=cfg.forward_p)
+    return SearchPipeline(scanner, **kw)
+
+
+def _untraced(args, what: str) -> None:
+    """``--profile-trace`` records the whole-file scan only (as in the JAX
+    CLI, which ignores it elsewhere): say so instead of staying silent."""
+    if args.profile_trace:
+        logger.warning("--profile-trace covers only the whole-file scan; %s records no trace",
+                       what)
+
+
 def cmd_scan(args) -> int:
     device = _device(args)
     if device is None:
         return 2
     if args.out:
         open(args.out, "w").close()  # fail fast on a bad --out path
+    if args.msa_out and not (args.stage == "search" and args.align):
+        logger.error("--msa-out requires --stage search --align")
+        return 2
     if args.stream < 0:
         logger.error("--stream must be at least 1 (0 reads the whole file)")
+        return 2
+    if not _load_config(args):
         return 2
     if args.stream:
         if args.bucketed:
             logger.error("--stream does not compose with --bucketed")
             return 2
+        _untraced(args, "a streamed scan")
         return _cmd_scan_stream(args, device)
+    with device_trace(args.profile_trace, device):
+        return _scan_whole_file(args, device)
+
+
+def _scan_whole_file(args, device) -> int:
+    """scan of a FASTA file loaded whole; each phase of the ``seconds:``
+    line is a labelled range of a ``--profile-trace``."""
     t_start = time.perf_counter()
-    hmm = load_profile(args.hmm, prefer=args.loader)
-    db = load_fasta(args.fasta, prefer=args.loader)
-    if not len(db):
-        logger.warning("no valid sequences in %s", args.fasta)
-        return 1
-    tokens, lengths = db.encode()
-    scanner = MSVScanner(device=device)
+    with phase("parse"):
+        hmm = load_profile(args.hmm, prefer=args.loader)
+        db = load_fasta(args.fasta, prefer=args.loader)
+        if not len(db):
+            logger.warning("no valid sequences in %s", args.fasta)
+            return 1
+        tokens, lengths = db.encode()
+    scanner = _make_scanner(args, device)
     # --bucketed stages the msv and search stages in length buckets; the
     # Viterbi and Forward stages stage whole, as in the JAX CLI
     bucketed = args.bucketed and args.stage in ("msv", "search")
     t0 = time.perf_counter()
-    if bucketed:
-        staged = _stage_bucketed_logged(scanner, tokens, lengths)
-    else:
-        staged = scanner.stage(tokens, lengths)
-    _sync(device)
+    with phase("stage"):
+        if bucketed:
+            staged = _stage_bucketed_logged(scanner, tokens, lengths)
+        else:
+            staged = scanner.stage(tokens, lengths)
+        _sync(device)
     t_staged = time.perf_counter()
     phases = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
     if args.stage == "search":
-        pipeline = SearchPipeline(scanner, fast_msv=args.fast, fast_viterbi=args.fast)
+        pipeline = _make_pipeline(args, scanner)
         if bucketed:
             result = pipeline.search_bucketed(hmm, staged, tokens, lengths)
         else:
@@ -378,17 +503,18 @@ def cmd_scan(args) -> int:
             int(result.passed_viterbi.sum()), int(result.passed_forward.sum()),
             t_scanned - t0,
         )
-        with _out_sink(args) as sink:
+        with phase("report"), _out_sink(args) as sink:
             _report_search(hmm, db, result, args, out=sink, tokens=tokens, lengths=lengths,
                            device=device, phases=phases)
     else:
-        if args.stage != "msv":
-            scores = scanner.scan_p7(P7Profile.from_profile(hmm), staged,
-                                     stage=args.stage).cpu().numpy()
-        elif bucketed:
-            scores = scanner.scan_bucketed(MSVProfile.from_profile(hmm), staged)
-        else:
-            scores = scanner.scan(MSVProfile.from_profile(hmm), staged).cpu().numpy()
+        with phase(args.stage):
+            if args.stage != "msv":
+                scores = scanner.scan_p7(P7Profile.from_profile(hmm), staged,
+                                         stage=args.stage).cpu().numpy()
+            elif bucketed:
+                scores = scanner.scan_bucketed(MSVProfile.from_profile(hmm), staged)
+            else:
+                scores = scanner.scan(MSVProfile.from_profile(hmm), staged).cpu().numpy()
         t_scanned = time.perf_counter()
         phases[args.stage] = t_scanned - t_staged
         dt = t_scanned - t0
@@ -397,7 +523,7 @@ def cmd_scan(args) -> int:
             "scanned %d seqs x %s (%s) in %.3fs (%.2f GCUPS)",
             len(db), hmm.name, args.stage, dt, cells / dt / 1e9,
         )
-        with _out_sink(args) as sink:
+        with phase("report"), _out_sink(args) as sink:
             _report(hmm, db, scores, args, out=sink, stage=args.stage)
     report_s = time.perf_counter() - t_scanned - phases.get("domains", 0.0)
     _log_seconds(t_start, t0 - t_start, t_staged - t0, phases, report_s)
@@ -473,7 +599,7 @@ def _cmd_scan_stream(args, device) -> int:
         return _cmd_search_stream(args, device)
     t_start = time.perf_counter()
     hmm = load_profile(args.hmm, prefer=args.loader)
-    scanner = MSVScanner(device=device)
+    scanner = _make_scanner(args, device)
     if args.stage == "msv":
         batch_scores = functools.partial(scanner.scan, MSVProfile.from_profile(hmm))
     else:
@@ -513,7 +639,7 @@ def _cmd_scan_stream(args, device) -> int:
 class _StreamedSearch:
     """A profile's aggregate over a streamed cascade: the MSV survivors'
     rows of every SearchResult field, with their headers and (for
-    ``--domains``) their tokens."""
+    ``--domains`` and ``--align``) their tokens."""
 
     result: SearchResult | None  # over the survivors only; None without sequences
     headers: list
@@ -529,10 +655,10 @@ def _stream_search(args, pipeline, hmms, keep_tokens: bool):
     rows the search report prints. Per-sequence p-values do not depend on
     the database size, so every decision and reported number equals the
     whole-file search's; survivor token rows are kept only for
-    ``--domains``. The next batch is parsed, encoded and staged on the
-    producer thread (:class:`SideStreamStager`) while this one's cascade
-    runs; the consumer's seconds go to prefetch_wait (producer work not
-    hidden by device work), search and compact.
+    ``--domains`` and ``--align``. The next batch is parsed, encoded and
+    staged on the producer thread (:class:`SideStreamStager`) while this
+    one's cascade runs; the consumer's seconds go to prefetch_wait
+    (producer work not hidden by device work), search and compact.
 
     Returns ({profile name: _StreamedSearch}, total sequences, total
     cells, the :class:`_Stream`)."""
@@ -593,11 +719,10 @@ def _cmd_search_stream(args, device) -> int:
     """scan --stage search --stream: see :func:`_stream_search`."""
     t_start = time.perf_counter()
     hmm = load_profile(args.hmm, prefer=args.loader)
-    pipeline = SearchPipeline(MSVScanner(device=device), fast_msv=args.fast,
-                              fast_viterbi=args.fast)
+    pipeline = _make_pipeline(args, _make_scanner(args, device))
     t0 = time.perf_counter()
     per_hmm, total_seqs, total_cells, stream = _stream_search(
-        args, pipeline, [hmm], keep_tokens=args.domains)
+        args, pipeline, [hmm], keep_tokens=args.domains or args.align)
     if not total_seqs:
         logger.warning("no valid sequences in %s", args.fasta)
         return 1
@@ -625,10 +750,10 @@ def _cmd_sweep_stream(args, hmms, device, t_start) -> int:
     and scanned by every profile (msv: the stacked ``scan_many`` launches;
     search: each profile's cascade, keeping each batch's MSV survivors).
     Host memory holds one batch plus the per-profile results."""
-    scanner = MSVScanner(device=device)
+    scanner = _make_scanner(args, device)
     t0 = time.perf_counter()
     if args.stage == "search":
-        pipeline = SearchPipeline(scanner, fast_msv=args.fast, fast_viterbi=args.fast)
+        pipeline = _make_pipeline(args, scanner)
         per_hmm, total_seqs, _cells, stream = _stream_search(
             args, pipeline, hmms, keep_tokens=False)
         if not total_seqs:
@@ -731,6 +856,9 @@ def cmd_sweep(args) -> int:
     if args.checkpoint_shard < 1:
         logger.error("--checkpoint-shard must be at least 1")
         return 2
+    if not _load_config(args):
+        return 2
+    _untraced(args, "a sweep")
     t_start = time.perf_counter()
     hmms = _load_sweep_profiles(args)
     if hmms is None:
@@ -741,7 +869,7 @@ def cmd_sweep(args) -> int:
         return _cmd_sweep_stream(args, hmms, device, t_start)
     db = load_fasta(args.fasta, prefer=args.loader)
     tokens, lengths = db.encode()
-    scanner = MSVScanner(device=device)
+    scanner = _make_scanner(args, device)
     t0 = time.perf_counter()
     if args.checkpoint:
         # each shard is staged inside the sweep, once for every profile
@@ -756,7 +884,7 @@ def cmd_sweep(args) -> int:
     if args.stage == "search":
         # the cascade per profile, each profile's rows reported before the
         # next profile runs (a checkpointed sweep computes them all first)
-        pipeline = SearchPipeline(scanner, fast_msv=args.fast, fast_viterbi=args.fast)
+        pipeline = _make_pipeline(args, scanner)
         if args.checkpoint:
             results = resumable_search_sweep(pipeline, hmms, tokens, lengths, checkpoint,
                                              shard_size=args.checkpoint_shard)
@@ -802,6 +930,173 @@ def cmd_sweep(args) -> int:
     return 0
 
 
+def cmd_info(args) -> int:
+    """hmmstat-shaped profile summary: one row a .hmm with its NAME/LENG and
+    the three STATS LOCAL calibration pairs the P-values come from;
+    ``--consensus`` adds the model's consensus string."""
+    if sum(bool(x) for x in (args.hmm, args.hmm_dir, args.hmm_db)) != 1:
+        logger.error("info needs exactly one of --hmm / --hmm-dir / --hmm-db")
+        return 2
+    if args.hmm_dir:
+        units = [
+            (p.name, load_profile(p, prefer=args.loader))
+            for p in sorted(pathlib.Path(args.hmm_dir).glob("*.hmm"))
+        ]
+    elif args.hmm_db:
+        units = [(pathlib.Path(args.hmm_db).name, h)
+                 for h in load_profiles(args.hmm_db, prefer=args.loader)]
+    else:
+        units = [(pathlib.Path(args.hmm).name, load_profile(args.hmm, prefer=args.loader))]
+    if not units:
+        logger.error("no .hmm files in %s", args.hmm_dir)
+        return 1
+    rows = []
+    for fname, hmm in units:
+        row = {
+            "file": fname,
+            "name": hmm.name,
+            "leng": hmm.model_length - 1,
+            "model_length": hmm.model_length,
+            "msv_mu": hmm.stats_local_msv_mu,
+            "msv_lambda": hmm.stats_local_msv_lambda,
+            "viterbi_mu": hmm.stats_local_viterbi_mu,
+            "viterbi_lambda": hmm.stats_local_viterbi_lambda,
+            "forward_tau": hmm.stats_local_forward_theta,
+            "forward_lambda": hmm.stats_local_forward_lambda,
+        }
+        if args.consensus:
+            row["consensus"] = consensus_string(P7Profile.from_profile(hmm))
+        rows.append(row)
+    with _out_sink(args) as out:
+        if args.format == "json":
+            json.dump(rows, out, indent=1)
+            out.write("\n")
+        else:
+            cols = list(rows[0].keys())
+            out.write("# " + "\t".join(cols) + "\n")
+            for r in rows:
+                out.write("\t".join(str(r[c]) for c in cols) + "\n")
+    return 0
+
+
+def cmd_align(args) -> int:
+    """hmmalign-shaped: Viterbi-align EVERY sequence of a FASTA to one
+    profile (no cascade, no thresholds: ``scan --stage search --align``
+    reports the hits' alignments). A host command: the traceback is
+    per-sequence argmax bookkeeping in NumPy (``ops.traceback``)."""
+    if args.stream < 0:
+        logger.error("--stream must be at least 1 (0 reads the whole file)")
+        return 2
+    hmm = load_profile(args.hmm, prefer=args.loader)
+    p7 = P7Profile.from_profile(hmm)
+    if args.stream:
+        # bounded host memory: one FASTA batch of tokens at a time
+
+        def units():
+            for batch in stream_fasta(args.fasta, args.stream, prefer=args.loader):
+                if not len(batch):
+                    continue
+                toks, lens = batch.encode()
+                recs = batch.records
+                for i in range(len(batch)):
+                    yield recs[i].header or f"seq{i}", toks[i, : int(lens[i])]
+    else:
+        db = load_fasta(args.fasta, prefer=args.loader)
+        tokens, lengths = db.encode()
+
+        def units():
+            for i in range(len(db)):
+                yield db.records[i].header or f"seq{i}", tokens[i, : int(lengths[i])]
+
+    rows = []
+    msa_entries = []
+    with _out_sink(args) as out:
+        for name, seq_tokens in units():
+            try:
+                score, doms = domain_alignments(p7, seq_tokens)
+            except MemoryError as exc:
+                # one sequence past the traceback's DP budget must not cost
+                # the run's other alignments
+                logger.warning("alignment skipped for %s: %s", name, exc)
+                score, doms = float("nan"), []
+            if args.format == "json":
+                rows.append({
+                    "target": name,
+                    "profile": hmm.name,
+                    "viterbi_nats": round(score, 4) if np.isfinite(score) else None,
+                    "alignments": [alignment_row(d) for d in doms],
+                })
+            elif args.format == "stockholm":
+                msa_entries.extend((name, d) for d in doms)
+            else:
+                for k, d in enumerate(doms):
+                    out.write(
+                        f"== {name} domain {k + 1} [hmm {d.hmm_from}-{d.hmm_to} / "
+                        f"seq {d.seq_from}-{d.seq_to}]\n"
+                    )
+                    out.write(format_alignment(d, hmm.name, name) + "\n")
+        if args.format == "json":
+            json.dump(rows, out, indent=1)
+            out.write("\n")
+        elif args.format == "stockholm":
+            out.write(stockholm_msa(msa_entries, p7.num_states, hmm.name))
+    return 0
+
+
+def cmd_build(args) -> int:
+    """hmmbuild-shaped: build a profile from an MSA (Stockholm with ``#=GC
+    RF``, the shape ``align --format stockholm`` writes, or aligned FASTA),
+    calibrate its STATS by simulation on ``--device`` (the MSV, eager
+    Viterbi and log-space Forward kernels on a card, their plain versions on
+    the CPU) and write it as an HMMER3/b .hmm file."""
+    device = _device(args)
+    if device is None:
+        return 2
+    _, rows, rf = read_msa(args.msa)
+    name = args.name or pathlib.Path(args.msa).stem
+    hmm = build_profile(rows, rf=rf, name=name, weighting=args.weighting)
+    t0 = time.perf_counter()
+    hmm = calibrate_profile(hmm, seed=args.seed, device=device)
+    calibrate_s = time.perf_counter() - t0
+    write_hmm(hmm, args.out)
+    logger.info(
+        "built %s: LENG %d from %d aligned rows (%s match columns), calibrated on %s in "
+        "%.3f s, MSV mu=%.2f",
+        name, hmm.model_length - 1, len(rows), "RF" if rf else "gap-majority", device,
+        calibrate_s, hmm.stats_local_msv_mu,
+    )
+    print(f"wrote {name} (LENG {hmm.model_length - 1}) to {args.out}")
+    return 0
+
+
+def cmd_emit(args) -> int:
+    """hmmemit-shaped: sample sequences from the core profile
+    (``models.sample``), or its consensus with ``--consensus``. The profile
+    is parsed with ``star_as_zero_prob=True``, so a ``*`` transition is
+    impossible, not the reference parser's exp(-0) = 1."""
+    hmm = parse_hmm(args.hmm, star_as_zero_prob=True)
+    if args.consensus:
+        seqs = [consensus_string(P7Profile.from_profile(hmm))]
+        names = [f"{hmm.name}-consensus"]
+    else:
+        seqs = [decode_sequence(t) for t in sample_sequences(hmm, args.count, args.seed)]
+        names = [f"{hmm.name}-sample{i + 1}" for i in range(len(seqs))]
+    records = [FastaRecord(n, s) for n, s in zip(names, seqs)]
+    if args.out:
+        write_fasta(args.out, records, args.width)
+        print(f"wrote {len(records)} sequence(s) to {args.out}")
+    else:
+        write_fasta(sys.stdout, records, args.width)
+    return 0
+
+
+def cmd_generate(args) -> int:
+    """A random protein FASTA corpus (``io.generate``)."""
+    write_fasta(args.out, generate_records(args.count, args.length, args.seed), args.width)
+    print(f"wrote {args.count} x {args.length} aa to {args.out}")
+    return 0
+
+
 def _add_common(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--fasta", required=True, help="protein FASTA database")
     ap.add_argument(
@@ -816,6 +1111,15 @@ def _add_common(ap: argparse.ArgumentParser) -> None:
         help="data loader: native C++ fast path or pure-Python parsers",
     )
     ap.add_argument("--out", default=None, help="write results to FILE instead of stdout")
+    ap.add_argument(
+        "--config", default=None, metavar="FILE",
+        help="EngineConfig JSON: the cascade thresholds (msv_p, viterbi_p, forward_p) "
+        "and m_bucket",
+    )
+    ap.add_argument(
+        "--profile-trace", default=None, metavar="DIR",
+        help="write a torch.profiler trace of a whole-file scan into DIR",
+    )
 
 
 _FAST_HELP = ("search stage: bf16 upper-bound MSV + Viterbi prefilters "
@@ -850,6 +1154,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--domains", action="store_true",
         help="search stage: posterior-decode an alignment envelope per hit",
     )
+    scan.add_argument(
+        "--align", action="store_true",
+        help="search stage: report per-domain Viterbi alignments (host-side traceback of "
+        "each hit)",
+    )
+    scan.add_argument(
+        "--msa-out", default=None, metavar="FILE",
+        help="with --align: write one Stockholm MSA of all hit domains (the hmmsearch -A "
+        "product)",
+    )
     scan.add_argument("--bucketed", action="store_true", help=_BUCKETED_HELP)
     _add_stream(scan, "search keeping only the MSV survivors between batches")
     _add_common(scan)
@@ -883,6 +1197,72 @@ def build_parser() -> argparse.ArgumentParser:
     _add_stream(sweep, "one database pass scanning every profile a batch")
     _add_common(sweep)
     sweep.set_defaults(fn=cmd_sweep)
+
+    aln = sub.add_parser("align", help="Viterbi-align every FASTA sequence to one profile")
+    aln.add_argument("--hmm", required=True, help="HMMER3 .hmm profile")
+    aln.add_argument("--fasta", required=True, help="protein FASTA")
+    aln.add_argument(
+        "--format", default="tsv", choices=["tsv", "json", "stockholm"],
+        help="tsv: hmmsearch-style blocks; stockholm: one MSA over all domains (the "
+        "hmmalign/hmmsearch -A product)",
+    )
+    aln.add_argument("--out", default=None)
+    aln.add_argument("--loader", default="auto", choices=["auto", "native", "python"])
+    aln.add_argument(
+        "--stream", type=int, default=0, metavar="N",
+        help="stream the FASTA in batches of N records (bounded host memory)",
+    )
+    aln.set_defaults(fn=cmd_align)
+
+    inf = sub.add_parser(
+        "info", help="profile summary: NAME/LENG/STATS per .hmm (hmmstat-shaped)"
+    )
+    inf.add_argument("--hmm", default=None, help="one HMMER3 .hmm profile")
+    inf.add_argument("--hmm-dir", default=None, help="a profile directory")
+    inf.add_argument("--hmm-db", default=None, metavar="FILE",
+                     help="a concatenated //-separated .hmm database")
+    inf.add_argument("--consensus", action="store_true",
+                     help="also emit the model consensus string per profile")
+    inf.add_argument("--format", default="tsv", choices=["tsv", "json"])
+    inf.add_argument("--out", default=None)
+    inf.add_argument("--loader", default="auto", choices=["auto", "native", "python"])
+    inf.set_defaults(fn=cmd_info)
+
+    bld = sub.add_parser(
+        "build", help="build + calibrate a profile from an MSA (hmmbuild-shaped)"
+    )
+    bld.add_argument("--msa", required=True, help="Stockholm (RF-annotated) or aligned FASTA")
+    bld.add_argument("--out", required=True, help="output .hmm path")
+    bld.add_argument("--name", default=None, help="profile NAME (default: MSA file stem)")
+    bld.add_argument("--seed", type=int, default=0, help="calibration simulation seed")
+    bld.add_argument(
+        "--weighting", default="pb", choices=["pb", "none"],
+        help="sequence weighting: Henikoff position-based (H3 default) or uniform",
+    )
+    bld.add_argument(
+        "--device", default="cuda",
+        help="torch device of the calibration: cuda (the kernels) or cpu (their plain "
+        "versions)",
+    )
+    bld.set_defaults(fn=cmd_build)
+
+    emt = sub.add_parser("emit", help="sample sequences from a profile (hmmemit-shaped)")
+    emt.add_argument("--hmm", required=True, help="HMMER3 .hmm profile")
+    emt.add_argument("--count", type=int, default=10)
+    emt.add_argument("--seed", type=int, default=None)
+    emt.add_argument("--consensus", action="store_true",
+                     help="emit the consensus sequence instead of stochastic samples")
+    emt.add_argument("--out", default=None, help="write FASTA to a file")
+    emt.add_argument("--width", type=int, default=70)
+    emt.set_defaults(fn=cmd_emit)
+
+    gen = sub.add_parser("generate", help="generate a random protein FASTA corpus")
+    gen.add_argument("--out", default="random_FASTA.fsa")
+    gen.add_argument("--count", type=int, default=3)
+    gen.add_argument("--length", type=int, default=3500)
+    gen.add_argument("--seed", type=int, default=None)
+    gen.add_argument("--width", type=int, default=70)
+    gen.set_defaults(fn=cmd_generate)
     return ap
 
 

@@ -61,6 +61,7 @@ from .models.msv import MSVProfile, length_transitions
 from .models.p7 import P7Profile
 
 from .ops import msv_cuda, p7_cuda
+from .runtime.profiling import phase
 
 # M row padding of the port's profile packs and carries (as the JAX XLA
 # path's); the kernel pads further to its lane tile internally
@@ -683,12 +684,13 @@ class SearchPipeline:
         are the host arrays the survivor subsets are restaged from."""
         msv_profile, p7 = self._derived(hmm)
         t0 = time.perf_counter()
-        if self.fast_msv:
-            # a copy: the candidates' exact scores are written into it
-            msv_scores = self.scanner.scan_filter(msv_profile, staged).cpu().numpy().copy()
-            self._rescore_candidates(hmm, msv_profile, msv_scores, tokens, lengths)
-        else:
-            msv_scores = self.scanner.scan(msv_profile, staged).cpu().numpy()
+        with phase("msv"):
+            if self.fast_msv:
+                # a copy: the candidates' exact scores are written into it
+                msv_scores = self.scanner.scan_filter(msv_profile, staged).cpu().numpy().copy()
+                self._rescore_candidates(hmm, msv_profile, msv_scores, tokens, lengths)
+            else:
+                msv_scores = self.scanner.scan(msv_profile, staged).cpu().numpy()
         self.phase_seconds = {"msv": time.perf_counter() - t0, "viterbi": 0.0, "forward": 0.0}
         return self._finish_cascade(hmm, p7, msv_scores, tokens, lengths)
 
@@ -701,11 +703,12 @@ class SearchPipeline:
         restage survivors as :meth:`search` does."""
         msv_profile, p7 = self._derived(hmm)
         t0 = time.perf_counter()
-        msv_scores = self.scanner.scan_bucketed(
-            msv_profile, bucketed, mode="filter" if self.fast_msv else "exact"
-        )
-        if self.fast_msv:
-            self._rescore_candidates(hmm, msv_profile, msv_scores, tokens, lengths)
+        with phase("msv"):
+            msv_scores = self.scanner.scan_bucketed(
+                msv_profile, bucketed, mode="filter" if self.fast_msv else "exact"
+            )
+            if self.fast_msv:
+                self._rescore_candidates(hmm, msv_profile, msv_scores, tokens, lengths)
         self.phase_seconds = {"msv": time.perf_counter() - t0, "viterbi": 0.0, "forward": 0.0}
         return self._finish_cascade(hmm, p7, msv_scores, tokens, lengths)
 
@@ -741,7 +744,8 @@ class SearchPipeline:
 
         def _p7_stage(sel: np.ndarray, stage: str) -> np.ndarray:
             t0 = time.perf_counter()
-            out = self.scanner.scan_p7(p7, _stage_subset(sel), stage=stage).cpu().numpy()
+            with phase(stage):
+                out = self.scanner.scan_p7(p7, _stage_subset(sel), stage=stage).cpu().numpy()
             self.phase_seconds[stage] += time.perf_counter() - t0
             return out
 
@@ -751,7 +755,8 @@ class SearchPipeline:
                 # the filter's p-values bound the exact ones from below: a
                 # filter rejection is an exact rejection
                 t0 = time.perf_counter()
-                vf = self.scanner.scan_p7_filter(p7, _stage_subset(idx)).cpu().numpy()
+                with phase("viterbi"):
+                    vf = self.scanner.scan_p7_filter(p7, _stage_subset(idx)).cpu().numpy()
                 self.phase_seconds["viterbi"] += time.perf_counter() - t0
                 vit_scores[idx] = vf
                 vit_pv[idx] = stats.viterbi_pvalue(vf, hmm)

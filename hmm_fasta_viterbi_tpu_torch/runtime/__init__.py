@@ -1,1 +1,2 @@
-"""runtime subpackage: the section timer and resumable checkpointed sweeps."""
+"""runtime subpackage: the engine configuration, the profiler trace and
+section timer, and resumable checkpointed sweeps."""

@@ -77,8 +77,9 @@ def test_only_msv_stage():
 def test_fast_and_sweep_flags():
     """scan takes --fast, --bucketed and --stream N; sweep takes --hmm-dir
     or --hmm-db, --stage msv|search, --fast, --bucketed, --stream N and
-    --checkpoint DIR [--checkpoint-shard N], with the common flags; neither
-    offers the flags of later slices."""
+    --checkpoint DIR [--checkpoint-shard N], with the common flags (--config
+    and --profile-trace among them); neither offers the flags of later
+    slices (--mesh, --fused)."""
     parser = port_cli.build_parser()
     base = ["scan", "--hmm", "x.hmm", "--fasta", "y.fsa"]
     assert parser.parse_args([*base, "--stage", "search", "--fast"]).fast
@@ -99,6 +100,9 @@ def test_fast_and_sweep_flags():
     sweep = parser.parse_args(["sweep", "--hmm-dir", "d", "--fasta", "y.fsa"])
     assert (sweep.bucketed, sweep.stream, sweep.checkpoint, sweep.checkpoint_shard) == (
         False, 0, None, 4096)
-    for flag in (["--mesh", "4"], ["--config", "c.json"], ["--stage", "viterbi"]):
+    sweep = parser.parse_args(["sweep", "--hmm-dir", "d", "--fasta", "y.fsa", "--config",
+                               "c.json", "--profile-trace", "t"])
+    assert (sweep.config, sweep.profile_trace) == ("c.json", "t")
+    for flag in (["--mesh", "4"], ["--fused"], ["--stage", "viterbi"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["sweep", "--hmm-dir", "d", "--fasta", "y.fsa", *flag])

@@ -20,6 +20,8 @@ JAX_PACKAGE = "hmm_fasta_viterbi_tpu"
 
 _NO_JAX = """
 import sys
+import torch
+torch.set_num_threads(1)  # the suite's workers share the cores
 import chip_smoke
 import hmm_fasta_viterbi_tpu_torch
 import hmm_fasta_viterbi_tpu_torch.__main__
@@ -44,6 +46,22 @@ assert cli.main(["scan", "--device", "cpu", "--stream", "2", "--hmm", sys.argv[1
 for flags in (["--bucketed"], ["--checkpoint", sys.argv[3] + ".ckpt"]):
     assert cli.main(["sweep", "--device", "cpu", "--hmm-db", sys.argv[1], "--fasta",
                      sys.argv[2], *flags, "--out", sys.argv[3] + ".sweep" + flags[0]]) == 0
+cfg = sys.argv[3] + ".cfg.json"
+open(cfg, "w").write('{"msv_p": 0.05}')
+assert cli.main(["scan", "--device", "cpu", "--stage", "search", "--align", "--msa-out",
+                 sys.argv[3] + ".sto", "--config", cfg, "--profile-trace", sys.argv[3] + ".trace",
+                 "--hmm", sys.argv[1], "--fasta", sys.argv[4],
+                 "--out", sys.argv[3] + ".align"]) == 0
+assert cli.main(["emit", "--hmm", sys.argv[1], "--count", "4", "--seed", "1",
+                 "--out", sys.argv[3] + ".emit"]) == 0
+assert cli.main(["align", "--hmm", sys.argv[1], "--fasta", sys.argv[3] + ".emit", "--format",
+                 "stockholm", "--out", sys.argv[3] + ".emit.sto"]) == 0
+assert cli.main(["build", "--device", "cpu", "--msa", sys.argv[3] + ".emit.sto",
+                 "--out", sys.argv[3] + ".built.hmm"]) == 0
+assert cli.main(["info", "--hmm", sys.argv[3] + ".built.hmm", "--consensus",
+                 "--out", sys.argv[3] + ".info"]) == 0
+assert cli.main(["generate", "--seed", "1", "--count", "2", "--length", "30",
+                 "--out", sys.argv[3] + ".gen"]) == 0
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "hmm_fasta_viterbi_tpu" or m.startswith("hmm_fasta_viterbi_tpu."))
 assert not loaded, loaded
@@ -54,8 +72,9 @@ def test_port_and_chip_smoke_import_no_jax(profile_dir, fasta_dir, tmp_path):
     """In a fresh interpreter: import the port, its CLI and chip_smoke.py,
     run a CPU scan, a CPU search with and without --fast, a CPU search with
     --domains on a consensus hit, CPU sweeps, a streamed scan, a bucketed
-    and a checkpointed sweep, and find no jax module and no module of the
-    JAX package loaded."""
+    and a checkpointed sweep, a search with --align, --msa-out, --config
+    and --profile-trace, and emit, align, build, info and generate, and
+    find no jax module and no module of the JAX package loaded."""
     from hmm_fasta_viterbi_tpu_torch import parse_hmm
     from hmm_fasta_viterbi_tpu_torch.io.alphabet import AMINO_ACIDS
 
@@ -84,6 +103,13 @@ def test_port_and_chip_smoke_import_no_jax(profile_dir, fasta_dir, tmp_path):
     assert (tmp_path / "out.tsv.sweep--bucketed").read_bytes() == whole
     assert (tmp_path / "out.tsv.sweep--checkpoint").read_bytes() == whole
     assert list((tmp_path / "out.tsv.ckpt").glob("*.shard00000.npz"))
+    assert "\n== consensus domain 1 [hmm 1-100 / seq 1-100]" in (
+        tmp_path / "out.tsv.align").read_text()
+    assert (tmp_path / "out.tsv.sto").read_text().startswith("# STOCKHOLM 1.0")
+    assert len(list((tmp_path / "out.tsv.trace").glob("*.pt.trace.json"))) == 1
+    assert (tmp_path / "out.tsv.built.hmm").read_text().startswith("HMMER3/b")
+    assert (tmp_path / "out.tsv.info").read_text().count("\n") == 2
+    assert (tmp_path / "out.tsv.gen").read_text().count(">") == 2
 
 
 def _jax_package_imports(path: pathlib.Path) -> list[str]:
@@ -110,9 +136,12 @@ def test_no_file_of_the_port_imports_the_jax_package():
     assert len(files) > 20
     assert {f.name for f in files} >= {"hmmio.py", "loader.py", "reference.py", "stats.py",
                                        "posterior_cuda.py", "chip_smoke.py",
-                                       "torch_p7_timing.py", "torch_msv_timing.py"}
+                                       "torch_p7_timing.py", "torch_msv_timing.py",
+                                       "traceback.py", "msaio.py", "hmmwrite.py", "build.py",
+                                       "generate.py", "config.py"}
     runtime = sorted((PORT_DIR / "runtime").glob("*.py"))
-    assert {f.name for f in runtime} == {"__init__.py", "checkpoint.py", "profiling.py"}
+    assert {f.name for f in runtime} == {"__init__.py", "checkpoint.py", "config.py",
+                                         "profiling.py"}
     assert set(runtime) <= set(files)
     bad = {str(f.relative_to(REPO_ROOT)): _jax_package_imports(f) for f in files}
     assert not {k: v for k, v in bad.items() if v}
