@@ -156,7 +156,30 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    on the same batch); `scan --stage search --domains --profile-trace DIR`
    (the kernels' device events under their symbol names, every phase
    labelled, the device busy share of the labelled window printed); `info
-   --hmm-dir --consensus`, `emit` and `generate` once each.
+   --hmm-dir --consensus`, `emit` and `generate` once each;
+13. the device mesh (the card's count, name and power limit first), each
+   path with every launch count set to 0 just before it and read just
+   after: MSVScanner(mesh=) on a db = MESH_DB mesh naming the card
+   MESH_DB times, on phase 9's database, every stage (B1, B2, B3 over the
+   24 profiles; B7, B4 on 1400.hmm without e_skip_d, B5 and B6 on its
+   first STAGE_BATCH rows; B9 and B10 through posterior_coverage_batch(
+   mesh=)) equal to the single-device scanner's bit for bit, and
+   top_k_hits equal to torch.topk; the sp wavefront (db = 1 and db = 2,
+   sp = MESH_SP) on phase 11's skewed database with PLANTED homologs of
+   1400.hmm: MSV, Viterbi (lazy, and eager without e_skip_d; db = 1) and
+   Forward (db = 1) equal to one call, SeqblockScanner under SearchPipeline
+   the single-device search field for field, every homolog a hit; the
+   CLI: `scan --mesh db=1`, `--mesh all`, `--config` with use_mesh,
+   `--stage search --domains --mesh db=1`, `sweep --mesh db=1`, `scan
+   --stream 4096 --mesh db=1`, each byte-equal to its meshless report,
+   and `--mesh db=2` exit 2 on one card (byte-equal on two or more);
+   parallel.dryrun.dryrun_multichip(8); best-of-3 times of the one-card
+   db mesh against the single scanner (B1, the --domains search) and of
+   the sp wavefront against one call (B1, B7, B5), with their launches;
+14. fuzzed profiles (FUZZ_SEEDS of the JAX suite's generator, the port's
+   copy models/fuzz.py) through every kernel against its plain version on
+   a ragged batch (B1-B10, B4 and B6 also without e_skip_d, B3 over all
+   of them).
 
 Prints a JSON line about the kernels (every case, the wide ones as
 `<kernel>_wide`, the rows-in-memory ones as `<kernel>_mem`), then the card's
@@ -194,7 +217,14 @@ from hmm_fasta_viterbi_tpu_torch import cli, convert
 from hmm_fasta_viterbi_tpu_torch.io.loader import load_fasta
 from hmm_fasta_viterbi_tpu_torch.io.msaio import read_msa
 from hmm_fasta_viterbi_tpu_torch.models.build import calibrate_profile
+from hmm_fasta_viterbi_tpu_torch.models.fuzz import random_profile
 from hmm_fasta_viterbi_tpu_torch.ops import _build, msv_cuda, p7_cuda, posterior_cuda
+from hmm_fasta_viterbi_tpu_torch.parallel.database import top_k_hits
+from hmm_fasta_viterbi_tpu_torch.parallel.dryrun import dryrun_multichip
+from hmm_fasta_viterbi_tpu_torch.parallel.mesh import make_scan_mesh
+from hmm_fasta_viterbi_tpu_torch.parallel.seqblocks import (
+    SeqblockScanner, block_length, msv_scan_seqblocks, p7_scan_seqblocks,
+)
 from hmm_fasta_viterbi_tpu_torch.pipeline import SearchPipeline, forward_scores, viterbi_scores
 from hmm_fasta_viterbi_tpu_torch.runtime import profiling
 
@@ -266,6 +296,15 @@ MU_TOL, TAU_TOL = 1e-3, 5e-3
 CONFIG_MSV_P = 0.05
 # the kernels build's calibration runs (B1, B4, B8)
 CALIBRATION_KERNELS = ("msv_scan", "viterbi_scan", "forward_log_scan")
+# phase 13: the db axis of the one-card mesh ([cuda:0] * 4), and the sp
+# axis of the wavefront meshes (db = 1 and db = 2)
+MESH_DB, MESH_SP = 4, 4
+# phase 14: (seed, LENG bound) of tests/test_fuzz_differential.py's
+# profiles (MSV 100-102 below 60, p7 200-201 and filter 300-301 below 40,
+# posterior 400 below 30) and the ragged batch they run on
+FUZZ_SEEDS = ((100, 60), (101, 60), (102, 60), (200, 40), (201, 40), (300, 40), (301, 40),
+              (400, 30))
+FUZZ_BATCH, FUZZ_LEN = 32, 300
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): FP32 outside the
 # tensor cores and HBM3 bandwidth, for each kernel's bound
@@ -2074,15 +2113,30 @@ def streamed_paths(db: pathlib.Path, fasta: pathlib.Path, planted) -> None:
             require(not missed, f"streamed --domains: planted rows not hits: {missed}")
 
 
-def write_skewed_database(path: pathlib.Path) -> np.ndarray:
-    """SKEW_BATCH random sequences with lengths from a seeded lognormal
-    (median SKEW_MEDIAN, sigma SKEW_SIGMA) clipped to SKEW_CLIP; returns
-    the lengths."""
+def skewed_residues() -> tuple[np.ndarray, np.ndarray]:
+    """The length-skewed database: SKEW_BATCH lengths from a seeded
+    lognormal (median SKEW_MEDIAN, sigma SKEW_SIGMA) clipped to SKEW_CLIP,
+    and all their residues (tokens), one sequence after the other."""
     rng = np.random.default_rng(SEED + 11)
     lengths = np.clip(np.round(rng.lognormal(math.log(SKEW_MEDIAN), SKEW_SIGMA, SKEW_BATCH)),
                       *SKEW_CLIP).astype(np.int64)
-    letters = np.frombuffer(AMINO_ACIDS.encode(), dtype=np.uint8)[
-        rng.integers(0, 20, size=int(lengths.sum()))].tobytes().decode()
+    return lengths, rng.integers(0, 20, size=int(lengths.sum()))
+
+
+def skewed_batch() -> tuple[np.ndarray, np.ndarray]:
+    """The length-skewed database as an int8 ``[B, L_max]`` batch and its
+    int32 lengths."""
+    lengths, residues = skewed_residues()
+    tokens = np.zeros((len(lengths), int(lengths.max())), dtype=np.int8)
+    tokens[np.arange(tokens.shape[1])[None, :] < lengths[:, None]] = residues
+    return tokens, lengths.astype(np.int32)
+
+
+def write_skewed_database(path: pathlib.Path) -> np.ndarray:
+    """The length-skewed database (:func:`skewed_residues`) as a FASTA
+    file; returns the lengths."""
+    lengths, residues = skewed_residues()
+    letters = np.frombuffer(AMINO_ACIDS.encode(), dtype=np.uint8)[residues].tobytes().decode()
     ends = np.cumsum(lengths)
     write_fasta(path, [FastaRecord(f"seq{i}", letters[e - n: e])
                        for i, (n, e) in enumerate(zip(lengths, ends))])
@@ -2452,6 +2506,365 @@ def subcommand_paths(tmp: pathlib.Path) -> None:
     host_commands(tmp)
 
 
+# -- the device mesh (phase 13) -----------------------------------------------
+
+def mesh_of(db: int, sp: int = 1):
+    """A (db, sp) mesh over one card named db * sp times."""
+    return make_scan_mesh(db=db, sp=sp, devices=[torch.device(DEVICE)] * (db * sp))
+
+
+def require_same_scores(got, want, what: str) -> float:
+    """Two score vectors (tensors or host arrays) equal bit for bit."""
+    got, want = (torch.as_tensor(np.asarray(x.cpu() if torch.is_tensor(x) else x))
+                 for x in (got, want))
+    return require_equal([got], [want], what)
+
+
+def db_mesh_stages(tokens, lengths, scanner, errors: dict) -> None:
+    """Every stage of MSVScanner(mesh=) on a db = MESH_DB mesh of one card,
+    against the single-device scanner bit for bit, launch counts zeroed
+    just before the mesh's run and read just after: B1, B2 and B3 (the 24
+    profiles) on the whole database, B7, B4 (1400.hmm without e_skip_d), B5
+    and B6 on its first STAGE_BATCH rows, B9 and B10 (the posterior decode
+    of POST_TIME_BATCH rows of POST_TIME_LEN residues); top_k_hits against
+    torch.topk of the single scanner's scores."""
+    mesh = mesh_of(MESH_DB)
+    msc = MSVScanner(mesh=mesh)
+    prof, p7 = profile("1400"), p7_profile("1400")
+    eager = without_e_skip_d(p7, "tdd")
+    profs = [profile(stem) for stem in stems()]
+    sub = slice(0, STAGE_BATCH)
+    post = (tokens[:POST_TIME_BATCH, :POST_TIME_LEN],
+            np.minimum(lengths[:POST_TIME_BATCH], POST_TIME_LEN))
+    stages = {
+        "msv_scan": (lambda sc, st, st7: sc.scan(prof, st), "full"),
+        "msv_filter_scan": (lambda sc, st, st7: sc.scan_filter(prof, st), "full"),
+        "msv_stacked_scan": (lambda sc, st, st7: sc.scan_many(profs, st), "full"),
+        "viterbi_lazy_scan": (lambda sc, st, st7: sc.scan_p7(p7, st7, "viterbi"), "stage"),
+        "viterbi_scan": (lambda sc, st, st7: sc.scan_p7(eager, st7, "viterbi"), "stage"),
+        "forward_prob_scan": (lambda sc, st, st7: sc.scan_p7(p7, st7, "forward"), "stage"),
+        "viterbi_filter_scan": (lambda sc, st, st7: sc.scan_p7_filter(p7, st7), "stage"),
+    }
+    staged = {"mesh": (msc.stage(tokens, lengths), msc.stage(tokens[sub], lengths[sub])),
+              "one": (scanner.stage(tokens, lengths), scanner.stage(tokens[sub], lengths[sub]))}
+    print(f"db mesh: {mesh.shape} over {[str(d) for row in mesh.devices for d in row]}; "
+          f"{len(staged['mesh'][0].shards)} shards of "
+          f"{[r.stop - r.start for r in staged['mesh'][0].rows]} rows")
+    for name, (scan, rows) in stages.items():
+        torch.cuda.synchronize()
+        zero_launches()
+        got = scan(msc, *staged["mesh"])
+        torch.cuda.synchronize()
+        counts = launches()
+        want = scan(scanner, *staged["one"])
+        require(counts[name] >= MESH_DB, f"db mesh {name}: {counts[name]} launches for "
+                                         f"{MESH_DB} shards")
+        if isinstance(got, dict):
+            err = max(require_same_scores(got[p.name], want[p.name], f"db mesh {name} {p.name}")
+                      for p in profs)
+        else:
+            err = require_same_scores(got, want, f"db mesh {name}")
+        errors[name] = max(errors[name], err)
+        n = BATCH if rows == "full" else STAGE_BATCH
+        print(f"db mesh {name}: {n} x {SEQ_LEN} == the single-device scanner (max|d|={err}); "
+              f"launches {nonzero(counts)}")
+    zero_launches()
+    cov, tot = posterior_cuda.posterior_coverage_batch(p7, *post, mesh=mesh)
+    counts = launches()
+    cov1, tot1 = posterior_cuda.posterior_coverage_batch(p7, *post, device=DEVICE)
+    for name in ("forward_save_scan", "backward_coverage_scan"):
+        require(counts[name] >= MESH_DB, f"db mesh posterior: {counts[name]} {name} launches")
+    err = max(require_same_scores(tot, tot1, "db mesh posterior totals"),
+              require_equal([torch.from_numpy(cov)], [torch.from_numpy(cov1)],
+                            "db mesh posterior coverage"))
+    errors["backward_coverage_scan"] = max(errors["backward_coverage_scan"], err)
+    print(f"db mesh posterior_coverage_batch(mesh=): {POST_TIME_BATCH} x {POST_TIME_LEN} == "
+          f"the single device (coverage and totals, max|d|={err}); launches {nonzero(counts)}")
+    scores = msc.scan(prof, staged["mesh"][0])
+    vals, idx = top_k_hits(scores, PLANTED)
+    want_vals, want_idx = torch.topk(scanner.scan(prof, staged["one"][0]), PLANTED)
+    require(torch.equal(vals.cpu(), want_vals.cpu()) and torch.equal(idx.cpu(), want_idx.cpu()),
+            "top_k_hits of the mesh's scores != torch.topk of the single device's")
+    print(f"top_k_hits(k={PLANTED}) on the mesh's scores == torch.topk of the single scanner's")
+
+
+def sp_wavefront(scanner, errors: dict) -> None:
+    """The sp wavefront on the length-skewed database (phase 11's), on a
+    db = 1, sp = MESH_SP mesh and a db = 2, sp = MESH_SP one of one card,
+    against the single-device scanner, launch counts zeroed just before
+    each wavefront and read just after: MSV (B1), Viterbi (B7, and B4
+    without e_skip_d; db = 1) bit for bit, Forward (B5; db = 1) bit for
+    bit and within FWD_TOL; SeqblockScanner under SearchPipeline gives the
+    single-device search's result field for field, every one of PLANTED
+    homologs of 1400.hmm planted in the database a hit."""
+    tokens, lengths = skewed_batch()
+    hmm = parse_hmm(PROFILES / "1400.hmm")
+    planted = np.arange(PLANTED) * (len(lengths) // PLANTED) + 7
+    for row, seq in zip(planted, sample_sequences(hmm, PLANTED, seed=SEED + 13)):
+        seq = seq[: tokens.shape[1]]
+        tokens[row, : len(seq)] = seq
+        lengths[row] = len(seq)
+    staged = scanner.stage(tokens, lengths)
+    prof, p7 = profile("1400"), p7_profile("1400")
+    eager = without_e_skip_d(p7, "tdd")
+    one = {"msv_scan": scanner.scan(prof, staged),
+           "viterbi_lazy_scan": scanner.scan_p7(p7, staged, "viterbi"),
+           "viterbi_scan": scanner.scan_p7(eager, staged, "viterbi"),
+           "forward_prob_scan": scanner.scan_p7(p7, staged, "forward")}
+    want = SearchPipeline(scanner).search(hmm, staged, tokens, lengths)
+    runs = {"msv_scan": lambda mesh: msv_scan_seqblocks(prof, tokens, lengths, mesh),
+            "viterbi_lazy_scan": lambda mesh: p7_scan_seqblocks(p7, tokens, lengths, mesh),
+            "viterbi_scan": lambda mesh: p7_scan_seqblocks(eager, tokens, lengths, mesh),
+            "forward_prob_scan": lambda mesh: p7_scan_seqblocks(p7, tokens, lengths, mesh,
+                                                                "forward")}
+    blk = block_length(tokens.shape[1], MESH_SP)
+    print(f"sp wavefront: the skewed database, {len(lengths)} rows up to {tokens.shape[1]} "
+          f"residues, {PLANTED} homologs of 1400.hmm planted; blocks of {blk} residues (a "
+          f"multiple of FWD_RESCALE_GROUP {p7_cuda.FWD_RESCALE_GROUP})")
+    for db in (1, 2):
+        mesh = mesh_of(db, MESH_SP)
+        # db = 2 repeats the MSV wavefront; its search runs the p7 ones
+        for name, run in (runs.items() if db == 1 else [("msv_scan", runs["msv_scan"])]):
+            torch.cuda.synchronize()
+            zero_launches()
+            got = run(mesh)
+            counts = launches()
+            require(counts[name] >= MESH_SP, f"sp wavefront {name}: {counts[name]} launches")
+            err = max_abs_diff(torch.from_numpy(got), one[name].cpu())
+            if name == "forward_prob_scan":
+                require(err <= FWD_TOL, f"sp wavefront Forward: max |d| {err} > {FWD_TOL}")
+            require_same_scores(got, one[name], f"sp wavefront {name} db={db}")
+            errors[name] = max(errors[name], err)
+            print(f"sp wavefront {name} {mesh.shape}: == one call (max|d|={err}); launches "
+                  f"{nonzero(counts)}")
+        sb = SeqblockScanner(mesh)
+        zero_launches()
+        got = SearchPipeline(sb).search(hmm, sb.stage(tokens, lengths), tokens, lengths)
+        counts = launches()
+        for field in ("msv_scores", "viterbi_scores", "forward_scores", "passed_msv",
+                      "passed_viterbi", "passed_forward"):
+            require(np.array_equal(getattr(got, field), getattr(want, field), equal_nan=True),
+                    f"sp search {mesh.shape}: {field} differs from the single device's")
+        missed = sorted(set(planted.tolist()) - set(got.hits.tolist()))
+        require(not missed, f"sp search {mesh.shape}: planted rows not hits: {missed}")
+        print(f"sp search {mesh.shape}: {int(got.passed_msv.sum())} past MSV, "
+              f"{int(got.passed_viterbi.sum())} past Viterbi, {int(got.passed_forward.sum())} "
+              f"hits, the single device's result field for field; launches {nonzero(counts)}")
+
+
+def mesh_cli(tmp: pathlib.Path) -> None:
+    """The CLI with --mesh on phase 9's database, each report byte-equal to
+    its meshless report of phase 9 (or 11), launch counts zeroed around
+    each run: `scan --mesh db=1`, `--mesh all`, `--config` with use_mesh
+    (mesh_db 1, the search), `scan --stage search --domains --mesh db=1`,
+    `sweep --mesh db=1`, `scan --stream 4096 --mesh db=1`; `--mesh db=2`
+    exits 2 on one card and is byte-equal on two or more."""
+    fasta, hmm = str(tmp / "headline.fsa"), str(PROFILES / "1400.hmm")
+    cfg = tmp / "mesh_engine.json"
+    cfg.write_text(json.dumps({"use_mesh": True, "mesh_db": 1}))
+    runs = [
+        ("scan --mesh db=1", ["scan", "--hmm", hmm, "--mesh", "db=1"], "scan.tsv"),
+        ("scan --mesh all", ["scan", "--hmm", hmm, "--mesh", "all"], "scan.tsv"),
+        ("scan --stage search --config use_mesh",
+         ["scan", "--stage", "search", "--hmm", hmm, "--config", str(cfg)], "search.tsv"),
+        ("scan --stage search --domains --mesh db=1",
+         ["scan", "--stage", "search", "--domains", "--hmm", hmm, "--mesh", "db=1"],
+         "domains.tsv"),
+        ("sweep --mesh db=1", ["sweep", "--hmm-dir", str(PROFILES), "--mesh", "db=1"],
+         "sweep.tsv"),
+        ("scan --stream 4096 --mesh db=1",
+         ["scan", "--hmm", hmm, "--stream", str(STREAM_BATCH), "--mesh", "db=1"], "scan.tsv"),
+    ]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("scan --mesh db=2", ["scan", "--hmm", hmm, "--mesh", "db=2"], "scan.tsv"))
+    for label, argv, phase9 in runs:
+        out = tmp / "mesh_cli.tsv"
+        got, e2e, secs, messages = run_cli_logged([*argv, "--fasta", fasta, "--device", DEVICE,
+                                                   "--out", str(out)])
+        require(out.read_bytes() == (tmp / phase9).read_bytes(),
+                f"{label}: the report differs from the meshless {phase9}")
+        mesh_line = next((m for m in messages if m.startswith("mesh: ")), None)
+        require(mesh_line is not None, f"{label}: no mesh line")
+        print(f"CLI {label}: report byte-equal to the meshless {phase9}; {mesh_line}; "
+              f"launches {nonzero(got)}; end to end {e2e:.3f} s")
+        if secs is not None:
+            print_seconds(f"  {label}", secs, e2e)
+    if torch.cuda.device_count() < 2:
+        rc = cli.main(["scan", "--hmm", hmm, "--fasta", fasta, "--device", DEVICE, "--mesh",
+                       "db=2", "--out", str(tmp / "mesh_cli.tsv")])
+        require(rc == 2, f"scan --mesh db=2 on one card exited {rc}, expected 2")
+        print("CLI scan --mesh db=2 on one card: exit 2 (the mesh needs more cards than "
+              "are visible)")
+
+
+def mesh_timings(tokens, lengths, scanner) -> None:
+    """Best of 3 by CUDA events: the db = MESH_DB one-card mesh against the
+    single scanner for B1 on the whole database and for the --domains
+    search (the cascade and the decode of its hits); the sp = MESH_SP
+    wavefront against one call of B1, B7 and B5 on the skewed database,
+    launches counted over one run."""
+    mesh = mesh_of(MESH_DB)
+    msc = MSVScanner(mesh=mesh)
+    prof, p7 = profile("1400"), p7_profile("1400")
+    hmm = parse_hmm(PROFILES / "1400.hmm")
+    staged_m, staged_1 = msc.stage(tokens, lengths), scanner.stage(tokens, lengths)
+
+    def domains_search(sc, staged, where):
+        res = SearchPipeline(sc).search(hmm, staged, tokens, lengths)
+        hits = res.hits
+        l_max = max(int(lengths[hits].max()), 1) if hits.size else 1
+        posterior_cuda.posterior_coverage_batch(p7, tokens[hits, :l_max], lengths[hits],
+                                                mask_threshold=0.5, **where)
+
+    card = nvidia_smi("name,power.limit")
+    for label, mesh_fn, one_fn in (
+        ("B1 scan", lambda: msc.scan(prof, staged_m), lambda: scanner.scan(prof, staged_1)),
+        ("--domains search", lambda: domains_search(msc, staged_m, {"mesh": mesh}),
+         lambda: domains_search(scanner, staged_1, {"device": DEVICE})),
+    ):
+        one_ms, mesh_ms = best_ms(one_fn, 3), best_ms(mesh_fn, 3)
+        zero_launches()
+        mesh_fn()
+        torch.cuda.synchronize()
+        counts = nonzero(launches())
+        print(f"mesh timing {label} {BATCH} x {SEQ_LEN} x 1400.hmm: single scanner "
+              f"{one_ms:.3f} ms, db={MESH_DB} one-card mesh {mesh_ms:.3f} ms "
+              f"({mesh_ms - one_ms:+.3f} ms), mesh launches {counts} [{card}]")
+    tokens_s, lengths_s = skewed_batch()
+    staged_s = scanner.stage(tokens_s, lengths_s)
+    sp_mesh = mesh_of(1, MESH_SP)
+    for name, one_fn, sp_fn in (
+        ("msv_scan", lambda: scanner.scan(prof, staged_s),
+         lambda: msv_scan_seqblocks(prof, tokens_s, lengths_s, sp_mesh)),
+        ("viterbi_lazy_scan", lambda: scanner.scan_p7(p7, staged_s, "viterbi"),
+         lambda: p7_scan_seqblocks(p7, tokens_s, lengths_s, sp_mesh)),
+        ("forward_prob_scan", lambda: scanner.scan_p7(p7, staged_s, "forward"),
+         lambda: p7_scan_seqblocks(p7, tokens_s, lengths_s, sp_mesh, "forward")),
+    ):
+        one_ms, sp_ms = best_ms(one_fn, 3), best_ms(sp_fn, 3)
+        zero_launches()
+        sp_fn()
+        n = launches()[name]
+        print(f"mesh timing {name} on the skewed database: one call {one_ms:.3f} ms; sp="
+              f"{MESH_SP} wavefront {sp_ms:.3f} ms (host staging and the block copies "
+              f"included), {n} launches [{card}]")
+
+
+def mesh_paths(tmp: pathlib.Path, scanner, errors: dict) -> None:
+    print(f"cards: {torch.cuda.device_count()}; {nvidia_smi('name,power.limit')}")
+    tokens, lengths = load_fasta(tmp / "headline.fsa").encode(dtype=np.int8)
+    db_mesh_stages(tokens, lengths, scanner, errors)
+    sp_wavefront(scanner, errors)
+    mesh_cli(tmp)
+    t0 = time.perf_counter()
+    dryrun_multichip(8, device=DEVICE)
+    print(f"dryrun_multichip(8) over {DEVICE} x 8: ok in {time.perf_counter() - t0:.2f} s")
+    mesh_timings(tokens, lengths, scanner)
+
+
+# -- fuzzed profiles (phase 14) -----------------------------------------------
+
+def fuzz_kernels_vs_plain(scanner, errors: dict) -> None:
+    """FUZZ_SEEDS profiles of tests/test_fuzz_differential.py's generator
+    (models/fuzz.py: spiky emissions, a quarter of the nodes delete-heavy)
+    through every kernel against its plain version on a ragged batch: B1,
+    B2 (>= B1) and B4 equal; B7 equal to B4, and at lazy_k = 1 (its
+    certificate fires, chunks replay) equal to its plain version; B5 within
+    FWD_TOL; B6 equal and >= B4; B8 within LOG_FWD_TOL; B9 equal to B5;
+    B10 and the totals within COV_TOL / TOT_TOL; B4 and B6 again without
+    e_skip_d; B3 over all of them equal to B1 and B2."""
+    rng = np.random.default_rng(SEED + 14)
+    lengths = rng.integers(0, FUZZ_LEN + 1, size=FUZZ_BATCH).astype(np.int32)
+    lengths[:8] = [0, 1, 31, 32, 33, 128, 257, FUZZ_LEN]
+    tokens = rng.integers(0, 20, size=(FUZZ_BATCH, FUZZ_LEN)).astype(np.int8)
+    staged = scanner.stage(tokens, lengths)
+    profs = []
+    for seed, top in FUZZ_SEEDS:
+        gen = np.random.default_rng(seed)
+        # named by seed: two seeds may draw one LENG, and a sweep keys by name
+        hmm = dataclasses.replace(random_profile(gen, int(gen.integers(3, top))),
+                                  name=f"fuzz{seed}")
+        prof, p7 = MSVProfile.from_profile(hmm), P7Profile.from_profile(hmm)
+        profs.append(prof)
+        err, exact = msv_compare(msv_args(scanner, prof, staged))
+        f_err, filt = msv_compare(msv_args(scanner, prof, staged, filter_mode=True), True)
+        require_geq(filt, exact, f"fuzz {seed} MSV filter vs MSV")
+        packs = p7_packs(p7, scanner.device)
+        run_e, carry_v = p7_calls("eager", packs["eager"], staged)
+        eager = run_e(p7_cuda.viterbi_scan_cuda, staged.tokens, staged.lengths, carry_v)
+        torch.cuda.synchronize()
+        e_err = require_equal(eager, run_e(p7_cuda.viterbi_scan_plain, staged.tokens,
+                                           staged.lengths, carry_v), f"fuzz {seed} eager")
+        replays = (0, 0)
+        if p7_cuda.e_skip_d_ok(p7):
+            run_l, _ = p7_calls("lazy", packs["lazy"], staged)
+            lazy = run_l(p7_cuda.viterbi_lazy_scan_cuda, staged.tokens, staged.lengths, carry_v)
+            require_equal(lazy[:5], (*eager[:3], pre_diag(packs["eager"], *eager[1:4]), eager[4]),
+                          f"fuzz {seed} lazy vs eager")
+            # a window of one pass: the certificate fires and chunks replay
+            k1 = p7_cuda.viterbi_pack(p7, scanner.device, lazy=True, lazy_k=1)
+            run_k, _ = p7_calls("lazy", k1, staged)
+            got_k = run_k(p7_cuda.viterbi_lazy_scan_cuda, staged.tokens, staged.lengths, carry_v)
+            torch.cuda.synchronize()
+            require_equal(got_k, run_k(p7_cuda.viterbi_lazy_scan_plain, staged.tokens,
+                                       staged.lengths, carry_v),
+                          f"fuzz {seed} lazy_k=1 vs plain (replays included)")
+            require_equal([got_k[0]], [eager[0]], f"fuzz {seed} lazy_k=1 vs eager")
+            replays = (int(lazy[5].sum()), int(got_k[5].sum()))
+        run_f, carry_f = p7_calls("forward", packs["forward"], staged)
+        fwd = run_f(p7_cuda.forward_prob_scan_cuda, staged.tokens, staged.lengths, carry_f)
+        saved = run_f(posterior_cuda.forward_save_scan_cuda, staged.tokens, staged.lengths,
+                      carry_f)
+        torch.cuda.synchronize()
+        fw_err = max_abs_diff(fwd[0], run_f(p7_cuda.forward_prob_scan_plain, staged.tokens,
+                                            staged.lengths, carry_f)[0])
+        require(fw_err <= FWD_TOL, f"fuzz {seed} Forward vs plain: {fw_err}")
+        s_err = require_equal(saved[:5], fwd, f"fuzz {seed} row-saving Forward vs Forward")
+        vf_err, window = filter_vs_plain(p7, staged, eager[0])
+        run_g, carry_g = p7_calls("log", packs["log"], staged)
+        log = run_g(p7_cuda.forward_log_scan_cuda, staged.tokens, staged.lengths, carry_g)
+        torch.cuda.synchronize()
+        l_err = max_abs_diff(log[0], run_g(p7_cuda.forward_log_scan_plain, staged.tokens,
+                                           staged.lengths, carry_g)[0])
+        require(l_err <= LOG_FWD_TOL, f"fuzz {seed} log-space Forward vs plain: {l_err}")
+        schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
+        cov, tot = posterior_decode(*KERNEL_DECODE, packs["forward"], schain, staged)
+        torch.cuda.synchronize()
+        cov_p, tot_p = posterior_decode(*PLAIN_DECODE, packs["forward"], schain, staged)
+        c_err, t_err = max_abs_diff(cov, cov_p), max_abs_diff(tot, tot_p)
+        require(c_err <= COV_TOL and t_err <= TOT_TOL,
+                f"fuzz {seed} posterior vs plain: coverage {c_err}, totals {t_err}")
+        bad = without_e_skip_d(p7, "tdd")
+        bad_pack = p7_cuda.viterbi_pack(bad, scanner.device, lazy=False)
+        run_b, carry_b = p7_calls("eager", bad_pack, staged)
+        bad_eager = run_b(p7_cuda.viterbi_scan_cuda, staged.tokens, staged.lengths, carry_b)
+        torch.cuda.synchronize()
+        b_err = require_equal(bad_eager, run_b(p7_cuda.viterbi_scan_plain, staged.tokens,
+                                               staged.lengths, carry_b),
+                              f"fuzz {seed} eager without e_skip_d")
+        bf_err, bad_window = filter_vs_plain(bad, staged, bad_eager[0])
+        for name, e in (("msv_scan", err), ("msv_filter_scan", f_err),
+                        ("viterbi_scan", max(e_err, b_err)), ("forward_prob_scan", fw_err),
+                        ("viterbi_filter_scan", max(vf_err, bf_err)), ("forward_log_scan", l_err),
+                        ("forward_save_scan", max(s_err, t_err)),
+                        ("backward_coverage_scan", c_err)):
+            errors[name] = max(errors[name], e)
+        print(f"fuzz seed {seed} (LENG {hmm.model_length - 1}, e_skip_d "
+              f"{p7_cuda.e_skip_d_ok(p7)}): B={FUZZ_BATCH} L<={FUZZ_LEN} MSV max|d|={err}, "
+              f"filter {f_err}; eager {e_err}, lazy == eager ({replays[0]} chunks replayed; at "
+              f"lazy_k = 1 {replays[1]}); "
+              f"Forward {fw_err:.3g}, row-saving == Forward; filter(window {window}) {vf_err}; "
+              f"log Forward {l_err:.3g}; coverage {c_err:.3g}, totals {t_err:.3g}; without "
+              f"e_skip_d: eager {b_err}, filter(window {bad_window}) {bf_err}", flush=True)
+    for mode, single in (("exact", scanner.scan), ("filter", scanner.scan_filter)):
+        res = scanner.scan_many(profs, staged, mode=mode)
+        err = max(require_same_scores(res[p.name], single(p, staged),
+                                      f"fuzz stacked {mode} {p.name}") for p in profs)
+        errors["msv_stacked_scan"] = max(errors["msv_stacked_scan"], err)
+        print(f"fuzz stacked MSV ({mode}): {len(profs)} profiles == their single kernels "
+              f"(max|d|={err})")
+
+
 # -- timings (phase 10) --------------------------------------------------------
 
 def msv_timings(scanner, rng, errors: dict, work: dict) -> dict:
@@ -2758,6 +3171,13 @@ def main() -> int:
         with Phase("12. build on the card, scan --align/--msa-out, --config, --profile-trace, "
                    "info/emit/generate"):
             subcommand_paths(tmp)
+
+        with Phase("13. the device mesh: db-sharded stages, the sp wavefront, --mesh, "
+                   "dryrun_multichip"):
+            mesh_paths(tmp, scanner, errors)
+
+    with Phase("14. fuzzed profiles: every kernel vs plain"):
+        fuzz_kernels_vs_plain(scanner, errors)
 
     times = {"msv_scan": (msv_ms["1400"], msv_ms["plain"]), "msv_filter_scan": msv_ms["filter"],
              "msv_stacked_scan": sweep_ms["sweep24"], **post_ms, **wide_ms, **mem_ms,

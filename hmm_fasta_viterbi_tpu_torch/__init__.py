@@ -15,7 +15,9 @@ profile sweep, through hand-written CUDA kernels on the card
 them over ragged databases in length buckets (``--bucketed``), over
 databases larger than host memory in streamed batches staged on a side
 CUDA stream (``--stream N``), and as resumable checkpointed sweeps
-(``runtime.checkpoint``, ``--checkpoint DIR``). Its host commands align
+(``runtime.checkpoint``, ``--checkpoint DIR``), and it shards them over a
+device mesh (``parallel``, ``--mesh``): rows over its db axis, the residues
+of long sequences over its sp axis as a wavefront. Its host commands align
 sequences to a profile by Viterbi traceback (``ops.traceback``: ``scan
 --align``, ``--msa-out``, ``align``), summarise profiles (``info``), sample
 from them (``emit``), write random databases (``generate``) and build a

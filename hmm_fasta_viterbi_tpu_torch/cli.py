@@ -3,10 +3,11 @@
     python -m hmm_fasta_viterbi_tpu_torch scan --hmm P.hmm --fasta DB.fsa
         [--stage msv|viterbi|forward|search] [--fast] [--domains]
         [--align [--msa-out FILE]] [--bucketed | --stream N]
-        [--config FILE] [--profile-trace DIR]
+        [--config FILE] [--profile-trace DIR] [--mesh db=N[,sp=M]]
     python -m hmm_fasta_viterbi_tpu_torch sweep --hmm-dir DIR | --hmm-db FILE
         --fasta DB.fsa [--stage msv|search] [--fast] [--config FILE]
         [--bucketed | --stream N | --checkpoint DIR [--checkpoint-shard N]]
+        [--mesh db=N[,sp=M]]
     python -m hmm_fasta_viterbi_tpu_torch align --hmm P.hmm --fasta F.fsa
         [--format tsv|json|stockholm] [--stream N]
     python -m hmm_fasta_viterbi_tpu_torch info --hmm P.hmm | --hmm-dir DIR | --hmm-db FILE
@@ -16,7 +17,7 @@
     python -m hmm_fasta_viterbi_tpu_torch generate --out random.fsa [--count N]
 
 ``hmm_fasta_viterbi_tpu``'s commands with the same flags and the same
-reports, apart from its ``--mesh`` and ``--fused``. ``scan`` reports one
+reports, apart from its ``--fused``. ``scan`` reports one
 stage's scores, or (``--stage search``) the MSV -> Viterbi -> Forward
 cascade with a row for every MSV survivor (``--fast``: behind the
 upper-bound MSV and Viterbi prefilters; ``--domains``: each reported hit's
@@ -30,12 +31,17 @@ CUDA stream while the card scans this one, so host memory holds a batch and
 the survivors; ``sweep --checkpoint DIR`` keeps each (profile, shard)
 result under DIR and a rerun computes only the missing ones. ``--config``
 reads an ``EngineConfig`` JSON file (the cascade thresholds and
-``m_bucket``); ``--profile-trace DIR`` writes a ``torch.profiler`` trace of
-a whole-file scan, its phases labelled. ``align``, ``info``, ``emit`` and
+``m_bucket``, and with ``use_mesh`` its mesh); ``--profile-trace DIR``
+writes a ``torch.profiler`` trace of a whole-file scan, its phases
+labelled. ``--mesh db=N[,sp=M]`` (or ``N``, or ``all``) shards a scan over
+a device mesh (``parallel``): the database's rows over ``db``, and with
+``sp`` > 1 each sequence's residues over ``sp`` as a wavefront; the
+reports equal the meshless ones. ``align``, ``info``, ``emit`` and
 ``generate`` are host commands; ``build`` calibrates the profile it builds
 with the MSV, eager Viterbi and log-space Forward kernels. ``--device``
 (default ``cuda``) names the torch device, and ``--device cpu`` runs the
-kernels' plain versions.
+kernels' plain versions; a mesh takes the visible cards, or with ``--device
+cpu`` :data:`CPU_MESH_DEVICES` CPU ranks.
 """
 
 from __future__ import annotations
@@ -72,6 +78,9 @@ from .ops.traceback import (
     alignment_row, consensus_string, domain_alignments, format_alignment, hit_alignments,
     stockholm_msa,
 )
+from .parallel.database import ShardedStager
+from .parallel.mesh import make_scan_mesh
+from .parallel.seqblocks import SeqblockScanner
 from .pipeline import (
     PREFETCH_DEPTH, MSVScanner, SearchPipeline, SearchResult, SideStreamStager, forward_scores,
 )
@@ -190,15 +199,17 @@ def _envelope_from_coverage(cov_row: np.ndarray, length: int):
     return segs[0][0], segs[-1][1], len(segs)
 
 
-def _hit_envelopes(p7, tokens, lengths, hit_idx: np.ndarray, device) -> dict:
+def _hit_envelopes(p7, tokens, lengths, hit_idx: np.ndarray, device, mesh=None) -> dict:
     """Batched posterior decode of all hits, {hit index: segments}: one
     coverage call over the hits (the forward-save and backward-coverage
-    kernels on the card), thresholded at 0.5 on the device."""
+    kernels on the card, sharded over a db ``mesh``), thresholded at 0.5 on
+    the device."""
     if not hit_idx.size:
         return {}
     l_max = max(int(lengths[hit_idx].max()), 1)
     cov, _ = posterior_coverage_batch(
         p7, tokens[hit_idx, :l_max], lengths[hit_idx], device=device, mask_threshold=0.5,
+        mesh=mesh,
     )
     return {
         int(i): _coverage_segments(cov[k], int(lengths[i]))
@@ -249,12 +260,14 @@ def _domain_rows(hmm, segs: list, dom_scores: dict, i: int, n_db: int) -> list:
 
 
 def _report_search(hmm, db, result, args, out, rows_sink=None, tokens=None, lengths=None,
-                   device=None, phases=None, n_targets: int | None = None) -> None:
+                   device=None, phases=None, n_targets: int | None = None,
+                   mesh=None) -> None:
     """One row per MSV survivor, ordered by Forward score (rows Forward
     never reached last), as the JAX CLI's search report. With the host
     ``tokens``/``lengths``: ``--domains`` decodes the hits that survive
     --top/--max-evalue on ``device`` and gives them env_from/env_to/ndom
     and their domains (the decode's seconds go into ``phases["domains"]``);
+    the decode is sharded over a db ``mesh`` when there is one;
     ``--align`` gives each such hit its Viterbi alignments, traced back on
     the host (``ops.traceback``; past its DP budget each posterior envelope
     of ``--domains`` is aligned instead), and ``--msa-out`` writes them all
@@ -279,7 +292,7 @@ def _report_search(hmm, db, result, args, out, rows_sink=None, tokens=None, leng
         t0 = time.perf_counter()
         with phase("domains"):
             envelopes = _hit_envelopes(p7, tokens, lengths,
-                                       order[result.passed_forward[order]], device)
+                                       order[result.passed_forward[order]], device, mesh)
             dom_scores = _domain_scores(p7, tokens, lengths, envelopes, device)
         if phases is not None:
             phases["domains"] = time.perf_counter() - t0
@@ -382,9 +395,14 @@ def _stage_bucketed_logged(scanner, tokens, lengths):
     return bucketed
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)  # the upload belongs to the stage time
+def _sync(scanner) -> None:
+    """Wait for the scanner's uploads, on each of its cards: they belong
+    to the stage time."""
+    mesh = scanner.mesh
+    devices = {scanner.device} if mesh is None else {x for row in mesh.devices for x in row}
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 # the EngineConfig knobs of the JAX package's TPU kernels: a score depends
@@ -392,36 +410,96 @@ def _sync(device) -> None:
 _TPU_KNOBS = ("backend", "l_chunk")
 
 
-def _load_config(args) -> bool:
+def _load_config(args) -> None:
     """Read ``--config`` into ``args.engine_config`` (None without one), as
     the JAX CLI reads it: the cascade thresholds (``msv_p``, ``viterbi_p``,
     ``forward_p``) and ``m_bucket`` apply; ``loader`` does not (it comes
     from ``--loader``); the TPU knobs are ignored with a warning each;
-    unknown keys raise ``ValueError``. False (after logging why) when the
-    file asks for the device mesh, which the port does not have."""
+    unknown keys raise ``ValueError``; ``use_mesh`` builds the scanner's
+    (mesh_db x mesh_sp) mesh, sharded over db (:func:`_make_scanner`)."""
     args.engine_config = None
     if not args.config:
-        return True
+        return
     cfg = EngineConfig.from_json(args.config)
-    if cfg.use_mesh:
-        logger.error("--config %s: use_mesh is true, and the device mesh (--mesh) is not "
-                     "ported yet", args.config)
-        return False
     keys = json.loads(pathlib.Path(args.config).read_text())
     for key in _TPU_KNOBS:
         if key in keys:
             logger.warning("--config %s: %s is a knob of the TPU kernels; the port ignores it",
                            args.config, key)
     args.engine_config = cfg
-    return True
 
 
-def _make_scanner(args, device) -> MSVScanner:
-    """The scanner on ``device``, its MSV M bucket from ``--config``."""
+# the CPU ranks of a mesh under --device cpu: the JAX suite's virtual CPU
+# devices (tests/conftest.py)
+CPU_MESH_DEVICES = 8
+
+
+def _parse_mesh(spec: str) -> dict:
+    """'db=8,sp=1' | '8' | 'all' -> make_scan_mesh kwargs."""
+    out: dict = {}
+    if spec.strip().lower() == "all":
+        return out
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" in part:
+            k, v = part.split("=", 1)
+            if k.strip() not in ("db", "sp"):
+                raise ValueError(f"unknown mesh axis {k!r} (use db/sp)")
+            out[k.strip()] = int(v)
+        else:
+            out["db"] = int(part)
+    return out
+
+
+def _mesh_devices(device: torch.device) -> list[torch.device]:
+    """The devices a mesh is laid over: the visible cards, or under
+    ``--device cpu`` CPU_MESH_DEVICES CPU ranks."""
+    if device.type == "cpu":
+        return [device] * CPU_MESH_DEVICES
+    return [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
+
+
+def _sp_mesh(args, device):
+    """The (db, sp) mesh when --mesh requests sp > 1: served by the
+    wavefront (:class:`SeqblockScanner`), not the scanner's db sharding.
+    A mesh larger than the devices raises ValueError (exit 2)."""
+    if not args.mesh:
+        return None
+    kwargs = _parse_mesh(args.mesh)
+    if kwargs.get("sp", 1) <= 1:
+        return None
+    return make_scan_mesh(**kwargs, devices=_mesh_devices(device))
+
+
+def _wavefront(args) -> bool:
+    """--mesh asks for sp > 1 (a malformed spec raises ValueError: exit 2)."""
+    return bool(args.mesh) and _parse_mesh(args.mesh).get("sp", 1) > 1
+
+
+def _make_scanner(args, device):
+    """The scanner: with ``--mesh`` sp > 1 a :class:`SeqblockScanner`;
+    else an :class:`MSVScanner` on ``device``, its M bucket from
+    ``--config``, sharded over the db axis of ``--config``'s ``use_mesh``
+    mesh or else of ``--mesh``'s (as the JAX CLI picks)."""
     cfg = args.engine_config
-    if cfg is None:
-        return MSVScanner(device=device)
-    return MSVScanner(device=device, m_bucket=cfg.m_bucket)
+    sp_mesh = _sp_mesh(args, device)
+    if sp_mesh is not None:
+        logger.info("sp wavefront mesh: %s", dict(sp_mesh.shape))
+        return SeqblockScanner(sp_mesh)
+    kw = {} if cfg is None else {"m_bucket": cfg.m_bucket}
+    if cfg is not None and cfg.use_mesh:
+        scanner = MSVScanner.from_config(cfg, device, devices=_mesh_devices(device))
+    elif args.mesh:
+        kwargs = _parse_mesh(args.mesh)
+        kwargs.pop("sp", None)
+        scanner = MSVScanner(mesh=make_scan_mesh(**kwargs, devices=_mesh_devices(device)),
+                             **kw)
+    else:
+        return MSVScanner(device=device, **kw)
+    logger.info("mesh: %s", dict(scanner.mesh.shape))
+    return scanner
 
 
 def _make_pipeline(args, scanner) -> SearchPipeline:
@@ -453,8 +531,15 @@ def cmd_scan(args) -> int:
     if args.stream < 0:
         logger.error("--stream must be at least 1 (0 reads the whole file)")
         return 2
-    if not _load_config(args):
-        return 2
+    _load_config(args)
+    if _wavefront(args):
+        # the wavefront has no buckets, no stream and no prefilters: refuse
+        # rather than run the plain cascade under a flag the user asked for
+        for flag, given in (("--stream", args.stream), ("--bucketed", args.bucketed),
+                            ("--fast", args.fast and args.stage == "search")):
+            if given:
+                logger.error("%s does not compose with --mesh sp>1", flag)
+                return 2
     if args.stream:
         if args.bucketed:
             logger.error("--stream does not compose with --bucketed")
@@ -486,7 +571,7 @@ def _scan_whole_file(args, device) -> int:
             staged = _stage_bucketed_logged(scanner, tokens, lengths)
         else:
             staged = scanner.stage(tokens, lengths)
-        _sync(device)
+        _sync(scanner)
     t_staged = time.perf_counter()
     phases = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
     if args.stage == "search":
@@ -505,7 +590,7 @@ def _scan_whole_file(args, device) -> int:
         )
         with phase("report"), _out_sink(args) as sink:
             _report_search(hmm, db, result, args, out=sink, tokens=tokens, lengths=lengths,
-                           device=device, phases=phases)
+                           device=device, phases=phases, mesh=scanner.mesh)
     else:
         with phase(args.stage):
             if args.stage != "msv":
@@ -539,7 +624,8 @@ class _Stream:
 
     def __init__(self, args, scanner: MSVScanner):
         self.args = args
-        self.stager = SideStreamStager(scanner)
+        self.stager = (SideStreamStager(scanner) if scanner.mesh is None
+                       else ShardedStager(scanner))
         self.timer = SectionTimer()
         self.producer: dict = {}
 
@@ -739,7 +825,7 @@ def _cmd_search_stream(args, device) -> int:
     with _out_sink(args) as sink:
         _report_search(hmm, _headers_db(agg.headers), agg.result, args, out=sink,
                        tokens=agg.tokens, lengths=agg.lengths, device=device, phases=phases,
-                       n_targets=total_seqs)
+                       n_targets=total_seqs, mesh=pipeline.scanner.mesh)
     stream.log_seconds(t_start, phases,
                        time.perf_counter() - t_report - phases.get("domains", 0.0))
     return 0
@@ -849,6 +935,10 @@ def cmd_sweep(args) -> int:
     if args.stream and (args.bucketed or args.checkpoint):
         logger.error("--stream does not compose with --bucketed or --checkpoint")
         return 2
+    for flag, given in (("--stream", args.stream), ("--bucketed", args.bucketed)):
+        if given and _wavefront(args):
+            logger.error("%s does not compose with --mesh sp>1", flag)
+            return 2
     if args.checkpoint and args.bucketed:
         # the checkpointed sweep stages shard by shard
         logger.error("--checkpoint does not compose with --bucketed")
@@ -856,8 +946,7 @@ def cmd_sweep(args) -> int:
     if args.checkpoint_shard < 1:
         logger.error("--checkpoint-shard must be at least 1")
         return 2
-    if not _load_config(args):
-        return 2
+    _load_config(args)
     _untraced(args, "a sweep")
     t_start = time.perf_counter()
     hmms = _load_sweep_profiles(args)
@@ -878,7 +967,7 @@ def cmd_sweep(args) -> int:
         staged = _stage_bucketed_logged(scanner, tokens, lengths)
     else:
         staged = scanner.stage(tokens, lengths)
-    _sync(device)
+    _sync(scanner)
     t_staged = time.perf_counter()
     phases = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
     if args.stage == "search":
@@ -1119,6 +1208,11 @@ def _add_common(ap: argparse.ArgumentParser) -> None:
     ap.add_argument(
         "--profile-trace", default=None, metavar="DIR",
         help="write a torch.profiler trace of a whole-file scan into DIR",
+    )
+    ap.add_argument(
+        "--mesh", default=None, metavar="SPEC",
+        help="shard scans over a device mesh: 'db=N[,sp=M]' or just 'N' "
+        "(db axis size; 'all' uses all devices, e.g. --mesh db=8)",
     )
 
 

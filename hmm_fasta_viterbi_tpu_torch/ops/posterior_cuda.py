@@ -37,6 +37,8 @@ import numpy as np
 import torch
 
 from ..models.p7 import P7Profile
+from ..parallel.database import ShardedScanner, gather_shards, run_shards
+from ..parallel.mesh import DB_AXIS, shard_rows
 from ..pipeline import MSVScanner
 from . import p7_cuda
 from .msv_cuda import NUM_AA, _check
@@ -247,7 +249,7 @@ def backward_coverage_scan(modds, iodds, trans, schain, tokens, lengths, tr_prob
 
 def posterior_coverage_batch(p7: P7Profile, tokens, lengths, device="cuda",
                              batch_chunk: int | None = None,
-                             mask_threshold: float | None = None):
+                             mask_threshold: float | None = None, mesh=None):
     """Summed match-state posterior of every position of a host batch:
     ``(coverage [B, L_pad], totals [B])`` host arrays, L_pad the tokens'
     width (at least 1). Coverage is f32 and 0 past each length or, with
@@ -256,7 +258,11 @@ def posterior_coverage_batch(p7: P7Profile, tokens, lengths, device="cuda",
 
     The batch runs in chunks of ``batch_chunk`` sequences, by default as
     many as keep the bf16 rows (``L_pad * M_pad * 2`` bytes a sequence)
-    under :data:`POST_BYTES`; one sequence over it raises ``ValueError``."""
+    under :data:`POST_BYTES`; one sequence over it raises ``ValueError``.
+    With ``mesh`` (a ``parallel.mesh.ScanMesh``; ``device`` is then unused)
+    the batch is split into one row slice a db shard, each decoded on its
+    shard's device, and the results are gathered in row order, as JAX's
+    ``make_db_posterior_scanner`` shards the decode."""
     tokens = np.asarray(tokens)
     lengths = np.asarray(lengths, dtype=np.int32)
     b, seq_len = tokens.shape
@@ -269,14 +275,30 @@ def posterior_coverage_batch(p7: P7Profile, tokens, lengths, device="cuda",
             f"of bf16 forward rows, over the posterior budget of {POST_BYTES} bytes"
         )
     chunk = batch_chunk or POST_BYTES // per_seq
-    scanner = MSVScanner(device=device)
-    pack = p7_cuda.forward_pack(p7, scanner.device)
+    threshold = None if mask_threshold is None else float(np.float32(mask_threshold))
+    if mesh is None:
+        cov, total = _decode(MSVScanner(device=device), p7, tokens, lengths, chunk, threshold)
+        return cov.cpu().numpy(), total.cpu().numpy()
+    scanner = ShardedScanner(mesh)
+    rows = shard_rows(b, mesh.shape[DB_AXIS])
+    parts = run_shards(mesh, lambda d, r: _decode(scanner.scanner(d), p7, tokens[r], lengths[r],
+                                                  chunk, threshold),
+                       {d: rows[d] for d in mesh.local_shards()})
+    cov = gather_shards(mesh, {d: c for d, (c, _) in parts.items()}, rows, dim=0)
+    total = gather_shards(mesh, {d: t for d, (_, t) in parts.items()}, rows)
+    return cov.cpu().numpy(), total.cpu().numpy()
+
+
+def _decode(scanner: MSVScanner, p7: P7Profile, tokens, lengths, chunk: int,
+            threshold: float | None):
+    """The decode of a host batch on ``scanner``'s device, ``chunk``
+    sequences a call: (coverage, totals) on the device, nothing
+    synchronized."""
+    pack = scanner._p7_pack(p7, "forward")
     schain = suffix_chain_rows(p7, scanner.device)
-    cov_out = np.zeros((b, l_pad), dtype=np.float32 if mask_threshold is None else np.uint8)
-    tot_out = np.zeros(b, dtype=np.float32)
-    for lo in range(0, b, chunk):
-        hi = min(lo + chunk, b)
-        staged = scanner.stage(tokens[lo:hi], lengths[lo:hi])
+    covs, totals = [], []
+    for lo in range(0, len(lengths), chunk):
+        staged = scanner.stage(tokens[lo:lo + chunk], lengths[lo:lo + chunk])
         carry = p7_cuda.forward_init_carry(staged.tr_probs, pack.m_pad)
         total, *_, fm, ls = forward_save_scan(
             *pack[:4], staged.tokens, staged.lengths, staged.tr_rows, staged.tr_probs,
@@ -285,8 +307,13 @@ def posterior_coverage_batch(p7: P7Profile, tokens, lengths, device="cuda",
                                      staged.tokens, staged.lengths, staged.tr_probs,
                                      pack.consts, total, fm, ls)
         del fm
-        if mask_threshold is not None:
-            cov = (cov >= float(np.float32(mask_threshold))).to(torch.uint8)
-        cov_out[lo:hi] = cov.cpu().numpy()
-        tot_out[lo:hi] = total.cpu().numpy()
-    return cov_out, tot_out
+        if threshold is not None:
+            cov = (cov >= threshold).to(torch.uint8)
+        covs.append(cov)
+        totals.append(total)
+    width = max(tokens.shape[1], 1)
+    dtype = torch.float32 if threshold is None else torch.uint8
+    if not covs:
+        return (torch.zeros((0, width), dtype=dtype, device=scanner.device),
+                torch.zeros(0, dtype=torch.float32, device=scanner.device))
+    return torch.cat(covs), torch.cat(totals)

@@ -42,7 +42,12 @@ Viterbi prefilters); and the streamed producer's stager,
   ``stage_fn`` on a CUDA device) was uploaded on a side stream from a
   pinned ring; every scan entry makes the caller's current stream wait on
   the batch's event before its first kernel, and refuses such a batch
-  without one.
+  without one;
+* ``MSVScanner(mesh=)`` (or ``from_config`` with ``use_mesh``) builds a
+  ``parallel.database.ShardedScanner``: one single-device scanner a
+  device of a ``parallel.mesh.ScanMesh``, each batch staged as one row
+  slice a db shard and the scores gathered in row order; a score depends
+  only on its own row, so every stage equals this scanner's bit for bit.
 """
 
 from __future__ import annotations
@@ -97,6 +102,10 @@ class StagedDatabase:
     def total_residues(self) -> int:
         return int(self.lengths.sum())
 
+    @property
+    def width(self) -> int:
+        return self.tokens.shape[1]
+
 
 def _wait_ready(staged) -> None:
     """Make the current stream wait for a batch staged on a side stream
@@ -120,9 +129,12 @@ class BucketedDatabase:
     bucket is staged on its own, scans run per bucket and scores scatter
     back to the original order."""
 
-    buckets: list[StagedDatabase]
+    buckets: list  # StagedDatabase, or ShardedDatabase on a mesh
     order: list[np.ndarray]  # original indices per bucket
     num_sequences: int
+    # on the scanner's device: the position of each original row in the
+    # buckets' scores, concatenated
+    inverse: torch.Tensor
 
     @property
     def padded_cells_saved(self) -> float:
@@ -130,24 +142,153 @@ class BucketedDatabase:
         to the longest bucket's width."""
         if not self.buckets:
             return 0.0
-        per_bucket = sum(s.tokens.shape[1] * s.num_sequences for s in self.buckets)
-        single = max(s.tokens.shape[1] for s in self.buckets) * self.num_sequences
+        per_bucket = sum(s.width * s.num_sequences for s in self.buckets)
+        single = max(s.width for s in self.buckets) * self.num_sequences
         return 1.0 - per_bucket / single if single else 0.0
 
+    def in_order(self, scores: list[torch.Tensor]) -> torch.Tensor:
+        """Each bucket's scores (rows along the last dimension) joined in
+        the original row order, on the device."""
+        return torch.cat(scores, dim=-1)[..., self.inverse]
 
-class MSVScanner:
+
+class BatchScans:
+    """What a scanner builds on its own ``stage``, ``scan``, ``scan_filter``
+    and ``_many`` (the stacked launches of a sweep): the FASTA staging, the
+    length-bucketed staging and scans, and the name-keyed sweeps. Shared
+    by :class:`MSVScanner` and ``parallel.database.ShardedScanner``."""
+
+    device: torch.device
+
+    def stage_fasta(self, db: FastaDatabase):
+        tokens, lengths = db.encode()
+        return self.stage(tokens, lengths)
+
+    def stage_bucketed(
+        self,
+        tokens: np.ndarray,
+        lengths: np.ndarray,
+        waste_factor: float = 0.25,
+    ) -> BucketedDatabase:
+        """Stage a ragged batch as length-sorted buckets (see
+        :class:`BucketedDatabase`). ``waste_factor`` caps per-sequence
+        padding: a bucket closes when the next (longer) sequence's length
+        exceeds the bucket's shortest, times ``1 + waste_factor`` and
+        rounded up to ``L_CHUNK``."""
+        tokens = np.asarray(tokens)
+        lengths = np.asarray(lengths, dtype=np.int32)
+        b = tokens.shape[0]
+        order = np.argsort(lengths, kind="stable")
+
+        buckets: list[StagedDatabase] = []
+        bucket_order: list[np.ndarray] = []
+        start = 0
+        while start < b:
+            lo = max(int(lengths[order[start]]), 1)
+            cap = msv_cuda.round_up(max(int(lo * (1.0 + waste_factor)), 1), L_CHUNK)
+            end = start
+            while end < b and lengths[order[end]] <= cap:
+                end += 1
+            idx = order[start:end]
+            l_max = max(int(lengths[idx].max()), 1)
+            buckets.append(self.stage(tokens[idx, :l_max], lengths[idx]))
+            bucket_order.append(idx)
+            start = end
+        inverse = np.empty(b, dtype=np.int64)
+        inverse[order] = np.arange(b)  # the buckets hold the rows in `order`
+        return BucketedDatabase(buckets=buckets, order=bucket_order, num_sequences=b,
+                                inverse=torch.from_numpy(inverse).to(self.device))
+
+    def scan_bucketed(
+        self, profile: MSVProfile, bucketed: BucketedDatabase, mode: str = "exact"
+    ) -> np.ndarray:
+        """Score every sequence of a bucketed database -> f32 [B] host
+        array in the original order: :meth:`scan` a bucket, or with
+        ``mode="filter"`` :meth:`scan_filter`."""
+        if mode not in ("exact", "filter"):
+            raise ValueError(f"mode must be 'exact' or 'filter', got {mode!r}")
+        if not bucketed.buckets:
+            return np.empty(0, dtype=np.float32)
+        scan = self.scan if mode == "exact" else self.scan_filter
+        scores = [scan(profile, staged) for staged in bucketed.buckets]
+        return bucketed.in_order(scores).cpu().numpy()
+
+    def scan_many(
+        self, profiles: list[MSVProfile], staged: StagedDatabase, mode: str = "exact"
+    ) -> dict[str, np.ndarray]:
+        """Sweep: score the staged database against many profiles -> {name:
+        f32 [B] host array}.
+
+        On the card, profiles that fall in one register case of the MSV
+        kernel (``msv_cuda.kernel_case``) run as one stacked launch, one
+        grid row a profile, and those past it (the rows-in-memory case) one
+        launch a padded width; on the CPU the plain version groups them by
+        padded width, which has no cap. Each group's stacked pack is
+        cached. ``mode="filter"``
+        scans the bf16 round-up tables instead (:meth:`scan_filter`'s
+        upper bounds). Each profile's scores equal its single-profile
+        scan's bit for bit."""
+        if mode not in ("exact", "filter"):
+            raise ValueError(f"mode must be 'exact' or 'filter', got {mode!r}")
+        return _by_name(self._many(profiles, staged, mode))
+
+    def scan_many_bucketed(
+        self, profiles: list[MSVProfile], bucketed: BucketedDatabase, mode: str = "exact"
+    ) -> dict[str, np.ndarray]:
+        """:meth:`scan_many` over a length-bucketed database: the stacked
+        launches a bucket, scores put back in the original order."""
+        if not bucketed.buckets:
+            return {p.name: np.empty(0, dtype=np.float32) for p in profiles}
+        per_bucket = [self._many(profiles, staged, mode) for staged in bucketed.buckets]
+        return _by_name([
+            (group, bucketed.in_order([launched[k][1] for launched in per_bucket]))
+            for k, (group, _) in enumerate(per_bucket[0])
+        ])
+
+
+class MSVScanner(BatchScans):
     """Profile-HMM MSV scan engine on one torch device.
 
     >>> scanner = MSVScanner(device="cuda")
     >>> staged = scanner.stage(tokens, lengths)
     >>> scores = scanner.scan(profile, staged)
+
+    ``MSVScanner(mesh=m)`` (``parallel.mesh.make_scan_mesh``) returns a
+    ``parallel.database.ShardedScanner`` over the db axis of ``m``: the same
+    entry points, every batch split into one row slice a db shard.
     """
+
+    mesh = None  # the db sharding: see ``parallel.database.ShardedScanner``
 
     #: max cached profile packs; covers the 24-profile sweep while
     #: bounding Pfam-scale runs
     _CACHE_MAX = 64
 
-    def __init__(self, device: str | torch.device = "cuda", m_bucket: int = M_BUCKET):
+    @classmethod
+    def from_config(cls, config, device: str | torch.device = "cuda", devices=None
+                    ) -> "MSVScanner":
+        """Build from a ``runtime.config.EngineConfig``: its ``m_bucket``,
+        and with ``use_mesh`` a (mesh_db x mesh_sp) mesh over ``devices``
+        (default: the visible CUDA devices), every scan sharded over its db
+        axis."""
+        if not config.use_mesh:
+            return cls(device=device, m_bucket=config.m_bucket)
+        from .parallel.mesh import make_scan_mesh
+
+        mesh = make_scan_mesh(db=config.mesh_db, sp=config.mesh_sp, devices=devices)
+        return cls(m_bucket=config.m_bucket, mesh=mesh)
+
+    def __new__(cls, device: str | torch.device = "cuda", m_bucket: int = M_BUCKET,
+                mesh=None):
+        if mesh is None:
+            return super().__new__(cls)
+        from .parallel.database import ShardedScanner
+
+        return ShardedScanner(mesh, m_bucket=m_bucket)
+
+    def __init__(self, device: str | torch.device = "cuda", m_bucket: int = M_BUCKET,
+                 mesh=None):
+        # a ``mesh`` never reaches here: __new__ returned a ShardedScanner
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -193,10 +334,6 @@ class MSVScanner:
             torch.from_numpy(tok).to(self.device), lengths, num_sequences=b
         )
 
-    def stage_fasta(self, db: FastaDatabase) -> StagedDatabase:
-        tokens, lengths = db.encode()
-        return self.stage(tokens, lengths)
-
     def stage_device(
         self,
         tokens: torch.Tensor,
@@ -227,52 +364,6 @@ class MSVScanner:
                 num_sequences if num_sequences is not None else tokens.shape[0]
             ),
         )
-
-    def stage_bucketed(
-        self,
-        tokens: np.ndarray,
-        lengths: np.ndarray,
-        waste_factor: float = 0.25,
-    ) -> BucketedDatabase:
-        """Stage a ragged batch as length-sorted buckets (see
-        :class:`BucketedDatabase`). ``waste_factor`` caps per-sequence
-        padding: a bucket closes when the next (longer) sequence's length
-        exceeds the bucket's shortest, times ``1 + waste_factor`` and
-        rounded up to ``L_CHUNK``."""
-        tokens = np.asarray(tokens)
-        lengths = np.asarray(lengths, dtype=np.int32)
-        b = tokens.shape[0]
-        order = np.argsort(lengths, kind="stable")
-
-        buckets: list[StagedDatabase] = []
-        bucket_order: list[np.ndarray] = []
-        start = 0
-        while start < b:
-            lo = max(int(lengths[order[start]]), 1)
-            cap = msv_cuda.round_up(max(int(lo * (1.0 + waste_factor)), 1), L_CHUNK)
-            end = start
-            while end < b and lengths[order[end]] <= cap:
-                end += 1
-            idx = order[start:end]
-            l_max = max(int(lengths[idx].max()), 1)
-            buckets.append(self.stage(tokens[idx, :l_max], lengths[idx]))
-            bucket_order.append(idx)
-            start = end
-        return BucketedDatabase(buckets=buckets, order=bucket_order, num_sequences=b)
-
-    def scan_bucketed(
-        self, profile: MSVProfile, bucketed: BucketedDatabase, mode: str = "exact"
-    ) -> np.ndarray:
-        """Score every sequence of a bucketed database -> f32 [B] host
-        array in the original order: :meth:`scan` a bucket, or with
-        ``mode="filter"`` :meth:`scan_filter`."""
-        if mode not in ("exact", "filter"):
-            raise ValueError(f"mode must be 'exact' or 'filter', got {mode!r}")
-        scan = self.scan if mode == "exact" else self.scan_filter
-        out = np.empty(bucketed.num_sequences, dtype=np.float32)
-        for staged, idx in zip(bucketed.buckets, bucketed.order):
-            out[idx] = scan(profile, staged).cpu().numpy()
-        return out
 
     # -- profile upload (cached) ----------------------------------------
     def _device_profile(self, profile: MSVProfile):
@@ -333,23 +424,9 @@ class MSVScanner:
         pack = msv_cuda.pack_stacked(group, m_pad, self.device, filter_mode=mode == "filter")
         return self._cache_put(key, group, pack)
 
-    def scan_many(
-        self, profiles: list[MSVProfile], staged: StagedDatabase, mode: str = "exact"
-    ) -> dict[str, np.ndarray]:
-        """Sweep: score the staged database against many profiles -> {name:
-        f32 [B] host array}.
-
-        On the card, profiles that fall in one register case of the MSV
-        kernel (``msv_cuda.kernel_case``) run as one stacked launch, one
-        grid row a profile, and those past it (the rows-in-memory case) one
-        launch a padded width; on the CPU the plain version groups them by
-        padded width, which has no cap. Each group's stacked pack is
-        cached. ``mode="filter"``
-        scans the bf16 round-up tables instead (:meth:`scan_filter`'s
-        upper bounds). Each profile's scores equal its single-profile
-        scan's bit for bit."""
-        if mode not in ("exact", "filter"):
-            raise ValueError(f"mode must be 'exact' or 'filter', got {mode!r}")
+    def _many(self, profiles: list[MSVProfile], staged, mode: str) -> list:
+        """:meth:`scan_many`'s stacked launches: ``[(group, scores [P, B]
+        on the device)]``, one a group of profiles, nothing synchronized."""
         _wait_ready(staged)
 
         def case(m_pad):
@@ -363,29 +440,14 @@ class MSVScanner:
         for p in profiles:
             m_pad = msv_cuda.round_up(p.num_states, self.m_bucket)
             groups.setdefault(case(m_pad), []).append(p)
-        results: dict[str, np.ndarray] = {}
+        launched = []
         for _, group in sorted(groups.items()):
             emit, tr_consts = self._stacked_pack(tuple(group), mode)
             scores = msv_cuda.msv_stacked_scan(
                 emit, staged.tokens, staged.lengths, staged.tr_rows, tr_consts
             )
-            out = scores[:, : staged.num_sequences].cpu().numpy()
-            for p, row in zip(group, out):
-                results[p.name] = row
-        return results
-
-    def scan_many_bucketed(
-        self, profiles: list[MSVProfile], bucketed: BucketedDatabase, mode: str = "exact"
-    ) -> dict[str, np.ndarray]:
-        """:meth:`scan_many` over a length-bucketed database: the stacked
-        launches a bucket, scores scattered back to the original order."""
-        results = {
-            p.name: np.empty(bucketed.num_sequences, dtype=np.float32) for p in profiles
-        }
-        for staged, idx in zip(bucketed.buckets, bucketed.order):
-            for name, scores in self.scan_many(profiles, staged, mode=mode).items():
-                results[name][idx] = scores
-        return results
+            launched.append((group, scores[:, : staged.num_sequences]))
+        return launched
 
     # -- full-profile stages -------------------------------------------
     def _p7_pack(self, p7: P7Profile, stage: str) -> p7_cuda.P7Pack:
@@ -463,13 +525,15 @@ class SideStreamStager:
     block back to the side stream while the consumer's kernels read it, and
     a ring slot is rewritten only after the event of its last copy. Making
     the stream or pinning a buffer raises on failure. On the CPU it is
-    ``scanner.stage``.
+    ``scanner.stage``. A ``parallel.database.ShardedScanner``'s stager is
+    ``parallel.database.ShardedStager``.
     """
 
     def __init__(self, scanner: MSVScanner):
         self.scanner = scanner
         self.batches = 0  # batches staged on the side stream
         self.stream: torch.cuda.Stream | None = None
+        self.consumer: torch.cuda.Stream | None = None
         if scanner.device.type == "cuda":
             # made on the consumer's thread: its stream is the current one
             self.consumer = torch.cuda.current_stream(scanner.device)
@@ -525,6 +589,16 @@ def _viterbi_filter(pack: p7_cuda.P7FilterPack, staged: StagedDatabase) -> torch
         *pack[:4], staged.tokens, staged.lengths, staged.tr_rows, pack.consts, m, i, d, s,
         pack.window, pack.e_skip_d,
     )[0]
+
+
+def _by_name(launched: list) -> dict[str, np.ndarray]:
+    """{profile name: f32 [B] host array} of a scanner's ``_many``
+    launches."""
+    results: dict[str, np.ndarray] = {}
+    for group, scores in launched:
+        for p, row in zip(group, scores.cpu().numpy()):
+            results[p.name] = row
+    return results
 
 
 def _same(held, obj) -> bool:

@@ -77,9 +77,9 @@ def test_only_msv_stage():
 def test_fast_and_sweep_flags():
     """scan takes --fast, --bucketed and --stream N; sweep takes --hmm-dir
     or --hmm-db, --stage msv|search, --fast, --bucketed, --stream N and
-    --checkpoint DIR [--checkpoint-shard N], with the common flags (--config
-    and --profile-trace among them); neither offers the flags of later
-    slices (--mesh, --fused)."""
+    --checkpoint DIR [--checkpoint-shard N], with the common flags (--config,
+    --profile-trace and --mesh among them); neither offers the flag of a
+    later slice (--fused)."""
     parser = port_cli.build_parser()
     base = ["scan", "--hmm", "x.hmm", "--fasta", "y.fsa"]
     assert parser.parse_args([*base, "--stage", "search", "--fast"]).fast
@@ -103,6 +103,10 @@ def test_fast_and_sweep_flags():
     sweep = parser.parse_args(["sweep", "--hmm-dir", "d", "--fasta", "y.fsa", "--config",
                                "c.json", "--profile-trace", "t"])
     assert (sweep.config, sweep.profile_trace) == ("c.json", "t")
-    for flag in (["--mesh", "4"], ["--fused"], ["--stage", "viterbi"]):
+    assert parser.parse_args([*base, "--mesh", "db=2,sp=4"]).mesh == "db=2,sp=4"
+    assert parser.parse_args(["sweep", "--hmm-dir", "d", "--fasta", "y.fsa", "--mesh",
+                              "db=2,sp=4"]).mesh == "db=2,sp=4"
+    assert parser.parse_args(base).mesh is None
+    for flag in (["--fused"], ["--stage", "viterbi"]):
         with pytest.raises(SystemExit):
             parser.parse_args(["sweep", "--hmm-dir", "d", "--fasta", "y.fsa", *flag])

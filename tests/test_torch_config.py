@@ -2,8 +2,8 @@
 `sweep`, read as the JAX CLI reads it: the cascade thresholds (msv_p,
 viterbi_p, forward_p) go to the search pipeline and m_bucket to the
 scanner; backend and l_chunk are knobs of the TPU kernels, ignored with a
-warning each; use_mesh is refused (the mesh is not ported); unknown keys
-raise.
+warning each; use_mesh builds the (mesh_db x mesh_sp) mesh and shards
+the scan over its db axis; unknown keys raise.
 
 MSV scores are bit-exact in both packages, so an msv-stage sweep under
 `--config` is byte-equal to the JAX CLI's; a search report's Forward p- and
@@ -198,14 +198,22 @@ def test_config_on_checkpointed_sweep(profile_dir, fasta, tmp_path):
 
 
 @pytest.mark.parametrize("command", ["scan", "sweep"])
-def test_use_mesh_exits_2(profile_dir, fasta, tmp_path, caplog, command):
-    cfg = _config(tmp_path, use_mesh=True, mesh_db=2)
+def test_use_mesh_builds_the_mesh(profile_dir, fasta, tmp_path, caplog, command):
+    """use_mesh with mesh_db 2 (mesh_sp 2: the db axis is what the scanner
+    shards, as in the JAX package) shards the scan over two CPU ranks; the
+    report is byte-equal to the run without a mesh."""
+    cfg = _config(tmp_path, use_mesh=True, mesh_db=2, mesh_sp=2, **THRESHOLDS)
+    plain_cfg = _config(tmp_path, "plain.json", **THRESHOLDS)
     target = ["--hmm"] if command == "scan" else ["--hmm-db"]
-    with caplog.at_level(logging.ERROR):
-        assert port_cli.main([command, *target, str(profile_dir / "100.hmm"), "--fasta",
-                              str(fasta), "--device", "cpu",
-                              "--config", str(cfg)]) == 2
-    assert "use_mesh" in caplog.text and "--mesh" in caplog.text
+    base = [command, *target, str(profile_dir / "100.hmm"), "--fasta", str(fasta), "--device",
+            "cpu", "--stage", "search"]
+    mesh, plain = tmp_path / "mesh.tsv", tmp_path / "plain.tsv"
+    with caplog.at_level(logging.INFO):
+        assert port_cli.main([*base, "--config", str(cfg), "--out", str(mesh)]) == 0
+    assert "mesh: {'db': 2, 'sp': 2}" in caplog.text
+    assert port_cli.main([*base, "--config", str(plain_cfg), "--out", str(plain)]) == 0
+    assert mesh.read_bytes() == plain.read_bytes()
+    assert sum(r["hit"] == "1" for r in _rows(plain)) > 0
 
 
 def test_unknown_config_key_exits_2(profile_dir, fasta, tmp_path, caplog):

@@ -62,6 +62,13 @@ assert cli.main(["info", "--hmm", sys.argv[3] + ".built.hmm", "--consensus",
                  "--out", sys.argv[3] + ".info"]) == 0
 assert cli.main(["generate", "--seed", "1", "--count", "2", "--length", "30",
                  "--out", sys.argv[3] + ".gen"]) == 0
+assert cli.main(["scan", "--device", "cpu", "--mesh", "db=2,sp=2", "--stage", "search",
+                 "--hmm", sys.argv[1], "--fasta", sys.argv[4],
+                 "--out", sys.argv[3] + ".sp_search"]) == 0
+assert cli.main(["scan", "--device", "cpu", "--mesh", "db=2", "--stage", "search",
+                 "--hmm", sys.argv[1], "--fasta", sys.argv[4],
+                 "--out", sys.argv[3] + ".db_search"]) == 0
+import hmm_fasta_viterbi_tpu_torch.parallel.dryrun
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "hmm_fasta_viterbi_tpu" or m.startswith("hmm_fasta_viterbi_tpu."))
 assert not loaded, loaded
@@ -73,8 +80,9 @@ def test_port_and_chip_smoke_import_no_jax(profile_dir, fasta_dir, tmp_path):
     run a CPU scan, a CPU search with and without --fast, a CPU search with
     --domains on a consensus hit, CPU sweeps, a streamed scan, a bucketed
     and a checkpointed sweep, a search with --align, --msa-out, --config
-    and --profile-trace, and emit, align, build, info and generate, and
-    find no jax module and no module of the JAX package loaded."""
+    and --profile-trace, emit, align, build, info and generate, and a
+    search on a db x sp mesh (the wavefront) and on a db mesh, and find no
+    jax module and no module of the JAX package loaded."""
     from hmm_fasta_viterbi_tpu_torch import parse_hmm
     from hmm_fasta_viterbi_tpu_torch.io.alphabet import AMINO_ACIDS
 
@@ -110,6 +118,9 @@ def test_port_and_chip_smoke_import_no_jax(profile_dir, fasta_dir, tmp_path):
     assert (tmp_path / "out.tsv.built.hmm").read_text().startswith("HMMER3/b")
     assert (tmp_path / "out.tsv.info").read_text().count("\n") == 2
     assert (tmp_path / "out.tsv.gen").read_text().count(">") == 2
+    search = (tmp_path / "out.tsv.sp_search").read_bytes()
+    assert search.startswith(b"# target\tprofile\tmsv_bits") and b"consensus" in search
+    assert (tmp_path / "out.tsv.db_search").read_bytes() == search
 
 
 def _jax_package_imports(path: pathlib.Path) -> list[str]:
@@ -127,18 +138,24 @@ def _jax_package_imports(path: pathlib.Path) -> list[str]:
 
 
 def test_no_file_of_the_port_imports_the_jax_package():
-    """An AST scan of every .py file of the port, of chip_smoke.py and of
-    the port's timing tools finds no import of hmm_fasta_viterbi_tpu (or
-    jax), at any depth."""
+    """An AST scan of every .py file of the port (its parallel/ package
+    among them), of chip_smoke.py and of the port's tools (the timing
+    tools, the multi-process smoke) finds no import of hmm_fasta_viterbi_tpu
+    (or jax), at any depth."""
     files = sorted(PORT_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py",
                                               REPO_ROOT / "tools" / "torch_p7_timing.py",
-                                              REPO_ROOT / "tools" / "torch_msv_timing.py"]
+                                              REPO_ROOT / "tools" / "torch_msv_timing.py",
+                                              REPO_ROOT / "tools" / "torch_multihost_smoke.py"]
     assert len(files) > 20
     assert {f.name for f in files} >= {"hmmio.py", "loader.py", "reference.py", "stats.py",
                                        "posterior_cuda.py", "chip_smoke.py",
                                        "torch_p7_timing.py", "torch_msv_timing.py",
                                        "traceback.py", "msaio.py", "hmmwrite.py", "build.py",
                                        "generate.py", "config.py"}
+    parallel = sorted((PORT_DIR / "parallel").glob("*.py"))
+    assert {f.name for f in parallel} == {"__init__.py", "mesh.py", "database.py",
+                                          "seqblocks.py", "dryrun.py"}
+    assert set(parallel) <= set(files)
     runtime = sorted((PORT_DIR / "runtime").glob("*.py"))
     assert {f.name for f in runtime} == {"__init__.py", "checkpoint.py", "config.py",
                                          "profiling.py"}
