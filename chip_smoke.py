@@ -179,7 +179,24 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
 14. fuzzed profiles (FUZZ_SEEDS of the JAX suite's generator, the port's
    copy models/fuzz.py) through every kernel against its plain version on
    a ragged batch (B1-B10, B4 and B6 also without e_skip_d, B3 over all
-   of them).
+   of them);
+15. the fused cascade on phase 9's database, each CLI run with every launch
+   count set to 0 just before it and read just after: `scan --stage search
+   --fused` (B2, B1, B6, B7 and B5 launched once each and nothing else, the
+   search line's `(fused)`, the report byte-equal to phase 9's `--fast`
+   report, the hits phase 9's search's), `--fused --domains` (the hit rows
+   phase 9's `--domains` report's, every planted row a hit with its
+   envelope inside it), `--fused --stream 4096` (byte-equal to the
+   whole-file `--fused` report, the fused cascade on each of the 4
+   batches), `--fused --bucketed` exit 2; FUSED_OVERFLOW consensus copies of
+   1400.hmm through SearchPipeline(fused=True) (the capacity overflow
+   logged, the staged cascade's result); the fused chain of a warm search
+   enqueued under torch.cuda.set_sync_debug_mode("error"), the host's
+   enqueue time and the survivor counts n1, n2, n3 printed; best-of-3
+   times of the fused search and the staged `--fast` search on one staged
+   batch, by the host clock around `search` and by CUDA events around each
+   stage's scan (the results equal field for field), beside the card's
+   name and power limit.
 
 Prints a JSON line about the kernels (every case, the wide ones as
 `<kernel>_wide`, the rows-in-memory ones as `<kernel>_mem`), then the card's
@@ -225,7 +242,9 @@ from hmm_fasta_viterbi_tpu_torch.parallel.mesh import make_scan_mesh
 from hmm_fasta_viterbi_tpu_torch.parallel.seqblocks import (
     SeqblockScanner, block_length, msv_scan_seqblocks, p7_scan_seqblocks,
 )
-from hmm_fasta_viterbi_tpu_torch.pipeline import SearchPipeline, forward_scores, viterbi_scores
+from hmm_fasta_viterbi_tpu_torch.pipeline import (
+    SearchPipeline, forward_scores, fused_cascade, fused_caps, viterbi_scores,
+)
 from hmm_fasta_viterbi_tpu_torch.runtime import profiling
 
 REPO = pathlib.Path(__file__).resolve().parent
@@ -305,6 +324,9 @@ MESH_DB, MESH_SP = 4, 4
 FUZZ_SEEDS = ((100, 60), (101, 60), (102, 60), (200, 40), (201, 40), (300, 40), (301, 40),
               (400, 30))
 FUZZ_BATCH, FUZZ_LEN = 32, 300
+# phase 15: the JAX suite's overflow batch (consensus copies of the profile:
+# every row survives every stage, past cap1 = 128 at this B)
+FUSED_OVERFLOW = 200
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): FP32 outside the
 # tensor cores and HBM3 bandwidth, for each kernel's bound
@@ -2506,6 +2528,206 @@ def subcommand_paths(tmp: pathlib.Path) -> None:
     host_commands(tmp)
 
 
+# -- the fused cascade (phase 15) ----------------------------------------------
+
+# the kernels of the fused cascade on 1400.hmm (e_skip_d holds: the lazy
+# Viterbi), in the order it launches them
+FUSED_KERNELS = ("msv_filter_scan", "msv_scan", "viterbi_filter_scan", "viterbi_lazy_scan",
+                 "forward_prob_scan")
+# a stage scan of the scanner -> the kernel it launches there
+STAGE_KERNELS = {"scan_filter": "B2", "scan": "B1", "scan_p7_filter": "B6",
+                 "viterbi": "B7", "forward": "B5"}
+
+
+class StageEvents:
+    """CUDA events around each stage scan a search makes (the scanner's
+    ``scan_filter``, ``scan``, ``scan_p7_filter`` and ``scan_p7``, wrapped
+    on the instance while entered): each stage's ms, and the span from the
+    first stage's start to the last one's end; and the host's seconds in
+    each stage's call (``host``)."""
+
+    def __init__(self, scanner):
+        self.scanner = scanner
+        self.marks: list = []
+        self.host = dict.fromkeys(STAGE_KERNELS.values(), 0.0)
+
+    def __enter__(self):
+        for name in ("scan_filter", "scan", "scan_p7_filter", "scan_p7"):
+            setattr(self.scanner, name, self._timed(name, getattr(self.scanner, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("scan_filter", "scan", "scan_p7_filter", "scan_p7"):
+            delattr(self.scanner, name)
+
+    def _timed(self, name, fn):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            stage = kwargs.get("stage", "viterbi") if name == "scan_p7" else name
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.host[STAGE_KERNELS[stage]] += time.perf_counter() - t0
+            self.marks.append((stage, start, end))
+            return out
+        return run
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        out = dict.fromkeys(STAGE_KERNELS.values(), 0.0)
+        for stage, start, end in self.marks:
+            out[STAGE_KERNELS[stage]] += start.elapsed_time(end)
+        out["span"] = self.marks[0][1].elapsed_time(self.marks[-1][2])
+        return out
+
+
+def time_search(pipeline, hmm, staged, tokens, lengths):
+    """Best of 3 after a warm-up: the host clock around ``pipeline.search``
+    (its read-backs included) and, per stage, the CUDA events of
+    :class:`StageEvents`. Returns (seconds, {stage: ms}, the last result)."""
+    pipeline.search(hmm, staged, tokens, lengths)
+    best_s, best_ms = float("inf"), {}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with StageEvents(pipeline.scanner) as events:
+            t0 = time.perf_counter()
+            result = pipeline.search(hmm, staged, tokens, lengths)
+            best_s = min(best_s, time.perf_counter() - t0)
+        for k, v in events.ms().items():
+            best_ms[k] = min(best_ms.get(k, float("inf")), v)
+    return best_s, best_ms, result
+
+
+def same_results(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f.name), getattr(b, f.name), equal_nan=True)
+               for f in dataclasses.fields(a))
+
+
+def fused_cli(tmp: pathlib.Path) -> None:
+    """`scan --stage search --fused` and its compositions on phase 9's
+    database and reports."""
+    fasta, hmm = tmp / "headline.fsa", str(PROFILES / "1400.hmm")
+    common = ["scan", "--stage", "search", "--fused", "--hmm", hmm, "--fasta", str(fasta),
+              "--device", DEVICE]
+    out = tmp / "search_fused.tsv"
+    got, e2e, secs, messages = run_cli_logged([*common, "--out", str(out)])
+    require(nonzero(got) == dict.fromkeys(FUSED_KERNELS, 1),
+            f"--fused launched {nonzero(got)}, expected each of {FUSED_KERNELS} once")
+    line = next(m for m in messages if m.startswith("search "))
+    require(" (fused): " in line, f"--fused did not run the fused cascade: {line}")
+    require(out.read_bytes() == (tmp / "search_fast.tsv").read_bytes(),
+            "the --fused report differs from phase 9's --fast report")
+    require(set(hit_rows(out)) == set(hit_rows(tmp / "search.tsv")),
+            "the --fused hits differ from phase 9's search's")
+    print(f"fused search: {line}; report byte-equal to --fast's, hits the search's; "
+          f"launches {nonzero(got)}")
+    print_seconds("fused search", secs, e2e)
+
+    dom = tmp / "domains_fused.tsv"
+    got, e2e, secs, _ = run_cli_logged([*common, "--domains", "--out", str(dom)])
+    hits = hit_rows(dom)
+    require(hits == hit_rows(tmp / "domains.tsv"),
+            "the --fused --domains hit rows differ from phase 9's --domains report's")
+    for row in planted_rows().tolist():
+        r = hits.get(f"seq{row}")
+        require(r is not None, f"--fused --domains: planted row {row} not a hit")
+        env_from, env_to, ndom = (int(x) for x in r.split("\t")[8:11])
+        require(ndom >= 1 and 1 <= env_from <= env_to <= SEQ_LEN,
+                f"--fused --domains: planted row {row} envelope {env_from}-{env_to} x{ndom}")
+    print(f"fused search --domains: {len(hits)} hit rows equal to phase 9's --domains "
+          f"report's, every planted row a hit with an envelope; launches {nonzero(got)}")
+    print_seconds("fused search --domains", secs, e2e)
+
+    streamed = tmp / "search_fused_stream.tsv"
+    got, e2e, secs, messages = run_cli_logged(
+        [*common, "--stream", str(STREAM_BATCH), "--out", str(streamed)])
+    batches = -(-BATCH // STREAM_BATCH)
+    require(streamed.read_bytes() == out.read_bytes(),
+            "--fused --stream: the report differs from the whole-file --fused one")
+    line = next(m for m in messages if m.startswith("streamed search ") and "past MSV" in m)
+    require(line.endswith(f", the fused cascade on {batches} batches"),
+            f"--fused --stream: {line}")
+    require(nonzero(got) == dict.fromkeys(FUSED_KERNELS, batches),
+            f"--fused --stream launched {nonzero(got)}")
+    print(f"fused search --stream {STREAM_BATCH}: byte-equal to the whole-file --fused "
+          f"report; {line}; launches {nonzero(got)}")
+    print_seconds("fused search --stream", secs, e2e)
+
+    zero_launches()
+    rc = cli.main([*common, "--bucketed", "--out", str(tmp / "refused.tsv")])
+    require(rc == 2 and not nonzero(launches()), f"--fused --bucketed exited {rc}")
+    print("fused search --bucketed: exit 2, nothing launched")
+
+
+def fused_library(tmp: pathlib.Path, scanner) -> None:
+    """The capacity overflow, the sync check and the timings of
+    SearchPipeline(fused=True) on phase 9's database."""
+    hmm = load_profile(PROFILES / "1400.hmm")
+    consensus = np.argmax(hmm.match_emissions[1:], axis=1)
+    tokens = np.tile(consensus, (FUSED_OVERFLOW, 1)).astype(np.int32)
+    lengths = np.full(FUSED_OVERFLOW, len(consensus), dtype=np.int32)
+    staged = scanner.stage(tokens, lengths)
+    handler = _Records()
+    package = logging.getLogger("hmm_fasta_viterbi_tpu_torch")
+    package.addHandler(handler)
+    pipeline = SearchPipeline(scanner, fused=True)
+    try:
+        got = pipeline.search(hmm, staged, tokens, lengths)
+    finally:
+        package.removeHandler(handler)
+    line = next((r.getMessage() for r in handler.records
+                 if "capacity overflow" in r.getMessage()), None)
+    require(line is not None and pipeline.fused_runs == 0,
+            f"{FUSED_OVERFLOW} consensus copies: no capacity overflow logged")
+    require(same_results(got, SearchPipeline(scanner).search(hmm, staged, tokens, lengths)),
+            "the overflow's result differs from the staged cascade's")
+    print(f"fused overflow ({FUSED_OVERFLOW} consensus copies, caps "
+          f"{fused_caps(FUSED_OVERFLOW, pipeline.msv_p)}): {line}; the staged result, "
+          f"{got.hits.size} hits")
+
+    tokens, lengths = load_fasta(tmp / "headline.fsa").encode()
+    staged = scanner.stage(tokens, lengths)
+    fused = SearchPipeline(scanner, fused=True)
+    result = fused.search(hmm, staged, tokens, lengths)  # warm: packs and thresholds cached
+    msv_profile, p7 = fused._derived(hmm)
+    thresholds, caps = fused._fused_thresholds(hmm), fused_caps(len(lengths), fused.msv_p)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with StageEvents(scanner) as events:
+            t0 = time.perf_counter()
+            out = fused_cascade(scanner, msv_profile, p7, staged, thresholds, caps)
+            enqueue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = {k: int(out[k]) for k in ("n1", "n2", "n3")}
+    require(counts["n2"] == int(result.passed_msv.sum()) >= PLANTED,
+            f"fused survivors {counts} against {int(result.passed_msv.sum())} past MSV")
+    stages = ", ".join(f"{k} {v * 1e3:.3f}" for k, v in events.host.items())
+    print(f"fused chain enqueued under set_sync_debug_mode('error'): no host sync; enqueue "
+          f"{enqueue_s * 1e3:.3f} ms on the host (in the stage calls, ms: {stages}; the "
+          f"compactions the rest); device span {events.ms()['span']:.3f} ms; survivors "
+          f"{counts}, caps {caps}")
+
+    fast = SearchPipeline(scanner, fast_msv=True, fast_viterbi=True)
+    fused_s, fused_ms, fused_result = time_search(fused, hmm, staged, tokens, lengths)
+    fast_s, fast_ms, fast_result = time_search(fast, hmm, staged, tokens, lengths)
+    require(fused.fused_runs == 5, f"the fused search ran fused {fused.fused_runs} of 5 times")
+    require(same_results(fused_result, fast_result),
+            "the fused search's result differs from the fast search's")
+    card = nvidia_smi("name,power.limit")
+    for label, sec, ms in (("fused", fused_s, fused_ms), ("--fast", fast_s, fast_ms)):
+        stages = ", ".join(f"{k} {v:.3f}" for k, v in ms.items() if k != "span")
+        print(f"search timing {label} ({card}; {BATCH} x {SEQ_LEN} vs 1400.hmm, best of 3): "
+              f"host {sec * 1e3:.3f} ms around search; stage kernels ms: {stages}; first stage "
+              f"start to last stage end {ms['span']:.3f} ms")
+    print(f"search timing: fused/--fast host {fused_s / fast_s:.3f}; results equal field for "
+          f"field; {int(fast_result.passed_msv.sum())} past MSV, "
+          f"{int(fast_result.passed_viterbi.sum())} past Viterbi, {fast_result.hits.size} hits")
+
+
 # -- the device mesh (phase 13) -----------------------------------------------
 
 def mesh_of(db: int, sp: int = 1):
@@ -3176,8 +3398,12 @@ def main() -> int:
                    "dryrun_multichip"):
             mesh_paths(tmp, scanner, errors)
 
-    with Phase("14. fuzzed profiles: every kernel vs plain"):
-        fuzz_kernels_vs_plain(scanner, errors)
+        with Phase("14. fuzzed profiles: every kernel vs plain"):
+            fuzz_kernels_vs_plain(scanner, errors)
+
+        with Phase("15. the fused cascade: scan --stage search --fused"):
+            fused_cli(tmp)
+            fused_library(tmp, scanner)
 
     times = {"msv_scan": (msv_ms["1400"], msv_ms["plain"]), "msv_filter_scan": msv_ms["filter"],
              "msv_stacked_scan": sweep_ms["sweep24"], **post_ms, **wide_ms, **mem_ms,

@@ -1,7 +1,7 @@
 """Command-line interface of the PyTorch port.
 
     python -m hmm_fasta_viterbi_tpu_torch scan --hmm P.hmm --fasta DB.fsa
-        [--stage msv|viterbi|forward|search] [--fast] [--domains]
+        [--stage msv|viterbi|forward|search] [--fast] [--fused] [--domains]
         [--align [--msa-out FILE]] [--bucketed | --stream N]
         [--config FILE] [--profile-trace DIR] [--mesh db=N[,sp=M]]
     python -m hmm_fasta_viterbi_tpu_torch sweep --hmm-dir DIR | --hmm-db FILE
@@ -17,10 +17,13 @@
     python -m hmm_fasta_viterbi_tpu_torch generate --out random.fsa [--count N]
 
 ``hmm_fasta_viterbi_tpu``'s commands with the same flags and the same
-reports, apart from its ``--fused``. ``scan`` reports one
+reports, its ``--backend`` answered by ``--device``. ``scan`` reports one
 stage's scores, or (``--stage search``) the MSV -> Viterbi -> Forward
 cascade with a row for every MSV survivor (``--fast``: behind the
-upper-bound MSV and Viterbi prefilters; ``--domains``: each reported hit's
+upper-bound MSV and Viterbi prefilters; ``--fused``: the whole cascade,
+both prefilters included, enqueued on the device with the survivors
+compacted there and read back once, the staged cascade's hits and
+``--fast``'s report; ``--domains``: each reported hit's
 posterior envelope and domains, each domain rescored by Forward;
 ``--align``: each hit's Viterbi alignments, traced back on the host, and
 with ``--msa-out`` one Stockholm MSA of them); a sweep scores many profiles
@@ -503,8 +506,9 @@ def _make_scanner(args, device):
 
 
 def _make_pipeline(args, scanner) -> SearchPipeline:
-    """The cascade with ``--fast``'s prefilters and ``--config``'s thresholds."""
-    kw = dict(fast_msv=args.fast, fast_viterbi=args.fast)
+    """The cascade with ``--fast``'s prefilters, ``scan --fused`` and
+    ``--config``'s thresholds."""
+    kw = dict(fast_msv=args.fast, fast_viterbi=args.fast, fused=getattr(args, "fused", False))
     cfg = args.engine_config
     if cfg is not None:
         kw.update(msv_p=cfg.msv_p, viterbi_p=cfg.viterbi_p, forward_p=cfg.forward_p)
@@ -536,10 +540,14 @@ def cmd_scan(args) -> int:
         # the wavefront has no buckets, no stream and no prefilters: refuse
         # rather than run the plain cascade under a flag the user asked for
         for flag, given in (("--stream", args.stream), ("--bucketed", args.bucketed),
-                            ("--fast", args.fast and args.stage == "search")):
+                            ("--fast", args.fast and args.stage == "search"),
+                            ("--fused", args.fused and args.stage == "search")):
             if given:
                 logger.error("%s does not compose with --mesh sp>1", flag)
                 return 2
+    if args.fused and args.bucketed and args.stage == "search":
+        logger.error("--fused does not compose with --bucketed")
+        return 2
     if args.stream:
         if args.bucketed:
             logger.error("--stream does not compose with --bucketed")
@@ -583,8 +591,9 @@ def _scan_whole_file(args, device) -> int:
         phases = dict(pipeline.phase_seconds)
         t_scanned = time.perf_counter()
         logger.info(
-            "search %s: %d seqs -> %d past MSV -> %d past Viterbi -> %d hits (%.3fs)",
-            hmm.name, len(db), int(result.passed_msv.sum()),
+            "search %s%s: %d seqs -> %d past MSV -> %d past Viterbi -> %d hits (%.3fs)",
+            hmm.name, " (fused)" if pipeline.fused_runs else "", len(db),
+            int(result.passed_msv.sum()),
             int(result.passed_viterbi.sum()), int(result.passed_forward.sum()),
             t_scanned - t0,
         )
@@ -816,9 +825,10 @@ def _cmd_search_stream(args, device) -> int:
     dt = time.perf_counter() - t0
     logger.info(
         "streamed search %s: %d seqs -> %d past MSV -> %d past Viterbi "
-        "-> %d hits (%.3fs, %.2f GCUPS msv-equivalent)",
+        "-> %d hits (%.3fs, %.2f GCUPS msv-equivalent)%s",
         hmm.name, total_seqs, len(agg.headers), agg.n_vit, agg.n_fwd, dt,
         total_cells / dt / 1e9,
+        f", the fused cascade on {pipeline.fused_runs} batches" if args.fused else "",
     )
     phases = dict(pipeline.phase_totals)
     t_report = time.perf_counter()
@@ -1244,6 +1254,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="scoring stage, or search: the MSV -> Viterbi -> Forward cascade",
     )
     scan.add_argument("--fast", action="store_true", help=_FAST_HELP)
+    scan.add_argument(
+        "--fused", action="store_true",
+        help="search stage: enqueue the whole cascade on the device (prefilters, survivor "
+        "compaction and rescoring), one read-back; identical hits",
+    )
     scan.add_argument(
         "--domains", action="store_true",
         help="search stage: posterior-decode an alignment envelope per hit",

@@ -10,8 +10,10 @@ host-staged single-stage entry (``select_p7_fns``, ``viterbi_scores``,
 ``forward_scores``, ``viterbi_filter_scores``) and the hmmsearch-style
 ``SearchPipeline`` (MSV -> Viterbi -> Forward, each stage rescoring the
 survivors of the one before, optionally behind the upper-bound MSV and
-Viterbi prefilters); and the streamed producer's stager,
-``SideStreamStager``. Differences that follow from the device:
+Viterbi prefilters, or with ``fused=True`` the whole cascade enqueued on
+the device: ``fused_cascade``, ``compact_rows``, ``fused_caps``); and the
+streamed producer's stager, ``SideStreamStager``. Differences that follow
+from the device:
 
 * the device is named by the caller (``"cuda"``, ``"cuda:1"``, ``"cpu"``);
   nothing picks the CPU when CUDA is missing, and a CUDA scanner without
@@ -47,7 +49,13 @@ Viterbi prefilters); and the streamed producer's stager,
   ``parallel.database.ShardedScanner``: one single-device scanner a
   device of a ``parallel.mesh.ScanMesh``, each batch staged as one row
   slice a db shard and the scores gathered in row order; a score depends
-  only on its own row, so every stage equals this scanner's bit for bit.
+  only on its own row, so every stage equals this scanner's bit for bit;
+* the fused cascade compacts survivors with a cumsum, a scatter and
+  gathers (the TPU's one-hot matmuls are not needed), returns each
+  compaction's batch rows rather than replaying its threshold compares on
+  the host, and runs every stage at the batch's own width: the kernels
+  stop at each sequence's length, so its Forward equals the staged one's
+  bit for bit.
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import logging
+import math
 import time
 
 import numpy as np
@@ -67,6 +77,8 @@ from .models.p7 import P7Profile
 
 from .ops import msv_cuda, p7_cuda
 from .runtime.profiling import phase
+
+logger = logging.getLogger(__name__)
 
 # M row padding of the port's profile packs and carries (as the JAX XLA
 # path's); the kernel pads further to its lane tile internally
@@ -678,6 +690,138 @@ def select_p7_fns(device="cuda"):
     )
 
 
+# -- the fused cascade (``_fused_cascade`` of the JAX package) ---------------
+
+# the JAX package's lane tile (pallas_msv.LANES): its batch padding, which
+# its survivor capacities are computed on, and the Viterbi stage's cap
+FUSED_LANES = 128
+
+
+def gumbel_score_threshold(p: float, mu: float, lam: float) -> float:
+    """Smallest nat score with Gumbel P-value <= p (exact f64 inverse):
+    pv(b) <= p  <=>  b_bits >= mu - ln(-ln(1-p)) / lambda."""
+    bits = mu - math.log(-math.log1p(-p)) / lam
+    return bits * math.log(2.0)
+
+
+def _conservative_f32(x: float) -> np.float32:
+    """One-ulp-down f32 threshold: device pruning with it passes a superset
+    of what the host's exact f64 decision passes (the extras are rescored
+    and decided again on the host: never a lost hit)."""
+    return np.nextafter(np.float32(x), np.float32(-np.inf), dtype=np.float32)
+
+
+def fused_caps(num_sequences: int, msv_p: float) -> tuple[int, int, int]:
+    """The survivor capacities ``(cap1, cap2, cap3)`` of the fused cascade
+    after the MSV filter, the exact MSV and the Viterbi filter: the JAX
+    package's formula on its batch padding, so that the port overflows
+    where it does."""
+    b_pad = msv_cuda.round_up(max(num_sequences, 1), FUSED_LANES)
+    cap1 = int(np.clip(msv_cuda.round_up(int(b_pad * msv_p * 6) + 64, FUSED_LANES),
+                       FUSED_LANES, b_pad))
+    cap2 = int(np.clip(msv_cuda.round_up(int(b_pad * msv_p * 2) + 64, FUSED_LANES),
+                       FUSED_LANES, cap1))
+    return cap1, cap2, min(cap2, FUSED_LANES)
+
+
+def compact_rows(alive: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``alive [B]`` bool -> ``(index [cap] int64, n)``: the rows of the
+    first ``cap`` survivors in their order, -1 in the slots left empty, and
+    the survivor count ``n`` (a 0-dim tensor, which may exceed ``cap``).
+    Torch ops on ``alive``'s device that never wait for it: a survivor
+    goes to slot ``cumsum - 1``, and one past ``cap`` to a trash slot."""
+    pos = torch.cumsum(alive, dim=0) - 1
+    slot = torch.where(alive & (pos < cap), pos, cap)
+    index = torch.full((cap + 1,), -1, dtype=torch.int64, device=alive.device)
+    index.scatter_(0, slot, torch.arange(alive.shape[0], device=alive.device))
+    return index[:cap], alive.sum()
+
+
+def _gather_rows(staged: StagedDatabase, index: torch.Tensor) -> StagedDatabase:
+    """The rows ``index`` of a staged batch (:func:`compact_rows`) staged as
+    a batch of their own at the same width; an empty slot (-1) becomes a
+    sequence of length 0 (tr_loop -inf, p_move 1), which every kernel
+    leaves at its row-0 carry."""
+    valid = index >= 0
+    rows = index.clamp(min=0)
+    lengths = torch.where(valid, staged.lengths.index_select(0, rows), 0)
+    tr = staged.tr_rows.index_select(1, rows)
+    probs = staged.tr_probs.index_select(1, rows)
+    return StagedDatabase(
+        tokens=_blank_tail(staged.tokens.index_select(0, rows), lengths),
+        lengths=lengths,
+        tr_rows=torch.stack([torch.where(valid, tr[0], msv_cuda.NEG_INF),
+                             torch.where(valid, tr[1], 0.0)]),
+        tr_probs=torch.stack([torch.where(valid, probs[0], 0.0),
+                              torch.where(valid, probs[1], 1.0)]),
+        num_sequences=index.shape[0],
+    )
+
+
+def _through(index: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The batch rows of a compaction's slots, given the batch rows
+    ``rows`` of the slots it compacted; -1 stays -1."""
+    return torch.where(index >= 0, rows.index_select(0, index.clamp(min=0)), -1)
+
+
+def fused_cascade(
+    scanner: MSVScanner, msv_profile: MSVProfile, p7: P7Profile, staged: StagedDatabase,
+    thresholds: torch.Tensor, caps: tuple[int, int, int],
+) -> dict[str, torch.Tensor]:
+    """The whole cascade enqueued on the scanner's device, nothing read
+    back: the MSV filter over the batch, then each stage on the survivors
+    of the one before, compacted on the device (:func:`compact_rows`) and
+    rescored through the scanner's own launch paths: the exact MSV, the
+    Viterbi filter, then the Viterbi (lazy or eager, as
+    ``MSVScanner._p7_pack`` picks) and the Forward, both on every row that
+    passes the Viterbi filter.
+
+    ``thresholds`` is the device f32 ``[msv, viterbi]`` one-ulp-low nat
+    thresholds (:func:`_conservative_f32`); ``caps`` the slots after each
+    of the three prunings (:func:`fused_caps`). A compaction holds at most
+    as many slots as rows reach it, and one that overflows its cap keeps
+    the first survivors. Returns device tensors: ``filt [B]``, and for
+    each pruning k = 1, 2, 3 the survivor count ``n<k>`` and the batch row
+    of each slot, ``rows<k>`` (-1 empty), with the scores on those slots:
+    ``exact1``, ``vfilt``, ``vit``, ``fwd``. CPU tensors run the plain
+    versions."""
+    _wait_ready(staged)
+    cap1, cap2, cap3 = caps
+    filt = scanner.scan_filter(msv_profile, staged)
+    alive = (filt >= thresholds[0]) & (staged.lengths[: staged.num_sequences] > 0)
+    index1, n1 = compact_rows(alive, min(cap1, alive.shape[0]))
+    sub1 = _gather_rows(staged, index1)
+    exact1 = scanner.scan(msv_profile, sub1)
+    index2, n2 = compact_rows((exact1 >= thresholds[0]) & (index1 >= 0),
+                              min(cap2, index1.shape[0]))
+    sub2 = _gather_rows(sub1, index2)
+    vfilt = scanner.scan_p7_filter(p7, sub2)
+    index3, n3 = compact_rows((vfilt >= thresholds[1]) & (index2 >= 0),
+                              min(cap3, index2.shape[0]))
+    sub3 = _gather_rows(sub2, index3)
+    rows2 = _through(index2, index1)
+    return {
+        "filt": filt, "n1": n1, "rows1": index1, "exact1": exact1,
+        "n2": n2, "rows2": rows2, "vfilt": vfilt,
+        "n3": n3, "rows3": _through(index3, rows2),
+        "vit": scanner.scan_p7(p7, sub3, stage="viterbi"),
+        "fwd": scanner.scan_p7(p7, sub3, stage="forward"),
+    }
+
+
+def _read_back(tensors: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Every tensor of ``tensors`` on the host in one copy: joined as f64
+    on the device (exact for f32 scores, and for int64 rows and counts
+    below 2^53), then split and cast back."""
+    flat = torch.cat([t.reshape(-1).double() for t in tensors.values()]).cpu().numpy()
+    out, at = {}, 0
+    for name, t in tensors.items():
+        dtype = np.float32 if t.is_floating_point() else np.int64
+        out[name] = flat[at: at + t.numel()].reshape(t.shape).astype(dtype)
+        at += t.numel()
+    return out
+
+
 # -- the search cascade ----------------------------------------------------
 
 @dataclasses.dataclass
@@ -713,7 +857,20 @@ class SearchPipeline:
     the exact one from above, so its p-value bounds the exact one from
     below: a sequence the filter rejects is rejected by the exact stage
     too, and the hits are the plain cascade's. A sequence the filter
-    rejects keeps the filter's score and p-value in the result."""
+    rejects keeps the filter's score and p-value in the result.
+
+    ``fused`` enqueues the whole cascade on the scanner's device
+    (:func:`fused_cascade`: both prefilters always, survivors compacted on
+    the device, pruned with one-ulp-low f32 thresholds) and reads it back
+    once; the host then decides every stage in f64 as the staged cascade
+    does, so the hits and stage decisions are the staged cascade's, and
+    the result is ``fast_msv=fast_viterbi=True``'s but for a row whose
+    filter score lies within an ulp of a threshold (rescored exactly here,
+    kept at the filter's score there). A batch with more survivors than
+    :func:`fused_caps` allows runs the staged cascade, as does a scanner
+    sharded over a mesh; both are logged. ``fused_runs`` counts the
+    searches the fused cascade answered; ``phase_seconds`` puts such a
+    search under ``msv``."""
 
     def __init__(
         self,
@@ -723,6 +880,7 @@ class SearchPipeline:
         forward_p: float = 1e-5,
         fast_msv: bool = False,
         fast_viterbi: bool = False,
+        fused: bool = False,
     ):
         self.scanner = scanner or MSVScanner()
         self.msv_p = msv_p
@@ -730,6 +888,8 @@ class SearchPipeline:
         self.forward_p = forward_p
         self.fast_msv = fast_msv
         self.fast_viterbi = fast_viterbi
+        self.fused = fused
+        self.fused_runs = 0
         self.phase_seconds = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
         # the same, summed over every search of this pipeline
         self.phase_totals = dict(self.phase_seconds)
@@ -756,6 +916,10 @@ class SearchPipeline:
     def search(self, hmm, staged: StagedDatabase, tokens: np.ndarray, lengths: np.ndarray) -> SearchResult:
         """Run the cascade. ``hmm`` is a ProfileHMM; ``tokens``/``lengths``
         are the host arrays the survivor subsets are restaged from."""
+        if self.fused:
+            result = self._search_fused(hmm, staged)
+            if result is not None:
+                return result
         msv_profile, p7 = self._derived(hmm)
         t0 = time.perf_counter()
         with phase("msv"):
@@ -785,6 +949,90 @@ class SearchPipeline:
                 self._rescore_candidates(hmm, msv_profile, msv_scores, tokens, lengths)
         self.phase_seconds = {"msv": time.perf_counter() - t0, "viterbi": 0.0, "forward": 0.0}
         return self._finish_cascade(hmm, p7, msv_scores, tokens, lengths)
+
+    def _fused_thresholds(self, hmm) -> torch.Tensor:
+        """The device f32 ``[msv, viterbi]`` one-ulp-low nat thresholds of
+        ``hmm`` (JAX's ``_fused_packs``; the packs are the scanner's own),
+        cached on the scanner under a key that holds this pipeline's
+        p-value cutoffs, so a pipeline sharing the scanner with other
+        cutoffs gets its own."""
+        key = (id(hmm), "fused", self.msv_p, self.viterbi_p)
+        hit = self.scanner._cache_get(key, hmm)
+        if hit is not None:
+            return hit
+        thr = np.array([
+            _conservative_f32(gumbel_score_threshold(
+                self.msv_p, hmm.stats_local_msv_mu, hmm.stats_local_msv_lambda)),
+            _conservative_f32(gumbel_score_threshold(
+                self.viterbi_p, hmm.stats_local_viterbi_mu, hmm.stats_local_viterbi_lambda)),
+        ], dtype=np.float32)
+        return self.scanner._cache_put(key, hmm, torch.from_numpy(thr).to(self.scanner.device))
+
+    def _search_fused(self, hmm, staged: StagedDatabase) -> SearchResult | None:
+        """The cascade through :func:`fused_cascade` and one read-back; None
+        (logged) on a scanner sharded over a mesh or when survivors
+        overflow a cap, for the staged cascade to answer."""
+        if not isinstance(self.scanner, MSVScanner):
+            logger.info("fused cascade: the scanner is sharded over a mesh, running the "
+                        "staged pipeline")
+            return None
+        msv_profile, p7 = self._derived(hmm)
+        b = staged.num_sequences
+        caps = fused_caps(b, self.msv_p)
+        t0 = time.perf_counter()
+        with phase("msv"):
+            got = _read_back(fused_cascade(self.scanner, msv_profile, p7, staged,
+                                           self._fused_thresholds(hmm), caps))
+        n1, n2, n3 = int(got["n1"]), int(got["n2"]), int(got["n3"])
+        if n1 > caps[0] or n2 > caps[1] or n3 > caps[2]:
+            logger.info("fused cascade capacity overflow (n1=%d n2=%d n3=%d) — falling back "
+                        "to the staged pipeline", n1, n2, n3)
+            return None
+
+        # the host's f64 decisions on the returned scores, as the staged
+        # cascade makes them; the device pruned with one-ulp-low
+        # thresholds, a superset. The MSV filter's survivors carry their
+        # exact scores
+        rows1, rows2, rows3 = got["rows1"][:n1], got["rows2"][:n2], got["rows3"][:n3]
+        msv_scores = got["filt"]
+        msv_scores[rows1] = got["exact1"][:n1]
+        msv_pv = stats.msv_pvalue(msv_scores, hmm)
+        passed_msv = msv_pv <= self.msv_p
+
+        # an MSV survivor records its Viterbi filter score, and one past
+        # the filter its exact Viterbi score
+        vit_scores = np.full(b, np.nan, dtype=np.float32)
+        keep2 = passed_msv[rows2]
+        vit_scores[rows2[keep2]] = got["vfilt"][:n2][keep2]
+        keep3 = passed_msv[rows3]
+        vit_scores[rows3[keep3]] = got["vit"][:n3][keep3]
+        vit_pv = np.full(b, np.nan)
+        has_vit = np.isfinite(vit_scores)
+        vit_pv[has_vit] = stats.viterbi_pvalue(vit_scores[has_vit], hmm)
+        passed_vit = vit_pv <= self.viterbi_p
+
+        fwd_scores = np.full(b, np.nan, dtype=np.float32)
+        keep4 = keep3 & passed_vit[rows3]
+        fwd_scores[rows3[keep4]] = got["fwd"][:n3][keep4]
+        fwd_pv = np.full(b, np.nan)
+        has_fwd = np.isfinite(fwd_scores)
+        fwd_pv[has_fwd] = stats.forward_pvalue(fwd_scores[has_fwd], hmm)
+
+        self.phase_seconds = {"msv": time.perf_counter() - t0, "viterbi": 0.0, "forward": 0.0}
+        for name, sec in self.phase_seconds.items():
+            self.phase_totals[name] += sec
+        self.fused_runs += 1
+        return SearchResult(
+            msv_scores=msv_scores,
+            msv_pvalues=msv_pv,
+            viterbi_scores=vit_scores,
+            viterbi_pvalues=vit_pv,
+            forward_scores=fwd_scores,
+            forward_pvalues=fwd_pv,
+            passed_msv=passed_msv,
+            passed_viterbi=passed_vit,
+            passed_forward=fwd_pv <= self.forward_p,
+        )
 
     def _rescore_candidates(self, hmm, msv_profile: MSVProfile, msv_scores: np.ndarray,
                             tokens: np.ndarray, lengths: np.ndarray) -> None:

@@ -75,15 +75,17 @@ def test_only_msv_stage():
 
 
 def test_fast_and_sweep_flags():
-    """scan takes --fast, --bucketed and --stream N; sweep takes --hmm-dir
-    or --hmm-db, --stage msv|search, --fast, --bucketed, --stream N and
-    --checkpoint DIR [--checkpoint-shard N], with the common flags (--config,
-    --profile-trace and --mesh among them); neither offers the flag of a
-    later slice (--fused)."""
+    """scan takes --fast, --fused, --bucketed and --stream N; sweep takes
+    --hmm-dir or --hmm-db, --stage msv|search, --fast, --bucketed, --stream
+    N and --checkpoint DIR [--checkpoint-shard N], with the common flags
+    (--config, --profile-trace and --mesh among them), and refuses --fused
+    as the JAX CLI's sweep does."""
     parser = port_cli.build_parser()
     base = ["scan", "--hmm", "x.hmm", "--fasta", "y.fsa"]
     assert parser.parse_args([*base, "--stage", "search", "--fast"]).fast
     assert not parser.parse_args(base).fast
+    assert parser.parse_args([*base, "--stage", "search", "--fused"]).fused
+    assert not parser.parse_args(base).fused
     sweep = parser.parse_args(["sweep", "--hmm-dir", "d", "--fasta", "y.fsa", "--stage",
                                "search", "--fast", "--format", "json", "--top", "3",
                                "--device", "cpu", "--loader", "python", "--out", "o"])

@@ -35,6 +35,8 @@ assert cli.main(["scan", "--device", "cpu", "--stage", "search", "--hmm", sys.ar
                  "--fasta", sys.argv[2], "--out", sys.argv[3] + ".search"]) == 0
 assert cli.main(["scan", "--device", "cpu", "--stage", "search", "--fast", "--hmm",
                  sys.argv[1], "--fasta", sys.argv[2], "--out", sys.argv[3] + ".fast"]) == 0
+assert cli.main(["scan", "--device", "cpu", "--stage", "search", "--fused", "--hmm",
+                 sys.argv[1], "--fasta", sys.argv[2], "--out", sys.argv[3] + ".fused"]) == 0
 assert cli.main(["scan", "--device", "cpu", "--stage", "search", "--domains", "--hmm",
                  sys.argv[1], "--fasta", sys.argv[4], "--out", sys.argv[3] + ".domains"]) == 0
 for stage in ("msv", "search"):
