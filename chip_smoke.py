@@ -196,7 +196,17 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    times of the fused search and the staged `--fast` search on one staged
    batch, by the host clock around `search` and by CUDA events around each
    stage's scan (the results equal field for field), beside the card's
-   name and power limit.
+   name and power limit;
+16. the bench: `msv_scores` (the one-call MSV entry of ref_1400_b3 and
+   e2e_1400) on 8 ragged sequences of 1400.hmm and 2405.hmm equal to its
+   plain version and the oracle; then `python -m
+   hmm_fasta_viterbi_tpu_torch.bench --e2e` in-process at its defaults
+   (16384 x 3500, best of 3), every launch count set to 0 just before it
+   and read just after: its line has no error and bench.py's rows in
+   bench.py's order under `_cuda`, and B1, B2, B3, B5, B6, B7, B9 and B10
+   are each launched; its JSON line and each row's GCUPS and ms are
+   printed, and the headline's wall-clock ms against phase 10's CUDA-event
+   ms for B1 at the same shape.
 
 Prints a JSON line about the kernels (every case, the wide ones as
 `<kernel>_wide`, the rows-in-memory ones as `<kernel>_mem`), then the card's
@@ -207,7 +217,9 @@ non-zero without those lines.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import logging
 import math
@@ -231,6 +243,7 @@ from hmm_fasta_viterbi_tpu_torch import (
     posterior_match, viterbi_oracle_batch,
 )
 from hmm_fasta_viterbi_tpu_torch import cli, convert
+from hmm_fasta_viterbi_tpu_torch.bench.__main__ import main as bench_main
 from hmm_fasta_viterbi_tpu_torch.io.loader import load_fasta
 from hmm_fasta_viterbi_tpu_torch.io.msaio import read_msa
 from hmm_fasta_viterbi_tpu_torch.models.build import calibrate_profile
@@ -243,7 +256,7 @@ from hmm_fasta_viterbi_tpu_torch.parallel.seqblocks import (
     SeqblockScanner, block_length, msv_scan_seqblocks, p7_scan_seqblocks,
 )
 from hmm_fasta_viterbi_tpu_torch.pipeline import (
-    SearchPipeline, forward_scores, fused_cascade, fused_caps, viterbi_scores,
+    SearchPipeline, forward_scores, fused_cascade, fused_caps, msv_scores, viterbi_scores,
 )
 from hmm_fasta_viterbi_tpu_torch.runtime import profiling
 
@@ -3087,6 +3100,82 @@ def fuzz_kernels_vs_plain(scanner, errors: dict) -> None:
               f"(max|d|={err})")
 
 
+# -- the bench (phase 16) -----------------------------------------------------
+
+# the kernels the bench's rows launch (B1, B2, B3, B5, B6, B7, B9, B10; B4 and
+# B8 are on no bench.py row)
+BENCH_KERNELS = ("msv_scan", "msv_filter_scan", "msv_stacked_scan", "forward_prob_scan",
+                 "viterbi_filter_scan", "viterbi_lazy_scan", "forward_save_scan",
+                 "backward_coverage_scan")
+
+
+def bench_row_names() -> list[str]:
+    """bench.py's rows in its order under ``_cuda`` (``e2e_1400`` with
+    ``--e2e``; oracle_msv_numpy keeps its name)."""
+    names = ["sweep24"] + [f"sweep_p{profile(stem).num_states}" for stem in stems()]
+    names += ["sweep24_filter", "filter_1400", "headline_2405", "viterbi_1400", "forward_1400",
+              "viterbi_filter_1400", "cascade_1400", "cascade_fast_1400", "posterior_1400",
+              "posterior_mask_1400", "stream_search_1400"]
+    return [f"{n}_cuda" for n in names] + ["oracle_msv_numpy", "ref_1400_b3_cuda",
+                                           "e2e_1400_cuda"]
+
+
+def bench_rows(tmp: pathlib.Path, rng, b1_ms: float) -> None:
+    """`msv_scores` (the one-call MSV entry) on the card against the oracle
+    and its plain version; then the bench's main in-process at its defaults
+    with --e2e, every launch count set to 0 just before it and read just
+    after: no error, every bench.py row under `_cuda`, each row kernel
+    launched; its JSON line, each row's GCUPS and ms, and the headline's
+    wall-clock ms against phase 10's CUDA-event ms for B1 at the same
+    shape."""
+    lengths8 = np.minimum([0, 1, 31, 32, 33, 257, 1000, SEQ_LEN], SEQ_LEN).astype(np.int32)
+    tokens8 = rng.integers(0, 20, size=(8, SEQ_LEN)).astype(np.int32)
+    for stem in ("1400", "2405"):
+        prof = profile(stem)
+        got = msv_scores(prof, tokens8, lengths8, device=DEVICE)
+        require(got.device.type == "cuda", "msv_scores did not score on the card")
+        got = got.cpu()
+        plain = msv_scores(prof, tokens8, lengths8, device="cpu")
+        err = require_equal([got], [plain], f"msv_scores on the card vs its plain version, "
+                                            f"{stem}.hmm")
+        require(np.array_equal(got.numpy(), msv_oracle_batch(prof, tokens8, lengths8)),
+                f"msv_scores on the card != oracle on {stem}.hmm")
+        print(f"msv_scores {stem}.hmm: 8 ragged seqs, == plain (max|d|={err}) == oracle")
+
+    detail = tmp / "bench_detail_torch.json"
+    out = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench_main(["--e2e", "--detail-file", str(detail)])
+    seconds = time.perf_counter() - t0
+    counts = launches()
+    require(rc == 0, f"the bench returned {rc}")
+    line = out.getvalue().splitlines()[-1]
+    payload = json.loads(line)
+    require(payload["metric"] == "GCUPS_M1400" and payload["value"] > 0,
+            f"the bench's headline: {payload['metric']} {payload['value']}")
+    require(payload["errors"] == [], f"the bench's errors: {payload['errors']}")
+    require(list(payload["extras"]) == bench_row_names(),
+            f"the bench's rows {list(payload['extras'])} are not bench.py's")
+    missing = [name for name in BENCH_KERNELS if not counts[name]]
+    require(not missing, f"the bench launched no {missing}")
+    print(line)
+    print(f"bench: {seconds:.1f} s in-process; launches "
+          f"{ {name: counts[name] for name in KERNELS if counts[name]} }")
+    data = json.loads(detail.read_text())
+    require(data["env"]["platform"] == "gpu", f"the bench's env: {data['env']}")
+    print(f"bench env: {data['env']['device_kind']}, {data['env'].get('nvidia_smi')}")
+    for r in [data["primary"], *data["extras"]]:
+        print(f"bench row {r['name']}: {r['gcups']:.2f} GCUPS, {r['seconds'] * 1e3:.3f} ms "
+              f"(best of {r['repetitions']}: {r['rep_seconds']}), {r['batch']} x "
+              f"{r['seq_len']}, {r['cells']} cells")
+    wall_ms = data["primary"]["seconds"] * 1e3
+    print(f"bench headline_1400_cuda: {wall_ms:.3f} ms wall clock (MSVScanner.scan and the "
+          f"host copy of its scores) against {b1_ms:.3f} ms of B1 by CUDA events (phase 10, "
+          f"same shape): the entry point's host share {1 - b1_ms / wall_ms:.2%}")
+
+
 # -- timings (phase 10) --------------------------------------------------------
 
 def msv_timings(scanner, rng, errors: dict, work: dict) -> dict:
@@ -3404,6 +3493,9 @@ def main() -> int:
         with Phase("15. the fused cascade: scan --stage search --fused"):
             fused_cli(tmp)
             fused_library(tmp, scanner)
+
+        with Phase("16. the bench: python -m hmm_fasta_viterbi_tpu_torch.bench --e2e"):
+            bench_rows(tmp, rng, msv_ms["1400"])
 
     times = {"msv_scan": (msv_ms["1400"], msv_ms["plain"]), "msv_filter_scan": msv_ms["filter"],
              "msv_stacked_scan": sweep_ms["sweep24"], **post_ms, **wide_ms, **mem_ms,

@@ -26,17 +26,20 @@ profile from an MSA (``models.build``, ``io.msaio``, ``io.hmmwrite``:
 Forward kernels. ``runtime.config.EngineConfig`` carries the cascade
 thresholds and ``m_bucket`` (``--config``), and
 ``runtime.profiling.device_trace`` records a ``torch.profiler`` trace of a
-scan (``--profile-trace``).
+scan (``--profile-trace``). ``python -m hmm_fasta_viterbi_tpu_torch.bench``
+times the JAX bench's rows through the port's entry points (``bench``).
 """
 
-from .io.fastaio import parse_fasta
-from .io.hmmio import parse_hmm
+from .io.alphabet import AMINO_ACIDS, BACKGROUND_FREQUENCIES, NUM_AMINO_ACIDS
+from .io.fastaio import FastaDatabase, FastaRecord, parse_fasta, parse_fasta_text
+from .io.hmmio import HMMParseError, ProfileHMM, parse_hmm, parse_hmm_text
 from .models.build import build_profile, calibrate_profile
-from .models.msv import MSVProfile, length_transitions
+from .models.msv import MSVProfile, expand_msv_scores, length_transitions, msv_transitions
 from .models.p7 import P7Profile
 from .ops.reference import (
     backward_oracle,
     forward_oracle_batch,
+    msv_oracle,
     msv_oracle_batch,
     posterior_match,
     viterbi_oracle_batch,
@@ -51,24 +54,39 @@ from .pipeline import (
 )
 from .runtime.config import EngineConfig
 
+__version__ = "0.1.0"
+
 __all__ = [
+    "AMINO_ACIDS",
+    "BACKGROUND_FREQUENCIES",
     "BucketedDatabase",
     "EngineConfig",
+    "FastaDatabase",
+    "FastaRecord",
+    "HMMParseError",
     "MSVProfile",
     "MSVScanner",
+    "NUM_AMINO_ACIDS",
     "P7Profile",
+    "ProfileHMM",
     "SearchPipeline",
     "SearchResult",
     "SideStreamStager",
     "StagedDatabase",
+    "__version__",
     "backward_oracle",
     "build_profile",
     "calibrate_profile",
+    "expand_msv_scores",
     "forward_oracle_batch",
     "length_transitions",
+    "msv_oracle",
     "msv_oracle_batch",
+    "msv_transitions",
     "parse_fasta",
+    "parse_fasta_text",
     "parse_hmm",
+    "parse_hmm_text",
     "posterior_match",
     "viterbi_oracle_batch",
 ]

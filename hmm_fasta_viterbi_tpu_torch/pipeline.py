@@ -6,8 +6,8 @@ The counterpart of ``hmm_fasta_viterbi_tpu/pipeline.py``: ``StagedDatabase``,
 scan_p7 / scan_p7_filter / scan_many``, the length-bucketed staging
 (``BucketedDatabase``, ``stage_bucketed``, ``scan_bucketed``,
 ``scan_many_bucketed``, ``SearchPipeline.search_bucketed``), the
-host-staged single-stage entry (``select_p7_fns``, ``viterbi_scores``,
-``forward_scores``, ``viterbi_filter_scores``) and the hmmsearch-style
+host-staged single-stage entry (``msv_scores``, ``select_p7_fns``,
+``viterbi_scores``, ``forward_scores``, ``viterbi_filter_scores``) and the hmmsearch-style
 ``SearchPipeline`` (MSV -> Viterbi -> Forward, each stage rescoring the
 survivors of the one before, optionally behind the upper-bound MSV and
 Viterbi prefilters, or with ``fused=True`` the whole cascade enqueued on
@@ -629,8 +629,16 @@ def _forward(pack: p7_cuda.P7Pack, staged: StagedDatabase) -> torch.Tensor:
     )[0]
 
 
-# -- host-staged single-stage entry (select_p7_fns / viterbi_pallas /
-# forward_pallas of the JAX package) ---------------------------------------
+# -- host-staged single-stage entry (msv_pallas / msv_xla / select_p7_fns /
+# viterbi_pallas / forward_pallas of the JAX package) ------------------------
+
+def msv_scores(profile: MSVProfile, tokens, lengths, device="cuda") -> torch.Tensor:
+    """Exact MSV scores of a host token batch -> f32 [B]: staged, packed
+    and scanned in one call (``msv_pallas`` / ``msv_xla`` of the JAX
+    package), the kernel on a CUDA device, its plain version on the CPU."""
+    scanner = MSVScanner(device=device)
+    return scanner.scan(profile, scanner.stage(tokens, lengths))
+
 
 def viterbi_scores(
     p7: P7Profile, tokens, lengths, device="cuda", lazy: bool = True,

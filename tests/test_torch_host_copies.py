@@ -215,3 +215,18 @@ def test_port_native_build_is_atomic(tmp_path, monkeypatch):
     lib = ctypes.CDLL(str(target))
     lib.fp_abi_version.restype = ctypes.c_int32
     assert lib.fp_abi_version() == native._ABI_VERSION
+
+
+def test_public_names_cover_the_jax_packages():
+    """Every name of the JAX package's ``__all__`` is in the port's, each
+    the port's own copy with the same value where it is data."""
+    import hmm_fasta_viterbi_tpu_torch as port
+
+    assert set(jx.__all__) <= set(port.__all__)
+    assert all(hasattr(port, name) for name in port.__all__)
+    assert port.__version__ == jx.__version__
+    assert port.AMINO_ACIDS == jx.AMINO_ACIDS and port.NUM_AMINO_ACIDS == jx.NUM_AMINO_ACIDS
+    np.testing.assert_array_equal(port.BACKGROUND_FREQUENCIES, jx.BACKGROUND_FREQUENCIES)
+    for name in set(jx.__all__) - {"__version__", "AMINO_ACIDS", "NUM_AMINO_ACIDS",
+                                   "BACKGROUND_FREQUENCIES"}:
+        assert getattr(port, name).__module__.startswith("hmm_fasta_viterbi_tpu_torch."), name

@@ -28,6 +28,10 @@ import hmm_fasta_viterbi_tpu_torch.__main__
 import hmm_fasta_viterbi_tpu_torch.convert
 import hmm_fasta_viterbi_tpu_torch.ops._build
 import hmm_fasta_viterbi_tpu_torch.ops.p7_cuda
+import hmm_fasta_viterbi_tpu_torch.bench
+import hmm_fasta_viterbi_tpu_torch.bench.__main__
+import hmm_fasta_viterbi_tpu_torch.bench.harness
+import hmm_fasta_viterbi_tpu_torch.bench.rows
 from hmm_fasta_viterbi_tpu_torch import cli
 assert cli.main(["scan", "--device", "cpu", "--hmm", sys.argv[1],
                  "--fasta", sys.argv[2], "--out", sys.argv[3]]) == 0
@@ -78,8 +82,8 @@ assert not loaded, loaded
 
 
 def test_port_and_chip_smoke_import_no_jax(profile_dir, fasta_dir, tmp_path):
-    """In a fresh interpreter: import the port, its CLI and chip_smoke.py,
-    run a CPU scan, a CPU search with and without --fast, a CPU search with
+    """In a fresh interpreter: import the port, its CLI, its bench and
+    chip_smoke.py, run a CPU scan, a CPU search with and without --fast, a CPU search with
     --domains on a consensus hit, CPU sweeps, a streamed scan, a bucketed
     and a checkpointed sweep, a search with --align, --msa-out, --config
     and --profile-trace, emit, align, build, info and generate, and a
@@ -140,8 +144,8 @@ def _jax_package_imports(path: pathlib.Path) -> list[str]:
 
 
 def test_no_file_of_the_port_imports_the_jax_package():
-    """An AST scan of every .py file of the port (its parallel/ package
-    among them), of chip_smoke.py and of the port's tools (the timing
+    """An AST scan of every .py file of the port (its parallel/ and bench/
+    packages among them), of chip_smoke.py and of the port's tools (the timing
     tools, the multi-process smoke) finds no import of hmm_fasta_viterbi_tpu
     (or jax), at any depth."""
     files = sorted(PORT_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py",
@@ -158,6 +162,9 @@ def test_no_file_of_the_port_imports_the_jax_package():
     assert {f.name for f in parallel} == {"__init__.py", "mesh.py", "database.py",
                                           "seqblocks.py", "dryrun.py"}
     assert set(parallel) <= set(files)
+    bench = sorted((PORT_DIR / "bench").glob("*.py"))
+    assert {f.name for f in bench} == {"__init__.py", "__main__.py", "harness.py", "rows.py"}
+    assert set(bench) <= set(files)
     runtime = sorted((PORT_DIR / "runtime").glob("*.py"))
     assert {f.name for f in runtime} == {"__init__.py", "checkpoint.py", "config.py",
                                          "profiling.py"}
