@@ -10,13 +10,17 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    why it failed; compiles csrc/*.cu from this checkout, one nvcc a source, and
    prints each kernel case's registers and spills (the rows-in-memory
    kernels, `*_mem_kernel`, included; the MSV register cases once for each
-   block size W they are compiled for), the launch plan of each MSV case
-   at the timed shapes (W, grid, dynamic shared memory, with the registers
-   and spill bytes of that kernel) and the launch plan
-   of each blocked p7 case (the Viterbi filter's and the backward pass's
-   included) against 1400.hmm, the wider wide profile and the three-profile
-   join past 4864 states at the timed shapes (threads a group, groups G,
-   grid, staged chain and transition rows, dynamic shared memory);
+   block size W they are compiled for; the cluster pairs' kernels,
+   `msv_kernel<PER,64,...>` and `viterbi_pair_kernel`), the launch plan of
+   each MSV case at the timed shapes (W, grid, dynamic shared memory, with
+   the registers and spill bytes of that kernel; the wide profiles' cluster
+   pairs with their clusters and cudaOccupancyMaxActiveClusters) and the
+   launch plan of each blocked p7 case (the Viterbi filter's and the
+   backward pass's included) against 1400.hmm, the wider wide profile and
+   the three-profile join past 4864 states at the timed shapes (threads a
+   group, groups G, grid, staged chain and transition rows, dynamic shared
+   memory; for a cluster pair its clusters and
+   cudaOccupancyMaxActiveClusters);
 3. log-space Forward and posterior kernels against plain, all 24 profiles:
    the log-space Forward kernel within LOG_FWD_TOL of its plain version on
    a ragged batch of 64 sequences up to 600 residues, and a two-call carry
@@ -62,8 +66,10 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    and 1301.hmm, LENG 2701, and of 2405.hmm and 2365.hmm, LENG 4770, joined
    into one ProfileHMM each): every kernel's wide case against its plain
    version on a ragged batch of 8 sequences up to 300 residues, at G = 1
-   and at the most groups that fit, and the stacked kernel over 100.hmm
-   and both (wide_kernels_vs_plain); then the profiles past 4864 states
+   and at the most groups that fit (the cluster pairs of MSV, eager, lazy,
+   log-space and the Viterbi filter take G = 1), and the stacked kernel
+   over 100.hmm and both (wide_kernels_vs_plain); then the profiles past
+   4864 states
    (MEM_JOINS: the nodes of 2405.hmm, 2365.hmm and 2207.hmm, LENG 6977, and
    of all 24, LENG 30181, 15 chain passes) through every kernel's
    rows-in-memory case against its plain version on the same kind of batch
@@ -114,7 +120,9 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    1024 against 1400.hmm (posterior_1400, posterior_mask_1400; best of 3)
    and their plain versions once; each wide case once against the LENG 4770
    profile (wide_timings: MSV at 2048 x 3500, the p7 kernels at 64 x 3500,
-   the posterior kernels at 64 x 1024), and each rows-in-memory case once
+   the posterior kernels at 64 x 1024; each line with its bound, its share
+   and PARENT_WIDE_MS's time of the parent commit beside it, with the
+   card's name and power limit), and each rows-in-memory case once
    against the LENG 6977 join (mem_timings: MSV at 2048 x 1000, the p7
    kernels at 64 x 1000, the posterior pair at 64 x 1024), each plain
    version once. Each kernel's bound is the larger
@@ -346,6 +354,19 @@ FUSED_OVERFLOW = 200
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
+# phase 10's wide cases before their cluster-pair redesign: the parent
+# commit 09372c7's times of each at the same shapes (the faster of two runs
+# of tools/torch_wide_timing.py on that commit's `git archive` in one call,
+# on PARENT_CARD)
+PARENT_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+PARENT_WIDE_MS = {
+    "msv_scan_wide": 64.131, "msv_filter_scan_wide": 15.160, "msv_stacked_scan_wide": 109.103,
+    "viterbi_lazy_scan_wide": 48.781, "viterbi_scan_wide": 83.067,
+    "viterbi_filter_scan_wide": 22.273, "forward_log_scan_wide": 295.051,
+    "forward_prob_scan_wide": 38.383, "forward_save_scan_wide": 14.470,
+    "backward_coverage_scan_wide": 20.449,
+}
+
 # the sweep timing batch (sweep24, sweep24_filter) and the profiles the plain
 # filter sweep is timed on (every fourth, scaled to all 24 by cells)
 SWEEP_BATCH = 8192
@@ -537,9 +558,14 @@ def passes_of(kind: str, pack) -> int:
 
 def plan_text(kind: str, pack, batch: int) -> str:
     plan = p7_cuda.device_plan(kind, pack.m_pad, passes_of(kind, pack), batch, DEVICE)
-    threads, per = p7_cuda.kernel_case(pack.m_pad)
-    regs = p7_cuda.kernel_regs(kind, per, threads)
-    return (f"{threads} threads x {per}, G={plan.groups} (of {plan.max_groups}), grid="
+    per = p7_cuda.kernel_per(pack.m_pad)
+    regs = p7_cuda.kernel_regs(kind, per, plan.threads, plan.cluster)
+    pair = ""
+    if plan.cluster > 1:
+        most = p7_cuda.max_clusters(kind, per, plan.smem, torch.device(DEVICE).index or 0)
+        pair = (f"cluster pair: {plan.cluster} blocks a cluster, {plan.grid // plan.cluster} "
+                f"clusters (cudaOccupancyMaxActiveClusters {most}), ")
+    return (f"{pair}{plan.threads} threads x {per}, G={plan.groups} (of {plan.max_groups}), grid="
             f"{plan.grid}, chain rows staged {plan.n_chain}/{passes_of(kind, pack)}, transition "
             f"rows staged {plan.n_trans}/6, dynamic smem {plan.smem} bytes, {regs} registers")
 
@@ -580,6 +606,10 @@ def msv_plan_text(emit: torch.Tensor, b_pad: int) -> str:
     plan = msv_cuda.device_plan(m_pad, emit.element_size(), b_pad, num_p, emit.device)
     text = (f"{lanes} lanes x {per}, W={plan.warps} warps, grid={plan.grid} x P={num_p}, "
             f"dynamic smem {plan.smem} bytes")
+    if plan.cluster > 1:
+        most = msv_cuda.max_clusters(emit.device.index or 0, per, emit.dtype == torch.bfloat16)
+        text = (f"cluster pair: {plan.cluster} blocks a cluster, {plan.grid // plan.cluster} "
+                f"clusters a profile (cudaOccupancyMaxActiveClusters {most}), {text}")
     if lanes != msv_cuda.MEM_LANES:
         regs, local = msv_cuda.kernel_attrs(lanes, per, plan.warps, emit.dtype == torch.bfloat16)
         text += f", {regs} registers, {local} bytes spilled"
@@ -588,15 +618,19 @@ def msv_plan_text(emit: torch.Tensor, b_pad: int) -> str:
 
 def print_msv_plans(scanner) -> None:
     """Each MSV register case's launch plan at the timed shapes: 1400.hmm and
-    2405.hmm at BATCH rows, each stacked group of the sweep at SWEEP_BATCH,
-    in both modes."""
-    for stem in ("1400", "2405"):
-        prof = profile(stem)
+    2405.hmm at BATCH rows, the wide profiles' cluster pairs at
+    WIDE_MSV_BATCH rows, each stacked group of the sweep at SWEEP_BATCH, in
+    both modes."""
+    shapes = [(profile(stem), f"{stem}.hmm", BATCH) for stem in ("1400", "2405")]
+    for hmm in wide_profiles():
+        prof = MSVProfile.from_profile(hmm)
+        shapes.append((prof, f"{hmm.name} (M {prof.num_states})", WIDE_MSV_BATCH))
+    for prof, name, rows in shapes:
         m_pad = msv_cuda.round_up(prof.num_states, 8)
         for mode, (emit, _) in (("exact", msv_cuda.pack_profile(prof, m_pad, scanner.device)),
                                 ("filter", msv_cuda.pack_profile_filter(prof, m_pad,
                                                                         scanner.device))):
-            print(f"msv plan {stem}.hmm {mode} x {BATCH} rows: {msv_plan_text(emit, BATCH)}")
+            print(f"msv plan {name} {mode} x {rows} rows: {msv_plan_text(emit, rows)}")
     groups = {}
     for p in (profile(stem) for stem in stems()):
         groups.setdefault(msv_cuda.kernel_case(msv_cuda.round_up(p.num_states, 8)), []).append(p)
@@ -701,7 +735,7 @@ def ptxas_summary(log: str) -> list[str]:
     for entry in re.split(r"Compiling entry function ", log)[1:]:
         # the kernel's own name follows its length; the file's anonymous
         # namespace may hold the source's name too
-        case = re.search(r"(?<=\d)(msv|viterbi|forward|filter|backward)((?:_mem|_bounded)?)"
+        case = re.search(r"(?<=\d)(msv|viterbi|forward|filter|backward)((?:_mem|_bounded|_pair)?)"
                          r"_kernel(?:I(\w+))?", entry.split("'")[1])
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
@@ -1451,6 +1485,17 @@ def wide_paths(tmp: pathlib.Path, fasta: pathlib.Path, tokens, lengths, planted_
     return counts
 
 
+def versus_parent(name: str, ms: float, work: dict) -> str:
+    """A wide case's bound and roofline share at the timed shape, and the
+    parent's time of the same case and shape (PARENT_WIDE_MS)."""
+    b_ms, b_by = bound(*work[name])
+    text = f"bound {b_ms:.3f} ms by {b_by}, share {b_ms / ms:.2%}"
+    if name in PARENT_WIDE_MS:
+        before = PARENT_WIDE_MS[name]
+        text += f"; before (parent, {PARENT_CARD}) {before:.3f} ms, {before / ms:.2f}x"
+    return text
+
+
 def wide_timings(scanner, rng, errors: dict, work: dict) -> dict:
     """Each wide case at one shape against the wider profile (M 4770): MSV,
     the MSV filter and the stacked kernel (both wide profiles, one launch a
@@ -1474,8 +1519,9 @@ def wide_timings(scanner, rng, errors: dict, work: dict) -> dict:
         out[name + WIDE] = (ms, plain_ms)
         work[name + WIDE] = (OPS_PER_CELL["msv"](0) * cells, nbytes(*args) + nbytes(*want))
         print(f"{name}{WIDE}: {cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
-              f"{WIDE_MSV_BATCH} x {SEQ_LEN} x M={msv.num_states}); plain version "
-              f"{plain_ms:.3f} ms (once)", flush=True)
+              f"{WIDE_MSV_BATCH} x {SEQ_LEN} x M={msv.num_states}; plan "
+              f"{msv_plan_text(args[0], WIDE_MSV_BATCH)}); plain version {plain_ms:.3f} ms "
+              f"(once); {versus_parent(name + WIDE, ms, work)}", flush=True)
     both = [MSVProfile.from_profile(h) for h in hmms]
     packs = [scanner._stacked_pack((p,), "exact") for p in both]
     args = (staged.tokens, staged.lengths, staged.tr_rows)
@@ -1491,7 +1537,8 @@ def wide_timings(scanner, rng, errors: dict, work: dict) -> dict:
                                        nbytes(*args, *(x for pk in packs for x in pk), *got))
     print(f"msv_stacked_scan{WIDE}: {both_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
           f"{WIDE_MSV_BATCH} x {SEQ_LEN} x M {'+'.join(str(p.num_states) for p in both)}, "
-          f"{len(packs)} launches); plain version {plain_ms:.3f} ms (once)", flush=True)
+          f"{len(packs)} launches); plain version {plain_ms:.3f} ms (once); "
+          f"{versus_parent('msv_stacked_scan' + WIDE, ms, work)}", flush=True)
 
     few = scanner.stage(tokens[:SURVIVOR_BATCH], np.full(SURVIVOR_BATCH, SEQ_LEN, dtype=np.int32))
     few_cells = few.total_residues * p7.num_states
@@ -1518,7 +1565,8 @@ def wide_timings(scanner, rng, errors: dict, work: dict) -> dict:
         print(f"{name}{WIDE}: {few_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of 3, "
               f"{SURVIVOR_BATCH} x {SEQ_LEN} x M={p7.num_states}; "
               f"{plan_text(kind, pack, SURVIVOR_BATCH)}); plain version {plain_ms:.3f} ms "
-              f"(once), kernel vs plain max|d|={err:.3g}", flush=True)
+              f"(once), kernel vs plain max|d|={err:.3g}; {versus_parent(name + WIDE, ms, work)}",
+              flush=True)
 
     post = scanner.stage(tokens[:SURVIVOR_BATCH, :POST_TIME_LEN],
                          np.full(SURVIVOR_BATCH, POST_TIME_LEN, dtype=np.int32))

@@ -83,22 +83,33 @@
 //    grid of one block an SM and profile: a block stages its table once and
 //    its warps walk the batch with a stride of gridDim.x * WARPS sequences
 //    (a warp that finishes a short sequence takes the next one).
-//  * Past 2432 states (up to 64 * 76 = 4864, LANES = 64) two warps follow
-//    one sequence, 32 * PER states each. The f32 table there (389 KB at
-//    4864 states) is larger than an SM's shared memory, so the wide case
-//    keeps no table: each lane copies its own PER entries of the next
-//    step's row from global memory (L2) into a private double buffer with
-//    cp.async while the step runs, and waits only on its own copies (no
-//    barrier publishes them). The filter's rows stay bf16 there (8-byte
-//    copies, half the L2 traffic; lane l's reads start at word l * (4q + 2),
-//    16 distinct even banks a half-warp), widened in the step. (A 2-block
-//    cluster holding half the f32 table each would keep the table on the
-//    chip, at the price of a cluster launch and a
-//    distributed-shared-memory exchange every step; the wide case aims at
-//    being right, not fast.) The j-1 shift between the warps and E cross
-//    through shared memory: at the end of each step warp 0's last state
-//    and each warp's E go into a parity buffer, one named barrier (bar.sync
-//    1 + pair, 64 threads) orders them, and both warps read both.
+//  * Past 2432 states (up to 64 * 76 = 4864, LANES = 64) one sequence is
+//    followed by a pair of warps, one in each block of a 2-block thread-block
+//    cluster (a cluster launch, cudaLaunchKernelEx). The f32 table of 4864
+//    states (389 KB) is larger than an SM's shared memory, but each half is
+//    not: block r of the cluster stages half r of it, 20 x 32 * PER entries
+//    (194,560 bytes at PER = 76, the normal-width case's table), once a
+//    block, and its warp w follows states 32 * PER * r .. 32 * PER * (r + 1)
+//    - 1 of its sequence with the normal-width step; the two blocks' warps w
+//    pair up and walk the batch with a persistent stride (a grid of as many
+//    clusters as the card holds at once, cudaOccupancyMaxActiveClusters).
+//    Two things cross the pair every step, through distributed shared
+//    memory: block 0's last state, which block 1's first state takes at the
+//    next step (the j-1 shift), and both halves' E. One lane of each warp
+//    (block 0's lane 31, which holds that last state, and block 1's lane 0,
+//    which takes it) stores its E and its last state into the partner
+//    warp's slot with one asynchronous store (st.async at the address mapa
+//    gives) that completes 8 bytes of the transaction of the partner's
+//    mbarrier, then arrives on its own barrier expecting the partner's 8
+//    bytes, waits on it (acquire at cluster scope) and reads what the
+//    partner stored; the warp takes the max of both keys from it. (A store
+//    and mbarrier.arrive.release.cluster instead, measured on an H100: 9.8
+//    ms against 6.8 at 2048 x 3500 x 4770, the release fencing the lane's
+//    memory operations every step.) Slots and barriers go by step parity: a
+//    warp is at most one
+//    message ahead of its partner, since each needs the other's message of
+//    the step before. No block barrier couples the pairs, so the warps of a
+//    block still walk sequences of different lengths apart.
 //  * Past 4864 states (the rows-in-memory case, LANES = 1024, no width cap)
 //    one block of 1024 threads follows one sequence and keeps the M rows of
 //    the last step and of this one in two scratch rows of global memory a
@@ -120,50 +131,35 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
+
+#include "cluster.cuh"
 
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kWideWarps = 16;   // the wide case's largest block (512 threads)
-constexpr int kMemLanes = 1024;  // the rows-in-memory case: one block a sequence
+constexpr int kClusterWarps = 16;  // the wide case's block (512 threads), a warp a half-sequence
+constexpr int kMemLanes = 1024;    // the rows-in-memory case: one block a sequence
 
 __device__ __forceinline__ float f32_neg_inf() { return -__int_as_float(0x7f800000); }
 
-// Entries of one table type: the -inf fill, the read of four consecutive
-// entries (4g .. 4g + 3 of a lane's row) as floats, and the 4-entry copy
-// from global memory into shared memory (cp.async, 16 or 8 bytes).
+// Entries of one table type: one entry as a float (widening bf16 is exact:
+// the bits become the high half), and four consecutive f32 entries (4g ..
+// 4g + 3 of a lane's row).
 template <typename T>
 struct Entries;
 
 template <>
 struct Entries<float> {
-  static __device__ __forceinline__ float neg_inf() { return f32_neg_inf(); }
   static __device__ __forceinline__ float at(const float* row, int j) { return row[j]; }
   static __device__ __forceinline__ float4 load4(const float* row, int g) {
     return reinterpret_cast<const float4*>(row)[g];
   }
-  static __device__ __forceinline__ void copy4(float* dst, const float* src) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
-  }
 };
 
-// bf16 held as its 16 bits; widening is exact: the bits become the high half
 template <>
 struct Entries<uint16_t> {
-  static __device__ __forceinline__ uint16_t neg_inf() { return 0xff80u; }
   static __device__ __forceinline__ float at(const uint16_t* row, int j) {
     return __uint_as_float(static_cast<uint32_t>(row[j]) << 16);
-  }
-  static __device__ __forceinline__ float4 load4(const uint16_t* row, int g) {
-    const uint2 raw = reinterpret_cast<const uint2*>(row)[g];
-    return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
-                       __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
-  }
-  static __device__ __forceinline__ void copy4(uint16_t* dst, const uint16_t* src) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s), "l"(src) : "memory");
   }
 };
 
@@ -177,6 +173,18 @@ __device__ __forceinline__ int warp_max_key(float v) {
 }
 
 __device__ __forceinline__ float key_float(int key) { return __int_as_float(order_key(key)); }
+
+// -- the wide case's cluster pair (LANES = 64) ----------------------------------
+
+// What a warp and its partner warp in the other block of the cluster
+// exchange every step, by step parity: the mbarrier that the partner's
+// store completes and the (E key, last state) it stores (cluster.cuh).
+// Both blocks lay these out alike, so a warp's own link mapped to the
+// partner's rank is the partner's.
+struct Link {
+  unsigned long long bar[2];
+  int2 slot[2];
+};
 
 struct MsvArgs {
   const void* emit;         // [P, 20, m_pad]: f32, or bf16 bits
@@ -195,22 +203,18 @@ struct MsvArgs {
 };
 
 // Dynamic shared memory of a block of `warps` warps, in bytes: the f32
-// table (LANES = 32), or each warp's two row buffers of `entry`-byte
-// entries and each pair's exchange slots (LANES = 64).
-size_t msv_smem_bytes(int lanes, int per, int warps, int entry) {
+// table of 32 * PER states a lane row (LANES = 32: the whole table; 64: the
+// block's half), and at LANES = 64 each warp's link.
+size_t msv_smem_bytes(int lanes, int per, int warps) {
   return lanes == 32 ? sizeof(float) * 20 * 32 * per
-                     : static_cast<size_t>(warps) * 2 * 32 * per * entry +
-                           static_cast<size_t>(warps / 2) * 2 * 4 * sizeof(float);
+                     : sizeof(float) * 20 * 32 * per + static_cast<size_t>(warps) * sizeof(Link);
 }
 
 template <int PER, int LANES, typename T, int WARPS>
 __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
   static_assert(PER % 8 == 4, "PER = 8q + 4 keeps the table reads conflict-free");
-  static_assert(LANES == 32 || LANES == 64, "one or two warps a sequence");
-  constexpr bool kWide = LANES == 64;
-  // shared entries: the register cases' table is f32 in both modes, the
-  // wide case's row buffers hold the global entries
-  using S = typename std::conditional<kWide, T, float>::type;
+  static_assert(LANES == 32 || LANES == 64, "one warp a sequence, or a warp a half in a pair");
+  constexpr bool kPair = LANES == 64;
   constexpr int kRow = 32 * PER;  // a warp's states: the shared row length
   constexpr int kGroups = PER / 4;
   const float neg_inf = f32_neg_inf();
@@ -218,57 +222,68 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
   const int m_pad = a.m_pad;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int half = kWide ? (warp & 1) : 0;  // which warp of the sequence
+  // the pair: the half of the states (and of the table) this block follows
+  const int half = kPair ? static_cast<int>(cluster_rank()) : 0;
   const int j0 = (half * 32 + lane) * PER;
   const T* my_emit = static_cast<const T*>(a.emit) + static_cast<size_t>(prof) * 20 * m_pad;
 
   extern __shared__ float4 smem4[];
-  S* table = reinterpret_cast<S*>(smem4);
-  // the wide case: this warp's two row buffers, then the pairs' exchange slots
-  S* rowbuf = table + static_cast<size_t>(warp) * 2 * kRow;
-  float* xchg = reinterpret_cast<float*>(table + static_cast<size_t>(blockDim.x >> 5) * 2 * kRow) +
-                (warp >> 1) * 8;
-  if constexpr (!kWide) {
-    // widened to f32 here, once a block (exact for bf16: the bits become the
-    // high half), so that the step reads f32 in both modes
-    for (int i = threadIdx.x; i < 20 * kRow; i += blockDim.x) {
-      const int r = i / kRow;
-      const int c = i - r * kRow;
-      table[i] = c < m_pad ? Entries<T>::at(my_emit + static_cast<size_t>(r) * m_pad, c) : neg_inf;
-    }
-    __syncthreads();
-  } else {
-    // the slots past m_pad are -inf in both buffers; no copy writes them
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      if (j0 + k >= m_pad) {
-        rowbuf[lane * PER + k] = Entries<T>::neg_inf();
-        rowbuf[kRow + lane * PER + k] = Entries<T>::neg_inf();
-      }
-    }
+  float* table = reinterpret_cast<float*>(smem4);
+  // widened to f32 here, once a block (exact for bf16: the bits become the
+  // high half), so that the step reads f32 in both modes; the pair's block
+  // stages its half of the columns
+  for (int i = threadIdx.x; i < 20 * kRow; i += blockDim.x) {
+    const int r = i / kRow;
+    const int c = half * kRow + i - r * kRow;
+    table[i] = c < m_pad ? Entries<T>::at(my_emit + static_cast<size_t>(r) * m_pad, c) : neg_inf;
   }
+  [[maybe_unused]] Link* link = reinterpret_cast<Link*>(table + 20 * kRow) + warp;
+  [[maybe_unused]] unsigned peer_slot = 0, peer_bar = 0;
+  if constexpr (kPair) {
+    if (lane == 0) {
+      mbar_init(&link->bar[0]);
+      mbar_init(&link->bar[1]);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    peer_slot = peer_addr(&link->slot[0], half ^ 1);
+    peer_bar = peer_addr(&link->bar[0], half ^ 1);
+  }
+  __syncthreads();
+  // the partner's barriers exist before anyone arrives on them
+  if constexpr (kPair) cluster_sync();
   const float tr_b_mk = a.tr_consts[3 * prof];
   const float tr_e_c = a.tr_consts[3 * prof + 1];
   const float tr_e_j = a.tr_consts[3 * prof + 2];
   const int b_pad = a.b_pad;
-  [[maybe_unused]] const int bar = 1 + (warp >> 1);  // the wide case's pair barrier
-  // a row offset in table entries: the shared table's, or the global one's
-  const int row_len = kWide ? m_pad : kRow;
-  const S* my_cols = kWide ? rowbuf + lane * PER : table + j0;
+  const float* my_cols = table + lane * PER;
+  // the pair's link lane (block 0's lane 31 holds the half's last state,
+  // block 1's lane 0 takes it), the step parity and each barrier's phase:
+  // both run on over every sequence the warp follows
+  [[maybe_unused]] const int link_lane = half == 0 ? 31 : 0;
+  [[maybe_unused]] int par = 0;
+  [[maybe_unused]] unsigned phases = 0;
 
   // the block's sequences at a time walk the batch: once for a grid that
-  // covers it, a stride at a time for a persistent one (the whole
-  // sequence's warps leave together: no later block barrier)
-  const int seqs = blockDim.x / LANES;
-  for (int seq = blockIdx.x * seqs + threadIdx.x / LANES; seq < b_pad; seq += gridDim.x * seqs) {
+  // covers it, a stride at a time for a persistent one; the pair's blocks
+  // (a cluster, gridDim.x / 2 of them a profile) follow the same sequences
+  const int seqs = kPair ? WARPS : blockDim.x / 32;
+  const int first = kPair ? static_cast<int>(cluster_id()) : static_cast<int>(blockIdx.x);
+  const int units = kPair ? static_cast<int>(cluster_count()) : static_cast<int>(gridDim.x);
+  for (int seq = first * seqs + warp; seq < b_pad; seq += units * seqs) {
     const float tr_loop = a.tr_rows[seq];
     const float tr_move = a.tr_rows[b_pad + seq];
     float m[PER];
     float st_j, st_c, st_n, st_b;
+    // the pair: block 1's first state takes block 0's last one, which the
+    // carry holds at first
+    float bnd = neg_inf;
     if (a.m_in != nullptr) {
       const float* m_row_in = a.m_in + static_cast<size_t>(seq) * m_pad;
 #pragma unroll
       for (int k = 0; k < PER; ++k) m[k] = j0 + k < m_pad ? m_row_in[j0 + k] : neg_inf;
+      if constexpr (kPair) {
+        if (j0 > 0 && j0 - 1 < m_pad) bnd = m_row_in[j0 - 1];
+      }
       st_j = a.s_in[seq];
       st_c = a.s_in[b_pad + seq];
       st_n = a.s_in[2 * b_pad + seq];
@@ -282,51 +297,20 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
       st_b = tr_move;
     }
 
-    // the wide case: the second warp's first state takes the first warp's
-    // last one through the exchange slots, which start with the carry's
-    float bnd = neg_inf;
-    if constexpr (kWide) {
-      if (half == 0 && lane == 31) xchg[4] = m[PER - 1];
-      asm volatile("bar.sync %0, 64;" ::"r"(bar) : "memory");
-      bnd = xchg[4];
-    }
-    int par = 0;
-
     const int n = min(max(a.lengths[seq], 0), a.l_pad);
     const int8_t* tok_row = a.tokens + static_cast<size_t>(seq) * a.l_pad;
-
-    // copies of row `off` (in my_emit) into the row buffer of parity q (wide)
-    auto fetch = [&](int off, int q) {
-      if constexpr (kWide) {
-        S* dst = rowbuf + q * kRow + lane * PER;
-        const T* src = my_emit + off + j0;
-#pragma unroll
-        for (int g = 0; g < kGroups; ++g) {
-          if (j0 + 4 * g < m_pad) Entries<T>::copy4(dst + 4 * g, src + 4 * g);
-        }
-        asm volatile("cp.async.commit_group;" ::: "memory");
-      }
-    };
 
     for (int t0 = 0; t0 < n; t0 += 32) {
       // clamped once, as a row offset: a token outside 0..19 is clamped like
       // an XLA gather; encoded residues are always inside
-      const int mine = t0 + lane < n
-                           ? min(max(static_cast<int>(tok_row[t0 + lane]), 0), 19) * row_len
-                           : 0;
+      const int mine = t0 + lane < n ? min(max(static_cast<int>(tok_row[t0 + lane]), 0), 19) * kRow
+                                     : 0;
       const int count = min(32, n - t0);
-      int off = __shfl_sync(kFullMask, mine, 0);
-      fetch(off, par);
-      const S* row = my_cols + (kWide ? par * kRow : off);
-      if constexpr (kWide) asm volatile("cp.async.wait_group 0;" ::: "memory");
+      const float* row = my_cols + __shfl_sync(kFullMask, mine, 0);
       for (int i = 0; i < count; ++i) {
         const float bt = st_b + tr_b_mk;
-        // the next step's row: its offset now, and for the wide case its copy
+        // the next step's row offset, now
         const int next = __shfl_sync(kFullMask, mine, i + 1);  // lane 32 is lane 0
-        const bool more = i + 1 < count;
-        if constexpr (kWide) {
-          if (more) fetch(next, par ^ 1);
-        }
         float prev = __shfl_up_sync(kFullMask, m[PER - 1], 1);
         if (lane == 0) prev = half == 0 ? neg_inf : bnd;
 
@@ -335,7 +319,7 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
         float e0 = neg_inf, e1 = neg_inf;
 #pragma unroll
         for (int g = kGroups - 1; g >= 0; --g) {
-          const float4 e = Entries<S>::load4(row, g);
+          const float4 e = Entries<float>::load4(row, g);
           m[4 * g + 3] = e.w + fmaxf(m[4 * g + 2], bt);
           m[4 * g + 2] = e.z + fmaxf(m[4 * g + 1], bt);
           m[4 * g + 1] = e.y + fmaxf(m[4 * g], bt);
@@ -347,20 +331,23 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
           e0 = fmaxf(e0, m[4 * g]);
         }
         int key = warp_max_key(fmaxf(e0, e1));
-        if constexpr (kWide) {
-          // both warps' E and the first warp's last state, one barrier
-          float* x = xchg + 4 * par;
-          if (lane == 0) reinterpret_cast<int*>(x)[1 + half] = key;
-          if (half == 0 && lane == 31) x[0] = m[PER - 1];
-          asm volatile("bar.sync %0, 64;" ::"r"(bar) : "memory");
-          key = max(reinterpret_cast<const int*>(x)[1], reinterpret_cast<const int*>(x)[2]);
-          bnd = x[0];
+        if constexpr (kPair) {
+          // this half's E and last state to the partner, the partner's back
+          if (lane == link_lane) {
+            st_async2(peer_slot + 8u * par, key, __float_as_int(m[PER - 1]),
+                      peer_bar + 8u * par);
+            const unsigned bar = smem_addr(&link->bar[par]);
+            mbar_expect(bar, 8);
+            mbar_wait(bar, (phases >> par) & 1u);
+            const int2 got = link->slot[par];  // after the acquire (a memory clobber)
+            key = max(key, got.x);
+            bnd = __int_as_float(got.y);
+          }
+          phases ^= 1u << par;
           par ^= 1;
-          row = my_cols + par * kRow;
-          if (more) asm volatile("cp.async.wait_group 0;" ::: "memory");
-        } else {
-          row = my_cols + next;
+          key = __shfl_sync(kFullMask, key, link_lane);
         }
+        row = my_cols + next;
         const float e_st = key_float(key);
         st_j = fmaxf(st_j + tr_loop, e_st + tr_e_j);
         st_c = fmaxf(st_c + tr_loop, e_st + tr_e_c);
@@ -385,10 +372,9 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
       }
       a.scores[static_cast<size_t>(prof) * b_pad + seq] = st_c + tr_move;
     }
-    // the wide case: both warps are done with the pair's exchange slots
-    // before its next sequence writes them
-    if constexpr (kWide) asm volatile("bar.sync %0, 64;" ::"r"(bar) : "memory");
   }
+  // no block leaves while its partner may still reach its shared memory
+  if constexpr (kPair) cluster_sync();
 }
 
 // The rows-in-memory case: msv_kernel's step over two scratch rows a block,
@@ -467,12 +453,12 @@ __global__ void __launch_bounds__(kMemLanes) msv_mem_kernel(const MsvArgs a, flo
 using KernelFn = void (*)(MsvArgs);
 
 // The register cases' blocks: each is a kernel of its own, compiled under
-// __launch_bounds__(32 * warps, 1) (ops/msv_cuda.py::WARP_CHOICES).
+// __launch_bounds__(32 * warps, 1) (ops/msv_cuda.py::WARP_CHOICES; the
+// cluster pair's block, kClusterWarps, is CLUSTER_WARPS).
 template <int PER, int LANES, typename T>
 KernelFn kernel_of(int warps) {
   if constexpr (LANES == 64) {
-    if (warps < 2 || warps % 2 != 0 || warps > kWideWarps) return nullptr;
-    return msv_kernel<PER, 64, T, kWideWarps>;
+    return warps == kClusterWarps ? msv_kernel<PER, 64, T, kClusterWarps> : nullptr;
   } else {
     switch (warps) {
       case 8: return msv_kernel<PER, 32, T, 8>;
@@ -522,23 +508,43 @@ KernelFn find_kernel(int lanes, int per, int warps, int bf16) {
 #undef MSV_CASE
 }
 
+// The launch of a cluster pair's kernel: `grid` blocks a profile (even), 2
+// a cluster along x.
+cudaLaunchConfig_t pair_config(int grid, int num_p, int warps, size_t smem, cudaStream_t stream,
+                               cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, num_p);
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. `lanes` (32: one warp a sequence;
-// 64: two; kMemLanes: the rows-in-memory case) and `per`, the number of M
-// states each lane holds (tiles of kMemLanes states in the last case), name
-// the kernel case: per 4, 12, ..., 76 at 32 lanes and 44, ..., 76 at 64 (the
-// Python wrapper's KERNEL_PER, WIDE_PER), any at kMemLanes, with lanes * per
-// >= m_pad (a multiple of 8 at 64 lanes: the row copies are 16 or 8 bytes).
-// `warps` warps a block and `grid` blocks a profile are the launch plan of
+// 64: a pair of warps, one in each block of a 2-block cluster; kMemLanes:
+// the rows-in-memory case) and `per`, the number of M states each lane
+// holds (tiles of kMemLanes states in the last case), name the kernel case:
+// per 4, 12, ..., 76 at 32 lanes and 44, ..., 76 at 64 (the Python
+// wrapper's KERNEL_PER, WIDE_PER), any at kMemLanes, with lanes * per >=
+// m_pad (a multiple of 8 at 64 lanes, the packers' convention). `warps`
+// warps a block and `grid` blocks a profile are the launch plan of
 // ops/msv_cuda.py::launch_plan: at 32 lanes one of 8, 12, ..., 32 (each its
-// own compiled kernel), at 64 an even number up to kWideWarps; a grid
-// smaller than the batch needs makes the warps walk it with a stride. At
-// kMemLanes the block is kMemLanes threads (`warps` is not read) and
-// `scratch` holds [num_p, grid, 2, m_pad] floats. `bf16` selects the
-// filter's bf16 table (16-bit entries) over f32; `num_p` profiles are
-// stacked in emit [num_p, 20, m_pad] and tr_consts [num_p, 3], and scores is
-// [num_p, b_pad]. A null m_in starts from the row-0 carry (s_in is then not
+// own compiled kernel), at 64 kClusterWarps and an even grid, launched as
+// clusters of 2 blocks along x (cudaLaunchKernelEx); a refused cluster launch
+// returns its error. A grid smaller than the batch needs makes the warps walk
+// it with a stride. At kMemLanes the block is kMemLanes threads (`warps` is
+// not read) and `scratch` holds [num_p, grid, 2, m_pad] floats. `bf16`
+// selects the filter's bf16 table (16-bit entries) over f32; `num_p` profiles
+// are stacked in emit [num_p, 20, m_pad] and tr_consts [num_p, 3], and scores
+// is [num_p, b_pad]. A null m_in starts from the row-0 carry (s_in is then not
 // read); a null m_out or s_out skips that carry's store. Returns a
 // cudaError_t.
 extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf16, int num_p,
@@ -551,8 +557,8 @@ extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf
   const bool mem = lanes == kMemLanes;
   const KernelFn fn = mem ? nullptr : find_kernel(lanes, per, warps, bf16);
   if ((!mem && fn == nullptr) || (mem && scratch == nullptr) || grid < 1 || m_pad < 1 ||
-      static_cast<long>(lanes) * per < m_pad || (lanes == 64 && m_pad % 8 != 0) || num_p < 1 ||
-      num_p > 65535) {
+      static_cast<long>(lanes) * per < m_pad || (lanes == 64 && (m_pad % 8 != 0 || grid % 2 != 0)) ||
+      num_p < 1 || num_p > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -581,13 +587,19 @@ extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = msv_smem_bytes(lanes, per, warps, bf16 ? 2 : 4);
+  const size_t smem = msv_smem_bytes(lanes, per, warps);
   const void* kernel = reinterpret_cast<const void*>(fn);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&a};
-  err = cudaLaunchKernel(kernel, dim3(grid, num_p), dim3(warps * 32), args, smem, st);
+  if (lanes == 64) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = pair_config(grid, num_p, warps, smem, st, &attr);
+    err = cudaLaunchKernelEx(&cfg, fn, a);
+  } else {
+    void* args[] = {&a};
+    err = cudaLaunchKernel(kernel, dim3(grid, num_p), dim3(warps * 32), args, smem, st);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -606,6 +618,24 @@ extern "C" int msv_kernel_attrs(int lanes, int per, int warps, int bf16, int* re
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   return 0;
+}
+
+// The most 2-block clusters of the cluster pair's case (`per`, `warps`,
+// `bf16` as for msv_scan_launch at 64 lanes) the card `device` runs at once
+// (cudaOccupancyMaxActiveClusters), for the launch plan's persistent grid.
+// Returns a cudaError_t.
+extern "C" int msv_max_clusters(int device, int per, int warps, int bf16, int* clusters) {
+  const KernelFn fn = find_kernel(64, per, warps, bf16);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = msv_smem_bytes(64, per, warps);
+  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = pair_config(2, 1, warps, smem, nullptr, &attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, fn, &cfg));
 }
 
 extern "C" const char* msv_error_string(int err) {

@@ -1,11 +1,15 @@
 // The blocked state layout and the per-group primitives shared by the p7
 // Viterbi / log-space Forward / Viterbi filter template (p7_viterbi.cuh), the
 // probability-space Forward kernel (p7_forward_kernel.cu) and the posterior
-// backward coverage pass (p7_backward_kernel.cu); and, past 256 * 19 = 4864
-// states, the rows-in-memory case's helpers (at the end).
+// backward coverage pass (p7_backward_kernel.cu); the cluster pair's
+// primitives, which the Viterbi template's wide case runs on (after the
+// group's); and, past 256 * 19 = 4864 states, the rows-in-memory case's
+// helpers (at the end).
 //
 // A block holds G groups of KT threads, KT = 128 (M_pad <= 128 * 19 = 2432)
-// or 256 (the wide case, M_pad <= 256 * 19 = 4864); G = blockDim.x / KT, at
+// or 256 (the Forward and backward sources' wide case, M_pad <= 256 * 19 =
+// 4864; the Viterbi template's runs on the cluster pair, below); G =
+// blockDim.x / KT, at
 // most kMaxThreads / KT. Each group follows one sequence at a time and walks
 // the batch with a stride of gridDim.x * G. Thread t of a group owns the
 // contiguous states j = t * PER + k, k < PER, in registers. A row kept in
@@ -36,7 +40,8 @@
 // check it.
 //
 // At KT = 128 the six transition rows always fit beside one group (at most
-// 7 of the 24 rows of 227 KB at PER = 19); at KT = 256 a row is twice as
+// 7 of the 24 rows of 227 KB at PER = 19), and so in a block of the
+// cluster pair; at KT = 256 a row is twice as
 // large (19,456 bytes at PER = 19, where one group's own rows and six staged
 // transition rows would be 1,024 bytes over the block's 232,448). So the
 // launch plan stages the first n_trans transition rows (6 at KT = 128) and
@@ -48,6 +53,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "cluster.cuh"
 
 namespace {
 
@@ -106,6 +113,36 @@ template <int PER, int KT, bool BF16>
 __host__ __device__ constexpr size_t smem_floats(int n_rows, int groups, bool save) {
   return static_cast<size_t>(n_rows) * row_floats<PER, KT>() +
          static_cast<size_t>(groups) * group_floats<PER, KT, BF16>(save);
+}
+
+// The cluster pair's exchange area, after a block's group: two rows of
+// block 0's states for the larger shifts, the slots of two exchanges (one
+// value of each warp of both blocks), the halo slots of each smaller shift
+// (kHaloSlots values a shift: the two shifts by one, then pass p of the
+// chain at 2 + p), two slots of the rows' release signals (and two of
+// padding), then the mbarriers (8 bytes each): one a halo, two for the
+// exchanges, two for the rows and two for their release.
+constexpr int kHaloIds = 2 + 16;
+constexpr int kHaloSlots = 16;
+constexpr int kPairBars = kHaloIds + 2 + 2 + 2;
+template <int PER, int KT>
+__host__ __device__ constexpr int pair_floats() {
+  return 2 * row_floats<PER, KT>() + 2 * 2 * warps<KT>() + kHaloIds * kHaloSlots + 4 +
+         2 * kPairBars;
+}
+
+// The passes of a chain whose shift (1, 2, 4, 8, 16 below PER) moves
+// registers and a halo; the later ones are the larger shifts.
+template <int PER>
+__host__ __device__ constexpr int small_passes() {
+  return PER > 16 ? 5 : PER > 8 ? 4 : PER > 4 ? 3 : PER > 2 ? 2 : PER > 1 ? 1 : 0;
+}
+
+// The same for a block of the cluster pair: n_rows staged rows, its one
+// group and the pair's exchange area.
+template <int PER, int KT, bool BF16>
+__host__ __device__ constexpr size_t pair_smem_floats(int n_rows) {
+  return smem_floats<PER, KT, BF16>(n_rows, 1, false) + pair_floats<PER, KT>();
 }
 
 // Floats of one group's part of the backward pass's dynamic shared memory:
@@ -445,6 +482,259 @@ __device__ __forceinline__ void group_sum2(float& a, float& b, float* red, int t
   b = combine_warps<true, KT>(red + W);
 }
 
+// -- the cluster pair ------------------------------------------------------------
+//
+// Past 128 * 19 = 2432 states (up to 2 * 2432 = 4864) the Viterbi template's
+// cases run one sequence on a pair of groups of KT = 128 threads, one in
+// each block of a 2-block thread-block cluster, a group a block. Block r
+// owns the states r * KT * PER + t * PER + k, the normal-width layout of its
+// half: it stages its half of every constant row, and its registers, shift
+// buffers and emission rows hold its half of the DP rows. Each phase that
+// crosses threads crosses the pair; shifts go toward higher j, so block 0
+// needs nothing of block 1 but the reductions' values:
+//  * a shift by S below PER (1, 2, 4, 8, 16): block 0's last thread stores
+//    its last S states into block 1's halo slots of that shift with
+//    asynchronous stores (st.async at the address mapa gives) that complete
+//    the transaction of block 1's halo mbarrier; block 1's thread 0 arrives
+//    on it expecting 4 * S bytes and waits (acquire at cluster scope). The
+//    rest of the shift is the group's, on its named barrier;
+//  * a larger shift by s: the threads of block 0 that hold its last min(s,
+//    KT * PER) states store them into one of block 1's two rows by
+//    st.async, completing that row's mbarrier, which block 1 waits on; the
+//    rows alternate by larger shift within a step, and before block 0
+//    stores into a row again block 1 has released it (a 4-byte st.async
+//    into block 0's release slot once its group read the row);
+//  * a reduction (E, the filter's tail max, the lazy certificate's OR): each
+//    warp's value goes into both blocks' exchange slots by st.async, each
+//    block waits for all eight on its exchange mbarrier and combines them
+//    in one fixed order, block 0's warps then block 1's, so both get the
+//    same value bit for bit.
+// With every phase on the cluster's barrier instead (a release at cluster
+// scope each, cluster.cuh), the lazy case took 7.0 us a step at 4770 states
+// (24.5 ms at 64 x 3500) against 2.7 us (9.3 ms) this way, measured on an
+// H100.
+// No halo or exchange slot is written again before its reader is done with
+// it: each step ends in an exchange (E) that needs both blocks' values, so
+// block 0, which waits for nothing else, runs at most one step ahead, and
+// each block's next value to the other depends on what it read; the
+// exchange slots and barriers alternate by exchange.
+
+// A block's place in the cluster pair (alone: rank 0, col0 0, m_real
+// m_pad, nothing else read) and its exchange state: its shared exchange
+// area, the partner's (cluster addresses), and the phase of each mbarrier
+// it waits on, by bit.
+struct Pair {
+  int rank;
+  int col0;    // the block's first state
+  int m_real;  // the block's real states (m_pad's part in its half)
+  float* rows;    // [2][row_floats]: block 0's states, for the larger shifts
+  float* xslots;  // [2][2 * KT / 32] exchange slots
+  float* halo;    // [kHaloIds][kHaloSlots]
+  unsigned hbar;  // shared address of halo mbarrier 0 (then 8 bytes each)
+  unsigned xbar;  // ... of exchange mbarrier 0
+  unsigned rbar;  // ... of row mbarrier 0 (block 1 waits)
+  unsigned fbar;  // ... of release mbarrier 0 (block 0 waits)
+  unsigned peer_halo, peer_hbar, peer_rows, peer_rbar;  // block 1's, for block 0's stores
+  unsigned peer_fslot, peer_fbar;                       // block 0's, for block 1's releases
+  unsigned self_x, self_xbar, peer_x, peer_xbar;  // both blocks' slots and barriers
+  unsigned hphase;  // halo mbarriers' phases (block 1's thread 0 waits)
+  unsigned xphase;  // exchange mbarriers' phases
+  unsigned rphase;  // row (block 1) or release (block 0) mbarriers' phases
+  int xn;           // exchanges sent
+};
+
+// The pair's exchange area at `area` (pair_floats<PER, KT>() floats,
+// 16-byte aligned); thread 0 initialises the mbarriers (the caller fences
+// and synchronises the cluster before anyone arrives on them).
+template <int PER, int KT>
+__device__ __forceinline__ void pair_setup(Pair& pr, float* area, int t) {
+  constexpr int X = 2 * 2 * warps<KT>();
+  pr.rows = area;
+  pr.xslots = area + 2 * row_floats<PER, KT>();
+  pr.halo = pr.xslots + X;
+  float* fslots = pr.halo + kHaloIds * kHaloSlots;
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(fslots + 4);
+  pr.hbar = smem_addr(bars);
+  pr.xbar = smem_addr(bars + kHaloIds);
+  pr.rbar = smem_addr(bars + kHaloIds + 2);
+  pr.fbar = smem_addr(bars + kHaloIds + 4);
+  if (t == 0) {
+    for (int i = 0; i < kPairBars; ++i) mbar_init(bars + i);
+  }
+  const unsigned peer = pr.rank ^ 1;
+  pr.peer_halo = peer_addr(pr.halo, 1);
+  pr.peer_hbar = peer_addr(bars, 1);
+  pr.peer_rows = peer_addr(pr.rows, 1);
+  pr.peer_rbar = peer_addr(bars + kHaloIds + 2, 1);
+  pr.peer_fslot = peer_addr(fslots, 0);
+  pr.peer_fbar = peer_addr(bars + kHaloIds + 4, 0);
+  pr.self_x = peer_addr(pr.xslots, pr.rank);
+  pr.self_xbar = peer_addr(bars + kHaloIds, pr.rank);
+  pr.peer_x = peer_addr(pr.xslots, peer);
+  pr.peer_xbar = peer_addr(bars + kHaloIds, peer);
+  pr.hphase = 0;
+  pr.xphase = 0;
+  pr.rphase = 0;
+  pr.xn = 0;
+}
+
+// out[k] = state j - S of the pair's row (j = col0 + t * PER + k), for S <
+// PER: slots k >= S are register moves; the first S come from thread t - 1
+// through `buf`, in block 1's thread 0 from block 0's last thread through
+// halo `id`, in block 0's thread 0 `fill`.
+template <int PER, int KT, int S>
+__device__ __forceinline__ void pair_shift_small(const float (&v)[PER], float (&out)[PER],
+                                                 float fill, float* buf, int t, int bar, Pair& pr,
+                                                 int id) {
+  static_assert(S <= kHaloSlots, "a small shift's halo");
+  constexpr int SP = stride<PER>();
+  if (pr.rank == 0 && t == KT - 1) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      st_async(pr.peer_halo + 4 * (id * kHaloSlots + k), v[PER - S + k], pr.peer_hbar + 8 * id);
+    }
+  }
+#pragma unroll
+  for (int k = PER - S; k < PER; ++k) buf[t * SP + k] = v[k];
+  group_sync<KT>(bar);
+  if (t > 0) {
+    const int prev = (t - 1) * SP + PER - S;
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[k] = buf[prev + k];
+  } else if (pr.rank == 1) {
+    mbar_expect(pr.hbar + 8 * id, 4 * S);
+    mbar_wait(pr.hbar + 8 * id, (pr.hphase >> id) & 1u);
+    pr.hphase ^= 1u << id;
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[k] = pr.halo[id * kHaloSlots + k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[k] = fill;
+  }
+#pragma unroll
+  for (int k = S; k < PER; ++k) out[k] = v[k - S];
+}
+
+// The same for any s: the whole row goes through `buf` on the group's
+// barrier; block 1's states below s take block 0's last min(s, KT * PER)
+// states from row i & 1 of block 1's two rows (i: the larger shift's index
+// in this step's n larger shifts), which block 0 stores there once block 1
+// has released the row's use i - 2.
+template <int PER, int KT>
+__device__ __forceinline__ void pair_shift_big(const float (&v)[PER], float (&out)[PER], int s,
+                                               float fill, float* buf, int t, int bar, Pair& pr,
+                                               int i, int n) {
+  constexpr int SP = stride<PER>();
+  constexpr int N = KT * PER;  // a block's states
+  const int q = i & 1;
+  const int first = N - min(s, N);  // block 0's first state block 1 takes
+  if (pr.rank == 0) {
+    if (i >= 2) {
+      if (t == 0) mbar_expect(pr.fbar + 8 * q, 4);
+      mbar_wait(pr.fbar + 8 * q, (pr.rphase >> q) & 1u);
+      pr.rphase ^= 1u << q;
+    }
+    const unsigned row = pr.peer_rows + 4 * q * row_floats<PER, KT>();
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int j = t * PER + k;
+      if (j >= first) st_async(row + 4 * sidx<PER>(j), v[k], pr.peer_rbar + 8 * q);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) buf[t * SP + k] = v[k];
+  group_sync<KT>(bar);
+  if (pr.rank == 1) {
+    if (t == 0) mbar_expect(pr.rbar + 8 * q, 4 * (N - first));
+    mbar_wait(pr.rbar + 8 * q, (pr.rphase >> q) & 1u);
+    pr.rphase ^= 1u << q;
+  }
+  const float* row = pr.rows + q * row_floats<PER, KT>();
+  const int base = t * PER - s;  // this block's index of state j - s
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = base + k;
+    if (j >= 0) {
+      out[k] = buf[sidx<PER>(j)];
+    } else if (pr.rank == 1 && j + N >= 0) {
+      out[k] = row[sidx<PER>(j + N)];
+    } else {
+      out[k] = fill;
+    }
+  }
+  if (pr.rank == 1 && i + 2 < n) {
+    // the group has read the row: block 0 may store its use i + 2
+    group_sync<KT>(bar);
+    if (t == 0) st_async(pr.peer_fslot + 4 * q, 0.0f, pr.peer_fbar + 8 * q);
+  }
+}
+
+// The pair's shift by s, `fill` where j < s (`id`: the shift's halo; a
+// larger shift is the step's i-th of n). The shifts by 1, 2, 4, 8 and 16
+// below PER move registers, as shift's do.
+template <int PER, int KT>
+__device__ __forceinline__ void pair_shift(const float (&v)[PER], float (&out)[PER], int s,
+                                           float fill, float* buf, int t, int bar, Pair& pr,
+                                           int id, int i, int n) {
+  if constexpr (PER > 1) {
+    if (s == 1) return pair_shift_small<PER, KT, 1>(v, out, fill, buf, t, bar, pr, id);
+  }
+  if constexpr (PER > 2) {
+    if (s == 2) return pair_shift_small<PER, KT, 2>(v, out, fill, buf, t, bar, pr, id);
+  }
+  if constexpr (PER > 4) {
+    if (s == 4) return pair_shift_small<PER, KT, 4>(v, out, fill, buf, t, bar, pr, id);
+  }
+  if constexpr (PER > 8) {
+    if (s == 8) return pair_shift_small<PER, KT, 8>(v, out, fill, buf, t, bar, pr, id);
+  }
+  if constexpr (PER > 16) {
+    if (s == 16) return pair_shift_small<PER, KT, 16>(v, out, fill, buf, t, bar, pr, id);
+  }
+  pair_shift_big<PER, KT>(v, out, s, fill, buf, t, bar, pr, i, n);
+}
+
+// An exchange: each warp's value `v` (the same in every lane) into slot
+// rank * KT / 32 + warp of both blocks' exchange slots of this exchange;
+// returns the exchange (0 or 1) for pair_collect.
+template <int KT>
+__device__ __forceinline__ int pair_send(float v, int t, Pair& pr) {
+  constexpr int X = 2 * warps<KT>();
+  const int q = pr.xn++ & 1;
+  if ((t & 31) == 0) {
+    const unsigned off = 4 * (q * X + pr.rank * warps<KT>() + (t >> 5));
+    st_async(pr.self_x + off, v, pr.self_xbar + 8 * q);
+    st_async(pr.peer_x + off, v, pr.peer_xbar + 8 * q);
+  }
+  if (t == 0) mbar_expect(pr.xbar + 8 * q, 4 * X);
+  return q;
+}
+
+// The 2 * KT / 32 values of exchange q, once both blocks' have arrived.
+template <int KT>
+__device__ __forceinline__ const float* pair_collect(int q, Pair& pr) {
+  mbar_wait(pr.xbar + 8 * q, (pr.xphase >> q) & 1u);
+  pr.xphase ^= 1u << q;
+  return pr.xslots + q * 2 * warps<KT>();
+}
+
+// The pair's max or sum of one value a thread: a warp butterfly, every
+// warp's value into both blocks, then the 2 * KT / 32 values combined in a
+// fixed order, block 0's warps then block 1's.
+template <bool SUM, int KT>
+__device__ __forceinline__ float pair_reduce(float v, int t, Pair& pr) {
+  static_assert(KT == 128, "a pair is two groups of 4 warps");
+  const int q = pair_send<KT>(warp_reduce<SUM>(v), t, pr);
+  return combine_warps<SUM, 2 * KT>(pair_collect<KT>(q, pr));
+}
+
+// OR of `v` over the pair; every thread of both blocks gets it.
+template <int KT>
+__device__ __forceinline__ bool pair_any(bool v, int t, Pair& pr) {
+  const int q = pair_send<KT>(__any_sync(kFullMask, v) ? 1.0f : 0.0f, t, pr);
+  return combine_warps<false, 2 * KT>(pair_collect<KT>(q, pr)) > 0.0f;
+}
+
 // One carry row of a sequence between global memory [m_pad] (coalesced)
 // and the blocked registers, through the shared row `buf`; `fill` past
 // m_pad. Each global element is read and written by the same thread (j
@@ -511,39 +801,44 @@ bool plan_ok(int groups, int grid, int smem_bytes, int n_rows, int n_trans, bool
 }
 
 // Calls fn(Case<per, threads>{}) for the kernel cases a source instantiates:
-// 128 threads with 1..19 states a thread, 256 threads with 10..19 (the
-// widths past 128 * 19 = 2432).
+// 128 threads with 1..19 states a thread (with_group_case: the Viterbi
+// template's sources, whose wider cases are the cluster pair's), and 256
+// threads with 10..19 (the widths past 128 * 19 = 2432, with_case: the
+// Forward and backward sources).
 #define P7_CASE(P, T) \
   case P:             \
     return fn(Case<P, T>{});
 
 template <template <int, int> class Case, typename Fn>
-cudaError_t with_case(int threads, int per, Fn fn) {
-  if (threads == 128) {
-    switch (per) {
-      P7_CASE(1, 128)
-      P7_CASE(2, 128)
-      P7_CASE(3, 128)
-      P7_CASE(4, 128)
-      P7_CASE(5, 128)
-      P7_CASE(6, 128)
-      P7_CASE(7, 128)
-      P7_CASE(8, 128)
-      P7_CASE(9, 128)
-      P7_CASE(10, 128)
-      P7_CASE(11, 128)
-      P7_CASE(12, 128)
-      P7_CASE(13, 128)
-      P7_CASE(14, 128)
-      P7_CASE(15, 128)
-      P7_CASE(16, 128)
-      P7_CASE(17, 128)
-      P7_CASE(18, 128)
-      P7_CASE(19, 128)
-      default:
-        return cudaErrorInvalidValue;
-    }
+cudaError_t with_group_case(int per, Fn fn) {
+  switch (per) {
+    P7_CASE(1, 128)
+    P7_CASE(2, 128)
+    P7_CASE(3, 128)
+    P7_CASE(4, 128)
+    P7_CASE(5, 128)
+    P7_CASE(6, 128)
+    P7_CASE(7, 128)
+    P7_CASE(8, 128)
+    P7_CASE(9, 128)
+    P7_CASE(10, 128)
+    P7_CASE(11, 128)
+    P7_CASE(12, 128)
+    P7_CASE(13, 128)
+    P7_CASE(14, 128)
+    P7_CASE(15, 128)
+    P7_CASE(16, 128)
+    P7_CASE(17, 128)
+    P7_CASE(18, 128)
+    P7_CASE(19, 128)
+    default:
+      return cudaErrorInvalidValue;
   }
+}
+
+template <template <int, int> class Case, typename Fn>
+cudaError_t with_case(int threads, int per, Fn fn) {
+  if (threads == 128) return with_group_case<Case>(per, fn);
   if (threads == 256) {
     switch (per) {
       P7_CASE(10, 256)
@@ -563,6 +858,32 @@ cudaError_t with_case(int threads, int per, Fn fn) {
   return cudaErrorInvalidValue;
 }
 #undef P7_CASE
+
+// Calls fn(Case<per>{}) for the cluster pair's cases (p7_viterbi.cuh): 128
+// threads a block, 10..19 states a thread, 2 * 128 * per states a pair.
+#define P7_PAIR_CASE(P) \
+  case P:               \
+    return fn(Case<P>{});
+
+template <template <int> class Case, typename Fn>
+cudaError_t with_pair_case(int per, Fn fn) {
+  switch (per) {
+    P7_PAIR_CASE(10)
+    P7_PAIR_CASE(11)
+    P7_PAIR_CASE(12)
+    P7_PAIR_CASE(13)
+    P7_PAIR_CASE(14)
+    P7_PAIR_CASE(15)
+    P7_PAIR_CASE(16)
+    P7_PAIR_CASE(17)
+    P7_PAIR_CASE(18)
+    P7_PAIR_CASE(19)
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+#undef P7_PAIR_CASE
+constexpr int kPairSlots = 10;  // per-case tables of the pair: [per - 10]
 
 // Index of a kernel case in per-case tables: [0, 19) at 128 threads, [19,
 // 29) at 256.

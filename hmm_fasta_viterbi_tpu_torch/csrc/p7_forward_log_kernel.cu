@@ -16,7 +16,8 @@
 
 namespace {
 
-unsigned smem_set[kCaseSlots];  // devices whose kernel case allows kMaxSmem
+unsigned smem_set[kCaseSlots];       // devices whose kernel case allows kMaxSmem
+unsigned pair_smem_set[kPairSlots];  // ... and whose pair case does
 
 template <int PER, int KT>
 struct Case {
@@ -34,17 +35,41 @@ struct Case {
   }
 };
 
+// The cluster pair's case: 2 * 128 * PER states, a block of the pair's
+// clusters one half.
+template <int PER>
+struct PairCase {
+  static cudaError_t launch(const ViterbiArgs& a, int device, int groups, int grid, int smem,
+                            cudaStream_t stream) {
+    if (!viterbi_plan_ok<PER, 128, false, true>(a, false, false, groups, grid, smem)) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_pair(viterbi_pair_kernel<PER, false, true, false>, a, device,
+                       pair_smem_set[PER - 10], grid, smem, stream);
+  }
+
+  static cudaError_t regs(int* out) {
+    return kernel_regs(viterbi_pair_kernel<PER, false, true, false>, out);
+  }
+
+  static cudaError_t clusters(int device, int smem, int* out) {
+    return pair_max_clusters(viterbi_pair_kernel<PER, false, true, false>, device,
+                             pair_smem_set[PER - 10], smem, out);
+  }
+};
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `threads` (128 or 256, or
-// kMemThreads for the rows-in-memory case) and `per` name the kernel case,
-// with threads * per >= m_pad; the chain runs `n_passes` passes, the first
+// Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads for
+// the rows-in-memory case) and `per` name the kernel case, with threads *
+// per >= m_pad, and `cluster` 2 the cluster pair's (128 threads a block, per
+// 10..19, 2 * threads * per >= m_pad); the chain runs `n_passes` passes, the first
 // `n_chain` rows staged in shared memory with the first `n_trans`
 // transition rows; `groups`, `grid` and `smem` are the launch plan
 // (checked); `scratch` the rows-in-memory case's rows (null otherwise).
 // Returns a cudaError_t.
-extern "C" int p7_forward_log_launch(int device, int threads, int per, const void* msc,
-                                     const void* isc, const void* trans, const void* chain,
+extern "C" int p7_forward_log_launch(int device, int threads, int per, int cluster,
+                                     const void* msc, const void* isc, const void* trans, const void* chain,
                                      int m_pad, int n_passes, int n_chain, int n_trans,
                                      const void* tokens, int l_pad, const void* lengths,
                                      const void* tr_rows, const void* consts, const void* m_in,
@@ -63,16 +88,35 @@ extern "C" int p7_forward_log_launch(int device, int threads, int per, const voi
     return static_cast<int>(
         launch_mem<false, true, false>(a, scratch, false, per, groups, grid, smem, st));
   }
-  return static_cast<int>(with_case<Case>(threads, per, [&](auto c) {
+  if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster == 2) {
+    return static_cast<int>(with_pair_case<PairCase>(per, [&](auto c) {
+      return decltype(c)::launch(a, device, groups, grid, smem, st);
+    }));
+  }
+  if (cluster != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_group_case<Case>(per, [&](auto c) {
     return decltype(c)::launch(a, device, groups, grid, smem, st);
   }));
 }
 
 // Registers a thread of the case uses, for the launch plan.
-extern "C" int p7_forward_log_regs(int threads, int per, int* regs) {
+extern "C" int p7_forward_log_regs(int threads, int per, int cluster, int* regs) {
   if (threads == kMemThreads) {
     return static_cast<int>(kernel_regs(viterbi_mem_kernel<false, true, false>, regs));
   }
+  if (cluster == 2) {
+    return static_cast<int>(
+        with_pair_case<PairCase>(per, [&](auto c) { return decltype(c)::regs(regs); }));
+  }
   return static_cast<int>(
-      with_case<Case>(threads, per, [&](auto c) { return decltype(c)::regs(regs); }));
+      with_group_case<Case>(per, [&](auto c) { return decltype(c)::regs(regs); }));
+}
+
+// The most 2-block clusters of the pair's case `per` the card `device` runs
+// at once with `smem` bytes of dynamic shared memory a block, for the launch
+// plan. Returns a cudaError_t.
+extern "C" int p7_forward_log_clusters(int device, int per, int smem, int* clusters) {
+  return static_cast<int>(with_pair_case<PairCase>(
+      per, [&](auto c) { return decltype(c)::clusters(device, smem, clusters); }));
 }

@@ -80,15 +80,14 @@
 //
 // What the design does about it (p7_blocked.cuh has the layout):
 //  * The block stages the rows the case reads every step into shared
-//    memory once: tmm tmi tmd tim tii tdm (at 256 threads a group, the
-//    first n_trans of them), the first n_chain chain rows (all the passes
-//    the case runs, unless that would not fit: the launcher's plan says how
-//    many) and, for the lazy certificate, Cmax; the remaining rows (the
-//    lazy replay's passes, a wide profile's last chain rows and, at 256
-//    threads, the last transitions) are read from global memory. Every
-//    staged read is an unpredicated, conflict-free shared load; states past
-//    M_pad read the fill -inf and stay -inf.
-//  * G groups of KT = 128 threads (256 past M_pad 2432) share the staged
+//    memory once: tmm tmi tmd tim tii tdm, the first n_chain chain rows
+//    (all the passes the case runs, unless that would not fit: the
+//    launcher's plan says how many) and, for the lazy certificate, Cmax;
+//    the remaining rows (the lazy replay's passes, a wide profile's last
+//    chain rows) are read from global memory. Every staged read is an
+//    unpredicated, conflict-free shared load; states past M_pad read the
+//    fill -inf and stay -inf.
+//  * G groups of KT = 128 threads share the staged
 //    rows, one sequence each, and synchronise on their own named barriers;
 //    the grid is persistent (the launcher's plan) and walks the batch with
 //    a stride. G = 1 for a batch no larger than the SMs, so a survivor batch
@@ -115,6 +114,21 @@
 //    counted per sequence. The specials stay in registers.
 //  * It launches on the caller's stream, allocates nothing and does not
 //    synchronise. The C entry points return cudaGetLastError().
+//  * Past 128 * 19 = 2432 states (up to 4864) the four cases run on the
+//    cluster pair (p7_blocked.cuh; viterbi_pair_kernel, launched as 2-block
+//    clusters): block r of a cluster holds states r * 128 * PER .. of one
+//    sequence in the normal-width layout, a group of 128 threads a block,
+//    and stages its half of every row the normal-width plan stages (every
+//    transition row, as many chain rows as fit: all but 4 of the eager 13
+//    at 19 states a thread); the pair walks the batch with a stride of the
+//    grid's clusters. Each phase that crosses threads crosses the pair
+//    (p7_blocked.cuh says how): the two shifts by one and every pass
+//    a[j - 2^k] (block 1's first 2^k states come from block 0, which stores
+//    them into block 1: below 17 as a halo, else into one of two rows), E's
+//    reductions (each warp's value into
+//    both blocks, combined in one order, block 0's warps then block 1's),
+//    the filter's tail max, and the lazy certificate's OR, so both halves
+//    replay the same chunks. A block's own phases keep its named barrier.
 //  * Past 256 * 19 = 4864 states (up to the chain's 65536) the
 //    rows-in-memory case (viterbi_mem_kernel, p7_blocked.cuh) runs the same
 //    step with every row in global memory, one 1024-thread block a
@@ -192,6 +206,30 @@ __device__ __forceinline__ GroupSmem<PER, KT, FILT> group_smem(float* base) {
   return s;
 }
 
+// A group's shift and its reductions, alone (on its named barrier) or in the
+// cluster pair (p7_blocked.cuh; `id` the shift's halo, pass id - 2 of a
+// chain of `passes`).
+template <int PER, int KT, bool PAIR>
+__device__ __forceinline__ void step_shift(const float (&v)[PER], float (&out)[PER], int s,
+                                           float fill, float* buf, int t, int bar, Pair& pr,
+                                           int id, int passes) {
+  if constexpr (PAIR) {
+    constexpr int kSmall = small_passes<PER>();
+    pair_shift<PER, KT>(v, out, s, fill, buf, t, bar, pr, id, id - 2 - kSmall, passes - kSmall);
+  } else {
+    shift<PER, KT>(v, out, s, fill, buf, t, bar);
+  }
+}
+
+template <bool SUM, int KT, bool PAIR>
+__device__ __forceinline__ float step_reduce(float v, float* red, int t, int bar, Pair& pr) {
+  if constexpr (PAIR) {
+    return pair_reduce<SUM, KT>(v, t, pr);
+  } else {
+    return group_reduce<SUM, KT>(v, red, t, bar);
+  }
+}
+
 // The group's state: rows in registers, specials replicated in every thread.
 template <int PER>
 struct Rows {
@@ -201,12 +239,53 @@ struct Rows {
   float sj, sc, sn, sb;
 };
 
-// Copy step `step`'s emission rows into the group's buffers of parity q.
-template <int PER, int KT, bool FILT>
+// The cluster pair's copy of its half of emission rows `aa` of the [20,
+// m_pad] tables (f32, or the filter's bf16 bits): states col0 .. col0 +
+// m_real - 1, as prefetch_emissions and prefetch_emissions_bf16 copy a whole
+// row (the half starts on a 16-byte boundary: col0 = KT * PER and m_pad
+// are multiples of 8). The caller commits.
+template <int PER, int KT, typename E>
+__device__ __forceinline__ void prefetch_half(E* dm, E* di, const E* msc, const E* isc, int aa,
+                                              int m_pad, Pair& h, int t) {
+  const E* gm = msc + static_cast<size_t>(aa) * m_pad + h.col0;
+  const E* gi = isc + static_cast<size_t>(aa) * m_pad + h.col0;
+  constexpr bool kF32 = sizeof(E) == 4;
+  constexpr int kVec = 16 / sizeof(E);  // entries a 16-byte copy
+  if constexpr (kF32 ? (PER & 1) != 0 : hstride<PER>() == PER) {
+    for (int c = t; c < h.m_real / kVec; c += KT) {
+      cp_async16(dm + kVec * c, gm + kVec * c);
+      cp_async16(di + kVec * c, gi + kVec * c);
+    }
+  } else if constexpr (kF32) {
+    for (int j = t; j < h.m_real; j += KT) {
+      cp_async4(dm + sidx<PER>(j), gm + j);
+      cp_async4(di + sidx<PER>(j), gi + j);
+    }
+  } else {
+    for (int j = 2 * t; j < h.m_real; j += 2 * KT) {
+      cp_async4(dm + hidx<PER>(j), gm + j);
+      cp_async4(di + hidx<PER>(j), gi + j);
+    }
+  }
+}
+
+// Copy step `step`'s emission rows into the group's buffers of parity q
+// (the pair: this block's half of them).
+template <int PER, int KT, bool FILT, bool PAIR>
 __device__ __forceinline__ void prefetch_step(const ViterbiArgs& a,
                                               const GroupSmem<PER, KT, FILT>& gs, int q, int aa,
-                                              int t) {
-  if constexpr (FILT) {
+                                              int t, Pair& h) {
+  if constexpr (PAIR) {
+    if constexpr (FILT) {
+      prefetch_half<PER, KT, uint16_t>(reinterpret_cast<uint16_t*>(gs.em(q)),
+                                       reinterpret_cast<uint16_t*>(gs.ei(q)),
+                                       static_cast<const uint16_t*>(a.msc),
+                                       static_cast<const uint16_t*>(a.isc), aa, a.m_pad, h, t);
+    } else {
+      prefetch_half<PER, KT, float>(gs.em(q), gs.ei(q), static_cast<const float*>(a.msc),
+                                    static_cast<const float*>(a.isc), aa, a.m_pad, h, t);
+    }
+  } else if constexpr (FILT) {
     prefetch_emissions_bf16<PER, KT>(reinterpret_cast<uint16_t*>(gs.em(q)),
                                      reinterpret_cast<uint16_t*>(gs.ei(q)),
                                      static_cast<const uint16_t*>(a.msc),
@@ -218,12 +297,13 @@ __device__ __forceinline__ void prefetch_step(const ViterbiArgs& a,
 }
 
 // Steps [0, count) of the chunk whose tokens are in gs.toks. Returns whether
-// the certificate fired (CERT only). `cs` is the block's staged rows.
-template <int PER, int KT, bool LAZY, bool LSE, bool CERT, bool FILT>
+// the certificate fired (CERT only; in this block's states, for the pair).
+// `cs` is the block's staged rows; `h` the block's place in the pair (PAIR).
+template <int PER, int KT, bool LAZY, bool LSE, bool CERT, bool FILT, bool PAIR>
 __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
                                           const GroupSmem<PER, KT, FILT>& gs, Rows<PER>& r,
                                           int count, int passes, int& par, float tr_loop,
-                                          float tr_move, int t, int bar) {
+                                          float tr_move, int t, int bar, Pair& h) {
   static_assert(!(LAZY && LSE) && !(FILT && (LAZY || LSE)), "one case at a time");
   constexpr int ROW = row_floats<PER, KT>();
   constexpr int W = warps<KT>();
@@ -236,17 +316,21 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
   const float tmd_max = LAZY ? a.consts[4] : 0.0f;
   const bool truncated = FILT && passes < a.n_passes;
   const int off = t * stride<PER>();
+  const int j0 = h.col0 + t * PER;  // this thread's first state
   const int n_trans = KT == 128 ? kTransRows : a.n_trans;
-  const TransRows<PER, KT> tr{cs + off, a.trans, n_trans, m_pad, t * PER, ninf};
+  const TransRows<PER, KT> tr{cs + off, a.trans, n_trans, m_pad, j0, ninf};
   const float* chain_s = cs + n_trans * ROW + off;
   const float* cmax = cs + (n_trans + a.n_chain) * ROW + off;
   bool viol = false;
+  [[maybe_unused]] int tail_x = 0;  // the pair's exchange of the filter's max(a0)
 
-  prefetch_step<PER, KT, FILT>(a, gs, 0, token(gs.toks, 0), t);
+  prefetch_step<PER, KT, FILT, PAIR>(a, gs, 0, token(gs.toks, 0), t, h);
   cp_async_commit();
   for (int step = 0; step < count; ++step) {
     const int q = step & 1;
-    if (step + 1 < count) prefetch_step<PER, KT, FILT>(a, gs, q ^ 1, token(gs.toks, step + 1), t);
+    if (step + 1 < count) {
+      prefetch_step<PER, KT, FILT, PAIR>(a, gs, q ^ 1, token(gs.toks, step + 1), t, h);
+    }
     cp_async_commit();
 
     // the j-1 diagonal: pre_diag of the previous step, shifted by one
@@ -263,7 +347,7 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
     }
     cp_async_wait_prev();  // this step's emission rows (the barrier publishes them)
     float diag[PER];
-    shift<PER, KT>(pd, diag, 1, ninf, gs.xbuf(par), t, bar);
+    step_shift<PER, KT, PAIR>(pd, diag, 1, ninf, gs.xbuf(par), t, bar, h, 0, passes);
     par ^= 1;
 
     const float bt = r.sb + tr_b_mk;
@@ -283,7 +367,11 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
       // the warp's share of max(a0) goes out before the shift's barrier,
       // which then orders it for every reader
       a_max = warp_reduce<false>(a_max);
-      if (truncated && (t & 31) == 0) gs.red[W + (t >> 5)] = a_max;
+      if constexpr (PAIR) {
+        if (truncated) tail_x = pair_send<KT>(a_max, t, h);
+      } else {
+        if (truncated && (t & 31) == 0) gs.red[W + (t >> 5)] = a_max;
+      }
     } else {
       const float* ms = gs.em(q) + off;
       const float* is = gs.ei(q) + off;
@@ -294,11 +382,11 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
         pd[k] = nm[k] + tr(2, k);
       }
     }
-    shift<PER, KT>(pd, ac, 1, ninf, gs.xbuf(par), t, bar);
+    step_shift<PER, KT, PAIR>(pd, ac, 1, ninf, gs.xbuf(par), t, bar, h, 1, passes);
     par ^= 1;
     for (int p = 0; p < passes; ++p) {
       float sh[PER];
-      shift<PER, KT>(ac, sh, 1 << p, ninf, gs.xbuf(par), t, bar);
+      step_shift<PER, KT, PAIR>(ac, sh, 1 << p, ninf, gs.xbuf(par), t, bar, h, 2 + p, passes);
       par ^= 1;
       if (p < a.n_chain) {
         const float* c = chain_s + p * ROW;
@@ -308,16 +396,21 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
         const float* c = a.chain + static_cast<size_t>(p) * m_pad;
 #pragma unroll
         for (int k = 0; k < PER; ++k) {
-          const int j = t * PER + k;
+          const int j = j0 + k;
           ac[k] = combine<LSE>(ac[k], sh[k] + (j < m_pad ? __ldg(c + j) : ninf));
         }
       }
     }
     if (truncated) {
-      const float tail = combine_warps<false, KT>(gs.red + W) + aux;
+      float tail;
+      if constexpr (PAIR) {
+        tail = combine_warps<false, 2 * KT>(pair_collect<KT>(tail_x, h)) + aux;
+      } else {
+        tail = combine_warps<false, KT>(gs.red + W) + aux;
+      }
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
-        if (t * PER + k < m_pad) ac[k] = fmaxf(ac[k], tail);
+        if (j0 + k < m_pad) ac[k] = fmaxf(ac[k], tail);
       }
     }
 
@@ -329,20 +422,20 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
         x[k] = combine<true>(nm[k], ac[k]);
         e = fmaxf(e, x[k]);
       }
-      const float mx = group_reduce<false, KT>(e, gs.red, t, bar);
+      const float mx = step_reduce<false, KT, PAIR>(e, gs.red, t, bar, h);
       float sum = 0.0f;
 #pragma unroll
       for (int k = 0; k < PER; ++k) sum += expf(x[k] == mx ? 0.0f : x[k] - mx);
-      e = mx + logf(group_reduce<true, KT>(sum, gs.red + W, t, bar));
+      e = mx + logf(step_reduce<true, KT, PAIR>(sum, gs.red + W, t, bar, h));
     } else if (FILT) {
       const bool skip_d = a.e_skip_d != 0;
 #pragma unroll
       for (int k = 0; k < PER; ++k) e = fmaxf(e, skip_d ? nm[k] : fmaxf(nm[k], ac[k]));
-      e = group_reduce<false, KT>(e, gs.red, t, bar);
+      e = step_reduce<false, KT, PAIR>(e, gs.red, t, bar, h);
     } else {
 #pragma unroll
       for (int k = 0; k < PER; ++k) e = fmaxf(e, LAZY ? nm[k] : fmaxf(nm[k], ac[k]));
-      e = group_reduce<false, KT>(e, gs.red, t, bar);
+      e = step_reduce<false, KT, PAIR>(e, gs.red, t, bar, h);
     }
 
 #pragma unroll
@@ -395,8 +488,11 @@ __host__ __device__ inline int viterbi_rows(bool lazy, int k_run, int n_passes, 
   return n_trans + n_chain + ((lazy && k_run < n_passes) ? 1 : 0);
 }
 
-template <int PER, int KT, bool LAZY, bool LSE, bool FILT>
-__global__ void viterbi_kernel(const ViterbiArgs a) {
+// The kernel's body, for a block of G groups (viterbi_kernel) or for a
+// block of the cluster pair (PAIR: viterbi_pair_kernel, one group a block,
+// KT = 128).
+template <int PER, int KT, bool LAZY, bool LSE, bool FILT, bool PAIR>
+__device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int ROW = row_floats<PER, KT>();
   const int m_pad = a.m_pad;
@@ -404,42 +500,64 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
   const bool certify = LAZY && a.k_run < a.n_passes;
   const int n_trans = KT == 128 ? kTransRows : a.n_trans;
   const int n_rows = viterbi_rows(LAZY, a.k_run, a.n_passes, a.n_chain, n_trans);
+  // the pair's block follows states col0 .. col0 + KT * PER - 1
+  Pair h;
+  h.rank = 0;
+  h.col0 = 0;
+  h.m_real = m_pad;
+  if constexpr (PAIR) {
+    h.rank = static_cast<int>(cluster_rank());
+    h.col0 = h.rank * KT * PER;
+    h.m_real = min(max(m_pad - h.col0, 0), KT * PER);
+  }
 
   for (int q = 0; q < n_trans; ++q) {
-    stage_row<PER, KT>(smem + q * ROW, a.trans + q * m_pad, m_pad, ninf);
+    stage_row<PER, KT>(smem + q * ROW, a.trans + q * m_pad + h.col0, h.m_real, ninf);
   }
   for (int p = 0; p < a.n_chain; ++p) {
-    stage_row<PER, KT>(smem + (n_trans + p) * ROW, a.chain + p * m_pad, m_pad, ninf);
+    stage_row<PER, KT>(smem + (n_trans + p) * ROW, a.chain + p * m_pad + h.col0, h.m_real, ninf);
   }
   if (certify) {
-    stage_row<PER, KT>(smem + (n_trans + a.n_chain) * ROW, a.chain + 15 * m_pad, m_pad, ninf);
+    stage_row<PER, KT>(smem + (n_trans + a.n_chain) * ROW, a.chain + 15 * m_pad + h.col0,
+                       h.m_real, ninf);
   }
 
   const int groups = blockDim.x / KT;
   const int g = threadIdx.x / KT;
   const int t = threadIdx.x % KT;
   const int bar = 1 + g;
-  const GroupSmem<PER, KT, FILT> gs = group_smem<PER, KT, FILT>(
-      smem + n_rows * ROW + g * group_floats<PER, KT, FILT>(false));
+  const GroupSmem<PER, KT, FILT> gs =
+      group_smem<PER, KT, FILT>(smem + n_rows * ROW + g * group_floats<PER, KT, FILT>(false));
+  if constexpr (PAIR) {
+    // the pair's exchange area follows the block's one group
+    pair_setup<PER, KT>(h, smem + n_rows * ROW + group_floats<PER, KT, FILT>(false), t);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   for (int q = 0; q < 2; ++q) {
     if constexpr (FILT) {
-      fill_tail_bf16<PER, KT>(reinterpret_cast<uint16_t*>(gs.em(q)), m_pad, 0xff80u, t);
-      fill_tail_bf16<PER, KT>(reinterpret_cast<uint16_t*>(gs.ei(q)), m_pad, 0xff80u, t);
+      fill_tail_bf16<PER, KT>(reinterpret_cast<uint16_t*>(gs.em(q)), h.m_real, 0xff80u, t);
+      fill_tail_bf16<PER, KT>(reinterpret_cast<uint16_t*>(gs.ei(q)), h.m_real, 0xff80u, t);
     } else {
-      fill_tail<PER, KT>(gs.em(q), m_pad, ninf, t);
-      fill_tail<PER, KT>(gs.ei(q), m_pad, ninf, t);
+      fill_tail<PER, KT>(gs.em(q), h.m_real, ninf, t);
+      fill_tail<PER, KT>(gs.ei(q), h.m_real, ninf, t);
     }
   }
   __syncthreads();  // the staged rows; from here on each group keeps to itself
+  // the pair: both blocks run, and their mbarriers exist, before either
+  // reaches the other's memory
+  if constexpr (PAIR) cluster_sync();
 
   // the passes a step runs: the whole chain, the lazy window or the
   // filter's window
   const int passes = (LAZY || FILT) ? a.k_run : a.n_passes;
   const int b_pad = a.b_pad;
-  for (int seq = blockIdx.x * groups + g; seq < b_pad; seq += gridDim.x * groups) {
-    const size_t row = static_cast<size_t>(seq) * m_pad;
+  // the sequences of this group: the pair's blocks (a cluster) follow the
+  // same ones
+  for (int seq = PAIR ? cluster_id() : blockIdx.x * groups + g; seq < b_pad;
+       seq += PAIR ? cluster_count() : gridDim.x * groups) {
+    const size_t row = static_cast<size_t>(seq) * m_pad + h.col0;
     Rows<PER> r;
-    load_carries<PER, KT>(r, a.m_in + row, a.i_in + row, a.d_in + row, m_pad, gs.xbuf(0), t,
+    load_carries<PER, KT>(r, a.m_in + row, a.i_in + row, a.d_in + row, h.m_real, gs.xbuf(0), t,
                           bar);
     r.sj = a.s_in[seq];
     r.sc = a.s_in[b_pad + seq];
@@ -457,32 +575,39 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
       if (t < count) gs.toks[t] = tok_row[c0 + t];  // the last chunk's readers passed barriers
       group_sync<KT>(bar);
       if (certify) {
-        store_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, m_pad,
+        store_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, h.m_real,
                                gs.xbuf(0), t, bar);  // the chunk's entry
         const float ej = r.sj, ec = r.sc, en = r.sn, eb = r.sb;
-        const bool viol = run_chunk<PER, KT, LAZY, LSE, true, FILT>(
-            a, smem, gs, r, count, a.k_run, par, tr_loop, tr_move, t, bar);
-        if (group_any<KT>(bar, viol)) {
-          load_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, m_pad,
+        const bool viol = run_chunk<PER, KT, LAZY, LSE, true, FILT, PAIR>(
+            a, smem, gs, r, count, a.k_run, par, tr_loop, tr_move, t, bar, h);
+        bool fired;
+        if constexpr (PAIR) {
+          // both halves replay the same chunks
+          fired = pair_any<KT>(viol, t, h);
+        } else {
+          fired = group_any<KT>(bar, viol);
+        }
+        if (fired) {
+          load_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, h.m_real,
                                 gs.xbuf(0), t, bar);
           r.sj = ej;
           r.sc = ec;
           r.sn = en;
           r.sb = eb;
-          run_chunk<PER, KT, LAZY, LSE, false, FILT>(a, smem, gs, r, count, a.n_passes, par,
-                                                     tr_loop, tr_move, t, bar);
+          run_chunk<PER, KT, LAZY, LSE, false, FILT, PAIR>(a, smem, gs, r, count, a.n_passes,
+                                                           par, tr_loop, tr_move, t, bar, h);
           ++replays;
         }
       } else {
-        run_chunk<PER, KT, LAZY, LSE, false, FILT>(a, smem, gs, r, count, passes, par, tr_loop,
-                                                   tr_move, t, bar);
+        run_chunk<PER, KT, LAZY, LSE, false, FILT, PAIR>(a, smem, gs, r, count, passes, par,
+                                                         tr_loop, tr_move, t, bar, h);
       }
       group_sync<KT>(bar);  // every step's reads of the shift buffers and toks are done
     }
 
-    store_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, m_pad, gs.xbuf(0),
+    store_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, h.m_real, gs.xbuf(0),
                            t, bar);
-    if (t == 0) {
+    if (t == 0 && h.rank == 0) {
       a.s_out[seq] = r.sj;
       a.s_out[b_pad + seq] = r.sc;
       a.s_out[2 * b_pad + seq] = r.sn;
@@ -491,6 +616,19 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
       if (LAZY) a.replays[seq] = replays;
     }
   }
+  // no block leaves while its partner may still reach its shared memory
+  if constexpr (PAIR) cluster_sync();
+}
+
+template <int PER, int KT, bool LAZY, bool LSE, bool FILT>
+__global__ void viterbi_kernel(const ViterbiArgs a) {
+  viterbi_body<PER, KT, LAZY, LSE, FILT, false>(a);
+}
+
+// The wide case: a block of the cluster pair (launched as 2-block clusters).
+template <int PER, bool LAZY, bool LSE, bool FILT>
+__global__ void __launch_bounds__(128) viterbi_pair_kernel(const ViterbiArgs a) {
+  viterbi_body<PER, 128, LAZY, LSE, FILT, true>(a);
 }
 
 // The rows-in-memory case (p7_blocked.cuh, past 4864 states): one block of
@@ -737,16 +875,22 @@ inline ViterbiArgs make_args(const void* msc, const void* isc, const void* trans
 
 // Checks every entry point shares: the operands' limits and the plan.
 // `windowed`: the lazy and filter cases, which run k_run passes a step.
-template <int PER, int KT, bool FILT>
+// The cluster pair (PAIR) takes twice the states, one group a block, an
+// even grid and pair_smem_floats.
+template <int PER, int KT, bool FILT, bool PAIR = false>
 bool viterbi_plan_ok(const ViterbiArgs& a, bool lazy, bool windowed, int groups, int grid,
                      int smem_bytes) {
   const int passes_run = windowed ? a.k_run : a.n_passes;
-  return a.m_pad >= 1 && a.m_pad <= KT * PER && a.m_pad % 8 == 0 && a.n_passes >= 1 &&
-         a.k_run >= 1 && a.k_run <= a.n_passes && a.n_chain >= 0 && a.n_chain <= passes_run &&
-         a.b_pad >= 1 &&
-         plan_ok<PER, KT, FILT>(groups, grid, smem_bytes,
-                                viterbi_rows(lazy, a.k_run, a.n_passes, a.n_chain, a.n_trans),
-                                a.n_trans, false);
+  const int n_rows = viterbi_rows(lazy, a.k_run, a.n_passes, a.n_chain, a.n_trans);
+  const bool shape_ok =
+      PAIR ? KT == 128 && groups == 1 && grid >= 2 && grid % 2 == 0 &&
+                 a.n_trans == kTransRows &&
+                 static_cast<size_t>(smem_bytes) == 4 * pair_smem_floats<PER, KT, FILT>(n_rows) &&
+                 smem_bytes <= kMaxSmem
+           : plan_ok<PER, KT, FILT>(groups, grid, smem_bytes, n_rows, a.n_trans, false);
+  return a.m_pad >= 1 && a.m_pad <= (PAIR ? 2 : 1) * KT * PER && a.m_pad % 8 == 0 &&
+         a.n_passes >= 1 && a.k_run >= 1 && a.k_run <= a.n_passes && a.n_chain >= 0 &&
+         a.n_chain <= passes_run && a.b_pad >= 1 && shape_ok;
 }
 
 // Runs a kernel case on the plan after setting its shared-memory limit once
@@ -758,6 +902,50 @@ cudaError_t launch_planned(Kernel kernel, const ViterbiArgs& a, int device, unsi
   if (err != cudaSuccess) return err;
   kernel<<<grid, groups * kt, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The launch of the cluster pair: `grid` blocks of 128 threads in clusters
+// of 2 along x (cudaLaunchKernelEx), after setting the kernel's
+// shared-memory limit once per device; a refused launch returns its error.
+inline cudaLaunchConfig_t pair_config(int grid, int smem, cudaStream_t stream,
+                                      cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+inline cudaError_t launch_pair(void (*kernel)(ViterbiArgs), const ViterbiArgs& a, int device,
+                               unsigned& done, int grid, int smem, cudaStream_t stream) {
+  cudaError_t err = allow_smem(kernel, device, done);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = pair_config(grid, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The most 2-block clusters of a pair kernel the card `device` runs at once
+// with `smem` bytes of dynamic shared memory a block
+// (cudaOccupancyMaxActiveClusters), for the launch plan's persistent grid.
+inline cudaError_t pair_max_clusters(void (*kernel)(ViterbiArgs), int device, unsigned& done,
+                                     int smem, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(kernel, device, done);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = pair_config(2, smem, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
 }
 
 // Checks the rows-in-memory case's operands as viterbi_plan_ok checks a

@@ -11,7 +11,8 @@
 
 namespace {
 
-unsigned smem_set[2][kCaseSlots];  // devices whose kernel case allows kMaxSmem
+unsigned smem_set[2][kCaseSlots];       // devices whose kernel case allows kMaxSmem
+unsigned pair_smem_set[2][kPairSlots];  // ... and whose pair case does
 
 template <int PER, int KT>
 struct Case {
@@ -33,11 +34,38 @@ struct Case {
   }
 };
 
+// The cluster pair's case: 2 * 128 * PER states, a block of the pair's
+// clusters one half.
+template <int PER>
+struct PairCase {
+  using Kernel = void (*)(ViterbiArgs);
+  static Kernel kernel(bool lazy) {
+    return lazy ? viterbi_pair_kernel<PER, true, false, false>
+                : viterbi_pair_kernel<PER, false, false, false>;
+  }
+
+  static cudaError_t launch(bool lazy, const ViterbiArgs& a, int device, int groups, int grid,
+                            int smem, cudaStream_t stream) {
+    if (!viterbi_plan_ok<PER, 128, false, true>(a, lazy, lazy, groups, grid, smem)) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_pair(kernel(lazy), a, device, pair_smem_set[lazy][PER - 10], grid, smem,
+                       stream);
+  }
+
+  static cudaError_t regs(bool lazy, int* out) { return kernel_regs(kernel(lazy), out); }
+
+  static cudaError_t clusters(bool lazy, int device, int smem, int* out) {
+    return pair_max_clusters(kernel(lazy), device, pair_smem_set[lazy][PER - 10], smem, out);
+  }
+};
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `threads` (128 or 256, or
-// kMemThreads for the rows-in-memory case) and `per` name the kernel case,
-// with threads * per >= m_pad; `lazy` selects the lazy kernel, which runs
+// Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads for
+// the rows-in-memory case) and `per` name the kernel case, with threads *
+// per >= m_pad, and `cluster` 2 the cluster pair's (128 threads a block,
+// per 10..19, 2 * threads * per >= m_pad); `lazy` selects the lazy kernel, which runs
 // `k_run` passes under the certificate (k_run == n_passes: the full chain,
 // no certificate). `n_trans` transition rows and `n_chain` chain rows are
 // staged in shared memory; `groups` sequences a block, `grid` blocks and
@@ -45,8 +73,8 @@ struct Case {
 // ops/p7_cuda.py::plan_launch (checked here); `scratch` holds the
 // rows-in-memory case's [grid, kMemRows, m_pad] rows (null otherwise).
 // Returns a cudaError_t.
-extern "C" int p7_viterbi_launch(int device, int threads, int per, int lazy, const void* msc,
-                                 const void* isc, const void* trans, const void* chain,
+extern "C" int p7_viterbi_launch(int device, int threads, int per, int cluster, int lazy,
+                                 const void* msc, const void* isc, const void* trans, const void* chain,
                                  int m_pad, int n_passes, int k_run, int n_chain, int n_trans,
                                  const void* tokens, int l_pad, const void* lengths,
                                  const void* tr_rows, const void* consts, const void* m_in,
@@ -66,19 +94,38 @@ extern "C" int p7_viterbi_launch(int device, int threads, int per, int lazy, con
         lazy ? launch_mem<true, false, false>(a, scratch, true, per, groups, grid, smem, st)
              : launch_mem<false, false, false>(a, scratch, false, per, groups, grid, smem, st));
   }
-  if (n_passes > 15) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(with_case<Case>(threads, per, [&](auto c) {
+  if (n_passes > 15 || threads != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster == 2) {
+    return static_cast<int>(with_pair_case<PairCase>(per, [&](auto c) {
+      return decltype(c)::launch(lazy != 0, a, device, groups, grid, smem, st);
+    }));
+  }
+  if (cluster != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_group_case<Case>(per, [&](auto c) {
     return decltype(c)::launch(lazy != 0, a, device, groups, grid, smem, st);
   }));
 }
 
-// Registers a thread of the case uses (`lazy`: the lazy kernel), for the
-// launch plan. Returns a cudaError_t.
-extern "C" int p7_viterbi_regs(int threads, int per, int lazy, int* regs) {
+// Registers a thread of the case uses (`lazy`: the lazy kernel; `cluster`
+// 2: the pair's), for the launch plan. Returns a cudaError_t.
+extern "C" int p7_viterbi_regs(int threads, int per, int cluster, int lazy, int* regs) {
   if (threads == kMemThreads) {
     return static_cast<int>(lazy ? kernel_regs(viterbi_mem_kernel<true, false, false>, regs)
                                  : kernel_regs(viterbi_mem_kernel<false, false, false>, regs));
   }
-  return static_cast<int>(with_case<Case>(
-      threads, per, [&](auto c) { return decltype(c)::regs(lazy != 0, regs); }));
+  if (cluster == 2) {
+    return static_cast<int>(
+        with_pair_case<PairCase>(per, [&](auto c) { return decltype(c)::regs(lazy != 0, regs); }));
+  }
+  return static_cast<int>(with_group_case<Case>(
+      per, [&](auto c) { return decltype(c)::regs(lazy != 0, regs); }));
+}
+
+// The most 2-block clusters of the pair's case (`per`, `lazy`) the card
+// `device` runs at once with `smem` bytes of dynamic shared memory a block,
+// for the launch plan. Returns a cudaError_t.
+extern "C" int p7_viterbi_clusters(int device, int per, int lazy, int smem, int* clusters) {
+  return static_cast<int>(with_pair_case<PairCase>(per, [&](auto c) {
+    return decltype(c)::clusters(lazy != 0, device, smem, clusters);
+  }));
 }

@@ -63,8 +63,9 @@ NUM_AA = 20
 # M states per lane of the kernel's register row, one case each in the
 # switch of csrc/msv_kernel.cu: a warp holds 32 * PER states. Each is
 # 8q + 4 so that a quarter-warp's float4 reads of the table miss each
-# other's banks. Past 32 * 76 = 2432 states two warps (64 lanes) follow one
-# sequence, at the WIDE_PER cases, up to 64 * 76 = 4864. Past that the
+# other's banks. Past 32 * 76 = 2432 states a pair of warps (64 lanes), one
+# in each block of a 2-block cluster, follows one sequence, at the WIDE_PER
+# cases, up to 64 * 76 = 4864. Past that the
 # rows-in-memory case (MEM_LANES threads a sequence, its M rows in global
 # memory) takes any width: the kernel has no cap, as the TPU kernel has none.
 KERNEL_PER = (4, 12, 20, 28, 36, 44, 52, 60, 68, 76)
@@ -289,6 +290,8 @@ def _kernel_library() -> ctypes.CDLL:
     lib.msv_scan_launch.restype = i
     lib.msv_kernel_attrs.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.msv_kernel_attrs.restype = i
+    lib.msv_max_clusters.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.msv_max_clusters.restype = i
     lib.msv_error_string.argtypes = [i]
     lib.msv_error_string.restype = ctypes.c_char_p
     return lib
@@ -296,8 +299,9 @@ def _kernel_library() -> ctypes.CDLL:
 
 def kernel_case(m_pad: int) -> tuple[int, int]:
     """``(lanes, per)``: the kernel case of an M row of ``m_pad`` states,
-    one warp a sequence (32 lanes) up to MAX_WARP_STATES, two warps (64) up
-    to MAX_WIDE_STATES, each lane holding ``per`` states in registers; past
+    one warp a sequence (32 lanes) up to MAX_WARP_STATES, a pair of warps in
+    a 2-block cluster (64) up to MAX_WIDE_STATES, each lane holding ``per``
+    states in registers; past
     that the rows-in-memory case, MEM_LANES threads walking ``per`` tiles of
     MEM_LANES states. Any width has a case."""
     for lanes, pers in ((32, KERNEL_PER), (64, WIDE_PER)):
@@ -330,9 +334,14 @@ REGS_PER_SM = 65536
 # compiled under __launch_bounds__(32 * warps, 1) (csrc/msv_kernel.cu,
 # kernel_of), so that ptxas holds its registers to register_cap(warps)
 WARP_CHOICES = (8, 12, 16, 20, 24, 28, 32)
-# the wide case's largest block: 16 warps, 8 sequences (its kernels'
-# __launch_bounds__(512, 1))
-WIDE_WARPS = 16
+# the wide case's block: 16 warps, each following one half of a sequence
+# whose other half a warp of the cluster's other block follows (its kernels'
+# __launch_bounds__(512, 1), csrc/msv_kernel.cu::kClusterWarps); blocks a
+# cluster, and the bytes of a warp's link to its partner (two mbarriers and
+# two 8-byte slots, csrc/msv_kernel.cu::Link)
+CLUSTER_WARPS = 16
+CLUSTER = 2
+LINK_BYTES = 32
 # warps a block of each register case, keyed by PER: the fastest of
 # tools/torch_msv_timing.py --warps on an NVIDIA H100 (PERF.md, section 6).
 # The grid is persistent: one block an SM and profile (sms // P blocks a
@@ -342,13 +351,15 @@ PLAN_WARPS = {4: 32, 12: 32, 20: 24, 28: 16, 36: 16, 44: 16, 52: 16, 60: 16, 68:
 
 class MsvPlan(NamedTuple):
     """How the MSV kernel launches: ``warps`` warps a block, ``grid`` blocks
-    a profile (grid.x; grid.y is the profile) and ``smem`` bytes of dynamic
-    shared memory a block. A grid smaller than the batch needs makes the
-    warps walk it with a stride."""
+    a profile (grid.x; grid.y is the profile), ``smem`` bytes of dynamic
+    shared memory a block and ``cluster`` blocks a thread-block cluster
+    along x (2 for the wide case's pairs, else 1). A grid smaller than the
+    batch needs makes the warps walk it with a stride."""
 
     warps: int
     grid: int
     smem: int
+    cluster: int = 1
 
 
 def register_cap(warps: int) -> int:
@@ -358,8 +369,24 @@ def register_cap(warps: int) -> int:
     return min(255, REGS_PER_SM // (32 * warps) // 8 * 8)
 
 
+def pair_smem_bytes(per: int) -> int:
+    """Dynamic shared memory of a block of the wide case's cluster pair
+    (``csrc/msv_kernel.cu::msv_smem_bytes`` at 64 lanes): its half of the
+    f32 table, 20 x 32 * per entries, and each warp's link."""
+    return 4 * NUM_AA * 32 * per + CLUSTER_WARPS * LINK_BYTES
+
+
+def pair_state(j: int, per: int) -> tuple[int, int, int]:
+    """``(block, lane, slot)`` of state ``j`` in the wide case's pair: block
+    r of the cluster holds states 32 * per * r .. 32 * per * (r + 1) - 1,
+    lane l of its warp the ``per`` from (32 * r + l) * per on
+    (``csrc/msv_kernel.cu``, ``j0``)."""
+    block, rest = divmod(j, 32 * per)
+    return block, rest // per, rest % per
+
+
 def launch_plan(lanes: int, per: int, entry_bytes: int, b_pad: int, num_p: int, sms: int,
-                warps: int | None = None) -> MsvPlan:
+                warps: int | None = None, clusters: int | None = None) -> MsvPlan:
     """The launch plan of the kernel case ``(lanes, per)`` over ``b_pad``
     sequences and ``num_p`` stacked profiles on a card of ``sms``
     multiprocessors (``csrc/msv_kernel.cu``, ``msv_scan_launch``).
@@ -369,19 +396,21 @@ def launch_plan(lanes: int, per: int, entry_bytes: int, b_pad: int, num_p: int, 
     entries whatever ``entry_bytes`` is (the filter's bf16 table is widened
     while it is staged), on a persistent grid: one block an SM and table,
     sms // num_p blocks a profile (at least 1, at most the batch needs). At
-    64 lanes 16 warps a block when their two row buffers of ``entry_bytes``
-    entries (and each pair's 32-byte exchange slots) fit, else 8, one pair
-    a sequence. The rows-in-memory case (MEM_LANES) runs one 1024-thread
-    block a sequence, MEM_BLOCKS_PER_SM blocks an SM, a persistent grid."""
+    64 lanes the cluster pair: CLUSTER_WARPS warps a block, each block of a
+    2-block cluster staging its half of the f32 table (pair_smem_bytes), a
+    pair of warps a sequence, on a persistent grid of the ``clusters`` the
+    card runs at once (``cudaOccupancyMaxActiveClusters``; None: sms // 2)
+    split among the profiles, at most the batch needs: an even grid. The
+    rows-in-memory case (MEM_LANES) runs one 1024-thread block a sequence,
+    MEM_BLOCKS_PER_SM blocks an SM, a persistent grid."""
     if lanes == MEM_LANES:
         return MsvPlan(MEM_LANES // 32, max(1, min(b_pad, MEM_BLOCKS_PER_SM * sms)), 0)
     if lanes == 64:
         if warps is not None:
             raise ValueError("the wide case's plan is fixed")
-        def wide_smem(w):
-            return w * 2 * 32 * per * entry_bytes + (w // 2) * 2 * 4 * 4
-        w = WIDE_WARPS if wide_smem(WIDE_WARPS) <= SMEM_PER_SM else WIDE_WARPS // 2
-        return MsvPlan(w, max(1, -(-b_pad // (w // 2))), wide_smem(w))
+        clusters = sms // CLUSTER if clusters is None else clusters
+        pairs = max(1, min(-(-b_pad // CLUSTER_WARPS), clusters // num_p))
+        return MsvPlan(CLUSTER_WARPS, CLUSTER * pairs, pair_smem_bytes(per), CLUSTER)
     warps = PLAN_WARPS[per] if warps is None else warps
     if warps not in WARP_CHOICES:
         raise ValueError(f"{warps} warps a block: the MSV kernel takes one of {WARP_CHOICES}")
@@ -397,10 +426,24 @@ def _sm_count(index: int) -> int:
 def device_plan(m_pad: int, entry_bytes: int, b_pad: int, num_p: int, device,
                 warps: int | None = None) -> MsvPlan:
     """:func:`launch_plan` of the kernel case of ``m_pad`` states on the
-    card ``device``."""
+    card ``device`` (the wide case with the clusters it runs at once)."""
     lanes, per = kernel_case(m_pad)
-    return launch_plan(lanes, per, entry_bytes, b_pad, num_p,
-                       _sm_count(torch.device(device).index or 0), warps)
+    index = torch.device(device).index or 0
+    clusters = max_clusters(index, per, entry_bytes == 2) if lanes == 64 else None
+    return launch_plan(lanes, per, entry_bytes, b_pad, num_p, _sm_count(index), warps, clusters)
+
+
+@functools.cache
+def max_clusters(index: int, per: int, bf16: bool) -> int:
+    """The most 2-block clusters of the wide case ``per`` (bf16 or f32
+    table) card ``index`` runs at once (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _kernel_library()
+    out = ctypes.c_int(0)
+    rc = lib.msv_max_clusters(index, per, CLUSTER_WARPS, int(bf16), ctypes.byref(out))
+    if rc != 0 or out.value < 1:
+        raise RuntimeError(f"MSV cluster pair (per {per}) occupancy query failed: "
+                           f"{lib.msv_error_string(rc).decode()} ({rc}, {out.value} clusters)")
+    return out.value
 
 
 @functools.cache
@@ -419,7 +462,7 @@ def kernel_attrs(lanes: int, per: int, warps: int, bf16: bool) -> tuple[int, int
 
 def count_launch(wrapper, wide: bool, mem: bool = False) -> None:
     """One more launch of ``wrapper``'s kernel; ``wide`` counts it also in
-    ``wrapper.wide_launches`` (a register case past 2432 states), ``mem`` in
+    ``wrapper.wide_launches`` (a case between 2432 and 4864 states), ``mem`` in
     ``wrapper.mem_launches`` (the rows-in-memory case, past 4864)."""
     wrapper.launches += 1
     wrapper.wide_launches += int(wide)
@@ -428,7 +471,7 @@ def count_launch(wrapper, wide: bool, mem: bool = False) -> None:
 
 def _count(wrapper, m_pad: int) -> None:
     """Count a launch of ``wrapper``'s kernel at ``m_pad`` states, apart for
-    the 64-lane and the rows-in-memory cases."""
+    the 64-lane (cluster pair) and the rows-in-memory cases."""
     lanes = kernel_case(m_pad)[0]
     count_launch(wrapper, lanes == 64, lanes == MEM_LANES)
 

@@ -17,10 +17,12 @@ The counterparts of ``hmm_fasta_viterbi_tpu/ops/pallas_p7.py``:
 
 The kernels take M_pad up to MAX_KERNEL_STATES = 65536 (the 16-row delete
 chain, as the TPU kernels): groups of KERNEL_THREADS threads a sequence up
-to 2432 states and of WIDE_THREADS up to 4864, with the rows in registers,
-and past that the rows-in-memory case, MEM_THREADS threads a sequence with
-its rows in global memory (:func:`kernel_case`); the plain versions have no
-cap.
+to 2432 states and up to 4864 a pair of such groups, one in each block of a
+2-block thread-block cluster (the eager, lazy, log-space and filter cases,
+PAIR_KINDS), or groups of WIDE_THREADS (Forward and the posterior passes),
+with the rows in registers; past that the rows-in-memory case, MEM_THREADS
+threads a sequence with its rows in global memory (:func:`kernel_case`);
+the plain versions have no cap.
 
 The host packers are numpy copies of the JAX ones (that module imports
 jax) and return the same arrays byte for byte, in the TPU's ``[M_pad, …]``
@@ -125,6 +127,18 @@ BOUNDED_THREADS = 512
 # emission rows as bf16; the posterior backward pass its suffix chain, its
 # saved bf16 rows and its chunk's log scales and coverage
 BLOCKED_KINDS = ("eager", "lazy", "log", "forward", "save", "filter", "backward")
+# the kinds of the Viterbi template (csrc/p7_viterbi.cuh), whose wide case
+# (KERNEL_THREADS * 19 < M_pad <= WIDE_THREADS * 19) runs on the cluster
+# pair: CLUSTER blocks of one group of KERNEL_THREADS threads, block r
+# owning states r * KERNEL_THREADS * per .. (r + 1) * KERNEL_THREADS * per - 1
+PAIR_KINDS = ("eager", "lazy", "log", "filter")
+CLUSTER = 2
+# a pair block's exchange area (csrc/p7_blocked.cuh::pair_floats) beside
+# its two rows of block 0's states, in floats: two exchanges' slots (a value
+# a warp of both blocks), 18 halos of 16 slots (the shifts by one and 16
+# passes), 4 release slots, 24 mbarriers of 8 bytes
+PAIR_HALOS = 18
+PAIR_FLOATS = 2 * 2 * (KERNEL_THREADS // 32) + PAIR_HALOS * 16 + 4 + 2 * (PAIR_HALOS + 6)
 
 # auto-picked lazy window and truncated prob-space chain: the constants of
 # pallas_p7 (LAZY_TAIL_DAMP_NATS, PROB_CHAIN_L_MAX, PROB_CHAIN_REL_ERR)
@@ -772,7 +786,7 @@ def _kernel_library() -> ctypes.CDLL:
     # each launcher ends with: scratch, b_pad, groups, grid, smem, stream
     tail = [p, c, c, c, c, p]
     lib.p7_viterbi_launch.argtypes = [
-        c, c, c, c, p, p, p, p, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p,
+        c, c, c, c, c, p, p, p, p, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p,
         *tail,
     ]
     lib.p7_forward_launch.argtypes = [
@@ -780,25 +794,29 @@ def _kernel_library() -> ctypes.CDLL:
         p, *tail,
     ]
     lib.p7_forward_log_launch.argtypes = [
-        c, c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, *tail,
+        c, c, c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, *tail,
     ]
     lib.p7_filter_launch.argtypes = [
-        c, c, c, p, p, p, p, c, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p,
+        c, c, c, c, p, p, p, p, c, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p,
         *tail,
     ]
     lib.p7_backward_launch.argtypes = [
         c, c, c, p, p, p, p, c, c, c, c, c, p, c, p, p, p, p, p, p, p, *tail,
     ]
     regs = ctypes.POINTER(c)
-    lib.p7_viterbi_regs.argtypes = [c, c, c, regs]
-    lib.p7_forward_log_regs.argtypes = [c, c, regs]
+    lib.p7_viterbi_regs.argtypes = [c, c, c, c, regs]
+    lib.p7_forward_log_regs.argtypes = [c, c, c, regs]
     lib.p7_forward_regs.argtypes = [c, c, c, regs]
-    lib.p7_filter_regs.argtypes = [c, c, regs]
+    lib.p7_filter_regs.argtypes = [c, c, c, regs]
     lib.p7_backward_regs.argtypes = [c, c, regs]
+    lib.p7_viterbi_clusters.argtypes = [c, c, c, c, regs]
+    lib.p7_forward_log_clusters.argtypes = [c, c, c, regs]
+    lib.p7_filter_clusters.argtypes = [c, c, c, regs]
     for fn in (lib.p7_viterbi_launch, lib.p7_forward_launch, lib.p7_forward_log_launch,
                lib.p7_filter_launch, lib.p7_backward_launch, lib.p7_viterbi_regs,
                lib.p7_forward_log_regs, lib.p7_forward_regs, lib.p7_filter_regs,
-               lib.p7_backward_regs):
+               lib.p7_backward_regs, lib.p7_viterbi_clusters, lib.p7_forward_log_clusters,
+               lib.p7_filter_clusters):
         fn.restype = c
     lib.msv_error_string.argtypes = [c]
     lib.msv_error_string.restype = ctypes.c_char_p
@@ -845,7 +863,7 @@ def bf16_stride(per: int) -> int:
 
 def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
                        threads: int = KERNEL_THREADS, bf16: bool = False,
-                       backward: bool = False) -> int:
+                       backward: bool = False, pair: bool = False) -> int:
     """Dynamic shared memory of a blocked kernel's block
     (``csrc/p7_blocked.cuh::smem_floats``): ``n_rows`` staged rows, then
     per group two shift rows, four emission rows (f32, or with ``bf16`` the
@@ -853,7 +871,9 @@ def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
     token chunk (int8) and, for the row-saving Forward, two bf16 rows. With
     ``backward``, the backward pass's group (``backward_group_floats``): two
     shift rows, four f32 odds rows, two bf16 saved rows, three floats a
-    warp, the token chunk and the chunk's log scales and coverage."""
+    warp, the token chunk and the chunk's log scales and coverage. With
+    ``pair``, a block of the cluster pair (``pair_smem_floats``): its one
+    group and the pair's exchange area (two rows and PAIR_FLOATS)."""
     row = threads * blocked_stride(per)
     hrow = threads * bf16_stride(per) // 2
     if backward:
@@ -861,7 +881,17 @@ def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
     else:
         erow = hrow if bf16 else row
         group = 2 * row + 4 * erow + 2 * (threads // 32) + LAZY_CHUNK // 4 + (row if save else 0)
-    return 4 * (n_rows * row + groups * group)
+    return 4 * (n_rows * row + groups * group + (2 * row + PAIR_FLOATS if pair else 0))
+
+
+def pair_state(j: int, per: int) -> tuple[int, int, int]:
+    """``(block, thread, slot)`` of state ``j`` in the cluster pair of
+    ``per`` states a thread: block r owns states r * KERNEL_THREADS * per ..
+    (r + 1) * KERNEL_THREADS * per - 1, thread t of it the ``per`` from
+    r * KERNEL_THREADS * per + t * per on (``csrc/p7_viterbi.cuh``,
+    ``Half::col0``)."""
+    block, rest = divmod(j, KERNEL_THREADS * per)
+    return block, rest // per, rest % per
 
 
 class LaunchPlan(NamedTuple):
@@ -871,7 +901,9 @@ class LaunchPlan(NamedTuple):
     shared memory (the rest read from global memory) and ``smem`` bytes of
     dynamic shared memory; ``max_groups`` is the most that fit. The
     rows-in-memory case (``threads`` MEM_THREADS) stages nothing: one group
-    a block, no dynamic shared memory, MEM_ROWS scratch rows a block."""
+    a block, no dynamic shared memory, MEM_ROWS scratch rows a block.
+    ``cluster`` is the blocks of a thread-block cluster: 2 for the cluster
+    pair (one group a block, a sequence a cluster, an even grid), else 1."""
 
     groups: int
     grid: int
@@ -880,10 +912,11 @@ class LaunchPlan(NamedTuple):
     max_groups: int
     threads: int = KERNEL_THREADS
     n_trans: int = TRANS_ROWS
+    cluster: int = 1
 
 
 def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: int,
-                groups: int | None = None) -> LaunchPlan:
+                groups: int | None = None, clusters: int | None = None) -> LaunchPlan:
     """The launch plan of a blocked kernel case (``kind`` one of
     BLOCKED_KINDS) that runs ``passes`` chain passes a step (the eager and
     log-space kernels all of ``chain_passes(m_pad)``, the lazy one and the
@@ -897,10 +930,17 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     survivor batch runs one sequence an SM, at one step's latency), else
     as many as registers, shared memory (at most SMEM_PER_SM bytes a block)
     and MAX_BLOCK_THREADS allow, but no more than ``ceil(b_pad / sms)``; a
-    given ``groups`` must fit. Past MAX_WIDE_STATES the rows-in-memory case
-    runs one sequence a block, as many blocks as registers and
-    THREADS_PER_SM let an SM hold. Raises ``ValueError`` past M_pad
-    65536."""
+    given ``groups`` must fit. The PAIR_KINDS past MAX_GROUP_STATES run the
+    cluster pair: KERNEL_THREADS threads and one group a block, each block
+    of a 2-block cluster staging its half of every row that fits (the
+    normal-width plan at KERNEL_THREADS), one sequence a cluster, on a
+    persistent grid of the ``clusters`` the card runs at once
+    (``cudaOccupancyMaxActiveClusters``; None: what registers, shared memory
+    and THREADS_PER_SM let an SM hold, two SMs a cluster), at most the batch
+    needs; a given ``groups`` must be 1. Past MAX_WIDE_STATES the
+    rows-in-memory case runs one sequence a block, as many blocks as
+    registers and THREADS_PER_SM let an SM hold. Raises ``ValueError`` past
+    M_pad 65536."""
     if kind not in BLOCKED_KINDS:
         raise ValueError(f"unknown blocked kernel case {kind!r}")
     kt, per = kernel_case(m_pad)
@@ -917,9 +957,13 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     save = kind == "save"
     bf16 = kind == "filter"
     backward = kind == "backward"
+    pair = kind in PAIR_KINDS and kt == WIDE_THREADS
+    if pair:
+        kt = KERNEL_THREADS
 
     def smem(n_trans, n_chain, g):
-        return blocked_smem_bytes(per, n_trans + n_chain + extra, g, save, kt, bf16, backward)
+        return blocked_smem_bytes(per, n_trans + n_chain + extra, g, save, kt, bf16, backward,
+                                  pair)
 
     n_trans, n_chain = TRANS_ROWS, passes
     while n_chain > 0 and smem(n_trans, n_chain, 1) > SMEM_PER_SM:
@@ -929,6 +973,15 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     bounded = backward and kt == KERNEL_THREADS and per in BACKWARD_BOUNDED_PER
     block_threads = BOUNDED_THREADS if bounded else MAX_BLOCK_THREADS
     by_regs = REGS_PER_SM // (warp_regs * (kt // 32))
+    if pair:
+        if groups not in (None, 1):
+            raise ValueError(f"{groups} groups a block: the {kind} kernel's cluster pair takes 1")
+        nbytes = smem(n_trans, n_chain, 1)
+        if clusters is None:
+            per_sm = max(1, min(by_regs, SMEM_PER_SM // nbytes, THREADS_PER_SM // kt))
+            clusters = sms * per_sm // CLUSTER
+        pairs = max(1, min(b_pad, clusters))
+        return LaunchPlan(1, CLUSTER * pairs, n_chain, nbytes, 1, kt, n_trans, CLUSTER)
     by_smem = 0
     while (by_smem + 1) * kt <= block_threads and smem(n_trans, n_chain, by_smem + 1) <= SMEM_PER_SM:
         by_smem += 1
@@ -951,16 +1004,17 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
 
 
 @functools.cache
-def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS) -> int:
-    """Registers a thread of the blocked kernel case uses, as compiled."""
+def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS, cluster: int = 1) -> int:
+    """Registers a thread of the blocked kernel case uses, as compiled
+    (``cluster`` 2: the cluster pair's case of ``per``)."""
     lib = _kernel_library()
     out = ctypes.c_int(0)
     if kind in ("eager", "lazy"):
-        rc = lib.p7_viterbi_regs(threads, per, int(kind == "lazy"), ctypes.byref(out))
+        rc = lib.p7_viterbi_regs(threads, per, cluster, int(kind == "lazy"), ctypes.byref(out))
     elif kind == "log":
-        rc = lib.p7_forward_log_regs(threads, per, ctypes.byref(out))
+        rc = lib.p7_forward_log_regs(threads, per, cluster, ctypes.byref(out))
     elif kind == "filter":
-        rc = lib.p7_filter_regs(threads, per, ctypes.byref(out))
+        rc = lib.p7_filter_regs(threads, per, cluster, ctypes.byref(out))
     elif kind == "backward":
         rc = lib.p7_backward_regs(threads, per, ctypes.byref(out))
     else:
@@ -972,12 +1026,38 @@ def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS) -> int:
     return out.value
 
 
+@functools.cache
+def max_clusters(kind: str, per: int, smem: int, index: int) -> int:
+    """The most 2-block clusters of the cluster pair's ``kind`` case of
+    ``per`` card ``index`` runs at once with ``smem`` bytes of dynamic
+    shared memory a block (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _kernel_library()
+    out = ctypes.c_int(0)
+    if kind in ("eager", "lazy"):
+        rc = lib.p7_viterbi_clusters(index, per, int(kind == "lazy"), smem, ctypes.byref(out))
+    elif kind == "log":
+        rc = lib.p7_forward_log_clusters(index, per, smem, ctypes.byref(out))
+    else:
+        rc = lib.p7_filter_clusters(index, per, smem, ctypes.byref(out))
+    if rc != 0 or out.value < 1:
+        msg = lib.msv_error_string(rc).decode()
+        raise RuntimeError(f"{kind} kernel's cluster pair (per {per}, {smem} bytes) occupancy "
+                           f"query failed: {msg} ({rc}, {out.value} clusters)")
+    return out.value
+
+
 def device_plan(kind: str, m_pad: int, passes: int, b_pad: int, device,
                 groups: int | None = None) -> LaunchPlan:
     """:func:`plan_launch` with the compiled case's registers and the
-    card's multiprocessors."""
+    card's multiprocessors (the cluster pair's, with the clusters the card
+    runs at once)."""
     index = torch.device(device).index or 0
     threads, per = kernel_case(m_pad)
+    if kind in PAIR_KINDS and threads == WIDE_THREADS:
+        regs = kernel_regs(kind, per, KERNEL_THREADS, CLUSTER)
+        plan = plan_launch(kind, m_pad, passes, b_pad, regs, _sm_count(index), groups)
+        return plan_launch(kind, m_pad, passes, b_pad, regs, _sm_count(index), groups,
+                           max_clusters(kind, per, plan.smem, index))
     return plan_launch(kind, m_pad, passes, b_pad, kernel_regs(kind, per, threads),
                        _sm_count(index), groups)
 
@@ -993,8 +1073,10 @@ def mem_scratch(plan: LaunchPlan, m_pad: int, device) -> torch.Tensor | None:
 
 def launched(wrapper, plan: LaunchPlan) -> None:
     """Count a launch of ``wrapper``'s kernel on ``plan``: apart for the
-    WIDE_THREADS and the rows-in-memory cases."""
-    count_launch(wrapper, plan.threads == WIDE_THREADS, plan.threads == MEM_THREADS)
+    wide cases (WIDE_THREADS and the cluster pair) and the rows-in-memory
+    case."""
+    count_launch(wrapper, plan.threads == WIDE_THREADS or plan.cluster == CLUSTER,
+                 plan.threads == MEM_THREADS)
 
 
 def _ptr(t):
@@ -1058,7 +1140,7 @@ def _viterbi_cuda(lazy, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, 
         plan = device_plan("lazy" if lazy else "eager", m_pad, k_run, b_pad, device, groups)
         scratch = mem_scratch(plan, m_pad, device)
         rc = _kernel_library().p7_viterbi_launch(
-            device.index, plan.threads, kernel_per(m_pad), int(lazy),
+            device.index, plan.threads, kernel_per(m_pad), plan.cluster, int(lazy),
             emit_m.data_ptr(), emit_i.data_ptr(), trans.data_ptr(), chain.data_ptr(),
             m_pad, n_passes, k_run, plan.n_chain, plan.n_trans, tokens.data_ptr(), l_pad,
             lengths.data_ptr(),
@@ -1156,7 +1238,8 @@ def forward_log_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, cons
         plan = device_plan("log", m_pad, n_passes, b_pad, device, groups)
         scratch = mem_scratch(plan, m_pad, device)
         rc = _kernel_library().p7_forward_log_launch(
-            device.index, plan.threads, kernel_per(m_pad), msc.data_ptr(), isc.data_ptr(),
+            device.index, plan.threads, kernel_per(m_pad), plan.cluster, msc.data_ptr(),
+            isc.data_ptr(),
             trans.data_ptr(), chain.data_ptr(), m_pad, n_passes, plan.n_chain, plan.n_trans,
             tokens.data_ptr(), l_pad,
             lengths.data_ptr(), tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(),
@@ -1191,7 +1274,8 @@ def viterbi_filter_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, c
         plan = device_plan("filter", m_pad, passes, b_pad, device, groups)
         scratch = mem_scratch(plan, m_pad, device)
         rc = _kernel_library().p7_filter_launch(
-            device.index, plan.threads, kernel_per(m_pad), msc.data_ptr(), isc.data_ptr(),
+            device.index, plan.threads, kernel_per(m_pad), plan.cluster, msc.data_ptr(),
+            isc.data_ptr(),
             trans.data_ptr(), chain.data_ptr(), m_pad, full, passes, plan.n_chain, plan.n_trans,
             int(bool(e_skip_d)), tokens.data_ptr(), l_pad, lengths.data_ptr(),
             tr_rows.data_ptr(), consts.data_ptr(), m.data_ptr(), i.data_ptr(), d.data_ptr(),

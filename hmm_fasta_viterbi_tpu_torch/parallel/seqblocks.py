@@ -82,8 +82,8 @@ def _msv_fill(pack, device) -> int:
     plan = msv_cuda.device_plan(m_pad, emit.element_size(), 1 << 20, 1, device)
     if lanes == 32:
         return plan.warps * plan.grid
-    if lanes == 64:  # a pair of warps a sequence, one block a wave on each SM
-        return plan.warps // 2 * torch.cuda.get_device_properties(device).multi_processor_count
+    if lanes == 64:  # a pair of warps a sequence, one in each block of a cluster
+        return plan.warps * plan.grid // plan.cluster
     return plan.grid
 
 
@@ -138,7 +138,7 @@ def _p7_family(p7, stage: str) -> _Family:
 
 def _p7_fill(kind: str, pack, passes: int, device) -> int:
     plan = p7_cuda.device_plan(kind, pack.m_pad, passes, 1 << 20, device)
-    return plan.groups * plan.grid
+    return plan.groups * plan.grid // plan.cluster
 
 
 def _hand_on(carry: tuple, src: torch.device, dst: torch.device) -> tuple:

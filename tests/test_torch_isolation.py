@@ -223,8 +223,12 @@ def test_nvcc_command_targets_hopper_without_fast_math():
     assert not (_build.CSRC_DIR / "posterior_kernel.cu").exists()
     # the shared Viterbi / log-space Forward / filter template is a header
     # three sources include; it and the Forward kernel include the blocked
-    # layout's header
-    assert [h.name for h in _build.headers()] == ["p7_blocked.cuh", "p7_viterbi.cuh"]
+    # layout's header, which, like the MSV source, includes the cluster
+    # primitives' header
+    assert [h.name for h in _build.headers()] == ["cluster.cuh", "p7_blocked.cuh",
+                                                  "p7_viterbi.cuh"]
+    for name in ("msv_kernel.cu", "p7_blocked.cuh"):
+        assert '#include "cluster.cuh"' in (_build.CSRC_DIR / name).read_text()
     for name in ("p7_viterbi_kernel.cu", "p7_forward_log_kernel.cu",
                  "p7_viterbi_filter_kernel.cu"):
         assert '#include "p7_viterbi.cuh"' in (_build.CSRC_DIR / name).read_text()
@@ -301,19 +305,27 @@ def test_p7_scans_never_fall_back(monkeypatch):
 
 def test_p7_kernels_support_every_profile(all_profile_paths):
     """Every profile's p7 pack (JAX M_pad convention) fits the p7 kernels'
-    threads, and the thread counts match the C++ switches."""
+    threads, and the thread counts match the C++ switches: the Forward and
+    backward sources take 128 and 256 threads (with_case), the Viterbi
+    template's 128 and the cluster pair's cases (with_group_case,
+    with_pair_case)."""
     from hmm_fasta_viterbi_tpu_torch import P7Profile, parse_hmm
 
     cases = [(p7_cuda.KERNEL_THREADS, per) for per in p7_cuda.KERNEL_PER]
     cases += [(p7_cuda.WIDE_THREADS, per) for per in p7_cuda.WIDE_PER]
     source = (_build.CSRC_DIR / "p7_blocked.cuh").read_text()
     assert all(f"P7_CASE({per}, {threads})" in source for threads, per in cases)
+    assert all(f"P7_PAIR_CASE({per})" in source for per in p7_cuda.WIDE_PER)
     assert f"kMemThreads = {p7_cuda.MEM_THREADS};" in source
     assert f"kMemRows = {p7_cuda.MEM_ROWS};" in source
     for name in ("p7_viterbi_kernel.cu", "p7_forward_kernel.cu", "p7_viterbi_filter_kernel.cu",
                  "p7_forward_log_kernel.cu", "p7_backward_kernel.cu"):
         source = (_build.CSRC_DIR / name).read_text()
-        assert "with_case<Case>(threads, per" in source
+        if name in ("p7_forward_kernel.cu", "p7_backward_kernel.cu"):
+            assert "with_case<Case>(threads, per" in source
+        else:
+            assert "with_group_case<Case>(per" in source
+            assert "with_pair_case<PairCase>(per" in source
         assert "if (threads == kMemThreads)" in source
     for path in all_profile_paths:
         p7 = P7Profile.from_profile(parse_hmm(path))
@@ -364,7 +376,7 @@ def test_msv_table_types_and_stack_in_one_source():
     that could round)."""
     source = (_build.CSRC_DIR / "msv_kernel.cu").read_text()
     assert "struct Entries<uint16_t>" in source and "struct Entries<float>" in source
-    assert "blockIdx.y" in source and "raw.x << 16" in source
+    assert "blockIdx.y" in source and "static_cast<uint32_t>(row[j]) << 16" in source
 
 
 def test_log_forward_and_posterior_scans_never_fall_back(monkeypatch):
@@ -409,7 +421,8 @@ def test_log_forward_kernel_uses_accurate_math_only():
     """The log-space Forward's combine and E reduce call the accurate expf,
     log1pf and logf, never the fast intrinsics."""
     source = (_build.CSRC_DIR / "p7_viterbi.cuh").read_text()
-    assert "log1pf(expf(d))" in source and "logf(group_reduce<true, KT>" in source
+    assert "log1pf(expf(d))" in source and "logf(step_reduce<true, KT, PAIR>" in source
     source += (_build.CSRC_DIR / "p7_blocked.cuh").read_text()
+    source += (_build.CSRC_DIR / "cluster.cuh").read_text()
     for fast in ("__expf", "__logf", "__log1pf", "__fdividef"):
         assert f"{fast}(" not in source

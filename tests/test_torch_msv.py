@@ -170,7 +170,7 @@ def test_kernel_limit_names_itself():
     assert msv_cuda.kernel_case(4872) == (1024, 5)
     assert msv_cuda.kernel_case(1 << 20) == (1024, 1024)
     mem = msv_cuda.launch_plan(1024, 5, 4, 16384, 1, 132)
-    assert mem == msv_cuda.launch_plan(1024, 5, 2, 16384, 1, 132) == (32, 264, 0)
+    assert mem == msv_cuda.launch_plan(1024, 5, 2, 16384, 1, 132) == (32, 264, 0, 1)
 
 
 # -- the launch plan (ops/msv_cuda.py::launch_plan, csrc/msv_kernel.cu) ------
@@ -202,7 +202,7 @@ def test_launch_plan_forced_warps(warps, cap):
     __launch_bounds__(32 * warps, 1) leaves, in steps of 8."""
     assert msv_cuda.register_cap(warps) == cap
     plan = msv_cuda.launch_plan(32, 44, 2, 16384, 1, SMS, warps)
-    assert plan == (warps, SMS, 20 * 32 * 44 * 4)
+    assert plan == (warps, SMS, 20 * 32 * 44 * 4, 1)
     assert msv_cuda.launch_plan(32, 44, 2, 40, 1, SMS, warps).grid == -(-40 // warps)
     for bad in (0, 4, 10, 36):
         with pytest.raises(ValueError, match="warps a block"):
@@ -212,29 +212,109 @@ def test_launch_plan_forced_warps(warps, cap):
 @pytest.mark.parametrize("per", msv_cuda.WIDE_PER)
 @pytest.mark.parametrize("entry", [4, 2])
 def test_launch_plan_wide_and_memory_cases_unchanged(per, entry):
-    """The wide case (two warps a sequence, each warp's two row buffers of
-    the global entries) keeps 16 warps a block where they fit, else 8, one
-    pair a sequence; the rows-in-memory case one 1024-thread block a
+    """The wide case is the cluster pair: CLUSTER_WARPS warps a block, each
+    block of a 2-block cluster staging its half of the f32 table in both
+    modes (20 x 32 * per entries) beside each warp's 32-byte link, an even
+    grid of the clusters the card holds split among the profiles; its plan
+    is fixed. The rows-in-memory case keeps one 1024-thread block a
     sequence, two an SM."""
-    def row_buffers(warps):
-        return warps * 2 * 32 * per * entry + (warps // 2) * 32
-
-    warps = 16 if row_buffers(16) <= msv_cuda.SMEM_PER_SM else 8
+    half_table = 4 * 20 * 32 * per
     plan = msv_cuda.launch_plan(64, per, entry, 2048, 2, SMS)
-    assert plan == (warps, -(-2048 // (warps // 2)), row_buffers(warps))
-    assert plan.smem <= msv_cuda.SMEM_PER_SM
+    assert plan == (16, 2 * (SMS // 2 // 2), half_table + 16 * 32, 2)
+    assert plan.smem == msv_cuda.pair_smem_bytes(per) <= msv_cuda.SMEM_PER_SM
+    assert msv_cuda.launch_plan(64, per, entry, 2048, 1, SMS, clusters=60) == (
+        16, 120, half_table + 512, 2)
+    # no more clusters than the batch needs, at least one
+    assert msv_cuda.launch_plan(64, per, entry, 40, 1, SMS).grid == 2 * 3
+    assert msv_cuda.launch_plan(64, per, entry, 2048, 200, SMS).grid == 2
     with pytest.raises(ValueError, match="fixed"):
         msv_cuda.launch_plan(64, per, entry, 2048, 1, SMS, warps=8)
-    assert msv_cuda.launch_plan(msv_cuda.MEM_LANES, 7, entry, 100, 3, SMS) == (32, 100, 0)
+    assert msv_cuda.launch_plan(msv_cuda.MEM_LANES, 7, entry, 100, 3, SMS) == (32, 100, 0, 1)
+
+
+@pytest.mark.parametrize("per", msv_cuda.WIDE_PER)
+@pytest.mark.parametrize("b_pad,num_p,clusters", [(1, 1, 66), (16, 1, 66), (17, 1, 66),
+                                                  (2048, 1, 66), (16384, 1, 64), (8192, 3, 66),
+                                                  (8192, 100, 66), (100, 2, 1)])
+def test_cluster_plan_fits_the_block(per, b_pad, num_p, clusters):
+    """Each cluster plan fits the SM's 232,448 bytes a block and its
+    registers at the block's launch bound; its blocks come in clusters of 2
+    on an even grid, no more clusters a profile than the card holds for
+    all the profiles (at least one) or than the batch's sequences need,
+    CLUSTER_WARPS of them a cluster."""
+    for entry in (4, 2):
+        plan = msv_cuda.launch_plan(64, per, entry, b_pad, num_p, SMS, clusters=clusters)
+        assert plan.cluster == msv_cuda.CLUSTER == 2
+        assert plan.grid % 2 == 0 and plan.grid >= 2
+        pairs = plan.grid // 2
+        assert pairs == max(1, min(-(-b_pad // plan.warps), clusters // num_p))
+        assert plan.smem == 20 * 32 * per * 4 + plan.warps * msv_cuda.LINK_BYTES
+        assert plan.smem <= msv_cuda.SMEM_PER_SM == 232448
+        assert plan.warps == msv_cuda.CLUSTER_WARPS == 16
+        assert plan.warps * 32 * msv_cuda.register_cap(plan.warps) <= msv_cuda.REGS_PER_SM
+
+
+@pytest.mark.parametrize("per", msv_cuda.WIDE_PER)
+def test_pair_state_map_is_a_bijection(per):
+    """State j of the wide case sits in (block, lane, slot) with j = (32 *
+    block + lane) * per + slot: every state of the 64 * per once, each
+    block its half."""
+    seen = [msv_cuda.pair_state(j, per) for j in range(64 * per)]
+    assert len(set(seen)) == 64 * per
+    assert sorted(seen) == [(b, lane, k) for b in range(2) for lane in range(32)
+                            for k in range(per)]
+    for j, (b, lane, k) in enumerate(seen):
+        assert (32 * b + lane) * per + k == j and b == j // (32 * per)
+
+
+def _pair_step_shift(m: torch.Tensor, per: int) -> torch.Tensor:
+    """The j-1 shift of the wide case's step as the kernel takes it, on a
+    [B, 64 * per] row: slot k > 0 of a lane reads its own slot k - 1 (the
+    row is updated highest j first), slot 0 of lane l > 0 lane l - 1's last
+    slot (``__shfl_up_sync``), slot 0 of block 0's lane 0 -inf, and slot 0
+    of block 1's lane 0 ``bnd``: block 0's lane 31's last slot, which it
+    stored into its partner's link the step before."""
+    v = m.reshape(m.shape[0], 2, 32, per)
+    out = torch.empty_like(v)
+    out[..., 1:] = v[..., :-1]
+    out[:, :, 1:, 0] = v[:, :, :-1, per - 1]
+    out[:, 0, 0, 0] = float("-inf")
+    bnd = v[:, 0, 31, per - 1]
+    out[:, 1, 0, 0] = bnd
+    return out.reshape(m.shape)
+
+
+@pytest.mark.parametrize("per", msv_cuda.WIDE_PER)
+def test_pair_boundary_shift_equals_the_plain_shift(per):
+    """The pair's shift, the boundary state crossing the cluster included,
+    equals the plain version's one-state shift (msv_scan_plain's
+    ``shifted``), -inf entering at state 0."""
+    rng = np.random.default_rng(per)
+    m = torch.from_numpy(rng.normal(size=(3, 64 * per)).astype(np.float32))
+    col0 = torch.full((3, 1), float("-inf"))
+    assert torch.equal(_pair_step_shift(m, per), torch.cat([col0, m[:, :-1]], dim=1))
 
 
 def test_launch_plan_matches_kernel_source():
     """The block sizes the Python plan picks from are the kernels the C
     entry compiles (csrc/msv_kernel.cu, kernel_of), each under its own
-    launch bound, and the wide case's largest block is its bound's."""
+    launch bound; the wide case's cluster pair is one block size,
+    CLUSTER_WARPS, compiled at every WIDE_PER in both modes, launched as
+    2-block clusters, and its shared memory the plan's (the half table and
+    a 32-byte link a warp: two mbarriers and two 8-byte slots)."""
     source = (pathlib.Path(msv_cuda.__file__).parent.parent / "csrc" / "msv_kernel.cu").read_text()
     cases = re.findall(r"case (\d+): return msv_kernel<PER, 32, T, (\d+)>;", source)
     assert [(int(a), int(b)) for a, b in cases] == [(w, w) for w in msv_cuda.WARP_CHOICES]
     assert "__launch_bounds__(32 * WARPS, 1) msv_kernel" in source
-    assert f"constexpr int kWideWarps = {msv_cuda.WIDE_WARPS};" in source
+    assert f"constexpr int kClusterWarps = {msv_cuda.CLUSTER_WARPS};" in source
+    assert ("return warps == kClusterWarps ? msv_kernel<PER, 64, T, kClusterWarps> : nullptr;"
+            in source)
+    wide = re.findall(r"MSV_CASE\((\d+), 64\)", source)
+    assert tuple(int(p) for p in wide) == msv_cuda.WIDE_PER
     assert "return lanes == 32 ? sizeof(float) * 20 * 32 * per" in source
+    assert ": sizeof(float) * 20 * 32 * per + static_cast<size_t>(warps) * sizeof(Link);" in source
+    assert re.search(r"struct Link \{\s+unsigned long long bar\[2\];\s+int2 slot\[2\];\s+\};",
+                     source)
+    assert msv_cuda.LINK_BYTES == 2 * 8 + 2 * 8
+    assert "attr->val.clusterDim.x = 2;" in source and "cudaLaunchKernelEx(&cfg, fn, a)" in source
+    assert "lanes == 64 && (m_pad % 8 != 0 || grid % 2 != 0)" in source

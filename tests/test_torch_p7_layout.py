@@ -10,6 +10,12 @@ checked on the CPU: the kernels themselves run only on the card.
   j - s) equal ``p7_cuda._shift`` for every per 1..19 and s = 2^p.
 * The same at the wide case's 256 threads a group (per 10..19, M_pad up to
   4864), and the Viterbi filter's bf16 emission rows (``hstride``).
+* The cluster pair (the Viterbi template's wide case: two blocks of 128
+  threads, block r owning states r * 128 * per ..): its state map is a
+  bijection, its shifts (``pair_shift_small``, ``pair_shift_big``: block
+  1's first states read from block 0's shift buffer) equal
+  ``p7_cuda._shift`` for every per 10..19 and s = 2^p, and its plan stages
+  every row that fits in a block, one group a block, an even grid.
 * ``plan_launch`` keeps every case within the block's shared memory and the
   SM's registers, picks G = 1 up to one sequence an SM, leaves chain rows
   and then (at 256 threads) transition rows in global memory when a group
@@ -21,6 +27,7 @@ checked on the CPU: the kernels themselves run only on the card.
 """
 
 import itertools
+import re
 
 import numpy as np
 import pytest
@@ -99,14 +106,65 @@ def test_wide_shared_row_index_is_a_conflict_free_bijection(per):
     _check_row_index(per, WIDE)
 
 
-def _check_shifts(per: int, threads: int) -> None:
+def _kernel_pair_shift(x: torch.Tensor, s: int, per: int, fill: float) -> torch.Tensor:
+    """csrc/p7_blocked.cuh::pair_shift on a [B, 2 * 128 * per] row, block r
+    holding the half r * 128 * per ..: each block writes its half into its
+    shift buffer at t * stride + k (a small shift only its last s slots);
+    for s < per (by 1, 2, 4, 8, 16) slots k >= s move within the thread and
+    the first s come from thread t - 1's last s, in block 1's thread 0 from
+    the halo block 0's thread 127 stores its last s registers into (fill in
+    block 0's thread 0); otherwise slot k reads state t * per + k - s of its
+    own buffer at sidx, below 0 in block 1 state j + 128 * per of block 0's
+    buffer, else fill."""
+    n = THREADS * per
+    stride = p7_cuda.blocked_stride(per)
+    small = s < per and s in (1, 2, 4, 8, 16)
+    v = [_blocked(x[:, r * n:(r + 1) * n], per, THREADS) for r in (0, 1)]
+    bufs = []
+    for r in (0, 1):
+        buf = torch.full((x.shape[0], THREADS * stride), float("nan"), dtype=x.dtype)
+        for t in range(THREADS):
+            for k in range(per - s if small else 0, per):
+                buf[:, t * stride + k] = v[r][:, t, k]
+        bufs.append(buf)
+    out = []
+    for r in (0, 1):
+        o = torch.empty_like(v[r])
+        for t in range(THREADS):
+            for k in range(per):
+                if small and k >= s:
+                    o[:, t, k] = v[r][:, t, k - s]
+                elif small and t > 0:
+                    o[:, t, k] = bufs[r][:, (t - 1) * stride + per - s + k]
+                elif small:
+                    halo = v[0][:, THREADS - 1, per - s:]
+                    o[:, t, k] = halo[:, k] if r else fill
+                else:
+                    j = t * per + k - s
+                    if j >= 0:
+                        o[:, t, k] = bufs[r][:, _sidx(j, per)]
+                    elif r == 1 and j + n >= 0:
+                        o[:, t, k] = bufs[0][:, _sidx(j + n, per)]
+                    else:
+                        o[:, t, k] = fill
+        out.append(o.reshape(x.shape[0], n))
+    return torch.cat(out, dim=1)
+
+
+def _check_shifts(per: int, threads: int, cluster: int = 1) -> None:
+    """The kernels' shifts on a row of ``cluster`` blocks of ``threads``
+    threads (cluster 2: the pair, 128 threads a block) against the plain
+    shift, for every s = 2^p of the row's chain and both fills."""
     rng = np.random.default_rng(per)
-    m = threads * per
+    m = cluster * threads * per
     x = torch.from_numpy(rng.normal(size=(2, m)).astype(np.float32))
     for p in range(p7_cuda.chain_passes(m) + 1):
         s = 1 << p
         for fill in (p7_cuda.NEG_INF, 0.0):
-            got = _kernel_shift(x, s, per, fill, threads)
+            if cluster == 1:
+                got = _kernel_shift(x, s, per, fill, threads)
+            else:
+                got = _kernel_pair_shift(x, s, per, fill)
             assert torch.equal(got, p7_cuda._shift(x, s, fill)), (s, fill)
 
 
@@ -155,6 +213,25 @@ def test_wide_kernel_shifts_equal_the_plain_shift(per):
     _check_shifts(per, WIDE)
 
 
+@pytest.mark.parametrize("per", p7_cuda.WIDE_PER)
+def test_pair_shifts_equal_the_plain_shift(per):
+    """The cluster pair's shifts, across the cluster included, for every
+    Hillis-Steele pass s = 2^p of 2 * 128 * per states."""
+    _check_shifts(per, THREADS, cluster=2)
+
+
+@pytest.mark.parametrize("per", p7_cuda.WIDE_PER)
+def test_pair_state_map_is_a_bijection(per):
+    """State j of the cluster pair sits in (block, thread, slot) with j =
+    block * 128 * per + thread * per + slot: every state of the 2 * 128 *
+    per once, each block its half in the normal-width layout."""
+    seen = [p7_cuda.pair_state(j, per) for j in range(2 * THREADS * per)]
+    assert sorted(seen) == [(b, t, k) for b in range(2) for t in range(THREADS)
+                            for k in range(per)]
+    for j, (b, t, k) in enumerate(seen):
+        assert b * THREADS * per + t * per + k == j
+
+
 def _hidx(j: int, per: int) -> int:
     """csrc/p7_blocked.cuh::hidx: halfword of state j in a bf16 row."""
     return (j // per) * p7_cuda.bf16_stride(per) + j % per
@@ -198,15 +275,21 @@ def _passes(kind: str, m_pad: int):
 
 @pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
 def test_plan_fits_the_block_for_every_case(kind):
-    """Every (threads, per) case, at its narrowest and widest M_pad."""
+    """Every (threads, per) case, at its narrowest and widest M_pad; the
+    Viterbi template's kinds take their wide widths on the cluster pair
+    (test_pair_plan_fits_the_block), the others at 256 threads."""
     for threads, per in CASES:
         low = THREADS * 19 + 8 if threads == WIDE else 8
         for m_pad in sorted({max(low, threads * (per - 1) + 8), threads * per}):
             assert p7_cuda.kernel_case(m_pad) == (threads, per)
+            if threads == WIDE and kind in p7_cuda.PAIR_KINDS:
+                plan = p7_cuda.plan_launch(kind, m_pad, _passes(kind, m_pad)[-1], 64, 128, SMS)
+                assert (plan.threads, plan.cluster) == (THREADS, 2)
+                continue
             for passes, regs, b_pad in itertools.product(_passes(kind, m_pad), REGS, BATCHES):
                 plan = p7_cuda.plan_launch(kind, m_pad, passes, b_pad, regs, SMS)
                 assert plan.smem <= SMEM_PER_SM == 232448
-                assert plan.threads == threads
+                assert plan.threads == threads and plan.cluster == 1
                 assert 0 <= plan.n_chain <= passes
                 assert 0 <= plan.n_trans <= 6 and (plan.n_trans == 6 or threads == WIDE)
                 assert 1 <= plan.groups <= plan.max_groups <= p7_cuda.MAX_BLOCK_THREADS // threads
@@ -267,15 +350,100 @@ def test_plan_limits_raise():
 def test_wide_plan_leaves_transition_rows_in_global_memory():
     """At 256 threads and 19 slots a row is 19,456 bytes: one group's six
     rows and six staged transitions come to 233,472 bytes, 1,024 over the
-    block's 232,448, so the eager plan stages five transitions and no chain
-    row; at 10 slots every row the lazy window runs fits."""
+    block's 232,448, so the Forward plan (a 256-thread case still) stages
+    five transitions and no chain row. The Viterbi template's wide cases
+    run on the cluster pair instead, where a block's row is half as long:
+    the eager case at 19 slots stages all six transitions and 9 of its 13
+    chain rows beside its group and the pair's two rows of block 0's states,
+    every row the lazy window runs at 10 slots."""
     row = 4 * WIDE * 19
     assert row == 19456
     assert 12 * row == SMEM_PER_SM + 1024
-    plan = p7_cuda.plan_launch("eager", 4864, 13, 4096, 128, SMS)
+    plan = p7_cuda.plan_launch("forward", 4864, 7, 4096, 128, SMS)
     assert (plan.threads, plan.n_trans, plan.n_chain, plan.groups) == (WIDE, 5, 0, 1)
+    plan = p7_cuda.plan_launch("eager", 4864, 13, 4096, 128, SMS)
+    assert (plan.threads, plan.cluster, plan.n_trans, plan.n_chain, plan.groups) == (
+        THREADS, 2, 6, 9, 1)
+    half = 4 * THREADS * 19
+    assert plan.smem == (15 + 6 + 2) * half + 4 * (8 + 32 + 356) <= SMEM_PER_SM
+    assert plan.smem + half > SMEM_PER_SM
     plan = p7_cuda.plan_launch("lazy", 2440, 4, 4096, 128, SMS)
-    assert (plan.threads, plan.n_trans, plan.n_chain) == (WIDE, 6, 4)
+    assert (plan.threads, plan.cluster, plan.n_trans, plan.n_chain) == (THREADS, 2, 6, 4)
+
+
+@pytest.mark.parametrize("kind", p7_cuda.PAIR_KINDS)
+def test_pair_plan_fits_the_block(kind):
+    """Every wide case of the Viterbi template plans the cluster pair: 128
+    threads and one group a block (a forced G other than 1 raises), an even
+    grid of clusters of 2 (the ``clusters`` the card holds, else what an
+    SM's registers, shared memory and threads allow, two SMs a cluster; no
+    more than the batch's sequences), every transition row staged and as
+    many chain rows as fit the 232,448 bytes of a block."""
+    for per in p7_cuda.WIDE_PER:
+        for m_pad in sorted({max(THREADS * 19 + 8, WIDE * (per - 1) + 8), WIDE * per}):
+            assert p7_cuda.kernel_case(m_pad) == (WIDE, per)
+            for passes, regs, b_pad in itertools.product(_passes(kind, m_pad), REGS, BATCHES):
+                plan = p7_cuda.plan_launch(kind, m_pad, passes, b_pad, regs, SMS)
+                assert (plan.threads, plan.cluster, plan.groups, plan.max_groups) == (
+                    THREADS, p7_cuda.CLUSTER, 1, 1)
+                assert plan.grid % 2 == 0 and 1 <= plan.grid // 2 <= b_pad
+                extra = 1 if kind == "lazy" and passes < p7_cuda.chain_passes(m_pad) else 0
+                rows = plan.n_trans + plan.n_chain + extra
+                bf16 = kind == "filter"
+                assert plan.n_trans == 6 and 0 <= plan.n_chain <= passes
+                assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, bf16=bf16,
+                                                               pair=True) <= SMEM_PER_SM
+                if plan.n_chain < passes:
+                    assert p7_cuda.blocked_smem_bytes(per, rows + 1, 1, bf16=bf16,
+                                                      pair=True) > SMEM_PER_SM
+                warp_regs = -(-regs // 8) * 8 * 32
+                per_sm = min(p7_cuda.REGS_PER_SM // (4 * warp_regs), SMEM_PER_SM // plan.smem,
+                             p7_cuda.THREADS_PER_SM // THREADS)
+                assert plan.grid // 2 == min(b_pad, SMS * per_sm // 2)
+            assert p7_cuda.plan_launch(kind, m_pad, passes, 4096, 128, SMS,
+                                       clusters=50).grid == 100
+            assert p7_cuda.plan_launch(kind, m_pad, passes, 4096, 128, SMS, groups=1).groups == 1
+            with pytest.raises(ValueError, match="cluster pair takes 1"):
+                p7_cuda.plan_launch(kind, m_pad, passes, 4096, 128, SMS, groups=2)
+
+
+def test_pair_cases_match_kernel_source():
+    """The pair's cases the C entries compile are WIDE_PER (with_pair_case,
+    csrc/p7_blocked.cuh); the Viterbi template's sources instantiate no
+    256-thread case any more (with_group_case, not with_case) and launch
+    the pair as clusters of 2; a pair block's exchange area (two rows of
+    block 0's states, two exchanges of a value a warp of both blocks, 18
+    halos of 16 slots, 4 release slots, 24 mbarriers) is what the plan
+    counts after its group; an exchange puts each warp's
+    value at slot rank * 4 + warp of both blocks and combines the eight in
+    the 256-thread group's order; a halo is a shift by at most 16, its id
+    2 + p for pass p."""
+    csrc = p7_cuda._build.CSRC_DIR
+    blocked = (csrc / "p7_blocked.cuh").read_text()
+    cases = re.findall(r"P7_PAIR_CASE\((\d+)\)\n", blocked)
+    assert tuple(int(c) for c in cases) == p7_cuda.WIDE_PER
+    assert "constexpr int kHaloIds = 2 + 16;" in blocked and "constexpr int kHaloSlots = 16;" in blocked
+    assert ("return 2 * row_floats<PER, KT>() + 2 * 2 * warps<KT>() + kHaloIds * kHaloSlots + 4 +"
+            "\n         2 * kPairBars;" in blocked)
+    assert "constexpr int kPairBars = kHaloIds + 2 + 2 + 2;" in blocked
+    assert p7_cuda.PAIR_FLOATS == 16 + 18 * 16 + 4 + 48 == 356
+    assert p7_cuda.blocked_smem_bytes(11, 3, 1, pair=True) == (
+        p7_cuda.blocked_smem_bytes(11, 3, 1) + 4 * (2 * THREADS * 11 + 356))
+    for per in p7_cuda.WIDE_PER:  # the passes whose shift is a halo
+        assert sum(1 for p in range(16) if (1 << p) < per and (1 << p) <= 16) == (
+            5 if per > 16 else 4)
+    assert "return PER > 16 ? 5 : PER > 8 ? 4 : PER > 4 ? 3 : PER > 2 ? 2 : PER > 1 ? 1 : 0;" in blocked
+    assert "4 * (q * X + pr.rank * warps<KT>() + (t >> 5))" in blocked
+    assert "return combine_warps<SUM, 2 * KT>(pair_collect<KT>(q, pr));" in blocked
+    assert p7_cuda.chain_passes(4864) + 2 <= 18
+    for name in ("p7_viterbi_kernel.cu", "p7_forward_log_kernel.cu",
+                 "p7_viterbi_filter_kernel.cu"):
+        source = (csrc / name).read_text()
+        assert "with_case<" not in source and "with_group_case<Case>" in source, name
+        assert "with_pair_case<PairCase>" in source, name
+    template = (csrc / "p7_viterbi.cuh").read_text()
+    assert "attr->val.clusterDim.x = 2;" in template and "cudaLaunchKernelEx(&cfg, kernel, a)" in template
+    assert "viterbi_body<PER, 128, LAZY, LSE, FILT, true>(a);" in template
 
 
 def test_filter_plan_takes_bf16_emission_rows():

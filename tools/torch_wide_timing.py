@@ -1,0 +1,72 @@
+"""Check and time the wide cases of the PyTorch port's kernels on the card.
+
+    python3 tools/torch_wide_timing.py [--tree DIR] [--label NAME] [--check]
+
+The wide cases are the kernels' code paths for profiles of 2433 to 4864
+states (M_pad). With --check, chip_smoke.py's phase-8 check of them runs
+first (wide_kernels_vs_plain: both wide profiles, LENG 2701 and 4770,
+through every kernel against its plain version). Then its phase-10 wide
+timings (wide_timings: MSV, the MSV filter and the stacked kernel at 2048 x
+3500, the p7 kernels at 64 x 3500, the posterior pair at 64 x 1024, against
+the LENG 4770 join; best of 3 CUDA-event timings, each plain version once
+and held against the kernel) print one JSON line a case: its ms, its plain
+version's ms, its bound (chip_smoke.bound) and the card's name and power
+limit. The ptxas line of every kernel case (registers and spills) prints
+first.
+
+Everything is imported from the checkout DIR (default: this script's):
+its chip_smoke.py, its package and its kernels, built there at first use.
+Two trees compare in one call by running the script once for each, in
+turns (parent, change, change, parent). Needs one CUDA card and nvcc;
+imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+
+import numpy as np
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=str(pathlib.Path(__file__).resolve().parent.parent))
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--check", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
+    import torch
+
+    import chip_smoke
+    from hmm_fasta_viterbi_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("torch_wide_timing: no CUDA card", file=sys.stderr)
+        return 1
+    card = chip_smoke.nvidia_smi("name,power.limit")
+    dev = torch.device(chip_smoke.DEVICE)
+    torch.cuda.set_device(dev)
+    lib, log = _build.build()
+    print(f"{args.label}: library {lib}")
+    for line in chip_smoke.ptxas_summary(log):
+        print(f"{args.label}: {line}")
+    scanner = chip_smoke.MSVScanner(device=dev)
+    rng = np.random.default_rng(chip_smoke.SEED)
+    errors = dict.fromkeys(chip_smoke.KERNELS, 0.0)
+    if args.check:
+        chip_smoke.wide_kernels_vs_plain(scanner, rng, errors)
+    work = {}
+    out = chip_smoke.wide_timings(scanner, rng, errors, work)
+    for name, (ms, plain_ms) in out.items():
+        b_ms, b_by = chip_smoke.bound(*work[name])
+        print(json.dumps({"label": args.label, "kernel": name, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+                          "max_abs_err": errors[name], "card": card}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
