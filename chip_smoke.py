@@ -10,11 +10,13 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    why it failed; compiles csrc/*.cu from this checkout, one nvcc a source, and
    prints each kernel case's registers and spills (the rows-in-memory
    kernels, `*_mem_kernel`, included; the MSV register cases once for each
-   block size W they are compiled for; the cluster pairs' kernels,
-   `msv_kernel<PER,64,...>` and `viterbi_pair_kernel`), the launch plan of
-   each MSV case at the timed shapes (W, grid, dynamic shared memory, with
-   the registers and spill bytes of that kernel; the wide profiles' cluster
-   pairs with their clusters and cudaOccupancyMaxActiveClusters) and the
+   block size W they are compiled for; the cluster kernels,
+   `msv_kernel<PER,true,...>` (every C), `viterbi_pair_kernel` and
+   `forward_pair_kernel`), the launch plan of each MSV case at the timed
+   shapes (W, grid, dynamic shared memory, with the registers and spill
+   bytes of that kernel; the wide profiles' cluster pairs and the joins'
+   C-block clusters, C = 3, 13, 5, 8, 9, with their clusters and
+   cudaOccupancyMaxActiveClusters) and the
    launch plan of each blocked p7 case (the Viterbi filter's and the
    backward pass's included) against 1400.hmm, the wider wide profile and
    the three-profile join past 4864 states at the timed shapes (threads a
@@ -67,15 +69,23 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    into one ProfileHMM each): every kernel's wide case against its plain
    version on a ragged batch of 8 sequences up to 300 residues, at G = 1
    and at the most groups that fit (the cluster pairs of MSV, eager, lazy,
-   log-space and the Viterbi filter take G = 1), and the stacked kernel
-   over 100.hmm and both (wide_kernels_vs_plain); then the profiles past
-   4864 states
-   (MEM_JOINS: the nodes of 2405.hmm, 2365.hmm and 2207.hmm, LENG 6977, and
-   of all 24, LENG 30181, 15 chain passes) through every kernel's
-   rows-in-memory case against its plain version on the same kind of batch
-   (mem_kernels_vs_plain: MSV, its filter, eager, lazy and the Viterbi
-   filter bit for bit, Forward, log-space Forward and the posterior pair
-   within their tolerances);
+   log-space, the Viterbi filter, Forward and the row-saving Forward take
+   G = 1; every p7 kind but the backward pass plans the pair), a Forward
+   carry chain split at P7_SPLIT equal to one call bit for bit, and the
+   stacked kernel over 100.hmm and both (wide_kernels_vs_plain); then the
+   MSV kernels' C-block clusters (cluster_kernels_vs_plain): MEM_JOINS (the
+   nodes of 2405.hmm, 2365.hmm and 2207.hmm, LENG 6977, C = 3, and of all
+   24, LENG 30181, C = 13) and CLUSTER_JOINS (LENG 11165, 18170, 19679: C =
+   5, 8, 9) through MSV (with a carry chain), the MSV filter and a stacked
+   launch each, bit for bit with the plain versions, the launch counters
+   showing each at its C, and the stacked kernel over 100.hmm and all five
+   (one launch a C) == the single scans; the all-24 join twice over (LENG
+   60362, past 38,912) through the MSV kernels' rows-in-memory case the
+   same way; then MEM_JOINS (15 chain passes at LENG 30181) through every
+   p7 kernel's rows-in-memory case against its plain version on the same
+   kind of batch (mem_kernels_vs_plain: eager, lazy and the Viterbi filter
+   bit for bit, Forward, log-space Forward and the posterior pair within
+   their tolerances);
 9. main paths, each with every launch count set to 0 just before it and
    read just after, on a seeded FASTA of 16384 x 3500 random residues with
    32 sequences sampled from 1400.hmm and 4 from the LENG 4770 profile at
@@ -100,9 +110,13 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    over 100.hmm and the wide ones, and the eager, log-space and posterior
    entry points on the planted wide rows; and the rows-in-memory cases
    (mem_paths): `scan --stage search --domains` with the LENG 6977 join
-   against a FASTA of 2048 rows with 4 of its homologs planted (every planted
-   row a hit with its envelope inside it), `--fast` on it, `sweep` over both
-   joins and the eager and log-space entry points on the planted rows;
+   against a FASTA of 2048 rows with 4 of its homologs planted (MSV on its
+   3-block cluster; every planted row a hit with its envelope inside it),
+   `--fast` on it (the MSV filter's 3-block cluster), `sweep` over both
+   joins and the LENG 60362 one (the stacked kernel's 3- and 13-block
+   clusters and its rows-in-memory case), `scan` and MSVScanner.scan_filter
+   with the LENG 60362 join (the MSV rows-in-memory cases) and the eager and
+   log-space entry points on the planted rows;
    survivor counts and per-phase seconds printed;
 10. timings with CUDA events: the MSV kernel (best of 3) at 16384 x 3500
    against 1400.hmm and 2405.hmm and its plain version at 1400.hmm; the MSV
@@ -122,9 +136,12 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    profile (wide_timings: MSV at 2048 x 3500, the p7 kernels at 64 x 3500,
    the posterior kernels at 64 x 1024; each line with its bound, its share
    and PARENT_WIDE_MS's time of the parent commit beside it, with the
-   card's name and power limit), and each rows-in-memory case once
-   against the LENG 6977 join (mem_timings: MSV at 2048 x 1000, the p7
-   kernels at 64 x 1000, the posterior pair at 64 x 1024), each plain
+   card's name and power limit), and each case past 4864 states
+   (mem_timings: the MSV clusters against the LENG 6977 join at 2048 x 1000
+   and the stacked kernel over it and the LENG 30181 join, best of 3; the
+   MSV rows-in-memory case against the LENG 60362 join at 256 x 1000, the
+   p7 kernels at 64 x 1000 and the posterior pair at 64 x 1024 against the
+   LENG 6977 join, once each; the parent's time beside each), each plain
    version once. Each kernel's bound is the larger
    of its FP32 operations (counted a cell from its source) at 67 TFLOP/s
    and the bytes it must move (each input once, each output once) at 3.35
@@ -217,7 +234,8 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    ms for B1 at the same shape.
 
 Prints a JSON line about the kernels (every case, the wide ones as
-`<kernel>_wide`, the rows-in-memory ones as `<kernel>_mem`), then the card's
+`<kernel>_wide`, the MSV kernels' C-block clusters past 4864 states as
+`<kernel>_cluster`, the rows-in-memory ones as `<kernel>_mem`), then the card's
 name and power limit and, last,
 {"ok": true, ...}. Any failed check raises, and the script exits
 non-zero without those lines.
@@ -308,6 +326,17 @@ WIDE_BATCH, WIDE_LEN = 8, 300
 # 30160, 15 chain passes), checked on the same ragged batch
 MEM_JOINS = (("2405", "2365", "2207"), tuple(
     sorted((p.stem for p in PROFILES.glob("*.hmm")), key=int)))
+# the MSV kernel's C-block clusters (C = ceil(M_pad / 2432)): MEM_JOINS land
+# on C = 3 and 13; these joins of the repo's largest profiles on C = 5, 8
+# and 9 (LENG 11165, 18170, 19679); past 38,912 states the MSV kernel's
+# rows-in-memory case takes the all-24 join twice over (LENG 60362), held
+# and timed at MSV_MEM_BATCH rows
+CLUSTER_JOINS = (("2405", "2365", "2207", "2138", "2050"),
+                 ("2405", "2365", "2207", "2138", "2050", "1901", "1799", "1705", "1600"),
+                 ("2405", "2365", "2207", "2138", "2050", "1901", "1799", "1705", "1600", "1509"))
+CLUSTER_SIZES = (3, 13, 5, 8, 9)  # of MEM_JOINS + CLUSTER_JOINS, in that order
+MSV_MEM_JOIN = MEM_JOINS[1] * 2
+MSV_MEM_BATCH = 256
 # the rows-in-memory main path: MEM_BATCH random rows of MEM_LEN residues
 # with MEM_PLANTED homologs of the three-profile join at known rows; each
 # rows-in-memory case is timed once at MEM_TIME_LEN residues (MSV at
@@ -354,17 +383,25 @@ FUSED_OVERFLOW = 200
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
-# phase 10's wide cases before their cluster-pair redesign: the parent
-# commit 09372c7's times of each at the same shapes (the faster of two runs
-# of tools/torch_wide_timing.py on that commit's `git archive` in one call,
-# on PARENT_CARD)
+# phase 10's wide and rows-in-memory cases at the parent commit e487e7e
+# (before the MSV C-block clusters and the Forward's cluster pair): its
+# times of each at the same shapes (the faster of two runs of
+# tools/torch_wide_timing.py --mem on that commit's `git archive` in one
+# call, on PARENT_CARD); the MSV cluster rows (LENG 6977, and the stacked
+# launch over it and the all-24 join) were the rows-in-memory case there
 PARENT_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PARENT_WIDE_MS = {
-    "msv_scan_wide": 64.131, "msv_filter_scan_wide": 15.160, "msv_stacked_scan_wide": 109.103,
-    "viterbi_lazy_scan_wide": 48.781, "viterbi_scan_wide": 83.067,
-    "viterbi_filter_scan_wide": 22.273, "forward_log_scan_wide": 295.051,
-    "forward_prob_scan_wide": 38.383, "forward_save_scan_wide": 14.470,
-    "backward_coverage_scan_wide": 20.449,
+    "msv_scan_wide": 6.736, "msv_filter_scan_wide": 6.739, "msv_stacked_scan_wide": 11.454,
+    "viterbi_lazy_scan_wide": 9.204, "viterbi_scan_wide": 60.338,
+    "viterbi_filter_scan_wide": 8.953, "forward_log_scan_wide": 228.332,
+    "forward_prob_scan_wide": 39.914, "forward_save_scan_wide": 14.510,
+    "backward_coverage_scan_wide": 20.505,
+    "msv_scan_cluster": 28.651, "msv_filter_scan_cluster": 25.692,
+    "msv_stacked_scan_cluster": 181.364,
+    "viterbi_lazy_scan_mem": 16.120, "viterbi_scan_mem": 29.293,
+    "viterbi_filter_scan_mem": 18.636, "forward_log_scan_mem": 57.239,
+    "forward_prob_scan_mem": 18.954, "forward_save_scan_mem": 20.740,
+    "backward_coverage_scan_mem": 21.108,
 }
 
 # the sweep timing batch (sweep24, sweep24_filter) and the profiles the plain
@@ -412,18 +449,28 @@ WRAPPERS = {
     "forward_save_scan": posterior_cuda.forward_save_scan_cuda,
     "backward_coverage_scan": posterior_cuda.backward_coverage_scan_cuda,
 }
-# every case past 2432 states (two warps a sequence for MSV, 256 threads for
-# the p7 and posterior kernels): a line of its own in the JSON, its launches
-# counted by the same wrapper's wide_launches
+# every case from 2433 to 4864 states (the cluster pairs: two warps a
+# sequence for MSV, two 128-thread groups for the p7 kinds but the backward
+# pass, a 256-thread group for that): a line of its own in the JSON, its
+# launches counted by the same wrapper's wide_launches
 WIDE = "_wide"
-# every case past 4864 states (the rows-in-memory cases: one 1024-thread
-# block a sequence, the DP rows in global memory): its own JSON line, its
-# launches counted by the wrapper's mem_launches
+# the MSV kernels' cases from 4865 to 38,912 states (C warps a sequence in
+# C-block clusters, C = 3..16): their own JSON lines, their launches counted
+# by the wrapper's cluster_launches at every C past 2
+CLUSTER = "_cluster"
+MSV_WRAPPERS = ("msv_scan", "msv_filter_scan", "msv_stacked_scan")
+# every case past 4864 states (MSV: past 38,912; the rows-in-memory cases:
+# one 1024-thread block a sequence, the DP rows in global memory): its own
+# JSON line, its launches counted by the wrapper's mem_launches
 MEM = "_mem"
 KERNELS.update({
     **{name + WIDE: (source, replaces, f"{mode}; M_pad 2440..4864")
        for name, (source, replaces, mode) in KERNELS.items()},
-    **{name + MEM: (source, replaces, f"{mode}; M_pad past 4864, rows in global memory")
+    **{name + CLUSTER: (source, replaces, f"{mode}; M_pad 4872..38912, C-block clusters")
+       for name, (source, replaces, mode) in KERNELS.items() if name in MSV_WRAPPERS},
+    **{name + MEM: (source, replaces, f"{mode}; M_pad past "
+                    f"{msv_cuda.MAX_CLUSTER_STATES if name in MSV_WRAPPERS else 4864}, rows in "
+                    "global memory")
        for name, (source, replaces, mode) in KERNELS.items()},
 })
 
@@ -531,13 +578,20 @@ def format_hmm(hmm) -> str:
 
 def zero_launches() -> None:
     for fn in WRAPPERS.values():
-        fn.launches = fn.wide_launches = fn.mem_launches = 0
+        msv_cuda.zero_launches(fn)
 
 
 def launches() -> dict:
     return {**{name: fn.launches for name, fn in WRAPPERS.items()},
             **{name + WIDE: fn.wide_launches for name, fn in WRAPPERS.items()},
+            **{name + CLUSTER: sum(n for c, n in WRAPPERS[name].cluster_launches.items() if c > 2)
+               for name in MSV_WRAPPERS},
             **{name + MEM: fn.mem_launches for name, fn in WRAPPERS.items()}}
+
+
+def cluster_launches() -> dict:
+    """The MSV wrappers' launches in C-block clusters, by C."""
+    return {name: dict(sorted(WRAPPERS[name].cluster_launches.items())) for name in MSV_WRAPPERS}
 
 
 def with_groups(fn, groups):
@@ -602,13 +656,14 @@ def msv_plan_text(emit: torch.Tensor, b_pad: int) -> str:
     M_pad]) and ``b_pad`` sequences, with its kernel's registers and spills."""
     num_p = emit.shape[0] if emit.dim() == 3 else 1
     m_pad = emit.shape[-1]
-    lanes, per = msv_cuda.kernel_case(m_pad)
+    lanes, per = msv_cuda.device_case(m_pad, emit.element_size(), emit.device)
     plan = msv_cuda.device_plan(m_pad, emit.element_size(), b_pad, num_p, emit.device)
     text = (f"{lanes} lanes x {per}, W={plan.warps} warps, grid={plan.grid} x P={num_p}, "
             f"dynamic smem {plan.smem} bytes")
     if plan.cluster > 1:
-        most = msv_cuda.max_clusters(emit.device.index or 0, per, emit.dtype == torch.bfloat16)
-        text = (f"cluster pair: {plan.cluster} blocks a cluster, {plan.grid // plan.cluster} "
+        most = msv_cuda.max_clusters(emit.device.index or 0, lanes, per,
+                                     emit.dtype == torch.bfloat16)
+        text = (f"cluster: {plan.cluster} blocks a cluster, {plan.grid // plan.cluster} "
                 f"clusters a profile (cudaOccupancyMaxActiveClusters {most}), {text}")
     if lanes != msv_cuda.MEM_LANES:
         regs, local = msv_cuda.kernel_attrs(lanes, per, plan.warps, emit.dtype == torch.bfloat16)
@@ -618,13 +673,13 @@ def msv_plan_text(emit: torch.Tensor, b_pad: int) -> str:
 
 def print_msv_plans(scanner) -> None:
     """Each MSV register case's launch plan at the timed shapes: 1400.hmm and
-    2405.hmm at BATCH rows, the wide profiles' cluster pairs at
-    WIDE_MSV_BATCH rows, each stacked group of the sweep at SWEEP_BATCH, in
-    both modes."""
+    2405.hmm at BATCH rows, the wide profiles' cluster pairs and the joins'
+    C-block clusters (C = 3, 13, 5, 8, 9) at WIDE_MSV_BATCH rows, each
+    stacked group of the sweep at SWEEP_BATCH, in both modes."""
     shapes = [(profile(stem), f"{stem}.hmm", BATCH) for stem in ("1400", "2405")]
-    for hmm in wide_profiles():
+    for hmm in wide_profiles() + cluster_profiles():
         prof = MSVProfile.from_profile(hmm)
-        shapes.append((prof, f"{hmm.name} (M {prof.num_states})", WIDE_MSV_BATCH))
+        shapes.append((prof, f"{hmm.name[:40]} (M {prof.num_states})", WIDE_MSV_BATCH))
     for prof, name, rows in shapes:
         m_pad = msv_cuda.round_up(prof.num_states, 8)
         for mode, (emit, _) in (("exact", msv_cuda.pack_profile(prof, m_pad, scanner.device)),
@@ -1324,19 +1379,19 @@ def wide_profiles() -> list:
 
 
 def wide_kernels_vs_plain(scanner, rng, errors: dict) -> None:
-    """Both wide profiles (the 64-lane MSV cases and the 256-thread p7 and
-    posterior cases) through every kernel against its plain version on a
-    ragged batch of WIDE_BATCH sequences up to WIDE_LEN residues: MSV and
-    the MSV filter bit for bit, with a carry chain, the filter >= exact;
-    eager == plain, lazy == eager, the Viterbi filter == plain and >= eager,
-    Forward within FWD_TOL, the row-saving Forward == Forward, the log-space
-    Forward within LOG_FWD_TOL, every p7 kernel at the most groups a block
-    that fit == G = 1; the posterior kernels within COV_TOL / TOT_TOL; the
-    stacked kernel over 100.hmm and both == the single scans."""
-    lengths = rng.integers(0, WIDE_LEN + 1, size=WIDE_BATCH).astype(np.int32)
-    lengths[:4] = [0, 1, 129, WIDE_LEN]
-    tokens = rng.integers(0, 20, size=(WIDE_BATCH, WIDE_LEN)).astype(np.int8)
-    staged = scanner.stage(tokens, lengths)
+    """Both wide profiles (the MSV cluster pairs, the p7 cluster pairs and
+    the backward pass's 256-thread case) through every kernel against its
+    plain version on a ragged batch of WIDE_BATCH sequences up to WIDE_LEN
+    residues: MSV and the MSV filter bit for bit, with a carry chain, the
+    filter >= exact; eager == plain, lazy == eager, the Viterbi filter ==
+    plain and >= eager, Forward within FWD_TOL with a carry chain split at
+    P7_SPLIT (a multiple of FWD_RESCALE_GROUP) == one call bit for bit, the
+    row-saving Forward == Forward, the log-space Forward within
+    LOG_FWD_TOL, every p7 kernel at the most groups a block that fit == G =
+    1 (the pairs take 1; every kind but the backward pass plans the pair);
+    the posterior kernels within COV_TOL / TOT_TOL; the stacked kernel over
+    100.hmm and both == the single scans."""
+    staged = ragged_wide_batch(scanner, rng)
     hmms = wide_profiles()
     for hmm in hmms:
         msv = MSVProfile.from_profile(hmm)
@@ -1368,6 +1423,8 @@ def wide_kernels_vs_plain(scanner, rng, errors: dict) -> None:
             torch.cuda.synchronize()
             require_equal(grouped, got[kind], f"{hmm.name} {kind} kernel at G={plan.max_groups} "
                           "vs G=1")
+            require(plan.cluster == p7_cuda.CLUSTER, f"{hmm.name} {kind}: plan {plan}, not the "
+                    "cluster pair")
             plans[kind] = f"G<={plan.max_groups} n_trans={plan.n_trans} n_chain={plan.n_chain}"
         e_err = require_equal(got["eager"], want["eager"], f"{hmm.name} eager kernel vs plain")
         l_err = require_equal(
@@ -1381,6 +1438,7 @@ def wide_kernels_vs_plain(scanner, rng, errors: dict) -> None:
                 f"{hmm.name} Forward / log-space Forward vs plain: {f_err}, {g_err}")
         s_err = require_equal(got["save"][:5], got["forward"],
                               f"{hmm.name} row-saving Forward vs Forward kernel")
+        f_chain = p7_chain_error("forward", packs["forward"], staged)
         schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
         cov, tot = posterior_decode(*KERNEL_DECODE, packs["forward"], schain, staged)
         torch.cuda.synchronize()
@@ -1389,14 +1447,16 @@ def wide_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         require(c_err <= COV_TOL and t_err <= TOT_TOL,
                 f"{hmm.name} posterior kernels vs plain: coverage {c_err}, totals {t_err}")
         for name, e in (("viterbi_scan", e_err), ("viterbi_lazy_scan", l_err),
-                        ("viterbi_filter_scan", vf_err), ("forward_prob_scan", f_err),
+                        ("viterbi_filter_scan", vf_err),
+                        ("forward_prob_scan", max(f_err, f_chain)),
                         ("forward_log_scan", g_err), ("forward_save_scan", max(s_err, t_err)),
                         ("backward_coverage_scan", c_err)):
             errors[name + WIDE] = max(errors[name + WIDE], e)
         print(f"wide {hmm.name} (M {msv.num_states}): B={WIDE_BATCH} L<={WIDE_LEN} MSV max|d|={err} "
               f"chain max|d|={chain}, filter max|d|={f_err} (>= exact); eager max|d|={e_err}, "
               f"lazy == eager, filter(window={packs['filter'].window}) max|d|={vf_err} (>= eager), "
-              f"Forward {f_err:.3g}, log-space {g_err:.3g}, row-saving == Forward, coverage "
+              f"Forward {f_err:.3g} chain at {P7_SPLIT} max|d|={f_chain}, log-space "
+              f"{g_err:.3g}, row-saving == Forward, coverage "
               f"{c_err:.3g} totals {t_err:.3g}; every kernel at G=max == G=1; plans {plans}",
               flush=True)
 
@@ -1597,8 +1657,9 @@ def wide_timings(scanner, rng, errors: dict, work: dict) -> dict:
     print(f"posterior{WIDE}: the row-saving Forward {save_ms:.3f} ms, the backward coverage pass "
           f"{bwd_ms:.3f} ms (each best of 3, {SURVIVOR_BATCH} x {POST_TIME_LEN} x "
           f"M={p7.num_states}; {plan_text('save', fpack, SURVIVOR_BATCH)}); plain versions "
-          f"{plain_save_ms:.3f} + {plain_bwd_ms:.3f} ms (once); coverage max|d|={c_err:.3g}",
-          flush=True)
+          f"{plain_save_ms:.3f} + {plain_bwd_ms:.3f} ms (once); coverage max|d|={c_err:.3g}; "
+          f"row-saving {versus_parent('forward_save_scan' + WIDE, save_ms, work)}; backward "
+          f"{versus_parent('backward_coverage_scan' + WIDE, bwd_ms, work)}", flush=True)
     return out
 
 
@@ -1608,37 +1669,122 @@ def mem_profiles() -> list:
     return [wide_profile(stems) for stems in MEM_JOINS]
 
 
-def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
-    """Both joins of MEM_JOINS (LENG 6977 and 30181) through every kernel's
-    rows-in-memory case against its plain version on a ragged batch of
-    WIDE_BATCH sequences up to WIDE_LEN residues: MSV and the MSV filter bit
-    for bit, with a carry chain, the filter >= exact; eager, lazy (replay
-    counts included) and the Viterbi filter bit for bit, the filter >=
-    eager; Forward within FWD_TOL and log-space Forward within LOG_FWD_TOL
-    of plain, the row-saving Forward == Forward bit for bit, eager and
-    Forward carry chains == one call; the backward pass on the kernel's own
-    rows within COV_TOL of plain and the whole decode within COV_TOL /
-    TOT_TOL; the stacked kernel over both joins and 100.hmm == the single
-    scans. Every rows-in-memory case must have launched."""
+def cluster_profiles() -> list:
+    """The joins the MSV kernel runs on C-block clusters, C = CLUSTER_SIZES."""
+    return [wide_profile(stems) for stems in MEM_JOINS + CLUSTER_JOINS]
+
+
+def msv_mem_profile():
+    """The join of MSV_MEM_JOIN, named apart from the all-24 join (whose
+    name, 24 names long, the loaders cut at the same length)."""
+    return dataclasses.replace(wide_profile(MSV_MEM_JOIN), name="all-24-joined-twice")
+
+
+def ragged_wide_batch(scanner, rng):
     lengths = rng.integers(0, WIDE_LEN + 1, size=WIDE_BATCH).astype(np.int32)
     lengths[:4] = [0, 1, 129, WIDE_LEN]
     tokens = rng.integers(0, 20, size=(WIDE_BATCH, WIDE_LEN)).astype(np.int8)
-    staged = scanner.stage(tokens, lengths)
+    return scanner.stage(tokens, lengths)
+
+
+def msv_vs_plain(scanner, msv: MSVProfile, staged, label: str) -> tuple[float, float, float]:
+    """MSV and the MSV filter (carries included) == plain bit for bit, an
+    exact carry chain == one call, the filter >= exact, and one stacked
+    launch of the exact and the filter table == its plain version; returns
+    (exact and chain max |d|, filter max |d|, stacked max |d|)."""
+    args = msv_args(scanner, msv, staged)
+    err, exact = msv_compare(args)
+    chain = msv_chain_error(args)
+    f_args = msv_args(scanner, msv, staged, filter_mode=True)
+    f_err, filt = msv_compare(f_args, filter_mode=True)
+    require_geq(filt, exact, f"{label} MSV filter kernel vs MSV kernel")
+    s_err = 0.0
+    for fmode in (False, True):
+        emit, consts = scanner._stacked_pack((msv,), "filter" if fmode else "exact")
+        s_args = (emit, staged.tokens, staged.lengths, staged.tr_rows, consts)
+        got = msv_cuda.msv_stacked_scan_cuda(*s_args)
+        torch.cuda.synchronize()
+        s_err = max(s_err, require_equal([got], [msv_cuda.msv_stacked_scan_plain(*s_args)],
+                                         f"{label} stacked MSV kernel vs plain"))
+    return max(err, chain), f_err, s_err
+
+
+def cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
+    """The joins of MEM_JOINS and CLUSTER_JOINS (LENG 6977, 30181, 11165,
+    18170 and 19679: the MSV kernel's C-block clusters at C = 3, 13, 5, 8
+    and 9) through MSV, the MSV filter and the stacked kernel against their
+    plain versions on a ragged batch of WIDE_BATCH sequences up to WIDE_LEN
+    residues, bit for bit (msv_vs_plain), each case launched at its C (the
+    wrappers' cluster_launches); the stacked kernel over 100.hmm and all
+    five (one launch a C) == the single scans. Then the all-24 join twice
+    over (LENG 60362, past 38,912) through the MSV kernels' rows-in-memory
+    case the same way, mem_launches counting it."""
+    staged = ragged_wide_batch(scanner, rng)
+    hmms = cluster_profiles()
+    for hmm, c in zip(hmms, CLUSTER_SIZES):
+        msv = MSVProfile.from_profile(hmm)
+        lanes, per = msv_cuda.device_case(msv_cuda.round_up(msv.num_states, 8), 4, scanner.device)
+        require(msv_cuda.cluster_blocks(lanes) == c, f"{hmm.name[:40]}: the MSV case is "
+                f"{lanes} lanes, not a {c}-block cluster")
+        zero_launches()
+        errs = msv_vs_plain(scanner, msv, staged, hmm.name[:40])
+        got = cluster_launches()
+        require(all(set(got[name]) == {c} for name in MSV_WRAPPERS),
+                f"{hmm.name[:40]}: cluster launches {got}, expected C = {c} only")
+        for name, e in zip(MSV_WRAPPERS, errs):
+            errors[name + CLUSTER] = max(errors[name + CLUSTER], e)
+        print(f"MSV {c}-block cluster, {hmm.name[:40]} (M {msv.num_states}, {lanes} lanes x "
+              f"{per}): B={WIDE_BATCH} L<={WIDE_LEN} exact and chain max|d|={errs[0]}, filter "
+              f"max|d|={errs[1]} (>= exact), stacked max|d|={errs[2]}; cluster launches {got}",
+              flush=True)
+    profs = [profile("100")] + [MSVProfile.from_profile(h) for h in hmms]
+    zero_launches()
+    for mode, single in (("exact", scanner.scan), ("filter", scanner.scan_filter)):
+        res = scanner.scan_many(profs, staged, mode=mode)
+        for p in profs:
+            require(np.array_equal(res[p.name], single(p, staged).cpu().numpy()),
+                    f"stacked {mode} scan of {p.name[:40]} vs its single-profile kernel")
+    stacked = cluster_launches()["msv_stacked_scan"]
+    require(stacked == {c: 2 for c in sorted(CLUSTER_SIZES)},
+            f"stacked cluster launches {stacked}, expected one a C and mode")
+    print(f"stacked MSV kernel, 100.hmm and the five joins, both modes: == the single-profile "
+          f"kernels; stacked cluster launches by C {stacked}")
+
+    big = MSVProfile.from_profile(msv_mem_profile())
+    m_pad = msv_cuda.round_up(big.num_states, 8)
+    require(m_pad > msv_cuda.MAX_CLUSTER_STATES and
+            msv_cuda.device_case(m_pad, 4, scanner.device)[0] == msv_cuda.MEM_LANES,
+            f"M {big.num_states} is not the MSV rows-in-memory case")
+    zero_launches()
+    errs = msv_vs_plain(scanner, big, staged, f"M {big.num_states}")
+    got = launches()
+    require(all(got[name + MEM] > 0 for name in MSV_WRAPPERS),
+            f"M {big.num_states}: the MSV rows-in-memory case did not launch ({got})")
+    for name, e in zip(MSV_WRAPPERS, errs):
+        errors[name + MEM] = max(errors[name + MEM], e)
+    print(f"MSV rows in memory, the all-24 join twice (M {big.num_states}): B={WIDE_BATCH} "
+          f"L<={WIDE_LEN} exact and chain max|d|={errs[0]}, filter max|d|={errs[1]}, stacked "
+          f"max|d|={errs[2]}; launches {({n: got[n + MEM] for n in MSV_WRAPPERS})}", flush=True)
+
+
+def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
+    """Both joins of MEM_JOINS (LENG 6977 and 30181) through every p7
+    kernel's rows-in-memory case against its plain version on a ragged
+    batch of WIDE_BATCH sequences up to WIDE_LEN residues: eager, lazy
+    (replay counts included) and the Viterbi filter bit for bit, the filter
+    >= eager; Forward within FWD_TOL and log-space Forward within
+    LOG_FWD_TOL of plain, the row-saving Forward == Forward bit for bit,
+    eager and Forward carry chains == one call; the backward pass on the
+    kernel's own rows within COV_TOL of plain and the whole decode within
+    COV_TOL / TOT_TOL. Every p7 rows-in-memory case must have launched (the
+    MSV kernels' are cluster_kernels_vs_plain's)."""
+    staged = ragged_wide_batch(scanner, rng)
     hmms = mem_profiles()
     zero_launches()
     for hmm in hmms:
-        msv = MSVProfile.from_profile(hmm)
         p7 = P7Profile.from_profile(hmm)
-        require(msv_cuda.kernel_case(msv_cuda.round_up(msv.num_states, 8))[0] == msv_cuda.MEM_LANES
-                and p7_cuda.kernel_case(p7_cuda.default_m_pad(p7))[0] == p7_cuda.MEM_THREADS,
+        require(p7_cuda.kernel_case(p7_cuda.default_m_pad(p7))[0] == p7_cuda.MEM_THREADS,
                 f"{hmm.name} is not a rows-in-memory case")
-        args = msv_args(scanner, msv, staged)
-        err, exact = msv_compare(args)
-        chain = msv_chain_error(args)
-        f_args = msv_args(scanner, msv, staged, filter_mode=True)
-        f_err, filt = msv_compare(f_args, filter_mode=True)
-        require_geq(filt, exact, f"{hmm.name} MSV filter kernel vs MSV kernel")
-
         packs = p7_packs(p7, scanner.device)
         got, want = {}, {}
         for kind in ("eager", "lazy", "forward", "filter", "log", "save"):
@@ -1667,49 +1813,44 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         require(b_err <= COV_TOL and c_err <= COV_TOL and t_err <= TOT_TOL,
                 f"{hmm.name} posterior kernels vs plain: on the kernel's rows {b_err}, the "
                 f"decode {c_err}, totals {t_err}")
-        for name, e in (("msv_scan", max(err, chain)), ("msv_filter_scan", f_err),
-                        ("viterbi_scan", max(e_err, chains[0])), ("viterbi_lazy_scan", l_err),
+        for name, e in (("viterbi_scan", max(e_err, chains[0])), ("viterbi_lazy_scan", l_err),
                         ("viterbi_filter_scan", vf_err),
                         ("forward_prob_scan", max(f_err2, chains[1])),
                         ("forward_log_scan", g_err), ("forward_save_scan", max(s_err, t_err)),
                         ("backward_coverage_scan", max(b_err, c_err))):
             errors[name + MEM] = max(errors[name + MEM], e)
-        print(f"rows in memory {hmm.name[:40]} (M {msv.num_states}, "
+        print(f"rows in memory {hmm.name[:40]} (M {p7.num_states}, "
               f"{p7_cuda.chain_passes(p7_cuda.default_m_pad(p7))} chain passes): B={WIDE_BATCH} "
-              f"L<={WIDE_LEN} MSV max|d|={err} chain max|d|={chain}, filter max|d|={f_err} "
-              f"(>= exact); eager max|d|={e_err} chain {chains[0]}, lazy(k={packs['lazy'].lazy_k}) "
+              f"L<={WIDE_LEN} eager max|d|={e_err} chain {chains[0]}, lazy(k={packs['lazy'].lazy_k}) "
               f"max|d|={l_err} replays {int(got['lazy'][5].sum())}, filter(window="
               f"{packs['filter'].window}) max|d|={vf_err} (>= eager), Forward {f_err2:.3g} chain "
               f"{chains[1]}, log-space {g_err:.3g}, row-saving == Forward; backward on its rows "
               f"{b_err:.3g}, decode coverage {c_err:.3g} totals {t_err:.3g}", flush=True)
 
-    profs = [profile("100")] + [MSVProfile.from_profile(h) for h in hmms]
-    for mode, single in (("exact", scanner.scan), ("filter", scanner.scan_filter)):
-        res = scanner.scan_many(profs, staged, mode=mode)
-        for p in profs:
-            require(np.array_equal(res[p.name], single(p, staged).cpu().numpy()),
-                    f"stacked {mode} scan of {p.name[:40]} vs its single-profile kernel")
     got = launches()
-    missing = [name for name in WRAPPERS if got[name + MEM] == 0]
+    missing = [name for name in WRAPPERS if name not in MSV_WRAPPERS and got[name + MEM] == 0]
     require(not missing, f"rows-in-memory cases never launched: {missing}")
-    print(f"stacked MSV kernel, 100.hmm and both joins, both modes: == the single-profile "
-          f"kernels; rows-in-memory launches {({n: got[n + MEM] for n in WRAPPERS})}")
+    print(f"rows-in-memory launches {({n: got[n + MEM] for n in WRAPPERS})}")
 
 
 def mem_paths(tmp: pathlib.Path, rng) -> dict:
-    """The rows-in-memory cases on the main paths, launch counts zeroed
+    """The cases past 4864 states on the main paths, launch counts zeroed
     around each, on MEM_BATCH random rows of MEM_LEN residues with
     MEM_PLANTED sequences sampled from the three-profile join (LENG 6977) at
-    known rows: `scan --stage search --domains` (the MSV, Viterbi, Forward,
-    row-saving Forward and backward cases; every planted row a hit with its
-    envelope inside it), `scan --stage search --fast` (the MSV filter and
-    Viterbi filter cases; the plain search's hit rows), `sweep` over both
-    joins (the stacked case) and, on the planted rows, the entry points
+    known rows: `scan --stage search --domains` (MSV's 3-block cluster; the
+    Viterbi, Forward, row-saving Forward and backward rows-in-memory cases;
+    every planted row a hit with its envelope inside it), `scan --stage
+    search --fast` (the MSV filter's 3-block cluster and the Viterbi
+    filter's rows-in-memory case; the plain search's hit rows), `sweep` over
+    both joins and the all-24 join twice over (the stacked kernel's 3- and
+    13-block clusters and its rows-in-memory case), `scan` (MSV) and
+    MSVScanner.scan_filter with that join (LENG 60362: the MSV kernels'
+    rows-in-memory case) and, on the planted rows, the entry points
     viterbi_scores(lazy=False) (eager) and forward_scores(prob_space=False)
     (log-space)."""
     hmm_dir = tmp / "hmms_mem"
     hmm_dir.mkdir()
-    joins = mem_profiles()
+    joins = mem_profiles() + [msv_mem_profile()]
     for k, hmm in enumerate(joins):
         (hmm_dir / f"mem{k}.hmm").write_text(format_hmm(hmm))
     path = hmm_dir / "mem0.hmm"
@@ -1733,8 +1874,10 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     got, e2e, secs, records = run_cli(["scan", "--stage", "search", "--domains", "--hmm",
                                        str(path), "--fasta", str(fasta), "--device", DEVICE,
                                        "--out", str(out)])
-    for name in ("msv_scan", vit, "forward_prob_scan", "forward_save_scan",
-                 "backward_coverage_scan"):
+    require(got["msv_scan" + CLUSTER] > 0 and cluster_launches()["msv_scan"] == {3: 1},
+            f"the search --domains did not launch MSV's 3-block cluster ({cluster_launches()})")
+    counts["msv_scan" + CLUSTER] = got["msv_scan" + CLUSTER]
+    for name in (vit, "forward_prob_scan", "forward_save_scan", "backward_coverage_scan"):
         require(got[name + MEM] > 0, f"the search --domains did not launch {name}'s memory case")
         counts[name + MEM] = got[name + MEM]
     lines = out.read_text().splitlines()
@@ -1757,9 +1900,14 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     got, e2e, secs, _ = run_cli(["scan", "--stage", "search", "--fast", "--hmm", str(path),
                                  "--fasta", str(fasta), "--device", DEVICE, "--out",
                                  str(fast_out)])
-    for name in ("msv_filter_scan", "viterbi_filter_scan"):
-        require(got[name + MEM] > 0, f"the fast search did not launch {name}'s memory case")
-        counts[name + MEM] = got[name + MEM]
+    require(got["msv_filter_scan" + CLUSTER] > 0
+            and cluster_launches()["msv_filter_scan"] == {3: 1},
+            f"the fast search did not launch the MSV filter's 3-block cluster "
+            f"({cluster_launches()})")
+    counts["msv_filter_scan" + CLUSTER] = got["msv_filter_scan" + CLUSTER]
+    require(got["viterbi_filter_scan" + MEM] > 0,
+            "the fast search did not launch viterbi_filter_scan's memory case")
+    counts["viterbi_filter_scan" + MEM] = got["viterbi_filter_scan" + MEM]
     require(set(hit_rows(fast_out)) == {f"seq{r}" for r in hits},
             "the fast search's hits differ from the search's")
     print(f"main path rows in memory, search --fast: the search's {len(hits)} hits; "
@@ -1769,13 +1917,42 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     out = tmp / "mem_sweep.tsv"
     got, e2e, secs, _ = run_cli(["sweep", "--hmm-dir", str(hmm_dir), "--fasta", str(fasta),
                                  "--device", DEVICE, "--out", str(out)])
-    require(got["msv_stacked_scan" + MEM] > 0, "the sweep did not launch the stacked memory case")
+    stacked = cluster_launches()["msv_stacked_scan"]
+    require(got["msv_stacked_scan" + MEM] > 0 and stacked == {3: 1, 13: 1},
+            f"the sweep did not launch the stacked kernel's 3- and 13-block clusters and its "
+            f"memory case ({stacked}, {got})")
     counts["msv_stacked_scan" + MEM] = got["msv_stacked_scan" + MEM]
+    counts["msv_stacked_scan" + CLUSTER] = got["msv_stacked_scan" + CLUSTER]
     rows = [line.split("\t") for line in out.read_text().splitlines() if not line.startswith("#")]
-    require(len(rows) == 2 * MEM_BATCH and all(np.isfinite(float(r[3])) for r in rows),
+    require(len(rows) == len(joins) * MEM_BATCH and all(np.isfinite(float(r[3])) for r in rows),
             f"the sweep over the joins reported {len(rows)} rows or a non-finite score")
-    print(f"main path rows in memory, sweep over both joins: {len(rows)} rows; launches {got}")
-    print_seconds("main path rows in memory, sweep", secs, e2e)
+    print(f"main path past 4864 states, sweep over the three joins: {len(rows)} rows; stacked "
+          f"cluster launches {stacked}; launches {got}")
+    print_seconds("main path past 4864 states, sweep", secs, e2e)
+
+    big = hmm_dir / f"mem{len(joins) - 1}.hmm"
+    out = tmp / "mem_msv.tsv"
+    got, e2e, secs, _ = run_cli(["scan", "--hmm", str(big), "--fasta", str(fasta), "--device",
+                                 DEVICE, "--out", str(out)])
+    require(got["msv_scan" + MEM] == 1, f"scan past 38,912 states: launches {got}")
+    counts["msv_scan" + MEM] = got["msv_scan" + MEM]
+    rows = [line.split("\t") for line in out.read_text().splitlines()[1:]]
+    require(len(rows) == MEM_BATCH and all(np.isfinite(float(r[2])) for r in rows),
+            f"scan past 38,912 states reported {len(rows)} rows or a non-finite score")
+    print_seconds(f"main path past 38,912 states (M {joins[-1].model_length - 1}), scan", secs,
+                  e2e)
+    zero_launches()
+    big_msv = MSVProfile.from_profile(load_profile(big))
+    scanner = MSVScanner(device=DEVICE)
+    staged = scanner.stage(tokens, lengths)
+    filt = scanner.scan_filter(big_msv, staged)
+    got = launches()
+    require(got["msv_filter_scan" + MEM] == 1, f"scan_filter past 38,912 states: launches {got}")
+    counts["msv_filter_scan" + MEM] = got["msv_filter_scan" + MEM]
+    require_geq(filt, scanner.scan(big_msv, staged), "MSVScanner.scan_filter past 38,912 "
+                "states vs scan")
+    print(f"main path past 38,912 states: `scan` reported {len(rows)} rows; "
+          f"MSVScanner.scan_filter >= scan on every row; launches {got}")
 
     l_max = int(lengths[planted].max())
     zero_launches()
@@ -1796,50 +1973,72 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     return counts
 
 
-def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
-    """Each rows-in-memory case once, after a warm-up launch, against the
-    three-profile join (LENG 6977) at MEM_TIME_LEN residues: MSV and the MSV
-    filter at WIDE_MSV_BATCH rows, the stacked kernel over both joins there
-    (two launches), the p7 kernels at SURVIVOR_BATCH rows and the posterior
-    pair at SURVIVOR_BATCH x 1024; each plain version once, held against the
-    kernel."""
-    hmms = mem_profiles()
-    msv = MSVProfile.from_profile(hmms[0])
-    p7 = P7Profile.from_profile(hmms[0])
+def msv_timings_past(scanner, msvs: list, staged, suffix: str, reps: int, errors: dict,
+                     work: dict) -> dict:
+    """MSV and the MSV filter against ``msvs[0]`` and the stacked kernel over
+    all of ``msvs`` (one launch each) on ``staged``, best of ``reps`` after a
+    warm-up, each plain version once, held against the kernel; the rows
+    ``<kernel><suffix>``."""
     out = {}
-    tokens = rng.integers(0, 20, size=(WIDE_MSV_BATCH, MEM_TIME_LEN)).astype(np.int8)
-    staged = scanner.stage(tokens, np.full(WIDE_MSV_BATCH, MEM_TIME_LEN, dtype=np.int32))
-    cells = staged.total_residues * msv.num_states
+    rows = staged.num_sequences
+    cells = staged.total_residues * msvs[0].num_states
     for name, fmode in (("msv_scan", False), ("msv_filter_scan", True)):
-        args = msv_args(scanner, msv, staged, filter_mode=fmode)
+        args = msv_args(scanner, msvs[0], staged, filter_mode=fmode)
         cuda_fn, plain_fn, what = MSV_FNS[fmode]
-        ms = best_ms(lambda: cuda_fn(*args), reps=1)
+        ms = best_ms(lambda: cuda_fn(*args), reps=reps)
         got = cuda_fn(*args)
         plain_ms, want = once_ms(lambda: plain_fn(*args))
-        err = require_equal(got, want, f"memory-case {what} kernel vs plain at the timed shape")
-        errors[name + MEM] = max(errors[name + MEM], err)
-        out[name + MEM] = (ms, plain_ms)
-        work[name + MEM] = (OPS_PER_CELL["msv"](0) * cells, nbytes(*args) + nbytes(*want))
-        print(f"{name}{MEM}: {cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, after a warm-up, "
-              f"{WIDE_MSV_BATCH} x "
-              f"{MEM_TIME_LEN} x M={msv.num_states}); plain version {plain_ms:.3f} ms (once)",
-              flush=True)
-    both = [MSVProfile.from_profile(h) for h in hmms]
-    packs = [scanner._stacked_pack((p,), "exact") for p in both]
+        err = require_equal(got, want, f"{what}{suffix} kernel vs plain at the timed shape")
+        errors[name + suffix] = max(errors[name + suffix], err)
+        out[name + suffix] = (ms, plain_ms)
+        work[name + suffix] = (OPS_PER_CELL["msv"](0) * cells, nbytes(*args) + nbytes(*want))
+        print(f"{name}{suffix}: {cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of {reps}, "
+              f"{rows} x {MEM_TIME_LEN} x M={msvs[0].num_states}; plan "
+              f"{msv_plan_text(args[0], rows)}); plain version {plain_ms:.3f} ms (once); "
+              f"{versus_parent(name + suffix, ms, work)}", flush=True)
+    packs = [scanner._stacked_pack((p,), "exact") for p in msvs]
     args = (staged.tokens, staged.lengths, staged.tr_rows)
-    ms = best_ms(lambda: [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs], reps=1)
+    ms = best_ms(lambda: [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs],
+                 reps=reps)
     got = [msv_cuda.msv_stacked_scan_cuda(e, *args, c) for e, c in packs]
     plain_ms, want = once_ms(lambda: [msv_cuda.msv_stacked_scan_plain(e, *args, c)
                                       for e, c in packs])
-    err = require_equal(got, want, "memory-case stacked kernel vs plain at the timed shape")
-    both_cells = staged.total_residues * sum(p.num_states for p in both)
-    errors["msv_stacked_scan" + MEM] = max(errors["msv_stacked_scan" + MEM], err)
-    out["msv_stacked_scan" + MEM] = (ms, plain_ms)
-    work["msv_stacked_scan" + MEM] = (OPS_PER_CELL["msv"](0) * both_cells,
-                                      nbytes(*args, *(x for pk in packs for x in pk), *got))
-    print(f"msv_stacked_scan{MEM}: {both_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, once, "
-          f"{WIDE_MSV_BATCH} x {MEM_TIME_LEN} x M {'+'.join(str(p.num_states) for p in both)}, "
-          f"{len(packs)} launches); plain version {plain_ms:.3f} ms (once)", flush=True)
+    err = require_equal(got, want, f"stacked{suffix} kernel vs plain at the timed shape")
+    all_cells = staged.total_residues * sum(p.num_states for p in msvs)
+    name = "msv_stacked_scan" + suffix
+    errors[name] = max(errors[name], err)
+    out[name] = (ms, plain_ms)
+    work[name] = (OPS_PER_CELL["msv"](0) * all_cells,
+                  nbytes(*args, *(x for pk in packs for x in pk), *got))
+    print(f"{name}: {all_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of {reps}, {rows} x "
+          f"{MEM_TIME_LEN} x M {'+'.join(str(p.num_states) for p in msvs)}, {len(packs)} "
+          f"launches); plain version {plain_ms:.3f} ms (once); {versus_parent(name, ms, work)}",
+          flush=True)
+    return out
+
+
+def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
+    """Each case past 4864 states at MEM_TIME_LEN residues: the MSV
+    kernels' C-block clusters (best of 3) against the three-profile join
+    (LENG 6977, C = 3) at WIDE_MSV_BATCH rows, MSV and the MSV filter, and
+    the stacked kernel over both joins of MEM_JOINS there (C = 3 and 13, two
+    launches); the MSV kernels' rows-in-memory case once, after a warm-up,
+    against the all-24 join twice over (LENG 60362) at MSV_MEM_BATCH rows,
+    the stacked kernel over it alone; the p7 rows-in-memory cases once,
+    after a warm-up, against the three-profile join at SURVIVOR_BATCH rows
+    and the posterior pair at SURVIVOR_BATCH x 1024; each plain version
+    once, held against the kernel; the parent's time beside each
+    (PARENT_WIDE_MS)."""
+    hmms = mem_profiles()
+    p7 = P7Profile.from_profile(hmms[0])
+    tokens = rng.integers(0, 20, size=(WIDE_MSV_BATCH, MEM_TIME_LEN)).astype(np.int8)
+    staged = scanner.stage(tokens, np.full(WIDE_MSV_BATCH, MEM_TIME_LEN, dtype=np.int32))
+    out = msv_timings_past(scanner, [MSVProfile.from_profile(h) for h in hmms], staged, CLUSTER,
+                           3, errors, work)
+    past = scanner.stage(tokens[:MSV_MEM_BATCH], np.full(MSV_MEM_BATCH, MEM_TIME_LEN,
+                                                         dtype=np.int32))
+    out.update(msv_timings_past(scanner, [MSVProfile.from_profile(msv_mem_profile())],
+                                past, MEM, 1, errors, work))
 
     few = scanner.stage(tokens[:SURVIVOR_BATCH],
                         np.full(SURVIVOR_BATCH, MEM_TIME_LEN, dtype=np.int32))
@@ -1866,7 +2065,8 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
         print(f"{name}{MEM}: {few_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, once, "
               f"{SURVIVOR_BATCH} x {MEM_TIME_LEN} x M={p7.num_states}; "
               f"{plan_text(kind, pack, SURVIVOR_BATCH)}); plain version {plain_ms:.3f} ms "
-              f"(once), kernel vs plain max|d|={err:.3g}", flush=True)
+              f"(once), kernel vs plain max|d|={err:.3g}; {versus_parent(name + MEM, ms, work)}",
+              flush=True)
 
     post = scanner.stage(tokens[:SURVIVOR_BATCH, :POST_TIME_LEN],
                          np.full(SURVIVOR_BATCH, POST_TIME_LEN, dtype=np.int32))
@@ -1897,8 +2097,9 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
     print(f"posterior{MEM}: the row-saving Forward {save_ms:.3f} ms, the backward coverage pass "
           f"{bwd_ms:.3f} ms (each once, {SURVIVOR_BATCH} x {POST_TIME_LEN} x M={p7.num_states}; "
           f"{plan_text('backward', fpack, SURVIVOR_BATCH)}); plain versions "
-          f"{plain_save_ms:.3f} + {plain_bwd_ms:.3f} ms (once); coverage max|d|={c_err:.3g}",
-          flush=True)
+          f"{plain_save_ms:.3f} + {plain_bwd_ms:.3f} ms (once); coverage max|d|={c_err:.3g}; "
+          f"row-saving {versus_parent('forward_save_scan' + MEM, save_ms, work)}; backward "
+          f"{versus_parent('backward_coverage_scan' + MEM, bwd_ms, work)}", flush=True)
     return out
 
 
@@ -3501,9 +3702,10 @@ def main() -> int:
         p7_kernels_vs_oracle(scanner, rng, errors)
         new_kernels_vs_oracle(scanner, rng, errors)
 
-    with Phase("8. profiles wider than 2432 states: every kernel's wide and rows-in-memory "
-               "cases vs plain"):
+    with Phase("8. profiles wider than 2432 states: every kernel's wide, MSV cluster and "
+               "rows-in-memory cases vs plain"):
         wide_kernels_vs_plain(scanner, rng, errors)
+        cluster_kernels_vs_plain(scanner, rng, errors)
         mem_kernels_vs_plain(scanner, rng, errors)
 
     # phase 11 reads phase 9's database and reports

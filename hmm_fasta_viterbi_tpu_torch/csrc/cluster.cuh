@@ -1,6 +1,6 @@
-// Thread-block cluster primitives (sm_90) shared by the cluster pairs of
-// the MSV kernel (msv_kernel.cu) and of the Viterbi template (p7_blocked.cuh,
-// p7_viterbi.cuh): the block's place in its cluster, the cluster's barrier,
+// Thread-block cluster primitives (sm_90) shared by the C-block clusters of
+// the MSV kernel (msv_kernel.cu) and the cluster pairs of the blocked p7
+// kernels (p7_blocked.cuh): the block's place in its cluster, the cluster's barrier,
 // addresses in another block's shared memory (distributed shared memory,
 // mapa), and mbarriers whose phases complete when asynchronous stores from
 // another block (st.async) have landed. A st.async signals only its own
@@ -22,6 +22,13 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 __device__ __forceinline__ unsigned cluster_rank() {
   unsigned r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// The blocks of this block's cluster.
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
   return r;
 }
 

@@ -83,42 +83,48 @@
 //    grid of one block an SM and profile: a block stages its table once and
 //    its warps walk the batch with a stride of gridDim.x * WARPS sequences
 //    (a warp that finishes a short sequence takes the next one).
-//  * Past 2432 states (up to 64 * 76 = 4864, LANES = 64) one sequence is
-//    followed by a pair of warps, one in each block of a 2-block thread-block
-//    cluster (a cluster launch, cudaLaunchKernelEx). The f32 table of 4864
-//    states (389 KB) is larger than an SM's shared memory, but each half is
-//    not: block r of the cluster stages half r of it, 20 x 32 * PER entries
-//    (194,560 bytes at PER = 76, the normal-width case's table), once a
-//    block, and its warp w follows states 32 * PER * r .. 32 * PER * (r + 1)
-//    - 1 of its sequence with the normal-width step; the two blocks' warps w
-//    pair up and walk the batch with a persistent stride (a grid of as many
-//    clusters as the card holds at once, cudaOccupancyMaxActiveClusters).
-//    Two things cross the pair every step, through distributed shared
-//    memory: block 0's last state, which block 1's first state takes at the
-//    next step (the j-1 shift), and both halves' E. One lane of each warp
-//    (block 0's lane 31, which holds that last state, and block 1's lane 0,
-//    which takes it) stores its E and its last state into the partner
-//    warp's slot with one asynchronous store (st.async at the address mapa
-//    gives) that completes 8 bytes of the transaction of the partner's
-//    mbarrier, then arrives on its own barrier expecting the partner's 8
-//    bytes, waits on it (acquire at cluster scope) and reads what the
-//    partner stored; the warp takes the max of both keys from it. (A store
-//    and mbarrier.arrive.release.cluster instead, measured on an H100: 9.8
-//    ms against 6.8 at 2048 x 3500 x 4770, the release fencing the lane's
-//    memory operations every step.) Slots and barriers go by step parity: a
-//    warp is at most one
-//    message ahead of its partner, since each needs the other's message of
-//    the step before. No block barrier couples the pairs, so the warps of a
-//    block still walk sequences of different lengths apart.
-//  * Past 4864 states (the rows-in-memory case, LANES = 1024, no width cap)
-//    one block of 1024 threads follows one sequence and keeps the M rows of
+//  * Past 2432 states (up to 16 * 2432 = 38,912) one sequence is followed
+//    by C warps, one in each block of a C-block thread-block cluster (a
+//    cluster launch, cudaLaunchKernelEx; 2 <= C <= 16, LANES = 32 * C, C =
+//    ceil(M_pad / 2432), the kernel reads it from %cluster_nctarank, so one
+//    compiled case of PER serves every C). The f32 table of C * 2432 states
+//    is larger than an SM's shared memory, but a C-th of it is not: block r
+//    of the cluster stages slice r, 20 x 32 * PER entries (194,560 bytes at
+//    PER = 76, the normal-width case's table), once a block, and its warp w
+//    follows states 32 * PER * r .. 32 * PER * (r + 1) - 1 of its sequence
+//    with the normal-width step; the C blocks' warps w walk the batch
+//    together with a persistent stride (a grid of as many clusters as the
+//    card holds at once, cudaOccupancyMaxActiveClusters). Two things cross
+//    the cluster every step, through distributed shared memory: block r's
+//    last state, which block r + 1's first state takes at the next step (the
+//    j-1 shift), and every block's E. Lane 31 of a warp, which holds that
+//    last state, stores (E key, last state) into the warp w of rank r + 1,
+//    and lane p < C of it stores the E key into rank p's (p other than r and
+//    r + 1), each with one asynchronous store (st.async at the address mapa
+//    gives) that completes its bytes of the transaction of the receiver's
+//    mbarrier; lane 0 then arrives on its own barrier expecting the C - 1
+//    messages (4 bytes a key, 4 more for the halo when r > 0), the warp waits
+//    on it (acquire at cluster scope) and takes the max of its own key and
+//    the C - 1 it received (one redux.sync: an integer max, the same in
+//    every block whatever the order). (A store and
+//    mbarrier.arrive.release.cluster instead, measured on an H100 at C = 2:
+//    9.8 ms against 6.8 at 2048 x 3500 x 4770, the release fencing the
+//    lane's memory operations every step.) Slots and barriers go by step
+//    parity, a slot a sending rank: a warp is at most one message ahead of
+//    any other of its cluster, since each needs every other's message of the
+//    step before. No block barrier couples the warps of a block, so they
+//    still walk sequences of different lengths apart.
+//  * Past 38,912 states (the rows-in-memory case, LANES = 1024, no width
+//    cap) one block of 1024 threads follows one sequence and keeps the M rows of
 //    the last step and of this one in two scratch rows of global memory a
 //    block, which the wrapper allocates (they stay in L2 while they fit),
 //    with a persistent grid over the batch; thread t handles the states t,
 //    t + 1024, ... (coalesced). M_j reads only M_{j-1} of the last step, so
 //    one barrier a step orders everything: E's block max, whose warp values
 //    go through a parity buffer. The table rows are read from L2. It aims at
-//    being right, not fast: the same float32 operations.
+//    being right, not fast: the same float32 operations. The launch plan
+//    also takes it for a width whose cluster the card cannot hold
+//    (ops/msv_cuda.py::device_plan).
 //  * The profile of a block is blockIdx.y: it reads its own table and
 //    constants and writes row y of scores [P, B]. P = 1 is the single scan.
 //  * Float32 operations run in the order of ops/recurrence.py::msv_step
@@ -130,6 +136,7 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "cluster.cuh"
@@ -137,7 +144,8 @@
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kClusterWarps = 16;  // the wide case's block (512 threads), a warp a half-sequence
+constexpr int kClusterWarps = 16;  // the cluster case's block (512 threads), a warp a slice of a sequence
+constexpr int kMaxCluster = 16;    // blocks a cluster (past 8 a non-portable size)
 constexpr int kMemLanes = 1024;    // the rows-in-memory case: one block a sequence
 
 __device__ __forceinline__ float f32_neg_inf() { return -__int_as_float(0x7f800000); }
@@ -174,17 +182,15 @@ __device__ __forceinline__ int warp_max_key(float v) {
 
 __device__ __forceinline__ float key_float(int key) { return __int_as_float(order_key(key)); }
 
-// -- the wide case's cluster pair (LANES = 64) ----------------------------------
+// -- the C-block cluster (LANES = 32 * C) ------------------------------------------
 
-// What a warp and its partner warp in the other block of the cluster
-// exchange every step, by step parity: the mbarrier that the partner's
-// store completes and the (E key, last state) it stores (cluster.cuh).
-// Both blocks lay these out alike, so a warp's own link mapped to the
-// partner's rank is the partner's.
-struct Link {
-  unsigned long long bar[2];
-  int2 slot[2];
-};
+// Bytes of what a warp exchanges with the warps of the same index in the
+// cluster's other C - 1 blocks every step: two mbarriers (by step parity)
+// that the others' stores complete, then by step parity C - 1 slots of an
+// (E key, last state) pair, one a sending rank p in rank order (slot p - 1
+// for p above the receiver's rank). Every block lays these out alike, so a
+// warp's own link mapped to another rank is that rank's.
+__host__ __device__ constexpr int link_bytes(int c) { return 16 + 16 * (c - 1); }
 
 struct MsvArgs {
   const void* emit;         // [P, 20, m_pad]: f32, or bf16 bits
@@ -203,18 +209,17 @@ struct MsvArgs {
 };
 
 // Dynamic shared memory of a block of `warps` warps, in bytes: the f32
-// table of 32 * PER states a lane row (LANES = 32: the whole table; 64: the
-// block's half), and at LANES = 64 each warp's link.
+// table of 32 * PER states a lane row (LANES = 32: the whole table; 32 * C:
+// the block's slice), and in a cluster each warp's link.
 size_t msv_smem_bytes(int lanes, int per, int warps) {
   return lanes == 32 ? sizeof(float) * 20 * 32 * per
-                     : sizeof(float) * 20 * 32 * per + static_cast<size_t>(warps) * sizeof(Link);
+                     : sizeof(float) * 20 * 32 * per +
+                           static_cast<size_t>(warps) * link_bytes(lanes / 32);
 }
 
-template <int PER, int LANES, typename T, int WARPS>
+template <int PER, bool CLUSTER, typename T, int WARPS>
 __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
   static_assert(PER % 8 == 4, "PER = 8q + 4 keeps the table reads conflict-free");
-  static_assert(LANES == 32 || LANES == 64, "one warp a sequence, or a warp a half in a pair");
-  constexpr bool kPair = LANES == 64;
   constexpr int kRow = 32 * PER;  // a warp's states: the shared row length
   constexpr int kGroups = PER / 4;
   const float neg_inf = f32_neg_inf();
@@ -222,66 +227,78 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
   const int m_pad = a.m_pad;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  // the pair: the half of the states (and of the table) this block follows
-  const int half = kPair ? static_cast<int>(cluster_rank()) : 0;
-  const int j0 = (half * 32 + lane) * PER;
+  // the cluster: the slice of the states (and of the table) this block
+  // follows, and the cluster's blocks
+  const int rank = CLUSTER ? static_cast<int>(cluster_rank()) : 0;
+  const int nblk = CLUSTER ? static_cast<int>(cluster_size()) : 1;
+  const int j0 = (rank * 32 + lane) * PER;
   const T* my_emit = static_cast<const T*>(a.emit) + static_cast<size_t>(prof) * 20 * m_pad;
 
   extern __shared__ float4 smem4[];
   float* table = reinterpret_cast<float*>(smem4);
   // widened to f32 here, once a block (exact for bf16: the bits become the
-  // high half), so that the step reads f32 in both modes; the pair's block
-  // stages its half of the columns
+  // high half), so that the step reads f32 in both modes; a cluster's block
+  // stages its slice of the columns
   for (int i = threadIdx.x; i < 20 * kRow; i += blockDim.x) {
     const int r = i / kRow;
-    const int c = half * kRow + i - r * kRow;
+    const int c = rank * kRow + i - r * kRow;
     table[i] = c < m_pad ? Entries<T>::at(my_emit + static_cast<size_t>(r) * m_pad, c) : neg_inf;
   }
-  [[maybe_unused]] Link* link = reinterpret_cast<Link*>(table + 20 * kRow) + warp;
-  [[maybe_unused]] unsigned peer_slot = 0, peer_bar = 0;
-  if constexpr (kPair) {
+  // the warp's link (link_bytes): its barriers, then its slots by parity
+  [[maybe_unused]] unsigned char* link =
+      reinterpret_cast<unsigned char*>(table + 20 * kRow) + warp * link_bytes(nblk);
+  [[maybe_unused]] unsigned long long* bars = reinterpret_cast<unsigned long long*>(link);
+  [[maybe_unused]] const int2* slots = reinterpret_cast<const int2*>(link + 16);
+  // this lane's message a step: 2, (E key, last state) from lane 31 to rank
+  // + 1; 1, the E key from lane p to rank p (p < C, not rank or rank + 1);
+  // 0, none; into this block's slot of the receiver's link
+  [[maybe_unused]] int msg = 0;
+  [[maybe_unused]] unsigned dst_slot = 0, dst_bar = 0;
+  if constexpr (CLUSTER) {
     if (lane == 0) {
-      mbar_init(&link->bar[0]);
-      mbar_init(&link->bar[1]);
+      mbar_init(&bars[0]);
+      mbar_init(&bars[1]);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    peer_slot = peer_addr(&link->slot[0], half ^ 1);
-    peer_bar = peer_addr(&link->bar[0], half ^ 1);
+    const int dest = lane == 31 ? rank + 1 : lane;
+    msg = lane == 31 ? (dest < nblk ? 2 : 0) : (dest < nblk && dest != rank && dest != rank + 1);
+    if (msg != 0) {
+      dst_slot = peer_addr(slots + (rank > dest ? rank - 1 : rank), dest);
+      dst_bar = peer_addr(bars, dest);
+    }
   }
   __syncthreads();
-  // the partner's barriers exist before anyone arrives on them
-  if constexpr (kPair) cluster_sync();
+  // every block's barriers exist before anyone arrives on them
+  if constexpr (CLUSTER) cluster_sync();
   const float tr_b_mk = a.tr_consts[3 * prof];
   const float tr_e_c = a.tr_consts[3 * prof + 1];
   const float tr_e_j = a.tr_consts[3 * prof + 2];
   const int b_pad = a.b_pad;
   const float* my_cols = table + lane * PER;
-  // the pair's link lane (block 0's lane 31 holds the half's last state,
-  // block 1's lane 0 takes it), the step parity and each barrier's phase:
-  // both run on over every sequence the warp follows
-  [[maybe_unused]] const int link_lane = half == 0 ? 31 : 0;
+  // the step parity and each barrier's phase: both run on over every
+  // sequence the warp follows
   [[maybe_unused]] int par = 0;
   [[maybe_unused]] unsigned phases = 0;
 
   // the block's sequences at a time walk the batch: once for a grid that
-  // covers it, a stride at a time for a persistent one; the pair's blocks
-  // (a cluster, gridDim.x / 2 of them a profile) follow the same sequences
-  const int seqs = kPair ? WARPS : blockDim.x / 32;
-  const int first = kPair ? static_cast<int>(cluster_id()) : static_cast<int>(blockIdx.x);
-  const int units = kPair ? static_cast<int>(cluster_count()) : static_cast<int>(gridDim.x);
+  // covers it, a stride at a time for a persistent one; a cluster's blocks
+  // (gridDim.x / C clusters a profile) follow the same sequences
+  const int seqs = CLUSTER ? WARPS : blockDim.x / 32;
+  const int first = CLUSTER ? static_cast<int>(cluster_id()) : static_cast<int>(blockIdx.x);
+  const int units = CLUSTER ? static_cast<int>(cluster_count()) : static_cast<int>(gridDim.x);
   for (int seq = first * seqs + warp; seq < b_pad; seq += units * seqs) {
     const float tr_loop = a.tr_rows[seq];
     const float tr_move = a.tr_rows[b_pad + seq];
     float m[PER];
     float st_j, st_c, st_n, st_b;
-    // the pair: block 1's first state takes block 0's last one, which the
-    // carry holds at first
+    // a cluster: block r's first state takes block r - 1's last one, which
+    // the carry holds at first
     float bnd = neg_inf;
     if (a.m_in != nullptr) {
       const float* m_row_in = a.m_in + static_cast<size_t>(seq) * m_pad;
 #pragma unroll
       for (int k = 0; k < PER; ++k) m[k] = j0 + k < m_pad ? m_row_in[j0 + k] : neg_inf;
-      if constexpr (kPair) {
+      if constexpr (CLUSTER) {
         if (j0 > 0 && j0 - 1 < m_pad) bnd = m_row_in[j0 - 1];
       }
       st_j = a.s_in[seq];
@@ -312,7 +329,7 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
         // the next step's row offset, now
         const int next = __shfl_sync(kFullMask, mine, i + 1);  // lane 32 is lane 0
         float prev = __shfl_up_sync(kFullMask, m[PER - 1], 1);
-        if (lane == 0) prev = half == 0 ? neg_inf : bnd;
+        if (lane == 0) prev = rank == 0 ? neg_inf : bnd;
 
         // in place, highest j first, so m[k - 1] still holds the old row
         // E in two chains: one max a cell, one to join them
@@ -331,21 +348,25 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
           e0 = fmaxf(e0, m[4 * g]);
         }
         int key = warp_max_key(fmaxf(e0, e1));
-        if constexpr (kPair) {
-          // this half's E and last state to the partner, the partner's back
-          if (lane == link_lane) {
-            st_async2(peer_slot + 8u * par, key, __float_as_int(m[PER - 1]),
-                      peer_bar + 8u * par);
-            const unsigned bar = smem_addr(&link->bar[par]);
-            mbar_expect(bar, 8);
-            mbar_wait(bar, (phases >> par) & 1u);
-            const int2 got = link->slot[par];  // after the acquire (a memory clobber)
-            key = max(key, got.x);
-            bnd = __int_as_float(got.y);
+        if constexpr (CLUSTER) {
+          // this block's E (and its last state, to rank + 1) to the others,
+          // theirs back
+          const unsigned off = 8u * (nblk - 1) * par;
+          if (msg == 2) {
+            st_async2(dst_slot + off, key, __float_as_int(m[PER - 1]), dst_bar + 8u * par);
+          } else if (msg == 1) {
+            st_async(dst_slot + off, __int_as_float(key), dst_bar + 8u * par);
           }
+          const unsigned bar = smem_addr(&bars[par]);
+          if (lane == 0) mbar_expect(bar, 4 * (nblk - 1) + (rank > 0 ? 4 : 0));
+          mbar_wait(bar, (phases >> par) & 1u);
+          // after the acquire (a memory clobber)
+          const int2* in = slots + (nblk - 1) * par;
+          const int got = lane < nblk - 1 ? in[lane].x : INT_MIN;
+          if (lane == 0 && rank > 0) bnd = __int_as_float(in[rank - 1].y);
+          key = max(key, __reduce_max_sync(kFullMask, got));
           phases ^= 1u << par;
           par ^= 1;
-          key = __shfl_sync(kFullMask, key, link_lane);
         }
         row = my_cols + next;
         const float e_st = key_float(key);
@@ -363,7 +384,7 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
         if (j0 + k < m_pad) m_row_out[j0 + k] = m[k];
       }
     }
-    if (half == 0 && lane == 0) {
+    if (rank == 0 && lane == 0) {
       if (a.s_out != nullptr) {
         a.s_out[seq] = st_j;
         a.s_out[b_pad + seq] = st_c;
@@ -373,8 +394,9 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
       a.scores[static_cast<size_t>(prof) * b_pad + seq] = st_c + tr_move;
     }
   }
-  // no block leaves while its partner may still reach its shared memory
-  if constexpr (kPair) cluster_sync();
+  // no block leaves while another of its cluster may still reach its shared
+  // memory
+  if constexpr (CLUSTER) cluster_sync();
 }
 
 // The rows-in-memory case: msv_kernel's step over two scratch rows a block,
@@ -454,52 +476,59 @@ using KernelFn = void (*)(MsvArgs);
 
 // The register cases' blocks: each is a kernel of its own, compiled under
 // __launch_bounds__(32 * warps, 1) (ops/msv_cuda.py::WARP_CHOICES; the
-// cluster pair's block, kClusterWarps, is CLUSTER_WARPS).
-template <int PER, int LANES, typename T>
+// cluster case's block, kClusterWarps, is CLUSTER_WARPS).
+template <int PER, bool CLUSTER, typename T>
 KernelFn kernel_of(int warps) {
-  if constexpr (LANES == 64) {
-    return warps == kClusterWarps ? msv_kernel<PER, 64, T, kClusterWarps> : nullptr;
+  if constexpr (CLUSTER) {
+    return warps == kClusterWarps ? msv_kernel<PER, true, T, kClusterWarps> : nullptr;
   } else {
     switch (warps) {
-      case 8: return msv_kernel<PER, 32, T, 8>;
-      case 12: return msv_kernel<PER, 32, T, 12>;
-      case 16: return msv_kernel<PER, 32, T, 16>;
-      case 20: return msv_kernel<PER, 32, T, 20>;
-      case 24: return msv_kernel<PER, 32, T, 24>;
-      case 28: return msv_kernel<PER, 32, T, 28>;
-      case 32: return msv_kernel<PER, 32, T, 32>;
+      case 8: return msv_kernel<PER, false, T, 8>;
+      case 12: return msv_kernel<PER, false, T, 12>;
+      case 16: return msv_kernel<PER, false, T, 16>;
+      case 20: return msv_kernel<PER, false, T, 20>;
+      case 24: return msv_kernel<PER, false, T, 24>;
+      case 28: return msv_kernel<PER, false, T, 28>;
+      case 32: return msv_kernel<PER, false, T, 32>;
       default: return nullptr;
     }
   }
 }
 
-// The kernel of a register case (32 or 64 lanes), or null for none.
+// The blocks of a cluster of the register case of `lanes` lanes (32 * C),
+// or 0 for a lane count that names none (32: no cluster).
+int cluster_of(int lanes) {
+  return lanes % 32 == 0 && lanes >= 64 && lanes <= 32 * kMaxCluster ? lanes / 32 : 0;
+}
+
+// The kernel of a register case (32 lanes, or 32 * C in a cluster), or null
+// for none.
 KernelFn find_kernel(int lanes, int per, int warps, int bf16) {
-#define MSV_CASE(P, L) \
+#define MSV_CASE(P, C) \
   case P:              \
-    return bf16 ? kernel_of<P, L, uint16_t>(warps) : kernel_of<P, L, float>(warps);
+    return bf16 ? kernel_of<P, C, uint16_t>(warps) : kernel_of<P, C, float>(warps);
   if (lanes == 32) {
     switch (per) {
-      MSV_CASE(4, 32)
-      MSV_CASE(12, 32)
-      MSV_CASE(20, 32)
-      MSV_CASE(28, 32)
-      MSV_CASE(36, 32)
-      MSV_CASE(44, 32)
-      MSV_CASE(52, 32)
-      MSV_CASE(60, 32)
-      MSV_CASE(68, 32)
-      MSV_CASE(76, 32)
+      MSV_CASE(4, false)
+      MSV_CASE(12, false)
+      MSV_CASE(20, false)
+      MSV_CASE(28, false)
+      MSV_CASE(36, false)
+      MSV_CASE(44, false)
+      MSV_CASE(52, false)
+      MSV_CASE(60, false)
+      MSV_CASE(68, false)
+      MSV_CASE(76, false)
       default:
         break;
     }
-  } else if (lanes == 64) {
+  } else if (cluster_of(lanes) != 0) {
     switch (per) {
-      MSV_CASE(44, 64)
-      MSV_CASE(52, 64)
-      MSV_CASE(60, 64)
-      MSV_CASE(68, 64)
-      MSV_CASE(76, 64)
+      MSV_CASE(44, true)
+      MSV_CASE(52, true)
+      MSV_CASE(60, true)
+      MSV_CASE(68, true)
+      MSV_CASE(76, true)
       default:
         break;
     }
@@ -508,17 +537,17 @@ KernelFn find_kernel(int lanes, int per, int warps, int bf16) {
 #undef MSV_CASE
 }
 
-// The launch of a cluster pair's kernel: `grid` blocks a profile (even), 2
-// a cluster along x.
-cudaLaunchConfig_t pair_config(int grid, int num_p, int warps, size_t smem, cudaStream_t stream,
-                               cudaLaunchAttribute* attr) {
+// The launch of a cluster case's kernel: `grid` blocks a profile (a
+// multiple of c), c a cluster along x.
+cudaLaunchConfig_t cluster_config(int grid, int num_p, int c, int warps, size_t smem,
+                                  cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid, num_p);
   cfg.blockDim = dim3(warps * 32);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.x = c;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -526,25 +555,38 @@ cudaLaunchConfig_t pair_config(int grid, int num_p, int warps, size_t smem, cuda
   return cfg;
 }
 
+// The kernel's shared-memory limit and, for a cluster past 8 blocks, its
+// leave to take a non-portable cluster size.
+cudaError_t prepare(KernelFn fn, size_t smem, int c) {
+  const void* kernel = reinterpret_cast<const void*>(fn);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess && c > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return err;
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. `lanes` (32: one warp a sequence;
-// 64: a pair of warps, one in each block of a 2-block cluster; kMemLanes:
-// the rows-in-memory case) and `per`, the number of M states each lane
-// holds (tiles of kMemLanes states in the last case), name the kernel case:
-// per 4, 12, ..., 76 at 32 lanes and 44, ..., 76 at 64 (the Python
-// wrapper's KERNEL_PER, WIDE_PER), any at kMemLanes, with lanes * per >=
-// m_pad (a multiple of 8 at 64 lanes, the packers' convention). `warps`
+// 32 * C, 2 <= C <= 16: a warp in each block of a C-block cluster;
+// kMemLanes: the rows-in-memory case) and `per`, the number of M states each
+// lane holds (tiles of kMemLanes states in the last case), name the kernel
+// case: per 4, 12, ..., 76 at 32 lanes and 44, ..., 76 in a cluster (the
+// Python wrapper's KERNEL_PER, WIDE_PER), any at kMemLanes, with lanes * per
+// >= m_pad (a multiple of 8 in a cluster, the packers' convention). `warps`
 // warps a block and `grid` blocks a profile are the launch plan of
 // ops/msv_cuda.py::launch_plan: at 32 lanes one of 8, 12, ..., 32 (each its
-// own compiled kernel), at 64 kClusterWarps and an even grid, launched as
-// clusters of 2 blocks along x (cudaLaunchKernelEx); a refused cluster launch
-// returns its error. A grid smaller than the batch needs makes the warps walk
-// it with a stride. At kMemLanes the block is kMemLanes threads (`warps` is
-// not read) and `scratch` holds [num_p, grid, 2, m_pad] floats. `bf16`
-// selects the filter's bf16 table (16-bit entries) over f32; `num_p` profiles
-// are stacked in emit [num_p, 20, m_pad] and tr_consts [num_p, 3], and scores
-// is [num_p, b_pad]. A null m_in starts from the row-0 carry (s_in is then not
+// own compiled kernel), in a cluster kClusterWarps and a grid that is a
+// multiple of C, launched as clusters of C blocks along x
+// (cudaLaunchKernelEx); a refused cluster launch returns its error. A grid
+// smaller than the batch needs makes the warps walk it with a stride. At
+// kMemLanes the block is kMemLanes threads (`warps` is not read) and
+// `scratch` holds [num_p, grid, 2, m_pad] floats. `bf16` selects the
+// filter's bf16 table (16-bit entries) over f32; `num_p` profiles are
+// stacked in emit [num_p, 20, m_pad] and tr_consts [num_p, 3], and scores is
+// [num_p, b_pad]. A null m_in starts from the row-0 carry (s_in is then not
 // read); a null m_out or s_out skips that carry's store. Returns a
 // cudaError_t.
 extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf16, int num_p,
@@ -555,9 +597,10 @@ extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf
                                const void* s_in, void* scores, void* m_out,
                                void* s_out, int b_pad, int grid, void* scratch, void* stream) {
   const bool mem = lanes == kMemLanes;
+  const int c = cluster_of(lanes);
   const KernelFn fn = mem ? nullptr : find_kernel(lanes, per, warps, bf16);
   if ((!mem && fn == nullptr) || (mem && scratch == nullptr) || grid < 1 || m_pad < 1 ||
-      static_cast<long>(lanes) * per < m_pad || (lanes == 64 && (m_pad % 8 != 0 || grid % 2 != 0)) ||
+      static_cast<long>(lanes) * per < m_pad || (c != 0 && (m_pad % 8 != 0 || grid % c != 0)) ||
       num_p < 1 || num_p > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -588,24 +631,23 @@ extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = msv_smem_bytes(lanes, per, warps);
-  const void* kernel = reinterpret_cast<const void*>(fn);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  err = prepare(fn, smem, c);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (lanes == 64) {
+  if (c != 0) {
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = pair_config(grid, num_p, warps, smem, st, &attr);
+    const cudaLaunchConfig_t cfg = cluster_config(grid, num_p, c, warps, smem, st, &attr);
     err = cudaLaunchKernelEx(&cfg, fn, a);
   } else {
     void* args[] = {&a};
-    err = cudaLaunchKernel(kernel, dim3(grid, num_p), dim3(warps * 32), args, smem, st);
+    err = cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(grid, num_p), dim3(warps * 32),
+                           args, smem, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Registers a thread and local-memory (spill) bytes a thread of a register
-// case's kernel (`lanes` 32 or 64, `per`, `warps`, `bf16` as for
+// case's kernel (`lanes` 32 or 32 * C, `per`, `warps`, `bf16` as for
 // msv_scan_launch), as compiled, for the launch plan and its report.
 // Returns a cudaError_t.
 extern "C" int msv_kernel_attrs(int lanes, int per, int warps, int bf16, int* regs,
@@ -620,21 +662,22 @@ extern "C" int msv_kernel_attrs(int lanes, int per, int warps, int bf16, int* re
   return 0;
 }
 
-// The most 2-block clusters of the cluster pair's case (`per`, `warps`,
-// `bf16` as for msv_scan_launch at 64 lanes) the card `device` runs at once
-// (cudaOccupancyMaxActiveClusters), for the launch plan's persistent grid.
-// Returns a cudaError_t.
-extern "C" int msv_max_clusters(int device, int per, int warps, int bf16, int* clusters) {
-  const KernelFn fn = find_kernel(64, per, warps, bf16);
+// The most C-block clusters of the cluster case `lanes` = 32 * C (`per`,
+// `warps`, `bf16` as for msv_scan_launch) the card `device` runs at once
+// (cudaOccupancyMaxActiveClusters; 0 when it cannot hold one), for the
+// launch plan's persistent grid. Returns a cudaError_t.
+extern "C" int msv_max_clusters(int device, int lanes, int per, int warps, int bf16,
+                                int* clusters) {
+  const int c = cluster_of(lanes);
+  const KernelFn fn = c != 0 ? find_kernel(lanes, per, warps, bf16) : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = msv_smem_bytes(64, per, warps);
-  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const size_t smem = msv_smem_bytes(lanes, per, warps);
+  err = prepare(fn, smem, c);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = pair_config(2, 1, warps, smem, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(c, 1, c, warps, smem, nullptr, &attr);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, fn, &cfg));
 }
 

@@ -2,13 +2,14 @@
 // Viterbi / log-space Forward / Viterbi filter template (p7_viterbi.cuh), the
 // probability-space Forward kernel (p7_forward_kernel.cu) and the posterior
 // backward coverage pass (p7_backward_kernel.cu); the cluster pair's
-// primitives, which the Viterbi template's wide case runs on (after the
-// group's); and, past 256 * 19 = 4864 states, the rows-in-memory case's
+// primitives, which the Viterbi and Forward templates' wide cases run on
+// (after the group's), with the step's shift and reduction wrappers and the
+// pair's launch; and, past 256 * 19 = 4864 states, the rows-in-memory case's
 // helpers (at the end).
 //
 // A block holds G groups of KT threads, KT = 128 (M_pad <= 128 * 19 = 2432)
-// or 256 (the Forward and backward sources' wide case, M_pad <= 256 * 19 =
-// 4864; the Viterbi template's runs on the cluster pair, below); G =
+// or 256 (the backward source's wide case, M_pad <= 256 * 19 = 4864; the
+// Viterbi and Forward templates' run on the cluster pair, below); G =
 // blockDim.x / KT, at
 // most kMaxThreads / KT. Each group follows one sequence at a time and walks
 // the batch with a stride of gridDim.x * G. Thread t of a group owns the
@@ -139,10 +140,10 @@ __host__ __device__ constexpr int small_passes() {
 }
 
 // The same for a block of the cluster pair: n_rows staged rows, its one
-// group and the pair's exchange area.
+// group (`save`: the row-saving Forward's) and the pair's exchange area.
 template <int PER, int KT, bool BF16>
-__host__ __device__ constexpr size_t pair_smem_floats(int n_rows) {
-  return smem_floats<PER, KT, BF16>(n_rows, 1, false) + pair_floats<PER, KT>();
+__host__ __device__ constexpr size_t pair_smem_floats(int n_rows, bool save = false) {
+  return smem_floats<PER, KT, BF16>(n_rows, 1, save) + pair_floats<PER, KT>();
 }
 
 // Floats of one group's part of the backward pass's dynamic shared memory:
@@ -484,8 +485,9 @@ __device__ __forceinline__ void group_sum2(float& a, float& b, float* red, int t
 
 // -- the cluster pair ------------------------------------------------------------
 //
-// Past 128 * 19 = 2432 states (up to 2 * 2432 = 4864) the Viterbi template's
-// cases run one sequence on a pair of groups of KT = 128 threads, one in
+// Past 128 * 19 = 2432 states (up to 2 * 2432 = 4864) the Viterbi and
+// Forward templates' cases run one sequence on a pair of groups of KT = 128
+// threads, one in
 // each block of a 2-block thread-block cluster, a group a block. Block r
 // owns the states r * KT * PER + t * PER + k, the normal-width layout of its
 // half: it stages its half of every constant row, and its registers, shift
@@ -504,7 +506,8 @@ __device__ __forceinline__ void group_sum2(float& a, float& b, float* red, int t
 //    rows alternate by larger shift within a step, and before block 0
 //    stores into a row again block 1 has released it (a 4-byte st.async
 //    into block 0's release slot once its group read the row);
-//  * a reduction (E, the filter's tail max, the lazy certificate's OR): each
+//  * a reduction (E, the filter's tail max, the lazy certificate's OR, the
+//    Forward's rescale max): each
 //    warp's value goes into both blocks' exchange slots by st.async, each
 //    block waits for all eight on its exchange mbarrier and combines them
 //    in one fixed order, block 0's warps then block 1's, so both get the
@@ -735,6 +738,60 @@ __device__ __forceinline__ bool pair_any(bool v, int t, Pair& pr) {
   return combine_warps<false, 2 * KT>(pair_collect<KT>(q, pr)) > 0.0f;
 }
 
+// A group's shift and its reductions, alone (on its named barrier) or in the
+// cluster pair (`id` the shift's halo: the two shifts by one at 0 and 1, pass
+// id - 2 of a chain of `passes`), as the step of either template takes them.
+template <int PER, int KT, bool PAIR>
+__device__ __forceinline__ void step_shift(const float (&v)[PER], float (&out)[PER], int s,
+                                           float fill, float* buf, int t, int bar, Pair& pr,
+                                           int id, int passes) {
+  if constexpr (PAIR) {
+    constexpr int kSmall = small_passes<PER>();
+    pair_shift<PER, KT>(v, out, s, fill, buf, t, bar, pr, id, id - 2 - kSmall, passes - kSmall);
+  } else {
+    shift<PER, KT>(v, out, s, fill, buf, t, bar);
+  }
+}
+
+template <bool SUM, int KT, bool PAIR>
+__device__ __forceinline__ float step_reduce(float v, float* red, int t, int bar, Pair& pr) {
+  if constexpr (PAIR) {
+    return pair_reduce<SUM, KT>(v, t, pr);
+  } else {
+    return group_reduce<SUM, KT>(v, red, t, bar);
+  }
+}
+
+// The cluster pair's copy of its half of emission rows `aa` of the [20,
+// m_pad] tables (f32, or the filter's bf16 bits): states col0 .. col0 +
+// m_real - 1, as prefetch_emissions and prefetch_emissions_bf16 copy a whole
+// row (the half starts on a 16-byte boundary: col0 = KT * PER and m_pad
+// are multiples of 8). The caller commits.
+template <int PER, int KT, typename E>
+__device__ __forceinline__ void prefetch_half(E* dm, E* di, const E* msc, const E* isc, int aa,
+                                              int m_pad, Pair& h, int t) {
+  const E* gm = msc + static_cast<size_t>(aa) * m_pad + h.col0;
+  const E* gi = isc + static_cast<size_t>(aa) * m_pad + h.col0;
+  constexpr bool kF32 = sizeof(E) == 4;
+  constexpr int kVec = 16 / sizeof(E);  // entries a 16-byte copy
+  if constexpr (kF32 ? (PER & 1) != 0 : hstride<PER>() == PER) {
+    for (int c = t; c < h.m_real / kVec; c += KT) {
+      cp_async16(dm + kVec * c, gm + kVec * c);
+      cp_async16(di + kVec * c, gi + kVec * c);
+    }
+  } else if constexpr (kF32) {
+    for (int j = t; j < h.m_real; j += KT) {
+      cp_async4(dm + sidx<PER>(j), gm + j);
+      cp_async4(di + sidx<PER>(j), gi + j);
+    }
+  } else {
+    for (int j = 2 * t; j < h.m_real; j += 2 * KT) {
+      cp_async4(dm + hidx<PER>(j), gm + j);
+      cp_async4(di + hidx<PER>(j), gi + j);
+    }
+  }
+}
+
 // One carry row of a sequence between global memory [m_pad] (coalesced)
 // and the blocked registers, through the shared row `buf`; `fill` past
 // m_pad. Each global element is read and written by the same thread (j
@@ -789,6 +846,52 @@ cudaError_t allow_smem(Kernel kernel, int device, unsigned& done) {
   return err;
 }
 
+// The launch of the cluster pair: `grid` blocks of 128 threads in clusters
+// of 2 along x (cudaLaunchKernelEx), after setting the kernel's
+// shared-memory limit once per device; a refused launch returns its error.
+inline cudaLaunchConfig_t pair_config(int grid, int smem, cudaStream_t stream,
+                                      cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename Args>
+cudaError_t launch_pair(void (*kernel)(Args), const Args& a, int device, unsigned& done, int grid,
+                        int smem, cudaStream_t stream) {
+  cudaError_t err = allow_smem(kernel, device, done);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = pair_config(grid, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The most 2-block clusters of a pair kernel the card `device` runs at once
+// with `smem` bytes of dynamic shared memory a block
+// (cudaOccupancyMaxActiveClusters), for the launch plan's persistent grid.
+template <typename Args>
+cudaError_t pair_max_clusters(void (*kernel)(Args), int device, unsigned& done, int smem,
+                              int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(kernel, device, done);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = pair_config(2, smem, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+}
+
 // The launch shape every launcher checks: groups in 1..kMaxThreads / KT, a
 // grid, n_trans staged transition rows (all six at KT = 128), and the exact
 // dynamic shared-memory size of smem_floats.
@@ -801,10 +904,10 @@ bool plan_ok(int groups, int grid, int smem_bytes, int n_rows, int n_trans, bool
 }
 
 // Calls fn(Case<per, threads>{}) for the kernel cases a source instantiates:
-// 128 threads with 1..19 states a thread (with_group_case: the Viterbi
-// template's sources, whose wider cases are the cluster pair's), and 256
-// threads with 10..19 (the widths past 128 * 19 = 2432, with_case: the
-// Forward and backward sources).
+// 128 threads with 1..19 states a thread (with_group_case: the Viterbi and
+// Forward templates' sources, whose wider cases are the cluster pair's), and
+// 256 threads with 10..19 (the widths past 128 * 19 = 2432, with_case: the
+// backward source).
 #define P7_CASE(P, T) \
   case P:             \
     return fn(Case<P, T>{});
@@ -859,8 +962,9 @@ cudaError_t with_case(int threads, int per, Fn fn) {
 }
 #undef P7_CASE
 
-// Calls fn(Case<per>{}) for the cluster pair's cases (p7_viterbi.cuh): 128
-// threads a block, 10..19 states a thread, 2 * 128 * per states a pair.
+// Calls fn(Case<per>{}) for the cluster pair's cases (p7_viterbi.cuh,
+// p7_forward_kernel.cu): 128 threads a block, 10..19 states a thread, 2 *
+// 128 * per states a pair.
 #define P7_PAIR_CASE(P) \
   case P:               \
     return fn(Case<P>{});

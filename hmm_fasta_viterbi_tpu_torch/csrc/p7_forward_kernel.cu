@@ -68,6 +68,22 @@
 //    differs from the plain PyTorch version by rounding only.
 //  * It launches on the caller's stream, allocates nothing and does not
 //    synchronise. The C entry point returns cudaGetLastError().
+//  * Past 128 * 19 = 2432 states (up to 4864) both cases run on the cluster
+//    pair (p7_blocked.cuh; forward_pair_kernel, launched as 2-block
+//    clusters), as the Viterbi template's wide cases do: block r of a
+//    cluster holds states r * 128 * PER .. of one sequence in the
+//    normal-width layout, one group of 128 threads a block, and stages its
+//    half of every row the normal-width plan stages. The two shifts by one
+//    and every chain pass cross the pair (block 1's first states come from
+//    block 0, which stores them into block 1: below 17 as a halo, else into
+//    one of two rows); E's sum and the rescale max go through the pair's
+//    exchange, each warp's value into both blocks, summed (or maxed) in one
+//    fixed order, block 0's warps then block 1's, so both blocks derive the
+//    same J/C/N/B, the same rescale factor, log scale and compensation bit
+//    for bit, and a carry chain split at a multiple of `group` still equals
+//    one call. SAVE: each block stores its half of the bf16 row at its first
+//    state (after its group's barrier: the pair's exchange orders no plain
+//    shared-memory stores), block 0 alone the log scale.
 //  * Past 256 * 19 = 4864 states the rows-in-memory case
 //    (forward_mem_kernel, p7_blocked.cuh) runs the same step with every row
 //    in global memory, one 1024-thread block a sequence.
@@ -108,8 +124,12 @@ struct ForwardArgs {
   int b_pad;
 };
 
-template <int PER, int KT, bool SAVE>
-__global__ void forward_kernel(const ForwardArgs a) {
+// The kernel's body, for a block of G groups (forward_kernel) or for a block
+// of the cluster pair (PAIR: forward_pair_kernel, one group a block, KT =
+// 128, block r following states col0 = r * 128 * PER .. col0 + 128 * PER -
+// 1 of a sequence in the normal-width layout).
+template <int PER, int KT, bool SAVE, bool PAIR>
+__device__ __forceinline__ void forward_body(const ForwardArgs& a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int ROW = row_floats<PER, KT>();
   constexpr int SP = stride<PER>();
@@ -117,12 +137,21 @@ __global__ void forward_kernel(const ForwardArgs a) {
   const int m_pad = a.m_pad;
   const int n_trans = KT == 128 ? kTransRows : a.n_trans;
   const int n_rows = n_trans + a.n_chain;
+  Pair h;
+  h.rank = 0;
+  h.col0 = 0;
+  h.m_real = m_pad;
+  if constexpr (PAIR) {
+    h.rank = static_cast<int>(cluster_rank());
+    h.col0 = h.rank * KT * PER;
+    h.m_real = min(max(m_pad - h.col0, 0), KT * PER);
+  }
 
   for (int q = 0; q < n_trans; ++q) {
-    stage_row<PER, KT>(smem + q * ROW, a.trans + q * m_pad, m_pad, 0.0f);
+    stage_row<PER, KT>(smem + q * ROW, a.trans + q * m_pad + h.col0, h.m_real, 0.0f);
   }
   for (int p = 0; p < a.n_chain; ++p) {
-    stage_row<PER, KT>(smem + (n_trans + p) * ROW, a.chain + p * m_pad, m_pad, 0.0f);
+    stage_row<PER, KT>(smem + (n_trans + p) * ROW, a.chain + p * m_pad + h.col0, h.m_real, 0.0f);
   }
 
   const int groups = blockDim.x / KT;
@@ -140,26 +169,39 @@ __global__ void forward_kernel(const ForwardArgs a) {
   // two bf16 rows of KT * SP values (SAVE)
   __nv_bfloat16* srow =
       reinterpret_cast<__nv_bfloat16*>(base + 6 * ROW + red_floats<KT>() + kChunk / 4);
+  if constexpr (PAIR) {
+    // the pair's exchange area follows the block's one group
+    pair_setup<PER, KT>(h, smem + n_rows * ROW + group_floats<PER, KT, false>(SAVE), t);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   for (int q = 0; q < 2; ++q) {
-    fill_tail<PER, KT>(em(q), m_pad, 0.0f, t);
-    fill_tail<PER, KT>(ei(q), m_pad, 0.0f, t);
+    fill_tail<PER, KT>(em(q), h.m_real, 0.0f, t);
+    fill_tail<PER, KT>(ei(q), h.m_real, 0.0f, t);
   }
   __syncthreads();  // the staged rows; from here on each group keeps to itself
+  // the pair: both blocks run, and their mbarriers exist, before either
+  // reaches the other's memory
+  if constexpr (PAIR) cluster_sync();
 
   const int off = t * SP;
-  const TransRows<PER, KT> tr{smem + off, a.trans, n_trans, m_pad, t * PER, 0.0f};
+  const int j0 = h.col0 + t * PER;  // this thread's first state
+  const TransRows<PER, KT> tr{smem + off, a.trans, n_trans, m_pad, j0, 0.0f};
   const float* chain_s = smem + n_trans * ROW + off;
   const float p_b_mk = a.consts[0];
   const float p_e_c = a.consts[1];
   const float p_e_j = a.consts[2];
   const int b_pad = a.b_pad;
+  const int window = a.window;
 
-  for (int seq = blockIdx.x * groups + g; seq < b_pad; seq += gridDim.x * groups) {
-    const size_t row = static_cast<size_t>(seq) * m_pad;
+  // the sequences of this group: the pair's blocks (a cluster) follow the
+  // same ones
+  for (int seq = PAIR ? cluster_id() : blockIdx.x * groups + g; seq < b_pad;
+       seq += PAIR ? cluster_count() : gridDim.x * groups) {
+    const size_t row = static_cast<size_t>(seq) * m_pad + h.col0;
     float m[PER], iv[PER], d[PER];
-    load_row<PER, KT>(m, a.m_in + row, m_pad, 0.0f, xbuf(0), t, bar);
-    load_row<PER, KT>(iv, a.i_in + row, m_pad, 0.0f, xbuf(0), t, bar);
-    load_row<PER, KT>(d, a.d_in + row, m_pad, 0.0f, xbuf(0), t, bar);
+    load_row<PER, KT>(m, a.m_in + row, h.m_real, 0.0f, xbuf(0), t, bar);
+    load_row<PER, KT>(iv, a.i_in + row, h.m_real, 0.0f, xbuf(0), t, bar);
+    load_row<PER, KT>(d, a.d_in + row, h.m_real, 0.0f, xbuf(0), t, bar);
     float sj = a.s_in[seq];
     float sc = a.s_in[b_pad + seq];
     float sn = a.s_in[2 * b_pad + seq];
@@ -176,13 +218,13 @@ __global__ void forward_kernel(const ForwardArgs a) {
       const int count = min(kChunk, n - c0);
       if (t < count) toks[t] = tok_row[c0 + t];
       group_sync<KT>(bar);
-      prefetch_emissions<PER, KT>(em(0), ei(0), a.modds, a.iodds, token(toks, 0), m_pad, t);
+      prefetch_half<PER, KT, float>(em(0), ei(0), a.modds, a.iodds, token(toks, 0), m_pad, h, t);
       cp_async_commit();
       for (int step = 0; step < count; ++step) {
         const int q = step & 1;
         if (step + 1 < count) {
-          prefetch_emissions<PER, KT>(em(q ^ 1), ei(q ^ 1), a.modds, a.iodds,
-                                      token(toks, step + 1), m_pad, t);
+          prefetch_half<PER, KT, float>(em(q ^ 1), ei(q ^ 1), a.modds, a.iodds,
+                                        token(toks, step + 1), m_pad, h, t);
         }
         cp_async_commit();
 
@@ -190,7 +232,7 @@ __global__ void forward_kernel(const ForwardArgs a) {
 #pragma unroll
         for (int k = 0; k < PER; ++k) x[k] = m[k] * tr(0, k) + iv[k] * tr(3, k) + d[k] * tr(5, k);
         cp_async_wait_prev();  // this step's emission rows (the barrier publishes them)
-        shift<PER, KT>(x, diag, 1, 0.0f, xbuf(par), t, bar);
+        step_shift<PER, KT, PAIR>(x, diag, 1, 0.0f, xbuf(par), t, bar, h, 0, window);
         par ^= 1;
 
         const float* mo = em(q) + off;
@@ -203,11 +245,11 @@ __global__ void forward_kernel(const ForwardArgs a) {
           iv[k] = io[k] * (m[k] * tr(1, k) + iv[k] * tr(4, k));
           x[k] = nm[k] * tr(2, k);
         }
-        shift<PER, KT>(x, ac, 1, 0.0f, xbuf(par), t, bar);
+        step_shift<PER, KT, PAIR>(x, ac, 1, 0.0f, xbuf(par), t, bar, h, 1, window);
         par ^= 1;
-        for (int p = 0; p < a.window; ++p) {
+        for (int p = 0; p < window; ++p) {
           float sh[PER];
-          shift<PER, KT>(ac, sh, 1 << p, 0.0f, xbuf(par), t, bar);
+          step_shift<PER, KT, PAIR>(ac, sh, 1 << p, 0.0f, xbuf(par), t, bar, h, 2 + p, window);
           par ^= 1;
           if (p < a.n_chain) {
             const float* c = chain_s + p * ROW;
@@ -217,7 +259,7 @@ __global__ void forward_kernel(const ForwardArgs a) {
             const float* c = a.chain + static_cast<size_t>(p) * m_pad;
 #pragma unroll
             for (int k = 0; k < PER; ++k) {
-              const int j = t * PER + k;
+              const int j = j0 + k;
               ac[k] = ac[k] + sh[k] * (j < m_pad ? __ldg(c + j) : 0.0f);
             }
           }
@@ -228,7 +270,7 @@ __global__ void forward_kernel(const ForwardArgs a) {
         if (SAVE) {
 #pragma unroll
           for (int k = 0; k < PER; ++k) {
-            if (t * PER + k < m_pad) sr[t * PER + k] = __float2bfloat16_rn(nm[k]);
+            if (t * PER + k < h.m_real) sr[t * PER + k] = __float2bfloat16_rn(nm[k]);
           }
         }
         float e = 0.0f;
@@ -238,15 +280,19 @@ __global__ void forward_kernel(const ForwardArgs a) {
           m[k] = nm[k];
           d[k] = ac[k];
         }
-        e = group_reduce<true, KT>(e, red_e, t, bar);
+        // the pair: block 0's warps then block 1's, the same sum in both
+        e = step_reduce<true, KT, PAIR>(e, red_e, t, bar, h);
         if (SAVE) {
-          // the row is complete after the reduction's barrier; it is
-          // rewritten two steps on, after this step's and the next's barriers
-          const size_t frow = (static_cast<size_t>(seq) * a.l_pad + pos) * m_pad;
+          // the row is complete after the reduction's barrier (the pair's:
+          // its own group's, below); it is rewritten two steps on, after
+          // this step's and the next's barriers. Each block stores its
+          // states of the row.
+          if constexpr (PAIR) group_sync<KT>(bar);
+          const size_t frow = (static_cast<size_t>(seq) * a.l_pad + pos) * m_pad + h.col0;
           uint4* dst = reinterpret_cast<uint4*>(a.fm + frow);
           const uint4* src = reinterpret_cast<const uint4*>(sr);
-          for (int c = t; c < m_pad / 8; c += KT) dst[c] = src[c];
-          if (t == 0) a.ls[static_cast<size_t>(seq) * a.l_pad + pos] = log_scale;
+          for (int c = t; c < h.m_real / 8; c += KT) dst[c] = src[c];
+          if (t == 0 && h.rank == 0) a.ls[static_cast<size_t>(seq) * a.l_pad + pos] = log_scale;
         }
         sj = sj * p_loop + e * p_e_j;
         sc = sc * p_loop + e * p_e_c;
@@ -257,7 +303,8 @@ __global__ void forward_kernel(const ForwardArgs a) {
           float mx = 0.0f;
 #pragma unroll
           for (int k = 0; k < PER; ++k) mx = fmaxf(mx, m[k]);
-          mx = group_reduce<false, KT>(mx, red_s, t, bar);
+          // both blocks derive the same s, log scale and compensation
+          mx = step_reduce<false, KT, PAIR>(mx, red_s, t, bar, h);
           const float s = fmaxf(fmaxf(mx, sc), fmaxf(sn, 1e-30f));
           const float inv = 1.0f / s;
           const float y = logf(s) - comp;
@@ -280,19 +327,25 @@ __global__ void forward_kernel(const ForwardArgs a) {
     }
 
     if (SAVE) {
-      // rows n .. l_pad - 1 are 0: one contiguous run of 16-byte stores
+      // rows n .. l_pad - 1 are 0: one contiguous run of 16-byte stores,
+      // split between the pair's blocks
       const size_t first = (static_cast<size_t>(seq) * a.l_pad + n) * m_pad / 8;
       const size_t last = static_cast<size_t>(seq + 1) * a.l_pad * m_pad / 8;
+      const int stride = PAIR ? 2 * KT : KT;
       uint4* fm16 = reinterpret_cast<uint4*>(a.fm);
-      for (size_t c = first + t; c < last; c += KT) fm16[c] = make_uint4(0, 0, 0, 0);
-      for (int pos = n + t; pos < a.l_pad; pos += KT) {
-        a.ls[static_cast<size_t>(seq) * a.l_pad + pos] = 0.0f;
+      for (size_t c = first + h.rank * KT + t; c < last; c += stride) {
+        fm16[c] = make_uint4(0, 0, 0, 0);
+      }
+      if (h.rank == 0) {
+        for (int pos = n + t; pos < a.l_pad; pos += KT) {
+          a.ls[static_cast<size_t>(seq) * a.l_pad + pos] = 0.0f;
+        }
       }
     }
-    store_row<PER, KT>(m, a.m_out + row, m_pad, xbuf(0), t, bar);
-    store_row<PER, KT>(iv, a.i_out + row, m_pad, xbuf(0), t, bar);
-    store_row<PER, KT>(d, a.d_out + row, m_pad, xbuf(0), t, bar);
-    if (t == 0) {
+    store_row<PER, KT>(m, a.m_out + row, h.m_real, xbuf(0), t, bar);
+    store_row<PER, KT>(iv, a.i_out + row, h.m_real, xbuf(0), t, bar);
+    store_row<PER, KT>(d, a.d_out + row, h.m_real, xbuf(0), t, bar);
+    if (t == 0 && h.rank == 0) {
       a.s_out[seq] = sj;
       a.s_out[b_pad + seq] = sc;
       a.s_out[2 * b_pad + seq] = sn;
@@ -304,6 +357,19 @@ __global__ void forward_kernel(const ForwardArgs a) {
       a.scores[seq] = (logf(sc) + log_scale) + a.tr_rows[b_pad + seq];
     }
   }
+  // no block leaves while its partner may still reach its shared memory
+  if constexpr (PAIR) cluster_sync();
+}
+
+template <int PER, int KT, bool SAVE>
+__global__ void forward_kernel(const ForwardArgs a) {
+  forward_body<PER, KT, SAVE, false>(a);
+}
+
+// The wide case: a block of the cluster pair (launched as 2-block clusters).
+template <int PER, bool SAVE>
+__global__ void __launch_bounds__(128) forward_pair_kernel(const ForwardArgs a) {
+  forward_body<PER, 128, SAVE, true>(a);
 }
 
 // SAVE: rows n .. l_pad - 1 of sequence `seq` are 0, as forward_kernel
@@ -468,7 +534,8 @@ __global__ void __launch_bounds__(kMemThreads)
   }
 }
 
-unsigned smem_set[2][kCaseSlots];  // devices whose kernel case allows kMaxSmem
+unsigned smem_set[2][kCaseSlots];       // devices whose kernel case allows kMaxSmem
+unsigned pair_smem_set[2][kPairSlots];  // ... and whose pair case does
 
 template <int PER, int KT>
 struct Case {
@@ -501,21 +568,57 @@ struct Case {
   }
 };
 
+// The cluster pair's case: 2 * 128 * PER states, a block of the pair's
+// clusters one half: one group a block, an even grid, every transition row
+// staged and pair_smem_floats.
+template <int PER>
+struct PairCase {
+  static void (*kernel(bool save))(ForwardArgs) {
+    return save ? forward_pair_kernel<PER, true> : forward_pair_kernel<PER, false>;
+  }
+
+  static cudaError_t launch(const ForwardArgs& a, int device, int groups, int grid, int smem,
+                            cudaStream_t stream) {
+    const bool save = a.fm != nullptr;
+    const int n_rows = a.n_trans + a.n_chain;
+    if (a.m_pad > 2 * 128 * PER || groups != 1 || grid < 2 || grid % 2 != 0 ||
+        a.n_trans != kTransRows ||
+        static_cast<size_t>(smem) != 4 * pair_smem_floats<PER, 128, false>(n_rows, save) ||
+        smem > kMaxSmem) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_pair(kernel(save), a, device, pair_smem_set[save][PER - 10], grid, smem,
+                       stream);
+  }
+
+  static cudaError_t regs(bool save, int* out) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel(save));
+    *out = attr.numRegs;
+    return err;
+  }
+
+  static cudaError_t clusters(bool save, int device, int smem, int* out) {
+    return pair_max_clusters(kernel(save), device, pair_smem_set[save][PER - 10], smem, out);
+  }
+};
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `threads` (128 or 256, or
-// kMemThreads for the rows-in-memory case) and `per` name the kernel case,
-// with threads * per >= m_pad (a multiple of 8); `window` is the chain's row
-// count, the first `n_chain` staged in shared memory with the first
-// `n_trans` transition rows; the kernel rescales after every `group`
+// Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads for
+// the rows-in-memory case) and `per` name the kernel case, with threads *
+// per >= m_pad (a multiple of 8), and `cluster` 2 the cluster pair's (128
+// threads a block, per 10..19, 2 * threads * per >= m_pad); `window` is the
+// chain's row count, the first `n_chain` staged in shared memory with the
+// first `n_trans` transition rows; the kernel rescales after every `group`
 // residues. `fm` and `ls` null run the plain Forward, both set the saving
 // pass. `groups`, `grid` and `smem` are the launch plan of
 // ops/p7_cuda.py::plan_launch (checked); `scratch` the rows-in-memory
 // case's rows (null otherwise). Returns a cudaError_t.
-extern "C" int p7_forward_launch(int device, int threads, int per, const void* modds,
-                                 const void* iodds, const void* trans, const void* chain,
-                                 int m_pad, int window, int n_chain, int n_trans, int group,
-                                 const void* tokens, int l_pad,
+extern "C" int p7_forward_launch(int device, int threads, int per, int cluster,
+                                 const void* modds, const void* iodds, const void* trans,
+                                 const void* chain, int m_pad, int window, int n_chain,
+                                 int n_trans, int group, const void* tokens, int l_pad,
                                  const void* lengths, const void* tr_rows,
                                  const void* tr_probs, const void* consts, const void* m_in,
                                  const void* i_in, const void* d_in, const void* s_in,
@@ -569,14 +672,21 @@ extern "C" int p7_forward_launch(int device, int threads, int per, const void* m
     }
     return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(with_case<Case>(threads, per, [&](auto c) {
+  if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster == 2) {
+    return static_cast<int>(with_pair_case<PairCase>(per, [&](auto c) {
+      return decltype(c)::launch(a, device, groups, grid, smem, st);
+    }));
+  }
+  if (cluster != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_group_case<Case>(per, [&](auto c) {
     return decltype(c)::launch(a, device, groups, grid, smem, st);
   }));
 }
 
-// Registers a thread of the case uses (`save`: the row-saving case), for
-// the launch plan. Returns a cudaError_t.
-extern "C" int p7_forward_regs(int threads, int per, int save, int* regs) {
+// Registers a thread of the case uses (`save`: the row-saving case;
+// `cluster` 2: the pair's), for the launch plan. Returns a cudaError_t.
+extern "C" int p7_forward_regs(int threads, int per, int cluster, int save, int* regs) {
   if (threads == kMemThreads) {
     cudaFuncAttributes attr;
     const cudaError_t err = save ? cudaFuncGetAttributes(&attr, forward_mem_kernel<true>)
@@ -584,6 +694,19 @@ extern "C" int p7_forward_regs(int threads, int per, int save, int* regs) {
     *regs = attr.numRegs;
     return static_cast<int>(err);
   }
-  return static_cast<int>(with_case<Case>(
-      threads, per, [&](auto c) { return decltype(c)::regs(save != 0, regs); }));
+  if (cluster == 2) {
+    return static_cast<int>(
+        with_pair_case<PairCase>(per, [&](auto c) { return decltype(c)::regs(save != 0, regs); }));
+  }
+  return static_cast<int>(with_group_case<Case>(
+      per, [&](auto c) { return decltype(c)::regs(save != 0, regs); }));
+}
+
+// The most 2-block clusters of the pair's case (`per`, `save`) the card
+// `device` runs at once with `smem` bytes of dynamic shared memory a block,
+// for the launch plan. Returns a cudaError_t.
+extern "C" int p7_forward_clusters(int device, int per, int save, int smem, int* clusters) {
+  return static_cast<int>(with_pair_case<PairCase>(per, [&](auto c) {
+    return decltype(c)::clusters(save != 0, device, smem, clusters);
+  }));
 }

@@ -206,30 +206,6 @@ __device__ __forceinline__ GroupSmem<PER, KT, FILT> group_smem(float* base) {
   return s;
 }
 
-// A group's shift and its reductions, alone (on its named barrier) or in the
-// cluster pair (p7_blocked.cuh; `id` the shift's halo, pass id - 2 of a
-// chain of `passes`).
-template <int PER, int KT, bool PAIR>
-__device__ __forceinline__ void step_shift(const float (&v)[PER], float (&out)[PER], int s,
-                                           float fill, float* buf, int t, int bar, Pair& pr,
-                                           int id, int passes) {
-  if constexpr (PAIR) {
-    constexpr int kSmall = small_passes<PER>();
-    pair_shift<PER, KT>(v, out, s, fill, buf, t, bar, pr, id, id - 2 - kSmall, passes - kSmall);
-  } else {
-    shift<PER, KT>(v, out, s, fill, buf, t, bar);
-  }
-}
-
-template <bool SUM, int KT, bool PAIR>
-__device__ __forceinline__ float step_reduce(float v, float* red, int t, int bar, Pair& pr) {
-  if constexpr (PAIR) {
-    return pair_reduce<SUM, KT>(v, t, pr);
-  } else {
-    return group_reduce<SUM, KT>(v, red, t, bar);
-  }
-}
-
 // The group's state: rows in registers, specials replicated in every thread.
 template <int PER>
 struct Rows {
@@ -238,36 +214,6 @@ struct Rows {
   float d[PER];  // D (eager, Forward, filter) or pre_diag (lazy)
   float sj, sc, sn, sb;
 };
-
-// The cluster pair's copy of its half of emission rows `aa` of the [20,
-// m_pad] tables (f32, or the filter's bf16 bits): states col0 .. col0 +
-// m_real - 1, as prefetch_emissions and prefetch_emissions_bf16 copy a whole
-// row (the half starts on a 16-byte boundary: col0 = KT * PER and m_pad
-// are multiples of 8). The caller commits.
-template <int PER, int KT, typename E>
-__device__ __forceinline__ void prefetch_half(E* dm, E* di, const E* msc, const E* isc, int aa,
-                                              int m_pad, Pair& h, int t) {
-  const E* gm = msc + static_cast<size_t>(aa) * m_pad + h.col0;
-  const E* gi = isc + static_cast<size_t>(aa) * m_pad + h.col0;
-  constexpr bool kF32 = sizeof(E) == 4;
-  constexpr int kVec = 16 / sizeof(E);  // entries a 16-byte copy
-  if constexpr (kF32 ? (PER & 1) != 0 : hstride<PER>() == PER) {
-    for (int c = t; c < h.m_real / kVec; c += KT) {
-      cp_async16(dm + kVec * c, gm + kVec * c);
-      cp_async16(di + kVec * c, gi + kVec * c);
-    }
-  } else if constexpr (kF32) {
-    for (int j = t; j < h.m_real; j += KT) {
-      cp_async4(dm + sidx<PER>(j), gm + j);
-      cp_async4(di + sidx<PER>(j), gi + j);
-    }
-  } else {
-    for (int j = 2 * t; j < h.m_real; j += 2 * KT) {
-      cp_async4(dm + hidx<PER>(j), gm + j);
-      cp_async4(di + hidx<PER>(j), gi + j);
-    }
-  }
-}
 
 // Copy step `step`'s emission rows into the group's buffers of parity q
 // (the pair: this block's half of them).
@@ -902,50 +848,6 @@ cudaError_t launch_planned(Kernel kernel, const ViterbiArgs& a, int device, unsi
   if (err != cudaSuccess) return err;
   kernel<<<grid, groups * kt, smem, stream>>>(a);
   return cudaGetLastError();
-}
-
-// The launch of the cluster pair: `grid` blocks of 128 threads in clusters
-// of 2 along x (cudaLaunchKernelEx), after setting the kernel's
-// shared-memory limit once per device; a refused launch returns its error.
-inline cudaLaunchConfig_t pair_config(int grid, int smem, cudaStream_t stream,
-                                      cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(128);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = 2;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-inline cudaError_t launch_pair(void (*kernel)(ViterbiArgs), const ViterbiArgs& a, int device,
-                               unsigned& done, int grid, int smem, cudaStream_t stream) {
-  cudaError_t err = allow_smem(kernel, device, done);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = pair_config(grid, smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// The most 2-block clusters of a pair kernel the card `device` runs at once
-// with `smem` bytes of dynamic shared memory a block
-// (cudaOccupancyMaxActiveClusters), for the launch plan's persistent grid.
-inline cudaError_t pair_max_clusters(void (*kernel)(ViterbiArgs), int device, unsigned& done,
-                                     int smem, int* out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  err = allow_smem(kernel, device, done);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = pair_config(2, smem, nullptr, &attr);
-  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
 }
 
 // Checks the rows-in-memory case's operands as viterbi_plan_ok checks a

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import logging
 from typing import NamedTuple
 
 import numpy as np
@@ -50,6 +51,8 @@ import torch
 from ..models.msv import MSVProfile
 
 from . import _build
+
+log = logging.getLogger(__name__)
 
 NEG_INF = float("-inf")
 # finite stand-in for -inf in the TPU kernel's padded score rows
@@ -63,15 +66,19 @@ NUM_AA = 20
 # M states per lane of the kernel's register row, one case each in the
 # switch of csrc/msv_kernel.cu: a warp holds 32 * PER states. Each is
 # 8q + 4 so that a quarter-warp's float4 reads of the table miss each
-# other's banks. Past 32 * 76 = 2432 states a pair of warps (64 lanes), one
-# in each block of a 2-block cluster, follows one sequence, at the WIDE_PER
-# cases, up to 64 * 76 = 4864. Past that the
-# rows-in-memory case (MEM_LANES threads a sequence, its M rows in global
-# memory) takes any width: the kernel has no cap, as the TPU kernel has none.
+# other's banks. Past 32 * 76 = 2432 states C warps (32 * C lanes), one in
+# each block of a C-block cluster, follow one sequence, at the WIDE_PER
+# cases, C = ceil(M_pad / 2432) from 2 (the pair, up to 64 * 76 = 4864) to
+# MAX_CLUSTER (16 * 2432 = 38,912; past 8 blocks a non-portable cluster
+# size, which the H100 takes). Past that the rows-in-memory case (MEM_LANES
+# threads a sequence, its M rows in global memory) takes any width: the
+# kernel has no cap, as the TPU kernel has none.
 KERNEL_PER = (4, 12, 20, 28, 36, 44, 52, 60, 68, 76)
 WIDE_PER = (44, 52, 60, 68, 76)
 MAX_WARP_STATES = 32 * KERNEL_PER[-1]  # 2432 >= 2405, the largest of the 24 profiles
-MAX_WIDE_STATES = 64 * WIDE_PER[-1]  # 4864
+MAX_WIDE_STATES = 2 * MAX_WARP_STATES  # 4864: the cluster pair's
+MAX_CLUSTER = 16
+MAX_CLUSTER_STATES = MAX_CLUSTER * MAX_WARP_STATES  # 38,912
 MEM_LANES = 1024
 # blocks of the rows-in-memory case an SM runs at once (2048 threads)
 MEM_BLOCKS_PER_SM = 2
@@ -290,7 +297,7 @@ def _kernel_library() -> ctypes.CDLL:
     lib.msv_scan_launch.restype = i
     lib.msv_kernel_attrs.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.msv_kernel_attrs.restype = i
-    lib.msv_max_clusters.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.msv_max_clusters.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
     lib.msv_max_clusters.restype = i
     lib.msv_error_string.argtypes = [i]
     lib.msv_error_string.restype = ctypes.c_char_p
@@ -299,16 +306,25 @@ def _kernel_library() -> ctypes.CDLL:
 
 def kernel_case(m_pad: int) -> tuple[int, int]:
     """``(lanes, per)``: the kernel case of an M row of ``m_pad`` states,
-    one warp a sequence (32 lanes) up to MAX_WARP_STATES, a pair of warps in
-    a 2-block cluster (64) up to MAX_WIDE_STATES, each lane holding ``per``
-    states in registers; past
-    that the rows-in-memory case, MEM_LANES threads walking ``per`` tiles of
-    MEM_LANES states. Any width has a case."""
-    for lanes, pers in ((32, KERNEL_PER), (64, WIDE_PER)):
-        for per in pers:
-            if lanes * per >= m_pad:
-                return lanes, per
+    one warp a sequence (32 lanes) up to MAX_WARP_STATES, else C warps in a
+    C-block cluster (32 * C lanes, C = ceil(m_pad / MAX_WARP_STATES), 2..16)
+    up to MAX_CLUSTER_STATES, each lane holding ``per`` states in registers
+    (the smallest that covers the row); past that the rows-in-memory case,
+    MEM_LANES threads walking ``per`` tiles of MEM_LANES states. Any width
+    has a case."""
+    for per in KERNEL_PER:
+        if 32 * per >= m_pad:
+            return 32, per
+    if m_pad <= MAX_CLUSTER_STATES:
+        lanes = 32 * -(-m_pad // MAX_WARP_STATES)
+        return lanes, next(per for per in WIDE_PER if lanes * per >= m_pad)
     return MEM_LANES, -(-m_pad // MEM_LANES)
+
+
+def cluster_blocks(lanes: int) -> int:
+    """The blocks of a cluster of the case of ``lanes`` lanes (32 * C for
+    C of 2..MAX_CLUSTER), or 1 for the one-warp and rows-in-memory cases."""
+    return lanes // 32 if 64 <= lanes <= 32 * MAX_CLUSTER else 1
 
 
 def kernel_per(m_pad: int) -> int:
@@ -334,14 +350,12 @@ REGS_PER_SM = 65536
 # compiled under __launch_bounds__(32 * warps, 1) (csrc/msv_kernel.cu,
 # kernel_of), so that ptxas holds its registers to register_cap(warps)
 WARP_CHOICES = (8, 12, 16, 20, 24, 28, 32)
-# the wide case's block: 16 warps, each following one half of a sequence
-# whose other half a warp of the cluster's other block follows (its kernels'
-# __launch_bounds__(512, 1), csrc/msv_kernel.cu::kClusterWarps); blocks a
-# cluster, and the bytes of a warp's link to its partner (two mbarriers and
-# two 8-byte slots, csrc/msv_kernel.cu::Link)
+# the cluster case's block: 16 warps, each following one slice of a
+# sequence whose other slices the warps of the same index in the cluster's
+# other blocks follow (its kernels' __launch_bounds__(512, 1),
+# csrc/msv_kernel.cu::kClusterWarps); the pair's blocks a cluster
 CLUSTER_WARPS = 16
 CLUSTER = 2
-LINK_BYTES = 32
 # warps a block of each register case, keyed by PER: the fastest of
 # tools/torch_msv_timing.py --warps on an NVIDIA H100 (PERF.md, section 6).
 # The grid is persistent: one block an SM and profile (sms // P blocks a
@@ -353,7 +367,7 @@ class MsvPlan(NamedTuple):
     """How the MSV kernel launches: ``warps`` warps a block, ``grid`` blocks
     a profile (grid.x; grid.y is the profile), ``smem`` bytes of dynamic
     shared memory a block and ``cluster`` blocks a thread-block cluster
-    along x (2 for the wide case's pairs, else 1). A grid smaller than the
+    along x (C for the cluster cases, else 1). A grid smaller than the
     batch needs makes the warps walk it with a stride."""
 
     warps: int
@@ -369,18 +383,26 @@ def register_cap(warps: int) -> int:
     return min(255, REGS_PER_SM // (32 * warps) // 8 * 8)
 
 
-def pair_smem_bytes(per: int) -> int:
-    """Dynamic shared memory of a block of the wide case's cluster pair
-    (``csrc/msv_kernel.cu::msv_smem_bytes`` at 64 lanes): its half of the
-    f32 table, 20 x 32 * per entries, and each warp's link."""
-    return 4 * NUM_AA * 32 * per + CLUSTER_WARPS * LINK_BYTES
+def link_bytes(c: int) -> int:
+    """Bytes of a warp's link in a C-block cluster
+    (``csrc/msv_kernel.cu::link_bytes``): two mbarriers of 8 bytes, then by
+    step parity C - 1 slots of 8 bytes, one a sending rank (32 for the
+    pair)."""
+    return 16 + 16 * (c - 1)
 
 
-def pair_state(j: int, per: int) -> tuple[int, int, int]:
-    """``(block, lane, slot)`` of state ``j`` in the wide case's pair: block
-    r of the cluster holds states 32 * per * r .. 32 * per * (r + 1) - 1,
-    lane l of its warp the ``per`` from (32 * r + l) * per on
-    (``csrc/msv_kernel.cu``, ``j0``)."""
+def cluster_smem_bytes(per: int, c: int = CLUSTER) -> int:
+    """Dynamic shared memory of a block of a C-block cluster
+    (``csrc/msv_kernel.cu::msv_smem_bytes`` at 32 * C lanes): its slice of
+    the f32 table, 20 x 32 * per entries, and each warp's link."""
+    return 4 * NUM_AA * 32 * per + CLUSTER_WARPS * link_bytes(c)
+
+
+def cluster_state(j: int, per: int) -> tuple[int, int, int]:
+    """``(block, lane, slot)`` of state ``j`` in a cluster case: block r of
+    the cluster holds states 32 * per * r .. 32 * per * (r + 1) - 1, lane l
+    of its warp the ``per`` from (32 * r + l) * per on
+    (``csrc/msv_kernel.cu``, ``j0``), whatever the cluster's size."""
     block, rest = divmod(j, 32 * per)
     return block, rest // per, rest % per
 
@@ -396,21 +418,23 @@ def launch_plan(lanes: int, per: int, entry_bytes: int, b_pad: int, num_p: int, 
     entries whatever ``entry_bytes`` is (the filter's bf16 table is widened
     while it is staged), on a persistent grid: one block an SM and table,
     sms // num_p blocks a profile (at least 1, at most the batch needs). At
-    64 lanes the cluster pair: CLUSTER_WARPS warps a block, each block of a
-    2-block cluster staging its half of the f32 table (pair_smem_bytes), a
-    pair of warps a sequence, on a persistent grid of the ``clusters`` the
-    card runs at once (``cudaOccupancyMaxActiveClusters``; None: sms // 2)
-    split among the profiles, at most the batch needs: an even grid. The
+    32 * C lanes the C-block cluster: CLUSTER_WARPS warps a block, each
+    block of the cluster staging its slice of the f32 table
+    (cluster_smem_bytes), C warps a sequence, on a persistent grid of the
+    ``clusters`` the card runs at once (``cudaOccupancyMaxActiveClusters``;
+    None: sms // C) split among the profiles (at least one a profile), at
+    most the batch needs: a grid that is a multiple of C. The
     rows-in-memory case (MEM_LANES) runs one 1024-thread block a sequence,
     MEM_BLOCKS_PER_SM blocks an SM, a persistent grid."""
     if lanes == MEM_LANES:
         return MsvPlan(MEM_LANES // 32, max(1, min(b_pad, MEM_BLOCKS_PER_SM * sms)), 0)
-    if lanes == 64:
+    c = cluster_blocks(lanes)
+    if c > 1:
         if warps is not None:
-            raise ValueError("the wide case's plan is fixed")
-        clusters = sms // CLUSTER if clusters is None else clusters
-        pairs = max(1, min(-(-b_pad // CLUSTER_WARPS), clusters // num_p))
-        return MsvPlan(CLUSTER_WARPS, CLUSTER * pairs, pair_smem_bytes(per), CLUSTER)
+            raise ValueError("the cluster case's plan is fixed")
+        clusters = sms // c if clusters is None else clusters
+        units = max(1, min(-(-b_pad // CLUSTER_WARPS), clusters // num_p))
+        return MsvPlan(CLUSTER_WARPS, c * units, cluster_smem_bytes(per, c), c)
     warps = PLAN_WARPS[per] if warps is None else warps
     if warps not in WARP_CHOICES:
         raise ValueError(f"{warps} warps a block: the MSV kernel takes one of {WARP_CHOICES}")
@@ -423,26 +447,52 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def device_plan(m_pad: int, entry_bytes: int, b_pad: int, num_p: int, device,
-                warps: int | None = None) -> MsvPlan:
-    """:func:`launch_plan` of the kernel case of ``m_pad`` states on the
-    card ``device`` (the wide case with the clusters it runs at once)."""
+def device_case(m_pad: int, entry_bytes: int, device) -> tuple[int, int]:
+    """``(lanes, per)`` of ``m_pad`` states on the card ``device``: the
+    :func:`kernel_case`, or the rows-in-memory case where the card cannot
+    hold one cluster of the C blocks the width needs
+    (``cudaOccupancyMaxActiveClusters`` reports 0; logged). The choice is
+    the query's, made before any launch: a refused launch still raises."""
     lanes, per = kernel_case(m_pad)
     index = torch.device(device).index or 0
-    clusters = max_clusters(index, per, entry_bytes == 2) if lanes == 64 else None
+    if cluster_blocks(lanes) > 1 and not _cluster_fits(index, lanes, per, entry_bytes == 2):
+        return MEM_LANES, -(-m_pad // MEM_LANES)
+    return lanes, per
+
+
+@functools.cache
+def _cluster_fits(index: int, lanes: int, per: int, bf16: bool) -> bool:
+    if max_clusters(index, lanes, per, bf16) > 0:
+        return True
+    log.warning("card %d holds no %d-block cluster of the MSV kernel (per %d): the "
+                "rows-in-memory case runs its widths", index, lanes // 32, per)
+    return False
+
+
+def device_plan(m_pad: int, entry_bytes: int, b_pad: int, num_p: int, device,
+                warps: int | None = None) -> MsvPlan:
+    """:func:`launch_plan` of the case of ``m_pad`` states on the card
+    ``device`` (:func:`device_case`; a cluster case with the clusters it
+    runs at once)."""
+    lanes, per = device_case(m_pad, entry_bytes, device)
+    index = torch.device(device).index or 0
+    clusters = (max_clusters(index, lanes, per, entry_bytes == 2)
+                if cluster_blocks(lanes) > 1 else None)
     return launch_plan(lanes, per, entry_bytes, b_pad, num_p, _sm_count(index), warps, clusters)
 
 
 @functools.cache
-def max_clusters(index: int, per: int, bf16: bool) -> int:
-    """The most 2-block clusters of the wide case ``per`` (bf16 or f32
-    table) card ``index`` runs at once (``cudaOccupancyMaxActiveClusters``)."""
+def max_clusters(index: int, lanes: int, per: int, bf16: bool) -> int:
+    """The most C-block clusters of the cluster case ``(lanes, per)``
+    (``lanes`` = 32 * C; bf16 or f32 table) card ``index`` runs at once
+    (``cudaOccupancyMaxActiveClusters``; 0 when it holds none)."""
     lib = _kernel_library()
     out = ctypes.c_int(0)
-    rc = lib.msv_max_clusters(index, per, CLUSTER_WARPS, int(bf16), ctypes.byref(out))
-    if rc != 0 or out.value < 1:
-        raise RuntimeError(f"MSV cluster pair (per {per}) occupancy query failed: "
-                           f"{lib.msv_error_string(rc).decode()} ({rc}, {out.value} clusters)")
+    rc = lib.msv_max_clusters(index, lanes, per, CLUSTER_WARPS, int(bf16), ctypes.byref(out))
+    if rc != 0 or out.value < 0:
+        raise RuntimeError(f"MSV {lanes // 32}-block cluster (per {per}) occupancy query "
+                           f"failed: {lib.msv_error_string(rc).decode()} ({rc}, {out.value} "
+                           "clusters)")
     return out.value
 
 
@@ -460,36 +510,40 @@ def kernel_attrs(lanes: int, per: int, warps: int, bf16: bool) -> tuple[int, int
     return regs.value, local.value
 
 
-def count_launch(wrapper, wide: bool, mem: bool = False) -> None:
+def count_launch(wrapper, wide: bool, mem: bool = False, cluster: int = 1) -> None:
     """One more launch of ``wrapper``'s kernel; ``wide`` counts it also in
-    ``wrapper.wide_launches`` (a case between 2432 and 4864 states), ``mem`` in
-    ``wrapper.mem_launches`` (the rows-in-memory case, past 4864)."""
+    ``wrapper.wide_launches`` (a case between 2432 and 4864 states: for MSV
+    the cluster pair), ``mem`` in ``wrapper.mem_launches`` (a rows-in-memory
+    case), and a launch in ``cluster``-block clusters (``cluster`` > 1) in
+    ``wrapper.cluster_launches[cluster]``."""
     wrapper.launches += 1
     wrapper.wide_launches += int(wide)
     wrapper.mem_launches += int(mem)
+    if cluster > 1:
+        wrapper.cluster_launches[cluster] = wrapper.cluster_launches.get(cluster, 0) + 1
 
 
-def _count(wrapper, m_pad: int) -> None:
-    """Count a launch of ``wrapper``'s kernel at ``m_pad`` states, apart for
-    the 64-lane (cluster pair) and the rows-in-memory cases."""
-    lanes = kernel_case(m_pad)[0]
-    count_launch(wrapper, lanes == 64, lanes == MEM_LANES)
+def zero_launches(wrapper) -> None:
+    """Set every launch count of ``wrapper`` to 0."""
+    wrapper.launches = wrapper.wide_launches = wrapper.mem_launches = 0
+    wrapper.cluster_launches = {}
 
 
-def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry, warps=None):
+def _launch(wrapper, what, emit, tokens, lengths, tr_rows, tr_consts, carry, warps=None):
     """Check the operands and launch the kernel on the current stream.
     ``emit`` is ``[P, 20, M_pad]`` f32 or bf16 and ``tr_consts`` ``[P, 3]``;
     ``carry`` is ``(m, s)`` (P = 1: the carries come back) or None (the
     row-0 carry, scores only); ``warps`` forces the register case's block
-    size (:func:`launch_plan`). Returns ``(scores [P, B_pad], m_out,
-    s_out)``."""
+    size (:func:`launch_plan`). Counts the launch on ``wrapper`` (by its
+    case: the pair's as wide, a cluster's by C, the rows-in-memory case's
+    as mem). Returns ``(scores [P, B_pad], m_out, s_out)``."""
     device = tokens.device
     if device.type != "cuda":
         raise ValueError(f"{what} needs CUDA tensors, got {device}")
     num_p, _, m_pad = emit.shape
     b_pad, l_pad = tokens.shape
     lanes, per = kernel_case(m_pad)
-    if lanes == 64 and m_pad % 8:
+    if cluster_blocks(lanes) > 1 and m_pad % 8:
         raise ValueError(f"M_pad = {m_pad} is not a multiple of 8")
     if emit.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"emit is {emit.dtype}, expected float32 or bfloat16")
@@ -509,6 +563,7 @@ def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry, warps=None):
         m_out, s_out = torch.empty_like(m_in), torch.empty_like(s_in)
     if b_pad == 0:
         return scores, m_out, s_out
+    lanes, per = device_case(m_pad, emit.element_size(), device)
     plan = device_plan(m_pad, emit.element_size(), b_pad, num_p, device, warps)
     scratch = None
     if lanes == MEM_LANES:
@@ -530,13 +585,14 @@ def _launch(what, emit, tokens, lengths, tr_rows, tr_consts, carry, warps=None):
         raise RuntimeError(
             f"{what} kernel launch failed: {lib.msv_error_string(rc).decode()} ({rc})"
         )
+    count_launch(wrapper, plan.cluster == CLUSTER, lanes == MEM_LANES, plan.cluster)
     return scores, m_out, s_out
 
 
-def _single(what, dtype, emit, tokens, lengths, tr_rows, tr_consts, m, s, warps):
+def _single(wrapper, what, dtype, emit, tokens, lengths, tr_rows, tr_consts, m, s, warps):
     if emit.dtype != dtype:
         raise ValueError(f"emit is {emit.dtype}, expected {dtype}")
-    scores, m_out, s_out = _launch(what, emit.unsqueeze(0), tokens, lengths, tr_rows,
+    scores, m_out, s_out = _launch(wrapper, what, emit.unsqueeze(0), tokens, lengths, tr_rows,
                                    tr_consts.unsqueeze(0), (m, s), warps)
     return scores[0], m_out, s_out
 
@@ -546,36 +602,29 @@ def msv_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s, warps=None):
     arguments and results as :func:`msv_scan`; ``warps`` forces the block
     size (:func:`launch_plan`). Raises on anything the kernel does not take
     and on a refused launch; never falls back."""
-    out = _single("MSV", torch.float32, emit, tokens, lengths, tr_rows, tr_consts, m, s, warps)
-    if tokens.shape[0]:
-        _count(msv_scan_cuda, emit.shape[1])
-    return out
+    return _single(msv_scan_cuda, "MSV", torch.float32, emit, tokens, lengths, tr_rows,
+                   tr_consts, m, s, warps)
 
 
 def msv_filter_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, m, s, warps=None):
     """Launch ``csrc/msv_kernel.cu`` with the filter's bf16 table (staged
     as f32); same arguments and results as :func:`msv_filter_scan`."""
-    out = _single("MSV filter", torch.bfloat16, emit, tokens, lengths, tr_rows, tr_consts,
-                  m, s, warps)
-    if tokens.shape[0]:
-        _count(msv_filter_scan_cuda, emit.shape[1])
-    return out
+    return _single(msv_filter_scan_cuda, "MSV filter", torch.bfloat16, emit, tokens, lengths,
+                   tr_rows, tr_consts, m, s, warps)
 
 
 def msv_stacked_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, warps=None):
     """Launch ``csrc/msv_kernel.cu`` over a profile stack (one grid row a
     profile); same arguments and results as :func:`msv_stacked_scan`."""
-    scores, _, _ = _launch("stacked MSV", emit, tokens, lengths, tr_rows, tr_consts, None,
-                           warps)
-    if tokens.shape[0]:
-        _count(msv_stacked_scan_cuda, emit.shape[2])
+    scores, _, _ = _launch(msv_stacked_scan_cuda, "stacked MSV", emit, tokens, lengths, tr_rows,
+                           tr_consts, None, warps)
     return scores
 
 
-# kernel launches in this process, those of them at 64 lanes and those of
-# the rows-in-memory case
+# kernel launches in this process, those of them on the cluster pair, those
+# of the rows-in-memory case, and those in C-block clusters by C
 for _fn in (msv_scan_cuda, msv_filter_scan_cuda, msv_stacked_scan_cuda):
-    _fn.launches = _fn.wide_launches = _fn.mem_launches = 0
+    zero_launches(_fn)
 
 
 def msv_scan(emit, tokens, lengths, tr_rows, tr_consts, m, s):

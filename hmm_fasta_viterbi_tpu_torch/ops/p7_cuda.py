@@ -18,9 +18,10 @@ The counterparts of ``hmm_fasta_viterbi_tpu/ops/pallas_p7.py``:
 The kernels take M_pad up to MAX_KERNEL_STATES = 65536 (the 16-row delete
 chain, as the TPU kernels): groups of KERNEL_THREADS threads a sequence up
 to 2432 states and up to 4864 a pair of such groups, one in each block of a
-2-block thread-block cluster (the eager, lazy, log-space and filter cases,
-PAIR_KINDS), or groups of WIDE_THREADS (Forward and the posterior passes),
-with the rows in registers; past that the rows-in-memory case, MEM_THREADS
+2-block thread-block cluster (the eager, lazy, log-space, filter, Forward
+and row-saving Forward cases, PAIR_KINDS), or groups of WIDE_THREADS (the
+posterior backward pass), with the rows in registers; past that the
+rows-in-memory case, MEM_THREADS
 threads a sequence with its rows in global memory (:func:`kernel_case`);
 the plain versions have no cap.
 
@@ -77,7 +78,7 @@ from ..models.p7 import P7Profile
 from . import _build
 from .msv_cuda import (
     NEG_INF, NUM_AA, PAD_SCORE, SMEM_PER_SM, _check, _sm_count, bf16_round_up, bf16_tensor,
-    count_launch, f32_round_up, round_up,
+    count_launch, f32_round_up, round_up, zero_launches,
 )
 
 # residues per lazy-certificate chunk: a fire replays this many steps of
@@ -89,7 +90,8 @@ LAZY_CHUNK = 128
 # ratio to the power 8, far inside float32's range
 FWD_RESCALE_GROUP = 8
 # threads that follow one sequence in the kernels: KERNEL_THREADS up to
-# KERNEL_THREADS * 19 = 2432 states, WIDE_THREADS up to 4864, each thread
+# KERNEL_THREADS * 19 = 2432 states, WIDE_THREADS up to 4864 (the backward
+# pass; the PAIR_KINDS run two groups of KERNEL_THREADS there), each thread
 # owning states t * per .. t * per + per - 1 in registers
 # (csrc/p7_blocked.cuh); past that MEM_THREADS threads a sequence in the
 # rows-in-memory case, thread t handling states t, t + MEM_THREADS, ... of
@@ -127,11 +129,14 @@ BOUNDED_THREADS = 512
 # emission rows as bf16; the posterior backward pass its suffix chain, its
 # saved bf16 rows and its chunk's log scales and coverage
 BLOCKED_KINDS = ("eager", "lazy", "log", "forward", "save", "filter", "backward")
-# the kinds of the Viterbi template (csrc/p7_viterbi.cuh), whose wide case
-# (KERNEL_THREADS * 19 < M_pad <= WIDE_THREADS * 19) runs on the cluster
-# pair: CLUSTER blocks of one group of KERNEL_THREADS threads, block r
-# owning states r * KERNEL_THREADS * per .. (r + 1) * KERNEL_THREADS * per - 1
-PAIR_KINDS = ("eager", "lazy", "log", "filter")
+# the kinds whose wide case (KERNEL_THREADS * 19 < M_pad <= WIDE_THREADS *
+# 19) runs on the cluster pair: the Viterbi template's
+# (csrc/p7_viterbi.cuh) and the Forward template's
+# (csrc/p7_forward_kernel.cu); CLUSTER blocks of one group of KERNEL_THREADS
+# threads, block r owning states r * KERNEL_THREADS * per .. (r + 1) *
+# KERNEL_THREADS * per - 1. The backward pass's wide case keeps one group of
+# WIDE_THREADS.
+PAIR_KINDS = ("eager", "lazy", "log", "filter", "forward", "save")
 CLUSTER = 2
 # a pair block's exchange area (csrc/p7_blocked.cuh::pair_floats) beside
 # its two rows of block 0's states, in floats: two exchanges' slots (a value
@@ -790,8 +795,8 @@ def _kernel_library() -> ctypes.CDLL:
         *tail,
     ]
     lib.p7_forward_launch.argtypes = [
-        c, c, c, p, p, p, p, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-        p, *tail,
+        c, c, c, c, p, p, p, p, c, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, p,
+        p, p, *tail,
     ]
     lib.p7_forward_log_launch.argtypes = [
         c, c, c, c, p, p, p, p, c, c, c, c, p, c, p, p, p, p, p, p, p, p, p, p, p, p, *tail,
@@ -806,17 +811,18 @@ def _kernel_library() -> ctypes.CDLL:
     regs = ctypes.POINTER(c)
     lib.p7_viterbi_regs.argtypes = [c, c, c, c, regs]
     lib.p7_forward_log_regs.argtypes = [c, c, c, regs]
-    lib.p7_forward_regs.argtypes = [c, c, c, regs]
+    lib.p7_forward_regs.argtypes = [c, c, c, c, regs]
     lib.p7_filter_regs.argtypes = [c, c, c, regs]
     lib.p7_backward_regs.argtypes = [c, c, regs]
     lib.p7_viterbi_clusters.argtypes = [c, c, c, c, regs]
     lib.p7_forward_log_clusters.argtypes = [c, c, c, regs]
     lib.p7_filter_clusters.argtypes = [c, c, c, regs]
+    lib.p7_forward_clusters.argtypes = [c, c, c, c, regs]
     for fn in (lib.p7_viterbi_launch, lib.p7_forward_launch, lib.p7_forward_log_launch,
                lib.p7_filter_launch, lib.p7_backward_launch, lib.p7_viterbi_regs,
                lib.p7_forward_log_regs, lib.p7_forward_regs, lib.p7_filter_regs,
                lib.p7_backward_regs, lib.p7_viterbi_clusters, lib.p7_forward_log_clusters,
-               lib.p7_filter_clusters):
+               lib.p7_filter_clusters, lib.p7_forward_clusters):
         fn.restype = c
     lib.msv_error_string.argtypes = [c]
     lib.msv_error_string.restype = ctypes.c_char_p
@@ -1018,7 +1024,7 @@ def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS, cluster: int
     elif kind == "backward":
         rc = lib.p7_backward_regs(threads, per, ctypes.byref(out))
     else:
-        rc = lib.p7_forward_regs(threads, per, int(kind == "save"), ctypes.byref(out))
+        rc = lib.p7_forward_regs(threads, per, cluster, int(kind == "save"), ctypes.byref(out))
     if rc != 0:
         msg = lib.msv_error_string(rc).decode()
         raise RuntimeError(
@@ -1037,6 +1043,8 @@ def max_clusters(kind: str, per: int, smem: int, index: int) -> int:
         rc = lib.p7_viterbi_clusters(index, per, int(kind == "lazy"), smem, ctypes.byref(out))
     elif kind == "log":
         rc = lib.p7_forward_log_clusters(index, per, smem, ctypes.byref(out))
+    elif kind in ("forward", "save"):
+        rc = lib.p7_forward_clusters(index, per, int(kind == "save"), smem, ctypes.byref(out))
     else:
         rc = lib.p7_filter_clusters(index, per, smem, ctypes.byref(out))
     if rc != 0 or out.value < 1:
@@ -1073,10 +1081,10 @@ def mem_scratch(plan: LaunchPlan, m_pad: int, device) -> torch.Tensor | None:
 
 def launched(wrapper, plan: LaunchPlan) -> None:
     """Count a launch of ``wrapper``'s kernel on ``plan``: apart for the
-    wide cases (WIDE_THREADS and the cluster pair) and the rows-in-memory
-    case."""
+    wide cases (WIDE_THREADS and the cluster pair), the rows-in-memory case
+    and, by its blocks a cluster, the cluster pair."""
     count_launch(wrapper, plan.threads == WIDE_THREADS or plan.cluster == CLUSTER,
-                 plan.threads == MEM_THREADS)
+                 plan.threads == MEM_THREADS, plan.cluster)
 
 
 def _ptr(t):
@@ -1198,7 +1206,8 @@ def forward_launch(wrapper, modds, iodds, trans, chain, tokens, lengths, tr_rows
         plan = device_plan("save" if save else "forward", m_pad, window, b_pad, device, groups)
         scratch = mem_scratch(plan, m_pad, device)
         rc = _kernel_library().p7_forward_launch(
-            device.index, plan.threads, kernel_per(m_pad), modds.data_ptr(), iodds.data_ptr(),
+            device.index, plan.threads, kernel_per(m_pad), plan.cluster, modds.data_ptr(),
+            iodds.data_ptr(),
             trans.data_ptr(), chain.data_ptr(), m_pad, window, plan.n_chain, plan.n_trans,
             FWD_RESCALE_GROUP, tokens.data_ptr(),
             l_pad, lengths.data_ptr(), tr_rows.data_ptr(), tr_probs.data_ptr(),
@@ -1287,11 +1296,12 @@ def viterbi_filter_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, c
     return (scores, *out)
 
 
-# kernel launches in this process, those of them at WIDE_THREADS and those
-# of the rows-in-memory case
+# kernel launches in this process, those of them in a wide case (the
+# cluster pair), those of the rows-in-memory case, and those in clusters by
+# blocks a cluster
 for _fn in (viterbi_scan_cuda, viterbi_lazy_scan_cuda, forward_prob_scan_cuda,
             forward_log_scan_cuda, viterbi_filter_scan_cuda):
-    _fn.launches = _fn.wide_launches = _fn.mem_launches = 0
+    zero_launches(_fn)
 
 
 def viterbi_scan(emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, consts, m, i, d, s):

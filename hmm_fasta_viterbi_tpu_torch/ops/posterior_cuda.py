@@ -41,7 +41,7 @@ from ..parallel.database import ShardedScanner, gather_shards, run_shards
 from ..parallel.mesh import DB_AXIS, shard_rows
 from ..pipeline import MSVScanner
 from . import p7_cuda
-from .msv_cuda import NUM_AA, _check
+from .msv_cuda import NUM_AA, _check, zero_launches
 
 # device bytes of the bf16 forward rows of one call (JAX's POST_HBM_BYTES);
 # a larger hit batch runs in chunks of sequences under it
@@ -214,10 +214,11 @@ def backward_coverage_scan_cuda(modds, iodds, trans, schain, tokens, lengths, tr
     return cov
 
 
-# kernel launches in this process, those of them at WIDE_THREADS and those
-# of the rows-in-memory case
+# kernel launches in this process, those of them in a wide case (the
+# Forward's cluster pair, the backward pass's WIDE_THREADS group), those of
+# the rows-in-memory case, and those in clusters by blocks a cluster
 for _fn in (forward_save_scan_cuda, backward_coverage_scan_cuda):
-    _fn.launches = _fn.wide_launches = _fn.mem_launches = 0
+    zero_launches(_fn)
 
 
 def forward_save_scan(modds, iodds, trans, chain, tokens, lengths, tr_rows, tr_probs, consts,

@@ -248,9 +248,9 @@ def test_kernel_supports_every_profile(all_profile_paths):
 
     source = (_build.CSRC_DIR / "msv_kernel.cu").read_text()
     for per in msv_cuda.KERNEL_PER:
-        assert per % 8 == 4 and f"MSV_CASE({per}, 32)" in source
-    for per in msv_cuda.WIDE_PER:  # two warps a sequence past 2432 states
-        assert per % 8 == 4 and f"MSV_CASE({per}, 64)" in source
+        assert per % 8 == 4 and f"MSV_CASE({per}, false)" in source
+    for per in msv_cuda.WIDE_PER:  # C warps a sequence in a C-block cluster past 2432 states
+        assert per % 8 == 4 and f"MSV_CASE({per}, true)" in source
     lengs = [parse_hmm(p).model_length - 1 for p in all_profile_paths]
     assert len(lengs) == 24 and max(lengs) == 2405
     assert all(msv_cuda.kernel_case(n) == (32, msv_cuda.kernel_per(n)) for n in lengs)
@@ -305,9 +305,9 @@ def test_p7_scans_never_fall_back(monkeypatch):
 
 def test_p7_kernels_support_every_profile(all_profile_paths):
     """Every profile's p7 pack (JAX M_pad convention) fits the p7 kernels'
-    threads, and the thread counts match the C++ switches: the Forward and
-    backward sources take 128 and 256 threads (with_case), the Viterbi
-    template's 128 and the cluster pair's cases (with_group_case,
+    threads, and the thread counts match the C++ switches: the backward
+    source takes 128 and 256 threads (with_case), the Viterbi and Forward
+    templates' sources 128 and the cluster pair's cases (with_group_case,
     with_pair_case)."""
     from hmm_fasta_viterbi_tpu_torch import P7Profile, parse_hmm
 
@@ -321,7 +321,7 @@ def test_p7_kernels_support_every_profile(all_profile_paths):
     for name in ("p7_viterbi_kernel.cu", "p7_forward_kernel.cu", "p7_viterbi_filter_kernel.cu",
                  "p7_forward_log_kernel.cu", "p7_backward_kernel.cu"):
         source = (_build.CSRC_DIR / name).read_text()
-        if name in ("p7_forward_kernel.cu", "p7_backward_kernel.cu"):
+        if name == "p7_backward_kernel.cu":
             assert "with_case<Case>(threads, per" in source
         else:
             assert "with_group_case<Case>(per" in source

@@ -151,23 +151,29 @@ def test_blank_ragged_tail_byte_equal():
 
 @pytest.mark.parametrize("m_pad,per", [(104, 4), (1400, 44), (1408, 44), (2405, 76), (2432, 76),
                                        (2440, 44), (2704, 44), (4776, 76), (4864, 76),
-                                       (4872, 5), (6984, 7), (30184, 30), (65544, 65)])
+                                       (4872, 52), (6984, 76), (30184, 76), (38920, 39),
+                                       (65544, 65)])
 def test_kernel_states_per_lane(m_pad, per):
-    """One warp a sequence up to 2432 states, two (64 lanes) up to 4864, the
+    """One warp a sequence up to 2432 states, C of them (32 * C lanes, C =
+    ceil(M_pad / 2432)) in a C-block cluster up to 16 * 2432 = 38,912, the
     rows-in-memory case (1024 threads, ``per`` tiles of 1024 states) past
     it."""
     assert msv_cuda.kernel_per(m_pad) == per
-    lanes = 32 if m_pad <= 2432 else 64 if m_pad <= 4864 else msv_cuda.MEM_LANES
+    lanes = (32 if m_pad <= 2432 else 32 * -(-m_pad // 2432) if m_pad <= 38912
+             else msv_cuda.MEM_LANES)
     assert msv_cuda.kernel_case(m_pad) == (lanes, per)
 
 
 def test_kernel_limit_names_itself():
-    """Past 64 lanes x 76 = 4864 states the rows-in-memory case takes over;
-    the MSV kernel has no cap, as the TPU kernel and the plain version have
-    none."""
+    """Past 16 blocks x 32 lanes x 76 = 38,912 states the rows-in-memory
+    case takes over; the MSV kernel has no cap, as the TPU kernel and the
+    plain version have none."""
     assert msv_cuda.MAX_WIDE_STATES == 4864 and msv_cuda.MEM_LANES == 1024
-    assert msv_cuda.kernel_per(msv_cuda.MAX_WIDE_STATES + 1) == 5
-    assert msv_cuda.kernel_case(4872) == (1024, 5)
+    assert msv_cuda.MAX_CLUSTER_STATES == 16 * 2432 == 38912
+    assert msv_cuda.kernel_case(msv_cuda.MAX_WIDE_STATES + 1) == (96, 52)
+    assert msv_cuda.kernel_case(4872) == (96, 52)
+    assert msv_cuda.kernel_per(msv_cuda.MAX_CLUSTER_STATES + 1) == 39
+    assert msv_cuda.kernel_case(38920) == (1024, 39)
     assert msv_cuda.kernel_case(1 << 20) == (1024, 1024)
     mem = msv_cuda.launch_plan(1024, 5, 4, 16384, 1, 132)
     assert mem == msv_cuda.launch_plan(1024, 5, 2, 16384, 1, 132) == (32, 264, 0, 1)
@@ -221,7 +227,7 @@ def test_launch_plan_wide_and_memory_cases_unchanged(per, entry):
     half_table = 4 * 20 * 32 * per
     plan = msv_cuda.launch_plan(64, per, entry, 2048, 2, SMS)
     assert plan == (16, 2 * (SMS // 2 // 2), half_table + 16 * 32, 2)
-    assert plan.smem == msv_cuda.pair_smem_bytes(per) <= msv_cuda.SMEM_PER_SM
+    assert plan.smem == msv_cuda.cluster_smem_bytes(per) <= msv_cuda.SMEM_PER_SM
     assert msv_cuda.launch_plan(64, per, entry, 2048, 1, SMS, clusters=60) == (
         16, 120, half_table + 512, 2)
     # no more clusters than the batch needs, at least one
@@ -248,7 +254,7 @@ def test_cluster_plan_fits_the_block(per, b_pad, num_p, clusters):
         assert plan.grid % 2 == 0 and plan.grid >= 2
         pairs = plan.grid // 2
         assert pairs == max(1, min(-(-b_pad // plan.warps), clusters // num_p))
-        assert plan.smem == 20 * 32 * per * 4 + plan.warps * msv_cuda.LINK_BYTES
+        assert plan.smem == 20 * 32 * per * 4 + plan.warps * msv_cuda.link_bytes(2)
         assert plan.smem <= msv_cuda.SMEM_PER_SM == 232448
         assert plan.warps == msv_cuda.CLUSTER_WARPS == 16
         assert plan.warps * 32 * msv_cuda.register_cap(plan.warps) <= msv_cuda.REGS_PER_SM
@@ -259,7 +265,7 @@ def test_pair_state_map_is_a_bijection(per):
     """State j of the wide case sits in (block, lane, slot) with j = (32 *
     block + lane) * per + slot: every state of the 64 * per once, each
     block its half."""
-    seen = [msv_cuda.pair_state(j, per) for j in range(64 * per)]
+    seen = [msv_cuda.cluster_state(j, per) for j in range(64 * per)]
     assert len(set(seen)) == 64 * per
     assert sorted(seen) == [(b, lane, k) for b in range(2) for lane in range(32)
                             for k in range(per)]
@@ -298,23 +304,155 @@ def test_pair_boundary_shift_equals_the_plain_shift(per):
 def test_launch_plan_matches_kernel_source():
     """The block sizes the Python plan picks from are the kernels the C
     entry compiles (csrc/msv_kernel.cu, kernel_of), each under its own
-    launch bound; the wide case's cluster pair is one block size,
-    CLUSTER_WARPS, compiled at every WIDE_PER in both modes, launched as
-    2-block clusters, and its shared memory the plan's (the half table and
-    a 32-byte link a warp: two mbarriers and two 8-byte slots)."""
+    launch bound; the cluster case is one block size, CLUSTER_WARPS,
+    compiled at every WIDE_PER in both modes for every C (read from
+    %cluster_nctarank, not a template argument), launched as clusters of C
+    = lanes / 32 blocks (2..16, the non-portable size allowed past 8), and
+    its shared memory the plan's (the table slice and a link a warp: two
+    mbarriers and C - 1 8-byte slots a step parity)."""
     source = (pathlib.Path(msv_cuda.__file__).parent.parent / "csrc" / "msv_kernel.cu").read_text()
-    cases = re.findall(r"case (\d+): return msv_kernel<PER, 32, T, (\d+)>;", source)
+    cases = re.findall(r"case (\d+): return msv_kernel<PER, false, T, (\d+)>;", source)
     assert [(int(a), int(b)) for a, b in cases] == [(w, w) for w in msv_cuda.WARP_CHOICES]
     assert "__launch_bounds__(32 * WARPS, 1) msv_kernel" in source
     assert f"constexpr int kClusterWarps = {msv_cuda.CLUSTER_WARPS};" in source
-    assert ("return warps == kClusterWarps ? msv_kernel<PER, 64, T, kClusterWarps> : nullptr;"
+    assert f"constexpr int kMaxCluster = {msv_cuda.MAX_CLUSTER};" in source
+    assert ("return warps == kClusterWarps ? msv_kernel<PER, true, T, kClusterWarps> : nullptr;"
             in source)
-    wide = re.findall(r"MSV_CASE\((\d+), 64\)", source)
+    wide = re.findall(r"MSV_CASE\((\d+), true\)", source)
     assert tuple(int(p) for p in wide) == msv_cuda.WIDE_PER
     assert "return lanes == 32 ? sizeof(float) * 20 * 32 * per" in source
-    assert ": sizeof(float) * 20 * 32 * per + static_cast<size_t>(warps) * sizeof(Link);" in source
-    assert re.search(r"struct Link \{\s+unsigned long long bar\[2\];\s+int2 slot\[2\];\s+\};",
-                     source)
-    assert msv_cuda.LINK_BYTES == 2 * 8 + 2 * 8
-    assert "attr->val.clusterDim.x = 2;" in source and "cudaLaunchKernelEx(&cfg, fn, a)" in source
-    assert "lanes == 64 && (m_pad % 8 != 0 || grid % 2 != 0)" in source
+    assert "static_cast<size_t>(warps) * link_bytes(lanes / 32);" in source
+    assert "constexpr int link_bytes(int c) { return 16 + 16 * (c - 1); }" in source
+    assert all(msv_cuda.link_bytes(c) == 16 + 16 * (c - 1) for c in range(2, 17))
+    assert msv_cuda.link_bytes(2) == 2 * 8 + 2 * 8  # two mbarriers and one slot a parity
+    assert "mov.u32 %0, %%cluster_nctarank;" in (
+        pathlib.Path(msv_cuda.__file__).parent.parent / "csrc" / "cluster.cuh").read_text()
+    assert "attr->val.clusterDim.x = c;" in source and "cudaLaunchKernelEx(&cfg, fn, a)" in source
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in source and "c > 8" in source
+    assert "(c != 0 && (m_pad % 8 != 0 || grid % c != 0))" in source
+    assert "return lanes % 32 == 0 && lanes >= 64 && lanes <= 32 * kMaxCluster ? lanes / 32 : 0;" in (
+        source)
+    # the messages of a step (cluster_messages mirrors these lines)
+    assert "const int dest = lane == 31 ? rank + 1 : lane;" in source
+    assert ("msg = lane == 31 ? (dest < nblk ? 2 : 0) : (dest < nblk && dest != rank && "
+            "dest != rank + 1);") in source
+    assert "dst_slot = peer_addr(slots + (rank > dest ? rank - 1 : rank), dest);" in source
+    assert "mbar_expect(bar, 4 * (nblk - 1) + (rank > 0 ? 4 : 0));" in source
+    assert "const int got = lane < nblk - 1 ? in[lane].x : INT_MIN;" in source
+    assert "if (lane == 0 && rank > 0) bnd = __int_as_float(in[rank - 1].y);" in source
+
+
+# -- the C-block cluster (csrc/msv_kernel.cu, 32 * C lanes) -------------------
+
+CLUSTER_SIZES = range(2, msv_cuda.MAX_CLUSTER + 1)
+
+
+@pytest.mark.parametrize("c", CLUSTER_SIZES)
+@pytest.mark.parametrize("per", msv_cuda.WIDE_PER)
+def test_cluster_state_map_is_a_bijection(c, per):
+    """State j of a C-block cluster sits in (block, lane, slot) with j =
+    (32 * block + lane) * per + slot: every state of the 32 * C * per once,
+    block r its r-th slice of 32 * per."""
+    n = 32 * c * per
+    seen = [msv_cuda.cluster_state(j, per) for j in range(n)]
+    assert len(set(seen)) == n
+    assert sorted(seen) == [(b, lane, k) for b in range(c) for lane in range(32)
+                            for k in range(per)]
+    for j, (b, lane, k) in enumerate(seen):
+        assert (32 * b + lane) * per + k == j and b == j // (32 * per)
+
+
+def _cluster_step_shift(m: torch.Tensor, c: int, per: int) -> torch.Tensor:
+    """The j-1 shift of a C-block cluster's step as the kernel takes it, on
+    a [B, 32 * C * per] row: slot k > 0 of a lane reads its own slot k - 1,
+    slot 0 of lane l > 0 lane l - 1's last slot (``__shfl_up_sync``), slot 0
+    of block 0's lane 0 -inf, and slot 0 of block r's lane 0 ``bnd``: the
+    halo block r - 1's lane 31 stored into block r's link the step before
+    (the second word of its 8-byte message)."""
+    v = m.reshape(m.shape[0], c, 32, per)
+    out = torch.empty_like(v)
+    out[..., 1:] = v[..., :-1]
+    out[:, :, 1:, 0] = v[:, :, :-1, per - 1]
+    out[:, 0, 0, 0] = float("-inf")
+    for r in range(1, c):
+        out[:, r, 0, 0] = v[:, r - 1, 31, per - 1]
+    return out.reshape(m.shape)
+
+
+@pytest.mark.parametrize("c", CLUSTER_SIZES)
+@pytest.mark.parametrize("per", msv_cuda.WIDE_PER)
+def test_cluster_boundary_shift_equals_the_plain_shift(c, per):
+    """The cluster's shift, the halo crossing between every pair of
+    neighbouring blocks included, equals the plain version's one-state shift
+    (msv_scan_plain's ``shifted``), -inf entering at state 0."""
+    rng = np.random.default_rng(100 * c + per)
+    m = torch.from_numpy(rng.normal(size=(2, 32 * c * per)).astype(np.float32))
+    col0 = torch.full((2, 1), float("-inf"))
+    assert torch.equal(_cluster_step_shift(m, c, per), torch.cat([col0, m[:, :-1]], dim=1))
+
+
+def cluster_messages(c: int):
+    """What the kernel's lanes send a step, as its lines read: {(sender rank,
+    lane): (dest rank, slot in the dest's link, bytes)}."""
+    out = {}
+    for rank in range(c):
+        for lane in range(32):
+            dest = rank + 1 if lane == 31 else lane
+            msg = (2 if dest < c else 0) if lane == 31 else int(
+                dest < c and dest != rank and dest != rank + 1)
+            if msg:
+                out[(rank, lane)] = (dest, rank - 1 if rank > dest else rank, 4 * msg)
+    return out
+
+
+@pytest.mark.parametrize("c", CLUSTER_SIZES)
+def test_cluster_messages_reach_every_block_once(c):
+    """Each step every block receives one message from each of the other C -
+    1 blocks, each in a slot of its own (0 .. C - 2, the senders in rank
+    order), of the bytes its mbarrier expects: 4 a key, 8 from rank r - 1
+    (key and halo); lane l < C - 1 reads slot l, lane 0 the halo from slot
+    r - 1; the whole link fits the plan's bytes."""
+    msgs = cluster_messages(c)
+    for r in range(c):
+        got = {(src, slot, nbytes) for (src, _), (dest, slot, nbytes) in msgs.items() if dest == r}
+        assert sorted(src for src, _, _ in got) == [p for p in range(c) if p != r]
+        assert sorted(slot for _, slot, _ in got) == list(range(c - 1))
+        for src, slot, nbytes in got:
+            assert slot == (src if src < r else src - 1)
+            assert nbytes == (8 if src == r - 1 else 4)
+        assert sum(nbytes for _, _, nbytes in got) == 4 * (c - 1) + (4 if r > 0 else 0)
+    assert max(lane for (_, lane) in msgs) == 31 and all(
+        lane < c or lane == 31 for (_, lane) in msgs)
+    assert msv_cuda.link_bytes(c) == 16 + 2 * 8 * (c - 1)
+
+
+@pytest.mark.parametrize("m_pad,c,per", [(2432, 1, 76), (2433, 2, 44), (4864, 2, 76),
+                                         (4865, 3, 52), (7296, 3, 76), (19456, 8, 76),
+                                         (19457, 9, 68), (30181, 13, 76), (38912, 16, 76),
+                                         (38913, 1, 39)])
+def test_cluster_case_and_plan_at_the_boundaries(m_pad, c, per):
+    """At each width where the case changes: C blocks (1: one warp a
+    sequence or, past 38,912, the rows-in-memory case), the smallest per
+    that covers the row, a grid that is a multiple of C (the clusters the
+    card holds split among the profiles, at least one a profile; no more
+    than the batch needs), and a block's shared memory, its table slice and
+    its warps' links (exchange slots included), within 232,448 bytes."""
+    lanes, got_per = msv_cuda.kernel_case(m_pad)
+    assert got_per == per and msv_cuda.cluster_blocks(lanes) == c
+    assert lanes * per >= m_pad
+    if m_pad > msv_cuda.MAX_CLUSTER_STATES:
+        assert lanes == msv_cuda.MEM_LANES
+        return
+    if c > 1:
+        assert lanes * (per - 8) < m_pad or per == msv_cuda.WIDE_PER[0]
+    for b_pad, num_p, clusters in ((1, 1, 7), (2048, 1, 7), (2048, 1, None), (8192, 3, 22),
+                                   (100, 20, 9)):
+        plan = msv_cuda.launch_plan(lanes, per, 4, b_pad, num_p, SMS, clusters=clusters)
+        assert plan.cluster == c
+        assert plan.grid % c == 0 and plan.grid >= c
+        assert plan.smem <= msv_cuda.SMEM_PER_SM == 232448
+        if c > 1:
+            held = SMS // c if clusters is None else clusters
+            assert plan.grid // c == max(1, min(-(-b_pad // 16), held // num_p))
+            assert plan.smem == 4 * 20 * 32 * per + 16 * (16 + 16 * (c - 1))
+            assert plan.warps == msv_cuda.CLUSTER_WARPS

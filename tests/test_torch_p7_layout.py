@@ -276,8 +276,9 @@ def _passes(kind: str, m_pad: int):
 @pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
 def test_plan_fits_the_block_for_every_case(kind):
     """Every (threads, per) case, at its narrowest and widest M_pad; the
-    Viterbi template's kinds take their wide widths on the cluster pair
-    (test_pair_plan_fits_the_block), the others at 256 threads."""
+    Viterbi and Forward templates' kinds take their wide widths on the
+    cluster pair (test_pair_plan_fits_the_block), the backward pass at 256
+    threads."""
     for threads, per in CASES:
         low = THREADS * 19 + 8 if threads == WIDE else 8
         for m_pad in sorted({max(low, threads * (per - 1) + 8), threads * per}):
@@ -348,19 +349,26 @@ def test_plan_limits_raise():
 
 
 def test_wide_plan_leaves_transition_rows_in_global_memory():
-    """At 256 threads and 19 slots a row is 19,456 bytes: one group's six
-    rows and six staged transitions come to 233,472 bytes, 1,024 over the
-    block's 232,448, so the Forward plan (a 256-thread case still) stages
-    five transitions and no chain row. The Viterbi template's wide cases
-    run on the cluster pair instead, where a block's row is half as long:
-    the eager case at 19 slots stages all six transitions and 9 of its 13
-    chain rows beside its group and the pair's two rows of block 0's states,
-    every row the lazy window runs at 10 slots."""
+    """At 256 threads and 19 slots a row is 19,456 bytes: the backward
+    pass's group (six f32 rows, two bf16 rows of half that, its reduction
+    floats, tokens, log scales and coverage: 137,440 bytes) and five staged
+    transitions come to 234,720 bytes, 2,272 over the block's 232,448, so
+    its plan (the one 256-thread case left) stages four transitions and no
+    chain row. The Viterbi and Forward templates' wide cases run on the
+    cluster pair instead, where a block's row is half as long: the eager
+    case at 19 slots stages all six transitions and 9 of its 13 chain rows
+    beside its group and the pair's two rows of block 0's states, every row
+    the lazy window runs at 10 slots, and the Forward and row-saving Forward
+    at 19 slots every row of a 7-pass window."""
     row = 4 * WIDE * 19
     assert row == 19456
-    assert 12 * row == SMEM_PER_SM + 1024
-    plan = p7_cuda.plan_launch("forward", 4864, 7, 4096, 128, SMS)
-    assert (plan.threads, plan.n_trans, plan.n_chain, plan.groups) == (WIDE, 5, 0, 1)
+    group = 6 * row + 2 * (row // 2) + 4 * (24 + 32 + 256)
+    assert group == 137440 and group + 5 * row == SMEM_PER_SM + 2272
+    plan = p7_cuda.plan_launch("backward", 4864, 7, 4096, 128, SMS)
+    assert (plan.threads, plan.n_trans, plan.n_chain, plan.groups) == (WIDE, 4, 0, 1)
+    for kind in ("forward", "save"):
+        plan = p7_cuda.plan_launch(kind, 4864, 7, 4096, 128, SMS)
+        assert (plan.threads, plan.cluster, plan.n_trans, plan.n_chain) == (THREADS, 2, 6, 7)
     plan = p7_cuda.plan_launch("eager", 4864, 13, 4096, 128, SMS)
     assert (plan.threads, plan.cluster, plan.n_trans, plan.n_chain, plan.groups) == (
         THREADS, 2, 6, 9, 1)
@@ -373,7 +381,8 @@ def test_wide_plan_leaves_transition_rows_in_global_memory():
 
 @pytest.mark.parametrize("kind", p7_cuda.PAIR_KINDS)
 def test_pair_plan_fits_the_block(kind):
-    """Every wide case of the Viterbi template plans the cluster pair: 128
+    """Every wide case of the Viterbi and Forward templates plans the
+    cluster pair (the row-saving Forward's group with its bf16 rows): 128
     threads and one group a block (a forced G other than 1 raises), an even
     grid of clusters of 2 (the ``clusters`` the card holds, else what an
     SM's registers, shared memory and threads allow, two SMs a cluster; no
@@ -389,12 +398,12 @@ def test_pair_plan_fits_the_block(kind):
                 assert plan.grid % 2 == 0 and 1 <= plan.grid // 2 <= b_pad
                 extra = 1 if kind == "lazy" and passes < p7_cuda.chain_passes(m_pad) else 0
                 rows = plan.n_trans + plan.n_chain + extra
-                bf16 = kind == "filter"
+                bf16, save = kind == "filter", kind == "save"
                 assert plan.n_trans == 6 and 0 <= plan.n_chain <= passes
-                assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, bf16=bf16,
+                assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, save, bf16=bf16,
                                                                pair=True) <= SMEM_PER_SM
                 if plan.n_chain < passes:
-                    assert p7_cuda.blocked_smem_bytes(per, rows + 1, 1, bf16=bf16,
+                    assert p7_cuda.blocked_smem_bytes(per, rows + 1, 1, save, bf16=bf16,
                                                       pair=True) > SMEM_PER_SM
                 warp_regs = -(-regs // 8) * 8 * 32
                 per_sm = min(p7_cuda.REGS_PER_SM // (4 * warp_regs), SMEM_PER_SM // plan.smem,
@@ -409,9 +418,12 @@ def test_pair_plan_fits_the_block(kind):
 
 def test_pair_cases_match_kernel_source():
     """The pair's cases the C entries compile are WIDE_PER (with_pair_case,
-    csrc/p7_blocked.cuh); the Viterbi template's sources instantiate no
-    256-thread case any more (with_group_case, not with_case) and launch
-    the pair as clusters of 2; a pair block's exchange area (two rows of
+    csrc/p7_blocked.cuh); the Viterbi and Forward templates' sources
+    instantiate no 256-thread case any more (with_group_case, not
+    with_case; the backward source alone keeps it) and launch the pair as
+    clusters of 2 through the shared launch (p7_blocked.cuh), the Forward
+    with its row-saving group before the exchange area; a pair block's
+    exchange area (two rows of
     block 0's states, two exchanges of a value a warp of both blocks, 18
     halos of 16 slots, 4 release slots, 24 mbarriers) is what the plan
     counts after its group; an exchange puts each warp's
@@ -437,13 +449,22 @@ def test_pair_cases_match_kernel_source():
     assert "return combine_warps<SUM, 2 * KT>(pair_collect<KT>(q, pr));" in blocked
     assert p7_cuda.chain_passes(4864) + 2 <= 18
     for name in ("p7_viterbi_kernel.cu", "p7_forward_log_kernel.cu",
-                 "p7_viterbi_filter_kernel.cu"):
+                 "p7_viterbi_filter_kernel.cu", "p7_forward_kernel.cu"):
         source = (csrc / name).read_text()
         assert "with_case<" not in source and "with_group_case<Case>" in source, name
         assert "with_pair_case<PairCase>" in source, name
+    assert "with_case<Case>(threads, per" in (csrc / "p7_backward_kernel.cu").read_text()
+    assert "attr->val.clusterDim.x = 2;" in blocked and "cudaLaunchKernelEx(&cfg, kernel, a)" in blocked
     template = (csrc / "p7_viterbi.cuh").read_text()
-    assert "attr->val.clusterDim.x = 2;" in template and "cudaLaunchKernelEx(&cfg, kernel, a)" in template
     assert "viterbi_body<PER, 128, LAZY, LSE, FILT, true>(a);" in template
+    forward = (csrc / "p7_forward_kernel.cu").read_text()
+    assert "forward_body<PER, 128, SAVE, true>(a);" in forward
+    assert "pair_setup<PER, KT>(h, smem + n_rows * ROW + group_floats<PER, KT, false>(SAVE), t);" in forward
+    assert "4 * pair_smem_floats<PER, 128, false>(n_rows, save)" in forward
+    assert ("return smem_floats<PER, KT, BF16>(n_rows, 1, save) + pair_floats<PER, KT>();"
+            in blocked)
+    assert p7_cuda.blocked_smem_bytes(11, 3, 1, save=True, pair=True) == (
+        p7_cuda.blocked_smem_bytes(11, 3, 1, save=True) + 4 * (2 * THREADS * 11 + 356))
 
 
 def test_filter_plan_takes_bf16_emission_rows():

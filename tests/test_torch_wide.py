@@ -10,12 +10,16 @@ and L <= 64: the plain MSV equals ``msv_oracle_batch`` and ``msv_xla`` (1e-4,
 ``forward_xla`` (2e-3), the posterior decode ``posterior_coverage_batch_xla``
 (coverage 4e-3, totals 2e-3); the plain Viterbi filter is >= ``viterbi_xla``
 and equal to ``viterbi_filter_pallas(interpret=True)`` at L <= 16. The
-scanner and the plain versions take M_pad past the register cases' 4864,
-where the kernels' rows-in-memory cases take over: the three-profile join
-of chip_smoke.py's MEM_JOINS (2405.hmm, 2365.hmm and 2207.hmm, LENG 6977)
+scanner and the plain versions take M_pad past the p7 register cases' 4864,
+where the p7 kernels' rows-in-memory cases take over and the MSV kernel
+runs C-block clusters up to 38,912: the three-profile join of
+chip_smoke.py's MEM_JOINS (2405.hmm, 2365.hmm and 2207.hmm, LENG 6977)
 through the plain MSV, Viterbi, Forward and posterior decode against the
-JAX oracle and XLA path at the same tolerances, and the all-24 join (LENG
-30181) through the plain MSV and the kernels' case and launch plan.
+JAX oracle and XLA path at the same tolerances, the all-24 join (LENG
+30181) through the plain MSV, Viterbi and Forward and the kernels' cases
+and launch plans, the joins of CLUSTER_JOINS (the MSV clusters of 5, 8 and
+9 blocks) through the plain MSV, and the all-24 join twice over (LENG
+60362, past 38,912: the MSV rows-in-memory case) through the plain MSV.
 """
 
 import numpy as np
@@ -190,18 +194,19 @@ def test_wide_plain_filter_bounds_viterbi(wide_files, batch):
 
 
 def test_plain_versions_take_any_width(wide_files, profile_dir, batch):
-    """Past the register cases' 4864 states the kernels' cases and launch
-    plan pick the rows-in-memory case, and past 65536 the p7 case, plan and
-    the posterior launch raise, naming that limit, while the scanner and the
-    plain versions scan: a profile of 4870 states (M_pad 4872; the LENG 4770
-    one joined with 100.hmm) through MSV, the sweep and Viterbi on the CPU,
-    MSV equal to the JAX oracle."""
+    """Past the register cases' 4864 states the p7 kernels' cases and
+    launch plan pick the rows-in-memory case and the MSV kernel's a 3-block
+    cluster, and past 65536 the p7 case, plan and the posterior launch
+    raise, naming that limit, while the scanner and the plain versions scan:
+    a profile of 4870 states (M_pad 4872; the LENG 4770 one joined with
+    100.hmm) through MSV, the sweep and Viterbi on the CPU, MSV equal to the
+    JAX oracle."""
     tokens, lengths = batch
     hmm = chip_smoke.join_profiles(jax_parse_hmm(wide_files[("2405", "2365")][0]),
                                    jax_parse_hmm(profile_dir / "100.hmm"))
     assert hmm.leng == 4870
     m_pad = msv_cuda.round_up(hmm.leng, 8)
-    assert msv_cuda.kernel_case(m_pad) == (msv_cuda.MEM_LANES, 5)
+    assert msv_cuda.kernel_case(m_pad) == (96, 52)
     assert p7_cuda.kernel_case(m_pad) == (p7_cuda.MEM_THREADS, 5) and p7_cuda.kernel_per(m_pad) == 5
     plan = p7_cuda.plan_launch("forward", m_pad, 4, B, 128, 132)
     assert (plan.threads, plan.groups, plan.grid, plan.smem) == (p7_cuda.MEM_THREADS, 1, B, 0)
@@ -232,7 +237,8 @@ def test_plain_versions_take_any_width(wide_files, profile_dir, batch):
 def test_mem_join_round_trip(mem_files, stems):
     """The joins past 4864 states, written by the JAX writer, parse to the
     same arrays in both packages and as chip_smoke.py builds them; both
-    select the kernels' rows-in-memory cases."""
+    select the p7 kernels' rows-in-memory cases and the MSV kernel's C-block
+    clusters (C = 3 and 13, chip_smoke.CLUSTER_SIZES)."""
     path, jax_hmm = mem_files[stems]
     port = parse_hmm(path)
     built = chip_smoke.wide_profile(stems)
@@ -241,7 +247,8 @@ def test_mem_join_round_trip(mem_files, stems):
         assert np.array_equal(getattr(port, field), getattr(jax_hmm, field))
         assert np.array_equal(getattr(built, field), getattr(port, field))
     m_pad = msv_cuda.round_up(port.leng, 8)
-    assert msv_cuda.kernel_case(m_pad)[0] == msv_cuda.MEM_LANES
+    c = chip_smoke.CLUSTER_SIZES[chip_smoke.MEM_JOINS.index(stems)]
+    assert msv_cuda.cluster_blocks(msv_cuda.kernel_case(m_pad)[0]) == c == {3: 3, 24: 13}[len(stems)]
     assert p7_cuda.kernel_case(m_pad)[0] == p7_cuda.MEM_THREADS
 
 
@@ -313,3 +320,57 @@ def test_all_24_join_plans_the_rows_in_memory_case(mem_files):
         plan = p7_cuda.plan_launch(kind, m_pad, passes, 8, 40, 132)
         assert (plan.threads, plan.groups, plan.grid, plan.n_chain, plan.smem) == (
             p7_cuda.MEM_THREADS, 1, 8, 0, 0)
+
+
+@pytest.mark.parametrize("stems", chip_smoke.CLUSTER_JOINS, ids=lambda s: f"{len(s)}-profile")
+def test_cluster_join_plain_msv_matches_jax(profile_dir, batch, stems):
+    """The joins of CLUSTER_JOINS (LENG 11165, 18170, 19679) select the MSV
+    kernel's 5-, 8- and 9-block clusters; the port's plain MSV on each (as
+    chip_smoke.py builds it) == msv_oracle_batch bit for bit, and the filter
+    >= exact."""
+    tokens, lengths = batch
+    jax_hmm = chip_smoke.join_profiles(*(jax_parse_hmm(profile_dir / f"{s}.hmm") for s in stems))
+    hmm = chip_smoke.wide_profile(stems)
+    assert hmm.leng == jax_hmm.leng == sum(int(s) for s in stems)
+    m_pad = msv_cuda.round_up(hmm.leng, 8)
+    c = chip_smoke.CLUSTER_SIZES[len(chip_smoke.MEM_JOINS) + chip_smoke.CLUSTER_JOINS.index(stems)]
+    assert msv_cuda.cluster_blocks(msv_cuda.kernel_case(m_pad)[0]) == c
+    prof = MSVProfile.from_profile(hmm)
+    sc = MSVScanner(device="cpu")
+    staged = sc.stage(tokens, lengths)
+    got = sc.scan(prof, staged).numpy()
+    assert np.array_equal(got, msv_oracle_batch(JaxMSVProfile.from_profile(jax_hmm), tokens,
+                                                lengths))
+    filt = sc.scan_filter(prof, staged).numpy()
+    assert np.all((filt >= got) | np.isneginf(got))
+
+
+def test_past_the_largest_cluster_plain_msv_matches_jax(profile_dir, batch):
+    """The all-24 join twice over (chip_smoke.MSV_MEM_JOIN, LENG 60362) is
+    past the 16-block cluster's 38,912 states: the MSV kernel's
+    rows-in-memory case. Its plain MSV == msv_oracle_batch bit for bit."""
+    tokens, lengths = batch
+    stems = chip_smoke.MSV_MEM_JOIN
+    jax_hmm = chip_smoke.join_profiles(*(jax_parse_hmm(profile_dir / f"{s}.hmm") for s in stems))
+    hmm = chip_smoke.wide_profile(stems)
+    assert hmm.leng == jax_hmm.leng == 2 * 30181
+    m_pad = msv_cuda.round_up(hmm.leng, 8)
+    assert m_pad > msv_cuda.MAX_CLUSTER_STATES
+    assert msv_cuda.kernel_case(m_pad) == (msv_cuda.MEM_LANES, 59)
+    got = MSVScanner(device="cpu").scan(MSVProfile.from_profile(hmm),
+                                        MSVScanner(device="cpu").stage(tokens, lengths)).numpy()
+    assert np.array_equal(got, msv_oracle_batch(JaxMSVProfile.from_profile(jax_hmm), tokens,
+                                                lengths))
+
+
+def test_all_24_join_plain_p7_matches_jax(mem_files, batch):
+    """At LENG 30181 (15 chain passes) the plain eager Viterbi ==
+    viterbi_xla within 1e-4 and Forward == forward_xla within 2e-3."""
+    path, jax_hmm = mem_files[chip_smoke.MEM_JOINS[1]]
+    tokens, lengths = batch
+    p7 = P7Profile.from_profile(parse_hmm(path))
+    jp7 = JaxP7Profile.from_profile(jax_hmm)
+    eager = viterbi_scores(p7, tokens, lengths, device="cpu", lazy=False).numpy()
+    assert _max_d(eager, np.asarray(viterbi_xla(jp7, tokens, lengths))) <= VIT_TOL
+    fwd = forward_scores(p7, tokens, lengths, device="cpu").numpy()
+    assert _max_d(fwd, np.asarray(forward_xla(jp7, tokens, lengths))) <= FWD_TOL

@@ -1,6 +1,6 @@
 """Check and time the wide cases of the PyTorch port's kernels on the card.
 
-    python3 tools/torch_wide_timing.py [--tree DIR] [--label NAME] [--check]
+    python3 tools/torch_wide_timing.py [--tree DIR] [--label NAME] [--check] [--mem]
 
 The wide cases are the kernels' code paths for profiles of 2433 to 4864
 states (M_pad). With --check, chip_smoke.py's phase-8 check of them runs
@@ -11,8 +11,13 @@ timings (wide_timings: MSV, the MSV filter and the stacked kernel at 2048 x
 the LENG 4770 join; best of 3 CUDA-event timings, each plain version once
 and held against the kernel) print one JSON line a case: its ms, its plain
 version's ms, its bound (chip_smoke.bound) and the card's name and power
-limit. The ptxas line of every kernel case (registers and spills) prints
-first.
+limit. With --mem, phase 10's timings of the cases past 4864 states follow
+(mem_timings: the MSV kernels against the LENG 6977 join at 2048 x 1000 and
+the stacked kernel over it and the all-24 join, the p7 kernels at 64 x 1000,
+the posterior pair at 64 x 1024; a tree that has the MSV C-block clusters
+also times the MSV rows-in-memory case past 38,912 states), one JSON line a
+case as well. The ptxas line of every kernel case (registers and spills)
+prints first.
 
 Everything is imported from the checkout DIR (default: this script's):
 its chip_smoke.py, its package and its kernels, built there at first use.
@@ -36,6 +41,7 @@ def main() -> int:
     ap.add_argument("--tree", default=str(pathlib.Path(__file__).resolve().parent.parent))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--mem", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
     import torch
@@ -60,6 +66,8 @@ def main() -> int:
         chip_smoke.wide_kernels_vs_plain(scanner, rng, errors)
     work = {}
     out = chip_smoke.wide_timings(scanner, rng, errors, work)
+    if args.mem:
+        out.update(chip_smoke.mem_timings(scanner, rng, errors, work))
     for name, (ms, plain_ms) in out.items():
         b_ms, b_by = chip_smoke.bound(*work[name])
         print(json.dumps({"label": args.label, "kernel": name, "ms": ms, "plain_ms": plain_ms,
