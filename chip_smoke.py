@@ -11,17 +11,18 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    prints each kernel case's registers and spills (the rows-in-memory
    kernels, `*_mem_kernel`, included; the MSV register cases once for each
    block size W they are compiled for; the cluster kernels,
-   `msv_kernel<PER,true,...>` (every C), `viterbi_pair_kernel` and
-   `forward_pair_kernel`), the launch plan of each MSV case at the timed
+   `msv_kernel<PER,true,...>` (every C), `viterbi_pair_kernel`,
+   `forward_pair_kernel`, `viterbi_cluster_kernel` and
+   `forward_cluster_kernel` (every C)), the launch plan of each MSV case at the timed
    shapes (W, grid, dynamic shared memory, with the registers and spill
    bytes of that kernel; the wide profiles' cluster pairs and the joins'
    C-block clusters, C = 3, 13, 5, 8, 9, with their clusters and
    cudaOccupancyMaxActiveClusters) and the
    launch plan of each blocked p7 case (the Viterbi filter's and the
    backward pass's included) against 1400.hmm, the wider wide profile and
-   the three-profile join past 4864 states at the timed shapes (threads a
+   both joins past 4864 states (MEM_JOINS) at the timed shapes (threads a
    group, groups G, grid, staged chain and transition rows, dynamic shared
-   memory; for a cluster pair its clusters and
+   memory; for a cluster pair or a C-block cluster its clusters and
    cudaOccupancyMaxActiveClusters);
 3. log-space Forward and posterior kernels against plain, all 24 profiles:
    the log-space Forward kernel within LOG_FWD_TOL of its plain version on
@@ -82,10 +83,15 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    (one launch a C) == the single scans; the all-24 join twice over (LENG
    60362, past 38,912) through the MSV kernels' rows-in-memory case the
    same way; then MEM_JOINS (15 chain passes at LENG 30181) through every
-   p7 kernel's rows-in-memory case against its plain version on the same
-   kind of batch (mem_kernels_vs_plain: eager, lazy and the Viterbi filter
-   bit for bit, Forward, log-space Forward and the posterior pair within
-   their tolerances);
+   p7 kernel past 4864 states against its plain version on the same kind
+   of batch (mem_kernels_vs_plain: the lazy Viterbi, the Viterbi filter,
+   Forward and the row-saving Forward on their 3- and 13-block clusters,
+   the eager and log-space Forward and the backward pass in memory; eager,
+   lazy and the Viterbi filter bit for bit, the lazy kernel also at lazy_k
+   = 1 with its fire count printed and above 0, Forward, log-space Forward
+   and the posterior pair within their tolerances, the launch counters
+   showing each kind at its case alone), and the LENG 60362 join through
+   the lazy, filter and Forward kinds' rows-in-memory cases the same way;
 9. main paths, each with every launch count set to 0 just before it and
    read just after, on a seeded FASTA of 16384 x 3500 random residues with
    32 sequences sampled from 1400.hmm and 4 from the LENG 4770 profile at
@@ -108,15 +114,19 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    Forward within 5e-3 of it), and the wide cases (wide_paths): `sweep
    --stage search --fast` over the 24 profiles and the two wide ones, `sweep`
    over 100.hmm and the wide ones, and the eager, log-space and posterior
-   entry points on the planted wide rows; and the rows-in-memory cases
+   entry points on the planted wide rows; and the cases past 4864 states
    (mem_paths): `scan --stage search --domains` with the LENG 6977 join
-   against a FASTA of 2048 rows with 4 of its homologs planted (MSV on its
-   3-block cluster; every planted row a hit with its envelope inside it),
-   `--fast` on it (the MSV filter's 3-block cluster), `sweep` over both
-   joins and the LENG 60362 one (the stacked kernel's 3- and 13-block
-   clusters and its rows-in-memory case), `scan` and MSVScanner.scan_filter
-   with the LENG 60362 join (the MSV rows-in-memory cases) and the eager and
-   log-space entry points on the planted rows;
+   against a FASTA of 2048 rows with 4 of its homologs planted (MSV, the
+   lazy Viterbi, Forward and the row-saving Forward on their 3-block
+   clusters and none of them in memory; every planted row a hit with its
+   envelope inside it), `--fast` on it (the MSV filter's and the Viterbi
+   filter's 3-block clusters, none in memory), `sweep` over both joins and
+   the LENG 60362 one (the stacked kernel's 3- and 13-block clusters and
+   its rows-in-memory case), `scan` and MSVScanner.scan_filter with the
+   LENG 60362 join (the MSV rows-in-memory cases), the eager and log-space
+   entry points on the planted rows, and the lazy Viterbi, Viterbi filter,
+   Forward and posterior entry points with the LENG 60362 join (their
+   rows-in-memory cases past 38,912 states);
    survivor counts and per-phase seconds printed;
 10. timings with CUDA events: the MSV kernel (best of 3) at 16384 x 3500
    against 1400.hmm and 2405.hmm and its plain version at 1400.hmm; the MSV
@@ -139,10 +149,13 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    card's name and power limit), and each case past 4864 states
    (mem_timings: the MSV clusters against the LENG 6977 join at 2048 x 1000
    and the stacked kernel over it and the LENG 30181 join, best of 3; the
-   MSV rows-in-memory case against the LENG 60362 join at 256 x 1000, the
+   MSV rows-in-memory case against the LENG 60362 join at 256 x 1000; the
    p7 kernels at 64 x 1000 and the posterior pair at 64 x 1024 against the
-   LENG 6977 join, once each; the parent's time beside each), each plain
-   version once. Each kernel's bound is the larger
+   LENG 6977 join (the lazy Viterbi, the Viterbi filter, Forward and the
+   row-saving Forward on 3-block clusters, best of 3; the others in memory,
+   once), the four on 13-block clusters against the LENG 30181 join
+   (`<kernel>_cluster_30181`) and in memory against the LENG 60362 join,
+   once; the parent's time beside each), each plain version once. Each kernel's bound is the larger
    of its FP32 operations (counted a cell from its source) at 67 TFLOP/s
    and the bytes it must move (each input once, each output once) at 3.35
    TB/s, at the timed shape;
@@ -234,8 +247,10 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    ms for B1 at the same shape.
 
 Prints a JSON line about the kernels (every case, the wide ones as
-`<kernel>_wide`, the MSV kernels' C-block clusters past 4864 states as
-`<kernel>_cluster`, the rows-in-memory ones as `<kernel>_mem`), then the card's
+`<kernel>_wide`, the C-block clusters past 4864 states (the MSV kernels',
+the lazy Viterbi's, the Viterbi filter's, Forward's and the row-saving
+Forward's) as `<kernel>_cluster`, the rows-in-memory ones as
+`<kernel>_mem`), then the card's
 name and power limit and, last,
 {"ok": true, ...}. Any failed check raises, and the script exits
 non-zero without those lines.
@@ -282,7 +297,8 @@ from hmm_fasta_viterbi_tpu_torch.parallel.seqblocks import (
     SeqblockScanner, block_length, msv_scan_seqblocks, p7_scan_seqblocks,
 )
 from hmm_fasta_viterbi_tpu_torch.pipeline import (
-    SearchPipeline, forward_scores, fused_cascade, fused_caps, msv_scores, viterbi_scores,
+    SearchPipeline, forward_scores, fused_cascade, fused_caps, msv_scores,
+    viterbi_filter_scores, viterbi_scores,
 )
 from hmm_fasta_viterbi_tpu_torch.runtime import profiling
 
@@ -383,25 +399,28 @@ FUSED_OVERFLOW = 200
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
-# phase 10's wide and rows-in-memory cases at the parent commit e487e7e
-# (before the MSV C-block clusters and the Forward's cluster pair): its
-# times of each at the same shapes (the faster of two runs of
-# tools/torch_wide_timing.py --mem on that commit's `git archive` in one
-# call, on PARENT_CARD); the MSV cluster rows (LENG 6977, and the stacked
-# launch over it and the all-24 join) were the rows-in-memory case there
+# phase 10's wide cases and cases past 4864 states at the parent commit
+# dd93032 (before the p7 C-block clusters): its times of each at the same
+# shapes (the faster of two runs of tools/torch_wide_timing.py --mem on that
+# commit's `git archive` in one call, on PARENT_CARD); the p7 cluster rows
+# (the lazy Viterbi, the Viterbi filter, Forward and the row-saving Forward
+# against LENG 6977 and, `_30181`, 30181) were the rows-in-memory case there
 PARENT_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PARENT_WIDE_MS = {
-    "msv_scan_wide": 6.736, "msv_filter_scan_wide": 6.739, "msv_stacked_scan_wide": 11.454,
-    "viterbi_lazy_scan_wide": 9.204, "viterbi_scan_wide": 60.338,
-    "viterbi_filter_scan_wide": 8.953, "forward_log_scan_wide": 228.332,
-    "forward_prob_scan_wide": 39.914, "forward_save_scan_wide": 14.510,
-    "backward_coverage_scan_wide": 20.505,
-    "msv_scan_cluster": 28.651, "msv_filter_scan_cluster": 25.692,
-    "msv_stacked_scan_cluster": 181.364,
-    "viterbi_lazy_scan_mem": 16.120, "viterbi_scan_mem": 29.293,
-    "viterbi_filter_scan_mem": 18.636, "forward_log_scan_mem": 57.239,
-    "forward_prob_scan_mem": 18.954, "forward_save_scan_mem": 20.740,
-    "backward_coverage_scan_mem": 21.108,
+    "msv_scan_wide": 6.341, "msv_filter_scan_wide": 6.322, "msv_stacked_scan_wide": 10.587,
+    "viterbi_lazy_scan_wide": 9.165, "viterbi_scan_wide": 60.333,
+    "viterbi_filter_scan_wide": 8.956, "forward_log_scan_wide": 228.483,
+    "forward_prob_scan_wide": 14.386, "forward_save_scan_wide": 4.508,
+    "backward_coverage_scan_wide": 20.518,
+    "msv_scan_cluster": 3.848, "msv_filter_scan_cluster": 3.839,
+    "msv_stacked_scan_cluster": 21.673,
+    "msv_scan_mem": 74.921, "msv_filter_scan_mem": 73.149, "msv_stacked_scan_mem": 74.781,
+    "viterbi_lazy_scan_cluster": 15.979, "viterbi_scan_mem": 29.182,
+    "viterbi_filter_scan_cluster": 18.485, "forward_log_scan_mem": 56.713,
+    "forward_prob_scan_cluster": 18.878, "forward_save_scan_cluster": 20.668,
+    "backward_coverage_scan_mem": 21.158,
+    "viterbi_lazy_scan_cluster_30181": 139.147, "viterbi_filter_scan_cluster_30181": 149.768,
+    "forward_prob_scan_cluster_30181": 158.110, "forward_save_scan_cluster_30181": 165.949,
 }
 
 # the sweep timing batch (sweep24, sweep24_filter) and the profiles the plain
@@ -454,23 +473,29 @@ WRAPPERS = {
 # pass, a 256-thread group for that): a line of its own in the JSON, its
 # launches counted by the same wrapper's wide_launches
 WIDE = "_wide"
-# the MSV kernels' cases from 4865 to 38,912 states (C warps a sequence in
-# C-block clusters, C = 3..16): their own JSON lines, their launches counted
-# by the wrapper's cluster_launches at every C past 2
+# the cases from 4865 to 38,912 states on C-block clusters (C = 3..16): the
+# MSV kernels' (C warps a sequence) and the lazy Viterbi's, the Viterbi
+# filter's, Forward's and the row-saving Forward's (C groups of 128 threads
+# a sequence): their own JSON lines, their launches counted by the
+# wrapper's cluster_launches at every C past 2
 CLUSTER = "_cluster"
 MSV_WRAPPERS = ("msv_scan", "msv_filter_scan", "msv_stacked_scan")
-# every case past 4864 states (MSV: past 38,912; the rows-in-memory cases:
-# one 1024-thread block a sequence, the DP rows in global memory): its own
-# JSON line, its launches counted by the wrapper's mem_launches
+P7_CLUSTER_WRAPPERS = ("viterbi_lazy_scan", "viterbi_filter_scan", "forward_prob_scan",
+                       "forward_save_scan")
+CLUSTER_WRAPPERS = MSV_WRAPPERS + P7_CLUSTER_WRAPPERS
+# every case past 4864 states (those of CLUSTER_WRAPPERS: past 38,912; the
+# rows-in-memory cases: one 1024-thread block a sequence, the DP rows in
+# global memory): its own JSON line, its launches counted by the wrapper's
+# mem_launches
 MEM = "_mem"
 KERNELS.update({
     **{name + WIDE: (source, replaces, f"{mode}; M_pad 2440..4864")
        for name, (source, replaces, mode) in KERNELS.items()},
     **{name + CLUSTER: (source, replaces, f"{mode}; M_pad 4872..38912, C-block clusters")
-       for name, (source, replaces, mode) in KERNELS.items() if name in MSV_WRAPPERS},
+       for name, (source, replaces, mode) in KERNELS.items() if name in CLUSTER_WRAPPERS},
     **{name + MEM: (source, replaces, f"{mode}; M_pad past "
-                    f"{msv_cuda.MAX_CLUSTER_STATES if name in MSV_WRAPPERS else 4864}, rows in "
-                    "global memory")
+                    f"{msv_cuda.MAX_CLUSTER_STATES if name in CLUSTER_WRAPPERS else 4864}, rows "
+                    "in global memory")
        for name, (source, replaces, mode) in KERNELS.items()},
 })
 
@@ -585,13 +610,15 @@ def launches() -> dict:
     return {**{name: fn.launches for name, fn in WRAPPERS.items()},
             **{name + WIDE: fn.wide_launches for name, fn in WRAPPERS.items()},
             **{name + CLUSTER: sum(n for c, n in WRAPPERS[name].cluster_launches.items() if c > 2)
-               for name in MSV_WRAPPERS},
+               for name in CLUSTER_WRAPPERS},
             **{name + MEM: fn.mem_launches for name, fn in WRAPPERS.items()}}
 
 
 def cluster_launches() -> dict:
-    """The MSV wrappers' launches in C-block clusters, by C."""
-    return {name: dict(sorted(WRAPPERS[name].cluster_launches.items())) for name in MSV_WRAPPERS}
+    """The launches of the wrappers with C-block clusters in clusters, by C
+    (the p7 ones' cluster pairs at C = 2 included)."""
+    return {name: dict(sorted(WRAPPERS[name].cluster_launches.items()))
+            for name in CLUSTER_WRAPPERS}
 
 
 def with_groups(fn, groups):
@@ -612,12 +639,14 @@ def passes_of(kind: str, pack) -> int:
 
 def plan_text(kind: str, pack, batch: int) -> str:
     plan = p7_cuda.device_plan(kind, pack.m_pad, passes_of(kind, pack), batch, DEVICE)
-    per = p7_cuda.kernel_per(pack.m_pad)
+    per = plan.per
     regs = p7_cuda.kernel_regs(kind, per, plan.threads, plan.cluster)
     pair = ""
     if plan.cluster > 1:
-        most = p7_cuda.max_clusters(kind, per, plan.smem, torch.device(DEVICE).index or 0)
-        pair = (f"cluster pair: {plan.cluster} blocks a cluster, {plan.grid // plan.cluster} "
+        most = p7_cuda.max_clusters(kind, per, plan.smem, torch.device(DEVICE).index or 0,
+                                    plan.cluster)
+        what = "cluster pair" if plan.cluster == p7_cuda.CLUSTER else "C-block cluster"
+        pair = (f"{what}: {plan.cluster} blocks a cluster, {plan.grid // plan.cluster} "
                 f"clusters (cudaOccupancyMaxActiveClusters {most}), ")
     return (f"{pair}{plan.threads} threads x {per}, G={plan.groups} (of {plan.max_groups}), grid="
             f"{plan.grid}, chain rows staged {plan.n_chain}/{passes_of(kind, pack)}, transition "
@@ -638,12 +667,12 @@ def p7_packs(p7: P7Profile, device) -> dict:
 
 def print_plans(scanner) -> None:
     """Each blocked p7 case's launch plan against 1400.hmm, the wider wide
-    profile and the three-profile join past 4864 states (the rows-in-memory
-    cases) at the timed shapes."""
+    profile and both joins past 4864 states (the C-block clusters of 3 and
+    13 blocks and the rows-in-memory cases) at the timed shapes."""
     for hmm in (parse_hmm(PROFILES / "1400.hmm"), wide_profile(WIDE_PAIRS[1]),
-                wide_profile(MEM_JOINS[0])):
+                *mem_profiles()):
         prof = P7Profile.from_profile(hmm)
-        name = f"{hmm.name} (M {prof.num_states})"
+        name = f"{hmm.name[:40]} (M {prof.num_states})"
         for kind, pack in p7_packs(prof, scanner.device).items():
             posterior = kind in ("save", "backward")
             batches = (POST_TIME_BATCH if posterior else STAGE_BATCH, SURVIVOR_BATCH)
@@ -790,8 +819,9 @@ def ptxas_summary(log: str) -> list[str]:
     for entry in re.split(r"Compiling entry function ", log)[1:]:
         # the kernel's own name follows its length; the file's anonymous
         # namespace may hold the source's name too
-        case = re.search(r"(?<=\d)(msv|viterbi|forward|filter|backward)((?:_mem|_bounded|_pair)?)"
-                         r"_kernel(?:I(\w+))?", entry.split("'")[1])
+        case = re.search(r"(?<=\d)(msv|viterbi|forward|filter|backward)"
+                         r"((?:_mem|_bounded|_pair|_cluster)?)_kernel(?:I(\w+))?",
+                         entry.split("'")[1])
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
         smem = re.search(r"(\d+) bytes smem", entry)
@@ -1767,42 +1797,65 @@ def cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
           f"max|d|={errs[2]}; launches {({n: got[n + MEM] for n in MSV_WRAPPERS})}", flush=True)
 
 
+def case_suffix(plan) -> str:
+    """The JSON row suffix of a p7 case past 4864 states: CLUSTER for a
+    C-block cluster, MEM for the rows-in-memory case."""
+    return CLUSTER if plan.cluster > p7_cuda.CLUSTER else MEM
+
+
 def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
-    """Both joins of MEM_JOINS (LENG 6977 and 30181) through every p7
-    kernel's rows-in-memory case against its plain version on a ragged
-    batch of WIDE_BATCH sequences up to WIDE_LEN residues: eager, lazy
-    (replay counts included) and the Viterbi filter bit for bit, the filter
-    >= eager; Forward within FWD_TOL and log-space Forward within
+    """Both joins of MEM_JOINS (LENG 6977 and 30181: C = 3 and 13) through
+    every p7 kernel past 4864 states against its plain version on a ragged
+    batch of WIDE_BATCH sequences up to WIDE_LEN residues: the lazy Viterbi,
+    the Viterbi filter, Forward and the row-saving Forward on their C-block
+    clusters, the eager and log-space Forward and the backward pass in
+    memory; then the all-24 join twice over (LENG 60362, past 38,912)
+    through the lazy, filter and Forward kinds' rows-in-memory cases. Eager,
+    lazy (replay counts included) and the Viterbi filter bit for bit, the
+    filter >= the exact scores; the lazy kernel again at lazy_k = 1, whose
+    certificate fires below 16 chain passes (the fire count printed, above
+    0), bit for bit; Forward within FWD_TOL and log-space Forward within
     LOG_FWD_TOL of plain, the row-saving Forward == Forward bit for bit,
     eager and Forward carry chains == one call; the backward pass on the
     kernel's own rows within COV_TOL of plain and the whole decode within
-    COV_TOL / TOT_TOL. Every p7 rows-in-memory case must have launched (the
-    MSV kernels' are cluster_kernels_vs_plain's)."""
+    COV_TOL / TOT_TOL. Each kind must launch its case and no other (the
+    launch counters: cluster_launches by C, mem_launches)."""
     staged = ragged_wide_batch(scanner, rng)
-    hmms = mem_profiles()
-    zero_launches()
-    for hmm in hmms:
+    joins = [(hmm, ("eager", "lazy", "forward", "filter", "log", "save")) for hmm in mem_profiles()]
+    joins.append((msv_mem_profile(), ("lazy", "forward", "filter", "save")))
+    for hmm, kinds in joins:
         p7 = P7Profile.from_profile(hmm)
-        require(p7_cuda.kernel_case(p7_cuda.default_m_pad(p7))[0] == p7_cuda.MEM_THREADS,
-                f"{hmm.name} is not a rows-in-memory case")
+        m_pad = p7_cuda.default_m_pad(p7)
         packs = p7_packs(p7, scanner.device)
-        got, want = {}, {}
-        for kind in ("eager", "lazy", "forward", "filter", "log", "save"):
-            run, carry = p7_calls(kind, packs[kind], staged)
-            got[kind] = run(CUDA_FNS[kind], staged.tokens, staged.lengths, carry)
+        packs["lazy_k1"] = p7_cuda.viterbi_pack(p7, scanner.device, lazy=True, lazy_k=1)
+        zero_launches()
+        got, want, cases = {}, {}, {}
+        for kind in kinds + (("lazy_k1",) if "lazy" in kinds else ()):
+            base = "lazy" if kind == "lazy_k1" else kind
+            run, carry = p7_calls(base, packs[kind], staged)
+            got[kind] = run(CUDA_FNS[base], staged.tokens, staged.lengths, carry)
             torch.cuda.synchronize()
-            want[kind] = run(PLAIN_FNS[kind], staged.tokens, staged.lengths, carry)
-        e_err = require_equal(got["eager"], want["eager"], f"{hmm.name} eager kernel vs plain")
-        l_err = require_equal(got["lazy"], want["lazy"], f"{hmm.name} lazy kernel vs plain")
-        vf_err = require_equal(got["filter"], want["filter"], f"{hmm.name} filter kernel vs plain")
-        require_geq(got["filter"][0], got["eager"][0], f"{hmm.name} Viterbi filter vs eager")
-        f_err2 = max_abs_diff(got["forward"][0], want["forward"][0])
-        g_err = max_abs_diff(got["log"][0], want["log"][0])
-        require(f_err2 <= FWD_TOL and g_err <= LOG_FWD_TOL,
-                f"{hmm.name} Forward / log-space Forward vs plain: {f_err2}, {g_err}")
+            want[kind] = run(PLAIN_FNS[base], staged.tokens, staged.lengths, carry)
+            plan = p7_cuda.device_plan(base, m_pad, passes_of(base, packs[kind]), WIDE_BATCH,
+                                       DEVICE)
+            c = p7_cuda.cluster_blocks(m_pad, base)
+            require((plan.cluster, plan.threads) == ((c, 128) if c > 1 else (1, 1024)),
+                    f"{hmm.name[:40]} {base}: plan {plan}, expected "
+                    f"{f'a {c}-block cluster' if c > 1 else 'the rows-in-memory case'}")
+            cases[base] = case_suffix(plan)
+        l_err = require_equal(got["lazy"], want["lazy"], f"{hmm.name[:40]} lazy kernel vs plain")
+        k1_err = require_equal(got["lazy_k1"], want["lazy_k1"],
+                               f"{hmm.name[:40]} lazy kernel at lazy_k = 1 vs plain")
+        fires = int(got["lazy_k1"][5].sum())
+        passes = p7_cuda.chain_passes(m_pad)
+        require(fires > 0 or passes > 15, f"{hmm.name[:40]}: lazy_k = 1 never fired")
+        vf_err = require_equal(got["filter"], want["filter"], f"{hmm.name[:40]} filter vs plain")
+        require_geq(got["filter"][0], got["lazy"][0], f"{hmm.name[:40]} Viterbi filter vs lazy")
+        f_err = max_abs_diff(got["forward"][0], want["forward"][0])
+        require(f_err <= FWD_TOL, f"{hmm.name[:40]} Forward vs plain: {f_err}")
         s_err = require_equal(got["save"][:5], got["forward"],
-                              f"{hmm.name} row-saving Forward vs Forward kernel")
-        chains = [p7_chain_error(k, packs[k], staged) for k in ("eager", "forward")]
+                              f"{hmm.name[:40]} row-saving Forward vs Forward kernel")
+        f_chain = p7_chain_error("forward", packs["forward"], staged)
         schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
         bwd_in = backward_inputs(packs["forward"], schain, staged)
         cov = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
@@ -1811,43 +1864,66 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         cov_p, tot_p = posterior_decode(*PLAIN_DECODE, packs["forward"], schain, staged)
         c_err, t_err = max_abs_diff(cov, cov_p), max_abs_diff(bwd_in[8], tot_p)
         require(b_err <= COV_TOL and c_err <= COV_TOL and t_err <= TOT_TOL,
-                f"{hmm.name} posterior kernels vs plain: on the kernel's rows {b_err}, the "
+                f"{hmm.name[:40]} posterior kernels vs plain: on the kernel's rows {b_err}, the "
                 f"decode {c_err}, totals {t_err}")
-        for name, e in (("viterbi_scan", max(e_err, chains[0])), ("viterbi_lazy_scan", l_err),
-                        ("viterbi_filter_scan", vf_err),
-                        ("forward_prob_scan", max(f_err2, chains[1])),
-                        ("forward_log_scan", g_err), ("forward_save_scan", max(s_err, t_err)),
-                        ("backward_coverage_scan", max(b_err, c_err))):
-            errors[name + MEM] = max(errors[name + MEM], e)
-        print(f"rows in memory {hmm.name[:40]} (M {p7.num_states}, "
-              f"{p7_cuda.chain_passes(p7_cuda.default_m_pad(p7))} chain passes): B={WIDE_BATCH} "
-              f"L<={WIDE_LEN} eager max|d|={e_err} chain {chains[0]}, lazy(k={packs['lazy'].lazy_k}) "
-              f"max|d|={l_err} replays {int(got['lazy'][5].sum())}, filter(window="
-              f"{packs['filter'].window}) max|d|={vf_err} (>= eager), Forward {f_err2:.3g} chain "
-              f"{chains[1]}, log-space {g_err:.3g}, row-saving == Forward; backward on its rows "
-              f"{b_err:.3g}, decode coverage {c_err:.3g} totals {t_err:.3g}", flush=True)
-
-    got = launches()
-    missing = [name for name in WRAPPERS if name not in MSV_WRAPPERS and got[name + MEM] == 0]
-    require(not missing, f"rows-in-memory cases never launched: {missing}")
-    print(f"rows-in-memory launches {({n: got[n + MEM] for n in WRAPPERS})}")
+        found = [("viterbi_lazy_scan", "lazy", max(l_err, k1_err)),
+                 ("viterbi_filter_scan", "filter", vf_err),
+                 ("forward_prob_scan", "forward", max(f_err, f_chain)),
+                 ("forward_save_scan", "save", max(s_err, t_err)),
+                 ("backward_coverage_scan", None, max(b_err, c_err))]
+        text = ""
+        if "eager" in kinds:
+            e_err = require_equal(got["eager"], want["eager"], f"{hmm.name[:40]} eager vs plain")
+            require_equal([got["lazy"][0]], [got["eager"][0]], f"{hmm.name[:40]} lazy vs eager")
+            e_chain = p7_chain_error("eager", packs["eager"], staged)
+            g_err = max_abs_diff(got["log"][0], want["log"][0])
+            require(g_err <= LOG_FWD_TOL, f"{hmm.name[:40]} log-space Forward vs plain: {g_err}")
+            found += [("viterbi_scan", "eager", max(e_err, e_chain)), ("forward_log_scan", "log", g_err)]
+            text = f"eager max|d|={e_err} chain {e_chain} (== lazy), log-space {g_err:.3g}, "
+        for name, kind, e in found:
+            key = name + (cases[kind] if kind else MEM)
+            errors[key] = max(errors[key], e)
+        got_l = launches()
+        by_c = cluster_launches()
+        for name, kind, _ in found:
+            if kind is None:
+                require(got_l[name + MEM] > 0, f"{hmm.name[:40]}: {name} not in memory")
+                continue
+            c = p7_cuda.cluster_blocks(m_pad, kind)
+            if c > 1:
+                require(set(by_c[name]) == {c} and got_l[name + MEM] == 0,
+                        f"{hmm.name[:40]} {name}: launches {got_l}, by C {by_c[name]}; expected "
+                        f"the {c}-block cluster only")
+            else:
+                require(got_l[name + MEM] > 0 and not by_c.get(name),
+                        f"{hmm.name[:40]} {name}: not the rows-in-memory case ({got_l})")
+        print(f"past 4864 states {hmm.name[:40]} (M {p7.num_states}, {passes} chain passes, "
+              f"cases {cases}): B={WIDE_BATCH} L<={WIDE_LEN} {text}lazy(k="
+              f"{packs['lazy'].lazy_k}) max|d|={l_err} replays {int(got['lazy'][5].sum())}, "
+              f"lazy(k=1) max|d|={k1_err} fires {fires}, filter(window={packs['filter'].window}) "
+              f"max|d|={vf_err} (>= lazy), Forward {f_err:.3g} chain {f_chain}, row-saving == "
+              f"Forward; backward on its rows {b_err:.3g}, decode coverage {c_err:.3g} totals "
+              f"{t_err:.3g}; launches by C {by_c}", flush=True)
 
 
 def mem_paths(tmp: pathlib.Path, rng) -> dict:
     """The cases past 4864 states on the main paths, launch counts zeroed
     around each, on MEM_BATCH random rows of MEM_LEN residues with
     MEM_PLANTED sequences sampled from the three-profile join (LENG 6977) at
-    known rows: `scan --stage search --domains` (MSV's 3-block cluster; the
-    Viterbi, Forward, row-saving Forward and backward rows-in-memory cases;
-    every planted row a hit with its envelope inside it), `scan --stage
-    search --fast` (the MSV filter's 3-block cluster and the Viterbi
-    filter's rows-in-memory case; the plain search's hit rows), `sweep` over
-    both joins and the all-24 join twice over (the stacked kernel's 3- and
-    13-block clusters and its rows-in-memory case), `scan` (MSV) and
-    MSVScanner.scan_filter with that join (LENG 60362: the MSV kernels'
-    rows-in-memory case) and, on the planted rows, the entry points
+    known rows: `scan --stage search --domains` (the 3-block clusters of
+    MSV, the lazy Viterbi, Forward and the row-saving Forward, none of them
+    in memory; the backward pass's rows-in-memory case; every planted row a
+    hit with its envelope inside it), `scan --stage search --fast` (the
+    3-block clusters of the MSV filter, the Viterbi filter, the lazy
+    Viterbi and Forward, none in memory; the plain search's hit rows),
+    `sweep` over both joins and the all-24 join twice over (the stacked
+    kernel's 3- and 13-block clusters and its rows-in-memory case), `scan`
+    (MSV) and MSVScanner.scan_filter with that join (LENG 60362: the MSV
+    kernels' rows-in-memory case), on the planted rows the entry points
     viterbi_scores(lazy=False) (eager) and forward_scores(prob_space=False)
-    (log-space)."""
+    (log-space), and on MEM_PLANTED rows the entry points of the lazy
+    Viterbi, the Viterbi filter, Forward and the posterior decode with the
+    LENG 60362 join (their rows-in-memory cases past 38,912 states)."""
     hmm_dir = tmp / "hmms_mem"
     hmm_dir.mkdir()
     joins = mem_profiles() + [msv_mem_profile()]
@@ -1874,12 +1950,16 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     got, e2e, secs, records = run_cli(["scan", "--stage", "search", "--domains", "--hmm",
                                        str(path), "--fasta", str(fasta), "--device", DEVICE,
                                        "--out", str(out)])
-    require(got["msv_scan" + CLUSTER] > 0 and cluster_launches()["msv_scan"] == {3: 1},
-            f"the search --domains did not launch MSV's 3-block cluster ({cluster_launches()})")
-    counts["msv_scan" + CLUSTER] = got["msv_scan" + CLUSTER]
-    for name in (vit, "forward_prob_scan", "forward_save_scan", "backward_coverage_scan"):
-        require(got[name + MEM] > 0, f"the search --domains did not launch {name}'s memory case")
-        counts[name + MEM] = got[name + MEM]
+    require(vit == "viterbi_lazy_scan", "the LENG 6977 join runs the eager Viterbi")
+    by_c = cluster_launches()
+    for name in ("msv_scan", vit, "forward_prob_scan", "forward_save_scan"):
+        require(got[name + CLUSTER] > 0 and set(by_c[name]) == {3} and got[name + MEM] == 0,
+                f"the search --domains did not launch {name}'s 3-block cluster alone ({by_c}, "
+                f"{got})")
+        counts[name + CLUSTER] = got[name + CLUSTER]
+    require(got["backward_coverage_scan" + MEM] > 0,
+            "the search --domains did not launch backward_coverage_scan's memory case")
+    counts["backward_coverage_scan" + MEM] = got["backward_coverage_scan" + MEM]
     lines = out.read_text().splitlines()
     header = lines[0].lstrip("# ").split("\t")
     hits = [dict(zip(header, line.split("\t"))) for line in lines[1:]]
@@ -1900,14 +1980,13 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     got, e2e, secs, _ = run_cli(["scan", "--stage", "search", "--fast", "--hmm", str(path),
                                  "--fasta", str(fasta), "--device", DEVICE, "--out",
                                  str(fast_out)])
-    require(got["msv_filter_scan" + CLUSTER] > 0
-            and cluster_launches()["msv_filter_scan"] == {3: 1},
-            f"the fast search did not launch the MSV filter's 3-block cluster "
-            f"({cluster_launches()})")
-    counts["msv_filter_scan" + CLUSTER] = got["msv_filter_scan" + CLUSTER]
-    require(got["viterbi_filter_scan" + MEM] > 0,
-            "the fast search did not launch viterbi_filter_scan's memory case")
-    counts["viterbi_filter_scan" + MEM] = got["viterbi_filter_scan" + MEM]
+    by_c = cluster_launches()
+    require(by_c["msv_filter_scan"] == {3: 1}, f"the fast search did not launch the MSV filter's "
+            f"3-block cluster ({by_c})")
+    for name in ("msv_filter_scan", "viterbi_filter_scan", vit, "forward_prob_scan"):
+        require(got[name + CLUSTER] > 0 and set(by_c[name]) == {3} and got[name + MEM] == 0,
+                f"the fast search did not launch {name}'s 3-block cluster alone ({by_c}, {got})")
+        counts[name + CLUSTER] = counts.get(name + CLUSTER, 0) + got[name + CLUSTER]
     require(set(hit_rows(fast_out)) == {f"seq{r}" for r in hits},
             "the fast search's hits differ from the search's")
     print(f"main path rows in memory, search --fast: the search's {len(hits)} hits; "
@@ -1970,6 +2049,31 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     print(f"main path rows in memory, entries on the {MEM_PLANTED} planted rows: Viterbi (eager) "
           f"{np.round(vit_s, 2).tolist()}, log-space Forward {np.round(log_s, 2).tolist()} in "
           f"{time.perf_counter() - t0:.3f} s; launches {got}")
+
+    rows = slice(0, MEM_PLANTED)
+    big_p7 = P7Profile.from_profile(load_profile(big))
+    require(p7_cuda.cluster_blocks(p7_cuda.default_m_pad(big_p7), "lazy") == 1,
+            f"M {big_p7.num_states} is not past the p7 clusters")
+    zero_launches()
+    t0 = time.perf_counter()
+    lazy_s = viterbi_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE).cpu().numpy()
+    filt_s = viterbi_filter_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE)
+    fwd_s = forward_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE).cpu().numpy()
+    cov, _ = posterior_cuda.posterior_coverage_batch(big_p7, tokens[rows], lengths[rows], DEVICE)
+    got = launches()
+    for name in ("viterbi_lazy_scan", "viterbi_filter_scan", "forward_prob_scan",
+                 "forward_save_scan", "backward_coverage_scan"):
+        require(got[name + MEM] > 0 and got.get(name + CLUSTER, 0) == 0,
+                f"the entry points past 38,912 states did not launch {name}'s memory case alone "
+                f"({got})")
+        counts[name + MEM] = counts.get(name + MEM, 0) + got[name + MEM]
+    require_geq(filt_s, torch.from_numpy(lazy_s), "Viterbi filter past 38,912 states vs lazy")
+    require(np.isfinite(lazy_s).all() and np.isfinite(fwd_s).all() and np.isfinite(cov).all(),
+            "entry points past 38,912 states: non-finite scores")
+    print(f"main path past 38,912 states (M {big_p7.num_states}), entries on {MEM_PLANTED} rows: "
+          f"lazy Viterbi {np.round(lazy_s, 2).tolist()}, the filter >= it, Forward "
+          f"{np.round(fwd_s, 2).tolist()}, posterior coverage finite, in "
+          f"{time.perf_counter() - t0:.3f} s; launches {got}")
     return counts
 
 
@@ -2017,6 +2121,102 @@ def msv_timings_past(scanner, msvs: list, staged, suffix: str, reps: int, errors
     return out
 
 
+P7_PAST = (("viterbi_lazy_scan", "lazy"), ("viterbi_scan", "eager"),
+           ("forward_prob_scan", "forward"), ("viterbi_filter_scan", "filter"),
+           ("forward_log_scan", "log"))
+
+
+def p7_timings_past(scanner, hmm, tokens, kinds, errors: dict, work: dict,
+                    label: str = "") -> dict:
+    """The p7 cases of ``kinds`` (of P7_PAST's, "save" and "backward")
+    against ``hmm`` past 4864 states: the Viterbi and Forward kinds at
+    SURVIVOR_BATCH x MEM_TIME_LEN, the posterior pair at SURVIVOR_BATCH x
+    POST_TIME_LEN, on the first rows of ``tokens``; a C-block cluster best of
+    3, a rows-in-memory case once, each after a warm-up; each plain version
+    once, held against the kernel; the rows ``<kernel>_cluster<label>`` or
+    ``<kernel>_mem<label>`` by the case that ran, the parent's time beside
+    each (PARENT_WIDE_MS)."""
+    p7 = P7Profile.from_profile(hmm)
+    packs = p7_packs(p7, scanner.device)
+    few = scanner.stage(tokens[:SURVIVOR_BATCH],
+                        np.full(SURVIVOR_BATCH, MEM_TIME_LEN, dtype=np.int32))
+    few_cells = few.total_residues * p7.num_states
+    out = {}
+    for name, kind in P7_PAST:
+        if kind not in kinds:
+            continue
+        pack = packs[kind]
+        plan = p7_cuda.device_plan(kind, pack.m_pad, passes_of(kind, pack), SURVIVOR_BATCH,
+                                   DEVICE)
+        key = name + case_suffix(plan) + label
+        reps = 3 if plan.cluster > 1 else 1
+        run, carry = p7_calls(kind, pack, few)
+        ms = best_ms(lambda: run(CUDA_FNS[kind], few.tokens, few.lengths, carry), reps=reps)
+        got = run(CUDA_FNS[kind], few.tokens, few.lengths, carry)
+        plain_ms, want = once_ms(lambda: run(PLAIN_FNS[kind], few.tokens, few.lengths, carry))
+        if kind in ("forward", "log"):
+            err = max_abs_diff(got[0], want[0])
+            require(err <= FWD_TOL, f"{key} kernel vs plain at the timed shape: {err}")
+        else:
+            err = require_equal(got, want, f"{key} kernel vs plain at the timed shape")
+        row = name + case_suffix(plan)
+        errors[row] = max(errors[row], err)
+        out[key] = (ms, plain_ms)
+        inputs = (*pack[:4], pack.consts, few.tokens, few.lengths, few.tr_rows, *carry)
+        work[key] = (OPS_PER_CELL[kind](passes_of(kind, pack)) * few_cells, nbytes(*inputs, *got))
+        print(f"{key}: {few_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of {reps}, "
+              f"{SURVIVOR_BATCH} x {MEM_TIME_LEN} x M={p7.num_states}; "
+              f"{plan_text(kind, pack, SURVIVOR_BATCH)}); plain version {plain_ms:.3f} ms "
+              f"(once), kernel vs plain max|d|={err:.3g}; {versus_parent(key, ms, work)}",
+              flush=True)
+    if "save" not in kinds:
+        return out
+
+    post = scanner.stage(tokens[:SURVIVOR_BATCH, :POST_TIME_LEN],
+                         np.full(SURVIVOR_BATCH, POST_TIME_LEN, dtype=np.int32))
+    post_cells = post.total_residues * p7.num_states
+    fpack = packs["forward"]
+    plan = p7_cuda.device_plan("save", fpack.m_pad, passes_of("save", fpack), SURVIVOR_BATCH,
+                               DEVICE)
+    key = "forward_save_scan" + case_suffix(plan) + label
+    fwd_in = (*fpack[:4], post.tokens, post.lengths, post.tr_rows, post.tr_probs, fpack.consts,
+              *p7_cuda.forward_init_carry(post.tr_probs, fpack.m_pad))
+    reps = 3 if plan.cluster > 1 else 1
+    save_ms = best_ms(lambda: posterior_cuda.forward_save_scan_cuda(*fwd_in), reps=reps)
+    saved = posterior_cuda.forward_save_scan_cuda(*fwd_in)
+    plain_save_ms, p_saved = once_ms(lambda: posterior_cuda.forward_save_scan_plain(*fwd_in))
+    t_err = max_abs_diff(saved[0], p_saved[0])
+    require(t_err <= TOT_TOL, f"{key} vs plain at the timed shape: {t_err}")
+    errors["forward_save_scan" + case_suffix(plan)] = max(
+        errors["forward_save_scan" + case_suffix(plan)], t_err)
+    out[key] = (save_ms, plain_save_ms)
+    work[key] = (OPS_PER_CELL["forward"](fpack.chain.shape[0]) * post_cells,
+                 nbytes(*fwd_in, *saved))
+    print(f"{key}: the row-saving Forward {save_ms:.3f} ms (best of {reps}, {SURVIVOR_BATCH} x "
+          f"{POST_TIME_LEN} x M={p7.num_states}; {plan_text('save', fpack, SURVIVOR_BATCH)}); "
+          f"plain version {plain_save_ms:.3f} ms (once), totals max|d|={t_err:.3g}; "
+          f"{versus_parent(key, save_ms, work)}", flush=True)
+    if "backward" not in kinds:
+        return out
+    schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
+    bwd_in = (fpack.emit_m, fpack.emit_i, fpack.trans, schain, post.tokens, post.lengths,
+              post.tr_probs, fpack.consts, saved[0], saved[5], saved[6])
+    key = "backward_coverage_scan" + MEM + label
+    bwd_ms = best_ms(lambda: posterior_cuda.backward_coverage_scan_cuda(*bwd_in), reps=1)
+    cov = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
+    plain_bwd_ms, cov_p = once_ms(lambda: posterior_cuda.backward_coverage_scan_plain(*bwd_in))
+    c_err = max_abs_diff(cov, cov_p)
+    require(c_err <= COV_TOL, f"{key} vs plain at the timed shape: {c_err}")
+    errors["backward_coverage_scan" + MEM] = max(errors["backward_coverage_scan" + MEM], c_err)
+    out[key] = (bwd_ms, plain_bwd_ms)
+    work[key] = (OPS_PER_CELL["backward"](schain.shape[0]) * post_cells, nbytes(*bwd_in, cov))
+    print(f"{key}: the backward coverage pass {bwd_ms:.3f} ms (once, {SURVIVOR_BATCH} x "
+          f"{POST_TIME_LEN} x M={p7.num_states}; {plan_text('backward', fpack, SURVIVOR_BATCH)}); "
+          f"plain version {plain_bwd_ms:.3f} ms (once), coverage max|d|={c_err:.3g}; "
+          f"{versus_parent(key, bwd_ms, work)}", flush=True)
+    return out
+
+
 def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
     """Each case past 4864 states at MEM_TIME_LEN residues: the MSV
     kernels' C-block clusters (best of 3) against the three-profile join
@@ -2024,13 +2224,14 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
     the stacked kernel over both joins of MEM_JOINS there (C = 3 and 13, two
     launches); the MSV kernels' rows-in-memory case once, after a warm-up,
     against the all-24 join twice over (LENG 60362) at MSV_MEM_BATCH rows,
-    the stacked kernel over it alone; the p7 rows-in-memory cases once,
-    after a warm-up, against the three-profile join at SURVIVOR_BATCH rows
-    and the posterior pair at SURVIVOR_BATCH x 1024; each plain version
-    once, held against the kernel; the parent's time beside each
-    (PARENT_WIDE_MS)."""
+    the stacked kernel over it alone; the p7 cases (p7_timings_past) against
+    the three-profile join (the lazy Viterbi, the Viterbi filter, Forward
+    and the row-saving Forward on 3-block clusters, the eager and log-space
+    Forward and the backward pass in memory), the all-24 join (the four on
+    13-block clusters, rows ``<kernel>_cluster_30181``) and the LENG 60362
+    join (the four's rows-in-memory cases); each plain version once, held
+    against the kernel; the parent's time beside each (PARENT_WIDE_MS)."""
     hmms = mem_profiles()
-    p7 = P7Profile.from_profile(hmms[0])
     tokens = rng.integers(0, 20, size=(WIDE_MSV_BATCH, MEM_TIME_LEN)).astype(np.int8)
     staged = scanner.stage(tokens, np.full(WIDE_MSV_BATCH, MEM_TIME_LEN, dtype=np.int32))
     out = msv_timings_past(scanner, [MSVProfile.from_profile(h) for h in hmms], staged, CLUSTER,
@@ -2039,67 +2240,11 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
                                                          dtype=np.int32))
     out.update(msv_timings_past(scanner, [MSVProfile.from_profile(msv_mem_profile())],
                                 past, MEM, 1, errors, work))
-
-    few = scanner.stage(tokens[:SURVIVOR_BATCH],
-                        np.full(SURVIVOR_BATCH, MEM_TIME_LEN, dtype=np.int32))
-    few_cells = few.total_residues * p7.num_states
-    packs = p7_packs(p7, scanner.device)
-    for name, kind in (("viterbi_lazy_scan", "lazy"), ("viterbi_scan", "eager"),
-                       ("forward_prob_scan", "forward"), ("viterbi_filter_scan", "filter"),
-                       ("forward_log_scan", "log")):
-        pack = packs[kind]
-        run, carry = p7_calls(kind, pack, few)
-        ms = best_ms(lambda: run(CUDA_FNS[kind], few.tokens, few.lengths, carry), reps=1)
-        got = run(CUDA_FNS[kind], few.tokens, few.lengths, carry)
-        plain_ms, want = once_ms(lambda: run(PLAIN_FNS[kind], few.tokens, few.lengths, carry))
-        if kind in ("forward", "log"):
-            err = max_abs_diff(got[0], want[0])
-            require(err <= FWD_TOL, f"memory-case {kind} kernel vs plain at the timed shape: {err}")
-        else:
-            err = require_equal(got, want, f"memory-case {kind} kernel vs plain at the timed shape")
-        errors[name + MEM] = max(errors[name + MEM], err)
-        out[name + MEM] = (ms, plain_ms)
-        inputs = (*pack[:4], pack.consts, few.tokens, few.lengths, few.tr_rows, *carry)
-        work[name + MEM] = (OPS_PER_CELL[kind](passes_of(kind, pack)) * few_cells,
-                            nbytes(*inputs, *got))
-        print(f"{name}{MEM}: {few_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, once, "
-              f"{SURVIVOR_BATCH} x {MEM_TIME_LEN} x M={p7.num_states}; "
-              f"{plan_text(kind, pack, SURVIVOR_BATCH)}); plain version {plain_ms:.3f} ms "
-              f"(once), kernel vs plain max|d|={err:.3g}; {versus_parent(name + MEM, ms, work)}",
-              flush=True)
-
-    post = scanner.stage(tokens[:SURVIVOR_BATCH, :POST_TIME_LEN],
-                         np.full(SURVIVOR_BATCH, POST_TIME_LEN, dtype=np.int32))
-    post_cells = post.total_residues * p7.num_states
-    fpack = packs["forward"]
-    schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
-    fwd_in = (*fpack[:4], post.tokens, post.lengths, post.tr_rows, post.tr_probs, fpack.consts,
-              *p7_cuda.forward_init_carry(post.tr_probs, fpack.m_pad))
-    save_ms = best_ms(lambda: posterior_cuda.forward_save_scan_cuda(*fwd_in), reps=1)
-    saved = posterior_cuda.forward_save_scan_cuda(*fwd_in)
-    bwd_in = (fpack.emit_m, fpack.emit_i, fpack.trans, schain, post.tokens, post.lengths,
-              post.tr_probs, fpack.consts, saved[0], saved[5], saved[6])
-    bwd_ms = best_ms(lambda: posterior_cuda.backward_coverage_scan_cuda(*bwd_in), reps=1)
-    cov = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
-    plain_save_ms, p_saved = once_ms(lambda: posterior_cuda.forward_save_scan_plain(*fwd_in))
-    plain_bwd_ms, cov_p = once_ms(lambda: posterior_cuda.backward_coverage_scan_plain(*bwd_in))
-    c_err, t_err = max_abs_diff(cov, cov_p), max_abs_diff(saved[0], p_saved[0])
-    require(c_err <= COV_TOL and t_err <= TOT_TOL,
-            f"memory-case posterior kernels vs plain at the timed shape: {c_err}, {t_err}")
-    errors["backward_coverage_scan" + MEM] = max(errors["backward_coverage_scan" + MEM], c_err)
-    errors["forward_save_scan" + MEM] = max(errors["forward_save_scan" + MEM], t_err)
-    out["forward_save_scan" + MEM] = (save_ms, plain_save_ms)
-    out["backward_coverage_scan" + MEM] = (bwd_ms, plain_bwd_ms)
-    work["forward_save_scan" + MEM] = (OPS_PER_CELL["forward"](fpack.chain.shape[0]) * post_cells,
-                                       nbytes(*fwd_in, *saved))
-    work["backward_coverage_scan" + MEM] = (
-        OPS_PER_CELL["backward"](schain.shape[0]) * post_cells, nbytes(*bwd_in, cov))
-    print(f"posterior{MEM}: the row-saving Forward {save_ms:.3f} ms, the backward coverage pass "
-          f"{bwd_ms:.3f} ms (each once, {SURVIVOR_BATCH} x {POST_TIME_LEN} x M={p7.num_states}; "
-          f"{plan_text('backward', fpack, SURVIVOR_BATCH)}); plain versions "
-          f"{plain_save_ms:.3f} + {plain_bwd_ms:.3f} ms (once); coverage max|d|={c_err:.3g}; "
-          f"row-saving {versus_parent('forward_save_scan' + MEM, save_ms, work)}; backward "
-          f"{versus_parent('backward_coverage_scan' + MEM, bwd_ms, work)}", flush=True)
+    clustered = ("lazy", "forward", "filter", "save")
+    out.update(p7_timings_past(scanner, hmms[0], tokens, clustered + ("eager", "log", "backward"),
+                               errors, work))
+    out.update(p7_timings_past(scanner, hmms[1], tokens, clustered, errors, work, "_30181"))
+    out.update(p7_timings_past(scanner, msv_mem_profile(), tokens, clustered, errors, work))
     return out
 
 

@@ -3,9 +3,10 @@
 // probability-space Forward kernel (p7_forward_kernel.cu) and the posterior
 // backward coverage pass (p7_backward_kernel.cu); the cluster pair's
 // primitives, which the Viterbi and Forward templates' wide cases run on
-// (after the group's), with the step's shift and reduction wrappers and the
-// pair's launch; and, past 256 * 19 = 4864 states, the rows-in-memory case's
-// helpers (at the end).
+// (after the group's), and the C-block cluster's, which their lazy, filter
+// and Forward cases run on past 256 * 19 = 4864 states, with the step's
+// shift and reduction wrappers and the clusters' launches; and the
+// rows-in-memory case's helpers (at the end).
 //
 // A block holds G groups of KT threads, KT = 128 (M_pad <= 128 * 19 = 2432)
 // or 256 (the backward source's wide case, M_pad <= 256 * 19 = 4864; the
@@ -54,6 +55,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "cluster.cuh"
 
@@ -738,38 +740,344 @@ __device__ __forceinline__ bool pair_any(bool v, int t, Pair& pr) {
   return combine_warps<false, 2 * KT>(pair_collect<KT>(q, pr)) > 0.0f;
 }
 
-// A group's shift and its reductions, alone (on its named barrier) or in the
-// cluster pair (`id` the shift's halo: the two shifts by one at 0 and 1, pass
-// id - 2 of a chain of `passes`), as the step of either template takes them.
-template <int PER, int KT, bool PAIR>
+// -- the C-block cluster ------------------------------------------------------
+//
+// Past 256 * 19 = 4864 states (up to kMaxCluster * 2432 = 38,912) the
+// Viterbi template's lazy and filter cases and the Forward template's
+// cases run one sequence on C groups of KT = 128 threads, one in each
+// block of a C-block thread-block cluster (C = ceil(M_pad / 2432), 3..16,
+// read from %cluster_nctarank, so one compiled case of PER serves every
+// C). Block r owns the states r * KT * PER + t * PER + k, the normal-width
+// layout of its slice, and stages its slice of every row the normal-width
+// plan stages. Each phase that crosses threads crosses the cluster, as the
+// pair's do, with the same slots and mbarriers in every block (cluster_floats):
+//  * a shift by S below PER and at most 16: block r - 1's last thread stores
+//    its last S states into block r's halo of that shift by st.async; block
+//    r's thread 0 arrives expecting 4 * S bytes and waits (block 0 fills);
+//  * a larger shift by s, with q = s div (KT * PER) and s' = s mod (KT *
+//    PER): state l of block r is state l - s' of block r - q when l >= s',
+//    else state l - s' + KT * PER of block r - q - 1. So block b stores its
+//    states below KT * PER - s' into block b + q's row at l + s' (q >= 1;
+//    for q = 0 they are its own, read from its shift buffer) and the others
+//    into block b + q + 1's row at l + s' - KT * PER, where those blocks
+//    exist; a receiving block expects the bytes of the blocks that exist
+//    below it. The rows alternate by larger shift within a step; before a
+//    block stores into a row again (use i + 2 of the step), each block that
+//    reads that row has released it to the blocks that will store there
+//    (a 4-byte st.async into the sender's release slot, one slot for the
+//    b + q receiver and one for the b + q + 1 one); a block that receives
+//    nothing still releases;
+//  * a reduction: lane p of each warp stores the warp's value into block p's
+//    exchange slot rank * KT / 32 + warp; every block waits for the C * KT /
+//    32 values on its exchange mbarrier and combines them in one fixed order,
+//    block 0's warps first (each block's KT / 32 as the group combines them,
+//    then the blocks in rank order), so every block gets the same value bit
+//    for bit.
+// No slot or row is written again before its readers are done: every step
+// ends in an exchange (E) that needs every block's value, sent after that
+// block's last read of the step, so no block starts step n + 1's stores
+// before every block is done with step n's halos and the rows' last two
+// uses; within a step the releases order the rows' reuse, and exchange
+// n + 2 reuses the slots of exchange n only after every block has sent n +
+// 1, which each sends after its reads of n. Every wait is an mbarrier's,
+// acquire at cluster scope: no release fence and no cluster barrier in a
+// step.
+constexpr int kMaxCluster = 16;
+
+// A block's area: two rows that other blocks' states land in, two
+// exchanges' slots (kMaxCluster blocks' warps), the halos, 4 release slots
+// (2 rows x 2 senders), then the mbarriers (laid out as the pair's).
+template <int PER, int KT>
+__host__ __device__ constexpr int cluster_floats() {
+  return 2 * row_floats<PER, KT>() + 2 * kMaxCluster * warps<KT>() + kHaloIds * kHaloSlots + 4 +
+         2 * kPairBars;
+}
+
+template <int PER, int KT, bool BF16>
+__host__ __device__ constexpr size_t cluster_smem_floats(int n_rows, bool save = false) {
+  return smem_floats<PER, KT, BF16>(n_rows, 1, save) + cluster_floats<PER, KT>();
+}
+
+// A block's place in its C-block cluster and its exchange state.
+struct Cluster {
+  int rank;
+  int nblk;    // C
+  int col0;    // the block's first state
+  int m_real;  // the block's real states
+  float* rows;    // [2][row_floats]: the states other blocks store for a larger shift
+  float* xslots;  // [2][kMaxCluster * KT / 32] exchange slots
+  float* halo;    // [kHaloIds][kHaloSlots]
+  float* fslots;  // [2][2] release slots
+  unsigned long long* bars;  // halo 0.., exchange, row, release mbarriers
+  unsigned hbar, xbar, rbar, fbar;  // shared addresses of each kind's mbarrier 0
+  unsigned next_halo, next_hbar;    // block rank + 1's halos and their mbarriers
+  unsigned x_dst, xbar_dst;         // lane p < C: block p's exchange slots and mbarriers
+  unsigned hphase, xphase, rphase, fphase;  // each kind's phases, by bit
+  int xn;  // exchanges sent
+};
+
+// The cluster's area at `area` (cluster_floats<PER, KT>() floats, 16-byte
+// aligned); thread 0 initialises the mbarriers (the caller fences and
+// synchronises the cluster before anyone arrives on them). `c.rank` and
+// `c.nblk` are set.
+template <int PER, int KT>
+__device__ __forceinline__ void cluster_setup(Cluster& c, float* area, int t) {
+  c.rows = area;
+  c.xslots = area + 2 * row_floats<PER, KT>();
+  c.halo = c.xslots + 2 * kMaxCluster * warps<KT>();
+  c.fslots = c.halo + kHaloIds * kHaloSlots;
+  c.bars = reinterpret_cast<unsigned long long*>(c.fslots + 4);
+  c.hbar = smem_addr(c.bars);
+  c.xbar = smem_addr(c.bars + kHaloIds);
+  c.rbar = smem_addr(c.bars + kHaloIds + 2);
+  c.fbar = smem_addr(c.bars + kHaloIds + 4);
+  if (t == 0) {
+    for (int i = 0; i < kPairBars; ++i) mbar_init(c.bars + i);
+  }
+  const unsigned next = min(c.rank + 1, c.nblk - 1);
+  c.next_halo = peer_addr(c.halo, next);
+  c.next_hbar = peer_addr(c.bars, next);
+  const unsigned dst = min(t & 31, c.nblk - 1);
+  c.x_dst = peer_addr(c.xslots, dst);
+  c.xbar_dst = peer_addr(c.bars + kHaloIds, dst);
+  c.hphase = c.xphase = c.rphase = c.fphase = 0;
+  c.xn = 0;
+}
+
+// out[k] = state j - S of the cluster's row (j = col0 + t * PER + k), for
+// S < PER: slots k >= S are register moves; the first S come from thread t -
+// 1 through `buf`, in thread 0 of block r > 0 from block r - 1's last thread
+// through halo `id`, in block 0's thread 0 `fill`.
+template <int PER, int KT, int S>
+__device__ __forceinline__ void cluster_shift_small(const float (&v)[PER], float (&out)[PER],
+                                                    float fill, float* buf, int t, int bar,
+                                                    Cluster& c, int id) {
+  static_assert(S <= kHaloSlots, "a small shift's halo");
+  constexpr int SP = stride<PER>();
+  if (c.rank + 1 < c.nblk && t == KT - 1) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      st_async(c.next_halo + 4 * (id * kHaloSlots + k), v[PER - S + k], c.next_hbar + 8 * id);
+    }
+  }
+#pragma unroll
+  for (int k = PER - S; k < PER; ++k) buf[t * SP + k] = v[k];
+  group_sync<KT>(bar);
+  if (t > 0) {
+    const int prev = (t - 1) * SP + PER - S;
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[k] = buf[prev + k];
+  } else if (c.rank > 0) {
+    mbar_expect(c.hbar + 8 * id, 4 * S);
+    mbar_wait(c.hbar + 8 * id, (c.hphase >> id) & 1u);
+    c.hphase ^= 1u << id;
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[k] = c.halo[id * kHaloSlots + k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[k] = fill;
+  }
+#pragma unroll
+  for (int k = S; k < PER; ++k) out[k] = v[k - S];
+}
+
+// The releases a block sends once its group has read row i & 1 of a larger
+// shift by s, for that row's use i + 2 (a shift by 4 * s): to the blocks
+// that will store into it there (thread 0: rank - q, thread 1: rank - q - 1).
+template <int PER, int KT>
+__device__ __forceinline__ void cluster_release(int s4, int qq, int t, Cluster& c) {
+  constexpr int N = KT * PER;
+  const int q = s4 / N;
+  const int rest = s4 - q * N;
+  const int to = t == 0 ? (q >= 1 ? c.rank - q : -1) : (rest > 0 ? c.rank - q - 1 : -1);
+  if (t < 2 && to >= 0) {
+    st_async(peer_addr(c.fslots + 2 * qq + t, to), 0.0f, peer_addr(c.bars + kHaloIds + 4 + qq, to));
+  }
+}
+
+// The same for any s: block r's state l takes state l - s' of block r - q
+// (its own shift buffer for q = 0) when l >= s', else state l - s' + KT *
+// PER of block r - q - 1 (the header says how they get here), `fill` where
+// that block does not exist. `i` is the larger shift's index in this step's
+// n larger shifts.
+template <int PER, int KT>
+__device__ __forceinline__ void cluster_shift_big(const float (&v)[PER], float (&out)[PER], int s,
+                                                  float fill, float* buf, int t, int bar,
+                                                  Cluster& c, int i, int n) {
+  constexpr int SP = stride<PER>();
+  constexpr int N = KT * PER;  // a block's states
+  const int qq = i & 1;
+  const int q = s / N;
+  const int rest = s - q * N;
+  // stores to block rank + q (its states below N - rest) and rank + q + 1
+  // (the others)
+  const bool to_a = q >= 1 && c.rank + q < c.nblk;
+  const bool to_b = rest > 0 && c.rank + q + 1 < c.nblk;
+  if (to_a || to_b) {
+    if (i >= 2) {
+      if (t == 0) mbar_expect(c.fbar + 8 * qq, 4 * (int(to_a) + int(to_b)));
+      mbar_wait(c.fbar + 8 * qq, (c.fphase >> qq) & 1u);
+      c.fphase ^= 1u << qq;
+    }
+    const int dst_a = min(c.rank + q, c.nblk - 1);
+    const int dst_b = min(c.rank + q + 1, c.nblk - 1);
+    const unsigned row_a = peer_addr(c.rows + qq * row_floats<PER, KT>(), dst_a);
+    const unsigned bar_a = peer_addr(c.bars + kHaloIds + 2 + qq, dst_a);
+    const unsigned row_b = peer_addr(c.rows + qq * row_floats<PER, KT>(), dst_b);
+    const unsigned bar_b = peer_addr(c.bars + kHaloIds + 2 + qq, dst_b);
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int j = t * PER + k;
+      if (j < N - rest) {
+        if (to_a) st_async(row_a + 4 * sidx<PER>(j + rest), v[k], bar_a);
+      } else if (to_b) {
+        st_async(row_b + 4 * sidx<PER>(j + rest - N), v[k], bar_b);
+      }
+    }
+  }
+  if (q == 0) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) buf[t * SP + k] = v[k];
+  }
+  group_sync<KT>(bar);
+  // what lands here: from block rank - q (q >= 1) and rank - q - 1
+  const bool from_a = q >= 1 && c.rank - q >= 0;
+  const bool from_b = rest > 0 && c.rank - q - 1 >= 0;
+  if (from_a || from_b) {
+    if (t == 0) mbar_expect(c.rbar + 8 * qq, 4 * ((from_a ? N - rest : 0) + (from_b ? rest : 0)));
+    mbar_wait(c.rbar + 8 * qq, (c.rphase >> qq) & 1u);
+    c.rphase ^= 1u << qq;
+  }
+  const float* row = c.rows + qq * row_floats<PER, KT>();
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int l = t * PER + k;
+    if (l >= rest) {
+      out[k] = q == 0 ? buf[sidx<PER>(l - rest)] : from_a ? row[sidx<PER>(l)] : fill;
+    } else {
+      out[k] = from_b ? row[sidx<PER>(l)] : fill;
+    }
+  }
+  if (i + 2 < n) {
+    // the group has read the row: its use i + 2 may be stored
+    group_sync<KT>(bar);
+    cluster_release<PER, KT>(s << 2, qq, t, c);
+  }
+}
+
+// The cluster's shift by s, `fill` where j < s (`id`: the shift's halo; a
+// larger shift is the step's i-th of n).
+template <int PER, int KT>
+__device__ __forceinline__ void cluster_shift(const float (&v)[PER], float (&out)[PER], int s,
+                                              float fill, float* buf, int t, int bar, Cluster& c,
+                                              int id, int i, int n) {
+  if constexpr (PER > 1) {
+    if (s == 1) return cluster_shift_small<PER, KT, 1>(v, out, fill, buf, t, bar, c, id);
+  }
+  if constexpr (PER > 2) {
+    if (s == 2) return cluster_shift_small<PER, KT, 2>(v, out, fill, buf, t, bar, c, id);
+  }
+  if constexpr (PER > 4) {
+    if (s == 4) return cluster_shift_small<PER, KT, 4>(v, out, fill, buf, t, bar, c, id);
+  }
+  if constexpr (PER > 8) {
+    if (s == 8) return cluster_shift_small<PER, KT, 8>(v, out, fill, buf, t, bar, c, id);
+  }
+  if constexpr (PER > 16) {
+    if (s == 16) return cluster_shift_small<PER, KT, 16>(v, out, fill, buf, t, bar, c, id);
+  }
+  cluster_shift_big<PER, KT>(v, out, s, fill, buf, t, bar, c, i, n);
+}
+
+// An exchange: each warp's value `v` (the same in every lane) into slot
+// rank * KT / 32 + warp of every block's slots of this exchange, lane p
+// storing into block p's; returns the exchange (0 or 1) for cluster_collect.
+template <int KT>
+__device__ __forceinline__ int cluster_send(float v, int t, Cluster& c) {
+  constexpr int X = kMaxCluster * warps<KT>();
+  const int q = c.xn++ & 1;
+  if ((t & 31) < c.nblk) {
+    const unsigned off = 4 * (q * X + c.rank * warps<KT>() + (t >> 5));
+    st_async(c.x_dst + off, v, c.xbar_dst + 8 * q);
+  }
+  if (t == 0) mbar_expect(c.xbar + 8 * q, 4 * c.nblk * warps<KT>());
+  return q;
+}
+
+// The max or sum of exchange q's C * KT / 32 values, once every block's
+// have arrived: each block's warps as a group combines them, then the
+// blocks in rank order.
+template <bool SUM, int KT>
+__device__ __forceinline__ float cluster_collect(int q, Cluster& c) {
+  mbar_wait(c.xbar + 8 * q, (c.xphase >> q) & 1u);
+  c.xphase ^= 1u << q;
+  const float* x = c.xslots + q * kMaxCluster * warps<KT>();
+  float acc = combine_warps<SUM, KT>(x);
+  for (int b = 1; b < c.nblk; ++b) {
+    const float v = combine_warps<SUM, KT>(x + b * warps<KT>());
+    acc = SUM ? acc + v : fmaxf(acc, v);
+  }
+  return acc;
+}
+
+// The cluster's max or sum of one value a thread.
+template <bool SUM, int KT>
+__device__ __forceinline__ float cluster_reduce(float v, int t, Cluster& c) {
+  return cluster_collect<SUM, KT>(cluster_send<KT>(warp_reduce<SUM>(v), t, c), c);
+}
+
+// OR of `v` over the cluster; every thread of every block gets it.
+template <int KT>
+__device__ __forceinline__ bool cluster_any(bool v, int t, Cluster& c) {
+  return cluster_collect<false, KT>(
+             cluster_send<KT>(__any_sync(kFullMask, v) ? 1.0f : 0.0f, t, c), c) > 0.0f;
+}
+
+// How far a group's phases reach: its own block, the cluster pair or a
+// C-block cluster; the block's place there.
+enum class Span { kGroup, kPair, kCluster };
+template <Span S>
+using Link = std::conditional_t<S == Span::kCluster, Cluster, Pair>;
+
+// A group's shift and its reductions, alone (on its named barrier), in the
+// cluster pair or in a C-block cluster (`id` the shift's halo: the two
+// shifts by one at 0 and 1, pass id - 2 of a chain of `passes`), as the step
+// of either template takes them.
+template <int PER, int KT, Span S>
 __device__ __forceinline__ void step_shift(const float (&v)[PER], float (&out)[PER], int s,
-                                           float fill, float* buf, int t, int bar, Pair& pr,
+                                           float fill, float* buf, int t, int bar, Link<S>& pr,
                                            int id, int passes) {
-  if constexpr (PAIR) {
-    constexpr int kSmall = small_passes<PER>();
+  constexpr int kSmall = small_passes<PER>();
+  if constexpr (S == Span::kPair) {
     pair_shift<PER, KT>(v, out, s, fill, buf, t, bar, pr, id, id - 2 - kSmall, passes - kSmall);
+  } else if constexpr (S == Span::kCluster) {
+    cluster_shift<PER, KT>(v, out, s, fill, buf, t, bar, pr, id, id - 2 - kSmall,
+                           passes - kSmall);
   } else {
     shift<PER, KT>(v, out, s, fill, buf, t, bar);
   }
 }
 
-template <bool SUM, int KT, bool PAIR>
-__device__ __forceinline__ float step_reduce(float v, float* red, int t, int bar, Pair& pr) {
-  if constexpr (PAIR) {
+template <bool SUM, int KT, Span S>
+__device__ __forceinline__ float step_reduce(float v, float* red, int t, int bar, Link<S>& pr) {
+  if constexpr (S == Span::kPair) {
     return pair_reduce<SUM, KT>(v, t, pr);
+  } else if constexpr (S == Span::kCluster) {
+    return cluster_reduce<SUM, KT>(v, t, pr);
   } else {
     return group_reduce<SUM, KT>(v, red, t, bar);
   }
 }
 
-// The cluster pair's copy of its half of emission rows `aa` of the [20,
+// A cluster block's copy of its slice of emission rows `aa` of the [20,
 // m_pad] tables (f32, or the filter's bf16 bits): states col0 .. col0 +
 // m_real - 1, as prefetch_emissions and prefetch_emissions_bf16 copy a whole
-// row (the half starts on a 16-byte boundary: col0 = KT * PER and m_pad
-// are multiples of 8). The caller commits.
-template <int PER, int KT, typename E>
+// row (the slice starts on a 16-byte boundary: col0 = r * KT * PER and
+// m_pad are multiples of 8). `h` is the block's Pair or Cluster. The caller
+// commits.
+template <int PER, int KT, typename E, typename H>
 __device__ __forceinline__ void prefetch_half(E* dm, E* di, const E* msc, const E* isc, int aa,
-                                              int m_pad, Pair& h, int t) {
+                                              int m_pad, const H& h, int t) {
   const E* gm = msc + static_cast<size_t>(aa) * m_pad + h.col0;
   const E* gi = isc + static_cast<size_t>(aa) * m_pad + h.col0;
   constexpr bool kF32 = sizeof(E) == 4;
@@ -846,18 +1154,20 @@ cudaError_t allow_smem(Kernel kernel, int device, unsigned& done) {
   return err;
 }
 
-// The launch of the cluster pair: `grid` blocks of 128 threads in clusters
-// of 2 along x (cudaLaunchKernelEx), after setting the kernel's
-// shared-memory limit once per device; a refused launch returns its error.
-inline cudaLaunchConfig_t pair_config(int grid, int smem, cudaStream_t stream,
-                                      cudaLaunchAttribute* attr) {
+// The launch of a cluster kernel (the pair, c = 2, or a C-block cluster):
+// `grid` blocks of 128 threads in clusters of c along x
+// (cudaLaunchKernelEx), after setting the kernel's shared-memory limit and
+// its leave to take a non-portable cluster size (past 8 blocks) once per
+// device; a refused launch returns its error.
+inline cudaLaunchConfig_t cluster_config(int grid, int c, int smem, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(128);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.x = c;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -865,30 +1175,44 @@ inline cudaLaunchConfig_t pair_config(int grid, int smem, cudaStream_t stream,
   return cfg;
 }
 
+template <typename Kernel>
+cudaError_t allow_cluster(Kernel kernel, int device, unsigned& done) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if ((done >> device) & 1u) return cudaSuccess;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err == cudaSuccess) done |= 1u << device;
+  return err;
+}
+
 template <typename Args>
-cudaError_t launch_pair(void (*kernel)(Args), const Args& a, int device, unsigned& done, int grid,
-                        int smem, cudaStream_t stream) {
-  cudaError_t err = allow_smem(kernel, device, done);
+cudaError_t launch_cluster(void (*kernel)(Args), const Args& a, int device, unsigned& done, int c,
+                           int grid, int smem, cudaStream_t stream) {
+  cudaError_t err = allow_cluster(kernel, device, done);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = pair_config(grid, smem, stream, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(grid, c, smem, stream, &attr);
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// The most 2-block clusters of a pair kernel the card `device` runs at once
-// with `smem` bytes of dynamic shared memory a block
-// (cudaOccupancyMaxActiveClusters), for the launch plan's persistent grid.
+// The most clusters of c blocks of a cluster kernel the card `device` runs
+// at once with `smem` bytes of dynamic shared memory a block
+// (cudaOccupancyMaxActiveClusters, for the launch plan's persistent grid;
+// 0 when it holds none).
 template <typename Args>
-cudaError_t pair_max_clusters(void (*kernel)(Args), int device, unsigned& done, int smem,
-                              int* out) {
+cudaError_t cluster_max_clusters(void (*kernel)(Args), int device, unsigned& done, int c,
+                                 int smem, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = allow_smem(kernel, device, done);
+  err = allow_cluster(kernel, device, done);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = pair_config(2, smem, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(c, c, smem, nullptr, &attr);
   return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
 }
 
@@ -989,6 +1313,30 @@ cudaError_t with_pair_case(int per, Fn fn) {
 #undef P7_PAIR_CASE
 constexpr int kPairSlots = 10;  // per-case tables of the pair: [per - 10]
 
+// Calls fn(Case<per>{}) for the C-block cluster's cases (p7_viterbi.cuh,
+// p7_forward_kernel.cu): 128 threads a block, 13..19 states a thread (C >=
+// 3 blocks of 128 * per states cover M_pad > 4864 only from per 13 on).
+#define P7_CLUSTER_CASE(P) \
+  case P:                  \
+    return fn(Case<P>{});
+
+template <template <int> class Case, typename Fn>
+cudaError_t with_cluster_case(int per, Fn fn) {
+  switch (per) {
+    P7_CLUSTER_CASE(13)
+    P7_CLUSTER_CASE(14)
+    P7_CLUSTER_CASE(15)
+    P7_CLUSTER_CASE(16)
+    P7_CLUSTER_CASE(17)
+    P7_CLUSTER_CASE(18)
+    P7_CLUSTER_CASE(19)
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+#undef P7_CLUSTER_CASE
+constexpr int kClusterSlots = 7;  // per-case tables of the C-block cluster: [per - 13]
+
 // Index of a kernel case in per-case tables: [0, 19) at 128 threads, [19,
 // 29) at 256.
 __host__ inline int case_slot(int threads, int per) {
@@ -998,8 +1346,9 @@ constexpr int kCaseSlots = 29;
 
 // -- the rows-in-memory case --------------------------------------------------
 //
-// Past 256 * 19 = 4864 states (up to 65536, the 16-row chain) neither a
-// group's registers nor an SM's shared memory hold the DP rows. One block of
+// Past 256 * 19 = 4864 states for the eager and log-space kinds and the
+// backward pass, and past 38,912 for the others (up to 65536, the 16-row
+// chain), no launch plan here holds the DP rows in registers. One block of
 // kMemThreads threads follows one sequence (G = 1, a persistent grid) and
 // keeps every row in global memory: kMemRows scratch rows of m_pad floats a
 // block, [grid, kMemRows, m_pad], which the wrapper allocates (they stay in

@@ -84,9 +84,23 @@
 //    one call. SAVE: each block stores its half of the bf16 row at its first
 //    state (after its group's barrier: the pair's exchange orders no plain
 //    shared-memory stores), block 0 alone the log scale.
-//  * Past 256 * 19 = 4864 states the rows-in-memory case
-//    (forward_mem_kernel, p7_blocked.cuh) runs the same step with every row
-//    in global memory, one 1024-thread block a sequence.
+//  * Past 256 * 19 = 4864 states (up to 16 * 2432 = 38,912) both cases
+//    run on C-block clusters (p7_blocked.cuh; forward_cluster_kernel, C =
+//    ceil(M_pad / 2432), 3..16, read from %cluster_nctarank), as the pair
+//    does with C blocks: block r holds states r * 128 * PER .. in the
+//    normal-width layout and stages its slice of every row; the shifts by
+//    one and every window pass cross the cluster (a pass of a whole block or
+//    more takes a block's states from the two blocks it falls between); E's
+//    sum and the rescale max go into every block, each warp's value, summed
+//    (or maxed) in one fixed order, block 0's warps first, so every block
+//    derives the same specials, rescale factor, log scale and compensation
+//    bit for bit and a carry chain split at a multiple of `group` still
+//    equals one call. SAVE: each block stores its slice of the bf16 row at
+//    its first state after its group's barrier, block 0 alone the log scale.
+//  * Past 38,912 states the rows-in-memory case (forward_mem_kernel,
+//    p7_blocked.cuh) runs the same step with every row in global memory,
+//    one 1024-thread block a sequence; the launch plan also takes it for a
+//    width whose cluster the card cannot hold.
 
 #include <cuda_bf16.h>
 
@@ -124,11 +138,12 @@ struct ForwardArgs {
   int b_pad;
 };
 
-// The kernel's body, for a block of G groups (forward_kernel) or for a block
-// of the cluster pair (PAIR: forward_pair_kernel, one group a block, KT =
-// 128, block r following states col0 = r * 128 * PER .. col0 + 128 * PER -
-// 1 of a sequence in the normal-width layout).
-template <int PER, int KT, bool SAVE, bool PAIR>
+// The kernel's body, for a block of G groups (forward_kernel), for a block
+// of the cluster pair (forward_pair_kernel) or for one of a C-block cluster
+// (forward_cluster_kernel; both one group a block, KT = 128, block r
+// following states col0 = r * 128 * PER .. col0 + 128 * PER - 1 of a
+// sequence in the normal-width layout).
+template <int PER, int KT, bool SAVE, Span SPAN>
 __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int ROW = row_floats<PER, KT>();
@@ -137,15 +152,19 @@ __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
   const int m_pad = a.m_pad;
   const int n_trans = KT == 128 ? kTransRows : a.n_trans;
   const int n_rows = n_trans + a.n_chain;
-  Pair h;
+  constexpr bool kLinked = SPAN != Span::kGroup;
+  Link<SPAN> h;
   h.rank = 0;
   h.col0 = 0;
   h.m_real = m_pad;
-  if constexpr (PAIR) {
+  int nblk = 1;  // the blocks following a sequence
+  if constexpr (kLinked) {
     h.rank = static_cast<int>(cluster_rank());
     h.col0 = h.rank * KT * PER;
     h.m_real = min(max(m_pad - h.col0, 0), KT * PER);
+    nblk = static_cast<int>(cluster_size());
   }
+  if constexpr (SPAN == Span::kCluster) h.nblk = nblk;
 
   for (int q = 0; q < n_trans; ++q) {
     stage_row<PER, KT>(smem + q * ROW, a.trans + q * m_pad + h.col0, h.m_real, 0.0f);
@@ -169,9 +188,14 @@ __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
   // two bf16 rows of KT * SP values (SAVE)
   __nv_bfloat16* srow =
       reinterpret_cast<__nv_bfloat16*>(base + 6 * ROW + red_floats<KT>() + kChunk / 4);
-  if constexpr (PAIR) {
-    // the pair's exchange area follows the block's one group
-    pair_setup<PER, KT>(h, smem + n_rows * ROW + group_floats<PER, KT, false>(SAVE), t);
+  if constexpr (kLinked) {
+    // the cluster's exchange area follows the block's one group
+    float* area = smem + n_rows * ROW + group_floats<PER, KT, false>(SAVE);
+    if constexpr (SPAN == Span::kPair) {
+      pair_setup<PER, KT>(h, area, t);
+    } else {
+      cluster_setup<PER, KT>(h, area, t);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   for (int q = 0; q < 2; ++q) {
@@ -179,9 +203,9 @@ __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
     fill_tail<PER, KT>(ei(q), h.m_real, 0.0f, t);
   }
   __syncthreads();  // the staged rows; from here on each group keeps to itself
-  // the pair: both blocks run, and their mbarriers exist, before either
-  // reaches the other's memory
-  if constexpr (PAIR) cluster_sync();
+  // a cluster: its blocks run, and their mbarriers exist, before any
+  // reaches another's memory
+  if constexpr (kLinked) cluster_sync();
 
   const int off = t * SP;
   const int j0 = h.col0 + t * PER;  // this thread's first state
@@ -193,10 +217,9 @@ __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
   const int b_pad = a.b_pad;
   const int window = a.window;
 
-  // the sequences of this group: the pair's blocks (a cluster) follow the
-  // same ones
-  for (int seq = PAIR ? cluster_id() : blockIdx.x * groups + g; seq < b_pad;
-       seq += PAIR ? cluster_count() : gridDim.x * groups) {
+  // the sequences of this group: a cluster's blocks follow the same ones
+  for (int seq = kLinked ? cluster_id() : blockIdx.x * groups + g; seq < b_pad;
+       seq += kLinked ? cluster_count() : gridDim.x * groups) {
     const size_t row = static_cast<size_t>(seq) * m_pad + h.col0;
     float m[PER], iv[PER], d[PER];
     load_row<PER, KT>(m, a.m_in + row, h.m_real, 0.0f, xbuf(0), t, bar);
@@ -232,7 +255,7 @@ __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
 #pragma unroll
         for (int k = 0; k < PER; ++k) x[k] = m[k] * tr(0, k) + iv[k] * tr(3, k) + d[k] * tr(5, k);
         cp_async_wait_prev();  // this step's emission rows (the barrier publishes them)
-        step_shift<PER, KT, PAIR>(x, diag, 1, 0.0f, xbuf(par), t, bar, h, 0, window);
+        step_shift<PER, KT, SPAN>(x, diag, 1, 0.0f, xbuf(par), t, bar, h, 0, window);
         par ^= 1;
 
         const float* mo = em(q) + off;
@@ -245,11 +268,11 @@ __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
           iv[k] = io[k] * (m[k] * tr(1, k) + iv[k] * tr(4, k));
           x[k] = nm[k] * tr(2, k);
         }
-        step_shift<PER, KT, PAIR>(x, ac, 1, 0.0f, xbuf(par), t, bar, h, 1, window);
+        step_shift<PER, KT, SPAN>(x, ac, 1, 0.0f, xbuf(par), t, bar, h, 1, window);
         par ^= 1;
         for (int p = 0; p < window; ++p) {
           float sh[PER];
-          step_shift<PER, KT, PAIR>(ac, sh, 1 << p, 0.0f, xbuf(par), t, bar, h, 2 + p, window);
+          step_shift<PER, KT, SPAN>(ac, sh, 1 << p, 0.0f, xbuf(par), t, bar, h, 2 + p, window);
           par ^= 1;
           if (p < a.n_chain) {
             const float* c = chain_s + p * ROW;
@@ -280,14 +303,14 @@ __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
           m[k] = nm[k];
           d[k] = ac[k];
         }
-        // the pair: block 0's warps then block 1's, the same sum in both
-        e = step_reduce<true, KT, PAIR>(e, red_e, t, bar, h);
+        // a cluster: block 0's warps first, the same sum in every block
+        e = step_reduce<true, KT, SPAN>(e, red_e, t, bar, h);
         if (SAVE) {
-          // the row is complete after the reduction's barrier (the pair's:
-          // its own group's, below); it is rewritten two steps on, after
-          // this step's and the next's barriers. Each block stores its
-          // states of the row.
-          if constexpr (PAIR) group_sync<KT>(bar);
+          // the row is complete after the reduction's barrier (a
+          // cluster's: its own group's, below); it is rewritten two steps
+          // on, after this step's and the next's barriers. Each block stores
+          // its states of the row.
+          if constexpr (kLinked) group_sync<KT>(bar);
           const size_t frow = (static_cast<size_t>(seq) * a.l_pad + pos) * m_pad + h.col0;
           uint4* dst = reinterpret_cast<uint4*>(a.fm + frow);
           const uint4* src = reinterpret_cast<const uint4*>(sr);
@@ -303,8 +326,8 @@ __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
           float mx = 0.0f;
 #pragma unroll
           for (int k = 0; k < PER; ++k) mx = fmaxf(mx, m[k]);
-          // both blocks derive the same s, log scale and compensation
-          mx = step_reduce<false, KT, PAIR>(mx, red_s, t, bar, h);
+          // every block derives the same s, log scale and compensation
+          mx = step_reduce<false, KT, SPAN>(mx, red_s, t, bar, h);
           const float s = fmaxf(fmaxf(mx, sc), fmaxf(sn, 1e-30f));
           const float inv = 1.0f / s;
           const float y = logf(s) - comp;
@@ -328,10 +351,10 @@ __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
 
     if (SAVE) {
       // rows n .. l_pad - 1 are 0: one contiguous run of 16-byte stores,
-      // split between the pair's blocks
+      // split between a cluster's blocks
       const size_t first = (static_cast<size_t>(seq) * a.l_pad + n) * m_pad / 8;
       const size_t last = static_cast<size_t>(seq + 1) * a.l_pad * m_pad / 8;
-      const int stride = PAIR ? 2 * KT : KT;
+      const int stride = nblk * KT;
       uint4* fm16 = reinterpret_cast<uint4*>(a.fm);
       for (size_t c = first + h.rank * KT + t; c < last; c += stride) {
         fm16[c] = make_uint4(0, 0, 0, 0);
@@ -357,19 +380,27 @@ __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
       a.scores[seq] = (logf(sc) + log_scale) + a.tr_rows[b_pad + seq];
     }
   }
-  // no block leaves while its partner may still reach its shared memory
-  if constexpr (PAIR) cluster_sync();
+  // no block leaves while another of its cluster may still reach its
+  // shared memory
+  if constexpr (kLinked) cluster_sync();
 }
 
 template <int PER, int KT, bool SAVE>
 __global__ void forward_kernel(const ForwardArgs a) {
-  forward_body<PER, KT, SAVE, false>(a);
+  forward_body<PER, KT, SAVE, Span::kGroup>(a);
 }
 
 // The wide case: a block of the cluster pair (launched as 2-block clusters).
 template <int PER, bool SAVE>
 __global__ void __launch_bounds__(128) forward_pair_kernel(const ForwardArgs a) {
-  forward_body<PER, 128, SAVE, true>(a);
+  forward_body<PER, 128, SAVE, Span::kPair>(a);
+}
+
+// Past 4864 states: a block of a C-block cluster (launched as C-block
+// clusters, C read from %cluster_nctarank).
+template <int PER, bool SAVE>
+__global__ void __launch_bounds__(128) forward_cluster_kernel(const ForwardArgs a) {
+  forward_body<PER, 128, SAVE, Span::kCluster>(a);
 }
 
 // SAVE: rows n .. l_pad - 1 of sequence `seq` are 0, as forward_kernel
@@ -587,8 +618,8 @@ struct PairCase {
         smem > kMaxSmem) {
       return cudaErrorInvalidValue;
     }
-    return launch_pair(kernel(save), a, device, pair_smem_set[save][PER - 10], grid, smem,
-                       stream);
+    return launch_cluster(kernel(save), a, device, pair_smem_set[save][PER - 10], 2, grid,
+                          smem, stream);
   }
 
   static cudaError_t regs(bool save, int* out) {
@@ -599,7 +630,46 @@ struct PairCase {
   }
 
   static cudaError_t clusters(bool save, int device, int smem, int* out) {
-    return pair_max_clusters(kernel(save), device, pair_smem_set[save][PER - 10], smem, out);
+    return cluster_max_clusters(kernel(save), device, pair_smem_set[save][PER - 10], 2, smem,
+                                out);
+  }
+};
+
+// The C-block cluster's case: c * 128 * PER states, a block of the clusters
+// one slice: one group a block, a grid of whole clusters, every transition
+// row staged and cluster_smem_floats.
+unsigned cluster_smem_set[2][kClusterSlots];  // devices whose cluster case allows kMaxSmem
+
+template <int PER>
+struct ClusterCase {
+  static void (*kernel(bool save))(ForwardArgs) {
+    return save ? forward_cluster_kernel<PER, true> : forward_cluster_kernel<PER, false>;
+  }
+
+  static cudaError_t launch(const ForwardArgs& a, int device, int c, int groups, int grid,
+                            int smem, cudaStream_t stream) {
+    const bool save = a.fm != nullptr;
+    const int n_rows = a.n_trans + a.n_chain;
+    if (c < 3 || c > kMaxCluster || a.m_pad > c * 128 * PER || groups != 1 || grid < c ||
+        grid % c != 0 || a.n_trans != kTransRows ||
+        static_cast<size_t>(smem) != 4 * cluster_smem_floats<PER, 128, false>(n_rows, save) ||
+        smem > kMaxSmem) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_cluster(kernel(save), a, device, cluster_smem_set[save][PER - 13], c, grid,
+                          smem, stream);
+  }
+
+  static cudaError_t regs(bool save, int* out) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel(save));
+    *out = attr.numRegs;
+    return err;
+  }
+
+  static cudaError_t clusters(bool save, int device, int c, int smem, int* out) {
+    return cluster_max_clusters(kernel(save), device, cluster_smem_set[save][PER - 13], c, smem,
+                                out);
   }
 };
 
@@ -607,8 +677,10 @@ struct PairCase {
 
 // Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads for
 // the rows-in-memory case) and `per` name the kernel case, with threads *
-// per >= m_pad (a multiple of 8), and `cluster` 2 the cluster pair's (128
-// threads a block, per 10..19, 2 * threads * per >= m_pad); `window` is the
+// per >= m_pad (a multiple of 8), `cluster` 2 the cluster pair's (128
+// threads a block, per 10..19, 2 * threads * per >= m_pad) and `cluster` C
+// of 3..16 the C-block cluster's (per 13..19, C * threads * per >= m_pad);
+// `window` is the
 // chain's row count, the first `n_chain` staged in shared memory with the
 // first `n_trans` transition rows; the kernel rescales after every `group`
 // residues. `fm` and `ls` null run the plain Forward, both set the saving
@@ -673,6 +745,11 @@ extern "C" int p7_forward_launch(int device, int threads, int per, int cluster,
     return static_cast<int>(cudaGetLastError());
   }
   if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster >= 3) {
+    return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {
+      return decltype(c)::launch(a, device, cluster, groups, grid, smem, st);
+    }));
+  }
   if (cluster == 2) {
     return static_cast<int>(with_pair_case<PairCase>(per, [&](auto c) {
       return decltype(c)::launch(a, device, groups, grid, smem, st);
@@ -685,7 +762,8 @@ extern "C" int p7_forward_launch(int device, int threads, int per, int cluster,
 }
 
 // Registers a thread of the case uses (`save`: the row-saving case;
-// `cluster` 2: the pair's), for the launch plan. Returns a cudaError_t.
+// `cluster` 2: the pair's, 3..16: the C-block cluster's), for the launch
+// plan. Returns a cudaError_t.
 extern "C" int p7_forward_regs(int threads, int per, int cluster, int save, int* regs) {
   if (threads == kMemThreads) {
     cudaFuncAttributes attr;
@@ -693,6 +771,10 @@ extern "C" int p7_forward_regs(int threads, int per, int cluster, int save, int*
                                  : cudaFuncGetAttributes(&attr, forward_mem_kernel<false>);
     *regs = attr.numRegs;
     return static_cast<int>(err);
+  }
+  if (cluster >= 3) {
+    return static_cast<int>(with_cluster_case<ClusterCase>(
+        per, [&](auto c) { return decltype(c)::regs(save != 0, regs); }));
   }
   if (cluster == 2) {
     return static_cast<int>(
@@ -702,10 +784,19 @@ extern "C" int p7_forward_regs(int threads, int per, int cluster, int save, int*
       per, [&](auto c) { return decltype(c)::regs(save != 0, regs); }));
 }
 
-// The most 2-block clusters of the pair's case (`per`, `save`) the card
-// `device` runs at once with `smem` bytes of dynamic shared memory a block,
-// for the launch plan. Returns a cudaError_t.
-extern "C" int p7_forward_clusters(int device, int per, int save, int smem, int* clusters) {
+// The most clusters of `cluster` blocks (2: the pair's case of `per`,
+// `save`; 3..16: the C-block cluster's) the card `device` runs at once with
+// `smem` bytes of dynamic shared memory a block, for the launch plan.
+// Returns a cudaError_t.
+extern "C" int p7_forward_clusters(int device, int per, int cluster, int save, int smem,
+                                   int* clusters) {
+  if (cluster >= 3) {
+    if (cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {
+      return decltype(c)::clusters(save != 0, device, cluster, smem, clusters);
+    }));
+  }
+  if (cluster != 2) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_pair_case<PairCase>(per, [&](auto c) {
     return decltype(c)::clusters(save != 0, device, smem, clusters);
   }));

@@ -44,8 +44,8 @@ struct PairCase {
     if (!viterbi_plan_ok<PER, 128, false, true>(a, false, false, groups, grid, smem)) {
       return cudaErrorInvalidValue;
     }
-    return launch_pair(viterbi_pair_kernel<PER, false, true, false>, a, device,
-                       pair_smem_set[PER - 10], grid, smem, stream);
+    return launch_cluster(viterbi_pair_kernel<PER, false, true, false>, a, device,
+                          pair_smem_set[PER - 10], 2, grid, smem, stream);
   }
 
   static cudaError_t regs(int* out) {
@@ -53,8 +53,8 @@ struct PairCase {
   }
 
   static cudaError_t clusters(int device, int smem, int* out) {
-    return pair_max_clusters(viterbi_pair_kernel<PER, false, true, false>, device,
-                             pair_smem_set[PER - 10], smem, out);
+    return cluster_max_clusters(viterbi_pair_kernel<PER, false, true, false>, device,
+                                pair_smem_set[PER - 10], 2, smem, out);
   }
 };
 

@@ -129,10 +129,28 @@
 //    both blocks, combined in one order, block 0's warps then block 1's),
 //    the filter's tail max, and the lazy certificate's OR, so both halves
 //    replay the same chunks. A block's own phases keep its named barrier.
-//  * Past 256 * 19 = 4864 states (up to the chain's 65536) the
-//    rows-in-memory case (viterbi_mem_kernel, p7_blocked.cuh) runs the same
-//    step with every row in global memory, one 1024-thread block a
-//    sequence.
+//  * Past 256 * 19 = 4864 states (up to 16 * 2432 = 38,912) the lazy and
+//    filter cases run on C-block clusters (p7_blocked.cuh;
+//    viterbi_cluster_kernel, C = ceil(M_pad / 2432), 3..16, read from
+//    %cluster_nctarank): block r holds states r * 128 * PER .. in the
+//    normal-width layout, stages its slice of every row the normal-width
+//    plan stages, and every cross-thread phase crosses the cluster as it
+//    crosses the pair; a shift by 2^k of a whole block or more (the lazy
+//    replay's full chain, a filter window that reaches it) takes a block's
+//    states from the two blocks it falls between. The lazy certificate's
+//    fire is an exchange (an OR over the cluster), so every block replays
+//    the same chunks. The eager and log-space cases stay in memory there:
+//    their steps run the whole chain every residue, whose larger shifts
+//    take about 1.7 us each on 128-thread blocks; on the pair a step takes
+//    17.4 us (eager) and 65.6 us (log-space), so at 64 rows the two rounds
+//    of the clusters an H100 holds at C = 3 would take about 35 and 130 ms,
+//    against the rows-in-memory case's 29.4 and 57.1 ms (PERF.md). They
+//    need another design: more threads a state, or a two-level chain.
+//  * Past 38,912 states (up to the chain's 65536), and for the eager and
+//    log-space cases past 4864, the rows-in-memory case
+//    (viterbi_mem_kernel, p7_blocked.cuh) runs the same step with every row
+//    in global memory, one 1024-thread block a sequence; the launch plan also
+//    takes it for a width whose cluster the card cannot hold.
 
 #pragma once
 
@@ -216,12 +234,12 @@ struct Rows {
 };
 
 // Copy step `step`'s emission rows into the group's buffers of parity q
-// (the pair: this block's half of them).
-template <int PER, int KT, bool FILT, bool PAIR>
+// (a cluster's block: its slice of them).
+template <int PER, int KT, bool FILT, Span SPAN>
 __device__ __forceinline__ void prefetch_step(const ViterbiArgs& a,
                                               const GroupSmem<PER, KT, FILT>& gs, int q, int aa,
-                                              int t, Pair& h) {
-  if constexpr (PAIR) {
+                                              int t, const Link<SPAN>& h) {
+  if constexpr (SPAN != Span::kGroup) {
     if constexpr (FILT) {
       prefetch_half<PER, KT, uint16_t>(reinterpret_cast<uint16_t*>(gs.em(q)),
                                        reinterpret_cast<uint16_t*>(gs.ei(q)),
@@ -243,13 +261,14 @@ __device__ __forceinline__ void prefetch_step(const ViterbiArgs& a,
 }
 
 // Steps [0, count) of the chunk whose tokens are in gs.toks. Returns whether
-// the certificate fired (CERT only; in this block's states, for the pair).
-// `cs` is the block's staged rows; `h` the block's place in the pair (PAIR).
-template <int PER, int KT, bool LAZY, bool LSE, bool CERT, bool FILT, bool PAIR>
+// the certificate fired (CERT only; in this block's states, for a cluster).
+// `cs` is the block's staged rows; `h` the block's place in the pair or the
+// cluster (SPAN).
+template <int PER, int KT, bool LAZY, bool LSE, bool CERT, bool FILT, Span SPAN>
 __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
                                           const GroupSmem<PER, KT, FILT>& gs, Rows<PER>& r,
                                           int count, int passes, int& par, float tr_loop,
-                                          float tr_move, int t, int bar, Pair& h) {
+                                          float tr_move, int t, int bar, Link<SPAN>& h) {
   static_assert(!(LAZY && LSE) && !(FILT && (LAZY || LSE)), "one case at a time");
   constexpr int ROW = row_floats<PER, KT>();
   constexpr int W = warps<KT>();
@@ -268,14 +287,14 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
   const float* chain_s = cs + n_trans * ROW + off;
   const float* cmax = cs + (n_trans + a.n_chain) * ROW + off;
   bool viol = false;
-  [[maybe_unused]] int tail_x = 0;  // the pair's exchange of the filter's max(a0)
+  [[maybe_unused]] int tail_x = 0;  // the cluster's exchange of the filter's max(a0)
 
-  prefetch_step<PER, KT, FILT, PAIR>(a, gs, 0, token(gs.toks, 0), t, h);
+  prefetch_step<PER, KT, FILT, SPAN>(a, gs, 0, token(gs.toks, 0), t, h);
   cp_async_commit();
   for (int step = 0; step < count; ++step) {
     const int q = step & 1;
     if (step + 1 < count) {
-      prefetch_step<PER, KT, FILT, PAIR>(a, gs, q ^ 1, token(gs.toks, step + 1), t, h);
+      prefetch_step<PER, KT, FILT, SPAN>(a, gs, q ^ 1, token(gs.toks, step + 1), t, h);
     }
     cp_async_commit();
 
@@ -293,7 +312,7 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
     }
     cp_async_wait_prev();  // this step's emission rows (the barrier publishes them)
     float diag[PER];
-    step_shift<PER, KT, PAIR>(pd, diag, 1, ninf, gs.xbuf(par), t, bar, h, 0, passes);
+    step_shift<PER, KT, SPAN>(pd, diag, 1, ninf, gs.xbuf(par), t, bar, h, 0, passes);
     par ^= 1;
 
     const float bt = r.sb + tr_b_mk;
@@ -313,8 +332,10 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
       // the warp's share of max(a0) goes out before the shift's barrier,
       // which then orders it for every reader
       a_max = warp_reduce<false>(a_max);
-      if constexpr (PAIR) {
+      if constexpr (SPAN == Span::kPair) {
         if (truncated) tail_x = pair_send<KT>(a_max, t, h);
+      } else if constexpr (SPAN == Span::kCluster) {
+        if (truncated) tail_x = cluster_send<KT>(a_max, t, h);
       } else {
         if (truncated && (t & 31) == 0) gs.red[W + (t >> 5)] = a_max;
       }
@@ -328,11 +349,11 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
         pd[k] = nm[k] + tr(2, k);
       }
     }
-    step_shift<PER, KT, PAIR>(pd, ac, 1, ninf, gs.xbuf(par), t, bar, h, 1, passes);
+    step_shift<PER, KT, SPAN>(pd, ac, 1, ninf, gs.xbuf(par), t, bar, h, 1, passes);
     par ^= 1;
     for (int p = 0; p < passes; ++p) {
       float sh[PER];
-      step_shift<PER, KT, PAIR>(ac, sh, 1 << p, ninf, gs.xbuf(par), t, bar, h, 2 + p, passes);
+      step_shift<PER, KT, SPAN>(ac, sh, 1 << p, ninf, gs.xbuf(par), t, bar, h, 2 + p, passes);
       par ^= 1;
       if (p < a.n_chain) {
         const float* c = chain_s + p * ROW;
@@ -349,8 +370,10 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
     }
     if (truncated) {
       float tail;
-      if constexpr (PAIR) {
+      if constexpr (SPAN == Span::kPair) {
         tail = combine_warps<false, 2 * KT>(pair_collect<KT>(tail_x, h)) + aux;
+      } else if constexpr (SPAN == Span::kCluster) {
+        tail = cluster_collect<false, KT>(tail_x, h) + aux;
       } else {
         tail = combine_warps<false, KT>(gs.red + W) + aux;
       }
@@ -368,20 +391,20 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
         x[k] = combine<true>(nm[k], ac[k]);
         e = fmaxf(e, x[k]);
       }
-      const float mx = step_reduce<false, KT, PAIR>(e, gs.red, t, bar, h);
+      const float mx = step_reduce<false, KT, SPAN>(e, gs.red, t, bar, h);
       float sum = 0.0f;
 #pragma unroll
       for (int k = 0; k < PER; ++k) sum += expf(x[k] == mx ? 0.0f : x[k] - mx);
-      e = mx + logf(step_reduce<true, KT, PAIR>(sum, gs.red + W, t, bar, h));
+      e = mx + logf(step_reduce<true, KT, SPAN>(sum, gs.red + W, t, bar, h));
     } else if (FILT) {
       const bool skip_d = a.e_skip_d != 0;
 #pragma unroll
       for (int k = 0; k < PER; ++k) e = fmaxf(e, skip_d ? nm[k] : fmaxf(nm[k], ac[k]));
-      e = step_reduce<false, KT, PAIR>(e, gs.red, t, bar, h);
+      e = step_reduce<false, KT, SPAN>(e, gs.red, t, bar, h);
     } else {
 #pragma unroll
       for (int k = 0; k < PER; ++k) e = fmaxf(e, LAZY ? nm[k] : fmaxf(nm[k], ac[k]));
-      e = step_reduce<false, KT, PAIR>(e, gs.red, t, bar, h);
+      e = step_reduce<false, KT, SPAN>(e, gs.red, t, bar, h);
     }
 
 #pragma unroll
@@ -434,10 +457,10 @@ __host__ __device__ inline int viterbi_rows(bool lazy, int k_run, int n_passes, 
   return n_trans + n_chain + ((lazy && k_run < n_passes) ? 1 : 0);
 }
 
-// The kernel's body, for a block of G groups (viterbi_kernel) or for a
-// block of the cluster pair (PAIR: viterbi_pair_kernel, one group a block,
-// KT = 128).
-template <int PER, int KT, bool LAZY, bool LSE, bool FILT, bool PAIR>
+// The kernel's body, for a block of G groups (viterbi_kernel), for a block
+// of the cluster pair (viterbi_pair_kernel) or for one of a C-block cluster
+// (viterbi_cluster_kernel; both one group a block, KT = 128).
+template <int PER, int KT, bool LAZY, bool LSE, bool FILT, Span SPAN>
 __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int ROW = row_floats<PER, KT>();
@@ -446,16 +469,18 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
   const bool certify = LAZY && a.k_run < a.n_passes;
   const int n_trans = KT == 128 ? kTransRows : a.n_trans;
   const int n_rows = viterbi_rows(LAZY, a.k_run, a.n_passes, a.n_chain, n_trans);
-  // the pair's block follows states col0 .. col0 + KT * PER - 1
-  Pair h;
+  // a cluster's block follows states col0 .. col0 + KT * PER - 1
+  constexpr bool kLinked = SPAN != Span::kGroup;
+  Link<SPAN> h;
   h.rank = 0;
   h.col0 = 0;
   h.m_real = m_pad;
-  if constexpr (PAIR) {
+  if constexpr (kLinked) {
     h.rank = static_cast<int>(cluster_rank());
     h.col0 = h.rank * KT * PER;
     h.m_real = min(max(m_pad - h.col0, 0), KT * PER);
   }
+  if constexpr (SPAN == Span::kCluster) h.nblk = static_cast<int>(cluster_size());
 
   for (int q = 0; q < n_trans; ++q) {
     stage_row<PER, KT>(smem + q * ROW, a.trans + q * m_pad + h.col0, h.m_real, ninf);
@@ -474,9 +499,14 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
   const int bar = 1 + g;
   const GroupSmem<PER, KT, FILT> gs =
       group_smem<PER, KT, FILT>(smem + n_rows * ROW + g * group_floats<PER, KT, FILT>(false));
-  if constexpr (PAIR) {
-    // the pair's exchange area follows the block's one group
-    pair_setup<PER, KT>(h, smem + n_rows * ROW + group_floats<PER, KT, FILT>(false), t);
+  if constexpr (kLinked) {
+    // the cluster's exchange area follows the block's one group
+    float* area = smem + n_rows * ROW + group_floats<PER, KT, FILT>(false);
+    if constexpr (SPAN == Span::kPair) {
+      pair_setup<PER, KT>(h, area, t);
+    } else {
+      cluster_setup<PER, KT>(h, area, t);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   for (int q = 0; q < 2; ++q) {
@@ -489,18 +519,17 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
     }
   }
   __syncthreads();  // the staged rows; from here on each group keeps to itself
-  // the pair: both blocks run, and their mbarriers exist, before either
-  // reaches the other's memory
-  if constexpr (PAIR) cluster_sync();
+  // a cluster: its blocks run, and their mbarriers exist, before any
+  // reaches another's memory
+  if constexpr (kLinked) cluster_sync();
 
   // the passes a step runs: the whole chain, the lazy window or the
   // filter's window
   const int passes = (LAZY || FILT) ? a.k_run : a.n_passes;
   const int b_pad = a.b_pad;
-  // the sequences of this group: the pair's blocks (a cluster) follow the
-  // same ones
-  for (int seq = PAIR ? cluster_id() : blockIdx.x * groups + g; seq < b_pad;
-       seq += PAIR ? cluster_count() : gridDim.x * groups) {
+  // the sequences of this group: a cluster's blocks follow the same ones
+  for (int seq = kLinked ? cluster_id() : blockIdx.x * groups + g; seq < b_pad;
+       seq += kLinked ? cluster_count() : gridDim.x * groups) {
     const size_t row = static_cast<size_t>(seq) * m_pad + h.col0;
     Rows<PER> r;
     load_carries<PER, KT>(r, a.m_in + row, a.i_in + row, a.d_in + row, h.m_real, gs.xbuf(0), t,
@@ -524,12 +553,14 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
         store_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, h.m_real,
                                gs.xbuf(0), t, bar);  // the chunk's entry
         const float ej = r.sj, ec = r.sc, en = r.sn, eb = r.sb;
-        const bool viol = run_chunk<PER, KT, LAZY, LSE, true, FILT, PAIR>(
+        const bool viol = run_chunk<PER, KT, LAZY, LSE, true, FILT, SPAN>(
             a, smem, gs, r, count, a.k_run, par, tr_loop, tr_move, t, bar, h);
         bool fired;
-        if constexpr (PAIR) {
-          // both halves replay the same chunks
+        // a cluster's blocks replay the same chunks
+        if constexpr (SPAN == Span::kPair) {
           fired = pair_any<KT>(viol, t, h);
+        } else if constexpr (SPAN == Span::kCluster) {
+          fired = cluster_any<KT>(viol, t, h);
         } else {
           fired = group_any<KT>(bar, viol);
         }
@@ -540,12 +571,12 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
           r.sc = ec;
           r.sn = en;
           r.sb = eb;
-          run_chunk<PER, KT, LAZY, LSE, false, FILT, PAIR>(a, smem, gs, r, count, a.n_passes,
+          run_chunk<PER, KT, LAZY, LSE, false, FILT, SPAN>(a, smem, gs, r, count, a.n_passes,
                                                            par, tr_loop, tr_move, t, bar, h);
           ++replays;
         }
       } else {
-        run_chunk<PER, KT, LAZY, LSE, false, FILT, PAIR>(a, smem, gs, r, count, passes, par,
+        run_chunk<PER, KT, LAZY, LSE, false, FILT, SPAN>(a, smem, gs, r, count, passes, par,
                                                          tr_loop, tr_move, t, bar, h);
       }
       group_sync<KT>(bar);  // every step's reads of the shift buffers and toks are done
@@ -562,19 +593,27 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
       if (LAZY) a.replays[seq] = replays;
     }
   }
-  // no block leaves while its partner may still reach its shared memory
-  if constexpr (PAIR) cluster_sync();
+  // no block leaves while another of its cluster may still reach its
+  // shared memory
+  if constexpr (kLinked) cluster_sync();
 }
 
 template <int PER, int KT, bool LAZY, bool LSE, bool FILT>
 __global__ void viterbi_kernel(const ViterbiArgs a) {
-  viterbi_body<PER, KT, LAZY, LSE, FILT, false>(a);
+  viterbi_body<PER, KT, LAZY, LSE, FILT, Span::kGroup>(a);
 }
 
 // The wide case: a block of the cluster pair (launched as 2-block clusters).
 template <int PER, bool LAZY, bool LSE, bool FILT>
 __global__ void __launch_bounds__(128) viterbi_pair_kernel(const ViterbiArgs a) {
-  viterbi_body<PER, 128, LAZY, LSE, FILT, true>(a);
+  viterbi_body<PER, 128, LAZY, LSE, FILT, Span::kPair>(a);
+}
+
+// Past 4864 states, the lazy and filter cases: a block of a C-block cluster
+// (launched as C-block clusters, C read from %cluster_nctarank).
+template <int PER, bool LAZY, bool LSE, bool FILT>
+__global__ void __launch_bounds__(128) viterbi_cluster_kernel(const ViterbiArgs a) {
+  viterbi_body<PER, 128, LAZY, LSE, FILT, Span::kCluster>(a);
 }
 
 // The rows-in-memory case (p7_blocked.cuh, past 4864 states): one block of
@@ -837,6 +876,23 @@ bool viterbi_plan_ok(const ViterbiArgs& a, bool lazy, bool windowed, int groups,
   return a.m_pad >= 1 && a.m_pad <= (PAIR ? 2 : 1) * KT * PER && a.m_pad % 8 == 0 &&
          a.n_passes >= 1 && a.k_run >= 1 && a.k_run <= a.n_passes && a.n_chain >= 0 &&
          a.n_chain <= passes_run && a.b_pad >= 1 && shape_ok;
+}
+
+// The same for the C-block cluster's case (`c` blocks a cluster, 3..16):
+// c * KT * PER states, one group a block, a grid of whole clusters and
+// cluster_smem_floats; up to 16 chain passes, where the lazy kernel runs the
+// whole chain (row 15 of its chain is then chain data, not Cmax).
+template <int PER, bool FILT>
+bool viterbi_cluster_plan_ok(const ViterbiArgs& a, bool lazy, int c, int groups, int grid,
+                             int smem_bytes) {
+  const int n_rows = viterbi_rows(lazy, a.k_run, a.n_passes, a.n_chain, a.n_trans);
+  return c >= 3 && c <= kMaxCluster && groups == 1 && grid >= c && grid % c == 0 &&
+         a.n_trans == kTransRows &&
+         static_cast<size_t>(smem_bytes) == 4 * cluster_smem_floats<PER, 128, FILT>(n_rows) &&
+         smem_bytes <= kMaxSmem && a.m_pad >= 1 && a.m_pad <= c * 128 * PER &&
+         a.m_pad % 8 == 0 && a.n_passes >= 1 && a.n_passes <= 16 && a.k_run >= 1 &&
+         a.k_run <= a.n_passes && (!lazy || a.k_run == a.n_passes || a.n_passes <= 15) &&
+         a.n_chain >= 0 && a.n_chain <= a.k_run && a.b_pad >= 1;
 }
 
 // Runs a kernel case on the plan after setting its shared-memory limit once

@@ -8,7 +8,8 @@
 // launched by _p7_filter_padded (HMMER ViterbiFilter's role in the --fast
 // cascade). Scores equal the JAX kernel's and the plain PyTorch version's
 // (ops/p7_cuda.py::viterbi_filter_scan_plain) bit for bit, and bound the
-// exact Viterbi scores from above.
+// exact Viterbi scores from above. Past 4864 states it runs on C-block
+// clusters (viterbi_cluster_kernel).
 
 #include "p7_viterbi.cuh"
 
@@ -42,8 +43,8 @@ struct PairCase {
     if (!viterbi_plan_ok<PER, 128, true, true>(a, false, true, groups, grid, smem)) {
       return cudaErrorInvalidValue;
     }
-    return launch_pair(viterbi_pair_kernel<PER, false, false, true>, a, device,
-                       pair_smem_set[PER - 10], grid, smem, stream);
+    return launch_cluster(viterbi_pair_kernel<PER, false, false, true>, a, device,
+                          pair_smem_set[PER - 10], 2, grid, smem, stream);
   }
 
   static cudaError_t regs(int* out) {
@@ -51,8 +52,32 @@ struct PairCase {
   }
 
   static cudaError_t clusters(int device, int smem, int* out) {
-    return pair_max_clusters(viterbi_pair_kernel<PER, false, false, true>, device,
-                             pair_smem_set[PER - 10], smem, out);
+    return cluster_max_clusters(viterbi_pair_kernel<PER, false, false, true>, device,
+                                pair_smem_set[PER - 10], 2, smem, out);
+  }
+};
+
+// The C-block cluster's case (past 4864 states): c * 128 * PER states, a
+// block of the clusters one slice.
+unsigned cluster_smem_set[kClusterSlots];  // devices whose cluster case allows kMaxSmem
+
+template <int PER>
+struct ClusterCase {
+  using Kernel = void (*)(ViterbiArgs);
+  static Kernel kernel() { return viterbi_cluster_kernel<PER, false, false, true>; }
+
+  static cudaError_t launch(const ViterbiArgs& a, int device, int c, int groups, int grid,
+                            int smem, cudaStream_t stream) {
+    if (!viterbi_cluster_plan_ok<PER, true>(a, false, c, groups, grid, smem)) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_cluster(kernel(), a, device, cluster_smem_set[PER - 13], c, grid, smem, stream);
+  }
+
+  static cudaError_t regs(int* out) { return kernel_regs(kernel(), out); }
+
+  static cudaError_t clusters(int device, int c, int smem, int* out) {
+    return cluster_max_clusters(kernel(), device, cluster_smem_set[PER - 13], c, smem, out);
   }
 };
 
@@ -61,7 +86,8 @@ struct PairCase {
 // Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads for
 // the rows-in-memory case) and `per` name the kernel case, with threads *
 // per >= m_pad, and `cluster` 2 the cluster pair's (128 threads a block, per
-// 10..19, 2 * threads * per >= m_pad); msc/isc are the bf16
+// 10..19, 2 * threads * per >= m_pad), `cluster` C of 3..16 the C-block
+// cluster's (per 13..19, C * threads * per >= m_pad); msc/isc are the bf16
 // round-up tables [20, m_pad]; `full_passes` = ceil(log2 m_pad) and 1 <=
 // window <= full_passes; a tail term (consts[3]) is applied when window <
 // full_passes; `e_skip_d` takes E over M alone. `n_chain` of the window's
@@ -91,6 +117,11 @@ extern "C" int p7_filter_launch(int device, int threads, int per, int cluster,
         launch_mem<false, false, true>(a, scratch, true, per, groups, grid, smem, st));
   }
   if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster >= 3) {
+    return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {
+      return decltype(c)::launch(a, device, cluster, groups, grid, smem, st);
+    }));
+  }
   if (cluster == 2) {
     return static_cast<int>(with_pair_case<PairCase>(per, [&](auto c) {
       return decltype(c)::launch(a, device, groups, grid, smem, st);
@@ -107,6 +138,10 @@ extern "C" int p7_filter_regs(int threads, int per, int cluster, int* regs) {
   if (threads == kMemThreads) {
     return static_cast<int>(kernel_regs(viterbi_mem_kernel<false, false, true>, regs));
   }
+  if (cluster >= 3) {
+    return static_cast<int>(
+        with_cluster_case<ClusterCase>(per, [&](auto c) { return decltype(c)::regs(regs); }));
+  }
   if (cluster == 2) {
     return static_cast<int>(
         with_pair_case<PairCase>(per, [&](auto c) { return decltype(c)::regs(regs); }));
@@ -115,10 +150,17 @@ extern "C" int p7_filter_regs(int threads, int per, int cluster, int* regs) {
       with_group_case<Case>(per, [&](auto c) { return decltype(c)::regs(regs); }));
 }
 
-// The most 2-block clusters of the pair's case `per` the card `device` runs
-// at once with `smem` bytes of dynamic shared memory a block, for the launch
-// plan. Returns a cudaError_t.
-extern "C" int p7_filter_clusters(int device, int per, int smem, int* clusters) {
+// The most clusters of `cluster` blocks (2: the pair's case `per`; 3..16:
+// the C-block cluster's) the card `device` runs at once with `smem` bytes of
+// dynamic shared memory a block, for the launch plan. Returns a cudaError_t.
+extern "C" int p7_filter_clusters(int device, int per, int cluster, int smem, int* clusters) {
+  if (cluster >= 3) {
+    if (cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {
+      return decltype(c)::clusters(device, cluster, smem, clusters);
+    }));
+  }
+  if (cluster != 2) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_pair_case<PairCase>(
       per, [&](auto c) { return decltype(c)::clusters(device, smem, clusters); }));
 }

@@ -5,7 +5,8 @@
 // Replaces: hmm_fasta_viterbi_tpu/ops/pallas_p7.py::_p7_kernel in Viterbi
 // mode (the eager kernel) and ::_p7_lazy_kernel (the lazy one), both
 // launched by p7_pallas_call. Scores equal the JAX kernels' and the plain
-// PyTorch version's bit for bit.
+// PyTorch version's bit for bit. Past 4864 states the lazy kernel runs on
+// C-block clusters (viterbi_cluster_kernel), the eager one in memory.
 
 #include "p7_viterbi.cuh"
 
@@ -49,14 +50,39 @@ struct PairCase {
     if (!viterbi_plan_ok<PER, 128, false, true>(a, lazy, lazy, groups, grid, smem)) {
       return cudaErrorInvalidValue;
     }
-    return launch_pair(kernel(lazy), a, device, pair_smem_set[lazy][PER - 10], grid, smem,
-                       stream);
+    return launch_cluster(kernel(lazy), a, device, pair_smem_set[lazy][PER - 10], 2, grid,
+                          smem, stream);
   }
 
   static cudaError_t regs(bool lazy, int* out) { return kernel_regs(kernel(lazy), out); }
 
   static cudaError_t clusters(bool lazy, int device, int smem, int* out) {
-    return pair_max_clusters(kernel(lazy), device, pair_smem_set[lazy][PER - 10], smem, out);
+    return cluster_max_clusters(kernel(lazy), device, pair_smem_set[lazy][PER - 10], 2, smem,
+                                out);
+  }
+};
+
+// The C-block cluster's case (the lazy kernel past 4864 states): c * 128 *
+// PER states, a block of the clusters one slice.
+unsigned cluster_smem_set[kClusterSlots];  // devices whose cluster case allows kMaxSmem
+
+template <int PER>
+struct ClusterCase {
+  using Kernel = void (*)(ViterbiArgs);
+  static Kernel kernel() { return viterbi_cluster_kernel<PER, true, false, false>; }
+
+  static cudaError_t launch(const ViterbiArgs& a, int device, int c, int groups, int grid,
+                            int smem, cudaStream_t stream) {
+    if (!viterbi_cluster_plan_ok<PER, false>(a, true, c, groups, grid, smem)) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_cluster(kernel(), a, device, cluster_smem_set[PER - 13], c, grid, smem, stream);
+  }
+
+  static cudaError_t regs(int* out) { return kernel_regs(kernel(), out); }
+
+  static cudaError_t clusters(int device, int c, int smem, int* out) {
+    return cluster_max_clusters(kernel(), device, cluster_smem_set[PER - 13], c, smem, out);
   }
 };
 
@@ -65,7 +91,9 @@ struct PairCase {
 // Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads for
 // the rows-in-memory case) and `per` name the kernel case, with threads *
 // per >= m_pad, and `cluster` 2 the cluster pair's (128 threads a block,
-// per 10..19, 2 * threads * per >= m_pad); `lazy` selects the lazy kernel, which runs
+// per 10..19, 2 * threads * per >= m_pad), `cluster` C of 3..16 the lazy
+// kernel's C-block cluster (per 13..19, C * threads * per >= m_pad, up to
+// 16 passes); `lazy` selects the lazy kernel, which runs
 // `k_run` passes under the certificate (k_run == n_passes: the full chain,
 // no certificate). `n_trans` transition rows and `n_chain` chain rows are
 // staged in shared memory; `groups` sequences a block, `grid` blocks and
@@ -94,7 +122,14 @@ extern "C" int p7_viterbi_launch(int device, int threads, int per, int cluster, 
         lazy ? launch_mem<true, false, false>(a, scratch, true, per, groups, grid, smem, st)
              : launch_mem<false, false, false>(a, scratch, false, per, groups, grid, smem, st));
   }
-  if (n_passes > 15 || threads != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster >= 3) {
+    if (!lazy) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {
+      return decltype(c)::launch(a, device, cluster, groups, grid, smem, st);
+    }));
+  }
+  if (n_passes > 15) return static_cast<int>(cudaErrorInvalidValue);
   if (cluster == 2) {
     return static_cast<int>(with_pair_case<PairCase>(per, [&](auto c) {
       return decltype(c)::launch(lazy != 0, a, device, groups, grid, smem, st);
@@ -107,11 +142,17 @@ extern "C" int p7_viterbi_launch(int device, int threads, int per, int cluster, 
 }
 
 // Registers a thread of the case uses (`lazy`: the lazy kernel; `cluster`
-// 2: the pair's), for the launch plan. Returns a cudaError_t.
+// 2: the pair's, 3..16: the lazy kernel's C-block cluster's), for the
+// launch plan. Returns a cudaError_t.
 extern "C" int p7_viterbi_regs(int threads, int per, int cluster, int lazy, int* regs) {
   if (threads == kMemThreads) {
     return static_cast<int>(lazy ? kernel_regs(viterbi_mem_kernel<true, false, false>, regs)
                                  : kernel_regs(viterbi_mem_kernel<false, false, false>, regs));
+  }
+  if (cluster >= 3) {
+    if (!lazy) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        with_cluster_case<ClusterCase>(per, [&](auto c) { return decltype(c)::regs(regs); }));
   }
   if (cluster == 2) {
     return static_cast<int>(
@@ -121,10 +162,19 @@ extern "C" int p7_viterbi_regs(int threads, int per, int cluster, int lazy, int*
       per, [&](auto c) { return decltype(c)::regs(lazy != 0, regs); }));
 }
 
-// The most 2-block clusters of the pair's case (`per`, `lazy`) the card
-// `device` runs at once with `smem` bytes of dynamic shared memory a block,
-// for the launch plan. Returns a cudaError_t.
-extern "C" int p7_viterbi_clusters(int device, int per, int lazy, int smem, int* clusters) {
+// The most clusters of `cluster` blocks (2: the pair's case of `per`,
+// `lazy`; 3..16: the lazy kernel's C-block cluster) the card `device` runs
+// at once with `smem` bytes of dynamic shared memory a block, for the launch
+// plan. Returns a cudaError_t.
+extern "C" int p7_viterbi_clusters(int device, int per, int cluster, int lazy, int smem,
+                                   int* clusters) {
+  if (cluster >= 3) {
+    if (!lazy || cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {
+      return decltype(c)::clusters(device, cluster, smem, clusters);
+    }));
+  }
+  if (cluster != 2) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_pair_case<PairCase>(per, [&](auto c) {
     return decltype(c)::clusters(lazy != 0, device, smem, clusters);
   }));

@@ -20,10 +20,13 @@ chain, as the TPU kernels): groups of KERNEL_THREADS threads a sequence up
 to 2432 states and up to 4864 a pair of such groups, one in each block of a
 2-block thread-block cluster (the eager, lazy, log-space, filter, Forward
 and row-saving Forward cases, PAIR_KINDS), or groups of WIDE_THREADS (the
-posterior backward pass), with the rows in registers; past that the
-rows-in-memory case, MEM_THREADS
-threads a sequence with its rows in global memory (:func:`kernel_case`);
-the plain versions have no cap.
+posterior backward pass), with the rows in registers; up to
+MAX_CLUSTER_STATES = 38,912 the lazy, filter, Forward and row-saving
+Forward cases (CLUSTER_KINDS) run C such groups, one in each block of a
+C-block cluster (C = ceil(M_pad / 2432), 3..16); past that, and for the
+eager and log-space cases and the backward pass past 4864, the
+rows-in-memory case, MEM_THREADS threads a sequence with its rows in global
+memory (:func:`kernel_case`); the plain versions have no cap.
 
 The host packers are numpy copies of the JAX ones (that module imports
 jax) and return the same arrays byte for byte, in the TPU's ``[M_pad, …]``
@@ -68,6 +71,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import logging
 from typing import NamedTuple
 
 import numpy as np
@@ -81,6 +85,8 @@ from .msv_cuda import (
     count_launch, f32_round_up, round_up, zero_launches,
 )
 
+log = logging.getLogger(__name__)
+
 # residues per lazy-certificate chunk: a fire replays this many steps of
 # one sequence with the full chain (the JAX kernel replays an L-chunk of
 # 128 residues of a whole lane block)
@@ -91,11 +97,12 @@ LAZY_CHUNK = 128
 FWD_RESCALE_GROUP = 8
 # threads that follow one sequence in the kernels: KERNEL_THREADS up to
 # KERNEL_THREADS * 19 = 2432 states, WIDE_THREADS up to 4864 (the backward
-# pass; the PAIR_KINDS run two groups of KERNEL_THREADS there), each thread
-# owning states t * per .. t * per + per - 1 in registers
-# (csrc/p7_blocked.cuh); past that MEM_THREADS threads a sequence in the
-# rows-in-memory case, thread t handling states t, t + MEM_THREADS, ... of
-# rows kept in MEM_ROWS scratch rows of global memory a block
+# pass; the PAIR_KINDS run two groups of KERNEL_THREADS there, and the
+# CLUSTER_KINDS C of them up to 38,912), each thread owning states t * per ..
+# t * per + per - 1 in registers (csrc/p7_blocked.cuh); past that
+# MEM_THREADS threads a sequence in the rows-in-memory case, thread t
+# handling states t, t + MEM_THREADS, ... of rows kept in MEM_ROWS scratch
+# rows of global memory a block
 KERNEL_THREADS = 128
 WIDE_THREADS = 256
 MEM_THREADS = 1024
@@ -144,6 +151,25 @@ CLUSTER = 2
 # passes), 4 release slots, 24 mbarriers of 8 bytes
 PAIR_HALOS = 18
 PAIR_FLOATS = 2 * 2 * (KERNEL_THREADS // 32) + PAIR_HALOS * 16 + 4 + 2 * (PAIR_HALOS + 6)
+# the kinds whose cases past MAX_WIDE_STATES, up to MAX_CLUSTER_STATES, run on
+# C-block clusters (csrc/p7_blocked.cuh): the Viterbi template's lazy and
+# filter cases (viterbi_cluster_kernel) and the Forward template's
+# (forward_cluster_kernel); C = ceil(M_pad / MAX_GROUP_STATES) blocks of one
+# group of KERNEL_THREADS threads, block r owning states r * KERNEL_THREADS *
+# per .., per the CLUSTER_PER case that covers M_pad. The eager and
+# log-space kinds stay in memory there: they run the whole chain every
+# step, whose larger shifts cost about 1.7 us each on 128-thread blocks
+# (the pair's eager step 17.4 us, log-space 65.6 us, against the
+# rows-in-memory case's 29.4 and 57.1 at LENG 6977; PERF.md), so two rounds
+# of clusters at 64 rows would be slower than today's case.
+CLUSTER_KINDS = ("lazy", "filter", "forward", "save")
+MAX_CLUSTER = 16
+MAX_CLUSTER_STATES = MAX_CLUSTER * MAX_GROUP_STATES  # 38,912
+CLUSTER_PER = tuple(range(13, 20))  # C >= 3 blocks past 4864 states need per >= 13
+# a C-block cluster's block area (csrc/p7_blocked.cuh::cluster_floats)
+# beside its two rows, in floats: two exchanges' slots (a value a warp of up
+# to MAX_CLUSTER blocks), the pair's halos, release slots and mbarriers
+CLUSTER_FLOATS = PAIR_FLOATS + 2 * (MAX_CLUSTER - 2) * (KERNEL_THREADS // 32)
 
 # auto-picked lazy window and truncated prob-space chain: the constants of
 # pallas_p7 (LAZY_TAIL_DAMP_NATS, PROB_CHAIN_L_MAX, PROB_CHAIN_REL_ERR)
@@ -814,10 +840,10 @@ def _kernel_library() -> ctypes.CDLL:
     lib.p7_forward_regs.argtypes = [c, c, c, c, regs]
     lib.p7_filter_regs.argtypes = [c, c, c, regs]
     lib.p7_backward_regs.argtypes = [c, c, regs]
-    lib.p7_viterbi_clusters.argtypes = [c, c, c, c, regs]
+    lib.p7_viterbi_clusters.argtypes = [c, c, c, c, c, regs]
     lib.p7_forward_log_clusters.argtypes = [c, c, c, regs]
-    lib.p7_filter_clusters.argtypes = [c, c, c, regs]
-    lib.p7_forward_clusters.argtypes = [c, c, c, c, regs]
+    lib.p7_filter_clusters.argtypes = [c, c, c, c, regs]
+    lib.p7_forward_clusters.argtypes = [c, c, c, c, c, regs]
     for fn in (lib.p7_viterbi_launch, lib.p7_forward_launch, lib.p7_forward_log_launch,
                lib.p7_filter_launch, lib.p7_backward_launch, lib.p7_viterbi_regs,
                lib.p7_forward_log_regs, lib.p7_forward_regs, lib.p7_filter_regs,
@@ -829,16 +855,31 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
-def kernel_case(m_pad: int) -> tuple[int, int]:
+def cluster_blocks(m_pad: int, kind: str | None = None) -> int:
+    """C, the blocks of the C-block cluster that runs ``kind``'s case of
+    ``m_pad`` states (ceil(m_pad / MAX_GROUP_STATES), 3..MAX_CLUSTER: the
+    CLUSTER_KINDS past MAX_WIDE_STATES up to MAX_CLUSTER_STATES), else 1."""
+    if kind in CLUSTER_KINDS and MAX_WIDE_STATES < m_pad <= MAX_CLUSTER_STATES:
+        return -(-m_pad // MAX_GROUP_STATES)
+    return 1
+
+
+def kernel_case(m_pad: int, kind: str | None = None) -> tuple[int, int]:
     """``(threads, per)``: the kernel case of ``m_pad`` states, KERNEL_THREADS
     threads a sequence up to MAX_GROUP_STATES and WIDE_THREADS up to
     MAX_WIDE_STATES, each thread holding ``per`` states in registers; past
-    that the rows-in-memory case, MEM_THREADS threads walking ``per`` tiles
-    of MEM_THREADS states. Raises ``ValueError`` past MAX_KERNEL_STATES."""
+    that a CLUSTER_KINDS ``kind`` runs KERNEL_THREADS threads in each block
+    of a C-block cluster up to MAX_CLUSTER_STATES (:func:`cluster_blocks`,
+    ``per`` of CLUSTER_PER), and every other case the rows-in-memory case,
+    MEM_THREADS threads walking ``per`` tiles of MEM_THREADS states. Raises
+    ``ValueError`` past MAX_KERNEL_STATES."""
     if m_pad <= MAX_GROUP_STATES:
         return KERNEL_THREADS, max(-(-m_pad // KERNEL_THREADS), 1)
     if m_pad <= MAX_WIDE_STATES:
         return WIDE_THREADS, -(-m_pad // WIDE_THREADS)
+    c = cluster_blocks(m_pad, kind)
+    if c > 1:
+        return KERNEL_THREADS, -(-m_pad // (KERNEL_THREADS * c))
     if m_pad <= MAX_KERNEL_STATES:
         return MEM_THREADS, -(-m_pad // MEM_THREADS)
     raise ValueError(
@@ -869,7 +910,8 @@ def bf16_stride(per: int) -> int:
 
 def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
                        threads: int = KERNEL_THREADS, bf16: bool = False,
-                       backward: bool = False, pair: bool = False) -> int:
+                       backward: bool = False, pair: bool = False,
+                       cluster: bool = False) -> int:
     """Dynamic shared memory of a blocked kernel's block
     (``csrc/p7_blocked.cuh::smem_floats``): ``n_rows`` staged rows, then
     per group two shift rows, four emission rows (f32, or with ``bf16`` the
@@ -879,7 +921,9 @@ def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
     shift rows, four f32 odds rows, two bf16 saved rows, three floats a
     warp, the token chunk and the chunk's log scales and coverage. With
     ``pair``, a block of the cluster pair (``pair_smem_floats``): its one
-    group and the pair's exchange area (two rows and PAIR_FLOATS)."""
+    group and the pair's exchange area (two rows and PAIR_FLOATS); with
+    ``cluster``, a block of a C-block cluster (``cluster_smem_floats``): two
+    rows and CLUSTER_FLOATS, whatever C is."""
     row = threads * blocked_stride(per)
     hrow = threads * bf16_stride(per) // 2
     if backward:
@@ -887,7 +931,8 @@ def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
     else:
         erow = hrow if bf16 else row
         group = 2 * row + 4 * erow + 2 * (threads // 32) + LAZY_CHUNK // 4 + (row if save else 0)
-    return 4 * (n_rows * row + groups * group + (2 * row + PAIR_FLOATS if pair else 0))
+    area = 2 * row + PAIR_FLOATS if pair else 2 * row + CLUSTER_FLOATS if cluster else 0
+    return 4 * (n_rows * row + groups * group + area)
 
 
 def pair_state(j: int, per: int) -> tuple[int, int, int]:
@@ -900,6 +945,17 @@ def pair_state(j: int, per: int) -> tuple[int, int, int]:
     return block, rest // per, rest % per
 
 
+def cluster_state(j: int, per: int, c: int) -> tuple[int, int, int]:
+    """``(block, thread, slot)`` of state ``j`` in a C-block cluster of
+    ``per`` states a thread: block r owns states r * KERNEL_THREADS * per ..
+    (r + 1) * KERNEL_THREADS * per - 1, in the normal-width layout of its
+    slice (``csrc/p7_viterbi.cuh``, ``col0``), whatever ``c`` is; raises past
+    the cluster's c * KERNEL_THREADS * per states."""
+    if not 0 <= j < c * KERNEL_THREADS * per:
+        raise ValueError(f"state {j} outside a {c}-block cluster of per {per}")
+    return pair_state(j, per)
+
+
 class LaunchPlan(NamedTuple):
     """How a blocked kernel launches: ``groups`` sequences a block (groups
     of ``threads`` threads), ``grid`` blocks walking the batch with a
@@ -909,7 +965,10 @@ class LaunchPlan(NamedTuple):
     rows-in-memory case (``threads`` MEM_THREADS) stages nothing: one group
     a block, no dynamic shared memory, MEM_ROWS scratch rows a block.
     ``cluster`` is the blocks of a thread-block cluster: 2 for the cluster
-    pair (one group a block, a sequence a cluster, an even grid), else 1."""
+    pair, C for a C-block cluster (both one group a block, a sequence a
+    cluster, a grid of whole clusters), else 1. ``per`` is the states a
+    thread of the case (tiles of MEM_THREADS states in the rows-in-memory
+    case)."""
 
     groups: int
     grid: int
@@ -919,6 +978,7 @@ class LaunchPlan(NamedTuple):
     threads: int = KERNEL_THREADS
     n_trans: int = TRANS_ROWS
     cluster: int = 1
+    per: int = 0
 
 
 def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: int,
@@ -937,39 +997,44 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     as many as registers, shared memory (at most SMEM_PER_SM bytes a block)
     and MAX_BLOCK_THREADS allow, but no more than ``ceil(b_pad / sms)``; a
     given ``groups`` must fit. The PAIR_KINDS past MAX_GROUP_STATES run the
-    cluster pair: KERNEL_THREADS threads and one group a block, each block
-    of a 2-block cluster staging its half of every row that fits (the
-    normal-width plan at KERNEL_THREADS), one sequence a cluster, on a
-    persistent grid of the ``clusters`` the card runs at once
+    cluster pair, and the CLUSTER_KINDS past MAX_WIDE_STATES a C-block
+    cluster (:func:`cluster_blocks`): KERNEL_THREADS threads and one group a
+    block, each block of the cluster staging its slice of every row that
+    fits (the normal-width plan at KERNEL_THREADS), one sequence a cluster,
+    on a persistent grid of the ``clusters`` the card runs at once
     (``cudaOccupancyMaxActiveClusters``; None: what registers, shared memory
-    and THREADS_PER_SM let an SM hold, two SMs a cluster), at most the batch
-    needs; a given ``groups`` must be 1. Past MAX_WIDE_STATES the
-    rows-in-memory case runs one sequence a block, as many blocks as
-    registers and THREADS_PER_SM let an SM hold. Raises ``ValueError`` past
-    M_pad 65536."""
+    and THREADS_PER_SM let an SM hold, C SMs a cluster), at most the batch
+    needs; a given ``groups`` must be 1. A C-block cluster the card holds
+    none of (``clusters`` 0) plans the rows-in-memory case instead, as every
+    other case past MAX_WIDE_STATES does: one sequence a block, as many
+    blocks as registers and THREADS_PER_SM let an SM hold. Raises
+    ``ValueError`` past M_pad 65536."""
     if kind not in BLOCKED_KINDS:
         raise ValueError(f"unknown blocked kernel case {kind!r}")
-    kt, per = kernel_case(m_pad)
+    kt, per = kernel_case(m_pad, kind)
     if not 1 <= passes <= chain_passes(m_pad):
         raise ValueError(f"{passes} chain passes outside 1..{chain_passes(m_pad)}")
+    c = cluster_blocks(m_pad, kind)
+    if c > 1 and clusters == 0:  # the card holds no cluster of C blocks
+        c, (kt, per) = 1, kernel_case(m_pad)
     warp_regs = round_up(max(int(regs), 1), 8) * 32  # allocated by the warp, 8 at a time
     if kt == MEM_THREADS:
         if groups not in (None, 1):
             raise ValueError(f"{groups} groups a block: the rows-in-memory case takes 1")
         per_sm = max(1, min(REGS_PER_SM // (warp_regs * MEM_THREADS // 32),
                             THREADS_PER_SM // MEM_THREADS))
-        return LaunchPlan(1, max(1, min(b_pad, sms * per_sm)), 0, 0, 1, MEM_THREADS, 0)
+        return LaunchPlan(1, max(1, min(b_pad, sms * per_sm)), 0, 0, 1, MEM_THREADS, 0, 1, per)
     extra = 1 if kind == "lazy" and passes < chain_passes(m_pad) else 0
     save = kind == "save"
     bf16 = kind == "filter"
     backward = kind == "backward"
     pair = kind in PAIR_KINDS and kt == WIDE_THREADS
     if pair:
-        kt = KERNEL_THREADS
+        kt, c = KERNEL_THREADS, CLUSTER
 
     def smem(n_trans, n_chain, g):
         return blocked_smem_bytes(per, n_trans + n_chain + extra, g, save, kt, bf16, backward,
-                                  pair)
+                                  pair, c > CLUSTER)
 
     n_trans, n_chain = TRANS_ROWS, passes
     while n_chain > 0 and smem(n_trans, n_chain, 1) > SMEM_PER_SM:
@@ -979,15 +1044,16 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     bounded = backward and kt == KERNEL_THREADS and per in BACKWARD_BOUNDED_PER
     block_threads = BOUNDED_THREADS if bounded else MAX_BLOCK_THREADS
     by_regs = REGS_PER_SM // (warp_regs * (kt // 32))
-    if pair:
+    if c > 1:
         if groups not in (None, 1):
-            raise ValueError(f"{groups} groups a block: the {kind} kernel's cluster pair takes 1")
+            what = "cluster pair" if c == CLUSTER else f"{c}-block cluster"
+            raise ValueError(f"{groups} groups a block: the {kind} kernel's {what} takes 1")
         nbytes = smem(n_trans, n_chain, 1)
         if clusters is None:
             per_sm = max(1, min(by_regs, SMEM_PER_SM // nbytes, THREADS_PER_SM // kt))
-            clusters = sms * per_sm // CLUSTER
-        pairs = max(1, min(b_pad, clusters))
-        return LaunchPlan(1, CLUSTER * pairs, n_chain, nbytes, 1, kt, n_trans, CLUSTER)
+            clusters = max(1, sms * per_sm // c)
+        units = max(1, min(b_pad, clusters))
+        return LaunchPlan(1, c * units, n_chain, nbytes, 1, kt, n_trans, c, per)
     by_smem = 0
     while (by_smem + 1) * kt <= block_threads and smem(n_trans, n_chain, by_smem + 1) <= SMEM_PER_SM:
         by_smem += 1
@@ -1006,13 +1072,14 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     per_sm = max(1, min(REGS_PER_SM // (warp_regs * threads // 32),
                         SMEM_PER_SM // nbytes, THREADS_PER_SM // threads))
     grid = max(1, min(-(-b_pad // groups), sms * per_sm))
-    return LaunchPlan(groups, grid, n_chain, nbytes, most, kt, n_trans)
+    return LaunchPlan(groups, grid, n_chain, nbytes, most, kt, n_trans, 1, per)
 
 
 @functools.cache
 def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS, cluster: int = 1) -> int:
     """Registers a thread of the blocked kernel case uses, as compiled
-    (``cluster`` 2: the cluster pair's case of ``per``)."""
+    (``cluster`` 2: the cluster pair's case of ``per``; C of 3..16: the
+    C-block cluster's)."""
     lib = _kernel_library()
     out = ctypes.c_int(0)
     if kind in ("eager", "lazy"):
@@ -1033,39 +1100,61 @@ def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS, cluster: int
 
 
 @functools.cache
-def max_clusters(kind: str, per: int, smem: int, index: int) -> int:
-    """The most 2-block clusters of the cluster pair's ``kind`` case of
-    ``per`` card ``index`` runs at once with ``smem`` bytes of dynamic
-    shared memory a block (``cudaOccupancyMaxActiveClusters``)."""
+def max_clusters(kind: str, per: int, smem: int, index: int, cluster: int = CLUSTER) -> int:
+    """The most clusters of ``cluster`` blocks (2: the cluster pair's
+    ``kind`` case of ``per``; C of 3..16: the C-block cluster's) card
+    ``index`` runs at once with ``smem`` bytes of dynamic shared memory a
+    block (``cudaOccupancyMaxActiveClusters``); 0 for a C-block cluster the
+    card cannot hold, while the pair must fit."""
     lib = _kernel_library()
     out = ctypes.c_int(0)
     if kind in ("eager", "lazy"):
-        rc = lib.p7_viterbi_clusters(index, per, int(kind == "lazy"), smem, ctypes.byref(out))
+        rc = lib.p7_viterbi_clusters(index, per, cluster, int(kind == "lazy"), smem,
+                                     ctypes.byref(out))
     elif kind == "log":
         rc = lib.p7_forward_log_clusters(index, per, smem, ctypes.byref(out))
     elif kind in ("forward", "save"):
-        rc = lib.p7_forward_clusters(index, per, int(kind == "save"), smem, ctypes.byref(out))
+        rc = lib.p7_forward_clusters(index, per, cluster, int(kind == "save"), smem,
+                                     ctypes.byref(out))
     else:
-        rc = lib.p7_filter_clusters(index, per, smem, ctypes.byref(out))
-    if rc != 0 or out.value < 1:
+        rc = lib.p7_filter_clusters(index, per, cluster, smem, ctypes.byref(out))
+    if rc != 0 or out.value < (1 if cluster == CLUSTER else 0):
         msg = lib.msv_error_string(rc).decode()
-        raise RuntimeError(f"{kind} kernel's cluster pair (per {per}, {smem} bytes) occupancy "
-                           f"query failed: {msg} ({rc}, {out.value} clusters)")
+        raise RuntimeError(f"{kind} kernel's {cluster}-block cluster (per {per}, {smem} bytes) "
+                           f"occupancy query failed: {msg} ({rc}, {out.value} clusters)")
     return out.value
+
+
+@functools.cache
+def _cluster_held(kind: str, per: int, smem: int, index: int, cluster: int) -> int:
+    held = max_clusters(kind, per, smem, index, cluster)
+    if held == 0:
+        log.warning("card %d holds no %d-block cluster of the %s kernel (per %d): the "
+                    "rows-in-memory case runs its widths", index, cluster, kind, per)
+    return held
 
 
 def device_plan(kind: str, m_pad: int, passes: int, b_pad: int, device,
                 groups: int | None = None) -> LaunchPlan:
     """:func:`plan_launch` with the compiled case's registers and the
-    card's multiprocessors (the cluster pair's, with the clusters the card
-    runs at once)."""
+    card's multiprocessors (a cluster's, with the clusters the card runs at
+    once; a C-block cluster it holds none of plans the rows-in-memory case,
+    logged: the query's choice, made before any launch, and a refused launch
+    still raises)."""
     index = torch.device(device).index or 0
-    threads, per = kernel_case(m_pad)
+    threads, per = kernel_case(m_pad, kind)
+    c = cluster_blocks(m_pad, kind)
     if kind in PAIR_KINDS and threads == WIDE_THREADS:
-        regs = kernel_regs(kind, per, KERNEL_THREADS, CLUSTER)
+        c = CLUSTER
+    if c > 1:
+        regs = kernel_regs(kind, per, KERNEL_THREADS, c)
         plan = plan_launch(kind, m_pad, passes, b_pad, regs, _sm_count(index), groups)
-        return plan_launch(kind, m_pad, passes, b_pad, regs, _sm_count(index), groups,
-                           max_clusters(kind, per, plan.smem, index))
+        held = (max_clusters(kind, per, plan.smem, index) if c == CLUSTER
+                else _cluster_held(kind, per, plan.smem, index, c))
+        if held == 0:
+            threads, per = kernel_case(m_pad)
+            regs = kernel_regs(kind, per, threads)
+        return plan_launch(kind, m_pad, passes, b_pad, regs, _sm_count(index), groups, held)
     return plan_launch(kind, m_pad, passes, b_pad, kernel_regs(kind, per, threads),
                        _sm_count(index), groups)
 
@@ -1082,7 +1171,8 @@ def mem_scratch(plan: LaunchPlan, m_pad: int, device) -> torch.Tensor | None:
 def launched(wrapper, plan: LaunchPlan) -> None:
     """Count a launch of ``wrapper``'s kernel on ``plan``: apart for the
     wide cases (WIDE_THREADS and the cluster pair), the rows-in-memory case
-    and, by its blocks a cluster, the cluster pair."""
+    and, by its blocks a cluster, the cluster pair and the C-block
+    clusters."""
     count_launch(wrapper, plan.threads == WIDE_THREADS or plan.cluster == CLUSTER,
                  plan.threads == MEM_THREADS, plan.cluster)
 
@@ -1148,7 +1238,7 @@ def _viterbi_cuda(lazy, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, 
         plan = device_plan("lazy" if lazy else "eager", m_pad, k_run, b_pad, device, groups)
         scratch = mem_scratch(plan, m_pad, device)
         rc = _kernel_library().p7_viterbi_launch(
-            device.index, plan.threads, kernel_per(m_pad), plan.cluster, int(lazy),
+            device.index, plan.threads, plan.per, plan.cluster, int(lazy),
             emit_m.data_ptr(), emit_i.data_ptr(), trans.data_ptr(), chain.data_ptr(),
             m_pad, n_passes, k_run, plan.n_chain, plan.n_trans, tokens.data_ptr(), l_pad,
             lengths.data_ptr(),
@@ -1206,7 +1296,7 @@ def forward_launch(wrapper, modds, iodds, trans, chain, tokens, lengths, tr_rows
         plan = device_plan("save" if save else "forward", m_pad, window, b_pad, device, groups)
         scratch = mem_scratch(plan, m_pad, device)
         rc = _kernel_library().p7_forward_launch(
-            device.index, plan.threads, kernel_per(m_pad), plan.cluster, modds.data_ptr(),
+            device.index, plan.threads, plan.per, plan.cluster, modds.data_ptr(),
             iodds.data_ptr(),
             trans.data_ptr(), chain.data_ptr(), m_pad, window, plan.n_chain, plan.n_trans,
             FWD_RESCALE_GROUP, tokens.data_ptr(),
@@ -1247,7 +1337,7 @@ def forward_log_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, cons
         plan = device_plan("log", m_pad, n_passes, b_pad, device, groups)
         scratch = mem_scratch(plan, m_pad, device)
         rc = _kernel_library().p7_forward_log_launch(
-            device.index, plan.threads, kernel_per(m_pad), plan.cluster, msc.data_ptr(),
+            device.index, plan.threads, plan.per, plan.cluster, msc.data_ptr(),
             isc.data_ptr(),
             trans.data_ptr(), chain.data_ptr(), m_pad, n_passes, plan.n_chain, plan.n_trans,
             tokens.data_ptr(), l_pad,
@@ -1283,7 +1373,7 @@ def viterbi_filter_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, c
         plan = device_plan("filter", m_pad, passes, b_pad, device, groups)
         scratch = mem_scratch(plan, m_pad, device)
         rc = _kernel_library().p7_filter_launch(
-            device.index, plan.threads, kernel_per(m_pad), plan.cluster, msc.data_ptr(),
+            device.index, plan.threads, plan.per, plan.cluster, msc.data_ptr(),
             isc.data_ptr(),
             trans.data_ptr(), chain.data_ptr(), m_pad, full, passes, plan.n_chain, plan.n_trans,
             int(bool(e_skip_d)), tokens.data_ptr(), l_pad, lengths.data_ptr(),

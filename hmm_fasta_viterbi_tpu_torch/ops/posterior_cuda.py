@@ -202,7 +202,7 @@ def backward_coverage_scan_cuda(modds, iodds, trans, schain, tokens, lengths, tr
         plan = p7_cuda.device_plan("backward", m_pad, window, b_pad, device, groups)
         scratch = p7_cuda.mem_scratch(plan, m_pad, device)
         rc = p7_cuda._kernel_library().p7_backward_launch(
-            device.index, plan.threads, p7_cuda.kernel_per(m_pad), modds.data_ptr(),
+            device.index, plan.threads, plan.per, modds.data_ptr(),
             iodds.data_ptr(), trans.data_ptr(), schain.data_ptr(), m_pad, window, plan.n_chain,
             plan.n_trans, p7_cuda.FWD_RESCALE_GROUP, tokens.data_ptr(), l_pad,
             lengths.data_ptr(), tr_probs.data_ptr(), consts.data_ptr(), total.data_ptr(),

@@ -308,7 +308,9 @@ def test_p7_kernels_support_every_profile(all_profile_paths):
     threads, and the thread counts match the C++ switches: the backward
     source takes 128 and 256 threads (with_case), the Viterbi and Forward
     templates' sources 128 and the cluster pair's cases (with_group_case,
-    with_pair_case)."""
+    with_pair_case), and the C-block cluster's cases those of the sources
+    whose kinds run it (with_cluster_case: the lazy Viterbi, the filter and
+    the Forward template's sources)."""
     from hmm_fasta_viterbi_tpu_torch import P7Profile, parse_hmm
 
     cases = [(p7_cuda.KERNEL_THREADS, per) for per in p7_cuda.KERNEL_PER]
@@ -316,6 +318,7 @@ def test_p7_kernels_support_every_profile(all_profile_paths):
     source = (_build.CSRC_DIR / "p7_blocked.cuh").read_text()
     assert all(f"P7_CASE({per}, {threads})" in source for threads, per in cases)
     assert all(f"P7_PAIR_CASE({per})" in source for per in p7_cuda.WIDE_PER)
+    assert all(f"P7_CLUSTER_CASE({per})" in source for per in p7_cuda.CLUSTER_PER)
     assert f"kMemThreads = {p7_cuda.MEM_THREADS};" in source
     assert f"kMemRows = {p7_cuda.MEM_ROWS};" in source
     for name in ("p7_viterbi_kernel.cu", "p7_forward_kernel.cu", "p7_viterbi_filter_kernel.cu",
@@ -326,6 +329,9 @@ def test_p7_kernels_support_every_profile(all_profile_paths):
         else:
             assert "with_group_case<Case>(per" in source
             assert "with_pair_case<PairCase>(per" in source
+        clustered = name in ("p7_viterbi_kernel.cu", "p7_forward_kernel.cu",
+                             "p7_viterbi_filter_kernel.cu")
+        assert ("with_cluster_case<ClusterCase>(per" in source) == clustered
         assert "if (threads == kMemThreads)" in source
     for path in all_profile_paths:
         p7 = P7Profile.from_profile(parse_hmm(path))
@@ -421,7 +427,7 @@ def test_log_forward_kernel_uses_accurate_math_only():
     """The log-space Forward's combine and E reduce call the accurate expf,
     log1pf and logf, never the fast intrinsics."""
     source = (_build.CSRC_DIR / "p7_viterbi.cuh").read_text()
-    assert "log1pf(expf(d))" in source and "logf(step_reduce<true, KT, PAIR>" in source
+    assert "log1pf(expf(d))" in source and "logf(step_reduce<true, KT, SPAN>" in source
     source += (_build.CSRC_DIR / "p7_blocked.cuh").read_text()
     source += (_build.CSRC_DIR / "cluster.cuh").read_text()
     for fast in ("__expf", "__logf", "__log1pf", "__fdividef"):

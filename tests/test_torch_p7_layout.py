@@ -16,11 +16,20 @@ checked on the CPU: the kernels themselves run only on the card.
   1's first states read from block 0's shift buffer) equal
   ``p7_cuda._shift`` for every per 10..19 and s = 2^p, and its plan stages
   every row that fits in a block, one group a block, an even grid.
+* The C-block cluster (the lazy, filter and Forward kinds past 4864
+  states: C blocks of 128 threads, C = 3..16): its state map is a
+  bijection, each block's slice in the normal-width layout, and its shifts
+  (``cluster_shift_small``: halos from block r - 1; ``cluster_shift_big``:
+  a block's states from the blocks q and q + 1 below it, q = s div (128 *
+  per)) equal ``p7_cuda._shift`` for every pass of its chain and both
+  fills; its plan takes C = ceil(M_pad / 2432) blocks, one group each.
 * ``plan_launch`` keeps every case within the block's shared memory and the
   SM's registers, picks G = 1 up to one sequence an SM, leaves chain rows
   and then (at 256 threads) transition rows in global memory when a group
   would not fit, runs the rows-in-memory case (1024 threads, one sequence
-  a block, nothing staged) past M_pad 4864 and raises past 65536.
+  a block, nothing staged) past M_pad 4864 for the eager and log-space
+  kinds and the backward pass and past 38,912 for every kind, and raises
+  past 65536.
 * The backward coverage pass's suffix shifts (``shift_up_small``,
   ``shift_up_big``) equal ``posterior_cuda._up``, and its group layout
   (``backward_group_floats``) is what ``blocked_smem_bytes`` counts.
@@ -151,10 +160,62 @@ def _kernel_pair_shift(x: torch.Tensor, s: int, per: int, fill: float) -> torch.
     return torch.cat(out, dim=1)
 
 
+def _kernel_cluster_shift(x: torch.Tensor, s: int, per: int, fill: float,
+                          c: int) -> torch.Tensor:
+    """csrc/p7_blocked.cuh::cluster_shift on a [B, c * 128 * per] row, block
+    r holding the slice r * 128 * per ..: for s < per (by 1, 2, 4, 8, 16)
+    slots k >= s move within the thread and the first s come from thread t -
+    1's last s through the block's shift buffer, in block r's thread 0 from
+    the halo block r - 1's thread 127 stores its last s registers into (fill
+    in block 0). Otherwise, with q = s div (128 * per) and s' its rest, block
+    b stores its states l < 128 * per - s' into block b + q's row at l + s'
+    (for q = 0 they stay in its own shift buffer, read at l - s'), and the
+    others into block b + q + 1's row at l + s' - 128 * per; each receiving
+    block reads its row (or buffer), fill where no block sent."""
+    n = THREADS * per
+    width = THREADS * p7_cuda.blocked_stride(per)
+    v = [x[:, r * n:(r + 1) * n] for r in range(c)]  # a block's states, l = t * per + k
+    out = []
+    if s < per and s in (1, 2, 4, 8, 16):
+        for r in range(c):
+            o = _blocked(v[r], per, THREADS).clone()
+            o[:, :, s:] = _blocked(v[r], per, THREADS)[:, :, : per - s]
+            # thread t - 1's last s slots through the buffer, thread 0's from
+            # the halo of block r - 1's last thread
+            o[:, 1:, :s] = _blocked(v[r], per, THREADS)[:, :-1, per - s:]
+            o[:, 0, :s] = v[r - 1][:, n - s:] if r else fill
+            out.append(o.reshape(x.shape[0], n))
+        return torch.cat(out, dim=1)
+    sidx = torch.tensor([_sidx(j, per) for j in range(n)])
+    q, rest = divmod(s, n)
+    lo, hi = torch.arange(n - rest), torch.arange(n - rest, n)
+    bufs, rows = [], [torch.full((x.shape[0], width), float("nan")) for _ in range(c)]
+    for b in range(c):
+        buf = torch.full((x.shape[0], width), float("nan"))
+        if q == 0:
+            buf[:, sidx] = v[b]
+        bufs.append(buf)
+        if q >= 1 and b + q < c:
+            rows[b + q][:, sidx[lo + rest]] = v[b][:, lo]
+        if rest > 0 and b + q + 1 < c:
+            rows[b + q + 1][:, sidx[hi + rest - n]] = v[b][:, hi]
+    for r in range(c):
+        o = torch.full((x.shape[0], n), fill)
+        if q == 0:
+            o[:, rest:] = bufs[r][:, sidx[torch.arange(n - rest)]]
+        elif r - q >= 0:
+            o[:, rest:] = rows[r][:, sidx[rest:]]
+        if rest > 0 and r - q - 1 >= 0:
+            o[:, :rest] = rows[r][:, sidx[:rest]]
+        out.append(o)
+    return torch.cat(out, dim=1)
+
+
 def _check_shifts(per: int, threads: int, cluster: int = 1) -> None:
     """The kernels' shifts on a row of ``cluster`` blocks of ``threads``
-    threads (cluster 2: the pair, 128 threads a block) against the plain
-    shift, for every s = 2^p of the row's chain and both fills."""
+    threads (cluster 2: the pair, 128 threads a block; 3..16: a C-block
+    cluster) against the plain shift, for every s = 2^p of the row's chain
+    and both fills."""
     rng = np.random.default_rng(per)
     m = cluster * threads * per
     x = torch.from_numpy(rng.normal(size=(2, m)).astype(np.float32))
@@ -163,8 +224,10 @@ def _check_shifts(per: int, threads: int, cluster: int = 1) -> None:
         for fill in (p7_cuda.NEG_INF, 0.0):
             if cluster == 1:
                 got = _kernel_shift(x, s, per, fill, threads)
-            else:
+            elif cluster == 2:
                 got = _kernel_pair_shift(x, s, per, fill)
+            else:
+                got = _kernel_cluster_shift(x, s, per, fill, cluster)
             assert torch.equal(got, p7_cuda._shift(x, s, fill)), (s, fill)
 
 
@@ -230,6 +293,33 @@ def test_pair_state_map_is_a_bijection(per):
                             for k in range(per)]
     for j, (b, t, k) in enumerate(seen):
         assert b * THREADS * per + t * per + k == j
+
+
+@pytest.mark.parametrize("c,per", [(3, 13), (3, 16), (3, 19), (4, 15), (5, 17), (8, 18),
+                                   (9, 16), (13, 19), (16, 19)])
+def test_cluster_shifts_equal_the_plain_shift(c, per):
+    """The C-block cluster's shifts, across the cluster included (halos,
+    and the larger shifts' two source blocks, whole blocks away included),
+    for every Hillis-Steele pass s = 2^p of c * 128 * per states and both
+    fills."""
+    _check_shifts(per, THREADS, cluster=c)
+
+
+@pytest.mark.parametrize("c", range(3, p7_cuda.MAX_CLUSTER + 1))
+def test_cluster_state_map_is_a_bijection(c):
+    """State j of a C-block cluster sits in (block, thread, slot) with j =
+    block * 128 * per + thread * per + slot: every state of the c * 128 *
+    per once, each block's slice in the normal-width layout (the same map as
+    the normal-width case's on the slice); past the cluster it raises."""
+    for per in p7_cuda.CLUSTER_PER:
+        n = THREADS * per
+        seen = [p7_cuda.cluster_state(j, per, c) for j in range(c * n)]
+        assert sorted(seen) == [(b, t, k) for b in range(c) for t in range(THREADS)
+                                for k in range(per)]
+        for j, (b, t, k) in enumerate(seen):
+            assert b * n + t * per + k == j and divmod(j - b * n, per) == (t, k)
+        with pytest.raises(ValueError):
+            p7_cuda.cluster_state(c * n, per, c)
 
 
 def _hidx(j: int, per: int) -> int:
@@ -421,7 +511,7 @@ def test_pair_cases_match_kernel_source():
     csrc/p7_blocked.cuh); the Viterbi and Forward templates' sources
     instantiate no 256-thread case any more (with_group_case, not
     with_case; the backward source alone keeps it) and launch the pair as
-    clusters of 2 through the shared launch (p7_blocked.cuh), the Forward
+    clusters of 2 through the clusters' launch (p7_blocked.cuh, c = 2), the Forward
     with its row-saving group before the exchange area; a pair block's
     exchange area (two rows of
     block 0's states, two exchanges of a value a warp of both blocks, 18
@@ -454,17 +544,67 @@ def test_pair_cases_match_kernel_source():
         assert "with_case<" not in source and "with_group_case<Case>" in source, name
         assert "with_pair_case<PairCase>" in source, name
     assert "with_case<Case>(threads, per" in (csrc / "p7_backward_kernel.cu").read_text()
-    assert "attr->val.clusterDim.x = 2;" in blocked and "cudaLaunchKernelEx(&cfg, kernel, a)" in blocked
+    assert "attr->val.clusterDim.x = c;" in blocked and "cudaLaunchKernelEx(&cfg, kernel, a)" in blocked
+    for name in ("p7_viterbi_kernel.cu", "p7_forward_log_kernel.cu",
+                 "p7_viterbi_filter_kernel.cu", "p7_forward_kernel.cu"):
+        source = (csrc / name).read_text()
+        assert re.search(r"launch_cluster\([^;]*pair_smem_set(\[[^\]]*\])+, 2, grid,\s+smem", source), name
     template = (csrc / "p7_viterbi.cuh").read_text()
-    assert "viterbi_body<PER, 128, LAZY, LSE, FILT, true>(a);" in template
+    assert "viterbi_body<PER, 128, LAZY, LSE, FILT, Span::kPair>(a);" in template
     forward = (csrc / "p7_forward_kernel.cu").read_text()
-    assert "forward_body<PER, 128, SAVE, true>(a);" in forward
-    assert "pair_setup<PER, KT>(h, smem + n_rows * ROW + group_floats<PER, KT, false>(SAVE), t);" in forward
+    assert "forward_body<PER, 128, SAVE, Span::kPair>(a);" in forward
+    assert "float* area = smem + n_rows * ROW + group_floats<PER, KT, false>(SAVE);" in forward
+    assert "pair_setup<PER, KT>(h, area, t);" in forward
     assert "4 * pair_smem_floats<PER, 128, false>(n_rows, save)" in forward
     assert ("return smem_floats<PER, KT, BF16>(n_rows, 1, save) + pair_floats<PER, KT>();"
             in blocked)
     assert p7_cuda.blocked_smem_bytes(11, 3, 1, save=True, pair=True) == (
         p7_cuda.blocked_smem_bytes(11, 3, 1, save=True) + 4 * (2 * THREADS * 11 + 356))
+
+
+def test_cluster_cases_match_kernel_source():
+    """The C-block cluster's cases the C entries compile are CLUSTER_PER
+    (with_cluster_case, csrc/p7_blocked.cuh), instantiated by the lazy
+    Viterbi's, the filter's and the Forward template's sources (the kinds of
+    CLUSTER_KINDS) and launched as clusters of C blocks, past 8 with the
+    non-portable size allowed; a block's area (two rows, two exchanges of a
+    value a warp of up to 16 blocks, the pair's 18 halos of 16 slots, 4
+    release slots and 24 mbarriers) is what the plan counts after its group;
+    an exchange puts each warp's value at slot rank * 4 + warp of every
+    block, lane p into block p, and combines each block's four as the group
+    does, the blocks in rank order; C is read from %cluster_nctarank."""
+    csrc = p7_cuda._build.CSRC_DIR
+    blocked = (csrc / "p7_blocked.cuh").read_text()
+    cases = re.findall(r"P7_CLUSTER_CASE\((\d+)\)\n", blocked)
+    assert tuple(int(c) for c in cases) == p7_cuda.CLUSTER_PER
+    assert f"constexpr int kMaxCluster = {p7_cuda.MAX_CLUSTER};" in blocked
+    assert ("return 2 * row_floats<PER, KT>() + 2 * kMaxCluster * warps<KT>() + "
+            "kHaloIds * kHaloSlots + 4 +\n         2 * kPairBars;") in blocked
+    assert p7_cuda.CLUSTER_FLOATS == 2 * 16 * 4 + 18 * 16 + 4 + 48 == 468
+    assert ("return smem_floats<PER, KT, BF16>(n_rows, 1, save) + cluster_floats<PER, KT>();"
+            in blocked)
+    assert "const unsigned off = 4 * (q * X + c.rank * warps<KT>() + (t >> 5));" in blocked
+    assert "if ((t & 31) < c.nblk) {" in blocked
+    assert "const int q = s / N;" in blocked and "const int rest = s - q * N;" in blocked
+    assert "attr->val.clusterDim.x = c;" in blocked
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed, 1" in blocked
+    assert p7_cuda.chain_passes(p7_cuda.MAX_CLUSTER_STATES) + 2 <= 18  # a halo id a pass
+    kinds = {"p7_viterbi_kernel.cu": "viterbi_cluster_kernel<PER, true, false, false>",
+             "p7_viterbi_filter_kernel.cu": "viterbi_cluster_kernel<PER, false, false, true>",
+             "p7_forward_kernel.cu": "forward_cluster_kernel<PER, true>"}
+    for name, kernel in kinds.items():
+        source = (csrc / name).read_text()
+        assert "with_cluster_case<ClusterCase>(per" in source and kernel in source, name
+    assert "with_cluster_case" not in (csrc / "p7_forward_log_kernel.cu").read_text()
+    template = (csrc / "p7_viterbi.cuh").read_text()
+    assert "viterbi_body<PER, 128, LAZY, LSE, FILT, Span::kCluster>(a);" in template
+    assert "h.nblk = static_cast<int>(cluster_size());" in template
+    forward = (csrc / "p7_forward_kernel.cu").read_text()
+    assert "forward_body<PER, 128, SAVE, Span::kCluster>(a);" in forward
+    assert "4 * cluster_smem_floats<PER, 128, false>(n_rows, save)" in forward
+    assert "nblk = static_cast<int>(cluster_size());" in forward
+    assert p7_cuda.blocked_smem_bytes(19, 12, 1, cluster=True) == (
+        p7_cuda.blocked_smem_bytes(19, 12, 1) + 4 * (2 * THREADS * 19 + 468))
 
 
 def test_filter_plan_takes_bf16_emission_rows():
@@ -503,23 +643,78 @@ def test_shared_memory_matches_the_header_layout():
 
 @pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
 def test_rows_in_memory_plan(kind):
-    """Past M_pad 4864 every kind plans the rows-in-memory case: one group
-    of 1024 threads a block, nothing staged, no dynamic shared memory, a
+    """Past M_pad 4864 the eager and log-space kinds and the backward pass,
+    and past 38,912 every kind, plan the rows-in-memory case: one group of
+    1024 threads a block, nothing staged, no dynamic shared memory, a
     persistent grid of at most two blocks an SM (fewer when the registers
     do not allow two) and no more blocks than sequences; a forced G > 1
     raises. The three-profile and the 24-profile joins (LENG 6977, 30181)
-    and the widest M_pad, 65536 (16 chain passes), are such cases."""
-    for m_pad in (4872, 6984, 30184, 65536):
+    and the widest M_pad, 65536 (16 chain passes), are such cases for the
+    first three; 38,920 and 65536 for the lazy, filter and Forward kinds,
+    which also plan it where the card holds no cluster (``clusters`` 0)."""
+    widths = (4872, 6984, 30184, 65536) if kind not in p7_cuda.CLUSTER_KINDS else (38920, 65536)
+    for m_pad in widths:
         full = p7_cuda.chain_passes(m_pad)
-        assert p7_cuda.kernel_case(m_pad) == (p7_cuda.MEM_THREADS, -(-m_pad // 1024))
+        assert p7_cuda.kernel_case(m_pad, kind) == (p7_cuda.MEM_THREADS, -(-m_pad // 1024))
         for regs, b_pad in itertools.product((32, 40, 64), (1, 8, 64, 300, 2048)):
             plan = p7_cuda.plan_launch(kind, m_pad, full, b_pad, regs, SMS)
             per_sm = 2 if regs <= 32 else 1
             assert plan == p7_cuda.LaunchPlan(1, min(b_pad, per_sm * SMS), 0, 0, 1,
-                                              p7_cuda.MEM_THREADS, 0)
+                                              p7_cuda.MEM_THREADS, 0, 1, -(-m_pad // 1024))
         with pytest.raises(ValueError, match="takes 1"):
             p7_cuda.plan_launch(kind, m_pad, full, 64, 40, SMS, groups=2)
+    if kind in p7_cuda.CLUSTER_KINDS:
+        plan = p7_cuda.plan_launch(kind, 6984, 5, 64, 40, SMS, clusters=0)
+        assert (plan.threads, plan.cluster, plan.per, plan.grid) == (p7_cuda.MEM_THREADS, 1, 7, 64)
     assert p7_cuda.chain_passes(65536) == 16 and p7_cuda.chain_passes(30184) == 15
+
+
+@pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
+def test_cluster_plan_fits_the_block(kind):
+    """Past 4864 states, up to 38,912, the lazy, filter, Forward and
+    row-saving Forward kinds plan a C-block cluster, C = ceil(M_pad / 2432)
+    (3 at 4872 and 6984, 13 at 30184, 16 at 38,912), per the smallest that
+    covers M_pad: 128 threads and one group a block (a forced G other than 1
+    raises), a grid of whole clusters (the ``clusters`` the card holds, else
+    what an SM's registers, shared memory and threads allow, C SMs a
+    cluster; no more than the batch's sequences), every transition row
+    staged and as many chain rows as fit the 232,448 bytes of a block beside
+    its group and the cluster's area (two rows and 468 floats, whatever C);
+    the eager and log-space kinds and the backward pass stay in memory."""
+    for m_pad, c in ((4872, 3), (6984, 3), (30184, 13), (38912, 16)):
+        assert p7_cuda.cluster_blocks(m_pad, kind) == (
+            c if kind in p7_cuda.CLUSTER_KINDS else 1) and c == -(-m_pad // 2432)
+        full = p7_cuda.chain_passes(m_pad)
+        if kind not in p7_cuda.CLUSTER_KINDS:
+            plan = p7_cuda.plan_launch(kind, m_pad, full if kind != "backward" else 7, 64, 40, SMS)
+            assert (plan.threads, plan.cluster) == (p7_cuda.MEM_THREADS, 1)
+            continue
+        per = -(-m_pad // (THREADS * c))
+        assert per in p7_cuda.CLUSTER_PER and p7_cuda.kernel_case(m_pad, kind) == (THREADS, per)
+        for passes, regs, b_pad in itertools.product(_passes(kind, m_pad), REGS, BATCHES):
+            plan = p7_cuda.plan_launch(kind, m_pad, passes, b_pad, regs, SMS)
+            assert (plan.threads, plan.cluster, plan.groups, plan.max_groups, plan.per) == (
+                THREADS, c, 1, 1, per)
+            assert plan.grid % c == 0 and 1 <= plan.grid // c <= b_pad
+            extra = 1 if kind == "lazy" and passes < full else 0
+            rows = plan.n_trans + plan.n_chain + extra
+            bf16, save = kind == "filter", kind == "save"
+            assert plan.n_trans == 6 and 0 <= plan.n_chain <= passes
+            assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, save, bf16=bf16,
+                                                           cluster=True) <= SMEM_PER_SM
+            assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, save, bf16=bf16) + 4 * (
+                2 * THREADS * p7_cuda.blocked_stride(per) + 468)
+            if plan.n_chain < passes:
+                assert p7_cuda.blocked_smem_bytes(per, rows + 1, 1, save, bf16=bf16,
+                                                  cluster=True) > SMEM_PER_SM
+            warp_regs = -(-regs // 8) * 8 * 32
+            per_sm = min(p7_cuda.REGS_PER_SM // (4 * warp_regs), SMEM_PER_SM // plan.smem,
+                         p7_cuda.THREADS_PER_SM // THREADS)
+            assert plan.grid // c == min(b_pad, max(1, SMS * per_sm // c))
+        assert p7_cuda.plan_launch(kind, m_pad, passes, 4096, 128, SMS, clusters=7).grid == 7 * c
+        assert p7_cuda.plan_launch(kind, m_pad, passes, 4096, 128, SMS, groups=1).groups == 1
+        with pytest.raises(ValueError, match=f"{c}-block cluster takes 1"):
+            p7_cuda.plan_launch(kind, m_pad, passes, 4096, 128, SMS, groups=2)
 
 
 def test_backward_plan_and_shared_memory():

@@ -11,11 +11,14 @@ and L <= 64: the plain MSV equals ``msv_oracle_batch`` and ``msv_xla`` (1e-4,
 (coverage 4e-3, totals 2e-3); the plain Viterbi filter is >= ``viterbi_xla``
 and equal to ``viterbi_filter_pallas(interpret=True)`` at L <= 16. The
 scanner and the plain versions take M_pad past the p7 register cases' 4864,
-where the p7 kernels' rows-in-memory cases take over and the MSV kernel
-runs C-block clusters up to 38,912: the three-profile join of
-chip_smoke.py's MEM_JOINS (2405.hmm, 2365.hmm and 2207.hmm, LENG 6977)
-through the plain MSV, Viterbi, Forward and posterior decode against the
-JAX oracle and XLA path at the same tolerances, the all-24 join (LENG
+where the MSV kernel and the lazy, filter and Forward p7 kinds run C-block
+clusters up to 38,912 and the other p7 kinds' rows-in-memory cases take
+over: the three-profile join of chip_smoke.py's MEM_JOINS (2405.hmm,
+2365.hmm and 2207.hmm, LENG 6977) through the plain MSV, Viterbi (the lazy
+one also at lazy_k = 1, whose chunks replay, and against the JAX lazy
+kernel in interpret mode), the Viterbi filter (against the JAX filter
+kernel in interpret mode), Forward and posterior decode against the JAX
+oracle and XLA path at the same tolerances, the all-24 join (LENG
 30181) through the plain MSV, Viterbi and Forward and the kernels' cases
 and launch plans, the joins of CLUSTER_JOINS (the MSV clusters of 5, 8 and
 9 blocks) through the plain MSV, and the all-24 join twice over (LENG
@@ -195,9 +198,10 @@ def test_wide_plain_filter_bounds_viterbi(wide_files, batch):
 
 def test_plain_versions_take_any_width(wide_files, profile_dir, batch):
     """Past the register cases' 4864 states the p7 kernels' cases and
-    launch plan pick the rows-in-memory case and the MSV kernel's a 3-block
-    cluster, and past 65536 the p7 case, plan and the posterior launch
-    raise, naming that limit, while the scanner and the plain versions scan:
+    launch plan pick the rows-in-memory case (the eager kind) or a 3-block
+    cluster (the Forward kind), and the MSV kernel's a 3-block cluster, and
+    past 65536 the p7 case, plan and the posterior launch raise, naming that
+    limit, while the scanner and the plain versions scan:
     a profile of 4870 states (M_pad 4872; the LENG 4770 one joined with
     100.hmm) through MSV, the sweep and Viterbi on the CPU, MSV equal to the
     JAX oracle."""
@@ -208,8 +212,11 @@ def test_plain_versions_take_any_width(wide_files, profile_dir, batch):
     m_pad = msv_cuda.round_up(hmm.leng, 8)
     assert msv_cuda.kernel_case(m_pad) == (96, 52)
     assert p7_cuda.kernel_case(m_pad) == (p7_cuda.MEM_THREADS, 5) and p7_cuda.kernel_per(m_pad) == 5
-    plan = p7_cuda.plan_launch("forward", m_pad, 4, B, 128, 132)
+    plan = p7_cuda.plan_launch("eager", m_pad, 13, B, 128, 132)
     assert (plan.threads, plan.groups, plan.grid, plan.smem) == (p7_cuda.MEM_THREADS, 1, B, 0)
+    plan = p7_cuda.plan_launch("forward", m_pad, 4, B, 128, 132)
+    assert (plan.threads, plan.cluster, plan.per, plan.groups, plan.grid) == (128, 3, 13, 1, 3 * B)
+    assert p7_cuda.kernel_case(m_pad, "forward") == (128, 13)
     too_wide = p7_cuda.MAX_KERNEL_STATES + 8
     for fn in (p7_cuda.kernel_case, p7_cuda.kernel_per):
         with pytest.raises(ValueError, match="65536"):
@@ -290,6 +297,45 @@ def test_mem_join_plain_p7_matches_jax(mem_files, batch):
     assert np.all((filt >= exact - 1e-4) | np.isneginf(exact))
 
 
+def test_mem_join_plain_lazy_and_filter_match_jax(mem_files, batch):
+    """At LENG 6977, where the lazy and filter kernels run 3-block
+    clusters: the plain lazy Viterbi at a forced lazy_k = 1 replays chunks
+    (its certificate fires) and equals the plain eager Viterbi bit for bit,
+    viterbi_xla within 1e-4 and viterbi_pallas(lazy_k=1, interpret=True) on
+    the first 16 residues bit for bit; the plain Viterbi filter is >=
+    viterbi_xla and equal to viterbi_filter_pallas(interpret=True) on the
+    first 16 residues bit for bit."""
+    path, jax_hmm = mem_files[chip_smoke.MEM_JOINS[0]]
+    tokens, lengths = batch
+    p7 = P7Profile.from_profile(parse_hmm(path))
+    jp7 = JaxP7Profile.from_profile(jax_hmm)
+    m_pad = p7_cuda.default_m_pad(p7)
+    assert p7_cuda.cluster_blocks(m_pad, "lazy") == p7_cuda.cluster_blocks(m_pad, "filter") == 3
+    sc = MSVScanner(device="cpu")
+    staged = sc.stage(tokens, lengths)
+    pack = p7_cuda.viterbi_pack(p7, "cpu", lazy=True, lazy_k=1)
+    assert pack.lazy_k == 1
+    carry = p7_cuda.viterbi_init_carry(staged.tr_rows, m_pad)
+    lazy, *_, replays = p7_cuda.viterbi_lazy_scan_plain(
+        *pack[:4], staged.tokens, staged.lengths, staged.tr_rows, pack.consts, *carry, 1)
+    assert int(replays.sum()) > 0
+    eager = viterbi_scores(p7, tokens, lengths, device="cpu", lazy=False).numpy()
+    assert np.array_equal(lazy.numpy()[:B], eager)
+    exact = np.asarray(viterbi_xla(jp7, tokens, lengths))
+    assert _max_d(eager, exact) <= VIT_TOL
+    short = np.minimum(lengths, 16)
+    got = viterbi_scores(p7, tokens[:, :16], short, device="cpu", lazy_k=1).numpy()
+    want = np.asarray(pallas_p7.viterbi_pallas(jp7, tokens[:, :16], short, l_chunk=16,
+                                               interpret=True, lazy_k=1))
+    assert np.array_equal(got, want)
+    filt = viterbi_filter_scores(p7, tokens, lengths, device="cpu").numpy()
+    assert np.all((filt >= exact - 1e-4) | np.isneginf(exact))
+    got = viterbi_filter_scores(p7, tokens[:, :16], short, device="cpu").numpy()
+    want = np.asarray(pallas_p7.viterbi_filter_pallas(jp7, tokens[:, :16], short, l_chunk=16,
+                                                      interpret=True))
+    assert np.array_equal(got, want)
+
+
 def test_mem_join_plain_posterior_matches_jax(mem_files, batch):
     """The plain posterior decode at LENG 6977 against the JAX XLA decode:
     coverage within 4e-3, totals within 2e-3."""
@@ -306,9 +352,11 @@ def test_mem_join_plain_posterior_matches_jax(mem_files, batch):
 
 
 def test_all_24_join_plans_the_rows_in_memory_case(mem_files):
-    """The all-24 join (LENG 30181, M_pad 30184, 15 chain passes): every
-    p7 kind plans the rows-in-memory case at each pass count it can run,
-    the posterior backward pass at its suffix window."""
+    """The all-24 join (LENG 30181, M_pad 30184, 15 chain passes): the
+    eager and log-space kinds plan the rows-in-memory case at the full chain,
+    the posterior backward pass at its suffix window; the lazy, filter,
+    Forward and row-saving Forward kinds a 13-block cluster of 19 states a
+    thread."""
     path, _ = mem_files[chip_smoke.MEM_JOINS[1]]
     p7 = P7Profile.from_profile(parse_hmm(path))
     m_pad = p7_cuda.default_m_pad(p7)
@@ -318,8 +366,12 @@ def test_all_24_join_plans_the_rows_in_memory_case(mem_files):
     for kind in p7_cuda.BLOCKED_KINDS:
         passes = window if kind == "backward" else p7_cuda.chain_passes(m_pad)
         plan = p7_cuda.plan_launch(kind, m_pad, passes, 8, 40, 132)
-        assert (plan.threads, plan.groups, plan.grid, plan.n_chain, plan.smem) == (
-            p7_cuda.MEM_THREADS, 1, 8, 0, 0)
+        if kind in p7_cuda.CLUSTER_KINDS:
+            assert (plan.threads, plan.cluster, plan.per, plan.groups, plan.grid) == (
+                128, 13, 19, 1, 13 * 8)
+        else:
+            assert (plan.threads, plan.groups, plan.grid, plan.n_chain, plan.smem) == (
+                p7_cuda.MEM_THREADS, 1, 8, 0, 0)
 
 
 @pytest.mark.parametrize("stems", chip_smoke.CLUSTER_JOINS, ids=lambda s: f"{len(s)}-profile")

@@ -1,7 +1,8 @@
-"""Check the MSV kernel's C-block cluster cases and the Forward template's
-cluster pair against their plain versions on the card.
+"""Check the MSV kernel's C-block cluster cases, the Forward template's
+cluster pair and the p7 kernels' C-block cluster cases against their plain
+versions on the card.
 
-    python3 tools/torch_cluster_check.py [--widths 2440,4872,...] [--time]
+    python3 tools/torch_cluster_check.py [--widths 2440,4872,...] [--p7 3,4,...,16] [--time]
 
 MSV: for each M_pad of --widths (default: the boundaries of every cluster
 size from the pair to 16 blocks, and two widths past 38,912), a random f32
@@ -13,10 +14,22 @@ counters show which case ran (cluster_launches by C, mem_launches past
 38,912). Forward: chip_smoke.py's wide check of both wide profiles (LENG
 2701 and 4770), whose Forward and row-saving Forward run on the pair, and a
 Forward carry chain split at a multiple of FWD_RESCALE_GROUP equal to one
-call bit for bit. With --time, the MSV cluster cases at 2048 x 1000 and the
-Forward pair at 64 x 3500 are timed (CUDA events, best of 3), beside the
-card's name and power limit. One line a check; exits 1 on a failure.
-Needs one CUDA card and nvcc; imports nothing of JAX.
+call bit for bit. p7 past 4864 states: for each C of --p7 (default 3..16)
+two joins of the repo's profiles that land on a C-block cluster, one just
+past 2432 * (C - 1) states (the smallest states a thread of that C) and one
+as near 2432 * C as they fill (19 a thread), through the lazy Viterbi (its
+own window, and lazy_k = 1, whose certificate fires below 16 chain passes),
+the Viterbi filter, Forward and the row-saving Forward on a ragged batch of
+8 sequences up to 300 residues: the lazy kernel and the filter equal to
+their plain versions bit for bit (replay counts included), the filter >=
+the lazy scores, Forward within FWD_TOL with a carry chain split at
+P7_SPLIT equal to one call bit for bit, the row-saving Forward equal to
+Forward, and the backward pass on its rows within COV_TOL of the plain
+decode; the launch counters show each at its C and none in memory. With
+--time, the MSV cluster cases at 2048 x 1000, the Forward pair at 64 x 3500
+and each p7 join's four kernels at 64 x 1000 are timed (CUDA events, best of
+3), beside the card's name and power limit. One line a check; exits 1 on a
+failure. Needs one CUDA card and nvcc; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -103,9 +116,95 @@ def msv_width(rng, scanner, m_pad: int, time_it: bool) -> dict:
     return out
 
 
+P7_KINDS = ("lazy", "filter", "forward", "save")
+P7_WRAPPERS = {"lazy": p7_cuda.viterbi_lazy_scan_cuda, "filter": p7_cuda.viterbi_filter_scan_cuda,
+               "forward": p7_cuda.forward_prob_scan_cuda,
+               "save": chip_smoke.posterior_cuda.forward_save_scan_cuda}
+
+
+def join_stems(c: int, high: bool) -> tuple[str, ...]:
+    """The repo's profiles (LENG = the stem), largest first and as often as
+    needed, whose join lands on a C-block cluster of ``c``: just past 2432 *
+    (c - 1) states (the last profile the smallest that crosses it) or, with
+    ``high``, as near 2432 * c as they fill."""
+    sizes = sorted((int(stem) for stem in chip_smoke.stems()), reverse=True)
+    lo, hi = p7_cuda.MAX_GROUP_STATES * (c - 1), p7_cuda.MAX_GROUP_STATES * c
+    picks, total = [], 0
+    while True:
+        fit = [n for n in sizes if total + n <= (hi if high else lo)]
+        if not fit:
+            break
+        picks.append(fit[0])
+        total += fit[0]
+    if not high:
+        picks.append(min(n for n in sizes if total + n > lo))
+    return tuple(str(n) for n in picks)
+
+
+def p7_join(rng, scanner, stems: tuple[str, ...], time_it: bool) -> dict:
+    dev = scanner.device
+    p7 = chip_smoke.P7Profile.from_profile(chip_smoke.wide_profile(stems))
+    m_pad = p7_cuda.default_m_pad(p7)
+    c = p7_cuda.cluster_blocks(m_pad, "lazy")
+    staged = chip_smoke.ragged_wide_batch(scanner, rng)
+    packs = chip_smoke.p7_packs(p7, dev)
+    packs["lazy_k1"] = p7_cuda.viterbi_pack(p7, dev, lazy=True, lazy_k=1)
+    for fn in P7_WRAPPERS.values():
+        msv_cuda.zero_launches(fn)
+    got, want = {}, {}
+    for kind in ("lazy", "lazy_k1", "filter", "forward", "save"):
+        base = "lazy" if kind == "lazy_k1" else kind
+        run, carry = chip_smoke.p7_calls(base, packs[kind], staged)
+        got[kind] = run(chip_smoke.CUDA_FNS[base], staged.tokens, staged.lengths, carry)
+        torch.cuda.synchronize()
+        want[kind] = run(chip_smoke.PLAIN_FNS[base], staged.tokens, staged.lengths, carry)
+    name = f"LENG {p7.num_states}"
+    for kind in ("lazy", "lazy_k1", "filter"):
+        chip_smoke.require_equal(got[kind], want[kind], f"{name} {kind} kernel vs plain")
+    chip_smoke.require_geq(got["filter"][0], got["lazy"][0], f"{name} filter vs lazy")
+    f_err = chip_smoke.max_abs_diff(got["forward"][0], want["forward"][0])
+    chip_smoke.require(f_err <= chip_smoke.FWD_TOL, f"{name} Forward vs plain: {f_err}")
+    chip_smoke.require_equal(got["save"][:5], got["forward"], f"{name} row-saving vs Forward")
+    chain = chip_smoke.p7_chain_error("forward", packs["forward"], staged)
+    schain = chip_smoke.posterior_cuda.suffix_chain_rows(p7, dev)
+    bwd_in = chip_smoke.backward_inputs(packs["forward"], schain, staged)
+    cov = chip_smoke.posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
+    cov_p, _ = chip_smoke.posterior_decode(*chip_smoke.PLAIN_DECODE, packs["forward"], schain,
+                                           staged)
+    c_err = chip_smoke.max_abs_diff(cov, cov_p)
+    chip_smoke.require(c_err <= chip_smoke.COV_TOL, f"{name} coverage vs plain: {c_err}")
+    fires = int(got["lazy_k1"][5].sum())
+    full = p7_cuda.chain_passes(m_pad)
+    chip_smoke.require(fires > 0 or full > 15, f"{name}: lazy_k = 1 never fired")
+    counts = {kind: counters(fn) for kind, fn in P7_WRAPPERS.items()}
+    for kind, cnt in counts.items():
+        chip_smoke.require(set(cnt["cluster"]) == {c} and cnt["mem"] == 0,
+                           f"{name} {kind}: launches {cnt}, expected the {c}-block cluster only")
+    out = {"join": "+".join(stems), "m_pad": m_pad, "c": c, "chain_passes": full,
+           "lazy_k": packs["lazy"].lazy_k, "lazy_k1_fires": fires, "forward_max_abs": f_err,
+           "forward_chain_max_abs": chain, "coverage_max_abs": c_err, "launches": counts,
+           "equal": True}
+    for kind in P7_KINDS:
+        plan = p7_cuda.device_plan(kind, m_pad, chip_smoke.passes_of(kind, packs[kind]), 64, dev)
+        out[f"plan_{kind}"] = plan._asdict()
+        out[f"regs_{kind}"] = p7_cuda.kernel_regs(kind, plan.per, plan.threads, plan.cluster)
+        out[f"max_clusters_{kind}"] = p7_cuda.max_clusters(kind, plan.per, plan.smem,
+                                                           dev.index or 0, plan.cluster)
+    if time_it:
+        big = rng.integers(0, 20, size=(64, 1000)).astype(np.int8)
+        bstaged = scanner.stage(big, np.full(64, 1000, dtype=np.int32))
+        for kind in P7_KINDS:
+            run, carry = chip_smoke.p7_calls(kind, packs[kind], bstaged)
+            fn = chip_smoke.CUDA_FNS[kind]
+            out[f"ms_{kind}_64x1000"] = chip_smoke.best_ms(
+                lambda: run(fn, bstaged.tokens, bstaged.lengths, carry), reps=3)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--widths", default=",".join(str(w) for w in WIDTHS))
+    ap.add_argument("--p7", default=",".join(str(c) for c in range(3, p7_cuda.MAX_CLUSTER + 1)))
     ap.add_argument("--time", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -117,12 +216,16 @@ def main() -> int:
     torch.cuda.set_device(dev)
     _, log = _build.build()
     for line in chip_smoke.ptxas_summary(log):
-        if "msv_kernel" in line and "true" in line or "forward" in line:
+        if "msv_kernel" in line and "true" in line or "forward" in line or "cluster" in line:
             print(line)
     scanner = chip_smoke.MSVScanner(device=dev)
     rng = np.random.default_rng(chip_smoke.SEED)
     for m_pad in (int(w) for w in args.widths.split(",") if w):
         print(json.dumps(msv_width(rng, scanner, m_pad, args.time)), flush=True)
+
+    for c in (int(x) for x in args.p7.split(",") if x):
+        for high in (False, True):
+            print(json.dumps(p7_join(rng, scanner, join_stems(c, high), args.time)), flush=True)
 
     errors = dict.fromkeys(chip_smoke.KERNELS, 0.0)
     chip_smoke.wide_kernels_vs_plain(scanner, rng, errors)

@@ -15,9 +15,13 @@ limit. With --mem, phase 10's timings of the cases past 4864 states follow
 (mem_timings: the MSV kernels against the LENG 6977 join at 2048 x 1000 and
 the stacked kernel over it and the all-24 join, the p7 kernels at 64 x 1000,
 the posterior pair at 64 x 1024; a tree that has the MSV C-block clusters
-also times the MSV rows-in-memory case past 38,912 states), one JSON line a
-case as well. The ptxas line of every kernel case (registers and spills)
-prints first.
+also times the MSV rows-in-memory case past 38,912 states, and one that has
+the p7 C-block clusters the p7 cases against the all-24 join, LENG 30181,
+too), one JSON line a case as well; for a tree whose mem_timings stops at
+LENG 6977 this script times the lazy Viterbi, the Viterbi filter, Forward
+(64 x 1000) and the row-saving Forward (64 x 1024) against the all-24 join
+itself, once after a warm-up (rows ``<kernel>_30181``). The ptxas line of
+every kernel case (registers and spills) prints first.
 
 Everything is imported from the checkout DIR (default: this script's):
 its chip_smoke.py, its package and its kernels, built there at first use.
@@ -34,6 +38,31 @@ import pathlib
 import sys
 
 import numpy as np
+
+
+def p7_rows_30181(chip_smoke, scanner, rng, work: dict) -> dict:
+    """The lazy Viterbi, the Viterbi filter and Forward at 64 x 1000 and the
+    row-saving Forward at 64 x 1024 against the all-24 join (LENG 30181),
+    once after a warm-up, through the tree's own helpers; no plain version."""
+    p7 = chip_smoke.P7Profile.from_profile(chip_smoke.mem_profiles()[1])
+    packs = chip_smoke.p7_packs(p7, scanner.device)
+    b, n = chip_smoke.SURVIVOR_BATCH, chip_smoke.MEM_TIME_LEN
+    tokens = rng.integers(0, 20, size=(b, n)).astype(np.int8)
+    out = {}
+    for name, kind, length in (("viterbi_lazy_scan", "lazy", n), ("viterbi_filter_scan", "filter", n),
+                               ("forward_prob_scan", "forward", n),
+                               ("forward_save_scan", "save", chip_smoke.POST_TIME_LEN)):
+        staged = scanner.stage(tokens[:, :length], np.full(b, length, dtype=np.int32))
+        run, carry = chip_smoke.p7_calls(kind, packs[kind], staged)
+        fn = chip_smoke.CUDA_FNS[kind]
+        ms = chip_smoke.best_ms(lambda: run(fn, staged.tokens, staged.lengths, carry), reps=1)
+        key = f"{name}_30181"
+        out[key] = (ms, float("nan"))
+        ops = chip_smoke.OPS_PER_CELL["forward" if kind == "save" else kind]
+        work[key] = (ops(chip_smoke.passes_of(kind, packs[kind])) * b * length * p7.num_states,
+                     chip_smoke.nbytes(*packs[kind][:4], staged.tokens))
+        print(f"{key}: {ms:.3f} ms (once, {b} x {length} x M={p7.num_states})", flush=True)
+    return out
 
 
 def main() -> int:
@@ -68,11 +97,13 @@ def main() -> int:
     out = chip_smoke.wide_timings(scanner, rng, errors, work)
     if args.mem:
         out.update(chip_smoke.mem_timings(scanner, rng, errors, work))
+        if not hasattr(chip_smoke, "P7_CLUSTER_WRAPPERS"):
+            out.update(p7_rows_30181(chip_smoke, scanner, rng, work))
     for name, (ms, plain_ms) in out.items():
         b_ms, b_by = chip_smoke.bound(*work[name])
         print(json.dumps({"label": args.label, "kernel": name, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
-                          "max_abs_err": errors[name], "card": card}), flush=True)
+                          "max_abs_err": errors.get(name), "card": card}), flush=True)
     return 0
 
 
