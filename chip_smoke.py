@@ -69,9 +69,9 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    and 1301.hmm, LENG 2701, and of 2405.hmm and 2365.hmm, LENG 4770, joined
    into one ProfileHMM each): every kernel's wide case against its plain
    version on a ragged batch of 8 sequences up to 300 residues, at G = 1
-   and at the most groups that fit (the cluster pairs of MSV, eager, lazy,
-   log-space, the Viterbi filter, Forward and the row-saving Forward take
-   G = 1; every p7 kind but the backward pass plans the pair), a Forward
+   and at the most groups that fit (every kind's cluster pair takes G =
+   1), the backward pass's pair on the row-saving kernel's own rows within
+   COV_TOL, a Forward
    carry chain split at P7_SPLIT equal to one call bit for bit, and the
    stacked kernel over 100.hmm and both (wide_kernels_vs_plain); then the
    MSV kernels' C-block clusters (cluster_kernels_vs_plain): MEM_JOINS (the
@@ -85,13 +85,14 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    same way; then MEM_JOINS (15 chain passes at LENG 30181) through every
    p7 kernel past 4864 states against its plain version on the same kind
    of batch (mem_kernels_vs_plain: the lazy Viterbi, the Viterbi filter,
-   Forward and the row-saving Forward on their 3- and 13-block clusters,
-   the eager and log-space Forward and the backward pass in memory; eager,
+   Forward, the row-saving Forward and the backward pass on their 3- and
+   13-block clusters, the eager and log-space Forward in memory; eager,
    lazy and the Viterbi filter bit for bit, the lazy kernel also at lazy_k
    = 1 with its fire count printed and above 0, Forward, log-space Forward
    and the posterior pair within their tolerances, the launch counters
    showing each kind at its case alone), and the LENG 60362 join through
-   the lazy, filter and Forward kinds' rows-in-memory cases the same way;
+   the lazy, filter, Forward and backward kinds' rows-in-memory cases the
+   same way;
 9. main paths, each with every launch count set to 0 just before it and
    read just after, on a seeded FASTA of 16384 x 3500 random residues with
    32 sequences sampled from 1400.hmm and 4 from the LENG 4770 profile at
@@ -117,8 +118,8 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    entry points on the planted wide rows; and the cases past 4864 states
    (mem_paths): `scan --stage search --domains` with the LENG 6977 join
    against a FASTA of 2048 rows with 4 of its homologs planted (MSV, the
-   lazy Viterbi, Forward and the row-saving Forward on their 3-block
-   clusters and none of them in memory; every planted row a hit with its
+   lazy Viterbi, Forward, the row-saving Forward and the backward pass on
+   their 3-block clusters and none of them in memory; every planted row a hit with its
    envelope inside it), `--fast` on it (the MSV filter's and the Viterbi
    filter's 3-block clusters, none in memory), `sweep` over both joins and
    the LENG 60362 one (the stacked kernel's 3- and 13-block clusters and
@@ -151,11 +152,12 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    and the stacked kernel over it and the LENG 30181 join, best of 3; the
    MSV rows-in-memory case against the LENG 60362 join at 256 x 1000; the
    p7 kernels at 64 x 1000 and the posterior pair at 64 x 1024 against the
-   LENG 6977 join (the lazy Viterbi, the Viterbi filter, Forward and the
-   row-saving Forward on 3-block clusters, best of 3; the others in memory,
-   once), the four on 13-block clusters against the LENG 30181 join
-   (`<kernel>_cluster_30181`) and in memory against the LENG 60362 join,
-   once; the parent's time beside each), each plain version once. Each kernel's bound is the larger
+   LENG 6977 join (the lazy Viterbi, the Viterbi filter, Forward, the
+   row-saving Forward and the backward pass on 3-block clusters, best of
+   3; the eager and log-space Forward in memory, once), the five on
+   13-block clusters against the LENG 30181 join (`<kernel>_cluster_30181`,
+   best of 3) and in memory against the LENG 60362 join, once; the parent's
+   time beside each), each plain version once. Each kernel's bound is the larger
    of its FP32 operations (counted a cell from its source) at 67 TFLOP/s
    and the bytes it must move (each input once, each output once) at 3.35
    TB/s, at the timed shape;
@@ -400,27 +402,32 @@ PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # phase 10's wide cases and cases past 4864 states at the parent commit
-# dd93032 (before the p7 C-block clusters): its times of each at the same
-# shapes (the faster of two runs of tools/torch_wide_timing.py --mem on that
-# commit's `git archive` in one call, on PARENT_CARD); the p7 cluster rows
-# (the lazy Viterbi, the Viterbi filter, Forward and the row-saving Forward
-# against LENG 6977 and, `_30181`, 30181) were the rows-in-memory case there
+# c1cdcdd (before the backward pass's pair and C-block clusters): its times
+# of each at the same shapes (the faster of two runs of
+# tools/torch_wide_timing.py --mem on that commit's `git archive` in one
+# call, on PARENT_CARD; the posterior pair past 4864 states from --posterior
+# in another, at 64 x 1024 residues run); the backward rows past 4864
+# (`_cluster`, `_cluster_30181`) were its rows-in-memory case there
 PARENT_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PARENT_WIDE_MS = {
-    "msv_scan_wide": 6.341, "msv_filter_scan_wide": 6.322, "msv_stacked_scan_wide": 10.587,
-    "viterbi_lazy_scan_wide": 9.165, "viterbi_scan_wide": 60.333,
-    "viterbi_filter_scan_wide": 8.956, "forward_log_scan_wide": 228.483,
-    "forward_prob_scan_wide": 14.386, "forward_save_scan_wide": 4.508,
-    "backward_coverage_scan_wide": 20.518,
-    "msv_scan_cluster": 3.848, "msv_filter_scan_cluster": 3.839,
-    "msv_stacked_scan_cluster": 21.673,
-    "msv_scan_mem": 74.921, "msv_filter_scan_mem": 73.149, "msv_stacked_scan_mem": 74.781,
-    "viterbi_lazy_scan_cluster": 15.979, "viterbi_scan_mem": 29.182,
-    "viterbi_filter_scan_cluster": 18.485, "forward_log_scan_mem": 56.713,
-    "forward_prob_scan_cluster": 18.878, "forward_save_scan_cluster": 20.668,
-    "backward_coverage_scan_mem": 21.158,
-    "viterbi_lazy_scan_cluster_30181": 139.147, "viterbi_filter_scan_cluster_30181": 149.768,
-    "forward_prob_scan_cluster_30181": 158.110, "forward_save_scan_cluster_30181": 165.949,
+    "msv_scan_wide": 6.339, "msv_filter_scan_wide": 6.322, "msv_stacked_scan_wide": 10.587,
+    "viterbi_lazy_scan_wide": 9.158, "viterbi_scan_wide": 60.371,
+    "viterbi_filter_scan_wide": 8.958, "forward_log_scan_wide": 228.911,
+    "forward_prob_scan_wide": 14.387, "forward_save_scan_wide": 4.504,
+    "backward_coverage_scan_wide": 20.511,
+    "msv_scan_cluster": 3.847, "msv_filter_scan_cluster": 3.843,
+    "msv_stacked_scan_cluster": 21.72,
+    "msv_scan_mem": 74.618, "msv_filter_scan_mem": 72.907, "msv_stacked_scan_mem": 74.508,
+    "viterbi_lazy_scan_cluster": 5.517, "viterbi_scan_mem": 29.294,
+    "viterbi_filter_scan_cluster": 5.847, "forward_log_scan_mem": 57.009,
+    "forward_prob_scan_cluster": 9.891, "forward_save_scan_cluster": 10.649,
+    "backward_coverage_scan_cluster": 21.699,
+    "viterbi_lazy_scan_cluster_30181": 68.638, "viterbi_filter_scan_cluster_30181": 80.206,
+    "forward_prob_scan_cluster_30181": 95.061, "forward_save_scan_cluster_30181": 105.556,
+    "backward_coverage_scan_cluster_30181": 158.497,
+    "viterbi_lazy_scan_mem": 507.161, "viterbi_filter_scan_mem": 312.174,
+    "forward_prob_scan_mem": 330.649, "forward_save_scan_mem": 352.106,
+    "backward_coverage_scan_mem": 335.47,
 }
 
 # the sweep timing batch (sweep24, sweep24_filter) and the profiles the plain
@@ -469,19 +476,18 @@ WRAPPERS = {
     "backward_coverage_scan": posterior_cuda.backward_coverage_scan_cuda,
 }
 # every case from 2433 to 4864 states (the cluster pairs: two warps a
-# sequence for MSV, two 128-thread groups for the p7 kinds but the backward
-# pass, a 256-thread group for that): a line of its own in the JSON, its
-# launches counted by the same wrapper's wide_launches
+# sequence for MSV, two 128-thread groups for the p7 kinds): a line of its
+# own in the JSON, its launches counted by the same wrapper's wide_launches
 WIDE = "_wide"
 # the cases from 4865 to 38,912 states on C-block clusters (C = 3..16): the
 # MSV kernels' (C warps a sequence) and the lazy Viterbi's, the Viterbi
-# filter's, Forward's and the row-saving Forward's (C groups of 128 threads
-# a sequence): their own JSON lines, their launches counted by the
-# wrapper's cluster_launches at every C past 2
+# filter's, Forward's, the row-saving Forward's and the backward pass's (C
+# groups of 128 threads a sequence): their own JSON lines, their launches
+# counted by the wrapper's cluster_launches at every C past 2
 CLUSTER = "_cluster"
 MSV_WRAPPERS = ("msv_scan", "msv_filter_scan", "msv_stacked_scan")
 P7_CLUSTER_WRAPPERS = ("viterbi_lazy_scan", "viterbi_filter_scan", "forward_prob_scan",
-                       "forward_save_scan")
+                       "forward_save_scan", "backward_coverage_scan")
 CLUSTER_WRAPPERS = MSV_WRAPPERS + P7_CLUSTER_WRAPPERS
 # every case past 4864 states (those of CLUSTER_WRAPPERS: past 38,912; the
 # rows-in-memory cases: one 1024-thread block a sequence, the DP rows in
@@ -1409,25 +1415,26 @@ def wide_profiles() -> list:
 
 
 def wide_kernels_vs_plain(scanner, rng, errors: dict) -> None:
-    """Both wide profiles (the MSV cluster pairs, the p7 cluster pairs and
-    the backward pass's 256-thread case) through every kernel against its
-    plain version on a ragged batch of WIDE_BATCH sequences up to WIDE_LEN
-    residues: MSV and the MSV filter bit for bit, with a carry chain, the
-    filter >= exact; eager == plain, lazy == eager, the Viterbi filter ==
-    plain and >= eager, Forward within FWD_TOL with a carry chain split at
-    P7_SPLIT (a multiple of FWD_RESCALE_GROUP) == one call bit for bit, the
-    row-saving Forward == Forward, the log-space Forward within
-    LOG_FWD_TOL, every p7 kernel at the most groups a block that fit == G =
-    1 (the pairs take 1; every kind but the backward pass plans the pair);
-    the posterior kernels within COV_TOL / TOT_TOL; the stacked kernel over
-    100.hmm and both == the single scans."""
+    """Both wide profiles (the MSV and p7 cluster pairs) through every
+    kernel against its plain version on a ragged batch of WIDE_BATCH
+    sequences up to WIDE_LEN residues: MSV and the MSV filter bit for bit,
+    with a carry chain, the filter >= exact; eager == plain, lazy == eager,
+    the Viterbi filter == plain and >= eager, Forward within FWD_TOL with a
+    carry chain split at P7_SPLIT (a multiple of FWD_RESCALE_GROUP) == one
+    call bit for bit, the row-saving Forward == Forward, the log-space
+    Forward within LOG_FWD_TOL, every p7 kernel at the most groups a block
+    that fit == G = 1 (every kind plans the pair, which takes 1); the
+    backward pass's pair on the row-saving kernel's own rows within COV_TOL
+    of its plain version (its launches counted as wide) and the posterior
+    decode within COV_TOL / TOT_TOL; the stacked kernel over 100.hmm and
+    both == the single scans."""
     staged = ragged_wide_batch(scanner, rng)
     hmms = wide_profiles()
     for hmm in hmms:
         msv = MSVProfile.from_profile(hmm)
         p7 = P7Profile.from_profile(hmm)
         require(msv_cuda.kernel_case(msv_cuda.round_up(msv.num_states, 8))[0] == 64
-                and p7_cuda.kernel_case(p7_cuda.default_m_pad(p7))[0] == p7_cuda.WIDE_THREADS,
+                and p7_cuda.cluster_blocks(p7_cuda.default_m_pad(p7)) == p7_cuda.CLUSTER,
                 f"{hmm.name} is not a wide case")
         args = msv_args(scanner, msv, staged)
         err, exact = msv_compare(args)
@@ -1470,6 +1477,19 @@ def wide_kernels_vs_plain(scanner, rng, errors: dict) -> None:
                               f"{hmm.name} row-saving Forward vs Forward kernel")
         f_chain = p7_chain_error("forward", packs["forward"], staged)
         schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
+        # the backward pass's pair at G = 1 on the row-saving kernel's rows
+        bwd_in = backward_inputs(packs["forward"], schain, staged)
+        zero_launches()
+        bwd = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
+        torch.cuda.synchronize()
+        require(launches()["backward_coverage_scan" + WIDE] == 1,
+                f"{hmm.name}: the backward pass's pair did not run ({launches()})")
+        b_err = max_abs_diff(bwd, posterior_cuda.backward_coverage_scan_plain(*bwd_in))
+        plan = p7_cuda.device_plan("backward", packs["forward"].m_pad,
+                                   passes_of("backward", packs["forward"]), WIDE_BATCH, DEVICE)
+        require(plan.cluster == p7_cuda.CLUSTER and plan.max_groups == 1 and b_err <= COV_TOL,
+                f"{hmm.name} backward pass: plan {plan}, vs plain on its rows {b_err}")
+        plans["backward"] = f"G<={plan.max_groups} n_trans={plan.n_trans} n_chain={plan.n_chain}"
         cov, tot = posterior_decode(*KERNEL_DECODE, packs["forward"], schain, staged)
         torch.cuda.synchronize()
         cov_p, tot_p = posterior_decode(*PLAIN_DECODE, packs["forward"], schain, staged)
@@ -1480,14 +1500,15 @@ def wide_kernels_vs_plain(scanner, rng, errors: dict) -> None:
                         ("viterbi_filter_scan", vf_err),
                         ("forward_prob_scan", max(f_err, f_chain)),
                         ("forward_log_scan", g_err), ("forward_save_scan", max(s_err, t_err)),
-                        ("backward_coverage_scan", c_err)):
+                        ("backward_coverage_scan", max(b_err, c_err))):
             errors[name + WIDE] = max(errors[name + WIDE], e)
         print(f"wide {hmm.name} (M {msv.num_states}): B={WIDE_BATCH} L<={WIDE_LEN} MSV max|d|={err} "
               f"chain max|d|={chain}, filter max|d|={f_err} (>= exact); eager max|d|={e_err}, "
               f"lazy == eager, filter(window={packs['filter'].window}) max|d|={vf_err} (>= eager), "
               f"Forward {f_err:.3g} chain at {P7_SPLIT} max|d|={f_chain}, log-space "
-              f"{g_err:.3g}, row-saving == Forward, coverage "
-              f"{c_err:.3g} totals {t_err:.3g}; every kernel at G=max == G=1; plans {plans}",
+              f"{g_err:.3g}, row-saving == Forward, backward pair on its rows {b_err:.3g}, "
+              f"coverage {c_err:.3g} totals {t_err:.3g}; every kernel at G=max == G=1; plans "
+              f"{plans}",
               flush=True)
 
     profs = [profile("100")] + [MSVProfile.from_profile(h) for h in hmms]
@@ -1686,7 +1707,8 @@ def wide_timings(scanner, rng, errors: dict, work: dict) -> dict:
         OPS_PER_CELL["backward"](schain.shape[0]) * post_cells, nbytes(*bwd_in, cov))
     print(f"posterior{WIDE}: the row-saving Forward {save_ms:.3f} ms, the backward coverage pass "
           f"{bwd_ms:.3f} ms (each best of 3, {SURVIVOR_BATCH} x {POST_TIME_LEN} x "
-          f"M={p7.num_states}; {plan_text('save', fpack, SURVIVOR_BATCH)}); plain versions "
+          f"M={p7.num_states}; {plan_text('save', fpack, SURVIVOR_BATCH)}; backward "
+          f"{plan_text('backward', fpack, SURVIVOR_BATCH)}); plain versions "
           f"{plain_save_ms:.3f} + {plain_bwd_ms:.3f} ms (once); coverage max|d|={c_err:.3g}; "
           f"row-saving {versus_parent('forward_save_scan' + WIDE, save_ms, work)}; backward "
           f"{versus_parent('backward_coverage_scan' + WIDE, bwd_ms, work)}", flush=True)
@@ -1807,10 +1829,11 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     """Both joins of MEM_JOINS (LENG 6977 and 30181: C = 3 and 13) through
     every p7 kernel past 4864 states against its plain version on a ragged
     batch of WIDE_BATCH sequences up to WIDE_LEN residues: the lazy Viterbi,
-    the Viterbi filter, Forward and the row-saving Forward on their C-block
-    clusters, the eager and log-space Forward and the backward pass in
+    the Viterbi filter, Forward, the row-saving Forward and the backward
+    pass on their C-block clusters, the eager and log-space Forward in
     memory; then the all-24 join twice over (LENG 60362, past 38,912)
-    through the lazy, filter and Forward kinds' rows-in-memory cases. Eager,
+    through the lazy, filter, Forward and backward kinds' rows-in-memory
+    cases. Eager,
     lazy (replay counts included) and the Viterbi filter bit for bit, the
     filter >= the exact scores; the lazy kernel again at lazy_k = 1, whose
     certificate fires below 16 chain passes (the fire count printed, above
@@ -1844,6 +1867,12 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
                     f"{f'a {c}-block cluster' if c > 1 else 'the rows-in-memory case'}")
             cases[base] = case_suffix(plan)
         l_err = require_equal(got["lazy"], want["lazy"], f"{hmm.name[:40]} lazy kernel vs plain")
+        plan = p7_cuda.device_plan("backward", m_pad, passes_of("backward", packs["forward"]),
+                                   WIDE_BATCH, DEVICE)
+        c = p7_cuda.cluster_blocks(m_pad, "backward")
+        require((plan.cluster, plan.threads) == ((c, 128) if c > 1 else (1, 1024)),
+                f"{hmm.name[:40]} backward: plan {plan}")
+        cases["backward"] = case_suffix(plan)
         k1_err = require_equal(got["lazy_k1"], want["lazy_k1"],
                                f"{hmm.name[:40]} lazy kernel at lazy_k = 1 vs plain")
         fires = int(got["lazy_k1"][5].sum())
@@ -1870,7 +1899,7 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
                  ("viterbi_filter_scan", "filter", vf_err),
                  ("forward_prob_scan", "forward", max(f_err, f_chain)),
                  ("forward_save_scan", "save", max(s_err, t_err)),
-                 ("backward_coverage_scan", None, max(b_err, c_err))]
+                 ("backward_coverage_scan", "backward", max(b_err, c_err))]
         text = ""
         if "eager" in kinds:
             e_err = require_equal(got["eager"], want["eager"], f"{hmm.name[:40]} eager vs plain")
@@ -1881,14 +1910,11 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
             found += [("viterbi_scan", "eager", max(e_err, e_chain)), ("forward_log_scan", "log", g_err)]
             text = f"eager max|d|={e_err} chain {e_chain} (== lazy), log-space {g_err:.3g}, "
         for name, kind, e in found:
-            key = name + (cases[kind] if kind else MEM)
+            key = name + cases[kind]
             errors[key] = max(errors[key], e)
         got_l = launches()
         by_c = cluster_launches()
         for name, kind, _ in found:
-            if kind is None:
-                require(got_l[name + MEM] > 0, f"{hmm.name[:40]}: {name} not in memory")
-                continue
             c = p7_cuda.cluster_blocks(m_pad, kind)
             if c > 1:
                 require(set(by_c[name]) == {c} and got_l[name + MEM] == 0,
@@ -1911,9 +1937,9 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     around each, on MEM_BATCH random rows of MEM_LEN residues with
     MEM_PLANTED sequences sampled from the three-profile join (LENG 6977) at
     known rows: `scan --stage search --domains` (the 3-block clusters of
-    MSV, the lazy Viterbi, Forward and the row-saving Forward, none of them
-    in memory; the backward pass's rows-in-memory case; every planted row a
-    hit with its envelope inside it), `scan --stage search --fast` (the
+    MSV, the lazy Viterbi, Forward, the row-saving Forward and the backward
+    pass, none of them in memory; every planted row a hit with its envelope
+    inside it), `scan --stage search --fast` (the
     3-block clusters of the MSV filter, the Viterbi filter, the lazy
     Viterbi and Forward, none in memory; the plain search's hit rows),
     `sweep` over both joins and the all-24 join twice over (the stacked
@@ -1952,14 +1978,12 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
                                        "--out", str(out)])
     require(vit == "viterbi_lazy_scan", "the LENG 6977 join runs the eager Viterbi")
     by_c = cluster_launches()
-    for name in ("msv_scan", vit, "forward_prob_scan", "forward_save_scan"):
+    for name in ("msv_scan", vit, "forward_prob_scan", "forward_save_scan",
+                 "backward_coverage_scan"):
         require(got[name + CLUSTER] > 0 and set(by_c[name]) == {3} and got[name + MEM] == 0,
                 f"the search --domains did not launch {name}'s 3-block cluster alone ({by_c}, "
                 f"{got})")
         counts[name + CLUSTER] = got[name + CLUSTER]
-    require(got["backward_coverage_scan" + MEM] > 0,
-            "the search --domains did not launch backward_coverage_scan's memory case")
-    counts["backward_coverage_scan" + MEM] = got["backward_coverage_scan" + MEM]
     lines = out.read_text().splitlines()
     header = lines[0].lstrip("# ").split("\t")
     hits = [dict(zip(header, line.split("\t"))) for line in lines[1:]]
@@ -2138,7 +2162,7 @@ def p7_timings_past(scanner, hmm, tokens, kinds, errors: dict, work: dict,
     each (PARENT_WIDE_MS)."""
     p7 = P7Profile.from_profile(hmm)
     packs = p7_packs(p7, scanner.device)
-    few = scanner.stage(tokens[:SURVIVOR_BATCH],
+    few = scanner.stage(tokens[:SURVIVOR_BATCH, :MEM_TIME_LEN],
                         np.full(SURVIVOR_BATCH, MEM_TIME_LEN, dtype=np.int32))
     few_cells = few.total_residues * p7.num_states
     out = {}
@@ -2201,16 +2225,20 @@ def p7_timings_past(scanner, hmm, tokens, kinds, errors: dict, work: dict,
     schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
     bwd_in = (fpack.emit_m, fpack.emit_i, fpack.trans, schain, post.tokens, post.lengths,
               post.tr_probs, fpack.consts, saved[0], saved[5], saved[6])
-    key = "backward_coverage_scan" + MEM + label
-    bwd_ms = best_ms(lambda: posterior_cuda.backward_coverage_scan_cuda(*bwd_in), reps=1)
+    plan = p7_cuda.device_plan("backward", fpack.m_pad, passes_of("backward", fpack),
+                               SURVIVOR_BATCH, DEVICE)
+    row = "backward_coverage_scan" + case_suffix(plan)
+    key = row + label
+    reps = 3 if plan.cluster > 1 else 1
+    bwd_ms = best_ms(lambda: posterior_cuda.backward_coverage_scan_cuda(*bwd_in), reps=reps)
     cov = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
     plain_bwd_ms, cov_p = once_ms(lambda: posterior_cuda.backward_coverage_scan_plain(*bwd_in))
     c_err = max_abs_diff(cov, cov_p)
     require(c_err <= COV_TOL, f"{key} vs plain at the timed shape: {c_err}")
-    errors["backward_coverage_scan" + MEM] = max(errors["backward_coverage_scan" + MEM], c_err)
+    errors[row] = max(errors[row], c_err)
     out[key] = (bwd_ms, plain_bwd_ms)
     work[key] = (OPS_PER_CELL["backward"](schain.shape[0]) * post_cells, nbytes(*bwd_in, cov))
-    print(f"{key}: the backward coverage pass {bwd_ms:.3f} ms (once, {SURVIVOR_BATCH} x "
+    print(f"{key}: the backward coverage pass {bwd_ms:.3f} ms (best of {reps}, {SURVIVOR_BATCH} x "
           f"{POST_TIME_LEN} x M={p7.num_states}; {plan_text('backward', fpack, SURVIVOR_BATCH)}); "
           f"plain version {plain_bwd_ms:.3f} ms (once), coverage max|d|={c_err:.3g}; "
           f"{versus_parent(key, bwd_ms, work)}", flush=True)
@@ -2225,23 +2253,26 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
     launches); the MSV kernels' rows-in-memory case once, after a warm-up,
     against the all-24 join twice over (LENG 60362) at MSV_MEM_BATCH rows,
     the stacked kernel over it alone; the p7 cases (p7_timings_past) against
-    the three-profile join (the lazy Viterbi, the Viterbi filter, Forward
-    and the row-saving Forward on 3-block clusters, the eager and log-space
-    Forward and the backward pass in memory), the all-24 join (the four on
+    the three-profile join (the lazy Viterbi, the Viterbi filter, Forward,
+    the row-saving Forward and the backward pass on 3-block clusters, the
+    eager and log-space Forward in memory), the all-24 join (the five on
     13-block clusters, rows ``<kernel>_cluster_30181``) and the LENG 60362
-    join (the four's rows-in-memory cases); each plain version once, held
+    join (the five's rows-in-memory cases); each plain version once, held
     against the kernel; the parent's time beside each (PARENT_WIDE_MS)."""
     hmms = mem_profiles()
-    tokens = rng.integers(0, 20, size=(WIDE_MSV_BATCH, MEM_TIME_LEN)).astype(np.int8)
-    staged = scanner.stage(tokens, np.full(WIDE_MSV_BATCH, MEM_TIME_LEN, dtype=np.int32))
+    # wide enough for the posterior pair's POST_TIME_LEN residues
+    tokens = rng.integers(0, 20, size=(WIDE_MSV_BATCH, max(MEM_TIME_LEN, POST_TIME_LEN)))
+    tokens = tokens.astype(np.int8)
+    staged = scanner.stage(tokens[:, :MEM_TIME_LEN],
+                           np.full(WIDE_MSV_BATCH, MEM_TIME_LEN, dtype=np.int32))
     out = msv_timings_past(scanner, [MSVProfile.from_profile(h) for h in hmms], staged, CLUSTER,
                            3, errors, work)
-    past = scanner.stage(tokens[:MSV_MEM_BATCH], np.full(MSV_MEM_BATCH, MEM_TIME_LEN,
-                                                         dtype=np.int32))
+    past = scanner.stage(tokens[:MSV_MEM_BATCH, :MEM_TIME_LEN],
+                         np.full(MSV_MEM_BATCH, MEM_TIME_LEN, dtype=np.int32))
     out.update(msv_timings_past(scanner, [MSVProfile.from_profile(msv_mem_profile())],
                                 past, MEM, 1, errors, work))
-    clustered = ("lazy", "forward", "filter", "save")
-    out.update(p7_timings_past(scanner, hmms[0], tokens, clustered + ("eager", "log", "backward"),
+    clustered = ("lazy", "forward", "filter", "save", "backward")
+    out.update(p7_timings_past(scanner, hmms[0], tokens, clustered + ("eager", "log"),
                                errors, work))
     out.update(p7_timings_past(scanner, hmms[1], tokens, clustered, errors, work, "_30181"))
     out.update(p7_timings_past(scanner, msv_mem_profile(), tokens, clustered, errors, work))

@@ -68,8 +68,29 @@
 //    correctly rounded division. It launches on the caller's stream,
 //    allocates nothing and does not synchronise; the C entry point returns
 //    cudaGetLastError().
-// Past 4864 states the rows-in-memory case (backward_mem_kernel) runs the
-// same step over the block's scratch rows.
+//  * Past 128 * 19 = 2432 states (up to 4864) the pass runs on the cluster
+//    pair (p7_blocked.cuh; backward_pair_kernel, launched as 2-block
+//    clusters), and past that up to 16 * 2432 = 38,912 on C-block clusters
+//    (backward_cluster_kernel, C = ceil(M_pad / 2432), 3..16, read from
+//    %cluster_nctarank), as the Forward template's cases do: block r holds
+//    states r * 128 * PER .. of one sequence in the normal-width layout, one
+//    group of 128 threads a block, stages its slice of every row the
+//    normal-width plan stages and prefetches its slice of the odds rows and
+//    of the saved bf16 row. Its shifts go toward lower j, so block r's last
+//    states come from block r + 1: the mirror primitives (pair_shift_up,
+//    cluster_shift_up) send from block r + 1 to r, below 17 as a halo, else
+//    into one of two rows; the coverage and B sums go through one exchange
+//    of two values a warp, and the rescale max through the same exchange,
+//    each summed (or maxed) in one fixed order, block 0's warps first, so
+//    every block derives the same specials, rescale factor and log scale
+//    bit for bit. Every step begins with that exchange, which each block
+//    sends only after its last halo and row read of the step before: that
+//    is what lets the halos, rows and slots be reused (p7_blocked.cuh).
+//    Every block loads the chunk's tokens and log scales; block 0 alone
+//    stores the coverage.
+//  * Past 38,912 states the rows-in-memory case (backward_mem_kernel) runs
+//    the same step over the block's scratch rows; the launch plan also takes
+//    it for a width whose C-block cluster the card cannot hold.
 
 #include "p7_blocked.cuh"
 
@@ -98,22 +119,51 @@ struct BackwardArgs {
   int b_pad;
 };
 
-template <int PER, int KT>
+// Floats of dynamic shared memory of a backward case: n_rows staged rows,
+// `groups` groups and, for a block of the cluster pair or of a C-block
+// cluster, its exchange area with two values a slot.
+template <int PER, int KT, Span S>
+__host__ __device__ constexpr size_t backward_smem_floats(int n_rows, int groups) {
+  return static_cast<size_t>(n_rows) * row_floats<PER, KT>() +
+         static_cast<size_t>(groups) * backward_group_floats<PER, KT>() +
+         (S == Span::kPair      ? pair_floats<PER, KT, 2>()
+          : S == Span::kCluster ? cluster_floats<PER, KT, 2>()
+                                : 0);
+}
+
+// The kernel's body, for a block of G groups (backward_kernel), for a block
+// of the cluster pair (backward_pair_kernel) or for one of a C-block
+// cluster (backward_cluster_kernel; both one group a block, KT = 128, block
+// r following states col0 = r * 128 * PER .. col0 + 128 * PER - 1 of a
+// sequence in the normal-width layout).
+template <int PER, int KT, Span SPAN>
 __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int ROW = row_floats<PER, KT>();
   constexpr int HROW = erow_floats<PER, KT, true>();
   constexpr int SP = stride<PER>();
   constexpr int W = warps<KT>();
+  constexpr bool kLinked = SPAN != Span::kGroup;
   const int m_pad = a.m_pad;
   const int n_trans = KT == 128 ? kTransRows : a.n_trans;
   const int n_rows = n_trans + a.n_chain;
+  Link<SPAN> h;
+  h.rank = 0;
+  h.col0 = 0;
+  h.m_real = m_pad;
+  if constexpr (kLinked) {
+    h.rank = static_cast<int>(cluster_rank());
+    h.col0 = h.rank * KT * PER;
+    h.m_real = min(max(m_pad - h.col0, 0), KT * PER);
+  }
+  if constexpr (SPAN == Span::kCluster) h.nblk = static_cast<int>(cluster_size());
 
   for (int q = 0; q < n_trans; ++q) {
-    stage_row<PER, KT>(smem + q * ROW, a.trans + q * m_pad, m_pad, 0.0f);
+    stage_row<PER, KT>(smem + q * ROW, a.trans + q * m_pad + h.col0, h.m_real, 0.0f);
   }
   for (int p = 0; p < a.n_chain; ++p) {
-    stage_row<PER, KT>(smem + (n_trans + p) * ROW, a.schain + p * m_pad, m_pad, 0.0f);
+    stage_row<PER, KT>(smem + (n_trans + p) * ROW, a.schain + p * m_pad + h.col0, h.m_real,
+                       0.0f);
   }
 
   const int groups = blockDim.x / KT;
@@ -130,32 +180,50 @@ __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
   int8_t* toks = reinterpret_cast<int8_t*>(red + 3 * W);
   float* ls_c = red + 3 * W + kChunk / 4;  // the chunk's log scales
   float* cov_c = ls_c + kChunk;            // and its coverage
+  if constexpr (kLinked) {
+    // the cluster's exchange area follows the block's one group
+    float* area = smem + n_rows * ROW + backward_group_floats<PER, KT>();
+    if constexpr (SPAN == Span::kPair) {
+      pair_setup_up<PER, KT>(h, area, t);
+    } else {
+      cluster_setup<PER, KT, 2>(h, area, t);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   for (int q = 0; q < 2; ++q) {
-    fill_tail<PER, KT>(em(q), m_pad, 0.0f, t);
-    fill_tail<PER, KT>(ei(q), m_pad, 0.0f, t);
-    fill_tail_bf16<PER, KT>(frow(q), m_pad, 0, t);
+    fill_tail<PER, KT>(em(q), h.m_real, 0.0f, t);
+    fill_tail<PER, KT>(ei(q), h.m_real, 0.0f, t);
+    fill_tail_bf16<PER, KT>(frow(q), h.m_real, 0, t);
   }
   __syncthreads();  // the staged rows; from here on each group keeps to itself
+  // a cluster: its blocks run, and their mbarriers exist, before any
+  // reaches another's memory
+  if constexpr (kLinked) cluster_sync();
 
   const int off = t * SP;
-  const TransRows<PER, KT> tr{smem + off, a.trans, n_trans, m_pad, t * PER, 0.0f};
+  const int j0 = h.col0 + t * PER;  // this thread's first state
+  const TransRows<PER, KT> tr{smem + off, a.trans, n_trans, m_pad, j0, 0.0f};
   const float* chain_s = smem + n_trans * ROW + off;
   const float p_b_mk = a.consts[0];
   const float p_e_c = a.consts[1];
   const float p_e_j = a.consts[2];
   const int b_pad = a.b_pad;
 
-  for (int seq = blockIdx.x * groups + g; seq < b_pad; seq += gridDim.x * groups) {
+  // the sequences of this group: a cluster's blocks follow the same ones
+  for (int seq = kLinked ? cluster_id() : blockIdx.x * groups + g; seq < b_pad;
+       seq += kLinked ? cluster_count() : gridDim.x * groups) {
     const int n = min(max(a.lengths[seq], 0), a.l_pad);
     float* cov_row = a.cov + static_cast<size_t>(seq) * a.l_pad;
-    for (int pos = n + t; pos < a.l_pad; pos += KT) cov_row[pos] = 0.0f;
-    if (n == 0) continue;  // the whole group: n is the group's
+    if (h.rank == 0) {
+      for (int pos = n + t; pos < a.l_pad; pos += KT) cov_row[pos] = 0.0f;
+    }
+    if (n == 0) continue;  // the whole group (cluster): n is the sequence's
 
     const float p_loop = a.tr_probs[seq];
     const float p_move = a.tr_probs[b_pad + seq];
     const float total = a.total[seq];
     const int8_t* tok_row = a.tokens + static_cast<size_t>(seq) * a.l_pad;
-    const uint16_t* fm_seq = a.fm + static_cast<size_t>(seq) * a.l_pad * m_pad;
+    const uint16_t* fm_seq = a.fm + static_cast<size_t>(seq) * a.l_pad * m_pad + h.col0;
     const float* ls_row = a.ls + static_cast<size_t>(seq) * a.l_pad;
     int par = 0;
 
@@ -163,7 +231,8 @@ __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
     auto suffix_chain = [&](float (&ac)[PER]) {
       for (int p = 0; p < a.window; ++p) {
         float sh[PER];
-        shift_up<PER, KT>(ac, sh, 1 << p, 0.0f, xbuf(par), t, bar);
+        step_shift_up<PER, KT, SPAN>(ac, sh, 1 << p, 0.0f, xbuf(par), t, bar, h, 2 + p,
+                                     a.window);
         par ^= 1;
         if (p < a.n_chain) {
           const float* c = chain_s + p * ROW;
@@ -173,7 +242,7 @@ __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
           const float* c = a.schain + static_cast<size_t>(p) * m_pad;
 #pragma unroll
           for (int k = 0; k < PER; ++k) {
-            const int j = t * PER + k;
+            const int j = j0 + k;
             ac[k] = ac[k] + sh[k] * (j < m_pad ? __ldg(c + j) : 0.0f);
           }
         }
@@ -187,13 +256,13 @@ __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
       const float be = p_e_c * bc;
       float bd[PER], up[PER];
 #pragma unroll
-      for (int k = 0; k < PER; ++k) bd[k] = t * PER + k < m_pad ? be : 0.0f;
+      for (int k = 0; k < PER; ++k) bd[k] = j0 + k < m_pad ? be : 0.0f;
       suffix_chain(bd);
-      shift_up<PER, KT>(bd, up, 1, 0.0f, xbuf(par), t, bar);
+      step_shift_up<PER, KT, SPAN>(bd, up, 1, 0.0f, xbuf(par), t, bar, h, 1, a.window);
       par ^= 1;
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
-        bm[k] = t * PER + k < m_pad ? tr(2, k) * up[k] + be : 0.0f;
+        bm[k] = j0 + k < m_pad ? tr(2, k) * up[k] + be : 0.0f;
         bi[k] = 0.0f;
       }
     }
@@ -208,10 +277,10 @@ __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
         ls_c[t] = ls_row[lo + t];
       }
       group_sync<KT>(bar);
-      prefetch_emissions<PER, KT>(em((hi - 1) & 1), ei((hi - 1) & 1), a.modds, a.iodds,
-                                  token(toks, count - 1), m_pad, t);
+      prefetch_half<PER, KT, float>(em((hi - 1) & 1), ei((hi - 1) & 1), a.modds, a.iodds,
+                                    token(toks, count - 1), m_pad, h, t);
       prefetch_row_bf16<PER, KT>(frow((hi - 1) & 1), fm_seq + static_cast<size_t>(hi - 1) * m_pad,
-                                 m_pad, t);
+                                 h.m_real, t);
       cp_async_commit();
       cp_async_wait_all();
       group_sync<KT>(bar);  // publishes the rows of the chunk's first step
@@ -219,14 +288,15 @@ __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
       for (int pos = hi - 1; pos >= lo; --pos) {
         const int q = pos & 1;
         if (pos > lo) {  // the next step's rows, while this one runs
-          prefetch_emissions<PER, KT>(em(q ^ 1), ei(q ^ 1), a.modds, a.iodds,
-                                      token(toks, pos - 1 - lo), m_pad, t);
+          prefetch_half<PER, KT, float>(em(q ^ 1), ei(q ^ 1), a.modds, a.iodds,
+                                        token(toks, pos - 1 - lo), m_pad, h, t);
           prefetch_row_bf16<PER, KT>(frow(q ^ 1), fm_seq + static_cast<size_t>(pos - 1) * m_pad,
-                                     m_pad, t);
+                                     h.m_real, t);
         }
         cp_async_commit();
 
         // coverage of position pos and the B sum, one two-value reduction
+        // (a cluster's: block 0's warps first, the same sums in every block)
         float f[PER];
         load_bf16<PER>(frow(q), f, t);
         const float* mo = em(q) + off;
@@ -239,12 +309,12 @@ __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
           iemit[k] = io[k] * bi[k];
           bs += memit[k];
         }
-        group_sum2<KT>(cv, bs, red, t, bar);
+        step_sum2<KT, SPAN>(cv, bs, red, t, bar, h);
         if (t == 0) cov_c[pos - lo] = cv * expf(ls_c[pos - lo] + lsb - total);
         if (pos == 0) break;  // the betas before the first residue are not needed
 
         float m_next[PER];
-        shift_up<PER, KT>(memit, m_next, 1, 0.0f, xbuf(par), t, bar);
+        step_shift_up<PER, KT, SPAN>(memit, m_next, 1, 0.0f, xbuf(par), t, bar, h, 0, a.window);
         par ^= 1;
         const float bspec = p_b_mk * bs;
         bj = p_loop * bj + p_move * bspec;
@@ -255,16 +325,16 @@ __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
 #pragma unroll
         for (int k = 0; k < PER; ++k) {
           bi[k] = tr(3, k) * m_next[k] + tr(4, k) * iemit[k];
-          ac[k] = t * PER + k < m_pad ? tr(5, k) * m_next[k] + e : 0.0f;
+          ac[k] = j0 + k < m_pad ? tr(5, k) * m_next[k] + e : 0.0f;
         }
         suffix_chain(ac);
         cp_async_wait_all();  // the next step's rows: the shift's barrier publishes them
         float up[PER];
-        shift_up<PER, KT>(ac, up, 1, 0.0f, xbuf(par), t, bar);
+        step_shift_up<PER, KT, SPAN>(ac, up, 1, 0.0f, xbuf(par), t, bar, h, 1, a.window);
         par ^= 1;
 #pragma unroll
         for (int k = 0; k < PER; ++k) {
-          bm[k] = t * PER + k < m_pad
+          bm[k] = j0 + k < m_pad
                       ? tr(0, k) * m_next[k] + tr(1, k) * iemit[k] + tr(2, k) * up[k] + e
                       : 0.0f;
         }
@@ -273,7 +343,8 @@ __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
           float mx = 0.0f;
 #pragma unroll
           for (int k = 0; k < PER; ++k) mx = fmaxf(mx, bm[k]);
-          mx = group_reduce<false, KT>(mx, red + 2 * W, t, bar);
+          // every block derives the same s, log scale and compensation
+          mx = step_max2<KT, SPAN>(mx, red + 2 * W, t, bar, h);
           const float s = fmaxf(fmaxf(mx, bc), fmaxf(bn, 1e-30f));
           const float inv = 1.0f / s;
           const float y = logf(s) - comp;
@@ -291,21 +362,24 @@ __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
         }
       }
       group_sync<KT>(bar);  // the chunk's coverage is complete
-      if (t < count) cov_row[lo + t] = cov_c[t];
+      if (h.rank == 0 && t < count) cov_row[lo + t] = cov_c[t];
     }
   }
+  // no block leaves while another of its cluster may still reach its
+  // shared memory
+  if constexpr (kLinked) cluster_sync();
 }
 
 template <int PER, int KT>
 __global__ void backward_kernel(const BackwardArgs a) {
-  backward_body<PER, KT>(a);
+  backward_body<PER, KT, Span::kGroup>(a);
 }
 
 // At 9 to 12 slots and 128 threads the case is held to 128 registers, so
 // that four groups of 128 threads fit an SM's registers.
 template <int PER, int KT>
 __global__ void __launch_bounds__(512) backward_bounded_kernel(const BackwardArgs a) {
-  backward_body<PER, KT>(a);
+  backward_body<PER, KT, Span::kGroup>(a);
 }
 
 // The case's kernel; only that one is instantiated.
@@ -318,8 +392,21 @@ constexpr auto backward_case() {
   }
 }
 
-// The rows-in-memory case (p7_blocked.cuh, past 4864 states): one block of
-// kMemThreads threads a sequence, backward_kernel's step over the block's
+// The wide case: a block of the cluster pair (launched as 2-block clusters).
+template <int PER>
+__global__ void __launch_bounds__(128) backward_pair_kernel(const BackwardArgs a) {
+  backward_body<PER, 128, Span::kPair>(a);
+}
+
+// Past 4864 states: a block of a C-block cluster (launched as C-block
+// clusters, C read from %cluster_nctarank).
+template <int PER>
+__global__ void __launch_bounds__(128) backward_cluster_kernel(const BackwardArgs a) {
+  backward_body<PER, 128, Span::kCluster>(a);
+}
+
+// The rows-in-memory case (p7_blocked.cuh, past 38,912 states): one block
+// of kMemThreads threads a sequence, backward_kernel's step over the block's
 // scratch rows with the same float32 operations on the same operands. Rows
 // by parity p: bm at 0 + p, bi at 2 + p, the suffix chain's two rows at 6
 // and 7. m_next_j = memit_{j+1} is formed from the last step's bm at j + 1,
@@ -460,15 +547,14 @@ struct Case {
   static cudaError_t launch(const BackwardArgs& a, int device, int groups, int grid, int smem,
                             cudaStream_t stream) {
     const bool ok = a.m_pad <= KT * PER && groups >= 1 && groups * KT <= kMaxThreads &&
-                    grid >= 1 && a.n_trans >= 0 && a.n_trans <= kTransRows &&
-                    (KT != 128 || a.n_trans == kTransRows) &&
+                    grid >= 1 && a.n_trans == kTransRows &&
                     static_cast<size_t>(smem) ==
-                        4 * (static_cast<size_t>(a.n_trans + a.n_chain) * row_floats<PER, KT>() +
-                             static_cast<size_t>(groups) * backward_group_floats<PER, KT>()) &&
+                        4 * backward_smem_floats<PER, KT, Span::kGroup>(a.n_trans + a.n_chain,
+                                                                        groups) &&
                     smem <= kMaxSmem;
     if (!ok) return cudaErrorInvalidValue;
     const auto kernel = backward_case<PER, KT>();
-    const cudaError_t err = allow_smem(kernel, device, smem_set[case_slot(KT, PER)]);
+    const cudaError_t err = allow_smem(kernel, device, smem_set[case_slot(PER)]);
     if (err != cudaSuccess) return err;
     kernel<<<grid, groups * KT, smem, stream>>>(a);
     return cudaGetLastError();
@@ -482,23 +568,98 @@ struct Case {
   }
 };
 
+// The cluster pair's case: 2 * 128 * PER states, a block of the pair's
+// clusters one half: one group a block, an even grid, every transition row
+// staged and backward_smem_floats of the pair.
+unsigned pair_smem_set[kPairSlots];  // devices whose pair case allows kMaxSmem
+
+template <int PER>
+struct PairCase {
+  static void (*kernel())(BackwardArgs) { return backward_pair_kernel<PER>; }
+
+  static cudaError_t launch(const BackwardArgs& a, int device, int groups, int grid, int smem,
+                            cudaStream_t stream) {
+    const int n_rows = a.n_trans + a.n_chain;
+    if (a.m_pad > 2 * 128 * PER || groups != 1 || grid < 2 || grid % 2 != 0 ||
+        a.n_trans != kTransRows ||
+        static_cast<size_t>(smem) != 4 * backward_smem_floats<PER, 128, Span::kPair>(n_rows, 1) ||
+        smem > kMaxSmem) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_cluster(kernel(), a, device, pair_smem_set[PER - 10], 2, grid,
+                          smem, stream);
+  }
+
+  static cudaError_t regs(int* out) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel());
+    *out = attr.numRegs;
+    return err;
+  }
+
+  static cudaError_t clusters(int device, int smem, int* out) {
+    return cluster_max_clusters(kernel(), device, pair_smem_set[PER - 10], 2,
+                                smem, out);
+  }
+};
+
+// The C-block cluster's case: c * 128 * PER states, a block of the clusters
+// one slice: one group a block, a grid of whole clusters, every transition
+// row staged and backward_smem_floats of the C-block cluster.
+unsigned cluster_smem_set[kClusterSlots];  // devices whose cluster case allows kMaxSmem
+
+template <int PER>
+struct ClusterCase {
+  static void (*kernel())(BackwardArgs) { return backward_cluster_kernel<PER>; }
+
+  static cudaError_t launch(const BackwardArgs& a, int device, int c, int groups, int grid,
+                            int smem, cudaStream_t stream) {
+    const int n_rows = a.n_trans + a.n_chain;
+    if (c < 3 || c > kMaxCluster || a.m_pad > c * 128 * PER || groups != 1 || grid < c ||
+        grid % c != 0 || a.n_trans != kTransRows ||
+        static_cast<size_t>(smem) !=
+            4 * backward_smem_floats<PER, 128, Span::kCluster>(n_rows, 1) ||
+        smem > kMaxSmem) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_cluster(kernel(), a, device, cluster_smem_set[PER - 13], c,
+                          grid, smem, stream);
+  }
+
+  static cudaError_t regs(int* out) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel());
+    *out = attr.numRegs;
+    return err;
+  }
+
+  static cudaError_t clusters(int device, int c, int smem, int* out) {
+    return cluster_max_clusters(kernel(), device, cluster_smem_set[PER - 13],
+                                c, smem, out);
+  }
+};
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `threads` (128 or 256, or
-// kMemThreads for the rows-in-memory case) and `per` name the kernel case,
-// with threads * per >= m_pad (a multiple of 8); `window` is the suffix
-// chain's row count, the first `n_chain` staged in shared memory with the
-// first `n_trans` transition rows; the pass rescales after every `group`
-// steps of a sequence. `groups`, `grid` and `smem` are the launch plan of
-// ops/p7_cuda.py::plan_launch (checked); `scratch` the rows-in-memory
-// case's rows (null otherwise). Returns a cudaError_t.
-extern "C" int p7_backward_launch(int device, int threads, int per, const void* modds,
-                                  const void* iodds, const void* trans, const void* schain,
-                                  int m_pad, int window, int n_chain, int n_trans, int group,
-                                  const void* tokens, int l_pad, const void* lengths,
-                                  const void* tr_probs, const void* consts, const void* total,
-                                  const void* fm, const void* ls, void* cov, void* scratch,
-                                  int b_pad, int groups, int grid, int smem, void* stream) {
+// Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads
+// for the rows-in-memory case) and `per` name the kernel case, with threads
+// * per >= m_pad (a multiple of 8), `cluster` 2 the cluster pair's (128
+// threads a block, per 10..19, 2 * threads * per >= m_pad) and `cluster` C
+// of 3..16 the C-block cluster's (per 13..19, C * threads * per >= m_pad);
+// `window` is the suffix chain's row count, the first `n_chain` staged in
+// shared memory with the `n_trans` (six) transition rows; the pass
+// rescales after every `group` steps of a sequence. `groups`, `grid` and
+// `smem` are the launch plan of ops/p7_cuda.py::plan_launch (checked);
+// `scratch` the rows-in-memory case's rows (null otherwise). Returns a
+// cudaError_t.
+extern "C" int p7_backward_launch(int device, int threads, int per, int cluster,
+                                  const void* modds, const void* iodds, const void* trans,
+                                  const void* schain, int m_pad, int window, int n_chain,
+                                  int n_trans, int group, const void* tokens, int l_pad,
+                                  const void* lengths, const void* tr_probs, const void* consts,
+                                  const void* total, const void* fm, const void* ls, void* cov,
+                                  void* scratch, int b_pad, int groups, int grid, int smem,
+                                  void* stream) {
   if (m_pad < 1 || m_pad % 8 != 0 || window < 1 || window > 16 || n_chain < 0 ||
       n_chain > window || group < 1 || b_pad < 1 || l_pad < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -534,20 +695,56 @@ extern "C" int p7_backward_launch(int device, int threads, int per, const void* 
     backward_mem_kernel<<<grid, kMemThreads, 0, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(with_case<Case>(threads, per, [&](auto c) {
+  if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster >= 3) {
+    return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {
+      return decltype(c)::launch(a, device, cluster, groups, grid, smem, st);
+    }));
+  }
+  if (cluster == 2) {
+    return static_cast<int>(with_pair_case<PairCase>(per, [&](auto c) {
+      return decltype(c)::launch(a, device, groups, grid, smem, st);
+    }));
+  }
+  if (cluster != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_group_case<Case>(per, [&](auto c) {
     return decltype(c)::launch(a, device, groups, grid, smem, st);
   }));
 }
 
-// Registers a thread of the case uses, for the launch plan. Returns a
-// cudaError_t.
-extern "C" int p7_backward_regs(int threads, int per, int* regs) {
+// Registers a thread of the case uses (`cluster` 2: the pair's, 3..16: the
+// C-block cluster's), for the launch plan. Returns a cudaError_t.
+extern "C" int p7_backward_regs(int threads, int per, int cluster, int* regs) {
   if (threads == kMemThreads) {
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(&attr, backward_mem_kernel);
     *regs = attr.numRegs;
     return static_cast<int>(err);
   }
+  if (cluster >= 3) {
+    return static_cast<int>(
+        with_cluster_case<ClusterCase>(per, [&](auto c) { return decltype(c)::regs(regs); }));
+  }
+  if (cluster == 2) {
+    return static_cast<int>(
+        with_pair_case<PairCase>(per, [&](auto c) { return decltype(c)::regs(regs); }));
+  }
   return static_cast<int>(
-      with_case<Case>(threads, per, [&](auto c) { return decltype(c)::regs(regs); }));
+      with_group_case<Case>(per, [&](auto c) { return decltype(c)::regs(regs); }));
+}
+
+// The most clusters of `cluster` blocks (2: the pair's case of `per`;
+// 3..16: the C-block cluster's) the card `device` runs at once with `smem`
+// bytes of dynamic shared memory a block, for the launch plan. Returns a
+// cudaError_t.
+extern "C" int p7_backward_clusters(int device, int per, int cluster, int smem, int* clusters) {
+  if (cluster >= 3) {
+    if (cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {
+      return decltype(c)::clusters(device, cluster, smem, clusters);
+    }));
+  }
+  if (cluster != 2) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_pair_case<PairCase>(
+      per, [&](auto c) { return decltype(c)::clusters(device, smem, clusters); }));
 }

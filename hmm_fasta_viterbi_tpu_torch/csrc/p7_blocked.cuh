@@ -2,16 +2,15 @@
 // Viterbi / log-space Forward / Viterbi filter template (p7_viterbi.cuh), the
 // probability-space Forward kernel (p7_forward_kernel.cu) and the posterior
 // backward coverage pass (p7_backward_kernel.cu); the cluster pair's
-// primitives, which the Viterbi and Forward templates' wide cases run on
-// (after the group's), and the C-block cluster's, which their lazy, filter
-// and Forward cases run on past 256 * 19 = 4864 states, with the step's
-// shift and reduction wrappers and the clusters' launches; and the
-// rows-in-memory case's helpers (at the end).
+// primitives, which every template's wide case runs on (after the group's),
+// and the C-block cluster's, which the lazy, filter, Forward and backward
+// cases run on past 2 * 2432 = 4864 states, each with its mirror toward
+// lower j (the backward pass's), with the step's shift and reduction
+// wrappers and the clusters' launches; and the rows-in-memory case's
+// helpers (at the end).
 //
-// A block holds G groups of KT threads, KT = 128 (M_pad <= 128 * 19 = 2432)
-// or 256 (the backward source's wide case, M_pad <= 256 * 19 = 4864; the
-// Viterbi and Forward templates' run on the cluster pair, below); G =
-// blockDim.x / KT, at
+// A block holds G groups of KT = 128 threads (M_pad <= 128 * 19 = 2432;
+// wider cases run on the clusters, below); G = blockDim.x / KT, at
 // most kMaxThreads / KT. Each group follows one sequence at a time and walks
 // the batch with a stride of gridDim.x * G. Thread t of a group owns the
 // contiguous states j = t * PER + k, k < PER, in registers. A row kept in
@@ -41,14 +40,11 @@
 // ops/p7_cuda.py::blocked_smem_bytes computes the same size; the launchers
 // check it.
 //
-// At KT = 128 the six transition rows always fit beside one group (at most
-// 7 of the 24 rows of 227 KB at PER = 19), and so in a block of the
-// cluster pair; at KT = 256 a row is twice as
-// large (19,456 bytes at PER = 19, where one group's own rows and six staged
-// transition rows would be 1,024 bytes over the block's 232,448). So the
-// launch plan stages the first n_trans transition rows (6 at KT = 128) and
-// the first n_chain chain rows; the kernels read the others from global
-// memory. Which rows are staged is the plan's choice by shape.
+// The six transition rows always fit beside one group (at most 7 of the 24
+// rows of 227 KB at PER = 19), and so in a block of a cluster. So the
+// launch plan stages all six and the first n_chain chain rows; the kernels
+// read the other chain rows from global memory. Which rows are staged is
+// the plan's choice by shape.
 
 #pragma once
 
@@ -63,7 +59,7 @@ namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kChunk = 128;        // residues per token load (and lazy certificate)
-constexpr int kMaxThreads = 1024;  // a block: 8 groups of 128 or 4 of 256 (barriers 1..8)
+constexpr int kMaxThreads = 1024;  // a block: 8 groups of 128 (barriers 1..8)
 constexpr int kMaxSmem = 232448;   // bytes a block may use on the H100
 constexpr int kMaxDevices = 32;
 constexpr int kTransRows = 6;      // tmm tmi tmd tim tii tdm
@@ -119,18 +115,19 @@ __host__ __device__ constexpr size_t smem_floats(int n_rows, int groups, bool sa
 }
 
 // The cluster pair's exchange area, after a block's group: two rows of
-// block 0's states for the larger shifts, the slots of two exchanges (one
+// the partner's states for the larger shifts, the slots of two exchanges (one
 // value of each warp of both blocks), the halo slots of each smaller shift
 // (kHaloSlots values a shift: the two shifts by one, then pass p of the
 // chain at 2 + p), two slots of the rows' release signals (and two of
 // padding), then the mbarriers (8 bytes each): one a halo, two for the
-// exchanges, two for the rows and two for their release.
+// exchanges, two for the rows and two for their release. XV is the values
+// an exchange carries a warp (2: the backward pass's, pair_reduce2).
 constexpr int kHaloIds = 2 + 16;
 constexpr int kHaloSlots = 16;
 constexpr int kPairBars = kHaloIds + 2 + 2 + 2;
-template <int PER, int KT>
+template <int PER, int KT, int XV = 1>
 __host__ __device__ constexpr int pair_floats() {
-  return 2 * row_floats<PER, KT>() + 2 * 2 * warps<KT>() + kHaloIds * kHaloSlots + 4 +
+  return 2 * row_floats<PER, KT>() + XV * 2 * 2 * warps<KT>() + kHaloIds * kHaloSlots + 4 +
          2 * kPairBars;
 }
 
@@ -268,16 +265,17 @@ __device__ __forceinline__ void prefetch_emissions_bf16(uint16_t* dm, uint16_t* 
   }
 }
 
-// One bf16 row `src` [m_pad] (the backward pass's saved forward row) into a
-// group's buffer at hidx layout, copied as prefetch_emissions_bf16 copies.
-// The caller commits.
+// The first n states of one bf16 row `src` (the backward pass's saved
+// forward row, or a cluster block's slice of it: n a multiple of 8, `src`
+// 16-byte aligned) into a group's buffer at hidx layout, copied as
+// prefetch_emissions_bf16 copies. The caller commits.
 template <int PER, int KT>
-__device__ __forceinline__ void prefetch_row_bf16(uint16_t* dst, const uint16_t* src, int m_pad,
+__device__ __forceinline__ void prefetch_row_bf16(uint16_t* dst, const uint16_t* src, int n,
                                                   int t) {
   if constexpr (hstride<PER>() == PER) {
-    for (int c = t; c < m_pad / 8; c += KT) cp_async16(dst + 8 * c, src + 8 * c);
+    for (int c = t; c < n / 8; c += KT) cp_async16(dst + 8 * c, src + 8 * c);
   } else {
-    for (int j = 2 * t; j < m_pad; j += 2 * KT) cp_async4(dst + hidx<PER>(j), src + j);
+    for (int j = 2 * t; j < n; j += 2 * KT) cp_async4(dst + hidx<PER>(j), src + j);
   }
 }
 
@@ -462,7 +460,7 @@ __device__ __forceinline__ float warp_reduce(float v) {
 // warp results combined in a fixed order through `red` (KT / 32 floats).
 template <bool SUM, int KT>
 __device__ __forceinline__ float group_reduce(float v, float* red, int t, int bar) {
-  static_assert(KT == 128 || KT == 256, "a group is 4 or 8 warps");
+  static_assert(KT == 128, "a group is 4 warps");
   v = warp_reduce<SUM>(v);
   if ((t & 31) == 0) red[t >> 5] = v;
   group_sync<KT>(bar);
@@ -487,8 +485,8 @@ __device__ __forceinline__ void group_sum2(float& a, float& b, float* red, int t
 
 // -- the cluster pair ------------------------------------------------------------
 //
-// Past 128 * 19 = 2432 states (up to 2 * 2432 = 4864) the Viterbi and
-// Forward templates' cases run one sequence on a pair of groups of KT = 128
+// Past 128 * 19 = 2432 states (up to 2 * 2432 = 4864) every template's
+// cases run one sequence on a pair of groups of KT = 128
 // threads, one in
 // each block of a 2-block thread-block cluster, a group a block. Block r
 // owns the states r * KT * PER + t * PER + k, the normal-width layout of its
@@ -523,6 +521,21 @@ __device__ __forceinline__ void group_sum2(float& a, float& b, float* red, int t
 // block 0, which waits for nothing else, runs at most one step ahead, and
 // each block's next value to the other depends on what it read; the
 // exchange slots and barriers alternate by exchange.
+//
+// The mirror (the backward pass's shifts toward lower j, pair_shift_up):
+// block 1 sends to block 0 on the same slots and mbarriers. A shift by S
+// below PER: block 1's thread 0 stores its first S states into block 0's
+// halo of that shift, block 0's last thread waits for 4 * S bytes; a larger
+// shift by s: the threads of block 1 that hold its first min(s, KT * PER)
+// states store them into one of block 0's two rows at their own index,
+// released by block 0 as block 1 releases the upward rows. Its reductions
+// (pair_reduce2) carry two values a warp in one exchange, in the same fixed
+// order. Its slot reuse rests on the backward step's own order: every step
+// *begins* with an exchange that needs both blocks' values (the coverage
+// and B sums), which each block sends only after its last halo and row read
+// of the step before; so block 1, which waits for nothing but the
+// exchanges, runs at most one step ahead, and no block stores step n + 1's
+// halos or rows before their reader is done with step n's.
 
 // A block's place in the cluster pair (alone: rank 0, col0 0, m_real
 // m_pad, nothing else read) and its exchange state: its shared exchange
@@ -532,28 +545,30 @@ struct Pair {
   int rank;
   int col0;    // the block's first state
   int m_real;  // the block's real states (m_pad's part in its half)
-  float* rows;    // [2][row_floats]: block 0's states, for the larger shifts
-  float* xslots;  // [2][2 * KT / 32] exchange slots
+  float* rows;    // [2][row_floats]: the sender's states, for the larger shifts
+  float* xslots;  // [2][XV * 2 * KT / 32] exchange slots
   float* halo;    // [kHaloIds][kHaloSlots]
   unsigned hbar;  // shared address of halo mbarrier 0 (then 8 bytes each)
   unsigned xbar;  // ... of exchange mbarrier 0
-  unsigned rbar;  // ... of row mbarrier 0 (block 1 waits)
-  unsigned fbar;  // ... of release mbarrier 0 (block 0 waits)
-  unsigned peer_halo, peer_hbar, peer_rows, peer_rbar;  // block 1's, for block 0's stores
-  unsigned peer_fslot, peer_fbar;                       // block 0's, for block 1's releases
+  unsigned rbar;  // ... of row mbarrier 0 (the receiving block waits)
+  unsigned fbar;  // ... of release mbarrier 0 (the sending block waits)
+  // the receiver's (block 1's; the mirror's: block 0's), for the sender's stores
+  unsigned peer_halo, peer_hbar, peer_rows, peer_rbar;
+  // the sender's (block 0's; the mirror's: block 1's), for the receiver's releases
+  unsigned peer_fslot, peer_fbar;
   unsigned self_x, self_xbar, peer_x, peer_xbar;  // both blocks' slots and barriers
-  unsigned hphase;  // halo mbarriers' phases (block 1's thread 0 waits)
+  unsigned hphase;  // halo mbarriers' phases (the receiving thread waits)
   unsigned xphase;  // exchange mbarriers' phases
-  unsigned rphase;  // row (block 1) or release (block 0) mbarriers' phases
+  unsigned rphase;  // row (receiver) or release (sender) mbarriers' phases
   int xn;           // exchanges sent
 };
 
-// The pair's exchange area at `area` (pair_floats<PER, KT>() floats,
+// The pair's exchange area at `area` (pair_floats<PER, KT, XV>() floats,
 // 16-byte aligned); thread 0 initialises the mbarriers (the caller fences
 // and synchronises the cluster before anyone arrives on them).
-template <int PER, int KT>
+template <int PER, int KT, int XV = 1>
 __device__ __forceinline__ void pair_setup(Pair& pr, float* area, int t) {
-  constexpr int X = 2 * 2 * warps<KT>();
+  constexpr int X = XV * 2 * 2 * warps<KT>();
   pr.rows = area;
   pr.xslots = area + 2 * row_floats<PER, KT>();
   pr.halo = pr.xslots + X;
@@ -581,6 +596,23 @@ __device__ __forceinline__ void pair_setup(Pair& pr, float* area, int t) {
   pr.xphase = 0;
   pr.rphase = 0;
   pr.xn = 0;
+}
+
+// The mirror's pair (the backward pass's, pair_shift_up): the area with two
+// values an exchange slot, and the stores' and releases' targets turned
+// round: block 1 stores into block 0's halos and rows, block 0 releases
+// block 1's rows.
+template <int PER, int KT>
+__device__ __forceinline__ void pair_setup_up(Pair& pr, float* area, int t) {
+  pair_setup<PER, KT, 2>(pr, area, t);
+  float* fslots = pr.halo + kHaloIds * kHaloSlots;
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(fslots + 4);
+  pr.peer_halo = peer_addr(pr.halo, 0);
+  pr.peer_hbar = peer_addr(bars, 0);
+  pr.peer_rows = peer_addr(pr.rows, 0);
+  pr.peer_rbar = peer_addr(bars + kHaloIds + 2, 0);
+  pr.peer_fslot = peer_addr(fslots, 1);
+  pr.peer_fbar = peer_addr(bars + kHaloIds + 4, 1);
 }
 
 // out[k] = state j - S of the pair's row (j = col0 + t * PER + k), for S <
@@ -740,11 +772,152 @@ __device__ __forceinline__ bool pair_any(bool v, int t, Pair& pr) {
   return combine_warps<false, 2 * KT>(pair_collect<KT>(q, pr)) > 0.0f;
 }
 
+// The mirror of pair_shift_small, toward lower j (pair_setup_up's pair):
+// out[k] = state j + S of the pair's row (j = col0 + t * PER + k), for S <
+// PER: slots k < PER - S are register moves; the last S come from thread
+// t + 1 through `buf`, in block 0's last thread from block 1's thread 0
+// through halo `id`, in block 1's last thread `fill`.
+template <int PER, int KT, int S>
+__device__ __forceinline__ void pair_shift_up_small(const float (&v)[PER], float (&out)[PER],
+                                                    float fill, float* buf, int t, int bar,
+                                                    Pair& pr, int id) {
+  static_assert(S <= kHaloSlots, "a small shift's halo");
+  constexpr int SP = stride<PER>();
+  if (pr.rank == 1 && t == 0) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      st_async(pr.peer_halo + 4 * (id * kHaloSlots + k), v[k], pr.peer_hbar + 8 * id);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < S; ++k) buf[t * SP + k] = v[k];
+  group_sync<KT>(bar);
+  if (t + 1 < KT) {
+    const int next = (t + 1) * SP;
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[PER - S + k] = buf[next + k];
+  } else if (pr.rank == 0) {
+    mbar_expect(pr.hbar + 8 * id, 4 * S);
+    mbar_wait(pr.hbar + 8 * id, (pr.hphase >> id) & 1u);
+    pr.hphase ^= 1u << id;
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[PER - S + k] = pr.halo[id * kHaloSlots + k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[PER - S + k] = fill;
+  }
+#pragma unroll
+  for (int k = 0; k < PER - S; ++k) out[k] = v[k + S];
+}
+
+// The mirror of pair_shift_big: the whole row goes through `buf` on the
+// group's barrier; block 0's states from KT * PER - s on take block 1's
+// first min(s, KT * PER) states from row i & 1 of block 0's two rows (at
+// their own index), which block 1 stores there once block 0 has released
+// the row's use i - 2.
+template <int PER, int KT>
+__device__ __forceinline__ void pair_shift_up_big(const float (&v)[PER], float (&out)[PER], int s,
+                                                  float fill, float* buf, int t, int bar,
+                                                  Pair& pr, int i, int n) {
+  constexpr int SP = stride<PER>();
+  constexpr int N = KT * PER;  // a block's states
+  const int q = i & 1;
+  const int count = min(s, N);  // block 1's states block 0 takes
+  if (pr.rank == 1) {
+    if (i >= 2) {
+      if (t == 0) mbar_expect(pr.fbar + 8 * q, 4);
+      mbar_wait(pr.fbar + 8 * q, (pr.rphase >> q) & 1u);
+      pr.rphase ^= 1u << q;
+    }
+    const unsigned row = pr.peer_rows + 4 * q * row_floats<PER, KT>();
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int j = t * PER + k;
+      if (j < count) st_async(row + 4 * sidx<PER>(j), v[k], pr.peer_rbar + 8 * q);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) buf[t * SP + k] = v[k];
+  group_sync<KT>(bar);
+  if (pr.rank == 0) {
+    if (t == 0) mbar_expect(pr.rbar + 8 * q, 4 * count);
+    mbar_wait(pr.rbar + 8 * q, (pr.rphase >> q) & 1u);
+    pr.rphase ^= 1u << q;
+  }
+  const float* row = pr.rows + q * row_floats<PER, KT>();
+  const int base = t * PER + s;  // this block's index of state j + s
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = base + k;
+    if (j < N) {
+      out[k] = buf[sidx<PER>(j)];
+    } else if (pr.rank == 0 && j - N < N) {
+      out[k] = row[sidx<PER>(j - N)];
+    } else {
+      out[k] = fill;
+    }
+  }
+  if (pr.rank == 0 && i + 2 < n) {
+    // the group has read the row: block 1 may store its use i + 2
+    group_sync<KT>(bar);
+    if (t == 0) st_async(pr.peer_fslot + 4 * q, 0.0f, pr.peer_fbar + 8 * q);
+  }
+}
+
+// The pair's shift by s toward lower j, `fill` past the pair's states
+// (`id`: the shift's halo; a larger shift is the step's i-th of n).
+template <int PER, int KT>
+__device__ __forceinline__ void pair_shift_up(const float (&v)[PER], float (&out)[PER], int s,
+                                              float fill, float* buf, int t, int bar, Pair& pr,
+                                              int id, int i, int n) {
+  if constexpr (PER > 1) {
+    if (s == 1) return pair_shift_up_small<PER, KT, 1>(v, out, fill, buf, t, bar, pr, id);
+  }
+  if constexpr (PER > 2) {
+    if (s == 2) return pair_shift_up_small<PER, KT, 2>(v, out, fill, buf, t, bar, pr, id);
+  }
+  if constexpr (PER > 4) {
+    if (s == 4) return pair_shift_up_small<PER, KT, 4>(v, out, fill, buf, t, bar, pr, id);
+  }
+  if constexpr (PER > 8) {
+    if (s == 8) return pair_shift_up_small<PER, KT, 8>(v, out, fill, buf, t, bar, pr, id);
+  }
+  if constexpr (PER > 16) {
+    if (s == 16) return pair_shift_up_small<PER, KT, 16>(v, out, fill, buf, t, bar, pr, id);
+  }
+  pair_shift_up_big<PER, KT>(v, out, s, fill, buf, t, bar, pr, i, n);
+}
+
+// The pair's sums (SUM) or maxes of two values a thread in one exchange
+// (the backward pass's; its area holds two values a slot, pair_setup<PER,
+// KT, 2>): each warp's a and b into both blocks' slots, a's then b's, each
+// combined as pair_reduce combines one, block 0's warps then block 1's.
+template <bool SUM, int KT>
+__device__ __forceinline__ void pair_reduce2(float& a, float& b, int t, Pair& pr) {
+  constexpr int X = 2 * warps<KT>();
+  a = warp_reduce<SUM>(a);
+  b = warp_reduce<SUM>(b);
+  const int q = pr.xn++ & 1;
+  if ((t & 31) == 0) {
+    const unsigned off = 4 * (2 * q * X + pr.rank * warps<KT>() + (t >> 5));
+    st_async(pr.self_x + off, a, pr.self_xbar + 8 * q);
+    st_async(pr.peer_x + off, a, pr.peer_xbar + 8 * q);
+    st_async(pr.self_x + off + 4 * X, b, pr.self_xbar + 8 * q);
+    st_async(pr.peer_x + off + 4 * X, b, pr.peer_xbar + 8 * q);
+  }
+  if (t == 0) mbar_expect(pr.xbar + 8 * q, 8 * X);
+  mbar_wait(pr.xbar + 8 * q, (pr.xphase >> q) & 1u);
+  pr.xphase ^= 1u << q;
+  const float* x = pr.xslots + 2 * q * X;
+  a = combine_warps<SUM, 2 * KT>(x);
+  b = combine_warps<SUM, 2 * KT>(x + X);
+}
+
 // -- the C-block cluster ------------------------------------------------------
 //
-// Past 256 * 19 = 4864 states (up to kMaxCluster * 2432 = 38,912) the
-// Viterbi template's lazy and filter cases and the Forward template's
-// cases run one sequence on C groups of KT = 128 threads, one in each
+// Past 2 * 2432 = 4864 states (up to kMaxCluster * 2432 = 38,912) the
+// Viterbi template's lazy and filter cases, the Forward template's cases
+// and the backward pass run one sequence on C groups of KT = 128 threads, one in each
 // block of a C-block thread-block cluster (C = ceil(M_pad / 2432), 3..16,
 // read from %cluster_nctarank, so one compiled case of PER serves every
 // C). Block r owns the states r * KT * PER + t * PER + k, the normal-width
@@ -782,15 +955,34 @@ __device__ __forceinline__ bool pair_any(bool v, int t, Pair& pr) {
 // 1, which each sends after its reads of n. Every wait is an mbarrier's,
 // acquire at cluster scope: no release fence and no cluster barrier in a
 // step.
+//
+// The mirror (the backward pass's shifts toward lower j, cluster_shift_up)
+// sends from block r + 1 to block r on the same slots and mbarriers, the
+// last block filling: a shift by S below PER goes from block r + 1's thread
+// 0 into block r's halo; a larger shift by s, with q and s' as above, gives
+// state l of block r state l + s' of block r + q when l + s' < KT * PER,
+// else state l + s' - KT * PER of block r + q + 1, so block b stores its
+// states from s' on into block b - q's row at l - s' (q >= 1; for q = 0
+// they are its own) and the others into block b - q - 1's row at l + KT *
+// PER - s'; a reader releases a row to the blocks that store into it at its
+// next use (rank + q and rank + q + 1 of that use), even when it received
+// nothing. Its reductions (cluster_reduce2) carry two values a warp in one
+// exchange, in the same fixed order. Its slot reuse rests on the backward
+// step's order: every step begins with an exchange that needs every block's
+// value (the coverage and B sums), which each block sends only after its
+// last halo and row read of the step before, so block C - 1, which waits on
+// nobody's halo or row, runs at most one step ahead, and no block stores
+// step n + 1's halos or rows before their readers are done with step n's.
 constexpr int kMaxCluster = 16;
 
 // A block's area: two rows that other blocks' states land in, two
-// exchanges' slots (kMaxCluster blocks' warps), the halos, 4 release slots
-// (2 rows x 2 senders), then the mbarriers (laid out as the pair's).
-template <int PER, int KT>
+// exchanges' slots (kMaxCluster blocks' warps, XV values each), the halos, 4
+// release slots (2 rows x 2 senders), then the mbarriers (laid out as the
+// pair's).
+template <int PER, int KT, int XV = 1>
 __host__ __device__ constexpr int cluster_floats() {
-  return 2 * row_floats<PER, KT>() + 2 * kMaxCluster * warps<KT>() + kHaloIds * kHaloSlots + 4 +
-         2 * kPairBars;
+  return 2 * row_floats<PER, KT>() + XV * 2 * kMaxCluster * warps<KT>() +
+         kHaloIds * kHaloSlots + 4 + 2 * kPairBars;
 }
 
 template <int PER, int KT, bool BF16>
@@ -805,26 +997,27 @@ struct Cluster {
   int col0;    // the block's first state
   int m_real;  // the block's real states
   float* rows;    // [2][row_floats]: the states other blocks store for a larger shift
-  float* xslots;  // [2][kMaxCluster * KT / 32] exchange slots
+  float* xslots;  // [2][XV * kMaxCluster * KT / 32] exchange slots
   float* halo;    // [kHaloIds][kHaloSlots]
   float* fslots;  // [2][2] release slots
   unsigned long long* bars;  // halo 0.., exchange, row, release mbarriers
   unsigned hbar, xbar, rbar, fbar;  // shared addresses of each kind's mbarrier 0
   unsigned next_halo, next_hbar;    // block rank + 1's halos and their mbarriers
+  unsigned prev_halo, prev_hbar;    // block rank - 1's (the mirror's)
   unsigned x_dst, xbar_dst;         // lane p < C: block p's exchange slots and mbarriers
   unsigned hphase, xphase, rphase, fphase;  // each kind's phases, by bit
   int xn;  // exchanges sent
 };
 
-// The cluster's area at `area` (cluster_floats<PER, KT>() floats, 16-byte
-// aligned); thread 0 initialises the mbarriers (the caller fences and
-// synchronises the cluster before anyone arrives on them). `c.rank` and
+// The cluster's area at `area` (cluster_floats<PER, KT, XV>() floats,
+// 16-byte aligned); thread 0 initialises the mbarriers (the caller fences
+// and synchronises the cluster before anyone arrives on them). `c.rank` and
 // `c.nblk` are set.
-template <int PER, int KT>
+template <int PER, int KT, int XV = 1>
 __device__ __forceinline__ void cluster_setup(Cluster& c, float* area, int t) {
   c.rows = area;
   c.xslots = area + 2 * row_floats<PER, KT>();
-  c.halo = c.xslots + 2 * kMaxCluster * warps<KT>();
+  c.halo = c.xslots + XV * 2 * kMaxCluster * warps<KT>();
   c.fslots = c.halo + kHaloIds * kHaloSlots;
   c.bars = reinterpret_cast<unsigned long long*>(c.fslots + 4);
   c.hbar = smem_addr(c.bars);
@@ -837,6 +1030,9 @@ __device__ __forceinline__ void cluster_setup(Cluster& c, float* area, int t) {
   const unsigned next = min(c.rank + 1, c.nblk - 1);
   c.next_halo = peer_addr(c.halo, next);
   c.next_hbar = peer_addr(c.bars, next);
+  const unsigned prev = max(c.rank - 1, 0);
+  c.prev_halo = peer_addr(c.halo, prev);
+  c.prev_hbar = peer_addr(c.bars, prev);
   const unsigned dst = min(t & 31, c.nblk - 1);
   c.x_dst = peer_addr(c.xslots, dst);
   c.xbar_dst = peer_addr(c.bars + kHaloIds, dst);
@@ -1033,6 +1229,183 @@ __device__ __forceinline__ bool cluster_any(bool v, int t, Cluster& c) {
              cluster_send<KT>(__any_sync(kFullMask, v) ? 1.0f : 0.0f, t, c), c) > 0.0f;
 }
 
+// The mirror of cluster_shift_small, toward lower j: out[k] = state j + S
+// of the cluster's row, for S < PER: slots k < PER - S are register moves;
+// the last S come from thread t + 1 through `buf`, in the last thread of
+// block r < C - 1 from block r + 1's thread 0 through halo `id`, in block C
+// - 1's last thread `fill`.
+template <int PER, int KT, int S>
+__device__ __forceinline__ void cluster_shift_up_small(const float (&v)[PER], float (&out)[PER],
+                                                       float fill, float* buf, int t, int bar,
+                                                       Cluster& c, int id) {
+  static_assert(S <= kHaloSlots, "a small shift's halo");
+  constexpr int SP = stride<PER>();
+  if (c.rank > 0 && t == 0) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      st_async(c.prev_halo + 4 * (id * kHaloSlots + k), v[k], c.prev_hbar + 8 * id);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < S; ++k) buf[t * SP + k] = v[k];
+  group_sync<KT>(bar);
+  if (t + 1 < KT) {
+    const int next = (t + 1) * SP;
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[PER - S + k] = buf[next + k];
+  } else if (c.rank + 1 < c.nblk) {
+    mbar_expect(c.hbar + 8 * id, 4 * S);
+    mbar_wait(c.hbar + 8 * id, (c.hphase >> id) & 1u);
+    c.hphase ^= 1u << id;
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[PER - S + k] = c.halo[id * kHaloSlots + k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[PER - S + k] = fill;
+  }
+#pragma unroll
+  for (int k = 0; k < PER - S; ++k) out[k] = v[k + S];
+}
+
+// The mirror's releases, once the group has read row qq of a larger shift,
+// for that row's use with shift s4 (two larger shifts on): to the blocks
+// that will store into it there (thread 0: rank + q, thread 1: rank + q +
+// 1, of s4's q).
+template <int PER, int KT>
+__device__ __forceinline__ void cluster_release_up(int s4, int qq, int t, Cluster& c) {
+  constexpr int N = KT * PER;
+  const int q = s4 / N;
+  const int rest = s4 - q * N;
+  const int to = t == 0 ? (q >= 1 ? c.rank + q : c.nblk) : (rest > 0 ? c.rank + q + 1 : c.nblk);
+  if (t < 2 && to < c.nblk) {
+    st_async(peer_addr(c.fslots + 2 * qq + t, to), 0.0f, peer_addr(c.bars + kHaloIds + 4 + qq, to));
+  }
+}
+
+// The mirror of cluster_shift_big: block r's state l takes state l + s' of
+// block r + q (its own shift buffer for q = 0) when l + s' < KT * PER, else
+// state l + s' - KT * PER of block r + q + 1 (the header says how they get
+// here), `fill` where that block does not exist. `i` is the larger shift's
+// index in this step's n larger shifts.
+template <int PER, int KT>
+__device__ __forceinline__ void cluster_shift_up_big(const float (&v)[PER], float (&out)[PER],
+                                                     int s, float fill, float* buf, int t,
+                                                     int bar, Cluster& c, int i, int n) {
+  constexpr int SP = stride<PER>();
+  constexpr int N = KT * PER;  // a block's states
+  const int qq = i & 1;
+  const int q = s / N;
+  const int rest = s - q * N;
+  // stores to block rank - q (its states from rest on) and rank - q - 1
+  // (the others)
+  const bool to_a = q >= 1 && c.rank - q >= 0;
+  const bool to_b = rest > 0 && c.rank - q - 1 >= 0;
+  if (to_a || to_b) {
+    if (i >= 2) {
+      if (t == 0) mbar_expect(c.fbar + 8 * qq, 4 * (int(to_a) + int(to_b)));
+      mbar_wait(c.fbar + 8 * qq, (c.fphase >> qq) & 1u);
+      c.fphase ^= 1u << qq;
+    }
+    const int dst_a = max(c.rank - q, 0);
+    const int dst_b = max(c.rank - q - 1, 0);
+    const unsigned row_a = peer_addr(c.rows + qq * row_floats<PER, KT>(), dst_a);
+    const unsigned bar_a = peer_addr(c.bars + kHaloIds + 2 + qq, dst_a);
+    const unsigned row_b = peer_addr(c.rows + qq * row_floats<PER, KT>(), dst_b);
+    const unsigned bar_b = peer_addr(c.bars + kHaloIds + 2 + qq, dst_b);
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int j = t * PER + k;
+      if (j >= rest) {
+        if (to_a) st_async(row_a + 4 * sidx<PER>(j - rest), v[k], bar_a);
+      } else if (to_b) {
+        st_async(row_b + 4 * sidx<PER>(j + N - rest), v[k], bar_b);
+      }
+    }
+  }
+  if (q == 0) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) buf[t * SP + k] = v[k];
+  }
+  group_sync<KT>(bar);
+  // what lands here: from block rank + q (q >= 1) and rank + q + 1
+  const bool from_a = q >= 1 && c.rank + q < c.nblk;
+  const bool from_b = rest > 0 && c.rank + q + 1 < c.nblk;
+  if (from_a || from_b) {
+    if (t == 0) mbar_expect(c.rbar + 8 * qq, 4 * ((from_a ? N - rest : 0) + (from_b ? rest : 0)));
+    mbar_wait(c.rbar + 8 * qq, (c.rphase >> qq) & 1u);
+    c.rphase ^= 1u << qq;
+  }
+  const float* row = c.rows + qq * row_floats<PER, KT>();
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int l = t * PER + k;
+    if (l + rest < N) {
+      out[k] = q == 0 ? buf[sidx<PER>(l + rest)] : from_a ? row[sidx<PER>(l)] : fill;
+    } else {
+      out[k] = from_b ? row[sidx<PER>(l)] : fill;
+    }
+  }
+  if (i + 2 < n) {
+    // the group has read the row: its use i + 2 may be stored
+    group_sync<KT>(bar);
+    cluster_release_up<PER, KT>(s << 2, qq, t, c);
+  }
+}
+
+// The cluster's shift by s toward lower j, `fill` past the cluster's
+// states (`id`: the shift's halo; a larger shift is the step's i-th of n).
+template <int PER, int KT>
+__device__ __forceinline__ void cluster_shift_up(const float (&v)[PER], float (&out)[PER], int s,
+                                                 float fill, float* buf, int t, int bar,
+                                                 Cluster& c, int id, int i, int n) {
+  if constexpr (PER > 1) {
+    if (s == 1) return cluster_shift_up_small<PER, KT, 1>(v, out, fill, buf, t, bar, c, id);
+  }
+  if constexpr (PER > 2) {
+    if (s == 2) return cluster_shift_up_small<PER, KT, 2>(v, out, fill, buf, t, bar, c, id);
+  }
+  if constexpr (PER > 4) {
+    if (s == 4) return cluster_shift_up_small<PER, KT, 4>(v, out, fill, buf, t, bar, c, id);
+  }
+  if constexpr (PER > 8) {
+    if (s == 8) return cluster_shift_up_small<PER, KT, 8>(v, out, fill, buf, t, bar, c, id);
+  }
+  if constexpr (PER > 16) {
+    if (s == 16) return cluster_shift_up_small<PER, KT, 16>(v, out, fill, buf, t, bar, c, id);
+  }
+  cluster_shift_up_big<PER, KT>(v, out, s, fill, buf, t, bar, c, i, n);
+}
+
+// The cluster's sums (SUM) or maxes of two values a thread in one exchange
+// (the backward pass's; its area holds two values a slot, cluster_setup<PER,
+// KT, 2>): lane p of each warp stores the warp's a and b into block p's
+// slots, a's then b's; each combined as cluster_collect combines one, block
+// 0's warps first.
+template <bool SUM, int KT>
+__device__ __forceinline__ void cluster_reduce2(float& a, float& b, int t, Cluster& c) {
+  constexpr int X = kMaxCluster * warps<KT>();
+  a = warp_reduce<SUM>(a);
+  b = warp_reduce<SUM>(b);
+  const int q = c.xn++ & 1;
+  if ((t & 31) < c.nblk) {
+    const unsigned off = 4 * (2 * q * X + c.rank * warps<KT>() + (t >> 5));
+    st_async(c.x_dst + off, a, c.xbar_dst + 8 * q);
+    st_async(c.x_dst + off + 4 * X, b, c.xbar_dst + 8 * q);
+  }
+  if (t == 0) mbar_expect(c.xbar + 8 * q, 8 * c.nblk * warps<KT>());
+  mbar_wait(c.xbar + 8 * q, (c.xphase >> q) & 1u);
+  c.xphase ^= 1u << q;
+  const float* x = c.xslots + 2 * q * X;
+  a = combine_warps<SUM, KT>(x);
+  b = combine_warps<SUM, KT>(x + X);
+  for (int r = 1; r < c.nblk; ++r) {
+    const float va = combine_warps<SUM, KT>(x + r * warps<KT>());
+    const float vb = combine_warps<SUM, KT>(x + X + r * warps<KT>());
+    a = SUM ? a + va : fmaxf(a, va);
+    b = SUM ? b + vb : fmaxf(b, vb);
+  }
+}
+
 // How far a group's phases reach: its own block, the cluster pair or a
 // C-block cluster; the block's place there.
 enum class Span { kGroup, kPair, kCluster };
@@ -1066,6 +1439,54 @@ __device__ __forceinline__ float step_reduce(float v, float* red, int t, int bar
     return cluster_reduce<SUM, KT>(v, t, pr);
   } else {
     return group_reduce<SUM, KT>(v, red, t, bar);
+  }
+}
+
+// The backward pass's shift toward lower j (shift_up and its mirrors; `id`
+// as step_shift's) and its reductions: the two sums of a step in one
+// exchange (group_sum2 alone, `red` its 2 * KT / 32 floats), and the
+// rescale max (group_reduce alone; in a cluster the two-value exchange,
+// whose slots the backward pass's area lays out).
+template <int PER, int KT, Span S>
+__device__ __forceinline__ void step_shift_up(const float (&v)[PER], float (&out)[PER], int s,
+                                              float fill, float* buf, int t, int bar,
+                                              Link<S>& pr, int id, int passes) {
+  constexpr int kSmall = small_passes<PER>();
+  if constexpr (S == Span::kPair) {
+    pair_shift_up<PER, KT>(v, out, s, fill, buf, t, bar, pr, id, id - 2 - kSmall,
+                           passes - kSmall);
+  } else if constexpr (S == Span::kCluster) {
+    cluster_shift_up<PER, KT>(v, out, s, fill, buf, t, bar, pr, id, id - 2 - kSmall,
+                              passes - kSmall);
+  } else {
+    shift_up<PER, KT>(v, out, s, fill, buf, t, bar);
+  }
+}
+
+template <int KT, Span S>
+__device__ __forceinline__ void step_sum2(float& a, float& b, float* red, int t, int bar,
+                                          Link<S>& pr) {
+  if constexpr (S == Span::kPair) {
+    pair_reduce2<true, KT>(a, b, t, pr);
+  } else if constexpr (S == Span::kCluster) {
+    cluster_reduce2<true, KT>(a, b, t, pr);
+  } else {
+    group_sum2<KT>(a, b, red, t, bar);
+  }
+}
+
+template <int KT, Span S>
+__device__ __forceinline__ float step_max2(float v, float* red, int t, int bar, Link<S>& pr) {
+  if constexpr (S == Span::kGroup) {
+    return group_reduce<false, KT>(v, red, t, bar);
+  } else {
+    float w = v;
+    if constexpr (S == Span::kPair) {
+      pair_reduce2<false, KT>(v, w, t, pr);
+    } else {
+      cluster_reduce2<false, KT>(v, w, t, pr);
+    }
+    return v;
   }
 }
 
@@ -1125,8 +1546,8 @@ __device__ __forceinline__ void store_row(const float (&v)[PER], float* g, int m
 }
 
 // The step-invariant transition rows as a thread reads them: row q, slot k
-// from the block's staged rows (q < n_trans; always at KT = 128) or from
-// global memory [6, m_pad] (`fill` past m_pad).
+// from the block's staged rows (q < n_trans, which the plan makes all six
+// at KT = 128) or from global memory [6, m_pad] (`fill` past m_pad).
 template <int PER, int KT>
 struct TransRows {
   const float* staged;  // the block's staged rows, at this thread's offset
@@ -1227,11 +1648,9 @@ bool plan_ok(int groups, int grid, int smem_bytes, int n_rows, int n_trans, bool
          smem_bytes <= kMaxSmem;
 }
 
-// Calls fn(Case<per, threads>{}) for the kernel cases a source instantiates:
-// 128 threads with 1..19 states a thread (with_group_case: the Viterbi and
-// Forward templates' sources, whose wider cases are the cluster pair's), and
-// 256 threads with 10..19 (the widths past 128 * 19 = 2432, with_case: the
-// backward source).
+// Calls fn(Case<per, 128>{}) for the kernel cases a source instantiates:
+// 128 threads a group with 1..19 states a thread (every wider case runs on
+// the cluster pair or a C-block cluster).
 #define P7_CASE(P, T) \
   case P:             \
     return fn(Case<P, T>{});
@@ -1262,33 +1681,11 @@ cudaError_t with_group_case(int per, Fn fn) {
       return cudaErrorInvalidValue;
   }
 }
-
-template <template <int, int> class Case, typename Fn>
-cudaError_t with_case(int threads, int per, Fn fn) {
-  if (threads == 128) return with_group_case<Case>(per, fn);
-  if (threads == 256) {
-    switch (per) {
-      P7_CASE(10, 256)
-      P7_CASE(11, 256)
-      P7_CASE(12, 256)
-      P7_CASE(13, 256)
-      P7_CASE(14, 256)
-      P7_CASE(15, 256)
-      P7_CASE(16, 256)
-      P7_CASE(17, 256)
-      P7_CASE(18, 256)
-      P7_CASE(19, 256)
-      default:
-        return cudaErrorInvalidValue;
-    }
-  }
-  return cudaErrorInvalidValue;
-}
 #undef P7_CASE
 
 // Calls fn(Case<per>{}) for the cluster pair's cases (p7_viterbi.cuh,
-// p7_forward_kernel.cu): 128 threads a block, 10..19 states a thread, 2 *
-// 128 * per states a pair.
+// p7_forward_kernel.cu, p7_backward_kernel.cu): 128 threads a block, 10..19
+// states a thread, 2 * 128 * per states a pair.
 #define P7_PAIR_CASE(P) \
   case P:               \
     return fn(Case<P>{});
@@ -1314,8 +1711,9 @@ cudaError_t with_pair_case(int per, Fn fn) {
 constexpr int kPairSlots = 10;  // per-case tables of the pair: [per - 10]
 
 // Calls fn(Case<per>{}) for the C-block cluster's cases (p7_viterbi.cuh,
-// p7_forward_kernel.cu): 128 threads a block, 13..19 states a thread (C >=
-// 3 blocks of 128 * per states cover M_pad > 4864 only from per 13 on).
+// p7_forward_kernel.cu, p7_backward_kernel.cu): 128 threads a block, 13..19
+// states a thread (C >= 3 blocks of 128 * per states cover M_pad > 4864
+// only from per 13 on).
 #define P7_CLUSTER_CASE(P) \
   case P:                  \
     return fn(Case<P>{});
@@ -1337,17 +1735,14 @@ cudaError_t with_cluster_case(int per, Fn fn) {
 #undef P7_CLUSTER_CASE
 constexpr int kClusterSlots = 7;  // per-case tables of the C-block cluster: [per - 13]
 
-// Index of a kernel case in per-case tables: [0, 19) at 128 threads, [19,
-// 29) at 256.
-__host__ inline int case_slot(int threads, int per) {
-  return threads == 128 ? per - 1 : 19 + per - 10;
-}
-constexpr int kCaseSlots = 29;
+// Index of a group case in per-case tables.
+__host__ inline int case_slot(int per) { return per - 1; }
+constexpr int kCaseSlots = 19;
 
 // -- the rows-in-memory case --------------------------------------------------
 //
-// Past 256 * 19 = 4864 states for the eager and log-space kinds and the
-// backward pass, and past 38,912 for the others (up to 65536, the 16-row
+// Past 2 * 2432 = 4864 states for the eager and log-space kinds, and past
+// 38,912 for the others (up to 65536, the 16-row
 // chain), no launch plan here holds the DP rows in registers. One block of
 // kMemThreads threads follows one sequence (G = 1, a persistent grid) and
 // keeps every row in global memory: kMemRows scratch rows of m_pad floats a

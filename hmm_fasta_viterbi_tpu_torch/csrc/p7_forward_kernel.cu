@@ -578,7 +578,7 @@ struct Case {
         !plan_ok<PER, KT, false>(groups, grid, smem, n_trans + a.n_chain, n_trans, save)) {
       return cudaErrorInvalidValue;
     }
-    unsigned& done = smem_set[save][case_slot(KT, PER)];
+    unsigned& done = smem_set[save][case_slot(PER)];
     const cudaError_t err = save ? allow_smem(forward_kernel<PER, KT, true>, device, done)
                                  : allow_smem(forward_kernel<PER, KT, false>, device, done);
     if (err != cudaSuccess) return err;

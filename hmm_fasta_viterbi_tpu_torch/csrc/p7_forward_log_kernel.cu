@@ -27,7 +27,7 @@ struct Case {
       return cudaErrorInvalidValue;
     }
     return launch_planned(viterbi_kernel<PER, KT, false, true, false>, a, device,
-                          smem_set[case_slot(KT, PER)], groups, KT, grid, smem, stream);
+                          smem_set[case_slot(PER)], groups, KT, grid, smem, stream);
   }
 
   static cudaError_t regs(int* out) {

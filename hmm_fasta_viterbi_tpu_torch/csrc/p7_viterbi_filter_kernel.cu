@@ -26,7 +26,7 @@ struct Case {
       return cudaErrorInvalidValue;
     }
     return launch_planned(viterbi_kernel<PER, KT, false, false, true>, a, device,
-                          smem_set[case_slot(KT, PER)], groups, KT, grid, smem, stream);
+                          smem_set[case_slot(PER)], groups, KT, grid, smem, stream);
   }
 
   static cudaError_t regs(int* out) {

@@ -22,7 +22,7 @@ struct Case {
     if (!viterbi_plan_ok<PER, KT, false>(a, lazy, lazy, groups, grid, smem)) {
       return cudaErrorInvalidValue;
     }
-    unsigned& done = smem_set[lazy][case_slot(KT, PER)];
+    unsigned& done = smem_set[lazy][case_slot(PER)];
     return lazy ? launch_planned(viterbi_kernel<PER, KT, true, false, false>, a, device, done,
                                  groups, KT, grid, smem, stream)
                 : launch_planned(viterbi_kernel<PER, KT, false, false, false>, a, device, done,

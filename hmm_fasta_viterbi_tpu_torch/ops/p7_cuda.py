@@ -18,13 +18,11 @@ The counterparts of ``hmm_fasta_viterbi_tpu/ops/pallas_p7.py``:
 The kernels take M_pad up to MAX_KERNEL_STATES = 65536 (the 16-row delete
 chain, as the TPU kernels): groups of KERNEL_THREADS threads a sequence up
 to 2432 states and up to 4864 a pair of such groups, one in each block of a
-2-block thread-block cluster (the eager, lazy, log-space, filter, Forward
-and row-saving Forward cases, PAIR_KINDS), or groups of WIDE_THREADS (the
-posterior backward pass), with the rows in registers; up to
-MAX_CLUSTER_STATES = 38,912 the lazy, filter, Forward and row-saving
-Forward cases (CLUSTER_KINDS) run C such groups, one in each block of a
-C-block cluster (C = ceil(M_pad / 2432), 3..16); past that, and for the
-eager and log-space cases and the backward pass past 4864, the
+2-block thread-block cluster (every case, PAIR_KINDS), with the rows in
+registers; up to MAX_CLUSTER_STATES = 38,912 the lazy, filter, Forward,
+row-saving Forward and posterior backward cases (CLUSTER_KINDS) run C such
+groups, one in each block of a C-block cluster (C = ceil(M_pad / 2432),
+3..16); past that, and for the eager and log-space cases past 4864, the
 rows-in-memory case, MEM_THREADS threads a sequence with its rows in global
 memory (:func:`kernel_case`); the plain versions have no cap.
 
@@ -95,36 +93,34 @@ LAZY_CHUNK = 128
 # group of steps grows the scaled values by at most the largest odds
 # ratio to the power 8, far inside float32's range
 FWD_RESCALE_GROUP = 8
-# threads that follow one sequence in the kernels: KERNEL_THREADS up to
-# KERNEL_THREADS * 19 = 2432 states, WIDE_THREADS up to 4864 (the backward
-# pass; the PAIR_KINDS run two groups of KERNEL_THREADS there, and the
-# CLUSTER_KINDS C of them up to 38,912), each thread owning states t * per ..
-# t * per + per - 1 in registers (csrc/p7_blocked.cuh); past that
-# MEM_THREADS threads a sequence in the rows-in-memory case, thread t
-# handling states t, t + MEM_THREADS, ... of rows kept in MEM_ROWS scratch
-# rows of global memory a block
+# threads that follow one sequence in a group of the kernels: KERNEL_THREADS
+# up to KERNEL_THREADS * 19 = 2432 states (two such groups up to 4864, the
+# cluster pair, and the CLUSTER_KINDS C of them up to 38,912), each thread
+# owning states t * per .. t * per + per - 1 in registers
+# (csrc/p7_blocked.cuh); past that MEM_THREADS threads a sequence in the
+# rows-in-memory case, thread t handling states t, t + MEM_THREADS, ... of
+# rows kept in MEM_ROWS scratch rows of global memory a block
 KERNEL_THREADS = 128
-WIDE_THREADS = 256
 MEM_THREADS = 1024
 MEM_ROWS = 8
-# states per thread: one template case each in csrc/p7_*_kernel.cu, at
-# KERNEL_THREADS (KERNEL_PER) and at WIDE_THREADS (WIDE_PER)
+# states per thread: one template case each in csrc/p7_*_kernel.cu for a
+# group (KERNEL_PER) and for a block of the cluster pair (PAIR_PER)
 KERNEL_PER = tuple(range(1, 20))
-WIDE_PER = tuple(range(10, 20))
+PAIR_PER = tuple(range(10, 20))
 MAX_GROUP_STATES = KERNEL_THREADS * KERNEL_PER[-1]  # 2432 >= 2405, the largest of the 24
-MAX_WIDE_STATES = WIDE_THREADS * WIDE_PER[-1]  # 4864
+MAX_WIDE_STATES = 2 * MAX_GROUP_STATES  # 4864: the cluster pair's
 MAX_KERNEL_STATES = 1 << 16  # 65536: the 16 rows of the delete chain
 
 # the blocked kernels' launch plan (csrc/p7_blocked.cuh): at most
-# MAX_BLOCK_THREADS threads a block (MAX_GROUPS groups of KERNEL_THREADS, 4
-# of WIDE_THREADS), one sequence a group, on named barriers 1..8; an SM's
-# registers and threads
+# MAX_BLOCK_THREADS threads a block (MAX_GROUPS groups of KERNEL_THREADS),
+# one sequence a group, on named barriers 1..8; an SM's registers and
+# threads
 MAX_BLOCK_THREADS = 1024
 MAX_GROUPS = MAX_BLOCK_THREADS // KERNEL_THREADS
 REGS_PER_SM = 65536
 THREADS_PER_SM = 2048
 # transition rows a blocked kernel reads every step (tmm tmi tmd tim tii
-# tdm); the plan stages all of them at KERNEL_THREADS
+# tdm); the plan stages all of them
 TRANS_ROWS = 6
 # the backward pass's cases held to 128 registers (__launch_bounds__ of
 # BOUNDED_THREADS, csrc/p7_backward_kernel.cu::backward_case): these slots
@@ -136,14 +132,14 @@ BOUNDED_THREADS = 512
 # emission rows as bf16; the posterior backward pass its suffix chain, its
 # saved bf16 rows and its chunk's log scales and coverage
 BLOCKED_KINDS = ("eager", "lazy", "log", "forward", "save", "filter", "backward")
-# the kinds whose wide case (KERNEL_THREADS * 19 < M_pad <= WIDE_THREADS *
-# 19) runs on the cluster pair: the Viterbi template's
-# (csrc/p7_viterbi.cuh) and the Forward template's
-# (csrc/p7_forward_kernel.cu); CLUSTER blocks of one group of KERNEL_THREADS
+# the kinds whose wide case (MAX_GROUP_STATES < M_pad <= MAX_WIDE_STATES)
+# runs on the cluster pair: the Viterbi template's (csrc/p7_viterbi.cuh),
+# the Forward template's (csrc/p7_forward_kernel.cu) and the backward
+# pass's (csrc/p7_backward_kernel.cu, whose shifts toward lower j run on the
+# pair's mirror primitives); CLUSTER blocks of one group of KERNEL_THREADS
 # threads, block r owning states r * KERNEL_THREADS * per .. (r + 1) *
-# KERNEL_THREADS * per - 1. The backward pass's wide case keeps one group of
-# WIDE_THREADS.
-PAIR_KINDS = ("eager", "lazy", "log", "filter", "forward", "save")
+# KERNEL_THREADS * per - 1
+PAIR_KINDS = ("eager", "lazy", "log", "filter", "forward", "save", "backward")
 CLUSTER = 2
 # a pair block's exchange area (csrc/p7_blocked.cuh::pair_floats) beside
 # its two rows of block 0's states, in floats: two exchanges' slots (a value
@@ -151,18 +147,23 @@ CLUSTER = 2
 # passes), 4 release slots, 24 mbarriers of 8 bytes
 PAIR_HALOS = 18
 PAIR_FLOATS = 2 * 2 * (KERNEL_THREADS // 32) + PAIR_HALOS * 16 + 4 + 2 * (PAIR_HALOS + 6)
+# the backward pass's exchanges carry two values a warp (its coverage and B
+# sums in one, csrc/p7_blocked.cuh::pair_reduce2): its pair area holds these
+# floats more
+PAIR_X2_FLOATS = 2 * 2 * (KERNEL_THREADS // 32)
 # the kinds whose cases past MAX_WIDE_STATES, up to MAX_CLUSTER_STATES, run on
 # C-block clusters (csrc/p7_blocked.cuh): the Viterbi template's lazy and
-# filter cases (viterbi_cluster_kernel) and the Forward template's
-# (forward_cluster_kernel); C = ceil(M_pad / MAX_GROUP_STATES) blocks of one
-# group of KERNEL_THREADS threads, block r owning states r * KERNEL_THREADS *
-# per .., per the CLUSTER_PER case that covers M_pad. The eager and
+# filter cases (viterbi_cluster_kernel), the Forward template's
+# (forward_cluster_kernel) and the backward pass (backward_cluster_kernel);
+# C = ceil(M_pad / MAX_GROUP_STATES) blocks of one group of KERNEL_THREADS
+# threads, block r owning states r * KERNEL_THREADS * per .., per the
+# CLUSTER_PER case that covers M_pad. The eager and
 # log-space kinds stay in memory there: they run the whole chain every
 # step, whose larger shifts cost about 1.7 us each on 128-thread blocks
 # (the pair's eager step 17.4 us, log-space 65.6 us, against the
 # rows-in-memory case's 29.4 and 57.1 at LENG 6977; PERF.md), so two rounds
 # of clusters at 64 rows would be slower than today's case.
-CLUSTER_KINDS = ("lazy", "filter", "forward", "save")
+CLUSTER_KINDS = ("lazy", "filter", "forward", "save", "backward")
 MAX_CLUSTER = 16
 MAX_CLUSTER_STATES = MAX_CLUSTER * MAX_GROUP_STATES  # 38,912
 CLUSTER_PER = tuple(range(13, 20))  # C >= 3 blocks past 4864 states need per >= 13
@@ -170,6 +171,8 @@ CLUSTER_PER = tuple(range(13, 20))  # C >= 3 blocks past 4864 states need per >=
 # beside its two rows, in floats: two exchanges' slots (a value a warp of up
 # to MAX_CLUSTER blocks), the pair's halos, release slots and mbarriers
 CLUSTER_FLOATS = PAIR_FLOATS + 2 * (MAX_CLUSTER - 2) * (KERNEL_THREADS // 32)
+# ... and the backward pass's second value a slot there
+CLUSTER_X2_FLOATS = 2 * MAX_CLUSTER * (KERNEL_THREADS // 32)
 
 # auto-picked lazy window and truncated prob-space chain: the constants of
 # pallas_p7 (LAZY_TAIL_DAMP_NATS, PROB_CHAIN_L_MAX, PROB_CHAIN_REL_ERR)
@@ -832,23 +835,24 @@ def _kernel_library() -> ctypes.CDLL:
         *tail,
     ]
     lib.p7_backward_launch.argtypes = [
-        c, c, c, p, p, p, p, c, c, c, c, c, p, c, p, p, p, p, p, p, p, *tail,
+        c, c, c, c, p, p, p, p, c, c, c, c, c, p, c, p, p, p, p, p, p, p, *tail,
     ]
     regs = ctypes.POINTER(c)
     lib.p7_viterbi_regs.argtypes = [c, c, c, c, regs]
     lib.p7_forward_log_regs.argtypes = [c, c, c, regs]
     lib.p7_forward_regs.argtypes = [c, c, c, c, regs]
     lib.p7_filter_regs.argtypes = [c, c, c, regs]
-    lib.p7_backward_regs.argtypes = [c, c, regs]
+    lib.p7_backward_regs.argtypes = [c, c, c, regs]
     lib.p7_viterbi_clusters.argtypes = [c, c, c, c, c, regs]
     lib.p7_forward_log_clusters.argtypes = [c, c, c, regs]
     lib.p7_filter_clusters.argtypes = [c, c, c, c, regs]
     lib.p7_forward_clusters.argtypes = [c, c, c, c, c, regs]
+    lib.p7_backward_clusters.argtypes = [c, c, c, c, regs]
     for fn in (lib.p7_viterbi_launch, lib.p7_forward_launch, lib.p7_forward_log_launch,
                lib.p7_filter_launch, lib.p7_backward_launch, lib.p7_viterbi_regs,
                lib.p7_forward_log_regs, lib.p7_forward_regs, lib.p7_filter_regs,
                lib.p7_backward_regs, lib.p7_viterbi_clusters, lib.p7_forward_log_clusters,
-               lib.p7_filter_clusters, lib.p7_forward_clusters):
+               lib.p7_filter_clusters, lib.p7_forward_clusters, lib.p7_backward_clusters):
         fn.restype = c
     lib.msv_error_string.argtypes = [c]
     lib.msv_error_string.restype = ctypes.c_char_p
@@ -856,27 +860,30 @@ def _kernel_library() -> ctypes.CDLL:
 
 
 def cluster_blocks(m_pad: int, kind: str | None = None) -> int:
-    """C, the blocks of the C-block cluster that runs ``kind``'s case of
-    ``m_pad`` states (ceil(m_pad / MAX_GROUP_STATES), 3..MAX_CLUSTER: the
-    CLUSTER_KINDS past MAX_WIDE_STATES up to MAX_CLUSTER_STATES), else 1."""
+    """The blocks of the thread-block cluster that runs ``kind``'s case of
+    ``m_pad`` states: CLUSTER (the pair) from MAX_GROUP_STATES to
+    MAX_WIDE_STATES, where every kind runs it (PAIR_KINDS; ``kind`` None
+    too); C = ceil(m_pad / MAX_GROUP_STATES), 3..MAX_CLUSTER, for the
+    CLUSTER_KINDS past that up to MAX_CLUSTER_STATES; else 1."""
+    if MAX_GROUP_STATES < m_pad <= MAX_WIDE_STATES and (kind is None or kind in PAIR_KINDS):
+        return CLUSTER
     if kind in CLUSTER_KINDS and MAX_WIDE_STATES < m_pad <= MAX_CLUSTER_STATES:
         return -(-m_pad // MAX_GROUP_STATES)
     return 1
 
 
 def kernel_case(m_pad: int, kind: str | None = None) -> tuple[int, int]:
-    """``(threads, per)``: the kernel case of ``m_pad`` states, KERNEL_THREADS
-    threads a sequence up to MAX_GROUP_STATES and WIDE_THREADS up to
-    MAX_WIDE_STATES, each thread holding ``per`` states in registers; past
-    that a CLUSTER_KINDS ``kind`` runs KERNEL_THREADS threads in each block
-    of a C-block cluster up to MAX_CLUSTER_STATES (:func:`cluster_blocks`,
-    ``per`` of CLUSTER_PER), and every other case the rows-in-memory case,
+    """``(threads, per)``: the kernel case of ``m_pad`` states, a group of
+    KERNEL_THREADS threads a sequence up to MAX_GROUP_STATES and one in each
+    block of the cluster pair up to MAX_WIDE_STATES, each thread holding
+    ``per`` states in registers; past that a CLUSTER_KINDS ``kind`` runs
+    KERNEL_THREADS threads in each block of a C-block cluster up to
+    MAX_CLUSTER_STATES (:func:`cluster_blocks`, ``per`` of CLUSTER_PER), and
+    every other case (``kind`` None included) the rows-in-memory case,
     MEM_THREADS threads walking ``per`` tiles of MEM_THREADS states. Raises
     ``ValueError`` past MAX_KERNEL_STATES."""
     if m_pad <= MAX_GROUP_STATES:
         return KERNEL_THREADS, max(-(-m_pad // KERNEL_THREADS), 1)
-    if m_pad <= MAX_WIDE_STATES:
-        return WIDE_THREADS, -(-m_pad // WIDE_THREADS)
     c = cluster_blocks(m_pad, kind)
     if c > 1:
         return KERNEL_THREADS, -(-m_pad // (KERNEL_THREADS * c))
@@ -909,8 +916,7 @@ def bf16_stride(per: int) -> int:
 
 
 def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
-                       threads: int = KERNEL_THREADS, bf16: bool = False,
-                       backward: bool = False, pair: bool = False,
+                       bf16: bool = False, backward: bool = False, pair: bool = False,
                        cluster: bool = False) -> int:
     """Dynamic shared memory of a blocked kernel's block
     (``csrc/p7_blocked.cuh::smem_floats``): ``n_rows`` staged rows, then
@@ -923,7 +929,10 @@ def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
     ``pair``, a block of the cluster pair (``pair_smem_floats``): its one
     group and the pair's exchange area (two rows and PAIR_FLOATS); with
     ``cluster``, a block of a C-block cluster (``cluster_smem_floats``): two
-    rows and CLUSTER_FLOATS, whatever C is."""
+    rows and CLUSTER_FLOATS, whatever C is; the backward pass's area has a
+    second value a slot (PAIR_X2_FLOATS, CLUSTER_X2_FLOATS more,
+    ``csrc/p7_backward_kernel.cu::backward_smem_floats``)."""
+    threads = KERNEL_THREADS
     row = threads * blocked_stride(per)
     hrow = threads * bf16_stride(per) // 2
     if backward:
@@ -931,7 +940,11 @@ def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
     else:
         erow = hrow if bf16 else row
         group = 2 * row + 4 * erow + 2 * (threads // 32) + LAZY_CHUNK // 4 + (row if save else 0)
-    area = 2 * row + PAIR_FLOATS if pair else 2 * row + CLUSTER_FLOATS if cluster else 0
+    area = 0
+    if pair:
+        area = 2 * row + PAIR_FLOATS + (PAIR_X2_FLOATS if backward else 0)
+    elif cluster:
+        area = 2 * row + CLUSTER_FLOATS + (CLUSTER_X2_FLOATS if backward else 0)
     return 4 * (n_rows * row + groups * group + area)
 
 
@@ -990,13 +1003,12 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     ``regs`` registers a thread on a card of ``sms`` multiprocessors.
 
     Every transition row and every chain row the case runs is staged unless
-    that leaves no room for one group: then the last chain rows, and after
-    them (only at WIDE_THREADS) the last transition rows, stay in global
-    memory. ``groups`` None picks 1 for a batch no larger than ``sms`` (a
+    that leaves no room for one group: then the last chain rows stay in
+    global memory. ``groups`` None picks 1 for a batch no larger than ``sms`` (a
     survivor batch runs one sequence an SM, at one step's latency), else
     as many as registers, shared memory (at most SMEM_PER_SM bytes a block)
     and MAX_BLOCK_THREADS allow, but no more than ``ceil(b_pad / sms)``; a
-    given ``groups`` must fit. The PAIR_KINDS past MAX_GROUP_STATES run the
+    given ``groups`` must fit. Every kind past MAX_GROUP_STATES runs the
     cluster pair, and the CLUSTER_KINDS past MAX_WIDE_STATES a C-block
     cluster (:func:`cluster_blocks`): KERNEL_THREADS threads and one group a
     block, each block of the cluster staging its slice of every row that
@@ -1015,7 +1027,7 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     if not 1 <= passes <= chain_passes(m_pad):
         raise ValueError(f"{passes} chain passes outside 1..{chain_passes(m_pad)}")
     c = cluster_blocks(m_pad, kind)
-    if c > 1 and clusters == 0:  # the card holds no cluster of C blocks
+    if c > CLUSTER and clusters == 0:  # the card holds no cluster of C blocks
         c, (kt, per) = 1, kernel_case(m_pad)
     warp_regs = round_up(max(int(regs), 1), 8) * 32  # allocated by the warp, 8 at a time
     if kt == MEM_THREADS:
@@ -1028,51 +1040,46 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     save = kind == "save"
     bf16 = kind == "filter"
     backward = kind == "backward"
-    pair = kind in PAIR_KINDS and kt == WIDE_THREADS
-    if pair:
-        kt, c = KERNEL_THREADS, CLUSTER
 
-    def smem(n_trans, n_chain, g):
-        return blocked_smem_bytes(per, n_trans + n_chain + extra, g, save, kt, bf16, backward,
-                                  pair, c > CLUSTER)
+    def smem(n_chain, g):
+        return blocked_smem_bytes(per, TRANS_ROWS + n_chain + extra, g, save, bf16, backward,
+                                  c == CLUSTER, c > CLUSTER)
 
-    n_trans, n_chain = TRANS_ROWS, passes
-    while n_chain > 0 and smem(n_trans, n_chain, 1) > SMEM_PER_SM:
+    n_chain = passes
+    while n_chain > 0 and smem(n_chain, 1) > SMEM_PER_SM:
         n_chain -= 1
-    while n_trans > 0 and smem(n_trans, n_chain, 1) > SMEM_PER_SM:
-        n_trans -= 1
-    bounded = backward and kt == KERNEL_THREADS and per in BACKWARD_BOUNDED_PER
+    bounded = backward and c == 1 and per in BACKWARD_BOUNDED_PER
     block_threads = BOUNDED_THREADS if bounded else MAX_BLOCK_THREADS
     by_regs = REGS_PER_SM // (warp_regs * (kt // 32))
     if c > 1:
         if groups not in (None, 1):
             what = "cluster pair" if c == CLUSTER else f"{c}-block cluster"
             raise ValueError(f"{groups} groups a block: the {kind} kernel's {what} takes 1")
-        nbytes = smem(n_trans, n_chain, 1)
+        nbytes = smem(n_chain, 1)
         if clusters is None:
             per_sm = max(1, min(by_regs, SMEM_PER_SM // nbytes, THREADS_PER_SM // kt))
             clusters = max(1, sms * per_sm // c)
         units = max(1, min(b_pad, clusters))
-        return LaunchPlan(1, c * units, n_chain, nbytes, 1, kt, n_trans, c, per)
+        return LaunchPlan(1, c * units, n_chain, nbytes, 1, kt, TRANS_ROWS, c, per)
     by_smem = 0
-    while (by_smem + 1) * kt <= block_threads and smem(n_trans, n_chain, by_smem + 1) <= SMEM_PER_SM:
+    while (by_smem + 1) * kt <= block_threads and smem(n_chain, by_smem + 1) <= SMEM_PER_SM:
         by_smem += 1
     most = min(block_threads // kt, by_regs, by_smem)
     if most < 1:
         raise ValueError(
             f"the {kind} kernel at M_pad = {m_pad} does not fit one group in a block "
-            f"({regs} registers a thread, {smem(n_trans, n_chain, 1)} bytes of shared memory)"
+            f"({regs} registers a thread, {smem(n_chain, 1)} bytes of shared memory)"
         )
     if groups is None:
         groups = 1 if b_pad <= sms else min(most, -(-b_pad // sms))
     elif not 1 <= groups <= most:
         raise ValueError(f"{groups} groups a block: the {kind} kernel takes 1..{most} here")
-    nbytes = smem(n_trans, n_chain, groups)
+    nbytes = smem(n_chain, groups)
     threads = groups * kt
     per_sm = max(1, min(REGS_PER_SM // (warp_regs * threads // 32),
                         SMEM_PER_SM // nbytes, THREADS_PER_SM // threads))
     grid = max(1, min(-(-b_pad // groups), sms * per_sm))
-    return LaunchPlan(groups, grid, n_chain, nbytes, most, kt, n_trans, 1, per)
+    return LaunchPlan(groups, grid, n_chain, nbytes, most, kt, TRANS_ROWS, 1, per)
 
 
 @functools.cache
@@ -1089,7 +1096,7 @@ def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS, cluster: int
     elif kind == "filter":
         rc = lib.p7_filter_regs(threads, per, cluster, ctypes.byref(out))
     elif kind == "backward":
-        rc = lib.p7_backward_regs(threads, per, ctypes.byref(out))
+        rc = lib.p7_backward_regs(threads, per, cluster, ctypes.byref(out))
     else:
         rc = lib.p7_forward_regs(threads, per, cluster, int(kind == "save"), ctypes.byref(out))
     if rc != 0:
@@ -1116,6 +1123,8 @@ def max_clusters(kind: str, per: int, smem: int, index: int, cluster: int = CLUS
     elif kind in ("forward", "save"):
         rc = lib.p7_forward_clusters(index, per, cluster, int(kind == "save"), smem,
                                      ctypes.byref(out))
+    elif kind == "backward":
+        rc = lib.p7_backward_clusters(index, per, cluster, smem, ctypes.byref(out))
     else:
         rc = lib.p7_filter_clusters(index, per, cluster, smem, ctypes.byref(out))
     if rc != 0 or out.value < (1 if cluster == CLUSTER else 0):
@@ -1144,8 +1153,6 @@ def device_plan(kind: str, m_pad: int, passes: int, b_pad: int, device,
     index = torch.device(device).index or 0
     threads, per = kernel_case(m_pad, kind)
     c = cluster_blocks(m_pad, kind)
-    if kind in PAIR_KINDS and threads == WIDE_THREADS:
-        c = CLUSTER
     if c > 1:
         regs = kernel_regs(kind, per, KERNEL_THREADS, c)
         plan = plan_launch(kind, m_pad, passes, b_pad, regs, _sm_count(index), groups)
@@ -1170,11 +1177,9 @@ def mem_scratch(plan: LaunchPlan, m_pad: int, device) -> torch.Tensor | None:
 
 def launched(wrapper, plan: LaunchPlan) -> None:
     """Count a launch of ``wrapper``'s kernel on ``plan``: apart for the
-    wide cases (WIDE_THREADS and the cluster pair), the rows-in-memory case
-    and, by its blocks a cluster, the cluster pair and the C-block
-    clusters."""
-    count_launch(wrapper, plan.threads == WIDE_THREADS or plan.cluster == CLUSTER,
-                 plan.threads == MEM_THREADS, plan.cluster)
+    wide case (the cluster pair), the rows-in-memory case and, by its blocks
+    a cluster, the cluster pair and the C-block clusters."""
+    count_launch(wrapper, plan.cluster == CLUSTER, plan.threads == MEM_THREADS, plan.cluster)
 
 
 def _ptr(t):

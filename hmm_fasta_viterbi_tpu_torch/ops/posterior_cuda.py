@@ -170,7 +170,9 @@ def forward_save_scan_cuda(modds, iodds, trans, chain, tokens, lengths, tr_rows,
 def backward_coverage_scan_cuda(modds, iodds, trans, schain, tokens, lengths, tr_probs,
                                 consts, total, fm, ls, groups: int | None = None):
     """Launch ``csrc/p7_backward_kernel.cu`` (the backward case of the
-    blocked p7 layout); same arguments and result as
+    blocked p7 layout: groups a block, the cluster pair past 2432 states, a
+    C-block cluster past 4864, the rows-in-memory case past 38,912 or where
+    the card holds no such cluster); same arguments and result as
     :func:`backward_coverage_scan`; ``groups`` sequences a block, None for
     ``p7_cuda.plan_launch``'s pick. Raises on what the kernel does not take
     and on a refused launch; never falls back."""
@@ -202,7 +204,7 @@ def backward_coverage_scan_cuda(modds, iodds, trans, schain, tokens, lengths, tr
         plan = p7_cuda.device_plan("backward", m_pad, window, b_pad, device, groups)
         scratch = p7_cuda.mem_scratch(plan, m_pad, device)
         rc = p7_cuda._kernel_library().p7_backward_launch(
-            device.index, plan.threads, plan.per, modds.data_ptr(),
+            device.index, plan.threads, plan.per, plan.cluster, modds.data_ptr(),
             iodds.data_ptr(), trans.data_ptr(), schain.data_ptr(), m_pad, window, plan.n_chain,
             plan.n_trans, p7_cuda.FWD_RESCALE_GROUP, tokens.data_ptr(), l_pad,
             lengths.data_ptr(), tr_probs.data_ptr(), consts.data_ptr(), total.data_ptr(),
@@ -215,8 +217,8 @@ def backward_coverage_scan_cuda(modds, iodds, trans, schain, tokens, lengths, tr
 
 
 # kernel launches in this process, those of them in a wide case (the
-# Forward's cluster pair, the backward pass's WIDE_THREADS group), those of
-# the rows-in-memory case, and those in clusters by blocks a cluster
+# cluster pair), those of the rows-in-memory case, and those in clusters by
+# blocks a cluster
 for _fn in (forward_save_scan_cuda, backward_coverage_scan_cuda):
     zero_launches(_fn)
 

@@ -305,32 +305,27 @@ def test_p7_scans_never_fall_back(monkeypatch):
 
 def test_p7_kernels_support_every_profile(all_profile_paths):
     """Every profile's p7 pack (JAX M_pad convention) fits the p7 kernels'
-    threads, and the thread counts match the C++ switches: the backward
-    source takes 128 and 256 threads (with_case), the Viterbi and Forward
-    templates' sources 128 and the cluster pair's cases (with_group_case,
+    threads, and the thread counts match the C++ switches: every source
+    takes 128 threads a group and the cluster pair's cases (with_group_case,
     with_pair_case), and the C-block cluster's cases those of the sources
-    whose kinds run it (with_cluster_case: the lazy Viterbi, the filter and
-    the Forward template's sources)."""
+    whose kinds run it (with_cluster_case: the lazy Viterbi, the filter,
+    the Forward template's and the backward pass's sources)."""
     from hmm_fasta_viterbi_tpu_torch import P7Profile, parse_hmm
 
     cases = [(p7_cuda.KERNEL_THREADS, per) for per in p7_cuda.KERNEL_PER]
-    cases += [(p7_cuda.WIDE_THREADS, per) for per in p7_cuda.WIDE_PER]
     source = (_build.CSRC_DIR / "p7_blocked.cuh").read_text()
     assert all(f"P7_CASE({per}, {threads})" in source for threads, per in cases)
-    assert all(f"P7_PAIR_CASE({per})" in source for per in p7_cuda.WIDE_PER)
+    assert all(f"P7_PAIR_CASE({per})" in source for per in p7_cuda.PAIR_PER)
     assert all(f"P7_CLUSTER_CASE({per})" in source for per in p7_cuda.CLUSTER_PER)
     assert f"kMemThreads = {p7_cuda.MEM_THREADS};" in source
     assert f"kMemRows = {p7_cuda.MEM_ROWS};" in source
     for name in ("p7_viterbi_kernel.cu", "p7_forward_kernel.cu", "p7_viterbi_filter_kernel.cu",
                  "p7_forward_log_kernel.cu", "p7_backward_kernel.cu"):
         source = (_build.CSRC_DIR / name).read_text()
-        if name == "p7_backward_kernel.cu":
-            assert "with_case<Case>(threads, per" in source
-        else:
-            assert "with_group_case<Case>(per" in source
-            assert "with_pair_case<PairCase>(per" in source
+        assert "with_group_case<Case>(per" in source
+        assert "with_pair_case<PairCase>(per" in source
         clustered = name in ("p7_viterbi_kernel.cu", "p7_forward_kernel.cu",
-                             "p7_viterbi_filter_kernel.cu")
+                             "p7_viterbi_filter_kernel.cu", "p7_backward_kernel.cu")
         assert ("with_cluster_case<ClusterCase>(per" in source) == clustered
         assert "if (threads == kMemThreads)" in source
     for path in all_profile_paths:

@@ -380,12 +380,13 @@ def test_convert_round_trips(profile_dir):
                                        (2440, 10), (2704, 11), (4776, 19), (4864, 19),
                                        (4872, 5), (6984, 7), (30184, 30), (65536, 64)])
 def test_kernel_states_per_thread(m_pad, per):
-    """128 threads a sequence up to 2432 states, 256 up to 4864, the
-    rows-in-memory case (1024 threads, ``per`` tiles of 1024 states) up to
-    65536."""
+    """128 threads a sequence up to 2432 states, 128 in each block of the
+    cluster pair up to 4864, and, whatever the kind, the rows-in-memory case
+    (1024 threads, ``per`` tiles of 1024 states) up to 65536."""
     assert p7_cuda.kernel_per(m_pad) == per
-    threads = 128 if m_pad <= 2432 else 256 if m_pad <= 4864 else p7_cuda.MEM_THREADS
+    threads = 128 if m_pad <= 4864 else p7_cuda.MEM_THREADS
     assert p7_cuda.kernel_case(m_pad) == (threads, per)
+    assert p7_cuda.cluster_blocks(m_pad) == (2 if 2432 < m_pad <= 4864 else 1)
 
 
 def test_kernel_limit_names_itself():

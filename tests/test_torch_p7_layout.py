@@ -7,28 +7,32 @@ checked on the CPU: the kernels themselves run only on the card.
   bijection whose 32 neighbouring threads hit 32 banks.
 * The shifts as the kernels do them (``shift_small``: register moves plus
   the previous thread's last s slots; ``shift_big``: the row read at
-  j - s) equal ``p7_cuda._shift`` for every per 1..19 and s = 2^p.
-* The same at the wide case's 256 threads a group (per 10..19, M_pad up to
-  4864), and the Viterbi filter's bf16 emission rows (``hstride``).
-* The cluster pair (the Viterbi template's wide case: two blocks of 128
-  threads, block r owning states r * 128 * per ..): its state map is a
-  bijection, its shifts (``pair_shift_small``, ``pair_shift_big``: block
-  1's first states read from block 0's shift buffer) equal
-  ``p7_cuda._shift`` for every per 10..19 and s = 2^p, and its plan stages
-  every row that fits in a block, one group a block, an even grid.
-* The C-block cluster (the lazy, filter and Forward kinds past 4864
-  states: C blocks of 128 threads, C = 3..16): its state map is a
+  j - s) equal ``p7_cuda._shift`` for every per 1..19 and s = 2^p, and the
+  Viterbi filter's bf16 emission rows (``hstride``) read without conflicts.
+* The cluster pair (every kind's wide case: two blocks of 128 threads,
+  block r owning states r * 128 * per ..): its state map is a bijection,
+  its shifts (``pair_shift_small``, ``pair_shift_big``: block 1's first
+  states read from block 0's shift buffer) equal ``p7_cuda._shift`` for
+  every per 10..19 and s = 2^p, and its plan stages every row that fits in
+  a block, one group a block, an even grid.
+* The C-block cluster (the lazy, filter, Forward and backward kinds past
+  4864 states: C blocks of 128 threads, C = 3..16): its state map is a
   bijection, each block's slice in the normal-width layout, and its shifts
   (``cluster_shift_small``: halos from block r - 1; ``cluster_shift_big``:
   a block's states from the blocks q and q + 1 below it, q = s div (128 *
   per)) equal ``p7_cuda._shift`` for every pass of its chain and both
   fills; its plan takes C = ceil(M_pad / 2432) blocks, one group each.
+* The mirrors toward lower j (the backward pass's, ``pair_shift_up``,
+  ``cluster_shift_up``: halos and rows from block r + 1, the blocks q and q
+  + 1 above) equal ``posterior_cuda._up`` for every per of the pair
+  (10..19) and the C-block cluster (13..19), every C of 2..16 and every
+  pass of the chain, q >= 1 included; every receiving block is sent the
+  bytes it waits for, and every release a sender waits for is sent.
 * ``plan_launch`` keeps every case within the block's shared memory and the
   SM's registers, picks G = 1 up to one sequence an SM, leaves chain rows
-  and then (at 256 threads) transition rows in global memory when a group
-  would not fit, runs the rows-in-memory case (1024 threads, one sequence
-  a block, nothing staged) past M_pad 4864 for the eager and log-space
-  kinds and the backward pass and past 38,912 for every kind, and raises
+  in global memory when a group would not fit, runs the rows-in-memory case
+  (1024 threads, one sequence a block, nothing staged) past M_pad 4864 for
+  the eager and log-space kinds and past 38,912 for every kind, and raises
   past 65536.
 * The backward coverage pass's suffix shifts (``shift_up_small``,
   ``shift_up_big``) equal ``posterior_cuda._up``, and its group layout
@@ -47,9 +51,8 @@ from hmm_fasta_viterbi_tpu_torch.ops.msv_cuda import SMEM_PER_SM
 
 PERS = p7_cuda.KERNEL_PER
 THREADS = p7_cuda.KERNEL_THREADS
-WIDE = p7_cuda.WIDE_THREADS
-# every kernel case: (threads, per)
-CASES = [(THREADS, per) for per in PERS] + [(WIDE, per) for per in p7_cuda.WIDE_PER]
+# every group case: (threads, per)
+CASES = [(THREADS, per) for per in PERS]
 SMS = 132  # the H100 SXM's multiprocessors
 REGS = (32, 64, 96, 118, 128, 155, 188, 255)
 BATCHES = (1, 33, 64, 132, 133, 1024, 4096, 16384)
@@ -108,11 +111,6 @@ def _check_row_index(per: int, threads: int) -> None:
 @pytest.mark.parametrize("per", PERS)
 def test_shared_row_index_is_a_conflict_free_bijection(per):
     _check_row_index(per, THREADS)
-
-
-@pytest.mark.parametrize("per", p7_cuda.WIDE_PER)
-def test_wide_shared_row_index_is_a_conflict_free_bijection(per):
-    _check_row_index(per, WIDE)
 
 
 def _kernel_pair_shift(x: torch.Tensor, s: int, per: int, fill: float) -> torch.Tensor:
@@ -271,19 +269,14 @@ def test_kernel_shifts_equal_the_plain_shift(per):
     _check_shifts(per, THREADS)
 
 
-@pytest.mark.parametrize("per", p7_cuda.WIDE_PER)
-def test_wide_kernel_shifts_equal_the_plain_shift(per):
-    _check_shifts(per, WIDE)
-
-
-@pytest.mark.parametrize("per", p7_cuda.WIDE_PER)
+@pytest.mark.parametrize("per", p7_cuda.PAIR_PER)
 def test_pair_shifts_equal_the_plain_shift(per):
     """The cluster pair's shifts, across the cluster included, for every
     Hillis-Steele pass s = 2^p of 2 * 128 * per states."""
     _check_shifts(per, THREADS, cluster=2)
 
 
-@pytest.mark.parametrize("per", p7_cuda.WIDE_PER)
+@pytest.mark.parametrize("per", p7_cuda.PAIR_PER)
 def test_pair_state_map_is_a_bijection(per):
     """State j of the cluster pair sits in (block, thread, slot) with j =
     block * 128 * per + thread * per + slot: every state of the 2 * 128 *
@@ -320,6 +313,191 @@ def test_cluster_state_map_is_a_bijection(c):
             assert b * n + t * per + k == j and divmod(j - b * n, per) == (t, k)
         with pytest.raises(ValueError):
             p7_cuda.cluster_state(c * n, per, c)
+
+
+def _small(s: int, per: int) -> bool:
+    """A shift by s moves registers and a halo (by 1, 2, 4, 8, 16 below per)."""
+    return s < per and s in (1, 2, 4, 8, 16)
+
+
+def _kernel_pair_shift_up(x: torch.Tensor, s: int, per: int, fill: float) -> torch.Tensor:
+    """csrc/p7_blocked.cuh::pair_shift_up on a [B, 2 * 128 * per] row: for s
+    < per (by 1, 2, 4, 8, 16) slots k < per - s move within the thread and
+    the last s come from thread t + 1's first s through the block's shift
+    buffer, in block 0's thread 127 from the halo block 1's thread 0 stores
+    its first s registers into (fill in block 1's thread 127); otherwise
+    each block writes its half into its shift buffer, block 1 stores its
+    first min(s, 128 * per) states into block 0's row at their own index
+    (block 0 waits for exactly those bytes), and slot k reads state t * per
+    + k + s of its own buffer, past the block in block 0 state j - 128 * per
+    of the row, else fill. Buffers and rows start as NaN, so a read of a
+    slot nobody stored shows."""
+    n = THREADS * per
+    width = THREADS * p7_cuda.blocked_stride(per)
+    v = [x[:, r * n:(r + 1) * n] for r in (0, 1)]
+    out = []
+    if _small(s, per):
+        for r in (0, 1):
+            b = _blocked(v[r], per, THREADS)
+            o = torch.full_like(b, float("nan"))
+            o[:, :, : per - s] = b[:, :, s:]
+            o[:, :-1, per - s:] = b[:, 1:, :s]
+            o[:, -1, per - s:] = v[1][:, :s] if r == 0 else fill
+            out.append(o.reshape(x.shape[0], n))
+        return torch.cat(out, dim=1)
+    sidx = torch.tensor([_sidx(j, per) for j in range(n)])
+    count = min(s, n)
+    row = torch.full((x.shape[0], width), float("nan"))
+    row[:, sidx[:count]] = v[1][:, :count]
+    stored = count  # the bytes block 0's row mbarrier expects, in states
+    assert stored == min(s, n)
+    for r in (0, 1):
+        buf = torch.full((x.shape[0], width), float("nan"))
+        buf[:, sidx] = v[r]
+        o = torch.full((x.shape[0], n), fill)
+        j = torch.arange(n) + s
+        own = j < n
+        o[:, own] = buf[:, sidx[j[own]]]
+        if r == 0:
+            far = (j >= n) & (j - n < n)
+            o[:, far] = row[:, sidx[j[far] - n]]
+        out.append(o)
+    return torch.cat(out, dim=1)
+
+
+def _mirror_targets(s: int, n: int, b: int, c: int):
+    """cluster_shift_up_big's stores of block b for a shift by s (n states a
+    block): [(receiver, first sender state, last + 1, receiver's first
+    index)] for the receivers that exist."""
+    q, rest = divmod(s, n)
+    out = []
+    if q >= 1 and b - q >= 0:
+        out.append((b - q, rest, n, 0))
+    if rest > 0 and b - q - 1 >= 0:
+        out.append((b - q - 1, 0, rest, n - rest))
+    return out
+
+
+def _kernel_cluster_shift_up(x: torch.Tensor, s: int, per: int, fill: float,
+                             c: int) -> torch.Tensor:
+    """csrc/p7_blocked.cuh::cluster_shift_up on a [B, c * 128 * per] row,
+    block r holding the slice r * 128 * per ..: for s < per (by 1, 2, 4, 8,
+    16) slots k < per - s move within the thread and the last s come from
+    thread t + 1's first s through the block's shift buffer, in block r's
+    thread 127 from the halo block r + 1's thread 0 stores its first s
+    registers into (fill in block c - 1). Otherwise, with q = s div (128 *
+    per) and s' its rest, block b stores its states l >= s' into block b -
+    q's row at l - s' (for q = 0 they stay in its own shift buffer, read at
+    l + s') and the others into block b - q - 1's row at l + 128 * per -
+    s'; each receiving block waits for the bytes of the blocks that exist
+    above it (held equal to what they store) and reads its row (or buffer),
+    fill where no block sent. Rows start as NaN."""
+    n = THREADS * per
+    width = THREADS * p7_cuda.blocked_stride(per)
+    v = [x[:, r * n:(r + 1) * n] for r in range(c)]
+    out = []
+    if _small(s, per):
+        for r in range(c):
+            b = _blocked(v[r], per, THREADS)
+            o = torch.full_like(b, float("nan"))
+            o[:, :, : per - s] = b[:, :, s:]
+            o[:, :-1, per - s:] = b[:, 1:, :s]
+            o[:, -1, per - s:] = v[r + 1][:, :s] if r + 1 < c else fill
+            out.append(o.reshape(x.shape[0], n))
+        return torch.cat(out, dim=1)
+    sidx = torch.tensor([_sidx(j, per) for j in range(n)])
+    q, rest = divmod(s, n)
+    rows = [torch.full((x.shape[0], width), float("nan")) for _ in range(c)]
+    written = [torch.zeros(width, dtype=torch.bool) for _ in range(c)]
+    stored = [0] * c
+    for b in range(c):
+        for dst, lo, hi, at in _mirror_targets(s, n, b, c):
+            slots = sidx[torch.arange(lo, hi) - lo + at]
+            assert not written[dst][slots].any()  # the two senders' ranges are disjoint
+            written[dst][slots] = True
+            rows[dst][:, slots] = v[b][:, lo:hi]
+            stored[dst] += hi - lo
+    for r in range(c):
+        from_a = q >= 1 and r + q < c
+        from_b = rest > 0 and r + q + 1 < c
+        assert stored[r] == (n - rest if from_a else 0) + (rest if from_b else 0)
+        o = torch.full((x.shape[0], n), fill)
+        lo = torch.arange(n - rest)  # l + s' < n
+        if q == 0:
+            o[:, lo] = v[r][:, lo + rest]  # its own shift buffer at sidx(l + s')
+        elif from_a:
+            o[:, lo] = rows[r][:, sidx[lo]]
+        if from_b:
+            hi = torch.arange(n - rest, n)
+            o[:, hi] = rows[r][:, sidx[hi]]
+        out.append(o)
+    return torch.cat(out, dim=1)
+
+
+def _check_mirror_releases(per: int, c: int, window: int) -> None:
+    """The rows' release protocol of cluster_shift_up_big over a chain of
+    ``window`` passes: a sender waits, at each larger shift i >= 2, for one
+    release from each block it stores into, and exactly those blocks send it
+    one (cluster_release_up, after reading their row at use i - 2), in the
+    slot of its role (a: the receiver q blocks below, b: q + 1)."""
+    n = THREADS * per
+    small = sum(1 for p in range(window) if _small(1 << p, per))
+    big = [1 << p for p in range(small, window)]
+    for i in range(2, len(big)):
+        s, s_prev = big[i], big[i - 2]
+        assert s == 4 * s_prev  # cluster_release_up is handed s << 2
+        got = {}
+        for r in range(c):  # receivers release after their use i - 2
+            q, rest = divmod(s_prev << 2, n)
+            for role, to in ((0, r + q if q >= 1 else c), (1, r + q + 1 if rest > 0 else c)):
+                if to < c:
+                    got.setdefault(to, []).append((role, r))
+        for b in range(c):
+            want = sorted((0 if at == 0 else 1, dst) for dst, _, _, at in
+                          _mirror_targets(s, n, b, c))
+            assert sorted(got.get(b, [])) == want, (b, i, s)
+
+
+def _check_shifts_up(per: int, cluster: int) -> None:
+    """The mirror shifts of ``cluster`` blocks (2: the pair) against the
+    plain up-shift for every s = 2^p of the row's chain (and one past it),
+    a shift of a whole block or more (q >= 1) among them, and the release
+    protocol of every window."""
+    rng = np.random.default_rng(300 + 17 * cluster + per)
+    m = cluster * THREADS * per
+    x = torch.from_numpy(rng.normal(size=(2, m)).astype(np.float32))
+    whole = 0
+    for p in range(p7_cuda.chain_passes(m) + 1):
+        s = 1 << p
+        whole += s >= THREADS * per
+        if cluster == 2:
+            got = _kernel_pair_shift_up(x, s, per, 0.0)
+        else:
+            got = _kernel_cluster_shift_up(x, s, per, 0.0, cluster)
+        assert torch.equal(got, posterior_cuda._up(x, s)), s
+    assert whole >= 1
+    if cluster > 2:
+        for window in range(1, p7_cuda.chain_passes(m) + 1):
+            _check_mirror_releases(per, cluster, window)
+
+
+@pytest.mark.parametrize("per", p7_cuda.PAIR_PER)
+def test_pair_mirror_shifts_equal_the_plain_up_shift(per):
+    """The cluster pair's shifts toward lower j (the backward pass's wide
+    case), across the pair included, for every pass s = 2^p of 2 * 128 *
+    per states."""
+    _check_shifts_up(per, 2)
+
+
+@pytest.mark.parametrize("c,per", [(c, per) for c in range(3, p7_cuda.MAX_CLUSTER + 1)
+                                   for per in p7_cuda.CLUSTER_PER])
+def test_cluster_mirror_shifts_equal_the_plain_up_shift(c, per):
+    """The C-block cluster's shifts toward lower j (the backward pass past
+    4864 states), across the cluster included (halos from block r + 1, a
+    larger shift's two source blocks above, whole blocks away included),
+    for every pass s = 2^p of c * 128 * per states, and the rows' releases
+    of every window."""
+    _check_shifts_up(per, c)
 
 
 def _hidx(j: int, per: int) -> int:
@@ -365,24 +543,18 @@ def _passes(kind: str, m_pad: int):
 
 @pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
 def test_plan_fits_the_block_for_every_case(kind):
-    """Every (threads, per) case, at its narrowest and widest M_pad; the
-    Viterbi and Forward templates' kinds take their wide widths on the
-    cluster pair (test_pair_plan_fits_the_block), the backward pass at 256
-    threads."""
+    """Every (threads, per) group case, at its narrowest and widest M_pad;
+    every kind takes the wider widths on the cluster pair
+    (test_pair_plan_fits_the_block)."""
     for threads, per in CASES:
-        low = THREADS * 19 + 8 if threads == WIDE else 8
-        for m_pad in sorted({max(low, threads * (per - 1) + 8), threads * per}):
+        for m_pad in sorted({max(8, threads * (per - 1) + 8), threads * per}):
             assert p7_cuda.kernel_case(m_pad) == (threads, per)
-            if threads == WIDE and kind in p7_cuda.PAIR_KINDS:
-                plan = p7_cuda.plan_launch(kind, m_pad, _passes(kind, m_pad)[-1], 64, 128, SMS)
-                assert (plan.threads, plan.cluster) == (THREADS, 2)
-                continue
             for passes, regs, b_pad in itertools.product(_passes(kind, m_pad), REGS, BATCHES):
                 plan = p7_cuda.plan_launch(kind, m_pad, passes, b_pad, regs, SMS)
                 assert plan.smem <= SMEM_PER_SM == 232448
                 assert plan.threads == threads and plan.cluster == 1
                 assert 0 <= plan.n_chain <= passes
-                assert 0 <= plan.n_trans <= 6 and (plan.n_trans == 6 or threads == WIDE)
+                assert plan.n_trans == 6
                 assert 1 <= plan.groups <= plan.max_groups <= p7_cuda.MAX_BLOCK_THREADS // threads
                 warp_regs = -(-regs // 8) * 8 * 32
                 assert plan.groups * (threads // 32) * warp_regs <= p7_cuda.REGS_PER_SM
@@ -390,15 +562,13 @@ def test_plan_fits_the_block_for_every_case(kind):
                 if b_pad <= SMS:
                     assert plan.groups == 1 and plan.grid == b_pad
                 extra = 1 if kind == "lazy" and passes < p7_cuda.chain_passes(m_pad) else 0
-                args = (kind == "save", threads, kind == "filter", kind == "backward")
+                args = (kind == "save", kind == "filter", kind == "backward")
                 rows = plan.n_trans + plan.n_chain + extra
                 assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, plan.groups, *args)
                 # nothing more would fit: every row staged, or one more row
-                # would not leave room for one group; chain rows go first
-                if plan.n_chain < passes or plan.n_trans < 6:
+                # would not leave room for one group
+                if plan.n_chain < passes:
                     assert p7_cuda.blocked_smem_bytes(per, rows + 1, 1, *args) > SMEM_PER_SM
-                if plan.n_trans < 6:
-                    assert plan.n_chain == 0
 
 
 def test_plan_stages_every_row_at_the_timed_shapes():
@@ -438,49 +608,48 @@ def test_plan_limits_raise():
         p7_cuda.plan_launch("bogus", 1400, 4, 64, 128, SMS)
 
 
-def test_wide_plan_leaves_transition_rows_in_global_memory():
-    """At 256 threads and 19 slots a row is 19,456 bytes: the backward
-    pass's group (six f32 rows, two bf16 rows of half that, its reduction
-    floats, tokens, log scales and coverage: 137,440 bytes) and five staged
-    transitions come to 234,720 bytes, 2,272 over the block's 232,448, so
-    its plan (the one 256-thread case left) stages four transitions and no
-    chain row. The Viterbi and Forward templates' wide cases run on the
-    cluster pair instead, where a block's row is half as long: the eager
-    case at 19 slots stages all six transitions and 9 of its 13 chain rows
-    beside its group and the pair's two rows of block 0's states, every row
-    the lazy window runs at 10 slots, and the Forward and row-saving Forward
-    at 19 slots every row of a 7-pass window."""
-    row = 4 * WIDE * 19
-    assert row == 19456
-    group = 6 * row + 2 * (row // 2) + 4 * (24 + 32 + 256)
-    assert group == 137440 and group + 5 * row == SMEM_PER_SM + 2272
+def test_pair_plan_stages_the_rows_that_fit():
+    """On the cluster pair a block's row is 128 threads long: the backward
+    pass at 19 slots stages all six transitions and every row of a 7-pass
+    suffix window beside its group and the pair's area (two rows and 356 +
+    16 floats: its exchanges carry two values a warp); the eager case at 19
+    slots stages 9 of its 13 chain rows, the lazy window at 10 slots every
+    row, and the Forward and row-saving Forward at 19 slots every row of a
+    7-pass window."""
+    row = 4 * THREADS * 19
     plan = p7_cuda.plan_launch("backward", 4864, 7, 4096, 128, SMS)
-    assert (plan.threads, plan.n_trans, plan.n_chain, plan.groups) == (WIDE, 4, 0, 1)
+    assert (plan.threads, plan.cluster, plan.n_trans, plan.n_chain, plan.groups) == (
+        THREADS, 2, 6, 7, 1)
+    group = 6 * row + 2 * (row // 2) + 4 * (12 + 32 + 256)
+    assert plan.smem == 13 * row + group + 2 * row + 4 * (356 + 16) <= SMEM_PER_SM
     for kind in ("forward", "save"):
         plan = p7_cuda.plan_launch(kind, 4864, 7, 4096, 128, SMS)
         assert (plan.threads, plan.cluster, plan.n_trans, plan.n_chain) == (THREADS, 2, 6, 7)
     plan = p7_cuda.plan_launch("eager", 4864, 13, 4096, 128, SMS)
     assert (plan.threads, plan.cluster, plan.n_trans, plan.n_chain, plan.groups) == (
         THREADS, 2, 6, 9, 1)
-    half = 4 * THREADS * 19
-    assert plan.smem == (15 + 6 + 2) * half + 4 * (8 + 32 + 356) <= SMEM_PER_SM
-    assert plan.smem + half > SMEM_PER_SM
+    assert plan.smem == (15 + 6 + 2) * row + 4 * (8 + 32 + 356) <= SMEM_PER_SM
+    assert plan.smem + row > SMEM_PER_SM
     plan = p7_cuda.plan_launch("lazy", 2440, 4, 4096, 128, SMS)
     assert (plan.threads, plan.cluster, plan.n_trans, plan.n_chain) == (THREADS, 2, 6, 4)
 
 
 @pytest.mark.parametrize("kind", p7_cuda.PAIR_KINDS)
 def test_pair_plan_fits_the_block(kind):
-    """Every wide case of the Viterbi and Forward templates plans the
-    cluster pair (the row-saving Forward's group with its bf16 rows): 128
-    threads and one group a block (a forced G other than 1 raises), an even
-    grid of clusters of 2 (the ``clusters`` the card holds, else what an
-    SM's registers, shared memory and threads allow, two SMs a cluster; no
-    more than the batch's sequences), every transition row staged and as
-    many chain rows as fit the 232,448 bytes of a block."""
-    for per in p7_cuda.WIDE_PER:
-        for m_pad in sorted({max(THREADS * 19 + 8, WIDE * (per - 1) + 8), WIDE * per}):
-            assert p7_cuda.kernel_case(m_pad) == (WIDE, per)
+    """Every wide case (2432 < M_pad <= 4864) plans the cluster pair (the
+    row-saving Forward's group with its bf16 rows, the backward pass's with
+    its two-value exchanges): 128 threads and one group a block (a forced G
+    other than 1 raises), an even grid of clusters of 2 (the ``clusters``
+    the card holds, else what an SM's registers, shared memory and threads
+    allow, two SMs a cluster; no more than the batch's sequences), every
+    transition row staged and as many chain rows as fit the 232,448 bytes
+    of a block."""
+    for per in p7_cuda.PAIR_PER:
+        for m_pad in sorted({max(THREADS * 19 + 8, 2 * THREADS * (per - 1) + 8),
+                             2 * THREADS * per}):
+            assert p7_cuda.kernel_case(m_pad) == p7_cuda.kernel_case(m_pad, kind) == (
+                THREADS, per)
+            assert p7_cuda.cluster_blocks(m_pad, kind) == p7_cuda.CLUSTER
             for passes, regs, b_pad in itertools.product(_passes(kind, m_pad), REGS, BATCHES):
                 plan = p7_cuda.plan_launch(kind, m_pad, passes, b_pad, regs, SMS)
                 assert (plan.threads, plan.cluster, plan.groups, plan.max_groups) == (
@@ -488,13 +657,13 @@ def test_pair_plan_fits_the_block(kind):
                 assert plan.grid % 2 == 0 and 1 <= plan.grid // 2 <= b_pad
                 extra = 1 if kind == "lazy" and passes < p7_cuda.chain_passes(m_pad) else 0
                 rows = plan.n_trans + plan.n_chain + extra
-                bf16, save = kind == "filter", kind == "save"
+                bf16, save, bwd = kind == "filter", kind == "save", kind == "backward"
                 assert plan.n_trans == 6 and 0 <= plan.n_chain <= passes
-                assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, save, bf16=bf16,
-                                                               pair=True) <= SMEM_PER_SM
+                assert plan.smem == p7_cuda.blocked_smem_bytes(
+                    per, rows, 1, save, bf16=bf16, backward=bwd, pair=True) <= SMEM_PER_SM
                 if plan.n_chain < passes:
                     assert p7_cuda.blocked_smem_bytes(per, rows + 1, 1, save, bf16=bf16,
-                                                      pair=True) > SMEM_PER_SM
+                                                      backward=bwd, pair=True) > SMEM_PER_SM
                 warp_regs = -(-regs // 8) * 8 * 32
                 per_sm = min(p7_cuda.REGS_PER_SM // (4 * warp_regs), SMEM_PER_SM // plan.smem,
                              p7_cuda.THREADS_PER_SM // THREADS)
@@ -507,46 +676,46 @@ def test_pair_plan_fits_the_block(kind):
 
 
 def test_pair_cases_match_kernel_source():
-    """The pair's cases the C entries compile are WIDE_PER (with_pair_case,
-    csrc/p7_blocked.cuh); the Viterbi and Forward templates' sources
-    instantiate no 256-thread case any more (with_group_case, not
-    with_case; the backward source alone keeps it) and launch the pair as
-    clusters of 2 through the clusters' launch (p7_blocked.cuh, c = 2), the Forward
-    with its row-saving group before the exchange area; a pair block's
-    exchange area (two rows of
-    block 0's states, two exchanges of a value a warp of both blocks, 18
-    halos of 16 slots, 4 release slots, 24 mbarriers) is what the plan
-    counts after its group; an exchange puts each warp's
-    value at slot rank * 4 + warp of both blocks and combines the eight in
-    the 256-thread group's order; a halo is a shift by at most 16, its id
-    2 + p for pass p."""
+    """The pair's cases the C entries compile are PAIR_PER (with_pair_case,
+    csrc/p7_blocked.cuh); no source instantiates a 256-thread case any more
+    (with_group_case: 128 threads a group); every source launches the pair
+    as clusters of 2 through the clusters' launch (p7_blocked.cuh, c = 2),
+    the Forward with its row-saving group before the exchange area, the
+    backward pass with its own group and an area of two values a slot; a
+    pair block's exchange area (two rows of the partner's states, two
+    exchanges of a value a warp of both blocks, XV of them for the backward
+    pass's, 18 halos of 16 slots, 4 release slots, 24 mbarriers) is what the
+    plan counts after its group; an exchange puts each warp's value at slot
+    rank * 4 + warp of both blocks and combines the eight in the 256-thread
+    order (block 0's four warps, then block 1's); a halo is a shift by at
+    most 16, its id 2 + p for pass p."""
     csrc = p7_cuda._build.CSRC_DIR
     blocked = (csrc / "p7_blocked.cuh").read_text()
     cases = re.findall(r"P7_PAIR_CASE\((\d+)\)\n", blocked)
-    assert tuple(int(c) for c in cases) == p7_cuda.WIDE_PER
+    assert tuple(int(c) for c in cases) == p7_cuda.PAIR_PER
     assert "constexpr int kHaloIds = 2 + 16;" in blocked and "constexpr int kHaloSlots = 16;" in blocked
-    assert ("return 2 * row_floats<PER, KT>() + 2 * 2 * warps<KT>() + kHaloIds * kHaloSlots + 4 +"
+    assert ("return 2 * row_floats<PER, KT>() + XV * 2 * 2 * warps<KT>() + kHaloIds * kHaloSlots + 4 +"
             "\n         2 * kPairBars;" in blocked)
+    assert "P7_CASE(19, 128)" in blocked and ", 256)" not in blocked and "with_case(" not in blocked
     assert "constexpr int kPairBars = kHaloIds + 2 + 2 + 2;" in blocked
     assert p7_cuda.PAIR_FLOATS == 16 + 18 * 16 + 4 + 48 == 356
     assert p7_cuda.blocked_smem_bytes(11, 3, 1, pair=True) == (
         p7_cuda.blocked_smem_bytes(11, 3, 1) + 4 * (2 * THREADS * 11 + 356))
-    for per in p7_cuda.WIDE_PER:  # the passes whose shift is a halo
+    for per in p7_cuda.PAIR_PER:  # the passes whose shift is a halo
         assert sum(1 for p in range(16) if (1 << p) < per and (1 << p) <= 16) == (
             5 if per > 16 else 4)
     assert "return PER > 16 ? 5 : PER > 8 ? 4 : PER > 4 ? 3 : PER > 2 ? 2 : PER > 1 ? 1 : 0;" in blocked
     assert "4 * (q * X + pr.rank * warps<KT>() + (t >> 5))" in blocked
     assert "return combine_warps<SUM, 2 * KT>(pair_collect<KT>(q, pr));" in blocked
     assert p7_cuda.chain_passes(4864) + 2 <= 18
-    for name in ("p7_viterbi_kernel.cu", "p7_forward_log_kernel.cu",
-                 "p7_viterbi_filter_kernel.cu", "p7_forward_kernel.cu"):
+    sources = ("p7_viterbi_kernel.cu", "p7_forward_log_kernel.cu", "p7_viterbi_filter_kernel.cu",
+               "p7_forward_kernel.cu", "p7_backward_kernel.cu")
+    for name in sources:
         source = (csrc / name).read_text()
         assert "with_case<" not in source and "with_group_case<Case>" in source, name
         assert "with_pair_case<PairCase>" in source, name
-    assert "with_case<Case>(threads, per" in (csrc / "p7_backward_kernel.cu").read_text()
     assert "attr->val.clusterDim.x = c;" in blocked and "cudaLaunchKernelEx(&cfg, kernel, a)" in blocked
-    for name in ("p7_viterbi_kernel.cu", "p7_forward_log_kernel.cu",
-                 "p7_viterbi_filter_kernel.cu", "p7_forward_kernel.cu"):
+    for name in sources:
         source = (csrc / name).read_text()
         assert re.search(r"launch_cluster\([^;]*pair_smem_set(\[[^\]]*\])+, 2, grid,\s+smem", source), name
     template = (csrc / "p7_viterbi.cuh").read_text()
@@ -560,26 +729,40 @@ def test_pair_cases_match_kernel_source():
             in blocked)
     assert p7_cuda.blocked_smem_bytes(11, 3, 1, save=True, pair=True) == (
         p7_cuda.blocked_smem_bytes(11, 3, 1, save=True) + 4 * (2 * THREADS * 11 + 356))
+    backward = (csrc / "p7_backward_kernel.cu").read_text()
+    assert "backward_body<PER, 128, Span::kPair>(a);" in backward
+    assert "float* area = smem + n_rows * ROW + backward_group_floats<PER, KT>();" in backward
+    assert "pair_setup_up<PER, KT>(h, area, t);" in backward
+    assert "pair_setup<PER, KT, 2>(pr, area, t);" in blocked  # pair_setup_up's area
+    assert "4 * backward_smem_floats<PER, 128, Span::kPair>(n_rows, 1)" in backward
+    assert "S == Span::kPair      ? pair_floats<PER, KT, 2>()" in backward
+    assert p7_cuda.PAIR_X2_FLOATS == 16
+    assert p7_cuda.blocked_smem_bytes(11, 3, 1, backward=True, pair=True) == (
+        p7_cuda.blocked_smem_bytes(11, 3, 1, backward=True) + 4 * (2 * THREADS * 11 + 356 + 16))
+    # the two-value exchange: a's then b's, 8 bytes a warp of both blocks
+    assert "const unsigned off = 4 * (2 * q * X + pr.rank * warps<KT>() + (t >> 5));" in blocked
+    assert "if (t == 0) mbar_expect(pr.xbar + 8 * q, 8 * X);" in blocked
 
 
 def test_cluster_cases_match_kernel_source():
     """The C-block cluster's cases the C entries compile are CLUSTER_PER
     (with_cluster_case, csrc/p7_blocked.cuh), instantiated by the lazy
-    Viterbi's, the filter's and the Forward template's sources (the kinds of
-    CLUSTER_KINDS) and launched as clusters of C blocks, past 8 with the
-    non-portable size allowed; a block's area (two rows, two exchanges of a
-    value a warp of up to 16 blocks, the pair's 18 halos of 16 slots, 4
-    release slots and 24 mbarriers) is what the plan counts after its group;
-    an exchange puts each warp's value at slot rank * 4 + warp of every
-    block, lane p into block p, and combines each block's four as the group
-    does, the blocks in rank order; C is read from %cluster_nctarank."""
+    Viterbi's, the filter's, the Forward template's and the backward pass's
+    sources (the kinds of CLUSTER_KINDS) and launched as clusters of C
+    blocks, past 8 with the non-portable size allowed; a block's area (two
+    rows, two exchanges of a value a warp of up to 16 blocks, XV of them for
+    the backward pass's, the pair's 18 halos of 16 slots, 4 release slots
+    and 24 mbarriers) is what the plan counts after its group; an exchange
+    puts each warp's value at slot rank * 4 + warp of every block, lane p
+    into block p, and combines each block's four as the group does, the
+    blocks in rank order; C is read from %cluster_nctarank."""
     csrc = p7_cuda._build.CSRC_DIR
     blocked = (csrc / "p7_blocked.cuh").read_text()
     cases = re.findall(r"P7_CLUSTER_CASE\((\d+)\)\n", blocked)
     assert tuple(int(c) for c in cases) == p7_cuda.CLUSTER_PER
     assert f"constexpr int kMaxCluster = {p7_cuda.MAX_CLUSTER};" in blocked
-    assert ("return 2 * row_floats<PER, KT>() + 2 * kMaxCluster * warps<KT>() + "
-            "kHaloIds * kHaloSlots + 4 +\n         2 * kPairBars;") in blocked
+    assert ("return 2 * row_floats<PER, KT>() + XV * 2 * kMaxCluster * warps<KT>() +\n"
+            "         kHaloIds * kHaloSlots + 4 + 2 * kPairBars;") in blocked
     assert p7_cuda.CLUSTER_FLOATS == 2 * 16 * 4 + 18 * 16 + 4 + 48 == 468
     assert ("return smem_floats<PER, KT, BF16>(n_rows, 1, save) + cluster_floats<PER, KT>();"
             in blocked)
@@ -591,7 +774,8 @@ def test_cluster_cases_match_kernel_source():
     assert p7_cuda.chain_passes(p7_cuda.MAX_CLUSTER_STATES) + 2 <= 18  # a halo id a pass
     kinds = {"p7_viterbi_kernel.cu": "viterbi_cluster_kernel<PER, true, false, false>",
              "p7_viterbi_filter_kernel.cu": "viterbi_cluster_kernel<PER, false, false, true>",
-             "p7_forward_kernel.cu": "forward_cluster_kernel<PER, true>"}
+             "p7_forward_kernel.cu": "forward_cluster_kernel<PER, true>",
+             "p7_backward_kernel.cu": "backward_cluster_kernel<PER>"}
     for name, kernel in kinds.items():
         source = (csrc / name).read_text()
         assert "with_cluster_case<ClusterCase>(per" in source and kernel in source, name
@@ -605,6 +789,19 @@ def test_cluster_cases_match_kernel_source():
     assert "nblk = static_cast<int>(cluster_size());" in forward
     assert p7_cuda.blocked_smem_bytes(19, 12, 1, cluster=True) == (
         p7_cuda.blocked_smem_bytes(19, 12, 1) + 4 * (2 * THREADS * 19 + 468))
+    backward = (csrc / "p7_backward_kernel.cu").read_text()
+    assert "backward_body<PER, 128, Span::kCluster>(a);" in backward
+    assert "cluster_setup<PER, KT, 2>(h, area, t);" in backward
+    assert "4 * backward_smem_floats<PER, 128, Span::kCluster>(n_rows, 1)" in backward
+    assert "h.nblk = static_cast<int>(cluster_size());" in backward
+    assert p7_cuda.CLUSTER_X2_FLOATS == 2 * 16 * 4
+    assert p7_cuda.blocked_smem_bytes(19, 12, 1, backward=True, cluster=True) == (
+        p7_cuda.blocked_smem_bytes(19, 12, 1, backward=True) + 4 * (2 * THREADS * 19 + 468 + 128))
+    # the mirror's larger shift: block b's states from s' on into block b -
+    # q's row at l - s', the others into block b - q - 1's at l + N - s'
+    assert "st_async(row_a + 4 * sidx<PER>(j - rest), v[k], bar_a);" in blocked
+    assert "st_async(row_b + 4 * sidx<PER>(j + N - rest), v[k], bar_b);" in blocked
+    assert "if (t == 0) mbar_expect(c.xbar + 8 * q, 8 * c.nblk * warps<KT>());" in blocked
 
 
 def test_filter_plan_takes_bf16_emission_rows():
@@ -636,22 +833,21 @@ def test_shared_memory_matches_the_header_layout():
     row = 4 * THREADS * 11
     assert p7_cuda.blocked_smem_bytes(11, 12, 4) == 12 * row + 4 * (6 * row + 4 * 8 + 128)
     assert p7_cuda.blocked_smem_bytes(12, 1, 1, save=True) == 4 * THREADS * 13 * 8 + 4 * 8 + 128
-    wide = 4 * WIDE * 19
-    assert (p7_cuda.blocked_smem_bytes(19, 5, 1, threads=WIDE)
-            == 5 * wide + 6 * wide + 4 * 16 + 128)
+    row = 4 * THREADS * 19
+    assert p7_cuda.blocked_smem_bytes(19, 5, 1) == 5 * row + 6 * row + 4 * 8 + 128
 
 
 @pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
 def test_rows_in_memory_plan(kind):
-    """Past M_pad 4864 the eager and log-space kinds and the backward pass,
-    and past 38,912 every kind, plan the rows-in-memory case: one group of
-    1024 threads a block, nothing staged, no dynamic shared memory, a
-    persistent grid of at most two blocks an SM (fewer when the registers
-    do not allow two) and no more blocks than sequences; a forced G > 1
-    raises. The three-profile and the 24-profile joins (LENG 6977, 30181)
-    and the widest M_pad, 65536 (16 chain passes), are such cases for the
-    first three; 38,920 and 65536 for the lazy, filter and Forward kinds,
-    which also plan it where the card holds no cluster (``clusters`` 0)."""
+    """Past M_pad 4864 the eager and log-space kinds, and past 38,912 every
+    kind, plan the rows-in-memory case: one group of 1024 threads a block,
+    nothing staged, no dynamic shared memory, a persistent grid of at most
+    two blocks an SM (fewer when the registers do not allow two) and no more
+    blocks than sequences; a forced G > 1 raises. The three-profile and the
+    24-profile joins (LENG 6977, 30181) and the widest M_pad, 65536 (16
+    chain passes), are such cases for the first two; 38,920 and 65536 for
+    the lazy, filter, Forward and backward kinds, which also plan it where
+    the card holds no cluster (``clusters`` 0)."""
     widths = (4872, 6984, 30184, 65536) if kind not in p7_cuda.CLUSTER_KINDS else (38920, 65536)
     for m_pad in widths:
         full = p7_cuda.chain_passes(m_pad)
@@ -671,22 +867,24 @@ def test_rows_in_memory_plan(kind):
 
 @pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
 def test_cluster_plan_fits_the_block(kind):
-    """Past 4864 states, up to 38,912, the lazy, filter, Forward and
-    row-saving Forward kinds plan a C-block cluster, C = ceil(M_pad / 2432)
-    (3 at 4872 and 6984, 13 at 30184, 16 at 38,912), per the smallest that
-    covers M_pad: 128 threads and one group a block (a forced G other than 1
-    raises), a grid of whole clusters (the ``clusters`` the card holds, else
-    what an SM's registers, shared memory and threads allow, C SMs a
-    cluster; no more than the batch's sequences), every transition row
-    staged and as many chain rows as fit the 232,448 bytes of a block beside
-    its group and the cluster's area (two rows and 468 floats, whatever C);
-    the eager and log-space kinds and the backward pass stay in memory."""
+    """Past 4864 states, up to 38,912, the lazy, filter, Forward,
+    row-saving Forward and backward kinds plan a C-block cluster, C =
+    ceil(M_pad / 2432) (3 at 4872 and 6984, 13 at 30184, 16 at 38,912), per
+    the smallest that covers M_pad: 128 threads and one group a block (a
+    forced G other than 1 raises), a grid of whole clusters (the
+    ``clusters`` the card holds, else what an SM's registers, shared memory
+    and threads allow, C SMs a cluster; no more than the batch's sequences),
+    every transition row staged and as many chain rows as fit the 232,448
+    bytes of a block beside its group and the cluster's area (two rows and
+    468 floats, whatever C; 128 more for the backward pass's two-value
+    exchanges), every window up to 8 passes staged whole; the eager and
+    log-space kinds stay in memory."""
     for m_pad, c in ((4872, 3), (6984, 3), (30184, 13), (38912, 16)):
         assert p7_cuda.cluster_blocks(m_pad, kind) == (
             c if kind in p7_cuda.CLUSTER_KINDS else 1) and c == -(-m_pad // 2432)
         full = p7_cuda.chain_passes(m_pad)
         if kind not in p7_cuda.CLUSTER_KINDS:
-            plan = p7_cuda.plan_launch(kind, m_pad, full if kind != "backward" else 7, 64, 40, SMS)
+            plan = p7_cuda.plan_launch(kind, m_pad, full, 64, 40, SMS)
             assert (plan.threads, plan.cluster) == (p7_cuda.MEM_THREADS, 1)
             continue
         per = -(-m_pad // (THREADS * c))
@@ -698,15 +896,17 @@ def test_cluster_plan_fits_the_block(kind):
             assert plan.grid % c == 0 and 1 <= plan.grid // c <= b_pad
             extra = 1 if kind == "lazy" and passes < full else 0
             rows = plan.n_trans + plan.n_chain + extra
-            bf16, save = kind == "filter", kind == "save"
+            bf16, save, bwd = kind == "filter", kind == "save", kind == "backward"
             assert plan.n_trans == 6 and 0 <= plan.n_chain <= passes
-            assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, save, bf16=bf16,
-                                                           cluster=True) <= SMEM_PER_SM
-            assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, save, bf16=bf16) + 4 * (
-                2 * THREADS * p7_cuda.blocked_stride(per) + 468)
+            assert plan.smem == p7_cuda.blocked_smem_bytes(
+                per, rows, 1, save, bf16=bf16, backward=bwd, cluster=True) <= SMEM_PER_SM
+            assert plan.smem == p7_cuda.blocked_smem_bytes(
+                per, rows, 1, save, bf16=bf16, backward=bwd) + 4 * (
+                2 * THREADS * p7_cuda.blocked_stride(per) + 468 + (128 if bwd else 0))
             if plan.n_chain < passes:
                 assert p7_cuda.blocked_smem_bytes(per, rows + 1, 1, save, bf16=bf16,
-                                                  cluster=True) > SMEM_PER_SM
+                                                  backward=bwd, cluster=True) > SMEM_PER_SM
+            assert plan.n_chain == passes or passes > 8
             warp_regs = -(-regs // 8) * 8 * 32
             per_sm = min(p7_cuda.REGS_PER_SM // (4 * warp_regs), SMEM_PER_SM // plan.smem,
                          p7_cuda.THREADS_PER_SM // THREADS)
@@ -722,9 +922,9 @@ def test_backward_plan_and_shared_memory():
     rows, 2 bf16 rows of 704 floats, 12 reduction floats, the token chunk
     and the chunk's 256 log scales and coverage; with its W = 6 suffix rows
     and 6 transitions, 3 groups at 142 registers (the kernel's free choice)
-    and 4 at 128 (its register bound at 9 to 12 slots). At 256 threads and 19
-    slots one group and 4 staged transition rows, no chain row. Never over
-    232,448 bytes."""
+    and 4 at 128 (its register bound at 9 to 12 slots). At 4864 states the
+    cluster pair, 19 slots a thread, six transitions and the 7-pass window
+    staged. Never over 232,448 bytes."""
     row = THREADS * 11
     group = 6 * row + 2 * (THREADS * 11 // 2) + 12 + 32 + 256
     assert p7_cuda.blocked_smem_bytes(11, 12, 3, backward=True) == 4 * (12 * row + 3 * group)
@@ -739,10 +939,11 @@ def test_backward_plan_and_shared_memory():
     few = p7_cuda.plan_launch("backward", 1408, 6, 64, 142, SMS)
     assert (few.groups, few.grid) == (1, 64)
     wide = p7_cuda.plan_launch("backward", 4864, 7, 64, 206, SMS)
-    wrow = WIDE * 19
-    wgroup = 6 * wrow + 2 * (WIDE * 19 // 2) + 24 + 32 + 256
-    assert (wide.threads, wide.groups, wide.n_trans, wide.n_chain) == (WIDE, 1, 4, 0)
-    assert wide.smem == 4 * (4 * wrow + wgroup) <= SMEM_PER_SM < 4 * (5 * wrow + wgroup)
+    wrow = THREADS * 19
+    wgroup = 6 * wrow + 2 * (THREADS * 19 // 2) + 12 + 32 + 256
+    assert (wide.threads, wide.cluster, wide.groups, wide.n_trans, wide.n_chain) == (
+        THREADS, 2, 1, 6, 7)
+    assert wide.smem == 4 * (13 * wrow + wgroup + 2 * wrow + 356 + 16) <= SMEM_PER_SM
     source = (p7_cuda._build.CSRC_DIR / "p7_blocked.cuh").read_text()
     assert ("return 6 * row_floats<PER, KT>() + 2 * erow_floats<PER, KT, true>() + "
             "3 * warps<KT>() +\n         kChunk / 4 + 2 * kChunk;") in source

@@ -117,7 +117,9 @@ def test_wide_profile_round_trip(wide_files, pair):
         assert np.array_equal(getattr(built, field), getattr(port, field))
     m_pad = msv_cuda.round_up(port.leng, 8)
     assert msv_cuda.kernel_case(m_pad)[0] == 64
-    assert p7_cuda.kernel_case(m_pad)[0] == p7_cuda.WIDE_THREADS
+    assert p7_cuda.kernel_case(m_pad)[0] == p7_cuda.KERNEL_THREADS
+    assert all(p7_cuda.cluster_blocks(m_pad, kind) == p7_cuda.CLUSTER
+               for kind in p7_cuda.BLOCKED_KINDS)
 
 
 @pytest.mark.parametrize("pair", chip_smoke.WIDE_PAIRS, ids="+".join)
@@ -353,10 +355,10 @@ def test_mem_join_plain_posterior_matches_jax(mem_files, batch):
 
 def test_all_24_join_plans_the_rows_in_memory_case(mem_files):
     """The all-24 join (LENG 30181, M_pad 30184, 15 chain passes): the
-    eager and log-space kinds plan the rows-in-memory case at the full chain,
-    the posterior backward pass at its suffix window; the lazy, filter,
-    Forward and row-saving Forward kinds a 13-block cluster of 19 states a
-    thread."""
+    eager and log-space kinds plan the rows-in-memory case at the full chain;
+    the lazy, filter, Forward and row-saving Forward kinds, and the
+    posterior backward pass at its suffix window, a 13-block cluster of 19
+    states a thread."""
     path, _ = mem_files[chip_smoke.MEM_JOINS[1]]
     p7 = P7Profile.from_profile(parse_hmm(path))
     m_pad = p7_cuda.default_m_pad(p7)
@@ -426,3 +428,20 @@ def test_all_24_join_plain_p7_matches_jax(mem_files, batch):
     assert _max_d(eager, np.asarray(viterbi_xla(jp7, tokens, lengths))) <= VIT_TOL
     fwd = forward_scores(p7, tokens, lengths, device="cpu").numpy()
     assert _max_d(fwd, np.asarray(forward_xla(jp7, tokens, lengths))) <= FWD_TOL
+
+
+def test_all_24_join_plain_posterior_matches_jax(mem_files, batch):
+    """The plain posterior decode at LENG 30181 (where the backward pass
+    runs a 13-block cluster on the card) against the JAX XLA decode:
+    coverage within 4e-3, totals within 2e-3."""
+    path, jax_hmm = mem_files[chip_smoke.MEM_JOINS[1]]
+    tokens, lengths = batch
+    p7 = P7Profile.from_profile(parse_hmm(path))
+    assert p7_cuda.cluster_blocks(p7_cuda.default_m_pad(p7), "backward") == 13
+    cov, tot = posterior_cuda.posterior_coverage_batch(p7, tokens, lengths, device="cpu")
+    want_cov, want_tot = posterior_coverage_batch_xla(JaxP7Profile.from_profile(jax_hmm),
+                                                      tokens, lengths)
+    live = lengths > 0  # the JAX decode of an empty sequence is NaN
+    assert not cov[~live].any()
+    assert _max_d(cov[live], np.asarray(want_cov)[live, : cov.shape[1]]) <= COV_TOL
+    assert _max_d(tot[live], np.asarray(want_tot)[live]) <= TOT_TOL

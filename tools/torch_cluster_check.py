@@ -19,17 +19,22 @@ two joins of the repo's profiles that land on a C-block cluster, one just
 past 2432 * (C - 1) states (the smallest states a thread of that C) and one
 as near 2432 * C as they fill (19 a thread), through the lazy Viterbi (its
 own window, and lazy_k = 1, whose certificate fires below 16 chain passes),
-the Viterbi filter, Forward and the row-saving Forward on a ragged batch of
-8 sequences up to 300 residues: the lazy kernel and the filter equal to
-their plain versions bit for bit (replay counts included), the filter >=
-the lazy scores, Forward within FWD_TOL with a carry chain split at
-P7_SPLIT equal to one call bit for bit, the row-saving Forward equal to
-Forward, and the backward pass on its rows within COV_TOL of the plain
-decode; the launch counters show each at its C and none in memory. With
---time, the MSV cluster cases at 2048 x 1000, the Forward pair at 64 x 3500
-and each p7 join's four kernels at 64 x 1000 are timed (CUDA events, best of
-3), beside the card's name and power limit. One line a check; exits 1 on a
-failure. Needs one CUDA card and nvcc; imports nothing of JAX.
+the Viterbi filter, Forward, the row-saving Forward and the backward pass
+on a ragged batch of 8 sequences up to 300 residues: the lazy kernel and
+the filter equal to their plain versions bit for bit (replay counts
+included), the filter >= the lazy scores, Forward within FWD_TOL with a
+carry chain split at P7_SPLIT equal to one call bit for bit, the
+row-saving Forward equal to Forward, and the backward pass on the
+row-saving kernel's rows within COV_TOL of its plain version and of the
+plain decode; the launch counters show each at its C and none in memory.
+Then chip_smoke.py's wide check (the cluster pairs, the backward pass's
+included). With --time, the MSV cluster cases at 2048 x 1000, the Forward
+pair at 64 x 3500, each p7 join's Viterbi and Forward kernels at 64 x 1000
+and its posterior pair at 64 x 1024 are timed (CUDA events, best of 3),
+each also as microseconds a step (ms over the residues and the rounds of
+64 rows on the clusters the card holds), beside the card's name and power
+limit. One line a check; exits 1 on a failure. Needs one CUDA card and
+nvcc; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -116,10 +121,12 @@ def msv_width(rng, scanner, m_pad: int, time_it: bool) -> dict:
     return out
 
 
-P7_KINDS = ("lazy", "filter", "forward", "save")
+P7_KINDS = ("lazy", "filter", "forward", "save", "backward")
 P7_WRAPPERS = {"lazy": p7_cuda.viterbi_lazy_scan_cuda, "filter": p7_cuda.viterbi_filter_scan_cuda,
                "forward": p7_cuda.forward_prob_scan_cuda,
-               "save": chip_smoke.posterior_cuda.forward_save_scan_cuda}
+               "save": chip_smoke.posterior_cuda.forward_save_scan_cuda,
+               "backward": chip_smoke.posterior_cuda.backward_coverage_scan_cuda}
+POST_LEN = 1024  # the posterior pair's timed residues
 
 
 def join_stems(c: int, high: bool) -> tuple[str, ...]:
@@ -169,10 +176,15 @@ def p7_join(rng, scanner, stems: tuple[str, ...], time_it: bool) -> dict:
     schain = chip_smoke.posterior_cuda.suffix_chain_rows(p7, dev)
     bwd_in = chip_smoke.backward_inputs(packs["forward"], schain, staged)
     cov = chip_smoke.posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
+    torch.cuda.synchronize()
+    b_err = chip_smoke.max_abs_diff(cov, chip_smoke.posterior_cuda.backward_coverage_scan_plain(
+        *bwd_in))
     cov_p, _ = chip_smoke.posterior_decode(*chip_smoke.PLAIN_DECODE, packs["forward"], schain,
                                            staged)
     c_err = chip_smoke.max_abs_diff(cov, cov_p)
-    chip_smoke.require(c_err <= chip_smoke.COV_TOL, f"{name} coverage vs plain: {c_err}")
+    chip_smoke.require(b_err <= chip_smoke.COV_TOL and c_err <= chip_smoke.COV_TOL,
+                       f"{name} backward pass vs plain on its rows: {b_err}, coverage vs the "
+                       f"plain decode: {c_err}")
     fires = int(got["lazy_k1"][5].sum())
     full = p7_cuda.chain_passes(m_pad)
     chip_smoke.require(fires > 0 or full > 15, f"{name}: lazy_k = 1 never fired")
@@ -182,8 +194,8 @@ def p7_join(rng, scanner, stems: tuple[str, ...], time_it: bool) -> dict:
                            f"{name} {kind}: launches {cnt}, expected the {c}-block cluster only")
     out = {"join": "+".join(stems), "m_pad": m_pad, "c": c, "chain_passes": full,
            "lazy_k": packs["lazy"].lazy_k, "lazy_k1_fires": fires, "forward_max_abs": f_err,
-           "forward_chain_max_abs": chain, "coverage_max_abs": c_err, "launches": counts,
-           "equal": True}
+           "forward_chain_max_abs": chain, "backward_max_abs": b_err, "coverage_max_abs": c_err,
+           "launches": counts, "equal": True}
     for kind in P7_KINDS:
         plan = p7_cuda.device_plan(kind, m_pad, chip_smoke.passes_of(kind, packs[kind]), 64, dev)
         out[f"plan_{kind}"] = plan._asdict()
@@ -191,13 +203,22 @@ def p7_join(rng, scanner, stems: tuple[str, ...], time_it: bool) -> dict:
         out[f"max_clusters_{kind}"] = p7_cuda.max_clusters(kind, plan.per, plan.smem,
                                                            dev.index or 0, plan.cluster)
     if time_it:
-        big = rng.integers(0, 20, size=(64, 1000)).astype(np.int8)
-        bstaged = scanner.stage(big, np.full(64, 1000, dtype=np.int32))
+        big = rng.integers(0, 20, size=(64, POST_LEN)).astype(np.int8)
         for kind in P7_KINDS:
-            run, carry = chip_smoke.p7_calls(kind, packs[kind], bstaged)
-            fn = chip_smoke.CUDA_FNS[kind]
-            out[f"ms_{kind}_64x1000"] = chip_smoke.best_ms(
-                lambda: run(fn, bstaged.tokens, bstaged.lengths, carry), reps=3)
+            length = POST_LEN if kind in ("save", "backward") else 1000
+            bstaged = scanner.stage(big[:, :length], np.full(64, length, dtype=np.int32))
+            if kind == "backward":
+                b_in = chip_smoke.backward_inputs(packs["forward"], schain, bstaged)
+                fn = P7_WRAPPERS["backward"]
+                ms = chip_smoke.best_ms(lambda: fn(*b_in), reps=3)
+            else:
+                run, carry = chip_smoke.p7_calls(kind, packs[kind], bstaged)
+                fn = chip_smoke.CUDA_FNS[kind]
+                ms = chip_smoke.best_ms(
+                    lambda: run(fn, bstaged.tokens, bstaged.lengths, carry), reps=3)
+            held = out[f"max_clusters_{kind}"]
+            out[f"ms_{kind}_64x{length}"] = ms
+            out[f"us_step_{kind}"] = ms * 1e3 / (length * -(-64 // held))
     return out
 
 

@@ -1,6 +1,7 @@
 """Check and time the wide cases of the PyTorch port's kernels on the card.
 
     python3 tools/torch_wide_timing.py [--tree DIR] [--label NAME] [--check] [--mem]
+                                       [--posterior]
 
 The wide cases are the kernels' code paths for profiles of 2433 to 4864
 states (M_pad). With --check, chip_smoke.py's phase-8 check of them runs
@@ -20,8 +21,12 @@ the p7 C-block clusters the p7 cases against the all-24 join, LENG 30181,
 too), one JSON line a case as well; for a tree whose mem_timings stops at
 LENG 6977 this script times the lazy Viterbi, the Viterbi filter, Forward
 (64 x 1000) and the row-saving Forward (64 x 1024) against the all-24 join
-itself, once after a warm-up (rows ``<kernel>_30181``). The ptxas line of
-every kernel case (registers and spills) prints first.
+itself, once after a warm-up (rows ``<kernel>_30181``). With --posterior
+(in place of the wide timings) it times the posterior pair past 2432 states
+alone: the row-saving Forward and the backward pass on its rows at 64 x
+1024 against LENG 4770, 6977, 30181 and 60362, best of 3 (rows
+``<kernel>_<LENG>``), the same work for any tree. The ptxas line of every
+kernel case (registers and spills) prints first.
 
 Everything is imported from the checkout DIR (default: this script's):
 its chip_smoke.py, its package and its kernels, built there at first use.
@@ -65,12 +70,52 @@ def p7_rows_30181(chip_smoke, scanner, rng, work: dict) -> dict:
     return out
 
 
+def posterior_rows_past(chip_smoke, scanner, rng, work: dict) -> dict:
+    """The posterior pair at 64 x 1024 against the wider wide profile (LENG
+    4770) and the joins past 4864 states (LENG 6977 and 30181, and the
+    all-24 join twice over, LENG 60362): the row-saving Forward, then the
+    backward pass on its rows, each best of 3 after a warm-up, through the
+    tree's own helpers; no plain version. Rows ``forward_save_scan_<LENG>``
+    and ``backward_coverage_scan_<LENG>``."""
+    b, n = chip_smoke.SURVIVOR_BATCH, chip_smoke.POST_TIME_LEN
+    tokens = rng.integers(0, 20, size=(b, n)).astype(np.int8)
+    staged = scanner.stage(tokens, np.full(b, n, dtype=np.int32))
+    post = chip_smoke.posterior_cuda
+    out = {}
+    for hmm in (chip_smoke.wide_profiles()[1], *chip_smoke.mem_profiles(),
+                chip_smoke.msv_mem_profile()):
+        p7 = chip_smoke.P7Profile.from_profile(hmm)
+        fpack = chip_smoke.p7_cuda.forward_pack(p7, scanner.device)
+        schain = post.suffix_chain_rows(p7, scanner.device)
+        fwd_in = (*fpack[:4], staged.tokens, staged.lengths, staged.tr_rows, staged.tr_probs,
+                  fpack.consts, *chip_smoke.p7_cuda.forward_init_carry(staged.tr_probs,
+                                                                       fpack.m_pad))
+        saved = post.forward_save_scan_cuda(*fwd_in)
+        bwd_in = (fpack.emit_m, fpack.emit_i, fpack.trans, schain, staged.tokens, staged.lengths,
+                  staged.tr_probs, fpack.consts, saved[0], saved[5], saved[6])
+        cells = b * n * p7.num_states
+        for name, fn, args, ops, moved in (
+                ("forward_save_scan", post.forward_save_scan_cuda, fwd_in,
+                 chip_smoke.OPS_PER_CELL["forward"](fpack.chain.shape[0]), (*fwd_in, *saved)),
+                ("backward_coverage_scan", post.backward_coverage_scan_cuda, bwd_in,
+                 chip_smoke.OPS_PER_CELL["backward"](schain.shape[0]),
+                 (*bwd_in, saved[0]))):
+            ms = chip_smoke.best_ms(lambda: fn(*args), reps=3)
+            key = f"{name}_{p7.num_states}"
+            out[key] = (ms, float("nan"))
+            work[key] = (ops * cells, chip_smoke.nbytes(*moved))
+            print(f"{key}: {ms:.3f} ms (best of 3, {b} x {n} x M={p7.num_states})", flush=True)
+        del saved, bwd_in
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(pathlib.Path(__file__).resolve().parent.parent))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--mem", action="store_true")
+    ap.add_argument("--posterior", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
     import torch
@@ -94,11 +139,15 @@ def main() -> int:
     if args.check:
         chip_smoke.wide_kernels_vs_plain(scanner, rng, errors)
     work = {}
-    out = chip_smoke.wide_timings(scanner, rng, errors, work)
+    if args.posterior:
+        out = posterior_rows_past(chip_smoke, scanner, rng, work)
+    else:
+        out = chip_smoke.wide_timings(scanner, rng, errors, work)
     if args.mem:
         out.update(chip_smoke.mem_timings(scanner, rng, errors, work))
         if not hasattr(chip_smoke, "P7_CLUSTER_WRAPPERS"):
             out.update(p7_rows_30181(chip_smoke, scanner, rng, work))
+
     for name, (ms, plain_ms) in out.items():
         b_ms, b_by = chip_smoke.bound(*work[name])
         print(json.dumps({"label": args.label, "kernel": name, "ms": ms, "plain_ms": plain_ms,
