@@ -13,7 +13,8 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    block size W they are compiled for; the cluster kernels,
    `msv_kernel<PER,true,...>` (every C), `viterbi_pair_kernel`,
    `forward_pair_kernel`, `viterbi_cluster_kernel` and
-   `forward_cluster_kernel` (every C)), the launch plan of each MSV case at the timed
+   `forward_cluster_kernel` (every C), and the eager and log-space wide
+   block, `viterbi_block_kernel`), the launch plan of each MSV case at the timed
    shapes (W, grid, dynamic shared memory, with the registers and spill
    bytes of that kernel; the wide profiles' cluster pairs and the joins'
    C-block clusters, C = 3, 13, 5, 8, 9, with their clusters and
@@ -86,13 +87,14 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    p7 kernel past 4864 states against its plain version on the same kind
    of batch (mem_kernels_vs_plain: the lazy Viterbi, the Viterbi filter,
    Forward, the row-saving Forward and the backward pass on their 3- and
-   13-block clusters, the eager and log-space Forward in memory; eager,
-   lazy and the Viterbi filter bit for bit, the lazy kernel also at lazy_k
-   = 1 with its fire count printed and above 0, Forward, log-space Forward
-   and the posterior pair within their tolerances, the launch counters
-   showing each kind at its case alone), and the LENG 60362 join through
-   the lazy, filter, Forward and backward kinds' rows-in-memory cases the
-   same way;
+   13-block clusters, the eager Viterbi and the log-space Forward on the
+   wide block at LENG 6977 and in memory at 30181; eager (scores and
+   carries, and a carry chain), lazy and the Viterbi filter bit for bit,
+   the lazy kernel also at lazy_k = 1 with its fire count printed and above
+   0, Forward, log-space Forward and the posterior pair within their
+   tolerances, the launch counters showing each kind at its case alone),
+   and the LENG 60362 join through the eager, lazy, filter, log-space,
+   Forward and backward kinds' rows-in-memory cases the same way;
 9. main paths, each with every launch count set to 0 just before it and
    read just after, on a seeded FASTA of 16384 x 3500 random residues with
    32 sequences sampled from 1400.hmm and 4 from the LENG 4770 profile at
@@ -125,7 +127,8 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    the LENG 60362 one (the stacked kernel's 3- and 13-block clusters and
    its rows-in-memory case), `scan` and MSVScanner.scan_filter with the
    LENG 60362 join (the MSV rows-in-memory cases), the eager and log-space
-   entry points on the planted rows, and the lazy Viterbi, Viterbi filter,
+   entry points on the planted rows (the wide block, none in memory), and
+   the eager Viterbi, lazy Viterbi, Viterbi filter, Forward, log-space
    Forward and posterior entry points with the LENG 60362 join (their
    rows-in-memory cases past 38,912 states);
    survivor counts and per-phase seconds printed;
@@ -153,11 +156,14 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    MSV rows-in-memory case against the LENG 60362 join at 256 x 1000; the
    p7 kernels at 64 x 1000 and the posterior pair at 64 x 1024 against the
    LENG 6977 join (the lazy Viterbi, the Viterbi filter, Forward, the
-   row-saving Forward and the backward pass on 3-block clusters, best of
-   3; the eager and log-space Forward in memory, once), the five on
-   13-block clusters against the LENG 30181 join (`<kernel>_cluster_30181`,
-   best of 3) and in memory against the LENG 60362 join, once; the parent's
-   time beside each), each plain version once. Each kernel's bound is the larger
+   row-saving Forward and the backward pass on 3-block clusters, the eager
+   Viterbi and the log-space Forward on the wide block, best of 3, both
+   also at build's calibration shape, 256 x 400, `<kernel>_block_cal`), the
+   five on 13-block clusters against the LENG 30181 join
+   (`<kernel>_cluster_30181`, best of 3) with the eager and log-space
+   Forward in memory there (`<kernel>_mem_30181`, once), and the seven in
+   memory against the LENG 60362 join, once; the parent's time beside
+   each), each plain version once. Each kernel's bound is the larger
    of its FP32 operations (counted a cell from its source) at 67 TFLOP/s
    and the bytes it must move (each input once, each output once) at 3.35
    TB/s, at the timed shape;
@@ -187,7 +193,10 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    lines, which agree within MU_TOL (MSV and Viterbi mu) and TAU_TOL
    (Forward tau) bits; the card's calibration traced (its kernel time and
    busy share); calibrate_profile on the LENG 4770 join (the three wide
-   cases, held against plain in phase 8); on phase 9's database `scan --stage
+   cases, held against plain in phase 8) and on the LENG 6977 join (MSV's
+   3-block cluster, the eager and log-space wide block, none in memory; its
+   seconds, and its STATS within MU_TOL / TAU_TOL of the same calibration
+   through the plain versions on the card); on phase 9's database `scan --stage
    search --align --msa-out` (every planted row a hit with an alignment
    inside its sequence, the MSA a row a domain), with --domains (the
    envelope rows kept, the alignments unchanged) and with --stream 4096
@@ -251,7 +260,8 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
 Prints a JSON line about the kernels (every case, the wide ones as
 `<kernel>_wide`, the C-block clusters past 4864 states (the MSV kernels',
 the lazy Viterbi's, the Viterbi filter's, Forward's and the row-saving
-Forward's) as `<kernel>_cluster`, the rows-in-memory ones as
+Forward's) as `<kernel>_cluster`, the eager and log-space wide block as
+`<kernel>_block`, the rows-in-memory ones as
 `<kernel>_mem`), then the card's
 name and power limit and, last,
 {"ok": true, ...}. Any failed check raises, and the script exits
@@ -402,32 +412,37 @@ PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # phase 10's wide cases and cases past 4864 states at the parent commit
-# c1cdcdd (before the backward pass's pair and C-block clusters): its times
-# of each at the same shapes (the faster of two runs of
-# tools/torch_wide_timing.py --mem on that commit's `git archive` in one
-# call, on PARENT_CARD; the posterior pair past 4864 states from --posterior
-# in another, at 64 x 1024 residues run); the backward rows past 4864
-# (`_cluster`, `_cluster_30181`) were its rows-in-memory case there
+# 1800209 (before the eager and log-space wide block): the wide rows and
+# the eager and log-space rows past 4864 states are the faster of its two
+# runs of tools/torch_wide_timing.py (at its defaults, and with --block:
+# the rows-in-memory case there) on its `git archive`, in one call on
+# PARENT_CARD with this tree's two runs between them; the other rows past
+# 4864 are its final chip_smoke.py run (PERF.md §6, the same card model)
 PARENT_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PARENT_WIDE_MS = {
-    "msv_scan_wide": 6.339, "msv_filter_scan_wide": 6.322, "msv_stacked_scan_wide": 10.587,
-    "viterbi_lazy_scan_wide": 9.158, "viterbi_scan_wide": 60.371,
-    "viterbi_filter_scan_wide": 8.958, "forward_log_scan_wide": 228.911,
-    "forward_prob_scan_wide": 14.387, "forward_save_scan_wide": 4.504,
-    "backward_coverage_scan_wide": 20.511,
-    "msv_scan_cluster": 3.847, "msv_filter_scan_cluster": 3.843,
-    "msv_stacked_scan_cluster": 21.72,
-    "msv_scan_mem": 74.618, "msv_filter_scan_mem": 72.907, "msv_stacked_scan_mem": 74.508,
-    "viterbi_lazy_scan_cluster": 5.517, "viterbi_scan_mem": 29.294,
-    "viterbi_filter_scan_cluster": 5.847, "forward_log_scan_mem": 57.009,
-    "forward_prob_scan_cluster": 9.891, "forward_save_scan_cluster": 10.649,
-    "backward_coverage_scan_cluster": 21.699,
-    "viterbi_lazy_scan_cluster_30181": 68.638, "viterbi_filter_scan_cluster_30181": 80.206,
-    "forward_prob_scan_cluster_30181": 95.061, "forward_save_scan_cluster_30181": 105.556,
-    "backward_coverage_scan_cluster_30181": 158.497,
-    "viterbi_lazy_scan_mem": 507.161, "viterbi_filter_scan_mem": 312.174,
-    "forward_prob_scan_mem": 330.649, "forward_save_scan_mem": 352.106,
-    "backward_coverage_scan_mem": 335.47,
+    "msv_scan_wide": 6.376, "msv_filter_scan_wide": 6.331, "msv_stacked_scan_wide": 10.596,
+    "viterbi_lazy_scan_wide": 9.204, "viterbi_scan_wide": 60.41,
+    "viterbi_filter_scan_wide": 8.954, "forward_log_scan_wide": 228.23,
+    "forward_prob_scan_wide": 14.388, "forward_save_scan_wide": 4.503,
+    "backward_coverage_scan_wide": 4.752,
+    "msv_scan_cluster": 3.869, "msv_filter_scan_cluster": 3.867,
+    "msv_stacked_scan_cluster": 21.799,
+    "msv_scan_mem": 74.714, "msv_filter_scan_mem": 72.806, "msv_stacked_scan_mem": 74.609,
+    "viterbi_lazy_scan_cluster": 5.565, "viterbi_filter_scan_cluster": 5.856,
+    "forward_prob_scan_cluster": 9.957, "forward_save_scan_cluster": 10.721,
+    "backward_coverage_scan_cluster": 10.988,
+    "viterbi_lazy_scan_cluster_30181": 69.063, "viterbi_filter_scan_cluster_30181": 80.71,
+    "forward_prob_scan_cluster_30181": 95.764, "forward_save_scan_cluster_30181": 106.307,
+    "backward_coverage_scan_cluster_30181": 100.508,
+    "viterbi_lazy_scan_mem": 501.385, "viterbi_filter_scan_mem": 311.669,
+    "forward_prob_scan_mem": 335.946, "forward_save_scan_mem": 353.977,
+    "backward_coverage_scan_mem": 332.131,
+    # the parent's rows-in-memory case at LENG 6977 (64 x 1000, and build's
+    # calibration shape, 256 x 400), LENG 30181 and LENG 60362 (64 x 1000)
+    "viterbi_scan_block": 29.226, "forward_log_scan_block": 56.56,
+    "viterbi_scan_block_cal": 27.085, "forward_log_scan_block_cal": 55.77,
+    "viterbi_scan_mem_30181": 233.054, "forward_log_scan_mem_30181": 327.749,
+    "viterbi_scan_mem": 522.086, "forward_log_scan_mem": 707.063,
 }
 
 # the sweep timing batch (sweep24, sweep24_filter) and the profiles the plain
@@ -494,14 +509,28 @@ CLUSTER_WRAPPERS = MSV_WRAPPERS + P7_CLUSTER_WRAPPERS
 # global memory): its own JSON line, its launches counted by the wrapper's
 # mem_launches
 MEM = "_mem"
+# the eager Viterbi's and the log-space Forward's cases past 4864 states up
+# to p7_cuda.MAX_BLOCK_STATES (the wide block: one 1024-thread block a
+# sequence, the rows in registers): their own JSON lines, their launches
+# counted by the wrapper's block_launches; past that their rows-in-memory
+# case (`_mem`, timed against the LENG 60362 join as the other kinds' are)
+BLOCK = "_block"
+BLOCK_WRAPPERS = ("viterbi_scan", "forward_log_scan")
+# build's calibration shape (models/build.py::calibrate_profile at LENG >=
+# 400): the wide block timed there too (`<kernel>_block_cal`)
+CAL_BATCH, CAL_LEN = 256, 400
+MAX_BLOCK = p7_cuda.MAX_BLOCK_STATES
 KERNELS.update({
     **{name + WIDE: (source, replaces, f"{mode}; M_pad 2440..4864")
        for name, (source, replaces, mode) in KERNELS.items()},
     **{name + CLUSTER: (source, replaces, f"{mode}; M_pad 4872..38912, C-block clusters")
        for name, (source, replaces, mode) in KERNELS.items() if name in CLUSTER_WRAPPERS},
+    **{name + BLOCK: (source, replaces, f"{mode}; M_pad 4872..{p7_cuda.MAX_BLOCK_STATES}, "
+                      f"the wide block ({p7_cuda.BLOCK_THREADS} threads a sequence)")
+       for name, (source, replaces, mode) in KERNELS.items() if name in BLOCK_WRAPPERS},
     **{name + MEM: (source, replaces, f"{mode}; M_pad past "
-                    f"{msv_cuda.MAX_CLUSTER_STATES if name in CLUSTER_WRAPPERS else 4864}, rows "
-                    "in global memory")
+                    f"{msv_cuda.MAX_CLUSTER_STATES if name in CLUSTER_WRAPPERS else MAX_BLOCK}, "
+                    "rows in global memory")
        for name, (source, replaces, mode) in KERNELS.items()},
 })
 
@@ -617,6 +646,7 @@ def launches() -> dict:
             **{name + WIDE: fn.wide_launches for name, fn in WRAPPERS.items()},
             **{name + CLUSTER: sum(n for c, n in WRAPPERS[name].cluster_launches.items() if c > 2)
                for name in CLUSTER_WRAPPERS},
+            **{name + BLOCK: WRAPPERS[name].block_launches for name in BLOCK_WRAPPERS},
             **{name + MEM: fn.mem_launches for name, fn in WRAPPERS.items()}}
 
 
@@ -826,7 +856,7 @@ def ptxas_summary(log: str) -> list[str]:
         # the kernel's own name follows its length; the file's anonymous
         # namespace may hold the source's name too
         case = re.search(r"(?<=\d)(msv|viterbi|forward|filter|backward)"
-                         r"((?:_mem|_bounded|_pair|_cluster)?)_kernel(?:I(\w+))?",
+                         r"((?:_mem|_bounded|_pair|_cluster|_block)?)_kernel(?:I(\w+))?",
                          entry.split("'")[1])
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
@@ -1821,8 +1851,22 @@ def cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
 
 def case_suffix(plan) -> str:
     """The JSON row suffix of a p7 case past 4864 states: CLUSTER for a
-    C-block cluster, MEM for the rows-in-memory case."""
-    return CLUSTER if plan.cluster > p7_cuda.CLUSTER else MEM
+    C-block cluster, BLOCK for the wide block, MEM for the rows-in-memory
+    case."""
+    if plan.cluster > p7_cuda.CLUSTER:
+        return CLUSTER
+    return BLOCK if plan.block else MEM
+
+
+def expected_case(m_pad: int, kind: str) -> tuple[int, int]:
+    """(cluster, threads) of the plan ``kind`` takes past 4864 states: its
+    C-block cluster, the wide block or the rows-in-memory case."""
+    c = p7_cuda.cluster_blocks(m_pad, kind)
+    if c > 1:
+        return c, p7_cuda.KERNEL_THREADS
+    if p7_cuda.block_case(m_pad, kind):
+        return p7_cuda.BLOCK_CLUSTER, p7_cuda.BLOCK_THREADS
+    return 1, p7_cuda.MEM_THREADS
 
 
 def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
@@ -1830,10 +1874,10 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     every p7 kernel past 4864 states against its plain version on a ragged
     batch of WIDE_BATCH sequences up to WIDE_LEN residues: the lazy Viterbi,
     the Viterbi filter, Forward, the row-saving Forward and the backward
-    pass on their C-block clusters, the eager and log-space Forward in
-    memory; then the all-24 join twice over (LENG 60362, past 38,912)
-    through the lazy, filter, Forward and backward kinds' rows-in-memory
-    cases. Eager,
+    pass on their C-block clusters, the eager Viterbi and the log-space
+    Forward on the wide block (LENG 6977) and in memory (30181); then the
+    all-24 join twice over (LENG 60362, past 38,912) through every kind's
+    rows-in-memory case. Eager,
     lazy (replay counts included) and the Viterbi filter bit for bit, the
     filter >= the exact scores; the lazy kernel again at lazy_k = 1, whose
     certificate fires below 16 chain passes (the fire count printed, above
@@ -1842,10 +1886,10 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     eager and Forward carry chains == one call; the backward pass on the
     kernel's own rows within COV_TOL of plain and the whole decode within
     COV_TOL / TOT_TOL. Each kind must launch its case and no other (the
-    launch counters: cluster_launches by C, mem_launches)."""
+    launch counters: cluster_launches by C, block_launches, mem_launches)."""
     staged = ragged_wide_batch(scanner, rng)
-    joins = [(hmm, ("eager", "lazy", "forward", "filter", "log", "save")) for hmm in mem_profiles()]
-    joins.append((msv_mem_profile(), ("lazy", "forward", "filter", "save")))
+    kinds = ("eager", "lazy", "forward", "filter", "log", "save")
+    joins = [(hmm, kinds) for hmm in mem_profiles() + [msv_mem_profile()]]
     for hmm, kinds in joins:
         p7 = P7Profile.from_profile(hmm)
         m_pad = p7_cuda.default_m_pad(p7)
@@ -1861,16 +1905,14 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
             want[kind] = run(PLAIN_FNS[base], staged.tokens, staged.lengths, carry)
             plan = p7_cuda.device_plan(base, m_pad, passes_of(base, packs[kind]), WIDE_BATCH,
                                        DEVICE)
-            c = p7_cuda.cluster_blocks(m_pad, base)
-            require((plan.cluster, plan.threads) == ((c, 128) if c > 1 else (1, 1024)),
-                    f"{hmm.name[:40]} {base}: plan {plan}, expected "
-                    f"{f'a {c}-block cluster' if c > 1 else 'the rows-in-memory case'}")
+            require((plan.cluster, plan.threads) == expected_case(m_pad, base),
+                    f"{hmm.name[:40]} {base}: plan {plan}, expected (cluster, threads) "
+                    f"{expected_case(m_pad, base)}")
             cases[base] = case_suffix(plan)
         l_err = require_equal(got["lazy"], want["lazy"], f"{hmm.name[:40]} lazy kernel vs plain")
         plan = p7_cuda.device_plan("backward", m_pad, passes_of("backward", packs["forward"]),
                                    WIDE_BATCH, DEVICE)
-        c = p7_cuda.cluster_blocks(m_pad, "backward")
-        require((plan.cluster, plan.threads) == ((c, 128) if c > 1 else (1, 1024)),
+        require((plan.cluster, plan.threads) == expected_case(m_pad, "backward"),
                 f"{hmm.name[:40]} backward: plan {plan}")
         cases["backward"] = case_suffix(plan)
         k1_err = require_equal(got["lazy_k1"], want["lazy_k1"],
@@ -1908,7 +1950,8 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
             g_err = max_abs_diff(got["log"][0], want["log"][0])
             require(g_err <= LOG_FWD_TOL, f"{hmm.name[:40]} log-space Forward vs plain: {g_err}")
             found += [("viterbi_scan", "eager", max(e_err, e_chain)), ("forward_log_scan", "log", g_err)]
-            text = f"eager max|d|={e_err} chain {e_chain} (== lazy), log-space {g_err:.3g}, "
+            text = (f"eager{cases['eager']} max|d|={e_err} chain {e_chain} (== lazy), "
+                    f"log-space{cases['log']} {g_err:.3g}, ")
         for name, kind, e in found:
             key = name + cases[kind]
             errors[key] = max(errors[key], e)
@@ -1920,8 +1963,12 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
                 require(set(by_c[name]) == {c} and got_l[name + MEM] == 0,
                         f"{hmm.name[:40]} {name}: launches {got_l}, by C {by_c[name]}; expected "
                         f"the {c}-block cluster only")
+            elif p7_cuda.block_case(m_pad, kind):
+                require(got_l[name + BLOCK] > 0 and got_l[name + MEM] == 0,
+                        f"{hmm.name[:40]} {name}: not the wide block ({got_l})")
             else:
-                require(got_l[name + MEM] > 0 and not by_c.get(name),
+                require(got_l[name + MEM] > 0 and not by_c.get(name)
+                        and got_l.get(name + BLOCK, 0) == 0,
                         f"{hmm.name[:40]} {name}: not the rows-in-memory case ({got_l})")
         print(f"past 4864 states {hmm.name[:40]} (M {p7.num_states}, {passes} chain passes, "
               f"cases {cases}): B={WIDE_BATCH} L<={WIDE_LEN} {text}lazy(k="
@@ -1947,9 +1994,10 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     (MSV) and MSVScanner.scan_filter with that join (LENG 60362: the MSV
     kernels' rows-in-memory case), on the planted rows the entry points
     viterbi_scores(lazy=False) (eager) and forward_scores(prob_space=False)
-    (log-space), and on MEM_PLANTED rows the entry points of the lazy
-    Viterbi, the Viterbi filter, Forward and the posterior decode with the
-    LENG 60362 join (their rows-in-memory cases past 38,912 states)."""
+    (log-space) on the wide block, and on MEM_PLANTED rows the entry points
+    of the eager and lazy Viterbi, the Viterbi filter, Forward, the
+    log-space Forward and the posterior decode with the LENG 60362 join
+    (their rows-in-memory cases past 38,912 states)."""
     hmm_dir = tmp / "hmms_mem"
     hmm_dir.mkdir()
     joins = mem_profiles() + [msv_mem_profile()]
@@ -2065,12 +2113,14 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     log_s = forward_scores(p7, tokens[planted, :l_max], lengths[planted], device=DEVICE,
                            prob_space=False).cpu().numpy()
     got = launches()
-    for name in ("viterbi_scan", "forward_log_scan"):
-        require(got[name + MEM] > 0, f"the entry points did not launch {name}'s memory case")
-        counts[name + MEM] = got[name + MEM]
+    for name in BLOCK_WRAPPERS:
+        require(got[name + BLOCK] > 0 and got[name + MEM] == 0,
+                f"the entry points did not launch {name}'s wide block alone ({got})")
+        counts[name + BLOCK] = got[name + BLOCK]
     require(np.isfinite(vit_s).all() and np.isfinite(log_s).all(),
-            "rows-in-memory entry points: non-finite scores")
-    print(f"main path rows in memory, entries on the {MEM_PLANTED} planted rows: Viterbi (eager) "
+            "wide block entry points: non-finite scores")
+    print(f"main path past 4864 states, entries on the {MEM_PLANTED} planted rows (the wide "
+          f"block): Viterbi (eager) "
           f"{np.round(vit_s, 2).tolist()}, log-space Forward {np.round(log_s, 2).tolist()} in "
           f"{time.perf_counter() - t0:.3f} s; launches {got}")
 
@@ -2081,22 +2131,29 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     zero_launches()
     t0 = time.perf_counter()
     lazy_s = viterbi_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE).cpu().numpy()
+    eager_s = viterbi_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE,
+                             lazy=False).cpu().numpy()
     filt_s = viterbi_filter_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE)
     fwd_s = forward_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE).cpu().numpy()
+    log_s = forward_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE,
+                           prob_space=False).cpu().numpy()
     cov, _ = posterior_cuda.posterior_coverage_batch(big_p7, tokens[rows], lengths[rows], DEVICE)
     got = launches()
-    for name in ("viterbi_lazy_scan", "viterbi_filter_scan", "forward_prob_scan",
-                 "forward_save_scan", "backward_coverage_scan"):
-        require(got[name + MEM] > 0 and got.get(name + CLUSTER, 0) == 0,
+    for name in ("viterbi_lazy_scan", "viterbi_scan", "viterbi_filter_scan", "forward_prob_scan",
+                 "forward_log_scan", "forward_save_scan", "backward_coverage_scan"):
+        require(got[name + MEM] > 0 and got.get(name + CLUSTER, 0) == 0
+                and got.get(name + BLOCK, 0) == 0,
                 f"the entry points past 38,912 states did not launch {name}'s memory case alone "
                 f"({got})")
         counts[name + MEM] = counts.get(name + MEM, 0) + got[name + MEM]
     require_geq(filt_s, torch.from_numpy(lazy_s), "Viterbi filter past 38,912 states vs lazy")
-    require(np.isfinite(lazy_s).all() and np.isfinite(fwd_s).all() and np.isfinite(cov).all(),
-            "entry points past 38,912 states: non-finite scores")
+    require(np.array_equal(eager_s, lazy_s), "eager Viterbi past 38,912 states vs lazy")
+    require(np.isfinite(lazy_s).all() and np.isfinite(fwd_s).all() and np.isfinite(cov).all()
+            and np.isfinite(log_s).all(), "entry points past 38,912 states: non-finite scores")
     print(f"main path past 38,912 states (M {big_p7.num_states}), entries on {MEM_PLANTED} rows: "
-          f"lazy Viterbi {np.round(lazy_s, 2).tolist()}, the filter >= it, Forward "
-          f"{np.round(fwd_s, 2).tolist()}, posterior coverage finite, in "
+          f"lazy Viterbi {np.round(lazy_s, 2).tolist()}, the eager Viterbi == it, the filter >= "
+          f"it, Forward {np.round(fwd_s, 2).tolist()}, log-space Forward "
+          f"{np.round(log_s, 2).tolist()}, posterior coverage finite, in "
           f"{time.perf_counter() - t0:.3f} s; launches {got}")
     return counts
 
@@ -2151,29 +2208,29 @@ P7_PAST = (("viterbi_lazy_scan", "lazy"), ("viterbi_scan", "eager"),
 
 
 def p7_timings_past(scanner, hmm, tokens, kinds, errors: dict, work: dict,
-                    label: str = "") -> dict:
+                    label: str = "", shape: tuple[int, int] | None = None) -> dict:
     """The p7 cases of ``kinds`` (of P7_PAST's, "save" and "backward")
     against ``hmm`` past 4864 states: the Viterbi and Forward kinds at
-    SURVIVOR_BATCH x MEM_TIME_LEN, the posterior pair at SURVIVOR_BATCH x
-    POST_TIME_LEN, on the first rows of ``tokens``; a C-block cluster best of
-    3, a rows-in-memory case once, each after a warm-up; each plain version
-    once, held against the kernel; the rows ``<kernel>_cluster<label>`` or
-    ``<kernel>_mem<label>`` by the case that ran, the parent's time beside
-    each (PARENT_WIDE_MS)."""
+    ``shape`` (SURVIVOR_BATCH x MEM_TIME_LEN), the posterior pair at
+    SURVIVOR_BATCH x POST_TIME_LEN, on the first rows of ``tokens``; a
+    C-block cluster and the wide block best of 3, a rows-in-memory case
+    once, each after a warm-up; each plain version once, held against the
+    kernel; the rows ``<kernel>_cluster<label>``, ``<kernel>_block<label>``
+    or ``<kernel>_mem<label>`` by the case that ran, the parent's time
+    beside each (PARENT_WIDE_MS)."""
     p7 = P7Profile.from_profile(hmm)
     packs = p7_packs(p7, scanner.device)
-    few = scanner.stage(tokens[:SURVIVOR_BATCH, :MEM_TIME_LEN],
-                        np.full(SURVIVOR_BATCH, MEM_TIME_LEN, dtype=np.int32))
+    rows, length = shape or (SURVIVOR_BATCH, MEM_TIME_LEN)
+    few = scanner.stage(tokens[:rows, :length], np.full(rows, length, dtype=np.int32))
     few_cells = few.total_residues * p7.num_states
     out = {}
     for name, kind in P7_PAST:
         if kind not in kinds:
             continue
         pack = packs[kind]
-        plan = p7_cuda.device_plan(kind, pack.m_pad, passes_of(kind, pack), SURVIVOR_BATCH,
-                                   DEVICE)
+        plan = p7_cuda.device_plan(kind, pack.m_pad, passes_of(kind, pack), rows, DEVICE)
         key = name + case_suffix(plan) + label
-        reps = 3 if plan.cluster > 1 else 1
+        reps = 1 if plan.mem else 3
         run, carry = p7_calls(kind, pack, few)
         ms = best_ms(lambda: run(CUDA_FNS[kind], few.tokens, few.lengths, carry), reps=reps)
         got = run(CUDA_FNS[kind], few.tokens, few.lengths, carry)
@@ -2189,8 +2246,8 @@ def p7_timings_past(scanner, hmm, tokens, kinds, errors: dict, work: dict,
         inputs = (*pack[:4], pack.consts, few.tokens, few.lengths, few.tr_rows, *carry)
         work[key] = (OPS_PER_CELL[kind](passes_of(kind, pack)) * few_cells, nbytes(*inputs, *got))
         print(f"{key}: {few_cells / ms / 1e6:.2f} GCUPS ({ms:.3f} ms, best of {reps}, "
-              f"{SURVIVOR_BATCH} x {MEM_TIME_LEN} x M={p7.num_states}; "
-              f"{plan_text(kind, pack, SURVIVOR_BATCH)}); plain version {plain_ms:.3f} ms "
+              f"{rows} x {length} x M={p7.num_states}; "
+              f"{plan_text(kind, pack, rows)}); plain version {plain_ms:.3f} ms "
               f"(once), kernel vs plain max|d|={err:.3g}; {versus_parent(key, ms, work)}",
               flush=True)
     if "save" not in kinds:
@@ -2255,10 +2312,13 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
     the stacked kernel over it alone; the p7 cases (p7_timings_past) against
     the three-profile join (the lazy Viterbi, the Viterbi filter, Forward,
     the row-saving Forward and the backward pass on 3-block clusters, the
-    eager and log-space Forward in memory), the all-24 join (the five on
-    13-block clusters, rows ``<kernel>_cluster_30181``) and the LENG 60362
-    join (the five's rows-in-memory cases); each plain version once, held
-    against the kernel; the parent's time beside each (PARENT_WIDE_MS)."""
+    eager Viterbi and the log-space Forward on the wide block, these two
+    also at CAL_BATCH x CAL_LEN, rows ``<kernel>_block_cal``), the all-24
+    join (the five on 13-block clusters, rows ``<kernel>_cluster_30181``,
+    the eager and log-space Forward in memory, ``<kernel>_mem_30181``) and
+    the LENG 60362 join (the seven's rows-in-memory cases); each plain
+    version once, held against the kernel; the parent's time beside each
+    (PARENT_WIDE_MS)."""
     hmms = mem_profiles()
     # wide enough for the posterior pair's POST_TIME_LEN residues
     tokens = rng.integers(0, 20, size=(WIDE_MSV_BATCH, max(MEM_TIME_LEN, POST_TIME_LEN)))
@@ -2272,10 +2332,14 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
     out.update(msv_timings_past(scanner, [MSVProfile.from_profile(msv_mem_profile())],
                                 past, MEM, 1, errors, work))
     clustered = ("lazy", "forward", "filter", "save", "backward")
-    out.update(p7_timings_past(scanner, hmms[0], tokens, clustered + ("eager", "log"),
-                               errors, work))
-    out.update(p7_timings_past(scanner, hmms[1], tokens, clustered, errors, work, "_30181"))
-    out.update(p7_timings_past(scanner, msv_mem_profile(), tokens, clustered, errors, work))
+    blocked = ("eager", "log")
+    out.update(p7_timings_past(scanner, hmms[0], tokens, clustered + blocked, errors, work))
+    out.update(p7_timings_past(scanner, hmms[0], tokens, blocked, errors, work, "_cal",
+                               (CAL_BATCH, CAL_LEN)))
+    out.update(p7_timings_past(scanner, hmms[1], tokens, clustered + blocked, errors, work,
+                               "_30181"))
+    out.update(p7_timings_past(scanner, msv_mem_profile(), tokens, clustered + blocked, errors,
+                               work))
     return out
 
 
@@ -2802,6 +2866,47 @@ def build_path(tmp: pathlib.Path) -> None:
             "the LENG 4770 calibration: non-finite STATS")
     print(f"calibrate_profile LENG 4770 (256 x 400) on the card: {card_s:.3f} s; "
           f"{stats_text(got_wide)}; launches {nonzero(got)}")
+
+    # past 4864 states: MSV's 3-block cluster and the eager and log-space
+    # wide block, against the same calibration through the plain versions
+    join = mem_profiles()[0]
+    zero_launches()
+    t0 = time.perf_counter()
+    got_join = calibrate_profile(join, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    got = launches()
+    require(got["msv_scan" + CLUSTER] >= 1, f"the LENG 6977 calibration: launches {got}")
+    for name in BLOCK_WRAPPERS:
+        require(got[name + BLOCK] >= 1 and got[name + MEM] == 0,
+                f"the LENG 6977 calibration did not launch {name}'s wide block alone ({got})")
+    t0 = time.perf_counter()
+    with plain_scans():
+        want_join = calibrate_profile(join, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = require_stats_close(got_join, want_join, "calibrate_profile LENG 6977")
+    print(f"calibrate_profile LENG 6977 (256 x 400) on the card: {card_s:.3f} s (the plain "
+          f"versions on the card: {plain_s:.3f} s); {stats_text(got_join)}; plain "
+          f"{stats_text(want_join)}; max |d| {err:.3g} bits; launches {nonzero(got)}")
+
+
+@contextlib.contextmanager
+def plain_scans():
+    """The MSV, eager Viterbi and log-space Forward kernel wrappers (build's
+    calibration) replaced by their plain versions, which take CUDA tensors:
+    a plain reference of the calibration on the card, on the same tensors."""
+    swaps = ((msv_cuda, "msv_scan_cuda", msv_cuda.msv_scan_plain),
+             (p7_cuda, "viterbi_scan_cuda", p7_cuda.viterbi_scan_plain),
+             (p7_cuda, "forward_log_scan_cuda", p7_cuda.forward_log_scan_plain))
+    saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
 
 
 def alignment_rows(path: pathlib.Path) -> dict:

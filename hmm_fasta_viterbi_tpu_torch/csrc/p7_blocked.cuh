@@ -6,8 +6,10 @@
 // and the C-block cluster's, which the lazy, filter, Forward and backward
 // cases run on past 2 * 2432 = 4864 states, each with its mirror toward
 // lower j (the backward pass's), with the step's shift and reduction
-// wrappers and the clusters' launches; and the rows-in-memory case's
-// helpers (at the end).
+// wrappers and the clusters' launches; the wide block's cases and shared
+// memory (the eager and log-space cases past 4864 states, one block of
+// kBlockThreads a sequence; block_reduce is its reduction); and the
+// rows-in-memory case's helpers (at the end).
 //
 // A block holds G groups of KT = 128 threads (M_pad <= 128 * 19 = 2432;
 // wider cases run on the clusters, below); G = blockDim.x / KT, at
@@ -465,6 +467,28 @@ __device__ __forceinline__ float group_reduce(float v, float* red, int t, int ba
   if ((t & 31) == 0) red[t >> 5] = v;
   group_sync<KT>(bar);
   return combine_warps<SUM, KT>(red);
+}
+
+// The same for the wide block's one group of KT = 512 or 1024 threads: a
+// warp butterfly, then lane l of every warp takes warp (l mod KT / 32)'s
+// value from `red` and a butterfly over the lanes combines the KT / 32 of
+// them in a fixed order. Every thread gets the same value bit for bit: a
+// butterfly's two partners compute each combine with its operands swapped,
+// and the max and the sum are commutative.
+template <bool SUM, int KT>
+__device__ __forceinline__ float block_reduce(float v, float* red, int t, int bar) {
+  constexpr int W = warps<KT>();
+  static_assert(W >= 2 && W <= 32 && (W & (W - 1)) == 0, "a block of 2..32 warps");
+  v = warp_reduce<SUM>(v);
+  if ((t & 31) == 0) red[t >> 5] = v;
+  group_sync<KT>(bar);
+  v = red[t & (W - 1)];
+#pragma unroll
+  for (int off = W / 2; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(kFullMask, v, off);
+    v = SUM ? v + o : fmaxf(v, o);
+  }
+  return v;
 }
 
 // Group-wide sums of two values a thread, each combined as group_reduce
@@ -1739,10 +1763,61 @@ constexpr int kClusterSlots = 7;  // per-case tables of the C-block cluster: [pe
 __host__ inline int case_slot(int per) { return per - 1; }
 constexpr int kCaseSlots = 19;
 
+// -- the wide block -------------------------------------------------------------
+//
+// Past 2 * 2432 = 4864 states, up to kBlockThreads * kBlockPerMax, the eager
+// and log-space cases (p7_viterbi.cuh::viterbi_block_kernel) run one group
+// of KT = kBlockThreads threads a block, one sequence a block, in the
+// normal-width layout: thread t holds states t * PER + k in registers, a
+// shift below PER moves registers and a halo and a larger one reads the
+// whole row from shared memory after the block's barrier, as a group of 128
+// does. Its dynamic shared memory, in floats: n_rows staged rows (the
+// transitions first, then chain rows, as many as fit), then the group: two
+// shift rows, the current step's (match, insert) emission rows (one step,
+// not two: the next step's are copied in once the second shift has passed
+// the last reader), the reduction scratch and the token chunk. The rows left
+// unstaged are read from their thread-major copy in global memory. The C
+// entries name the case by `cluster` 0 (the rows-in-memory case has
+// kMemThreads = 1024 threads too). kBlockPerMax is the widest case whose
+// rows the block's registers hold: at 64 registers a thread every case
+// from 6 states a thread spills a little, about 100 bytes a thread at most
+// up to 9 and twice that from 10 on (-Xptxas -v, PERF.md).
+constexpr int kBlockThreads = 1024;
+constexpr int kBlockPerMin = 5;  // ceil(4865 / kBlockThreads)
+constexpr int kBlockPerMax = 9;
+
+template <int PER, int KT>
+__host__ __device__ constexpr size_t block_smem_floats(int n_rows) {
+  return static_cast<size_t>(n_rows + 4) * row_floats<PER, KT>() + red_floats<KT>() +
+         kChunk / 4;
+}
+
+// Calls fn(Case<per>{}) for the wide block's cases (p7_viterbi_kernel.cu,
+// p7_forward_log_kernel.cu): kBlockPerMin..kBlockPerMax states a thread.
+#define P7_BLOCK_CASE(P) \
+  case P:                \
+    return fn(Case<P>{});
+
+template <template <int> class Case, typename Fn>
+cudaError_t with_block_case(int per, Fn fn) {
+  switch (per) {
+    P7_BLOCK_CASE(5)
+    P7_BLOCK_CASE(6)
+    P7_BLOCK_CASE(7)
+    P7_BLOCK_CASE(8)
+    P7_BLOCK_CASE(9)
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+#undef P7_BLOCK_CASE
+// per-case tables of the wide block: [per - kBlockPerMin]
+constexpr int kBlockSlots = kBlockPerMax - kBlockPerMin + 1;
+
 // -- the rows-in-memory case --------------------------------------------------
 //
-// Past 2 * 2432 = 4864 states for the eager and log-space kinds, and past
-// 38,912 for the others (up to 65536, the 16-row
+// Past the wide block's kBlockThreads * kBlockPerMax states for the eager
+// and log-space kinds, and past 38,912 for the others (up to 65536, the 16-row
 // chain), no launch plan here holds the DP rows in registers. One block of
 // kMemThreads threads follows one sequence (G = 1, a persistent grid) and
 // keeps every row in global memory: kMemRows scratch rows of m_pad floats a

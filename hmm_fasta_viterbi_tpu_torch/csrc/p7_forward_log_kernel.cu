@@ -10,7 +10,9 @@
 // (p7_forward_kernel.cu) on long sequences. It takes the eager Viterbi
 // kernel's operands (prepare_p7_device: log scores, the full 16-column
 // chain at ceil(log2 M_pad) passes, log tr_rows) and carries (M, I, D and
-// J/C/N/B in log space), and returns log-odds scores in nats.
+// J/C/N/B in log space), and returns log-odds scores in nats. Past 4864
+// states it runs on the wide block (viterbi_block_kernel) up to
+// kBlockThreads * kBlockPerMax states and in memory past that.
 
 #include "p7_viterbi.cuh"
 
@@ -58,16 +60,38 @@ struct PairCase {
   }
 };
 
+// The wide block's case: kBlockThreads * PER states, one block a sequence.
+unsigned block_smem_set[kBlockSlots];  // devices whose wide block allows kMaxSmem
+
+template <int PER>
+struct BlockCase {
+  static cudaError_t launch(const ViterbiArgs& a, int device, int groups, int grid, int smem,
+                            cudaStream_t stream) {
+    if (!viterbi_block_plan_ok<PER, kBlockThreads>(a, groups, grid, smem)) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_planned(viterbi_block_kernel<PER, kBlockThreads, true>, a, device,
+                          block_smem_set[PER - kBlockPerMin], 1, kBlockThreads, grid, smem,
+                          stream);
+  }
+
+  static cudaError_t regs(int* out) {
+    return kernel_regs(viterbi_block_kernel<PER, kBlockThreads, true>, out);
+  }
+};
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads for
 // the rows-in-memory case) and `per` name the kernel case, with threads *
-// per >= m_pad, and `cluster` 2 the cluster pair's (128 threads a block, per
-// 10..19, 2 * threads * per >= m_pad); the chain runs `n_passes` passes, the first
-// `n_chain` rows staged in shared memory with the first `n_trans`
-// transition rows; `groups`, `grid` and `smem` are the launch plan
-// (checked); `scratch` the rows-in-memory case's rows (null otherwise).
-// Returns a cudaError_t.
+// per >= m_pad, `cluster` 2 the cluster pair's (128 threads a block, per
+// 10..19, 2 * threads * per >= m_pad) and `cluster` 0 the wide block's
+// (kBlockThreads threads, per kBlockPerMin..kBlockPerMax); the
+// chain runs `n_passes` passes, the first `n_chain` rows staged in shared
+// memory with the first `n_trans` transition rows; `groups`, `grid` and
+// `smem` are the launch plan (checked); `scratch` the rows-in-memory case's
+// rows or the wide block's thread-major rows (null otherwise). Returns a
+// cudaError_t.
 extern "C" int p7_forward_log_launch(int device, int threads, int per, int cluster,
                                      const void* msc, const void* isc, const void* trans, const void* chain,
                                      int m_pad, int n_passes, int n_chain, int n_trans,
@@ -84,6 +108,14 @@ extern "C" int p7_forward_log_launch(int device, int threads, int per, int clust
                                   n_trans, tokens, l_pad, lengths, tr_rows, consts, m_in, i_in,
                                   d_in, s_in, scores, m_out, i_out, d_out, s_out, nullptr, b_pad);
   auto* st = static_cast<cudaStream_t>(stream);
+  if (cluster == 0) {
+    if (threads != kBlockThreads) return static_cast<int>(cudaErrorInvalidValue);
+    ViterbiArgs b = a;
+    b.tm = static_cast<const float*>(scratch);
+    return static_cast<int>(with_block_case<BlockCase>(per, [&](auto c) {
+      return decltype(c)::launch(b, device, groups, grid, smem, st);
+    }));
+  }
   if (threads == kMemThreads) {
     return static_cast<int>(
         launch_mem<false, true, false>(a, scratch, false, per, groups, grid, smem, st));
@@ -100,8 +132,14 @@ extern "C" int p7_forward_log_launch(int device, int threads, int per, int clust
   }));
 }
 
-// Registers a thread of the case uses, for the launch plan.
+// Registers a thread of the case uses (`cluster` 2: the pair's, 0: the wide
+// block's), for the launch plan.
 extern "C" int p7_forward_log_regs(int threads, int per, int cluster, int* regs) {
+  if (cluster == 0) {
+    if (threads != kBlockThreads) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        with_block_case<BlockCase>(per, [&](auto c) { return decltype(c)::regs(regs); }));
+  }
   if (threads == kMemThreads) {
     return static_cast<int>(kernel_regs(viterbi_mem_kernel<false, true, false>, regs));
   }

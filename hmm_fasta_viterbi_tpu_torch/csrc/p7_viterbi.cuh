@@ -139,15 +139,20 @@
 //    replay's full chain, a filter window that reaches it) takes a block's
 //    states from the two blocks it falls between. The lazy certificate's
 //    fire is an exchange (an OR over the cluster), so every block replays
-//    the same chunks. The eager and log-space cases stay in memory there:
+//    the same chunks. The eager and log-space cases take no cluster there:
 //    their steps run the whole chain every residue, whose larger shifts
-//    take about 1.7 us each on 128-thread blocks; on the pair a step takes
-//    17.4 us (eager) and 65.6 us (log-space), so at 64 rows the two rounds
-//    of the clusters an H100 holds at C = 3 would take about 35 and 130 ms,
-//    against the rows-in-memory case's 29.4 and 57.1 ms (PERF.md). They
-//    need another design: more threads a state, or a two-level chain.
+//    take about 1.7 us each across 128-thread blocks (on the pair a step
+//    takes 17.4 us eager, 65.6 us log-space).
+//  * Past 4864 states, up to kBlockThreads * kBlockPerMax (9216), the
+//    eager and log-space cases run the wide block (block_chunk,
+//    viterbi_block_kernel): one group of kBlockThreads = 1024 threads a
+//    block and a sequence in the normal-width layout, every shift one
+//    barrier of the block (no cluster), the rows in registers (64 a thread:
+//    each shift taken in place), one step's emission rows and as many
+//    constant rows as fit in shared memory, the rest read thread-major from
+//    L2 (BlockRows).
 //  * Past 38,912 states (up to the chain's 65536), and for the eager and
-//    log-space cases past 4864, the rows-in-memory case
+//    log-space cases past the wide block, the rows-in-memory case
 //    (viterbi_mem_kernel, p7_blocked.cuh) runs the same step with every row
 //    in global memory, one 1024-thread block a sequence; the launch plan also
 //    takes it for a width whose cluster the card cannot hold.
@@ -185,6 +190,7 @@ struct ViterbiArgs {
   float* s_out;
   int* replays;          // [b_pad] (lazy)
   int b_pad;
+  const float* tm;       // the wide block's thread-major rows (BlockRows), else null
 };
 
 // The semiring's combine: max (Viterbi) or JAX's _lse2 (log-space Forward).
@@ -207,6 +213,8 @@ struct GroupSmem {
 
   static constexpr int ROW = row_floats<PER, KT>();
   static constexpr int EROW = erow_floats<PER, KT, FILT>();
+  // emission rows: two steps' (match, insert) rows, the wide block's one step's
+  static constexpr int NEM = KT == 128 ? 4 : 2;
   __device__ __forceinline__ float* xbuf(int par) const { return base + par * ROW; }
   __device__ __forceinline__ float* em(int q) const { return base + 2 * ROW + 2 * q * EROW; }
   __device__ __forceinline__ float* ei(int q) const {
@@ -219,7 +227,7 @@ __device__ __forceinline__ GroupSmem<PER, KT, FILT> group_smem(float* base) {
   using G = GroupSmem<PER, KT, FILT>;
   G s;
   s.base = base;
-  s.red = base + 2 * G::ROW + 4 * G::EROW;
+  s.red = base + 2 * G::ROW + G::NEM * G::EROW;
   s.toks = reinterpret_cast<int8_t*>(s.red + red_floats<KT>());
   return s;
 }
@@ -270,6 +278,7 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
                                           int count, int passes, int& par, float tr_loop,
                                           float tr_move, int t, int bar, Link<SPAN>& h) {
   static_assert(!(LAZY && LSE) && !(FILT && (LAZY || LSE)), "one case at a time");
+  static_assert(KT == 128, "groups of 128 (the wide block runs block_chunk)");
   constexpr int ROW = row_floats<PER, KT>();
   constexpr int W = warps<KT>();
   const int m_pad = a.m_pad;
@@ -432,6 +441,205 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
   return viol;
 }
 
+// -- the wide block --------------------------------------------------------------
+//
+// Past 4864 states, up to kBlockThreads * kBlockPerMax, the eager and
+// log-space cases run one group of KT = kBlockThreads threads a block and a
+// sequence (p7_blocked.cuh), the rows M, I, D in registers in the
+// normal-width layout. block_chunk is run_chunk's step operation for
+// operation (the same combines on the same operands in the same order, the
+// same chain passes), with three changes that spare registers (64 a thread
+// at 1024 threads): every shift is taken in place (one row of registers,
+// not two; a pass's shifted value is combined as it arrives), the
+// log-space E's terms wait in the thread's own slots of the idle shift
+// buffer between its max and its sum, and the step-invariant rows that
+// shared memory does not hold are read from their thread-major copy
+// (BlockRows). One step's
+// emission rows sit in shared memory: the next step's are copied in once
+// the second shift's barrier has passed their last reader. E is
+// block_reduce (the max is the same in any order; the log-space sum takes
+// another fixed order than a group's).
+
+// The wide block's step-invariant rows as a thread reads them: row q (the six
+// transitions, then chain pass p at kTransRows + p), slot k, from the
+// block's staged rows (the first n_staged: the plan stages the transitions
+// first) or from their thread-major copy in global memory,
+// [kTransRows + n_passes][PER][KT] (ViterbiArgs::tm: entry (q, k, t) is row q
+// at state t * PER + k, -inf past m_pad), where a warp's read of a slot is 32
+// contiguous floats.
+template <int PER, int KT>
+struct BlockRows {
+  const float* staged;  // the block's staged rows, at this thread's offset
+  const float* global;  // the thread-major rows, at this thread's column
+  int n_staged;
+
+  __device__ __forceinline__ float operator()(int q, int k) const {
+    return q < n_staged ? staged[q * row_floats<PER, KT>() + k]
+                        : __ldg(global + (q * PER + k) * KT);
+  }
+};
+
+// v <- v shifted by S < PER toward higher j in place (shift_small's values:
+// slots k >= S from slot k - S, the first S from thread t - 1's last S,
+// `fill` in thread 0), one barrier.
+template <int PER, int KT, int S>
+__device__ __forceinline__ void block_shift_small(float (&v)[PER], float fill, float* buf, int t,
+                                                  int bar) {
+  constexpr int SP = stride<PER>();
+#pragma unroll
+  for (int k = PER - S; k < PER; ++k) buf[t * SP + k] = v[k];
+  group_sync<KT>(bar);
+#pragma unroll
+  for (int k = PER - 1; k >= S; --k) v[k] = v[k - S];
+  const int prev = (t > 0 ? t - 1 : 0) * SP + PER - S;
+#pragma unroll
+  for (int k = 0; k < S; ++k) v[k] = t > 0 ? buf[prev + k] : fill;
+}
+
+// One pass of the delete chain in place: a[k] <- a[k] (+) (a at state j - s
+// + c(k)), a[j - s] as shift() gives it (-inf below 0), on the same operands
+// in the same order as run_chunk's pass. Below PER (s = S of 1, 2, 4, 8, 16)
+// the slots go from the last down, so each reads a[k - S] before it
+// changes; a larger shift reads the row it wrote to `buf` after the barrier.
+template <int PER, int KT, bool LSE, int S, typename C>
+__device__ __forceinline__ void block_pass_small(float (&a)[PER], float* buf, int t, int bar,
+                                                 const C& c) {
+  constexpr int SP = stride<PER>();
+  const float ninf = neg_inf();
+#pragma unroll
+  for (int k = PER - S; k < PER; ++k) buf[t * SP + k] = a[k];
+  group_sync<KT>(bar);
+#pragma unroll
+  for (int k = PER - 1; k >= S; --k) a[k] = combine<LSE>(a[k], a[k - S] + c(k));
+  const int prev = (t > 0 ? t - 1 : 0) * SP + PER - S;
+#pragma unroll
+  for (int k = 0; k < S; ++k) a[k] = combine<LSE>(a[k], (t > 0 ? buf[prev + k] : ninf) + c(k));
+}
+
+template <int PER, int KT, bool LSE, typename C>
+__device__ __forceinline__ void block_pass(float (&a)[PER], int s, float* buf, int t, int bar,
+                                           const C& c) {
+  if constexpr (PER > 1) {
+    if (s == 1) return block_pass_small<PER, KT, LSE, 1>(a, buf, t, bar, c);
+  }
+  if constexpr (PER > 2) {
+    if (s == 2) return block_pass_small<PER, KT, LSE, 2>(a, buf, t, bar, c);
+  }
+  if constexpr (PER > 4) {
+    if (s == 4) return block_pass_small<PER, KT, LSE, 4>(a, buf, t, bar, c);
+  }
+  if constexpr (PER > 8) {
+    if (s == 8) return block_pass_small<PER, KT, LSE, 8>(a, buf, t, bar, c);
+  }
+  if constexpr (PER > 16) {
+    if (s == 16) return block_pass_small<PER, KT, LSE, 16>(a, buf, t, bar, c);
+  }
+  constexpr int SP = stride<PER>();
+  const float ninf = neg_inf();
+#pragma unroll
+  for (int k = 0; k < PER; ++k) buf[t * SP + k] = a[k];
+  group_sync<KT>(bar);
+  const int base = t * PER - s;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = base + k;
+    a[k] = combine<LSE>(a[k], (j >= 0 ? buf[sidx<PER>(j >= 0 ? j : 0)] : ninf) + c(k));
+  }
+}
+
+// Steps [0, count) of the chunk whose tokens are in gs.toks, for the wide
+// block's eager (LSE false) and log-space cases: run_chunk's step.
+template <int PER, int KT, bool LSE>
+__device__ __forceinline__ void block_chunk(const ViterbiArgs& a, const float* cs,
+                                            const GroupSmem<PER, KT, false>& gs, Rows<PER>& r,
+                                            int count, int& par, float tr_loop, float tr_move,
+                                            int t, int bar) {
+  constexpr int SP = stride<PER>();
+  const int m_pad = a.m_pad;
+  const float ninf = neg_inf();
+  const float tr_b_mk = a.consts[0];
+  const float tr_e_c = a.consts[1];
+  const float tr_e_j = a.consts[2];
+  const int n_staged = a.n_trans + a.n_chain;
+  const BlockRows<PER, KT> tr{cs + t * SP, a.tm + t, n_staged};
+  const float* msc = static_cast<const float*>(a.msc);
+  const float* isc = static_cast<const float*>(a.isc);
+
+  prefetch_emissions<PER, KT>(gs.em(0), gs.ei(0), msc, isc, token(gs.toks, 0), m_pad, t);
+  cp_async_commit();
+  for (int step = 0; step < count; ++step) {
+    // the j-1 diagonal: pre_diag of the previous step, shifted by one
+    float v[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      v[k] = combine<LSE>(combine<LSE>(r.m[k] + tr(0, k), r.i[k] + tr(3, k)), r.d[k] + tr(5, k));
+    }
+    cp_async_wait_all();  // this step's emission rows (the barrier publishes them)
+    block_shift_small<PER, KT, 1>(v, ninf, gs.xbuf(par), t, bar);
+    par ^= 1;
+
+    const float bt = r.sb + tr_b_mk;
+    const float* ms = gs.em(0) + t * SP;
+    const float* is = gs.ei(0) + t * SP;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const float nm = ms[k] + combine<LSE>(v[k], bt);
+      r.i[k] = is[k] + combine<LSE>(r.m[k] + tr(1, k), r.i[k] + tr(4, k));
+      r.m[k] = nm;
+      v[k] = nm + tr(2, k);
+    }
+    block_shift_small<PER, KT, 1>(v, ninf, gs.xbuf(par), t, bar);
+    par ^= 1;
+    // every thread has read this step's emission rows: the next step's go
+    // into the same buffers while the chain runs
+    if (step + 1 < count) {
+      prefetch_emissions<PER, KT>(gs.em(0), gs.ei(0), msc, isc, token(gs.toks, step + 1), m_pad,
+                                  t);
+    }
+    cp_async_commit();
+    for (int p = 0; p < a.n_passes; ++p) {
+      const int q = kTransRows + p;
+      if (q < n_staged) {
+        const float* c = cs + q * row_floats<PER, KT>() + t * SP;
+        block_pass<PER, KT, LSE>(v, 1 << p, gs.xbuf(par), t, bar, [&](int k) { return c[k]; });
+      } else {
+        // the thread-major copy: a warp reads 32 contiguous floats a slot
+        const float* c = a.tm + t + static_cast<size_t>(q) * PER * KT;
+        block_pass<PER, KT, LSE>(v, 1 << p, gs.xbuf(par), t, bar,
+                                 [&](int k) { return __ldg(c + k * KT); });
+      }
+      par ^= 1;
+    }
+
+    float e = ninf;
+    if constexpr (LSE) {
+      // the terms x_k wait in this thread's slots of the shift buffer the
+      // last pass left idle (its readers passed that pass's barrier)
+      float* x = gs.xbuf(par) + t * SP;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        x[k] = combine<true>(r.m[k], v[k]);
+        e = fmaxf(e, x[k]);
+      }
+      const float mx = block_reduce<false, KT>(e, gs.red, t, bar);
+      float sum = 0.0f;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) sum += expf(x[k] == mx ? 0.0f : x[k] - mx);
+      e = mx + logf(block_reduce<true, KT>(sum, gs.red + warps<KT>(), t, bar));
+    } else {
+#pragma unroll
+      for (int k = 0; k < PER; ++k) e = fmaxf(e, fmaxf(r.m[k], v[k]));
+      e = block_reduce<false, KT>(e, gs.red, t, bar);
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k) r.d[k] = v[k];
+    r.sj = combine<LSE>(r.sj + tr_loop, e + tr_e_j);
+    r.sc = combine<LSE>(r.sc + tr_loop, e + tr_e_c);
+    r.sn = r.sn + tr_loop;
+    r.sb = combine<LSE>(r.sn + tr_move, r.sj + tr_move);
+  }
+}
+
 template <int PER, int KT>
 __device__ __forceinline__ void store_carries(const Rows<PER>& r, float* m, float* i, float* d,
                                               int m_pad, float* buf, int t, int bar) {
@@ -459,7 +667,9 @@ __host__ __device__ inline int viterbi_rows(bool lazy, int k_run, int n_passes, 
 
 // The kernel's body, for a block of G groups (viterbi_kernel), for a block
 // of the cluster pair (viterbi_pair_kernel) or for one of a C-block cluster
-// (viterbi_cluster_kernel; both one group a block, KT = 128).
+// (viterbi_cluster_kernel; both one group a block, KT = 128), or for the
+// wide block's one group of KT = kBlockThreads (viterbi_block_kernel, whose
+// chunks run block_chunk).
 template <int PER, int KT, bool LAZY, bool LSE, bool FILT, Span SPAN>
 __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
   extern __shared__ __align__(16) float smem[];
@@ -509,7 +719,7 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int q = 0; q < 2; ++q) {
+  for (int q = 0; q < (KT == 128 ? 2 : 1); ++q) {
     if constexpr (FILT) {
       fill_tail_bf16<PER, KT>(reinterpret_cast<uint16_t*>(gs.em(q)), h.m_real, 0xff80u, t);
       fill_tail_bf16<PER, KT>(reinterpret_cast<uint16_t*>(gs.ei(q)), h.m_real, 0xff80u, t);
@@ -549,7 +759,9 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
       const int count = min(kChunk, n - c0);
       if (t < count) gs.toks[t] = tok_row[c0 + t];  // the last chunk's readers passed barriers
       group_sync<KT>(bar);
-      if (certify) {
+      if constexpr (KT > 128) {
+        block_chunk<PER, KT, LSE>(a, smem, gs, r, count, par, tr_loop, tr_move, t, bar);
+      } else if (certify) {
         store_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, h.m_real,
                                gs.xbuf(0), t, bar);  // the chunk's entry
         const float ej = r.sj, ec = r.sc, en = r.sn, eb = r.sb;
@@ -614,6 +826,13 @@ __global__ void __launch_bounds__(128) viterbi_pair_kernel(const ViterbiArgs a) 
 template <int PER, bool LAZY, bool LSE, bool FILT>
 __global__ void __launch_bounds__(128) viterbi_cluster_kernel(const ViterbiArgs a) {
   viterbi_body<PER, 128, LAZY, LSE, FILT, Span::kCluster>(a);
+}
+
+// The wide block's case (block_chunk's step), one sequence a block: no row
+// crosses global memory but the carries at a sequence's start and end.
+template <int PER, int KT, bool LSE>
+__global__ void __launch_bounds__(KT, 1) viterbi_block_kernel(const ViterbiArgs a) {
+  viterbi_body<PER, KT, false, LSE, false, Span::kGroup>(a);
 }
 
 // The rows-in-memory case (p7_blocked.cuh, past 4864 states): one block of
@@ -855,6 +1074,7 @@ inline ViterbiArgs make_args(const void* msc, const void* isc, const void* trans
   a.s_out = static_cast<float*>(s_out);
   a.replays = static_cast<int*>(replays);
   a.b_pad = b_pad;
+  a.tm = nullptr;
   return a;
 }
 
@@ -893,6 +1113,21 @@ bool viterbi_cluster_plan_ok(const ViterbiArgs& a, bool lazy, int c, int groups,
          a.m_pad % 8 == 0 && a.n_passes >= 1 && a.n_passes <= 16 && a.k_run >= 1 &&
          a.k_run <= a.n_passes && (!lazy || a.k_run == a.n_passes || a.n_passes <= 15) &&
          a.n_chain >= 0 && a.n_chain <= a.k_run && a.b_pad >= 1;
+}
+
+// The same for the wide block (eager and log-space, the full chain): KT *
+// PER states, one group a block, n_trans transition rows staged and chain
+// rows only after all six, block_smem_floats, and the thread-major rows.
+template <int PER, int KT>
+bool viterbi_block_plan_ok(const ViterbiArgs& a, int groups, int grid, int smem_bytes) {
+  return a.m_pad >= 1 && a.m_pad <= KT * PER && a.m_pad % 8 == 0 && a.n_passes >= 1 &&
+         a.n_passes <= 16 && a.k_run == a.n_passes && a.n_trans >= 0 &&
+         a.n_trans <= kTransRows && a.n_chain >= 0 && a.n_chain <= a.n_passes &&
+         (a.n_chain == 0 || a.n_trans == kTransRows) && a.tm != nullptr && a.b_pad >= 1 &&
+         groups == 1 && grid >= 1 &&
+         static_cast<size_t>(smem_bytes) ==
+             4 * block_smem_floats<PER, KT>(a.n_trans + a.n_chain) &&
+         smem_bytes <= kMaxSmem;
 }
 
 // Runs a kernel case on the plan after setting its shared-memory limit once

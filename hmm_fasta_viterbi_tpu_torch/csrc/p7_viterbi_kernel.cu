@@ -6,7 +6,9 @@
 // mode (the eager kernel) and ::_p7_lazy_kernel (the lazy one), both
 // launched by p7_pallas_call. Scores equal the JAX kernels' and the plain
 // PyTorch version's bit for bit. Past 4864 states the lazy kernel runs on
-// C-block clusters (viterbi_cluster_kernel), the eager one in memory.
+// C-block clusters (viterbi_cluster_kernel), the eager one on the wide
+// block (viterbi_block_kernel) up to kBlockThreads * kBlockPerMax states and
+// in memory past that.
 
 #include "p7_viterbi.cuh"
 
@@ -86,6 +88,27 @@ struct ClusterCase {
   }
 };
 
+// The wide block's case (the eager kernel past 4864 states): kBlockThreads
+// * PER states, one block a sequence.
+unsigned block_smem_set[kBlockSlots];  // devices whose wide block allows kMaxSmem
+
+template <int PER>
+struct BlockCase {
+  static cudaError_t launch(const ViterbiArgs& a, int device, int groups, int grid, int smem,
+                            cudaStream_t stream) {
+    if (!viterbi_block_plan_ok<PER, kBlockThreads>(a, groups, grid, smem)) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_planned(viterbi_block_kernel<PER, kBlockThreads, false>, a, device,
+                          block_smem_set[PER - kBlockPerMin], 1, kBlockThreads, grid, smem,
+                          stream);
+  }
+
+  static cudaError_t regs(int* out) {
+    return kernel_regs(viterbi_block_kernel<PER, kBlockThreads, false>, out);
+  }
+};
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads for
@@ -93,13 +116,16 @@ struct ClusterCase {
 // per >= m_pad, and `cluster` 2 the cluster pair's (128 threads a block,
 // per 10..19, 2 * threads * per >= m_pad), `cluster` C of 3..16 the lazy
 // kernel's C-block cluster (per 13..19, C * threads * per >= m_pad, up to
-// 16 passes); `lazy` selects the lazy kernel, which runs
+// 16 passes), `cluster` 0 the eager kernel's wide block (kBlockThreads
+// threads, per kBlockPerMin..kBlockPerMax); `lazy` selects the lazy kernel,
+// which runs
 // `k_run` passes under the certificate (k_run == n_passes: the full chain,
 // no certificate). `n_trans` transition rows and `n_chain` chain rows are
 // staged in shared memory; `groups` sequences a block, `grid` blocks and
 // `smem` bytes of dynamic shared memory are the launch plan of
 // ops/p7_cuda.py::plan_launch (checked here); `scratch` holds the
-// rows-in-memory case's [grid, kMemRows, m_pad] rows (null otherwise).
+// rows-in-memory case's [grid, kMemRows, m_pad] rows or the wide block's
+// thread-major rows, [6 + n_passes, per, kBlockThreads] (null otherwise).
 // Returns a cudaError_t.
 extern "C" int p7_viterbi_launch(int device, int threads, int per, int cluster, int lazy,
                                  const void* msc, const void* isc, const void* trans, const void* chain,
@@ -117,6 +143,14 @@ extern "C" int p7_viterbi_launch(int device, int threads, int per, int cluster, 
                                   n_trans, tokens, l_pad, lengths, tr_rows, consts, m_in, i_in,
                                   d_in, s_in, scores, m_out, i_out, d_out, s_out, replays, b_pad);
   auto* st = static_cast<cudaStream_t>(stream);
+  if (cluster == 0) {
+    if (lazy || threads != kBlockThreads) return static_cast<int>(cudaErrorInvalidValue);
+    ViterbiArgs b = a;
+    b.tm = static_cast<const float*>(scratch);
+    return static_cast<int>(with_block_case<BlockCase>(per, [&](auto c) {
+      return decltype(c)::launch(b, device, groups, grid, smem, st);
+    }));
+  }
   if (threads == kMemThreads) {
     return static_cast<int>(
         lazy ? launch_mem<true, false, false>(a, scratch, true, per, groups, grid, smem, st)
@@ -142,9 +176,14 @@ extern "C" int p7_viterbi_launch(int device, int threads, int per, int cluster, 
 }
 
 // Registers a thread of the case uses (`lazy`: the lazy kernel; `cluster`
-// 2: the pair's, 3..16: the lazy kernel's C-block cluster's), for the
-// launch plan. Returns a cudaError_t.
+// 2: the pair's, 3..16: the lazy kernel's C-block cluster's, 0: the eager
+// kernel's wide block), for the launch plan. Returns a cudaError_t.
 extern "C" int p7_viterbi_regs(int threads, int per, int cluster, int lazy, int* regs) {
+  if (cluster == 0) {
+    if (lazy || threads != kBlockThreads) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        with_block_case<BlockCase>(per, [&](auto c) { return decltype(c)::regs(regs); }));
+  }
   if (threads == kMemThreads) {
     return static_cast<int>(lazy ? kernel_regs(viterbi_mem_kernel<true, false, false>, regs)
                                  : kernel_regs(viterbi_mem_kernel<false, false, false>, regs));

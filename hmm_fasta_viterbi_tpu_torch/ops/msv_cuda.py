@@ -510,15 +510,18 @@ def kernel_attrs(lanes: int, per: int, warps: int, bf16: bool) -> tuple[int, int
     return regs.value, local.value
 
 
-def count_launch(wrapper, wide: bool, mem: bool = False, cluster: int = 1) -> None:
+def count_launch(wrapper, wide: bool, mem: bool = False, cluster: int = 1,
+                 block: bool = False) -> None:
     """One more launch of ``wrapper``'s kernel; ``wide`` counts it also in
     ``wrapper.wide_launches`` (a case between 2432 and 4864 states: for MSV
     the cluster pair), ``mem`` in ``wrapper.mem_launches`` (a rows-in-memory
-    case), and a launch in ``cluster``-block clusters (``cluster`` > 1) in
+    case), ``block`` in ``wrapper.block_launches`` (the p7 wide block), and
+    a launch in ``cluster``-block clusters (``cluster`` > 1) in
     ``wrapper.cluster_launches[cluster]``."""
     wrapper.launches += 1
     wrapper.wide_launches += int(wide)
     wrapper.mem_launches += int(mem)
+    wrapper.block_launches += int(block)
     if cluster > 1:
         wrapper.cluster_launches[cluster] = wrapper.cluster_launches.get(cluster, 0) + 1
 
@@ -526,6 +529,7 @@ def count_launch(wrapper, wide: bool, mem: bool = False, cluster: int = 1) -> No
 def zero_launches(wrapper) -> None:
     """Set every launch count of ``wrapper`` to 0."""
     wrapper.launches = wrapper.wide_launches = wrapper.mem_launches = 0
+    wrapper.block_launches = 0
     wrapper.cluster_launches = {}
 
 

@@ -22,9 +22,11 @@ to 2432 states and up to 4864 a pair of such groups, one in each block of a
 registers; up to MAX_CLUSTER_STATES = 38,912 the lazy, filter, Forward,
 row-saving Forward and posterior backward cases (CLUSTER_KINDS) run C such
 groups, one in each block of a C-block cluster (C = ceil(M_pad / 2432),
-3..16); past that, and for the eager and log-space cases past 4864, the
-rows-in-memory case, MEM_THREADS threads a sequence with its rows in global
-memory (:func:`kernel_case`); the plain versions have no cap.
+3..16), and up to MAX_BLOCK_STATES the eager and log-space cases
+(BLOCK_KINDS) one block of BLOCK_THREADS threads a sequence, the wide block,
+its rows in registers too; past that the rows-in-memory case, MEM_THREADS
+threads a sequence with its rows in global memory (:func:`kernel_case`); the
+plain versions have no cap.
 
 The host packers are numpy copies of the JAX ones (that module imports
 jax) and return the same arrays byte for byte, in the TPU's ``[M_pad, …]``
@@ -97,9 +99,11 @@ FWD_RESCALE_GROUP = 8
 # up to KERNEL_THREADS * 19 = 2432 states (two such groups up to 4864, the
 # cluster pair, and the CLUSTER_KINDS C of them up to 38,912), each thread
 # owning states t * per .. t * per + per - 1 in registers
-# (csrc/p7_blocked.cuh); past that MEM_THREADS threads a sequence in the
-# rows-in-memory case, thread t handling states t, t + MEM_THREADS, ... of
-# rows kept in MEM_ROWS scratch rows of global memory a block
+# (csrc/p7_blocked.cuh); the BLOCK_KINDS' wide block, BLOCK_THREADS threads
+# in the same layout, up to MAX_BLOCK_STATES; past that MEM_THREADS threads
+# a sequence in the rows-in-memory case, thread t handling states t, t +
+# MEM_THREADS, ... of rows kept in MEM_ROWS scratch rows of global memory a
+# block
 KERNEL_THREADS = 128
 MEM_THREADS = 1024
 MEM_ROWS = 8
@@ -158,15 +162,34 @@ PAIR_X2_FLOATS = 2 * 2 * (KERNEL_THREADS // 32)
 # C = ceil(M_pad / MAX_GROUP_STATES) blocks of one group of KERNEL_THREADS
 # threads, block r owning states r * KERNEL_THREADS * per .., per the
 # CLUSTER_PER case that covers M_pad. The eager and
-# log-space kinds stay in memory there: they run the whole chain every
-# step, whose larger shifts cost about 1.7 us each on 128-thread blocks
-# (the pair's eager step 17.4 us, log-space 65.6 us, against the
-# rows-in-memory case's 29.4 and 57.1 at LENG 6977; PERF.md), so two rounds
-# of clusters at 64 rows would be slower than today's case.
+# log-space kinds take no cluster there: they run the whole chain every
+# step, whose larger shifts cost about 1.7 us each across 128-thread blocks
+# (the pair's eager step 17.4 us, log-space 65.6 us; PERF.md), so they run
+# the wide block (BLOCK_KINDS), one block of BLOCK_THREADS a sequence.
 CLUSTER_KINDS = ("lazy", "filter", "forward", "save", "backward")
 MAX_CLUSTER = 16
 MAX_CLUSTER_STATES = MAX_CLUSTER * MAX_GROUP_STATES  # 38,912
 CLUSTER_PER = tuple(range(13, 20))  # C >= 3 blocks past 4864 states need per >= 13
+# the eager and log-space kinds past MAX_WIDE_STATES, up to MAX_BLOCK_STATES:
+# the wide block (csrc/p7_viterbi.cuh::viterbi_block_kernel), one block of
+# BLOCK_THREADS threads a sequence, thread t owning states t * per .. t *
+# per + per - 1 in registers (per of BLOCK_PER, the smallest that covers
+# M_pad); its LaunchPlan's ``cluster`` is BLOCK_CLUSTER, which names it to
+# the C entry points beside the rows-in-memory case's 1024 threads. Its
+# shifts cross the block on its barrier, where a cluster's larger shifts
+# cross blocks (about 1.7 us each at 128 threads a block): the eager and
+# log-space steps run the whole chain every residue. Its shared memory holds
+# two shift rows, one step's emission rows and as many constant rows as fit
+# (the transitions first); the kernel reads the rest from their
+# thread-major copy (:func:`block_rows`). 1024 threads (64 registers a
+# thread) measured faster than 512 (128 registers): PERF.md.
+# MAX_BLOCK_STATES (9216) is the widest case whose rows the block's
+# registers hold: past 9 states a thread the spills double
+BLOCK_KINDS = ("eager", "log")
+BLOCK_THREADS = 1024
+BLOCK_CLUSTER = 0
+BLOCK_PER = tuple(range(5, 10))  # ceil(4865 / BLOCK_THREADS) = 5
+MAX_BLOCK_STATES = BLOCK_THREADS * BLOCK_PER[-1]
 # a C-block cluster's block area (csrc/p7_blocked.cuh::cluster_floats)
 # beside its two rows, in floats: two exchanges' slots (a value a warp of up
 # to MAX_CLUSTER blocks), the pair's halos, release slots and mbarriers
@@ -872,21 +895,31 @@ def cluster_blocks(m_pad: int, kind: str | None = None) -> int:
     return 1
 
 
+def block_case(m_pad: int, kind: str | None) -> bool:
+    """Whether ``kind``'s case of ``m_pad`` states is the wide block: a
+    BLOCK_KINDS kind past MAX_WIDE_STATES, up to MAX_BLOCK_STATES."""
+    return kind in BLOCK_KINDS and MAX_WIDE_STATES < m_pad <= MAX_BLOCK_STATES
+
+
 def kernel_case(m_pad: int, kind: str | None = None) -> tuple[int, int]:
     """``(threads, per)``: the kernel case of ``m_pad`` states, a group of
     KERNEL_THREADS threads a sequence up to MAX_GROUP_STATES and one in each
     block of the cluster pair up to MAX_WIDE_STATES, each thread holding
     ``per`` states in registers; past that a CLUSTER_KINDS ``kind`` runs
     KERNEL_THREADS threads in each block of a C-block cluster up to
-    MAX_CLUSTER_STATES (:func:`cluster_blocks`, ``per`` of CLUSTER_PER), and
-    every other case (``kind`` None included) the rows-in-memory case,
-    MEM_THREADS threads walking ``per`` tiles of MEM_THREADS states. Raises
-    ``ValueError`` past MAX_KERNEL_STATES."""
+    MAX_CLUSTER_STATES (:func:`cluster_blocks`, ``per`` of CLUSTER_PER), a
+    BLOCK_KINDS ``kind`` the wide block up to MAX_BLOCK_STATES
+    (BLOCK_THREADS threads, ``per`` of BLOCK_PER), and every other case
+    (``kind`` None included) the rows-in-memory case, MEM_THREADS threads
+    walking ``per`` tiles of MEM_THREADS states. Raises ``ValueError`` past
+    MAX_KERNEL_STATES."""
     if m_pad <= MAX_GROUP_STATES:
         return KERNEL_THREADS, max(-(-m_pad // KERNEL_THREADS), 1)
     c = cluster_blocks(m_pad, kind)
     if c > 1:
         return KERNEL_THREADS, -(-m_pad // (KERNEL_THREADS * c))
+    if block_case(m_pad, kind):
+        return BLOCK_THREADS, -(-m_pad // BLOCK_THREADS)
     if m_pad <= MAX_KERNEL_STATES:
         return MEM_THREADS, -(-m_pad // MEM_THREADS)
     raise ValueError(
@@ -917,7 +950,7 @@ def bf16_stride(per: int) -> int:
 
 def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
                        bf16: bool = False, backward: bool = False, pair: bool = False,
-                       cluster: bool = False) -> int:
+                       cluster: bool = False, block: bool = False) -> int:
     """Dynamic shared memory of a blocked kernel's block
     (``csrc/p7_blocked.cuh::smem_floats``): ``n_rows`` staged rows, then
     per group two shift rows, four emission rows (f32, or with ``bf16`` the
@@ -931,7 +964,13 @@ def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
     ``cluster``, a block of a C-block cluster (``cluster_smem_floats``): two
     rows and CLUSTER_FLOATS, whatever C is; the backward pass's area has a
     second value a slot (PAIR_X2_FLOATS, CLUSTER_X2_FLOATS more,
-    ``csrc/p7_backward_kernel.cu::backward_smem_floats``)."""
+    ``csrc/p7_backward_kernel.cu::backward_smem_floats``). With ``block``,
+    the wide block's (``block_smem_floats``): rows of BLOCK_THREADS threads,
+    one group (``groups`` 1) of two shift rows, one step's two emission
+    rows, the reduction scratch and the token chunk."""
+    if block:
+        row = BLOCK_THREADS * blocked_stride(per)
+        return 4 * ((n_rows + 4) * row + 2 * (BLOCK_THREADS // 32) + LAZY_CHUNK // 4)
     threads = KERNEL_THREADS
     row = threads * blocked_stride(per)
     hrow = threads * bf16_stride(per) // 2
@@ -958,6 +997,29 @@ def pair_state(j: int, per: int) -> tuple[int, int, int]:
     return block, rest // per, rest % per
 
 
+def block_state(j: int, per: int) -> tuple[int, int]:
+    """``(thread, slot)`` of state ``j`` in the wide block of ``per``
+    states a thread: thread t owns the ``per`` states from t * per on
+    (``csrc/p7_blocked.cuh``, the normal-width layout at BLOCK_THREADS
+    threads); raises past its BLOCK_THREADS * per states."""
+    if not 0 <= j < BLOCK_THREADS * per:
+        raise ValueError(f"state {j} outside a wide block of per {per}")
+    return divmod(j, per)
+
+
+def block_rows(trans: torch.Tensor, chain: torch.Tensor, passes: int, per: int) -> torch.Tensor:
+    """The wide block's step-invariant rows in thread-major order, ``[6 +
+    passes, per, BLOCK_THREADS]`` f32 on the pack's device: entry ``(q, k,
+    t)`` is row q (tmm tmi tmd tim tii tdm, then chain pass q - 6) at state
+    ``t * per + k``, -inf past M_pad, so that a warp's read of one slot is
+    32 contiguous floats (``csrc/p7_viterbi.cuh::BlockRows``; the kernel
+    reads from it the rows its shared memory does not hold)."""
+    m_pad = trans.shape[1]
+    rows = torch.cat([trans[:TRANS_ROWS], chain[:passes]])
+    rows = torch.nn.functional.pad(rows, (0, BLOCK_THREADS * per - m_pad), value=NEG_INF)
+    return rows.view(-1, BLOCK_THREADS, per).transpose(1, 2).contiguous()
+
+
 def cluster_state(j: int, per: int, c: int) -> tuple[int, int, int]:
     """``(block, thread, slot)`` of state ``j`` in a C-block cluster of
     ``per`` states a thread: block r owns states r * KERNEL_THREADS * per ..
@@ -975,13 +1037,16 @@ class LaunchPlan(NamedTuple):
     stride, ``n_chain`` chain rows and ``n_trans`` transition rows staged in
     shared memory (the rest read from global memory) and ``smem`` bytes of
     dynamic shared memory; ``max_groups`` is the most that fit. The
-    rows-in-memory case (``threads`` MEM_THREADS) stages nothing: one group
-    a block, no dynamic shared memory, MEM_ROWS scratch rows a block.
+    rows-in-memory case (``threads`` MEM_THREADS, ``cluster`` 1) stages
+    nothing: one group a block, no dynamic shared memory, MEM_ROWS scratch
+    rows a block. The wide block (``cluster`` BLOCK_CLUSTER, ``threads``
+    BLOCK_THREADS) is one group a block, its ``n_trans`` (all six before any
+    chain row) and ``n_chain`` the rows that fit beside its group.
     ``cluster`` is the blocks of a thread-block cluster: 2 for the cluster
     pair, C for a C-block cluster (both one group a block, a sequence a
-    cluster, a grid of whole clusters), else 1. ``per`` is the states a
-    thread of the case (tiles of MEM_THREADS states in the rows-in-memory
-    case)."""
+    cluster, a grid of whole clusters), BLOCK_CLUSTER (0) for the wide
+    block, else 1. ``per`` is the states a thread of the case (tiles of
+    MEM_THREADS states in the rows-in-memory case)."""
 
     groups: int
     grid: int
@@ -992,6 +1057,16 @@ class LaunchPlan(NamedTuple):
     n_trans: int = TRANS_ROWS
     cluster: int = 1
     per: int = 0
+
+    @property
+    def block(self) -> bool:
+        """The wide block's plan."""
+        return self.cluster == BLOCK_CLUSTER
+
+    @property
+    def mem(self) -> bool:
+        """The rows-in-memory case's plan."""
+        return self.threads == MEM_THREADS and self.cluster == 1
 
 
 def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: int,
@@ -1016,11 +1091,18 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     on a persistent grid of the ``clusters`` the card runs at once
     (``cudaOccupancyMaxActiveClusters``; None: what registers, shared memory
     and THREADS_PER_SM let an SM hold, C SMs a cluster), at most the batch
-    needs; a given ``groups`` must be 1. A C-block cluster the card holds
-    none of (``clusters`` 0) plans the rows-in-memory case instead, as every
-    other case past MAX_WIDE_STATES does: one sequence a block, as many
-    blocks as registers and THREADS_PER_SM let an SM hold. Raises
-    ``ValueError`` past M_pad 65536."""
+    needs; a given ``groups`` must be 1. The BLOCK_KINDS past
+    MAX_WIDE_STATES, up to MAX_BLOCK_STATES, run the wide block: one group
+    of BLOCK_THREADS threads a block, the six transition rows and then
+    chain rows staged as far as they fit beside the group (the rest read
+    from :func:`block_rows`), one sequence a block on a persistent grid of
+    as many blocks as registers, shared memory and THREADS_PER_SM let an SM
+    hold (one), times the SMs, at most the batch; a given ``groups`` must be
+    1. A C-block cluster the card holds none of (``clusters`` 0) plans the
+    rows-in-memory case instead, as every other case past MAX_WIDE_STATES
+    does: one sequence a block, as many blocks as registers and
+    THREADS_PER_SM let an SM hold. Raises ``ValueError`` past M_pad
+    65536."""
     if kind not in BLOCKED_KINDS:
         raise ValueError(f"unknown blocked kernel case {kind!r}")
     kt, per = kernel_case(m_pad, kind)
@@ -1030,6 +1112,18 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     if c > CLUSTER and clusters == 0:  # the card holds no cluster of C blocks
         c, (kt, per) = 1, kernel_case(m_pad)
     warp_regs = round_up(max(int(regs), 1), 8) * 32  # allocated by the warp, 8 at a time
+    if block_case(m_pad, kind):
+        if groups not in (None, 1):
+            raise ValueError(f"{groups} groups a block: the {kind} kernel's wide block takes 1")
+        row = 4 * BLOCK_THREADS * blocked_stride(per)
+        fit = max(0, (SMEM_PER_SM - blocked_smem_bytes(per, 0, 1, block=True)) // row)
+        n_trans = min(TRANS_ROWS, fit)
+        n_chain = min(passes, fit - n_trans)
+        nbytes = blocked_smem_bytes(per, n_trans + n_chain, 1, block=True)
+        per_sm = max(1, min(REGS_PER_SM // (warp_regs * kt // 32), SMEM_PER_SM // nbytes,
+                            THREADS_PER_SM // kt))
+        return LaunchPlan(1, max(1, min(b_pad, sms * per_sm)), n_chain, nbytes, 1, kt, n_trans,
+                          BLOCK_CLUSTER, per)
     if kt == MEM_THREADS:
         if groups not in (None, 1):
             raise ValueError(f"{groups} groups a block: the rows-in-memory case takes 1")
@@ -1086,7 +1180,7 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
 def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS, cluster: int = 1) -> int:
     """Registers a thread of the blocked kernel case uses, as compiled
     (``cluster`` 2: the cluster pair's case of ``per``; C of 3..16: the
-    C-block cluster's)."""
+    C-block cluster's; BLOCK_CLUSTER: the wide block's)."""
     lib = _kernel_library()
     out = ctypes.c_int(0)
     if kind in ("eager", "lazy"):
@@ -1152,6 +1246,9 @@ def device_plan(kind: str, m_pad: int, passes: int, b_pad: int, device,
     still raises)."""
     index = torch.device(device).index or 0
     threads, per = kernel_case(m_pad, kind)
+    if block_case(m_pad, kind):
+        return plan_launch(kind, m_pad, passes, b_pad,
+                           kernel_regs(kind, per, threads, BLOCK_CLUSTER), _sm_count(index), groups)
     c = cluster_blocks(m_pad, kind)
     if c > 1:
         regs = kernel_regs(kind, per, KERNEL_THREADS, c)
@@ -1170,16 +1267,27 @@ def mem_scratch(plan: LaunchPlan, m_pad: int, device) -> torch.Tensor | None:
     """The rows-in-memory case's scratch rows, ``[grid, MEM_ROWS, M_pad]``
     f32 (uninitialised: the kernel writes each row before it reads it), or
     None for a register case."""
-    if plan.threads != MEM_THREADS:
+    if not plan.mem:
         return None
     return torch.empty((plan.grid, MEM_ROWS, m_pad), dtype=torch.float32, device=device)
 
 
+def case_rows(plan: LaunchPlan, trans, chain, passes: int, device) -> torch.Tensor | None:
+    """What a Viterbi-template case reads from global memory beside its
+    operands, passed as the launchers' ``scratch``: the rows-in-memory
+    case's scratch rows (:func:`mem_scratch`), the wide block's thread-major
+    rows (:func:`block_rows`), else None."""
+    if plan.block:
+        return block_rows(trans, chain, passes, plan.per)
+    return mem_scratch(plan, trans.shape[1], device)
+
+
 def launched(wrapper, plan: LaunchPlan) -> None:
     """Count a launch of ``wrapper``'s kernel on ``plan``: apart for the
-    wide case (the cluster pair), the rows-in-memory case and, by its blocks
-    a cluster, the cluster pair and the C-block clusters."""
-    count_launch(wrapper, plan.cluster == CLUSTER, plan.threads == MEM_THREADS, plan.cluster)
+    wide case (the cluster pair), the rows-in-memory case, the wide block
+    and, by its blocks a cluster, the cluster pair and the C-block
+    clusters."""
+    count_launch(wrapper, plan.cluster == CLUSTER, plan.mem, plan.cluster, plan.block)
 
 
 def _ptr(t):
@@ -1241,7 +1349,7 @@ def _viterbi_cuda(lazy, emit_m, emit_i, trans, chain, tokens, lengths, tr_rows, 
     replays = torch.zeros(b_pad, dtype=torch.int32, device=device) if lazy else None
     if b_pad:
         plan = device_plan("lazy" if lazy else "eager", m_pad, k_run, b_pad, device, groups)
-        scratch = mem_scratch(plan, m_pad, device)
+        scratch = case_rows(plan, trans, chain, n_passes, device)
         rc = _kernel_library().p7_viterbi_launch(
             device.index, plan.threads, plan.per, plan.cluster, int(lazy),
             emit_m.data_ptr(), emit_i.data_ptr(), trans.data_ptr(), chain.data_ptr(),
@@ -1340,7 +1448,7 @@ def forward_log_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, cons
     out = (torch.empty_like(m), torch.empty_like(i), torch.empty_like(d), torch.empty_like(s))
     if b_pad:
         plan = device_plan("log", m_pad, n_passes, b_pad, device, groups)
-        scratch = mem_scratch(plan, m_pad, device)
+        scratch = case_rows(plan, trans, chain, n_passes, device)
         rc = _kernel_library().p7_forward_log_launch(
             device.index, plan.threads, plan.per, plan.cluster, msc.data_ptr(),
             isc.data_ptr(),
@@ -1392,8 +1500,8 @@ def viterbi_filter_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, c
 
 
 # kernel launches in this process, those of them in a wide case (the
-# cluster pair), those of the rows-in-memory case, and those in clusters by
-# blocks a cluster
+# cluster pair), those of the rows-in-memory case, those of the wide block,
+# and those in clusters by blocks a cluster
 for _fn in (viterbi_scan_cuda, viterbi_lazy_scan_cuda, forward_prob_scan_cuda,
             forward_log_scan_cuda, viterbi_filter_scan_cuda):
     zero_launches(_fn)

@@ -28,12 +28,20 @@ checked on the CPU: the kernels themselves run only on the card.
   (10..19) and the C-block cluster (13..19), every C of 2..16 and every
   pass of the chain, q >= 1 included; every receiving block is sent the
   bytes it waits for, and every release a sender waits for is sent.
+* The wide block (the eager and log-space kinds past 4864 states, up to
+  MAX_BLOCK_STATES: one block of BLOCK_THREADS threads in the normal-width
+  layout): its state map is a bijection, its shared-row index conflict
+  free, its shifts equal ``p7_cuda._shift`` for every per of BLOCK_PER, its
+  thread-major rows (``block_rows``) put row q's state t * per + k at (q, k,
+  t), and its plan stages the transitions first, then chain rows, as many
+  as fit beside its group, one group a block, a grid of at most one block
+  an SM.
 * ``plan_launch`` keeps every case within the block's shared memory and the
   SM's registers, picks G = 1 up to one sequence an SM, leaves chain rows
   in global memory when a group would not fit, runs the rows-in-memory case
-  (1024 threads, one sequence a block, nothing staged) past M_pad 4864 for
-  the eager and log-space kinds and past 38,912 for every kind, and raises
-  past 65536.
+  (1024 threads, one sequence a block, nothing staged) past
+  MAX_BLOCK_STATES for the eager and log-space kinds and past 38,912 for
+  every kind, and raises past 65536.
 * The backward coverage pass's suffix shifts (``shift_up_small``,
   ``shift_up_big``) equal ``posterior_cuda._up``, and its group layout
   (``backward_group_floats``) is what ``blocked_smem_bytes`` counts.
@@ -839,16 +847,21 @@ def test_shared_memory_matches_the_header_layout():
 
 @pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
 def test_rows_in_memory_plan(kind):
-    """Past M_pad 4864 the eager and log-space kinds, and past 38,912 every
-    kind, plan the rows-in-memory case: one group of 1024 threads a block,
-    nothing staged, no dynamic shared memory, a persistent grid of at most
-    two blocks an SM (fewer when the registers do not allow two) and no more
-    blocks than sequences; a forced G > 1 raises. The three-profile and the
-    24-profile joins (LENG 6977, 30181) and the widest M_pad, 65536 (16
-    chain passes), are such cases for the first two; 38,920 and 65536 for
-    the lazy, filter, Forward and backward kinds, which also plan it where
-    the card holds no cluster (``clusters`` 0)."""
-    widths = (4872, 6984, 30184, 65536) if kind not in p7_cuda.CLUSTER_KINDS else (38920, 65536)
+    """Past MAX_BLOCK_STATES the eager and log-space kinds, and past 38,912
+    every kind, plan the rows-in-memory case: one group of 1024 threads a
+    block, nothing staged, no dynamic shared memory, a persistent grid of at
+    most two blocks an SM (fewer when the registers do not allow two) and no
+    more blocks than sequences; a forced G > 1 raises. The first width past
+    the wide block, the 24-profile join (LENG 30181) and the widest M_pad,
+    65536 (16 chain passes), are such cases for the first two (the
+    three-profile join, LENG 6977, takes the wide block:
+    test_block_plan_fits_the_block); 38,920 and 65536 for the lazy, filter,
+    Forward and backward kinds, which also plan it where the card holds no
+    cluster (``clusters`` 0)."""
+    assert p7_cuda.BLOCK_KINDS == tuple(k for k in p7_cuda.BLOCKED_KINDS
+                                        if k not in p7_cuda.CLUSTER_KINDS)
+    widths = ((p7_cuda.MAX_BLOCK_STATES + 8, 30184, 65536) if kind in p7_cuda.BLOCK_KINDS
+              else (38920, 65536))
     for m_pad in widths:
         full = p7_cuda.chain_passes(m_pad)
         assert p7_cuda.kernel_case(m_pad, kind) == (p7_cuda.MEM_THREADS, -(-m_pad // 1024))
@@ -878,14 +891,18 @@ def test_cluster_plan_fits_the_block(kind):
     bytes of a block beside its group and the cluster's area (two rows and
     468 floats, whatever C; 128 more for the backward pass's two-value
     exchanges), every window up to 8 passes staged whole; the eager and
-    log-space kinds stay in memory."""
+    log-space kinds take no cluster: the wide block up to MAX_BLOCK_STATES
+    (4872 and 6984), the rows-in-memory case past it (30184, 38912)."""
     for m_pad, c in ((4872, 3), (6984, 3), (30184, 13), (38912, 16)):
         assert p7_cuda.cluster_blocks(m_pad, kind) == (
             c if kind in p7_cuda.CLUSTER_KINDS else 1) and c == -(-m_pad // 2432)
         full = p7_cuda.chain_passes(m_pad)
         if kind not in p7_cuda.CLUSTER_KINDS:
             plan = p7_cuda.plan_launch(kind, m_pad, full, 64, 40, SMS)
-            assert (plan.threads, plan.cluster) == (p7_cuda.MEM_THREADS, 1)
+            block = m_pad <= p7_cuda.MAX_BLOCK_STATES
+            assert (plan.threads, plan.cluster, plan.block, plan.mem) == (
+                p7_cuda.BLOCK_THREADS if block else p7_cuda.MEM_THREADS,
+                p7_cuda.BLOCK_CLUSTER if block else 1, block, not block)
             continue
         per = -(-m_pad // (THREADS * c))
         assert per in p7_cuda.CLUSTER_PER and p7_cuda.kernel_case(m_pad, kind) == (THREADS, per)
@@ -947,3 +964,147 @@ def test_backward_plan_and_shared_memory():
     source = (p7_cuda._build.CSRC_DIR / "p7_blocked.cuh").read_text()
     assert ("return 6 * row_floats<PER, KT>() + 2 * erow_floats<PER, KT, true>() + "
             "3 * warps<KT>() +\n         kChunk / 4 + 2 * kChunk;") in source
+
+
+# -- the wide block ---------------------------------------------------------
+
+BLOCK = p7_cuda.BLOCK_THREADS
+
+
+@pytest.mark.parametrize("per", p7_cuda.BLOCK_PER)
+def test_block_shifts_equal_the_plain_shift(per):
+    """The wide block's shifts (BLOCK_THREADS threads of ``per`` states:
+    registers and a halo below per, the row through the shift buffer at
+    sidx above) equal the plain shift for every pass s = 2^p of its states
+    and both fills; its shared-row index is a bijection whose warps hit 32
+    banks."""
+    _check_row_index(per, BLOCK)
+    _check_shifts(per, BLOCK)
+
+
+@pytest.mark.parametrize("per", p7_cuda.BLOCK_PER)
+def test_block_state_map_is_a_bijection(per):
+    """State j of the wide block sits in (thread, slot) with j = thread *
+    per + slot: every one of its BLOCK_THREADS * per states once; past them
+    the map raises."""
+    seen = [p7_cuda.block_state(j, per) for j in range(BLOCK * per)]
+    assert sorted(seen) == [(t, k) for t in range(BLOCK) for k in range(per)]
+    assert all(t * per + k == j for j, (t, k) in enumerate(seen))
+    with pytest.raises(ValueError, match="wide block"):
+        p7_cuda.block_state(BLOCK * per, per)
+
+
+@pytest.mark.parametrize("per", (p7_cuda.BLOCK_PER[0], 7, p7_cuda.BLOCK_PER[-1]))
+def test_block_rows_are_thread_major(per):
+    """block_rows lays the six transitions and the chain's passes out as
+    [6 + passes, per, BLOCK_THREADS]: entry (q, k, t) is row q at state t *
+    per + k (-inf past M_pad), so a warp's 32 threads reading slot k read
+    32 contiguous floats."""
+    m_pad = BLOCK * (per - 1) + 8 * (per % 5 + 1)
+    passes = p7_cuda.chain_passes(m_pad)
+    rng = np.random.default_rng(per)
+    trans = torch.from_numpy(rng.normal(size=(8, m_pad)).astype(np.float32))
+    chain = torch.from_numpy(rng.normal(size=(16, m_pad)).astype(np.float32))
+    got = p7_cuda.block_rows(trans, chain, passes, per)
+    assert got.shape == (6 + passes, per, BLOCK) and got.is_contiguous()
+    rows = torch.cat([trans[:6], chain[:passes]])
+    flat = got.reshape(6 + passes, -1)
+    for q in range(6 + passes):
+        for t in (0, 1, 31, 32, BLOCK - 1):
+            for k in range(per):
+                j = t * per + k
+                want = rows[q, j] if j < m_pad else p7_cuda.NEG_INF
+                assert got[q, k, t] == want and flat[q, k * BLOCK + t] == want
+
+
+@pytest.mark.parametrize("kind,per", [(kind, per) for kind in p7_cuda.BLOCK_KINDS
+                                      for per in p7_cuda.BLOCK_PER])
+def test_block_plan_fits_the_block(kind, per):
+    """Past 4864 states, up to MAX_BLOCK_STATES, the eager and log-space
+    kinds plan the wide block at the narrowest and widest M_pad of each per:
+    BLOCK_THREADS threads, ``cluster`` BLOCK_CLUSTER (the C entries' name of
+    the case), one group a block (a forced G other than 1 raises), one
+    sequence a block on a grid of what an SM's registers,
+    shared memory and threads allow times the SMs (one block an SM), at
+    most the batch; the transition rows staged first and chain rows only
+    after all six, as many as fit the 232,448 bytes beside the group's two
+    shift rows, one step's two emission rows, reduction scratch and token
+    chunk (blocked_smem_bytes(..., block=True), the header's
+    block_smem_floats); the rest read thread-major."""
+    row = 4 * BLOCK * p7_cuda.blocked_stride(per)
+    group = 4 * row + 4 * (2 * (BLOCK // 32) + 32)
+    assert p7_cuda.blocked_smem_bytes(per, 0, 1, block=True) == group
+    for m_pad in sorted({max(p7_cuda.MAX_WIDE_STATES + 8, BLOCK * (per - 1) + 8), BLOCK * per}):
+        assert p7_cuda.kernel_case(m_pad, kind) == (BLOCK, per)
+        assert p7_cuda.kernel_case(m_pad) == (p7_cuda.MEM_THREADS, -(-m_pad // 1024))
+        full = p7_cuda.chain_passes(m_pad)
+        # __launch_bounds__(BLOCK_THREADS, 1): at most 64 registers a thread
+        bounded = [r for r in REGS if r <= p7_cuda.REGS_PER_SM // BLOCK]
+        for regs, b_pad in itertools.product(bounded, BATCHES):
+            plan = p7_cuda.plan_launch(kind, m_pad, full, b_pad, regs, SMS)
+            assert (plan.threads, plan.cluster, plan.groups, plan.max_groups, plan.per) == (
+                BLOCK, p7_cuda.BLOCK_CLUSTER, 1, 1, per)
+            assert plan.block and not plan.mem
+            rows = plan.n_trans + plan.n_chain
+            assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, block=True)
+            assert plan.smem == rows * row + group <= SMEM_PER_SM
+            assert 0 <= plan.n_trans <= 6 and 0 <= plan.n_chain <= full
+            assert plan.n_chain == 0 or plan.n_trans == 6
+            if rows < 6 + full:
+                assert plan.smem + row > SMEM_PER_SM
+            warp_regs = -(-regs // 8) * 8 * 32
+            per_sm = min(p7_cuda.REGS_PER_SM // (BLOCK // 32 * warp_regs),
+                         SMEM_PER_SM // plan.smem, p7_cuda.THREADS_PER_SM // BLOCK)
+            assert per_sm == 1 and plan.grid == min(b_pad, SMS)
+        with pytest.raises(ValueError, match="wide block takes 1"):
+            p7_cuda.plan_launch(kind, m_pad, full, 64, 128, SMS, groups=2)
+        assert p7_cuda.plan_launch(kind, m_pad, full, 64, 128, SMS, groups=1).groups == 1
+    assert p7_cuda.kernel_case(p7_cuda.MAX_BLOCK_STATES + 8, kind)[0] == p7_cuda.MEM_THREADS
+
+
+def test_block_plan_at_the_joins():
+    """The three-profile join (M_pad 6984, 13 passes): 7 states a thread,
+    four transition rows staged (229,760 bytes), 15 rows read thread-major;
+    the first wide block (4872): all six transitions and one chain row."""
+    plan = p7_cuda.plan_launch("eager", 6984, 13, 64, 64, SMS)
+    assert (plan.per, plan.n_trans, plan.n_chain, plan.smem, plan.grid) == (7, 4, 0, 229760, 64)
+    plan = p7_cuda.plan_launch("log", 4872, 13, 256, 64, SMS)
+    assert (plan.per, plan.n_trans, plan.n_chain, plan.grid) == (5, 6, 1, SMS)
+
+
+def test_block_cases_match_kernel_source():
+    """The wide block's cases the two C entries compile are BLOCK_PER at
+    kBlockThreads = BLOCK_THREADS (with_block_case), named by ``cluster`` 0
+    (BLOCK_CLUSTER); the header lays its shared memory out as
+    blocked_smem_bytes(block=True) counts it, its step (block_chunk) reduces
+    E over KT / 32 warps, and the 128-thread group keeps its own step
+    (run_chunk) and reduction (group_reduce, four warps)."""
+    csrc = p7_cuda._build.CSRC_DIR
+    blocked = (csrc / "p7_blocked.cuh").read_text()
+    cases = re.findall(r"P7_BLOCK_CASE\((\d+)\)\n", blocked)
+    assert tuple(int(c) for c in cases) == p7_cuda.BLOCK_PER
+    assert f"constexpr int kBlockThreads = {BLOCK};" in blocked
+    assert f"constexpr int kBlockPerMin = {p7_cuda.BLOCK_PER[0]};" in blocked
+    assert f"constexpr int kBlockPerMax = {p7_cuda.BLOCK_PER[-1]};" in blocked
+    assert ("return static_cast<size_t>(n_rows + 4) * row_floats<PER, KT>() + "
+            "red_floats<KT>() +\n         kChunk / 4;") in blocked
+    assert 'static_assert(KT == 128, "a group is 4 warps");' in blocked
+    assert "float block_reduce(float v, float* red, int t, int bar) {" in blocked
+    template = (csrc / "p7_viterbi.cuh").read_text()
+    assert "block_chunk<PER, KT, LSE>(a, smem, gs, r, count, par, tr_loop, tr_move, t, bar);" in (
+        template)
+    assert 'static_assert(KT == 128, "groups of 128 (the wide block runs block_chunk)");' in (
+        template)
+    assert "static constexpr int NEM = KT == 128 ? 4 : 2;" in template
+    assert "viterbi_body<PER, KT, false, LSE, false, Span::kGroup>(a);" in template
+    assert "4 * block_smem_floats<PER, KT>(a.n_trans + a.n_chain)" in template
+    assert "__ldg(global + (q * PER + k) * KT)" in template
+    for name, lse in (("p7_viterbi_kernel.cu", "false"), ("p7_forward_log_kernel.cu", "true")):
+        source = (csrc / name).read_text()
+        assert "with_block_case<BlockCase>(per" in source
+        assert f"viterbi_block_kernel<PER, kBlockThreads, {lse}>" in source
+        assert "if (cluster == 0) {" in source
+    assert p7_cuda.MAX_BLOCK_STATES == BLOCK * p7_cuda.BLOCK_PER[-1]
+    assert p7_cuda.BLOCK_CLUSTER == 0
+    assert BLOCK * (p7_cuda.BLOCK_PER[0] - 1) < p7_cuda.MAX_WIDE_STATES + 8 <= (
+        BLOCK * p7_cuda.BLOCK_PER[0])

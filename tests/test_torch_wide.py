@@ -200,8 +200,9 @@ def test_wide_plain_filter_bounds_viterbi(wide_files, batch):
 
 def test_plain_versions_take_any_width(wide_files, profile_dir, batch):
     """Past the register cases' 4864 states the p7 kernels' cases and
-    launch plan pick the rows-in-memory case (the eager kind) or a 3-block
-    cluster (the Forward kind), and the MSV kernel's a 3-block cluster, and
+    launch plan pick the wide block (the eager kind: 1024 threads of 5
+    states), a 3-block cluster (the Forward kind) or, with no kind, the
+    rows-in-memory case, and the MSV kernel's a 3-block cluster, and
     past 65536 the p7 case, plan and the posterior launch raise, naming that
     limit, while the scanner and the plain versions scan:
     a profile of 4870 states (M_pad 4872; the LENG 4770 one joined with
@@ -214,8 +215,11 @@ def test_plain_versions_take_any_width(wide_files, profile_dir, batch):
     m_pad = msv_cuda.round_up(hmm.leng, 8)
     assert msv_cuda.kernel_case(m_pad) == (96, 52)
     assert p7_cuda.kernel_case(m_pad) == (p7_cuda.MEM_THREADS, 5) and p7_cuda.kernel_per(m_pad) == 5
-    plan = p7_cuda.plan_launch("eager", m_pad, 13, B, 128, 132)
-    assert (plan.threads, plan.groups, plan.grid, plan.smem) == (p7_cuda.MEM_THREADS, 1, B, 0)
+    assert p7_cuda.kernel_case(m_pad, "eager") == (p7_cuda.BLOCK_THREADS, 5)
+    plan = p7_cuda.plan_launch("eager", m_pad, 13, B, 64, 132)
+    assert (plan.threads, plan.cluster, plan.groups, plan.grid, plan.smem) == (
+        p7_cuda.BLOCK_THREADS, p7_cuda.BLOCK_CLUSTER, 1, B,
+        p7_cuda.blocked_smem_bytes(5, 7, 1, block=True))
     plan = p7_cuda.plan_launch("forward", m_pad, 4, B, 128, 132)
     assert (plan.threads, plan.cluster, plan.per, plan.groups, plan.grid) == (128, 3, 13, 1, 3 * B)
     assert p7_cuda.kernel_case(m_pad, "forward") == (128, 13)
@@ -246,8 +250,10 @@ def test_plain_versions_take_any_width(wide_files, profile_dir, batch):
 def test_mem_join_round_trip(mem_files, stems):
     """The joins past 4864 states, written by the JAX writer, parse to the
     same arrays in both packages and as chip_smoke.py builds them; both
-    select the p7 kernels' rows-in-memory cases and the MSV kernel's C-block
-    clusters (C = 3 and 13, chip_smoke.CLUSTER_SIZES)."""
+    select the p7 kernels' rows-in-memory cases (with no kind) and the MSV
+    kernel's C-block clusters (C = 3 and 13, chip_smoke.CLUSTER_SIZES); the
+    eager and log-space kinds take the wide block at LENG 6977 and stay in
+    memory at 30181."""
     path, jax_hmm = mem_files[stems]
     port = parse_hmm(path)
     built = chip_smoke.wide_profile(stems)
@@ -259,6 +265,8 @@ def test_mem_join_round_trip(mem_files, stems):
     c = chip_smoke.CLUSTER_SIZES[chip_smoke.MEM_JOINS.index(stems)]
     assert msv_cuda.cluster_blocks(msv_cuda.kernel_case(m_pad)[0]) == c == {3: 3, 24: 13}[len(stems)]
     assert p7_cuda.kernel_case(m_pad)[0] == p7_cuda.MEM_THREADS
+    for kind in p7_cuda.BLOCK_KINDS:
+        assert p7_cuda.block_case(m_pad, kind) == (port.leng == 6977)
 
 
 @pytest.mark.parametrize("stems", chip_smoke.MEM_JOINS, ids=lambda s: f"{len(s)}-profile")
@@ -297,6 +305,153 @@ def test_mem_join_plain_p7_matches_jax(mem_files, batch):
     assert _max_d(fwd, np.asarray(forward_xla(jp7, tokens, lengths))) <= FWD_TOL
     filt = viterbi_filter_scores(p7, tokens, lengths, device="cpu").numpy()
     assert np.all((filt >= exact - 1e-4) | np.isneginf(exact))
+
+
+KT = p7_cuda.BLOCK_THREADS
+
+
+def _block_shift(v: np.ndarray, s: int, per: int) -> np.ndarray:
+    """csrc/p7_blocked.cuh::shift in the wide block ([B, KT * per] rows,
+    thread t's slots k at t * per + k, fill -inf): below per (by 1, 2, 4, 8,
+    16) slots k >= s move within the thread and the first s are the previous
+    thread's last s; a larger shift writes the row into the shift buffer at
+    t * stride + k and reads state t * per + k - s at sidx."""
+    b = v.shape[0]
+    x = v.reshape(b, KT, per)
+    if s < per and s in (1, 2, 4, 8, 16):
+        out = np.empty_like(x)
+        out[:, :, s:] = x[:, :, : per - s]
+        out[:, 1:, :s] = x[:, :-1, per - s:]
+        out[:, 0, :s] = -np.inf
+        return out.reshape(b, -1)
+    stride = p7_cuda.blocked_stride(per)
+    t, k = np.meshgrid(np.arange(KT), np.arange(per), indexing="ij")
+    buf = np.full((b, KT * stride), np.nan, dtype=np.float32)
+    buf[:, (t * stride + k).ravel()] = v
+    j = (t * per + k - s).ravel()
+    at = np.maximum(j, 0)
+    at = at if per % 2 else at + at // per
+    return np.where(j >= 0, buf[:, at], np.float32(-np.inf)).astype(np.float32)
+
+
+def _block_reduce(v: np.ndarray, op) -> np.ndarray:
+    """csrc/p7_blocked.cuh::block_reduce of one value a thread ([B, KT]): a
+    warp butterfly, then lane l of every warp takes warp l mod (KT / 32)'s
+    value and a butterfly over the lanes combines them; every thread ends
+    with the same value."""
+    t = np.arange(KT)
+    for off in (16, 8, 4, 2, 1):
+        v = op(v, v[:, t ^ off])
+    w = KT // 32
+    v = v[:, ::32][:, (t % 32) & (w - 1)]
+    off = w // 2
+    while off:
+        v = op(v, v[:, t ^ off])
+        off //= 2
+    assert (v == v[:, :1]).all()
+    return v[:, 0]
+
+
+def _np_lse2(x: np.ndarray, y) -> np.ndarray:
+    """p7_viterbi.cuh::combine<true> (JAX's _lse2) in float32."""
+    mx = np.maximum(x, y)
+    with np.errstate(invalid="ignore"):
+        d = np.minimum(x, y) - mx
+        return np.where(np.isnan(d), mx, mx + np.log1p(np.exp(d))).astype(np.float32)
+
+
+def _block_model(kind: str, pack, staged, carry):
+    """The wide block's eager (kind "eager") or log-space ("log") scan in
+    NumPy, step for step as csrc/p7_viterbi.cuh::run_chunk runs it at KT =
+    BLOCK_THREADS: the rows in the blocked layout, the plan's staged rows
+    and the thread-major copy (p7_cuda.block_rows) for the others, the
+    shifts of _block_shift and E by each thread's states in order, then
+    _block_reduce. Returns the scan's (scores, m, i, d, s) as arrays."""
+    lse = kind == "log"
+    comb = _np_lse2 if lse else np.maximum
+    m_pad = pack.m_pad
+    passes = p7_cuda.chain_passes(m_pad)
+    threads, per = p7_cuda.kernel_case(m_pad, kind)
+    assert threads == KT
+    n = KT * per
+    plan = p7_cuda.plan_launch(kind, m_pad, passes, B, 64, 132)
+    tm = p7_cuda.block_rows(pack.trans, pack.chain, passes, per).numpy()
+
+    def pad(x):
+        return np.pad(np.asarray(x, dtype=np.float32), ((0, 0), (0, n - m_pad)),
+                      constant_values=-np.inf)
+
+    staged_rows = pad(np.concatenate([pack.trans[:6].numpy(), pack.chain[:passes].numpy()]))
+    row = [staged_rows[q] if q < plan.n_trans + plan.n_chain else tm[q].T.reshape(-1)
+           for q in range(6 + passes)]
+    tmm, tmi, tmd, tim, tii, tdm = row[:6]
+    msc, isc = pad(pack.emit_m.numpy()), pad(pack.emit_i.numpy())
+    tr_b_mk, tr_e_c, tr_e_j = (np.float32(x) for x in pack.consts.numpy()[:3])
+    tokens = staged.tokens.numpy().astype(np.int64).clip(0, 19)
+    lengths = staged.lengths.numpy()
+    tr_loop, tr_move = staged.tr_rows.numpy()
+    m, i, d = (pad(x.numpy()) for x in carry[:3])
+    sj, sc, sn, sb = carry[3].numpy().copy()
+    for step in range(int(lengths.max())):
+        valid = step < lengths
+        pd = comb(comb(m + tmm, i + tim), d + tdm)
+        diag = _block_shift(pd, 1, per)
+        bt = (sb + tr_b_mk)[:, None]
+        nm = msc[tokens[:, step]] + comb(diag, bt)
+        ni = isc[tokens[:, step]] + comb(m + tmi, i + tii)
+        ac = _block_shift(nm + tmd, 1, per)
+        for p in range(passes):
+            ac = comb(ac, _block_shift(ac, 1 << p, per) + row[6 + p])
+        if lse:
+            x = comb(nm, ac).reshape(-1, KT, per)
+            mx = _block_reduce(x.max(axis=2), np.maximum)[:, None]
+            total = np.zeros(x.shape[:2], dtype=np.float32)
+            with np.errstate(invalid="ignore"):
+                for k in range(per):
+                    total = total + np.exp(np.where(x[:, :, k] == mx, np.float32(0),
+                                                    x[:, :, k] - mx)).astype(np.float32)
+            e = (mx[:, 0] + np.log(_block_reduce(total, np.add))).astype(np.float32)
+        else:
+            e = _block_reduce(np.maximum(nm, ac).reshape(-1, KT, per).max(axis=2), np.maximum)
+        nj = comb(sj + tr_loop, e + tr_e_j)
+        nc = comb(sc + tr_loop, e + tr_e_c)
+        nn = sn + tr_loop
+        nb = comb(nn + tr_move, nj + tr_move)
+        m, i, d = (np.where(valid[:, None], new, old) for new, old in ((nm, m), (ni, i), (ac, d)))
+        sj, sc, sn, sb = (np.where(valid, new, old) for new, old in
+                          ((nj, sj), (nc, sc), (nn, sn), (nb, sb)))
+    return (sc + tr_move, m[:, :m_pad], i[:, :m_pad], d[:, :m_pad],
+            np.stack([sj, sc, sn, sb]))
+
+
+def test_block_model_matches_plain(mem_files, batch):
+    """The wide block (the eager and log-space kinds at LENG 6977: 1024
+    threads of 7 states, 4 rows staged, 15 read thread-major) modelled in
+    NumPy step for step: its larger shifts through the shift buffer and
+    its E order (each thread's states in order, the warp butterfly, then
+    the warps' butterfly) give the plain eager Viterbi's scores and carries
+    bit for bit and the plain log-space Forward's scores within
+    LOG_FWD_TOL; plain_versions hold plain against JAX
+    (test_mem_join_plain_p7_matches_jax)."""
+    path, _ = mem_files[chip_smoke.MEM_JOINS[0]]
+    tokens, lengths = batch
+    p7 = P7Profile.from_profile(parse_hmm(path))
+    pack = p7_cuda.viterbi_pack(p7, "cpu", lazy=False)
+    assert p7_cuda.kernel_case(pack.m_pad, "eager") == (KT, 7)
+    plan = p7_cuda.plan_launch("eager", pack.m_pad, 13, B, 64, 132)
+    assert (plan.threads, plan.block, plan.n_trans, plan.n_chain) == (KT, True, 4, 0)
+    staged = MSVScanner(device="cpu").stage(tokens, lengths)
+    for kind in ("eager", "log"):
+        run, carry = chip_smoke.p7_calls(kind, pack, staged)
+        want = [x.numpy() for x in run(chip_smoke.PLAIN_FNS[kind], staged.tokens,
+                                       staged.lengths, carry)]
+        got = _block_model(kind, pack, staged, carry)
+        if kind == "eager":
+            for g, w in zip(got, want):
+                assert np.array_equal(g, w)
+        else:
+            assert _max_d(got[0], want[0]) <= chip_smoke.LOG_FWD_TOL
+            assert np.isfinite(got[0][lengths > 0]).all()
 
 
 def test_mem_join_plain_lazy_and_filter_match_jax(mem_files, batch):

@@ -2,7 +2,8 @@
 cluster pair and the p7 kernels' C-block cluster cases against their plain
 versions on the card.
 
-    python3 tools/torch_cluster_check.py [--widths 2440,4872,...] [--p7 3,4,...,16] [--time]
+    python3 tools/torch_cluster_check.py [--widths 2440,4872,...] [--p7 3,4,...,16]
+                                         [--block 10,11,...] [--time]
 
 MSV: for each M_pad of --widths (default: the boundaries of every cluster
 size from the pair to 16 blocks, and two widths past 38,912), a random f32
@@ -27,13 +28,24 @@ carry chain split at P7_SPLIT equal to one call bit for bit, the
 row-saving Forward equal to Forward, and the backward pass on the
 row-saving kernel's rows within COV_TOL of its plain version and of the
 plain decode; the launch counters show each at its C and none in memory.
-Then chip_smoke.py's wide check (the cluster pairs, the backward pass's
-included). With --time, the MSV cluster cases at 2048 x 1000, the Forward
-pair at 64 x 3500, each p7 join's Viterbi and Forward kernels at 64 x 1000
+The eager Viterbi and the log-space Forward past 4864 states: for each per
+of --block (default: every BLOCK_PER) a join of the repo's profiles as near
+BLOCK_THREADS * per states as they fill (past BLOCK_THREADS * (per - 1)),
+then the joins of chip_smoke.MEM_JOINS (LENG 6977 and 30181), on the same
+ragged batch: the eager kernel equal to its plain version bit for bit
+(scores and carries) with a carry chain split at P7_SPLIT equal to one
+call, the log-space kernel within LOG_FWD_TOL; the launch counters show
+the wide block (block_launches) up to MAX_BLOCK_STATES and the
+rows-in-memory case past it, never the other. Then chip_smoke.py's wide
+check (the cluster pairs, the backward pass's included). With --time, the
+MSV cluster cases at 2048 x 1000, the Forward pair at 64 x 3500, each p7
+join's Viterbi and Forward kernels at 64 x 1000
 and its posterior pair at 64 x 1024 are timed (CUDA events, best of 3),
 each also as microseconds a step (ms over the residues and the rounds of
-64 rows on the clusters the card holds), beside the card's name and power
-limit. One line a check; exits 1 on a failure. Needs one CUDA card and
+64 rows on the clusters the card holds), and each --block join's eager
+and log-space kernels at 64 x 1000 and at build's calibration shape, 256 x
+400 (best of 3 on the wide block, once in memory), beside the card's name
+and power limit. One line a check; exits 1 on a failure. Needs one CUDA card and
 nvcc; imports nothing of JAX.
 """
 
@@ -222,10 +234,85 @@ def p7_join(rng, scanner, stems: tuple[str, ...], time_it: bool) -> dict:
     return out
 
 
+BLOCK_WRAPPERS = {"eager": p7_cuda.viterbi_scan_cuda, "log": p7_cuda.forward_log_scan_cuda}
+
+
+def block_stems(per: int) -> tuple[str, ...]:
+    """The repo's profiles, largest first, whose join fills a wide block of
+    ``per`` states a thread as near BLOCK_THREADS * per states as they go
+    (each profile at most once; past BLOCK_THREADS * (per - 1))."""
+    sizes = sorted((int(stem) for stem in chip_smoke.stems()), reverse=True)
+    hi = p7_cuda.BLOCK_THREADS * per
+    picks, total = [], 0
+    for n in sizes:
+        if total + n <= hi:
+            picks.append(n)
+            total += n
+    if total <= hi - p7_cuda.BLOCK_THREADS:
+        raise ValueError(f"no join of the repo's profiles fills per {per}")
+    return tuple(str(n) for n in picks)
+
+
+def p7_block_join(rng, scanner, stems: tuple[str, ...], time_it: bool) -> dict:
+    """The eager and log-space kernels on the join of ``stems`` against
+    their plain versions (the wide block up to MAX_BLOCK_STATES, else the
+    rows-in-memory case), with the launch counters; timed with ``time_it``."""
+    dev = scanner.device
+    p7 = chip_smoke.P7Profile.from_profile(chip_smoke.wide_profile(stems))
+    m_pad = p7_cuda.default_m_pad(p7)
+    threads, per = p7_cuda.kernel_case(m_pad, "eager")
+    block = p7_cuda.block_case(m_pad, "eager")
+    staged = chip_smoke.ragged_wide_batch(scanner, rng)
+    pack = p7_cuda.viterbi_pack(p7, dev, lazy=False)
+    for fn in BLOCK_WRAPPERS.values():
+        msv_cuda.zero_launches(fn)
+    got, want = {}, {}
+    for kind in BLOCK_WRAPPERS:
+        run, carry = chip_smoke.p7_calls(kind, pack, staged)
+        got[kind] = run(chip_smoke.CUDA_FNS[kind], staged.tokens, staged.lengths, carry)
+        torch.cuda.synchronize()
+        want[kind] = run(chip_smoke.PLAIN_FNS[kind], staged.tokens, staged.lengths, carry)
+    name = f"LENG {p7.num_states}"
+    e_err = chip_smoke.require_equal(got["eager"], want["eager"], f"{name} eager kernel vs plain")
+    chain = chip_smoke.p7_chain_error("eager", pack, staged)
+    l_err = chip_smoke.max_abs_diff(got["log"][0], want["log"][0])
+    chip_smoke.require(l_err <= chip_smoke.LOG_FWD_TOL, f"{name} log-space vs plain: {l_err}")
+    counts = {kind: counters(fn) | {"block": fn.block_launches}
+              for kind, fn in BLOCK_WRAPPERS.items()}
+    for kind, cnt in counts.items():
+        ok = (cnt["block"] > 0 and cnt["mem"] == 0) if block else (
+            cnt["mem"] > 0 and cnt["block"] == 0)
+        chip_smoke.require(ok, f"{name} {kind}: launches {cnt}, expected the "
+                               f"{'wide block' if block else 'rows-in-memory case'} only")
+    out = {"join": "+".join(stems), "m_pad": m_pad, "threads": threads, "per": per,
+           "chain_passes": p7_cuda.chain_passes(m_pad), "eager_max_abs": e_err,
+           "eager_chain_max_abs": chain, "log_max_abs": l_err, "launches": counts,
+           "equal": True}
+    for kind in BLOCK_WRAPPERS:
+        plan = p7_cuda.device_plan(kind, m_pad, p7_cuda.chain_passes(m_pad), 64, dev)
+        out[f"plan_{kind}"] = plan._asdict()
+        out[f"regs_{kind}"] = p7_cuda.kernel_regs(kind, plan.per, plan.threads, plan.cluster)
+    if time_it:
+        big = rng.integers(0, 20, size=(256, 1000)).astype(np.int8)
+        for rows, length in ((64, 1000), (256, 400)):
+            bstaged = scanner.stage(big[:rows, :length], np.full(rows, length, dtype=np.int32))
+            for kind in BLOCK_WRAPPERS:
+                run, carry = chip_smoke.p7_calls(kind, pack, bstaged)
+                fn = chip_smoke.CUDA_FNS[kind]
+                ms = chip_smoke.best_ms(lambda: run(fn, bstaged.tokens, bstaged.lengths, carry),
+                                        reps=3 if block else 1)
+                rounds = -(-rows // p7_cuda.device_plan(kind, m_pad, p7_cuda.chain_passes(m_pad),
+                                                        rows, dev).grid)
+                out[f"ms_{kind}_{rows}x{length}"] = ms
+                out[f"us_step_{kind}_{rows}x{length}"] = ms * 1e3 / (length * rounds)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--widths", default=",".join(str(w) for w in WIDTHS))
     ap.add_argument("--p7", default=",".join(str(c) for c in range(3, p7_cuda.MAX_CLUSTER + 1)))
+    ap.add_argument("--block", default=",".join(str(per) for per in p7_cuda.BLOCK_PER))
     ap.add_argument("--time", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -247,6 +334,10 @@ def main() -> int:
     for c in (int(x) for x in args.p7.split(",") if x):
         for high in (False, True):
             print(json.dumps(p7_join(rng, scanner, join_stems(c, high), args.time)), flush=True)
+
+    pers = [int(x) for x in args.block.split(",") if x]
+    for stems in [block_stems(per) for per in pers] + (list(chip_smoke.MEM_JOINS) if pers else []):
+        print(json.dumps(p7_block_join(rng, scanner, stems, args.time)), flush=True)
 
     errors = dict.fromkeys(chip_smoke.KERNELS, 0.0)
     chip_smoke.wide_kernels_vs_plain(scanner, rng, errors)

@@ -1,7 +1,7 @@
 """Check and time the wide cases of the PyTorch port's kernels on the card.
 
     python3 tools/torch_wide_timing.py [--tree DIR] [--label NAME] [--check] [--mem]
-                                       [--posterior]
+                                       [--posterior] [--block]
 
 The wide cases are the kernels' code paths for profiles of 2433 to 4864
 states (M_pad). With --check, chip_smoke.py's phase-8 check of them runs
@@ -25,8 +25,16 @@ itself, once after a warm-up (rows ``<kernel>_30181``). With --posterior
 (in place of the wide timings) it times the posterior pair past 2432 states
 alone: the row-saving Forward and the backward pass on its rows at 64 x
 1024 against LENG 4770, 6977, 30181 and 60362, best of 3 (rows
-``<kernel>_<LENG>``), the same work for any tree. The ptxas line of every
-kernel case (registers and spills) prints first.
+``<kernel>_<LENG>``), the same work for any tree. With --block (in place
+of the wide timings) it times the eager Viterbi and the log-space Forward
+past 4864 states alone, through whatever case the tree plans (the
+rows-in-memory case before the wide block; the wide block up to its width
+after): against the LENG 6977 join at 64 x 1000 (rows ``<kernel>_6977``)
+and at build's calibration shape, 256 x 400 (``<kernel>_6977_cal``), best
+of 3, and against the LENG 30181 and 60362 joins at 64 x 1000
+(``<kernel>_30181``, ``<kernel>_60362``), once after a warm-up; the same
+work for any tree. The ptxas line of every kernel case (registers and
+spills) prints first.
 
 Everything is imported from the checkout DIR (default: this script's):
 its chip_smoke.py, its package and its kernels, built there at first use.
@@ -109,6 +117,38 @@ def posterior_rows_past(chip_smoke, scanner, rng, work: dict) -> dict:
     return out
 
 
+def block_rows_past(chip_smoke, scanner, rng, work: dict) -> dict:
+    """The eager Viterbi and the log-space Forward against the joins past
+    4864 states (--block), through the tree's own helpers; no plain
+    version."""
+    p7_cuda = chip_smoke.p7_cuda
+    tokens = rng.integers(0, 20, size=(256, 1000)).astype(np.int8)
+    joins = ((chip_smoke.mem_profiles()[0], ((64, 1000, "", 3), (256, 400, "_cal", 3))),
+             (chip_smoke.mem_profiles()[1], ((64, 1000, "", 1),)),
+             (chip_smoke.msv_mem_profile(), ((64, 1000, "", 1),)))
+    out = {}
+    for hmm, shapes in joins:
+        p7 = chip_smoke.P7Profile.from_profile(hmm)
+        pack = p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)
+        passes = p7_cuda.chain_passes(pack.m_pad)
+        for rows, length, tag, reps in shapes:
+            staged = scanner.stage(tokens[:rows, :length], np.full(rows, length, dtype=np.int32))
+            for name, kind in (("viterbi_scan", "eager"), ("forward_log_scan", "log")):
+                run, carry = chip_smoke.p7_calls(kind, pack, staged)
+                fn = chip_smoke.CUDA_FNS[kind]
+                ms = chip_smoke.best_ms(lambda: run(fn, staged.tokens, staged.lengths, carry),
+                                        reps=reps)
+                key = f"{name}_{p7.num_states}{tag}"
+                out[key] = (ms, float("nan"))
+                work[key] = (chip_smoke.OPS_PER_CELL[kind](passes) * rows * length * p7.num_states,
+                             chip_smoke.nbytes(*pack[:4], pack.consts, staged.tokens,
+                                               staged.lengths, staged.tr_rows, *carry))
+                plan = p7_cuda.device_plan(kind, pack.m_pad, passes, rows, scanner.device)
+                print(f"{key}: {ms:.3f} ms (best of {reps}, {rows} x {length} x "
+                      f"M={p7.num_states}; plan {plan})", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(pathlib.Path(__file__).resolve().parent.parent))
@@ -116,6 +156,7 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--mem", action="store_true")
     ap.add_argument("--posterior", action="store_true")
+    ap.add_argument("--block", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
     import torch
@@ -141,6 +182,8 @@ def main() -> int:
     work = {}
     if args.posterior:
         out = posterior_rows_past(chip_smoke, scanner, rng, work)
+    elif args.block:
+        out = block_rows_past(chip_smoke, scanner, rng, work)
     else:
         out = chip_smoke.wide_timings(scanner, rng, errors, work)
     if args.mem:
