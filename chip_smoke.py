@@ -88,13 +88,19 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    of batch (mem_kernels_vs_plain: the lazy Viterbi, the Viterbi filter,
    Forward, the row-saving Forward and the backward pass on their 3- and
    13-block clusters, the eager Viterbi and the log-space Forward on the
-   wide block at LENG 6977 and in memory at 30181; eager (scores and
+   wide block at LENG 6977 and on 4 wide blocks at 30181; eager (scores and
    carries, and a carry chain), lazy and the Viterbi filter bit for bit,
    the lazy kernel also at lazy_k = 1 with its fire count printed and above
    0, Forward, log-space Forward and the posterior pair within their
    tolerances, the launch counters showing each kind at its case alone),
-   and the LENG 60362 join through the eager, lazy, filter, log-space,
-   Forward and backward kinds' rows-in-memory cases the same way;
+   and the LENG 60362 join through the lazy, filter, Forward and backward
+   kinds' rows-in-memory cases and the eager and log-space kinds' cluster
+   of 8 wide blocks the same way; then the eager Viterbi and the log-space
+   Forward on their clusters of 2 and 3 wide blocks (CLUSTER_JOINS) against
+   plain, each timed once at 64 x 1000, and their rows-in-memory route at
+   LENG 30181 on a card that holds no such cluster (no_block_clusters:
+   the occupancy query answering 0) against plain
+   (block_cluster_kernels_vs_plain);
 9. main paths, each with every launch count set to 0 just before it and
    read just after, on a seeded FASTA of 16384 x 3500 random residues with
    32 sequences sampled from 1400.hmm and 4 from the LENG 4770 profile at
@@ -129,8 +135,11 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    LENG 60362 join (the MSV rows-in-memory cases), the eager and log-space
    entry points on the planted rows (the wide block, none in memory), and
    the eager Viterbi, lazy Viterbi, Viterbi filter, Forward, log-space
-   Forward and posterior entry points with the LENG 60362 join (their
-   rows-in-memory cases past 38,912 states);
+   Forward and posterior entry points with the LENG 60362 join (the eager
+   and log-space kinds' cluster of 8 wide blocks, the others'
+   rows-in-memory cases past 38,912 states), and the eager and log-space
+   entry points with the LENG 30181 join through the rows-in-memory route
+   of a card that holds no cluster of wide blocks, == their cluster of 4;
    survivor counts and per-phase seconds printed;
 10. timings with CUDA events: the MSV kernel (best of 3) at 16384 x 3500
    against 1400.hmm and 2405.hmm and its plain version at 1400.hmm; the MSV
@@ -161,9 +170,12 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    also at build's calibration shape, 256 x 400, `<kernel>_block_cal`), the
    five on 13-block clusters against the LENG 30181 join
    (`<kernel>_cluster_30181`, best of 3) with the eager and log-space
-   Forward in memory there (`<kernel>_mem_30181`, once), and the seven in
-   memory against the LENG 60362 join, once; the parent's time beside
-   each), each plain version once. Each kernel's bound is the larger
+   Forward on 4 wide blocks there (`<kernel>_blocks_30181`, best of 3;
+   also at 256 x 400, `<kernel>_blocks_cal`) and through the rows-in-memory
+   route of a card without such clusters (`<kernel>_mem`, once), and
+   against the LENG 60362 join the five in memory, once, and the eager and
+   log-space Forward on 8 wide blocks (`<kernel>_blocks`, best of 3); the
+   parent's time beside each), each plain version once. Each kernel's bound is the larger
    of its FP32 operations (counted a cell from its source) at 67 TFLOP/s
    and the bytes it must move (each input once, each output once) at 3.35
    TB/s, at the timed shape;
@@ -193,10 +205,11 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    lines, which agree within MU_TOL (MSV and Viterbi mu) and TAU_TOL
    (Forward tau) bits; the card's calibration traced (its kernel time and
    busy share); calibrate_profile on the LENG 4770 join (the three wide
-   cases, held against plain in phase 8) and on the LENG 6977 join (MSV's
-   3-block cluster, the eager and log-space wide block, none in memory; its
-   seconds, and its STATS within MU_TOL / TAU_TOL of the same calibration
-   through the plain versions on the card); on phase 9's database `scan --stage
+   cases, held against plain in phase 8) and on the LENG 6977 and 30181
+   joins (MSV's 3- and 13-block clusters, the eager and log-space wide
+   block and cluster of 4 wide blocks, none in memory; their seconds, and
+   their STATS within MU_TOL / TAU_TOL of the same calibration through the
+   plain versions on the card); on phase 9's database `scan --stage
    search --align --msa-out` (every planted row a hit with an alignment
    inside its sequence, the MSA a row a domain), with --domains (the
    envelope rows kept, the alignments unchanged) and with --stream 4096
@@ -261,8 +274,8 @@ Prints a JSON line about the kernels (every case, the wide ones as
 `<kernel>_wide`, the C-block clusters past 4864 states (the MSV kernels',
 the lazy Viterbi's, the Viterbi filter's, Forward's and the row-saving
 Forward's) as `<kernel>_cluster`, the eager and log-space wide block as
-`<kernel>_block`, the rows-in-memory ones as
-`<kernel>_mem`), then the card's
+`<kernel>_block` and their clusters of wide blocks as `<kernel>_blocks`,
+the rows-in-memory ones as `<kernel>_mem`), then the card's
 name and power limit and, last,
 {"ok": true, ...}. Any failed check raises, and the script exits
 non-zero without those lines.
@@ -411,13 +424,15 @@ FUSED_OVERFLOW = 200
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
-# phase 10's wide cases and cases past 4864 states at the parent commit
-# 1800209 (before the eager and log-space wide block): the wide rows and
-# the eager and log-space rows past 4864 states are the faster of its two
-# runs of tools/torch_wide_timing.py (at its defaults, and with --block:
-# the rows-in-memory case there) on its `git archive`, in one call on
-# PARENT_CARD with this tree's two runs between them; the other rows past
-# 4864 are its final chip_smoke.py run (PERF.md §6, the same card model)
+# phase 10's wide cases and cases past 4864 states at an earlier commit:
+# the wide rows and the eager and log-space rows to 9216 states at 1800209
+# (before the eager and log-space wide block), the faster of its two runs
+# of tools/torch_wide_timing.py (at its defaults, and with --block: the
+# rows-in-memory case there) on its `git archive`, in one call on
+# PARENT_CARD with the next tree's two runs between them; the eager and
+# log-space rows past 9216 at 8d113fb (before their clusters of wide
+# blocks), as said below; the other rows past 4864 are 1800209's final
+# chip_smoke.py run (PERF.md §6, the same card model)
 PARENT_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PARENT_WIDE_MS = {
     "msv_scan_wide": 6.376, "msv_filter_scan_wide": 6.331, "msv_stacked_scan_wide": 10.596,
@@ -437,12 +452,19 @@ PARENT_WIDE_MS = {
     "viterbi_lazy_scan_mem": 501.385, "viterbi_filter_scan_mem": 311.669,
     "forward_prob_scan_mem": 335.946, "forward_save_scan_mem": 353.977,
     "backward_coverage_scan_mem": 332.131,
-    # the parent's rows-in-memory case at LENG 6977 (64 x 1000, and build's
-    # calibration shape, 256 x 400), LENG 30181 and LENG 60362 (64 x 1000)
+    # the rows-in-memory case before the wide block at LENG 6977 (64 x 1000,
+    # and build's calibration shape, 256 x 400)
     "viterbi_scan_block": 29.226, "forward_log_scan_block": 56.56,
     "viterbi_scan_block_cal": 27.085, "forward_log_scan_block_cal": 55.77,
-    "viterbi_scan_mem_30181": 233.054, "forward_log_scan_mem_30181": 327.749,
-    "viterbi_scan_mem": 522.086, "forward_log_scan_mem": 707.063,
+    # the parent 8d113fb's rows-in-memory case past 9216, in turns with this
+    # tree on the card (tools/torch_wide_timing.py --block on its `git
+    # archive`, the faster of its two runs): LENG 30181 at 64 x 1000 (the
+    # clusters of 4 wide blocks, and this tree's rows-in-memory route,
+    # `_mem`) and 256 x 400, LENG 60362 at 64 x 1000 (8 wide blocks)
+    "viterbi_scan_blocks_30181": 233.614, "forward_log_scan_blocks_30181": 328.17,
+    "viterbi_scan_mem": 233.614, "forward_log_scan_mem": 328.17,
+    "viterbi_scan_blocks_cal": 249.513, "forward_log_scan_blocks_cal": 317.13,
+    "viterbi_scan_blocks": 520.229, "forward_log_scan_blocks": 706.128,
 }
 
 # the sweep timing batch (sweep24, sweep24_filter) and the profiles the plain
@@ -512,9 +534,13 @@ MEM = "_mem"
 # the eager Viterbi's and the log-space Forward's cases past 4864 states up
 # to p7_cuda.MAX_BLOCK_STATES (the wide block: one 1024-thread block a
 # sequence, the rows in registers): their own JSON lines, their launches
-# counted by the wrapper's block_launches; past that their rows-in-memory
-# case (`_mem`, timed against the LENG 60362 join as the other kinds' are)
+# counted by the wrapper's block_launches; past that (up to 65536) their
+# clusters of C = 2..8 wide blocks (`_blocks`, launches summed from the
+# wrapper's block_cluster_launches, a dict by C); their rows-in-memory case
+# (`_mem`) is the route of a card that holds no such cluster, driven with
+# the occupancy query answering 0 (no_block_clusters) at LENG 30181
 BLOCK = "_block"
+BLOCKS = "_blocks"
 BLOCK_WRAPPERS = ("viterbi_scan", "forward_log_scan")
 # build's calibration shape (models/build.py::calibrate_profile at LENG >=
 # 400): the wide block timed there too (`<kernel>_block_cal`)
@@ -528,9 +554,14 @@ KERNELS.update({
     **{name + BLOCK: (source, replaces, f"{mode}; M_pad 4872..{p7_cuda.MAX_BLOCK_STATES}, "
                       f"the wide block ({p7_cuda.BLOCK_THREADS} threads a sequence)")
        for name, (source, replaces, mode) in KERNELS.items() if name in BLOCK_WRAPPERS},
+    **{name + BLOCKS: (source, replaces, f"{mode}; M_pad {MAX_BLOCK + 8}.."
+                       f"{p7_cuda.MAX_KERNEL_STATES}, clusters of 2..{p7_cuda.MAX_BLOCK_CLUSTER} "
+                       f"wide blocks")
+       for name, (source, replaces, mode) in KERNELS.items() if name in BLOCK_WRAPPERS},
     **{name + MEM: (source, replaces, f"{mode}; M_pad past "
                     f"{msv_cuda.MAX_CLUSTER_STATES if name in CLUSTER_WRAPPERS else MAX_BLOCK}, "
-                    "rows in global memory")
+                    "rows in global memory" + (" (a card that holds no cluster of wide blocks)"
+                                               if name in BLOCK_WRAPPERS else ""))
        for name, (source, replaces, mode) in KERNELS.items()},
 })
 
@@ -647,14 +678,39 @@ def launches() -> dict:
             **{name + CLUSTER: sum(n for c, n in WRAPPERS[name].cluster_launches.items() if c > 2)
                for name in CLUSTER_WRAPPERS},
             **{name + BLOCK: WRAPPERS[name].block_launches for name in BLOCK_WRAPPERS},
+            **{name + BLOCKS: sum(WRAPPERS[name].block_cluster_launches.values())
+               for name in BLOCK_WRAPPERS},
             **{name + MEM: fn.mem_launches for name, fn in WRAPPERS.items()}}
 
 
 def cluster_launches() -> dict:
     """The launches of the wrappers with C-block clusters in clusters, by C
-    (the p7 ones' cluster pairs at C = 2 included)."""
-    return {name: dict(sorted(WRAPPERS[name].cluster_launches.items()))
-            for name in CLUSTER_WRAPPERS}
+    (the p7 ones' cluster pairs at C = 2 included), and of the eager and
+    log-space wrappers in clusters of wide blocks, by C."""
+    return {**{name: dict(sorted(WRAPPERS[name].cluster_launches.items()))
+               for name in CLUSTER_WRAPPERS},
+            **{name + BLOCKS: dict(sorted(WRAPPERS[name].block_cluster_launches.items()))
+               for name in BLOCK_WRAPPERS}}
+
+
+@contextlib.contextmanager
+def no_block_clusters():
+    """The card as one that holds no cluster of wide blocks: device_plan's
+    occupancy query answers 0 for them, so the eager and log-space kinds
+    plan their rows-in-memory case past MAX_BLOCK (the route such a card
+    takes, logged); every other query as the card answers it."""
+    held = p7_cuda._cluster_held
+
+    def query(kind, per, smem, index, cluster, threads=p7_cuda.KERNEL_THREADS):
+        if threads == p7_cuda.BLOCK_THREADS:
+            return 0
+        return held(kind, per, smem, index, cluster, threads)
+
+    p7_cuda._cluster_held = query
+    try:
+        yield
+    finally:
+        p7_cuda._cluster_held = held
 
 
 def with_groups(fn, groups):
@@ -680,8 +736,9 @@ def plan_text(kind: str, pack, batch: int) -> str:
     pair = ""
     if plan.cluster > 1:
         most = p7_cuda.max_clusters(kind, per, plan.smem, torch.device(DEVICE).index or 0,
-                                    plan.cluster)
-        what = "cluster pair" if plan.cluster == p7_cuda.CLUSTER else "C-block cluster"
+                                    plan.cluster, plan.threads)
+        what = ("cluster of wide blocks" if plan.block_cluster else
+                "cluster pair" if plan.cluster == p7_cuda.CLUSTER else "C-block cluster")
         pair = (f"{what}: {plan.cluster} blocks a cluster, {plan.grid // plan.cluster} "
                 f"clusters (cudaOccupancyMaxActiveClusters {most}), ")
     return (f"{pair}{plan.threads} threads x {per}, G={plan.groups} (of {plan.max_groups}), grid="
@@ -704,7 +761,8 @@ def p7_packs(p7: P7Profile, device) -> dict:
 def print_plans(scanner) -> None:
     """Each blocked p7 case's launch plan against 1400.hmm, the wider wide
     profile and both joins past 4864 states (the C-block clusters of 3 and
-    13 blocks and the rows-in-memory cases) at the timed shapes."""
+    13 blocks, the wide block and the cluster of 4 wide blocks) at the timed
+    shapes."""
     for hmm in (parse_hmm(PROFILES / "1400.hmm"), wide_profile(WIDE_PAIRS[1]),
                 *mem_profiles()):
         prof = P7Profile.from_profile(hmm)
@@ -856,7 +914,8 @@ def ptxas_summary(log: str) -> list[str]:
         # the kernel's own name follows its length; the file's anonymous
         # namespace may hold the source's name too
         case = re.search(r"(?<=\d)(msv|viterbi|forward|filter|backward)"
-                         r"((?:_mem|_bounded|_pair|_cluster|_block)?)_kernel(?:I(\w+))?",
+                         r"((?:_mem|_bounded|_pair|_cluster|_block_cluster|_block)?)_kernel"
+                         r"(?:I(\w+))?",
                          entry.split("'")[1])
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
@@ -1851,8 +1910,10 @@ def cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
 
 def case_suffix(plan) -> str:
     """The JSON row suffix of a p7 case past 4864 states: CLUSTER for a
-    C-block cluster, BLOCK for the wide block, MEM for the rows-in-memory
-    case."""
+    C-block cluster, BLOCK for the wide block, BLOCKS for a cluster of wide
+    blocks, MEM for the rows-in-memory case."""
+    if plan.block_cluster:
+        return BLOCKS
     if plan.cluster > p7_cuda.CLUSTER:
         return CLUSTER
     return BLOCK if plan.block else MEM
@@ -1860,8 +1921,11 @@ def case_suffix(plan) -> str:
 
 def expected_case(m_pad: int, kind: str) -> tuple[int, int]:
     """(cluster, threads) of the plan ``kind`` takes past 4864 states: its
-    C-block cluster, the wide block or the rows-in-memory case."""
+    C-block cluster, the wide block, a cluster of wide blocks or the
+    rows-in-memory case."""
     c = p7_cuda.cluster_blocks(m_pad, kind)
+    if p7_cuda.block_cluster_case(m_pad, kind):
+        return c, p7_cuda.BLOCK_THREADS
     if c > 1:
         return c, p7_cuda.KERNEL_THREADS
     if p7_cuda.block_case(m_pad, kind):
@@ -1875,9 +1939,10 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     batch of WIDE_BATCH sequences up to WIDE_LEN residues: the lazy Viterbi,
     the Viterbi filter, Forward, the row-saving Forward and the backward
     pass on their C-block clusters, the eager Viterbi and the log-space
-    Forward on the wide block (LENG 6977) and in memory (30181); then the
-    all-24 join twice over (LENG 60362, past 38,912) through every kind's
-    rows-in-memory case. Eager,
+    Forward on the wide block (LENG 6977) and on a cluster of 4 wide blocks
+    (30181); then the all-24 join twice over (LENG 60362, past 38,912)
+    through every other kind's rows-in-memory case and the eager and
+    log-space kinds' cluster of 8 wide blocks. Eager,
     lazy (replay counts included) and the Viterbi filter bit for bit, the
     filter >= the exact scores; the lazy kernel again at lazy_k = 1, whose
     certificate fires below 16 chain passes (the fire count printed, above
@@ -1886,7 +1951,8 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     eager and Forward carry chains == one call; the backward pass on the
     kernel's own rows within COV_TOL of plain and the whole decode within
     COV_TOL / TOT_TOL. Each kind must launch its case and no other (the
-    launch counters: cluster_launches by C, block_launches, mem_launches)."""
+    launch counters: cluster_launches and block_cluster_launches by C,
+    block_launches, mem_launches)."""
     staged = ragged_wide_batch(scanner, rng)
     kinds = ("eager", "lazy", "forward", "filter", "log", "save")
     joins = [(hmm, kinds) for hmm in mem_profiles() + [msv_mem_profile()]]
@@ -1959,7 +2025,12 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         by_c = cluster_launches()
         for name, kind, _ in found:
             c = p7_cuda.cluster_blocks(m_pad, kind)
-            if c > 1:
+            if p7_cuda.block_cluster_case(m_pad, kind):
+                require(set(by_c[name + BLOCKS]) == {c} and got_l[name + MEM] == 0
+                        and got_l[name + BLOCK] == 0,
+                        f"{hmm.name[:40]} {name}: launches {got_l}, by C {by_c[name + BLOCKS]}; "
+                        f"expected the cluster of {c} wide blocks only")
+            elif c > 1:
                 require(set(by_c[name]) == {c} and got_l[name + MEM] == 0,
                         f"{hmm.name[:40]} {name}: launches {got_l}, by C {by_c[name]}; expected "
                         f"the {c}-block cluster only")
@@ -1968,7 +2039,7 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
                         f"{hmm.name[:40]} {name}: not the wide block ({got_l})")
             else:
                 require(got_l[name + MEM] > 0 and not by_c.get(name)
-                        and got_l.get(name + BLOCK, 0) == 0,
+                        and got_l.get(name + BLOCK, 0) == 0 and got_l.get(name + BLOCKS, 0) == 0,
                         f"{hmm.name[:40]} {name}: not the rows-in-memory case ({got_l})")
         print(f"past 4864 states {hmm.name[:40]} (M {p7.num_states}, {passes} chain passes, "
               f"cases {cases}): B={WIDE_BATCH} L<={WIDE_LEN} {text}lazy(k="
@@ -1977,6 +2048,81 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
               f"max|d|={vf_err} (>= lazy), Forward {f_err:.3g} chain {f_chain}, row-saving == "
               f"Forward; backward on its rows {b_err:.3g}, decode coverage {c_err:.3g} totals "
               f"{t_err:.3g}; launches by C {by_c}", flush=True)
+
+
+def block_cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
+    """The eager Viterbi and the log-space Forward on their clusters of wide
+    blocks at C = 2 and 3 (the joins of CLUSTER_JOINS: LENG 11165, 18170,
+    19679) against their plain versions on the ragged batch of
+    mem_kernels_vs_plain (eager bit for bit, with a carry chain; log-space
+    within LOG_FWD_TOL), each launching its cluster alone, and each timed
+    once at SURVIVOR_BATCH x MEM_TIME_LEN after a warm-up (the step's cost
+    at C = 2 and 3, printed); then the rows-in-memory route of a card that
+    holds no such cluster (no_block_clusters) on the all-24 join (LENG
+    30181) against plain, the wrappers' mem_launches showing it."""
+    staged = ragged_wide_batch(scanner, rng)
+    tokens = rng.integers(0, 20, size=(SURVIVOR_BATCH, MEM_TIME_LEN)).astype(np.int8)
+    timed = scanner.stage(tokens, np.full(SURVIVOR_BATCH, MEM_TIME_LEN, dtype=np.int32))
+    for stems in CLUSTER_JOINS:
+        p7 = P7Profile.from_profile(wide_profile(stems))
+        pack = p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)
+        m_pad = pack.m_pad
+        c = p7_cuda.cluster_blocks(m_pad, "eager")
+        text = []
+        for name, kind in (("viterbi_scan", "eager"), ("forward_log_scan", "log")):
+            zero_launches()
+            run, carry = p7_calls(kind, pack, staged)
+            got = run(CUDA_FNS[kind], staged.tokens, staged.lengths, carry)
+            torch.cuda.synchronize()
+            want = run(PLAIN_FNS[kind], staged.tokens, staged.lengths, carry)
+            by_c = cluster_launches()[name + BLOCKS]
+            require(by_c == {c: 1} and launches()[name + MEM] == 0,
+                    f"LENG {p7.num_states} {name}: launches by C {by_c}, expected the cluster "
+                    f"of {c} wide blocks")
+            if kind == "eager":
+                err = max(require_equal(got, want, f"LENG {p7.num_states} eager vs plain"),
+                          p7_chain_error("eager", pack, staged))
+            else:
+                err = max_abs_diff(got[0], want[0])
+                require(err <= LOG_FWD_TOL, f"LENG {p7.num_states} log-space vs plain: {err}")
+            errors[name + BLOCKS] = max(errors[name + BLOCKS], err)
+            run, carry = p7_calls(kind, pack, timed)
+            plan = p7_cuda.device_plan(kind, m_pad, p7_cuda.chain_passes(m_pad), SURVIVOR_BATCH,
+                                       DEVICE)
+            ms = best_ms(lambda: run(CUDA_FNS[kind], timed.tokens, timed.lengths, carry), reps=1)
+            rounds = -(-SURVIVOR_BATCH // (plan.grid // plan.cluster))
+            text.append(f"{kind} max|d|={err:.3g}, {ms:.3f} ms at {SURVIVOR_BATCH} x "
+                        f"{MEM_TIME_LEN} ({ms * 1e3 / (MEM_TIME_LEN * rounds):.2f} us a step, "
+                        f"{rounds} rounds)")
+        print(f"cluster of wide blocks LENG {p7.num_states} (M_pad {m_pad}, C {c}, per "
+              f"{p7_cuda.kernel_case(m_pad, 'eager')[1]}; {plan_text('eager', pack, 64)}): "
+              f"{'; '.join(text)}", flush=True)
+
+    p7 = P7Profile.from_profile(mem_profiles()[1])
+    pack = p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)
+    with no_block_clusters():
+        zero_launches()
+        for name, kind in (("viterbi_scan", "eager"), ("forward_log_scan", "log")):
+            plan = p7_cuda.device_plan(kind, pack.m_pad, p7_cuda.chain_passes(pack.m_pad),
+                                       WIDE_BATCH, DEVICE)
+            require(plan.mem, f"{kind} with no cluster of wide blocks held: plan {plan}")
+            run, carry = p7_calls(kind, pack, staged)
+            got = run(CUDA_FNS[kind], staged.tokens, staged.lengths, carry)
+            torch.cuda.synchronize()
+            want = run(PLAIN_FNS[kind], staged.tokens, staged.lengths, carry)
+            if kind == "eager":
+                err = require_equal(got, want, "eager rows-in-memory route vs plain")
+            else:
+                err = max_abs_diff(got[0], want[0])
+                require(err <= LOG_FWD_TOL, f"log-space rows-in-memory route vs plain: {err}")
+            errors[name + MEM] = max(errors[name + MEM], err)
+        got = launches()
+    for name in BLOCK_WRAPPERS:
+        require(got[name + MEM] == 1 and got[name + BLOCKS] == 0,
+                f"the rows-in-memory route did not launch {name}'s memory case alone ({got})")
+    print(f"the rows-in-memory route (no cluster of wide blocks held), LENG {p7.num_states}: "
+          f"eager == plain, log-space max|d|={errors['forward_log_scan' + MEM]:.3g}; launches "
+          f"{nonzero(got)}", flush=True)
 
 
 def mem_paths(tmp: pathlib.Path, rng) -> dict:
@@ -1997,7 +2143,10 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     (log-space) on the wide block, and on MEM_PLANTED rows the entry points
     of the eager and lazy Viterbi, the Viterbi filter, Forward, the
     log-space Forward and the posterior decode with the LENG 60362 join
-    (their rows-in-memory cases past 38,912 states)."""
+    (the eager and log-space kinds' cluster of 8 wide blocks, the others'
+    rows-in-memory cases past 38,912 states), and the eager and log-space
+    entries with the LENG 30181 join on a card that holds no cluster of wide
+    blocks (no_block_clusters: their rows-in-memory case)."""
     hmm_dir = tmp / "hmms_mem"
     hmm_dir.mkdir()
     joins = mem_profiles() + [msv_mem_profile()]
@@ -2139,13 +2288,20 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
                            prob_space=False).cpu().numpy()
     cov, _ = posterior_cuda.posterior_coverage_batch(big_p7, tokens[rows], lengths[rows], DEVICE)
     got = launches()
-    for name in ("viterbi_lazy_scan", "viterbi_scan", "viterbi_filter_scan", "forward_prob_scan",
-                 "forward_log_scan", "forward_save_scan", "backward_coverage_scan"):
+    by_c = cluster_launches()
+    for name in ("viterbi_lazy_scan", "viterbi_filter_scan", "forward_prob_scan",
+                 "forward_save_scan", "backward_coverage_scan"):
         require(got[name + MEM] > 0 and got.get(name + CLUSTER, 0) == 0
                 and got.get(name + BLOCK, 0) == 0,
                 f"the entry points past 38,912 states did not launch {name}'s memory case alone "
                 f"({got})")
         counts[name + MEM] = counts.get(name + MEM, 0) + got[name + MEM]
+    for name in BLOCK_WRAPPERS:
+        require(got[name + BLOCKS] > 0 and by_c[name + BLOCKS] == {8: got[name + BLOCKS]}
+                and got[name + MEM] == 0,
+                f"the entry points past 38,912 states did not launch {name}'s cluster of 8 wide "
+                f"blocks alone ({got}, {by_c[name + BLOCKS]})")
+        counts[name + BLOCKS] = got[name + BLOCKS]
     require_geq(filt_s, torch.from_numpy(lazy_s), "Viterbi filter past 38,912 states vs lazy")
     require(np.array_equal(eager_s, lazy_s), "eager Viterbi past 38,912 states vs lazy")
     require(np.isfinite(lazy_s).all() and np.isfinite(fwd_s).all() and np.isfinite(cov).all()
@@ -2155,6 +2311,42 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
           f"it, Forward {np.round(fwd_s, 2).tolist()}, log-space Forward "
           f"{np.round(log_s, 2).tolist()}, posterior coverage finite, in "
           f"{time.perf_counter() - t0:.3f} s; launches {got}")
+
+    # the route of a card that holds no cluster of wide blocks, LENG 30181
+    p7_30181 = P7Profile.from_profile(mem_profiles()[1])
+    zero_launches()
+    with no_block_clusters():
+        t0 = time.perf_counter()
+        eager_m = viterbi_scores(p7_30181, tokens[rows], lengths[rows], device=DEVICE,
+                                 lazy=False).cpu().numpy()
+        log_m = forward_scores(p7_30181, tokens[rows], lengths[rows], device=DEVICE,
+                               prob_space=False).cpu().numpy()
+        secs = time.perf_counter() - t0
+    got = launches()
+    for name in BLOCK_WRAPPERS:
+        require(got[name + MEM] > 0 and got[name + BLOCKS] == 0,
+                f"the entry points with no cluster of wide blocks held did not launch {name}'s "
+                f"memory case alone ({got})")
+        counts[name + MEM] = got[name + MEM]
+    zero_launches()
+    eager_b = viterbi_scores(p7_30181, tokens[rows], lengths[rows], device=DEVICE,
+                             lazy=False).cpu().numpy()
+    log_b = forward_scores(p7_30181, tokens[rows], lengths[rows], device=DEVICE,
+                           prob_space=False).cpu().numpy()
+    got_b = launches()
+    require(np.array_equal(eager_m, eager_b) and np.isfinite(log_m).all()
+            and float(np.abs(log_m - log_b).max()) <= 2 * LOG_FWD_TOL,
+            "LENG 30181 entry points: the rows-in-memory route and the cluster of wide blocks "
+            "differ")
+    for name in BLOCK_WRAPPERS:
+        require(got_b[name + BLOCKS] > 0 and got_b[name + MEM] == 0,
+                f"the LENG 30181 entry points did not launch {name}'s cluster ({got_b})")
+        counts[name + BLOCKS] += got_b[name + BLOCKS]
+    print(f"main path past 9216 states (M {p7_30181.num_states}), entries on {MEM_PLANTED} rows "
+          f"with no cluster of wide blocks held (the rows-in-memory route, {secs:.3f} s): "
+          f"Viterbi (eager) {np.round(eager_m, 2).tolist()}, log-space Forward "
+          f"{np.round(log_m, 2).tolist()}; == the cluster of 4 wide blocks' (log-space within "
+          f"{float(np.abs(log_m - log_b).max()):.3g}); launches {got}, then {got_b}")
     return counts
 
 
@@ -2213,8 +2405,8 @@ def p7_timings_past(scanner, hmm, tokens, kinds, errors: dict, work: dict,
     against ``hmm`` past 4864 states: the Viterbi and Forward kinds at
     ``shape`` (SURVIVOR_BATCH x MEM_TIME_LEN), the posterior pair at
     SURVIVOR_BATCH x POST_TIME_LEN, on the first rows of ``tokens``; a
-    C-block cluster and the wide block best of 3, a rows-in-memory case
-    once, each after a warm-up; each plain version once, held against the
+    C-block cluster, the wide block and a cluster of wide blocks best of 3,
+    a rows-in-memory case once, each after a warm-up; each plain version once, held against the
     kernel; the rows ``<kernel>_cluster<label>``, ``<kernel>_block<label>``
     or ``<kernel>_mem<label>`` by the case that ran, the parent's time
     beside each (PARENT_WIDE_MS)."""
@@ -2315,10 +2507,13 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
     eager Viterbi and the log-space Forward on the wide block, these two
     also at CAL_BATCH x CAL_LEN, rows ``<kernel>_block_cal``), the all-24
     join (the five on 13-block clusters, rows ``<kernel>_cluster_30181``,
-    the eager and log-space Forward in memory, ``<kernel>_mem_30181``) and
-    the LENG 60362 join (the seven's rows-in-memory cases); each plain
-    version once, held against the kernel; the parent's time beside each
-    (PARENT_WIDE_MS)."""
+    the eager and log-space Forward on 4 wide blocks, ``<kernel>_blocks_30181``,
+    also at CAL_BATCH x CAL_LEN, ``<kernel>_blocks_cal``, and through the
+    rows-in-memory route of a card that holds no such cluster, rows
+    ``<kernel>_mem``) and the LENG 60362 join (the five's rows-in-memory
+    cases, the eager and log-space Forward on 8 wide blocks, rows
+    ``<kernel>_blocks``); each plain version once, held against the kernel;
+    the parent's time beside each (PARENT_WIDE_MS)."""
     hmms = mem_profiles()
     # wide enough for the posterior pair's POST_TIME_LEN residues
     tokens = rng.integers(0, 20, size=(WIDE_MSV_BATCH, max(MEM_TIME_LEN, POST_TIME_LEN)))
@@ -2338,6 +2533,10 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
                                (CAL_BATCH, CAL_LEN)))
     out.update(p7_timings_past(scanner, hmms[1], tokens, clustered + blocked, errors, work,
                                "_30181"))
+    out.update(p7_timings_past(scanner, hmms[1], tokens, blocked, errors, work, "_cal",
+                               (CAL_BATCH, CAL_LEN)))
+    with no_block_clusters():
+        out.update(p7_timings_past(scanner, hmms[1], tokens, blocked, errors, work))
     out.update(p7_timings_past(scanner, msv_mem_profile(), tokens, clustered + blocked, errors,
                                work))
     return out
@@ -2812,7 +3011,8 @@ def build_path(tmp: pathlib.Path) -> None:
     (--device cpu): the files equal apart from their STATS lines, which
     agree within MU_TOL / TAU_TOL; the card's calibration traced; then
     calibrate_profile on the LENG 4770 join (the three kernels' wide
-    cases)."""
+    cases) and on the LENG 6977 and 30181 joins against the plain
+    versions."""
     src = str(PROFILES / "1400.hmm")
     samples, msa = tmp / "build_samples.fsa", tmp / "build.sto"
     run_cli(["emit", "--hmm", src, "--count", str(BUILD_SAMPLES), "--seed", str(SEED),
@@ -2867,28 +3067,30 @@ def build_path(tmp: pathlib.Path) -> None:
     print(f"calibrate_profile LENG 4770 (256 x 400) on the card: {card_s:.3f} s; "
           f"{stats_text(got_wide)}; launches {nonzero(got)}")
 
-    # past 4864 states: MSV's 3-block cluster and the eager and log-space
-    # wide block, against the same calibration through the plain versions
-    join = mem_profiles()[0]
-    zero_launches()
-    t0 = time.perf_counter()
-    got_join = calibrate_profile(join, seed=SEED, device=DEVICE)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
-    got = launches()
-    require(got["msv_scan" + CLUSTER] >= 1, f"the LENG 6977 calibration: launches {got}")
-    for name in BLOCK_WRAPPERS:
-        require(got[name + BLOCK] >= 1 and got[name + MEM] == 0,
-                f"the LENG 6977 calibration did not launch {name}'s wide block alone ({got})")
-    t0 = time.perf_counter()
-    with plain_scans():
-        want_join = calibrate_profile(join, seed=SEED, device=DEVICE)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    err = require_stats_close(got_join, want_join, "calibrate_profile LENG 6977")
-    print(f"calibrate_profile LENG 6977 (256 x 400) on the card: {card_s:.3f} s (the plain "
-          f"versions on the card: {plain_s:.3f} s); {stats_text(got_join)}; plain "
-          f"{stats_text(want_join)}; max |d| {err:.3g} bits; launches {nonzero(got)}")
+    # past 4864 states: MSV's 3- and 13-block clusters and the eager and
+    # log-space wide block (LENG 6977) and cluster of 4 wide blocks (LENG
+    # 30181), against the same calibration through the plain versions
+    for join, case in zip(mem_profiles(), (BLOCK, BLOCKS)):
+        leng = join.model_length - 1
+        zero_launches()
+        t0 = time.perf_counter()
+        got_join = calibrate_profile(join, seed=SEED, device=DEVICE)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        got = launches()
+        require(got["msv_scan" + CLUSTER] >= 1, f"the LENG {leng} calibration: launches {got}")
+        for name in BLOCK_WRAPPERS:
+            require(got[name + case] >= 1 and got[name + MEM] == 0,
+                    f"the LENG {leng} calibration did not launch {name}{case} alone ({got})")
+        t0 = time.perf_counter()
+        with plain_scans():
+            want_join = calibrate_profile(join, seed=SEED, device=DEVICE)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = require_stats_close(got_join, want_join, f"calibrate_profile LENG {leng}")
+        print(f"calibrate_profile LENG {leng} (256 x 400) on the card: {card_s:.3f} s (the "
+              f"plain versions on the card: {plain_s:.3f} s); {stats_text(got_join)}; plain "
+              f"{stats_text(want_join)}; max |d| {err:.3g} bits; launches {nonzero(got)}")
 
 
 @contextlib.contextmanager
@@ -3988,6 +4190,7 @@ def main() -> int:
         wide_kernels_vs_plain(scanner, rng, errors)
         cluster_kernels_vs_plain(scanner, rng, errors)
         mem_kernels_vs_plain(scanner, rng, errors)
+        block_cluster_kernels_vs_plain(scanner, rng, errors)
 
     # phase 11 reads phase 9's database and reports
     with tempfile.TemporaryDirectory() as tmp_dir:

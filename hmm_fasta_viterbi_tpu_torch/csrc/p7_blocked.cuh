@@ -8,8 +8,9 @@
 // lower j (the backward pass's), with the step's shift and reduction
 // wrappers and the clusters' launches; the wide block's cases and shared
 // memory (the eager and log-space cases past 4864 states, one block of
-// kBlockThreads a sequence; block_reduce is its reduction); and the
-// rows-in-memory case's helpers (at the end).
+// kBlockThreads a sequence; block_reduce is its reduction) and their
+// clusters of wide blocks past 9216 (wide_cluster_collect is their E);
+// and the rows-in-memory case's helpers (at the end).
 //
 // A block holds G groups of KT = 128 threads (M_pad <= 128 * 19 = 2432;
 // wider cases run on the clusters, below); G = blockDim.x / KT, at
@@ -434,9 +435,11 @@ __device__ __forceinline__ void shift_up(const float (&v)[PER], float (&out)[PER
 }
 
 // The group's max or sum of its warps' values in `red`, in a fixed order:
-// pairs of neighbours, then pairs of pairs.
+// pairs of neighbours, then pairs of pairs (4 or 8 warps; a wide block's 32
+// combine by wide_cluster_collect or block_reduce).
 template <bool SUM, int KT>
 __device__ __forceinline__ float combine_warps(const float* red) {
+  static_assert(KT == 128 || KT == 256, "4 or 8 warps");
   if constexpr (KT == 128) {
     return SUM ? (red[0] + red[1]) + (red[2] + red[3])
                : fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
@@ -1246,6 +1249,78 @@ __device__ __forceinline__ float cluster_reduce(float v, int t, Cluster& c) {
   return cluster_collect<SUM, KT>(cluster_send<KT>(warp_reduce<SUM>(v), t, c), c);
 }
 
+// A cluster of wide blocks' area (cluster_setup's layout) addressed from its
+// first landing row alone, so that one pointer of the block's state lives
+// across a step rather than one a part and a cluster address a peer: at 64
+// registers a thread each register the step holds is one it spills.
+constexpr int kMaxBlockCluster = 8;
+
+template <int PER, int KT>
+struct WideArea {
+  static constexpr int ROW = row_floats<PER, KT>();
+  static constexpr int X = kMaxCluster * warps<KT>();  // an exchange's slots
+
+  __device__ static float* row(const Cluster& c, int qq) { return c.rows + qq * ROW; }
+  __device__ static float* xslots(const Cluster& c, int q) { return c.rows + 2 * ROW + q * X; }
+  __device__ static float* halo(const Cluster& c, int id) {
+    return c.rows + 2 * ROW + 2 * X + id * kHaloSlots;
+  }
+  // mbarrier i (halo ids, then the two exchanges, then the two rows)
+  __device__ static unsigned long long* bar(const Cluster& c, int i) {
+    return reinterpret_cast<unsigned long long*>(c.rows + 2 * ROW + 2 * X + kHaloIds * kHaloSlots +
+                                                 4) + i;
+  }
+};
+
+// An exchange of the cluster of wide blocks: cluster_send's, with the
+// addresses taken from WideArea.
+template <int PER, int KT>
+__device__ __forceinline__ int wide_cluster_send(float v, int t, Cluster& c) {
+  using A = WideArea<PER, KT>;
+  const int q = c.xn++ & 1;
+  if ((t & 31) < c.nblk) {
+    const unsigned dst = t & 31;
+    const unsigned off = 4 * (c.rank * warps<KT>() + (t >> 5));
+    st_async(peer_addr(A::xslots(c, q), dst) + off, v, peer_addr(A::bar(c, kHaloIds + q), dst));
+  }
+  if (t == 0) mbar_expect(smem_addr(A::bar(c, kHaloIds + q)), 4 * c.nblk * warps<KT>());
+  return q;
+}
+
+// The max or sum of exchange q of a cluster of wide blocks (KT / 32 = 32
+// warps a block, at most kMaxBlockCluster blocks): lane l of every warp
+// takes warp l's value of each block and a butterfly over the lanes
+// combines each block's 32 in a fixed order, then the blocks combine in rank
+// order. Every thread gets the same value bit for bit (as block_reduce's: a
+// butterfly's partners compute each combine with its operands swapped).
+template <bool SUM, int PER, int KT>
+__device__ __forceinline__ float wide_cluster_collect(int q, Cluster& c, int t) {
+  using A = WideArea<PER, KT>;
+  constexpr int W = warps<KT>();
+  static_assert(W == 32, "a wide block of 32 warps");
+  mbar_wait(smem_addr(A::bar(c, kHaloIds + q)), (c.xphase >> q) & 1u);
+  c.xphase ^= 1u << q;
+  const float* x = A::xslots(c, q) + (t & 31);
+  float acc = 0.0f;
+#pragma unroll 1
+  for (int b = 0; b < c.nblk; ++b) {
+    float v = x[b * W];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float o = __shfl_xor_sync(kFullMask, v, off);
+      v = SUM ? v + o : fmaxf(v, o);
+    }
+    acc = b == 0 ? v : SUM ? acc + v : fmaxf(acc, v);
+  }
+  return acc;
+}
+
+template <bool SUM, int PER, int KT>
+__device__ __forceinline__ float wide_cluster_reduce(float v, int t, Cluster& c) {
+  return wide_cluster_collect<SUM, PER, KT>(wide_cluster_send<PER, KT>(warp_reduce<SUM>(v), t, c),
+                                            c, t);
+}
+
 // OR of `v` over the cluster; every thread of every block gets it.
 template <int KT>
 __device__ __forceinline__ bool cluster_any(bool v, int t, Cluster& c) {
@@ -1600,15 +1675,16 @@ cudaError_t allow_smem(Kernel kernel, int device, unsigned& done) {
 }
 
 // The launch of a cluster kernel (the pair, c = 2, or a C-block cluster):
-// `grid` blocks of 128 threads in clusters of c along x
-// (cudaLaunchKernelEx), after setting the kernel's shared-memory limit and
-// its leave to take a non-portable cluster size (past 8 blocks) once per
-// device; a refused launch returns its error.
+// `grid` blocks of `threads` (128, or a cluster of wide blocks'
+// kBlockThreads) in clusters of c along x (cudaLaunchKernelEx), after
+// setting the kernel's shared-memory limit and its leave to take a
+// non-portable cluster size (past 8 blocks) once per device; a refused
+// launch returns its error.
 inline cudaLaunchConfig_t cluster_config(int grid, int c, int smem, cudaStream_t stream,
-                                         cudaLaunchAttribute* attr) {
+                                         cudaLaunchAttribute* attr, int threads = 128) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(128);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -1635,11 +1711,11 @@ cudaError_t allow_cluster(Kernel kernel, int device, unsigned& done) {
 
 template <typename Args>
 cudaError_t launch_cluster(void (*kernel)(Args), const Args& a, int device, unsigned& done, int c,
-                           int grid, int smem, cudaStream_t stream) {
+                           int grid, int smem, cudaStream_t stream, int threads = 128) {
   cudaError_t err = allow_cluster(kernel, device, done);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(grid, c, smem, stream, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(grid, c, smem, stream, &attr, threads);
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -1651,13 +1727,13 @@ cudaError_t launch_cluster(void (*kernel)(Args), const Args& a, int device, unsi
 // 0 when it holds none).
 template <typename Args>
 cudaError_t cluster_max_clusters(void (*kernel)(Args), int device, unsigned& done, int c,
-                                 int smem, int* out) {
+                                 int smem, int* out, int threads = 128) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   err = allow_cluster(kernel, device, done);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(c, c, smem, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(c, c, smem, nullptr, &attr, threads);
   return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
 }
 
@@ -1814,11 +1890,64 @@ cudaError_t with_block_case(int per, Fn fn) {
 // per-case tables of the wide block: [per - kBlockPerMin]
 constexpr int kBlockSlots = kBlockPerMax - kBlockPerMin + 1;
 
+// -- the cluster of wide blocks ------------------------------------------------
+//
+// Past kBlockThreads * kBlockPerMax = 9216 states (up to the chain's 65536)
+// the eager and log-space cases (p7_viterbi.cuh::viterbi_block_cluster_kernel)
+// run one sequence on C wide blocks of kBlockThreads threads, one in each block
+// of a C-block cluster (C of 2..kMaxBlockCluster, read from
+// %cluster_nctarank), block r owning the states r * kBlockThreads * PER +
+// t * PER + k, the wide block's layout of its slice, PER of
+// kBlockClusterPerMin..kBlockClusterPerMax (the launch plan takes the
+// smallest C whose PER is at most 8, so 8 * 1024 * 8 = 65536 states fit). Its
+// shifts and E cross the cluster as the C-block clusters' do (halos below
+// PER, the larger shifts' rows and releases, the exchanges; the header of
+// the C-block cluster), each taken in place as the wide block takes it, a
+// row's release sent after the next larger shift's barrier rather than
+// after one of its own, on an mbarrier of its use rather than of its row
+// (p7_viterbi.cuh::wide_cluster_big). The C entries
+// name the case by `threads` kBlockThreads and `cluster` C >= 2. Its
+// dynamic shared memory is the wide block's (block_smem_floats) and then the
+// cluster's area (cluster_floats at kBlockThreads: two landing rows, the
+// exchange slots of 32 warps a block, the halos and the mbarriers): at 8
+// states a thread six rows of 36,864 bytes and no staged row; the rows
+// left unstaged are read from the block's slice of the thread-major copy.
+constexpr int kBlockClusterPerMin = 5;  // ceil(9217 / (2 * kBlockThreads))
+constexpr int kBlockClusterPerMax = 8;
+
+template <int PER, int KT>
+__host__ __device__ constexpr size_t block_cluster_smem_floats(int n_rows) {
+  return block_smem_floats<PER, KT>(n_rows) + cluster_floats<PER, KT>();
+}
+
+// Calls fn(Case<per>{}) for the cluster of wide blocks' cases
+// (p7_viterbi_kernel.cu, p7_forward_log_kernel.cu):
+// kBlockClusterPerMin..kBlockClusterPerMax states a thread.
+#define P7_BLOCK_CLUSTER_CASE(P) \
+  case P:                        \
+    return fn(Case<P>{});
+
+template <template <int> class Case, typename Fn>
+cudaError_t with_block_cluster_case(int per, Fn fn) {
+  switch (per) {
+    P7_BLOCK_CLUSTER_CASE(5)
+    P7_BLOCK_CLUSTER_CASE(6)
+    P7_BLOCK_CLUSTER_CASE(7)
+    P7_BLOCK_CLUSTER_CASE(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+#undef P7_BLOCK_CLUSTER_CASE
+// per-case tables of the cluster of wide blocks: [per - kBlockClusterPerMin]
+constexpr int kBlockClusterSlots = kBlockClusterPerMax - kBlockClusterPerMin + 1;
+
 // -- the rows-in-memory case --------------------------------------------------
 //
-// Past the wide block's kBlockThreads * kBlockPerMax states for the eager
-// and log-space kinds, and past 38,912 for the others (up to 65536, the 16-row
-// chain), no launch plan here holds the DP rows in registers. One block of
+// Past 38,912 states for every kind but the eager and log-space ones (up to
+// 65536, the 16-row chain), and for those two on a card that holds no
+// cluster of their wide blocks, no launch plan here holds the DP rows in
+// registers. One block of
 // kMemThreads threads follows one sequence (G = 1, a persistent grid) and
 // keeps every row in global memory: kMemRows scratch rows of m_pad floats a
 // block, [grid, kMemRows, m_pad], which the wrapper allocates (they stay in

@@ -12,7 +12,8 @@
 // chain at ceil(log2 M_pad) passes, log tr_rows) and carries (M, I, D and
 // J/C/N/B in log space), and returns log-odds scores in nats. Past 4864
 // states it runs on the wide block (viterbi_block_kernel) up to
-// kBlockThreads * kBlockPerMax states and in memory past that.
+// kBlockThreads * kBlockPerMax states and on clusters of wide blocks
+// (viterbi_block_cluster_kernel) past that.
 
 #include "p7_viterbi.cuh"
 
@@ -80,18 +81,47 @@ struct BlockCase {
   }
 };
 
+// The cluster of wide blocks' case: c * kBlockThreads * PER states, a block
+// of the clusters one slice.
+unsigned block_cluster_smem_set[kBlockClusterSlots];  // devices whose case allows kMaxSmem
+
+template <int PER>
+struct BlockClusterCase {
+  using Kernel = void (*)(ViterbiArgs);
+  static Kernel kernel() { return viterbi_block_cluster_kernel<PER, kBlockThreads, true>; }
+
+  static cudaError_t launch(const ViterbiArgs& a, int device, int c, int groups, int grid,
+                            int smem, cudaStream_t stream) {
+    if (!viterbi_block_plan_ok<PER, kBlockThreads>(a, groups, grid, smem, c)) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_cluster(kernel(), a, device, block_cluster_smem_set[PER - kBlockClusterPerMin],
+                          c, grid, smem, stream, kBlockThreads);
+  }
+
+  static cudaError_t regs(int* out) { return kernel_regs(kernel(), out); }
+
+  static cudaError_t clusters(int device, int c, int smem, int* out) {
+    return cluster_max_clusters(kernel(), device,
+                                block_cluster_smem_set[PER - kBlockClusterPerMin], c, smem, out,
+                                kBlockThreads);
+  }
+};
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads for
 // the rows-in-memory case) and `per` name the kernel case, with threads *
 // per >= m_pad, `cluster` 2 the cluster pair's (128 threads a block, per
-// 10..19, 2 * threads * per >= m_pad) and `cluster` 0 the wide block's
-// (kBlockThreads threads, per kBlockPerMin..kBlockPerMax); the
+// 10..19, 2 * threads * per >= m_pad), `cluster` 0 the wide block's
+// (kBlockThreads threads, per kBlockPerMin..kBlockPerMax) and `cluster` C
+// of 2..kMaxBlockCluster with kBlockThreads threads its cluster of wide
+// blocks (per kBlockClusterPerMin..kBlockClusterPerMax); the
 // chain runs `n_passes` passes, the first `n_chain` rows staged in shared
 // memory with the first `n_trans` transition rows; `groups`, `grid` and
 // `smem` are the launch plan (checked); `scratch` the rows-in-memory case's
-// rows or the wide block's thread-major rows (null otherwise). Returns a
-// cudaError_t.
+// rows or the wide block's thread-major rows (a cluster of wide blocks': a
+// slice a block), null otherwise. Returns a cudaError_t.
 extern "C" int p7_forward_log_launch(int device, int threads, int per, int cluster,
                                      const void* msc, const void* isc, const void* trans, const void* chain,
                                      int m_pad, int n_passes, int n_chain, int n_trans,
@@ -116,7 +146,15 @@ extern "C" int p7_forward_log_launch(int device, int threads, int per, int clust
       return decltype(c)::launch(b, device, groups, grid, smem, st);
     }));
   }
+  if (threads == kBlockThreads && cluster >= 2) {
+    ViterbiArgs b = a;
+    b.tm = static_cast<const float*>(scratch);
+    return static_cast<int>(with_block_cluster_case<BlockClusterCase>(per, [&](auto c) {
+      return decltype(c)::launch(b, device, cluster, groups, grid, smem, st);
+    }));
+  }
   if (threads == kMemThreads) {
+    if (cluster != 1) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
         launch_mem<false, true, false>(a, scratch, false, per, groups, grid, smem, st));
   }
@@ -133,12 +171,17 @@ extern "C" int p7_forward_log_launch(int device, int threads, int per, int clust
 }
 
 // Registers a thread of the case uses (`cluster` 2: the pair's, 0: the wide
-// block's), for the launch plan.
+// block's, 2..kMaxBlockCluster at kBlockThreads threads: its cluster of wide
+// blocks'), for the launch plan.
 extern "C" int p7_forward_log_regs(int threads, int per, int cluster, int* regs) {
   if (cluster == 0) {
     if (threads != kBlockThreads) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
         with_block_case<BlockCase>(per, [&](auto c) { return decltype(c)::regs(regs); }));
+  }
+  if (threads == kBlockThreads && cluster >= 2) {
+    return static_cast<int>(with_block_cluster_case<BlockClusterCase>(
+        per, [&](auto c) { return decltype(c)::regs(regs); }));
   }
   if (threads == kMemThreads) {
     return static_cast<int>(kernel_regs(viterbi_mem_kernel<false, true, false>, regs));
@@ -151,10 +194,19 @@ extern "C" int p7_forward_log_regs(int threads, int per, int cluster, int* regs)
       with_group_case<Case>(per, [&](auto c) { return decltype(c)::regs(regs); }));
 }
 
-// The most 2-block clusters of the pair's case `per` the card `device` runs
-// at once with `smem` bytes of dynamic shared memory a block, for the launch
-// plan. Returns a cudaError_t.
-extern "C" int p7_forward_log_clusters(int device, int per, int smem, int* clusters) {
+// The most clusters of `cluster` blocks (2 at 128 threads: the pair's case
+// `per`; 2..kMaxBlockCluster at kBlockThreads: the cluster of wide blocks')
+// the card `device` runs at once with `smem` bytes of dynamic shared memory
+// a block, for the launch plan. Returns a cudaError_t.
+extern "C" int p7_forward_log_clusters(int device, int threads, int per, int cluster, int smem,
+                                       int* clusters) {
+  if (threads == kBlockThreads) {
+    if (cluster < 2 || cluster > kMaxBlockCluster) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(with_block_cluster_case<BlockClusterCase>(per, [&](auto c) {
+      return decltype(c)::clusters(device, cluster, smem, clusters);
+    }));
+  }
+  if (threads != 128 || cluster != 2) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_pair_case<PairCase>(
       per, [&](auto c) { return decltype(c)::clusters(device, smem, clusters); }));
 }

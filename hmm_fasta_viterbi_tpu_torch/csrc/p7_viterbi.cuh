@@ -139,10 +139,10 @@
 //    replay's full chain, a filter window that reaches it) takes a block's
 //    states from the two blocks it falls between. The lazy certificate's
 //    fire is an exchange (an OR over the cluster), so every block replays
-//    the same chunks. The eager and log-space cases take no cluster there:
-//    their steps run the whole chain every residue, whose larger shifts
-//    take about 1.7 us each across 128-thread blocks (on the pair a step
-//    takes 17.4 us eager, 65.6 us log-space).
+//    the same chunks. The eager and log-space cases take no 128-thread
+//    cluster there: their steps run the whole chain every residue, whose
+//    larger shifts take about 1.7 us each across 128-thread blocks (on the
+//    pair a step takes 17.4 us eager, 65.6 us log-space).
 //  * Past 4864 states, up to kBlockThreads * kBlockPerMax (9216), the
 //    eager and log-space cases run the wide block (block_chunk,
 //    viterbi_block_kernel): one group of kBlockThreads = 1024 threads a
@@ -151,11 +151,23 @@
 //    each shift taken in place), one step's emission rows and as many
 //    constant rows as fit in shared memory, the rest read thread-major from
 //    L2 (BlockRows).
-//  * Past 38,912 states (up to the chain's 65536), and for the eager and
-//    log-space cases past the wide block, the rows-in-memory case
-//    (viterbi_mem_kernel, p7_blocked.cuh) runs the same step with every row
-//    in global memory, one 1024-thread block a sequence; the launch plan also
-//    takes it for a width whose cluster the card cannot hold.
+//  * Past 9216 states (up to the chain's 65536) the eager and log-space
+//    cases run clusters of wide blocks (viterbi_block_cluster_kernel): C of
+//    2..kMaxBlockCluster wide blocks a sequence, one in each block of a
+//    C-block cluster, block r holding states r * kBlockThreads * PER .. in
+//    the wide block's layout, PER of 5..8. block_chunk's step, operation for
+//    operation, with its shifts across the cluster (the C-block clusters'
+//    halos, rows and releases, each taken in place: wide_cluster_small,
+//    wide_cluster_big) and E an exchange of each block's 32 warp values (the
+//    block's by a butterfly over the lanes, then the blocks in rank order:
+//    wide_cluster_collect). Each block reads its slice of the thread-major
+//    rows.
+//  * Past 38,912 states (up to the chain's 65536) the lazy and filter cases,
+//    and the eager and log-space ones on a card that holds no cluster of
+//    their wide blocks, run the rows-in-memory case (viterbi_mem_kernel,
+//    p7_blocked.cuh): the same step with every row in global memory, one
+//    1024-thread block a sequence; the launch plan also takes it for a width
+//    whose cluster the card cannot hold.
 
 #pragma once
 
@@ -547,25 +559,210 @@ __device__ __forceinline__ void block_pass(float (&a)[PER], int s, float* buf, i
   }
 }
 
+// The cluster of wide blocks' phases that cross threads, in place as the
+// wide block's: op(v[k], the state S below, k) for every slot, the last
+// slots first (so each reads v[k - S] before it changes), S < PER; thread 0
+// of block r > 0 takes block r - 1's last thread's last S states through
+// halo `id` (cluster_shift_small's), block 0's thread 0 `fill`.
+template <int PER, int KT, int S, typename Op>
+__device__ __forceinline__ void wide_cluster_small(float (&v)[PER], float fill, float* buf, int t,
+                                                   int bar, Cluster& c, int id, const Op& op) {
+  static_assert(S <= kHaloSlots, "a small shift's halo");
+  using A = WideArea<PER, KT>;
+  constexpr int SP = stride<PER>();
+  if (c.rank + 1 < c.nblk && t == KT - 1) {
+    const unsigned halo = peer_addr(A::halo(c, id), c.rank + 1);
+    const unsigned hbar = peer_addr(A::bar(c, id), c.rank + 1);
+#pragma unroll
+    for (int k = 0; k < S; ++k) st_async(halo + 4 * k, v[PER - S + k], hbar);
+  }
+#pragma unroll
+  for (int k = PER - S; k < PER; ++k) buf[t * SP + k] = v[k];
+  group_sync<KT>(bar);
+#pragma unroll
+  for (int k = PER - 1; k >= S; --k) op(v[k], v[k - S], k);
+  if (t > 0) {
+    const int prev = (t - 1) * SP + PER - S;
+#pragma unroll
+    for (int k = 0; k < S; ++k) op(v[k], buf[prev + k], k);
+  } else if (c.rank > 0) {
+    const unsigned hbar = smem_addr(A::bar(c, id));
+    mbar_expect(hbar, 4 * S);
+    mbar_wait(hbar, (c.hphase >> id) & 1u);
+    c.hphase ^= 1u << id;
+    const float* halo = A::halo(c, id);
+#pragma unroll
+    for (int k = 0; k < S; ++k) op(v[k], halo[k], k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < S; ++k) op(v[k], fill, k);
+  }
+}
+
+// The releases a block sends for a row's use with shift s (the step's
+// larger shift of halo id `id`): to the blocks that will store into it
+// there (thread 0: rank - q, thread 1: rank - q - 1), into their halo slots
+// of `id`, completing their halo mbarrier `id`, which no small shift of the
+// case uses (a larger shift's pass is past PER).
+template <int PER, int KT>
+__device__ __forceinline__ void wide_cluster_release(int s, int id, int t, Cluster& c) {
+  constexpr int N = KT * PER;
+  const int q = s / N;
+  const int rest = s - q * N;
+  const int to = t == 0 ? (q >= 1 ? c.rank - q : -1) : (rest > 0 ? c.rank - q - 1 : -1);
+  if (t < 2 && to >= 0) {
+    using A = WideArea<PER, KT>;
+    st_async(peer_addr(A::halo(c, id) + t, to), 0.0f, peer_addr(A::bar(c, id), to));
+  }
+}
+
+// The same for a larger shift by s (cluster_shift_big's stores and waits;
+// `i` the larger shift's index in this step's n, `id` its halo id): each
+// slot's state j - s comes from this block's shift buffer, the row other
+// blocks stored, or `fill`, and every read is of shared memory, so the slots
+// change in place. A row's release for its use i + 2 goes out after the
+// barrier of use i + 1 (every thread of the block has read the row by
+// then), not after a barrier of its own: one barrier a larger shift, as the
+// wide block's. Each use's releases complete an mbarrier of their own (the
+// sender's halo mbarrier of that use's id), not one of the row's two: a
+// release for use i + 2 may come from a block that does not wait for this
+// one's use i (q grows with s, so the blocks that store into a row change),
+// and would otherwise land in the phase of use i.
+template <int PER, int KT, typename Op>
+__device__ __forceinline__ void wide_cluster_big(float (&v)[PER], int s, float fill, float* buf,
+                                                 int t, int bar, Cluster& c, int i, int n, int id,
+                                                 const Op& op) {
+  using A = WideArea<PER, KT>;
+  constexpr int SP = stride<PER>();
+  constexpr int N = KT * PER;  // a block's states
+  const int qq = i & 1;
+  const int q = s / N;
+  const int rest = s - q * N;
+  const bool to_a = q >= 1 && c.rank + q < c.nblk;
+  const bool to_b = rest > 0 && c.rank + q + 1 < c.nblk;
+  if (to_a || to_b) {
+    if (i >= 2) {
+      const unsigned fbar = smem_addr(A::bar(c, id));
+      if (t == 0) mbar_expect(fbar, 4 * (int(to_a) + int(to_b)));
+      mbar_wait(fbar, (c.hphase >> id) & 1u);
+      c.hphase ^= 1u << id;
+    }
+    const int dst_a = min(c.rank + q, c.nblk - 1);
+    const int dst_b = min(c.rank + q + 1, c.nblk - 1);
+    const unsigned row_a = peer_addr(A::row(c, qq), dst_a);
+    const unsigned bar_a = peer_addr(A::bar(c, kHaloIds + 2 + qq), dst_a);
+    const unsigned row_b = peer_addr(A::row(c, qq), dst_b);
+    const unsigned bar_b = peer_addr(A::bar(c, kHaloIds + 2 + qq), dst_b);
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int j = t * PER + k;
+      if (j < N - rest) {
+        if (to_a) st_async(row_a + 4 * sidx<PER>(j + rest), v[k], bar_a);
+      } else if (to_b) {
+        st_async(row_b + 4 * sidx<PER>(j + rest - N), v[k], bar_b);
+      }
+    }
+  }
+  if (q == 0) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) buf[t * SP + k] = v[k];
+  }
+  group_sync<KT>(bar);
+  // the block has read use i - 1's row: its use i + 1 (a shift by 2s) may
+  // be stored
+  if (i >= 1 && i + 1 < n) wide_cluster_release<PER, KT>(s << 1, id + 1, t, c);
+  const bool from_a = q >= 1 && c.rank - q >= 0;
+  const bool from_b = rest > 0 && c.rank - q - 1 >= 0;
+  const float* row = A::row(c, qq);
+  if (from_a || from_b) {
+    const unsigned rbar = smem_addr(A::bar(c, kHaloIds + 2 + qq));
+    if (t == 0) mbar_expect(rbar, 4 * ((from_a ? N - rest : 0) + (from_b ? rest : 0)));
+    mbar_wait(rbar, (c.rphase >> qq) & 1u);
+    c.rphase ^= 1u << qq;
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int l = t * PER + k;
+    float x;
+    if (l >= rest) {
+      x = q == 0 ? buf[sidx<PER>(l - rest)] : from_a ? row[sidx<PER>(l)] : fill;
+    } else {
+      x = from_b ? row[sidx<PER>(l)] : fill;
+    }
+    op(v[k], x, k);
+  }
+}
+
+// A cluster of wide blocks' shift by one in place (`id` its halo).
+template <int PER, int KT>
+__device__ __forceinline__ void wide_cluster_shift1(float (&v)[PER], float* buf, int t, int bar,
+                                                    Cluster& c, int id) {
+  wide_cluster_small<PER, KT, 1>(v, neg_inf(), buf, t, bar, c, id,
+                                 [](float& x, float y, int) { x = y; });
+}
+
+// A cluster of wide blocks' chain pass p in place: a[k] <- a[k] (+) (a at
+// state j - 2^p + c(k)), on block_pass's operands in its order; passes below
+// PER are small (halo `2 + p`), the later ones the step's larger shifts.
+template <int PER, int KT, bool LSE, typename C>
+__device__ __forceinline__ void wide_cluster_pass(float (&a)[PER], int p, int n_passes,
+                                                  float* buf, int t, int bar, Cluster& cl,
+                                                  const C& c) {
+  const auto op = [&](float& x, float y, int k) { x = combine<LSE>(x, y + c(k)); };
+  const int s = 1 << p;
+  const float ninf = neg_inf();
+  constexpr int kSmall = small_passes<PER>();
+  if constexpr (PER > 1) {
+    if (s == 1) return wide_cluster_small<PER, KT, 1>(a, ninf, buf, t, bar, cl, 2 + p, op);
+  }
+  if constexpr (PER > 2) {
+    if (s == 2) return wide_cluster_small<PER, KT, 2>(a, ninf, buf, t, bar, cl, 2 + p, op);
+  }
+  if constexpr (PER > 4) {
+    if (s == 4) return wide_cluster_small<PER, KT, 4>(a, ninf, buf, t, bar, cl, 2 + p, op);
+  }
+  if constexpr (PER > 8) {
+    if (s == 8) return wide_cluster_small<PER, KT, 8>(a, ninf, buf, t, bar, cl, 2 + p, op);
+  }
+  if constexpr (PER > 16) {
+    if (s == 16) return wide_cluster_small<PER, KT, 16>(a, ninf, buf, t, bar, cl, 2 + p, op);
+  }
+  wide_cluster_big<PER, KT>(a, s, ninf, buf, t, bar, cl, p - kSmall, n_passes - kSmall, 2 + p,
+                            op);
+}
+
 // Steps [0, count) of the chunk whose tokens are in gs.toks, for the wide
-// block's eager (LSE false) and log-space cases: run_chunk's step.
-template <int PER, int KT, bool LSE>
+// block's eager (LSE false) and log-space cases: run_chunk's step. A block
+// of a cluster of wide blocks (SPAN kCluster, `h` its place) takes its
+// slice of the emission and thread-major rows, its shifts across the
+// cluster (wide_cluster_shift1, wide_cluster_pass) and E over the cluster
+// (wide_cluster_reduce).
+template <int PER, int KT, bool LSE, Span SPAN = Span::kGroup>
 __device__ __forceinline__ void block_chunk(const ViterbiArgs& a, const float* cs,
                                             const GroupSmem<PER, KT, false>& gs, Rows<PER>& r,
                                             int count, int& par, float tr_loop, float tr_move,
-                                            int t, int bar) {
+                                            int t, int bar, Link<SPAN>* h = nullptr) {
   constexpr int SP = stride<PER>();
+  constexpr bool kLinked = SPAN == Span::kCluster;
   const int m_pad = a.m_pad;
   const float ninf = neg_inf();
   const float tr_b_mk = a.consts[0];
   const float tr_e_c = a.consts[1];
   const float tr_e_j = a.consts[2];
   const int n_staged = a.n_trans + a.n_chain;
-  const BlockRows<PER, KT> tr{cs + t * SP, a.tm + t, n_staged};
+  // a cluster's block reads its slice of the thread-major rows (the wide
+  // block alone keeps the parent code's expressions, and so its registers)
+  [[maybe_unused]] size_t slice = 0;
+  if constexpr (kLinked) slice = static_cast<size_t>(h->rank) * (kTransRows + a.n_passes) * PER * KT;
+  const BlockRows<PER, KT> tr{cs + t * SP, kLinked ? a.tm + slice + t : a.tm + t, n_staged};
   const float* msc = static_cast<const float*>(a.msc);
   const float* isc = static_cast<const float*>(a.isc);
 
-  prefetch_emissions<PER, KT>(gs.em(0), gs.ei(0), msc, isc, token(gs.toks, 0), m_pad, t);
+  if constexpr (kLinked) {
+    prefetch_half<PER, KT, float>(gs.em(0), gs.ei(0), msc, isc, token(gs.toks, 0), m_pad, *h, t);
+  } else {
+    prefetch_emissions<PER, KT>(gs.em(0), gs.ei(0), msc, isc, token(gs.toks, 0), m_pad, t);
+  }
   cp_async_commit();
   for (int step = 0; step < count; ++step) {
     // the j-1 diagonal: pre_diag of the previous step, shifted by one
@@ -575,7 +772,11 @@ __device__ __forceinline__ void block_chunk(const ViterbiArgs& a, const float* c
       v[k] = combine<LSE>(combine<LSE>(r.m[k] + tr(0, k), r.i[k] + tr(3, k)), r.d[k] + tr(5, k));
     }
     cp_async_wait_all();  // this step's emission rows (the barrier publishes them)
-    block_shift_small<PER, KT, 1>(v, ninf, gs.xbuf(par), t, bar);
+    if constexpr (kLinked) {
+      wide_cluster_shift1<PER, KT>(v, gs.xbuf(par), t, bar, *h, 0);
+    } else {
+      block_shift_small<PER, KT, 1>(v, ninf, gs.xbuf(par), t, bar);
+    }
     par ^= 1;
 
     const float bt = r.sb + tr_b_mk;
@@ -588,18 +789,38 @@ __device__ __forceinline__ void block_chunk(const ViterbiArgs& a, const float* c
       r.m[k] = nm;
       v[k] = nm + tr(2, k);
     }
-    block_shift_small<PER, KT, 1>(v, ninf, gs.xbuf(par), t, bar);
+    if constexpr (kLinked) {
+      wide_cluster_shift1<PER, KT>(v, gs.xbuf(par), t, bar, *h, 1);
+    } else {
+      block_shift_small<PER, KT, 1>(v, ninf, gs.xbuf(par), t, bar);
+    }
     par ^= 1;
     // every thread has read this step's emission rows: the next step's go
     // into the same buffers while the chain runs
     if (step + 1 < count) {
-      prefetch_emissions<PER, KT>(gs.em(0), gs.ei(0), msc, isc, token(gs.toks, step + 1), m_pad,
-                                  t);
+      if constexpr (kLinked) {
+        prefetch_half<PER, KT, float>(gs.em(0), gs.ei(0), msc, isc, token(gs.toks, step + 1),
+                                      m_pad, *h, t);
+      } else {
+        prefetch_emissions<PER, KT>(gs.em(0), gs.ei(0), msc, isc, token(gs.toks, step + 1), m_pad,
+                                    t);
+      }
     }
     cp_async_commit();
     for (int p = 0; p < a.n_passes; ++p) {
       const int q = kTransRows + p;
-      if (q < n_staged) {
+      if constexpr (kLinked) {
+        float* buf = gs.xbuf(par);
+        if (q < n_staged) {
+          const float* c = cs + q * row_floats<PER, KT>() + t * SP;
+          wide_cluster_pass<PER, KT, LSE>(v, p, a.n_passes, buf, t, bar, *h,
+                                          [&](int k) { return c[k]; });
+        } else {
+          const float* c = a.tm + slice + t + static_cast<size_t>(q) * PER * KT;
+          wide_cluster_pass<PER, KT, LSE>(v, p, a.n_passes, buf, t, bar, *h,
+                                          [&](int k) { return __ldg(c + k * KT); });
+        }
+      } else if (q < n_staged) {
         const float* c = cs + q * row_floats<PER, KT>() + t * SP;
         block_pass<PER, KT, LSE>(v, 1 << p, gs.xbuf(par), t, bar, [&](int k) { return c[k]; });
       } else {
@@ -621,15 +842,27 @@ __device__ __forceinline__ void block_chunk(const ViterbiArgs& a, const float* c
         x[k] = combine<true>(r.m[k], v[k]);
         e = fmaxf(e, x[k]);
       }
-      const float mx = block_reduce<false, KT>(e, gs.red, t, bar);
-      float sum = 0.0f;
+      if constexpr (kLinked) {
+        const float mx = wide_cluster_reduce<false, PER, KT>(e, t, *h);
+        float sum = 0.0f;
 #pragma unroll
-      for (int k = 0; k < PER; ++k) sum += expf(x[k] == mx ? 0.0f : x[k] - mx);
-      e = mx + logf(block_reduce<true, KT>(sum, gs.red + warps<KT>(), t, bar));
+        for (int k = 0; k < PER; ++k) sum += expf(x[k] == mx ? 0.0f : x[k] - mx);
+        e = mx + logf(wide_cluster_reduce<true, PER, KT>(sum, t, *h));
+      } else {
+        const float mx = block_reduce<false, KT>(e, gs.red, t, bar);
+        float sum = 0.0f;
+#pragma unroll
+        for (int k = 0; k < PER; ++k) sum += expf(x[k] == mx ? 0.0f : x[k] - mx);
+        e = mx + logf(block_reduce<true, KT>(sum, gs.red + warps<KT>(), t, bar));
+      }
     } else {
 #pragma unroll
       for (int k = 0; k < PER; ++k) e = fmaxf(e, fmaxf(r.m[k], v[k]));
-      e = block_reduce<false, KT>(e, gs.red, t, bar);
+      if constexpr (kLinked) {
+        e = wide_cluster_reduce<false, PER, KT>(e, t, *h);
+      } else {
+        e = block_reduce<false, KT>(e, gs.red, t, bar);
+      }
     }
 #pragma unroll
     for (int k = 0; k < PER; ++k) r.d[k] = v[k];
@@ -668,8 +901,9 @@ __host__ __device__ inline int viterbi_rows(bool lazy, int k_run, int n_passes, 
 // The kernel's body, for a block of G groups (viterbi_kernel), for a block
 // of the cluster pair (viterbi_pair_kernel) or for one of a C-block cluster
 // (viterbi_cluster_kernel; both one group a block, KT = 128), or for the
-// wide block's one group of KT = kBlockThreads (viterbi_block_kernel, whose
-// chunks run block_chunk).
+// wide block's one group of KT = kBlockThreads, alone (viterbi_block_kernel)
+// or in a cluster of wide blocks (viterbi_block_cluster_kernel), whose
+// chunks run block_chunk.
 template <int PER, int KT, bool LAZY, bool LSE, bool FILT, Span SPAN>
 __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
   extern __shared__ __align__(16) float smem[];
@@ -710,8 +944,14 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
   const GroupSmem<PER, KT, FILT> gs =
       group_smem<PER, KT, FILT>(smem + n_rows * ROW + g * group_floats<PER, KT, FILT>(false));
   if constexpr (kLinked) {
-    // the cluster's exchange area follows the block's one group
-    float* area = smem + n_rows * ROW + group_floats<PER, KT, FILT>(false);
+    // the cluster's exchange area follows the block's one group (a wide
+    // block's: block_smem_floats)
+    float* area;
+    if constexpr (KT == 128) {
+      area = smem + n_rows * ROW + group_floats<PER, KT, FILT>(false);
+    } else {
+      area = smem + block_smem_floats<PER, KT>(n_rows);
+    }
     if constexpr (SPAN == Span::kPair) {
       pair_setup<PER, KT>(h, area, t);
     } else {
@@ -759,7 +999,9 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
       const int count = min(kChunk, n - c0);
       if (t < count) gs.toks[t] = tok_row[c0 + t];  // the last chunk's readers passed barriers
       group_sync<KT>(bar);
-      if constexpr (KT > 128) {
+      if constexpr (KT > 128 && kLinked) {
+        block_chunk<PER, KT, LSE, SPAN>(a, smem, gs, r, count, par, tr_loop, tr_move, t, bar, &h);
+      } else if constexpr (KT > 128) {
         block_chunk<PER, KT, LSE>(a, smem, gs, r, count, par, tr_loop, tr_move, t, bar);
       } else if (certify) {
         store_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, h.m_real,
@@ -833,6 +1075,15 @@ __global__ void __launch_bounds__(128) viterbi_cluster_kernel(const ViterbiArgs 
 template <int PER, int KT, bool LSE>
 __global__ void __launch_bounds__(KT, 1) viterbi_block_kernel(const ViterbiArgs a) {
   viterbi_body<PER, KT, false, LSE, false, Span::kGroup>(a);
+}
+
+// Past kBlockThreads * kBlockPerMax states, the eager and log-space cases: a
+// wide block of a cluster of C of them (launched as C-block clusters of
+// kBlockThreads threads a block, C read from %cluster_nctarank; block_chunk's
+// step across the cluster).
+template <int PER, int KT, bool LSE>
+__global__ void __launch_bounds__(KT, 1) viterbi_block_cluster_kernel(const ViterbiArgs a) {
+  viterbi_body<PER, KT, false, LSE, false, Span::kCluster>(a);
 }
 
 // The rows-in-memory case (p7_blocked.cuh, past 4864 states): one block of
@@ -1117,17 +1368,20 @@ bool viterbi_cluster_plan_ok(const ViterbiArgs& a, bool lazy, int c, int groups,
 
 // The same for the wide block (eager and log-space, the full chain): KT *
 // PER states, one group a block, n_trans transition rows staged and chain
-// rows only after all six, block_smem_floats, and the thread-major rows.
+// rows only after all six, block_smem_floats, and the thread-major rows;
+// with `c` of 2..kMaxBlockCluster, a cluster of c wide blocks: c * KT * PER
+// states, a grid of whole clusters and block_cluster_smem_floats.
 template <int PER, int KT>
-bool viterbi_block_plan_ok(const ViterbiArgs& a, int groups, int grid, int smem_bytes) {
-  return a.m_pad >= 1 && a.m_pad <= KT * PER && a.m_pad % 8 == 0 && a.n_passes >= 1 &&
-         a.n_passes <= 16 && a.k_run == a.n_passes && a.n_trans >= 0 &&
-         a.n_trans <= kTransRows && a.n_chain >= 0 && a.n_chain <= a.n_passes &&
-         (a.n_chain == 0 || a.n_trans == kTransRows) && a.tm != nullptr && a.b_pad >= 1 &&
-         groups == 1 && grid >= 1 &&
-         static_cast<size_t>(smem_bytes) ==
-             4 * block_smem_floats<PER, KT>(a.n_trans + a.n_chain) &&
-         smem_bytes <= kMaxSmem;
+bool viterbi_block_plan_ok(const ViterbiArgs& a, int groups, int grid, int smem_bytes,
+                           int c = 1) {
+  const size_t bytes = c == 1 ? 4 * block_smem_floats<PER, KT>(a.n_trans + a.n_chain)
+                              : 4 * block_cluster_smem_floats<PER, KT>(a.n_trans + a.n_chain);
+  return c >= 1 && c <= kMaxBlockCluster && a.m_pad >= 1 && a.m_pad <= c * KT * PER &&
+         a.m_pad % 8 == 0 && a.n_passes >= 1 && a.n_passes <= 16 && a.k_run == a.n_passes &&
+         a.n_trans >= 0 && a.n_trans <= kTransRows && a.n_chain >= 0 &&
+         a.n_chain <= a.n_passes && (a.n_chain == 0 || a.n_trans == kTransRows) &&
+         a.tm != nullptr && a.b_pad >= 1 && groups == 1 && grid >= c && grid % c == 0 &&
+         static_cast<size_t>(smem_bytes) == bytes && smem_bytes <= kMaxSmem;
 }
 
 // Runs a kernel case on the plan after setting its shared-memory limit once

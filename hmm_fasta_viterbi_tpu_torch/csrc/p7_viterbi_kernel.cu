@@ -8,7 +8,7 @@
 // PyTorch version's bit for bit. Past 4864 states the lazy kernel runs on
 // C-block clusters (viterbi_cluster_kernel), the eager one on the wide
 // block (viterbi_block_kernel) up to kBlockThreads * kBlockPerMax states and
-// in memory past that.
+// on clusters of wide blocks (viterbi_block_cluster_kernel) past that.
 
 #include "p7_viterbi.cuh"
 
@@ -109,6 +109,34 @@ struct BlockCase {
   }
 };
 
+// The cluster of wide blocks' case (the eager kernel past kBlockThreads *
+// kBlockPerMax states): c * kBlockThreads * PER states, a block of the
+// clusters one slice.
+unsigned block_cluster_smem_set[kBlockClusterSlots];  // devices whose case allows kMaxSmem
+
+template <int PER>
+struct BlockClusterCase {
+  using Kernel = void (*)(ViterbiArgs);
+  static Kernel kernel() { return viterbi_block_cluster_kernel<PER, kBlockThreads, false>; }
+
+  static cudaError_t launch(const ViterbiArgs& a, int device, int c, int groups, int grid,
+                            int smem, cudaStream_t stream) {
+    if (!viterbi_block_plan_ok<PER, kBlockThreads>(a, groups, grid, smem, c)) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_cluster(kernel(), a, device, block_cluster_smem_set[PER - kBlockClusterPerMin],
+                          c, grid, smem, stream, kBlockThreads);
+  }
+
+  static cudaError_t regs(int* out) { return kernel_regs(kernel(), out); }
+
+  static cudaError_t clusters(int device, int c, int smem, int* out) {
+    return cluster_max_clusters(kernel(), device,
+                                block_cluster_smem_set[PER - kBlockClusterPerMin], c, smem, out,
+                                kBlockThreads);
+  }
+};
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads for
@@ -117,16 +145,19 @@ struct BlockCase {
 // per 10..19, 2 * threads * per >= m_pad), `cluster` C of 3..16 the lazy
 // kernel's C-block cluster (per 13..19, C * threads * per >= m_pad, up to
 // 16 passes), `cluster` 0 the eager kernel's wide block (kBlockThreads
-// threads, per kBlockPerMin..kBlockPerMax); `lazy` selects the lazy kernel,
-// which runs
+// threads, per kBlockPerMin..kBlockPerMax), `cluster` C of
+// 2..kMaxBlockCluster with kBlockThreads threads its cluster of wide blocks
+// (per kBlockClusterPerMin..kBlockClusterPerMax, C * threads * per >=
+// m_pad); `lazy` selects the lazy kernel, which runs
 // `k_run` passes under the certificate (k_run == n_passes: the full chain,
 // no certificate). `n_trans` transition rows and `n_chain` chain rows are
 // staged in shared memory; `groups` sequences a block, `grid` blocks and
 // `smem` bytes of dynamic shared memory are the launch plan of
 // ops/p7_cuda.py::plan_launch (checked here); `scratch` holds the
 // rows-in-memory case's [grid, kMemRows, m_pad] rows or the wide block's
-// thread-major rows, [6 + n_passes, per, kBlockThreads] (null otherwise).
-// Returns a cudaError_t.
+// thread-major rows, [6 + n_passes, per, kBlockThreads] (a cluster of wide
+// blocks': C such slices, block r's at r * (6 + n_passes) * per *
+// kBlockThreads), null otherwise. Returns a cudaError_t.
 extern "C" int p7_viterbi_launch(int device, int threads, int per, int cluster, int lazy,
                                  const void* msc, const void* isc, const void* trans, const void* chain,
                                  int m_pad, int n_passes, int k_run, int n_chain, int n_trans,
@@ -151,7 +182,16 @@ extern "C" int p7_viterbi_launch(int device, int threads, int per, int cluster, 
       return decltype(c)::launch(b, device, groups, grid, smem, st);
     }));
   }
+  if (threads == kBlockThreads && cluster >= 2) {
+    if (lazy) return static_cast<int>(cudaErrorInvalidValue);
+    ViterbiArgs b = a;
+    b.tm = static_cast<const float*>(scratch);
+    return static_cast<int>(with_block_cluster_case<BlockClusterCase>(per, [&](auto c) {
+      return decltype(c)::launch(b, device, cluster, groups, grid, smem, st);
+    }));
+  }
   if (threads == kMemThreads) {
+    if (cluster != 1) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
         lazy ? launch_mem<true, false, false>(a, scratch, true, per, groups, grid, smem, st)
              : launch_mem<false, false, false>(a, scratch, false, per, groups, grid, smem, st));
@@ -177,12 +217,18 @@ extern "C" int p7_viterbi_launch(int device, int threads, int per, int cluster, 
 
 // Registers a thread of the case uses (`lazy`: the lazy kernel; `cluster`
 // 2: the pair's, 3..16: the lazy kernel's C-block cluster's, 0: the eager
-// kernel's wide block), for the launch plan. Returns a cudaError_t.
+// kernel's wide block, 2..kMaxBlockCluster at kBlockThreads threads: its
+// cluster of wide blocks), for the launch plan. Returns a cudaError_t.
 extern "C" int p7_viterbi_regs(int threads, int per, int cluster, int lazy, int* regs) {
   if (cluster == 0) {
     if (lazy || threads != kBlockThreads) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(
         with_block_case<BlockCase>(per, [&](auto c) { return decltype(c)::regs(regs); }));
+  }
+  if (threads == kBlockThreads && cluster >= 2) {
+    if (lazy) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(with_block_cluster_case<BlockClusterCase>(
+        per, [&](auto c) { return decltype(c)::regs(regs); }));
   }
   if (threads == kMemThreads) {
     return static_cast<int>(lazy ? kernel_regs(viterbi_mem_kernel<true, false, false>, regs)
@@ -202,11 +248,21 @@ extern "C" int p7_viterbi_regs(int threads, int per, int cluster, int lazy, int*
 }
 
 // The most clusters of `cluster` blocks (2: the pair's case of `per`,
-// `lazy`; 3..16: the lazy kernel's C-block cluster) the card `device` runs
-// at once with `smem` bytes of dynamic shared memory a block, for the launch
-// plan. Returns a cudaError_t.
-extern "C" int p7_viterbi_clusters(int device, int per, int cluster, int lazy, int smem,
-                                   int* clusters) {
+// `lazy`; 3..16: the lazy kernel's C-block cluster; at `threads`
+// kBlockThreads, 2..kMaxBlockCluster: the eager kernel's cluster of wide
+// blocks) the card `device` runs at once with `smem` bytes of dynamic shared
+// memory a block, for the launch plan. Returns a cudaError_t.
+extern "C" int p7_viterbi_clusters(int device, int threads, int per, int cluster, int lazy,
+                                   int smem, int* clusters) {
+  if (threads == kBlockThreads) {
+    if (lazy || cluster < 2 || cluster > kMaxBlockCluster) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(with_block_cluster_case<BlockClusterCase>(per, [&](auto c) {
+      return decltype(c)::clusters(device, cluster, smem, clusters);
+    }));
+  }
+  if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (cluster >= 3) {
     if (!lazy || cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {

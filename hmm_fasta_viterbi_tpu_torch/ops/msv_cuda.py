@@ -511,19 +511,21 @@ def kernel_attrs(lanes: int, per: int, warps: int, bf16: bool) -> tuple[int, int
 
 
 def count_launch(wrapper, wide: bool, mem: bool = False, cluster: int = 1,
-                 block: bool = False) -> None:
+                 block: bool = False, block_cluster: bool = False) -> None:
     """One more launch of ``wrapper``'s kernel; ``wide`` counts it also in
     ``wrapper.wide_launches`` (a case between 2432 and 4864 states: for MSV
     the cluster pair), ``mem`` in ``wrapper.mem_launches`` (a rows-in-memory
     case), ``block`` in ``wrapper.block_launches`` (the p7 wide block), and
     a launch in ``cluster``-block clusters (``cluster`` > 1) in
-    ``wrapper.cluster_launches[cluster]``."""
+    ``wrapper.cluster_launches[cluster]``, or with ``block_cluster`` (the p7
+    clusters of wide blocks) in ``wrapper.block_cluster_launches[cluster]``."""
     wrapper.launches += 1
     wrapper.wide_launches += int(wide)
     wrapper.mem_launches += int(mem)
     wrapper.block_launches += int(block)
     if cluster > 1:
-        wrapper.cluster_launches[cluster] = wrapper.cluster_launches.get(cluster, 0) + 1
+        by_c = wrapper.block_cluster_launches if block_cluster else wrapper.cluster_launches
+        by_c[cluster] = by_c.get(cluster, 0) + 1
 
 
 def zero_launches(wrapper) -> None:
@@ -531,6 +533,7 @@ def zero_launches(wrapper) -> None:
     wrapper.launches = wrapper.wide_launches = wrapper.mem_launches = 0
     wrapper.block_launches = 0
     wrapper.cluster_launches = {}
+    wrapper.block_cluster_launches = {}
 
 
 def _launch(wrapper, what, emit, tokens, lengths, tr_rows, tr_consts, carry, warps=None):

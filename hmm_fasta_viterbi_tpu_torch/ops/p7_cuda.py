@@ -24,9 +24,11 @@ row-saving Forward and posterior backward cases (CLUSTER_KINDS) run C such
 groups, one in each block of a C-block cluster (C = ceil(M_pad / 2432),
 3..16), and up to MAX_BLOCK_STATES the eager and log-space cases
 (BLOCK_KINDS) one block of BLOCK_THREADS threads a sequence, the wide block,
-its rows in registers too; past that the rows-in-memory case, MEM_THREADS
-threads a sequence with its rows in global memory (:func:`kernel_case`); the
-plain versions have no cap.
+its rows in registers too, and past that C such blocks a sequence, one in
+each block of a C-block cluster (C = ceil(M_pad / 8192), 2..8); past 38,912
+every other kind runs the rows-in-memory case, MEM_THREADS threads a
+sequence with its rows in global memory (:func:`kernel_case`); the plain
+versions have no cap.
 
 The host packers are numpy copies of the JAX ones (that module imports
 jax) and return the same arrays byte for byte, in the TPU's ``[M_pad, …]``
@@ -100,10 +102,10 @@ FWD_RESCALE_GROUP = 8
 # cluster pair, and the CLUSTER_KINDS C of them up to 38,912), each thread
 # owning states t * per .. t * per + per - 1 in registers
 # (csrc/p7_blocked.cuh); the BLOCK_KINDS' wide block, BLOCK_THREADS threads
-# in the same layout, up to MAX_BLOCK_STATES; past that MEM_THREADS threads
-# a sequence in the rows-in-memory case, thread t handling states t, t +
-# MEM_THREADS, ... of rows kept in MEM_ROWS scratch rows of global memory a
-# block
+# in the same layout, up to MAX_BLOCK_STATES, and C of them past that; past
+# 38,912 the other kinds' MEM_THREADS threads a sequence in the
+# rows-in-memory case, thread t handling states t, t + MEM_THREADS, ... of
+# rows kept in MEM_ROWS scratch rows of global memory a block
 KERNEL_THREADS = 128
 MEM_THREADS = 1024
 MEM_ROWS = 8
@@ -162,10 +164,11 @@ PAIR_X2_FLOATS = 2 * 2 * (KERNEL_THREADS // 32)
 # C = ceil(M_pad / MAX_GROUP_STATES) blocks of one group of KERNEL_THREADS
 # threads, block r owning states r * KERNEL_THREADS * per .., per the
 # CLUSTER_PER case that covers M_pad. The eager and
-# log-space kinds take no cluster there: they run the whole chain every
-# step, whose larger shifts cost about 1.7 us each across 128-thread blocks
-# (the pair's eager step 17.4 us, log-space 65.6 us; PERF.md), so they run
-# the wide block (BLOCK_KINDS), one block of BLOCK_THREADS a sequence.
+# log-space kinds take no 128-thread cluster there: they run the whole chain
+# every step, whose larger shifts cost about 1.7 us each across 128-thread
+# blocks (the pair's eager step 17.4 us, log-space 65.6 us; PERF.md), so
+# they run the wide block (BLOCK_KINDS), one block of BLOCK_THREADS a
+# sequence, and past it clusters of wide blocks (BLOCK_CLUSTER_PER).
 CLUSTER_KINDS = ("lazy", "filter", "forward", "save", "backward")
 MAX_CLUSTER = 16
 MAX_CLUSTER_STATES = MAX_CLUSTER * MAX_GROUP_STATES  # 38,912
@@ -190,6 +193,22 @@ BLOCK_THREADS = 1024
 BLOCK_CLUSTER = 0
 BLOCK_PER = tuple(range(5, 10))  # ceil(4865 / BLOCK_THREADS) = 5
 MAX_BLOCK_STATES = BLOCK_THREADS * BLOCK_PER[-1]
+# the BLOCK_KINDS past MAX_BLOCK_STATES, up to MAX_KERNEL_STATES: C wide
+# blocks a sequence, one in each block of a C-block cluster
+# (csrc/p7_viterbi.cuh::viterbi_block_cluster_kernel), block r owning
+# states r * BLOCK_THREADS * per .. in the wide block's layout; C the
+# smallest whose per is at most BLOCK_CLUSTER_PER[-1] (C = ceil(M_pad /
+# 8192), 2..MAX_BLOCK_CLUSTER, so no non-portable cluster size), per the
+# smallest that covers M_pad. Its shifts and E cross the cluster as the
+# C-block clusters' do, in place as the wide block's; its shared memory is
+# the wide block's and the cluster's area (two rows of BLOCK_THREADS threads
+# and BLOCK_CLUSTER_FLOATS: exchange slots of 32 warps a block), so at 8
+# states a thread no row is staged and the kernel reads every constant row
+# from its block's slice of block_rows
+BLOCK_CLUSTER_PER = tuple(range(5, 9))  # ceil(9217 / (2 * BLOCK_THREADS)) = 5
+MAX_BLOCK_CLUSTER = 8
+BLOCK_CLUSTER_FLOATS = PAIR_FLOATS - 2 * 2 * (KERNEL_THREADS // 32) + (
+    2 * 16 * (BLOCK_THREADS // 32))
 # a C-block cluster's block area (csrc/p7_blocked.cuh::cluster_floats)
 # beside its two rows, in floats: two exchanges' slots (a value a warp of up
 # to MAX_CLUSTER blocks), the pair's halos, release slots and mbarriers
@@ -866,8 +885,8 @@ def _kernel_library() -> ctypes.CDLL:
     lib.p7_forward_regs.argtypes = [c, c, c, c, regs]
     lib.p7_filter_regs.argtypes = [c, c, c, regs]
     lib.p7_backward_regs.argtypes = [c, c, c, regs]
-    lib.p7_viterbi_clusters.argtypes = [c, c, c, c, c, regs]
-    lib.p7_forward_log_clusters.argtypes = [c, c, c, regs]
+    lib.p7_viterbi_clusters.argtypes = [c, c, c, c, c, c, regs]
+    lib.p7_forward_log_clusters.argtypes = [c, c, c, c, c, regs]
     lib.p7_filter_clusters.argtypes = [c, c, c, c, regs]
     lib.p7_forward_clusters.argtypes = [c, c, c, c, c, regs]
     lib.p7_backward_clusters.argtypes = [c, c, c, c, regs]
@@ -887,11 +906,15 @@ def cluster_blocks(m_pad: int, kind: str | None = None) -> int:
     ``m_pad`` states: CLUSTER (the pair) from MAX_GROUP_STATES to
     MAX_WIDE_STATES, where every kind runs it (PAIR_KINDS; ``kind`` None
     too); C = ceil(m_pad / MAX_GROUP_STATES), 3..MAX_CLUSTER, for the
-    CLUSTER_KINDS past that up to MAX_CLUSTER_STATES; else 1."""
+    CLUSTER_KINDS past that up to MAX_CLUSTER_STATES; C = ceil(m_pad /
+    (BLOCK_THREADS * 8)), 2..MAX_BLOCK_CLUSTER, wide blocks for the
+    BLOCK_KINDS past MAX_BLOCK_STATES (:func:`block_cluster_case`); else 1."""
     if MAX_GROUP_STATES < m_pad <= MAX_WIDE_STATES and (kind is None or kind in PAIR_KINDS):
         return CLUSTER
     if kind in CLUSTER_KINDS and MAX_WIDE_STATES < m_pad <= MAX_CLUSTER_STATES:
         return -(-m_pad // MAX_GROUP_STATES)
+    if block_cluster_case(m_pad, kind):
+        return -(-m_pad // (BLOCK_THREADS * BLOCK_CLUSTER_PER[-1]))
     return 1
 
 
@@ -899,6 +922,13 @@ def block_case(m_pad: int, kind: str | None) -> bool:
     """Whether ``kind``'s case of ``m_pad`` states is the wide block: a
     BLOCK_KINDS kind past MAX_WIDE_STATES, up to MAX_BLOCK_STATES."""
     return kind in BLOCK_KINDS and MAX_WIDE_STATES < m_pad <= MAX_BLOCK_STATES
+
+
+def block_cluster_case(m_pad: int, kind: str | None) -> bool:
+    """Whether ``kind``'s case of ``m_pad`` states is a cluster of wide
+    blocks: a BLOCK_KINDS kind past MAX_BLOCK_STATES, up to
+    MAX_KERNEL_STATES."""
+    return kind in BLOCK_KINDS and MAX_BLOCK_STATES < m_pad <= MAX_KERNEL_STATES
 
 
 def kernel_case(m_pad: int, kind: str | None = None) -> tuple[int, int]:
@@ -909,13 +939,16 @@ def kernel_case(m_pad: int, kind: str | None = None) -> tuple[int, int]:
     KERNEL_THREADS threads in each block of a C-block cluster up to
     MAX_CLUSTER_STATES (:func:`cluster_blocks`, ``per`` of CLUSTER_PER), a
     BLOCK_KINDS ``kind`` the wide block up to MAX_BLOCK_STATES
-    (BLOCK_THREADS threads, ``per`` of BLOCK_PER), and every other case
-    (``kind`` None included) the rows-in-memory case, MEM_THREADS threads
-    walking ``per`` tiles of MEM_THREADS states. Raises ``ValueError`` past
-    MAX_KERNEL_STATES."""
+    (BLOCK_THREADS threads, ``per`` of BLOCK_PER) and C wide blocks past it
+    (BLOCK_THREADS threads in each block of a C-block cluster, ``per`` of
+    BLOCK_CLUSTER_PER), and every other case (``kind`` None included) the
+    rows-in-memory case, MEM_THREADS threads walking ``per`` tiles of
+    MEM_THREADS states. Raises ``ValueError`` past MAX_KERNEL_STATES."""
     if m_pad <= MAX_GROUP_STATES:
         return KERNEL_THREADS, max(-(-m_pad // KERNEL_THREADS), 1)
     c = cluster_blocks(m_pad, kind)
+    if block_cluster_case(m_pad, kind):
+        return BLOCK_THREADS, -(-m_pad // (BLOCK_THREADS * c))
     if c > 1:
         return KERNEL_THREADS, -(-m_pad // (KERNEL_THREADS * c))
     if block_case(m_pad, kind):
@@ -967,10 +1000,14 @@ def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
     ``csrc/p7_backward_kernel.cu::backward_smem_floats``). With ``block``,
     the wide block's (``block_smem_floats``): rows of BLOCK_THREADS threads,
     one group (``groups`` 1) of two shift rows, one step's two emission
-    rows, the reduction scratch and the token chunk."""
+    rows, the reduction scratch and the token chunk; with ``cluster`` too, a
+    block of a cluster of wide blocks (``block_cluster_smem_floats``): the
+    wide block's and the cluster's area at BLOCK_THREADS (two rows and
+    BLOCK_CLUSTER_FLOATS)."""
     if block:
         row = BLOCK_THREADS * blocked_stride(per)
-        return 4 * ((n_rows + 4) * row + 2 * (BLOCK_THREADS // 32) + LAZY_CHUNK // 4)
+        area = 2 * row + BLOCK_CLUSTER_FLOATS if cluster else 0
+        return 4 * ((n_rows + 4) * row + 2 * (BLOCK_THREADS // 32) + LAZY_CHUNK // 4 + area)
     threads = KERNEL_THREADS
     row = threads * blocked_stride(per)
     hrow = threads * bf16_stride(per) // 2
@@ -1007,17 +1044,35 @@ def block_state(j: int, per: int) -> tuple[int, int]:
     return divmod(j, per)
 
 
-def block_rows(trans: torch.Tensor, chain: torch.Tensor, passes: int, per: int) -> torch.Tensor:
+def block_rows(trans: torch.Tensor, chain: torch.Tensor, passes: int, per: int,
+               blocks: int = 1) -> torch.Tensor:
     """The wide block's step-invariant rows in thread-major order, ``[6 +
     passes, per, BLOCK_THREADS]`` f32 on the pack's device: entry ``(q, k,
     t)`` is row q (tmm tmi tmd tim tii tdm, then chain pass q - 6) at state
     ``t * per + k``, -inf past M_pad, so that a warp's read of one slot is
     32 contiguous floats (``csrc/p7_viterbi.cuh::BlockRows``; the kernel
-    reads from it the rows its shared memory does not hold)."""
+    reads from it the rows its shared memory does not hold). For a cluster
+    of ``blocks`` wide blocks, ``[blocks * (6 + passes), per,
+    BLOCK_THREADS]``: block r's slice, rows ``r * (6 + passes)`` on, is the
+    same layout of its states r * BLOCK_THREADS * per + t * per + k."""
     m_pad = trans.shape[1]
     rows = torch.cat([trans[:TRANS_ROWS], chain[:passes]])
-    rows = torch.nn.functional.pad(rows, (0, BLOCK_THREADS * per - m_pad), value=NEG_INF)
-    return rows.view(-1, BLOCK_THREADS, per).transpose(1, 2).contiguous()
+    rows = torch.nn.functional.pad(rows, (0, blocks * BLOCK_THREADS * per - m_pad),
+                                   value=NEG_INF)
+    rows = rows.view(-1, blocks, BLOCK_THREADS, per).permute(1, 0, 3, 2)
+    return rows.reshape(-1, per, BLOCK_THREADS).contiguous()
+
+
+def block_cluster_state(j: int, per: int, c: int) -> tuple[int, int, int]:
+    """``(block, thread, slot)`` of state ``j`` in a cluster of ``c`` wide
+    blocks of ``per`` states a thread: block r owns states r * BLOCK_THREADS
+    * per .. (r + 1) * BLOCK_THREADS * per - 1, thread t of it the ``per``
+    from r * BLOCK_THREADS * per + t * per on (the wide block's layout of
+    its slice); raises past the cluster's c * BLOCK_THREADS * per states."""
+    if not 0 <= j < c * BLOCK_THREADS * per:
+        raise ValueError(f"state {j} outside a cluster of {c} wide blocks of per {per}")
+    block, rest = divmod(j, BLOCK_THREADS * per)
+    return (block, *divmod(rest, per))
 
 
 def cluster_state(j: int, per: int, c: int) -> tuple[int, int, int]:
@@ -1045,8 +1100,11 @@ class LaunchPlan(NamedTuple):
     ``cluster`` is the blocks of a thread-block cluster: 2 for the cluster
     pair, C for a C-block cluster (both one group a block, a sequence a
     cluster, a grid of whole clusters), BLOCK_CLUSTER (0) for the wide
-    block, else 1. ``per`` is the states a thread of the case (tiles of
-    MEM_THREADS states in the rows-in-memory case)."""
+    block, else 1; a cluster of wide blocks is ``threads`` BLOCK_THREADS
+    and ``cluster`` C of 2..MAX_BLOCK_CLUSTER (``block_cluster``), one group
+    a block, its ``n_trans`` and ``n_chain`` as the wide block's. ``per`` is
+    the states a thread of the case (tiles of MEM_THREADS states in the
+    rows-in-memory case)."""
 
     groups: int
     grid: int
@@ -1067,6 +1125,29 @@ class LaunchPlan(NamedTuple):
     def mem(self) -> bool:
         """The rows-in-memory case's plan."""
         return self.threads == MEM_THREADS and self.cluster == 1
+
+    @property
+    def block_cluster(self) -> bool:
+        """A cluster of wide blocks' plan."""
+        return self.threads == BLOCK_THREADS and self.cluster >= CLUSTER
+
+    @property
+    def pair(self) -> bool:
+        """The cluster pair's plan."""
+        return self.threads == KERNEL_THREADS and self.cluster == CLUSTER
+
+
+def _wide_staging(per: int, passes: int, cluster: bool) -> tuple[int, int, int]:
+    """``(n_trans, n_chain, smem)`` of a wide block (alone, or one of a
+    cluster of wide blocks): the transition rows first, then chain rows, as
+    many as fit SMEM_PER_SM beside its group (and the cluster's area)."""
+    row = 4 * BLOCK_THREADS * blocked_stride(per)
+    base = blocked_smem_bytes(per, 0, 1, block=True, cluster=cluster)
+    fit = max(0, (SMEM_PER_SM - base) // row)
+    n_trans = min(TRANS_ROWS, fit)
+    n_chain = min(passes, fit - n_trans)
+    return n_trans, n_chain, blocked_smem_bytes(per, n_trans + n_chain, 1, block=True,
+                                                 cluster=cluster)
 
 
 def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: int,
@@ -1098,28 +1179,40 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     from :func:`block_rows`), one sequence a block on a persistent grid of
     as many blocks as registers, shared memory and THREADS_PER_SM let an SM
     hold (one), times the SMs, at most the batch; a given ``groups`` must be
-    1. A C-block cluster the card holds none of (``clusters`` 0) plans the
-    rows-in-memory case instead, as every other case past MAX_WIDE_STATES
-    does: one sequence a block, as many blocks as registers and
-    THREADS_PER_SM let an SM hold. Raises ``ValueError`` past M_pad
-    65536."""
+    1. Past MAX_BLOCK_STATES they run C wide blocks a sequence
+    (:func:`cluster_blocks`), one in each block of a C-block cluster, each
+    staging what the wide block of its ``per`` stages beside its group and
+    the cluster's area, on a persistent grid of ``clusters`` (None: what an
+    SM holds, one block, times the SMs over C), at most the batch; a given
+    ``groups`` must be 1. A cluster the card holds none of (``clusters`` 0;
+    not the pair, which must fit) plans the rows-in-memory case instead, as
+    every other case past MAX_CLUSTER_STATES does: one sequence a block, as
+    many blocks as registers and THREADS_PER_SM let an SM hold. Raises
+    ``ValueError`` past M_pad 65536."""
     if kind not in BLOCKED_KINDS:
         raise ValueError(f"unknown blocked kernel case {kind!r}")
     kt, per = kernel_case(m_pad, kind)
     if not 1 <= passes <= chain_passes(m_pad):
         raise ValueError(f"{passes} chain passes outside 1..{chain_passes(m_pad)}")
     c = cluster_blocks(m_pad, kind)
-    if c > CLUSTER and clusters == 0:  # the card holds no cluster of C blocks
-        c, (kt, per) = 1, kernel_case(m_pad)
+    if c > 1 and (c, kt) != (CLUSTER, KERNEL_THREADS) and clusters == 0:
+        c, (kt, per) = 1, kernel_case(m_pad)  # the card holds no such cluster
     warp_regs = round_up(max(int(regs), 1), 8) * 32  # allocated by the warp, 8 at a time
+    if c > 1 and kt == BLOCK_THREADS:
+        if groups not in (None, 1):
+            raise ValueError(f"{groups} groups a block: the {kind} kernel's cluster of "
+                             f"{c} wide blocks takes 1")
+        n_trans, n_chain, nbytes = _wide_staging(per, passes, cluster=True)
+        if clusters is None:
+            per_sm = max(1, min(REGS_PER_SM // (warp_regs * kt // 32), SMEM_PER_SM // nbytes,
+                                THREADS_PER_SM // kt))
+            clusters = max(1, sms * per_sm // c)
+        units = max(1, min(b_pad, clusters))
+        return LaunchPlan(1, c * units, n_chain, nbytes, 1, kt, n_trans, c, per)
     if block_case(m_pad, kind):
         if groups not in (None, 1):
             raise ValueError(f"{groups} groups a block: the {kind} kernel's wide block takes 1")
-        row = 4 * BLOCK_THREADS * blocked_stride(per)
-        fit = max(0, (SMEM_PER_SM - blocked_smem_bytes(per, 0, 1, block=True)) // row)
-        n_trans = min(TRANS_ROWS, fit)
-        n_chain = min(passes, fit - n_trans)
-        nbytes = blocked_smem_bytes(per, n_trans + n_chain, 1, block=True)
+        n_trans, n_chain, nbytes = _wide_staging(per, passes, cluster=False)
         per_sm = max(1, min(REGS_PER_SM // (warp_regs * kt // 32), SMEM_PER_SM // nbytes,
                             THREADS_PER_SM // kt))
         return LaunchPlan(1, max(1, min(b_pad, sms * per_sm)), n_chain, nbytes, 1, kt, n_trans,
@@ -1180,7 +1273,9 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
 def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS, cluster: int = 1) -> int:
     """Registers a thread of the blocked kernel case uses, as compiled
     (``cluster`` 2: the cluster pair's case of ``per``; C of 3..16: the
-    C-block cluster's; BLOCK_CLUSTER: the wide block's)."""
+    C-block cluster's; BLOCK_CLUSTER: the wide block's; at ``threads``
+    BLOCK_THREADS, C of 2..MAX_BLOCK_CLUSTER: the cluster of wide
+    blocks')."""
     lib = _kernel_library()
     out = ctypes.c_int(0)
     if kind in ("eager", "lazy"):
@@ -1201,19 +1296,21 @@ def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS, cluster: int
 
 
 @functools.cache
-def max_clusters(kind: str, per: int, smem: int, index: int, cluster: int = CLUSTER) -> int:
+def max_clusters(kind: str, per: int, smem: int, index: int, cluster: int = CLUSTER,
+                 threads: int = KERNEL_THREADS) -> int:
     """The most clusters of ``cluster`` blocks (2: the cluster pair's
-    ``kind`` case of ``per``; C of 3..16: the C-block cluster's) card
-    ``index`` runs at once with ``smem`` bytes of dynamic shared memory a
-    block (``cudaOccupancyMaxActiveClusters``); 0 for a C-block cluster the
-    card cannot hold, while the pair must fit."""
+    ``kind`` case of ``per``; C of 3..16: the C-block cluster's; at
+    ``threads`` BLOCK_THREADS: the cluster of wide blocks') card ``index``
+    runs at once with ``smem`` bytes of dynamic shared memory a block
+    (``cudaOccupancyMaxActiveClusters``); 0 for a cluster the card cannot
+    hold, while the pair must fit."""
     lib = _kernel_library()
     out = ctypes.c_int(0)
     if kind in ("eager", "lazy"):
-        rc = lib.p7_viterbi_clusters(index, per, cluster, int(kind == "lazy"), smem,
+        rc = lib.p7_viterbi_clusters(index, threads, per, cluster, int(kind == "lazy"), smem,
                                      ctypes.byref(out))
     elif kind == "log":
-        rc = lib.p7_forward_log_clusters(index, per, smem, ctypes.byref(out))
+        rc = lib.p7_forward_log_clusters(index, threads, per, cluster, smem, ctypes.byref(out))
     elif kind in ("forward", "save"):
         rc = lib.p7_forward_clusters(index, per, cluster, int(kind == "save"), smem,
                                      ctypes.byref(out))
@@ -1221,7 +1318,7 @@ def max_clusters(kind: str, per: int, smem: int, index: int, cluster: int = CLUS
         rc = lib.p7_backward_clusters(index, per, cluster, smem, ctypes.byref(out))
     else:
         rc = lib.p7_filter_clusters(index, per, cluster, smem, ctypes.byref(out))
-    if rc != 0 or out.value < (1 if cluster == CLUSTER else 0):
+    if rc != 0 or out.value < (1 if (cluster, threads) == (CLUSTER, KERNEL_THREADS) else 0):
         msg = lib.msv_error_string(rc).decode()
         raise RuntimeError(f"{kind} kernel's {cluster}-block cluster (per {per}, {smem} bytes) "
                            f"occupancy query failed: {msg} ({rc}, {out.value} clusters)")
@@ -1229,11 +1326,13 @@ def max_clusters(kind: str, per: int, smem: int, index: int, cluster: int = CLUS
 
 
 @functools.cache
-def _cluster_held(kind: str, per: int, smem: int, index: int, cluster: int) -> int:
-    held = max_clusters(kind, per, smem, index, cluster)
+def _cluster_held(kind: str, per: int, smem: int, index: int, cluster: int,
+                  threads: int = KERNEL_THREADS) -> int:
+    held = max_clusters(kind, per, smem, index, cluster, threads)
     if held == 0:
-        log.warning("card %d holds no %d-block cluster of the %s kernel (per %d): the "
-                    "rows-in-memory case runs its widths", index, cluster, kind, per)
+        log.warning("card %d holds no %d-block cluster of the %s kernel (%d threads a block, "
+                    "per %d): the rows-in-memory case runs its widths", index, cluster, kind,
+                    threads, per)
     return held
 
 
@@ -1241,9 +1340,9 @@ def device_plan(kind: str, m_pad: int, passes: int, b_pad: int, device,
                 groups: int | None = None) -> LaunchPlan:
     """:func:`plan_launch` with the compiled case's registers and the
     card's multiprocessors (a cluster's, with the clusters the card runs at
-    once; a C-block cluster it holds none of plans the rows-in-memory case,
-    logged: the query's choice, made before any launch, and a refused launch
-    still raises)."""
+    once; a C-block cluster or a cluster of wide blocks it holds none of
+    plans the rows-in-memory case, logged: the query's choice, made before
+    any launch, and a refused launch still raises)."""
     index = torch.device(device).index or 0
     threads, per = kernel_case(m_pad, kind)
     if block_case(m_pad, kind):
@@ -1251,10 +1350,10 @@ def device_plan(kind: str, m_pad: int, passes: int, b_pad: int, device,
                            kernel_regs(kind, per, threads, BLOCK_CLUSTER), _sm_count(index), groups)
     c = cluster_blocks(m_pad, kind)
     if c > 1:
-        regs = kernel_regs(kind, per, KERNEL_THREADS, c)
+        regs = kernel_regs(kind, per, threads, c)
         plan = plan_launch(kind, m_pad, passes, b_pad, regs, _sm_count(index), groups)
-        held = (max_clusters(kind, per, plan.smem, index) if c == CLUSTER
-                else _cluster_held(kind, per, plan.smem, index, c))
+        held = (max_clusters(kind, per, plan.smem, index) if plan.pair
+                else _cluster_held(kind, per, plan.smem, index, c, threads))
         if held == 0:
             threads, per = kernel_case(m_pad)
             regs = kernel_regs(kind, per, threads)
@@ -1276,18 +1375,20 @@ def case_rows(plan: LaunchPlan, trans, chain, passes: int, device) -> torch.Tens
     """What a Viterbi-template case reads from global memory beside its
     operands, passed as the launchers' ``scratch``: the rows-in-memory
     case's scratch rows (:func:`mem_scratch`), the wide block's thread-major
-    rows (:func:`block_rows`), else None."""
-    if plan.block:
-        return block_rows(trans, chain, passes, plan.per)
+    rows (:func:`block_rows`; a cluster of wide blocks' a slice a block),
+    else None."""
+    if plan.block or plan.block_cluster:
+        return block_rows(trans, chain, passes, plan.per, max(plan.cluster, 1))
     return mem_scratch(plan, trans.shape[1], device)
 
 
 def launched(wrapper, plan: LaunchPlan) -> None:
     """Count a launch of ``wrapper``'s kernel on ``plan``: apart for the
     wide case (the cluster pair), the rows-in-memory case, the wide block
-    and, by its blocks a cluster, the cluster pair and the C-block
-    clusters."""
-    count_launch(wrapper, plan.cluster == CLUSTER, plan.mem, plan.cluster, plan.block)
+    and, by its blocks a cluster, the cluster pair and the C-block clusters
+    (``cluster_launches``) and the clusters of wide blocks
+    (``block_cluster_launches``)."""
+    count_launch(wrapper, plan.pair, plan.mem, plan.cluster, plan.block, plan.block_cluster)
 
 
 def _ptr(t):
@@ -1501,7 +1602,8 @@ def viterbi_filter_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, c
 
 # kernel launches in this process, those of them in a wide case (the
 # cluster pair), those of the rows-in-memory case, those of the wide block,
-# and those in clusters by blocks a cluster
+# and those in clusters (of 128-thread blocks, and of wide blocks) by blocks
+# a cluster
 for _fn in (viterbi_scan_cuda, viterbi_lazy_scan_cuda, forward_prob_scan_cuda,
             forward_log_scan_cuda, viterbi_filter_scan_cuda):
     zero_launches(_fn)

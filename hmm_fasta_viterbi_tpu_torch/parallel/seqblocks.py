@@ -138,7 +138,7 @@ def _p7_family(p7, stage: str) -> _Family:
 
 def _p7_fill(kind: str, pack, passes: int, device) -> int:
     plan = p7_cuda.device_plan(kind, pack.m_pad, passes, 1 << 20, device)
-    return plan.groups * plan.grid // plan.cluster
+    return plan.groups * plan.grid // max(plan.cluster, 1)  # the wide block's is 0
 
 
 def _hand_on(carry: tuple, src: torch.device, dst: torch.device) -> tuple:

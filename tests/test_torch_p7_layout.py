@@ -167,28 +167,31 @@ def _kernel_pair_shift(x: torch.Tensor, s: int, per: int, fill: float) -> torch.
 
 
 def _kernel_cluster_shift(x: torch.Tensor, s: int, per: int, fill: float,
-                          c: int) -> torch.Tensor:
-    """csrc/p7_blocked.cuh::cluster_shift on a [B, c * 128 * per] row, block
-    r holding the slice r * 128 * per ..: for s < per (by 1, 2, 4, 8, 16)
-    slots k >= s move within the thread and the first s come from thread t -
-    1's last s through the block's shift buffer, in block r's thread 0 from
-    the halo block r - 1's thread 127 stores its last s registers into (fill
-    in block 0). Otherwise, with q = s div (128 * per) and s' its rest, block
-    b stores its states l < 128 * per - s' into block b + q's row at l + s'
-    (for q = 0 they stay in its own shift buffer, read at l - s'), and the
-    others into block b + q + 1's row at l + s' - 128 * per; each receiving
-    block reads its row (or buffer), fill where no block sent."""
-    n = THREADS * per
-    width = THREADS * p7_cuda.blocked_stride(per)
+                          c: int, threads: int = THREADS) -> torch.Tensor:
+    """csrc/p7_blocked.cuh::cluster_shift on a [B, c * threads * per] row
+    (threads 128; a cluster of wide blocks' BLOCK_THREADS, whose
+    p7_viterbi.cuh::wide_cluster_small and wide_cluster_big take the same
+    values in place), block r holding the slice r * threads * per ..: for s
+    < per (by 1, 2, 4, 8, 16) slots k >= s move within the thread and the
+    first s come from thread t - 1's last s through the block's shift
+    buffer, in block r's thread 0 from the halo block r - 1's last thread
+    stores its last s registers into (fill in block 0). Otherwise, with q =
+    s div (threads * per) and s' its rest, block b stores its states l <
+    threads * per - s' into block b + q's row at l + s' (for q = 0 they stay
+    in its own shift buffer, read at l - s'), and the others into block b +
+    q + 1's row at l + s' - threads * per; each receiving block reads its
+    row (or buffer), fill where no block sent."""
+    n = threads * per
+    width = threads * p7_cuda.blocked_stride(per)
     v = [x[:, r * n:(r + 1) * n] for r in range(c)]  # a block's states, l = t * per + k
     out = []
     if s < per and s in (1, 2, 4, 8, 16):
         for r in range(c):
-            o = _blocked(v[r], per, THREADS).clone()
-            o[:, :, s:] = _blocked(v[r], per, THREADS)[:, :, : per - s]
+            o = _blocked(v[r], per, threads).clone()
+            o[:, :, s:] = _blocked(v[r], per, threads)[:, :, : per - s]
             # thread t - 1's last s slots through the buffer, thread 0's from
             # the halo of block r - 1's last thread
-            o[:, 1:, :s] = _blocked(v[r], per, THREADS)[:, :-1, per - s:]
+            o[:, 1:, :s] = _blocked(v[r], per, threads)[:, :-1, per - s:]
             o[:, 0, :s] = v[r - 1][:, n - s:] if r else fill
             out.append(o.reshape(x.shape[0], n))
         return torch.cat(out, dim=1)
@@ -219,9 +222,9 @@ def _kernel_cluster_shift(x: torch.Tensor, s: int, per: int, fill: float,
 
 def _check_shifts(per: int, threads: int, cluster: int = 1) -> None:
     """The kernels' shifts on a row of ``cluster`` blocks of ``threads``
-    threads (cluster 2: the pair, 128 threads a block; 3..16: a C-block
-    cluster) against the plain shift, for every s = 2^p of the row's chain
-    and both fills."""
+    threads (cluster 2 at 128 threads: the pair; 3..16: a C-block cluster;
+    2..8 at BLOCK_THREADS: a cluster of wide blocks) against the plain
+    shift, for every s = 2^p of the row's chain and both fills."""
     rng = np.random.default_rng(per)
     m = cluster * threads * per
     x = torch.from_numpy(rng.normal(size=(2, m)).astype(np.float32))
@@ -230,10 +233,10 @@ def _check_shifts(per: int, threads: int, cluster: int = 1) -> None:
         for fill in (p7_cuda.NEG_INF, 0.0):
             if cluster == 1:
                 got = _kernel_shift(x, s, per, fill, threads)
-            elif cluster == 2:
+            elif cluster == 2 and threads == THREADS:
                 got = _kernel_pair_shift(x, s, per, fill)
             else:
-                got = _kernel_cluster_shift(x, s, per, fill, cluster)
+                got = _kernel_cluster_shift(x, s, per, fill, cluster, threads)
             assert torch.equal(got, p7_cuda._shift(x, s, fill)), (s, fill)
 
 
@@ -847,31 +850,38 @@ def test_shared_memory_matches_the_header_layout():
 
 @pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
 def test_rows_in_memory_plan(kind):
-    """Past MAX_BLOCK_STATES the eager and log-space kinds, and past 38,912
-    every kind, plan the rows-in-memory case: one group of 1024 threads a
-    block, nothing staged, no dynamic shared memory, a persistent grid of at
-    most two blocks an SM (fewer when the registers do not allow two) and no
-    more blocks than sequences; a forced G > 1 raises. The first width past
-    the wide block, the 24-profile join (LENG 30181) and the widest M_pad,
-    65536 (16 chain passes), are such cases for the first two (the
-    three-profile join, LENG 6977, takes the wide block:
+    """Past 38,912 every kind but the eager and log-space ones plans the
+    rows-in-memory case, and those two plan it past MAX_BLOCK_STATES where
+    the card holds no cluster of their wide blocks (``clusters`` 0; else
+    they plan the cluster of wide blocks: test_block_cluster_plan): one
+    group of 1024 threads a block, nothing staged, no dynamic shared memory,
+    a persistent grid of at most two blocks an SM (fewer when the registers
+    do not allow two) and no more blocks than sequences; a forced G > 1
+    raises. The first width past the wide block, the 24-profile join (LENG
+    30181) and the widest M_pad, 65536 (16 chain passes), are such cases for
+    the first two (the three-profile join, LENG 6977, takes the wide block:
     test_block_plan_fits_the_block); 38,920 and 65536 for the lazy, filter,
     Forward and backward kinds, which also plan it where the card holds no
     cluster (``clusters`` 0)."""
     assert p7_cuda.BLOCK_KINDS == tuple(k for k in p7_cuda.BLOCKED_KINDS
                                         if k not in p7_cuda.CLUSTER_KINDS)
-    widths = ((p7_cuda.MAX_BLOCK_STATES + 8, 30184, 65536) if kind in p7_cuda.BLOCK_KINDS
-              else (38920, 65536))
+    block = kind in p7_cuda.BLOCK_KINDS
+    widths = (p7_cuda.MAX_BLOCK_STATES + 8, 30184, 65536) if block else (38920, 65536)
+    held = 0 if block else None  # the eager and log-space kinds: no cluster held
     for m_pad in widths:
         full = p7_cuda.chain_passes(m_pad)
-        assert p7_cuda.kernel_case(m_pad, kind) == (p7_cuda.MEM_THREADS, -(-m_pad // 1024))
+        assert p7_cuda.kernel_case(m_pad) == (p7_cuda.MEM_THREADS, -(-m_pad // 1024))
+        assert p7_cuda.kernel_case(m_pad, kind) == (
+            (p7_cuda.BLOCK_THREADS, -(-m_pad // (1024 * -(-m_pad // 8192)))) if block
+            else (p7_cuda.MEM_THREADS, -(-m_pad // 1024)))
         for regs, b_pad in itertools.product((32, 40, 64), (1, 8, 64, 300, 2048)):
-            plan = p7_cuda.plan_launch(kind, m_pad, full, b_pad, regs, SMS)
+            plan = p7_cuda.plan_launch(kind, m_pad, full, b_pad, regs, SMS, clusters=held)
             per_sm = 2 if regs <= 32 else 1
             assert plan == p7_cuda.LaunchPlan(1, min(b_pad, per_sm * SMS), 0, 0, 1,
                                               p7_cuda.MEM_THREADS, 0, 1, -(-m_pad // 1024))
+            assert plan.mem and not plan.block_cluster and not plan.block
         with pytest.raises(ValueError, match="takes 1"):
-            p7_cuda.plan_launch(kind, m_pad, full, 64, 40, SMS, groups=2)
+            p7_cuda.plan_launch(kind, m_pad, full, 64, 40, SMS, groups=2, clusters=held)
     if kind in p7_cuda.CLUSTER_KINDS:
         plan = p7_cuda.plan_launch(kind, 6984, 5, 64, 40, SMS, clusters=0)
         assert (plan.threads, plan.cluster, plan.per, plan.grid) == (p7_cuda.MEM_THREADS, 1, 7, 64)
@@ -891,18 +901,20 @@ def test_cluster_plan_fits_the_block(kind):
     bytes of a block beside its group and the cluster's area (two rows and
     468 floats, whatever C; 128 more for the backward pass's two-value
     exchanges), every window up to 8 passes staged whole; the eager and
-    log-space kinds take no cluster: the wide block up to MAX_BLOCK_STATES
-    (4872 and 6984), the rows-in-memory case past it (30184, 38912)."""
+    log-space kinds take no 128-thread cluster: the wide block up to
+    MAX_BLOCK_STATES (4872 and 6984), a cluster of ceil(M_pad / 8192) wide
+    blocks past it (30184: 4, 38912: 5)."""
     for m_pad, c in ((4872, 3), (6984, 3), (30184, 13), (38912, 16)):
+        block = m_pad <= p7_cuda.MAX_BLOCK_STATES
+        wide_c = 1 if block else -(-m_pad // 8192)
         assert p7_cuda.cluster_blocks(m_pad, kind) == (
-            c if kind in p7_cuda.CLUSTER_KINDS else 1) and c == -(-m_pad // 2432)
+            c if kind in p7_cuda.CLUSTER_KINDS else wide_c) and c == -(-m_pad // 2432)
         full = p7_cuda.chain_passes(m_pad)
         if kind not in p7_cuda.CLUSTER_KINDS:
             plan = p7_cuda.plan_launch(kind, m_pad, full, 64, 40, SMS)
-            block = m_pad <= p7_cuda.MAX_BLOCK_STATES
-            assert (plan.threads, plan.cluster, plan.block, plan.mem) == (
-                p7_cuda.BLOCK_THREADS if block else p7_cuda.MEM_THREADS,
-                p7_cuda.BLOCK_CLUSTER if block else 1, block, not block)
+            assert (plan.threads, plan.cluster, plan.block, plan.mem, plan.block_cluster) == (
+                p7_cuda.BLOCK_THREADS, p7_cuda.BLOCK_CLUSTER if block else wide_c, block,
+                False, not block)
             continue
         per = -(-m_pad // (THREADS * c))
         assert per in p7_cuda.CLUSTER_PER and p7_cuda.kernel_case(m_pad, kind) == (THREADS, per)
@@ -1108,3 +1120,232 @@ def test_block_cases_match_kernel_source():
     assert p7_cuda.BLOCK_CLUSTER == 0
     assert BLOCK * (p7_cuda.BLOCK_PER[0] - 1) < p7_cuda.MAX_WIDE_STATES + 8 <= (
         BLOCK * p7_cuda.BLOCK_PER[0])
+
+
+# -- the cluster of wide blocks ---------------------------------------------
+
+# (M_pad, C, per): the first width past the wide block, the smallest
+# C-block join's (LENG 11165), the all-24 join (LENG 30181), twice over
+# (LENG 60362) and the chain's widest
+BLOCK_CLUSTER_WIDTHS = ((9224, 2, 5), (11168, 2, 6), (30184, 4, 8), (60368, 8, 8),
+                        (65536, 8, 8))
+# every (C, per) the plan takes past MAX_BLOCK_STATES
+BLOCK_CLUSTER_CASES = sorted({(p7_cuda.cluster_blocks(m, "eager"), p7_cuda.kernel_case(m, "eager")[1])
+                              for m in range(p7_cuda.MAX_BLOCK_STATES + 8,
+                                             p7_cuda.MAX_KERNEL_STATES + 1, 8)})
+
+
+def test_block_cluster_cases_cover_every_width():
+    """Past MAX_BLOCK_STATES up to 65536 the plan takes C = ceil(M_pad /
+    8192) wide blocks and per = ceil(M_pad / (1024 * C)): 16 (C, per) pairs,
+    C of 2..8 (no non-portable cluster size), per of BLOCK_CLUSTER_PER (5..8:
+    the four compiled cases a kind)."""
+    assert len(BLOCK_CLUSTER_CASES) == 16
+    assert {c for c, _ in BLOCK_CLUSTER_CASES} == set(range(2, p7_cuda.MAX_BLOCK_CLUSTER + 1))
+    assert {per for _, per in BLOCK_CLUSTER_CASES} == set(p7_cuda.BLOCK_CLUSTER_PER)
+    assert p7_cuda.MAX_BLOCK_CLUSTER * BLOCK * p7_cuda.BLOCK_CLUSTER_PER[-1] == (
+        p7_cuda.MAX_KERNEL_STATES)
+    for c, per in BLOCK_CLUSTER_CASES:
+        assert (c - 1) * BLOCK * per < c * BLOCK * per and per <= 8 and c <= 8
+
+
+@pytest.mark.parametrize("m_pad,c,per", BLOCK_CLUSTER_WIDTHS)
+def test_block_cluster_plan(m_pad, c, per):
+    """The eager and log-space kinds past MAX_BLOCK_STATES plan C wide
+    blocks a sequence (``cluster`` C, BLOCK_THREADS threads, ``per``; the
+    plan's ``block_cluster``, neither ``block`` nor ``mem`` nor ``pair``),
+    one group a block (a forced G other than 1 raises), a grid of whole
+    clusters (the ``clusters`` the card holds, else one block an SM over C;
+    no more clusters than sequences), the transitions staged first, then
+    chain rows, as many as fit the 232,448 bytes beside the wide block's
+    group and the cluster's area (blocked_smem_bytes(block=True,
+    cluster=True)); every other kind plans as before."""
+    full = p7_cuda.chain_passes(m_pad)
+    row = 4 * BLOCK * p7_cuda.blocked_stride(per)
+    base = p7_cuda.blocked_smem_bytes(per, 0, 1, block=True, cluster=True)
+    assert base == p7_cuda.blocked_smem_bytes(per, 0, 1, block=True) + 2 * row + 4 * 1364
+    for kind in p7_cuda.BLOCK_KINDS:
+        assert p7_cuda.block_cluster_case(m_pad, kind) and not p7_cuda.block_case(m_pad, kind)
+        assert p7_cuda.cluster_blocks(m_pad, kind) == c == -(-m_pad // 8192)
+        assert p7_cuda.kernel_case(m_pad, kind) == (BLOCK, per) == (BLOCK, -(-m_pad // (BLOCK * c)))
+        for regs, b_pad in itertools.product((32, 40, 64), BATCHES):
+            plan = p7_cuda.plan_launch(kind, m_pad, full, b_pad, regs, SMS)
+            assert (plan.threads, plan.cluster, plan.groups, plan.max_groups, plan.per) == (
+                BLOCK, c, 1, 1, per)
+            assert plan.block_cluster and not (plan.block or plan.mem or plan.pair)
+            rows = plan.n_trans + plan.n_chain
+            assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, block=True,
+                                                           cluster=True)
+            assert plan.smem == base + rows * row <= SMEM_PER_SM
+            assert plan.n_chain == 0 or plan.n_trans == 6
+            if rows < 6 + full:
+                assert plan.smem + row > SMEM_PER_SM
+            per_sm = 2 if regs <= 32 else 1  # THREADS_PER_SM and the registers
+            per_sm = min(per_sm, SMEM_PER_SM // plan.smem)
+            assert plan.grid == c * min(b_pad, max(1, SMS * per_sm // c))
+        assert p7_cuda.plan_launch(kind, m_pad, full, 4096, 64, SMS, clusters=7).grid == 7 * c
+        assert p7_cuda.plan_launch(kind, m_pad, full, 3, 64, SMS, clusters=7).grid == 3 * c
+        with pytest.raises(ValueError, match=f"cluster of {c} wide blocks takes 1"):
+            p7_cuda.plan_launch(kind, m_pad, full, 64, 64, SMS, groups=2)
+    # per 8: no row staged; per 5: five transitions
+    assert {8: (0, 0), 5: (5, 0)}.get(per, (1, 0)) == (
+        p7_cuda.plan_launch("eager", m_pad, full, 64, 64, SMS)[6],
+        p7_cuda.plan_launch("eager", m_pad, full, 64, 64, SMS).n_chain)
+    for kind in p7_cuda.CLUSTER_KINDS:
+        plan = p7_cuda.plan_launch(kind, m_pad, full, 64, 64, SMS)
+        assert not plan.block_cluster and plan.threads in (THREADS, p7_cuda.MEM_THREADS)
+
+
+@pytest.mark.parametrize("c,per", BLOCK_CLUSTER_CASES)
+def test_block_cluster_shifts_equal_the_plain_shift(c, per):
+    """The cluster of wide blocks' shifts (halos from block r - 1 below per,
+    a larger shift's two source blocks, whole blocks away included, taken in
+    place by wide_cluster_small and wide_cluster_big) equal the plain shift
+    for every pass s = 2^p of c * 1024 * per states and both fills."""
+    _check_shifts(per, BLOCK, cluster=c)
+
+
+@pytest.mark.parametrize("c,per", BLOCK_CLUSTER_CASES)
+def test_block_cluster_state_map_is_a_bijection(c, per):
+    """State j of a cluster of wide blocks sits in (block, thread, slot)
+    with j = block * 1024 * per + thread * per + slot: every state of the c
+    * 1024 * per once, each block's slice in the wide block's layout; past
+    the cluster it raises."""
+    n = BLOCK * per
+    seen = [p7_cuda.block_cluster_state(j, per, c) for j in range(c * n)]
+    assert len(set(seen)) == c * n
+    assert all(b * n + t * per + k == j and p7_cuda.block_state(j - b * n, per) == (t, k)
+               for j, (b, t, k) in enumerate(seen))
+    with pytest.raises(ValueError, match="wide blocks"):
+        p7_cuda.block_cluster_state(c * n, per, c)
+
+
+@pytest.mark.parametrize("m_pad,c,per", BLOCK_CLUSTER_WIDTHS)
+def test_block_cluster_rows_are_thread_major_by_rank(m_pad, c, per):
+    """block_rows of a cluster of c wide blocks is [c * (6 + passes), per,
+    1024]: block r's slice (rows r * (6 + passes) on, where the kernel's
+    block r reads) holds row q's state r * 1024 * per + t * per + k at (q,
+    k, t), -inf past M_pad; at c = 1 it is the wide block's."""
+    passes = p7_cuda.chain_passes(m_pad)
+    rng = np.random.default_rng(m_pad)
+    trans = torch.from_numpy(rng.normal(size=(8, m_pad)).astype(np.float32))
+    chain = torch.from_numpy(rng.normal(size=(16, m_pad)).astype(np.float32))
+    got = p7_cuda.block_rows(trans, chain, passes, per, c)
+    assert got.shape == (c * (6 + passes), per, BLOCK) and got.is_contiguous()
+    rows = torch.cat([trans[:6], chain[:passes]])
+    for r in range(c):
+        part = got[r * (6 + passes):(r + 1) * (6 + passes)]
+        for q in (0, 5, 6, 5 + passes):
+            for t in (0, 31, 32, BLOCK - 1):
+                for k in range(per):
+                    j = r * BLOCK * per + t * per + k
+                    want = rows[q, j] if j < m_pad else p7_cuda.NEG_INF
+                    assert part[q, k, t] == want
+    first = torch.nn.functional.pad(trans[:, :BLOCK * per], (0, 0))
+    assert torch.equal(got[:6 + passes],
+                       p7_cuda.block_rows(first, chain[:, :BLOCK * per], passes, per))
+
+
+@pytest.mark.parametrize("c,per", BLOCK_CLUSTER_CASES)
+def test_block_cluster_releases_pair_up(c, per):
+    """The rows' release protocol of the cluster of wide blocks
+    (p7_viterbi.cuh::wide_cluster_big): at each larger shift i >= 2 a sender
+    waits for one release from each block it stores into, and exactly those
+    blocks send it one, at their larger shift i - 1 once its barrier has
+    passed (every thread has read use i - 2's row by then), in the slot of
+    its role (a: the receiver q blocks above, b: q + 1); at the last two
+    larger shifts of a step none is sent. Each larger shift's releases
+    complete an mbarrier of their own, the sender's halo mbarrier of that
+    pass (2 + p, past every small shift's halo): the blocks that release a
+    row change with q, and a release for use i + 2 may come from a block
+    that never waits for the sender's use i. Every receiving block is sent
+    the bytes it waits for."""
+    n = BLOCK * per
+    m = c * n
+    full = p7_cuda.chain_passes(min(m, p7_cuda.MAX_KERNEL_STATES))
+    small = sum(1 for p in range(full) if _small(1 << p, per))
+    big = [1 << p for p in range(small, full)]
+    sent = {}  # use -> {sender: [(role, receiver)]}
+    for i in range(1, len(big)):
+        if not i + 1 < len(big):
+            continue
+        s4 = big[i] << 1  # cluster_release is handed s << 1: use i + 1's shift
+        assert s4 == big[i + 1]
+        q, rest = divmod(s4, n)
+        for r in range(c):
+            for role, to in ((0, r - q if q >= 1 else -1), (1, r - q - 1 if rest > 0 else -1)):
+                if to >= 0:
+                    sent.setdefault(i + 1, {}).setdefault(to, []).append((role, r))
+    for i, s in enumerate(big):
+        q, rest = divmod(s, n)
+        stored = [0] * c
+        for b in range(c):
+            want = []
+            if q >= 1 and b + q < c:
+                want.append((0, b + q))
+                stored[b + q] += n - rest
+            if rest > 0 and b + q + 1 < c:
+                want.append((1, b + q + 1))
+                stored[b + q + 1] += rest
+            if i >= 2 and want:
+                assert sorted(sent[i].get(b, [])) == sorted(want), (i, b)
+            elif i >= 2:
+                assert not sent.get(i, {}).get(b), (i, b)
+        for r in range(c):
+            from_a = q >= 1 and r - q >= 0
+            from_b = rest > 0 and r - q - 1 >= 0
+            assert stored[r] == (n - rest if from_a else 0) + (rest if from_b else 0)
+    assert set(sent) == set(range(2, len(big)))
+    ids = [2 + small + i for i in range(len(big))]  # 2 + p of each larger pass p
+    assert len(set(ids)) == len(ids) and min(ids) >= 2 + small and max(ids) < 18
+    # the blocks that release use i + 2 to a sender are not always among
+    # those its use i waits on: a per-row mbarrier would mix the two uses
+    mixed = False
+    for i in range(2, len(big) - 2):
+        for b in range(c):
+            now = {r for _, r in sent.get(i, {}).get(b, [])}
+            later = {r for _, r in sent.get(i + 2, {}).get(b, [])}
+            mixed |= bool(later - now)
+    assert mixed or c <= 2 or len(big) < 5
+
+
+def test_block_cluster_cases_match_kernel_source():
+    """The cluster of wide blocks' cases the two C entries compile are
+    BLOCK_CLUSTER_PER at kBlockThreads (with_block_cluster_case), named by
+    ``threads`` 1024 with ``cluster`` C of 2..kMaxBlockCluster, launched as
+    clusters of C blocks of kBlockThreads threads; its shared memory is the
+    wide block's and the cluster's area at 1024 threads (BLOCK_CLUSTER_FLOATS:
+    two exchanges of 16 blocks' 32 warps, the 18 halos, 4 release slots, 24
+    mbarriers); E combines each block's 32 warps by a lane butterfly and the
+    blocks in rank order; combine_warps stays a 4- or 8-warp combine."""
+    csrc = p7_cuda._build.CSRC_DIR
+    blocked = (csrc / "p7_blocked.cuh").read_text()
+    cases = re.findall(r"P7_BLOCK_CLUSTER_CASE\((\d+)\)\n", blocked)
+    assert tuple(int(c) for c in cases) == p7_cuda.BLOCK_CLUSTER_PER
+    assert f"constexpr int kMaxBlockCluster = {p7_cuda.MAX_BLOCK_CLUSTER};" in blocked
+    assert f"constexpr int kBlockClusterPerMin = {p7_cuda.BLOCK_CLUSTER_PER[0]};" in blocked
+    assert f"constexpr int kBlockClusterPerMax = {p7_cuda.BLOCK_CLUSTER_PER[-1]};" in blocked
+    assert ("return block_smem_floats<PER, KT>(n_rows) + cluster_floats<PER, KT>();" in blocked)
+    assert p7_cuda.BLOCK_CLUSTER_FLOATS == 2 * 16 * 32 + 18 * 16 + 4 + 48 == 1364
+    assert 'static_assert(KT == 128 || KT == 256, "4 or 8 warps");' in blocked
+    assert "const float* x = A::xslots(c, q) + (t & 31);" in blocked
+    assert "acc = b == 0 ? v : SUM ? acc + v : fmaxf(acc, v);" in blocked
+    assert "cfg.blockDim = dim3(threads);" in blocked
+    template = (csrc / "p7_viterbi.cuh").read_text()
+    assert "viterbi_body<PER, KT, false, LSE, false, Span::kCluster>(a);" in template
+    assert ("block_chunk<PER, KT, LSE, SPAN>(a, smem, gs, r, count, par, tr_loop, tr_move, t, "
+            "bar, &h);") in template
+    assert "area = smem + block_smem_floats<PER, KT>(n_rows);" in template
+    assert "4 * block_cluster_smem_floats<PER, KT>(a.n_trans + a.n_chain)" in template
+    assert ("slice = static_cast<size_t>(h->rank) * (kTransRows + a.n_passes) * PER * KT;"
+            in template)
+    assert ("if (i >= 1 && i + 1 < n) wide_cluster_release<PER, KT>(s << 1, id + 1, t, c);"
+            in template)
+    assert "mbar_wait(fbar, (c.hphase >> id) & 1u);" in template
+    assert "n_passes - kSmall, 2 + p," in template
+    for name, lse in (("p7_viterbi_kernel.cu", "false"), ("p7_forward_log_kernel.cu", "true")):
+        source = (csrc / name).read_text()
+        assert "with_block_cluster_case<BlockClusterCase>(" in source, name
+        assert f"viterbi_block_cluster_kernel<PER, kBlockThreads, {lse}>" in source, name
+        assert "if (threads == kBlockThreads && cluster >= 2) {" in source, name
+        assert "c, grid, smem, stream, kBlockThreads);" in source, name

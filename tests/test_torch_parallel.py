@@ -410,3 +410,19 @@ def test_multihost_two_process_smoke():
     if not ok:
         ok, outs = attempt()
     assert ok, outs[0][-2000:] + outs[1][-2000:]
+
+
+@pytest.mark.parametrize("cluster,grid,units", [(0, 132, 132), (4, 120, 30), (1, 64, 64)])
+def test_p7_fill_counts_sequences_of_every_plan(monkeypatch, cluster, grid, units):
+    """The wavefront's row-group fill on the card (``seqblocks._p7_fill``)
+    is the sequences a launch of the plan runs at once: a block's for the
+    wide block (``cluster`` 0), a cluster's for a cluster of wide blocks
+    (one sequence a cluster of C blocks), a block's for the rows-in-memory
+    case; the plan comes from ``p7_cuda.device_plan``, faked here."""
+    from types import SimpleNamespace
+
+    from hmm_fasta_viterbi_tpu_torch.parallel import seqblocks
+
+    plan = p7_cuda.LaunchPlan(1, grid, 0, 0, 1, p7_cuda.BLOCK_THREADS, 0, cluster, 8)
+    monkeypatch.setattr(p7_cuda, "device_plan", lambda *args, **kwargs: plan)
+    assert seqblocks._p7_fill("eager", SimpleNamespace(m_pad=30184), 15, "cuda") == units

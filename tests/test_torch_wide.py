@@ -352,6 +352,31 @@ def _block_reduce(v: np.ndarray, op) -> np.ndarray:
     return v[:, 0]
 
 
+def _cluster_reduce(v: np.ndarray, op, c: int) -> np.ndarray:
+    """E over a cluster of ``c`` wide blocks ([B, c * KT], one value a
+    thread): each block's KT values as _block_reduce combines them
+    (csrc/p7_blocked.cuh::wide_cluster_collect: lane l takes warp l's value
+    of the block and a butterfly over the lanes combines the 32), then the
+    blocks in rank order; c = 1 is the wide block's block_reduce."""
+    parts = [_block_reduce(v[:, r * KT:(r + 1) * KT], op) for r in range(c)]
+    acc = parts[0]
+    for x in parts[1:]:
+        acc = op(acc, x)
+    return acc
+
+
+def _cluster_shift(v: np.ndarray, s: int, per: int, c: int) -> np.ndarray:
+    """A shift by s of a row of ``c`` wide blocks: the wide block's
+    (_block_shift) for c = 1, else the plain shift, which the cluster's
+    shifts equal (tests/test_torch_p7_layout.py, its
+    _kernel_cluster_shift at BLOCK_THREADS)."""
+    if c == 1:
+        return _block_shift(v, s, per)
+    out = np.full_like(v, -np.inf)
+    out[:, s:] = v[:, :-s]
+    return out
+
+
 def _np_lse2(x: np.ndarray, y) -> np.ndarray:
     """p7_viterbi.cuh::combine<true> (JAX's _lse2) in float32."""
     mx = np.maximum(x, y)
@@ -366,16 +391,21 @@ def _block_model(kind: str, pack, staged, carry):
     BLOCK_THREADS: the rows in the blocked layout, the plan's staged rows
     and the thread-major copy (p7_cuda.block_rows) for the others, the
     shifts of _block_shift and E by each thread's states in order, then
-    _block_reduce. Returns the scan's (scores, m, i, d, s) as arrays."""
+    _block_reduce; past MAX_BLOCK_STATES the cluster of C wide blocks' scan
+    (block_chunk across the cluster): each block's slice of the thread-major
+    rows, the plain shifts and E as _cluster_reduce. Returns the scan's
+    (scores, m, i, d, s) as arrays."""
     lse = kind == "log"
     comb = _np_lse2 if lse else np.maximum
     m_pad = pack.m_pad
     passes = p7_cuda.chain_passes(m_pad)
     threads, per = p7_cuda.kernel_case(m_pad, kind)
     assert threads == KT
-    n = KT * per
+    c = p7_cuda.cluster_blocks(m_pad, kind)
+    n = c * KT * per
     plan = p7_cuda.plan_launch(kind, m_pad, passes, B, 64, 132)
-    tm = p7_cuda.block_rows(pack.trans, pack.chain, passes, per).numpy()
+    tm = p7_cuda.block_rows(pack.trans, pack.chain, passes, per, c).numpy()
+    tm = np.concatenate(np.split(tm, c), axis=2)  # [6 + passes, per, c * KT]
 
     def pad(x):
         return np.pad(np.asarray(x, dtype=np.float32), ((0, 0), (0, n - m_pad)),
@@ -395,24 +425,25 @@ def _block_model(kind: str, pack, staged, carry):
     for step in range(int(lengths.max())):
         valid = step < lengths
         pd = comb(comb(m + tmm, i + tim), d + tdm)
-        diag = _block_shift(pd, 1, per)
+        diag = _cluster_shift(pd, 1, per, c)
         bt = (sb + tr_b_mk)[:, None]
         nm = msc[tokens[:, step]] + comb(diag, bt)
         ni = isc[tokens[:, step]] + comb(m + tmi, i + tii)
-        ac = _block_shift(nm + tmd, 1, per)
+        ac = _cluster_shift(nm + tmd, 1, per, c)
         for p in range(passes):
-            ac = comb(ac, _block_shift(ac, 1 << p, per) + row[6 + p])
+            ac = comb(ac, _cluster_shift(ac, 1 << p, per, c) + row[6 + p])
         if lse:
-            x = comb(nm, ac).reshape(-1, KT, per)
-            mx = _block_reduce(x.max(axis=2), np.maximum)[:, None]
+            x = comb(nm, ac).reshape(-1, c * KT, per)
+            mx = _cluster_reduce(x.max(axis=2), np.maximum, c)[:, None]
             total = np.zeros(x.shape[:2], dtype=np.float32)
             with np.errstate(invalid="ignore"):
                 for k in range(per):
                     total = total + np.exp(np.where(x[:, :, k] == mx, np.float32(0),
                                                     x[:, :, k] - mx)).astype(np.float32)
-            e = (mx[:, 0] + np.log(_block_reduce(total, np.add))).astype(np.float32)
+            e = (mx[:, 0] + np.log(_cluster_reduce(total, np.add, c))).astype(np.float32)
         else:
-            e = _block_reduce(np.maximum(nm, ac).reshape(-1, KT, per).max(axis=2), np.maximum)
+            e = _cluster_reduce(np.maximum(nm, ac).reshape(-1, c * KT, per).max(axis=2),
+                                np.maximum, c)
         nj = comb(sj + tr_loop, e + tr_e_j)
         nc = comb(sc + tr_loop, e + tr_e_c)
         nn = sn + tr_loop
@@ -440,6 +471,39 @@ def test_block_model_matches_plain(mem_files, batch):
     assert p7_cuda.kernel_case(pack.m_pad, "eager") == (KT, 7)
     plan = p7_cuda.plan_launch("eager", pack.m_pad, 13, B, 64, 132)
     assert (plan.threads, plan.block, plan.n_trans, plan.n_chain) == (KT, True, 4, 0)
+    staged = MSVScanner(device="cpu").stage(tokens, lengths)
+    for kind in ("eager", "log"):
+        run, carry = chip_smoke.p7_calls(kind, pack, staged)
+        want = [x.numpy() for x in run(chip_smoke.PLAIN_FNS[kind], staged.tokens,
+                                       staged.lengths, carry)]
+        got = _block_model(kind, pack, staged, carry)
+        if kind == "eager":
+            for g, w in zip(got, want):
+                assert np.array_equal(g, w)
+        else:
+            assert _max_d(got[0], want[0]) <= chip_smoke.LOG_FWD_TOL
+            assert np.isfinite(got[0][lengths > 0]).all()
+
+
+def test_block_cluster_model_matches_plain(mem_files, batch):
+    """The cluster of wide blocks (the eager and log-space kinds at LENG
+    30181: 4 wide blocks of 1024 threads of 8 states, no row staged, all 21
+    constant rows read from each block's thread-major slice) modelled in
+    NumPy step for step: its E order (each thread's states in order, the
+    warp butterfly, each block's 32 warps by a butterfly over the lanes,
+    then the blocks in rank order) gives the plain eager Viterbi's scores
+    and carries bit for bit and the plain log-space Forward's scores within
+    LOG_FWD_TOL; plain_versions hold plain against JAX
+    (test_all_24_join_plain_p7_matches_jax)."""
+    path, _ = mem_files[chip_smoke.MEM_JOINS[1]]
+    tokens, lengths = batch
+    p7 = P7Profile.from_profile(parse_hmm(path))
+    pack = p7_cuda.viterbi_pack(p7, "cpu", lazy=False)
+    assert p7_cuda.kernel_case(pack.m_pad, "eager") == (KT, 8)
+    assert p7_cuda.cluster_blocks(pack.m_pad, "log") == 4
+    plan = p7_cuda.plan_launch("eager", pack.m_pad, 15, B, 64, 132)
+    assert (plan.threads, plan.cluster, plan.block_cluster, plan.n_trans, plan.n_chain) == (
+        KT, 4, True, 0, 0)
     staged = MSVScanner(device="cpu").stage(tokens, lengths)
     for kind in ("eager", "log"):
         run, carry = chip_smoke.p7_calls(kind, pack, staged)
@@ -510,10 +574,11 @@ def test_mem_join_plain_posterior_matches_jax(mem_files, batch):
 
 def test_all_24_join_plans_the_rows_in_memory_case(mem_files):
     """The all-24 join (LENG 30181, M_pad 30184, 15 chain passes): the
-    eager and log-space kinds plan the rows-in-memory case at the full chain;
-    the lazy, filter, Forward and row-saving Forward kinds, and the
-    posterior backward pass at its suffix window, a 13-block cluster of 19
-    states a thread."""
+    eager and log-space kinds plan a cluster of 4 wide blocks of 8 states a
+    thread at the full chain, and the rows-in-memory case on a card that
+    holds no such cluster (``clusters`` 0); the lazy, filter, Forward and
+    row-saving Forward kinds, and the posterior backward pass at its suffix
+    window, a 13-block cluster of 19 states a thread."""
     path, _ = mem_files[chip_smoke.MEM_JOINS[1]]
     p7 = P7Profile.from_profile(parse_hmm(path))
     m_pad = p7_cuda.default_m_pad(p7)
@@ -527,8 +592,13 @@ def test_all_24_join_plans_the_rows_in_memory_case(mem_files):
             assert (plan.threads, plan.cluster, plan.per, plan.groups, plan.grid) == (
                 128, 13, 19, 1, 13 * 8)
         else:
+            assert (plan.threads, plan.cluster, plan.per, plan.groups, plan.grid) == (
+                p7_cuda.BLOCK_THREADS, 4, 8, 1, 4 * 8)
+            assert plan.block_cluster and not plan.mem
+            plan = p7_cuda.plan_launch(kind, m_pad, passes, 8, 40, 132, clusters=0)
             assert (plan.threads, plan.groups, plan.grid, plan.n_chain, plan.smem) == (
                 p7_cuda.MEM_THREADS, 1, 8, 0, 0)
+            assert plan.mem
 
 
 @pytest.mark.parametrize("stems", chip_smoke.CLUSTER_JOINS, ids=lambda s: f"{len(s)}-profile")

@@ -3,7 +3,7 @@ cluster pair and the p7 kernels' C-block cluster cases against their plain
 versions on the card.
 
     python3 tools/torch_cluster_check.py [--widths 2440,4872,...] [--p7 3,4,...,16]
-                                         [--block 10,11,...] [--time]
+                                         [--block 10,11,...] [--blocks 2:5,4:8,...] [--time]
 
 MSV: for each M_pad of --widths (default: the boundaries of every cluster
 size from the pair to 16 blocks, and two widths past 38,912), a random f32
@@ -31,12 +31,18 @@ plain decode; the launch counters show each at its C and none in memory.
 The eager Viterbi and the log-space Forward past 4864 states: for each per
 of --block (default: every BLOCK_PER) a join of the repo's profiles as near
 BLOCK_THREADS * per states as they fill (past BLOCK_THREADS * (per - 1)),
-then the joins of chip_smoke.MEM_JOINS (LENG 6977 and 30181), on the same
-ragged batch: the eager kernel equal to its plain version bit for bit
-(scores and carries) with a carry chain split at P7_SPLIT equal to one
-call, the log-space kernel within LOG_FWD_TOL; the launch counters show
-the wide block (block_launches) up to MAX_BLOCK_STATES and the
-rows-in-memory case past it, never the other. Then chip_smoke.py's wide
+then the joins of chip_smoke.MEM_JOINS (LENG 6977 and 30181), and for
+each C:per of --blocks (default: every (C, per) the plan takes past
+MAX_BLOCK_STATES, 16 pairs) a random profile (models/fuzz.py, a quarter of
+its nodes delete-heavy) at the narrowest and the widest M_pad of that
+cluster of wide blocks, on the same ragged batch: the eager kernel equal
+to its plain version bit for bit (scores and carries) with a carry chain
+split at P7_SPLIT equal to one call, the log-space kernel within
+LOG_FWD_TOL; the launch counters show the wide block (block_launches) up
+to MAX_BLOCK_STATES and the cluster of C wide blocks past it
+(block_cluster_launches by C), never the rows-in-memory case (and a tree
+without the clusters of wide blocks, the rows-in-memory case past
+MAX_BLOCK_STATES). Then chip_smoke.py's wide
 check (the cluster pairs, the backward pass's included). With --time, the
 MSV cluster cases at 2048 x 1000, the Forward pair at 64 x 3500, each p7
 join's Viterbi and Forward kernels at 64 x 1000
@@ -44,8 +50,9 @@ and its posterior pair at 64 x 1024 are timed (CUDA events, best of 3),
 each also as microseconds a step (ms over the residues and the rounds of
 64 rows on the clusters the card holds), and each --block join's eager
 and log-space kernels at 64 x 1000 and at build's calibration shape, 256 x
-400 (best of 3 on the wide block, once in memory), beside the card's name
-and power limit. One line a check; exits 1 on a failure. Needs one CUDA card and
+400 (best of 3 on the wide block and its clusters, once in memory), and
+each --blocks profile's at 64 x 1000, beside the card's name and power
+limit. One line a check; exits 1 on a failure. Needs one CUDA card and
 nvcc; imports nothing of JAX.
 """
 
@@ -62,6 +69,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
+from hmm_fasta_viterbi_tpu_torch.models.fuzz import random_profile  # noqa: E402
 from hmm_fasta_viterbi_tpu_torch.ops import _build, msv_cuda, p7_cuda  # noqa: E402
 
 WIDTHS = (2440, 4864, 4872, 7296, 7304, 9728, 9736, 12160, 17024, 19456, 19464, 21888,
@@ -253,15 +261,33 @@ def block_stems(per: int) -> tuple[str, ...]:
     return tuple(str(n) for n in picks)
 
 
-def p7_block_join(rng, scanner, stems: tuple[str, ...], time_it: bool) -> dict:
-    """The eager and log-space kernels on the join of ``stems`` against
-    their plain versions (the wide block up to MAX_BLOCK_STATES, else the
-    rows-in-memory case), with the launch counters; timed with ``time_it``."""
+def block_cluster_widths(pairs) -> list[int]:
+    """The narrowest and the widest M_pad of each (C, per) cluster of wide
+    blocks the plan takes."""
+    out = []
+    for c, per in pairs:
+        widths = [m for m in range(p7_cuda.MAX_BLOCK_STATES + 8, p7_cuda.MAX_KERNEL_STATES + 1, 8)
+                  if p7_cuda.cluster_blocks(m, "eager") == c
+                  and p7_cuda.kernel_case(m, "eager")[1] == per]
+        if not widths:
+            raise ValueError(f"the plan takes no cluster of {c} wide blocks of per {per}")
+        out += sorted({widths[0], widths[-1]})
+    return out
+
+
+def p7_block_join(rng, scanner, hmm, name: str, time_it: bool) -> dict:
+    """The eager and log-space kernels on ``hmm`` (``name``: its join or
+    width) against their plain versions (the wide block up to
+    MAX_BLOCK_STATES, else the cluster of wide blocks, or in a tree without
+    it the rows-in-memory case), with the launch counters; timed with
+    ``time_it``."""
     dev = scanner.device
-    p7 = chip_smoke.P7Profile.from_profile(chip_smoke.wide_profile(stems))
+    p7 = chip_smoke.P7Profile.from_profile(hmm)
     m_pad = p7_cuda.default_m_pad(p7)
     threads, per = p7_cuda.kernel_case(m_pad, "eager")
     block = p7_cuda.block_case(m_pad, "eager")
+    blocks = hasattr(p7_cuda, "block_cluster_case") and p7_cuda.block_cluster_case(m_pad, "eager")
+    c = p7_cuda.cluster_blocks(m_pad, "eager") if blocks else 1
     staged = chip_smoke.ragged_wide_batch(scanner, rng)
     pack = p7_cuda.viterbi_pack(p7, dev, lazy=False)
     for fn in BLOCK_WRAPPERS.values():
@@ -272,19 +298,24 @@ def p7_block_join(rng, scanner, stems: tuple[str, ...], time_it: bool) -> dict:
         got[kind] = run(chip_smoke.CUDA_FNS[kind], staged.tokens, staged.lengths, carry)
         torch.cuda.synchronize()
         want[kind] = run(chip_smoke.PLAIN_FNS[kind], staged.tokens, staged.lengths, carry)
-    name = f"LENG {p7.num_states}"
+    name = f"{name}, LENG {p7.num_states}"
     e_err = chip_smoke.require_equal(got["eager"], want["eager"], f"{name} eager kernel vs plain")
     chain = chip_smoke.p7_chain_error("eager", pack, staged)
     l_err = chip_smoke.max_abs_diff(got["log"][0], want["log"][0])
     chip_smoke.require(l_err <= chip_smoke.LOG_FWD_TOL, f"{name} log-space vs plain: {l_err}")
-    counts = {kind: counters(fn) | {"block": fn.block_launches}
+    counts = {kind: counters(fn) | {"block": fn.block_launches,
+                                    "blocks": dict(getattr(fn, "block_cluster_launches", {}))}
               for kind, fn in BLOCK_WRAPPERS.items()}
     for kind, cnt in counts.items():
-        ok = (cnt["block"] > 0 and cnt["mem"] == 0) if block else (
-            cnt["mem"] > 0 and cnt["block"] == 0)
-        chip_smoke.require(ok, f"{name} {kind}: launches {cnt}, expected the "
-                               f"{'wide block' if block else 'rows-in-memory case'} only")
-    out = {"join": "+".join(stems), "m_pad": m_pad, "threads": threads, "per": per,
+        if block:
+            ok, what = cnt["block"] > 0 and cnt["mem"] == 0, "wide block"
+        elif blocks:
+            ok = set(cnt["blocks"]) == {c} and cnt["mem"] == 0 and cnt["block"] == 0
+            what = f"cluster of {c} wide blocks"
+        else:
+            ok, what = cnt["mem"] > 0 and cnt["block"] == 0, "rows-in-memory case"
+        chip_smoke.require(ok, f"{name} {kind}: launches {cnt}, expected the {what} only")
+    out = {"join": name, "m_pad": m_pad, "threads": threads, "per": per, "cluster": c,
            "chain_passes": p7_cuda.chain_passes(m_pad), "eager_max_abs": e_err,
            "eager_chain_max_abs": chain, "log_max_abs": l_err, "launches": counts,
            "equal": True}
@@ -292,17 +323,21 @@ def p7_block_join(rng, scanner, stems: tuple[str, ...], time_it: bool) -> dict:
         plan = p7_cuda.device_plan(kind, m_pad, p7_cuda.chain_passes(m_pad), 64, dev)
         out[f"plan_{kind}"] = plan._asdict()
         out[f"regs_{kind}"] = p7_cuda.kernel_regs(kind, plan.per, plan.threads, plan.cluster)
+        if blocks:
+            out[f"clusters_{kind}"] = p7_cuda.max_clusters(kind, plan.per, plan.smem, dev.index or 0,
+                                                           plan.cluster, plan.threads)
     if time_it:
         big = rng.integers(0, 20, size=(256, 1000)).astype(np.int8)
-        for rows, length in ((64, 1000), (256, 400)):
+        shapes = ((64, 1000),) if name.startswith("random") else ((64, 1000), (256, 400))
+        for rows, length in shapes:
             bstaged = scanner.stage(big[:rows, :length], np.full(rows, length, dtype=np.int32))
             for kind in BLOCK_WRAPPERS:
                 run, carry = chip_smoke.p7_calls(kind, pack, bstaged)
                 fn = chip_smoke.CUDA_FNS[kind]
+                plan = p7_cuda.device_plan(kind, m_pad, p7_cuda.chain_passes(m_pad), rows, dev)
                 ms = chip_smoke.best_ms(lambda: run(fn, bstaged.tokens, bstaged.lengths, carry),
-                                        reps=3 if block else 1)
-                rounds = -(-rows // p7_cuda.device_plan(kind, m_pad, p7_cuda.chain_passes(m_pad),
-                                                        rows, dev).grid)
+                                        reps=1 if plan.mem else 3)
+                rounds = -(-rows // (plan.grid // max(plan.cluster, 1)))
                 out[f"ms_{kind}_{rows}x{length}"] = ms
                 out[f"us_step_{kind}_{rows}x{length}"] = ms * 1e3 / (length * rounds)
     return out
@@ -313,6 +348,9 @@ def main() -> int:
     ap.add_argument("--widths", default=",".join(str(w) for w in WIDTHS))
     ap.add_argument("--p7", default=",".join(str(c) for c in range(3, p7_cuda.MAX_CLUSTER + 1)))
     ap.add_argument("--block", default=",".join(str(per) for per in p7_cuda.BLOCK_PER))
+    pairs = sorted({(p7_cuda.cluster_blocks(m, "eager"), p7_cuda.kernel_case(m, "eager")[1])
+                    for m in range(p7_cuda.MAX_BLOCK_STATES + 8, p7_cuda.MAX_KERNEL_STATES + 1, 8)})
+    ap.add_argument("--blocks", default=",".join(f"{c}:{per}" for c, per in pairs))
     ap.add_argument("--time", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -337,7 +375,13 @@ def main() -> int:
 
     pers = [int(x) for x in args.block.split(",") if x]
     for stems in [block_stems(per) for per in pers] + (list(chip_smoke.MEM_JOINS) if pers else []):
-        print(json.dumps(p7_block_join(rng, scanner, stems, args.time)), flush=True)
+        print(json.dumps(p7_block_join(rng, scanner, chip_smoke.wide_profile(stems),
+                                       "+".join(stems), args.time)), flush=True)
+    pairs = [tuple(int(v) for v in x.split(":")) for x in args.blocks.split(",") if x]
+    fuzz = np.random.default_rng(chip_smoke.SEED + 19)
+    for m_pad in block_cluster_widths(pairs):
+        print(json.dumps(p7_block_join(rng, scanner, random_profile(fuzz, m_pad),
+                                       f"random M_pad {m_pad}", args.time)), flush=True)
 
     errors = dict.fromkeys(chip_smoke.KERNELS, 0.0)
     chip_smoke.wide_kernels_vs_plain(scanner, rng, errors)

@@ -1,7 +1,7 @@
 """Check and time the wide cases of the PyTorch port's kernels on the card.
 
     python3 tools/torch_wide_timing.py [--tree DIR] [--label NAME] [--check] [--mem]
-                                       [--posterior] [--block]
+                                       [--posterior] [--block] [--rule]
 
 The wide cases are the kernels' code paths for profiles of 2433 to 4864
 states (M_pad). With --check, chip_smoke.py's phase-8 check of them runs
@@ -28,13 +28,21 @@ alone: the row-saving Forward and the backward pass on its rows at 64 x
 ``<kernel>_<LENG>``), the same work for any tree. With --block (in place
 of the wide timings) it times the eager Viterbi and the log-space Forward
 past 4864 states alone, through whatever case the tree plans (the
-rows-in-memory case before the wide block; the wide block up to its width
-after): against the LENG 6977 join at 64 x 1000 (rows ``<kernel>_6977``)
-and at build's calibration shape, 256 x 400 (``<kernel>_6977_cal``), best
-of 3, and against the LENG 30181 and 60362 joins at 64 x 1000
-(``<kernel>_30181``, ``<kernel>_60362``), once after a warm-up; the same
-work for any tree. The ptxas line of every kernel case (registers and
-spills) prints first.
+rows-in-memory case before the wide block and, past 9216 states, before
+the clusters of wide blocks): against the LENG 6977 join at 64 x 1000 (rows
+``<kernel>_6977``) and at build's calibration shape, 256 x 400
+(``<kernel>_6977_cal``), against the LENG 30181 join at both shapes
+(``<kernel>_30181``, ``<kernel>_30181_cal``), against the LENG 60362 join
+and the joins of chip_smoke.CLUSTER_JOINS (LENG 11165, 18170, 19679) at 64
+x 1000 (``<kernel>_<LENG>``); best of 3, a rows-in-memory case once, each
+after a warm-up; the same work for any tree. A tree with the clusters of
+wide blocks also times its rows-in-memory route at LENG 30181 (a card that
+holds no such cluster, chip_smoke.no_block_clusters; ``<kernel>_30181_mem``)
+and, with --rule, every cluster size its compiled cases cover at LENG
+30181, 18170 and 19679 (C = 4..7, 3..4, 3..4: per 8, 6, 5, 5; 6, 5; 7, 5;
+the plan's rule takes the smallest C) at the join's shapes, rows
+``<kernel>_<LENG>[_cal]_c<C>``. The
+ptxas line of every kernel case (registers and spills) prints first.
 
 Everything is imported from the checkout DIR (default: this script's):
 its chip_smoke.py, its package and its kernels, built there at first use.
@@ -46,6 +54,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import sys
@@ -117,35 +126,72 @@ def posterior_rows_past(chip_smoke, scanner, rng, work: dict) -> dict:
     return out
 
 
-def block_rows_past(chip_smoke, scanner, rng, work: dict) -> dict:
+@contextlib.contextmanager
+def forced_blocks(p7_cuda, c: int):
+    """The plan's cluster of wide blocks forced to ``c`` blocks (per the
+    smallest that covers M_pad at c), every other case as planned."""
+    real = p7_cuda.cluster_blocks
+
+    def forced(m_pad, kind=None):
+        return c if p7_cuda.block_cluster_case(m_pad, kind) else real(m_pad, kind)
+
+    p7_cuda.cluster_blocks = forced
+    try:
+        yield
+    finally:
+        p7_cuda.cluster_blocks = real
+
+
+def block_rows_past(chip_smoke, scanner, rng, work: dict, rule: bool) -> dict:
     """The eager Viterbi and the log-space Forward against the joins past
-    4864 states (--block), through the tree's own helpers; no plain
-    version."""
+    4864 states (--block; with ``rule``, --rule's forced cluster sizes),
+    through the tree's own helpers; no plain version."""
     p7_cuda = chip_smoke.p7_cuda
     tokens = rng.integers(0, 20, size=(256, 1000)).astype(np.int8)
-    joins = ((chip_smoke.mem_profiles()[0], ((64, 1000, "", 3), (256, 400, "_cal", 3))),
-             (chip_smoke.mem_profiles()[1], ((64, 1000, "", 1),)),
-             (chip_smoke.msv_mem_profile(), ((64, 1000, "", 1),)))
+    both = ((64, 1000, ""), (256, 400, "_cal"))
+    joins = [(chip_smoke.mem_profiles()[0], both), (chip_smoke.mem_profiles()[1], both),
+             (chip_smoke.msv_mem_profile(), both[:1])]
+    joins += [(chip_smoke.wide_profile(stems), both[:1]) for stems in chip_smoke.CLUSTER_JOINS]
+    new = hasattr(p7_cuda, "block_cluster_case")
     out = {}
-    for hmm, shapes in joins:
-        p7 = chip_smoke.P7Profile.from_profile(hmm)
-        pack = p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)
+
+    def time_join(pack, leng, shapes, tag=""):
         passes = p7_cuda.chain_passes(pack.m_pad)
-        for rows, length, tag, reps in shapes:
+        for rows, length, shape_tag in shapes:
             staged = scanner.stage(tokens[:rows, :length], np.full(rows, length, dtype=np.int32))
             for name, kind in (("viterbi_scan", "eager"), ("forward_log_scan", "log")):
+                plan = p7_cuda.device_plan(kind, pack.m_pad, passes, rows, scanner.device)
+                reps = 1 if plan.mem else 3
                 run, carry = chip_smoke.p7_calls(kind, pack, staged)
                 fn = chip_smoke.CUDA_FNS[kind]
                 ms = chip_smoke.best_ms(lambda: run(fn, staged.tokens, staged.lengths, carry),
                                         reps=reps)
-                key = f"{name}_{p7.num_states}{tag}"
+                key = f"{name}_{leng}{shape_tag}{tag}"
                 out[key] = (ms, float("nan"))
-                work[key] = (chip_smoke.OPS_PER_CELL[kind](passes) * rows * length * p7.num_states,
+                work[key] = (chip_smoke.OPS_PER_CELL[kind](passes) * rows * length * leng,
                              chip_smoke.nbytes(*pack[:4], pack.consts, staged.tokens,
                                                staged.lengths, staged.tr_rows, *carry))
-                plan = p7_cuda.device_plan(kind, pack.m_pad, passes, rows, scanner.device)
-                print(f"{key}: {ms:.3f} ms (best of {reps}, {rows} x {length} x "
-                      f"M={p7.num_states}; plan {plan})", flush=True)
+                units = plan.grid // max(plan.cluster, 1) * plan.groups
+                rounds = -(-rows // units)
+                print(f"{key}: {ms:.3f} ms (best of {reps}, {rows} x {length} x M={leng}; "
+                      f"{ms * 1e3 / (length * rounds):.2f} us a step, {rounds} rounds; plan "
+                      f"{plan})", flush=True)
+
+    for hmm, shapes in joins:
+        p7 = chip_smoke.P7Profile.from_profile(hmm)
+        pack = p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)
+        time_join(pack, p7.num_states, shapes)
+        if new and hasattr(chip_smoke, "no_block_clusters") and p7.num_states == 30181:
+            with chip_smoke.no_block_clusters():
+                time_join(pack, p7.num_states, shapes[:1], "_mem")
+        if new and rule and p7.num_states in (30181, 18170, 19679):
+            smallest = p7_cuda.cluster_blocks(pack.m_pad, "eager")
+            for c in range(smallest + 1, p7_cuda.MAX_BLOCK_CLUSTER + 1):
+                per = -(-pack.m_pad // (p7_cuda.BLOCK_THREADS * c))
+                if per not in p7_cuda.BLOCK_CLUSTER_PER:
+                    break
+                with forced_blocks(p7_cuda, c):
+                    time_join(pack, p7.num_states, shapes, f"_c{c}")
     return out
 
 
@@ -157,6 +203,7 @@ def main() -> int:
     ap.add_argument("--mem", action="store_true")
     ap.add_argument("--posterior", action="store_true")
     ap.add_argument("--block", action="store_true")
+    ap.add_argument("--rule", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
     import torch
@@ -183,7 +230,7 @@ def main() -> int:
     if args.posterior:
         out = posterior_rows_past(chip_smoke, scanner, rng, work)
     elif args.block:
-        out = block_rows_past(chip_smoke, scanner, rng, work)
+        out = block_rows_past(chip_smoke, scanner, rng, work, args.rule)
     else:
         out = chip_smoke.wide_timings(scanner, rng, errors, work)
     if args.mem:
