@@ -93,14 +93,22 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    the lazy kernel also at lazy_k = 1 with its fire count printed and above
    0, Forward, log-space Forward and the posterior pair within their
    tolerances, the launch counters showing each kind at its case alone),
-   and the LENG 60362 join through the lazy, filter, Forward and backward
-   kinds' rows-in-memory cases and the eager and log-space kinds' cluster
-   of 8 wide blocks the same way; then the eager Viterbi and the log-space
-   Forward on their clusters of 2 and 3 wide blocks (CLUSTER_JOINS) against
-   plain, each timed once at 64 x 1000, and their rows-in-memory route at
-   LENG 30181 on a card that holds no such cluster (no_block_clusters:
-   the occupancy query answering 0) against plain
-   (block_cluster_kernels_vs_plain);
+   and the LENG 60362 join through the lazy, filter and Forward kinds'
+   rows-in-memory cases, the eager and log-space kinds' cluster of 8 wide
+   blocks and the row-saving Forward's and the backward pass's cluster of
+   13 256-thread blocks the same way (the row-saving Forward within FWD_TOL
+   of its plain version and of the Forward kernel, which runs another case
+   there), and those two again on their rows-in-memory route
+   (posterior_mem_route: no_block_clusters, the occupancy query answering
+   0; the row-saving kernel == the Forward kernel bit for bit); then the
+   eager Viterbi and the log-space Forward on their clusters of 2 and 3 wide
+   blocks (CLUSTER_JOINS) against plain, each timed once at 64 x 1000, and
+   their rows-in-memory route at LENG 30181 on a card that holds no such
+   cluster against plain (block_cluster_kernels_vs_plain); then the short
+   release stress of the C-block clusters (release_stress:
+   tools/torch_cluster_check.py --stress in a process of its own, 10
+   launches a kind at C = 4, 8, 13, 16 of 128-thread blocks and at C = 13
+   of 256-thread blocks, none hung, each equal to its case's first);
 9. main paths, each with every launch count set to 0 just before it and
    read just after, on a seeded FASTA of 16384 x 3500 random residues with
    32 sequences sampled from 1400.hmm and 4 from the LENG 4770 profile at
@@ -136,10 +144,14 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    entry points on the planted rows (the wide block, none in memory), and
    the eager Viterbi, lazy Viterbi, Viterbi filter, Forward, log-space
    Forward and posterior entry points with the LENG 60362 join (the eager
-   and log-space kinds' cluster of 8 wide blocks, the others'
-   rows-in-memory cases past 38,912 states), and the eager and log-space
-   entry points with the LENG 30181 join through the rows-in-memory route
-   of a card that holds no cluster of wide blocks, == their cluster of 4;
+   and log-space kinds' cluster of 8 wide blocks, the posterior pair's
+   cluster of 13 256-thread blocks, the others' rows-in-memory cases past
+   38,912 states), the posterior entry there again through the
+   rows-in-memory route of a card that holds no cluster of 256-thread
+   blocks (coverage within COV_TOL of the cluster's), and the eager and
+   log-space entry points with the LENG 30181 join through the
+   rows-in-memory route of a card that holds no cluster of wide blocks, ==
+   their cluster of 4;
    survivor counts and per-phase seconds printed;
 10. timings with CUDA events: the MSV kernel (best of 3) at 16384 x 3500
    against 1400.hmm and 2405.hmm and its plain version at 1400.hmm; the MSV
@@ -173,9 +185,14 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    Forward on 4 wide blocks there (`<kernel>_blocks_30181`, best of 3;
    also at 256 x 400, `<kernel>_blocks_cal`) and through the rows-in-memory
    route of a card without such clusters (`<kernel>_mem`, once), and
-   against the LENG 60362 join the five in memory, once, and the eager and
-   log-space Forward on 8 wide blocks (`<kernel>_blocks`, best of 3); the
-   parent's time beside each), each plain version once. Each kernel's bound is the larger
+   against the LENG 60362 join the lazy, filter and Forward kinds in
+   memory, once, the eager and log-space Forward on 8 wide blocks
+   (`<kernel>_blocks`, best of 3), the posterior pair on 13 256-thread
+   blocks (`<kernel>_cluster256`, best of 3) and on its rows-in-memory route
+   (`<kernel>_mem`, once), and the posterior pair at one
+   posterior_coverage_batch chunk there (26 x 1024, both routes, once:
+   post_chunk_timings); the parent's time beside each), each plain version
+   once. Each kernel's bound is the larger
    of its FP32 operations (counted a cell from its source) at 67 TFLOP/s
    and the bytes it must move (each input once, each output once) at 3.35
    TB/s, at the timed shape;
@@ -285,6 +302,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import logging
@@ -465,6 +483,10 @@ PARENT_WIDE_MS = {
     "viterbi_scan_mem": 233.614, "forward_log_scan_mem": 328.17,
     "viterbi_scan_blocks_cal": 249.513, "forward_log_scan_blocks_cal": 317.13,
     "viterbi_scan_blocks": 520.229, "forward_log_scan_blocks": 706.128,
+    # the parent a7addf8's rows-in-memory case of the posterior pair past
+    # 38,912 states (LENG 60362, 64 x 1024), its final chip_smoke.py run on
+    # PARENT_CARD, before their clusters of 256-thread blocks
+    "forward_save_scan_cluster256": 355.919, "backward_coverage_scan_cluster256": 337.563,
 }
 
 # the sweep timing batch (sweep24, sweep24_filter) and the profiles the plain
@@ -542,6 +564,14 @@ MEM = "_mem"
 BLOCK = "_block"
 BLOCKS = "_blocks"
 BLOCK_WRAPPERS = ("viterbi_scan", "forward_log_scan")
+# the row-saving Forward's and the backward pass's cases past 38,912 states
+# (up to 65536): C-block clusters of p7_cuda.WIDE_CLUSTER_THREADS-thread
+# blocks, C = 9..14: their own JSON lines, their launches summed from the
+# wrapper's block_cluster_launches (a dict by C); their rows-in-memory case
+# (`_mem`) is the route of a card that holds no such cluster, driven with the
+# occupancy query answering 0 (no_block_clusters) at LENG 60362
+CLUSTER256 = "_cluster256"
+POST_WRAPPERS = ("forward_save_scan", "backward_coverage_scan")
 # build's calibration shape (models/build.py::calibrate_profile at LENG >=
 # 400): the wide block timed there too (`<kernel>_block_cal`)
 CAL_BATCH, CAL_LEN = 256, 400
@@ -558,10 +588,16 @@ KERNELS.update({
                        f"{p7_cuda.MAX_KERNEL_STATES}, clusters of 2..{p7_cuda.MAX_BLOCK_CLUSTER} "
                        f"wide blocks")
        for name, (source, replaces, mode) in KERNELS.items() if name in BLOCK_WRAPPERS},
+    **{name + CLUSTER256: (source, replaces, f"{mode}; M_pad {msv_cuda.MAX_CLUSTER_STATES + 8}.."
+                           f"{p7_cuda.MAX_KERNEL_STATES}, C-block clusters of "
+                           f"{p7_cuda.WIDE_CLUSTER_THREADS}-thread blocks")
+       for name, (source, replaces, mode) in KERNELS.items() if name in POST_WRAPPERS},
     **{name + MEM: (source, replaces, f"{mode}; M_pad past "
                     f"{msv_cuda.MAX_CLUSTER_STATES if name in CLUSTER_WRAPPERS else MAX_BLOCK}, "
-                    "rows in global memory" + (" (a card that holds no cluster of wide blocks)"
-                                               if name in BLOCK_WRAPPERS else ""))
+                    "rows in global memory" + (
+                        " (a card that holds no cluster of wide blocks)" if name in BLOCK_WRAPPERS
+                        else " (a card that holds no cluster of 256-thread blocks)"
+                        if name in POST_WRAPPERS else ""))
        for name, (source, replaces, mode) in KERNELS.items()},
 })
 
@@ -629,9 +665,11 @@ def join_profiles(first, *rest):
     return joined
 
 
+@functools.cache
 def wide_profile(stems_: tuple[str, ...]):
     """The wide profile of WIDE_PAIRS or MEM_JOINS built from the repo's
-    profiles ``stems_``, joined in that order."""
+    profiles ``stems_``, joined in that order (built once a process: the
+    LENG 60362 join takes seconds; no caller changes it)."""
     return join_profiles(*(parse_hmm(PROFILES / f"{stem}.hmm") for stem in stems_))
 
 
@@ -680,29 +718,36 @@ def launches() -> dict:
             **{name + BLOCK: WRAPPERS[name].block_launches for name in BLOCK_WRAPPERS},
             **{name + BLOCKS: sum(WRAPPERS[name].block_cluster_launches.values())
                for name in BLOCK_WRAPPERS},
+            **{name + CLUSTER256: sum(WRAPPERS[name].block_cluster_launches.values())
+               for name in POST_WRAPPERS},
             **{name + MEM: fn.mem_launches for name, fn in WRAPPERS.items()}}
 
 
 def cluster_launches() -> dict:
     """The launches of the wrappers with C-block clusters in clusters, by C
-    (the p7 ones' cluster pairs at C = 2 included), and of the eager and
-    log-space wrappers in clusters of wide blocks, by C."""
+    (the p7 ones' cluster pairs at C = 2 included), of the eager and
+    log-space wrappers in clusters of wide blocks, by C, and of the
+    posterior pair's in clusters of 256-thread blocks, by C."""
     return {**{name: dict(sorted(WRAPPERS[name].cluster_launches.items()))
                for name in CLUSTER_WRAPPERS},
             **{name + BLOCKS: dict(sorted(WRAPPERS[name].block_cluster_launches.items()))
-               for name in BLOCK_WRAPPERS}}
+               for name in BLOCK_WRAPPERS},
+            **{name + CLUSTER256: dict(sorted(WRAPPERS[name].block_cluster_launches.items()))
+               for name in POST_WRAPPERS}}
 
 
 @contextlib.contextmanager
 def no_block_clusters():
-    """The card as one that holds no cluster of wide blocks: device_plan's
-    occupancy query answers 0 for them, so the eager and log-space kinds
-    plan their rows-in-memory case past MAX_BLOCK (the route such a card
-    takes, logged); every other query as the card answers it."""
+    """The card as one that holds no cluster of blocks wider than 128
+    threads: device_plan's occupancy query answers 0 for them, so the eager
+    and log-space kinds plan their rows-in-memory case past MAX_BLOCK and
+    the row-saving Forward and the backward pass theirs past 38,912 (the
+    route such a card takes, logged); every other query as the card answers
+    it."""
     held = p7_cuda._cluster_held
 
     def query(kind, per, smem, index, cluster, threads=p7_cuda.KERNEL_THREADS):
-        if threads == p7_cuda.BLOCK_THREADS:
+        if threads in (p7_cuda.BLOCK_THREADS, p7_cuda.WIDE_CLUSTER_THREADS):
             return 0
         return held(kind, per, smem, index, cluster, threads)
 
@@ -738,6 +783,7 @@ def plan_text(kind: str, pack, batch: int) -> str:
         most = p7_cuda.max_clusters(kind, per, plan.smem, torch.device(DEVICE).index or 0,
                                     plan.cluster, plan.threads)
         what = ("cluster of wide blocks" if plan.block_cluster else
+                "C-block cluster of 256-thread blocks" if plan.wide_cluster else
                 "cluster pair" if plan.cluster == p7_cuda.CLUSTER else "C-block cluster")
         pair = (f"{what}: {plan.cluster} blocks a cluster, {plan.grid // plan.cluster} "
                 f"clusters (cudaOccupancyMaxActiveClusters {most}), ")
@@ -762,7 +808,9 @@ def print_plans(scanner) -> None:
     """Each blocked p7 case's launch plan against 1400.hmm, the wider wide
     profile and both joins past 4864 states (the C-block clusters of 3 and
     13 blocks, the wide block and the cluster of 4 wide blocks) at the timed
-    shapes."""
+    shapes, and the posterior pair's against the all-24 join twice over
+    (LENG 60362: the cluster of 13 256-thread blocks), also at the 26 rows of
+    a posterior_coverage_batch chunk there."""
     for hmm in (parse_hmm(PROFILES / "1400.hmm"), wide_profile(WIDE_PAIRS[1]),
                 *mem_profiles()):
         prof = P7Profile.from_profile(hmm)
@@ -772,6 +820,18 @@ def print_plans(scanner) -> None:
             batches = (POST_TIME_BATCH if posterior else STAGE_BATCH, SURVIVOR_BATCH)
             for batch in batches:
                 print(f"plan {kind} {name} x {batch} rows: {plan_text(kind, pack, batch)}")
+    big = P7Profile.from_profile(msv_mem_profile())
+    fpack = p7_cuda.forward_pack(big, scanner.device)
+    for kind in ("save", "backward"):
+        for batch in (SURVIVOR_BATCH, post_chunk(big)):
+            print(f"plan {kind} all-24 join twice (M {big.num_states}) x {batch} rows: "
+                  f"{plan_text(kind, fpack, batch)}")
+
+
+def post_chunk(p7: P7Profile, length: int = POST_TIME_LEN) -> int:
+    """The sequences of one posterior_coverage_batch call at ``length``
+    residues against ``p7`` (its bf16 rows under POST_BYTES)."""
+    return posterior_cuda.POST_BYTES // (length * p7_cuda.default_m_pad(p7) * 2)
 
 
 def msv_plan_text(emit: torch.Tensor, b_pad: int) -> str:
@@ -914,7 +974,8 @@ def ptxas_summary(log: str) -> list[str]:
         # the kernel's own name follows its length; the file's anonymous
         # namespace may hold the source's name too
         case = re.search(r"(?<=\d)(msv|viterbi|forward|filter|backward)"
-                         r"((?:_mem|_bounded|_pair|_cluster|_block_cluster|_block)?)_kernel"
+                         r"((?:_mem|_bounded|_pair|_wide_cluster|_cluster|_block_cluster|_block)?)"
+                         r"_kernel"
                          r"(?:I(\w+))?",
                          entry.split("'")[1])
         regs = re.search(r"Used (\d+) registers", entry)
@@ -1911,9 +1972,12 @@ def cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
 def case_suffix(plan) -> str:
     """The JSON row suffix of a p7 case past 4864 states: CLUSTER for a
     C-block cluster, BLOCK for the wide block, BLOCKS for a cluster of wide
-    blocks, MEM for the rows-in-memory case."""
+    blocks, CLUSTER256 for a C-block cluster of 256-thread blocks, MEM for
+    the rows-in-memory case."""
     if plan.block_cluster:
         return BLOCKS
+    if plan.wide_cluster:
+        return CLUSTER256
     if plan.cluster > p7_cuda.CLUSTER:
         return CLUSTER
     return BLOCK if plan.block else MEM
@@ -1921,11 +1985,13 @@ def case_suffix(plan) -> str:
 
 def expected_case(m_pad: int, kind: str) -> tuple[int, int]:
     """(cluster, threads) of the plan ``kind`` takes past 4864 states: its
-    C-block cluster, the wide block, a cluster of wide blocks or the
-    rows-in-memory case."""
+    C-block cluster, the wide block, a cluster of wide blocks, a C-block
+    cluster of 256-thread blocks or the rows-in-memory case."""
     c = p7_cuda.cluster_blocks(m_pad, kind)
     if p7_cuda.block_cluster_case(m_pad, kind):
         return c, p7_cuda.BLOCK_THREADS
+    if p7_cuda.wide_cluster_case(m_pad, kind):
+        return c, p7_cuda.WIDE_CLUSTER_THREADS
     if c > 1:
         return c, p7_cuda.KERNEL_THREADS
     if p7_cuda.block_case(m_pad, kind):
@@ -1941,18 +2007,25 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     pass on their C-block clusters, the eager Viterbi and the log-space
     Forward on the wide block (LENG 6977) and on a cluster of 4 wide blocks
     (30181); then the all-24 join twice over (LENG 60362, past 38,912)
-    through every other kind's rows-in-memory case and the eager and
-    log-space kinds' cluster of 8 wide blocks. Eager,
+    through the lazy, filter and Forward kinds' rows-in-memory cases, the
+    eager and log-space kinds' cluster of 8 wide blocks and the row-saving
+    Forward's and the backward pass's cluster of 13 256-thread blocks, and
+    those two again on their rows-in-memory route (a card that holds no such
+    cluster, no_block_clusters). Eager,
     lazy (replay counts included) and the Viterbi filter bit for bit, the
     filter >= the exact scores; the lazy kernel again at lazy_k = 1, whose
     certificate fires below 16 chain passes (the fire count printed, above
     0), bit for bit; Forward within FWD_TOL and log-space Forward within
-    LOG_FWD_TOL of plain, the row-saving Forward == Forward bit for bit,
-    eager and Forward carry chains == one call; the backward pass on the
-    kernel's own rows within COV_TOL of plain and the whole decode within
-    COV_TOL / TOT_TOL. Each kind must launch its case and no other (the
-    launch counters: cluster_launches and block_cluster_launches by C,
-    block_launches, mem_launches)."""
+    LOG_FWD_TOL of plain, the row-saving Forward == Forward bit for bit
+    where both run one case (past 38,912, where the row-saving Forward's
+    cluster and Forward's rows-in-memory case sum E in other orders, its
+    scores and carries within FWD_TOL of its plain version's and its scores
+    within FWD_TOL of the Forward kernel's; on the rows-in-memory route ==
+    Forward bit for bit again), eager and Forward carry chains == one call;
+    the backward pass on the kernel's own rows within COV_TOL of plain and
+    the whole decode within COV_TOL / TOT_TOL. Each kind must launch its
+    case and no other (the launch counters: cluster_launches and
+    block_cluster_launches by C, block_launches, mem_launches)."""
     staged = ragged_wide_batch(scanner, rng)
     kinds = ("eager", "lazy", "forward", "filter", "log", "save")
     joins = [(hmm, kinds) for hmm in mem_profiles() + [msv_mem_profile()]]
@@ -1990,8 +2063,15 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         require_geq(got["filter"][0], got["lazy"][0], f"{hmm.name[:40]} Viterbi filter vs lazy")
         f_err = max_abs_diff(got["forward"][0], want["forward"][0])
         require(f_err <= FWD_TOL, f"{hmm.name[:40]} Forward vs plain: {f_err}")
-        s_err = require_equal(got["save"][:5], got["forward"],
-                              f"{hmm.name[:40]} row-saving Forward vs Forward kernel")
+        if cases["save"] == cases["forward"]:
+            s_err = require_equal(got["save"][:5], got["forward"],
+                                  f"{hmm.name[:40]} row-saving Forward vs Forward kernel")
+        else:
+            s_err = max(max_abs_diff(g, w) for g, w in zip(got["save"][:5], want["save"][:5]))
+            sf_err = max_abs_diff(got["save"][0], got["forward"][0])
+            require(s_err <= FWD_TOL and sf_err <= FWD_TOL,
+                    f"{hmm.name[:40]} row-saving Forward ({cases['save']}) vs plain: {s_err}, "
+                    f"vs the Forward kernel ({cases['forward']}): {sf_err}")
         f_chain = p7_chain_error("forward", packs["forward"], staged)
         schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
         bwd_in = backward_inputs(packs["forward"], schain, staged)
@@ -2030,6 +2110,12 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
                         and got_l[name + BLOCK] == 0,
                         f"{hmm.name[:40]} {name}: launches {got_l}, by C {by_c[name + BLOCKS]}; "
                         f"expected the cluster of {c} wide blocks only")
+            elif p7_cuda.wide_cluster_case(m_pad, kind):
+                require(set(by_c[name + CLUSTER256]) == {c} and got_l[name + MEM] == 0
+                        and not by_c[name],
+                        f"{hmm.name[:40]} {name}: launches {got_l}, by C "
+                        f"{by_c[name + CLUSTER256]}; expected the cluster of {c} 256-thread "
+                        f"blocks only")
             elif c > 1:
                 require(set(by_c[name]) == {c} and got_l[name + MEM] == 0,
                         f"{hmm.name[:40]} {name}: launches {got_l}, by C {by_c[name]}; expected "
@@ -2045,9 +2131,41 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
               f"cases {cases}): B={WIDE_BATCH} L<={WIDE_LEN} {text}lazy(k="
               f"{packs['lazy'].lazy_k}) max|d|={l_err} replays {int(got['lazy'][5].sum())}, "
               f"lazy(k=1) max|d|={k1_err} fires {fires}, filter(window={packs['filter'].window}) "
-              f"max|d|={vf_err} (>= lazy), Forward {f_err:.3g} chain {f_chain}, row-saving == "
-              f"Forward; backward on its rows {b_err:.3g}, decode coverage {c_err:.3g} totals "
-              f"{t_err:.3g}; launches by C {by_c}", flush=True)
+              f"max|d|={vf_err} (>= lazy), Forward {f_err:.3g} chain {f_chain}, row-saving vs "
+              f"Forward {s_err:.3g}; backward on its rows {b_err:.3g}, decode coverage "
+              f"{c_err:.3g} totals {t_err:.3g}; launches by C {by_c}", flush=True)
+        if p7_cuda.wide_cluster_case(m_pad, "save"):
+            posterior_mem_route(p7, packs["forward"], schain, staged, got["forward"], errors)
+
+
+def posterior_mem_route(p7, fpack, schain, staged, forward, errors: dict) -> None:
+    """The row-saving Forward and the backward pass past 38,912 states on
+    the rows-in-memory route of a card that holds no cluster of 256-thread
+    blocks (no_block_clusters): the row-saving kernel == the Forward
+    kernel's ``forward`` bit for bit (both its rows-in-memory case), the
+    backward pass on its rows within COV_TOL of plain, each wrapper's
+    mem_launches showing the route and no cluster launch."""
+    run, carry = p7_calls("save", fpack, staged)
+    with no_block_clusters():
+        zero_launches()
+        saved = run(CUDA_FNS["save"], staged.tokens, staged.lengths, carry)
+        bwd_in = backward_inputs(fpack, schain, staged)
+        cov = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
+        torch.cuda.synchronize()
+        got = launches()
+    s_err = require_equal(saved[:5], forward, f"LENG {p7.num_states} row-saving Forward on the "
+                          "rows-in-memory route vs the Forward kernel")
+    b_err = max_abs_diff(cov, posterior_cuda.backward_coverage_scan_plain(*bwd_in))
+    require(b_err <= COV_TOL, f"LENG {p7.num_states} backward pass on the rows-in-memory route "
+            f"vs plain: {b_err}")
+    for name in POST_WRAPPERS:
+        require(got[name + MEM] > 0 and got[name + CLUSTER256] == 0,
+                f"the rows-in-memory route did not launch {name}'s memory case alone ({got})")
+    errors["forward_save_scan" + MEM] = max(errors["forward_save_scan" + MEM], s_err)
+    errors["backward_coverage_scan" + MEM] = max(errors["backward_coverage_scan" + MEM], b_err)
+    print(f"the rows-in-memory route (no cluster of 256-thread blocks held), LENG "
+          f"{p7.num_states}: row-saving Forward == the Forward kernel, backward on its rows "
+          f"{b_err:.3g}; launches {nonzero(got)}", flush=True)
 
 
 def block_cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
@@ -2125,6 +2243,35 @@ def block_cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
           f"{nonzero(got)}", flush=True)
 
 
+# the short release stress of the C-block clusters (tools/torch_cluster_check.py
+# --stress): launches a kind and case, the 128-thread clusters' C and the
+# 256-thread clusters' C
+STRESS_LAUNCHES, STRESS_C, STRESS_WIDE_C = 10, (4, 8, 13, 16), (13,)
+
+
+def release_stress() -> None:
+    """tools/torch_cluster_check.py --stress STRESS_LAUNCHES in a process of
+    its own: the lazy Viterbi replaying the whole chain, the Viterbi filter
+    at its longest window, Forward, the row-saving Forward and the backward
+    pass on C-block clusters of 128-thread blocks at each C of STRESS_C, the
+    posterior pair on 256-thread blocks at STRESS_WIDE_C, every launch equal
+    to its case's first; a hang (no launch ending for its STRESS_SILENCE
+    seconds) fails, naming the launch under way."""
+    cmd = [sys.executable, str(REPO / "tools" / "torch_cluster_check.py"), "--stress",
+           str(STRESS_LAUNCHES), "--stress-c", ",".join(map(str, STRESS_C)), "--stress-wide",
+           ",".join(map(str, STRESS_WIDE_C))]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, timeout=600)
+    result = next((json.loads(line) for line in done.stdout.splitlines()
+                   if line.startswith('{"stress"')), None)
+    require(done.returncode == 0 and result is not None and result["stress"] == "ok",
+            f"release stress (rc {done.returncode}): {done.stdout[-2000:]} "
+            f"{done.stderr[-2000:]}")
+    print(f"release stress: {result['total_launches']} launches ({STRESS_LAUNCHES} a kind and "
+          f"case, C {STRESS_C} at 128 threads, {STRESS_WIDE_C} at 256), none hung, each equal "
+          f"to its case's first, {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def mem_paths(tmp: pathlib.Path, rng) -> dict:
     """The cases past 4864 states on the main paths, launch counts zeroed
     around each, on MEM_BATCH random rows of MEM_LEN residues with
@@ -2143,10 +2290,12 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     (log-space) on the wide block, and on MEM_PLANTED rows the entry points
     of the eager and lazy Viterbi, the Viterbi filter, Forward, the
     log-space Forward and the posterior decode with the LENG 60362 join
-    (the eager and log-space kinds' cluster of 8 wide blocks, the others'
-    rows-in-memory cases past 38,912 states), and the eager and log-space
+    (the eager and log-space kinds' cluster of 8 wide blocks, the posterior
+    pair's cluster of 13 256-thread blocks, the others' rows-in-memory cases
+    past 38,912 states), the posterior decode there again on a card that
+    holds no cluster of 256-thread blocks and the eager and log-space
     entries with the LENG 30181 join on a card that holds no cluster of wide
-    blocks (no_block_clusters: their rows-in-memory case)."""
+    blocks (no_block_clusters: their rows-in-memory cases)."""
     hmm_dir = tmp / "hmms_mem"
     hmm_dir.mkdir()
     joins = mem_profiles() + [msv_mem_profile()]
@@ -2289,13 +2438,19 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     cov, _ = posterior_cuda.posterior_coverage_batch(big_p7, tokens[rows], lengths[rows], DEVICE)
     got = launches()
     by_c = cluster_launches()
-    for name in ("viterbi_lazy_scan", "viterbi_filter_scan", "forward_prob_scan",
-                 "forward_save_scan", "backward_coverage_scan"):
+    for name in ("viterbi_lazy_scan", "viterbi_filter_scan", "forward_prob_scan"):
         require(got[name + MEM] > 0 and got.get(name + CLUSTER, 0) == 0
                 and got.get(name + BLOCK, 0) == 0,
                 f"the entry points past 38,912 states did not launch {name}'s memory case alone "
                 f"({got})")
         counts[name + MEM] = counts.get(name + MEM, 0) + got[name + MEM]
+    c_post = p7_cuda.cluster_blocks(p7_cuda.default_m_pad(big_p7), "save")
+    for name in POST_WRAPPERS:
+        require(got[name + CLUSTER256] > 0 and by_c[name + CLUSTER256] == {
+                    c_post: got[name + CLUSTER256]} and got[name + MEM] == 0,
+                f"the posterior entry past 38,912 states did not launch {name}'s cluster of "
+                f"{c_post} 256-thread blocks alone ({got}, {by_c[name + CLUSTER256]})")
+        counts[name + CLUSTER256] = got[name + CLUSTER256]
     for name in BLOCK_WRAPPERS:
         require(got[name + BLOCKS] > 0 and by_c[name + BLOCKS] == {8: got[name + BLOCKS]}
                 and got[name + MEM] == 0,
@@ -2311,6 +2466,27 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
           f"it, Forward {np.round(fwd_s, 2).tolist()}, log-space Forward "
           f"{np.round(log_s, 2).tolist()}, posterior coverage finite, in "
           f"{time.perf_counter() - t0:.3f} s; launches {got}")
+
+    # the posterior decode's route on a card that holds no cluster of
+    # 256-thread blocks, LENG 60362: its rows-in-memory cases
+    zero_launches()
+    with no_block_clusters():
+        t0 = time.perf_counter()
+        cov_m, tot_m = posterior_cuda.posterior_coverage_batch(big_p7, tokens[rows], lengths[rows],
+                                                               DEVICE)
+        secs = time.perf_counter() - t0
+    got = launches()
+    for name in POST_WRAPPERS:
+        require(got[name + MEM] > 0 and got[name + CLUSTER256] == 0,
+                f"the posterior entry with no cluster of 256-thread blocks held did not launch "
+                f"{name}'s memory case alone ({got})")
+        counts[name + MEM] = got[name + MEM]
+    c_err = float(np.abs(cov_m - cov).max())
+    require(c_err <= COV_TOL, f"LENG {big_p7.num_states} posterior entry: the rows-in-memory "
+            f"route and the cluster of 256-thread blocks differ by {c_err}")
+    print(f"main path past 38,912 states (M {big_p7.num_states}), the posterior entry on "
+          f"{MEM_PLANTED} rows with no cluster of 256-thread blocks held (the rows-in-memory "
+          f"route, {secs:.3f} s): coverage within {c_err:.3g} of the cluster's; launches {got}")
 
     # the route of a card that holds no cluster of wide blocks, LENG 30181
     p7_30181 = P7Profile.from_profile(mem_profiles()[1])
@@ -2537,9 +2713,45 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
                                (CAL_BATCH, CAL_LEN)))
     with no_block_clusters():
         out.update(p7_timings_past(scanner, hmms[1], tokens, blocked, errors, work))
-    out.update(p7_timings_past(scanner, msv_mem_profile(), tokens, clustered + blocked, errors,
-                               work))
+    big = msv_mem_profile()
+    out.update(p7_timings_past(scanner, big, tokens, clustered + blocked, errors, work))
+    with no_block_clusters():
+        out.update(p7_timings_past(scanner, big, tokens, ("save", "backward"), errors, work))
+    post_chunk_timings(scanner, big, tokens)
     return out
+
+
+def post_chunk_timings(scanner, hmm, tokens) -> None:
+    """The posterior pair against ``hmm`` (past 38,912 states) at the
+    sequences of one posterior_coverage_batch call at POST_TIME_LEN
+    residues (post_chunk: 26 at LENG 60362), on the first rows of
+    ``tokens``: the row-saving Forward, then the backward pass on its rows,
+    each once after a warm-up, on the cluster of 256-thread blocks and on
+    the rows-in-memory route (no_block_clusters); printed."""
+    p7 = P7Profile.from_profile(hmm)
+    rows = post_chunk(p7)
+    staged = scanner.stage(tokens[:rows, :POST_TIME_LEN],
+                           np.full(rows, POST_TIME_LEN, dtype=np.int32))
+    fpack = p7_cuda.forward_pack(p7, scanner.device)
+    schain = posterior_cuda.suffix_chain_rows(p7, scanner.device)
+    fwd_in = (*fpack[:4], staged.tokens, staged.lengths, staged.tr_rows, staged.tr_probs,
+              fpack.consts, *p7_cuda.forward_init_carry(staged.tr_probs, fpack.m_pad))
+    text = []
+    for route, ctx in (("cluster256", contextlib.nullcontext), ("mem", no_block_clusters)):
+        with ctx():
+            save_ms = best_ms(lambda: posterior_cuda.forward_save_scan_cuda(*fwd_in), reps=1)
+            saved = posterior_cuda.forward_save_scan_cuda(*fwd_in)
+            bwd_in = (fpack.emit_m, fpack.emit_i, fpack.trans, schain, staged.tokens,
+                      staged.lengths, staged.tr_probs, fpack.consts, saved[0], saved[5], saved[6])
+            bwd_ms = best_ms(lambda: posterior_cuda.backward_coverage_scan_cuda(*bwd_in), reps=1)
+            plan = p7_cuda.device_plan("save", fpack.m_pad, passes_of("save", fpack), rows, DEVICE)
+            del saved, bwd_in
+        text.append(f"{route}: the row-saving Forward {save_ms:.3f} ms, the backward pass "
+                    f"{bwd_ms:.3f} ms (grid {plan.grid}, {plan.threads} threads x {plan.per}, "
+                    f"cluster {plan.cluster})")
+    print(f"posterior_chunk_{p7.num_states}: one posterior_coverage_batch chunk, {rows} x "
+          f"{POST_TIME_LEN} x M={p7.num_states}, once each after a warm-up; "
+          f"{'; '.join(text)}", flush=True)
 
 
 # -- main paths (phase 9) ------------------------------------------------------
@@ -4191,6 +4403,7 @@ def main() -> int:
         cluster_kernels_vs_plain(scanner, rng, errors)
         mem_kernels_vs_plain(scanner, rng, errors)
         block_cluster_kernels_vs_plain(scanner, rng, errors)
+        release_stress()
 
     # phase 11 reads phase 9's database and reports
     with tempfile.TemporaryDirectory() as tmp_dir:

@@ -88,9 +88,19 @@
 //    is what lets the halos, rows and slots be reused (p7_blocked.cuh).
 //    Every block loads the chunk's tokens and log scales; block 0 alone
 //    stores the coverage.
-//  * Past 38,912 states the rows-in-memory case (backward_mem_kernel) runs
-//    the same step over the block's scratch rows; the launch plan also takes
-//    it for a width whose C-block cluster the card cannot hold.
+//  * Past 38,912 states (up to the chain's 65536) the pass runs on C-block
+//    clusters of 256-thread blocks (backward_wide_cluster_kernel,
+//    p7_blocked.cuh; C = ceil(M_pad / 4864), 9..14, per 17..19): the same
+//    body at KT = 256, each block's eight warps combined as a group of 256
+//    combines them, then the blocks in rank order; a block stages what fits
+//    of the transition rows beside its group and the cluster's area and
+//    reads the rest from its slice of their thread-major copy (the
+//    launcher's `scratch`: a warp's read of a slot is 32 contiguous
+//    floats).
+//  * On a card that holds no such cluster the rows-in-memory case
+//    (backward_mem_kernel) runs the same step over the block's scratch rows;
+//    the launch plan also takes it for a width whose C-block cluster the
+//    card cannot hold.
 
 #include "p7_blocked.cuh"
 
@@ -115,7 +125,9 @@ struct BackwardArgs {
   const uint16_t* fm;      // [b_pad, l_pad, m_pad] bf16 bits
   const float* ls;         // [b_pad, l_pad]
   float* cov;              // [b_pad, l_pad]
-  float* scratch;          // [grid, kMemRows, m_pad]: the rows-in-memory case's rows
+  float* scratch;          // [grid, kMemRows, m_pad]: the rows-in-memory case's rows; the
+                           // cluster of 256-thread blocks' constant rows, [C * (6 +
+                           // window), PER, 256], each block's slice thread-major
   int b_pad;
 };
 
@@ -133,9 +145,9 @@ __host__ __device__ constexpr size_t backward_smem_floats(int n_rows, int groups
 
 // The kernel's body, for a block of G groups (backward_kernel), for a block
 // of the cluster pair (backward_pair_kernel) or for one of a C-block
-// cluster (backward_cluster_kernel; both one group a block, KT = 128, block
-// r following states col0 = r * 128 * PER .. col0 + 128 * PER - 1 of a
-// sequence in the normal-width layout).
+// cluster (backward_cluster_kernel, KT = 128; backward_wide_cluster_kernel,
+// KT = 256; each one group a block, block r following states col0 = r * KT
+// * PER .. col0 + KT * PER - 1 of a sequence in the normal-width layout).
 template <int PER, int KT, Span SPAN>
 __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
   extern __shared__ __align__(16) float smem[];
@@ -202,7 +214,13 @@ __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
 
   const int off = t * SP;
   const int j0 = h.col0 + t * PER;  // this thread's first state
-  const TransRows<PER, KT> tr{smem + off, a.trans, n_trans, m_pad, j0, 0.0f};
+  // the rows a block of 256 threads does not stage: its slice of their
+  // thread-major copy, at this thread
+  const float* tm = nullptr;
+  if constexpr (KT != 128) {
+    tm = a.scratch + static_cast<size_t>(h.rank) * (kTransRows + a.window) * PER * KT + t;
+  }
+  const TransRows<PER, KT> tr{smem + off, tm, n_trans};
   const float* chain_s = smem + n_trans * ROW + off;
   const float p_b_mk = a.consts[0];
   const float p_e_c = a.consts[1];
@@ -238,13 +256,17 @@ __device__ __forceinline__ void backward_body(const BackwardArgs& a) {
           const float* c = chain_s + p * ROW;
 #pragma unroll
           for (int k = 0; k < PER; ++k) ac[k] = ac[k] + sh[k] * c[k];
-        } else {
+        } else if constexpr (KT == 128) {
           const float* c = a.schain + static_cast<size_t>(p) * m_pad;
 #pragma unroll
           for (int k = 0; k < PER; ++k) {
             const int j = j0 + k;
             ac[k] = ac[k] + sh[k] * (j < m_pad ? __ldg(c + j) : 0.0f);
           }
+        } else {
+          const float* c = tm + (kTransRows + p) * PER * KT;
+#pragma unroll
+          for (int k = 0; k < PER; ++k) ac[k] = ac[k] + sh[k] * __ldg(c + k * KT);
         }
       }
     };
@@ -403,6 +425,14 @@ __global__ void __launch_bounds__(128) backward_pair_kernel(const BackwardArgs a
 template <int PER>
 __global__ void __launch_bounds__(128) backward_cluster_kernel(const BackwardArgs a) {
   backward_body<PER, 128, Span::kCluster>(a);
+}
+
+// Past 38,912 states: a block of a C-block cluster of 256-thread blocks
+// (p7_blocked.cuh).
+template <int PER>
+__global__ void __launch_bounds__(kWideClusterThreads, 1)
+    backward_wide_cluster_kernel(const BackwardArgs a) {
+  backward_body<PER, kWideClusterThreads, Span::kCluster>(a);
 }
 
 // The rows-in-memory case (p7_blocked.cuh, past 38,912 states): one block
@@ -639,19 +669,59 @@ struct ClusterCase {
   }
 };
 
+// The C-block cluster of 256-thread blocks' case (past 38,912 states): c *
+// 256 * PER states, a block of the clusters one slice, one group a block, a
+// grid of whole clusters, the staged rows the plan names and
+// backward_smem_floats of the C-block cluster at 256 threads.
+unsigned wide_cluster_smem_set[kWideClusterSlots];  // devices whose case allows kMaxSmem
+
+template <int PER>
+struct WideClusterCase {
+  static constexpr int KT = kWideClusterThreads;
+
+  static void (*kernel())(BackwardArgs) { return backward_wide_cluster_kernel<PER>; }
+
+  static cudaError_t launch(const BackwardArgs& a, int device, int c, int groups, int grid,
+                            int smem, cudaStream_t stream) {
+    const int n_rows = a.n_trans + a.n_chain;
+    if (a.scratch == nullptr || !wide_cluster_ok(a.m_pad, PER, c, groups, grid, a.n_trans) ||
+        static_cast<size_t>(smem) != 4 * backward_smem_floats<PER, KT, Span::kCluster>(n_rows, 1) ||
+        smem > kMaxSmem) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_cluster(kernel(), a, device, wide_cluster_smem_set[PER - kWideClusterPerMin], c,
+                          grid, smem, stream, KT);
+  }
+
+  static cudaError_t regs(int* out) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel());
+    *out = attr.numRegs;
+    return err;
+  }
+
+  static cudaError_t clusters(int device, int c, int smem, int* out) {
+    return cluster_max_clusters(kernel(), device, wide_cluster_smem_set[PER - kWideClusterPerMin],
+                                c, smem, out, KT);
+  }
+};
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads
 // for the rows-in-memory case) and `per` name the kernel case, with threads
 // * per >= m_pad (a multiple of 8), `cluster` 2 the cluster pair's (128
 // threads a block, per 10..19, 2 * threads * per >= m_pad) and `cluster` C
-// of 3..16 the C-block cluster's (per 13..19, C * threads * per >= m_pad);
-// `window` is the suffix chain's row count, the first `n_chain` staged in
-// shared memory with the `n_trans` (six) transition rows; the pass
-// rescales after every `group` steps of a sequence. `groups`, `grid` and
+// of 3..16 the C-block cluster's (per 13..19, C * threads * per >= m_pad),
+// and `threads` kWideClusterThreads with `cluster` C the C-block cluster of
+// 256-thread blocks' (per 17..19); `window` is the suffix chain's row
+// count, the first `n_chain` staged in shared memory with the first
+// `n_trans` transition rows (all six but in the cluster of 256-thread
+// blocks); the pass rescales after every `group` steps of a sequence. `groups`, `grid` and
 // `smem` are the launch plan of ops/p7_cuda.py::plan_launch (checked);
-// `scratch` the rows-in-memory case's rows (null otherwise). Returns a
-// cudaError_t.
+// `scratch` the rows-in-memory case's rows, or the cluster of 256-thread
+// blocks' thread-major constant rows (ops/p7_cuda.py::block_rows; null
+// otherwise). Returns a cudaError_t.
 extern "C" int p7_backward_launch(int device, int threads, int per, int cluster,
                                   const void* modds, const void* iodds, const void* trans,
                                   const void* schain, int m_pad, int window, int n_chain,
@@ -695,6 +765,11 @@ extern "C" int p7_backward_launch(int device, int threads, int per, int cluster,
     backward_mem_kernel<<<grid, kMemThreads, 0, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
+  if (threads == kWideClusterThreads) {
+    return static_cast<int>(with_wide_cluster_case<WideClusterCase>(per, [&](auto c) {
+      return decltype(c)::launch(a, device, cluster, groups, grid, smem, st);
+    }));
+  }
   if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (cluster >= 3) {
     return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {
@@ -713,13 +788,18 @@ extern "C" int p7_backward_launch(int device, int threads, int per, int cluster,
 }
 
 // Registers a thread of the case uses (`cluster` 2: the pair's, 3..16: the
-// C-block cluster's), for the launch plan. Returns a cudaError_t.
+// C-block cluster's; `threads` kWideClusterThreads: the cluster of
+// 256-thread blocks'), for the launch plan. Returns a cudaError_t.
 extern "C" int p7_backward_regs(int threads, int per, int cluster, int* regs) {
   if (threads == kMemThreads) {
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(&attr, backward_mem_kernel);
     *regs = attr.numRegs;
     return static_cast<int>(err);
+  }
+  if (threads == kWideClusterThreads) {
+    return static_cast<int>(with_wide_cluster_case<WideClusterCase>(
+        per, [&](auto c) { return decltype(c)::regs(regs); }));
   }
   if (cluster >= 3) {
     return static_cast<int>(
@@ -734,10 +814,19 @@ extern "C" int p7_backward_regs(int threads, int per, int cluster, int* regs) {
 }
 
 // The most clusters of `cluster` blocks (2: the pair's case of `per`;
-// 3..16: the C-block cluster's) the card `device` runs at once with `smem`
+// 3..16: the C-block cluster's; at `threads` kWideClusterThreads, the
+// cluster of 256-thread blocks') the card `device` runs at once with `smem`
 // bytes of dynamic shared memory a block, for the launch plan. Returns a
 // cudaError_t.
-extern "C" int p7_backward_clusters(int device, int per, int cluster, int smem, int* clusters) {
+extern "C" int p7_backward_clusters(int device, int threads, int per, int cluster, int smem,
+                                    int* clusters) {
+  if (threads == kWideClusterThreads) {
+    if (cluster < 2 || cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(with_wide_cluster_case<WideClusterCase>(per, [&](auto c) {
+      return decltype(c)::clusters(device, cluster, smem, clusters);
+    }));
+  }
+  if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (cluster >= 3) {
     if (cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {

@@ -683,7 +683,11 @@ __device__ __forceinline__ void pair_shift_small(const float (&v)[PER], float (&
 // barrier; block 1's states below s take block 0's last min(s, KT * PER)
 // states from row i & 1 of block 1's two rows (i: the larger shift's index
 // in this step's n larger shifts), which block 0 stores there once block 1
-// has released the row's use i - 2.
+// has released the row's use i - 2. The release may complete the row's own
+// mbarrier: the pair has two blocks, so whatever s is, block 0 is the one
+// sender and block 1 the one reader of every use, and the release of use i
+// + 2 comes from the block that waited on use i (the C-block cluster, whose
+// senders change with q, releases on an mbarrier of each use).
 template <int PER, int KT>
 __device__ __forceinline__ void pair_shift_big(const float (&v)[PER], float (&out)[PER], int s,
                                                float fill, float* buf, int t, int bar, Pair& pr,
@@ -841,7 +845,8 @@ __device__ __forceinline__ void pair_shift_up_small(const float (&v)[PER], float
 // group's barrier; block 0's states from KT * PER - s on take block 1's
 // first min(s, KT * PER) states from row i & 1 of block 0's two rows (at
 // their own index), which block 1 stores there once block 0 has released
-// the row's use i - 2.
+// the row's use i - 2 (on the row's mbarrier, as pair_shift_big: the two
+// blocks never change roles).
 template <int PER, int KT>
 __device__ __forceinline__ void pair_shift_up_big(const float (&v)[PER], float (&out)[PER], int s,
                                                   float fill, float* buf, int t, int bar,
@@ -962,11 +967,20 @@ __device__ __forceinline__ void pair_reduce2(float& a, float& b, int t, Pair& pr
 //    into block b + q + 1's row at l + s' - KT * PER, where those blocks
 //    exist; a receiving block expects the bytes of the blocks that exist
 //    below it. The rows alternate by larger shift within a step; before a
-//    block stores into a row again (use i + 2 of the step), each block that
-//    reads that row has released it to the blocks that will store there
-//    (a 4-byte st.async into the sender's release slot, one slot for the
-//    b + q receiver and one for the b + q + 1 one); a block that receives
-//    nothing still releases;
+//    block stores into a row again (use i + 1 of the step, for i >= 1),
+//    each block that reads that row has released it to the blocks that will
+//    store there at use i + 1, once use i's barrier has passed (every thread
+//    of the block has read use i - 1's row by then): a 4-byte st.async into
+//    the sender's halo slot of use i + 1's id (2 + p of its pass p, past
+//    every small shift's halo; slot 0 for the b + q receiver, 1 for the b +
+//    q + 1 one), completing the sender's halo mbarrier of that id, on which
+//    it waits at use i + 1. A block that receives nothing still releases.
+//    Each use's releases complete an mbarrier of their own, not one of the
+//    row's two: the blocks that store into a row change with q, so with C
+//    >= 4 a release for use i + 2 may come from a block that never waited
+//    on the sender's use i, and on the row's mbarrier it would land in use
+//    i's phase (a hang, or a row overwritten while it is read). The cluster
+//    pair needs no such care: its two blocks never change roles;
 //  * a reduction: lane p of each warp stores the warp's value into block p's
 //    exchange slot rank * KT / 32 + warp; every block waits for the C * KT /
 //    32 values on its exchange mbarrier and combines them in one fixed order,
@@ -977,11 +991,12 @@ __device__ __forceinline__ void pair_reduce2(float& a, float& b, int t, Pair& pr
 // ends in an exchange (E) that needs every block's value, sent after that
 // block's last read of the step, so no block starts step n + 1's stores
 // before every block is done with step n's halos and the rows' last two
-// uses; within a step the releases order the rows' reuse, and exchange
-// n + 2 reuses the slots of exchange n only after every block has sent n +
-// 1, which each sends after its reads of n. Every wait is an mbarrier's,
-// acquire at cluster scope: no release fence and no cluster barrier in a
-// step.
+// uses, and no release for step n + 1's use i is sent before its sender
+// has waited on step n's; within a step the releases order the rows' reuse,
+// and exchange n + 2 reuses the slots of exchange n only after every block
+// has sent n + 1, which each sends after its reads of n. Every wait is an
+// mbarrier's, acquire at cluster scope: no release fence and no cluster
+// barrier in a step.
 //
 // The mirror (the backward pass's shifts toward lower j, cluster_shift_up)
 // sends from block r + 1 to block r on the same slots and mbarriers, the
@@ -993,19 +1008,23 @@ __device__ __forceinline__ void pair_reduce2(float& a, float& b, int t, Pair& pr
 // they are its own) and the others into block b - q - 1's row at l + KT *
 // PER - s'; a reader releases a row to the blocks that store into it at its
 // next use (rank + q and rank + q + 1 of that use), even when it received
-// nothing. Its reductions (cluster_reduce2) carry two values a warp in one
-// exchange, in the same fixed order. Its slot reuse rests on the backward
-// step's order: every step begins with an exchange that needs every block's
-// value (the coverage and B sums), which each block sends only after its
-// last halo and row read of the step before, so block C - 1, which waits on
-// nobody's halo or row, runs at most one step ahead, and no block stores
-// step n + 1's halos or rows before their readers are done with step n's.
+// nothing, as the forward direction does: after the barrier of the use
+// before, on the sender's halo mbarrier of the next use's id. Its
+// reductions (cluster_reduce2) carry two values a warp in one exchange, in
+// the same fixed order. Its slot reuse rests on the backward step's order:
+// every step begins with an exchange that needs every block's value (the
+// coverage and B sums), which each block sends only after its last halo and
+// row read and its last release wait of the step before, so block C - 1,
+// which waits on nobody's halo or row, runs at most one step ahead, and no
+// block stores step n + 1's halos or rows, or releases their uses, before
+// their readers and senders are done with step n's.
 constexpr int kMaxCluster = 16;
 
 // A block's area: two rows that other blocks' states land in, two
-// exchanges' slots (kMaxCluster blocks' warps, XV values each), the halos, 4
-// release slots (2 rows x 2 senders), then the mbarriers (laid out as the
-// pair's).
+// exchanges' slots (kMaxCluster blocks' warps, XV values each), the halos
+// (a larger shift's: its releases), 4 slots and then the mbarriers, laid
+// out as the pair's (whose release slots and mbarriers a C-block cluster
+// leaves unused).
 template <int PER, int KT, int XV = 1>
 __host__ __device__ constexpr int cluster_floats() {
   return 2 * row_floats<PER, KT>() + XV * 2 * kMaxCluster * warps<KT>() +
@@ -1026,13 +1045,13 @@ struct Cluster {
   float* rows;    // [2][row_floats]: the states other blocks store for a larger shift
   float* xslots;  // [2][XV * kMaxCluster * KT / 32] exchange slots
   float* halo;    // [kHaloIds][kHaloSlots]
-  float* fslots;  // [2][2] release slots
-  unsigned long long* bars;  // halo 0.., exchange, row, release mbarriers
-  unsigned hbar, xbar, rbar, fbar;  // shared addresses of each kind's mbarrier 0
+  unsigned long long* bars;  // halo 0.., exchange, row mbarriers
+  unsigned hbar, xbar, rbar;  // shared addresses of each kind's mbarrier 0
   unsigned next_halo, next_hbar;    // block rank + 1's halos and their mbarriers
   unsigned prev_halo, prev_hbar;    // block rank - 1's (the mirror's)
   unsigned x_dst, xbar_dst;         // lane p < C: block p's exchange slots and mbarriers
-  unsigned hphase, xphase, rphase, fphase;  // each kind's phases, by bit
+  unsigned hphase, xphase, rphase;  // each kind's phases, by bit (halo ids: a larger
+                                    // shift's releases)
   int xn;  // exchanges sent
 };
 
@@ -1045,12 +1064,10 @@ __device__ __forceinline__ void cluster_setup(Cluster& c, float* area, int t) {
   c.rows = area;
   c.xslots = area + 2 * row_floats<PER, KT>();
   c.halo = c.xslots + XV * 2 * kMaxCluster * warps<KT>();
-  c.fslots = c.halo + kHaloIds * kHaloSlots;
-  c.bars = reinterpret_cast<unsigned long long*>(c.fslots + 4);
+  c.bars = reinterpret_cast<unsigned long long*>(c.halo + kHaloIds * kHaloSlots + 4);
   c.hbar = smem_addr(c.bars);
   c.xbar = smem_addr(c.bars + kHaloIds);
   c.rbar = smem_addr(c.bars + kHaloIds + 2);
-  c.fbar = smem_addr(c.bars + kHaloIds + 4);
   if (t == 0) {
     for (int i = 0; i < kPairBars; ++i) mbar_init(c.bars + i);
   }
@@ -1063,7 +1080,7 @@ __device__ __forceinline__ void cluster_setup(Cluster& c, float* area, int t) {
   const unsigned dst = min(t & 31, c.nblk - 1);
   c.x_dst = peer_addr(c.xslots, dst);
   c.xbar_dst = peer_addr(c.bars + kHaloIds, dst);
-  c.hphase = c.xphase = c.rphase = c.fphase = 0;
+  c.hphase = c.xphase = c.rphase = 0;
   c.xn = 0;
 }
 
@@ -1104,29 +1121,44 @@ __device__ __forceinline__ void cluster_shift_small(const float (&v)[PER], float
   for (int k = S; k < PER; ++k) out[k] = v[k - S];
 }
 
-// The releases a block sends once its group has read row i & 1 of a larger
-// shift by s, for that row's use i + 2 (a shift by 4 * s): to the blocks
-// that will store into it there (thread 0: rank - q, thread 1: rank - q - 1).
+// The releases a block sends for a row's use with shift s (the step's
+// larger shift of halo id `id`): to the blocks that will store into it
+// there (thread 0: rank - q, thread 1: rank - q - 1), into their halo slots
+// of `id`, completing their halo mbarrier `id`, which no small shift of the
+// case uses (a larger shift's pass is past PER).
 template <int PER, int KT>
-__device__ __forceinline__ void cluster_release(int s4, int qq, int t, Cluster& c) {
+__device__ __forceinline__ void cluster_release(int s, int id, int t, Cluster& c) {
   constexpr int N = KT * PER;
-  const int q = s4 / N;
-  const int rest = s4 - q * N;
+  const int q = s / N;
+  const int rest = s - q * N;
   const int to = t == 0 ? (q >= 1 ? c.rank - q : -1) : (rest > 0 ? c.rank - q - 1 : -1);
   if (t < 2 && to >= 0) {
-    st_async(peer_addr(c.fslots + 2 * qq + t, to), 0.0f, peer_addr(c.bars + kHaloIds + 4 + qq, to));
+    st_async(peer_addr(c.halo + id * kHaloSlots + t, to), 0.0f, peer_addr(c.bars + id, to));
   }
+}
+
+// The sender's wait, before its larger shift i >= 2 (halo id `id`), for the
+// releases of that use from the `count` blocks it stores into.
+__device__ __forceinline__ void cluster_release_wait(int count, int id, int t, Cluster& c) {
+  const unsigned fbar = c.hbar + 8 * id;
+  if (t == 0) mbar_expect(fbar, 4 * count);
+  mbar_wait(fbar, (c.hphase >> id) & 1u);
+  c.hphase ^= 1u << id;
 }
 
 // The same for any s: block r's state l takes state l - s' of block r - q
 // (its own shift buffer for q = 0) when l >= s', else state l - s' + KT *
 // PER of block r - q - 1 (the header says how they get here), `fill` where
 // that block does not exist. `i` is the larger shift's index in this step's
-// n larger shifts.
+// n larger shifts, `id` its halo id (2 + p of its pass p). A row's release
+// for its use i + 2 goes out after the barrier of use i + 1 (every thread of
+// the block has read the row by then), not after a barrier of its own: one
+// barrier a larger shift, as the cluster of wide blocks' (p7_viterbi.cuh::
+// wide_cluster_big).
 template <int PER, int KT>
 __device__ __forceinline__ void cluster_shift_big(const float (&v)[PER], float (&out)[PER], int s,
                                                   float fill, float* buf, int t, int bar,
-                                                  Cluster& c, int i, int n) {
+                                                  Cluster& c, int i, int n, int id) {
   constexpr int SP = stride<PER>();
   constexpr int N = KT * PER;  // a block's states
   const int qq = i & 1;
@@ -1137,11 +1169,7 @@ __device__ __forceinline__ void cluster_shift_big(const float (&v)[PER], float (
   const bool to_a = q >= 1 && c.rank + q < c.nblk;
   const bool to_b = rest > 0 && c.rank + q + 1 < c.nblk;
   if (to_a || to_b) {
-    if (i >= 2) {
-      if (t == 0) mbar_expect(c.fbar + 8 * qq, 4 * (int(to_a) + int(to_b)));
-      mbar_wait(c.fbar + 8 * qq, (c.fphase >> qq) & 1u);
-      c.fphase ^= 1u << qq;
-    }
+    if (i >= 2) cluster_release_wait(int(to_a) + int(to_b), id, t, c);
     const int dst_a = min(c.rank + q, c.nblk - 1);
     const int dst_b = min(c.rank + q + 1, c.nblk - 1);
     const unsigned row_a = peer_addr(c.rows + qq * row_floats<PER, KT>(), dst_a);
@@ -1163,6 +1191,9 @@ __device__ __forceinline__ void cluster_shift_big(const float (&v)[PER], float (
     for (int k = 0; k < PER; ++k) buf[t * SP + k] = v[k];
   }
   group_sync<KT>(bar);
+  // the group has read use i - 1's row: its use i + 1 (a shift by 2s) may
+  // be stored
+  if (i >= 1 && i + 1 < n) cluster_release<PER, KT>(s << 1, id + 1, t, c);
   // what lands here: from block rank - q (q >= 1) and rank - q - 1
   const bool from_a = q >= 1 && c.rank - q >= 0;
   const bool from_b = rest > 0 && c.rank - q - 1 >= 0;
@@ -1180,11 +1211,6 @@ __device__ __forceinline__ void cluster_shift_big(const float (&v)[PER], float (
     } else {
       out[k] = from_b ? row[sidx<PER>(l)] : fill;
     }
-  }
-  if (i + 2 < n) {
-    // the group has read the row: its use i + 2 may be stored
-    group_sync<KT>(bar);
-    cluster_release<PER, KT>(s << 2, qq, t, c);
   }
 }
 
@@ -1209,7 +1235,7 @@ __device__ __forceinline__ void cluster_shift(const float (&v)[PER], float (&out
   if constexpr (PER > 16) {
     if (s == 16) return cluster_shift_small<PER, KT, 16>(v, out, fill, buf, t, bar, c, id);
   }
-  cluster_shift_big<PER, KT>(v, out, s, fill, buf, t, bar, c, i, n);
+  cluster_shift_big<PER, KT>(v, out, s, fill, buf, t, bar, c, i, n, id);
 }
 
 // An exchange: each warp's value `v` (the same in every lane) into slot
@@ -1366,18 +1392,17 @@ __device__ __forceinline__ void cluster_shift_up_small(const float (&v)[PER], fl
   for (int k = 0; k < PER - S; ++k) out[k] = v[k + S];
 }
 
-// The mirror's releases, once the group has read row qq of a larger shift,
-// for that row's use with shift s4 (two larger shifts on): to the blocks
-// that will store into it there (thread 0: rank + q, thread 1: rank + q +
-// 1, of s4's q).
+// The mirror's releases for a row's use with shift s (halo id `id`): to the
+// blocks that will store into it there (thread 0: rank + q, thread 1: rank
+// + q + 1), on their halo mbarrier `id`, as cluster_release sends them.
 template <int PER, int KT>
-__device__ __forceinline__ void cluster_release_up(int s4, int qq, int t, Cluster& c) {
+__device__ __forceinline__ void cluster_release_up(int s, int id, int t, Cluster& c) {
   constexpr int N = KT * PER;
-  const int q = s4 / N;
-  const int rest = s4 - q * N;
+  const int q = s / N;
+  const int rest = s - q * N;
   const int to = t == 0 ? (q >= 1 ? c.rank + q : c.nblk) : (rest > 0 ? c.rank + q + 1 : c.nblk);
   if (t < 2 && to < c.nblk) {
-    st_async(peer_addr(c.fslots + 2 * qq + t, to), 0.0f, peer_addr(c.bars + kHaloIds + 4 + qq, to));
+    st_async(peer_addr(c.halo + id * kHaloSlots + t, to), 0.0f, peer_addr(c.bars + id, to));
   }
 }
 
@@ -1385,11 +1410,12 @@ __device__ __forceinline__ void cluster_release_up(int s4, int qq, int t, Cluste
 // block r + q (its own shift buffer for q = 0) when l + s' < KT * PER, else
 // state l + s' - KT * PER of block r + q + 1 (the header says how they get
 // here), `fill` where that block does not exist. `i` is the larger shift's
-// index in this step's n larger shifts.
+// index in this step's n larger shifts, `id` its halo id; its releases go
+// out as cluster_shift_big's.
 template <int PER, int KT>
 __device__ __forceinline__ void cluster_shift_up_big(const float (&v)[PER], float (&out)[PER],
                                                      int s, float fill, float* buf, int t,
-                                                     int bar, Cluster& c, int i, int n) {
+                                                     int bar, Cluster& c, int i, int n, int id) {
   constexpr int SP = stride<PER>();
   constexpr int N = KT * PER;  // a block's states
   const int qq = i & 1;
@@ -1400,11 +1426,7 @@ __device__ __forceinline__ void cluster_shift_up_big(const float (&v)[PER], floa
   const bool to_a = q >= 1 && c.rank - q >= 0;
   const bool to_b = rest > 0 && c.rank - q - 1 >= 0;
   if (to_a || to_b) {
-    if (i >= 2) {
-      if (t == 0) mbar_expect(c.fbar + 8 * qq, 4 * (int(to_a) + int(to_b)));
-      mbar_wait(c.fbar + 8 * qq, (c.fphase >> qq) & 1u);
-      c.fphase ^= 1u << qq;
-    }
+    if (i >= 2) cluster_release_wait(int(to_a) + int(to_b), id, t, c);
     const int dst_a = max(c.rank - q, 0);
     const int dst_b = max(c.rank - q - 1, 0);
     const unsigned row_a = peer_addr(c.rows + qq * row_floats<PER, KT>(), dst_a);
@@ -1426,6 +1448,8 @@ __device__ __forceinline__ void cluster_shift_up_big(const float (&v)[PER], floa
     for (int k = 0; k < PER; ++k) buf[t * SP + k] = v[k];
   }
   group_sync<KT>(bar);
+  // the group has read use i - 1's row: its use i + 1 may be stored
+  if (i >= 1 && i + 1 < n) cluster_release_up<PER, KT>(s << 1, id + 1, t, c);
   // what lands here: from block rank + q (q >= 1) and rank + q + 1
   const bool from_a = q >= 1 && c.rank + q < c.nblk;
   const bool from_b = rest > 0 && c.rank + q + 1 < c.nblk;
@@ -1443,11 +1467,6 @@ __device__ __forceinline__ void cluster_shift_up_big(const float (&v)[PER], floa
     } else {
       out[k] = from_b ? row[sidx<PER>(l)] : fill;
     }
-  }
-  if (i + 2 < n) {
-    // the group has read the row: its use i + 2 may be stored
-    group_sync<KT>(bar);
-    cluster_release_up<PER, KT>(s << 2, qq, t, c);
   }
 }
 
@@ -1472,7 +1491,7 @@ __device__ __forceinline__ void cluster_shift_up(const float (&v)[PER], float (&
   if constexpr (PER > 16) {
     if (s == 16) return cluster_shift_up_small<PER, KT, 16>(v, out, fill, buf, t, bar, c, id);
   }
-  cluster_shift_up_big<PER, KT>(v, out, s, fill, buf, t, bar, c, i, n);
+  cluster_shift_up_big<PER, KT>(v, out, s, fill, buf, t, bar, c, i, n, id);
 }
 
 // The cluster's sums (SUM) or maxes of two values a thread in one exchange
@@ -1646,20 +1665,19 @@ __device__ __forceinline__ void store_row(const float (&v)[PER], float* g, int m
 
 // The step-invariant transition rows as a thread reads them: row q, slot k
 // from the block's staged rows (q < n_trans, which the plan makes all six
-// at KT = 128) or from global memory [6, m_pad] (`fill` past m_pad).
+// at KT = 128) or, in a block of the cluster of 256-thread blocks, from the
+// block's slice of their thread-major copy in global memory ([kTransRows +
+// window][PER][KT], entry (q, k, t) row q at the block's state t * PER + k:
+// a warp's read of one slot is 32 contiguous floats), at this thread's t.
 template <int PER, int KT>
 struct TransRows {
   const float* staged;  // the block's staged rows, at this thread's offset
-  const float* global;  // [8, m_pad]
+  const float* tm;      // the thread-major copy, at this thread (KT != 128)
   int n_trans;
-  int m_pad;
-  int j0;  // t * PER
-  float fill;
 
   __device__ __forceinline__ float operator()(int q, int k) const {
     if (KT == 128 || q < n_trans) return staged[q * row_floats<PER, KT>() + k];
-    const int j = j0 + k;
-    return j < m_pad ? __ldg(global + q * m_pad + j) : fill;
+    return __ldg(tm + (q * PER + k) * KT);
   }
 };
 
@@ -1834,6 +1852,57 @@ cudaError_t with_cluster_case(int per, Fn fn) {
 }
 #undef P7_CLUSTER_CASE
 constexpr int kClusterSlots = 7;  // per-case tables of the C-block cluster: [per - 13]
+
+// -- the C-block cluster of 256-thread blocks ------------------------------------
+//
+// Past kMaxCluster * 2432 = 38,912 states (up to the chain's 65536) the
+// Forward template's row-saving case and the backward pass
+// (p7_forward_kernel.cu::forward_wide_cluster_kernel,
+// p7_backward_kernel.cu::backward_wide_cluster_kernel) run one sequence on
+// C groups of KT = kWideClusterThreads threads, one in each block of a
+// C-block cluster: the C-block cluster's step and primitives above at KT =
+// 256 (every one of them is templated on KT), block r owning the states r *
+// KT * PER + t * PER + k. The launch plan takes C = ceil(M_pad / (KT *
+// kWideClusterPerMax)), 9..14, and per the smallest that covers M_pad,
+// kWideClusterPerMin..kWideClusterPerMax. A reduction combines each block's
+// eight warps as a group of 256 does (combine_warps), then the blocks in
+// rank order. A row of 256 * stride(PER) floats is twice a 128-thread
+// group's, so beside the group and the cluster's area a block stages what
+// fits of the transition rows (then chain rows); the kernels read the rest
+// from the block's slice of their thread-major copy, which the launcher
+// passes (ops/p7_cuda.py::block_rows at 256 threads, fill 0: TransRows, the
+// chain's fallback). The C entries name
+// the case by `threads` kWideClusterThreads and `cluster` C.
+constexpr int kWideClusterThreads = 256;
+constexpr int kWideClusterPerMin = 17;  // ceil(38,920 / (9 * kWideClusterThreads))
+constexpr int kWideClusterPerMax = 19;
+
+#define P7_WIDE_CLUSTER_CASE(P) \
+  case P:                       \
+    return fn(Case<P>{});
+
+template <template <int> class Case, typename Fn>
+cudaError_t with_wide_cluster_case(int per, Fn fn) {
+  switch (per) {
+    P7_WIDE_CLUSTER_CASE(17)
+    P7_WIDE_CLUSTER_CASE(18)
+    P7_WIDE_CLUSTER_CASE(19)
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+#undef P7_WIDE_CLUSTER_CASE
+// per-case tables of the cluster of 256-thread blocks: [per - kWideClusterPerMin]
+constexpr int kWideClusterSlots = kWideClusterPerMax - kWideClusterPerMin + 1;
+
+// The launch shape of a block of such a cluster: c of 2..kMaxCluster blocks
+// of c * KT * PER >= m_pad states, one group a block, a grid of whole
+// clusters, at most the six transition rows staged (the rest read from
+// global memory).
+inline bool wide_cluster_ok(int m_pad, int per, int c, int groups, int grid, int n_trans) {
+  return c >= 2 && c <= kMaxCluster && m_pad <= c * kWideClusterThreads * per && groups == 1 &&
+         grid >= c && grid % c == 0 && n_trans >= 0 && n_trans <= kTransRows;
+}
 
 // Index of a group case in per-case tables.
 __host__ inline int case_slot(int per) { return per - 1; }

@@ -8,8 +8,8 @@
 // each step's scaled M row stored as bf16, round to nearest, into
 // fm [b_pad, l_pad, m_pad] with the log scale in effect for that row in
 // ls [b_pad, l_pad]; rows at and past the length are stored as 0). Both
-// cases are one template, so the saved pass scores each sequence bit for bit
-// as the plain Forward kernel does. For every residue t < length of a
+// cases are one template, so up to 38,912 states the saved pass scores each
+// sequence bit for bit as the plain Forward kernel does. For every residue t < length of a
 // sequence, over odds ratios and transition probabilities:
 //     M_j = modds[tok][j] * (diag_{j-1} + B * p_B_Mk)
 //           diag = M * tmm + I * tim + D * tdm            (old rows)
@@ -97,9 +97,20 @@
 //    bit for bit and a carry chain split at a multiple of `group` still
 //    equals one call. SAVE: each block stores its slice of the bf16 row at
 //    its first state after its group's barrier, block 0 alone the log scale.
-//  * Past 38,912 states the rows-in-memory case (forward_mem_kernel,
-//    p7_blocked.cuh) runs the same step with every row in global memory,
-//    one 1024-thread block a sequence; the launch plan also takes it for a
+//  * Past 38,912 states (up to the chain's 65536) the SAVE case runs on
+//    C-block clusters of 256-thread blocks (forward_wide_cluster_kernel,
+//    p7_blocked.cuh; C = ceil(M_pad / 4864), 9..14, per 17..19): the same
+//    body at KT = 256, its E sum and rescale max combining each block's
+//    eight warps, then the blocks in rank order; a block stages what fits
+//    of the transition rows beside its group and the cluster's area and
+//    reads the rest from its slice of their thread-major copy
+//    (ForwardArgs::tm: a warp's read of a slot is 32 contiguous floats). So
+//    past 38,912 the saved pass's scores equal the plain Forward kernel's to
+//    rounding, not bit for bit.
+//  * Past 38,912 states the plain Forward, and the SAVE case on a card that
+//    holds no such cluster, run the rows-in-memory case (forward_mem_kernel,
+//    p7_blocked.cuh): the same step with every row in global memory, one
+//    1024-thread block a sequence; the launch plan also takes it for a
 //    width whose cluster the card cannot hold.
 
 #include <cuda_bf16.h>
@@ -135,14 +146,17 @@ struct ForwardArgs {
   float* s_out;
   __nv_bfloat16* fm;  // [b_pad, l_pad, m_pad] (SAVE)
   float* ls;          // [b_pad, l_pad] (SAVE)
+  // the cluster of 256-thread blocks: [C * (6 + window), PER, 256], each
+  // block's slice of the constant rows thread-major (null otherwise)
+  const float* tm;
   int b_pad;
 };
 
 // The kernel's body, for a block of G groups (forward_kernel), for a block
 // of the cluster pair (forward_pair_kernel) or for one of a C-block cluster
-// (forward_cluster_kernel; both one group a block, KT = 128, block r
-// following states col0 = r * 128 * PER .. col0 + 128 * PER - 1 of a
-// sequence in the normal-width layout).
+// (forward_cluster_kernel, KT = 128; forward_wide_cluster_kernel, KT = 256;
+// each one group a block, block r following states col0 = r * KT * PER ..
+// col0 + KT * PER - 1 of a sequence in the normal-width layout).
 template <int PER, int KT, bool SAVE, Span SPAN>
 __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
   extern __shared__ __align__(16) float smem[];
@@ -208,14 +222,20 @@ __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
   if constexpr (kLinked) cluster_sync();
 
   const int off = t * SP;
-  const int j0 = h.col0 + t * PER;  // this thread's first state
-  const TransRows<PER, KT> tr{smem + off, a.trans, n_trans, m_pad, j0, 0.0f};
+  [[maybe_unused]] const int j0 = h.col0 + t * PER;  // this thread's first state
+  const int window = a.window;
+  // the rows a block of 256 threads does not stage: its slice of their
+  // thread-major copy, at this thread
+  const float* tm = nullptr;
+  if constexpr (KT != 128) {
+    tm = a.tm + static_cast<size_t>(h.rank) * (kTransRows + window) * PER * KT + t;
+  }
+  const TransRows<PER, KT> tr{smem + off, tm, n_trans};
   const float* chain_s = smem + n_trans * ROW + off;
   const float p_b_mk = a.consts[0];
   const float p_e_c = a.consts[1];
   const float p_e_j = a.consts[2];
   const int b_pad = a.b_pad;
-  const int window = a.window;
 
   // the sequences of this group: a cluster's blocks follow the same ones
   for (int seq = kLinked ? cluster_id() : blockIdx.x * groups + g; seq < b_pad;
@@ -278,13 +298,17 @@ __device__ __forceinline__ void forward_body(const ForwardArgs& a) {
             const float* c = chain_s + p * ROW;
 #pragma unroll
             for (int k = 0; k < PER; ++k) ac[k] = ac[k] + sh[k] * c[k];
-          } else {
+          } else if constexpr (KT == 128) {
             const float* c = a.chain + static_cast<size_t>(p) * m_pad;
 #pragma unroll
             for (int k = 0; k < PER; ++k) {
               const int j = j0 + k;
               ac[k] = ac[k] + sh[k] * (j < m_pad ? __ldg(c + j) : 0.0f);
             }
+          } else {
+            const float* c = tm + (kTransRows + p) * PER * KT;
+#pragma unroll
+            for (int k = 0; k < PER; ++k) ac[k] = ac[k] + sh[k] * __ldg(c + k * KT);
           }
         }
 
@@ -401,6 +425,15 @@ __global__ void __launch_bounds__(128) forward_pair_kernel(const ForwardArgs a) 
 template <int PER, bool SAVE>
 __global__ void __launch_bounds__(128) forward_cluster_kernel(const ForwardArgs a) {
   forward_body<PER, 128, SAVE, Span::kCluster>(a);
+}
+
+// Past 38,912 states: a block of a C-block cluster of 256-thread blocks
+// (p7_blocked.cuh), the row-saving case's (SAVE; the plain Forward keeps its
+// rows-in-memory case there).
+template <int PER, bool SAVE>
+__global__ void __launch_bounds__(kWideClusterThreads, 1)
+    forward_wide_cluster_kernel(const ForwardArgs a) {
+  forward_body<PER, kWideClusterThreads, SAVE, Span::kCluster>(a);
 }
 
 // SAVE: rows n .. l_pad - 1 of sequence `seq` are 0, as forward_kernel
@@ -673,20 +706,60 @@ struct ClusterCase {
   }
 };
 
+// The C-block cluster of 256-thread blocks' case (the row-saving Forward
+// past 38,912 states): c * 256 * PER states, a block of the clusters one
+// slice, one group a block, a grid of whole clusters, the staged rows the
+// plan names and cluster_smem_floats at 256 threads.
+unsigned wide_cluster_smem_set[kWideClusterSlots];  // devices whose case allows kMaxSmem
+
+template <int PER>
+struct WideClusterCase {
+  static constexpr int KT = kWideClusterThreads;
+
+  static void (*kernel())(ForwardArgs) { return forward_wide_cluster_kernel<PER, true>; }
+
+  static cudaError_t launch(const ForwardArgs& a, int device, int c, int groups, int grid,
+                            int smem, cudaStream_t stream) {
+    const int n_rows = a.n_trans + a.n_chain;
+    if (a.fm == nullptr || a.tm == nullptr ||
+        !wide_cluster_ok(a.m_pad, PER, c, groups, grid, a.n_trans) ||
+        static_cast<size_t>(smem) != 4 * cluster_smem_floats<PER, KT, false>(n_rows, true) ||
+        smem > kMaxSmem) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_cluster(kernel(), a, device, wide_cluster_smem_set[PER - kWideClusterPerMin], c,
+                          grid, smem, stream, KT);
+  }
+
+  static cudaError_t regs(int* out) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel());
+    *out = attr.numRegs;
+    return err;
+  }
+
+  static cudaError_t clusters(int device, int c, int smem, int* out) {
+    return cluster_max_clusters(kernel(), device, wide_cluster_smem_set[PER - kWideClusterPerMin],
+                                c, smem, out, KT);
+  }
+};
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads for
 // the rows-in-memory case) and `per` name the kernel case, with threads *
 // per >= m_pad (a multiple of 8), `cluster` 2 the cluster pair's (128
 // threads a block, per 10..19, 2 * threads * per >= m_pad) and `cluster` C
-// of 3..16 the C-block cluster's (per 13..19, C * threads * per >= m_pad);
-// `window` is the
+// of 3..16 the C-block cluster's (per 13..19, C * threads * per >= m_pad),
+// and `threads` kWideClusterThreads with `cluster` C the row-saving case's
+// C-block cluster of 256-thread blocks (per 17..19); `window` is the
 // chain's row count, the first `n_chain` staged in shared memory with the
 // first `n_trans` transition rows; the kernel rescales after every `group`
 // residues. `fm` and `ls` null run the plain Forward, both set the saving
 // pass. `groups`, `grid` and `smem` are the launch plan of
 // ops/p7_cuda.py::plan_launch (checked); `scratch` the rows-in-memory
-// case's rows (null otherwise). Returns a cudaError_t.
+// case's rows, or the cluster of 256-thread blocks' thread-major constant
+// rows (ops/p7_cuda.py::block_rows; null otherwise). Returns a cudaError_t.
 extern "C" int p7_forward_launch(int device, int threads, int per, int cluster,
                                  const void* modds, const void* iodds, const void* trans,
                                  const void* chain, int m_pad, int window, int n_chain,
@@ -730,6 +803,7 @@ extern "C" int p7_forward_launch(int device, int threads, int per, int cluster,
   a.s_out = static_cast<float*>(s_out);
   a.fm = static_cast<__nv_bfloat16*>(fm);
   a.ls = static_cast<float*>(ls);
+  a.tm = threads == kWideClusterThreads ? static_cast<const float*>(scratch) : nullptr;
   a.b_pad = b_pad;
   auto* st = static_cast<cudaStream_t>(stream);
   if (threads == kMemThreads) {
@@ -743,6 +817,11 @@ extern "C" int p7_forward_launch(int device, int threads, int per, int cluster,
       forward_mem_kernel<false><<<grid, kMemThreads, 0, st>>>(a, rows);
     }
     return static_cast<int>(cudaGetLastError());
+  }
+  if (threads == kWideClusterThreads) {
+    return static_cast<int>(with_wide_cluster_case<WideClusterCase>(per, [&](auto c) {
+      return decltype(c)::launch(a, device, cluster, groups, grid, smem, st);
+    }));
   }
   if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (cluster >= 3) {
@@ -762,8 +841,9 @@ extern "C" int p7_forward_launch(int device, int threads, int per, int cluster,
 }
 
 // Registers a thread of the case uses (`save`: the row-saving case;
-// `cluster` 2: the pair's, 3..16: the C-block cluster's), for the launch
-// plan. Returns a cudaError_t.
+// `cluster` 2: the pair's, 3..16: the C-block cluster's; `threads`
+// kWideClusterThreads: the row-saving case's cluster of 256-thread blocks),
+// for the launch plan. Returns a cudaError_t.
 extern "C" int p7_forward_regs(int threads, int per, int cluster, int save, int* regs) {
   if (threads == kMemThreads) {
     cudaFuncAttributes attr;
@@ -771,6 +851,11 @@ extern "C" int p7_forward_regs(int threads, int per, int cluster, int save, int*
                                  : cudaFuncGetAttributes(&attr, forward_mem_kernel<false>);
     *regs = attr.numRegs;
     return static_cast<int>(err);
+  }
+  if (threads == kWideClusterThreads) {
+    if (save == 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(with_wide_cluster_case<WideClusterCase>(
+        per, [&](auto c) { return decltype(c)::regs(regs); }));
   }
   if (cluster >= 3) {
     return static_cast<int>(with_cluster_case<ClusterCase>(
@@ -785,11 +870,21 @@ extern "C" int p7_forward_regs(int threads, int per, int cluster, int save, int*
 }
 
 // The most clusters of `cluster` blocks (2: the pair's case of `per`,
-// `save`; 3..16: the C-block cluster's) the card `device` runs at once with
-// `smem` bytes of dynamic shared memory a block, for the launch plan.
-// Returns a cudaError_t.
-extern "C" int p7_forward_clusters(int device, int per, int cluster, int save, int smem,
-                                   int* clusters) {
+// `save`; 3..16: the C-block cluster's; at `threads` kWideClusterThreads,
+// the row-saving case's cluster of 256-thread blocks) the card `device`
+// runs at once with `smem` bytes of dynamic shared memory a block, for the
+// launch plan. Returns a cudaError_t.
+extern "C" int p7_forward_clusters(int device, int threads, int per, int cluster, int save,
+                                   int smem, int* clusters) {
+  if (threads == kWideClusterThreads) {
+    if (save == 0 || cluster < 2 || cluster > kMaxCluster) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(with_wide_cluster_case<WideClusterCase>(per, [&](auto c) {
+      return decltype(c)::clusters(device, cluster, smem, clusters);
+    }));
+  }
+  if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (cluster >= 3) {
     if (cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {

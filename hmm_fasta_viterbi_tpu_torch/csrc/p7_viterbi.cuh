@@ -304,7 +304,7 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
   const int off = t * stride<PER>();
   const int j0 = h.col0 + t * PER;  // this thread's first state
   const int n_trans = KT == 128 ? kTransRows : a.n_trans;
-  const TransRows<PER, KT> tr{cs + off, a.trans, n_trans, m_pad, j0, ninf};
+  const TransRows<PER, KT> tr{cs + off, nullptr, n_trans};
   const float* chain_s = cs + n_trans * ROW + off;
   const float* cmax = cs + (n_trans + a.n_chain) * ROW + off;
   bool viol = false;

@@ -26,9 +26,12 @@ groups, one in each block of a C-block cluster (C = ceil(M_pad / 2432),
 (BLOCK_KINDS) one block of BLOCK_THREADS threads a sequence, the wide block,
 its rows in registers too, and past that C such blocks a sequence, one in
 each block of a C-block cluster (C = ceil(M_pad / 8192), 2..8); past 38,912
-every other kind runs the rows-in-memory case, MEM_THREADS threads a
-sequence with its rows in global memory (:func:`kernel_case`); the plain
-versions have no cap.
+the row-saving Forward and the posterior backward pass
+(WIDE_CLUSTER_KINDS) run C groups of WIDE_CLUSTER_THREADS threads, one in
+each block of a C-block cluster (C = ceil(M_pad / 4864), 9..14), and every
+other kind the rows-in-memory case, MEM_THREADS threads a sequence with its
+rows in global memory (:func:`kernel_case`); the plain versions have no
+cap.
 
 The host packers are numpy copies of the JAX ones (that module imports
 jax) and return the same arrays byte for byte, in the TPU's ``[M_pad, …]``
@@ -209,12 +212,39 @@ BLOCK_CLUSTER_PER = tuple(range(5, 9))  # ceil(9217 / (2 * BLOCK_THREADS)) = 5
 MAX_BLOCK_CLUSTER = 8
 BLOCK_CLUSTER_FLOATS = PAIR_FLOATS - 2 * 2 * (KERNEL_THREADS // 32) + (
     2 * 16 * (BLOCK_THREADS // 32))
-# a C-block cluster's block area (csrc/p7_blocked.cuh::cluster_floats)
-# beside its two rows, in floats: two exchanges' slots (a value a warp of up
-# to MAX_CLUSTER blocks), the pair's halos, release slots and mbarriers
-CLUSTER_FLOATS = PAIR_FLOATS + 2 * (MAX_CLUSTER - 2) * (KERNEL_THREADS // 32)
+# the row-saving Forward and the posterior backward pass past
+# MAX_CLUSTER_STATES, up to MAX_KERNEL_STATES: C groups of
+# WIDE_CLUSTER_THREADS threads a sequence, one in each block of a C-block
+# cluster (csrc/p7_forward_kernel.cu::forward_wide_cluster_kernel,
+# csrc/p7_backward_kernel.cu::backward_wide_cluster_kernel; the C-block
+# cluster's step and primitives at 256 threads), block r owning states r *
+# WIDE_CLUSTER_THREADS * per .., C = ceil(M_pad / (WIDE_CLUSTER_THREADS *
+# 19)) (9..14) and per of WIDE_CLUSTER_PER the smallest that covers M_pad.
+# Its rows are twice a 128-thread group's, so a block stages what fits of
+# the transition rows (then chain rows) beside its group and the cluster's
+# area and reads the rest from its slice of their thread-major copy
+# (:func:`block_rows` at 256 threads, fill 0). Every other kind past 38,912
+# keeps the rows-in-memory case
+WIDE_CLUSTER_KINDS = ("save", "backward")
+WIDE_CLUSTER_THREADS = 256
+WIDE_CLUSTER_PER = tuple(range(17, 20))  # ceil(38,920 / (9 * 256)) = 17
+
+
+def cluster_floats(threads: int = KERNEL_THREADS, backward: bool = False) -> int:
+    """A C-block cluster's block area (``csrc/p7_blocked.cuh::
+    cluster_floats``) beside its two rows, in floats, for blocks of
+    ``threads`` threads: two exchanges' slots (a value a warp of up to
+    MAX_CLUSTER blocks; with ``backward``, two values, the backward pass's
+    coverage and B sums), the pair's halos, 4 slots and mbarriers."""
+    xv = 2 if backward else 1
+    return (PAIR_FLOATS - 2 * 2 * (KERNEL_THREADS // 32)
+            + xv * 2 * MAX_CLUSTER * (threads // 32))
+
+
+# a C-block cluster's block area at KERNEL_THREADS ...
+CLUSTER_FLOATS = cluster_floats()
 # ... and the backward pass's second value a slot there
-CLUSTER_X2_FLOATS = 2 * MAX_CLUSTER * (KERNEL_THREADS // 32)
+CLUSTER_X2_FLOATS = cluster_floats(backward=True) - CLUSTER_FLOATS
 
 # auto-picked lazy window and truncated prob-space chain: the constants of
 # pallas_p7 (LAZY_TAIL_DAMP_NATS, PROB_CHAIN_L_MAX, PROB_CHAIN_REL_ERR)
@@ -888,8 +918,8 @@ def _kernel_library() -> ctypes.CDLL:
     lib.p7_viterbi_clusters.argtypes = [c, c, c, c, c, c, regs]
     lib.p7_forward_log_clusters.argtypes = [c, c, c, c, c, regs]
     lib.p7_filter_clusters.argtypes = [c, c, c, c, regs]
-    lib.p7_forward_clusters.argtypes = [c, c, c, c, c, regs]
-    lib.p7_backward_clusters.argtypes = [c, c, c, c, regs]
+    lib.p7_forward_clusters.argtypes = [c, c, c, c, c, c, regs]
+    lib.p7_backward_clusters.argtypes = [c, c, c, c, c, regs]
     for fn in (lib.p7_viterbi_launch, lib.p7_forward_launch, lib.p7_forward_log_launch,
                lib.p7_filter_launch, lib.p7_backward_launch, lib.p7_viterbi_regs,
                lib.p7_forward_log_regs, lib.p7_forward_regs, lib.p7_filter_regs,
@@ -908,13 +938,18 @@ def cluster_blocks(m_pad: int, kind: str | None = None) -> int:
     too); C = ceil(m_pad / MAX_GROUP_STATES), 3..MAX_CLUSTER, for the
     CLUSTER_KINDS past that up to MAX_CLUSTER_STATES; C = ceil(m_pad /
     (BLOCK_THREADS * 8)), 2..MAX_BLOCK_CLUSTER, wide blocks for the
-    BLOCK_KINDS past MAX_BLOCK_STATES (:func:`block_cluster_case`); else 1."""
+    BLOCK_KINDS past MAX_BLOCK_STATES (:func:`block_cluster_case`); C =
+    ceil(m_pad / (WIDE_CLUSTER_THREADS * 19)), 9..14, blocks of
+    WIDE_CLUSTER_THREADS threads for the WIDE_CLUSTER_KINDS past
+    MAX_CLUSTER_STATES (:func:`wide_cluster_case`); else 1."""
     if MAX_GROUP_STATES < m_pad <= MAX_WIDE_STATES and (kind is None or kind in PAIR_KINDS):
         return CLUSTER
     if kind in CLUSTER_KINDS and MAX_WIDE_STATES < m_pad <= MAX_CLUSTER_STATES:
         return -(-m_pad // MAX_GROUP_STATES)
     if block_cluster_case(m_pad, kind):
         return -(-m_pad // (BLOCK_THREADS * BLOCK_CLUSTER_PER[-1]))
+    if wide_cluster_case(m_pad, kind):
+        return -(-m_pad // (WIDE_CLUSTER_THREADS * WIDE_CLUSTER_PER[-1]))
     return 1
 
 
@@ -931,6 +966,13 @@ def block_cluster_case(m_pad: int, kind: str | None) -> bool:
     return kind in BLOCK_KINDS and MAX_BLOCK_STATES < m_pad <= MAX_KERNEL_STATES
 
 
+def wide_cluster_case(m_pad: int, kind: str | None) -> bool:
+    """Whether ``kind``'s case of ``m_pad`` states is a C-block cluster of
+    WIDE_CLUSTER_THREADS-thread blocks: a WIDE_CLUSTER_KINDS kind past
+    MAX_CLUSTER_STATES, up to MAX_KERNEL_STATES."""
+    return kind in WIDE_CLUSTER_KINDS and MAX_CLUSTER_STATES < m_pad <= MAX_KERNEL_STATES
+
+
 def kernel_case(m_pad: int, kind: str | None = None) -> tuple[int, int]:
     """``(threads, per)``: the kernel case of ``m_pad`` states, a group of
     KERNEL_THREADS threads a sequence up to MAX_GROUP_STATES and one in each
@@ -941,14 +983,19 @@ def kernel_case(m_pad: int, kind: str | None = None) -> tuple[int, int]:
     BLOCK_KINDS ``kind`` the wide block up to MAX_BLOCK_STATES
     (BLOCK_THREADS threads, ``per`` of BLOCK_PER) and C wide blocks past it
     (BLOCK_THREADS threads in each block of a C-block cluster, ``per`` of
-    BLOCK_CLUSTER_PER), and every other case (``kind`` None included) the
-    rows-in-memory case, MEM_THREADS threads walking ``per`` tiles of
-    MEM_THREADS states. Raises ``ValueError`` past MAX_KERNEL_STATES."""
+    BLOCK_CLUSTER_PER), a WIDE_CLUSTER_KINDS ``kind`` past MAX_CLUSTER_STATES
+    WIDE_CLUSTER_THREADS threads in each block of a C-block cluster
+    (``per`` of WIDE_CLUSTER_PER), and every other case (``kind`` None
+    included) the rows-in-memory case, MEM_THREADS threads walking ``per``
+    tiles of MEM_THREADS states. Raises ``ValueError`` past
+    MAX_KERNEL_STATES."""
     if m_pad <= MAX_GROUP_STATES:
         return KERNEL_THREADS, max(-(-m_pad // KERNEL_THREADS), 1)
     c = cluster_blocks(m_pad, kind)
     if block_cluster_case(m_pad, kind):
         return BLOCK_THREADS, -(-m_pad // (BLOCK_THREADS * c))
+    if wide_cluster_case(m_pad, kind):
+        return WIDE_CLUSTER_THREADS, -(-m_pad // (WIDE_CLUSTER_THREADS * c))
     if c > 1:
         return KERNEL_THREADS, -(-m_pad // (KERNEL_THREADS * c))
     if block_case(m_pad, kind):
@@ -983,7 +1030,8 @@ def bf16_stride(per: int) -> int:
 
 def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
                        bf16: bool = False, backward: bool = False, pair: bool = False,
-                       cluster: bool = False, block: bool = False) -> int:
+                       cluster: bool = False, block: bool = False,
+                       threads: int = KERNEL_THREADS) -> int:
     """Dynamic shared memory of a blocked kernel's block
     (``csrc/p7_blocked.cuh::smem_floats``): ``n_rows`` staged rows, then
     per group two shift rows, four emission rows (f32, or with ``bf16`` the
@@ -1003,12 +1051,14 @@ def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
     rows, the reduction scratch and the token chunk; with ``cluster`` too, a
     block of a cluster of wide blocks (``block_cluster_smem_floats``): the
     wide block's and the cluster's area at BLOCK_THREADS (two rows and
-    BLOCK_CLUSTER_FLOATS)."""
+    BLOCK_CLUSTER_FLOATS). ``threads`` is a group's (KERNEL_THREADS; a
+    block of a C-block cluster of WIDE_CLUSTER_THREADS-thread blocks with
+    ``cluster``: its rows, its group and its area at that width,
+    :func:`cluster_floats`)."""
     if block:
         row = BLOCK_THREADS * blocked_stride(per)
         area = 2 * row + BLOCK_CLUSTER_FLOATS if cluster else 0
         return 4 * ((n_rows + 4) * row + 2 * (BLOCK_THREADS // 32) + LAZY_CHUNK // 4 + area)
-    threads = KERNEL_THREADS
     row = threads * blocked_stride(per)
     hrow = threads * bf16_stride(per) // 2
     if backward:
@@ -1020,7 +1070,7 @@ def blocked_smem_bytes(per: int, n_rows: int, groups: int, save: bool = False,
     if pair:
         area = 2 * row + PAIR_FLOATS + (PAIR_X2_FLOATS if backward else 0)
     elif cluster:
-        area = 2 * row + CLUSTER_FLOATS + (CLUSTER_X2_FLOATS if backward else 0)
+        area = 2 * row + cluster_floats(threads, backward)
     return 4 * (n_rows * row + groups * group + area)
 
 
@@ -1045,7 +1095,8 @@ def block_state(j: int, per: int) -> tuple[int, int]:
 
 
 def block_rows(trans: torch.Tensor, chain: torch.Tensor, passes: int, per: int,
-               blocks: int = 1) -> torch.Tensor:
+               blocks: int = 1, threads: int = BLOCK_THREADS,
+               fill: float = NEG_INF) -> torch.Tensor:
     """The wide block's step-invariant rows in thread-major order, ``[6 +
     passes, per, BLOCK_THREADS]`` f32 on the pack's device: entry ``(q, k,
     t)`` is row q (tmm tmi tmd tim tii tdm, then chain pass q - 6) at state
@@ -1054,13 +1105,16 @@ def block_rows(trans: torch.Tensor, chain: torch.Tensor, passes: int, per: int,
     reads from it the rows its shared memory does not hold). For a cluster
     of ``blocks`` wide blocks, ``[blocks * (6 + passes), per,
     BLOCK_THREADS]``: block r's slice, rows ``r * (6 + passes)`` on, is the
-    same layout of its states r * BLOCK_THREADS * per + t * per + k."""
+    same layout of its states r * BLOCK_THREADS * per + t * per + k. With
+    ``threads`` WIDE_CLUSTER_THREADS and ``fill`` 0, the same of a C-block
+    cluster of 256-thread blocks' probability-space rows (the row-saving
+    Forward's window products, the backward pass's suffix chain:
+    ``csrc/p7_blocked.cuh::TransRows`` and the chain's fallback)."""
     m_pad = trans.shape[1]
     rows = torch.cat([trans[:TRANS_ROWS], chain[:passes]])
-    rows = torch.nn.functional.pad(rows, (0, blocks * BLOCK_THREADS * per - m_pad),
-                                   value=NEG_INF)
-    rows = rows.view(-1, blocks, BLOCK_THREADS, per).permute(1, 0, 3, 2)
-    return rows.reshape(-1, per, BLOCK_THREADS).contiguous()
+    rows = torch.nn.functional.pad(rows, (0, blocks * threads * per - m_pad), value=fill)
+    rows = rows.view(-1, blocks, threads, per).permute(1, 0, 3, 2)
+    return rows.reshape(-1, per, threads).contiguous()
 
 
 def block_cluster_state(j: int, per: int, c: int) -> tuple[int, int, int]:
@@ -1069,9 +1123,21 @@ def block_cluster_state(j: int, per: int, c: int) -> tuple[int, int, int]:
     * per .. (r + 1) * BLOCK_THREADS * per - 1, thread t of it the ``per``
     from r * BLOCK_THREADS * per + t * per on (the wide block's layout of
     its slice); raises past the cluster's c * BLOCK_THREADS * per states."""
-    if not 0 <= j < c * BLOCK_THREADS * per:
-        raise ValueError(f"state {j} outside a cluster of {c} wide blocks of per {per}")
-    block, rest = divmod(j, BLOCK_THREADS * per)
+    return _slice_state(j, per, c, BLOCK_THREADS, f"a cluster of {c} wide blocks")
+
+
+def wide_cluster_state(j: int, per: int, c: int) -> tuple[int, int, int]:
+    """The same for a C-block cluster of WIDE_CLUSTER_THREADS-thread
+    blocks of ``per`` states a thread."""
+    return _slice_state(j, per, c, WIDE_CLUSTER_THREADS,
+                        f"a {c}-block cluster of 256-thread blocks")
+
+
+def _slice_state(j: int, per: int, c: int, threads: int, what: str) -> tuple[int, int, int]:
+    n = threads * per
+    if not 0 <= j < c * n:
+        raise ValueError(f"state {j} outside {what} of per {per}")
+    block, rest = divmod(j, n)
     return (block, *divmod(rest, per))
 
 
@@ -1102,7 +1168,11 @@ class LaunchPlan(NamedTuple):
     cluster, a grid of whole clusters), BLOCK_CLUSTER (0) for the wide
     block, else 1; a cluster of wide blocks is ``threads`` BLOCK_THREADS
     and ``cluster`` C of 2..MAX_BLOCK_CLUSTER (``block_cluster``), one group
-    a block, its ``n_trans`` and ``n_chain`` as the wide block's. ``per`` is
+    a block, its ``n_trans`` and ``n_chain`` as the wide block's; a C-block
+    cluster of WIDE_CLUSTER_THREADS-thread blocks is ``threads``
+    WIDE_CLUSTER_THREADS and ``cluster`` C (``wide_cluster``), one group a
+    block, its ``n_trans`` (all six before any chain row) and ``n_chain``
+    the rows that fit beside its group and the cluster's area. ``per`` is
     the states a thread of the case (tiles of MEM_THREADS states in the
     rows-in-memory case)."""
 
@@ -1135,6 +1205,11 @@ class LaunchPlan(NamedTuple):
     def pair(self) -> bool:
         """The cluster pair's plan."""
         return self.threads == KERNEL_THREADS and self.cluster == CLUSTER
+
+    @property
+    def wide_cluster(self) -> bool:
+        """A C-block cluster of WIDE_CLUSTER_THREADS-thread blocks' plan."""
+        return self.threads == WIDE_CLUSTER_THREADS and self.cluster >= CLUSTER
 
 
 def _wide_staging(per: int, passes: int, cluster: bool) -> tuple[int, int, int]:
@@ -1184,9 +1259,17 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     staging what the wide block of its ``per`` stages beside its group and
     the cluster's area, on a persistent grid of ``clusters`` (None: what an
     SM holds, one block, times the SMs over C), at most the batch; a given
-    ``groups`` must be 1. A cluster the card holds none of (``clusters`` 0;
-    not the pair, which must fit) plans the rows-in-memory case instead, as
-    every other case past MAX_CLUSTER_STATES does: one sequence a block, as
+    ``groups`` must be 1. The WIDE_CLUSTER_KINDS past MAX_CLUSTER_STATES run
+    C groups of WIDE_CLUSTER_THREADS threads a sequence, one in each block of
+    a C-block cluster (:func:`cluster_blocks`), each block staging the
+    transition rows and then chain rows, as many as fit beside its group and
+    the cluster's area (the rest read from their thread-major copy,
+    :func:`case_rows`), on a persistent
+    grid of ``clusters`` (None: what an SM holds times the SMs over C), at
+    most the batch; a given ``groups`` must be 1. A cluster the card holds
+    none of (``clusters`` 0; not the pair, which must fit) plans the
+    rows-in-memory case instead, as every other case past
+    MAX_CLUSTER_STATES does: one sequence a block, as
     many blocks as registers and THREADS_PER_SM let an SM hold. Raises
     ``ValueError`` past M_pad 65536."""
     if kind not in BLOCKED_KINDS:
@@ -1227,6 +1310,25 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     save = kind == "save"
     bf16 = kind == "filter"
     backward = kind == "backward"
+    if c > 1 and kt == WIDE_CLUSTER_THREADS:
+        if groups not in (None, 1):
+            raise ValueError(f"{groups} groups a block: the {kind} kernel's {c}-block cluster of "
+                             f"{kt}-thread blocks takes 1")
+
+        def wide_smem(rows):
+            return blocked_smem_bytes(per, rows, 1, save, backward=backward, cluster=True,
+                                      threads=kt)
+
+        fit = max(0, (SMEM_PER_SM - wide_smem(0)) // (4 * kt * blocked_stride(per)))
+        n_trans = min(TRANS_ROWS, fit)
+        n_chain = min(passes, fit - n_trans)
+        nbytes = wide_smem(n_trans + n_chain)
+        if clusters is None:
+            per_sm = max(1, min(REGS_PER_SM // (warp_regs * kt // 32), SMEM_PER_SM // nbytes,
+                                THREADS_PER_SM // kt))
+            clusters = max(1, sms * per_sm // c)
+        units = max(1, min(b_pad, clusters))
+        return LaunchPlan(1, c * units, n_chain, nbytes, 1, kt, n_trans, c, per)
 
     def smem(n_chain, g):
         return blocked_smem_bytes(per, TRANS_ROWS + n_chain + extra, g, save, bf16, backward,
@@ -1275,6 +1377,7 @@ def kernel_regs(kind: str, per: int, threads: int = KERNEL_THREADS, cluster: int
     (``cluster`` 2: the cluster pair's case of ``per``; C of 3..16: the
     C-block cluster's; BLOCK_CLUSTER: the wide block's; at ``threads``
     BLOCK_THREADS, C of 2..MAX_BLOCK_CLUSTER: the cluster of wide
+    blocks'; at WIDE_CLUSTER_THREADS: the cluster of 256-thread
     blocks')."""
     lib = _kernel_library()
     out = ctypes.c_int(0)
@@ -1300,7 +1403,8 @@ def max_clusters(kind: str, per: int, smem: int, index: int, cluster: int = CLUS
                  threads: int = KERNEL_THREADS) -> int:
     """The most clusters of ``cluster`` blocks (2: the cluster pair's
     ``kind`` case of ``per``; C of 3..16: the C-block cluster's; at
-    ``threads`` BLOCK_THREADS: the cluster of wide blocks') card ``index``
+    ``threads`` BLOCK_THREADS: the cluster of wide blocks'; at
+    WIDE_CLUSTER_THREADS: the cluster of 256-thread blocks') card ``index``
     runs at once with ``smem`` bytes of dynamic shared memory a block
     (``cudaOccupancyMaxActiveClusters``); 0 for a cluster the card cannot
     hold, while the pair must fit."""
@@ -1312,10 +1416,10 @@ def max_clusters(kind: str, per: int, smem: int, index: int, cluster: int = CLUS
     elif kind == "log":
         rc = lib.p7_forward_log_clusters(index, threads, per, cluster, smem, ctypes.byref(out))
     elif kind in ("forward", "save"):
-        rc = lib.p7_forward_clusters(index, per, cluster, int(kind == "save"), smem,
+        rc = lib.p7_forward_clusters(index, threads, per, cluster, int(kind == "save"), smem,
                                      ctypes.byref(out))
     elif kind == "backward":
-        rc = lib.p7_backward_clusters(index, per, cluster, smem, ctypes.byref(out))
+        rc = lib.p7_backward_clusters(index, threads, per, cluster, smem, ctypes.byref(out))
     else:
         rc = lib.p7_filter_clusters(index, per, cluster, smem, ctypes.byref(out))
     if rc != 0 or out.value < (1 if (cluster, threads) == (CLUSTER, KERNEL_THREADS) else 0):
@@ -1372,13 +1476,16 @@ def mem_scratch(plan: LaunchPlan, m_pad: int, device) -> torch.Tensor | None:
 
 
 def case_rows(plan: LaunchPlan, trans, chain, passes: int, device) -> torch.Tensor | None:
-    """What a Viterbi-template case reads from global memory beside its
-    operands, passed as the launchers' ``scratch``: the rows-in-memory
-    case's scratch rows (:func:`mem_scratch`), the wide block's thread-major
-    rows (:func:`block_rows`; a cluster of wide blocks' a slice a block),
-    else None."""
+    """What a blocked case reads from global memory beside its operands,
+    passed as the launchers' ``scratch``: the rows-in-memory case's scratch
+    rows (:func:`mem_scratch`), the wide block's thread-major rows
+    (:func:`block_rows`; a cluster of wide blocks' a slice a block), a
+    C-block cluster of 256-thread blocks' (a slice a block, fill 0: the
+    probability-space kinds' rows), else None."""
     if plan.block or plan.block_cluster:
         return block_rows(trans, chain, passes, plan.per, max(plan.cluster, 1))
+    if plan.wide_cluster:
+        return block_rows(trans, chain, passes, plan.per, plan.cluster, WIDE_CLUSTER_THREADS, 0.0)
     return mem_scratch(plan, trans.shape[1], device)
 
 
@@ -1386,9 +1493,12 @@ def launched(wrapper, plan: LaunchPlan) -> None:
     """Count a launch of ``wrapper``'s kernel on ``plan``: apart for the
     wide case (the cluster pair), the rows-in-memory case, the wide block
     and, by its blocks a cluster, the cluster pair and the C-block clusters
-    (``cluster_launches``) and the clusters of wide blocks
-    (``block_cluster_launches``)."""
-    count_launch(wrapper, plan.pair, plan.mem, plan.cluster, plan.block, plan.block_cluster)
+    of 128-thread blocks (``cluster_launches``) and the clusters of wider
+    blocks (``block_cluster_launches``: the eager and log-space kinds'
+    clusters of wide blocks, the WIDE_CLUSTER_KINDS' clusters of
+    WIDE_CLUSTER_THREADS-thread blocks; no kind runs both)."""
+    count_launch(wrapper, plan.pair, plan.mem, plan.cluster, plan.block,
+                 plan.block_cluster or plan.wide_cluster)
 
 
 def _ptr(t):
@@ -1508,7 +1618,7 @@ def forward_launch(wrapper, modds, iodds, trans, chain, tokens, lengths, tr_rows
     saved_ptrs = [x.data_ptr() for x in saved] if save else [None, None]
     if b_pad:
         plan = device_plan("save" if save else "forward", m_pad, window, b_pad, device, groups)
-        scratch = mem_scratch(plan, m_pad, device)
+        scratch = case_rows(plan, trans, chain, window, device)
         rc = _kernel_library().p7_forward_launch(
             device.index, plan.threads, plan.per, plan.cluster, modds.data_ptr(),
             iodds.data_ptr(),

@@ -171,8 +171,9 @@ def backward_coverage_scan_cuda(modds, iodds, trans, schain, tokens, lengths, tr
                                 consts, total, fm, ls, groups: int | None = None):
     """Launch ``csrc/p7_backward_kernel.cu`` (the backward case of the
     blocked p7 layout: groups a block, the cluster pair past 2432 states, a
-    C-block cluster past 4864, the rows-in-memory case past 38,912 or where
-    the card holds no such cluster); same arguments and result as
+    C-block cluster past 4864, a C-block cluster of 256-thread blocks past
+    38,912, the rows-in-memory case where the card holds no such cluster);
+    same arguments and result as
     :func:`backward_coverage_scan`; ``groups`` sequences a block, None for
     ``p7_cuda.plan_launch``'s pick. Raises on what the kernel does not take
     and on a refused launch; never falls back."""
@@ -202,7 +203,7 @@ def backward_coverage_scan_cuda(modds, iodds, trans, schain, tokens, lengths, tr
     cov = torch.empty((b_pad, l_pad), dtype=torch.float32, device=device)
     if b_pad:
         plan = p7_cuda.device_plan("backward", m_pad, window, b_pad, device, groups)
-        scratch = p7_cuda.mem_scratch(plan, m_pad, device)
+        scratch = p7_cuda.case_rows(plan, trans, schain, window, device)
         rc = p7_cuda._kernel_library().p7_backward_launch(
             device.index, plan.threads, plan.per, plan.cluster, modds.data_ptr(),
             iodds.data_ptr(), trans.data_ptr(), schain.data_ptr(), m_pad, window, plan.n_chain,

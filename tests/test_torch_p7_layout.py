@@ -45,6 +45,14 @@ checked on the CPU: the kernels themselves run only on the card.
 * The backward coverage pass's suffix shifts (``shift_up_small``,
   ``shift_up_big``) equal ``posterior_cuda._up``, and its group layout
   (``backward_group_floats``) is what ``blocked_smem_bytes`` counts.
+* The C-block clusters' release protocol (``cluster_shift_big`` and its
+  mirror, every C of 3..16, every window, both directions; the 256-thread
+  clusters too): each larger shift's releases come from exactly the blocks
+  its sender stores into and complete the sender's halo mbarrier of that
+  use; a per-row mbarrier would mix uses; the pair's two blocks cannot.
+* The C-block cluster of 256-thread blocks (the row-saving Forward and the
+  backward pass past 38,912 states: C = 9..14, per 17..19): its cases, plan,
+  state map, shifts both ways, thread-major rows, shared memory and source.
 """
 
 import itertools
@@ -390,26 +398,27 @@ def _mirror_targets(s: int, n: int, b: int, c: int):
 
 
 def _kernel_cluster_shift_up(x: torch.Tensor, s: int, per: int, fill: float,
-                             c: int) -> torch.Tensor:
-    """csrc/p7_blocked.cuh::cluster_shift_up on a [B, c * 128 * per] row,
-    block r holding the slice r * 128 * per ..: for s < per (by 1, 2, 4, 8,
-    16) slots k < per - s move within the thread and the last s come from
-    thread t + 1's first s through the block's shift buffer, in block r's
-    thread 127 from the halo block r + 1's thread 0 stores its first s
-    registers into (fill in block c - 1). Otherwise, with q = s div (128 *
-    per) and s' its rest, block b stores its states l >= s' into block b -
-    q's row at l - s' (for q = 0 they stay in its own shift buffer, read at
-    l + s') and the others into block b - q - 1's row at l + 128 * per -
-    s'; each receiving block waits for the bytes of the blocks that exist
-    above it (held equal to what they store) and reads its row (or buffer),
-    fill where no block sent. Rows start as NaN."""
-    n = THREADS * per
-    width = THREADS * p7_cuda.blocked_stride(per)
+                             c: int, threads: int = THREADS) -> torch.Tensor:
+    """csrc/p7_blocked.cuh::cluster_shift_up on a [B, c * threads * per]
+    row (threads 128; the posterior pair's clusters of 256-thread blocks
+    past 38,912 states), block r holding the slice r * threads * per ..: for
+    s < per (by 1, 2, 4, 8, 16) slots k < per - s move within the thread and
+    the last s come from thread t + 1's first s through the block's shift
+    buffer, in block r's last thread from the halo block r + 1's thread 0
+    stores its first s registers into (fill in block c - 1). Otherwise, with
+    q = s div (threads * per) and s' its rest, block b stores its states l
+    >= s' into block b - q's row at l - s' (for q = 0 they stay in its own
+    shift buffer, read at l + s') and the others into block b - q - 1's row
+    at l + threads * per - s'; each receiving block waits for the bytes of
+    the blocks that exist above it (held equal to what they store) and reads
+    its row (or buffer), fill where no block sent. Rows start as NaN."""
+    n = threads * per
+    width = threads * p7_cuda.blocked_stride(per)
     v = [x[:, r * n:(r + 1) * n] for r in range(c)]
     out = []
     if _small(s, per):
         for r in range(c):
-            b = _blocked(v[r], per, THREADS)
+            b = _blocked(v[r], per, threads)
             o = torch.full_like(b, float("nan"))
             o[:, :, : per - s] = b[:, :, s:]
             o[:, :-1, per - s:] = b[:, 1:, :s]
@@ -445,51 +454,121 @@ def _kernel_cluster_shift_up(x: torch.Tensor, s: int, per: int, fill: float,
     return torch.cat(out, dim=1)
 
 
-def _check_mirror_releases(per: int, c: int, window: int) -> None:
-    """The rows' release protocol of cluster_shift_up_big over a chain of
-    ``window`` passes: a sender waits, at each larger shift i >= 2, for one
-    release from each block it stores into, and exactly those blocks send it
-    one (cluster_release_up, after reading their row at use i - 2), in the
-    slot of its role (a: the receiver q blocks below, b: q + 1)."""
-    n = THREADS * per
+def _larger_shifts(per: int, window: int) -> tuple[list[int], int]:
+    """The larger shifts of a chain of ``window`` passes at ``per`` states
+    a thread (the passes past the small ones), and the small passes."""
     small = sum(1 for p in range(window) if _small(1 << p, per))
-    big = [1 << p for p in range(small, window)]
+    return [1 << p for p in range(small, window)], small
+
+
+def _receivers(s: int, n: int, b: int, c: int, mirror: bool) -> list[tuple[int, int]]:
+    """[(role, receiver)] of block b's stores at a larger shift by s (n
+    states a block): role 0 the block q away (q >= 1), role 1 the block q +
+    1 away (s' > 0), above it (cluster_shift_big) or, for the mirror,
+    below it (cluster_shift_up_big), where they exist."""
+    q, rest = divmod(s, n)
+    way = -1 if mirror else 1
+    out = []
+    if q >= 1 and 0 <= b + way * q < c:
+        out.append((0, b + way * q))
+    if rest > 0 and 0 <= b + way * (q + 1) < c:
+        out.append((1, b + way * (q + 1)))
+    return out
+
+
+def _releases(n: int, c: int, big: list[int], mirror: bool) -> dict:
+    """{use i: {sender: [(role, releaser)]}}: the releases of the step's
+    larger shifts ``big`` as cluster_release (cluster_release_up) sends
+    them: block r, once the barrier of its larger shift i - 1 >= 1 has
+    passed, hands use i's shift (s_{i-1} << 1) to the blocks that store into
+    its row there (r - q, r - q - 1; the mirror's r + q, r + q + 1), thread
+    0 for role 0 and thread 1 for role 1."""
+    sent = {}
+    for i in range(1, len(big)):
+        if not i + 1 < len(big):
+            continue
+        s = big[i] << 1  # use i + 1's shift
+        assert s == big[i + 1]
+        q, rest = divmod(s, n)
+        way = 1 if mirror else -1
+        for r in range(c):
+            for role, to in ((0, r + way * q if q >= 1 else -1),
+                             (1, r + way * (q + 1) if rest > 0 else -1)):
+                if 0 <= to < c:
+                    sent.setdefault(i + 1, {}).setdefault(to, []).append((role, r))
+    return sent
+
+
+def _check_releases(per: int, c: int, window: int, mirror: bool,
+                    threads: int = THREADS) -> dict:
+    """The release protocol of the C-block clusters' larger shifts over a
+    chain of ``window`` passes: at each larger shift i >= 2 a sender waits
+    for one release from each block it stores into, and exactly those blocks
+    send it one (_releases), in the slot of its role; no release is sent
+    for uses 0 and 1. Each use's releases complete an mbarrier of that use
+    (the sender's halo mbarrier 2 + p of its pass p: distinct ids, past
+    every small shift's halo, within the 18 halos). Returns the releases."""
+    n = threads * per
+    big, small = _larger_shifts(per, window)
+    sent = _releases(n, c, big, mirror)
+    for i, s in enumerate(big):
+        for b in range(c):
+            want = sorted(_receivers(s, n, b, c, mirror))
+            got = sorted(sent.get(i, {}).get(b, []))
+            assert got == (want if i >= 2 else []), (i, b, s)
+    ids = [2 + small + i for i in range(len(big))]
+    assert len(set(ids)) == len(ids) and all(2 + small <= x < 18 for x in ids)
+    return sent
+
+
+def _row_mbarrier_mixes(sent: dict, c: int) -> bool:
+    """Whether a per-row release mbarrier (one for uses i, i + 2, ... of
+    a row) would mix uses: some block releases a sender's use i + 2 but
+    not its use i, so its release may land in use i's phase."""
+    for i in sent:
+        for b in range(c):
+            now = {r for _, r in sent[i].get(b, [])}
+            later = {r for _, r in sent.get(i + 2, {}).get(b, [])}
+            if later - now:
+                return True
+    return False
+
+
+def _check_mirror_releases(per: int, c: int, window: int, threads: int = THREADS) -> None:
+    """The rows' release protocol of cluster_shift_up_big over a chain of
+    ``window`` passes (_check_releases of the mirror), each receiving
+    block's stores as _mirror_targets counts them."""
+    n = threads * per
+    sent = _check_releases(per, c, window, True, threads)
+    big, _ = _larger_shifts(per, window)
     for i in range(2, len(big)):
-        s, s_prev = big[i], big[i - 2]
-        assert s == 4 * s_prev  # cluster_release_up is handed s << 2
-        got = {}
-        for r in range(c):  # receivers release after their use i - 2
-            q, rest = divmod(s_prev << 2, n)
-            for role, to in ((0, r + q if q >= 1 else c), (1, r + q + 1 if rest > 0 else c)):
-                if to < c:
-                    got.setdefault(to, []).append((role, r))
         for b in range(c):
             want = sorted((0 if at == 0 else 1, dst) for dst, _, _, at in
-                          _mirror_targets(s, n, b, c))
-            assert sorted(got.get(b, [])) == want, (b, i, s)
+                          _mirror_targets(big[i], n, b, c))
+            assert sorted(sent[i].get(b, []) if i in sent else []) == want, (b, i)
 
 
-def _check_shifts_up(per: int, cluster: int) -> None:
-    """The mirror shifts of ``cluster`` blocks (2: the pair) against the
-    plain up-shift for every s = 2^p of the row's chain (and one past it),
-    a shift of a whole block or more (q >= 1) among them, and the release
-    protocol of every window."""
+def _check_shifts_up(per: int, cluster: int, threads: int = THREADS) -> None:
+    """The mirror shifts of ``cluster`` blocks (2: the pair) of ``threads``
+    threads against the plain up-shift for every s = 2^p of the row's chain
+    (and one past it), a shift of a whole block or more (q >= 1) among
+    them, and the release protocol of every window."""
     rng = np.random.default_rng(300 + 17 * cluster + per)
-    m = cluster * THREADS * per
+    m = cluster * threads * per
     x = torch.from_numpy(rng.normal(size=(2, m)).astype(np.float32))
     whole = 0
     for p in range(p7_cuda.chain_passes(m) + 1):
         s = 1 << p
-        whole += s >= THREADS * per
+        whole += s >= threads * per
         if cluster == 2:
             got = _kernel_pair_shift_up(x, s, per, 0.0)
         else:
-            got = _kernel_cluster_shift_up(x, s, per, 0.0, cluster)
+            got = _kernel_cluster_shift_up(x, s, per, 0.0, cluster, threads)
         assert torch.equal(got, posterior_cuda._up(x, s)), s
     assert whole >= 1
-    if cluster > 2:
-        for window in range(1, p7_cuda.chain_passes(m) + 1):
-            _check_mirror_releases(per, cluster, window)
+    if cluster > 2:  # the windows of the kernels' chain (at most 16 passes)
+        for window in range(1, p7_cuda.chain_passes(min(m, p7_cuda.MAX_KERNEL_STATES)) + 1):
+            _check_mirror_releases(per, cluster, window, threads)
 
 
 @pytest.mark.parametrize("per", p7_cuda.PAIR_PER)
@@ -509,6 +588,73 @@ def test_cluster_mirror_shifts_equal_the_plain_up_shift(c, per):
     for every pass s = 2^p of c * 128 * per states, and the rows' releases
     of every window."""
     _check_shifts_up(per, c)
+
+
+@pytest.mark.parametrize("c,mirror", [(c, m) for c in range(3, p7_cuda.MAX_CLUSTER + 1)
+                                      for m in (False, True)])
+def test_cluster_releases_land_on_their_use(c, mirror):
+    """The release protocol of the C-block clusters of 128-thread blocks
+    (cluster_shift_big, and the backward pass's mirror cluster_shift_up_big)
+    at every per of CLUSTER_PER and every window of its chain: each larger
+    shift's releases, sent once the barrier of the shift before has passed,
+    come from exactly the blocks the sender stores into and complete the
+    sender's halo mbarrier of that use (_check_releases). A per-row
+    mbarrier would mix uses: at every per and the full chain some block
+    releases a sender's use i + 2 but never its use i (q grows with s, so
+    the blocks that store into a row change), so nothing orders its release
+    after the sender's wait on use i and it may land in that use's phase;
+    the model finds such a block at every C of 3..16, which from C = 4 on
+    may be one that depends on no store of the sender's in the step."""
+    mixed = {}
+    for per in p7_cuda.CLUSTER_PER:
+        full = p7_cuda.chain_passes(c * THREADS * per)
+        for window in range(1, full + 1):
+            sent = _check_releases(per, c, window, mirror)
+            if window == full:
+                mixed[per] = _row_mbarrier_mixes(sent, c)
+    assert all(mixed.values())
+
+
+def test_cluster_release_source_uses_an_mbarrier_a_use():
+    """csrc/p7_blocked.cuh: cluster_shift_big and cluster_shift_up_big wait
+    on the halo mbarrier of their own id (2 + p) before a larger shift i >=
+    2 and send use i + 1's releases (a shift by 2s, id + 1) after use i's
+    barrier, into the receivers' halo slots of that id; the C-block cluster
+    keeps no release mbarrier of its rows."""
+    blocked = (p7_cuda._build.CSRC_DIR / "p7_blocked.cuh").read_text()
+    assert blocked.count("if (i >= 2) cluster_release_wait(int(to_a) + int(to_b), id, t, c);") == 2
+    assert "if (i >= 1 && i + 1 < n) cluster_release<PER, KT>(s << 1, id + 1, t, c);" in blocked
+    assert "if (i >= 1 && i + 1 < n) cluster_release_up<PER, KT>(s << 1, id + 1, t, c);" in blocked
+    assert blocked.count("st_async(peer_addr(c.halo + id * kHaloSlots + t, to), 0.0f, "
+                         "peer_addr(c.bars + id, to));") == 2
+    assert "mbar_wait(fbar, (c.hphase >> id) & 1u);" in blocked
+    assert "c.fbar" not in blocked and "c.fslots" not in blocked and "c.fphase" not in blocked
+    assert "cluster_shift_big<PER, KT>(v, out, s, fill, buf, t, bar, c, i, n, id);" in blocked
+
+
+@pytest.mark.parametrize("per", p7_cuda.PAIR_PER)
+def test_pair_releases_cannot_mix(per):
+    """The cluster pair keeps each row's releases on the row's own mbarrier
+    (pair_shift_big, pair_shift_up_big): with two blocks, whatever s is,
+    block 0 is the one sender and block 1 the one reader of every larger
+    shift (the mirror: the other way round), so the release of a row's use
+    i + 2 always comes from the block that waited on its use i. The C-block
+    clusters' release model at C = 2 says the same for every window: every
+    release goes from the reader to the sender, and no use mixes."""
+    n = THREADS * per
+    for window in range(1, p7_cuda.chain_passes(2 * n) + 1):
+        big, _ = _larger_shifts(per, window)
+        for mirror in (False, True):
+            sender, reader = (1, 0) if mirror else (0, 1)
+            sent = _check_releases(per, 2, window, mirror)
+            for i, by_sender in sent.items():
+                assert set(by_sender) <= {sender}
+                assert {r for _, r in by_sender.get(sender, [])} <= {reader}
+            assert not _row_mbarrier_mixes(sent, 2)
+    blocked = (p7_cuda._build.CSRC_DIR / "p7_blocked.cuh").read_text()
+    assert "if (pr.rank == 1 && i + 2 < n) {" in blocked  # block 1 releases block 0's stores
+    assert "if (pr.rank == 0 && i + 2 < n) {" in blocked  # the mirror's block 0 releases block 1's
+    assert "the two\n// blocks never change roles" in blocked
 
 
 def _hidx(j: int, per: int) -> int:
@@ -688,7 +834,7 @@ def test_pair_plan_fits_the_block(kind):
 
 def test_pair_cases_match_kernel_source():
     """The pair's cases the C entries compile are PAIR_PER (with_pair_case,
-    csrc/p7_blocked.cuh); no source instantiates a 256-thread case any more
+    csrc/p7_blocked.cuh); no source instantiates a 256-thread group case any more
     (with_group_case: 128 threads a group); every source launches the pair
     as clusters of 2 through the clusters' launch (p7_blocked.cuh, c = 2),
     the Forward with its row-saving group before the exchange area, the
@@ -850,10 +996,13 @@ def test_shared_memory_matches_the_header_layout():
 
 @pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
 def test_rows_in_memory_plan(kind):
-    """Past 38,912 every kind but the eager and log-space ones plans the
-    rows-in-memory case, and those two plan it past MAX_BLOCK_STATES where
-    the card holds no cluster of their wide blocks (``clusters`` 0; else
-    they plan the cluster of wide blocks: test_block_cluster_plan): one
+    """Past 38,912 every kind but the eager and log-space ones, the
+    row-saving Forward and the backward pass plans the rows-in-memory case;
+    those two plan it past 38,912 where the card holds no cluster of their
+    256-thread blocks (``clusters`` 0; else test_wide_cluster_plan), and the
+    eager and log-space kinds past MAX_BLOCK_STATES where the card holds no
+    cluster of their wide blocks (``clusters`` 0; else they plan the cluster
+    of wide blocks: test_block_cluster_plan): one
     group of 1024 threads a block, nothing staged, no dynamic shared memory,
     a persistent grid of at most two blocks an SM (fewer when the registers
     do not allow two) and no more blocks than sequences; a forced G > 1
@@ -866,13 +1015,15 @@ def test_rows_in_memory_plan(kind):
     assert p7_cuda.BLOCK_KINDS == tuple(k for k in p7_cuda.BLOCKED_KINDS
                                         if k not in p7_cuda.CLUSTER_KINDS)
     block = kind in p7_cuda.BLOCK_KINDS
+    wide = kind in p7_cuda.WIDE_CLUSTER_KINDS
     widths = (p7_cuda.MAX_BLOCK_STATES + 8, 30184, 65536) if block else (38920, 65536)
-    held = 0 if block else None  # the eager and log-space kinds: no cluster held
+    held = 0 if block or wide else None  # no cluster of wider blocks held
     for m_pad in widths:
         full = p7_cuda.chain_passes(m_pad)
         assert p7_cuda.kernel_case(m_pad) == (p7_cuda.MEM_THREADS, -(-m_pad // 1024))
         assert p7_cuda.kernel_case(m_pad, kind) == (
             (p7_cuda.BLOCK_THREADS, -(-m_pad // (1024 * -(-m_pad // 8192)))) if block
+            else (256, -(-m_pad // (256 * -(-m_pad // 4864)))) if wide
             else (p7_cuda.MEM_THREADS, -(-m_pad // 1024)))
         for regs, b_pad in itertools.product((32, 40, 64), (1, 8, 64, 300, 2048)):
             plan = p7_cuda.plan_launch(kind, m_pad, full, b_pad, regs, SMS, clusters=held)
@@ -1159,7 +1310,8 @@ def test_block_cluster_plan(m_pad, c, per):
     no more clusters than sequences), the transitions staged first, then
     chain rows, as many as fit the 232,448 bytes beside the wide block's
     group and the cluster's area (blocked_smem_bytes(block=True,
-    cluster=True)); every other kind plans as before."""
+    cluster=True)); every other kind plans as before (the row-saving
+    Forward and the backward pass past 38,912: test_wide_cluster_plan)."""
     full = p7_cuda.chain_passes(m_pad)
     row = 4 * BLOCK * p7_cuda.blocked_stride(per)
     base = p7_cuda.blocked_smem_bytes(per, 0, 1, block=True, cluster=True)
@@ -1193,7 +1345,9 @@ def test_block_cluster_plan(m_pad, c, per):
         p7_cuda.plan_launch("eager", m_pad, full, 64, 64, SMS).n_chain)
     for kind in p7_cuda.CLUSTER_KINDS:
         plan = p7_cuda.plan_launch(kind, m_pad, full, 64, 64, SMS)
-        assert not plan.block_cluster and plan.threads in (THREADS, p7_cuda.MEM_THREADS)
+        assert not plan.block_cluster and plan.threads in (THREADS, p7_cuda.MEM_THREADS) or (
+            kind in p7_cuda.WIDE_CLUSTER_KINDS and m_pad > p7_cuda.MAX_CLUSTER_STATES
+            and plan.wide_cluster)
 
 
 @pytest.mark.parametrize("c,per", BLOCK_CLUSTER_CASES)
@@ -1349,3 +1503,233 @@ def test_block_cluster_cases_match_kernel_source():
         assert f"viterbi_block_cluster_kernel<PER, kBlockThreads, {lse}>" in source, name
         assert "if (threads == kBlockThreads && cluster >= 2) {" in source, name
         assert "c, grid, smem, stream, kBlockThreads);" in source, name
+
+
+# -- the C-block cluster of 256-thread blocks --------------------------------
+
+WIDE = p7_cuda.WIDE_CLUSTER_THREADS
+# (M_pad, C, per): the first width past 38,912, the widest and narrowest of
+# C = 9 and 10, the all-24 join twice over (LENG 60362) and the chain's widest
+WIDE_CLUSTER_WIDTHS = ((38920, 9, 17), (43776, 9, 19), (43784, 10, 18), (60368, 13, 19),
+                       (65536, 14, 19))
+# every (C, per) the plan takes past MAX_CLUSTER_STATES
+WIDE_CLUSTER_CASES = sorted({(p7_cuda.cluster_blocks(m, "save"), p7_cuda.kernel_case(m, "save")[1])
+                             for m in range(p7_cuda.MAX_CLUSTER_STATES + 8,
+                                            p7_cuda.MAX_KERNEL_STATES + 1, 8)})
+
+
+def test_wide_cluster_cases_cover_every_width():
+    """Past 38,912 states up to 65536 the row-saving Forward and the
+    backward pass take C = ceil(M_pad / 4864) blocks of 256 threads and per
+    = ceil(M_pad / (256 * C)): C of 9..14, per of WIDE_CLUSTER_PER (17..19,
+    the three compiled cases a kind); every width of a C covered by its per,
+    none by the C before."""
+    assert p7_cuda.WIDE_CLUSTER_KINDS == ("save", "backward") and WIDE == 256
+    assert {c for c, _ in WIDE_CLUSTER_CASES} == set(range(9, 15))
+    assert {per for _, per in WIDE_CLUSTER_CASES} == set(p7_cuda.WIDE_CLUSTER_PER) == {17, 18, 19}
+    for m in range(p7_cuda.MAX_CLUSTER_STATES + 8, p7_cuda.MAX_KERNEL_STATES + 1, 8):
+        c = p7_cuda.cluster_blocks(m, "backward")
+        threads, per = p7_cuda.kernel_case(m, "backward")
+        assert threads == WIDE and c * WIDE * per >= m > (c - 1) * WIDE * 19
+        assert c * WIDE * (per - 1) < m and p7_cuda.wide_cluster_case(m, "save")
+    for kind in p7_cuda.BLOCKED_KINDS:
+        assert not p7_cuda.wide_cluster_case(p7_cuda.MAX_CLUSTER_STATES, kind)
+        assert p7_cuda.wide_cluster_case(38920, kind) == (kind in ("save", "backward"))
+    with pytest.raises(ValueError, match="65536"):
+        p7_cuda.kernel_case(p7_cuda.MAX_KERNEL_STATES + 8, "save")
+
+
+@pytest.mark.parametrize("m_pad,c,per", WIDE_CLUSTER_WIDTHS)
+def test_wide_cluster_plan(m_pad, c, per):
+    """The row-saving Forward and the backward pass past 38,912 states (up
+    to 65536) plan C 256-thread blocks a sequence (``threads`` 256,
+    ``cluster`` C, ``per``; the plan's ``wide_cluster``, neither ``block``
+    nor ``mem`` nor ``pair`` nor ``block_cluster``), one group a block (a
+    forced G other than 1 raises), a grid of whole clusters (the
+    ``clusters`` the card holds, else what an SM holds, one block, times the
+    SMs over C; no more clusters than sequences), the transitions staged
+    first and then chain rows, as many as fit the 232,448 bytes beside the
+    group and the cluster's area (blocked_smem_bytes(cluster=True,
+    threads=256)); a card that holds none (``clusters`` 0) plans the
+    rows-in-memory case. The all-24 join twice over (60368) takes 13 blocks
+    of 19 states, two transition rows staged; every other kind keeps its
+    case there."""
+    row = 4 * WIDE * p7_cuda.blocked_stride(per)
+    for kind in p7_cuda.WIDE_CLUSTER_KINDS:
+        bwd, save = kind == "backward", kind == "save"
+        assert p7_cuda.cluster_blocks(m_pad, kind) == c == -(-m_pad // 4864)
+        assert p7_cuda.kernel_case(m_pad, kind) == (WIDE, per) == (WIDE, -(-m_pad // (WIDE * c)))
+        base = p7_cuda.blocked_smem_bytes(per, 0, 1, save, backward=bwd, cluster=True,
+                                          threads=WIDE)
+        group = (6 * row + 2 * (WIDE * p7_cuda.bf16_stride(per) // 2) * 4 + 4 * (24 + 32 + 256)
+                 if bwd else 7 * row + 4 * (16 + 32))
+        assert base == group + 2 * row + 4 * (852 if bwd else 596)
+        for passes, regs, b_pad in itertools.product(_passes(kind, m_pad)[::3], REGS, BATCHES):
+            plan = p7_cuda.plan_launch(kind, m_pad, passes, b_pad, regs, SMS)
+            assert (plan.threads, plan.cluster, plan.groups, plan.max_groups, plan.per) == (
+                WIDE, c, 1, 1, per)
+            assert plan.wide_cluster and not (plan.block or plan.mem or plan.pair
+                                              or plan.block_cluster)
+            rows = plan.n_trans + plan.n_chain
+            assert plan.smem == base + rows * row <= SMEM_PER_SM
+            assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, save, backward=bwd,
+                                                           cluster=True, threads=WIDE)
+            assert plan.n_chain == 0 or plan.n_trans == 6
+            assert 0 <= plan.n_chain <= passes
+            if rows < 6 + passes:
+                assert plan.smem + row > SMEM_PER_SM
+            warp_regs = -(-regs // 8) * 8 * 32
+            per_sm = min(p7_cuda.REGS_PER_SM // (WIDE // 32 * warp_regs),
+                         SMEM_PER_SM // plan.smem, p7_cuda.THREADS_PER_SM // WIDE)
+            assert plan.grid == c * min(b_pad, max(1, SMS * per_sm // c))
+        passes = _passes(kind, m_pad)[-1]
+        assert p7_cuda.plan_launch(kind, m_pad, passes, 4096, 128, SMS, clusters=7).grid == 7 * c
+        assert p7_cuda.plan_launch(kind, m_pad, passes, 3, 128, SMS, clusters=7).grid == 3 * c
+        with pytest.raises(ValueError, match=f"{c}-block cluster of 256-thread blocks takes 1"):
+            p7_cuda.plan_launch(kind, m_pad, passes, 64, 128, SMS, groups=2)
+        mem = p7_cuda.plan_launch(kind, m_pad, passes, 64, 64, SMS, clusters=0)
+        assert mem.mem and (mem.threads, mem.per, mem.smem) == (
+            p7_cuda.MEM_THREADS, -(-m_pad // 1024), 0)
+    if m_pad == 60368:
+        plan = p7_cuda.plan_launch("save", m_pad, 8, 64, 200, SMS)
+        assert (plan.n_trans, plan.n_chain, plan.smem) == (2, 0, 216592)
+    for kind in p7_cuda.BLOCKED_KINDS:
+        if kind not in p7_cuda.WIDE_CLUSTER_KINDS:
+            plan = p7_cuda.plan_launch(kind, m_pad, p7_cuda.chain_passes(m_pad), 64, 64, SMS)
+            assert not plan.wide_cluster and (plan.mem or plan.block_cluster)
+
+
+@pytest.mark.parametrize("c,per", WIDE_CLUSTER_CASES)
+def test_wide_cluster_shifts_equal_the_plain_shift(c, per):
+    """The 256-thread clusters' shifts: the Forward's toward higher j
+    (cluster_shift_small / cluster_shift_big at KT = 256) and the backward
+    pass's toward lower j (their mirrors) equal the plain shift and up-shift
+    for every pass s = 2^p of c * 256 * per states, both fills, whole blocks
+    away included, and the mirror's releases of every window."""
+    _check_shifts(per, WIDE, cluster=c)
+    _check_shifts_up(per, c, WIDE)
+
+
+@pytest.mark.parametrize("c,per", WIDE_CLUSTER_CASES)
+def test_wide_cluster_releases_land_on_their_use(c, per):
+    """The release protocol at 256 threads a block, both directions, every
+    window: as test_cluster_releases_land_on_their_use (the same
+    primitives)."""
+    for window in range(1, p7_cuda.chain_passes(min(c * WIDE * per, 1 << 16)) + 1):
+        for mirror in (False, True):
+            _check_releases(per, c, window, mirror, WIDE)
+
+
+@pytest.mark.parametrize("c,per", WIDE_CLUSTER_CASES)
+def test_wide_cluster_state_map_is_a_bijection(c, per):
+    """State j of a C-block cluster of 256-thread blocks sits in (block,
+    thread, slot) with j = block * 256 * per + thread * per + slot: every
+    state of the c * 256 * per once; past the cluster it raises."""
+    n = WIDE * per
+    seen = [p7_cuda.wide_cluster_state(j, per, c) for j in range(c * n)]
+    assert len(set(seen)) == c * n
+    assert all(b * n + t * per + k == j and 0 <= t < WIDE and 0 <= k < per
+               for j, (b, t, k) in enumerate(seen))
+    with pytest.raises(ValueError, match="256-thread"):
+        p7_cuda.wide_cluster_state(c * n, per, c)
+
+
+def test_wide_cluster_shared_memory_matches_the_header_layout():
+    """blocked_smem_bytes(cluster=True, threads=256) is the headers' layout
+    at KT = 256: cluster_smem_floats (smem_floats of one row-saving group:
+    two shift rows, four emission rows, 2 * 8 reduction floats, the token
+    chunk and the two bf16 rows; then cluster_floats: two landing rows and
+    two exchanges of 16 blocks' 8 warps, the 18 halos, 4 slots, 24
+    mbarriers) and backward_smem_floats of the cluster (its group, then an
+    area of two values a slot); cluster_floats stays the 128-thread
+    CLUSTER_FLOATS at 128 threads."""
+    blocked = (p7_cuda._build.CSRC_DIR / "p7_blocked.cuh").read_text()
+    assert ("return 2 * row_floats<PER, KT>() + XV * 2 * kMaxCluster * warps<KT>() +\n"
+            "         kHaloIds * kHaloSlots + 4 + 2 * kPairBars;") in blocked
+    assert p7_cuda.cluster_floats(WIDE) == 2 * 16 * 8 + 18 * 16 + 4 + 48 == 596
+    assert p7_cuda.cluster_floats(WIDE, backward=True) == 2 * 2 * 16 * 8 + 18 * 16 + 4 + 48 == 852
+    assert p7_cuda.cluster_floats() == p7_cuda.CLUSTER_FLOATS == 468
+    assert p7_cuda.cluster_floats(backward=True) - 468 == p7_cuda.CLUSTER_X2_FLOATS == 128
+    row = WIDE * 19
+    assert p7_cuda.blocked_smem_bytes(19, 2, 1, save=True, cluster=True, threads=WIDE) == 4 * (
+        2 * row + (2 * row + 4 * row + 16 + 32 + row) + 2 * row + 596) == 216592
+    hrow = WIDE * 19 // 2
+    assert p7_cuda.blocked_smem_bytes(19, 2, 1, backward=True, cluster=True, threads=WIDE) == 4 * (
+        2 * row + (6 * row + 2 * hrow + 24 + 32 + 256) + 2 * row + 852) == 218672
+    row = WIDE * 17
+    assert p7_cuda.blocked_smem_bytes(17, 4, 1, save=True, cluster=True, threads=WIDE) == 4 * (
+        4 * row + 7 * row + 48 + 2 * row + 596) <= SMEM_PER_SM
+
+
+def test_wide_cluster_cases_match_kernel_source():
+    """The 256-thread clusters' cases the two C entries compile are
+    WIDE_CLUSTER_PER at kWideClusterThreads (with_wide_cluster_case), named
+    by ``threads`` 256 with ``cluster`` C; forward_wide_cluster_kernel runs
+    forward_body's row-saving case and backward_wide_cluster_kernel
+    backward_body at KT = 256 on a C-block cluster, bounded to one block of
+    256 threads an SM, launched as clusters of C blocks of 256 threads; the
+    launch checks the plan's shape (wide_cluster_ok: n_trans up to six) and
+    the exact shared memory; the queries of registers and clusters take the
+    case by its threads; combine_warps sums a block's eight warps."""
+    csrc = p7_cuda._build.CSRC_DIR
+    blocked = (csrc / "p7_blocked.cuh").read_text()
+    cases = re.findall(r"P7_WIDE_CLUSTER_CASE\((\d+)\)\n", blocked)
+    assert tuple(int(c) for c in cases) == p7_cuda.WIDE_CLUSTER_PER
+    assert f"constexpr int kWideClusterThreads = {WIDE};" in blocked
+    assert f"constexpr int kWideClusterPerMin = {p7_cuda.WIDE_CLUSTER_PER[0]};" in blocked
+    assert f"constexpr int kWideClusterPerMax = {p7_cuda.WIDE_CLUSTER_PER[-1]};" in blocked
+    assert "grid >= c && grid % c == 0 && n_trans >= 0 && n_trans <= kTransRows;" in blocked
+    assert 'static_assert(KT == 128 || KT == 256, "4 or 8 warps");' in blocked
+    forward = (csrc / "p7_forward_kernel.cu").read_text()
+    assert "forward_body<PER, kWideClusterThreads, SAVE, Span::kCluster>(a);" in forward
+    assert "forward_wide_cluster_kernel<PER, true>" in forward
+    assert "forward_wide_cluster_kernel<PER, false>" not in forward
+    assert "4 * cluster_smem_floats<PER, KT, false>(n_rows, true)" in forward
+    backward = (csrc / "p7_backward_kernel.cu").read_text()
+    assert "backward_body<PER, kWideClusterThreads, Span::kCluster>(a);" in backward
+    assert "4 * backward_smem_floats<PER, KT, Span::kCluster>(n_rows, 1)" in backward
+    for source in (forward, backward):
+        assert "__launch_bounds__(kWideClusterThreads, 1)" in source
+        assert source.count("if (threads == kWideClusterThreads) {") == 3
+        assert "with_wide_cluster_case<WideClusterCase>(per" in source
+        assert "grid, smem, stream, KT);" in source and "c, smem, out, KT);" in source
+        assert "wide_cluster_ok(a.m_pad, PER, c, groups, grid, a.n_trans)" in source
+    assert "const int n_trans = KT == 128 ? kTransRows : a.n_trans;" in forward
+    assert "const int n_trans = KT == 128 ? kTransRows : a.n_trans;" in backward
+    assert "if (KT == 128 || q < n_trans) return staged[q * row_floats<PER, KT>() + k];" in blocked
+    # the unstaged rows: the block's slice of their thread-major copy
+    # (block_rows at 256 threads, fill 0), passed as the launchers' scratch
+    assert "return __ldg(tm + (q * PER + k) * KT);" in blocked
+    assert ("tm = a.tm + static_cast<size_t>(h.rank) * (kTransRows + window) * PER * KT + t;"
+            in forward)
+    assert ("tm = a.scratch + static_cast<size_t>(h.rank) * (kTransRows + a.window) * PER * KT"
+            " + t;") in backward
+    for source in (forward, backward):
+        assert "const float* c = tm + (kTransRows + p) * PER * KT;" in source
+        assert "ac[k] = ac[k] + sh[k] * __ldg(c + k * KT);" in source
+
+
+@pytest.mark.parametrize("m_pad,c,per", WIDE_CLUSTER_WIDTHS)
+def test_wide_cluster_rows_are_thread_major_by_rank(m_pad, c, per):
+    """The 256-thread clusters' constant rows as the kernels read the ones
+    a block does not stage (p7_cuda.case_rows: block_rows at 256 threads,
+    fill 0): [c * (6 + window), per, 256], block r's slice (rows r * (6 +
+    window) on) holding row q's state r * 256 * per + t * per + k at (q, k,
+    t), 0 past M_pad, where TransRows reads (q * per + k) * 256 + t of it."""
+    window = 8
+    rng = np.random.default_rng(m_pad + 1)
+    trans = torch.from_numpy(rng.random(size=(8, m_pad)).astype(np.float32))
+    chain = torch.from_numpy(rng.random(size=(window, m_pad)).astype(np.float32))
+    plan = p7_cuda.plan_launch("save", m_pad, window, 64, 128, SMS)
+    got = p7_cuda.case_rows(plan, trans, chain, window, "cpu")
+    assert got.shape == (c * (6 + window), per, WIDE) and got.is_contiguous()
+    flat = got.reshape(-1)
+    rows = torch.cat([trans[:6], chain])
+    for r in (0, 1, c - 1):
+        base = r * (6 + window) * per * WIDE
+        for q in (0, 2, 5, 6, 5 + window):
+            for t in (0, 31, 32, WIDE - 1):
+                for k in (0, per - 1):
+                    j = r * WIDE * per + t * per + k
+                    want = rows[q, j] if j < m_pad else 0.0
+                    assert flat[base + (q * per + k) * WIDE + t] == want

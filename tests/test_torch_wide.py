@@ -22,7 +22,10 @@ oracle and XLA path at the same tolerances, the all-24 join (LENG
 30181) through the plain MSV, Viterbi and Forward and the kernels' cases
 and launch plans, the joins of CLUSTER_JOINS (the MSV clusters of 5, 8 and
 9 blocks) through the plain MSV, and the all-24 join twice over (LENG
-60362, past 38,912: the MSV rows-in-memory case) through the plain MSV.
+60362, past 38,912: the MSV rows-in-memory case, and the posterior pair's
+C-block cluster of 13 256-thread blocks) through the plain MSV and the
+plain posterior decode (against ``posterior_coverage_batch_xla``), with a
+NumPy model of that cluster's reduction order against the plain Forward.
 """
 
 import numpy as np
@@ -670,3 +673,149 @@ def test_all_24_join_plain_posterior_matches_jax(mem_files, batch):
     assert not cov[~live].any()
     assert _max_d(cov[live], np.asarray(want_cov)[live, : cov.shape[1]]) <= COV_TOL
     assert _max_d(tot[live], np.asarray(want_tot)[live]) <= TOT_TOL
+
+
+def test_past_the_largest_cluster_plain_posterior_matches_jax(profile_dir, batch):
+    """The all-24 join twice over (chip_smoke.MSV_MEM_JOIN, LENG 60362,
+    M_pad 60368), where the row-saving Forward and the backward pass run a
+    C-block cluster of 13 256-thread blocks of 19 states a thread on the
+    card: the port's plain posterior decode against the JAX XLA decode,
+    coverage within 4e-3, totals within 2e-3."""
+    tokens, lengths = batch
+    stems = chip_smoke.MSV_MEM_JOIN
+    jax_hmm = chip_smoke.join_profiles(*(jax_parse_hmm(profile_dir / f"{s}.hmm") for s in stems))
+    p7 = P7Profile.from_profile(chip_smoke.wide_profile(stems))
+    m_pad = p7_cuda.default_m_pad(p7)
+    assert m_pad == 60368 and p7_cuda.cluster_blocks(m_pad, "backward") == 13
+    assert p7_cuda.kernel_case(m_pad, "save") == p7_cuda.kernel_case(m_pad, "backward") == (
+        p7_cuda.WIDE_CLUSTER_THREADS, 19)
+    cov, tot = posterior_cuda.posterior_coverage_batch(p7, tokens, lengths, device="cpu")
+    want_cov, want_tot = posterior_coverage_batch_xla(JaxP7Profile.from_profile(jax_hmm),
+                                                      tokens, lengths)
+    live = lengths > 0  # the JAX decode of an empty sequence is NaN
+    assert not cov[~live].any()
+    assert _max_d(cov[live], np.asarray(want_cov)[live, : cov.shape[1]]) <= COV_TOL
+    assert _max_d(tot[live], np.asarray(want_tot)[live]) <= TOT_TOL
+
+
+WIDE_KT = p7_cuda.WIDE_CLUSTER_THREADS
+
+
+def _wide_cluster_reduce(v: np.ndarray, op, c: int) -> np.ndarray:
+    """A reduction over a C-block cluster of 256-thread blocks ([B, c *
+    256], one value a thread), as csrc/p7_blocked.cuh::cluster_reduce takes
+    it: a warp butterfly, then each block's eight warps in the group's fixed
+    order (combine_warps: pairs of neighbours, then pairs of pairs), then the
+    blocks in rank order (cluster_collect)."""
+    t = np.arange(WIDE_KT)
+    acc = None
+    for r in range(c):
+        x = v[:, r * WIDE_KT:(r + 1) * WIDE_KT]
+        for off in (16, 8, 4, 2, 1):
+            x = op(x, x[:, t ^ off])
+        assert all((x[:, 32 * w:32 * w + 32] == x[:, 32 * w:32 * w + 1]).all() for w in range(8))
+        w = x[:, ::32]
+        blk = op(op(op(w[:, 0], w[:, 1]), op(w[:, 2], w[:, 3])),
+                 op(op(w[:, 4], w[:, 5]), op(w[:, 6], w[:, 7])))
+        acc = blk if acc is None else op(acc, blk)
+    return acc
+
+
+def _wide_cluster_forward_model(pack, staged, carry):
+    """The row-saving Forward's scan on its C-block cluster of 256-thread
+    blocks (csrc/p7_forward_kernel.cu::forward_body at KT = 256) in NumPy
+    float32, step for step: the rows padded with 0 to the cluster's c * 256
+    * per states, the delete chain's passes as the plain shifts (which the
+    cluster's shifts equal: tests/test_torch_p7_layout.py), E as each
+    thread's states in order and then _wide_cluster_reduce's sum, and every
+    FWD_RESCALE_GROUP steps the rescale max by _wide_cluster_reduce's max of
+    each thread's max (from 0). Returns (scores, m, i, d, s[:6])."""
+    f32 = np.float32
+    m_pad = pack.m_pad
+    threads, per = p7_cuda.kernel_case(m_pad, "save")
+    c = p7_cuda.cluster_blocks(m_pad, "save")
+    assert threads == WIDE_KT
+    n = c * threads * per
+
+    def pad(x):
+        return np.pad(np.asarray(x, dtype=f32), ((0, 0), (0, n - m_pad)))
+
+    def shift(x, s):
+        out = np.zeros_like(x)
+        out[:, s:] = x[:, :-s]
+        return out
+
+    tmm, tmi, tmd, tim, tii, tdm = pad(pack.trans[:6].numpy())
+    chain = pad(pack.chain.numpy())
+    modds, iodds = pad(pack.emit_m.numpy()), pad(pack.emit_i.numpy())
+    p_b_mk, p_e_c, p_e_j = (f32(x) for x in pack.consts.numpy()[:3])
+    tokens = staged.tokens.numpy().astype(np.int64).clip(0, 19)
+    lengths = staged.lengths.numpy()
+    p_loop, p_move = staged.tr_probs.numpy()
+    m, i, d = (pad(x.numpy()) for x in carry[:3])
+    sj, sc, sn, sb, log_scale, comp = carry[3].numpy()[:6].copy()
+    for step in range(int(lengths.max())):
+        valid = step < lengths
+        diag = shift(m * tmm + i * tim + d * tdm, 1)
+        nm = modds[tokens[:, step]] * (diag + (sb * p_b_mk)[:, None])
+        ni = iodds[tokens[:, step]] * (m * tmi + i * tii)
+        ac = shift(nm * tmd, 1)
+        for k in range(chain.shape[0]):
+            ac = ac + shift(ac, 1 << k) * chain[k]
+        x = (nm + ac).reshape(-1, c * WIDE_KT, per)
+        tot = np.zeros(x.shape[:2], dtype=f32)
+        for k in range(per):
+            tot = tot + x[:, :, k]
+        e = _wide_cluster_reduce(tot, np.add, c)
+        nj = sj * p_loop + e * p_e_j
+        nc = sc * p_loop + e * p_e_c
+        nn = sn * p_loop
+        nb = nn * p_move + nj * p_move
+        m, i, d = (np.where(valid[:, None], new, old) for new, old in ((nm, m), (ni, i), (ac, d)))
+        sj, sc, sn, sb = (np.where(valid, new, old) for new, old in
+                          ((nj, sj), (nc, sc), (nn, sn), (nb, sb)))
+        if (step + 1) % p7_cuda.FWD_RESCALE_GROUP == 0:
+            mx = np.maximum(m.reshape(-1, c * WIDE_KT, per).max(axis=2), f32(0))
+            mx = _wide_cluster_reduce(mx, np.maximum, c)
+            scale = np.maximum(np.maximum(mx, sc), np.maximum(sn, f32(1e-30)))
+            inv = (f32(1) / scale).astype(f32)
+            y = (np.log(scale) - comp).astype(f32)
+            t_sum = (log_scale + y).astype(f32)
+            new = (m * inv[:, None], i * inv[:, None], d * inv[:, None], sj * inv, sc * inv,
+                   sn * inv, sb * inv, t_sum, ((t_sum - log_scale) - y).astype(f32))
+            old = (m, i, d, sj, sc, sn, sb, log_scale, comp)
+            m, i, d, sj, sc, sn, sb, log_scale, comp = (
+                np.where(valid[:, None] if o.ndim == 2 else valid, nw, o)
+                for nw, o in zip(new, old))
+    with np.errstate(divide="ignore"):  # an empty sequence's C is 0: -inf, as plain
+        score = (np.log(sc) + log_scale + staged.tr_rows.numpy()[1]).astype(f32)
+    return (score, m[:, :m_pad], i[:, :m_pad], d[:, :m_pad],
+            np.stack([sj, sc, sn, sb, log_scale, comp]))
+
+
+def test_wide_cluster_model_matches_plain(profile_dir, batch):
+    """The row-saving Forward on its C-block cluster of 256-thread blocks
+    at LENG 60362 (13 blocks of 19 states a thread) modelled in NumPy step
+    for step (_wide_cluster_forward_model): its reduction order (each
+    thread's states in order, the warp butterfly, each block's eight warps
+    in pairs of pairs, the blocks in rank order, for E and the rescale max)
+    gives the plain Forward's scores within FWD_TOL and its carries (M, I,
+    D, the specials, the log scale) within FWD_TOL too; the plain versions
+    are held against JAX (test_past_the_largest_cluster_plain_posterior_
+    matches_jax)."""
+    tokens, lengths = batch
+    p7 = P7Profile.from_profile(chip_smoke.wide_profile(chip_smoke.MSV_MEM_JOIN))
+    pack = p7_cuda.forward_pack(p7, "cpu")
+    assert p7_cuda.cluster_blocks(pack.m_pad, "save") == 13
+    staged = MSVScanner(device="cpu").stage(tokens, lengths)
+    # the plain row-saving Forward's scores and carries are the plain Forward's
+    run, carry = chip_smoke.p7_calls("forward", pack, staged)
+    want = [x.numpy() for x in run(chip_smoke.PLAIN_FNS["forward"], staged.tokens,
+                                   staged.lengths, carry)]
+    got = _wide_cluster_forward_model(pack, staged, carry)
+    live = lengths > 0
+    assert np.isfinite(got[0][live]).all()
+    assert _max_d(got[0], want[0]) <= FWD_TOL
+    for g, w in zip(got[1:4], want[1:4]):
+        assert _max_d(g, w) <= FWD_TOL
+    assert _max_d(got[4], want[4][:6]) <= FWD_TOL

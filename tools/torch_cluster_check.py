@@ -3,7 +3,10 @@ cluster pair and the p7 kernels' C-block cluster cases against their plain
 versions on the card.
 
     python3 tools/torch_cluster_check.py [--widths 2440,4872,...] [--p7 3,4,...,16]
-                                         [--block 10,11,...] [--blocks 2:5,4:8,...] [--time]
+                                         [--block 10,11,...] [--blocks 2:5,4:8,...]
+                                         [--wide 9,...,14] [--time]
+    python3 tools/torch_cluster_check.py --stress N [--stress-c 4,...,16]
+                                         [--stress-wide 9,...,14]
 
 MSV: for each M_pad of --widths (default: the boundaries of every cluster
 size from the pair to 16 blocks, and two widths past 38,912), a random f32
@@ -42,7 +45,19 @@ LOG_FWD_TOL; the launch counters show the wide block (block_launches) up
 to MAX_BLOCK_STATES and the cluster of C wide blocks past it
 (block_cluster_launches by C), never the rows-in-memory case (and a tree
 without the clusters of wide blocks, the rows-in-memory case past
-MAX_BLOCK_STATES). Then chip_smoke.py's wide
+MAX_BLOCK_STATES). The row-saving Forward and the backward pass past
+38,912 states: for each C of --wide (default 9..14) two joins of the repo's
+profiles that land on a C-block cluster of 256-thread blocks of that C, one
+just past 4864 * (C - 1) states and one as near 4864 * C (at most 65536) as
+they fill, on the same ragged batch: the row-saving kernel's scores and
+carries within FWD_TOL of its plain version and its scores within FWD_TOL
+of the Forward kernel's (the rows-in-memory case there), the backward pass
+on the kernel's rows within COV_TOL of its plain version, the whole decode
+within COV_TOL / TOT_TOL of the plain decode; the launch counters show the
+cluster of C blocks (block_cluster_launches by C) and no rows-in-memory
+launch; and at the first width the rows-in-memory route of a card that
+holds no such cluster (chip_smoke.no_block_clusters), its counters showing
+it. Then chip_smoke.py's wide
 check (the cluster pairs, the backward pass's included). With --time, the
 MSV cluster cases at 2048 x 1000, the Forward pair at 64 x 3500, each p7
 join's Viterbi and Forward kernels at 64 x 1000
@@ -51,9 +66,27 @@ each also as microseconds a step (ms over the residues and the rounds of
 64 rows on the clusters the card holds), and each --block join's eager
 and log-space kernels at 64 x 1000 and at build's calibration shape, 256 x
 400 (best of 3 on the wide block and its clusters, once in memory), and
-each --blocks profile's at 64 x 1000, beside the card's name and power
-limit. One line a check; exits 1 on a failure. Needs one CUDA card and
-nvcc; imports nothing of JAX.
+each --blocks profile's at 64 x 1000, and each --wide profile's posterior
+pair at 64 x 1024, beside the card's name and power limit. One line a check;
+exits 1 on a failure.
+
+--stress N runs the release protocol of the C-block clusters hard, and
+nothing else: for each C of --stress-c (default 4..16) a join of the repo's
+profiles filling a C-block cluster of 128-thread blocks (18-19 states a
+thread, join_stems) through
+the lazy Viterbi at lazy_k = 1 (its certificate fires, so chunks replay the
+whole chain), the Viterbi filter at its longest window (the whole chain),
+Forward, the row-saving Forward and the backward pass, and for each C of
+--stress-wide (default 9..14) a join filling a C-block cluster of
+256-thread blocks through the row-saving Forward and the backward pass, N
+launches each on SURVIVOR_BATCH rows of 300 residues, every launch's
+results equal to the first's bit for bit and the launch counters showing
+the case. The launches run in a child process that prints a line as each
+ends; the parent fails the run, naming the (kind, C, launch) under way,
+when the child falls silent for STRESS_SILENCE seconds (a hung kernel
+cannot be cut from inside its own process) or exits otherwise than 0, and
+prints the launch counts. Needs one CUDA card and nvcc; imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -61,7 +94,10 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import selectors
+import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -149,13 +185,15 @@ P7_WRAPPERS = {"lazy": p7_cuda.viterbi_lazy_scan_cuda, "filter": p7_cuda.viterbi
 POST_LEN = 1024  # the posterior pair's timed residues
 
 
-def join_stems(c: int, high: bool) -> tuple[str, ...]:
+def join_stems(c: int, high: bool, block: int = p7_cuda.MAX_GROUP_STATES) -> tuple[str, ...]:
     """The repo's profiles (LENG = the stem), largest first and as often as
-    needed, whose join lands on a C-block cluster of ``c``: just past 2432 *
-    (c - 1) states (the last profile the smallest that crosses it) or, with
-    ``high``, as near 2432 * c as they fill."""
+    needed, whose join lands on a C-block cluster of ``c`` blocks of
+    ``block`` states (2432: 128 threads of 19; 4864: 256 threads of 19, up
+    to the chain's 65536): just past block * (c - 1) states (the last
+    profile the smallest that crosses it) or, with ``high``, as near block *
+    c as they fill."""
     sizes = sorted((int(stem) for stem in chip_smoke.stems()), reverse=True)
-    lo, hi = p7_cuda.MAX_GROUP_STATES * (c - 1), p7_cuda.MAX_GROUP_STATES * c
+    lo, hi = block * (c - 1), min(block * c, p7_cuda.MAX_KERNEL_STATES)
     picks, total = [], 0
     while True:
         fit = [n for n in sizes if total + n <= (hi if high else lo)]
@@ -343,6 +381,229 @@ def p7_block_join(rng, scanner, hmm, name: str, time_it: bool) -> dict:
     return out
 
 
+WIDE_WRAPPERS = {"save": chip_smoke.posterior_cuda.forward_save_scan_cuda,
+                 "backward": chip_smoke.posterior_cuda.backward_coverage_scan_cuda}
+
+
+def posterior_vs_plain(scanner, p7, staged, name: str) -> dict:
+    """The row-saving Forward and the backward pass on ``staged`` against
+    their plain versions, and the Forward kernel's scores: the errors."""
+    dev = scanner.device
+    fpack = p7_cuda.forward_pack(p7, dev)
+    schain = chip_smoke.posterior_cuda.suffix_chain_rows(p7, dev)
+    run, carry = chip_smoke.p7_calls("save", fpack, staged)
+    got = run(chip_smoke.CUDA_FNS["save"], staged.tokens, staged.lengths, carry)
+    torch.cuda.synchronize()
+    want = run(chip_smoke.PLAIN_FNS["save"], staged.tokens, staged.lengths, carry)
+    fwd = run(chip_smoke.CUDA_FNS["forward"], staged.tokens, staged.lengths, carry)
+    s_err = max(chip_smoke.max_abs_diff(g, w) for g, w in zip(got[:5], want[:5]))
+    f_err = chip_smoke.max_abs_diff(got[0], fwd[0])
+    chip_smoke.require(s_err <= chip_smoke.FWD_TOL and f_err <= chip_smoke.FWD_TOL,
+                       f"{name} row-saving Forward vs plain (scores and carries): {s_err}, "
+                       f"vs the Forward kernel's scores: {f_err}")
+    bwd_in = chip_smoke.backward_inputs(fpack, schain, staged)
+    cov = chip_smoke.posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
+    torch.cuda.synchronize()
+    b_err = chip_smoke.max_abs_diff(
+        cov, chip_smoke.posterior_cuda.backward_coverage_scan_plain(*bwd_in))
+    cov_p, tot_p = chip_smoke.posterior_decode(*chip_smoke.PLAIN_DECODE, fpack, schain, staged)
+    c_err, t_err = chip_smoke.max_abs_diff(cov, cov_p), chip_smoke.max_abs_diff(bwd_in[8], tot_p)
+    chip_smoke.require(b_err <= chip_smoke.COV_TOL and c_err <= chip_smoke.COV_TOL
+                       and t_err <= chip_smoke.TOT_TOL,
+                       f"{name} backward pass vs plain on its rows: {b_err}, the decode: "
+                       f"{c_err}, totals {t_err}")
+    return {"save_max_abs": s_err, "save_vs_forward_max_abs": f_err, "backward_max_abs": b_err,
+            "coverage_max_abs": c_err, "totals_max_abs": t_err}
+
+
+def p7_wide_cluster(rng, scanner, hmm, name: str, time_it: bool, mem_route: bool) -> dict:
+    """The row-saving Forward and the backward pass on ``hmm`` past 38,912
+    states against their plain versions (posterior_vs_plain) on their
+    C-block cluster of 256-thread blocks, with the launch counters; with
+    ``mem_route`` also on the rows-in-memory route of a card that holds no
+    such cluster; timed with ``time_it``."""
+    dev = scanner.device
+    p7 = chip_smoke.P7Profile.from_profile(hmm)
+    m_pad = p7_cuda.default_m_pad(p7)
+    c = p7_cuda.cluster_blocks(m_pad, "save")
+    staged = chip_smoke.ragged_wide_batch(scanner, rng)
+    name = f"{name}, LENG {p7.num_states}"
+    for fn in WIDE_WRAPPERS.values():
+        msv_cuda.zero_launches(fn)
+    out = {"join": name, "m_pad": m_pad, "cluster": c,
+           **posterior_vs_plain(scanner, p7, staged, name)}
+    counts = {kind: counters(fn) | {"blocks": dict(fn.block_cluster_launches)}
+              for kind, fn in WIDE_WRAPPERS.items()}
+    for kind, cnt in counts.items():
+        chip_smoke.require(set(cnt["blocks"]) == {c} and cnt["mem"] == 0 and not cnt["cluster"],
+                           f"{name} {kind}: launches {cnt}, expected the cluster of {c} "
+                           f"256-thread blocks only")
+    out["launches"] = counts
+    fpack = p7_cuda.forward_pack(p7, dev)
+    for kind in WIDE_WRAPPERS:
+        plan = p7_cuda.device_plan(kind, m_pad, fpack.chain.shape[0], 64, dev)
+        chip_smoke.require(plan.wide_cluster and plan.cluster == c, f"{name} {kind}: plan {plan}")
+        out[f"plan_{kind}"] = plan._asdict()
+        out[f"regs_{kind}"] = p7_cuda.kernel_regs(kind, plan.per, plan.threads, plan.cluster)
+        out[f"clusters_{kind}"] = p7_cuda.max_clusters(kind, plan.per, plan.smem, dev.index or 0,
+                                                       plan.cluster, plan.threads)
+    if mem_route:
+        with chip_smoke.no_block_clusters():
+            for fn in WIDE_WRAPPERS.values():
+                msv_cuda.zero_launches(fn)
+            out["mem_route"] = posterior_vs_plain(scanner, p7, staged, f"{name} (rows in memory)")
+            cnt = {kind: counters(fn) | {"blocks": dict(fn.block_cluster_launches)}
+                   for kind, fn in WIDE_WRAPPERS.items()}
+        chip_smoke.require(all(x["mem"] > 0 and not x["blocks"] for x in cnt.values()),
+                           f"{name}: the rows-in-memory route launched {cnt}")
+        out["mem_route"]["launches"] = cnt
+    if time_it:
+        big = rng.integers(0, 20, size=(64, POST_LEN)).astype(np.int8)
+        bstaged = scanner.stage(big, np.full(64, POST_LEN, dtype=np.int32))
+        schain = chip_smoke.posterior_cuda.suffix_chain_rows(p7, dev)
+        b_in = chip_smoke.backward_inputs(fpack, schain, bstaged)
+        run, carry = chip_smoke.p7_calls("save", fpack, bstaged)
+        for kind, call in (("save", lambda: run(WIDE_WRAPPERS["save"], bstaged.tokens,
+                                                 bstaged.lengths, carry)),
+                           ("backward", lambda: WIDE_WRAPPERS["backward"](*b_in))):
+            ms = chip_smoke.best_ms(call, reps=3)
+            held = out[f"clusters_{kind}"]
+            out[f"ms_{kind}_64x{POST_LEN}"] = ms
+            out[f"us_step_{kind}"] = ms * 1e3 / (POST_LEN * -(-64 // held))
+    return out
+
+
+# -- the release stress -------------------------------------------------------
+
+STRESS_LEN = 300
+STRESS_KINDS = ("lazy", "filter", "forward", "save", "backward")
+# seconds without a launch ending that count as a hang: a launch takes well
+# under one, a case's set-up (its join and packs) a few
+STRESS_SILENCE = 120.0
+
+
+def stress_cases(cs, wide_cs) -> list[tuple[str, int, tuple[str, ...], str]]:
+    """(kind, C, join, label) of every stressed case: the 128-thread kinds
+    on the join of the repo's profiles as near 2432 * C states as they fill
+    (join_stems: 18-19 states a thread) for each C of ``cs``, the row-saving
+    Forward and the backward pass on the join as near 4864 * C (at most
+    65536) for each C of ``wide_cs`` on 256-thread blocks (labelled
+    ``<kind>256``)."""
+    out = [(kind, c, join_stems(c, True), kind) for c in cs for kind in STRESS_KINDS]
+    wide_block = p7_cuda.WIDE_CLUSTER_THREADS * p7_cuda.WIDE_CLUSTER_PER[-1]
+    for c in wide_cs:
+        out += [(kind, c, join_stems(c, True, wide_block), f"{kind}256") for kind in WIDE_WRAPPERS]
+    return out
+
+
+def stress_child(n: int, cs, wide_cs) -> int:
+    """The stress's launches (stress_cases): one line a launch as it starts
+    and as it ends, ``start|done <label> <C> <launch>``, then
+    ``STRESS_DONE``; raises on a result that differs from the case's first
+    launch (compared on the card) or a launch counted elsewhere."""
+    dev = torch.device(chip_smoke.DEVICE)
+    torch.cuda.set_device(dev)
+    scanner = chip_smoke.MSVScanner(device=dev)
+    rng = np.random.default_rng(chip_smoke.SEED + 20)
+    tokens = rng.integers(0, 20, size=(chip_smoke.SURVIVOR_BATCH, STRESS_LEN)).astype(np.int8)
+    lengths = rng.integers(STRESS_LEN // 2, STRESS_LEN + 1,
+                           size=chip_smoke.SURVIVOR_BATCH).astype(np.int32)
+    staged = scanner.stage(tokens, lengths)
+    p7s = {}
+    for kind, c, stems, label in stress_cases(cs, wide_cs):
+        if stems not in p7s:
+            p7s[stems] = chip_smoke.P7Profile.from_profile(chip_smoke.wide_profile(stems))
+        p7 = p7s[stems]
+        m_pad = p7_cuda.default_m_pad(p7)
+        if kind == "lazy":
+            pack = p7_cuda.viterbi_pack(p7, dev, lazy=True, lazy_k=1)
+        elif kind == "filter":
+            pack = p7_cuda.filter_pack(p7, dev, window_log2=p7_cuda.chain_passes(m_pad))
+        else:
+            pack = p7_cuda.forward_pack(p7, dev)
+        if kind == "backward":
+            schain = chip_smoke.posterior_cuda.suffix_chain_rows(p7, dev)
+            b_in = chip_smoke.backward_inputs(pack, schain, staged)
+
+            def call():
+                return (chip_smoke.posterior_cuda.backward_coverage_scan_cuda(*b_in),)
+        else:
+            run, carry = chip_smoke.p7_calls(kind, pack, staged)
+
+            def call():
+                return run(chip_smoke.CUDA_FNS[kind], staged.tokens, staged.lengths, carry)
+        fn = P7_WRAPPERS[kind]
+        msv_cuda.zero_launches(fn)
+        first = None
+        for i in range(n):
+            print(f"start {label} {c} {i}", flush=True)
+            got = call()
+            torch.cuda.synchronize()
+            if first is None:
+                first = got
+                if kind == "lazy":
+                    fires = int(got[5].sum())
+                    chip_smoke.require(fires > 0 or p7_cuda.chain_passes(m_pad) > 15,
+                                       f"stress lazy C {c}: lazy_k = 1 never fired")
+                    print(f"lazy at C {c} (M_pad {m_pad}): {fires} chunks replayed a launch",
+                          flush=True)
+            else:
+                chip_smoke.require(all(torch.equal(g, w) for g, w in zip(got, first)),
+                                   f"stress {label} C {c} launch {i}: not equal to the first")
+            print(f"done {label} {c} {i}", flush=True)
+        wide = p7_cuda.wide_cluster_case(m_pad, kind)
+        by_c = fn.block_cluster_launches if wide else fn.cluster_launches
+        chip_smoke.require(by_c == {c: n} and fn.mem_launches == 0,
+                           f"stress {kind} C {c}: launches {counters(fn)}, "
+                           f"{dict(fn.block_cluster_launches)}; expected {n} at C {c}")
+    print("STRESS_DONE", flush=True)
+    return 0
+
+
+def stress(n: int, cs, wide_cs) -> int:
+    """Run stress_child in a child process and watch it: fails, naming the
+    launch under way, when the child falls silent for STRESS_SILENCE
+    seconds or exits otherwise than 0."""
+    cmd = [sys.executable, __file__, "--stress-child", str(n),
+           "--stress-c", ",".join(map(str, cs)), "--stress-wide", ",".join(map(str, wide_cs))]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+    sel = selectors.DefaultSelector()
+    sel.register(child.stdout, selectors.EVENT_READ)
+    last, done, launches = "the child's set-up", False, {}
+    try:
+        while True:
+            if not sel.select(STRESS_SILENCE):
+                child.kill()
+                child.wait()
+                print(f"STRESS_HANG: no launch ended for {STRESS_SILENCE} s; under way: {last}",
+                      flush=True)
+                return 1
+            line = child.stdout.readline()
+            if not line:
+                break
+            line = line.strip()
+            if line.startswith("start "):
+                last = line[len("start "):]
+            elif line.startswith("done "):
+                kind, c, _ = line.split()[1:]
+                launches[f"{kind}_c{c}"] = launches.get(f"{kind}_c{c}", 0) + 1
+            elif line == "STRESS_DONE":
+                done = True
+            else:
+                print(line, flush=True)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+    ok = done and child.returncode == 0
+    print(json.dumps({"stress": "ok" if ok else "failed", "launches_each": n,
+                      "launches": launches, "total_launches": sum(launches.values()),
+                      "seconds": time.perf_counter() - t0, "last": last,
+                      "child_rc": child.returncode}), flush=True)
+    return 0 if ok else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--widths", default=",".join(str(w) for w in WIDTHS))
@@ -351,11 +612,25 @@ def main() -> int:
     pairs = sorted({(p7_cuda.cluster_blocks(m, "eager"), p7_cuda.kernel_case(m, "eager")[1])
                     for m in range(p7_cuda.MAX_BLOCK_STATES + 8, p7_cuda.MAX_KERNEL_STATES + 1, 8)})
     ap.add_argument("--blocks", default=",".join(f"{c}:{per}" for c, per in pairs))
+    wide = sorted({p7_cuda.cluster_blocks(m, "save")
+                   for m in range(p7_cuda.MAX_CLUSTER_STATES + 8, p7_cuda.MAX_KERNEL_STATES + 1, 8)})
+    ap.add_argument("--wide", default=",".join(map(str, wide)))
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--stress", type=int, default=0)
+    ap.add_argument("--stress-child", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--stress-c", default=",".join(str(c) for c in range(4, p7_cuda.MAX_CLUSTER + 1)))
+    ap.add_argument("--stress-wide", default=",".join(map(str, wide)))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_cluster_check: no CUDA card", file=sys.stderr)
         return 1
+    stress_cs = [int(x) for x in args.stress_c.split(",") if x]
+    stress_wide = [int(x) for x in args.stress_wide.split(",") if x]
+    if args.stress_child:
+        return stress_child(args.stress_child, stress_cs, stress_wide)
+    if args.stress:
+        _build.build()  # once, before the child's clock starts
+        return stress(args.stress, stress_cs, stress_wide)
     card = chip_smoke.nvidia_smi("name,power.limit")
     print(card, flush=True)
     dev = torch.device(chip_smoke.DEVICE)
@@ -382,6 +657,12 @@ def main() -> int:
     for m_pad in block_cluster_widths(pairs):
         print(json.dumps(p7_block_join(rng, scanner, random_profile(fuzz, m_pad),
                                        f"random M_pad {m_pad}", args.time)), flush=True)
+    wide_block = p7_cuda.WIDE_CLUSTER_THREADS * p7_cuda.WIDE_CLUSTER_PER[-1]
+    for k, (c, high) in enumerate((int(x), high) for x in args.wide.split(",") if x
+                                  for high in (False, True)):
+        stems = join_stems(c, high, wide_block)
+        print(json.dumps(p7_wide_cluster(rng, scanner, chip_smoke.wide_profile(stems),
+                                         "+".join(stems), args.time, k == 0)), flush=True)
 
     errors = dict.fromkeys(chip_smoke.KERNELS, 0.0)
     chip_smoke.wide_kernels_vs_plain(scanner, rng, errors)

@@ -1,7 +1,7 @@
 """Check and time the wide cases of the PyTorch port's kernels on the card.
 
     python3 tools/torch_wide_timing.py [--tree DIR] [--label NAME] [--check] [--mem]
-                                       [--posterior] [--block] [--rule]
+                                       [--posterior] [--clusters] [--block] [--rule]
 
 The wide cases are the kernels' code paths for profiles of 2433 to 4864
 states (M_pad). With --check, chip_smoke.py's phase-8 check of them runs
@@ -25,7 +25,12 @@ itself, once after a warm-up (rows ``<kernel>_30181``). With --posterior
 (in place of the wide timings) it times the posterior pair past 2432 states
 alone: the row-saving Forward and the backward pass on its rows at 64 x
 1024 against LENG 4770, 6977, 30181 and 60362, best of 3 (rows
-``<kernel>_<LENG>``), the same work for any tree. With --block (in place
+``<kernel>_<LENG>``), and at LENG 60362 also at the sequences of one
+posterior_coverage_batch call, 26 x 1024 (rows ``<kernel>_60362_chunk``),
+the same work for any tree. With --clusters (in place of the wide timings,
+beside --posterior) it times the lazy Viterbi, the Viterbi filter and
+Forward against the LENG 6977 and 30181 joins at 64 x 1000, best of 3 (rows
+``<kernel>_<LENG>``: the C-block clusters of 3 and 13 blocks). With --block (in place
 of the wide timings) it times the eager Viterbi and the log-space Forward
 past 4864 states alone, through whatever case the tree plans (the
 rows-in-memory case before the wide block and, past 9216 states, before
@@ -90,39 +95,75 @@ def p7_rows_30181(chip_smoke, scanner, rng, work: dict) -> dict:
 def posterior_rows_past(chip_smoke, scanner, rng, work: dict) -> dict:
     """The posterior pair at 64 x 1024 against the wider wide profile (LENG
     4770) and the joins past 4864 states (LENG 6977 and 30181, and the
-    all-24 join twice over, LENG 60362): the row-saving Forward, then the
+    all-24 join twice over, LENG 60362, there also at the 26 rows of one
+    posterior_coverage_batch call): the row-saving Forward, then the
     backward pass on its rows, each best of 3 after a warm-up, through the
     tree's own helpers; no plain version. Rows ``forward_save_scan_<LENG>``
-    and ``backward_coverage_scan_<LENG>``."""
+    and ``backward_coverage_scan_<LENG>`` (``..._chunk`` at 26 rows)."""
     b, n = chip_smoke.SURVIVOR_BATCH, chip_smoke.POST_TIME_LEN
     tokens = rng.integers(0, 20, size=(b, n)).astype(np.int8)
-    staged = scanner.stage(tokens, np.full(b, n, dtype=np.int32))
     post = chip_smoke.posterior_cuda
+    p7_cuda = chip_smoke.p7_cuda
     out = {}
     for hmm in (chip_smoke.wide_profiles()[1], *chip_smoke.mem_profiles(),
                 chip_smoke.msv_mem_profile()):
         p7 = chip_smoke.P7Profile.from_profile(hmm)
-        fpack = chip_smoke.p7_cuda.forward_pack(p7, scanner.device)
+        fpack = p7_cuda.forward_pack(p7, scanner.device)
         schain = post.suffix_chain_rows(p7, scanner.device)
-        fwd_in = (*fpack[:4], staged.tokens, staged.lengths, staged.tr_rows, staged.tr_probs,
-                  fpack.consts, *chip_smoke.p7_cuda.forward_init_carry(staged.tr_probs,
-                                                                       fpack.m_pad))
-        saved = post.forward_save_scan_cuda(*fwd_in)
-        bwd_in = (fpack.emit_m, fpack.emit_i, fpack.trans, schain, staged.tokens, staged.lengths,
-                  staged.tr_probs, fpack.consts, saved[0], saved[5], saved[6])
-        cells = b * n * p7.num_states
-        for name, fn, args, ops, moved in (
-                ("forward_save_scan", post.forward_save_scan_cuda, fwd_in,
-                 chip_smoke.OPS_PER_CELL["forward"](fpack.chain.shape[0]), (*fwd_in, *saved)),
-                ("backward_coverage_scan", post.backward_coverage_scan_cuda, bwd_in,
-                 chip_smoke.OPS_PER_CELL["backward"](schain.shape[0]),
-                 (*bwd_in, saved[0]))):
-            ms = chip_smoke.best_ms(lambda: fn(*args), reps=3)
+        shapes = [(b, "")]
+        if p7.num_states > p7_cuda.MAX_CLUSTER_STATES:
+            shapes.append((post.POST_BYTES // (n * fpack.m_pad * 2), "_chunk"))
+        for rows, tag in shapes:
+            staged = scanner.stage(tokens[:rows], np.full(rows, n, dtype=np.int32))
+            fwd_in = (*fpack[:4], staged.tokens, staged.lengths, staged.tr_rows,
+                      staged.tr_probs, fpack.consts,
+                      *p7_cuda.forward_init_carry(staged.tr_probs, fpack.m_pad))
+            saved = post.forward_save_scan_cuda(*fwd_in)
+            bwd_in = (fpack.emit_m, fpack.emit_i, fpack.trans, schain, staged.tokens,
+                      staged.lengths, staged.tr_probs, fpack.consts, saved[0], saved[5],
+                      saved[6])
+            cells = rows * n * p7.num_states
+            for name, fn, args, ops, moved in (
+                    ("forward_save_scan", post.forward_save_scan_cuda, fwd_in,
+                     chip_smoke.OPS_PER_CELL["forward"](fpack.chain.shape[0]),
+                     (*fwd_in, *saved)),
+                    ("backward_coverage_scan", post.backward_coverage_scan_cuda, bwd_in,
+                     chip_smoke.OPS_PER_CELL["backward"](schain.shape[0]),
+                     (*bwd_in, saved[0]))):
+                ms = chip_smoke.best_ms(lambda: fn(*args), reps=3)
+                key = f"{name}_{p7.num_states}{tag}"
+                out[key] = (ms, float("nan"))
+                work[key] = (ops * cells, chip_smoke.nbytes(*moved))
+                print(f"{key}: {ms:.3f} ms (best of 3, {rows} x {n} x M={p7.num_states})",
+                      flush=True)
+            del saved, bwd_in
+    return out
+
+
+def cluster_rows_past(chip_smoke, scanner, rng, work: dict) -> dict:
+    """The lazy Viterbi, the Viterbi filter and Forward at 64 x 1000
+    against the joins of chip_smoke.MEM_JOINS (LENG 6977 and 30181: the
+    C-block clusters of 3 and 13 128-thread blocks), best of 3 after a
+    warm-up, through the tree's own helpers; no plain version. Rows
+    ``<kernel>_<LENG>``."""
+    b, n = chip_smoke.SURVIVOR_BATCH, chip_smoke.MEM_TIME_LEN
+    tokens = rng.integers(0, 20, size=(b, n)).astype(np.int8)
+    staged = scanner.stage(tokens, np.full(b, n, dtype=np.int32))
+    out = {}
+    for hmm in chip_smoke.mem_profiles():
+        p7 = chip_smoke.P7Profile.from_profile(hmm)
+        packs = chip_smoke.p7_packs(p7, scanner.device)
+        for name, kind in (("viterbi_lazy_scan", "lazy"), ("viterbi_filter_scan", "filter"),
+                           ("forward_prob_scan", "forward")):
+            run, carry = chip_smoke.p7_calls(kind, packs[kind], staged)
+            fn = chip_smoke.CUDA_FNS[kind]
+            ms = chip_smoke.best_ms(lambda: run(fn, staged.tokens, staged.lengths, carry), reps=3)
             key = f"{name}_{p7.num_states}"
             out[key] = (ms, float("nan"))
-            work[key] = (ops * cells, chip_smoke.nbytes(*moved))
+            passes = chip_smoke.passes_of(kind, packs[kind])
+            work[key] = (chip_smoke.OPS_PER_CELL[kind](passes) * b * n * p7.num_states,
+                         chip_smoke.nbytes(*packs[kind][:4], staged.tokens))
             print(f"{key}: {ms:.3f} ms (best of 3, {b} x {n} x M={p7.num_states})", flush=True)
-        del saved, bwd_in
     return out
 
 
@@ -202,6 +243,7 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--mem", action="store_true")
     ap.add_argument("--posterior", action="store_true")
+    ap.add_argument("--clusters", action="store_true")
     ap.add_argument("--block", action="store_true")
     ap.add_argument("--rule", action="store_true")
     args = ap.parse_args()
@@ -226,12 +268,14 @@ def main() -> int:
     errors = dict.fromkeys(chip_smoke.KERNELS, 0.0)
     if args.check:
         chip_smoke.wide_kernels_vs_plain(scanner, rng, errors)
-    work = {}
+    work, out = {}, {}
     if args.posterior:
-        out = posterior_rows_past(chip_smoke, scanner, rng, work)
-    elif args.block:
-        out = block_rows_past(chip_smoke, scanner, rng, work, args.rule)
-    else:
+        out.update(posterior_rows_past(chip_smoke, scanner, rng, work))
+    if args.clusters:
+        out.update(cluster_rows_past(chip_smoke, scanner, rng, work))
+    if args.block:
+        out.update(block_rows_past(chip_smoke, scanner, rng, work, args.rule))
+    if not (args.posterior or args.clusters or args.block):
         out = chip_smoke.wide_timings(scanner, rng, errors, work)
     if args.mem:
         out.update(chip_smoke.mem_timings(scanner, rng, errors, work))
