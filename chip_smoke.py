@@ -93,22 +93,25 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    the lazy kernel also at lazy_k = 1 with its fire count printed and above
    0, Forward, log-space Forward and the posterior pair within their
    tolerances, the launch counters showing each kind at its case alone),
-   and the LENG 60362 join through the lazy, filter and Forward kinds'
-   rows-in-memory cases, the eager and log-space kinds' cluster of 8 wide
-   blocks and the row-saving Forward's and the backward pass's cluster of
-   13 256-thread blocks the same way (the row-saving Forward within FWD_TOL
-   of its plain version and of the Forward kernel, which runs another case
-   there), and those two again on their rows-in-memory route
-   (posterior_mem_route: no_block_clusters, the occupancy query answering
-   0; the row-saving kernel == the Forward kernel bit for bit); then the
+   and the LENG 60362 join through the filter's rows-in-memory case, the
+   eager, log-space and lazy kinds' cluster of 8 wide blocks (the lazy
+   kernel == plain bit for bit with 0 replays, its scores == eager's, a
+   carry chain == one call) and Forward's, the row-saving Forward's and the
+   backward pass's cluster of 13 256-thread blocks the same way (Forward
+   within FWD_TOL of plain, the row-saving Forward == Forward bit for bit),
+   and the lazy kind, Forward and the posterior pair again on their
+   rows-in-memory route (mem_route_past_38912: no_block_clusters, the
+   occupancy query answering 0; the lazy kernel == plain, Forward within
+   FWD_TOL, the row-saving kernel == the Forward kernel bit for bit); then the
    eager Viterbi and the log-space Forward on their clusters of 2 and 3 wide
    blocks (CLUSTER_JOINS) against plain, each timed once at 64 x 1000, and
    their rows-in-memory route at LENG 30181 on a card that holds no such
    cluster against plain (block_cluster_kernels_vs_plain); then the short
    release stress of the C-block clusters (release_stress:
    tools/torch_cluster_check.py --stress in a process of its own, 10
-   launches a kind at C = 4, 8, 13, 16 of 128-thread blocks and at C = 13
-   of 256-thread blocks, none hung, each equal to its case's first);
+   launches a kind at C = 4, 8, 13, 16 of 128-thread blocks, of Forward
+   and the posterior pair at C = 13 of 256-thread blocks and of the lazy
+   Viterbi on 8 wide blocks, none hung, each equal to its case's first);
 9. main paths, each with every launch count set to 0 just before it and
    read just after, on a seeded FASTA of 16384 x 3500 random residues with
    32 sequences sampled from 1400.hmm and 4 from the LENG 4770 profile at
@@ -185,10 +188,11 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    Forward on 4 wide blocks there (`<kernel>_blocks_30181`, best of 3;
    also at 256 x 400, `<kernel>_blocks_cal`) and through the rows-in-memory
    route of a card without such clusters (`<kernel>_mem`, once), and
-   against the LENG 60362 join the lazy, filter and Forward kinds in
-   memory, once, the eager and log-space Forward on 8 wide blocks
-   (`<kernel>_blocks`, best of 3), the posterior pair on 13 256-thread
-   blocks (`<kernel>_cluster256`, best of 3) and on its rows-in-memory route
+   against the LENG 60362 join the filter in memory, once, the eager Viterbi,
+   the log-space Forward and the lazy Viterbi on 8 wide blocks
+   (`<kernel>_blocks`, best of 3), Forward and the posterior pair on 13
+   256-thread blocks (`<kernel>_cluster256`, best of 3), the lazy Viterbi,
+   Forward and the posterior pair on their rows-in-memory route
    (`<kernel>_mem`, once), and the posterior pair at one
    posterior_coverage_batch chunk there (26 x 1024, both routes, once:
    post_chunk_timings); the parent's time beside each), each plain version
@@ -487,6 +491,11 @@ PARENT_WIDE_MS = {
     # 38,912 states (LENG 60362, 64 x 1024), its final chip_smoke.py run on
     # PARENT_CARD, before their clusters of 256-thread blocks
     "forward_save_scan_cluster256": 355.919, "backward_coverage_scan_cluster256": 337.563,
+    # the parent a59689b's rows-in-memory case of the lazy Viterbi and
+    # Forward past 38,912 states (LENG 60362, 64 x 1000), its final
+    # chip_smoke.py run on PARENT_CARD, before the lazy kind's cluster of
+    # wide blocks and Forward's cluster of 256-thread blocks
+    "viterbi_lazy_scan_blocks": 501.385, "forward_prob_scan_cluster256": 335.946,
 }
 
 # the sweep timing batch (sweep24, sweep24_filter) and the profiles the plain
@@ -564,18 +573,35 @@ MEM = "_mem"
 BLOCK = "_block"
 BLOCKS = "_blocks"
 BLOCK_WRAPPERS = ("viterbi_scan", "forward_log_scan")
-# the row-saving Forward's and the backward pass's cases past 38,912 states
-# (up to 65536): C-block clusters of p7_cuda.WIDE_CLUSTER_THREADS-thread
-# blocks, C = 9..14: their own JSON lines, their launches summed from the
-# wrapper's block_cluster_launches (a dict by C); their rows-in-memory case
-# (`_mem`) is the route of a card that holds no such cluster, driven with the
-# occupancy query answering 0 (no_block_clusters) at LENG 60362
+# the wrappers with clusters of wide blocks: the two above past 9216 states
+# and, past 38,912, the lazy Viterbi (its whole-chain step); the lazy kind's
+# rows-in-memory case (`_mem`) is the route of a card that holds no such
+# cluster, driven with no_block_clusters at LENG 60362
+BLOCKS_WRAPPERS = BLOCK_WRAPPERS + ("viterbi_lazy_scan",)
+# Forward's, the row-saving Forward's and the backward pass's cases past
+# 38,912 states (up to 65536): C-block clusters of
+# p7_cuda.WIDE_CLUSTER_THREADS-thread blocks, C = 9..14: their own JSON
+# lines, their launches summed from the wrapper's block_cluster_launches (a
+# dict by C); their rows-in-memory case (`_mem`) is the route of a card that
+# holds no such cluster, driven with the occupancy query answering 0
+# (no_block_clusters) at LENG 60362
 CLUSTER256 = "_cluster256"
-POST_WRAPPERS = ("forward_save_scan", "backward_coverage_scan")
+CLUSTER256_WRAPPERS = ("forward_prob_scan", "forward_save_scan", "backward_coverage_scan")
 # build's calibration shape (models/build.py::calibrate_profile at LENG >=
 # 400): the wide block timed there too (`<kernel>_block_cal`)
 CAL_BATCH, CAL_LEN = 256, 400
 MAX_BLOCK = p7_cuda.MAX_BLOCK_STATES
+
+
+def mem_states(name: str) -> int:
+    """The states past which ``name``'s kernel runs a rows-in-memory case
+    (every kind but MSV and the filter only on a card that holds none of its
+    clusters)."""
+    if name == "viterbi_lazy_scan":
+        return p7_cuda.LAZY_BLOCK_STATES
+    return msv_cuda.MAX_CLUSTER_STATES if name in CLUSTER_WRAPPERS else MAX_BLOCK
+
+
 KERNELS.update({
     **{name + WIDE: (source, replaces, f"{mode}; M_pad 2440..4864")
        for name, (source, replaces, mode) in KERNELS.items()},
@@ -584,20 +610,21 @@ KERNELS.update({
     **{name + BLOCK: (source, replaces, f"{mode}; M_pad 4872..{p7_cuda.MAX_BLOCK_STATES}, "
                       f"the wide block ({p7_cuda.BLOCK_THREADS} threads a sequence)")
        for name, (source, replaces, mode) in KERNELS.items() if name in BLOCK_WRAPPERS},
-    **{name + BLOCKS: (source, replaces, f"{mode}; M_pad {MAX_BLOCK + 8}.."
-                       f"{p7_cuda.MAX_KERNEL_STATES}, clusters of 2..{p7_cuda.MAX_BLOCK_CLUSTER} "
-                       f"wide blocks")
-       for name, (source, replaces, mode) in KERNELS.items() if name in BLOCK_WRAPPERS},
+    **{name + BLOCKS: (source, replaces, (
+        f"{mode}; M_pad {MAX_BLOCK + 8}..{p7_cuda.MAX_KERNEL_STATES}, clusters of "
+        f"2..{p7_cuda.MAX_BLOCK_CLUSTER} wide blocks" if name in BLOCK_WRAPPERS else
+        f"{mode}; M_pad {p7_cuda.LAZY_BLOCK_STATES + 8}..{p7_cuda.MAX_KERNEL_STATES}, clusters "
+        f"of 5..{p7_cuda.MAX_BLOCK_CLUSTER} wide blocks, the whole 16-pass chain"))
+       for name, (source, replaces, mode) in KERNELS.items() if name in BLOCKS_WRAPPERS},
     **{name + CLUSTER256: (source, replaces, f"{mode}; M_pad {msv_cuda.MAX_CLUSTER_STATES + 8}.."
                            f"{p7_cuda.MAX_KERNEL_STATES}, C-block clusters of "
                            f"{p7_cuda.WIDE_CLUSTER_THREADS}-thread blocks")
-       for name, (source, replaces, mode) in KERNELS.items() if name in POST_WRAPPERS},
-    **{name + MEM: (source, replaces, f"{mode}; M_pad past "
-                    f"{msv_cuda.MAX_CLUSTER_STATES if name in CLUSTER_WRAPPERS else MAX_BLOCK}, "
+       for name, (source, replaces, mode) in KERNELS.items() if name in CLUSTER256_WRAPPERS},
+    **{name + MEM: (source, replaces, f"{mode}; M_pad past {mem_states(name)}, "
                     "rows in global memory" + (
-                        " (a card that holds no cluster of wide blocks)" if name in BLOCK_WRAPPERS
+                        " (a card that holds no cluster of wide blocks)" if name in BLOCKS_WRAPPERS
                         else " (a card that holds no cluster of 256-thread blocks)"
-                        if name in POST_WRAPPERS else ""))
+                        if name in CLUSTER256_WRAPPERS else ""))
        for name, (source, replaces, mode) in KERNELS.items()},
 })
 
@@ -717,23 +744,23 @@ def launches() -> dict:
                for name in CLUSTER_WRAPPERS},
             **{name + BLOCK: WRAPPERS[name].block_launches for name in BLOCK_WRAPPERS},
             **{name + BLOCKS: sum(WRAPPERS[name].block_cluster_launches.values())
-               for name in BLOCK_WRAPPERS},
+               for name in BLOCKS_WRAPPERS},
             **{name + CLUSTER256: sum(WRAPPERS[name].block_cluster_launches.values())
-               for name in POST_WRAPPERS},
+               for name in CLUSTER256_WRAPPERS},
             **{name + MEM: fn.mem_launches for name, fn in WRAPPERS.items()}}
 
 
 def cluster_launches() -> dict:
     """The launches of the wrappers with C-block clusters in clusters, by C
-    (the p7 ones' cluster pairs at C = 2 included), of the eager and
-    log-space wrappers in clusters of wide blocks, by C, and of the
-    posterior pair's in clusters of 256-thread blocks, by C."""
+    (the p7 ones' cluster pairs at C = 2 included), of the eager, log-space
+    and lazy wrappers in clusters of wide blocks, by C, and of Forward's and
+    the posterior pair's in clusters of 256-thread blocks, by C."""
     return {**{name: dict(sorted(WRAPPERS[name].cluster_launches.items()))
                for name in CLUSTER_WRAPPERS},
             **{name + BLOCKS: dict(sorted(WRAPPERS[name].block_cluster_launches.items()))
-               for name in BLOCK_WRAPPERS},
+               for name in BLOCKS_WRAPPERS},
             **{name + CLUSTER256: dict(sorted(WRAPPERS[name].block_cluster_launches.items()))
-               for name in POST_WRAPPERS}}
+               for name in CLUSTER256_WRAPPERS}}
 
 
 @contextlib.contextmanager
@@ -741,9 +768,9 @@ def no_block_clusters():
     """The card as one that holds no cluster of blocks wider than 128
     threads: device_plan's occupancy query answers 0 for them, so the eager
     and log-space kinds plan their rows-in-memory case past MAX_BLOCK and
-    the row-saving Forward and the backward pass theirs past 38,912 (the
-    route such a card takes, logged); every other query as the card answers
-    it."""
+    the lazy kind, Forward, the row-saving Forward and the backward pass
+    theirs past 38,912 (the route such a card takes, logged); every other
+    query as the card answers it."""
     held = p7_cuda._cluster_held
 
     def query(kind, per, smem, index, cluster, threads=p7_cuda.KERNEL_THREADS):
@@ -2007,21 +2034,21 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     pass on their C-block clusters, the eager Viterbi and the log-space
     Forward on the wide block (LENG 6977) and on a cluster of 4 wide blocks
     (30181); then the all-24 join twice over (LENG 60362, past 38,912)
-    through the lazy, filter and Forward kinds' rows-in-memory cases, the
-    eager and log-space kinds' cluster of 8 wide blocks and the row-saving
-    Forward's and the backward pass's cluster of 13 256-thread blocks, and
-    those two again on their rows-in-memory route (a card that holds no such
-    cluster, no_block_clusters). Eager,
+    through the filter's rows-in-memory case, the eager, log-space and lazy
+    kinds' cluster of 8 wide blocks and Forward's, the row-saving Forward's
+    and the backward pass's cluster of 13 256-thread blocks, and the lazy
+    kind, Forward and the posterior pair again on their rows-in-memory route
+    (a card that holds no such cluster, no_block_clusters:
+    mem_route_past_38912). Eager,
     lazy (replay counts included) and the Viterbi filter bit for bit, the
     filter >= the exact scores; the lazy kernel again at lazy_k = 1, whose
     certificate fires below 16 chain passes (the fire count printed, above
-    0), bit for bit; Forward within FWD_TOL and log-space Forward within
+    0), bit for bit; past 38,912 the lazy kernel with no replay and a carry
+    chain == one call; Forward within FWD_TOL and log-space Forward within
     LOG_FWD_TOL of plain, the row-saving Forward == Forward bit for bit
-    where both run one case (past 38,912, where the row-saving Forward's
-    cluster and Forward's rows-in-memory case sum E in other orders, its
-    scores and carries within FWD_TOL of its plain version's and its scores
-    within FWD_TOL of the Forward kernel's; on the rows-in-memory route ==
-    Forward bit for bit again), eager and Forward carry chains == one call;
+    where both run one case (every width; if a card ran them on different
+    cases, within FWD_TOL of its plain version and of the Forward kernel),
+    eager and Forward carry chains == one call;
     the backward pass on the kernel's own rows within COV_TOL of plain and
     the whole decode within COV_TOL / TOT_TOL. Each kind must launch its
     case and no other (the launch counters: cluster_launches and
@@ -2049,6 +2076,10 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
                     f"{expected_case(m_pad, base)}")
             cases[base] = case_suffix(plan)
         l_err = require_equal(got["lazy"], want["lazy"], f"{hmm.name[:40]} lazy kernel vs plain")
+        if p7_cuda.block_cluster_case(m_pad, "lazy"):
+            require(int(got["lazy"][5].sum()) == 0, f"{hmm.name[:40]}: the lazy kernel replayed "
+                    f"{int(got['lazy'][5].sum())} chunks on the whole chain")
+            l_err = max(l_err, p7_chain_error("lazy", packs["lazy"], staged))
         plan = p7_cuda.device_plan("backward", m_pad, passes_of("backward", packs["forward"]),
                                    WIDE_BATCH, DEVICE)
         require((plan.cluster, plan.threads) == expected_case(m_pad, "backward"),
@@ -2107,7 +2138,7 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
             c = p7_cuda.cluster_blocks(m_pad, kind)
             if p7_cuda.block_cluster_case(m_pad, kind):
                 require(set(by_c[name + BLOCKS]) == {c} and got_l[name + MEM] == 0
-                        and got_l[name + BLOCK] == 0,
+                        and got_l.get(name + BLOCK, 0) == 0,
                         f"{hmm.name[:40]} {name}: launches {got_l}, by C {by_c[name + BLOCKS]}; "
                         f"expected the cluster of {c} wide blocks only")
             elif p7_cuda.wide_cluster_case(m_pad, kind):
@@ -2135,37 +2166,51 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
               f"Forward {s_err:.3g}; backward on its rows {b_err:.3g}, decode coverage "
               f"{c_err:.3g} totals {t_err:.3g}; launches by C {by_c}", flush=True)
         if p7_cuda.wide_cluster_case(m_pad, "save"):
-            posterior_mem_route(p7, packs["forward"], schain, staged, got["forward"], errors)
+            mem_route_past_38912(p7, packs, schain, staged, want, errors)
 
 
-def posterior_mem_route(p7, fpack, schain, staged, forward, errors: dict) -> None:
-    """The row-saving Forward and the backward pass past 38,912 states on
-    the rows-in-memory route of a card that holds no cluster of 256-thread
-    blocks (no_block_clusters): the row-saving kernel == the Forward
-    kernel's ``forward`` bit for bit (both its rows-in-memory case), the
+def mem_route_past_38912(p7, packs, schain, staged, want, errors: dict) -> None:
+    """The lazy Viterbi, Forward, the row-saving Forward and the backward
+    pass past 38,912 states on the rows-in-memory route of a card that
+    holds no cluster of wide or 256-thread blocks (no_block_clusters): the
+    lazy kernel == its plain version's ``want["lazy"]`` bit for bit, Forward
+    within FWD_TOL of ``want["forward"]``, the row-saving kernel == the
+    Forward kernel bit for bit (both their rows-in-memory case), the
     backward pass on its rows within COV_TOL of plain, each wrapper's
     mem_launches showing the route and no cluster launch."""
+    fpack = packs["forward"]
     run, carry = p7_calls("save", fpack, staged)
+    run_l, carry_l = p7_calls("lazy", packs["lazy"], staged)
     with no_block_clusters():
         zero_launches()
+        lazy = run_l(CUDA_FNS["lazy"], staged.tokens, staged.lengths, carry_l)
+        forward = run(CUDA_FNS["forward"], staged.tokens, staged.lengths, carry)
         saved = run(CUDA_FNS["save"], staged.tokens, staged.lengths, carry)
         bwd_in = backward_inputs(fpack, schain, staged)
         cov = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
         torch.cuda.synchronize()
         got = launches()
+    l_err = require_equal(lazy, want["lazy"], f"LENG {p7.num_states} lazy kernel on the "
+                          "rows-in-memory route vs plain")
+    f_err = max_abs_diff(forward[0], want["forward"][0])
+    require(f_err <= FWD_TOL, f"LENG {p7.num_states} Forward on the rows-in-memory route vs "
+            f"plain: {f_err}")
     s_err = require_equal(saved[:5], forward, f"LENG {p7.num_states} row-saving Forward on the "
                           "rows-in-memory route vs the Forward kernel")
     b_err = max_abs_diff(cov, posterior_cuda.backward_coverage_scan_plain(*bwd_in))
     require(b_err <= COV_TOL, f"LENG {p7.num_states} backward pass on the rows-in-memory route "
             f"vs plain: {b_err}")
-    for name in POST_WRAPPERS:
-        require(got[name + MEM] > 0 and got[name + CLUSTER256] == 0,
+    for name in CLUSTER256_WRAPPERS + ("viterbi_lazy_scan",):
+        require(got[name + MEM] > 0 and got[name + CLUSTER256 if name in CLUSTER256_WRAPPERS
+                                             else name + BLOCKS] == 0,
                 f"the rows-in-memory route did not launch {name}'s memory case alone ({got})")
-    errors["forward_save_scan" + MEM] = max(errors["forward_save_scan" + MEM], s_err)
-    errors["backward_coverage_scan" + MEM] = max(errors["backward_coverage_scan" + MEM], b_err)
-    print(f"the rows-in-memory route (no cluster of 256-thread blocks held), LENG "
-          f"{p7.num_states}: row-saving Forward == the Forward kernel, backward on its rows "
-          f"{b_err:.3g}; launches {nonzero(got)}", flush=True)
+    for name, err in (("viterbi_lazy_scan", l_err), ("forward_prob_scan", f_err),
+                      ("forward_save_scan", s_err), ("backward_coverage_scan", b_err)):
+        errors[name + MEM] = max(errors[name + MEM], err)
+    print(f"the rows-in-memory route (no cluster of wide or 256-thread blocks held), LENG "
+          f"{p7.num_states}: lazy == plain, Forward {f_err:.3g}, row-saving Forward == the "
+          f"Forward kernel, backward on its rows {b_err:.3g}; launches {nonzero(got)}",
+          flush=True)
 
 
 def block_cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
@@ -2244,22 +2289,24 @@ def block_cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
 
 
 # the short release stress of the C-block clusters (tools/torch_cluster_check.py
-# --stress): launches a kind and case, the 128-thread clusters' C and the
-# 256-thread clusters' C
-STRESS_LAUNCHES, STRESS_C, STRESS_WIDE_C = 10, (4, 8, 13, 16), (13,)
+# --stress): launches a kind and case, the 128-thread clusters' C, the
+# 256-thread clusters' C and the lazy kind's clusters of wide blocks' C
+STRESS_LAUNCHES, STRESS_C, STRESS_WIDE_C, STRESS_BLOCKS_C = 10, (4, 8, 13, 16), (13,), (8,)
 
 
 def release_stress() -> None:
     """tools/torch_cluster_check.py --stress STRESS_LAUNCHES in a process of
     its own: the lazy Viterbi replaying the whole chain, the Viterbi filter
     at its longest window, Forward, the row-saving Forward and the backward
-    pass on C-block clusters of 128-thread blocks at each C of STRESS_C, the
-    posterior pair on 256-thread blocks at STRESS_WIDE_C, every launch equal
-    to its case's first; a hang (no launch ending for its STRESS_SILENCE
-    seconds) fails, naming the launch under way."""
+    pass on C-block clusters of 128-thread blocks at each C of STRESS_C,
+    Forward and the posterior pair on 256-thread blocks at STRESS_WIDE_C,
+    the lazy Viterbi on clusters of wide blocks at STRESS_BLOCKS_C, every
+    launch equal to its case's first; a hang (no launch ending for its
+    STRESS_SILENCE seconds) fails, naming the launch under way."""
     cmd = [sys.executable, str(REPO / "tools" / "torch_cluster_check.py"), "--stress",
            str(STRESS_LAUNCHES), "--stress-c", ",".join(map(str, STRESS_C)), "--stress-wide",
-           ",".join(map(str, STRESS_WIDE_C))]
+           ",".join(map(str, STRESS_WIDE_C)), "--stress-blocks",
+           ",".join(map(str, STRESS_BLOCKS_C))]
     t0 = time.perf_counter()
     done = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, timeout=600)
     result = next((json.loads(line) for line in done.stdout.splitlines()
@@ -2268,8 +2315,9 @@ def release_stress() -> None:
             f"release stress (rc {done.returncode}): {done.stdout[-2000:]} "
             f"{done.stderr[-2000:]}")
     print(f"release stress: {result['total_launches']} launches ({STRESS_LAUNCHES} a kind and "
-          f"case, C {STRESS_C} at 128 threads, {STRESS_WIDE_C} at 256), none hung, each equal "
-          f"to its case's first, {time.perf_counter() - t0:.1f} s", flush=True)
+          f"case, C {STRESS_C} at 128 threads, {STRESS_WIDE_C} at 256, {STRESS_BLOCKS_C} wide "
+          f"blocks), none hung, each equal to its case's first, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def mem_paths(tmp: pathlib.Path, rng) -> dict:
@@ -2290,12 +2338,13 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     (log-space) on the wide block, and on MEM_PLANTED rows the entry points
     of the eager and lazy Viterbi, the Viterbi filter, Forward, the
     log-space Forward and the posterior decode with the LENG 60362 join
-    (the eager and log-space kinds' cluster of 8 wide blocks, the posterior
-    pair's cluster of 13 256-thread blocks, the others' rows-in-memory cases
-    past 38,912 states), the posterior decode there again on a card that
-    holds no cluster of 256-thread blocks and the eager and log-space
-    entries with the LENG 30181 join on a card that holds no cluster of wide
-    blocks (no_block_clusters: their rows-in-memory cases)."""
+    (the eager, log-space and lazy kinds' cluster of 8 wide blocks,
+    Forward's and the posterior pair's cluster of 13 256-thread blocks, the
+    filter's rows-in-memory case), the lazy, Forward and posterior entries
+    there again on a card that holds no cluster of wide or 256-thread
+    blocks and the eager and log-space entries with the LENG 30181 join on
+    a card that holds no cluster of wide blocks (no_block_clusters: their
+    rows-in-memory cases)."""
     hmm_dir = tmp / "hmms_mem"
     hmm_dir.mkdir()
     joins = mem_profiles() + [msv_mem_profile()]
@@ -2424,8 +2473,8 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
 
     rows = slice(0, MEM_PLANTED)
     big_p7 = P7Profile.from_profile(load_profile(big))
-    require(p7_cuda.cluster_blocks(p7_cuda.default_m_pad(big_p7), "lazy") == 1,
-            f"M {big_p7.num_states} is not past the p7 clusters")
+    require(p7_cuda.cluster_blocks(p7_cuda.default_m_pad(big_p7), "filter") == 1,
+            f"M {big_p7.num_states} is not past the 128-thread p7 clusters")
     zero_launches()
     t0 = time.perf_counter()
     lazy_s = viterbi_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE).cpu().numpy()
@@ -2438,20 +2487,19 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     cov, _ = posterior_cuda.posterior_coverage_batch(big_p7, tokens[rows], lengths[rows], DEVICE)
     got = launches()
     by_c = cluster_launches()
-    for name in ("viterbi_lazy_scan", "viterbi_filter_scan", "forward_prob_scan"):
-        require(got[name + MEM] > 0 and got.get(name + CLUSTER, 0) == 0
-                and got.get(name + BLOCK, 0) == 0,
-                f"the entry points past 38,912 states did not launch {name}'s memory case alone "
-                f"({got})")
-        counts[name + MEM] = counts.get(name + MEM, 0) + got[name + MEM]
+    name = "viterbi_filter_scan"
+    require(got[name + MEM] > 0 and got.get(name + CLUSTER, 0) == 0,
+            f"the entry points past 38,912 states did not launch {name}'s memory case alone "
+            f"({got})")
+    counts[name + MEM] = counts.get(name + MEM, 0) + got[name + MEM]
     c_post = p7_cuda.cluster_blocks(p7_cuda.default_m_pad(big_p7), "save")
-    for name in POST_WRAPPERS:
+    for name in CLUSTER256_WRAPPERS:
         require(got[name + CLUSTER256] > 0 and by_c[name + CLUSTER256] == {
                     c_post: got[name + CLUSTER256]} and got[name + MEM] == 0,
-                f"the posterior entry past 38,912 states did not launch {name}'s cluster of "
+                f"the entry points past 38,912 states did not launch {name}'s cluster of "
                 f"{c_post} 256-thread blocks alone ({got}, {by_c[name + CLUSTER256]})")
         counts[name + CLUSTER256] = got[name + CLUSTER256]
-    for name in BLOCK_WRAPPERS:
+    for name in BLOCKS_WRAPPERS:
         require(got[name + BLOCKS] > 0 and by_c[name + BLOCKS] == {8: got[name + BLOCKS]}
                 and got[name + MEM] == 0,
                 f"the entry points past 38,912 states did not launch {name}'s cluster of 8 wide "
@@ -2467,26 +2515,34 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
           f"{np.round(log_s, 2).tolist()}, posterior coverage finite, in "
           f"{time.perf_counter() - t0:.3f} s; launches {got}")
 
-    # the posterior decode's route on a card that holds no cluster of
-    # 256-thread blocks, LENG 60362: its rows-in-memory cases
+    # the route of a card that holds no cluster of wide or 256-thread
+    # blocks, LENG 60362: the lazy, Forward and posterior entries'
+    # rows-in-memory cases
     zero_launches()
     with no_block_clusters():
         t0 = time.perf_counter()
+        lazy_m = viterbi_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE).cpu().numpy()
+        fwd_m = forward_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE).cpu().numpy()
         cov_m, tot_m = posterior_cuda.posterior_coverage_batch(big_p7, tokens[rows], lengths[rows],
                                                                DEVICE)
         secs = time.perf_counter() - t0
     got = launches()
-    for name in POST_WRAPPERS:
-        require(got[name + MEM] > 0 and got[name + CLUSTER256] == 0,
-                f"the posterior entry with no cluster of 256-thread blocks held did not launch "
-                f"{name}'s memory case alone ({got})")
+    for name in CLUSTER256_WRAPPERS + ("viterbi_lazy_scan",):
+        require(got[name + MEM] > 0 and got[name + CLUSTER256 if name in CLUSTER256_WRAPPERS
+                                             else name + BLOCKS] == 0,
+                f"the entry points with no cluster of wide or 256-thread blocks held did not "
+                f"launch {name}'s memory case alone ({got})")
         counts[name + MEM] = got[name + MEM]
     c_err = float(np.abs(cov_m - cov).max())
-    require(c_err <= COV_TOL, f"LENG {big_p7.num_states} posterior entry: the rows-in-memory "
-            f"route and the cluster of 256-thread blocks differ by {c_err}")
-    print(f"main path past 38,912 states (M {big_p7.num_states}), the posterior entry on "
-          f"{MEM_PLANTED} rows with no cluster of 256-thread blocks held (the rows-in-memory "
-          f"route, {secs:.3f} s): coverage within {c_err:.3g} of the cluster's; launches {got}")
+    f_err = float(np.abs(fwd_m - fwd_s).max())
+    require(np.array_equal(lazy_m, lazy_s) and f_err <= FWD_TOL and c_err <= COV_TOL,
+            f"LENG {big_p7.num_states} entry points: the rows-in-memory route and the clusters "
+            f"differ (lazy equal {np.array_equal(lazy_m, lazy_s)}, Forward {f_err}, coverage "
+            f"{c_err})")
+    print(f"main path past 38,912 states (M {big_p7.num_states}), the lazy, Forward and "
+          f"posterior entries on {MEM_PLANTED} rows with no cluster of wide or 256-thread blocks "
+          f"held (the rows-in-memory route, {secs:.3f} s): lazy == the cluster's, Forward within "
+          f"{f_err:.3g}, coverage within {c_err:.3g}; launches {got}")
 
     # the route of a card that holds no cluster of wide blocks, LENG 30181
     p7_30181 = P7Profile.from_profile(mem_profiles()[1])
@@ -2686,10 +2742,13 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
     the eager and log-space Forward on 4 wide blocks, ``<kernel>_blocks_30181``,
     also at CAL_BATCH x CAL_LEN, ``<kernel>_blocks_cal``, and through the
     rows-in-memory route of a card that holds no such cluster, rows
-    ``<kernel>_mem``) and the LENG 60362 join (the five's rows-in-memory
-    cases, the eager and log-space Forward on 8 wide blocks, rows
-    ``<kernel>_blocks``); each plain version once, held against the kernel;
-    the parent's time beside each (PARENT_WIDE_MS)."""
+    ``<kernel>_mem``) and the LENG 60362 join (the filter's rows-in-memory
+    case, the eager, log-space and lazy kinds on 8 wide blocks, rows
+    ``<kernel>_blocks``, Forward and the posterior pair on 13 256-thread
+    blocks, ``<kernel>_cluster256``, and the lazy kind, Forward and the
+    posterior pair on the rows-in-memory route of a card that holds no such
+    cluster, ``<kernel>_mem``); each plain version once, held against the
+    kernel; the parent's time beside each (PARENT_WIDE_MS)."""
     hmms = mem_profiles()
     # wide enough for the posterior pair's POST_TIME_LEN residues
     tokens = rng.integers(0, 20, size=(WIDE_MSV_BATCH, max(MEM_TIME_LEN, POST_TIME_LEN)))
@@ -2716,7 +2775,8 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
     big = msv_mem_profile()
     out.update(p7_timings_past(scanner, big, tokens, clustered + blocked, errors, work))
     with no_block_clusters():
-        out.update(p7_timings_past(scanner, big, tokens, ("save", "backward"), errors, work))
+        out.update(p7_timings_past(scanner, big, tokens, ("lazy", "forward", "save", "backward"),
+                                   errors, work))
     post_chunk_timings(scanner, big, tokens)
     return out
 

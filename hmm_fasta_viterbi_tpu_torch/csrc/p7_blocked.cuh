@@ -1856,8 +1856,8 @@ constexpr int kClusterSlots = 7;  // per-case tables of the C-block cluster: [pe
 // -- the C-block cluster of 256-thread blocks ------------------------------------
 //
 // Past kMaxCluster * 2432 = 38,912 states (up to the chain's 65536) the
-// Forward template's row-saving case and the backward pass
-// (p7_forward_kernel.cu::forward_wide_cluster_kernel,
+// Forward template's cases (the plain Forward and the row-saving one) and
+// the backward pass (p7_forward_kernel.cu::forward_wide_cluster_kernel,
 // p7_backward_kernel.cu::backward_wide_cluster_kernel) run one sequence on
 // C groups of KT = kWideClusterThreads threads, one in each block of a
 // C-block cluster: the C-block cluster's step and primitives above at KT =
@@ -1962,8 +1962,9 @@ constexpr int kBlockSlots = kBlockPerMax - kBlockPerMin + 1;
 // -- the cluster of wide blocks ------------------------------------------------
 //
 // Past kBlockThreads * kBlockPerMax = 9216 states (up to the chain's 65536)
-// the eager and log-space cases (p7_viterbi.cuh::viterbi_block_cluster_kernel)
-// run one sequence on C wide blocks of kBlockThreads threads, one in each block
+// the eager and log-space cases, and past 32,768 the lazy one with its
+// whole-chain step (p7_viterbi.cuh::viterbi_block_cluster_kernel) run one
+// sequence on C wide blocks of kBlockThreads threads, one in each block
 // of a C-block cluster (C of 2..kMaxBlockCluster, read from
 // %cluster_nctarank), block r owning the states r * kBlockThreads * PER +
 // t * PER + k, the wide block's layout of its slice, PER of
@@ -2013,9 +2014,9 @@ constexpr int kBlockClusterSlots = kBlockClusterPerMax - kBlockClusterPerMin + 1
 
 // -- the rows-in-memory case --------------------------------------------------
 //
-// Past 38,912 states for every kind but the eager and log-space ones (up to
-// 65536, the 16-row chain), and for those two on a card that holds no
-// cluster of their wide blocks, no launch plan here holds the DP rows in
+// Past 38,912 states for the Viterbi filter (up to 65536, the 16-row
+// chain), and for every other kind on a card that holds no cluster of its
+// wide or 256-thread blocks, no launch plan here holds the DP rows in
 // registers. One block of
 // kMemThreads threads follows one sequence (G = 1, a persistent grid) and
 // keeps every row in global memory: kMemRows scratch rows of m_pad floats a

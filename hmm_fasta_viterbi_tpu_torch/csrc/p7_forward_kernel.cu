@@ -8,8 +8,9 @@
 // each step's scaled M row stored as bf16, round to nearest, into
 // fm [b_pad, l_pad, m_pad] with the log scale in effect for that row in
 // ls [b_pad, l_pad]; rows at and past the length are stored as 0). Both
-// cases are one template, so up to 38,912 states the saved pass scores each
-// sequence bit for bit as the plain Forward kernel does. For every residue t < length of a
+// cases are one template, and at every width both run the same case of it,
+// so the saved pass scores each sequence bit for bit as the plain Forward
+// kernel does. For every residue t < length of a
 // sequence, over odds ratios and transition probabilities:
 //     M_j = modds[tok][j] * (diag_{j-1} + B * p_B_Mk)
 //           diag = M * tmm + I * tim + D * tdm            (old rows)
@@ -97,21 +98,22 @@
 //    bit for bit and a carry chain split at a multiple of `group` still
 //    equals one call. SAVE: each block stores its slice of the bf16 row at
 //    its first state after its group's barrier, block 0 alone the log scale.
-//  * Past 38,912 states (up to the chain's 65536) the SAVE case runs on
+//  * Past 38,912 states (up to the chain's 65536) both cases run on
 //    C-block clusters of 256-thread blocks (forward_wide_cluster_kernel,
 //    p7_blocked.cuh; C = ceil(M_pad / 4864), 9..14, per 17..19): the same
 //    body at KT = 256, its E sum and rescale max combining each block's
 //    eight warps, then the blocks in rank order; a block stages what fits
-//    of the transition rows beside its group and the cluster's area and
-//    reads the rest from its slice of their thread-major copy
-//    (ForwardArgs::tm: a warp's read of a slot is 32 contiguous floats). So
-//    past 38,912 the saved pass's scores equal the plain Forward kernel's to
-//    rounding, not bit for bit.
-//  * Past 38,912 states the plain Forward, and the SAVE case on a card that
-//    holds no such cluster, run the rows-in-memory case (forward_mem_kernel,
-//    p7_blocked.cuh): the same step with every row in global memory, one
-//    1024-thread block a sequence; the launch plan also takes it for a
-//    width whose cluster the card cannot hold.
+//    of the transition rows beside its group and the cluster's area (the
+//    plain Forward, without the saved row, one row more: three of the six
+//    at 19 states a thread, against two) and reads the rest from its slice
+//    of their thread-major copy (ForwardArgs::tm: a warp's read of a slot is
+//    32 contiguous floats). Where a row is read does not change its value,
+//    so the two cases still score bit for bit alike.
+//  * Past 38,912 states both cases, on a card that holds no such cluster,
+//    run the rows-in-memory case (forward_mem_kernel, p7_blocked.cuh): the
+//    same step with every row in global memory, one 1024-thread block a
+//    sequence; the launch plan also takes it for a width whose cluster the
+//    card cannot hold.
 
 #include <cuda_bf16.h>
 
@@ -428,8 +430,7 @@ __global__ void __launch_bounds__(128) forward_cluster_kernel(const ForwardArgs 
 }
 
 // Past 38,912 states: a block of a C-block cluster of 256-thread blocks
-// (p7_blocked.cuh), the row-saving case's (SAVE; the plain Forward keeps its
-// rows-in-memory case there).
+// (p7_blocked.cuh), both cases'.
 template <int PER, bool SAVE>
 __global__ void __launch_bounds__(kWideClusterThreads, 1)
     forward_wide_cluster_kernel(const ForwardArgs a) {
@@ -706,40 +707,44 @@ struct ClusterCase {
   }
 };
 
-// The C-block cluster of 256-thread blocks' case (the row-saving Forward
-// past 38,912 states): c * 256 * PER states, a block of the clusters one
-// slice, one group a block, a grid of whole clusters, the staged rows the
-// plan names and cluster_smem_floats at 256 threads.
-unsigned wide_cluster_smem_set[kWideClusterSlots];  // devices whose case allows kMaxSmem
+// The C-block cluster of 256-thread blocks' case (both cases past 38,912
+// states): c * 256 * PER states, a block of the clusters one slice, one
+// group a block, a grid of whole clusters, the staged rows the plan names
+// and cluster_smem_floats at 256 threads (the saved row's only with SAVE).
+unsigned wide_cluster_smem_set[2][kWideClusterSlots];  // devices whose case allows kMaxSmem
 
 template <int PER>
 struct WideClusterCase {
   static constexpr int KT = kWideClusterThreads;
 
-  static void (*kernel())(ForwardArgs) { return forward_wide_cluster_kernel<PER, true>; }
+  static void (*kernel(bool save))(ForwardArgs) {
+    return save ? forward_wide_cluster_kernel<PER, true> : forward_wide_cluster_kernel<PER, false>;
+  }
 
   static cudaError_t launch(const ForwardArgs& a, int device, int c, int groups, int grid,
                             int smem, cudaStream_t stream) {
+    const bool save = a.fm != nullptr;
     const int n_rows = a.n_trans + a.n_chain;
-    if (a.fm == nullptr || a.tm == nullptr ||
-        !wide_cluster_ok(a.m_pad, PER, c, groups, grid, a.n_trans) ||
-        static_cast<size_t>(smem) != 4 * cluster_smem_floats<PER, KT, false>(n_rows, true) ||
+    if (a.tm == nullptr || !wide_cluster_ok(a.m_pad, PER, c, groups, grid, a.n_trans) ||
+        static_cast<size_t>(smem) != 4 * cluster_smem_floats<PER, KT, false>(n_rows, save) ||
         smem > kMaxSmem) {
       return cudaErrorInvalidValue;
     }
-    return launch_cluster(kernel(), a, device, wide_cluster_smem_set[PER - kWideClusterPerMin], c,
+    return launch_cluster(kernel(save), a, device,
+                          wide_cluster_smem_set[save][PER - kWideClusterPerMin], c,
                           grid, smem, stream, KT);
   }
 
-  static cudaError_t regs(int* out) {
+  static cudaError_t regs(bool save, int* out) {
     cudaFuncAttributes attr;
-    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel());
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel(save));
     *out = attr.numRegs;
     return err;
   }
 
-  static cudaError_t clusters(int device, int c, int smem, int* out) {
-    return cluster_max_clusters(kernel(), device, wide_cluster_smem_set[PER - kWideClusterPerMin],
+  static cudaError_t clusters(bool save, int device, int c, int smem, int* out) {
+    return cluster_max_clusters(kernel(save), device,
+                                wide_cluster_smem_set[save][PER - kWideClusterPerMin],
                                 c, smem, out, KT);
   }
 };
@@ -751,8 +756,8 @@ struct WideClusterCase {
 // per >= m_pad (a multiple of 8), `cluster` 2 the cluster pair's (128
 // threads a block, per 10..19, 2 * threads * per >= m_pad) and `cluster` C
 // of 3..16 the C-block cluster's (per 13..19, C * threads * per >= m_pad),
-// and `threads` kWideClusterThreads with `cluster` C the row-saving case's
-// C-block cluster of 256-thread blocks (per 17..19); `window` is the
+// and `threads` kWideClusterThreads with `cluster` C the C-block cluster
+// of 256-thread blocks (per 17..19); `window` is the
 // chain's row count, the first `n_chain` staged in shared memory with the
 // first `n_trans` transition rows; the kernel rescales after every `group`
 // residues. `fm` and `ls` null run the plain Forward, both set the saving
@@ -842,8 +847,8 @@ extern "C" int p7_forward_launch(int device, int threads, int per, int cluster,
 
 // Registers a thread of the case uses (`save`: the row-saving case;
 // `cluster` 2: the pair's, 3..16: the C-block cluster's; `threads`
-// kWideClusterThreads: the row-saving case's cluster of 256-thread blocks),
-// for the launch plan. Returns a cudaError_t.
+// kWideClusterThreads: the cluster of 256-thread blocks), for the launch
+// plan. Returns a cudaError_t.
 extern "C" int p7_forward_regs(int threads, int per, int cluster, int save, int* regs) {
   if (threads == kMemThreads) {
     cudaFuncAttributes attr;
@@ -853,9 +858,8 @@ extern "C" int p7_forward_regs(int threads, int per, int cluster, int save, int*
     return static_cast<int>(err);
   }
   if (threads == kWideClusterThreads) {
-    if (save == 0) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(with_wide_cluster_case<WideClusterCase>(
-        per, [&](auto c) { return decltype(c)::regs(regs); }));
+        per, [&](auto c) { return decltype(c)::regs(save != 0, regs); }));
   }
   if (cluster >= 3) {
     return static_cast<int>(with_cluster_case<ClusterCase>(
@@ -871,17 +875,15 @@ extern "C" int p7_forward_regs(int threads, int per, int cluster, int save, int*
 
 // The most clusters of `cluster` blocks (2: the pair's case of `per`,
 // `save`; 3..16: the C-block cluster's; at `threads` kWideClusterThreads,
-// the row-saving case's cluster of 256-thread blocks) the card `device`
+// the cluster of 256-thread blocks) the card `device`
 // runs at once with `smem` bytes of dynamic shared memory a block, for the
 // launch plan. Returns a cudaError_t.
 extern "C" int p7_forward_clusters(int device, int threads, int per, int cluster, int save,
                                    int smem, int* clusters) {
   if (threads == kWideClusterThreads) {
-    if (save == 0 || cluster < 2 || cluster > kMaxCluster) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (cluster < 2 || cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(with_wide_cluster_case<WideClusterCase>(per, [&](auto c) {
-      return decltype(c)::clusters(device, cluster, smem, clusters);
+      return decltype(c)::clusters(save != 0, device, cluster, smem, clusters);
     }));
   }
   if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);

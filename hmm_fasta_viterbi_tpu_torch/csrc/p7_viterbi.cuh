@@ -129,8 +129,9 @@
 //    both blocks, combined in one order, block 0's warps then block 1's),
 //    the filter's tail max, and the lazy certificate's OR, so both halves
 //    replay the same chunks. A block's own phases keep its named barrier.
-//  * Past 256 * 19 = 4864 states (up to 16 * 2432 = 38,912) the lazy and
-//    filter cases run on C-block clusters (p7_blocked.cuh;
+//  * Past 256 * 19 = 4864 states (up to 16 * 2432 = 38,912; the lazy case
+//    up to 32,768) the lazy and filter cases run on C-block clusters
+//    (p7_blocked.cuh;
 //    viterbi_cluster_kernel, C = ceil(M_pad / 2432), 3..16, read from
 //    %cluster_nctarank): block r holds states r * 128 * PER .. in the
 //    normal-width layout, stages its slice of every row the normal-width
@@ -162,12 +163,20 @@
 //    block's by a butterfly over the lanes, then the blocks in rank order:
 //    wide_cluster_collect). Each block reads its slice of the thread-major
 //    rows.
-//  * Past 38,912 states (up to the chain's 65536) the lazy and filter cases,
-//    and the eager and log-space ones on a card that holds no cluster of
-//    their wide blocks, run the rows-in-memory case (viterbi_mem_kernel,
-//    p7_blocked.cuh): the same step with every row in global memory, one
-//    1024-thread block a sequence; the launch plan also takes it for a width
-//    whose cluster the card cannot hold.
+//  * Past 32,768 states (up to the chain's 65536) the lazy case runs the
+//    eager case's clusters of wide blocks: there the chain has 16 passes,
+//    which leave no row of the chain array for the certificate's Cmax, so
+//    the lazy kernel runs the whole chain every step and certifies nothing;
+//    its step is then the eager step with pre_diag carried in the D row
+//    (block_chunk's CARRY), its scores the eager kernel's bit for bit. Up to
+//    38,912 that is twice as fast as the whole chain on its 128-thread
+//    C-block clusters, whose larger shifts cross blocks.
+//  * Past 38,912 states the filter case, and the eager, log-space and lazy
+//    ones on a card that holds no cluster of their wide blocks, run the
+//    rows-in-memory case (viterbi_mem_kernel, p7_blocked.cuh): the same step
+//    with every row in global memory, one 1024-thread block a sequence; the
+//    launch plan also takes it for a width whose cluster the card cannot
+//    hold.
 
 #pragma once
 
@@ -736,12 +745,18 @@ __device__ __forceinline__ void wide_cluster_pass(float (&a)[PER], int p, int n_
 // of a cluster of wide blocks (SPAN kCluster, `h` its place) takes its
 // slice of the emission and thread-major rows, its shifts across the
 // cluster (wide_cluster_shift1, wide_cluster_pass) and E over the cluster
-// (wide_cluster_reduce).
-template <int PER, int KT, bool LSE, Span SPAN = Span::kGroup>
+// (wide_cluster_reduce). CARRY is the lazy kernel's step on the whole chain
+// (its case past 32,768 states, where the chain has 16 passes and no window
+// is certified): the D row carries pre_diag, which the step reads as the
+// diagonal where the eager step combines it from M, I and D, and computes
+// for the new rows at its end, as run_chunk's lazy step does (max(max(M +
+// tmm, I + tim), D + tdm), D the chain's result); E is max_j M_j.
+template <int PER, int KT, bool LSE, Span SPAN = Span::kGroup, bool CARRY = false>
 __device__ __forceinline__ void block_chunk(const ViterbiArgs& a, const float* cs,
                                             const GroupSmem<PER, KT, false>& gs, Rows<PER>& r,
                                             int count, int& par, float tr_loop, float tr_move,
                                             int t, int bar, Link<SPAN>* h = nullptr) {
+  static_assert(!(CARRY && LSE), "the lazy step is Viterbi's");
   constexpr int SP = stride<PER>();
   constexpr bool kLinked = SPAN == Span::kCluster;
   const int m_pad = a.m_pad;
@@ -769,7 +784,9 @@ __device__ __forceinline__ void block_chunk(const ViterbiArgs& a, const float* c
     float v[PER];
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
-      v[k] = combine<LSE>(combine<LSE>(r.m[k] + tr(0, k), r.i[k] + tr(3, k)), r.d[k] + tr(5, k));
+      v[k] = CARRY ? r.d[k]
+                   : combine<LSE>(combine<LSE>(r.m[k] + tr(0, k), r.i[k] + tr(3, k)),
+                                  r.d[k] + tr(5, k));
     }
     cp_async_wait_all();  // this step's emission rows (the barrier publishes them)
     if constexpr (kLinked) {
@@ -857,7 +874,7 @@ __device__ __forceinline__ void block_chunk(const ViterbiArgs& a, const float* c
       }
     } else {
 #pragma unroll
-      for (int k = 0; k < PER; ++k) e = fmaxf(e, fmaxf(r.m[k], v[k]));
+      for (int k = 0; k < PER; ++k) e = fmaxf(e, CARRY ? r.m[k] : fmaxf(r.m[k], v[k]));
       if constexpr (kLinked) {
         e = wide_cluster_reduce<false, PER, KT>(e, t, *h);
       } else {
@@ -865,7 +882,10 @@ __device__ __forceinline__ void block_chunk(const ViterbiArgs& a, const float* c
       }
     }
 #pragma unroll
-    for (int k = 0; k < PER; ++k) r.d[k] = v[k];
+    for (int k = 0; k < PER; ++k) {
+      // the lazy carry: the new rows' pre_diag, in run_chunk's order
+      r.d[k] = CARRY ? fmaxf(fmaxf(r.m[k] + tr(0, k), r.i[k] + tr(3, k)), v[k] + tr(5, k)) : v[k];
+    }
     r.sj = combine<LSE>(r.sj + tr_loop, e + tr_e_j);
     r.sc = combine<LSE>(r.sc + tr_loop, e + tr_e_c);
     r.sn = r.sn + tr_loop;
@@ -1000,7 +1020,8 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
       if (t < count) gs.toks[t] = tok_row[c0 + t];  // the last chunk's readers passed barriers
       group_sync<KT>(bar);
       if constexpr (KT > 128 && kLinked) {
-        block_chunk<PER, KT, LSE, SPAN>(a, smem, gs, r, count, par, tr_loop, tr_move, t, bar, &h);
+        block_chunk<PER, KT, LSE, SPAN, LAZY>(a, smem, gs, r, count, par, tr_loop, tr_move, t, bar,
+                                              &h);
       } else if constexpr (KT > 128) {
         block_chunk<PER, KT, LSE>(a, smem, gs, r, count, par, tr_loop, tr_move, t, bar);
       } else if (certify) {
@@ -1077,13 +1098,14 @@ __global__ void __launch_bounds__(KT, 1) viterbi_block_kernel(const ViterbiArgs 
   viterbi_body<PER, KT, false, LSE, false, Span::kGroup>(a);
 }
 
-// Past kBlockThreads * kBlockPerMax states, the eager and log-space cases: a
-// wide block of a cluster of C of them (launched as C-block clusters of
-// kBlockThreads threads a block, C read from %cluster_nctarank; block_chunk's
-// step across the cluster).
-template <int PER, int KT, bool LSE>
+// Past kBlockThreads * kBlockPerMax states, the eager and log-space cases,
+// and past 32,768 the lazy one (LAZY: its whole-chain step, block_chunk's
+// CARRY): a wide block of a cluster of C of them (launched as C-block
+// clusters of kBlockThreads threads a block, C read from %cluster_nctarank;
+// block_chunk's step across the cluster).
+template <int PER, int KT, bool LSE, bool LAZY = false>
 __global__ void __launch_bounds__(KT, 1) viterbi_block_cluster_kernel(const ViterbiArgs a) {
-  viterbi_body<PER, KT, false, LSE, false, Span::kCluster>(a);
+  viterbi_body<PER, KT, LAZY, LSE, false, Span::kCluster>(a);
 }
 
 // The rows-in-memory case (p7_blocked.cuh, past 4864 states): one block of
@@ -1369,8 +1391,9 @@ bool viterbi_cluster_plan_ok(const ViterbiArgs& a, bool lazy, int c, int groups,
 // The same for the wide block (eager and log-space, the full chain): KT *
 // PER states, one group a block, n_trans transition rows staged and chain
 // rows only after all six, block_smem_floats, and the thread-major rows;
-// with `c` of 2..kMaxBlockCluster, a cluster of c wide blocks: c * KT * PER
-// states, a grid of whole clusters and block_cluster_smem_floats.
+// with `c` of 2..kMaxBlockCluster, a cluster of c wide blocks (the lazy
+// kernel's too, which runs the full chain there: k_run == n_passes): c * KT
+// * PER states, a grid of whole clusters and block_cluster_smem_floats.
 template <int PER, int KT>
 bool viterbi_block_plan_ok(const ViterbiArgs& a, int groups, int grid, int smem_bytes,
                            int c = 1) {

@@ -6,9 +6,11 @@
 // mode (the eager kernel) and ::_p7_lazy_kernel (the lazy one), both
 // launched by p7_pallas_call. Scores equal the JAX kernels' and the plain
 // PyTorch version's bit for bit. Past 4864 states the lazy kernel runs on
-// C-block clusters (viterbi_cluster_kernel), the eager one on the wide
-// block (viterbi_block_kernel) up to kBlockThreads * kBlockPerMax states and
-// on clusters of wide blocks (viterbi_block_cluster_kernel) past that.
+// C-block clusters (viterbi_cluster_kernel) up to 32,768 states and on
+// clusters of wide blocks (viterbi_block_cluster_kernel, its whole-chain
+// step) past that, the eager one on the wide block (viterbi_block_kernel) up
+// to kBlockThreads * kBlockPerMax states and on clusters of wide blocks past
+// that.
 
 #include "p7_viterbi.cuh"
 
@@ -110,30 +112,35 @@ struct BlockCase {
 };
 
 // The cluster of wide blocks' case (the eager kernel past kBlockThreads *
-// kBlockPerMax states): c * kBlockThreads * PER states, a block of the
-// clusters one slice.
-unsigned block_cluster_smem_set[kBlockClusterSlots];  // devices whose case allows kMaxSmem
+// kBlockPerMax states, the lazy one past 32,768 with the whole chain, k_run
+// == n_passes): c * kBlockThreads * PER states, a block of the clusters one
+// slice.
+unsigned block_cluster_smem_set[2][kBlockClusterSlots];  // devices whose case allows kMaxSmem
 
 template <int PER>
 struct BlockClusterCase {
   using Kernel = void (*)(ViterbiArgs);
-  static Kernel kernel() { return viterbi_block_cluster_kernel<PER, kBlockThreads, false>; }
+  static Kernel kernel(bool lazy) {
+    return lazy ? viterbi_block_cluster_kernel<PER, kBlockThreads, false, true>
+                : viterbi_block_cluster_kernel<PER, kBlockThreads, false>;
+  }
 
-  static cudaError_t launch(const ViterbiArgs& a, int device, int c, int groups, int grid,
-                            int smem, cudaStream_t stream) {
+  static cudaError_t launch(bool lazy, const ViterbiArgs& a, int device, int c, int groups,
+                            int grid, int smem, cudaStream_t stream) {
     if (!viterbi_block_plan_ok<PER, kBlockThreads>(a, groups, grid, smem, c)) {
       return cudaErrorInvalidValue;
     }
-    return launch_cluster(kernel(), a, device, block_cluster_smem_set[PER - kBlockClusterPerMin],
-                          c, grid, smem, stream, kBlockThreads);
+    return launch_cluster(kernel(lazy), a, device,
+                          block_cluster_smem_set[lazy][PER - kBlockClusterPerMin], c, grid, smem,
+                          stream, kBlockThreads);
   }
 
-  static cudaError_t regs(int* out) { return kernel_regs(kernel(), out); }
+  static cudaError_t regs(bool lazy, int* out) { return kernel_regs(kernel(lazy), out); }
 
-  static cudaError_t clusters(int device, int c, int smem, int* out) {
-    return cluster_max_clusters(kernel(), device,
-                                block_cluster_smem_set[PER - kBlockClusterPerMin], c, smem, out,
-                                kBlockThreads);
+  static cudaError_t clusters(bool lazy, int device, int c, int smem, int* out) {
+    return cluster_max_clusters(kernel(lazy), device,
+                                block_cluster_smem_set[lazy][PER - kBlockClusterPerMin], c, smem,
+                                out, kBlockThreads);
   }
 };
 
@@ -148,7 +155,8 @@ struct BlockClusterCase {
 // threads, per kBlockPerMin..kBlockPerMax), `cluster` C of
 // 2..kMaxBlockCluster with kBlockThreads threads its cluster of wide blocks
 // (per kBlockClusterPerMin..kBlockClusterPerMax, C * threads * per >=
-// m_pad); `lazy` selects the lazy kernel, which runs
+// m_pad; the lazy kernel's too, with k_run == n_passes, refused otherwise);
+// `lazy` selects the lazy kernel, which runs
 // `k_run` passes under the certificate (k_run == n_passes: the full chain,
 // no certificate). `n_trans` transition rows and `n_chain` chain rows are
 // staged in shared memory; `groups` sequences a block, `grid` blocks and
@@ -183,11 +191,10 @@ extern "C" int p7_viterbi_launch(int device, int threads, int per, int cluster, 
     }));
   }
   if (threads == kBlockThreads && cluster >= 2) {
-    if (lazy) return static_cast<int>(cudaErrorInvalidValue);
     ViterbiArgs b = a;
     b.tm = static_cast<const float*>(scratch);
     return static_cast<int>(with_block_cluster_case<BlockClusterCase>(per, [&](auto c) {
-      return decltype(c)::launch(b, device, cluster, groups, grid, smem, st);
+      return decltype(c)::launch(lazy != 0, b, device, cluster, groups, grid, smem, st);
     }));
   }
   if (threads == kMemThreads) {
@@ -217,8 +224,9 @@ extern "C" int p7_viterbi_launch(int device, int threads, int per, int cluster, 
 
 // Registers a thread of the case uses (`lazy`: the lazy kernel; `cluster`
 // 2: the pair's, 3..16: the lazy kernel's C-block cluster's, 0: the eager
-// kernel's wide block, 2..kMaxBlockCluster at kBlockThreads threads: its
-// cluster of wide blocks), for the launch plan. Returns a cudaError_t.
+// kernel's wide block, 2..kMaxBlockCluster at kBlockThreads threads: the
+// eager or lazy kernel's cluster of wide blocks), for the launch plan.
+// Returns a cudaError_t.
 extern "C" int p7_viterbi_regs(int threads, int per, int cluster, int lazy, int* regs) {
   if (cluster == 0) {
     if (lazy || threads != kBlockThreads) return static_cast<int>(cudaErrorInvalidValue);
@@ -226,9 +234,8 @@ extern "C" int p7_viterbi_regs(int threads, int per, int cluster, int lazy, int*
         with_block_case<BlockCase>(per, [&](auto c) { return decltype(c)::regs(regs); }));
   }
   if (threads == kBlockThreads && cluster >= 2) {
-    if (lazy) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(with_block_cluster_case<BlockClusterCase>(
-        per, [&](auto c) { return decltype(c)::regs(regs); }));
+        per, [&](auto c) { return decltype(c)::regs(lazy != 0, regs); }));
   }
   if (threads == kMemThreads) {
     return static_cast<int>(lazy ? kernel_regs(viterbi_mem_kernel<true, false, false>, regs)
@@ -249,17 +256,15 @@ extern "C" int p7_viterbi_regs(int threads, int per, int cluster, int lazy, int*
 
 // The most clusters of `cluster` blocks (2: the pair's case of `per`,
 // `lazy`; 3..16: the lazy kernel's C-block cluster; at `threads`
-// kBlockThreads, 2..kMaxBlockCluster: the eager kernel's cluster of wide
-// blocks) the card `device` runs at once with `smem` bytes of dynamic shared
-// memory a block, for the launch plan. Returns a cudaError_t.
+// kBlockThreads, 2..kMaxBlockCluster: the eager or lazy kernel's cluster of
+// wide blocks) the card `device` runs at once with `smem` bytes of dynamic
+// shared memory a block, for the launch plan. Returns a cudaError_t.
 extern "C" int p7_viterbi_clusters(int device, int threads, int per, int cluster, int lazy,
                                    int smem, int* clusters) {
   if (threads == kBlockThreads) {
-    if (lazy || cluster < 2 || cluster > kMaxBlockCluster) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (cluster < 2 || cluster > kMaxBlockCluster) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(with_block_cluster_case<BlockClusterCase>(per, [&](auto c) {
-      return decltype(c)::clusters(device, cluster, smem, clusters);
+      return decltype(c)::clusters(lazy != 0, device, cluster, smem, clusters);
     }));
   }
   if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);

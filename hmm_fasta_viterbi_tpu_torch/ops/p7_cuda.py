@@ -19,19 +19,21 @@ The kernels take M_pad up to MAX_KERNEL_STATES = 65536 (the 16-row delete
 chain, as the TPU kernels): groups of KERNEL_THREADS threads a sequence up
 to 2432 states and up to 4864 a pair of such groups, one in each block of a
 2-block thread-block cluster (every case, PAIR_KINDS), with the rows in
-registers; up to MAX_CLUSTER_STATES = 38,912 the lazy, filter, Forward,
-row-saving Forward and posterior backward cases (CLUSTER_KINDS) run C such
-groups, one in each block of a C-block cluster (C = ceil(M_pad / 2432),
+registers; up to MAX_CLUSTER_STATES = 38,912 the lazy (up to 32,768),
+filter, Forward, row-saving Forward and posterior backward cases
+(CLUSTER_KINDS) run C such groups, one in each block of a C-block cluster (C = ceil(M_pad / 2432),
 3..16), and up to MAX_BLOCK_STATES the eager and log-space cases
 (BLOCK_KINDS) one block of BLOCK_THREADS threads a sequence, the wide block,
 its rows in registers too, and past that C such blocks a sequence, one in
-each block of a C-block cluster (C = ceil(M_pad / 8192), 2..8); past 38,912
-the row-saving Forward and the posterior backward pass
-(WIDE_CLUSTER_KINDS) run C groups of WIDE_CLUSTER_THREADS threads, one in
-each block of a C-block cluster (C = ceil(M_pad / 4864), 9..14), and every
-other kind the rows-in-memory case, MEM_THREADS threads a sequence with its
-rows in global memory (:func:`kernel_case`); the plain versions have no
-cap.
+each block of a C-block cluster (C = ceil(M_pad / 8192), 2..8); past 32,768
+the lazy kind runs the eager kind's clusters of wide blocks (its step there
+is the eager step on the whole chain: LAZY_BLOCK_STATES); past 38,912
+Forward, the row-saving Forward and the posterior backward pass
+(WIDE_CLUSTER_KINDS) run C groups of WIDE_CLUSTER_THREADS threads, one in each block of a C-block
+cluster (C = ceil(M_pad / 4864), 9..14), and the filter the rows-in-memory
+case, MEM_THREADS threads a sequence with its rows in global memory
+(:func:`kernel_case`), which every kind also runs on a card that holds no
+such cluster; the plain versions have no cap.
 
 The host packers are numpy copies of the JAX ones (that module imports
 jax) and return the same arrays byte for byte, in the TPU's ``[M_pad, …]``
@@ -212,7 +214,7 @@ BLOCK_CLUSTER_PER = tuple(range(5, 9))  # ceil(9217 / (2 * BLOCK_THREADS)) = 5
 MAX_BLOCK_CLUSTER = 8
 BLOCK_CLUSTER_FLOATS = PAIR_FLOATS - 2 * 2 * (KERNEL_THREADS // 32) + (
     2 * 16 * (BLOCK_THREADS // 32))
-# the row-saving Forward and the posterior backward pass past
+# Forward, the row-saving Forward and the posterior backward pass past
 # MAX_CLUSTER_STATES, up to MAX_KERNEL_STATES: C groups of
 # WIDE_CLUSTER_THREADS threads a sequence, one in each block of a C-block
 # cluster (csrc/p7_forward_kernel.cu::forward_wide_cluster_kernel,
@@ -223,11 +225,22 @@ BLOCK_CLUSTER_FLOATS = PAIR_FLOATS - 2 * 2 * (KERNEL_THREADS // 32) + (
 # Its rows are twice a 128-thread group's, so a block stages what fits of
 # the transition rows (then chain rows) beside its group and the cluster's
 # area and reads the rest from its slice of their thread-major copy
-# (:func:`block_rows` at 256 threads, fill 0). Every other kind past 38,912
-# keeps the rows-in-memory case
-WIDE_CLUSTER_KINDS = ("save", "backward")
+# (:func:`block_rows` at 256 threads, fill 0; Forward, without the saved
+# row, stages one row more). The filter past 38,912 keeps the
+# rows-in-memory case
+WIDE_CLUSTER_KINDS = ("forward", "save", "backward")
 WIDE_CLUSTER_THREADS = 256
 WIDE_CLUSTER_PER = tuple(range(17, 20))  # ceil(38,920 / (9 * 256)) = 17
+# the lazy kind past LAZY_BLOCK_STATES, up to MAX_KERNEL_STATES: the eager
+# kind's cluster of wide blocks (csrc/p7_viterbi.cuh::
+# viterbi_block_cluster_kernel with LAZY), C = ceil(M_pad / 8192). Past
+# 32,768 states the chain has 16 passes and prepare_p7_device_lazy takes
+# lazy_k = 16 (row 15 of the chain is chain data, not the certificate's
+# Cmax), so the lazy kernel certifies nothing there and its step is the
+# eager step with pre_diag carried in the D row. From 32,769 to 38,912 that
+# case measured twice as fast as the whole chain on the 128-thread C-block
+# clusters (C 14..16), whose larger shifts cross blocks (PERF.md)
+LAZY_BLOCK_STATES = 32768
 
 
 def cluster_floats(threads: int = KERNEL_THREADS, backward: bool = False) -> int:
@@ -936,18 +949,20 @@ def cluster_blocks(m_pad: int, kind: str | None = None) -> int:
     ``m_pad`` states: CLUSTER (the pair) from MAX_GROUP_STATES to
     MAX_WIDE_STATES, where every kind runs it (PAIR_KINDS; ``kind`` None
     too); C = ceil(m_pad / MAX_GROUP_STATES), 3..MAX_CLUSTER, for the
-    CLUSTER_KINDS past that up to MAX_CLUSTER_STATES; C = ceil(m_pad /
+    CLUSTER_KINDS past that up to MAX_CLUSTER_STATES (the lazy kind up to
+    LAZY_BLOCK_STATES); C = ceil(m_pad /
     (BLOCK_THREADS * 8)), 2..MAX_BLOCK_CLUSTER, wide blocks for the
-    BLOCK_KINDS past MAX_BLOCK_STATES (:func:`block_cluster_case`); C =
+    BLOCK_KINDS past MAX_BLOCK_STATES and the lazy kind past
+    LAZY_BLOCK_STATES (:func:`block_cluster_case`); C =
     ceil(m_pad / (WIDE_CLUSTER_THREADS * 19)), 9..14, blocks of
     WIDE_CLUSTER_THREADS threads for the WIDE_CLUSTER_KINDS past
     MAX_CLUSTER_STATES (:func:`wide_cluster_case`); else 1."""
     if MAX_GROUP_STATES < m_pad <= MAX_WIDE_STATES and (kind is None or kind in PAIR_KINDS):
         return CLUSTER
-    if kind in CLUSTER_KINDS and MAX_WIDE_STATES < m_pad <= MAX_CLUSTER_STATES:
-        return -(-m_pad // MAX_GROUP_STATES)
     if block_cluster_case(m_pad, kind):
         return -(-m_pad // (BLOCK_THREADS * BLOCK_CLUSTER_PER[-1]))
+    if kind in CLUSTER_KINDS and MAX_WIDE_STATES < m_pad <= MAX_CLUSTER_STATES:
+        return -(-m_pad // MAX_GROUP_STATES)
     if wide_cluster_case(m_pad, kind):
         return -(-m_pad // (WIDE_CLUSTER_THREADS * WIDE_CLUSTER_PER[-1]))
     return 1
@@ -961,9 +976,11 @@ def block_case(m_pad: int, kind: str | None) -> bool:
 
 def block_cluster_case(m_pad: int, kind: str | None) -> bool:
     """Whether ``kind``'s case of ``m_pad`` states is a cluster of wide
-    blocks: a BLOCK_KINDS kind past MAX_BLOCK_STATES, up to
-    MAX_KERNEL_STATES."""
-    return kind in BLOCK_KINDS and MAX_BLOCK_STATES < m_pad <= MAX_KERNEL_STATES
+    blocks: a BLOCK_KINDS kind past MAX_BLOCK_STATES, or the lazy kind past
+    LAZY_BLOCK_STATES, up to MAX_KERNEL_STATES."""
+    first = MAX_BLOCK_STATES if kind in BLOCK_KINDS else (
+        LAZY_BLOCK_STATES if kind == "lazy" else MAX_KERNEL_STATES)
+    return first < m_pad <= MAX_KERNEL_STATES
 
 
 def wide_cluster_case(m_pad: int, kind: str | None) -> bool:
@@ -983,7 +1000,8 @@ def kernel_case(m_pad: int, kind: str | None = None) -> tuple[int, int]:
     BLOCK_KINDS ``kind`` the wide block up to MAX_BLOCK_STATES
     (BLOCK_THREADS threads, ``per`` of BLOCK_PER) and C wide blocks past it
     (BLOCK_THREADS threads in each block of a C-block cluster, ``per`` of
-    BLOCK_CLUSTER_PER), a WIDE_CLUSTER_KINDS ``kind`` past MAX_CLUSTER_STATES
+    BLOCK_CLUSTER_PER), as the lazy kind does past LAZY_BLOCK_STATES, a
+    WIDE_CLUSTER_KINDS ``kind`` past MAX_CLUSTER_STATES
     WIDE_CLUSTER_THREADS threads in each block of a C-block cluster
     (``per`` of WIDE_CLUSTER_PER), and every other case (``kind`` None
     included) the rows-in-memory case, MEM_THREADS threads walking ``per``
@@ -1254,7 +1272,8 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     from :func:`block_rows`), one sequence a block on a persistent grid of
     as many blocks as registers, shared memory and THREADS_PER_SM let an SM
     hold (one), times the SMs, at most the batch; a given ``groups`` must be
-    1. Past MAX_BLOCK_STATES they run C wide blocks a sequence
+    1. Past MAX_BLOCK_STATES they (and the lazy kind past LAZY_BLOCK_STATES,
+    on the whole chain only) run C wide blocks a sequence
     (:func:`cluster_blocks`), one in each block of a C-block cluster, each
     staging what the wide block of its ``per`` stages beside its group and
     the cluster's area, on a persistent grid of ``clusters`` (None: what an
@@ -1285,6 +1304,9 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
         if groups not in (None, 1):
             raise ValueError(f"{groups} groups a block: the {kind} kernel's cluster of "
                              f"{c} wide blocks takes 1")
+        if passes < chain_passes(m_pad):
+            raise ValueError(f"the {kind} kernel's cluster of {c} wide blocks runs the whole "
+                             f"chain ({chain_passes(m_pad)} passes), not {passes}")
         n_trans, n_chain, nbytes = _wide_staging(per, passes, cluster=True)
         if clusters is None:
             per_sm = max(1, min(REGS_PER_SM // (warp_regs * kt // 32), SMEM_PER_SM // nbytes,

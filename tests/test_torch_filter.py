@@ -31,6 +31,17 @@ STEMS = ("100", "200", "1400")
 L_CHUNK = 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain versions' small per-residue ops run on one thread here:
+    the workers of a parallel test run share the machine's cores, and many
+    threads a worker on such ops mostly wait on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _port(profile):
     """The port's copy of a JAX MSVProfile or P7Profile."""
     if isinstance(profile, P7Profile):

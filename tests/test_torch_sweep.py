@@ -33,6 +33,17 @@ from hmm_fasta_viterbi_tpu_torch.pipeline import MSVScanner
 STEMS = ("100", "200", "1400")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain versions' small per-residue ops run on one thread here:
+    the workers of a parallel test run share the machine's cores, and many
+    threads a worker on such ops mostly wait on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ports(profiles) -> list:
     """The port's copies of JAX MSVProfiles."""
     return [convert.msv_profile_from_jax(p) for p in profiles]

@@ -396,9 +396,14 @@ def _block_model(kind: str, pack, staged, carry):
     shifts of _block_shift and E by each thread's states in order, then
     _block_reduce; past MAX_BLOCK_STATES the cluster of C wide blocks' scan
     (block_chunk across the cluster): each block's slice of the thread-major
-    rows, the plain shifts and E as _cluster_reduce. Returns the scan's
-    (scores, m, i, d, s) as arrays."""
+    rows, the plain shifts and E as _cluster_reduce. Kind "lazy" is
+    block_chunk's CARRY step (the lazy kind past 38,912, the whole chain):
+    the eager step reading pre_diag from the D row where the eager one
+    combines it from M, I and D, E = max_j M_j, and the new rows' pre_diag
+    max(max(M + tmm, I + tim), D + tdm) computed at the step's end into the
+    D row. Returns the scan's (scores, m, i, d, s) as arrays."""
     lse = kind == "log"
+    lazy = kind == "lazy"
     comb = _np_lse2 if lse else np.maximum
     m_pad = pack.m_pad
     passes = p7_cuda.chain_passes(m_pad)
@@ -427,7 +432,7 @@ def _block_model(kind: str, pack, staged, carry):
     sj, sc, sn, sb = carry[3].numpy().copy()
     for step in range(int(lengths.max())):
         valid = step < lengths
-        pd = comb(comb(m + tmm, i + tim), d + tdm)
+        pd = d if lazy else comb(comb(m + tmm, i + tim), d + tdm)
         diag = _cluster_shift(pd, 1, per, c)
         bt = (sb + tr_b_mk)[:, None]
         nm = msc[tokens[:, step]] + comb(diag, bt)
@@ -445,8 +450,10 @@ def _block_model(kind: str, pack, staged, carry):
                                                     x[:, :, k] - mx)).astype(np.float32)
             e = (mx[:, 0] + np.log(_cluster_reduce(total, np.add, c))).astype(np.float32)
         else:
-            e = _cluster_reduce(np.maximum(nm, ac).reshape(-1, c * KT, per).max(axis=2),
-                                np.maximum, c)
+            e = _cluster_reduce((nm if lazy else np.maximum(nm, ac)).reshape(-1, c * KT, per)
+                                .max(axis=2), np.maximum, c)
+        if lazy:
+            ac = np.maximum(np.maximum(nm + tmm, ni + tim), ac + tdm)
         nj = comb(sj + tr_loop, e + tr_e_j)
         nc = comb(sc + tr_loop, e + tr_e_c)
         nn = sn + tr_loop
@@ -519,6 +526,90 @@ def test_block_cluster_model_matches_plain(mem_files, batch):
         else:
             assert _max_d(got[0], want[0]) <= chip_smoke.LOG_FWD_TOL
             assert np.isfinite(got[0][lengths > 0]).all()
+
+
+# the lazy kind past 38,912 states: the all-24 join twice over (LENG 60362)
+# on a small batch
+LAZY_B, LAZY_L = 4, 40
+
+
+@pytest.fixture(scope="module")
+def join_60362(profile_dir):
+    """(the port's P7Profile, the JAX P7Profile) of the all-24 join twice
+    over (chip_smoke.MSV_MEM_JOIN, LENG 60362, M_pad 60368)."""
+    stems = chip_smoke.MSV_MEM_JOIN
+    jax_hmm = chip_smoke.join_profiles(*(jax_parse_hmm(profile_dir / f"{s}.hmm") for s in stems))
+    return (P7Profile.from_profile(chip_smoke.wide_profile(stems)),
+            JaxP7Profile.from_profile(jax_hmm))
+
+
+@pytest.mark.parametrize("extra", [(), ("2405", "2365")], ids=("60362", "34951"))
+def test_past_32768_states_lazy_pack_matches_jax(profile_dir, extra):
+    """Past 32,768 states the chain has 16 passes: the port's
+    prepare_p7_device_lazy and pallas_p7's take lazy_k = 16 (no truncated
+    window, no certificate: row 15 of the chain is chain data) and give the
+    same arrays byte for byte (tolerance 0.0), at the all-24 join twice over
+    (LENG 60362, where the lazy kind runs the eager kind's cluster of 8 wide
+    blocks) and at the all-24 join with 2405 and 2365 (LENG 34951, its
+    cluster of 5 wide blocks: past 32,768, below the 128-thread clusters'
+    38,912)."""
+    stems = chip_smoke.MSV_MEM_JOIN if not extra else chip_smoke.MEM_JOINS[1] + extra
+    jax_hmm = chip_smoke.join_profiles(*(jax_parse_hmm(profile_dir / f"{s}.hmm") for s in stems))
+    p7 = P7Profile.from_profile(chip_smoke.wide_profile(stems))
+    m_pad = p7_cuda.default_m_pad(p7)
+    assert m_pad == (60368 if not extra else 34952) and p7_cuda.chain_passes(m_pad) == 16
+    assert p7_cuda.block_cluster_case(m_pad, "lazy")
+    assert p7_cuda.cluster_blocks(m_pad, "lazy") == (8 if not extra else 5)
+    got = p7_cuda.prepare_p7_device_lazy(p7)
+    want = pallas_p7.prepare_p7_device_lazy(JaxP7Profile.from_profile(jax_hmm))
+    assert got[5] == want[5] == 16
+    for g, w in zip(got[:5], want[:5]):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert np.array_equal(g.view(np.uint32), w.view(np.uint32))
+    assert np.isfinite(got[3][:, 15]).any()  # chain data, not -inf or Cmax
+    assert p7_cuda.e_skip_d_ok(p7)
+
+
+def test_block_cluster_lazy_model_matches_plain(join_60362):
+    """The lazy kind's case past 38,912 states (LENG 60362: 8 wide blocks of
+    1024 threads of 8 states, the whole 16-pass chain, nothing certified)
+    is the eager step with pre_diag carried in the D row: _block_model's
+    lazy step (block_chunk's CARRY) gives the plain lazy Viterbi's scores
+    and every carry (M, I, pre_diag, the specials) bit for bit with no
+    replay, on a ragged batch of 4 x 40; its scores equal the plain eager
+    Viterbi's and its pre_diag is max(max(M + tmm, I + tim), D + tdm) of the
+    eager carries; a sequence past its length keeps its last valid step's
+    pre_diag, so a two-call carry chain split at 17 equals one call."""
+    p7, _ = join_60362
+    rng = np.random.default_rng(62)
+    tokens = rng.integers(0, 20, size=(LAZY_B, LAZY_L)).astype(np.int32)
+    lengths = np.array([LAZY_L, 0, 17, 29], dtype=np.int32)
+    pack = p7_cuda.viterbi_pack(p7, "cpu", lazy=True)
+    assert pack.lazy_k == p7_cuda.chain_passes(pack.m_pad) == 16
+    assert p7_cuda.kernel_case(pack.m_pad, "lazy") == (KT, 8)
+    assert p7_cuda.cluster_blocks(pack.m_pad, "lazy") == 8
+    staged = MSVScanner(device="cpu").stage(tokens, lengths)
+    run, carry = chip_smoke.p7_calls("lazy", pack, staged)
+    want = run(chip_smoke.PLAIN_FNS["lazy"], staged.tokens, staged.lengths, carry)
+    assert int(want[5].sum()) == 0
+    got = _block_model("lazy", pack, staged, carry)
+    for g, w in zip(got, want[:5]):
+        assert np.array_equal(g, w.numpy())
+    eager_pack = p7_cuda.viterbi_pack(p7, "cpu", lazy=False)
+    run_e, carry_e = chip_smoke.p7_calls("eager", eager_pack, staged)
+    eager = run_e(chip_smoke.PLAIN_FNS["eager"], staged.tokens, staged.lengths, carry_e)
+    assert torch.equal(eager[0], want[0]) and torch.equal(eager[4], want[4])
+    live = torch.from_numpy(lengths > 0)
+    pd = chip_smoke.pre_diag(eager_pack, *eager[1:4])
+    assert torch.equal(pd[live], want[3][live])
+    split = 17
+    first = run(chip_smoke.PLAIN_FNS["lazy"], staged.tokens[:, :split].contiguous(),
+                staged.lengths.clamp(max=split), carry)
+    second = run(chip_smoke.PLAIN_FNS["lazy"], staged.tokens[:, split:].contiguous(),
+                 (staged.lengths - split).clamp(min=0), first[1:5])
+    for g, w in zip(second[:5], want[:5]):
+        assert torch.equal(g, w)
 
 
 def test_mem_join_plain_lazy_and_filter_match_jax(mem_files, batch):
@@ -721,9 +812,11 @@ def _wide_cluster_reduce(v: np.ndarray, op, c: int) -> np.ndarray:
     return acc
 
 
-def _wide_cluster_forward_model(pack, staged, carry):
+def _wide_cluster_forward_model(pack, staged, carry, kind: str = "save"):
     """The row-saving Forward's scan on its C-block cluster of 256-thread
-    blocks (csrc/p7_forward_kernel.cu::forward_body at KT = 256) in NumPy
+    blocks (csrc/p7_forward_kernel.cu::forward_body at KT = 256; ``kind``
+    "forward": the plain Forward's, the same body without the saved rows,
+    whose stores change no value) in NumPy
     float32, step for step: the rows padded with 0 to the cluster's c * 256
     * per states, the delete chain's passes as the plain shifts (which the
     cluster's shifts equal: tests/test_torch_p7_layout.py), E as each
@@ -732,8 +825,8 @@ def _wide_cluster_forward_model(pack, staged, carry):
     each thread's max (from 0). Returns (scores, m, i, d, s[:6])."""
     f32 = np.float32
     m_pad = pack.m_pad
-    threads, per = p7_cuda.kernel_case(m_pad, "save")
-    c = p7_cuda.cluster_blocks(m_pad, "save")
+    threads, per = p7_cuda.kernel_case(m_pad, kind)
+    c = p7_cuda.cluster_blocks(m_pad, kind)
     assert threads == WIDE_KT
     n = c * threads * per
 
@@ -793,26 +886,30 @@ def _wide_cluster_forward_model(pack, staged, carry):
             np.stack([sj, sc, sn, sb, log_scale, comp]))
 
 
-def test_wide_cluster_model_matches_plain(profile_dir, batch):
-    """The row-saving Forward on its C-block cluster of 256-thread blocks
-    at LENG 60362 (13 blocks of 19 states a thread) modelled in NumPy step
-    for step (_wide_cluster_forward_model): its reduction order (each
+def test_wide_cluster_model_matches_plain(join_60362, batch):
+    """Forward and the row-saving Forward on their C-block cluster of
+    256-thread blocks at LENG 60362 (13 blocks of 19 states a thread, one
+    case for both) modelled in NumPy step for step
+    (_wide_cluster_forward_model without SAVE): its reduction order (each
     thread's states in order, the warp butterfly, each block's eight warps
     in pairs of pairs, the blocks in rank order, for E and the rescale max)
-    gives the plain Forward's scores within FWD_TOL and its carries (M, I,
-    D, the specials, the log scale) within FWD_TOL too; the plain versions
-    are held against JAX (test_past_the_largest_cluster_plain_posterior_
-    matches_jax)."""
+    gives forward_prob_scan_plain's scores within FWD_TOL and its carries
+    (M, I, D, the specials, the log scale) within FWD_TOL too; the plain
+    versions are held against JAX (test_past_the_largest_cluster_plain_
+    posterior_matches_jax)."""
     tokens, lengths = batch
-    p7 = P7Profile.from_profile(chip_smoke.wide_profile(chip_smoke.MSV_MEM_JOIN))
+    p7, _ = join_60362
     pack = p7_cuda.forward_pack(p7, "cpu")
     assert p7_cuda.cluster_blocks(pack.m_pad, "save") == 13
+    assert (p7_cuda.cluster_blocks(pack.m_pad, "forward"), p7_cuda.kernel_case(pack.m_pad,
+                                                                                "forward")) == (
+        13, p7_cuda.kernel_case(pack.m_pad, "save"))
     staged = MSVScanner(device="cpu").stage(tokens, lengths)
     # the plain row-saving Forward's scores and carries are the plain Forward's
     run, carry = chip_smoke.p7_calls("forward", pack, staged)
     want = [x.numpy() for x in run(chip_smoke.PLAIN_FNS["forward"], staged.tokens,
                                    staged.lengths, carry)]
-    got = _wide_cluster_forward_model(pack, staged, carry)
+    got = _wide_cluster_forward_model(pack, staged, carry, "forward")
     live = lengths > 0
     assert np.isfinite(got[0][live]).all()
     assert _max_d(got[0], want[0]) <= FWD_TOL

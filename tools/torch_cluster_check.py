@@ -6,7 +6,7 @@ versions on the card.
                                          [--block 10,11,...] [--blocks 2:5,4:8,...]
                                          [--wide 9,...,14] [--time]
     python3 tools/torch_cluster_check.py --stress N [--stress-c 4,...,16]
-                                         [--stress-wide 9,...,14]
+                                         [--stress-wide 9,...,14] [--stress-blocks 5,...,8]
 
 MSV: for each M_pad of --widths (default: the boundaries of every cluster
 size from the pair to 16 blocks, and two widths past 38,912), a random f32
@@ -41,23 +41,27 @@ its nodes delete-heavy) at the narrowest and the widest M_pad of that
 cluster of wide blocks, on the same ragged batch: the eager kernel equal
 to its plain version bit for bit (scores and carries) with a carry chain
 split at P7_SPLIT equal to one call, the log-space kernel within
-LOG_FWD_TOL; the launch counters show the wide block (block_launches) up
-to MAX_BLOCK_STATES and the cluster of C wide blocks past it
-(block_cluster_launches by C), never the rows-in-memory case (and a tree
-without the clusters of wide blocks, the rows-in-memory case past
-MAX_BLOCK_STATES). The row-saving Forward and the backward pass past
-38,912 states: for each C of --wide (default 9..14) two joins of the repo's
-profiles that land on a C-block cluster of 256-thread blocks of that C, one
-just past 4864 * (C - 1) states and one as near 4864 * C (at most 65536) as
-they fill, on the same ragged batch: the row-saving kernel's scores and
-carries within FWD_TOL of its plain version and its scores within FWD_TOL
-of the Forward kernel's (the rows-in-memory case there), the backward pass
-on the kernel's rows within COV_TOL of its plain version, the whole decode
-within COV_TOL / TOT_TOL of the plain decode; the launch counters show the
-cluster of C blocks (block_cluster_launches by C) and no rows-in-memory
-launch; and at the first width the rows-in-memory route of a card that
-holds no such cluster (chip_smoke.no_block_clusters), its counters showing
-it. Then chip_smoke.py's wide
+LOG_FWD_TOL, and past 38,912 states (p7_cuda.LAZY_BLOCK_STATES) the lazy
+kernel on the same cluster equal to its plain version bit for bit (scores,
+carries, 0 replays), its scores equal to the eager kernel's and its carry
+chain equal to one call; the launch counters show the wide block
+(block_launches) up to MAX_BLOCK_STATES and the cluster of C wide blocks
+past it (block_cluster_launches by C), never the rows-in-memory case (and a
+tree without the clusters of wide blocks, the rows-in-memory case past
+MAX_BLOCK_STATES). Forward, the row-saving Forward and the backward pass
+past 38,912 states: for each C of --wide (default 9..14) two joins of the
+repo's profiles that land on a C-block cluster of 256-thread blocks of that
+C, one just past 4864 * (C - 1) states and one as near 4864 * C (at most
+65536) as they fill, on the same ragged batch: Forward's scores within
+FWD_TOL of its plain version with a carry chain equal to one call, the
+row-saving kernel's scores and carries within FWD_TOL of its plain version
+and equal to the Forward kernel's bit for bit (both run the cluster), the
+backward pass on the kernel's rows within COV_TOL of its plain version, the
+whole decode within COV_TOL / TOT_TOL of the plain decode; the launch
+counters show the cluster of C blocks (block_cluster_launches by C) and no
+rows-in-memory launch; and at the first width the rows-in-memory route of a
+card that holds no such cluster (chip_smoke.no_block_clusters), its
+counters showing it (Forward == the row-saving kernel there too). Then chip_smoke.py's wide
 check (the cluster pairs, the backward pass's included). With --time, the
 MSV cluster cases at 2048 x 1000, the Forward pair at 64 x 3500, each p7
 join's Viterbi and Forward kernels at 64 x 1000
@@ -76,9 +80,11 @@ profiles filling a C-block cluster of 128-thread blocks (18-19 states a
 thread, join_stems) through
 the lazy Viterbi at lazy_k = 1 (its certificate fires, so chunks replay the
 whole chain), the Viterbi filter at its longest window (the whole chain),
-Forward, the row-saving Forward and the backward pass, and for each C of
+Forward, the row-saving Forward and the backward pass, for each C of
 --stress-wide (default 9..14) a join filling a C-block cluster of
-256-thread blocks through the row-saving Forward and the backward pass, N
+256-thread blocks through Forward, the row-saving Forward and the backward
+pass, and for each C of --stress-blocks (default 5..8) a join past 38,912
+states filling a cluster of C wide blocks through the lazy Viterbi, N
 launches each on SURVIVOR_BATCH rows of 300 residues, every launch's
 results equal to the first's bit for bit and the launch counters showing
 the case. The launches run in a child process that prints a line as each
@@ -210,7 +216,7 @@ def p7_join(rng, scanner, stems: tuple[str, ...], time_it: bool) -> dict:
     dev = scanner.device
     p7 = chip_smoke.P7Profile.from_profile(chip_smoke.wide_profile(stems))
     m_pad = p7_cuda.default_m_pad(p7)
-    c = p7_cuda.cluster_blocks(m_pad, "lazy")
+    c = p7_cuda.cluster_blocks(m_pad, "filter")
     staged = chip_smoke.ragged_wide_batch(scanner, rng)
     packs = chip_smoke.p7_packs(p7, dev)
     packs["lazy_k1"] = p7_cuda.viterbi_pack(p7, dev, lazy=True, lazy_k=1)
@@ -246,10 +252,16 @@ def p7_join(rng, scanner, stems: tuple[str, ...], time_it: bool) -> dict:
     fires = int(got["lazy_k1"][5].sum())
     full = p7_cuda.chain_passes(m_pad)
     chip_smoke.require(fires > 0 or full > 15, f"{name}: lazy_k = 1 never fired")
-    counts = {kind: counters(fn) for kind, fn in P7_WRAPPERS.items()}
+    counts = {kind: counters(fn) | {"blocks": dict(fn.block_cluster_launches)}
+              for kind, fn in P7_WRAPPERS.items()}
     for kind, cnt in counts.items():
-        chip_smoke.require(set(cnt["cluster"]) == {c} and cnt["mem"] == 0,
-                           f"{name} {kind}: launches {cnt}, expected the {c}-block cluster only")
+        # past LAZY_BLOCK_STATES the lazy kind runs its cluster of wide blocks
+        blocks = p7_cuda.block_cluster_case(m_pad, kind)
+        want = p7_cuda.cluster_blocks(m_pad, kind)
+        chip_smoke.require(set(cnt["blocks" if blocks else "cluster"]) == {want}
+                           and cnt["mem"] == 0,
+                           f"{name} {kind}: launches {cnt}, expected the {want}-block cluster "
+                           f"only")
     out = {"join": "+".join(stems), "m_pad": m_pad, "c": c, "chain_passes": full,
            "lazy_k": packs["lazy"].lazy_k, "lazy_k1_fires": fires, "forward_max_abs": f_err,
            "forward_chain_max_abs": chain, "backward_max_abs": b_err, "coverage_max_abs": c_err,
@@ -259,7 +271,8 @@ def p7_join(rng, scanner, stems: tuple[str, ...], time_it: bool) -> dict:
         out[f"plan_{kind}"] = plan._asdict()
         out[f"regs_{kind}"] = p7_cuda.kernel_regs(kind, plan.per, plan.threads, plan.cluster)
         out[f"max_clusters_{kind}"] = p7_cuda.max_clusters(kind, plan.per, plan.smem,
-                                                           dev.index or 0, plan.cluster)
+                                                           dev.index or 0, plan.cluster,
+                                                           plan.threads)
     if time_it:
         big = rng.integers(0, 20, size=(64, POST_LEN)).astype(np.int8)
         for kind in P7_KINDS:
@@ -317,7 +330,8 @@ def p7_block_join(rng, scanner, hmm, name: str, time_it: bool) -> dict:
     """The eager and log-space kernels on ``hmm`` (``name``: its join or
     width) against their plain versions (the wide block up to
     MAX_BLOCK_STATES, else the cluster of wide blocks, or in a tree without
-    it the rows-in-memory case), with the launch counters; timed with
+    it the rows-in-memory case), and the lazy kernel where it runs the same
+    cluster (past LAZY_BLOCK_STATES), with the launch counters; timed with
     ``time_it``."""
     dev = scanner.device
     p7 = chip_smoke.P7Profile.from_profile(hmm)
@@ -326,13 +340,17 @@ def p7_block_join(rng, scanner, hmm, name: str, time_it: bool) -> dict:
     block = p7_cuda.block_case(m_pad, "eager")
     blocks = hasattr(p7_cuda, "block_cluster_case") and p7_cuda.block_cluster_case(m_pad, "eager")
     c = p7_cuda.cluster_blocks(m_pad, "eager") if blocks else 1
+    wrappers = dict(BLOCK_WRAPPERS)
+    if hasattr(p7_cuda, "LAZY_BLOCK_STATES") and p7_cuda.block_cluster_case(m_pad, "lazy"):
+        wrappers["lazy"] = p7_cuda.viterbi_lazy_scan_cuda
     staged = chip_smoke.ragged_wide_batch(scanner, rng)
     pack = p7_cuda.viterbi_pack(p7, dev, lazy=False)
-    for fn in BLOCK_WRAPPERS.values():
+    packs = {"eager": pack, "log": pack, "lazy": p7_cuda.viterbi_pack(p7, dev, lazy=True)}
+    for fn in wrappers.values():
         msv_cuda.zero_launches(fn)
     got, want = {}, {}
-    for kind in BLOCK_WRAPPERS:
-        run, carry = chip_smoke.p7_calls(kind, pack, staged)
+    for kind in wrappers:
+        run, carry = chip_smoke.p7_calls(kind, packs[kind], staged)
         got[kind] = run(chip_smoke.CUDA_FNS[kind], staged.tokens, staged.lengths, carry)
         torch.cuda.synchronize()
         want[kind] = run(chip_smoke.PLAIN_FNS[kind], staged.tokens, staged.lengths, carry)
@@ -341,9 +359,17 @@ def p7_block_join(rng, scanner, hmm, name: str, time_it: bool) -> dict:
     chain = chip_smoke.p7_chain_error("eager", pack, staged)
     l_err = chip_smoke.max_abs_diff(got["log"][0], want["log"][0])
     chip_smoke.require(l_err <= chip_smoke.LOG_FWD_TOL, f"{name} log-space vs plain: {l_err}")
+    lazy = {}
+    if "lazy" in wrappers:
+        lazy["lazy_max_abs"] = chip_smoke.require_equal(got["lazy"], want["lazy"],
+                                                        f"{name} lazy kernel vs plain")
+        chip_smoke.require_equal([got["lazy"][0]], [got["eager"][0]], f"{name} lazy vs eager")
+        chip_smoke.require(int(got["lazy"][5].sum()) == 0 and packs["lazy"].lazy_k == 16,
+                           f"{name}: the lazy kernel replayed or certified a window")
+        lazy["lazy_chain_max_abs"] = chip_smoke.p7_chain_error("lazy", packs["lazy"], staged)
     counts = {kind: counters(fn) | {"block": fn.block_launches,
                                     "blocks": dict(getattr(fn, "block_cluster_launches", {}))}
-              for kind, fn in BLOCK_WRAPPERS.items()}
+              for kind, fn in wrappers.items()}
     for kind, cnt in counts.items():
         if block:
             ok, what = cnt["block"] > 0 and cnt["mem"] == 0, "wide block"
@@ -355,9 +381,9 @@ def p7_block_join(rng, scanner, hmm, name: str, time_it: bool) -> dict:
         chip_smoke.require(ok, f"{name} {kind}: launches {cnt}, expected the {what} only")
     out = {"join": name, "m_pad": m_pad, "threads": threads, "per": per, "cluster": c,
            "chain_passes": p7_cuda.chain_passes(m_pad), "eager_max_abs": e_err,
-           "eager_chain_max_abs": chain, "log_max_abs": l_err, "launches": counts,
+           "eager_chain_max_abs": chain, "log_max_abs": l_err, **lazy, "launches": counts,
            "equal": True}
-    for kind in BLOCK_WRAPPERS:
+    for kind in wrappers:
         plan = p7_cuda.device_plan(kind, m_pad, p7_cuda.chain_passes(m_pad), 64, dev)
         out[f"plan_{kind}"] = plan._asdict()
         out[f"regs_{kind}"] = p7_cuda.kernel_regs(kind, plan.per, plan.threads, plan.cluster)
@@ -369,8 +395,8 @@ def p7_block_join(rng, scanner, hmm, name: str, time_it: bool) -> dict:
         shapes = ((64, 1000),) if name.startswith("random") else ((64, 1000), (256, 400))
         for rows, length in shapes:
             bstaged = scanner.stage(big[:rows, :length], np.full(rows, length, dtype=np.int32))
-            for kind in BLOCK_WRAPPERS:
-                run, carry = chip_smoke.p7_calls(kind, pack, bstaged)
+            for kind in wrappers:
+                run, carry = chip_smoke.p7_calls(kind, packs[kind], bstaged)
                 fn = chip_smoke.CUDA_FNS[kind]
                 plan = p7_cuda.device_plan(kind, m_pad, p7_cuda.chain_passes(m_pad), rows, dev)
                 ms = chip_smoke.best_ms(lambda: run(fn, bstaged.tokens, bstaged.lengths, carry),
@@ -381,13 +407,15 @@ def p7_block_join(rng, scanner, hmm, name: str, time_it: bool) -> dict:
     return out
 
 
-WIDE_WRAPPERS = {"save": chip_smoke.posterior_cuda.forward_save_scan_cuda,
+WIDE_WRAPPERS = {"forward": p7_cuda.forward_prob_scan_cuda,
+                 "save": chip_smoke.posterior_cuda.forward_save_scan_cuda,
                  "backward": chip_smoke.posterior_cuda.backward_coverage_scan_cuda}
 
 
 def posterior_vs_plain(scanner, p7, staged, name: str) -> dict:
-    """The row-saving Forward and the backward pass on ``staged`` against
-    their plain versions, and the Forward kernel's scores: the errors."""
+    """Forward, the row-saving Forward and the backward pass on ``staged``
+    against their plain versions, the row-saving Forward == Forward bit for
+    bit (both run one case) and Forward's carry chain: the errors."""
     dev = scanner.device
     fpack = p7_cuda.forward_pack(p7, dev)
     schain = chip_smoke.posterior_cuda.suffix_chain_rows(p7, dev)
@@ -397,10 +425,12 @@ def posterior_vs_plain(scanner, p7, staged, name: str) -> dict:
     want = run(chip_smoke.PLAIN_FNS["save"], staged.tokens, staged.lengths, carry)
     fwd = run(chip_smoke.CUDA_FNS["forward"], staged.tokens, staged.lengths, carry)
     s_err = max(chip_smoke.max_abs_diff(g, w) for g, w in zip(got[:5], want[:5]))
-    f_err = chip_smoke.max_abs_diff(got[0], fwd[0])
-    chip_smoke.require(s_err <= chip_smoke.FWD_TOL and f_err <= chip_smoke.FWD_TOL,
+    fp_err = chip_smoke.max_abs_diff(fwd[0], want[0])
+    chip_smoke.require(s_err <= chip_smoke.FWD_TOL and fp_err <= chip_smoke.FWD_TOL,
                        f"{name} row-saving Forward vs plain (scores and carries): {s_err}, "
-                       f"vs the Forward kernel's scores: {f_err}")
+                       f"Forward vs plain: {fp_err}")
+    f_err = chip_smoke.require_equal(got[:5], fwd, f"{name} row-saving Forward vs Forward")
+    f_chain = chip_smoke.p7_chain_error("forward", fpack, staged)
     bwd_in = chip_smoke.backward_inputs(fpack, schain, staged)
     cov = chip_smoke.posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
     torch.cuda.synchronize()
@@ -412,14 +442,15 @@ def posterior_vs_plain(scanner, p7, staged, name: str) -> dict:
                        and t_err <= chip_smoke.TOT_TOL,
                        f"{name} backward pass vs plain on its rows: {b_err}, the decode: "
                        f"{c_err}, totals {t_err}")
-    return {"save_max_abs": s_err, "save_vs_forward_max_abs": f_err, "backward_max_abs": b_err,
+    return {"forward_max_abs": fp_err, "forward_chain_max_abs": f_chain, "save_max_abs": s_err,
+            "save_vs_forward_max_abs": f_err, "backward_max_abs": b_err,
             "coverage_max_abs": c_err, "totals_max_abs": t_err}
 
 
 def p7_wide_cluster(rng, scanner, hmm, name: str, time_it: bool, mem_route: bool) -> dict:
-    """The row-saving Forward and the backward pass on ``hmm`` past 38,912
-    states against their plain versions (posterior_vs_plain) on their
-    C-block cluster of 256-thread blocks, with the launch counters; with
+    """Forward, the row-saving Forward and the backward pass on ``hmm``
+    past 38,912 states against their plain versions (posterior_vs_plain) on
+    their C-block cluster of 256-thread blocks, with the launch counters; with
     ``mem_route`` also on the rows-in-memory route of a card that holds no
     such cluster; timed with ``time_it``."""
     dev = scanner.device
@@ -463,8 +494,10 @@ def p7_wide_cluster(rng, scanner, hmm, name: str, time_it: bool, mem_route: bool
         schain = chip_smoke.posterior_cuda.suffix_chain_rows(p7, dev)
         b_in = chip_smoke.backward_inputs(fpack, schain, bstaged)
         run, carry = chip_smoke.p7_calls("save", fpack, bstaged)
-        for kind, call in (("save", lambda: run(WIDE_WRAPPERS["save"], bstaged.tokens,
-                                                 bstaged.lengths, carry)),
+        for kind, call in (("forward", lambda: run(WIDE_WRAPPERS["forward"], bstaged.tokens,
+                                                    bstaged.lengths, carry)),
+                           ("save", lambda: run(WIDE_WRAPPERS["save"], bstaged.tokens,
+                                                bstaged.lengths, carry)),
                            ("backward", lambda: WIDE_WRAPPERS["backward"](*b_in))):
             ms = chip_smoke.best_ms(call, reps=3)
             held = out[f"clusters_{kind}"]
@@ -482,21 +515,31 @@ STRESS_KINDS = ("lazy", "filter", "forward", "save", "backward")
 STRESS_SILENCE = 120.0
 
 
-def stress_cases(cs, wide_cs) -> list[tuple[str, int, tuple[str, ...], str]]:
+def stress_cases(cs, wide_cs, block_cs=()) -> list[tuple[str, int, tuple[str, ...], str]]:
     """(kind, C, join, label) of every stressed case: the 128-thread kinds
     on the join of the repo's profiles as near 2432 * C states as they fill
-    (join_stems: 18-19 states a thread) for each C of ``cs``, the row-saving
-    Forward and the backward pass on the join as near 4864 * C (at most
-    65536) for each C of ``wide_cs`` on 256-thread blocks (labelled
-    ``<kind>256``)."""
-    out = [(kind, c, join_stems(c, True), kind) for c in cs for kind in STRESS_KINDS]
+    (join_stems: 18-19 states a thread) for each C of ``cs``, Forward, the
+    row-saving Forward and the backward pass on the join as near 4864 * C
+    (at most 65536) for each C of ``wide_cs`` on 256-thread blocks
+    (labelled ``<kind>256``), and the lazy Viterbi on the join as near 8192
+    * C (past 38,912, at most 65536) for each C of ``block_cs`` on its
+    cluster of C wide blocks (labelled ``lazy_blocks``)."""
+    out = []
+    for c in cs:
+        stems = join_stems(c, True)
+        m_pad = p7_cuda.round_up(sum(int(s) for s in stems), 8)
+        # past LAZY_BLOCK_STATES the lazy kind is no 128-thread case
+        out += [(kind, c, stems, kind) for kind in STRESS_KINDS
+                if not p7_cuda.block_cluster_case(m_pad, kind)]
     wide_block = p7_cuda.WIDE_CLUSTER_THREADS * p7_cuda.WIDE_CLUSTER_PER[-1]
     for c in wide_cs:
         out += [(kind, c, join_stems(c, True, wide_block), f"{kind}256") for kind in WIDE_WRAPPERS]
+    wide = p7_cuda.BLOCK_THREADS * p7_cuda.BLOCK_CLUSTER_PER[-1]
+    out += [("lazy", c, join_stems(c, True, wide), "lazy_blocks") for c in block_cs]
     return out
 
 
-def stress_child(n: int, cs, wide_cs) -> int:
+def stress_child(n: int, cs, wide_cs, block_cs=()) -> int:
     """The stress's launches (stress_cases): one line a launch as it starts
     and as it ends, ``start|done <label> <C> <launch>``, then
     ``STRESS_DONE``; raises on a result that differs from the case's first
@@ -510,7 +553,7 @@ def stress_child(n: int, cs, wide_cs) -> int:
                            size=chip_smoke.SURVIVOR_BATCH).astype(np.int32)
     staged = scanner.stage(tokens, lengths)
     p7s = {}
-    for kind, c, stems, label in stress_cases(cs, wide_cs):
+    for kind, c, stems, label in stress_cases(cs, wide_cs, block_cs):
         if stems not in p7s:
             p7s[stems] = chip_smoke.P7Profile.from_profile(chip_smoke.wide_profile(stems))
         p7 = p7s[stems]
@@ -551,7 +594,7 @@ def stress_child(n: int, cs, wide_cs) -> int:
                 chip_smoke.require(all(torch.equal(g, w) for g, w in zip(got, first)),
                                    f"stress {label} C {c} launch {i}: not equal to the first")
             print(f"done {label} {c} {i}", flush=True)
-        wide = p7_cuda.wide_cluster_case(m_pad, kind)
+        wide = p7_cuda.wide_cluster_case(m_pad, kind) or p7_cuda.block_cluster_case(m_pad, kind)
         by_c = fn.block_cluster_launches if wide else fn.cluster_launches
         chip_smoke.require(by_c == {c: n} and fn.mem_launches == 0,
                            f"stress {kind} C {c}: launches {counters(fn)}, "
@@ -560,12 +603,13 @@ def stress_child(n: int, cs, wide_cs) -> int:
     return 0
 
 
-def stress(n: int, cs, wide_cs) -> int:
+def stress(n: int, cs, wide_cs, block_cs=()) -> int:
     """Run stress_child in a child process and watch it: fails, naming the
     launch under way, when the child falls silent for STRESS_SILENCE
     seconds or exits otherwise than 0."""
     cmd = [sys.executable, __file__, "--stress-child", str(n),
-           "--stress-c", ",".join(map(str, cs)), "--stress-wide", ",".join(map(str, wide_cs))]
+           "--stress-c", ",".join(map(str, cs)), "--stress-wide", ",".join(map(str, wide_cs)),
+           "--stress-blocks", ",".join(map(str, block_cs))]
     t0 = time.perf_counter()
     child = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
     sel = selectors.DefaultSelector()
@@ -620,17 +664,23 @@ def main() -> int:
     ap.add_argument("--stress-child", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--stress-c", default=",".join(str(c) for c in range(4, p7_cuda.MAX_CLUSTER + 1)))
     ap.add_argument("--stress-wide", default=",".join(map(str, wide)))
+    # the lazy kind's clusters of wide blocks past 38,912 states
+    lazy_blocks = sorted({p7_cuda.cluster_blocks(m, "lazy")
+                          for m in range(p7_cuda.LAZY_BLOCK_STATES + 8,
+                                         p7_cuda.MAX_KERNEL_STATES + 1, 8)})
+    ap.add_argument("--stress-blocks", default=",".join(map(str, lazy_blocks)))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_cluster_check: no CUDA card", file=sys.stderr)
         return 1
     stress_cs = [int(x) for x in args.stress_c.split(",") if x]
     stress_wide = [int(x) for x in args.stress_wide.split(",") if x]
+    stress_blocks = [int(x) for x in args.stress_blocks.split(",") if x]
     if args.stress_child:
-        return stress_child(args.stress_child, stress_cs, stress_wide)
+        return stress_child(args.stress_child, stress_cs, stress_wide, stress_blocks)
     if args.stress:
         _build.build()  # once, before the child's clock starts
-        return stress(args.stress, stress_cs, stress_wide)
+        return stress(args.stress, stress_cs, stress_wide, stress_blocks)
     card = chip_smoke.nvidia_smi("name,power.limit")
     print(card, flush=True)
     dev = torch.device(chip_smoke.DEVICE)

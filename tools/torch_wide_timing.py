@@ -30,7 +30,17 @@ posterior_coverage_batch call, 26 x 1024 (rows ``<kernel>_60362_chunk``),
 the same work for any tree. With --clusters (in place of the wide timings,
 beside --posterior) it times the lazy Viterbi, the Viterbi filter and
 Forward against the LENG 6977 and 30181 joins at 64 x 1000, best of 3 (rows
-``<kernel>_<LENG>``: the C-block clusters of 3 and 13 blocks). With --block (in place
+``<kernel>_<LENG>``: the C-block clusters of 3 and 13 blocks), then the
+lazy Viterbi and Forward against the all-24 join twice over (LENG 60362,
+past 38,912 states: whatever case the tree plans there, best of 3 on a
+cluster, once in memory) and the lazy Viterbi against two joins between
+32,769 and 38,912 states, where its chain has 16 passes (the all-24 join
+with 2405 and 2365, LENG 34951, and with 2405, 2365, 2207 and 1705, LENG
+38863), at 64 x 1000, and, in a tree whose lazy kind has the clusters of
+wide blocks (p7_cuda.LAZY_BLOCK_STATES), at those two joins again on the
+case the tree does not plan there: the cluster of 5 wide blocks (rows
+``viterbi_lazy_scan_<LENG>_blocks``) or the 128-thread C-block cluster of
+15 or 16 blocks (``_cluster``). With --block (in place
 of the wide timings) it times the eager Viterbi and the log-space Forward
 past 4864 states alone, through whatever case the tree plans (the
 rows-in-memory case before the wide block and, past 9216 states, before
@@ -149,21 +159,48 @@ def cluster_rows_past(chip_smoke, scanner, rng, work: dict) -> dict:
     b, n = chip_smoke.SURVIVOR_BATCH, chip_smoke.MEM_TIME_LEN
     tokens = rng.integers(0, 20, size=(b, n)).astype(np.int8)
     staged = scanner.stage(tokens, np.full(b, n, dtype=np.int32))
+    p7_cuda = chip_smoke.p7_cuda
+    lazy_fwd = (("viterbi_lazy_scan", "lazy"), ("forward_prob_scan", "forward"))
+    joins = [(hmm, (("viterbi_lazy_scan", "lazy"), ("viterbi_filter_scan", "filter"),
+                    ("forward_prob_scan", "forward"))) for hmm in chip_smoke.mem_profiles()]
+    joins += [(chip_smoke.msv_mem_profile(), lazy_fwd)]
+    joins += [(chip_smoke.wide_profile(chip_smoke.MEM_JOINS[1] + extra), lazy_fwd[:1])
+              for extra in (("2405", "2365"), ("2405", "2365", "2207", "1705"))]
     out = {}
-    for hmm in chip_smoke.mem_profiles():
+
+    def time_kind(p7, packs, name, kind, tag=""):
+        plan = p7_cuda.device_plan(kind, packs[kind].m_pad,
+                                   chip_smoke.passes_of(kind, packs[kind]), b, scanner.device)
+        reps = 1 if plan.mem else 3
+        run, carry = chip_smoke.p7_calls(kind, packs[kind], staged)
+        fn = chip_smoke.CUDA_FNS[kind]
+        ms = chip_smoke.best_ms(lambda: run(fn, staged.tokens, staged.lengths, carry), reps=reps)
+        key = f"{name}_{p7.num_states}{tag}"
+        out[key] = (ms, float("nan"))
+        passes = chip_smoke.passes_of(kind, packs[kind])
+        work[key] = (chip_smoke.OPS_PER_CELL[kind](passes) * b * n * p7.num_states,
+                     chip_smoke.nbytes(*packs[kind][:4], staged.tokens))
+        print(f"{key}: {ms:.3f} ms (best of {reps}, {b} x {n} x M={p7.num_states}; plan "
+              f"{plan})", flush=True)
+
+    for hmm, kinds in joins:
         p7 = chip_smoke.P7Profile.from_profile(hmm)
         packs = chip_smoke.p7_packs(p7, scanner.device)
-        for name, kind in (("viterbi_lazy_scan", "lazy"), ("viterbi_filter_scan", "filter"),
-                           ("forward_prob_scan", "forward")):
-            run, carry = chip_smoke.p7_calls(kind, packs[kind], staged)
-            fn = chip_smoke.CUDA_FNS[kind]
-            ms = chip_smoke.best_ms(lambda: run(fn, staged.tokens, staged.lengths, carry), reps=3)
-            key = f"{name}_{p7.num_states}"
-            out[key] = (ms, float("nan"))
-            passes = chip_smoke.passes_of(kind, packs[kind])
-            work[key] = (chip_smoke.OPS_PER_CELL[kind](passes) * b * n * p7.num_states,
-                         chip_smoke.nbytes(*packs[kind][:4], staged.tokens))
-            print(f"{key}: {ms:.3f} ms (best of 3, {b} x {n} x M={p7.num_states})", flush=True)
+        for name, kind in kinds:
+            time_kind(p7, packs, name, kind)
+        m_pad = p7_cuda.default_m_pad(p7)
+        if 32768 < m_pad <= p7_cuda.MAX_CLUSTER_STATES and hasattr(p7_cuda, "LAZY_BLOCK_STATES"):
+            # where the chain has 16 passes, the lazy kind on the case the
+            # plan does not take: its clusters of wide blocks start at
+            # LAZY_BLOCK_STATES
+            first = p7_cuda.LAZY_BLOCK_STATES
+            blocks = p7_cuda.block_cluster_case(m_pad, "lazy")
+            p7_cuda.LAZY_BLOCK_STATES = p7_cuda.MAX_CLUSTER_STATES if blocks else 32768
+            try:
+                time_kind(p7, packs, "viterbi_lazy_scan", "lazy",
+                          "_cluster" if blocks else "_blocks")
+            finally:
+                p7_cuda.LAZY_BLOCK_STATES = first
     return out
 
 
