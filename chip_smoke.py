@@ -82,8 +82,9 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    launch each, bit for bit with the plain versions, the launch counters
    showing each at its C, and the stacked kernel over 100.hmm and all five
    (one launch a C) == the single scans; the all-24 join twice over (LENG
-   60362, past 38,912) through the MSV kernels' rows-in-memory case the
-   same way; then MEM_JOINS (15 chain passes at LENG 30181) through every
+   60362, past 38,912) through the MSV kernels' 16-block cluster of 8-warp
+   blocks the same way (the counters showing C = 16 alone); then MEM_JOINS
+   (15 chain passes at LENG 30181) through every
    p7 kernel past 4864 states against its plain version on the same kind
    of batch (mem_kernels_vs_plain: the lazy Viterbi, the Viterbi filter,
    Forward, the row-saving Forward and the backward pass on their 3- and
@@ -93,25 +94,29 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    the lazy kernel also at lazy_k = 1 with its fire count printed and above
    0, Forward, log-space Forward and the posterior pair within their
    tolerances, the launch counters showing each kind at its case alone),
-   and the LENG 60362 join through the filter's rows-in-memory case, the
-   eager, log-space and lazy kinds' cluster of 8 wide blocks (the lazy
-   kernel == plain bit for bit with 0 replays, its scores == eager's, a
-   carry chain == one call) and Forward's, the row-saving Forward's and the
-   backward pass's cluster of 13 256-thread blocks the same way (Forward
-   within FWD_TOL of plain, the row-saving Forward == Forward bit for bit),
-   and the lazy kind, Forward and the posterior pair again on their
-   rows-in-memory route (mem_route_past_38912: no_block_clusters, the
-   occupancy query answering 0; the lazy kernel == plain, Forward within
-   FWD_TOL, the row-saving kernel == the Forward kernel bit for bit); then the
+   and the LENG 60362 join through the eager, log-space and lazy kinds'
+   cluster of 8 wide blocks (the lazy kernel == plain bit for bit with 0
+   replays, its scores == eager's, a carry chain == one call) and Forward's,
+   the row-saving Forward's, the backward pass's and the Viterbi filter's
+   cluster of 13 256-thread blocks the same way (Forward within FWD_TOL of
+   plain, the row-saving Forward == Forward bit for bit, the filter == plain
+   bit for bit at its window of 7 and >= the lazy scores), and the lazy
+   kind, Forward, the posterior pair, the Viterbi filter and MSV (exact,
+   filter, stacked) again on their rows-in-memory route, once each
+   (mem_route_past_38912: no_block_clusters, the occupancy query answering
+   0; the lazy kernel, the filter and MSV == plain, Forward within FWD_TOL,
+   the row-saving kernel == the Forward kernel bit for bit); then the
    eager Viterbi and the log-space Forward on their clusters of 2 and 3 wide
    blocks (CLUSTER_JOINS) against plain, each timed once at 64 x 1000, and
    their rows-in-memory route at LENG 30181 on a card that holds no such
    cluster against plain (block_cluster_kernels_vs_plain); then the short
    release stress of the C-block clusters (release_stress:
    tools/torch_cluster_check.py --stress in a process of its own, 10
-   launches a kind at C = 4, 8, 13, 16 of 128-thread blocks, of Forward
-   and the posterior pair at C = 13 of 256-thread blocks and of the lazy
-   Viterbi on 8 wide blocks, none hung, each equal to its case's first);
+   launches a kind at C = 4, 8, 13, 16 of 128-thread blocks, of Forward,
+   the posterior pair and the Viterbi filter at C = 13 of 256-thread
+   blocks, of the lazy Viterbi on 8 wide blocks and of MSV, the MSV filter
+   and the stacked kernel on the 16-block cluster of 8-warp blocks at M_pad
+   60368, none hung, each equal to its case's first);
 9. main paths, each with every launch count set to 0 just before it and
    read just after, on a seeded FASTA of 16384 x 3500 random residues with
    32 sequences sampled from 1400.hmm and 4 from the LENG 4770 profile at
@@ -142,16 +147,18 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    envelope inside it), `--fast` on it (the MSV filter's and the Viterbi
    filter's 3-block clusters, none in memory), `sweep` over both joins and
    the LENG 60362 one (the stacked kernel's 3- and 13-block clusters and
-   its rows-in-memory case), `scan` and MSVScanner.scan_filter with the
-   LENG 60362 join (the MSV rows-in-memory cases), the eager and log-space
-   entry points on the planted rows (the wide block, none in memory), and
-   the eager Viterbi, lazy Viterbi, Viterbi filter, Forward, log-space
-   Forward and posterior entry points with the LENG 60362 join (the eager
-   and log-space kinds' cluster of 8 wide blocks, the posterior pair's
-   cluster of 13 256-thread blocks, the others' rows-in-memory cases past
-   38,912 states), the posterior entry there again through the
-   rows-in-memory route of a card that holds no cluster of 256-thread
-   blocks (coverage within COV_TOL of the cluster's), and the eager and
+   its 16-block cluster of 8-warp blocks), `scan` and
+   MSVScanner.scan_filter with the LENG 60362 join (the MSV kernels'
+   16-block cluster of 8-warp blocks), the eager and log-space entry points
+   on the planted rows (the wide block, none in memory), and the eager
+   Viterbi, lazy Viterbi, Viterbi filter, Forward, log-space Forward and
+   posterior entry points with the LENG 60362 join (the eager, log-space
+   and lazy kinds' cluster of 8 wide blocks, Forward's, the posterior
+   pair's and the filter's cluster of 13 256-thread blocks), the lazy,
+   Forward, posterior and filter entries and MSVScanner.scan, scan_filter
+   and scan_many there again through the rows-in-memory route of a card
+   that holds none of those clusters (== the clusters' scores, coverage
+   within COV_TOL), and the eager and
    log-space entry points with the LENG 30181 join through the
    rows-in-memory route of a card that holds no cluster of wide blocks, ==
    their cluster of 4;
@@ -177,7 +184,9 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    card's name and power limit), and each case past 4864 states
    (mem_timings: the MSV clusters against the LENG 6977 join at 2048 x 1000
    and the stacked kernel over it and the LENG 30181 join, best of 3; the
-   MSV rows-in-memory case against the LENG 60362 join at 256 x 1000; the
+   MSV kernels' 16-block cluster of 8-warp blocks against the LENG 60362
+   join at 256 x 1000 (`<kernel>_cluster256`, best of 3) and their
+   rows-in-memory route there (`<kernel>_mem`, once); the
    p7 kernels at 64 x 1000 and the posterior pair at 64 x 1024 against the
    LENG 6977 join (the lazy Viterbi, the Viterbi filter, Forward, the
    row-saving Forward and the backward pass on 3-block clusters, the eager
@@ -188,11 +197,11 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    Forward on 4 wide blocks there (`<kernel>_blocks_30181`, best of 3;
    also at 256 x 400, `<kernel>_blocks_cal`) and through the rows-in-memory
    route of a card without such clusters (`<kernel>_mem`, once), and
-   against the LENG 60362 join the filter in memory, once, the eager Viterbi,
-   the log-space Forward and the lazy Viterbi on 8 wide blocks
-   (`<kernel>_blocks`, best of 3), Forward and the posterior pair on 13
-   256-thread blocks (`<kernel>_cluster256`, best of 3), the lazy Viterbi,
-   Forward and the posterior pair on their rows-in-memory route
+   against the LENG 60362 join the eager Viterbi, the log-space Forward
+   and the lazy Viterbi on 8 wide blocks (`<kernel>_blocks`, best of 3),
+   Forward, the posterior pair and the Viterbi filter on 13 256-thread
+   blocks (`<kernel>_cluster256`, best of 3), the lazy Viterbi, Forward,
+   the posterior pair and the filter on their rows-in-memory route
    (`<kernel>_mem`, once), and the posterior pair at one
    posterior_coverage_batch chunk there (26 x 1024, both routes, once:
    post_chunk_timings); the parent's time beside each), each plain version
@@ -296,7 +305,9 @@ Prints a JSON line about the kernels (every case, the wide ones as
 the lazy Viterbi's, the Viterbi filter's, Forward's and the row-saving
 Forward's) as `<kernel>_cluster`, the eager and log-space wide block as
 `<kernel>_block` and their clusters of wide blocks as `<kernel>_blocks`,
-the rows-in-memory ones as `<kernel>_mem`), then the card's
+the clusters of 256-thread blocks past 38,912 states (Forward's, the
+posterior pair's, the Viterbi filter's, the MSV kernels') as
+`<kernel>_cluster256`, the rows-in-memory ones as `<kernel>_mem`), then the card's
 name and power limit and, last,
 {"ok": true, ...}. Any failed check raises, and the script exits
 non-zero without those lines.
@@ -392,8 +403,8 @@ MEM_JOINS = (("2405", "2365", "2207"), tuple(
 # the MSV kernel's C-block clusters (C = ceil(M_pad / 2432)): MEM_JOINS land
 # on C = 3 and 13; these joins of the repo's largest profiles on C = 5, 8
 # and 9 (LENG 11165, 18170, 19679); past 38,912 states the MSV kernel's
-# rows-in-memory case takes the all-24 join twice over (LENG 60362), held
-# and timed at MSV_MEM_BATCH rows
+# 16-block cluster of 8-warp blocks takes the all-24 join twice over (LENG
+# 60362), held and timed at MSV_MEM_BATCH rows
 CLUSTER_JOINS = (("2405", "2365", "2207", "2138", "2050"),
                  ("2405", "2365", "2207", "2138", "2050", "1901", "1799", "1705", "1600"),
                  ("2405", "2365", "2207", "2138", "2050", "1901", "1799", "1705", "1600", "1509"))
@@ -406,6 +417,8 @@ MSV_MEM_BATCH = 256
 # WIDE_MSV_BATCH rows, the p7 kernels at SURVIVOR_BATCH)
 MEM_BATCH, MEM_LEN, MEM_PLANTED = 2048, 600, 4
 MEM_TIME_LEN = 1000
+# the rows of the fast search past 38,912 states (every one past MSV)
+FAST_PAST_ROWS = 64
 # homologs of the wider profile planted in the CLI database, and the batch the
 # wide MSV cases are timed at
 WIDE_PLANTED = 4
@@ -496,6 +509,11 @@ PARENT_WIDE_MS = {
     # chip_smoke.py run on PARENT_CARD, before the lazy kind's cluster of
     # wide blocks and Forward's cluster of 256-thread blocks
     "viterbi_lazy_scan_blocks": 501.385, "forward_prob_scan_cluster256": 335.946,
+    # the parent b7e4997's rows-in-memory case of MSV (LENG 60362, 256 x
+    # 1000) and the Viterbi filter (64 x 1000) past 38,912 states, before
+    # their clusters of 256-thread blocks (PERF.md, section 6)
+    "msv_scan_cluster256": 74.714, "msv_filter_scan_cluster256": 72.806,
+    "msv_stacked_scan_cluster256": 74.609, "viterbi_filter_scan_cluster256": 311.669,
 }
 
 # the sweep timing batch (sweep24, sweep24_filter) and the profiles the plain
@@ -578,15 +596,18 @@ BLOCK_WRAPPERS = ("viterbi_scan", "forward_log_scan")
 # rows-in-memory case (`_mem`) is the route of a card that holds no such
 # cluster, driven with no_block_clusters at LENG 60362
 BLOCKS_WRAPPERS = BLOCK_WRAPPERS + ("viterbi_lazy_scan",)
-# Forward's, the row-saving Forward's and the backward pass's cases past
-# 38,912 states (up to 65536): C-block clusters of
-# p7_cuda.WIDE_CLUSTER_THREADS-thread blocks, C = 9..14: their own JSON
-# lines, their launches summed from the wrapper's block_cluster_launches (a
-# dict by C); their rows-in-memory case (`_mem`) is the route of a card that
-# holds no such cluster, driven with the occupancy query answering 0
-# (no_block_clusters) at LENG 60362
+# Forward's, the row-saving Forward's, the backward pass's and the Viterbi
+# filter's cases past 38,912 states (up to 65536): C-block clusters of
+# p7_cuda.WIDE_CLUSTER_THREADS-thread blocks, C = 9..14; and the MSV
+# kernels' there: 16-block clusters of msv_cuda.WIDE_CLUSTER_WARPS = 8 warps
+# (256 threads) a block: their own JSON lines, their launches summed from
+# the wrapper's block_cluster_launches (a dict by C); their rows-in-memory
+# case (`_mem`) is the route of a card that holds no such cluster, driven
+# with the occupancy query answering 0 (no_block_clusters) at LENG 60362
 CLUSTER256 = "_cluster256"
-CLUSTER256_WRAPPERS = ("forward_prob_scan", "forward_save_scan", "backward_coverage_scan")
+P7_CLUSTER256_WRAPPERS = ("forward_prob_scan", "forward_save_scan", "backward_coverage_scan",
+                          "viterbi_filter_scan")
+CLUSTER256_WRAPPERS = P7_CLUSTER256_WRAPPERS + MSV_WRAPPERS
 # build's calibration shape (models/build.py::calibrate_profile at LENG >=
 # 400): the wide block timed there too (`<kernel>_block_cal`)
 CAL_BATCH, CAL_LEN = 256, 400
@@ -595,8 +616,8 @@ MAX_BLOCK = p7_cuda.MAX_BLOCK_STATES
 
 def mem_states(name: str) -> int:
     """The states past which ``name``'s kernel runs a rows-in-memory case
-    (every kind but MSV and the filter only on a card that holds none of its
-    clusters)."""
+    on a card that holds none of its clusters (MSV past 65536 on any
+    card)."""
     if name == "viterbi_lazy_scan":
         return p7_cuda.LAZY_BLOCK_STATES
     return msv_cuda.MAX_CLUSTER_STATES if name in CLUSTER_WRAPPERS else MAX_BLOCK
@@ -617,13 +638,17 @@ KERNELS.update({
         f"of 5..{p7_cuda.MAX_BLOCK_CLUSTER} wide blocks, the whole 16-pass chain"))
        for name, (source, replaces, mode) in KERNELS.items() if name in BLOCKS_WRAPPERS},
     **{name + CLUSTER256: (source, replaces, f"{mode}; M_pad {msv_cuda.MAX_CLUSTER_STATES + 8}.."
-                           f"{p7_cuda.MAX_KERNEL_STATES}, C-block clusters of "
-                           f"{p7_cuda.WIDE_CLUSTER_THREADS}-thread blocks")
+                           f"{p7_cuda.MAX_KERNEL_STATES}, " + (
+                               f"16-block clusters of {msv_cuda.WIDE_CLUSTER_WARPS}-warp blocks"
+                               if name in MSV_WRAPPERS else
+                               f"C-block clusters of {p7_cuda.WIDE_CLUSTER_THREADS}-thread "
+                               "blocks"))
        for name, (source, replaces, mode) in KERNELS.items() if name in CLUSTER256_WRAPPERS},
     **{name + MEM: (source, replaces, f"{mode}; M_pad past {mem_states(name)}, "
                     "rows in global memory" + (
                         " (a card that holds no cluster of wide blocks)" if name in BLOCKS_WRAPPERS
-                        else " (a card that holds no cluster of 256-thread blocks)"
+                        else " (a card that holds no cluster of 256-thread blocks; MSV past "
+                        f"{msv_cuda.MAX_WIDE_CLUSTER_STATES} on any)"
                         if name in CLUSTER256_WRAPPERS else ""))
        for name, (source, replaces, mode) in KERNELS.items()},
 })
@@ -753,8 +778,9 @@ def launches() -> dict:
 def cluster_launches() -> dict:
     """The launches of the wrappers with C-block clusters in clusters, by C
     (the p7 ones' cluster pairs at C = 2 included), of the eager, log-space
-    and lazy wrappers in clusters of wide blocks, by C, and of Forward's and
-    the posterior pair's in clusters of 256-thread blocks, by C."""
+    and lazy wrappers in clusters of wide blocks, by C, and of Forward's,
+    the posterior pair's, the filter's and the MSV kernels' in clusters of
+    256-thread blocks, by C."""
     return {**{name: dict(sorted(WRAPPERS[name].cluster_launches.items()))
                for name in CLUSTER_WRAPPERS},
             **{name + BLOCKS: dict(sorted(WRAPPERS[name].block_cluster_launches.items()))
@@ -766,23 +792,30 @@ def cluster_launches() -> dict:
 @contextlib.contextmanager
 def no_block_clusters():
     """The card as one that holds no cluster of blocks wider than 128
-    threads: device_plan's occupancy query answers 0 for them, so the eager
+    threads, nor MSV's 16-block cluster of 8-warp blocks: device_plan's and
+    msv_cuda.device_case's occupancy queries answer 0 for them, so the eager
     and log-space kinds plan their rows-in-memory case past MAX_BLOCK and
-    the lazy kind, Forward, the row-saving Forward and the backward pass
-    theirs past 38,912 (the route such a card takes, logged); every other
-    query as the card answers it."""
+    the lazy kind, Forward, the row-saving Forward, the backward pass, the
+    Viterbi filter and MSV theirs past 38,912 (the route such a card takes,
+    logged); every other query as the card answers it."""
     held = p7_cuda._cluster_held
+    fits = msv_cuda._cluster_fits
 
     def query(kind, per, smem, index, cluster, threads=p7_cuda.KERNEL_THREADS):
         if threads in (p7_cuda.BLOCK_THREADS, p7_cuda.WIDE_CLUSTER_THREADS):
             return 0
         return held(kind, per, smem, index, cluster, threads)
 
+    def msv_query(index, lanes, per, bf16):
+        return not msv_cuda.wide_cluster_case(lanes, per) and fits(index, lanes, per, bf16)
+
     p7_cuda._cluster_held = query
+    msv_cuda._cluster_fits = msv_query
     try:
         yield
     finally:
         p7_cuda._cluster_held = held
+        msv_cuda._cluster_fits = fits
 
 
 def with_groups(fn, groups):
@@ -837,7 +870,8 @@ def print_plans(scanner) -> None:
     13 blocks, the wide block and the cluster of 4 wide blocks) at the timed
     shapes, and the posterior pair's against the all-24 join twice over
     (LENG 60362: the cluster of 13 256-thread blocks), also at the 26 rows of
-    a posterior_coverage_batch chunk there."""
+    a posterior_coverage_batch chunk there, and the Viterbi filter's there
+    (the same cluster)."""
     for hmm in (parse_hmm(PROFILES / "1400.hmm"), wide_profile(WIDE_PAIRS[1]),
                 *mem_profiles()):
         prof = P7Profile.from_profile(hmm)
@@ -853,6 +887,8 @@ def print_plans(scanner) -> None:
         for batch in (SURVIVOR_BATCH, post_chunk(big)):
             print(f"plan {kind} all-24 join twice (M {big.num_states}) x {batch} rows: "
                   f"{plan_text(kind, fpack, batch)}")
+    print(f"plan filter all-24 join twice (M {big.num_states}) x {SURVIVOR_BATCH} rows: "
+          f"{plan_text('filter', p7_cuda.filter_pack(big, scanner.device), SURVIVOR_BATCH)}")
 
 
 def post_chunk(p7: P7Profile, length: int = POST_TIME_LEN) -> int:
@@ -884,12 +920,15 @@ def msv_plan_text(emit: torch.Tensor, b_pad: int) -> str:
 def print_msv_plans(scanner) -> None:
     """Each MSV register case's launch plan at the timed shapes: 1400.hmm and
     2405.hmm at BATCH rows, the wide profiles' cluster pairs and the joins'
-    C-block clusters (C = 3, 13, 5, 8, 9) at WIDE_MSV_BATCH rows, each
+    C-block clusters (C = 3, 13, 5, 8, 9) at WIDE_MSV_BATCH rows, the LENG
+    60362 join's 16-block cluster of 8-warp blocks at MSV_MEM_BATCH, each
     stacked group of the sweep at SWEEP_BATCH, in both modes."""
     shapes = [(profile(stem), f"{stem}.hmm", BATCH) for stem in ("1400", "2405")]
     for hmm in wide_profiles() + cluster_profiles():
         prof = MSVProfile.from_profile(hmm)
         shapes.append((prof, f"{hmm.name[:40]} (M {prof.num_states})", WIDE_MSV_BATCH))
+    big = MSVProfile.from_profile(msv_mem_profile())
+    shapes.append((big, f"all-24 join twice (M {big.num_states})", MSV_MEM_BATCH))
     for prof, name, rows in shapes:
         m_pad = msv_cuda.round_up(prof.num_states, 8)
         for mode, (emit, _) in (("exact", msv_cuda.pack_profile(prof, m_pad, scanner.device)),
@@ -1946,8 +1985,9 @@ def cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     residues, bit for bit (msv_vs_plain), each case launched at its C (the
     wrappers' cluster_launches); the stacked kernel over 100.hmm and all
     five (one launch a C) == the single scans. Then the all-24 join twice
-    over (LENG 60362, past 38,912) through the MSV kernels' rows-in-memory
-    case the same way, mem_launches counting it."""
+    over (LENG 60362, past 38,912) through the MSV kernels' 16-block cluster
+    of 8-warp blocks the same way, block_cluster_launches counting it at C
+    = 16 alone (its rows-in-memory route: mem_route_past_38912)."""
     staged = ragged_wide_batch(scanner, rng)
     hmms = cluster_profiles()
     for hmm, c in zip(hmms, CLUSTER_SIZES):
@@ -1981,19 +2021,24 @@ def cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
 
     big = MSVProfile.from_profile(msv_mem_profile())
     m_pad = msv_cuda.round_up(big.num_states, 8)
-    require(m_pad > msv_cuda.MAX_CLUSTER_STATES and
-            msv_cuda.device_case(m_pad, 4, scanner.device)[0] == msv_cuda.MEM_LANES,
-            f"M {big.num_states} is not the MSV rows-in-memory case")
+    lanes, per = msv_cuda.device_case(m_pad, 4, scanner.device)
+    require(m_pad > msv_cuda.MAX_CLUSTER_STATES and msv_cuda.wide_cluster_case(lanes, per),
+            f"M {big.num_states}: the MSV case is {lanes} lanes x {per}, not the 16-block "
+            "cluster of 8-warp blocks")
     zero_launches()
     errs = msv_vs_plain(scanner, big, staged, f"M {big.num_states}")
-    got = launches()
-    require(all(got[name + MEM] > 0 for name in MSV_WRAPPERS),
-            f"M {big.num_states}: the MSV rows-in-memory case did not launch ({got})")
+    got, by_c = launches(), cluster_launches()
+    require(all(set(by_c[name + CLUSTER256]) == {16} and not by_c[name]
+                and got[name + MEM] == 0 for name in MSV_WRAPPERS),
+            f"M {big.num_states}: the MSV kernels did not launch their 16-block cluster of "
+            f"8-warp blocks alone ({got}, {by_c})")
     for name, e in zip(MSV_WRAPPERS, errs):
-        errors[name + MEM] = max(errors[name + MEM], e)
-    print(f"MSV rows in memory, the all-24 join twice (M {big.num_states}): B={WIDE_BATCH} "
-          f"L<={WIDE_LEN} exact and chain max|d|={errs[0]}, filter max|d|={errs[1]}, stacked "
-          f"max|d|={errs[2]}; launches {({n: got[n + MEM] for n in MSV_WRAPPERS})}", flush=True)
+        errors[name + CLUSTER256] = max(errors[name + CLUSTER256], e)
+    print(f"MSV 16-block cluster of 8-warp blocks, the all-24 join twice (M {big.num_states}, "
+          f"{lanes} lanes x {per}, {msv_cuda.wide_staged(per)} staged): B={WIDE_BATCH} "
+          f"L<={WIDE_LEN} exact and chain max|d|={errs[0]}, filter max|d|={errs[1]} (>= exact), "
+          f"stacked max|d|={errs[2]}; launches by C "
+          f"{({n: by_c[n + CLUSTER256] for n in MSV_WRAPPERS})}", flush=True)
 
 
 def case_suffix(plan) -> str:
@@ -2034,12 +2079,12 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
     pass on their C-block clusters, the eager Viterbi and the log-space
     Forward on the wide block (LENG 6977) and on a cluster of 4 wide blocks
     (30181); then the all-24 join twice over (LENG 60362, past 38,912)
-    through the filter's rows-in-memory case, the eager, log-space and lazy
-    kinds' cluster of 8 wide blocks and Forward's, the row-saving Forward's
-    and the backward pass's cluster of 13 256-thread blocks, and the lazy
-    kind, Forward and the posterior pair again on their rows-in-memory route
-    (a card that holds no such cluster, no_block_clusters:
-    mem_route_past_38912). Eager,
+    through the eager, log-space and lazy kinds' cluster of 8 wide blocks
+    and Forward's, the row-saving Forward's, the backward pass's and the
+    Viterbi filter's cluster of 13 256-thread blocks, and the lazy kind,
+    Forward, the posterior pair, the filter and MSV again on their
+    rows-in-memory route (a card that holds no such cluster,
+    no_block_clusters: mem_route_past_38912). Eager,
     lazy (replay counts included) and the Viterbi filter bit for bit, the
     filter >= the exact scores; the lazy kernel again at lazy_k = 1, whose
     certificate fires below 16 chain passes (the fire count printed, above
@@ -2166,21 +2211,26 @@ def mem_kernels_vs_plain(scanner, rng, errors: dict) -> None:
               f"Forward {s_err:.3g}; backward on its rows {b_err:.3g}, decode coverage "
               f"{c_err:.3g} totals {t_err:.3g}; launches by C {by_c}", flush=True)
         if p7_cuda.wide_cluster_case(m_pad, "save"):
-            mem_route_past_38912(p7, packs, schain, staged, want, errors)
+            mem_route_past_38912(hmm, p7, packs, schain, staged, want, errors)
 
 
-def mem_route_past_38912(p7, packs, schain, staged, want, errors: dict) -> None:
-    """The lazy Viterbi, Forward, the row-saving Forward and the backward
-    pass past 38,912 states on the rows-in-memory route of a card that
-    holds no cluster of wide or 256-thread blocks (no_block_clusters): the
-    lazy kernel == its plain version's ``want["lazy"]`` bit for bit, Forward
-    within FWD_TOL of ``want["forward"]``, the row-saving kernel == the
-    Forward kernel bit for bit (both their rows-in-memory case), the
-    backward pass on its rows within COV_TOL of plain, each wrapper's
-    mem_launches showing the route and no cluster launch."""
+def mem_route_past_38912(hmm, p7, packs, schain, staged, want, errors: dict) -> None:
+    """The lazy Viterbi, Forward, the row-saving Forward, the backward
+    pass, the Viterbi filter and MSV (exact, filter, stacked) past 38,912
+    states on the rows-in-memory route of a card that holds no cluster of
+    wide or 256-thread blocks (no_block_clusters), once each: the lazy
+    kernel and the filter == their plain versions' ``want`` bit for bit,
+    Forward within FWD_TOL of ``want["forward"]``, the row-saving kernel ==
+    the Forward kernel bit for bit (both their rows-in-memory case), the
+    backward pass on its rows within COV_TOL of plain, MSV == plain bit for
+    bit (msv_vs_plain: a carry chain, the filter >= exact, a stacked launch
+    a mode), each wrapper's mem_launches showing the route and no cluster
+    launch."""
     fpack = packs["forward"]
     run, carry = p7_calls("save", fpack, staged)
     run_l, carry_l = p7_calls("lazy", packs["lazy"], staged)
+    run_f, carry_f = p7_calls("filter", packs["filter"], staged)
+    msv = MSVProfile.from_profile(hmm)
     with no_block_clusters():
         zero_launches()
         lazy = run_l(CUDA_FNS["lazy"], staged.tokens, staged.lengths, carry_l)
@@ -2188,10 +2238,15 @@ def mem_route_past_38912(p7, packs, schain, staged, want, errors: dict) -> None:
         saved = run(CUDA_FNS["save"], staged.tokens, staged.lengths, carry)
         bwd_in = backward_inputs(fpack, schain, staged)
         cov = posterior_cuda.backward_coverage_scan_cuda(*bwd_in)
+        filt = run_f(CUDA_FNS["filter"], staged.tokens, staged.lengths, carry_f)
         torch.cuda.synchronize()
+        m_errs = msv_vs_plain(MSVScanner(device=staged.tokens.device), msv, staged,
+                              f"LENG {p7.num_states} on the rows-in-memory route")
         got = launches()
     l_err = require_equal(lazy, want["lazy"], f"LENG {p7.num_states} lazy kernel on the "
                           "rows-in-memory route vs plain")
+    vf_err = require_equal(filt, want["filter"], f"LENG {p7.num_states} Viterbi filter on the "
+                           "rows-in-memory route vs plain")
     f_err = max_abs_diff(forward[0], want["forward"][0])
     require(f_err <= FWD_TOL, f"LENG {p7.num_states} Forward on the rows-in-memory route vs "
             f"plain: {f_err}")
@@ -2205,12 +2260,13 @@ def mem_route_past_38912(p7, packs, schain, staged, want, errors: dict) -> None:
                                              else name + BLOCKS] == 0,
                 f"the rows-in-memory route did not launch {name}'s memory case alone ({got})")
     for name, err in (("viterbi_lazy_scan", l_err), ("forward_prob_scan", f_err),
-                      ("forward_save_scan", s_err), ("backward_coverage_scan", b_err)):
+                      ("forward_save_scan", s_err), ("backward_coverage_scan", b_err),
+                      ("viterbi_filter_scan", vf_err), *zip(MSV_WRAPPERS, m_errs)):
         errors[name + MEM] = max(errors[name + MEM], err)
     print(f"the rows-in-memory route (no cluster of wide or 256-thread blocks held), LENG "
           f"{p7.num_states}: lazy == plain, Forward {f_err:.3g}, row-saving Forward == the "
-          f"Forward kernel, backward on its rows {b_err:.3g}; launches {nonzero(got)}",
-          flush=True)
+          f"Forward kernel, backward on its rows {b_err:.3g}, the Viterbi filter == plain, "
+          f"MSV exact, filter and stacked == plain; launches {nonzero(got)}", flush=True)
 
 
 def block_cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
@@ -2290,8 +2346,10 @@ def block_cluster_kernels_vs_plain(scanner, rng, errors: dict) -> None:
 
 # the short release stress of the C-block clusters (tools/torch_cluster_check.py
 # --stress): launches a kind and case, the 128-thread clusters' C, the
-# 256-thread clusters' C and the lazy kind's clusters of wide blocks' C
+# 256-thread clusters' C, the lazy kind's clusters of wide blocks' C and the
+# M_pad of MSV's 16-block cluster of 8-warp blocks
 STRESS_LAUNCHES, STRESS_C, STRESS_WIDE_C, STRESS_BLOCKS_C = 10, (4, 8, 13, 16), (13,), (8,)
+STRESS_MSV = (60368,)
 
 
 def release_stress() -> None:
@@ -2299,14 +2357,16 @@ def release_stress() -> None:
     its own: the lazy Viterbi replaying the whole chain, the Viterbi filter
     at its longest window, Forward, the row-saving Forward and the backward
     pass on C-block clusters of 128-thread blocks at each C of STRESS_C,
-    Forward and the posterior pair on 256-thread blocks at STRESS_WIDE_C,
-    the lazy Viterbi on clusters of wide blocks at STRESS_BLOCKS_C, every
-    launch equal to its case's first; a hang (no launch ending for its
-    STRESS_SILENCE seconds) fails, naming the launch under way."""
+    Forward, the posterior pair and the filter on 256-thread blocks at
+    STRESS_WIDE_C, the lazy Viterbi on clusters of wide blocks at
+    STRESS_BLOCKS_C, MSV, the MSV filter and the stacked kernel on their
+    16-block cluster of 8-warp blocks at STRESS_MSV, every launch equal to
+    its case's first; a hang (no launch ending for its STRESS_SILENCE
+    seconds) fails, naming the launch under way."""
     cmd = [sys.executable, str(REPO / "tools" / "torch_cluster_check.py"), "--stress",
            str(STRESS_LAUNCHES), "--stress-c", ",".join(map(str, STRESS_C)), "--stress-wide",
            ",".join(map(str, STRESS_WIDE_C)), "--stress-blocks",
-           ",".join(map(str, STRESS_BLOCKS_C))]
+           ",".join(map(str, STRESS_BLOCKS_C)), "--stress-msv", ",".join(map(str, STRESS_MSV))]
     t0 = time.perf_counter()
     done = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, timeout=600)
     result = next((json.loads(line) for line in done.stdout.splitlines()
@@ -2316,7 +2376,7 @@ def release_stress() -> None:
             f"{done.stderr[-2000:]}")
     print(f"release stress: {result['total_launches']} launches ({STRESS_LAUNCHES} a kind and "
           f"case, C {STRESS_C} at 128 threads, {STRESS_WIDE_C} at 256, {STRESS_BLOCKS_C} wide "
-          f"blocks), none hung, each equal to its case's first, "
+          f"blocks, MSV at M_pad {STRESS_MSV}), none hung, each equal to its case's first, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -2331,20 +2391,24 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     3-block clusters of the MSV filter, the Viterbi filter, the lazy
     Viterbi and Forward, none in memory; the plain search's hit rows),
     `sweep` over both joins and the all-24 join twice over (the stacked
-    kernel's 3- and 13-block clusters and its rows-in-memory case), `scan`
-    (MSV) and MSVScanner.scan_filter with that join (LENG 60362: the MSV
-    kernels' rows-in-memory case), on the planted rows the entry points
-    viterbi_scores(lazy=False) (eager) and forward_scores(prob_space=False)
-    (log-space) on the wide block, and on MEM_PLANTED rows the entry points
-    of the eager and lazy Viterbi, the Viterbi filter, Forward, the
-    log-space Forward and the posterior decode with the LENG 60362 join
-    (the eager, log-space and lazy kinds' cluster of 8 wide blocks,
-    Forward's and the posterior pair's cluster of 13 256-thread blocks, the
-    filter's rows-in-memory case), the lazy, Forward and posterior entries
-    there again on a card that holds no cluster of wide or 256-thread
-    blocks and the eager and log-space entries with the LENG 30181 join on
-    a card that holds no cluster of wide blocks (no_block_clusters: their
-    rows-in-memory cases)."""
+    kernel's 3- and 13-block clusters and its 16-block cluster of 8-warp
+    blocks), `scan` (MSV) and MSVScanner.scan_filter with that join (LENG
+    60362: the MSV kernels' 16-block cluster of 8-warp blocks), `scan
+    --stage search --fast --config` (msv_p 1: every row past MSV) with that
+    join on FAST_PAST_ROWS rows (the MSV filter's, MSV's and the Viterbi
+    filter's clusters past 38,912), on the
+    planted rows the entry points viterbi_scores(lazy=False) (eager) and
+    forward_scores(prob_space=False) (log-space) on the wide block, and on
+    MEM_PLANTED rows the entry points of the eager and lazy Viterbi, the
+    Viterbi filter, Forward, the log-space Forward and the posterior decode
+    with the LENG 60362 join (the eager, log-space and lazy kinds' cluster
+    of 8 wide blocks, Forward's, the posterior pair's and the filter's
+    cluster of 13 256-thread blocks), the lazy, Forward, posterior and
+    filter entries and MSVScanner.scan, scan_filter and scan_many there
+    again on a card that holds no cluster of wide or 256-thread blocks, nor
+    MSV's (== the clusters' scores), and the eager and log-space entries
+    with the LENG 30181 join on a card that holds no cluster of wide blocks
+    (no_block_clusters: their rows-in-memory cases)."""
     hmm_dir = tmp / "hmms_mem"
     hmm_dir.mkdir()
     joins = mem_profiles() + [msv_mem_profile()]
@@ -2415,25 +2479,28 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     out = tmp / "mem_sweep.tsv"
     got, e2e, secs, _ = run_cli(["sweep", "--hmm-dir", str(hmm_dir), "--fasta", str(fasta),
                                  "--device", DEVICE, "--out", str(out)])
-    stacked = cluster_launches()["msv_stacked_scan"]
-    require(got["msv_stacked_scan" + MEM] > 0 and stacked == {3: 1, 13: 1},
+    by_c = cluster_launches()
+    stacked = by_c["msv_stacked_scan"]
+    require(by_c["msv_stacked_scan" + CLUSTER256] == {16: 1} and stacked == {3: 1, 13: 1}
+            and got["msv_stacked_scan" + MEM] == 0,
             f"the sweep did not launch the stacked kernel's 3- and 13-block clusters and its "
-            f"memory case ({stacked}, {got})")
-    counts["msv_stacked_scan" + MEM] = got["msv_stacked_scan" + MEM]
+            f"16-block cluster of 8-warp blocks ({by_c}, {got})")
+    counts["msv_stacked_scan" + CLUSTER256] = got["msv_stacked_scan" + CLUSTER256]
     counts["msv_stacked_scan" + CLUSTER] = got["msv_stacked_scan" + CLUSTER]
     rows = [line.split("\t") for line in out.read_text().splitlines() if not line.startswith("#")]
     require(len(rows) == len(joins) * MEM_BATCH and all(np.isfinite(float(r[3])) for r in rows),
             f"the sweep over the joins reported {len(rows)} rows or a non-finite score")
     print(f"main path past 4864 states, sweep over the three joins: {len(rows)} rows; stacked "
-          f"cluster launches {stacked}; launches {got}")
+          f"cluster launches {stacked}, {by_c['msv_stacked_scan' + CLUSTER256]}; launches {got}")
     print_seconds("main path past 4864 states, sweep", secs, e2e)
 
     big = hmm_dir / f"mem{len(joins) - 1}.hmm"
     out = tmp / "mem_msv.tsv"
     got, e2e, secs, _ = run_cli(["scan", "--hmm", str(big), "--fasta", str(fasta), "--device",
                                  DEVICE, "--out", str(out)])
-    require(got["msv_scan" + MEM] == 1, f"scan past 38,912 states: launches {got}")
-    counts["msv_scan" + MEM] = got["msv_scan" + MEM]
+    require(got["msv_scan" + CLUSTER256] == 1 and got["msv_scan" + MEM] == 0,
+            f"scan past 38,912 states: launches {got}")
+    counts["msv_scan" + CLUSTER256] = got["msv_scan" + CLUSTER256]
     rows = [line.split("\t") for line in out.read_text().splitlines()[1:]]
     require(len(rows) == MEM_BATCH and all(np.isfinite(float(r[2])) for r in rows),
             f"scan past 38,912 states reported {len(rows)} rows or a non-finite score")
@@ -2445,12 +2512,35 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     staged = scanner.stage(tokens, lengths)
     filt = scanner.scan_filter(big_msv, staged)
     got = launches()
-    require(got["msv_filter_scan" + MEM] == 1, f"scan_filter past 38,912 states: launches {got}")
-    counts["msv_filter_scan" + MEM] = got["msv_filter_scan" + MEM]
-    require_geq(filt, scanner.scan(big_msv, staged), "MSVScanner.scan_filter past 38,912 "
-                "states vs scan")
+    require(got["msv_filter_scan" + CLUSTER256] == 1 and got["msv_filter_scan" + MEM] == 0,
+            f"scan_filter past 38,912 states: launches {got}")
+    counts["msv_filter_scan" + CLUSTER256] = got["msv_filter_scan" + CLUSTER256]
+    exact = scanner.scan(big_msv, staged)
+    require_geq(filt, exact, "MSVScanner.scan_filter past 38,912 states vs scan")
     print(f"main path past 38,912 states: `scan` reported {len(rows)} rows; "
           f"MSVScanner.scan_filter >= scan on every row; launches {got}")
+
+    # the fast cascade past 38,912 states: every row of a FAST_PAST_ROWS
+    # slice past MSV (--config msv_p 1), so the Viterbi filter runs on all
+    small = tmp / "mem_fast_past.fsa"
+    write_fasta(small, [FastaRecord(f"seq{i}", letters[i, : lengths[i]].tobytes().decode())
+                        for i in range(FAST_PAST_ROWS)])
+    cfg = tmp / "msv_p_1.json"
+    cfg.write_text(json.dumps({"msv_p": 1.0}))
+    got, e2e, secs, records = run_cli(["scan", "--stage", "search", "--fast", "--config",
+                                       str(cfg), "--hmm", str(big), "--fasta", str(small),
+                                       "--device", DEVICE, "--out", str(tmp / "mem_fast_past.tsv")])
+    by_c = cluster_launches()
+    for name in ("msv_filter_scan", "msv_scan", "viterbi_filter_scan"):
+        require(got[name + CLUSTER256] > 0 and got[name + MEM] == 0,
+                f"search --fast past 38,912 states did not launch {name}'s cluster of 256-thread "
+                f"blocks alone ({by_c}, {got})")
+        counts[name + CLUSTER256] = counts.get(name + CLUSTER256, 0) + got[name + CLUSTER256]
+    summary = next(r.getMessage() for r in records if r.getMessage().startswith("search "))
+    print(f"main path past 38,912 states (M {joins[-1].model_length - 1}), search --fast with "
+          f"msv_p 1 on {FAST_PAST_ROWS} rows: {summary}; launches by C "
+          f"{({n: by_c[n + CLUSTER256] for n in ('msv_filter_scan', 'msv_scan', 'viterbi_filter_scan')})}")
+    print_seconds("main path past 38,912 states, search --fast", secs, e2e)
 
     l_max = int(lengths[planted].max())
     zero_launches()
@@ -2473,7 +2563,7 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
 
     rows = slice(0, MEM_PLANTED)
     big_p7 = P7Profile.from_profile(load_profile(big))
-    require(p7_cuda.cluster_blocks(p7_cuda.default_m_pad(big_p7), "filter") == 1,
+    require(p7_cuda.default_m_pad(big_p7) > p7_cuda.MAX_CLUSTER_STATES,
             f"M {big_p7.num_states} is not past the 128-thread p7 clusters")
     zero_launches()
     t0 = time.perf_counter()
@@ -2487,18 +2577,13 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
     cov, _ = posterior_cuda.posterior_coverage_batch(big_p7, tokens[rows], lengths[rows], DEVICE)
     got = launches()
     by_c = cluster_launches()
-    name = "viterbi_filter_scan"
-    require(got[name + MEM] > 0 and got.get(name + CLUSTER, 0) == 0,
-            f"the entry points past 38,912 states did not launch {name}'s memory case alone "
-            f"({got})")
-    counts[name + MEM] = counts.get(name + MEM, 0) + got[name + MEM]
     c_post = p7_cuda.cluster_blocks(p7_cuda.default_m_pad(big_p7), "save")
-    for name in CLUSTER256_WRAPPERS:
+    for name in P7_CLUSTER256_WRAPPERS:
         require(got[name + CLUSTER256] > 0 and by_c[name + CLUSTER256] == {
                     c_post: got[name + CLUSTER256]} and got[name + MEM] == 0,
                 f"the entry points past 38,912 states did not launch {name}'s cluster of "
                 f"{c_post} 256-thread blocks alone ({got}, {by_c[name + CLUSTER256]})")
-        counts[name + CLUSTER256] = got[name + CLUSTER256]
+        counts[name + CLUSTER256] = counts.get(name + CLUSTER256, 0) + got[name + CLUSTER256]
     for name in BLOCKS_WRAPPERS:
         require(got[name + BLOCKS] > 0 and by_c[name + BLOCKS] == {8: got[name + BLOCKS]}
                 and got[name + MEM] == 0,
@@ -2516,8 +2601,8 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
           f"{time.perf_counter() - t0:.3f} s; launches {got}")
 
     # the route of a card that holds no cluster of wide or 256-thread
-    # blocks, LENG 60362: the lazy, Forward and posterior entries'
-    # rows-in-memory cases
+    # blocks, LENG 60362: the lazy, Forward, posterior, filter and MSV
+    # entries' rows-in-memory cases
     zero_launches()
     with no_block_clusters():
         t0 = time.perf_counter()
@@ -2525,6 +2610,10 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
         fwd_m = forward_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE).cpu().numpy()
         cov_m, tot_m = posterior_cuda.posterior_coverage_batch(big_p7, tokens[rows], lengths[rows],
                                                                DEVICE)
+        filt_m = viterbi_filter_scores(big_p7, tokens[rows], lengths[rows], device=DEVICE)
+        exact_m = scanner.scan(big_msv, staged)
+        msv_f_m = scanner.scan_filter(big_msv, staged)
+        many_m = scanner.scan_many([big_msv], staged)[big_msv.name]
         secs = time.perf_counter() - t0
     got = launches()
     for name in CLUSTER256_WRAPPERS + ("viterbi_lazy_scan",):
@@ -2535,14 +2624,17 @@ def mem_paths(tmp: pathlib.Path, rng) -> dict:
         counts[name + MEM] = got[name + MEM]
     c_err = float(np.abs(cov_m - cov).max())
     f_err = float(np.abs(fwd_m - fwd_s).max())
-    require(np.array_equal(lazy_m, lazy_s) and f_err <= FWD_TOL and c_err <= COV_TOL,
+    same = {"lazy": np.array_equal(lazy_m, lazy_s), "filter": torch.equal(filt_m, filt_s),
+            "msv": torch.equal(exact_m, exact), "msv filter": torch.equal(msv_f_m, filt),
+            "scan_many": np.array_equal(many_m, exact.cpu().numpy())}
+    require(all(same.values()) and f_err <= FWD_TOL and c_err <= COV_TOL,
             f"LENG {big_p7.num_states} entry points: the rows-in-memory route and the clusters "
-            f"differ (lazy equal {np.array_equal(lazy_m, lazy_s)}, Forward {f_err}, coverage "
-            f"{c_err})")
-    print(f"main path past 38,912 states (M {big_p7.num_states}), the lazy, Forward and "
-          f"posterior entries on {MEM_PLANTED} rows with no cluster of wide or 256-thread blocks "
-          f"held (the rows-in-memory route, {secs:.3f} s): lazy == the cluster's, Forward within "
-          f"{f_err:.3g}, coverage within {c_err:.3g}; launches {got}")
+            f"differ (equal {same}, Forward {f_err}, coverage {c_err})")
+    print(f"main path past 38,912 states (M {big_p7.num_states}), the lazy, Forward, posterior "
+          f"and filter entries on {MEM_PLANTED} rows and MSVScanner.scan, scan_filter and "
+          f"scan_many on {MEM_BATCH} with no cluster of wide or 256-thread blocks held (the "
+          f"rows-in-memory route, {secs:.3f} s): lazy, the filter and MSV == the clusters', "
+          f"Forward within {f_err:.3g}, coverage within {c_err:.3g}; launches {got}")
 
     # the route of a card that holds no cluster of wide blocks, LENG 30181
     p7_30181 = P7Profile.from_profile(mem_profiles()[1])
@@ -2731,9 +2823,10 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
     kernels' C-block clusters (best of 3) against the three-profile join
     (LENG 6977, C = 3) at WIDE_MSV_BATCH rows, MSV and the MSV filter, and
     the stacked kernel over both joins of MEM_JOINS there (C = 3 and 13, two
-    launches); the MSV kernels' rows-in-memory case once, after a warm-up,
-    against the all-24 join twice over (LENG 60362) at MSV_MEM_BATCH rows,
-    the stacked kernel over it alone; the p7 cases (p7_timings_past) against
+    launches); the MSV kernels' 16-block cluster of 8-warp blocks (best of
+    3) and their rows-in-memory route (once, after a warm-up) against the
+    all-24 join twice over (LENG 60362) at MSV_MEM_BATCH rows, the stacked
+    kernel over it alone; the p7 cases (p7_timings_past) against
     the three-profile join (the lazy Viterbi, the Viterbi filter, Forward,
     the row-saving Forward and the backward pass on 3-block clusters, the
     eager Viterbi and the log-space Forward on the wide block, these two
@@ -2742,13 +2835,17 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
     the eager and log-space Forward on 4 wide blocks, ``<kernel>_blocks_30181``,
     also at CAL_BATCH x CAL_LEN, ``<kernel>_blocks_cal``, and through the
     rows-in-memory route of a card that holds no such cluster, rows
-    ``<kernel>_mem``) and the LENG 60362 join (the filter's rows-in-memory
-    case, the eager, log-space and lazy kinds on 8 wide blocks, rows
-    ``<kernel>_blocks``, Forward and the posterior pair on 13 256-thread
-    blocks, ``<kernel>_cluster256``, and the lazy kind, Forward and the
-    posterior pair on the rows-in-memory route of a card that holds no such
+    ``<kernel>_mem``) and the LENG 60362 join (the eager, log-space and lazy
+    kinds on 8 wide blocks, rows ``<kernel>_blocks``, Forward, the posterior
+    pair and the Viterbi filter on 13 256-thread blocks,
+    ``<kernel>_cluster256``, and the lazy kind, Forward, the posterior pair
+    and the filter on the rows-in-memory route of a card that holds no such
     cluster, ``<kernel>_mem``); each plain version once, held against the
-    kernel; the parent's time beside each (PARENT_WIDE_MS)."""
+    kernel; the parent's time beside each (PARENT_WIDE_MS). Past 38,912
+    states MSV runs its 16-block cluster of 8-warp blocks
+    (``<kernel>_cluster256``, best of 3) and its rows-in-memory route
+    (``<kernel>_mem``, once) and the Viterbi filter its cluster of 13
+    256-thread blocks and, once, that route."""
     hmms = mem_profiles()
     # wide enough for the posterior pair's POST_TIME_LEN residues
     tokens = rng.integers(0, 20, size=(WIDE_MSV_BATCH, max(MEM_TIME_LEN, POST_TIME_LEN)))
@@ -2759,8 +2856,10 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
                            3, errors, work)
     past = scanner.stage(tokens[:MSV_MEM_BATCH, :MEM_TIME_LEN],
                          np.full(MSV_MEM_BATCH, MEM_TIME_LEN, dtype=np.int32))
-    out.update(msv_timings_past(scanner, [MSVProfile.from_profile(msv_mem_profile())],
-                                past, MEM, 1, errors, work))
+    big_msv = [MSVProfile.from_profile(msv_mem_profile())]
+    out.update(msv_timings_past(scanner, big_msv, past, CLUSTER256, 3, errors, work))
+    with no_block_clusters():
+        out.update(msv_timings_past(scanner, big_msv, past, MEM, 1, errors, work))
     clustered = ("lazy", "forward", "filter", "save", "backward")
     blocked = ("eager", "log")
     out.update(p7_timings_past(scanner, hmms[0], tokens, clustered + blocked, errors, work))
@@ -2775,8 +2874,9 @@ def mem_timings(scanner, rng, errors: dict, work: dict) -> dict:
     big = msv_mem_profile()
     out.update(p7_timings_past(scanner, big, tokens, clustered + blocked, errors, work))
     with no_block_clusters():
-        out.update(p7_timings_past(scanner, big, tokens, ("lazy", "forward", "save", "backward"),
-                                   errors, work))
+        out.update(p7_timings_past(scanner, big, tokens,
+                                   ("lazy", "forward", "filter", "save", "backward"), errors,
+                                   work))
     post_chunk_timings(scanner, big, tokens)
     return out
 

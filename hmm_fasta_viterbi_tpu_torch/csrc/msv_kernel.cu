@@ -114,7 +114,27 @@
 //    any other of its cluster, since each needs every other's message of the
 //    step before. No block barrier couples the warps of a block, so they
 //    still walk sequences of different lengths apart.
-//  * Past 38,912 states (the rows-in-memory case, LANES = 1024, no width
+//  * Past 38,912 states, up to 16 * 32 * 128 = 65,536, one sequence is
+//    followed by the 16 warps of a 16-block cluster again, one a block, each
+//    holding its slice of 32 * PER states in registers, PER of 80, 88, ...,
+//    128 (msv_wide_cluster_kernel; LANES = 32 * 16 with PER past 76 names
+//    the case): the cluster case's step and exchange, operation for
+//    operation. A block is 8 warps (__launch_bounds__(256, 1): up to 255
+//    registers a thread for 128 states a lane, without spilling). C is 16
+//    whatever the width: 16 blocks of 128 states a lane are the widest row
+//    the registers hold, and the H100 holds as many 16-block clusters as
+//    13-block ones (7), on more of its SMs. A C-th of the f32 table no
+//    longer fits a block (80 bytes a state: 327,680 at 4096 states), so a
+//    block stages each lane's last STAGED = 84 states (76 at PER 80; 8q + 4,
+//    conflict-free as above; 217,088 bytes with the links) and reads the
+//    lane's first PER - STAGED from a lane-major f32 copy in global memory
+//    ([P][20][C][(PER - STAGED) / 4][32] float4s, ops/msv_cuda.py::
+//    lane_rows: a warp's read of a float4 index is 512 contiguous bytes; 1.8
+//    MB at PER 128, held in L2). Those states come last in the step, and
+//    their next step's entries are loaded once this step's last cell is done,
+//    while the exchange completes. The filter's copy is its bf16 table
+//    widened (exact), so both modes run the same step.
+//  * Past 65,536 states (the rows-in-memory case, LANES = 1024, no width
 //    cap) one block of 1024 threads follows one sequence and keeps the M rows of
 //    the last step and of this one in two scratch rows of global memory a
 //    block, which the wrapper allocates (they stay in L2 while they fit),
@@ -146,7 +166,23 @@ namespace {
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kClusterWarps = 16;  // the cluster case's block (512 threads), a warp a slice of a sequence
 constexpr int kMaxCluster = 16;    // blocks a cluster (past 8 a non-portable size)
+constexpr int kWideWarps = 8;      // the case past 38,912 (256 threads): a warp a slice of a sequence
+constexpr int kWidePerMin = 80;    // its PER: 80, 88, ..., 128 (C = 16)
+constexpr int kWidePerMax = 128;
+constexpr int kWideStagedMax = 84;  // the most states a lane stages there (8q + 4)
 constexpr int kMemLanes = 1024;    // the rows-in-memory case: one block a sequence
+
+// The states a lane of the case past 38,912 stages: the largest 8q + 4 up to
+// min(PER, kWideStagedMax).
+__host__ __device__ constexpr int wide_staged(int per) {
+  return per >= kWideStagedMax ? kWideStagedMax : (per - 4) / 8 * 8 + 4;
+}
+
+// Whether a (lanes, per) names the case past 38,912 states: 16 blocks, PER
+// past the cluster case's 76.
+__host__ __device__ constexpr bool wide_case(int lanes, int per) {
+  return lanes == 32 * kMaxCluster && per >= kWidePerMin && per <= kWidePerMax;
+}
 
 __device__ __forceinline__ float f32_neg_inf() { return -__int_as_float(0x7f800000); }
 
@@ -206,22 +242,32 @@ struct MsvArgs {
   float* m_out;             // [b_pad, m_pad] or null
   float* s_out;             // [4, b_pad] or null
   int b_pad;
+  // the case past 38,912 states: each lane's unstaged states, [P][20][C][(PER
+  // - STAGED) / 4][32] float4 (ops/msv_cuda.py::lane_rows); else null
+  const float4* low;
 };
 
 // Dynamic shared memory of a block of `warps` warps, in bytes: the f32
 // table of 32 * PER states a lane row (LANES = 32: the whole table; 32 * C:
-// the block's slice), and in a cluster each warp's link.
+// the block's slice; the case past 38,912: 32 * wide_staged(PER) states),
+// and in a cluster each warp's link.
 size_t msv_smem_bytes(int lanes, int per, int warps) {
+  const int staged = wide_case(lanes, per) ? wide_staged(per) : per;
   return lanes == 32 ? sizeof(float) * 20 * 32 * per
-                     : sizeof(float) * 20 * 32 * per +
+                     : sizeof(float) * 20 * 32 * staged +
                            static_cast<size_t>(warps) * link_bytes(lanes / 32);
 }
 
-template <int PER, bool CLUSTER, typename T, int WARPS>
-__global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
-  static_assert(PER % 8 == 4, "PER = 8q + 4 keeps the table reads conflict-free");
-  constexpr int kRow = 32 * PER;  // a warp's states: the shared row length
+// The kernel's body: a lane's states j0 .. j0 + PER - 1, the last STAGED of
+// them read from the block's shared table (STAGED = PER but past 38,912
+// states), the first PER - STAGED from the lane-major copy (a.low).
+template <int PER, bool CLUSTER, typename T, int WARPS, int STAGED>
+__device__ __forceinline__ void msv_body(const MsvArgs& a) {
+  static_assert(STAGED % 8 == 4, "STAGED = 8q + 4 keeps the table reads conflict-free");
+  static_assert(STAGED <= PER && (PER - STAGED) % 4 == 0, "whole float4s from global memory");
+  constexpr int kRow = 32 * STAGED;  // the shared row length
   constexpr int kGroups = PER / 4;
+  constexpr int kLow = (PER - STAGED) / 4;  // a lane's first groups, from global memory
   const float neg_inf = f32_neg_inf();
   const int prof = blockIdx.y;
   const int m_pad = a.m_pad;
@@ -238,11 +284,24 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
   float* table = reinterpret_cast<float*>(smem4);
   // widened to f32 here, once a block (exact for bf16: the bits become the
   // high half), so that the step reads f32 in both modes; a cluster's block
-  // stages its slice of the columns
+  // stages its slice of the columns (past 38,912 states each lane's last
+  // STAGED)
   for (int i = threadIdx.x; i < 20 * kRow; i += blockDim.x) {
     const int r = i / kRow;
-    const int c = rank * kRow + i - r * kRow;
+    int c = rank * kRow + i - r * kRow;
+    if constexpr (kLow > 0) {
+      const int l = (i - r * kRow) / STAGED;
+      c = (rank * 32 + l) * PER + 4 * kLow + (i - r * kRow - l * STAGED);
+    }
     table[i] = c < m_pad ? Entries<T>::at(my_emit + static_cast<size_t>(r) * m_pad, c) : neg_inf;
+  }
+  // this lane's first groups in the lane-major copy: group g of token aa at
+  // my_low[aa * low_stride + 32 * g]
+  [[maybe_unused]] const float4* my_low = nullptr;
+  [[maybe_unused]] int low_stride = 0;
+  if constexpr (kLow > 0) {
+    low_stride = nblk * kLow * 32;
+    my_low = a.low + (static_cast<size_t>(prof) * 20 * nblk + rank) * kLow * 32 + lane;
   }
   // the warp's link (link_bytes): its barriers, then its slots by parity
   [[maybe_unused]] unsigned char* link =
@@ -274,7 +333,7 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
   const float tr_e_c = a.tr_consts[3 * prof + 1];
   const float tr_e_j = a.tr_consts[3 * prof + 2];
   const int b_pad = a.b_pad;
-  const float* my_cols = table + lane * PER;
+  const float* my_cols = table + lane * STAGED;
   // the step parity and each barrier's phase: both run on over every
   // sequence the warp follows
   [[maybe_unused]] int par = 0;
@@ -323,7 +382,15 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
       const int mine = t0 + lane < n ? min(max(static_cast<int>(tok_row[t0 + lane]), 0), 19) * kRow
                                      : 0;
       const int count = min(32, n - t0);
-      const float* row = my_cols + __shfl_sync(kFullMask, mine, 0);
+      const int first_row = __shfl_sync(kFullMask, mine, 0);
+      const float* row = my_cols + first_row;
+      // the unstaged entries of the step under way (kLow > 0)
+      [[maybe_unused]] float4 low[kLow > 0 ? kLow : 1];
+      if constexpr (kLow > 0) {
+        const float4* g = my_low + (first_row / kRow) * low_stride;
+#pragma unroll
+        for (int q = 0; q < kLow; ++q) low[q] = __ldg(g + 32 * q);
+      }
       for (int i = 0; i < count; ++i) {
         const float bt = st_b + tr_b_mk;
         // the next step's row offset, now
@@ -336,7 +403,8 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
         float e0 = neg_inf, e1 = neg_inf;
 #pragma unroll
         for (int g = kGroups - 1; g >= 0; --g) {
-          const float4 e = Entries<float>::load4(row, g);
+          const float4 e =
+              g >= kLow ? Entries<float>::load4(row, g - kLow) : low[g < kLow ? g : 0];
           m[4 * g + 3] = e.w + fmaxf(m[4 * g + 2], bt);
           m[4 * g + 2] = e.z + fmaxf(m[4 * g + 1], bt);
           m[4 * g + 1] = e.y + fmaxf(m[4 * g], bt);
@@ -348,6 +416,15 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
           e0 = fmaxf(e0, m[4 * g]);
         }
         int key = warp_max_key(fmaxf(e0, e1));
+        if constexpr (kLow > 0) {
+          // the next step's unstaged entries, in flight while the exchange
+          // completes
+          if (i + 1 < count) {
+            const float4* g = my_low + (next / kRow) * low_stride;
+#pragma unroll
+            for (int q = 0; q < kLow; ++q) low[q] = __ldg(g + 32 * q);
+          }
+        }
         if constexpr (CLUSTER) {
           // this block's E (and its last state, to rank + 1) to the others,
           // theirs back
@@ -397,6 +474,18 @@ __global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
   // no block leaves while another of its cluster may still reach its shared
   // memory
   if constexpr (CLUSTER) cluster_sync();
+}
+
+template <int PER, bool CLUSTER, typename T, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS, 1) msv_kernel(const MsvArgs a) {
+  msv_body<PER, CLUSTER, T, WARPS, PER>(a);
+}
+
+// Past 38,912 states: a block of kWideWarps warps of a 16-block cluster, each
+// lane's first PER - wide_staged(PER) states read from global memory.
+template <int PER, typename T>
+__global__ void __launch_bounds__(32 * kWideWarps, 1) msv_wide_cluster_kernel(const MsvArgs a) {
+  msv_body<PER, true, T, kWideWarps, wide_staged(PER)>(a);
 }
 
 // The rows-in-memory case: msv_kernel's step over two scratch rows a block,
@@ -495,8 +584,9 @@ KernelFn kernel_of(int warps) {
   }
 }
 
-// The blocks of a cluster of the register case of `lanes` lanes (32 * C),
-// or 0 for a lane count that names none (32: no cluster).
+// The blocks of a cluster of the register case of `lanes` lanes (32 * C;
+// the case past 38,912 states too, 32 * 16), or 0 for a lane count that
+// names none (32: no cluster).
 int cluster_of(int lanes) {
   return lanes % 32 == 0 && lanes >= 64 && lanes <= 32 * kMaxCluster ? lanes / 32 : 0;
 }
@@ -522,6 +612,23 @@ KernelFn find_kernel(int lanes, int per, int warps, int bf16) {
       default:
         break;
     }
+  } else if (wide_case(lanes, per)) {
+    if (warps != kWideWarps) return nullptr;
+#define MSV_WIDE_CASE(P) \
+  case P:                \
+    return bf16 ? msv_wide_cluster_kernel<P, uint16_t> : msv_wide_cluster_kernel<P, float>;
+    switch (per) {
+      MSV_WIDE_CASE(80)
+      MSV_WIDE_CASE(88)
+      MSV_WIDE_CASE(96)
+      MSV_WIDE_CASE(104)
+      MSV_WIDE_CASE(112)
+      MSV_WIDE_CASE(120)
+      MSV_WIDE_CASE(128)
+      default:
+        break;
+    }
+#undef MSV_WIDE_CASE
   } else if (cluster_of(lanes) != 0) {
     switch (per) {
       MSV_CASE(44, true)
@@ -574,16 +681,19 @@ cudaError_t prepare(KernelFn fn, size_t smem, int c) {
 // kMemLanes: the rows-in-memory case) and `per`, the number of M states each
 // lane holds (tiles of kMemLanes states in the last case), name the kernel
 // case: per 4, 12, ..., 76 at 32 lanes and 44, ..., 76 in a cluster (the
-// Python wrapper's KERNEL_PER, WIDE_PER), any at kMemLanes, with lanes * per
-// >= m_pad (a multiple of 8 in a cluster, the packers' convention). `warps`
-// warps a block and `grid` blocks a profile are the launch plan of
-// ops/msv_cuda.py::launch_plan: at 32 lanes one of 8, 12, ..., 32 (each its
-// own compiled kernel), in a cluster kClusterWarps and a grid that is a
-// multiple of C, launched as clusters of C blocks along x
-// (cudaLaunchKernelEx); a refused cluster launch returns its error. A grid
-// smaller than the batch needs makes the warps walk it with a stride. At
-// kMemLanes the block is kMemLanes threads (`warps` is not read) and
-// `scratch` holds [num_p, grid, 2, m_pad] floats. `bf16` selects the
+// Python wrapper's KERNEL_PER, WIDE_PER), 80, 88, ..., 128 at 32 * 16 lanes
+// (the case past 38,912 states, WIDE_CLUSTER_PER), any at kMemLanes, with
+// lanes * per >= m_pad (a multiple of 8 in a cluster, the packers'
+// convention). `warps` warps a block and `grid` blocks a profile are the
+// launch plan of ops/msv_cuda.py::launch_plan: at 32 lanes one of 8, 12,
+// ..., 32 (each its own compiled kernel), in a cluster kClusterWarps (past
+// 38,912 states kWideWarps) and a grid that is a multiple of C, launched as
+// clusters of C blocks along x (cudaLaunchKernelEx); a refused cluster
+// launch returns its error. A grid smaller than the batch needs makes the
+// warps walk it with a stride. At kMemLanes the block is kMemLanes threads
+// (`warps` is not read) and `scratch` holds [num_p, grid, 2, m_pad] floats;
+// past 38,912 states `scratch` is the lane-major copy of each lane's
+// unstaged states (ops/msv_cuda.py::lane_rows). `bf16` selects the
 // filter's bf16 table (16-bit entries) over f32; `num_p` profiles are
 // stacked in emit [num_p, 20, m_pad] and tr_consts [num_p, 3], and scores is
 // [num_p, b_pad]. A null m_in starts from the row-0 carry (s_in is then not
@@ -597,9 +707,10 @@ extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf
                                const void* s_in, void* scores, void* m_out,
                                void* s_out, int b_pad, int grid, void* scratch, void* stream) {
   const bool mem = lanes == kMemLanes;
+  const bool wide = wide_case(lanes, per);
   const int c = cluster_of(lanes);
   const KernelFn fn = mem ? nullptr : find_kernel(lanes, per, warps, bf16);
-  if ((!mem && fn == nullptr) || (mem && scratch == nullptr) || grid < 1 || m_pad < 1 ||
+  if ((!mem && fn == nullptr) || ((mem || wide) && scratch == nullptr) || grid < 1 || m_pad < 1 ||
       static_cast<long>(lanes) * per < m_pad || (c != 0 && (m_pad % 8 != 0 || grid % c != 0)) ||
       num_p < 1 || num_p > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -620,6 +731,7 @@ extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf
   a.m_out = static_cast<float*>(m_out);
   a.s_out = static_cast<float*>(s_out);
   a.b_pad = b_pad;
+  a.low = wide ? static_cast<const float4*>(scratch) : nullptr;
   auto* st = static_cast<cudaStream_t>(stream);
   if (mem) {
     auto* rows = static_cast<float*>(scratch);

@@ -1856,9 +1856,11 @@ constexpr int kClusterSlots = 7;  // per-case tables of the C-block cluster: [pe
 // -- the C-block cluster of 256-thread blocks ------------------------------------
 //
 // Past kMaxCluster * 2432 = 38,912 states (up to the chain's 65536) the
-// Forward template's cases (the plain Forward and the row-saving one) and
-// the backward pass (p7_forward_kernel.cu::forward_wide_cluster_kernel,
-// p7_backward_kernel.cu::backward_wide_cluster_kernel) run one sequence on
+// Forward template's cases (the plain Forward and the row-saving one), the
+// backward pass and the Viterbi filter
+// (p7_forward_kernel.cu::forward_wide_cluster_kernel,
+// p7_backward_kernel.cu::backward_wide_cluster_kernel,
+// p7_viterbi.cuh::viterbi_wide_cluster_kernel) run one sequence on
 // C groups of KT = kWideClusterThreads threads, one in each block of a
 // C-block cluster: the C-block cluster's step and primitives above at KT =
 // 256 (every one of them is templated on KT), block r owning the states r *
@@ -1870,8 +1872,9 @@ constexpr int kClusterSlots = 7;  // per-case tables of the C-block cluster: [pe
 // group's, so beside the group and the cluster's area a block stages what
 // fits of the transition rows (then chain rows); the kernels read the rest
 // from the block's slice of their thread-major copy, which the launcher
-// passes (ops/p7_cuda.py::block_rows at 256 threads, fill 0: TransRows, the
-// chain's fallback). The C entries name
+// passes (ops/p7_cuda.py::block_rows at 256 threads, fill 0 for the
+// probability-space kinds, -inf for the filter: TransRows, the chain's
+// fallback). The C entries name
 // the case by `threads` kWideClusterThreads and `cluster` C.
 constexpr int kWideClusterThreads = 256;
 constexpr int kWideClusterPerMin = 17;  // ceil(38,920 / (9 * kWideClusterThreads))

@@ -171,12 +171,23 @@
 //    (block_chunk's CARRY), its scores the eager kernel's bit for bit. Up to
 //    38,912 that is twice as fast as the whole chain on its 128-thread
 //    C-block clusters, whose larger shifts cross blocks.
-//  * Past 38,912 states the filter case, and the eager, log-space and lazy
-//    ones on a card that holds no cluster of their wide blocks, run the
-//    rows-in-memory case (viterbi_mem_kernel, p7_blocked.cuh): the same step
-//    with every row in global memory, one 1024-thread block a sequence; the
-//    launch plan also takes it for a width whose cluster the card cannot
-//    hold.
+//  * Past 38,912 states (up to 65536) the filter case runs C-block clusters
+//    of kWideClusterThreads = 256-thread blocks (viterbi_wide_cluster_kernel,
+//    C = ceil(M_pad / 4864), 9..14, PER 17..19, as Forward's and the
+//    posterior pair's there): run_chunk's step at KT = 256, operation for
+//    operation, each cross-thread phase across the cluster as at 128 threads
+//    (the window's shifts by 32 and 64 are its larger shifts, E and max(a0)
+//    two exchanges a step). Its block stages two steps' bf16 emission rows,
+//    then the transitions and chain rows that fit beside its group and the
+//    cluster's area (5 of the 6 transitions at PER 19), and reads the rest
+//    from its slice of their thread-major copy (ops/p7_cuda.py::block_rows
+//    at 256 threads, fill -inf: TransRows, the chain's fallback).
+//  * The eager, log-space and lazy cases on a card that holds no cluster of
+//    their wide blocks, and the filter on one that holds no cluster of
+//    256-thread blocks, run the rows-in-memory case (viterbi_mem_kernel,
+//    p7_blocked.cuh): the same step with every row in global memory, one
+//    1024-thread block a sequence; the launch plan takes it for a width whose
+//    cluster the card cannot hold.
 
 #pragma once
 
@@ -235,7 +246,7 @@ struct GroupSmem {
   static constexpr int ROW = row_floats<PER, KT>();
   static constexpr int EROW = erow_floats<PER, KT, FILT>();
   // emission rows: two steps' (match, insert) rows, the wide block's one step's
-  static constexpr int NEM = KT == 128 ? 4 : 2;
+  static constexpr int NEM = KT == kBlockThreads ? 2 : 4;
   __device__ __forceinline__ float* xbuf(int par) const { return base + par * ROW; }
   __device__ __forceinline__ float* em(int q) const { return base + 2 * ROW + 2 * q * EROW; }
   __device__ __forceinline__ float* ei(int q) const {
@@ -292,14 +303,20 @@ __device__ __forceinline__ void prefetch_step(const ViterbiArgs& a,
 // Steps [0, count) of the chunk whose tokens are in gs.toks. Returns whether
 // the certificate fired (CERT only; in this block's states, for a cluster).
 // `cs` is the block's staged rows; `h` the block's place in the pair or the
-// cluster (SPAN).
+// cluster (SPAN). Groups of 128 threads, and the filter's block of a C-block
+// cluster of kWideClusterThreads-thread blocks, which stages the rows the
+// plan names (n_trans transitions, then n_chain chain rows) and reads the
+// others from its slice of their thread-major copy (ViterbiArgs::tm,
+// [C * (kTransRows + k_run)][PER][KT]: TransRows, the chain's fallback).
 template <int PER, int KT, bool LAZY, bool LSE, bool CERT, bool FILT, Span SPAN>
 __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
                                           const GroupSmem<PER, KT, FILT>& gs, Rows<PER>& r,
                                           int count, int passes, int& par, float tr_loop,
                                           float tr_move, int t, int bar, Link<SPAN>& h) {
   static_assert(!(LAZY && LSE) && !(FILT && (LAZY || LSE)), "one case at a time");
-  static_assert(KT == 128, "groups of 128 (the wide block runs block_chunk)");
+  static_assert(KT == 128 || (FILT && SPAN == Span::kCluster && KT == kWideClusterThreads),
+                "groups of 128, or the filter's 256-thread cluster blocks (the wide block "
+                "runs block_chunk)");
   constexpr int ROW = row_floats<PER, KT>();
   constexpr int W = warps<KT>();
   const int m_pad = a.m_pad;
@@ -313,7 +330,12 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
   const int off = t * stride<PER>();
   const int j0 = h.col0 + t * PER;  // this thread's first state
   const int n_trans = KT == 128 ? kTransRows : a.n_trans;
-  const TransRows<PER, KT> tr{cs + off, nullptr, n_trans};
+  // a 256-thread block's slice of the thread-major rows, at this thread
+  const float* tm = nullptr;
+  if constexpr (KT != 128) {
+    tm = a.tm + static_cast<size_t>(h.rank) * (kTransRows + a.k_run) * PER * KT + t;
+  }
+  const TransRows<PER, KT> tr{cs + off, tm, n_trans};
   const float* chain_s = cs + n_trans * ROW + off;
   const float* cmax = cs + (n_trans + a.n_chain) * ROW + off;
   bool viol = false;
@@ -389,6 +411,10 @@ __device__ __forceinline__ bool run_chunk(const ViterbiArgs& a, const float* cs,
         const float* c = chain_s + p * ROW;
 #pragma unroll
         for (int k = 0; k < PER; ++k) ac[k] = combine<LSE>(ac[k], sh[k] + c[k]);
+      } else if constexpr (KT != 128) {
+        const float* c = tm + (kTransRows + p) * PER * KT;
+#pragma unroll
+        for (int k = 0; k < PER; ++k) ac[k] = combine<LSE>(ac[k], sh[k] + __ldg(c + k * KT));
       } else {
         const float* c = a.chain + static_cast<size_t>(p) * m_pad;
 #pragma unroll
@@ -967,7 +993,7 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
     // the cluster's exchange area follows the block's one group (a wide
     // block's: block_smem_floats)
     float* area;
-    if constexpr (KT == 128) {
+    if constexpr (KT != kBlockThreads) {
       area = smem + n_rows * ROW + group_floats<PER, KT, FILT>(false);
     } else {
       area = smem + block_smem_floats<PER, KT>(n_rows);
@@ -979,7 +1005,7 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int q = 0; q < (KT == 128 ? 2 : 1); ++q) {
+  for (int q = 0; q < (KT == kBlockThreads ? 1 : 2); ++q) {
     if constexpr (FILT) {
       fill_tail_bf16<PER, KT>(reinterpret_cast<uint16_t*>(gs.em(q)), h.m_real, 0xff80u, t);
       fill_tail_bf16<PER, KT>(reinterpret_cast<uint16_t*>(gs.ei(q)), h.m_real, 0xff80u, t);
@@ -1019,10 +1045,10 @@ __device__ __forceinline__ void viterbi_body(const ViterbiArgs& a) {
       const int count = min(kChunk, n - c0);
       if (t < count) gs.toks[t] = tok_row[c0 + t];  // the last chunk's readers passed barriers
       group_sync<KT>(bar);
-      if constexpr (KT > 128 && kLinked) {
+      if constexpr (KT == kBlockThreads && kLinked) {
         block_chunk<PER, KT, LSE, SPAN, LAZY>(a, smem, gs, r, count, par, tr_loop, tr_move, t, bar,
                                               &h);
-      } else if constexpr (KT > 128) {
+      } else if constexpr (KT == kBlockThreads) {
         block_chunk<PER, KT, LSE>(a, smem, gs, r, count, par, tr_loop, tr_move, t, bar);
       } else if (certify) {
         store_carries<PER, KT>(r, a.m_out + row, a.i_out + row, a.d_out + row, h.m_real,
@@ -1089,6 +1115,16 @@ __global__ void __launch_bounds__(128) viterbi_pair_kernel(const ViterbiArgs a) 
 template <int PER, bool LAZY, bool LSE, bool FILT>
 __global__ void __launch_bounds__(128) viterbi_cluster_kernel(const ViterbiArgs a) {
   viterbi_body<PER, 128, LAZY, LSE, FILT, Span::kCluster>(a);
+}
+
+// Past 38,912 states, the filter case: a block of a C-block cluster of
+// kWideClusterThreads-thread blocks (launched as C-block clusters, C read
+// from %cluster_nctarank; run_chunk's step at KT = 256, the rows it does not
+// stage read from its slice of the thread-major copy).
+template <int PER>
+__global__ void __launch_bounds__(kWideClusterThreads, 1)
+    viterbi_wide_cluster_kernel(const ViterbiArgs a) {
+  viterbi_body<PER, kWideClusterThreads, false, false, true, Span::kCluster>(a);
 }
 
 // The wide block's case (block_chunk's step), one sequence a block: no row
@@ -1386,6 +1422,24 @@ bool viterbi_cluster_plan_ok(const ViterbiArgs& a, bool lazy, int c, int groups,
          a.m_pad % 8 == 0 && a.n_passes >= 1 && a.n_passes <= 16 && a.k_run >= 1 &&
          a.k_run <= a.n_passes && (!lazy || a.k_run == a.n_passes || a.n_passes <= 15) &&
          a.n_chain >= 0 && a.n_chain <= a.k_run && a.b_pad >= 1;
+}
+
+// The same for the filter's C-block cluster of kWideClusterThreads-thread
+// blocks (`c` of 2..16): c * 256 * PER states, one group a block, a grid of
+// whole clusters, the transitions staged first (then chain rows) as the plan
+// names them, cluster_smem_floats at 256 threads with bf16 emission rows, and
+// the thread-major rows.
+template <int PER>
+bool viterbi_wide_cluster_plan_ok(const ViterbiArgs& a, int c, int groups, int grid,
+                                  int smem_bytes) {
+  const int n_rows = a.n_trans + a.n_chain;
+  return a.tm != nullptr && wide_cluster_ok(a.m_pad, PER, c, groups, grid, a.n_trans) &&
+         (a.n_chain == 0 || a.n_trans == kTransRows) &&
+         static_cast<size_t>(smem_bytes) ==
+             4 * cluster_smem_floats<PER, kWideClusterThreads, true>(n_rows) &&
+         smem_bytes <= kMaxSmem && a.m_pad % 8 == 0 && a.n_passes >= 1 && a.n_passes <= 16 &&
+         a.k_run >= 1 && a.k_run <= a.n_passes && a.n_chain >= 0 && a.n_chain <= a.k_run &&
+         a.b_pad >= 1;
 }
 
 // The same for the wide block (eager and log-space, the full chain): KT *

@@ -9,7 +9,8 @@
 // cascade). Scores equal the JAX kernel's and the plain PyTorch version's
 // (ops/p7_cuda.py::viterbi_filter_scan_plain) bit for bit, and bound the
 // exact Viterbi scores from above. Past 4864 states it runs on C-block
-// clusters (viterbi_cluster_kernel).
+// clusters (viterbi_cluster_kernel), past 38,912 on C-block clusters of
+// 256-thread blocks (viterbi_wide_cluster_kernel).
 
 #include "p7_viterbi.cuh"
 
@@ -81,13 +82,44 @@ struct ClusterCase {
   }
 };
 
+// The C-block cluster of 256-thread blocks' case (past 38,912 states): c *
+// 256 * PER states, a block of the clusters one slice, the staged rows the
+// plan names, the rest read from the thread-major rows (ViterbiArgs::tm).
+unsigned wide_cluster_smem_set[kWideClusterSlots];  // devices whose case allows kMaxSmem
+
+template <int PER>
+struct WideClusterCase {
+  using Kernel = void (*)(ViterbiArgs);
+  static Kernel kernel() { return viterbi_wide_cluster_kernel<PER>; }
+
+  static cudaError_t launch(const ViterbiArgs& a, int device, int c, int groups, int grid,
+                            int smem, cudaStream_t stream) {
+    if (!viterbi_wide_cluster_plan_ok<PER>(a, c, groups, grid, smem)) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_cluster(kernel(), a, device, wide_cluster_smem_set[PER - kWideClusterPerMin],
+                          c, grid, smem, stream, kWideClusterThreads);
+  }
+
+  static cudaError_t regs(int* out) { return kernel_regs(kernel(), out); }
+
+  static cudaError_t clusters(int device, int c, int smem, int* out) {
+    return cluster_max_clusters(kernel(), device,
+                                wide_cluster_smem_set[PER - kWideClusterPerMin], c, smem, out,
+                                kWideClusterThreads);
+  }
+};
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. `threads` (128, or kMemThreads for
 // the rows-in-memory case) and `per` name the kernel case, with threads *
 // per >= m_pad, and `cluster` 2 the cluster pair's (128 threads a block, per
 // 10..19, 2 * threads * per >= m_pad), `cluster` C of 3..16 the C-block
-// cluster's (per 13..19, C * threads * per >= m_pad); msc/isc are the bf16
+// cluster's (per 13..19, C * threads * per >= m_pad), and `threads`
+// kWideClusterThreads with `cluster` C the C-block cluster of 256-thread
+// blocks (per 17..19; `scratch` its thread-major rows,
+// ops/p7_cuda.py::block_rows at 256 threads, fill -inf); msc/isc are the bf16
 // round-up tables [20, m_pad]; `full_passes` = ceil(log2 m_pad) and 1 <=
 // window <= full_passes; a tail term (consts[3]) is applied when window <
 // full_passes; `e_skip_d` takes E over M alone. `n_chain` of the window's
@@ -116,6 +148,12 @@ extern "C" int p7_filter_launch(int device, int threads, int per, int cluster,
     return static_cast<int>(
         launch_mem<false, false, true>(a, scratch, true, per, groups, grid, smem, st));
   }
+  if (threads == kWideClusterThreads) {
+    a.tm = static_cast<const float*>(scratch);
+    return static_cast<int>(with_wide_cluster_case<WideClusterCase>(per, [&](auto c) {
+      return decltype(c)::launch(a, device, cluster, groups, grid, smem, st);
+    }));
+  }
   if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (cluster >= 3) {
     return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {
@@ -138,6 +176,10 @@ extern "C" int p7_filter_regs(int threads, int per, int cluster, int* regs) {
   if (threads == kMemThreads) {
     return static_cast<int>(kernel_regs(viterbi_mem_kernel<false, false, true>, regs));
   }
+  if (threads == kWideClusterThreads) {
+    return static_cast<int>(with_wide_cluster_case<WideClusterCase>(
+        per, [&](auto c) { return decltype(c)::regs(regs); }));
+  }
   if (cluster >= 3) {
     return static_cast<int>(
         with_cluster_case<ClusterCase>(per, [&](auto c) { return decltype(c)::regs(regs); }));
@@ -151,9 +193,19 @@ extern "C" int p7_filter_regs(int threads, int per, int cluster, int* regs) {
 }
 
 // The most clusters of `cluster` blocks (2: the pair's case `per`; 3..16:
-// the C-block cluster's) the card `device` runs at once with `smem` bytes of
-// dynamic shared memory a block, for the launch plan. Returns a cudaError_t.
-extern "C" int p7_filter_clusters(int device, int per, int cluster, int smem, int* clusters) {
+// the C-block cluster's; at `threads` kWideClusterThreads, 2..16: the
+// cluster of 256-thread blocks') the card `device` runs at once with `smem`
+// bytes of dynamic shared memory a block, for the launch plan. Returns a
+// cudaError_t.
+extern "C" int p7_filter_clusters(int device, int threads, int per, int cluster, int smem,
+                                  int* clusters) {
+  if (threads == kWideClusterThreads) {
+    if (cluster < 2 || cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(with_wide_cluster_case<WideClusterCase>(per, [&](auto c) {
+      return decltype(c)::clusters(device, cluster, smem, clusters);
+    }));
+  }
+  if (threads != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (cluster >= 3) {
     if (cluster > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(with_cluster_case<ClusterCase>(per, [&](auto c) {

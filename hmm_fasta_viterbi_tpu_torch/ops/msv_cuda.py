@@ -70,15 +70,28 @@ NUM_AA = 20
 # each block of a C-block cluster, follow one sequence, at the WIDE_PER
 # cases, C = ceil(M_pad / 2432) from 2 (the pair, up to 64 * 76 = 4864) to
 # MAX_CLUSTER (16 * 2432 = 38,912; past 8 blocks a non-portable cluster
-# size, which the H100 takes). Past that the rows-in-memory case (MEM_LANES
-# threads a sequence, its M rows in global memory) takes any width: the
-# kernel has no cap, as the TPU kernel has none.
+# size, which the H100 takes). Past that, up to MAX_WIDE_CLUSTER_STATES, 16
+# warps again, one in each block of a 16-block cluster of
+# WIDE_CLUSTER_WARPS-warp blocks, at the WIDE_CLUSTER_PER cases (32 *
+# MAX_CLUSTER lanes with a PER past 76 name them): a block stages each
+# lane's last wide_staged(PER) states of the f32 table and the kernel reads
+# the lane's first ones from their lane-major copy (:func:`lane_rows`).
+# Past that the rows-in-memory case (MEM_LANES threads a sequence, its M
+# rows in global memory) takes any width: the kernel has no cap, as the TPU
+# kernel has none.
 KERNEL_PER = (4, 12, 20, 28, 36, 44, 52, 60, 68, 76)
 WIDE_PER = (44, 52, 60, 68, 76)
 MAX_WARP_STATES = 32 * KERNEL_PER[-1]  # 2432 >= 2405, the largest of the 24 profiles
 MAX_WIDE_STATES = 2 * MAX_WARP_STATES  # 4864: the cluster pair's
 MAX_CLUSTER = 16
 MAX_CLUSTER_STATES = MAX_CLUSTER * MAX_WARP_STATES  # 38,912
+# the case past 38,912 (csrc/msv_kernel.cu::msv_wide_cluster_kernel): 16
+# blocks of 8 warps (255 registers a thread: up to 128 states a lane), per
+# 80 to 128 in steps of 8 (ceil(38,920 / 512) = 77)
+WIDE_CLUSTER_PER = tuple(range(80, 129, 8))
+WIDE_CLUSTER_WARPS = 8
+WIDE_STAGED_MAX = 84  # the most states a lane stages (8q + 4): 217,088 bytes a block
+MAX_WIDE_CLUSTER_STATES = 32 * MAX_CLUSTER * WIDE_CLUSTER_PER[-1]  # 65,536
 MEM_LANES = 1024
 # blocks of the rows-in-memory case an SM runs at once (2048 threads)
 MEM_BLOCKS_PER_SM = 2
@@ -309,22 +322,42 @@ def kernel_case(m_pad: int) -> tuple[int, int]:
     one warp a sequence (32 lanes) up to MAX_WARP_STATES, else C warps in a
     C-block cluster (32 * C lanes, C = ceil(m_pad / MAX_WARP_STATES), 2..16)
     up to MAX_CLUSTER_STATES, each lane holding ``per`` states in registers
-    (the smallest that covers the row); past that the rows-in-memory case,
-    MEM_LANES threads walking ``per`` tiles of MEM_LANES states. Any width
-    has a case."""
+    (the smallest that covers the row), then the 16-block cluster of
+    WIDE_CLUSTER_WARPS-warp blocks up to MAX_WIDE_CLUSTER_STATES (32 *
+    MAX_CLUSTER lanes, ``per`` of WIDE_CLUSTER_PER); past that the
+    rows-in-memory case, MEM_LANES threads walking ``per`` tiles of MEM_LANES
+    states. Any width has a case."""
     for per in KERNEL_PER:
         if 32 * per >= m_pad:
             return 32, per
     if m_pad <= MAX_CLUSTER_STATES:
         lanes = 32 * -(-m_pad // MAX_WARP_STATES)
         return lanes, next(per for per in WIDE_PER if lanes * per >= m_pad)
+    if m_pad <= MAX_WIDE_CLUSTER_STATES:
+        lanes = 32 * MAX_CLUSTER
+        return lanes, next(per for per in WIDE_CLUSTER_PER if lanes * per >= m_pad)
     return MEM_LANES, -(-m_pad // MEM_LANES)
 
 
 def cluster_blocks(lanes: int) -> int:
     """The blocks of a cluster of the case of ``lanes`` lanes (32 * C for
-    C of 2..MAX_CLUSTER), or 1 for the one-warp and rows-in-memory cases."""
+    C of 2..MAX_CLUSTER, the case past 38,912 states included), or 1 for the
+    one-warp and rows-in-memory cases."""
     return lanes // 32 if 64 <= lanes <= 32 * MAX_CLUSTER else 1
+
+
+def wide_cluster_case(lanes: int, per: int) -> bool:
+    """Whether ``(lanes, per)`` is the case past 38,912 states (16 blocks of
+    WIDE_CLUSTER_WARPS warps, ``csrc/msv_kernel.cu::wide_case``)."""
+    return lanes == 32 * MAX_CLUSTER and WIDE_CLUSTER_PER[0] <= per <= WIDE_CLUSTER_PER[-1]
+
+
+def wide_staged(per: int) -> int:
+    """The states of a lane the case past 38,912 stages in shared memory
+    (its last ones): the largest 8q + 4 up to min(per, WIDE_STAGED_MAX)
+    (``csrc/msv_kernel.cu::wide_staged``); it reads the first ``per -
+    wide_staged(per)`` from :func:`lane_rows`."""
+    return WIDE_STAGED_MAX if per >= WIDE_STAGED_MAX else (per - 4) // 8 * 8 + 4
 
 
 def kernel_per(m_pad: int) -> int:
@@ -394,8 +427,27 @@ def link_bytes(c: int) -> int:
 def cluster_smem_bytes(per: int, c: int = CLUSTER) -> int:
     """Dynamic shared memory of a block of a C-block cluster
     (``csrc/msv_kernel.cu::msv_smem_bytes`` at 32 * C lanes): its slice of
-    the f32 table, 20 x 32 * per entries, and each warp's link."""
+    the f32 table, 20 x 32 * per entries, and each warp's link; for the case
+    past 38,912 states (``per`` of WIDE_CLUSTER_PER, C 16) 20 x 32 *
+    wide_staged(per) entries and WIDE_CLUSTER_WARPS links."""
+    if wide_cluster_case(32 * c, per):
+        return 4 * NUM_AA * 32 * wide_staged(per) + WIDE_CLUSTER_WARPS * link_bytes(c)
     return 4 * NUM_AA * 32 * per + CLUSTER_WARPS * link_bytes(c)
+
+
+def lane_rows(emit: torch.Tensor, per: int, c: int = MAX_CLUSTER) -> torch.Tensor:
+    """The case past 38,912 states' unstaged table entries, lane-major:
+    ``[P, 20, c, (per - wide_staged(per)) / 4, 32, 4]`` f32 on ``emit``'s
+    device (a bf16 table widened, exact) from ``emit [P, 20, M_pad]``: entry
+    ``(p, aa, r, g, l, i)`` is ``emit[p, aa, j]`` at state ``j = (32 * r + l)
+    * per + 4 * g + i`` (-inf past M_pad), lane l of block r's first states,
+    so that the 32 lanes' float4 reads of one group are 512 contiguous bytes
+    (``csrc/msv_kernel.cu``, ``MsvArgs::low``)."""
+    num_p, num_aa, m_pad = emit.shape
+    low = per - wide_staged(per)
+    rows = torch.nn.functional.pad(emit.float(), (0, c * 32 * per - m_pad), value=NEG_INF)
+    rows = rows.view(num_p, num_aa, c, 32, per)[..., :low]
+    return rows.reshape(num_p, num_aa, c, 32, low // 4, 4).permute(0, 1, 2, 4, 3, 5).contiguous()
 
 
 def cluster_state(j: int, per: int) -> tuple[int, int, int]:
@@ -423,7 +475,8 @@ def launch_plan(lanes: int, per: int, entry_bytes: int, b_pad: int, num_p: int, 
     (cluster_smem_bytes), C warps a sequence, on a persistent grid of the
     ``clusters`` the card runs at once (``cudaOccupancyMaxActiveClusters``;
     None: sms // C) split among the profiles (at least one a profile), at
-    most the batch needs: a grid that is a multiple of C. The
+    most the batch needs: a grid that is a multiple of C; the case past
+    38,912 states the same with WIDE_CLUSTER_WARPS warps a block. The
     rows-in-memory case (MEM_LANES) runs one 1024-thread block a sequence,
     MEM_BLOCKS_PER_SM blocks an SM, a persistent grid."""
     if lanes == MEM_LANES:
@@ -432,9 +485,10 @@ def launch_plan(lanes: int, per: int, entry_bytes: int, b_pad: int, num_p: int, 
     if c > 1:
         if warps is not None:
             raise ValueError("the cluster case's plan is fixed")
+        block = WIDE_CLUSTER_WARPS if wide_cluster_case(lanes, per) else CLUSTER_WARPS
         clusters = sms // c if clusters is None else clusters
-        units = max(1, min(-(-b_pad // CLUSTER_WARPS), clusters // num_p))
-        return MsvPlan(CLUSTER_WARPS, c * units, cluster_smem_bytes(per, c), c)
+        units = max(1, min(-(-b_pad // block), clusters // num_p))
+        return MsvPlan(block, c * units, cluster_smem_bytes(per, c), c)
     warps = PLAN_WARPS[per] if warps is None else warps
     if warps not in WARP_CHOICES:
         raise ValueError(f"{warps} warps a block: the MSV kernel takes one of {WARP_CHOICES}")
@@ -488,7 +542,8 @@ def max_clusters(index: int, lanes: int, per: int, bf16: bool) -> int:
     (``cudaOccupancyMaxActiveClusters``; 0 when it holds none)."""
     lib = _kernel_library()
     out = ctypes.c_int(0)
-    rc = lib.msv_max_clusters(index, lanes, per, CLUSTER_WARPS, int(bf16), ctypes.byref(out))
+    warps = WIDE_CLUSTER_WARPS if wide_cluster_case(lanes, per) else CLUSTER_WARPS
+    rc = lib.msv_max_clusters(index, lanes, per, warps, int(bf16), ctypes.byref(out))
     if rc != 0 or out.value < 0:
         raise RuntimeError(f"MSV {lanes // 32}-block cluster (per {per}) occupancy query "
                            f"failed: {lib.msv_error_string(rc).decode()} ({rc}, {out.value} "
@@ -518,7 +573,8 @@ def count_launch(wrapper, wide: bool, mem: bool = False, cluster: int = 1,
     case), ``block`` in ``wrapper.block_launches`` (the p7 wide block), and
     a launch in ``cluster``-block clusters (``cluster`` > 1) in
     ``wrapper.cluster_launches[cluster]``, or with ``block_cluster`` (the p7
-    clusters of wide blocks) in ``wrapper.block_cluster_launches[cluster]``."""
+    clusters of wide blocks and of 256-thread blocks, MSV's case past 38,912
+    states) in ``wrapper.block_cluster_launches[cluster]``."""
     wrapper.launches += 1
     wrapper.wide_launches += int(wide)
     wrapper.mem_launches += int(mem)
@@ -542,8 +598,9 @@ def _launch(wrapper, what, emit, tokens, lengths, tr_rows, tr_consts, carry, war
     ``carry`` is ``(m, s)`` (P = 1: the carries come back) or None (the
     row-0 carry, scores only); ``warps`` forces the register case's block
     size (:func:`launch_plan`). Counts the launch on ``wrapper`` (by its
-    case: the pair's as wide, a cluster's by C, the rows-in-memory case's
-    as mem). Returns ``(scores [P, B_pad], m_out, s_out)``."""
+    case: the pair's as wide, a cluster's by C, the case past 38,912 states'
+    as a cluster of wider blocks, the rows-in-memory case's as mem).
+    Returns ``(scores [P, B_pad], m_out, s_out)``."""
     device = tokens.device
     if device.type != "cuda":
         raise ValueError(f"{what} needs CUDA tensors, got {device}")
@@ -573,9 +630,12 @@ def _launch(wrapper, what, emit, tokens, lengths, tr_rows, tr_consts, carry, war
     lanes, per = device_case(m_pad, emit.element_size(), device)
     plan = device_plan(m_pad, emit.element_size(), b_pad, num_p, device, warps)
     scratch = None
+    wide = wide_cluster_case(lanes, per)
     if lanes == MEM_LANES:
         # two scratch rows a block and profile
         scratch = torch.empty((num_p, plan.grid, 2, m_pad), dtype=torch.float32, device=device)
+    elif wide:
+        scratch = lane_rows(emit, per)
     lib = _kernel_library()
 
     def ptr(t):
@@ -592,7 +652,8 @@ def _launch(wrapper, what, emit, tokens, lengths, tr_rows, tr_consts, carry, war
         raise RuntimeError(
             f"{what} kernel launch failed: {lib.msv_error_string(rc).decode()} ({rc})"
         )
-    count_launch(wrapper, plan.cluster == CLUSTER, lanes == MEM_LANES, plan.cluster)
+    count_launch(wrapper, plan.cluster == CLUSTER, lanes == MEM_LANES, plan.cluster,
+                 block_cluster=wide)
     return scores, m_out, s_out
 
 
@@ -629,7 +690,8 @@ def msv_stacked_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, warps=None)
 
 
 # kernel launches in this process, those of them on the cluster pair, those
-# of the rows-in-memory case, and those in C-block clusters by C
+# of the rows-in-memory case, and those in C-block clusters by C (past 38,912
+# states in block_cluster_launches)
 for _fn in (msv_scan_cuda, msv_filter_scan_cuda, msv_stacked_scan_cuda):
     zero_launches(_fn)
 

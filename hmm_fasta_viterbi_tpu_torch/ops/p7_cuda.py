@@ -28,12 +28,12 @@ its rows in registers too, and past that C such blocks a sequence, one in
 each block of a C-block cluster (C = ceil(M_pad / 8192), 2..8); past 32,768
 the lazy kind runs the eager kind's clusters of wide blocks (its step there
 is the eager step on the whole chain: LAZY_BLOCK_STATES); past 38,912
-Forward, the row-saving Forward and the posterior backward pass
-(WIDE_CLUSTER_KINDS) run C groups of WIDE_CLUSTER_THREADS threads, one in each block of a C-block
-cluster (C = ceil(M_pad / 4864), 9..14), and the filter the rows-in-memory
-case, MEM_THREADS threads a sequence with its rows in global memory
-(:func:`kernel_case`), which every kind also runs on a card that holds no
-such cluster; the plain versions have no cap.
+Forward, the row-saving Forward, the posterior backward pass and the
+filter (WIDE_CLUSTER_KINDS) run C groups of WIDE_CLUSTER_THREADS threads,
+one in each block of a C-block cluster (C = ceil(M_pad / 4864), 9..14).
+Every kind runs the rows-in-memory case, MEM_THREADS threads a sequence
+with its rows in global memory (:func:`kernel_case` with no kind), on a
+card that holds no cluster of its case; the plain versions have no cap.
 
 The host packers are numpy copies of the JAX ones (that module imports
 jax) and return the same arrays byte for byte, in the TPU's ``[M_pad, …]``
@@ -107,10 +107,10 @@ FWD_RESCALE_GROUP = 8
 # cluster pair, and the CLUSTER_KINDS C of them up to 38,912), each thread
 # owning states t * per .. t * per + per - 1 in registers
 # (csrc/p7_blocked.cuh); the BLOCK_KINDS' wide block, BLOCK_THREADS threads
-# in the same layout, up to MAX_BLOCK_STATES, and C of them past that; past
-# 38,912 the other kinds' MEM_THREADS threads a sequence in the
-# rows-in-memory case, thread t handling states t, t + MEM_THREADS, ... of
-# rows kept in MEM_ROWS scratch rows of global memory a block
+# in the same layout, up to MAX_BLOCK_STATES, and C of them past that; on a
+# card that holds none of a case's clusters, MEM_THREADS threads a sequence
+# in the rows-in-memory case, thread t handling states t, t + MEM_THREADS,
+# ... of rows kept in MEM_ROWS scratch rows of global memory a block
 KERNEL_THREADS = 128
 MEM_THREADS = 1024
 MEM_ROWS = 8
@@ -214,21 +214,23 @@ BLOCK_CLUSTER_PER = tuple(range(5, 9))  # ceil(9217 / (2 * BLOCK_THREADS)) = 5
 MAX_BLOCK_CLUSTER = 8
 BLOCK_CLUSTER_FLOATS = PAIR_FLOATS - 2 * 2 * (KERNEL_THREADS // 32) + (
     2 * 16 * (BLOCK_THREADS // 32))
-# Forward, the row-saving Forward and the posterior backward pass past
-# MAX_CLUSTER_STATES, up to MAX_KERNEL_STATES: C groups of
-# WIDE_CLUSTER_THREADS threads a sequence, one in each block of a C-block
+# Forward, the row-saving Forward, the posterior backward pass and the
+# Viterbi filter past MAX_CLUSTER_STATES, up to MAX_KERNEL_STATES: C groups
+# of WIDE_CLUSTER_THREADS threads a sequence, one in each block of a C-block
 # cluster (csrc/p7_forward_kernel.cu::forward_wide_cluster_kernel,
-# csrc/p7_backward_kernel.cu::backward_wide_cluster_kernel; the C-block
-# cluster's step and primitives at 256 threads), block r owning states r *
+# csrc/p7_backward_kernel.cu::backward_wide_cluster_kernel,
+# csrc/p7_viterbi.cuh::viterbi_wide_cluster_kernel; the C-block cluster's
+# step and primitives at 256 threads), block r owning states r *
 # WIDE_CLUSTER_THREADS * per .., C = ceil(M_pad / (WIDE_CLUSTER_THREADS *
 # 19)) (9..14) and per of WIDE_CLUSTER_PER the smallest that covers M_pad.
 # Its rows are twice a 128-thread group's, so a block stages what fits of
 # the transition rows (then chain rows) beside its group and the cluster's
 # area and reads the rest from its slice of their thread-major copy
-# (:func:`block_rows` at 256 threads, fill 0; Forward, without the saved
-# row, stages one row more). The filter past 38,912 keeps the
-# rows-in-memory case
-WIDE_CLUSTER_KINDS = ("forward", "save", "backward")
+# (:func:`block_rows` at 256 threads, fill 0 for the probability-space
+# kinds, -inf for the filter). Forward, without the saved row, stages one
+# row more than the row-saving Forward, and the filter, whose emission rows
+# are bf16, two more than Forward
+WIDE_CLUSTER_KINDS = ("forward", "save", "backward", "filter")
 WIDE_CLUSTER_THREADS = 256
 WIDE_CLUSTER_PER = tuple(range(17, 20))  # ceil(38,920 / (9 * 256)) = 17
 # the lazy kind past LAZY_BLOCK_STATES, up to MAX_KERNEL_STATES: the eager
@@ -930,7 +932,7 @@ def _kernel_library() -> ctypes.CDLL:
     lib.p7_backward_regs.argtypes = [c, c, c, regs]
     lib.p7_viterbi_clusters.argtypes = [c, c, c, c, c, c, regs]
     lib.p7_forward_log_clusters.argtypes = [c, c, c, c, c, regs]
-    lib.p7_filter_clusters.argtypes = [c, c, c, c, regs]
+    lib.p7_filter_clusters.argtypes = [c, c, c, c, c, regs]
     lib.p7_forward_clusters.argtypes = [c, c, c, c, c, c, regs]
     lib.p7_backward_clusters.argtypes = [c, c, c, c, c, regs]
     for fn in (lib.p7_viterbi_launch, lib.p7_forward_launch, lib.p7_forward_log_launch,
@@ -1287,8 +1289,7 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
     grid of ``clusters`` (None: what an SM holds times the SMs over C), at
     most the batch; a given ``groups`` must be 1. A cluster the card holds
     none of (``clusters`` 0; not the pair, which must fit) plans the
-    rows-in-memory case instead, as every other case past
-    MAX_CLUSTER_STATES does: one sequence a block, as
+    rows-in-memory case instead: one sequence a block, as
     many blocks as registers and THREADS_PER_SM let an SM hold. Raises
     ``ValueError`` past M_pad 65536."""
     if kind not in BLOCKED_KINDS:
@@ -1338,7 +1339,7 @@ def plan_launch(kind: str, m_pad: int, passes: int, b_pad: int, regs: int, sms: 
                              f"{kt}-thread blocks takes 1")
 
         def wide_smem(rows):
-            return blocked_smem_bytes(per, rows, 1, save, backward=backward, cluster=True,
+            return blocked_smem_bytes(per, rows, 1, save, bf16, backward, cluster=True,
                                       threads=kt)
 
         fit = max(0, (SMEM_PER_SM - wide_smem(0)) // (4 * kt * blocked_stride(per)))
@@ -1443,7 +1444,7 @@ def max_clusters(kind: str, per: int, smem: int, index: int, cluster: int = CLUS
     elif kind == "backward":
         rc = lib.p7_backward_clusters(index, threads, per, cluster, smem, ctypes.byref(out))
     else:
-        rc = lib.p7_filter_clusters(index, per, cluster, smem, ctypes.byref(out))
+        rc = lib.p7_filter_clusters(index, threads, per, cluster, smem, ctypes.byref(out))
     if rc != 0 or out.value < (1 if (cluster, threads) == (CLUSTER, KERNEL_THREADS) else 0):
         msg = lib.msv_error_string(rc).decode()
         raise RuntimeError(f"{kind} kernel's {cluster}-block cluster (per {per}, {smem} bytes) "
@@ -1497,17 +1498,20 @@ def mem_scratch(plan: LaunchPlan, m_pad: int, device) -> torch.Tensor | None:
     return torch.empty((plan.grid, MEM_ROWS, m_pad), dtype=torch.float32, device=device)
 
 
-def case_rows(plan: LaunchPlan, trans, chain, passes: int, device) -> torch.Tensor | None:
+def case_rows(plan: LaunchPlan, trans, chain, passes: int, device,
+              fill: float = 0.0) -> torch.Tensor | None:
     """What a blocked case reads from global memory beside its operands,
     passed as the launchers' ``scratch``: the rows-in-memory case's scratch
     rows (:func:`mem_scratch`), the wide block's thread-major rows
     (:func:`block_rows`; a cluster of wide blocks' a slice a block), a
-    C-block cluster of 256-thread blocks' (a slice a block, fill 0: the
-    probability-space kinds' rows), else None."""
+    C-block cluster of 256-thread blocks' (a slice a block, ``fill`` past
+    M_pad: 0 for the probability-space kinds' rows, -inf for the filter's
+    log-space ones), else None."""
     if plan.block or plan.block_cluster:
         return block_rows(trans, chain, passes, plan.per, max(plan.cluster, 1))
     if plan.wide_cluster:
-        return block_rows(trans, chain, passes, plan.per, plan.cluster, WIDE_CLUSTER_THREADS, 0.0)
+        return block_rows(trans, chain, passes, plan.per, plan.cluster, WIDE_CLUSTER_THREADS,
+                          fill)
     return mem_scratch(plan, trans.shape[1], device)
 
 
@@ -1717,7 +1721,7 @@ def viterbi_filter_scan_cuda(msc, isc, trans, chain, tokens, lengths, tr_rows, c
     out = (torch.empty_like(m), torch.empty_like(i), torch.empty_like(d), torch.empty_like(s))
     if b_pad:
         plan = device_plan("filter", m_pad, passes, b_pad, device, groups)
-        scratch = mem_scratch(plan, m_pad, device)
+        scratch = case_rows(plan, trans, chain, passes, device, fill=NEG_INF)
         rc = _kernel_library().p7_filter_launch(
             device.index, plan.threads, plan.per, plan.cluster, msc.data_ptr(),
             isc.data_ptr(),

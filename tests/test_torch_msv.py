@@ -151,29 +151,33 @@ def test_blank_ragged_tail_byte_equal():
 
 @pytest.mark.parametrize("m_pad,per", [(104, 4), (1400, 44), (1408, 44), (2405, 76), (2432, 76),
                                        (2440, 44), (2704, 44), (4776, 76), (4864, 76),
-                                       (4872, 52), (6984, 76), (30184, 76), (38920, 39),
+                                       (4872, 52), (6984, 76), (30184, 76), (38920, 80),
                                        (65544, 65)])
 def test_kernel_states_per_lane(m_pad, per):
     """One warp a sequence up to 2432 states, C of them (32 * C lanes, C =
-    ceil(M_pad / 2432)) in a C-block cluster up to 16 * 2432 = 38,912, the
-    rows-in-memory case (1024 threads, ``per`` tiles of 1024 states) past
-    it."""
+    ceil(M_pad / 2432)) in a C-block cluster up to 16 * 2432 = 38,912, 16
+    of them (per 80..128) up to 65536, the rows-in-memory case (1024
+    threads, ``per`` tiles of 1024 states) past it."""
     assert msv_cuda.kernel_per(m_pad) == per
     lanes = (32 if m_pad <= 2432 else 32 * -(-m_pad // 2432) if m_pad <= 38912
-             else msv_cuda.MEM_LANES)
+             else 32 * 16 if m_pad <= 65536 else msv_cuda.MEM_LANES)
     assert msv_cuda.kernel_case(m_pad) == (lanes, per)
 
 
 def test_kernel_limit_names_itself():
-    """Past 16 blocks x 32 lanes x 76 = 38,912 states the rows-in-memory
-    case takes over; the MSV kernel has no cap, as the TPU kernel and the
-    plain version have none."""
+    """Past 16 blocks x 32 lanes x 76 = 38,912 states the 16-block
+    cluster of 8-warp blocks takes over (per 80..128), past 16 x 32 x 128 =
+    65536 the rows-in-memory case; the MSV kernel has no cap, as the TPU
+    kernel and the plain version have none."""
     assert msv_cuda.MAX_WIDE_STATES == 4864 and msv_cuda.MEM_LANES == 1024
     assert msv_cuda.MAX_CLUSTER_STATES == 16 * 2432 == 38912
+    assert msv_cuda.MAX_WIDE_CLUSTER_STATES == 16 * 32 * 128 == 65536
     assert msv_cuda.kernel_case(msv_cuda.MAX_WIDE_STATES + 1) == (96, 52)
     assert msv_cuda.kernel_case(4872) == (96, 52)
-    assert msv_cuda.kernel_per(msv_cuda.MAX_CLUSTER_STATES + 1) == 39
-    assert msv_cuda.kernel_case(38920) == (1024, 39)
+    assert msv_cuda.kernel_per(msv_cuda.MAX_CLUSTER_STATES + 1) == 80
+    assert msv_cuda.kernel_case(38920) == (512, 80)
+    assert msv_cuda.kernel_per(msv_cuda.MAX_WIDE_CLUSTER_STATES + 1) == 65
+    assert msv_cuda.kernel_case(65544) == (1024, 65)
     assert msv_cuda.kernel_case(1 << 20) == (1024, 1024)
     mem = msv_cuda.launch_plan(1024, 5, 4, 16384, 1, 132)
     assert mem == msv_cuda.launch_plan(1024, 5, 2, 16384, 1, 132) == (32, 264, 0, 1)
@@ -429,22 +433,29 @@ def test_cluster_messages_reach_every_block_once(c):
 @pytest.mark.parametrize("m_pad,c,per", [(2432, 1, 76), (2433, 2, 44), (4864, 2, 76),
                                          (4865, 3, 52), (7296, 3, 76), (19456, 8, 76),
                                          (19457, 9, 68), (30181, 13, 76), (38912, 16, 76),
-                                         (38913, 1, 39)])
+                                         (38913, 16, 80), (65536, 16, 128), (65537, 1, 65)])
 def test_cluster_case_and_plan_at_the_boundaries(m_pad, c, per):
     """At each width where the case changes: C blocks (1: one warp a
-    sequence or, past 38,912, the rows-in-memory case), the smallest per
-    that covers the row, a grid that is a multiple of C (the clusters the
-    card holds split among the profiles, at least one a profile; no more
-    than the batch needs), and a block's shared memory, its table slice and
-    its warps' links (exchange slots included), within 232,448 bytes."""
+    sequence or, past 65536, the rows-in-memory case; 16 of 8 warps from
+    38,913), the smallest per that covers the row, a grid that is a
+    multiple of C (the clusters the card holds split among the profiles, at
+    least one a profile; no more than the batch needs), and a block's shared
+    memory, its table slice (past 38,912 each lane's last wide_staged(per)
+    states) and its warps' links (exchange slots included), within 232,448
+    bytes."""
     lanes, got_per = msv_cuda.kernel_case(m_pad)
     assert got_per == per and msv_cuda.cluster_blocks(lanes) == c
     assert lanes * per >= m_pad
-    if m_pad > msv_cuda.MAX_CLUSTER_STATES:
+    if m_pad > msv_cuda.MAX_WIDE_CLUSTER_STATES:
         assert lanes == msv_cuda.MEM_LANES
         return
+    wide = msv_cuda.wide_cluster_case(lanes, per)
+    assert wide == (m_pad > msv_cuda.MAX_CLUSTER_STATES)
+    warps = msv_cuda.WIDE_CLUSTER_WARPS if wide else msv_cuda.CLUSTER_WARPS
+    staged = msv_cuda.wide_staged(per) if wide else per
     if c > 1:
-        assert lanes * (per - 8) < m_pad or per == msv_cuda.WIDE_PER[0]
+        assert lanes * (per - 8) < m_pad or per in (msv_cuda.WIDE_PER[0],
+                                                   msv_cuda.WIDE_CLUSTER_PER[0])
     for b_pad, num_p, clusters in ((1, 1, 7), (2048, 1, 7), (2048, 1, None), (8192, 3, 22),
                                    (100, 20, 9)):
         plan = msv_cuda.launch_plan(lanes, per, 4, b_pad, num_p, SMS, clusters=clusters)
@@ -453,6 +464,6 @@ def test_cluster_case_and_plan_at_the_boundaries(m_pad, c, per):
         assert plan.smem <= msv_cuda.SMEM_PER_SM == 232448
         if c > 1:
             held = SMS // c if clusters is None else clusters
-            assert plan.grid // c == max(1, min(-(-b_pad // 16), held // num_p))
-            assert plan.smem == 4 * 20 * 32 * per + 16 * (16 + 16 * (c - 1))
-            assert plan.warps == msv_cuda.CLUSTER_WARPS
+            assert plan.grid // c == max(1, min(-(-b_pad // warps), held // num_p))
+            assert plan.smem == 4 * 20 * 32 * staged + warps * (16 + 16 * (c - 1))
+            assert plan.warps == warps

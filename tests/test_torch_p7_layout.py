@@ -385,9 +385,9 @@ def test_shared_memory_matches_the_header_layout():
 
 @pytest.mark.parametrize("kind", p7_cuda.BLOCKED_KINDS)
 def test_rows_in_memory_plan(kind):
-    """Past 38,912 the Viterbi filter plans the rows-in-memory case; Forward,
-    the row-saving Forward and the backward pass plan it past 38,912 where
-    the card holds no cluster of their 256-thread blocks (``clusters`` 0;
+    """Forward, the row-saving Forward, the backward pass and the Viterbi
+    filter plan the rows-in-memory case past 38,912 where the card holds no
+    cluster of their 256-thread blocks (``clusters`` 0;
     else test_wide_cluster_plan), the lazy kind past 32,768 and the eager
     and log-space kinds past MAX_BLOCK_STATES where the card holds no
     cluster of their wide blocks (``clusters`` 0; else they plan the cluster

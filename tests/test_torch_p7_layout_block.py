@@ -143,7 +143,8 @@ def test_block_cases_match_kernel_source():
     (BLOCK_CLUSTER); the header lays its shared memory out as
     blocked_smem_bytes(block=True) counts it, its step (block_chunk) reduces
     E over KT / 32 warps, and the 128-thread group keeps its own step
-    (run_chunk) and reduction (group_reduce, four warps)."""
+    (run_chunk, which otherwise only the filter's 256-thread cluster blocks
+    run) and reduction (group_reduce, four warps)."""
     csrc = p7_cuda._build.CSRC_DIR
     blocked = (csrc / "p7_blocked.cuh").read_text()
     cases = re.findall(r"P7_BLOCK_CASE\((\d+)\)\n", blocked)
@@ -158,9 +159,10 @@ def test_block_cases_match_kernel_source():
     template = (csrc / "p7_viterbi.cuh").read_text()
     assert "block_chunk<PER, KT, LSE>(a, smem, gs, r, count, par, tr_loop, tr_move, t, bar);" in (
         template)
-    assert 'static_assert(KT == 128, "groups of 128 (the wide block runs block_chunk)");' in (
-        template)
-    assert "static constexpr int NEM = KT == 128 ? 4 : 2;" in template
+    assert ('static_assert(KT == 128 || (FILT && SPAN == Span::kCluster && KT == '
+            'kWideClusterThreads),\n                "groups of 128, or the filter\'s 256-thread '
+            'cluster blocks (the wide block "\n                "runs block_chunk)");') in template
+    assert "static constexpr int NEM = KT == kBlockThreads ? 2 : 4;" in template
     assert "viterbi_body<PER, KT, false, LSE, false, Span::kGroup>(a);" in template
     assert "4 * block_smem_floats<PER, KT>(a.n_trans + a.n_chain)" in template
     assert "__ldg(global + (q * PER + k) * KT)" in template

@@ -1,7 +1,8 @@
 """The C-block clusters of 256-thread blocks (Forward, the row-saving
-Forward and the backward pass past 38,912 states: C = 9..14, per 17..19;
-csrc/p7_forward_kernel.cu::forward_wide_cluster_kernel,
-csrc/p7_backward_kernel.cu::backward_wide_cluster_kernel), checked on the
+Forward, the backward pass and the Viterbi filter past 38,912 states: C =
+9..14, per 17..19; csrc/p7_forward_kernel.cu::forward_wide_cluster_kernel,
+csrc/p7_backward_kernel.cu::backward_wide_cluster_kernel,
+csrc/p7_viterbi.cuh::viterbi_wide_cluster_kernel), checked on the
 CPU against the models of tests/p7_layout_models.py: their cases, plan,
 state map, shifts both ways, releases, thread-major rows, shared memory and
 source.
@@ -36,13 +37,14 @@ WIDE_CLUSTER_CASES = sorted({(p7_cuda.cluster_blocks(m, "save"), p7_cuda.kernel_
 
 
 def test_wide_cluster_cases_cover_every_width():
-    """Past 38,912 states up to 65536 Forward, the row-saving Forward and
-    the backward pass take C = ceil(M_pad / 4864) blocks of 256 threads and
-    per = ceil(M_pad / (256 * C)): C of 9..14, per of WIDE_CLUSTER_PER
-    (17..19, the three compiled cases a kind); every width of a C covered by
-    its per, none by the C before; Forward and the row-saving Forward take
-    one case at every width."""
-    assert p7_cuda.WIDE_CLUSTER_KINDS == ("forward", "save", "backward") and WIDE == 256
+    """Past 38,912 states up to 65536 Forward, the row-saving Forward, the
+    backward pass and the Viterbi filter take C = ceil(M_pad / 4864) blocks
+    of 256 threads and per = ceil(M_pad / (256 * C)): C of 9..14, per of
+    WIDE_CLUSTER_PER (17..19, the three compiled cases a kind); every width
+    of a C covered by its per, none by the C before; Forward, the
+    row-saving Forward and the filter take one case at every width."""
+    assert p7_cuda.WIDE_CLUSTER_KINDS == ("forward", "save", "backward", "filter")
+    assert WIDE == 256
     assert {c for c, _ in WIDE_CLUSTER_CASES} == set(range(9, 15))
     assert {per for _, per in WIDE_CLUSTER_CASES} == set(p7_cuda.WIDE_CLUSTER_PER) == {17, 18, 19}
     for m in range(p7_cuda.MAX_CLUSTER_STATES + 8, p7_cuda.MAX_KERNEL_STATES + 1, 8):
@@ -51,11 +53,13 @@ def test_wide_cluster_cases_cover_every_width():
         assert threads == WIDE and c * WIDE * per >= m > (c - 1) * WIDE * 19
         assert c * WIDE * (per - 1) < m and p7_cuda.wide_cluster_case(m, "save")
         assert p7_cuda.wide_cluster_case(m, "forward")
-        assert (p7_cuda.cluster_blocks(m, "forward"), p7_cuda.kernel_case(m, "forward")) == (
-            c, (threads, per))
+        for kind in ("forward", "filter"):
+            assert (p7_cuda.cluster_blocks(m, kind), p7_cuda.kernel_case(m, kind)) == (
+                c, (threads, per))
     for kind in p7_cuda.BLOCKED_KINDS:
         assert not p7_cuda.wide_cluster_case(p7_cuda.MAX_CLUSTER_STATES, kind)
-        assert p7_cuda.wide_cluster_case(38920, kind) == (kind in ("forward", "save", "backward"))
+        assert p7_cuda.wide_cluster_case(38920, kind) == (
+            kind in ("forward", "save", "backward", "filter"))
     with pytest.raises(ValueError, match="65536"):
         p7_cuda.kernel_case(p7_cuda.MAX_KERNEL_STATES + 8, "save")
 
@@ -73,18 +77,21 @@ def test_wide_cluster_plan(m_pad, c, per):
     group and the cluster's area (blocked_smem_bytes(cluster=True,
     threads=256)); a card that holds none (``clusters`` 0) plans the
     rows-in-memory case. The all-24 join twice over (60368) takes 13 blocks
-    of 19 states, two transition rows staged for the row-saving Forward and
-    three for Forward, whose group has no saved row; every other kind keeps
-    its case there."""
+    of 19 states, two transition rows staged for the row-saving Forward,
+    three for Forward, whose group has no saved row, and five for the
+    filter, whose four emission rows are bf16; every other kind keeps its
+    case there."""
     row = 4 * WIDE * p7_cuda.blocked_stride(per)
+    hrow = 4 * (WIDE * p7_cuda.bf16_stride(per) // 2)
     for kind in p7_cuda.WIDE_CLUSTER_KINDS:
-        bwd, save = kind == "backward", kind == "save"
+        bwd, save, bf16 = kind == "backward", kind == "save", kind == "filter"
         assert p7_cuda.cluster_blocks(m_pad, kind) == c == -(-m_pad // 4864)
         assert p7_cuda.kernel_case(m_pad, kind) == (WIDE, per) == (WIDE, -(-m_pad // (WIDE * c)))
-        base = p7_cuda.blocked_smem_bytes(per, 0, 1, save, backward=bwd, cluster=True,
+        base = p7_cuda.blocked_smem_bytes(per, 0, 1, save, bf16, bwd, cluster=True,
                                           threads=WIDE)
-        group = (6 * row + 2 * (WIDE * p7_cuda.bf16_stride(per) // 2) * 4 + 4 * (24 + 32 + 256)
-                 if bwd else (7 if save else 6) * row + 4 * (16 + 32))
+        group = (6 * row + 2 * hrow + 4 * (24 + 32 + 256) if bwd
+                 else 2 * row + 4 * hrow + 4 * (16 + 32) if bf16
+                 else (7 if save else 6) * row + 4 * (16 + 32))
         assert base == group + 2 * row + 4 * (852 if bwd else 596)
         for passes, regs, b_pad in itertools.product(_passes(kind, m_pad)[::3], REGS, BATCHES):
             plan = p7_cuda.plan_launch(kind, m_pad, passes, b_pad, regs, SMS)
@@ -94,7 +101,7 @@ def test_wide_cluster_plan(m_pad, c, per):
                                               or plan.block_cluster)
             rows = plan.n_trans + plan.n_chain
             assert plan.smem == base + rows * row <= SMEM_PER_SM
-            assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, save, backward=bwd,
+            assert plan.smem == p7_cuda.blocked_smem_bytes(per, rows, 1, save, bf16, bwd,
                                                            cluster=True, threads=WIDE)
             assert plan.n_chain == 0 or plan.n_trans == 6
             assert 0 <= plan.n_chain <= passes
@@ -117,6 +124,8 @@ def test_wide_cluster_plan(m_pad, c, per):
         assert (plan.n_trans, plan.n_chain, plan.smem) == (2, 0, 216592)
         plan = p7_cuda.plan_launch("forward", m_pad, 8, 64, 200, SMS)
         assert (plan.n_trans, plan.n_chain, plan.smem) == (3, 0, 216592)
+        plan = p7_cuda.plan_launch("filter", m_pad, 7, 64, 200, SMS)
+        assert (plan.n_trans, plan.n_chain, plan.smem) == (5, 0, 216592)
     for kind in p7_cuda.BLOCKED_KINDS:
         if kind not in p7_cuda.WIDE_CLUSTER_KINDS:
             plan = p7_cuda.plan_launch(kind, m_pad, p7_cuda.chain_passes(m_pad), 64, 64, SMS)

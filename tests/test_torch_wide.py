@@ -22,8 +22,9 @@ oracle and XLA path at the same tolerances, the all-24 join (LENG
 30181) through the plain MSV, Viterbi and Forward and the kernels' cases
 and launch plans, the joins of CLUSTER_JOINS (the MSV clusters of 5, 8 and
 9 blocks) through the plain MSV, and the all-24 join twice over (LENG
-60362, past 38,912: the MSV rows-in-memory case, and the posterior pair's
-C-block cluster of 13 256-thread blocks) through the plain MSV and the
+60362, past 38,912: the MSV kernel's 16-block cluster of 8-warp blocks, and
+the posterior pair's C-block cluster of 13 256-thread blocks) through the
+plain MSV and the
 plain posterior decode (against ``posterior_coverage_batch_xla``), with a
 NumPy model of that cluster's reduction order against the plain Forward.
 """
@@ -720,8 +721,9 @@ def test_cluster_join_plain_msv_matches_jax(profile_dir, batch, stems):
 
 def test_past_the_largest_cluster_plain_msv_matches_jax(profile_dir, batch):
     """The all-24 join twice over (chip_smoke.MSV_MEM_JOIN, LENG 60362) is
-    past the 16-block cluster's 38,912 states: the MSV kernel's
-    rows-in-memory case. Its plain MSV == msv_oracle_batch bit for bit."""
+    past the 16-block cluster of 16-warp blocks' 38,912 states: the MSV
+    kernel's 16-block cluster of 8-warp blocks, 120 states a lane. Its plain
+    MSV == msv_oracle_batch bit for bit."""
     tokens, lengths = batch
     stems = chip_smoke.MSV_MEM_JOIN
     jax_hmm = chip_smoke.join_profiles(*(jax_parse_hmm(profile_dir / f"{s}.hmm") for s in stems))
@@ -729,7 +731,7 @@ def test_past_the_largest_cluster_plain_msv_matches_jax(profile_dir, batch):
     assert hmm.leng == jax_hmm.leng == 2 * 30181
     m_pad = msv_cuda.round_up(hmm.leng, 8)
     assert m_pad > msv_cuda.MAX_CLUSTER_STATES
-    assert msv_cuda.kernel_case(m_pad) == (msv_cuda.MEM_LANES, 59)
+    assert msv_cuda.kernel_case(m_pad) == (32 * 16, 120)
     got = MSVScanner(device="cpu").scan(MSVProfile.from_profile(hmm),
                                         MSVScanner(device="cpu").stage(tokens, lengths)).numpy()
     assert np.array_equal(got, msv_oracle_batch(JaxMSVProfile.from_profile(jax_hmm), tokens,

@@ -7,15 +7,19 @@ versions on the card.
                                          [--wide 9,...,14] [--time]
     python3 tools/torch_cluster_check.py --stress N [--stress-c 4,...,16]
                                          [--stress-wide 9,...,14] [--stress-blocks 5,...,8]
+                                         [--stress-msv 38920,60368,65536]
 
 MSV: for each M_pad of --widths (default: the boundaries of every cluster
-size from the pair to 16 blocks, and two widths past 38,912), a random f32
+size from the pair to 16 blocks, the ends of the 16-block cluster of 8-warp
+blocks past 38,912, its per 80 and 88 at 40,960 and 40,968, and LENG 60362,
+and one width past 65536), a random f32
 table (-inf pad columns) scans a ragged batch of 64 sequences up to 300
 residues: the exact kernel (carries in and out, a two-call carry chain
 split at 129), the filter (the table rounded to bf16) and a stack of three
 such tables, each equal to its plain version bit for bit; the launch
-counters show which case ran (cluster_launches by C, mem_launches past
-38,912). Forward: chip_smoke.py's wide check of both wide profiles (LENG
+counters show which case ran (cluster_launches by C up to 38,912,
+block_cluster_launches at 16 past it, mem_launches past 65536). Forward:
+chip_smoke.py's wide check of both wide profiles (LENG
 2701 and 4770), whose Forward and row-saving Forward run on the pair, and a
 Forward carry chain split at a multiple of FWD_RESCALE_GROUP equal to one
 call bit for bit. p7 past 4864 states: for each C of --p7 (default 3..16)
@@ -57,11 +61,14 @@ FWD_TOL of its plain version with a carry chain equal to one call, the
 row-saving kernel's scores and carries within FWD_TOL of its plain version
 and equal to the Forward kernel's bit for bit (both run the cluster), the
 backward pass on the kernel's rows within COV_TOL of its plain version, the
-whole decode within COV_TOL / TOT_TOL of the plain decode; the launch
-counters show the cluster of C blocks (block_cluster_launches by C) and no
-rows-in-memory launch; and at the first width the rows-in-memory route of a
-card that holds no such cluster (chip_smoke.no_block_clusters), its
-counters showing it (Forward == the row-saving kernel there too). Then chip_smoke.py's wide
+whole decode within COV_TOL / TOT_TOL of the plain decode, and the Viterbi
+filter at its auto window and at the whole chain equal to its plain version
+bit for bit (scores and carries) and >= the eager kernel's scores; the
+launch counters show the cluster of C blocks (block_cluster_launches by C)
+and no rows-in-memory launch; and at the first width the rows-in-memory
+route of a card that holds no such cluster (chip_smoke.no_block_clusters),
+its counters showing it (Forward == the row-saving kernel there too, the
+filter == plain). Then chip_smoke.py's wide
 check (the cluster pairs, the backward pass's included). With --time, the
 MSV cluster cases at 2048 x 1000, the Forward pair at 64 x 3500, each p7
 join's Viterbi and Forward kernels at 64 x 1000
@@ -82,12 +89,14 @@ the lazy Viterbi at lazy_k = 1 (its certificate fires, so chunks replay the
 whole chain), the Viterbi filter at its longest window (the whole chain),
 Forward, the row-saving Forward and the backward pass, for each C of
 --stress-wide (default 9..14) a join filling a C-block cluster of
-256-thread blocks through Forward, the row-saving Forward and the backward
-pass, and for each C of --stress-blocks (default 5..8) a join past 38,912
-states filling a cluster of C wide blocks through the lazy Viterbi, N
-launches each on SURVIVOR_BATCH rows of 300 residues, every launch's
-results equal to the first's bit for bit and the launch counters showing
-the case. The launches run in a child process that prints a line as each
+256-thread blocks through Forward, the row-saving Forward, the backward
+pass and the Viterbi filter at its longest window, for each C of
+--stress-blocks (default 5..8) a join past 38,912 states filling a cluster
+of C wide blocks through the lazy Viterbi, and for each M_pad of
+--stress-msv a random table through MSV, the MSV filter and the stacked
+kernel on their 16-block cluster of 8-warp blocks, N launches each on
+SURVIVOR_BATCH rows of 300 residues, every launch's results equal to the
+first's bit for bit and the launch counters showing the case. The launches run in a child process that prints a line as each
 ends; the parent fails the run, naming the (kind, C, launch) under way,
 when the child falls silent for STRESS_SILENCE seconds (a hung kernel
 cannot be cut from inside its own process) or exits otherwise than 0, and
@@ -115,7 +124,7 @@ from hmm_fasta_viterbi_tpu_torch.models.fuzz import random_profile  # noqa: E402
 from hmm_fasta_viterbi_tpu_torch.ops import _build, msv_cuda, p7_cuda  # noqa: E402
 
 WIDTHS = (2440, 4864, 4872, 7296, 7304, 9728, 9736, 12160, 17024, 19456, 19464, 21888,
-          30184, 36488, 38912, 38920, 60368)
+          30184, 36488, 38912, 38920, 40960, 40968, 60368, 65536, 65544)
 BATCH, LEN, SPLIT = 64, 300, 129
 
 
@@ -127,7 +136,7 @@ def random_emit(rng, m_pad: int, real: int) -> torch.Tensor:
 
 def counters(fn) -> dict:
     return {"launches": fn.launches, "wide": fn.wide_launches, "mem": fn.mem_launches,
-            "cluster": dict(fn.cluster_launches)}
+            "cluster": dict(fn.cluster_launches), "blocks": dict(fn.block_cluster_launches)}
 
 
 def msv_width(rng, scanner, m_pad: int, time_it: bool) -> dict:
@@ -164,15 +173,23 @@ def msv_width(rng, scanner, m_pad: int, time_it: bool) -> dict:
                              f"stacked MSV at {m_pad}")
     torch.cuda.synchronize()
     lanes, per = msv_cuda.device_case(m_pad, 4, dev)
-    out = {"m_pad": m_pad, "lanes": lanes, "per": per,
-           "plan": msv_cuda.device_plan(m_pad, 4, BATCH, 1, dev)._asdict(),
+    plan = msv_cuda.device_plan(m_pad, 4, BATCH, 1, dev)
+    out = {"m_pad": m_pad, "lanes": lanes, "per": per, "plan": plan._asdict(),
            "msv_scan": counters(msv_cuda.msv_scan_cuda),
            "msv_filter_scan": counters(msv_cuda.msv_filter_scan_cuda),
            "msv_stacked_scan": counters(msv_cuda.msv_stacked_scan_cuda), "equal": True}
+    wide = getattr(msv_cuda, "wide_cluster_case", lambda *_: False)(lanes, per)
+    for name in ("msv_scan", "msv_filter_scan", "msv_stacked_scan"):
+        cnt = out[name]
+        if wide:
+            chip_smoke.require(set(cnt["blocks"]) == {16} and not cnt["cluster"]
+                               and cnt["mem"] == 0,
+                               f"MSV at {m_pad} ({name}): launches {cnt}, expected the 16-block "
+                               "cluster of 8-warp blocks only")
     if msv_cuda.cluster_blocks(lanes) > 1:
         out["max_clusters"] = msv_cuda.max_clusters(dev.index or 0, lanes, per, False)
-        out["regs_spill"] = msv_cuda.kernel_attrs(lanes, per, msv_cuda.CLUSTER_WARPS, False)
-    if time_it and m_pad <= msv_cuda.MAX_CLUSTER_STATES:
+        out["regs_spill"] = msv_cuda.kernel_attrs(lanes, per, plan.warps, False)
+    if time_it and msv_cuda.cluster_blocks(lanes) > 1:
         big = rng.integers(0, 20, size=(2048, 1000)).astype(np.int8)
         bstaged = scanner.stage(big, np.full(2048, 1000, dtype=np.int32))
         bm, bs = msv_cuda.init_carry(bstaged.tr_rows, m_pad)
@@ -409,7 +426,8 @@ def p7_block_join(rng, scanner, hmm, name: str, time_it: bool) -> dict:
 
 WIDE_WRAPPERS = {"forward": p7_cuda.forward_prob_scan_cuda,
                  "save": chip_smoke.posterior_cuda.forward_save_scan_cuda,
-                 "backward": chip_smoke.posterior_cuda.backward_coverage_scan_cuda}
+                 "backward": chip_smoke.posterior_cuda.backward_coverage_scan_cuda,
+                 "filter": p7_cuda.viterbi_filter_scan_cuda}
 
 
 def posterior_vs_plain(scanner, p7, staged, name: str) -> dict:
@@ -447,12 +465,28 @@ def posterior_vs_plain(scanner, p7, staged, name: str) -> dict:
             "coverage_max_abs": c_err, "totals_max_abs": t_err}
 
 
+def filter_vs_plain(scanner, p7, staged, name: str) -> dict:
+    """The Viterbi filter at its auto window and at the whole chain on
+    ``staged`` against its plain version (scores and carries, bit for bit)
+    and >= the eager kernel's scores: the errors."""
+    eager = p7_cuda.viterbi_pack(p7, scanner.device, lazy=False)
+    run, carry = chip_smoke.p7_calls("eager", eager, staged)
+    exact = run(chip_smoke.CUDA_FNS["eager"], staged.tokens, staged.lengths, carry)[0]
+    msv_cuda.zero_launches(p7_cuda.viterbi_scan_cuda)  # the filter's counters alone
+    out = {}
+    for window in (None, p7_cuda.chain_passes(p7_cuda.default_m_pad(p7))):
+        err, run_w = chip_smoke.filter_vs_plain(p7, staged, exact, window)
+        out[f"filter_w{run_w}_max_abs"] = err
+    return out
+
+
 def p7_wide_cluster(rng, scanner, hmm, name: str, time_it: bool, mem_route: bool) -> dict:
     """Forward, the row-saving Forward and the backward pass on ``hmm``
-    past 38,912 states against their plain versions (posterior_vs_plain) on
-    their C-block cluster of 256-thread blocks, with the launch counters; with
-    ``mem_route`` also on the rows-in-memory route of a card that holds no
-    such cluster; timed with ``time_it``."""
+    past 38,912 states against their plain versions (posterior_vs_plain),
+    and the Viterbi filter (filter_vs_plain), on their C-block cluster of
+    256-thread blocks, with the launch counters; with ``mem_route`` also on
+    the rows-in-memory route of a card that holds no such cluster; timed
+    with ``time_it``."""
     dev = scanner.device
     p7 = chip_smoke.P7Profile.from_profile(hmm)
     m_pad = p7_cuda.default_m_pad(p7)
@@ -462,7 +496,8 @@ def p7_wide_cluster(rng, scanner, hmm, name: str, time_it: bool, mem_route: bool
     for fn in WIDE_WRAPPERS.values():
         msv_cuda.zero_launches(fn)
     out = {"join": name, "m_pad": m_pad, "cluster": c,
-           **posterior_vs_plain(scanner, p7, staged, name)}
+           **posterior_vs_plain(scanner, p7, staged, name),
+           **filter_vs_plain(scanner, p7, staged, name)}
     counts = {kind: counters(fn) | {"blocks": dict(fn.block_cluster_launches)}
               for kind, fn in WIDE_WRAPPERS.items()}
     for kind, cnt in counts.items():
@@ -471,8 +506,10 @@ def p7_wide_cluster(rng, scanner, hmm, name: str, time_it: bool, mem_route: bool
                            f"256-thread blocks only")
     out["launches"] = counts
     fpack = p7_cuda.forward_pack(p7, dev)
+    window = p7_cuda.filter_pack(p7, dev).window
     for kind in WIDE_WRAPPERS:
-        plan = p7_cuda.device_plan(kind, m_pad, fpack.chain.shape[0], 64, dev)
+        passes = window if kind == "filter" else fpack.chain.shape[0]
+        plan = p7_cuda.device_plan(kind, m_pad, passes, 64, dev)
         chip_smoke.require(plan.wide_cluster and plan.cluster == c, f"{name} {kind}: plan {plan}")
         out[f"plan_{kind}"] = plan._asdict()
         out[f"regs_{kind}"] = p7_cuda.kernel_regs(kind, plan.per, plan.threads, plan.cluster)
@@ -483,6 +520,8 @@ def p7_wide_cluster(rng, scanner, hmm, name: str, time_it: bool, mem_route: bool
             for fn in WIDE_WRAPPERS.values():
                 msv_cuda.zero_launches(fn)
             out["mem_route"] = posterior_vs_plain(scanner, p7, staged, f"{name} (rows in memory)")
+            out["mem_route"].update(filter_vs_plain(scanner, p7, staged,
+                                                    f"{name} (rows in memory)"))
             cnt = {kind: counters(fn) | {"blocks": dict(fn.block_cluster_launches)}
                    for kind, fn in WIDE_WRAPPERS.items()}
         chip_smoke.require(all(x["mem"] > 0 and not x["blocks"] for x in cnt.values()),
@@ -494,15 +533,21 @@ def p7_wide_cluster(rng, scanner, hmm, name: str, time_it: bool, mem_route: bool
         schain = chip_smoke.posterior_cuda.suffix_chain_rows(p7, dev)
         b_in = chip_smoke.backward_inputs(fpack, schain, bstaged)
         run, carry = chip_smoke.p7_calls("save", fpack, bstaged)
-        for kind, call in (("forward", lambda: run(WIDE_WRAPPERS["forward"], bstaged.tokens,
+        f_pack = p7_cuda.filter_pack(p7, dev)
+        f_staged = scanner.stage(big[:, :1000], np.full(64, 1000, dtype=np.int32))
+        f_run, f_carry = chip_smoke.p7_calls("filter", f_pack, f_staged)
+        for kind, call in (("filter", lambda: f_run(WIDE_WRAPPERS["filter"], f_staged.tokens,
+                                                     f_staged.lengths, f_carry)),
+                           ("forward", lambda: run(WIDE_WRAPPERS["forward"], bstaged.tokens,
                                                     bstaged.lengths, carry)),
                            ("save", lambda: run(WIDE_WRAPPERS["save"], bstaged.tokens,
                                                 bstaged.lengths, carry)),
                            ("backward", lambda: WIDE_WRAPPERS["backward"](*b_in))):
             ms = chip_smoke.best_ms(call, reps=3)
             held = out[f"clusters_{kind}"]
-            out[f"ms_{kind}_64x{POST_LEN}"] = ms
-            out[f"us_step_{kind}"] = ms * 1e3 / (POST_LEN * -(-64 // held))
+            steps = 1000 if kind == "filter" else POST_LEN
+            out[f"ms_{kind}_64x{steps}"] = ms
+            out[f"us_step_{kind}"] = ms * 1e3 / (steps * -(-64 // held))
     return out
 
 
@@ -520,8 +565,9 @@ def stress_cases(cs, wide_cs, block_cs=()) -> list[tuple[str, int, tuple[str, ..
     on the join of the repo's profiles as near 2432 * C states as they fill
     (join_stems: 18-19 states a thread) for each C of ``cs``, Forward, the
     row-saving Forward and the backward pass on the join as near 4864 * C
-    (at most 65536) for each C of ``wide_cs`` on 256-thread blocks
-    (labelled ``<kind>256``), and the lazy Viterbi on the join as near 8192
+    (at most 65536) for each C of ``wide_cs`` on 256-thread blocks, the
+    Viterbi filter there too (labelled ``<kind>256``), and the lazy Viterbi
+    on the join as near 8192
     * C (past 38,912, at most 65536) for each C of ``block_cs`` on its
     cluster of C wide blocks (labelled ``lazy_blocks``)."""
     out = []
@@ -539,11 +585,58 @@ def stress_cases(cs, wide_cs, block_cs=()) -> list[tuple[str, int, tuple[str, ..
     return out
 
 
-def stress_child(n: int, cs, wide_cs, block_cs=()) -> int:
-    """The stress's launches (stress_cases): one line a launch as it starts
-    and as it ends, ``start|done <label> <C> <launch>``, then
-    ``STRESS_DONE``; raises on a result that differs from the case's first
-    launch (compared on the card) or a launch counted elsewhere."""
+MSV_STRESS_WRAPPERS = {"msv": msv_cuda.msv_scan_cuda, "msv_filter": msv_cuda.msv_filter_scan_cuda,
+                       "msv_stacked": msv_cuda.msv_stacked_scan_cuda}
+
+
+def msv_stress(n: int, widths, staged, rng) -> None:
+    """MSV, the MSV filter and the stacked kernel (three tables) on a random
+    table of each M_pad of ``widths`` (the 16-block cluster of 8-warp
+    blocks past 38,912 states), n launches each, every result equal to the
+    first (compared on the card) and the counters at C 16 alone; lines as
+    stress_child's, labelled ``msv<mode>_<M_pad>`` with C 16."""
+    dev = staged.tokens.device
+    for m_pad in widths:
+        emit = random_emit(rng, m_pad, m_pad - 5).to(dev)
+        consts = torch.tensor([-0.7, -0.7, -3.2], dtype=torch.float32, device=dev)
+        m, s = msv_cuda.init_carry(staged.tr_rows, m_pad)
+        f_emit = msv_cuda.bf16_tensor(msv_cuda.bf16_round_up(emit.cpu().numpy()), dev)
+        stack = torch.stack([emit, f_emit.float(), emit.flip(0)])
+        calls = {
+            "msv": lambda: msv_cuda.msv_scan_cuda(emit, staged.tokens, staged.lengths,
+                                                  staged.tr_rows, consts, m, s),
+            "msv_filter": lambda: msv_cuda.msv_filter_scan_cuda(
+                f_emit, staged.tokens, staged.lengths, staged.tr_rows, consts, m, s),
+            "msv_stacked": lambda: (msv_cuda.msv_stacked_scan_cuda(
+                stack, staged.tokens, staged.lengths, staged.tr_rows,
+                torch.stack([consts, consts, consts + 0.25])),),
+        }
+        for kind, call in calls.items():
+            fn = MSV_STRESS_WRAPPERS[kind]
+            msv_cuda.zero_launches(fn)
+            label = f"{kind}_{m_pad}"
+            first = None
+            for i in range(n):
+                print(f"start {label} 16 {i}", flush=True)
+                got = call()
+                torch.cuda.synchronize()
+                if first is None:
+                    first = got
+                else:
+                    chip_smoke.require(all(torch.equal(g, w) for g, w in zip(got, first)),
+                                       f"stress {label} launch {i}: not equal to the first")
+                print(f"done {label} 16 {i}", flush=True)
+            chip_smoke.require(fn.block_cluster_launches == {16: n} and fn.mem_launches == 0
+                               and not fn.cluster_launches,
+                               f"stress {label}: launches {counters(fn)}; expected {n} on the "
+                               "16-block cluster of 8-warp blocks")
+
+
+def stress_child(n: int, cs, wide_cs, block_cs=(), msv_widths=()) -> int:
+    """The stress's launches (stress_cases, then msv_stress): one line a
+    launch as it starts and as it ends, ``start|done <label> <C> <launch>``,
+    then ``STRESS_DONE``; raises on a result that differs from the case's
+    first launch (compared on the card) or a launch counted elsewhere."""
     dev = torch.device(chip_smoke.DEVICE)
     torch.cuda.set_device(dev)
     scanner = chip_smoke.MSVScanner(device=dev)
@@ -599,17 +692,19 @@ def stress_child(n: int, cs, wide_cs, block_cs=()) -> int:
         chip_smoke.require(by_c == {c: n} and fn.mem_launches == 0,
                            f"stress {kind} C {c}: launches {counters(fn)}, "
                            f"{dict(fn.block_cluster_launches)}; expected {n} at C {c}")
+    msv_stress(n, msv_widths, staged, rng)
     print("STRESS_DONE", flush=True)
     return 0
 
 
-def stress(n: int, cs, wide_cs, block_cs=()) -> int:
+def stress(n: int, cs, wide_cs, block_cs=(), msv_widths=()) -> int:
     """Run stress_child in a child process and watch it: fails, naming the
     launch under way, when the child falls silent for STRESS_SILENCE
     seconds or exits otherwise than 0."""
     cmd = [sys.executable, __file__, "--stress-child", str(n),
            "--stress-c", ",".join(map(str, cs)), "--stress-wide", ",".join(map(str, wide_cs)),
-           "--stress-blocks", ",".join(map(str, block_cs))]
+           "--stress-blocks", ",".join(map(str, block_cs)),
+           "--stress-msv", ",".join(map(str, msv_widths))]
     t0 = time.perf_counter()
     child = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
     sel = selectors.DefaultSelector()
@@ -669,6 +764,7 @@ def main() -> int:
                           for m in range(p7_cuda.LAZY_BLOCK_STATES + 8,
                                          p7_cuda.MAX_KERNEL_STATES + 1, 8)})
     ap.add_argument("--stress-blocks", default=",".join(map(str, lazy_blocks)))
+    ap.add_argument("--stress-msv", default="38920,60368,65536")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_cluster_check: no CUDA card", file=sys.stderr)
@@ -676,11 +772,12 @@ def main() -> int:
     stress_cs = [int(x) for x in args.stress_c.split(",") if x]
     stress_wide = [int(x) for x in args.stress_wide.split(",") if x]
     stress_blocks = [int(x) for x in args.stress_blocks.split(",") if x]
+    stress_msv = [int(x) for x in args.stress_msv.split(",") if x]
     if args.stress_child:
-        return stress_child(args.stress_child, stress_cs, stress_wide, stress_blocks)
+        return stress_child(args.stress_child, stress_cs, stress_wide, stress_blocks, stress_msv)
     if args.stress:
         _build.build()  # once, before the child's clock starts
-        return stress(args.stress, stress_cs, stress_wide, stress_blocks)
+        return stress(args.stress, stress_cs, stress_wide, stress_blocks, stress_msv)
     card = chip_smoke.nvidia_smi("name,power.limit")
     print(card, flush=True)
     dev = torch.device(chip_smoke.DEVICE)

@@ -40,7 +40,12 @@ with 2405 and 2365, LENG 34951, and with 2405, 2365, 2207 and 1705, LENG
 wide blocks (p7_cuda.LAZY_BLOCK_STATES), at those two joins again on the
 case the tree does not plan there: the cluster of 5 wide blocks (rows
 ``viterbi_lazy_scan_<LENG>_blocks``) or the 128-thread C-block cluster of
-15 or 16 blocks (``_cluster``). With --block (in place
+15 or 16 blocks (``_cluster``); then the Viterbi filter at 64 x 1000 and
+MSV, the MSV filter and the stacked kernel at MSV_MEM_BATCH x 1000 (256)
+against the LENG 60362 join and the two joins at the ends of the range
+past 38,912 states (the all-24 join with 2405, 2365, 2207, 1705 and 100,
+LENG 38963; the all-24 join twice over with 2405 and 2207, LENG 64974),
+best of 3 on whatever case the tree plans (rows ``<kernel>_<LENG>``). With --block (in place
 of the wide timings) it times the eager Viterbi and the log-space Forward
 past 4864 states alone, through whatever case the tree plans (the
 rows-in-memory case before the wide block and, past 9216 states, before
@@ -204,6 +209,63 @@ def cluster_rows_past(chip_smoke, scanner, rng, work: dict) -> dict:
     return out
 
 
+def past_38912_joins(chip_smoke) -> list:
+    """The joins past 38,912 states of --clusters' filter and MSV rows:
+    LENG 38963, 60362 and 64974."""
+    every = tuple(chip_smoke.stems())
+    return [chip_smoke.wide_profile(every + ("2405", "2365", "2207", "1705", "100")),
+            chip_smoke.msv_mem_profile(),
+            chip_smoke.wide_profile(chip_smoke.MSV_MEM_JOIN + ("2405", "2207"))]
+
+
+def past_rows(chip_smoke, scanner, rng, work: dict) -> dict:
+    """The Viterbi filter at 64 x 1000 and MSV, the MSV filter and the
+    stacked kernel at 256 x 1000 against past_38912_joins, best of 3 after a
+    warm-up on whatever case the tree plans, through the tree's own helpers;
+    no plain version. Rows ``<kernel>_<LENG>``."""
+    p7_cuda, msv_cuda = chip_smoke.p7_cuda, chip_smoke.msv_cuda
+    b, n = 256, chip_smoke.MEM_TIME_LEN
+    tokens = rng.integers(0, 20, size=(b, n)).astype(np.int8)
+    msv_staged = scanner.stage(tokens, np.full(b, n, dtype=np.int32))
+    few = chip_smoke.SURVIVOR_BATCH
+    p7_staged = scanner.stage(tokens[:few], np.full(few, n, dtype=np.int32))
+    out = {}
+    for hmm in past_38912_joins(chip_smoke):
+        p7 = chip_smoke.P7Profile.from_profile(hmm)
+        leng = p7.num_states
+        pack = p7_cuda.filter_pack(p7, scanner.device)
+        plan = p7_cuda.device_plan("filter", pack.m_pad, pack.window, few, scanner.device)
+        run, carry = chip_smoke.p7_calls("filter", pack, p7_staged)
+        fn = chip_smoke.CUDA_FNS["filter"]
+        ms = chip_smoke.best_ms(lambda: run(fn, p7_staged.tokens, p7_staged.lengths, carry),
+                                reps=3)
+        key = f"viterbi_filter_scan_{leng}"
+        out[key] = (ms, float("nan"))
+        work[key] = (chip_smoke.OPS_PER_CELL["filter"](pack.window) * few * n * leng,
+                     chip_smoke.nbytes(*pack[:4], pack.consts, p7_staged.tokens))
+        print(f"{key}: {ms:.3f} ms (best of 3, {few} x {n} x M={leng}, window {pack.window}; "
+              f"plan {plan})", flush=True)
+        msv = chip_smoke.MSVProfile.from_profile(hmm)
+        cells = b * n * leng
+        for name, fmode in (("msv_scan", False), ("msv_filter_scan", True)):
+            args = chip_smoke.msv_args(scanner, msv, msv_staged, filter_mode=fmode)
+            call = chip_smoke.MSV_FNS[fmode][0]
+            ms = chip_smoke.best_ms(lambda: call(*args), reps=3)
+            key = f"{name}_{leng}"
+            out[key] = (ms, float("nan"))
+            work[key] = (chip_smoke.OPS_PER_CELL["msv"](0) * cells, chip_smoke.nbytes(*args))
+            print(f"{key}: {ms:.3f} ms (best of 3, {b} x {n} x M={leng}; plan "
+                  f"{chip_smoke.msv_plan_text(args[0], b)})", flush=True)
+        emit, consts = scanner._stacked_pack((msv,), "exact")
+        s_args = (emit, msv_staged.tokens, msv_staged.lengths, msv_staged.tr_rows, consts)
+        ms = chip_smoke.best_ms(lambda: msv_cuda.msv_stacked_scan_cuda(*s_args), reps=3)
+        key = f"msv_stacked_scan_{leng}"
+        out[key] = (ms, float("nan"))
+        work[key] = (chip_smoke.OPS_PER_CELL["msv"](0) * cells, chip_smoke.nbytes(*s_args))
+        print(f"{key}: {ms:.3f} ms (best of 3, {b} x {n} x M={leng}, one profile)", flush=True)
+    return out
+
+
 @contextlib.contextmanager
 def forced_blocks(p7_cuda, c: int):
     """The plan's cluster of wide blocks forced to ``c`` blocks (per the
@@ -310,6 +372,7 @@ def main() -> int:
         out.update(posterior_rows_past(chip_smoke, scanner, rng, work))
     if args.clusters:
         out.update(cluster_rows_past(chip_smoke, scanner, rng, work))
+        out.update(past_rows(chip_smoke, scanner, rng, work))
     if args.block:
         out.update(block_rows_past(chip_smoke, scanner, rng, work, args.rule))
     if not (args.posterior or args.clusters or args.block):
