@@ -242,7 +242,7 @@ def stream_search(b: Bench) -> list[BenchResult]:
                     model_length=b.hmm.model_length, repetitions=len(rep_seconds),
                     rep_seconds=rep_seconds)
     # the consumer's sections beside the producer's (``_Stream.log_phases``)
-    wait = stream.timer.sections.get("prefetch_wait", 0.0)
+    wait = stream.timer.seconds.get("prefetch_wait", 0.0)
     log(f"stream_search: {r.gcups:.2f} GCUPS e2e over {n_seqs} seqs ({seconds:.3f} s; host "
         f"parse not hidden by device work: {wait / seconds:.0%}; phases "
         f"{stream.timer.report()})")

@@ -89,7 +89,7 @@ from .pipeline import (
 )
 from .runtime.checkpoint import ScanCheckpoint, resumable_search_sweep, resumable_sweep
 from .runtime.config import EngineConfig
-from .runtime.profiling import SectionTimer, device_trace, phase
+from .runtime.profiling import SectionTimer, device_trace, span
 
 logger = logging.getLogger(__name__)
 
@@ -292,13 +292,13 @@ def _report_search(hmm, db, result, args, out, rows_sink=None, tokens=None, leng
     envelopes, dom_scores = {}, {}
     if want_domains:
         # decode only the reported hits: the decode is O(L * M) device work a hit
-        t0 = time.perf_counter()
-        with phase("domains"):
+        timer = SectionTimer()
+        with timer.section("domains"):
             envelopes = _hit_envelopes(p7, tokens, lengths,
                                        order[result.passed_forward[order]], device, mesh)
             dom_scores = _domain_scores(p7, tokens, lengths, envelopes, device)
         if phases is not None:
-            phases["domains"] = time.perf_counter() - t0
+            phases["domains"] = timer.seconds["domains"]
     rows = []
     for i in order:
         row = {
@@ -387,6 +387,11 @@ def _log_seconds(t_start, parse_s, stage_s, phases, report_s, streamed=False) ->
         parse_s, stage_s, phases["msv"], phases["viterbi"], phases["forward"],
         phases.get("domains", 0.0), report_s, time.perf_counter() - t_start,
     )
+
+
+def _packs(scanner) -> str:
+    """The scanner's pack cache in a search's log line."""
+    return f"packs built {scanner.pack_builds} of {scanner.pack_lookups} lookups"
 
 
 def _stage_bucketed_logged(scanner, tokens, lengths):
@@ -562,7 +567,7 @@ def _scan_whole_file(args, device) -> int:
     """scan of a FASTA file loaded whole; each phase of the ``seconds:``
     line is a labelled range of a ``--profile-trace``."""
     t_start = time.perf_counter()
-    with phase("parse"):
+    with span("parse"):
         hmm = load_profile(args.hmm, prefer=args.loader)
         db = load_fasta(args.fasta, prefer=args.loader)
         if not len(db):
@@ -574,7 +579,7 @@ def _scan_whole_file(args, device) -> int:
     # Viterbi and Forward stages stage whole, as in the JAX CLI
     bucketed = args.bucketed and args.stage in ("msv", "search")
     t0 = time.perf_counter()
-    with phase("stage"):
+    with span("stage"):
         if bucketed:
             staged = _stage_bucketed_logged(scanner, tokens, lengths)
         else:
@@ -591,17 +596,17 @@ def _scan_whole_file(args, device) -> int:
         phases = dict(pipeline.phase_seconds)
         t_scanned = time.perf_counter()
         logger.info(
-            "search %s%s: %d seqs -> %d past MSV -> %d past Viterbi -> %d hits (%.3fs)",
+            "search %s%s: %d seqs -> %d past MSV -> %d past Viterbi -> %d hits (%.3fs, %s)",
             hmm.name, " (fused)" if pipeline.fused_runs else "", len(db),
             int(result.passed_msv.sum()),
             int(result.passed_viterbi.sum()), int(result.passed_forward.sum()),
-            t_scanned - t0,
+            t_scanned - t0, _packs(scanner),
         )
-        with phase("report"), _out_sink(args) as sink:
+        with span("report"), _out_sink(args) as sink:
             _report_search(hmm, db, result, args, out=sink, tokens=tokens, lengths=lengths,
                            device=device, phases=phases, mesh=scanner.mesh)
     else:
-        with phase(args.stage):
+        with span(args.stage):
             if args.stage != "msv":
                 scores = scanner.scan_p7(P7Profile.from_profile(hmm), staged,
                                          stage=args.stage).cpu().numpy()
@@ -617,7 +622,7 @@ def _scan_whole_file(args, device) -> int:
             "scanned %d seqs x %s (%s) in %.3fs (%.2f GCUPS)",
             len(db), hmm.name, args.stage, dt, cells / dt / 1e9,
         )
-        with phase("report"), _out_sink(args) as sink:
+        with span("report"), _out_sink(args) as sink:
             _report(hmm, db, scores, args, out=sink, stage=args.stage)
     report_s = time.perf_counter() - t_scanned - phases.get("domains", 0.0)
     _log_seconds(t_start, t0 - t_start, t_staged - t0, phases, report_s)
@@ -662,7 +667,7 @@ class _Stream:
         ``/put_wait``); on a card also the stream the batches were staged
         on."""
         for k, v in self.producer.items():
-            self.timer.sections[f"producer/{k}"] = v
+            self.timer.seconds[f"producer/{k}"] = v
         logger.info("streamed %s phases: %s", label, self.timer.report())
         stager = self.stager
         if stager.stream is not None:
@@ -725,7 +730,7 @@ def _cmd_scan_stream(args, device) -> int:
     with _out_sink(args) as sink:
         _report(hmm, _headers_db(headers), scores, args, out=sink, stage=args.stage)
     phases = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0,
-              args.stage: stream.timer.sections["scan"]}
+              args.stage: stream.timer.seconds["scan"]}
     stream.log_seconds(t_start, phases, time.perf_counter() - t_report)
     return 0
 
@@ -825,9 +830,9 @@ def _cmd_search_stream(args, device) -> int:
     dt = time.perf_counter() - t0
     logger.info(
         "streamed search %s: %d seqs -> %d past MSV -> %d past Viterbi "
-        "-> %d hits (%.3fs, %.2f GCUPS msv-equivalent)%s",
+        "-> %d hits (%.3fs, %.2f GCUPS msv-equivalent, %s)%s",
         hmm.name, total_seqs, len(agg.headers), agg.n_vit, agg.n_fwd, dt,
-        total_cells / dt / 1e9,
+        total_cells / dt / 1e9, _packs(pipeline.scanner),
         f", the fused cascade on {pipeline.fused_runs} batches" if args.fused else "",
     )
     phases = dict(pipeline.phase_totals)
@@ -890,7 +895,7 @@ def _cmd_sweep_stream(args, hmms, device, t_start) -> int:
             "streamed sweep: %d profiles x %d seqs in %.3fs (%.2f GCUPS)",
             len(profiles), len(headers), dt, total_cells / dt / 1e9,
         )
-        phases = {"msv": stream.timer.sections["scan"], "viterbi": 0.0, "forward": 0.0}
+        phases = {"msv": stream.timer.seconds["scan"], "viterbi": 0.0, "forward": 0.0}
         t_report = time.perf_counter()
         db = _headers_db(headers)
         with _out_sink(args) as sink, _json_accumulator(args, sink) as acc:

@@ -100,6 +100,15 @@ class ShardedScanner(BatchScans):
         """The scanner of db shard ``d``'s device."""
         return self.scanners[self.mesh.device(d)]
 
+    @property
+    def pack_lookups(self) -> int:
+        """``MSVScanner.pack_lookups`` summed over the devices' scanners."""
+        return sum(sc.pack_lookups for sc in self.scanners.values())
+
+    @property
+    def pack_builds(self) -> int:
+        return sum(sc.pack_builds for sc in self.scanners.values())
+
     def stage_shards(self, stage, tokens, lengths, num_sequences: int | None = None,
                      width: int = 0) -> ShardedDatabase:
         """``stage(scanner, tokens[rows], lengths[rows])`` for each of this

@@ -61,11 +61,11 @@ from the device:
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import logging
 import math
-import time
 
 import numpy as np
 import torch
@@ -76,7 +76,7 @@ from .models.msv import MSVProfile, length_transitions
 from .models.p7 import P7Profile
 
 from .ops import msv_cuda, p7_cuda
-from .runtime.profiling import phase
+from .runtime.profiling import SectionTimer, scope, span
 
 logger = logging.getLogger(__name__)
 
@@ -316,6 +316,10 @@ class MSVScanner(BatchScans):
         # (an id-keyed cache without the pin returns a stale pack); LRU so
         # a long sweep does not keep every pack on the device
         self._profile_cache: collections.OrderedDict = collections.OrderedDict()
+        # the pack cache's lookups and the packs built on a miss: builds
+        # over lookups is the cache's waste
+        self.pack_lookups = 0
+        self.pack_builds = 0
 
     def _cache_get(self, key, obj):
         """The payload cached under ``key`` for ``obj`` (a profile, or a
@@ -333,6 +337,18 @@ class MSVScanner(BatchScans):
         while len(self._profile_cache) > self._CACHE_MAX:
             self._profile_cache.popitem(last=False)
         return payload
+
+    def _cached(self, key, obj, build):
+        """The payload cached under ``key`` for ``obj`` (:meth:`_cache_get`),
+        else ``build()``'s, timed as a ``pack`` span and cached."""
+        self.pack_lookups += 1
+        hit = self._cache_get(key, obj)
+        if hit is not None:
+            return hit
+        self.pack_builds += 1
+        with span("pack"):
+            payload = build()
+        return self._cache_put(key, obj, payload)
 
     # -- staging ---------------------------------------------------------
     def stage(self, tokens: np.ndarray, lengths: np.ndarray) -> StagedDatabase:
@@ -379,24 +395,14 @@ class MSVScanner(BatchScans):
 
     # -- profile upload (cached) ----------------------------------------
     def _device_profile(self, profile: MSVProfile):
-        key = id(profile)
-        hit = self._cache_get(key, profile)
-        if hit is not None:
-            return hit
         m_pad = msv_cuda.round_up(profile.num_states, self.m_bucket)
-        return self._cache_put(
-            key, profile, msv_cuda.pack_profile(profile, m_pad, self.device)
-        )
+        return self._cached(id(profile), profile,
+                            lambda: msv_cuda.pack_profile(profile, m_pad, self.device))
 
     def _device_profile_filter(self, profile: MSVProfile):
-        key = (id(profile), "filter")
-        hit = self._cache_get(key, profile)
-        if hit is not None:
-            return hit
         m_pad = msv_cuda.round_up(profile.num_states, self.m_bucket)
-        return self._cache_put(
-            key, profile, msv_cuda.pack_profile_filter(profile, m_pad, self.device)
-        )
+        return self._cached((id(profile), "filter"), profile,
+                            lambda: msv_cuda.pack_profile_filter(profile, m_pad, self.device))
 
     # -- scan ------------------------------------------------------------
     def scan(self, profile: MSVProfile, staged: StagedDatabase) -> torch.Tensor:
@@ -428,13 +434,11 @@ class MSVScanner(BatchScans):
         """The stacked ``(emit [P, 20, M_pad], tr_consts [P, 3])`` of a group
         of profiles, cached and pinned on the group (the profiles' ids in
         order, each profile object held)."""
-        key = ("stacked", mode, tuple(id(p) for p in group))
-        hit = self._cache_get(key, group)
-        if hit is not None:
-            return hit
         m_pad = msv_cuda.round_up(max(p.num_states for p in group), self.m_bucket)
-        pack = msv_cuda.pack_stacked(group, m_pad, self.device, filter_mode=mode == "filter")
-        return self._cache_put(key, group, pack)
+        return self._cached(
+            ("stacked", mode, tuple(id(p) for p in group)), group,
+            lambda: msv_cuda.pack_stacked(group, m_pad, self.device, filter_mode=mode == "filter"),
+        )
 
     def _many(self, profiles: list[MSVProfile], staged, mode: str) -> list:
         """:meth:`scan_many`'s stacked launches: ``[(group, scores [P, B]
@@ -467,24 +471,16 @@ class MSVScanner(BatchScans):
         stage)`` and pinned like the MSV packs): Forward's probability pack,
         or for Viterbi the lazy kernel's when ``e_skip_d_ok(p7)`` holds and
         the eager kernel's otherwise."""
-        key = (id(p7), "p7", stage)
-        hit = self._cache_get(key, p7)
-        if hit is not None:
-            return hit
-        if stage == "forward":
-            pack = p7_cuda.forward_pack(p7, self.device)
-        else:
-            pack = p7_cuda.viterbi_pack(p7, self.device, lazy=p7_cuda.e_skip_d_ok(p7))
-        return self._cache_put(key, p7, pack)
+        def build():
+            if stage == "forward":
+                return p7_cuda.forward_pack(p7, self.device)
+            return p7_cuda.viterbi_pack(p7, self.device, lazy=p7_cuda.e_skip_d_ok(p7))
+
+        return self._cached((id(p7), "p7", stage), p7, build)
 
     def _p7_filter_pack(self, p7: P7Profile, window_log2: int | None) -> p7_cuda.P7FilterPack:
-        key = (id(p7), "p7_filter", window_log2)
-        hit = self._cache_get(key, p7)
-        if hit is not None:
-            return hit
-        return self._cache_put(
-            key, p7, p7_cuda.filter_pack(p7, self.device, window_log2=window_log2)
-        )
+        return self._cached((id(p7), "p7_filter", window_log2), p7,
+                            lambda: p7_cuda.filter_pack(p7, self.device, window_log2=window_log2))
 
     def scan_p7_filter(
         self, p7: P7Profile, staged: StagedDatabase, window_log2: int | None = None
@@ -851,13 +847,29 @@ class SearchResult:
         return np.flatnonzero(self.passed_forward)
 
 
+# the spans of a search, each a key of SearchPipeline.phase_seconds and
+# phase_totals: the three stages, the host's P-values and pass decisions,
+# the survivors' restaging and the pack builds on a cache miss
+SEARCH_SPANS = ("msv", "viterbi", "forward", "pvalues", "restage", "pack")
+
+
 class SearchPipeline:
     """hmmsearch-style cascade: MSV -> Viterbi -> Forward, with HMMER3's
     stage thresholds; each stage rescores only the previous stage's
-    survivors, restaged compactly. ``phase_seconds`` holds the last search's
-    host-clock seconds of each stage (each ends by copying its scores to the
-    host, so the device work is inside; a prefilter counts into its
-    stage).
+    survivors, restaged compactly.
+
+    A search is a :func:`~.runtime.profiling.scope` of the port's spans
+    (and, while a trace records, a range ``search#<n>`` around them).
+    ``phase_seconds`` holds the last search's host-clock seconds of each of
+    ``SEARCH_SPANS``, ``phase_totals`` their sums over every search of this
+    pipeline (``timer.seconds``; ``timer.calls`` counts the spans); both
+    hold every key from the start and are updated in place. The stages
+    ``msv``, ``viterbi`` and ``forward`` each end by copying their scores
+    to the host, so the device work is inside; a prefilter counts into its
+    stage, a survivor restaging (``restage``) into the stage it feeds.
+    ``pvalues`` is every P-value and pass decision; in the plain cascade
+    it lies between the stages. ``pack`` is a profile pack or derived
+    profile built on a cache miss, inside whatever asked for it.
 
     ``fast_msv`` runs the upper-bound MSV filter over the whole database
     and rescores only its candidates exactly; ``fast_viterbi`` does the same
@@ -878,7 +890,7 @@ class SearchPipeline:
     :func:`fused_caps` allows runs the staged cascade, as does a scanner
     sharded over a mesh; both are logged. ``fused_runs`` counts the
     searches the fused cascade answered; ``phase_seconds`` puts such a
-    search under ``msv``."""
+    search under ``msv``, its host decisions under ``pvalues`` inside it."""
 
     def __init__(
         self,
@@ -898,9 +910,9 @@ class SearchPipeline:
         self.fast_viterbi = fast_viterbi
         self.fused = fused
         self.fused_runs = 0
-        self.phase_seconds = {"msv": 0.0, "viterbi": 0.0, "forward": 0.0}
-        # the same, summed over every search of this pipeline
-        self.phase_totals = dict(self.phase_seconds)
+        self.timer = SectionTimer(SEARCH_SPANS)
+        self.phase_totals = self.timer.seconds
+        self.phase_seconds = dict.fromkeys(SEARCH_SPANS, 0.0)
         # derived MSVProfile/P7Profile per hmm object, pinned and LRU-bounded
         # like MSVScanner._profile_cache: repeated searches with one hmm must
         # hand the scanner the same derived objects, or its id-keyed pack
@@ -909,13 +921,24 @@ class SearchPipeline:
 
     _DERIVED_MAX = 32
 
+    @contextlib.contextmanager
+    def _search_scope(self):
+        """One search: its spans into ``timer`` and into ``phase_seconds``."""
+        last = SectionTimer(SEARCH_SPANS)
+        try:
+            with scope(self.timer, "search"), scope(last):
+                yield
+        finally:
+            self.phase_seconds.update(last.seconds)
+
     def _derived(self, hmm):
         hit = self._derived_cache.get(id(hmm))
         if hit is not None and hit[0] is hmm:
             self._derived_cache.move_to_end(id(hmm))
             return hit[1], hit[2]
-        msvp = MSVProfile.from_profile(hmm)
-        p7 = P7Profile.from_profile(hmm)
+        with span("pack"):
+            msvp = MSVProfile.from_profile(hmm)
+            p7 = P7Profile.from_profile(hmm)
         self._derived_cache[id(hmm)] = (hmm, msvp, p7)
         while len(self._derived_cache) > self._DERIVED_MAX:
             self._derived_cache.popitem(last=False)
@@ -924,21 +947,20 @@ class SearchPipeline:
     def search(self, hmm, staged: StagedDatabase, tokens: np.ndarray, lengths: np.ndarray) -> SearchResult:
         """Run the cascade. ``hmm`` is a ProfileHMM; ``tokens``/``lengths``
         are the host arrays the survivor subsets are restaged from."""
-        if self.fused:
-            result = self._search_fused(hmm, staged)
-            if result is not None:
-                return result
-        msv_profile, p7 = self._derived(hmm)
-        t0 = time.perf_counter()
-        with phase("msv"):
-            if self.fast_msv:
-                # a copy: the candidates' exact scores are written into it
-                msv_scores = self.scanner.scan_filter(msv_profile, staged).cpu().numpy().copy()
-                self._rescore_candidates(hmm, msv_profile, msv_scores, tokens, lengths)
-            else:
-                msv_scores = self.scanner.scan(msv_profile, staged).cpu().numpy()
-        self.phase_seconds = {"msv": time.perf_counter() - t0, "viterbi": 0.0, "forward": 0.0}
-        return self._finish_cascade(hmm, p7, msv_scores, tokens, lengths)
+        with self._search_scope():
+            if self.fused:
+                result = self._search_fused(hmm, staged)
+                if result is not None:
+                    return result
+            msv_profile, p7 = self._derived(hmm)
+            with span("msv"):
+                if self.fast_msv:
+                    # a copy: the candidates' exact scores are written into it
+                    msv_scores = self.scanner.scan_filter(msv_profile, staged).cpu().numpy().copy()
+                    self._rescore_candidates(hmm, msv_profile, msv_scores, tokens, lengths)
+                else:
+                    msv_scores = self.scanner.scan(msv_profile, staged).cpu().numpy()
+            return self._finish_cascade(hmm, p7, msv_scores, tokens, lengths)
 
     def search_bucketed(
         self, hmm, bucketed: BucketedDatabase, tokens: np.ndarray, lengths: np.ndarray
@@ -947,16 +969,15 @@ class SearchPipeline:
         (:meth:`MSVScanner.stage_bucketed`): the MSV stage (with
         ``fast_msv`` its filter) runs a bucket at a time, the later stages
         restage survivors as :meth:`search` does."""
-        msv_profile, p7 = self._derived(hmm)
-        t0 = time.perf_counter()
-        with phase("msv"):
-            msv_scores = self.scanner.scan_bucketed(
-                msv_profile, bucketed, mode="filter" if self.fast_msv else "exact"
-            )
-            if self.fast_msv:
-                self._rescore_candidates(hmm, msv_profile, msv_scores, tokens, lengths)
-        self.phase_seconds = {"msv": time.perf_counter() - t0, "viterbi": 0.0, "forward": 0.0}
-        return self._finish_cascade(hmm, p7, msv_scores, tokens, lengths)
+        with self._search_scope():
+            msv_profile, p7 = self._derived(hmm)
+            with span("msv"):
+                msv_scores = self.scanner.scan_bucketed(
+                    msv_profile, bucketed, mode="filter" if self.fast_msv else "exact"
+                )
+                if self.fast_msv:
+                    self._rescore_candidates(hmm, msv_profile, msv_scores, tokens, lengths)
+            return self._finish_cascade(hmm, p7, msv_scores, tokens, lengths)
 
     def _fused_thresholds(self, hmm) -> torch.Tensor:
         """The device f32 ``[msv, viterbi]`` one-ulp-low nat thresholds of
@@ -964,17 +985,17 @@ class SearchPipeline:
         cached on the scanner under a key that holds this pipeline's
         p-value cutoffs, so a pipeline sharing the scanner with other
         cutoffs gets its own."""
-        key = (id(hmm), "fused", self.msv_p, self.viterbi_p)
-        hit = self.scanner._cache_get(key, hmm)
-        if hit is not None:
-            return hit
-        thr = np.array([
-            _conservative_f32(gumbel_score_threshold(
-                self.msv_p, hmm.stats_local_msv_mu, hmm.stats_local_msv_lambda)),
-            _conservative_f32(gumbel_score_threshold(
-                self.viterbi_p, hmm.stats_local_viterbi_mu, hmm.stats_local_viterbi_lambda)),
-        ], dtype=np.float32)
-        return self.scanner._cache_put(key, hmm, torch.from_numpy(thr).to(self.scanner.device))
+        def build():
+            thr = np.array([
+                _conservative_f32(gumbel_score_threshold(
+                    self.msv_p, hmm.stats_local_msv_mu, hmm.stats_local_msv_lambda)),
+                _conservative_f32(gumbel_score_threshold(
+                    self.viterbi_p, hmm.stats_local_viterbi_mu,
+                    hmm.stats_local_viterbi_lambda)),
+            ], dtype=np.float32)
+            return torch.from_numpy(thr).to(self.scanner.device)
+
+        return self.scanner._cached((id(hmm), "fused", self.msv_p, self.viterbi_p), hmm, build)
 
     def _search_fused(self, hmm, staged: StagedDatabase) -> SearchResult | None:
         """The cascade through :func:`fused_cascade` and one read-back; None
@@ -987,48 +1008,45 @@ class SearchPipeline:
         msv_profile, p7 = self._derived(hmm)
         b = staged.num_sequences
         caps = fused_caps(b, self.msv_p)
-        t0 = time.perf_counter()
-        with phase("msv"):
+        with span("msv"):
             got = _read_back(fused_cascade(self.scanner, msv_profile, p7, staged,
                                            self._fused_thresholds(hmm), caps))
-        n1, n2, n3 = int(got["n1"]), int(got["n2"]), int(got["n3"])
-        if n1 > caps[0] or n2 > caps[1] or n3 > caps[2]:
-            logger.info("fused cascade capacity overflow (n1=%d n2=%d n3=%d) — falling back "
-                        "to the staged pipeline", n1, n2, n3)
-            return None
+            n1, n2, n3 = int(got["n1"]), int(got["n2"]), int(got["n3"])
+            if n1 > caps[0] or n2 > caps[1] or n3 > caps[2]:
+                logger.info("fused cascade capacity overflow (n1=%d n2=%d n3=%d) — falling "
+                            "back to the staged pipeline", n1, n2, n3)
+                return None
 
-        # the host's f64 decisions on the returned scores, as the staged
-        # cascade makes them; the device pruned with one-ulp-low
-        # thresholds, a superset. The MSV filter's survivors carry their
-        # exact scores
-        rows1, rows2, rows3 = got["rows1"][:n1], got["rows2"][:n2], got["rows3"][:n3]
-        msv_scores = got["filt"]
-        msv_scores[rows1] = got["exact1"][:n1]
-        msv_pv = stats.msv_pvalue(msv_scores, hmm)
-        passed_msv = msv_pv <= self.msv_p
+            # the host's f64 decisions on the returned scores, as the staged
+            # cascade makes them; the device pruned with one-ulp-low
+            # thresholds, a superset. The MSV filter's survivors carry their
+            # exact scores
+            with span("pvalues"):
+                rows1, rows2, rows3 = got["rows1"][:n1], got["rows2"][:n2], got["rows3"][:n3]
+                msv_scores = got["filt"]
+                msv_scores[rows1] = got["exact1"][:n1]
+                msv_pv = stats.msv_pvalue(msv_scores, hmm)
+                passed_msv = msv_pv <= self.msv_p
 
-        # an MSV survivor records its Viterbi filter score, and one past
-        # the filter its exact Viterbi score
-        vit_scores = np.full(b, np.nan, dtype=np.float32)
-        keep2 = passed_msv[rows2]
-        vit_scores[rows2[keep2]] = got["vfilt"][:n2][keep2]
-        keep3 = passed_msv[rows3]
-        vit_scores[rows3[keep3]] = got["vit"][:n3][keep3]
-        vit_pv = np.full(b, np.nan)
-        has_vit = np.isfinite(vit_scores)
-        vit_pv[has_vit] = stats.viterbi_pvalue(vit_scores[has_vit], hmm)
-        passed_vit = vit_pv <= self.viterbi_p
+                # an MSV survivor records its Viterbi filter score, and one
+                # past the filter its exact Viterbi score
+                vit_scores = np.full(b, np.nan, dtype=np.float32)
+                keep2 = passed_msv[rows2]
+                vit_scores[rows2[keep2]] = got["vfilt"][:n2][keep2]
+                keep3 = passed_msv[rows3]
+                vit_scores[rows3[keep3]] = got["vit"][:n3][keep3]
+                vit_pv = np.full(b, np.nan)
+                has_vit = np.isfinite(vit_scores)
+                vit_pv[has_vit] = stats.viterbi_pvalue(vit_scores[has_vit], hmm)
+                passed_vit = vit_pv <= self.viterbi_p
 
-        fwd_scores = np.full(b, np.nan, dtype=np.float32)
-        keep4 = keep3 & passed_vit[rows3]
-        fwd_scores[rows3[keep4]] = got["fwd"][:n3][keep4]
-        fwd_pv = np.full(b, np.nan)
-        has_fwd = np.isfinite(fwd_scores)
-        fwd_pv[has_fwd] = stats.forward_pvalue(fwd_scores[has_fwd], hmm)
+                fwd_scores = np.full(b, np.nan, dtype=np.float32)
+                keep4 = keep3 & passed_vit[rows3]
+                fwd_scores[rows3[keep4]] = got["fwd"][:n3][keep4]
+                fwd_pv = np.full(b, np.nan)
+                has_fwd = np.isfinite(fwd_scores)
+                fwd_pv[has_fwd] = stats.forward_pvalue(fwd_scores[has_fwd], hmm)
 
-        self.phase_seconds = {"msv": time.perf_counter() - t0, "viterbi": 0.0, "forward": 0.0}
-        for name, sec in self.phase_seconds.items():
-            self.phase_totals[name] += sec
         self.fused_runs += 1
         return SearchResult(
             msv_scores=msv_scores,
@@ -1042,14 +1060,21 @@ class SearchPipeline:
             passed_forward=fwd_pv <= self.forward_p,
         )
 
+    def _restage(self, sel: np.ndarray, tokens: np.ndarray, lengths: np.ndarray):
+        """The rows ``sel`` of the host arrays staged compactly, at their
+        longest row's width: a ``restage`` span."""
+        with span("restage"):
+            l_max = max(int(lengths[sel].max()), 1)
+            return self.scanner.stage(tokens[sel, :l_max], lengths[sel])
+
     def _rescore_candidates(self, hmm, msv_profile: MSVProfile, msv_scores: np.ndarray,
                             tokens: np.ndarray, lengths: np.ndarray) -> None:
         """Overwrite the MSV filter's scores of its candidates (p <=
         ``msv_p``) with their exact scores, restaged compactly."""
-        cand = np.flatnonzero(stats.msv_pvalue(msv_scores, hmm) <= self.msv_p)
+        with span("pvalues"):
+            cand = np.flatnonzero(stats.msv_pvalue(msv_scores, hmm) <= self.msv_p)
         if cand.size:
-            l_max = max(int(lengths[cand].max()), 1)
-            sub = self.scanner.stage(tokens[cand, :l_max], lengths[cand])
+            sub = self._restage(cand, tokens, lengths)
             msv_scores[cand] = self.scanner.scan(msv_profile, sub).cpu().numpy()
 
     def _finish_cascade(
@@ -1058,54 +1083,47 @@ class SearchPipeline:
     ) -> SearchResult:
         """Viterbi and Forward rescoring of the MSV survivors."""
         b = len(msv_scores)
-        msv_pv = stats.msv_pvalue(msv_scores, hmm)
-        passed_msv = msv_pv <= self.msv_p
-
-        vit_scores = np.full(b, np.nan, dtype=np.float32)
-        vit_pv = np.full(b, np.nan)
-        fwd_scores = np.full(b, np.nan, dtype=np.float32)
-        fwd_pv = np.full(b, np.nan)
-        passed_vit = np.zeros(b, dtype=bool)
-        passed_fwd = np.zeros(b, dtype=bool)
-
-        def _stage_subset(sel: np.ndarray) -> StagedDatabase:
-            l_max = max(int(lengths[sel].max()), 1)
-            return self.scanner.stage(tokens[sel, :l_max], lengths[sel])
+        with span("pvalues"):
+            msv_pv = stats.msv_pvalue(msv_scores, hmm)
+            passed_msv = msv_pv <= self.msv_p
+            idx = np.flatnonzero(passed_msv)
+            vit_scores = np.full(b, np.nan, dtype=np.float32)
+            vit_pv = np.full(b, np.nan)
+            fwd_scores = np.full(b, np.nan, dtype=np.float32)
+            fwd_pv = np.full(b, np.nan)
+            passed_vit = np.zeros(b, dtype=bool)
+            passed_fwd = np.zeros(b, dtype=bool)
 
         def _p7_stage(sel: np.ndarray, stage: str) -> np.ndarray:
-            t0 = time.perf_counter()
-            with phase(stage):
-                out = self.scanner.scan_p7(p7, _stage_subset(sel), stage=stage).cpu().numpy()
-            self.phase_seconds[stage] += time.perf_counter() - t0
-            return out
+            with span(stage):
+                sub = self._restage(sel, tokens, lengths)
+                return self.scanner.scan_p7(p7, sub, stage=stage).cpu().numpy()
 
-        idx = np.flatnonzero(passed_msv)
         if idx.size:
             if self.fast_viterbi:
                 # the filter's p-values bound the exact ones from below: a
                 # filter rejection is an exact rejection
-                t0 = time.perf_counter()
-                with phase("viterbi"):
-                    vf = self.scanner.scan_p7_filter(p7, _stage_subset(idx)).cpu().numpy()
-                self.phase_seconds["viterbi"] += time.perf_counter() - t0
-                vit_scores[idx] = vf
-                vit_pv[idx] = stats.viterbi_pvalue(vf, hmm)
-                idx = idx[vit_pv[idx] <= self.viterbi_p]
+                with span("viterbi"):
+                    sub = self._restage(idx, tokens, lengths)
+                    vf = self.scanner.scan_p7_filter(p7, sub).cpu().numpy()
+                with span("pvalues"):
+                    vit_scores[idx] = vf
+                    vit_pv[idx] = stats.viterbi_pvalue(vf, hmm)
+                    idx = idx[vit_pv[idx] <= self.viterbi_p]
             if idx.size:
                 vs = _p7_stage(idx, "viterbi")
-                vit_scores[idx] = vs
-                vit_pv[idx] = stats.viterbi_pvalue(vs, hmm)
-                passed_vit[idx] = vit_pv[idx] <= self.viterbi_p
+                with span("pvalues"):
+                    vit_scores[idx] = vs
+                    vit_pv[idx] = stats.viterbi_pvalue(vs, hmm)
+                    passed_vit[idx] = vit_pv[idx] <= self.viterbi_p
+                    idx2 = np.flatnonzero(passed_vit)
+                if idx2.size:
+                    fs = _p7_stage(idx2, "forward")
+                    with span("pvalues"):
+                        fwd_scores[idx2] = fs
+                        fwd_pv[idx2] = stats.forward_pvalue(fs, hmm)
+                        passed_fwd[idx2] = fwd_pv[idx2] <= self.forward_p
 
-            idx2 = np.flatnonzero(passed_vit)
-            if idx2.size:
-                fs = _p7_stage(idx2, "forward")
-                fwd_scores[idx2] = fs
-                fwd_pv[idx2] = stats.forward_pvalue(fs, hmm)
-                passed_fwd[idx2] = fwd_pv[idx2] <= self.forward_p
-
-        for name, sec in self.phase_seconds.items():
-            self.phase_totals[name] += sec
         return SearchResult(
             msv_scores=msv_scores,
             msv_pvalues=msv_pv,

@@ -33,7 +33,7 @@ from hmm_fasta_viterbi_tpu.pipeline import SearchPipeline as JaxPipeline
 from hmm_fasta_viterbi_tpu_torch import P7Profile, SearchPipeline, convert
 from hmm_fasta_viterbi_tpu_torch import cli as port_cli
 from hmm_fasta_viterbi_tpu_torch.ops import p7_cuda
-from hmm_fasta_viterbi_tpu_torch.pipeline import MSVScanner, select_p7_fns
+from hmm_fasta_viterbi_tpu_torch.pipeline import SEARCH_SPANS, MSVScanner, select_p7_fns
 
 VIT_TOL = 1e-4
 FWD_TOL = 2e-3
@@ -107,8 +107,8 @@ def test_search_stage_phases_and_derived_cache(hmm100, search_fasta):
     second = pipeline.search(hmm, staged, tokens, lengths)
     assert len(sc._profile_cache) == n_cached == 3  # msv, viterbi, forward
     assert np.array_equal(first.passed_forward, second.passed_forward)
-    assert set(pipeline.phase_seconds) == {"msv", "viterbi", "forward"}
-    assert all(v > 0 for v in pipeline.phase_seconds.values())
+    assert set(pipeline.phase_seconds) == set(SEARCH_SPANS)
+    assert all(pipeline.phase_seconds[k] > 0 for k in ("msv", "viterbi", "forward"))
     assert pipeline._derived(hmm)[1] is pipeline._derived(hmm)[1]
     copies = [copy.copy(hmm) for _ in range(pipeline._DERIVED_MAX + 3)]
     for h in copies:
@@ -258,8 +258,8 @@ def test_fast_search_phases_and_caches(hmm100, search_fasta):
     sc = MSVScanner(device="cpu")
     pipeline = SearchPipeline(sc, fast_msv=True, fast_viterbi=True)
     pipeline.search(hmm, sc.stage(tokens, lengths), tokens, lengths)
-    assert set(pipeline.phase_seconds) == {"msv", "viterbi", "forward"}
-    assert all(v > 0 for v in pipeline.phase_seconds.values())
+    assert set(pipeline.phase_seconds) == set(SEARCH_SPANS)
+    assert all(pipeline.phase_seconds[k] > 0 for k in ("msv", "viterbi", "forward"))
     msv_profile, p7 = pipeline._derived(hmm)
     assert sc._cache_get((id(msv_profile), "filter"), msv_profile) is not None
     assert sc._cache_get((id(p7), "p7_filter", None), p7) is not None
