@@ -390,8 +390,13 @@ def _log_seconds(t_start, parse_s, stage_s, phases, report_s, streamed=False) ->
 
 
 def _packs(scanner) -> str:
-    """The scanner's pack cache in a search's log line."""
-    return f"packs built {scanner.pack_builds} of {scanner.pack_lookups} lookups"
+    """The scanner's pack cache, and its MSV launches a bucketed scan, in a
+    search's log line."""
+    line = f"packs built {scanner.pack_builds} of {scanner.pack_lookups} lookups"
+    if scanner.bucketed_scans:
+        line += (f", {scanner.bucketed_launches / scanner.bucketed_scans:g} MSV launches a "
+                 "bucketed scan")
+    return line
 
 
 def _stage_bucketed_logged(scanner, tokens, lengths):

@@ -147,6 +147,22 @@
 //    (ops/msv_cuda.py::device_plan).
 //  * The profile of a block is blockIdx.y: it reads its own table and
 //    constants and writes row y of scores [P, B]. P = 1 is the single scan.
+//  * A row table (ops/msv_cuda.py::RowTable, row_at non-null) lets one launch
+//    score every row of a length-bucketed staging: row r's tokens start
+//    row_at[r] bytes into one token buffer, its length and transitions are
+//    entry r of lengths and tr_rows, and its score goes to column dest[r].
+//    The table lists the rows longest first, and the rows go to the warps in
+//    that order: warp w of unit u (a block, or a cluster) first takes row
+//    w * units + u, so the units' warps 0 take the longest rows, one a unit
+//    and so one an SM. Then a warp of a register case takes the next row no
+//    warp has claimed (an atomic counter a profile, which the wrapper zeroes:
+//    a warp on a long row takes no other row meanwhile), and a cluster's
+//    warps every units * WARPS-th row, an order all its blocks agree on; the
+//    rows-in-memory case's blocks take every gridDim.x-th row. Each row runs
+//    from the row-0 carry with the same step: the kernel stops a row at its
+//    own length, so rows of many lengths in one launch cost no pad steps,
+//    and the long rows' latencies overlap instead of adding up bucket after
+//    bucket.
 //  * Float32 operations run in the order of ops/recurrence.py::msv_step
 //    (B + tr_B_Mk formed once per step, then the max, then the add of the
 //    emission), and the build does not use --use_fast_math, so the kernel
@@ -245,7 +261,21 @@ struct MsvArgs {
   // the case past 38,912 states: each lane's unstaged states, [P][20][C][(PER
   // - STAGED) / 4][32] float4 (ops/msv_cuda.py::lane_rows); else null
   const float4* low;
+  // a row table launch: [b_pad] byte offsets of the rows in tokens, longest
+  // first, and each row's column of scores; else null
+  const long long* row_at;
+  const int* dest;
+  int* next_row;  // [P] the register cases' next unclaimed row of the table, or null
 };
+
+// Where a row's tokens start, and the column of scores its score goes to.
+__device__ __forceinline__ const int8_t* row_tokens(const MsvArgs& a, int seq) {
+  return a.tokens + (a.row_at != nullptr ? a.row_at[seq] : static_cast<long long>(seq) * a.l_pad);
+}
+
+__device__ __forceinline__ int row_dest(const MsvArgs& a, int seq) {
+  return a.row_at != nullptr ? a.dest[seq] : seq;
+}
 
 // Dynamic shared memory of a block of `warps` warps, in bytes: the f32
 // table of 32 * PER states a lane row (LANES = 32: the whole table; 32 * C:
@@ -341,11 +371,13 @@ __device__ __forceinline__ void msv_body(const MsvArgs& a) {
 
   // the block's sequences at a time walk the batch: once for a grid that
   // covers it, a stride at a time for a persistent one; a cluster's blocks
-  // (gridDim.x / C clusters a profile) follow the same sequences
+  // (gridDim.x / C clusters a profile) follow the same sequences. A row
+  // table's rows go longest first, warp 0 of every unit first (see above)
   const int seqs = CLUSTER ? WARPS : blockDim.x / 32;
   const int first = CLUSTER ? static_cast<int>(cluster_id()) : static_cast<int>(blockIdx.x);
   const int units = CLUSTER ? static_cast<int>(cluster_count()) : static_cast<int>(gridDim.x);
-  for (int seq = first * seqs + warp; seq < b_pad; seq += units * seqs) {
+  int seq = a.row_at != nullptr ? warp * units + first : first * seqs + warp;
+  while (seq < b_pad) {
     const float tr_loop = a.tr_rows[seq];
     const float tr_move = a.tr_rows[b_pad + seq];
     float m[PER];
@@ -374,7 +406,7 @@ __device__ __forceinline__ void msv_body(const MsvArgs& a) {
     }
 
     const int n = min(max(a.lengths[seq], 0), a.l_pad);
-    const int8_t* tok_row = a.tokens + static_cast<size_t>(seq) * a.l_pad;
+    const int8_t* tok_row = row_tokens(a, seq);
 
     for (int t0 = 0; t0 < n; t0 += 32) {
       // clamped once, as a row offset: a token outside 0..19 is clamped like
@@ -468,8 +500,17 @@ __device__ __forceinline__ void msv_body(const MsvArgs& a) {
         a.s_out[2 * b_pad + seq] = st_n;
         a.s_out[3 * b_pad + seq] = st_b;
       }
-      a.scores[static_cast<size_t>(prof) * b_pad + seq] = st_c + tr_move;
+      a.scores[static_cast<size_t>(prof) * b_pad + row_dest(a, seq)] = st_c + tr_move;
     }
+    if constexpr (!CLUSTER) {
+      if (a.next_row != nullptr) {
+        int claimed = 0;
+        if (lane == 0) claimed = atomicAdd(a.next_row + prof, 1);
+        seq = units * seqs + __shfl_sync(kFullMask, claimed, 0);
+        continue;
+      }
+    }
+    seq += units * seqs;
   }
   // no block leaves while another of its cluster may still reach its shared
   // memory
@@ -517,7 +558,7 @@ __global__ void __launch_bounds__(kMemLanes) msv_mem_kernel(const MsvArgs a, flo
       st_b = a.s_in[3 * b_pad + seq];
     }
     const int n = min(max(a.lengths[seq], 0), a.l_pad);
-    const int8_t* tok_row = a.tokens + static_cast<size_t>(seq) * a.l_pad;
+    const int8_t* tok_row = row_tokens(a, seq);
     int par = 0;
     __syncthreads();
     for (int pos = 0; pos < n; ++pos) {
@@ -555,7 +596,7 @@ __global__ void __launch_bounds__(kMemLanes) msv_mem_kernel(const MsvArgs a, flo
         a.s_out[2 * b_pad + seq] = st_n;
         a.s_out[3 * b_pad + seq] = st_b;
       }
-      a.scores[static_cast<size_t>(prof) * b_pad + seq] = st_c + tr_move;
+      a.scores[static_cast<size_t>(prof) * b_pad + row_dest(a, seq)] = st_c + tr_move;
     }
     __syncthreads();  // the next sequence's row goes into these
   }
@@ -697,22 +738,32 @@ cudaError_t prepare(KernelFn fn, size_t smem, int c) {
 // filter's bf16 table (16-bit entries) over f32; `num_p` profiles are
 // stacked in emit [num_p, 20, m_pad] and tr_consts [num_p, 3], and scores is
 // [num_p, b_pad]. A null m_in starts from the row-0 carry (s_in is then not
-// read); a null m_out or s_out skips that carry's store. Returns a
-// cudaError_t.
+// read); a null m_out or s_out skips that carry's store. A non-null row_at
+// makes it a row table launch (see the head of this file): `tokens` is the
+// buffer the b_pad offsets of row_at point into, lengths and tr_rows are in
+// the table's order, each row's score goes to column dest[r], `l_pad` is at
+// least every length, and no carry goes in or out; `next_row` ([num_p]
+// zeroed ints) is the register cases' counter of claimed rows, null
+// otherwise. Returns a cudaError_t.
 extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf16, int num_p,
                                const void* emit, int m_pad,
                                const void* tokens, int l_pad,
                                const void* lengths, const void* tr_rows,
                                const void* tr_consts, const void* m_in,
                                const void* s_in, void* scores, void* m_out,
-                               void* s_out, int b_pad, int grid, void* scratch, void* stream) {
+                               void* s_out, int b_pad, int grid, void* scratch,
+                               const void* row_at, const void* dest, void* next_row,
+                               void* stream) {
   const bool mem = lanes == kMemLanes;
   const bool wide = wide_case(lanes, per);
   const int c = cluster_of(lanes);
   const KernelFn fn = mem ? nullptr : find_kernel(lanes, per, warps, bf16);
+  const bool table = row_at != nullptr;
   if ((!mem && fn == nullptr) || ((mem || wide) && scratch == nullptr) || grid < 1 || m_pad < 1 ||
       static_cast<long>(lanes) * per < m_pad || (c != 0 && (m_pad % 8 != 0 || grid % c != 0)) ||
-      num_p < 1 || num_p > 65535) {
+      num_p < 1 || num_p > 65535 ||
+      (table && (dest == nullptr || m_in != nullptr || m_out != nullptr || s_out != nullptr)) ||
+      (next_row != nullptr && (!table || lanes != 32))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -732,6 +783,9 @@ extern "C" int msv_scan_launch(int device, int lanes, int per, int warps, int bf
   a.s_out = static_cast<float*>(s_out);
   a.b_pad = b_pad;
   a.low = wide ? static_cast<const float4*>(scratch) : nullptr;
+  a.row_at = static_cast<const long long*>(row_at);
+  a.dest = static_cast<const int*>(dest);
+  a.next_row = static_cast<int*>(next_row);
   auto* st = static_cast<cudaStream_t>(stream);
   if (mem) {
     auto* rows = static_cast<float*>(scratch);

@@ -10,7 +10,10 @@ TPU kernel) and of ``ops/xla_scan.py`` with the recurrence of
   round-up of the table (:func:`prepare_scores_t_filter`), every score an
   upper bound on the exact one;
 * :func:`msv_stacked_scan`: P profiles of one padded width in one launch,
-  f32 (exact) or bf16 (filter) tables, scores only.
+  f32 (exact) or bf16 (filter) tables, scores only;
+* :func:`msv_table_scan`: one profile over a :class:`RowTable`, rows of
+  many lengths and stagings in one launch, longest first, each score put
+  at its row's original index (f32 or bf16 table), scores only.
 
 The TPU layout is not carried over; the contract is the scores and the DP
 carry:
@@ -34,6 +37,12 @@ pad columns; its carries are the exact scan's. The stacked scan takes
 ``emit [P, 20, M_pad]`` and ``tr_consts [P, 3]`` and returns ``scores [P,
 B_pad]`` from the row-0 carry.
 
+The row table's ``tokens`` is one int8 buffer ``[N]`` that every row's
+residues lie in (from byte ``row_at[r]`` on, PAD_TOKEN past its length);
+``lengths`` int32 ``[B]`` and ``tr_rows`` f32 ``[2, B]`` are in the table's
+order, longest first, and ``dest`` int32 ``[B]`` is each row's index in the
+scores, a permutation of ``0..B-1``.
+
 Each scan runs its plain version on CPU tensors and its kernel on CUDA
 tensors; it never falls back from one to the other.
 """
@@ -42,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import logging
 from typing import NamedTuple
 
@@ -232,6 +242,58 @@ def pack_stacked(profiles, m_pad: int, device, filter_mode: bool):
     return emit, consts
 
 
+class RowTable(NamedTuple):
+    """The rows of many stagings as one table for :func:`msv_table_scan`,
+    longest first (see the module's head)."""
+
+    tokens: torch.Tensor  # [N] int8: every row's residues
+    row_at: torch.Tensor  # [B] int64: where row r's residues start in tokens
+    lengths: torch.Tensor  # [B] int32, non-increasing
+    tr_rows: torch.Tensor  # [2, B] f32 (tr_loop; tr_move) of each row
+    dest: torch.Tensor  # [B] int32: row r's index in the scores
+    width: int  # at least every length
+
+
+def table_walk(lengths, lanes: int, plan: MsvPlan) -> list[list[int]]:
+    """The rows of a row table each warp of a :func:`msv_table_scan` launch
+    follows, as ``csrc/msv_kernel.cu`` hands them out, given the table's
+    ``lengths`` (longest first) and the launch's kernel case ``lanes`` and
+    ``plan``: a list a warp, unit-major (unit u's warp w at ``u * warps +
+    w``; a unit is a block, or a cluster of ``plan.cluster`` blocks).
+
+    Warp w of unit u first takes row ``w * units + u``: the units' warps 0
+    take the longest ``units`` rows. Then a register case (32 lanes) hands
+    each warp, as it finishes a row, the next row no warp has claimed: here
+    the warp that would finish first by its rows' summed lengths (the lower
+    index on a tie), a model of the card's order, which only moves rows
+    between warps. A cluster case's warps take every ``units * warps``-th
+    row, and the rows-in-memory case's blocks (one warp-list a block) every
+    ``grid``-th."""
+    lengths = [int(n) for n in lengths]
+    if lanes == MEM_LANES:
+        return [list(range(u, len(lengths), plan.grid)) for u in range(plan.grid)]
+    units = plan.grid // plan.cluster
+    warps = plan.warps
+    rows = [[] for _ in range(units * warps)]
+    for u in range(units):
+        for w in range(warps):
+            first = w * units + u
+            if first < len(lengths):
+                rows[u * warps + w].append(first)
+    if lanes != 32:
+        for k, held in enumerate(rows):
+            if held:
+                held.extend(range(held[0] + units * warps, len(lengths), units * warps))
+        return rows
+    busy = [(lengths[held[0]], k) for k, held in enumerate(rows) if held]
+    heapq.heapify(busy)
+    for r in range(units * warps, len(lengths)):
+        done, k = heapq.heappop(busy)
+        rows[k].append(r)
+        heapq.heappush(busy, (done + lengths[r], k))
+    return rows
+
+
 def init_carry(tr_rows: torch.Tensor, m_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Row-0 carry (MSV_HMM.cpp:96-97): M = J = C = -inf, N = 0, B = tr_move."""
     b_pad = tr_rows.shape[1]
@@ -287,6 +349,41 @@ def msv_filter_scan_plain(emit, tokens, lengths, tr_rows, tr_consts, m, s):
     return msv_scan_plain(emit.float(), tokens, lengths, tr_rows, tr_consts, m, s)
 
 
+def _table_chunks(lengths: np.ndarray):
+    """``(start, end)`` runs of a row table's rows that the plain version
+    scans at one width: with ``lengths`` non-increasing, as a table lists
+    them, a run ends before the first row shorter than 3/4 of its first,
+    so it pads few steps (any order still gives runs that cover every
+    row once)."""
+    start, b = 0, len(lengths)
+    neg = -lengths.astype(np.int64)
+    while start < b:
+        end = int(np.searchsorted(neg, -((3 * int(lengths[start]) - 1) // 4), side="left"))
+        yield start, max(end, start + 1)
+        start = max(end, start + 1)
+
+
+def msv_table_scan_plain(emit, table: RowTable, tr_consts):
+    """The row table scan in plain PyTorch; same arguments and results as
+    :func:`msv_table_scan`: runs of rows of like length, each gathered from
+    the token buffer and scanned from the row-0 carry by
+    :func:`msv_scan_plain` (a bf16 table widened, exact), each score put at
+    its row's index."""
+    b = table.lengths.shape[0]
+    out = torch.empty(b, dtype=torch.float32, device=table.tokens.device)
+    lengths = table.lengths.cpu().numpy()
+    for start, end in _table_chunks(lengths):
+        n = table.lengths[start:end]
+        pos = torch.arange(max(int(lengths[start:end].max()), 1), device=table.tokens.device)
+        at = (table.row_at[start:end, None] + pos).clamp(max=max(table.tokens.shape[0] - 1, 0))
+        tokens = table.tokens[at].masked_fill(pos >= n[:, None], PAD_TOKEN)
+        tr_rows = table.tr_rows[:, start:end].contiguous()
+        m, s = init_carry(tr_rows, emit.shape[1])
+        scores, _, _ = msv_scan_plain(emit.float(), tokens, n, tr_rows, tr_consts, m, s)
+        out[table.dest[start:end].long()] = scores
+    return out
+
+
 def msv_stacked_scan_plain(emit, tokens, lengths, tr_rows, tr_consts):
     """The stacked scan in plain PyTorch, one profile after the other from
     the row-0 carry; same arguments and results as :func:`msv_stacked_scan`."""
@@ -305,7 +402,7 @@ def _kernel_library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.msv_scan_launch.argtypes = [
-        i, i, i, i, i, i, p, i, p, i, p, p, p, p, p, p, p, p, i, i, p, p,
+        i, i, i, i, i, i, p, i, p, i, p, p, p, p, p, p, p, p, i, i, p, p, p, p, p,
     ]
     lib.msv_scan_launch.restype = i
     lib.msv_kernel_attrs.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
@@ -592,20 +689,26 @@ def zero_launches(wrapper) -> None:
     wrapper.block_cluster_launches = {}
 
 
-def _launch(wrapper, what, emit, tokens, lengths, tr_rows, tr_consts, carry, warps=None):
+def _launch(wrapper, what, emit, tokens, lengths, tr_rows, tr_consts, carry, warps=None,
+            table: RowTable | None = None):
     """Check the operands and launch the kernel on the current stream.
     ``emit`` is ``[P, 20, M_pad]`` f32 or bf16 and ``tr_consts`` ``[P, 3]``;
     ``carry`` is ``(m, s)`` (P = 1: the carries come back) or None (the
     row-0 carry, scores only); ``warps`` forces the register case's block
-    size (:func:`launch_plan`). Counts the launch on ``wrapper`` (by its
-    case: the pair's as wide, a cluster's by C, the case past 38,912 states'
-    as a cluster of wider blocks, the rows-in-memory case's as mem).
-    Returns ``(scores [P, B_pad], m_out, s_out)``."""
+    size (:func:`launch_plan`); ``table`` makes it a row table launch
+    (``tokens``, ``lengths`` and ``tr_rows`` are the table's, ``carry``
+    None). Counts the launch on ``wrapper`` (by its case: the pair's as
+    wide, a cluster's by C, the case past 38,912 states' as a cluster of
+    wider blocks, the rows-in-memory case's as mem). Returns ``(scores [P,
+    B_pad], m_out, s_out)``."""
     device = tokens.device
     if device.type != "cuda":
         raise ValueError(f"{what} needs CUDA tensors, got {device}")
     num_p, _, m_pad = emit.shape
-    b_pad, l_pad = tokens.shape
+    if table is None:
+        b_pad, l_pad = tokens.shape
+    else:
+        b_pad, l_pad = lengths.shape[0], max(table.width, 1)
     lanes, per = kernel_case(m_pad)
     if cluster_blocks(lanes) > 1 and m_pad % 8:
         raise ValueError(f"M_pad = {m_pad} is not a multiple of 8")
@@ -614,7 +717,12 @@ def _launch(wrapper, what, emit, tokens, lengths, tr_rows, tr_consts, carry, war
     if num_p < 1:
         raise ValueError("no profile to scan")
     _check("emit", emit, emit.dtype, (num_p, NUM_AA, m_pad), device)
-    _check("tokens", tokens, torch.int8, (b_pad, l_pad), device)
+    if table is None:
+        _check("tokens", tokens, torch.int8, (b_pad, l_pad), device)
+    else:
+        _check("tokens", tokens, torch.int8, tokens.shape[:1], device)
+        _check("row_at", table.row_at, torch.int64, (b_pad,), device)
+        _check("dest", table.dest, torch.int32, (b_pad,), device)
     _check("lengths", lengths, torch.int32, (b_pad,), device)
     _check("tr_rows", tr_rows, torch.float32, (2, b_pad), device)
     _check("tr_consts", tr_consts, torch.float32, (num_p, 3), device)
@@ -636,6 +744,9 @@ def _launch(wrapper, what, emit, tokens, lengths, tr_rows, tr_consts, carry, war
         scratch = torch.empty((num_p, plan.grid, 2, m_pad), dtype=torch.float32, device=device)
     elif wide:
         scratch = lane_rows(emit, per)
+    # the register cases' counter of the table's claimed rows, a profile
+    next_row = (torch.zeros(num_p, dtype=torch.int32, device=device)
+                if table is not None and lanes == 32 else None)
     lib = _kernel_library()
 
     def ptr(t):
@@ -646,6 +757,8 @@ def _launch(wrapper, what, emit, tokens, lengths, tr_rows, tr_consts, carry, war
         emit.data_ptr(), m_pad, tokens.data_ptr(), l_pad, lengths.data_ptr(),
         tr_rows.data_ptr(), tr_consts.data_ptr(), ptr(m_in), ptr(s_in),
         scores.data_ptr(), ptr(m_out), ptr(s_out), b_pad, plan.grid, ptr(scratch),
+        None if table is None else table.row_at.data_ptr(),
+        None if table is None else table.dest.data_ptr(), ptr(next_row),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
@@ -689,10 +802,20 @@ def msv_stacked_scan_cuda(emit, tokens, lengths, tr_rows, tr_consts, warps=None)
     return scores
 
 
+def msv_table_scan_cuda(emit, table: RowTable, tr_consts):
+    """Launch ``csrc/msv_kernel.cu`` over a row table (f32 or the filter's
+    bf16 ``emit [20, M_pad]``); same arguments and results as
+    :func:`msv_table_scan`."""
+    scores, _, _ = _launch(msv_table_scan_cuda, "MSV row table", emit.unsqueeze(0),
+                           table.tokens, table.lengths, table.tr_rows, tr_consts.unsqueeze(0),
+                           None, table=table)
+    return scores[0]
+
+
 # kernel launches in this process, those of them on the cluster pair, those
 # of the rows-in-memory case, and those in C-block clusters by C (past 38,912
 # states in block_cluster_launches)
-for _fn in (msv_scan_cuda, msv_filter_scan_cuda, msv_stacked_scan_cuda):
+for _fn in (msv_scan_cuda, msv_filter_scan_cuda, msv_stacked_scan_cuda, msv_table_scan_cuda):
     zero_launches(_fn)
 
 
@@ -724,3 +847,15 @@ def msv_stacked_scan(emit, tokens, lengths, tr_rows, tr_consts):
     (:func:`msv_stacked_scan_cuda`) or raises."""
     fn = msv_stacked_scan_plain if tokens.device.type == "cpu" else msv_stacked_scan_cuda
     return fn(emit, tokens, lengths, tr_rows, tr_consts)
+
+
+def msv_table_scan(emit, table: RowTable, tr_consts):
+    """Score every row of a :class:`RowTable` against one profile from the
+    row-0 carry in one launch: ``emit [20, M_pad]`` (f32: exact; bf16: the
+    filter), ``tr_consts [3]`` -> ``scores [B]``, row r's score at
+    ``table.dest[r]``, each equal to :func:`msv_scan`'s (or
+    :func:`msv_filter_scan`'s) of that row bit for bit. CPU tensors run
+    :func:`msv_table_scan_plain`; any other device the kernel
+    (:func:`msv_table_scan_cuda`) or raises."""
+    fn = msv_table_scan_plain if table.tokens.device.type == "cpu" else msv_table_scan_cuda
+    return fn(emit, table, tr_consts)

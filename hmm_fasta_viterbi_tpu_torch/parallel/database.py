@@ -95,6 +95,10 @@ class ShardedScanner(BatchScans):
         self.device = mesh.first_device
         devices = dict.fromkeys(mesh.device(d) for d in mesh.local_shards())
         self.scanners = {x: MSVScanner(device=x, m_bucket=m_bucket) for x in devices}
+        # a sharded staging has no row table: scan_bucketed scans a bucket
+        # at a time
+        self.bucketed_scans = 0
+        self.bucketed_launches = 0
 
     def scanner(self, d: int) -> MSVScanner:
         """The scanner of db shard ``d``'s device."""

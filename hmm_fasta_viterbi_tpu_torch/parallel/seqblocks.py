@@ -290,8 +290,9 @@ class SeqblockScanner:
     after the other."""
 
     mesh = None  # the scanner's own db sharding; the wavefront's is sp_mesh
-    # no pack cache: the search log's pack counters stay at 0
-    pack_lookups = pack_builds = 0
+    # no pack cache and no bucketed staging (refused): the search log's
+    # counters stay at 0
+    pack_lookups = pack_builds = bucketed_scans = bucketed_launches = 0
 
     def __init__(self, sp_mesh: ScanMesh):
         self.sp_mesh = sp_mesh

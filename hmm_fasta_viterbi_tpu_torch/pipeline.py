@@ -38,8 +38,10 @@ from the device:
 * ``stage_bucketed`` rounds each bucket's length cap to ``L_CHUNK`` (the
   JAX package's default ``l_chunk``), so its bucket partition is the JAX
   package's; a bucket is staged at its longest sequence, not rounded. The
-  kernels stop at each sequence's length, so on the card buckets save
-  staged bytes and change the load balance, not DP cells;
+  kernels stop at each sequence's length, so buckets save staged bytes,
+  not DP cells: ``scan_bucketed`` scores every bucket in one MSV launch
+  over a row table of them all, longest rows first (``msv_cuda.
+  RowTable``), where the JAX package scans a bucket at a time;
 * a batch staged by ``SideStreamStager`` (the streamed producer's
   ``stage_fn`` on a CUDA device) was uploaded on a side stream from a
   pinned ring; every scan entry makes the caller's current stream wait on
@@ -137,9 +139,12 @@ class BucketedDatabase:
     """A ragged database staged as length-sorted buckets.
 
     Sequences are sorted by length and grouped so that no bucket pads a
-    sequence by more than ``waste_factor`` of its rounded length; each
-    bucket is staged on its own, scans run per bucket and scores scatter
-    back to the original order."""
+    sequence by more than ``waste_factor`` of its rounded length. A
+    single-device scanner stages every bucket as a view of one token
+    buffer and lists all their rows, longest first, in ``table``, which
+    :meth:`BatchScans.scan_bucketed` scans in one launch; a sharded
+    staging (``table`` None) and the stacked sweeps scan a bucket at a
+    time and scatter the scores back to the original order."""
 
     buckets: list  # StagedDatabase, or ShardedDatabase on a mesh
     order: list[np.ndarray]  # original indices per bucket
@@ -147,6 +152,7 @@ class BucketedDatabase:
     # on the scanner's device: the position of each original row in the
     # buckets' scores, concatenated
     inverse: torch.Tensor
+    table: msv_cuda.RowTable | None = None
 
     @property
     def padded_cells_saved(self) -> float:
@@ -164,6 +170,11 @@ class BucketedDatabase:
         return torch.cat(scores, dim=-1)[..., self.inverse]
 
 
+def _width(lengths: np.ndarray, idx: np.ndarray) -> int:
+    """The staged width of the rows ``idx``: their longest row, at least 1."""
+    return max(int(lengths[idx].max()), 1)
+
+
 class BatchScans:
     """What a scanner builds on its own ``stage``, ``scan``, ``scan_filter``
     and ``_many`` (the stacked launches of a sweep): the FASTA staging, the
@@ -171,6 +182,9 @@ class BatchScans:
     by :class:`MSVScanner` and ``parallel.database.ShardedScanner``."""
 
     device: torch.device
+    # scan_bucketed's calls, and the MSV launches they made
+    bucketed_scans: int
+    bucketed_launches: int
 
     def stage_fasta(self, db: FastaDatabase):
         tokens, lengths = db.encode()
@@ -192,7 +206,6 @@ class BatchScans:
         b = tokens.shape[0]
         order = np.argsort(lengths, kind="stable")
 
-        buckets: list[StagedDatabase] = []
         bucket_order: list[np.ndarray] = []
         start = 0
         while start < b:
@@ -201,26 +214,38 @@ class BatchScans:
             end = start
             while end < b and lengths[order[end]] <= cap:
                 end += 1
-            idx = order[start:end]
-            l_max = max(int(lengths[idx].max()), 1)
-            buckets.append(self.stage(tokens[idx, :l_max], lengths[idx]))
-            bucket_order.append(idx)
+            bucket_order.append(order[start:end])
             start = end
+        buckets, table = self._stage_buckets(tokens, lengths, bucket_order)
         inverse = np.empty(b, dtype=np.int64)
         inverse[order] = np.arange(b)  # the buckets hold the rows in `order`
         return BucketedDatabase(buckets=buckets, order=bucket_order, num_sequences=b,
-                                inverse=torch.from_numpy(inverse).to(self.device))
+                                inverse=torch.from_numpy(inverse).to(self.device), table=table)
+
+    def _stage_buckets(self, tokens: np.ndarray, lengths: np.ndarray, parts: list):
+        """``(buckets, table)``: each bucket's rows staged on their own at
+        their longest row's width; no row table (a sharded staging scans a
+        bucket at a time)."""
+        return [self.stage(tokens[idx, :_width(lengths, idx)], lengths[idx]) for idx in parts], None
 
     def scan_bucketed(
         self, profile: MSVProfile, bucketed: BucketedDatabase, mode: str = "exact"
     ) -> np.ndarray:
         """Score every sequence of a bucketed database -> f32 [B] host
-        array in the original order: :meth:`scan` a bucket, or with
-        ``mode="filter"`` :meth:`scan_filter`."""
+        array in the original order, as :meth:`scan` (or with
+        ``mode="filter"`` :meth:`scan_filter`) scores it: one launch over
+        the staging's row table, or without one (sharded) a launch a
+        bucket. ``bucketed_scans`` counts the calls, ``bucketed_launches``
+        the MSV launches they made."""
         if mode not in ("exact", "filter"):
             raise ValueError(f"mode must be 'exact' or 'filter', got {mode!r}")
         if not bucketed.buckets:
             return np.empty(0, dtype=np.float32)
+        self.bucketed_scans += 1
+        if bucketed.table is not None:
+            self.bucketed_launches += 1
+            return self._scan_table(profile, bucketed.table, mode).cpu().numpy()
+        self.bucketed_launches += len(bucketed.buckets)
         scan = self.scan if mode == "exact" else self.scan_filter
         scores = [scan(profile, staged) for staged in bucketed.buckets]
         return bucketed.in_order(scores).cpu().numpy()
@@ -320,6 +345,8 @@ class MSVScanner(BatchScans):
         # over lookups is the cache's waste
         self.pack_lookups = 0
         self.pack_builds = 0
+        self.bucketed_scans = 0
+        self.bucketed_launches = 0
 
     def _cache_get(self, key, obj):
         """The payload cached under ``key`` for ``obj`` (a profile, or a
@@ -379,19 +406,60 @@ class MSVScanner(BatchScans):
             raise ValueError(f"tokens are on {tokens.device}, scanner on {self.device}")
         if lengths_p.shape != (tokens.shape[0],):
             raise ValueError(f"lengths {lengths_p.shape} do not match tokens {tuple(tokens.shape)}")
-        tr_loop, tr_move = length_transitions(lengths_p)
         lengths_dev = torch.from_numpy(lengths_p).to(self.device)
+        return self._staged(_blank_tail(tokens, lengths_dev), lengths_p, lengths_dev,
+                            num_sequences if num_sequences is not None else tokens.shape[0])
+
+    def _staged(self, tokens: torch.Tensor, lengths_p: np.ndarray, lengths_dev: torch.Tensor,
+                num_sequences: int) -> StagedDatabase:
+        """A staging of blanked device tokens and their lengths (host and
+        device), with the rows' length transitions."""
+        tr_loop, tr_move = length_transitions(lengths_p)
         return StagedDatabase(
-            tokens=_blank_tail(tokens, lengths_dev),
+            tokens=tokens,
             lengths=lengths_dev,
             tr_rows=torch.from_numpy(np.stack([tr_loop, tr_move])).to(self.device),
             tr_probs=torch.from_numpy(
                 p7_cuda.length_transition_probs(lengths_p)
             ).to(self.device),
-            num_sequences=(
-                num_sequences if num_sequences is not None else tokens.shape[0]
-            ),
+            num_sequences=num_sequences,
         )
+
+    def _stage_buckets(self, tokens: np.ndarray, lengths: np.ndarray, parts: list):
+        """``(buckets, table)``: every bucket staged at its longest row's
+        width as a view of one device token buffer, one after the other,
+        uploaded into it and blanked in place, and the row table of all
+        their rows, longest first. The buckets hold the rows in ascending
+        length order, so the table lists them backwards; its lengths and
+        transitions are the buckets' own."""
+        if not parts:
+            return [], None
+        widths = [_width(lengths, idx) for idx in parts]
+        sizes = [idx.size * w for idx, w in zip(parts, widths)]
+        starts = np.cumsum([0] + sizes)
+        buffer = torch.empty(int(starts[-1]), dtype=torch.int8, device=self.device)
+        buckets = []
+        for idx, w, at, n in zip(parts, widths, starts, sizes):
+            view = buffer[at:at + n].view(idx.size, w)
+            src = np.ascontiguousarray(tokens[idx, :w], dtype=np.int8)
+            # columns past the host array's (none but at width 1) are
+            # blanked below with every position past a row's length
+            view[:, :src.shape[1]].copy_(torch.from_numpy(src))
+            lengths_dev = torch.from_numpy(lengths[idx]).to(self.device)
+            pos = torch.arange(w, device=self.device)
+            view.masked_fill_(pos[None, :] >= lengths_dev[:, None], msv_cuda.PAD_TOKEN)
+            buckets.append(self._staged(view, lengths[idx], lengths_dev, idx.size))
+        row_at = np.concatenate([at + w * np.arange(idx.size, dtype=np.int64)
+                                 for idx, w, at in zip(parts, widths, starts)])
+        table = msv_cuda.RowTable(
+            tokens=buffer,
+            row_at=torch.from_numpy(row_at[::-1].copy()).to(self.device),
+            lengths=torch.cat([s.lengths for s in buckets]).flip(0),
+            tr_rows=torch.cat([s.tr_rows for s in buckets], dim=1).flip(1).contiguous(),
+            dest=torch.from_numpy(np.concatenate(parts)[::-1].astype(np.int32)).to(self.device),
+            width=max(widths),
+        )
+        return buckets, table
 
     # -- profile upload (cached) ----------------------------------------
     def _device_profile(self, profile: MSVProfile):
@@ -415,6 +483,15 @@ class MSVScanner(BatchScans):
             emit, staged.tokens, staged.lengths, staged.tr_rows, tr_consts, m, s
         )
         return scores[: staged.num_sequences]
+
+    def _scan_table(self, profile: MSVProfile, table: msv_cuda.RowTable, mode: str
+                    ) -> torch.Tensor:
+        """Every row of a row table against one profile in one launch -> f32
+        [B] on the scanner's device in the rows' original order: the exact
+        table, or with ``mode="filter"`` the filter's bf16 one."""
+        pack = self._device_profile if mode == "exact" else self._device_profile_filter
+        emit, tr_consts = pack(profile)
+        return msv_cuda.msv_table_scan(emit, table, tr_consts)
 
     def scan_filter(self, profile: MSVProfile, staged: StagedDatabase) -> torch.Tensor:
         """The MSV prefilter -> f32 [B] on the scanner's device: the scan
@@ -967,8 +1044,9 @@ class SearchPipeline:
     ) -> SearchResult:
         """The cascade over a length-bucketed staging
         (:meth:`MSVScanner.stage_bucketed`): the MSV stage (with
-        ``fast_msv`` its filter) runs a bucket at a time, the later stages
-        restage survivors as :meth:`search` does."""
+        ``fast_msv`` its filter) is :meth:`BatchScans.scan_bucketed`, one
+        launch over every bucket; the later stages restage survivors as
+        :meth:`search` does."""
         with self._search_scope():
             msv_profile, p7 = self._derived(hmm)
             with span("msv"):
