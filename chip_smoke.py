@@ -45,7 +45,11 @@ Needs one CUDA card (device 0) and the CUDA toolkit's nvcc. In order:
    2405.hmm every block size W the kernel is compiled for equals the
    default plan in both modes, and a stack of STRIDE_COPIES copies of the
    profile (a few blocks a profile: each warp walks many sequences) equals
-   the single scan row for row;
+   the single scan row for row; the bucketed MSV stage at the proteome
+   configuration's lengths (hmmbench/configs/pfam_scan_proteome.json, titin
+   34,350 the longest): scan_bucketed of 100.hmm, 1400.hmm and 2405.hmm in
+   both modes is one launch of the row table kernel and nothing else, its
+   scores equal to the plain row table scan bit for bit;
 5. MSV kernel against the NumPy oracle on 8 sequences of 1400.hmm and
    2405.hmm;
 6. Viterbi and Forward kernels against plain, all 24 profiles, on a ragged
@@ -369,6 +373,9 @@ BATCH, SEQ_LEN = 16384, 3500
 # the MSV ragged batch of the 24-profile check, and its carry-chain split
 # (not a multiple of 32, the kernel's token group)
 RAGGED_BATCH, RAGGED_LEN, SPLIT = 300, 600, 257
+# the proteome cell's configuration: its row lengths, for the bucketed MSV
+# stage's check
+PROTEOME_CONFIG = REPO / "hmmbench" / "configs" / "pfam_scan_proteome.json"
 # the Viterbi/Forward ragged batch and its split: a multiple of the
 # Forward rescale group, not of the kernels' 128-residue chunk
 P7_BATCH, P7_SPLIT = 64, 200
@@ -556,6 +563,7 @@ WRAPPERS = {
     "forward_prob_scan": p7_cuda.forward_prob_scan_cuda,
     "msv_filter_scan": msv_cuda.msv_filter_scan_cuda,
     "msv_stacked_scan": msv_cuda.msv_stacked_scan_cuda,
+    "msv_table_scan": msv_cuda.msv_table_scan_cuda,
     "viterbi_filter_scan": p7_cuda.viterbi_filter_scan_cuda,
     "forward_log_scan": p7_cuda.forward_log_scan_cuda,
     "forward_save_scan": posterior_cuda.forward_save_scan_cuda,
@@ -1158,6 +1166,55 @@ def msv_kernels_vs_plain(scanner, rng, errors: dict) -> None:
         print(f"stacked MSV kernel ({mode}): {len(profs)} profiles in {groups} launches == the "
               f"single-profile kernels (max|d|={err})")
     msv_plans_vs_default(scanner, staged, errors)
+    table_scan_vs_plain(scanner)
+
+
+def proteome_database(rows: np.ndarray | None = None, seed: int = SEED):
+    """The proteome configuration's lengths (PROTEOME_CONFIG through
+    ``hmmbench.traffic.generator.config_lengths``: its lognormal fit's
+    quantiles and its four longest entries), those at ``rows`` of them
+    where given, in a seeded order, and seeded random residues -> (tokens
+    [B, longest] int8, lengths [B] int32)."""
+    from hmmbench.traffic import generator
+
+    lengths = generator.config_lengths(json.loads(PROTEOME_CONFIG.read_text())).astype(np.int32)
+    if rows is not None:
+        lengths = lengths[rows]
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, 20, size=(lengths.size, int(lengths.max())), dtype=np.int8)
+    return tokens, rng.permutation(lengths)
+
+
+def table_scan_vs_plain(scanner) -> None:
+    """The bucketed MSV stage over the proteome configuration's rows:
+    scan_bucketed (exact and filter) of 100.hmm, 1400.hmm and 2405.hmm (the
+    register cases of PER 4, 44 and 76) is one launch of the row table
+    kernel a call, counted from zero and nothing else launched, one scan
+    and one launch on the scanner's counters, and its scores equal the
+    plain row table scan's on the card bit for bit."""
+    tokens, lengths = proteome_database()
+    bucketed = scanner.stage_bucketed(tokens, lengths)
+    table = bucketed.table
+    for stem in ("100", "1400", "2405"):
+        prof = profile(stem)
+        for mode, pack in (("exact", scanner._device_profile),
+                           ("filter", scanner._device_profile_filter)):
+            emit, consts = pack(prof)
+            before = (scanner.bucketed_scans, scanner.bucketed_launches)
+            zero_launches()
+            got = torch.from_numpy(scanner.scan_bucketed(prof, bucketed, mode=mode))
+            torch.cuda.synchronize()
+            counted = nonzero(launches())
+            require(counted == {"msv_table_scan": 1},
+                    f"{stem}.hmm bucketed {mode} scan launched {counted}, not the row table once")
+            require((scanner.bucketed_scans - before[0], scanner.bucketed_launches - before[1])
+                    == (1, 1), f"{stem}.hmm bucketed {mode} scan: counters {before} -> "
+                    f"{(scanner.bucketed_scans, scanner.bucketed_launches)}")
+            want = msv_cuda.msv_table_scan_plain(emit, table, consts)
+            err = require_equal([got], [want], f"{stem}.hmm row table {mode} kernel vs plain")
+            print(f"bucketed MSV {mode} {stem}.hmm: {lengths.size} rows (longest "
+                  f"{int(lengths.max())}) in {len(bucketed.buckets)} buckets, launches {counted}, "
+                  f"== the plain row table scan (max|d|={err})", flush=True)
 
 
 def msv_plans_vs_default(scanner, staged, errors: dict) -> None:

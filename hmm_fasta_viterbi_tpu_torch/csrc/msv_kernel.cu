@@ -369,14 +369,15 @@ __device__ __forceinline__ void msv_body(const MsvArgs& a) {
   [[maybe_unused]] int par = 0;
   [[maybe_unused]] unsigned phases = 0;
 
-  // the block's sequences at a time walk the batch: once for a grid that
+  // the units' warps at a time walk the batch: once for a grid that
   // covers it, a stride at a time for a persistent one; a cluster's blocks
-  // (gridDim.x / C clusters a profile) follow the same sequences. A row
-  // table's rows go longest first, warp 0 of every unit first (see above)
+  // (gridDim.x / C clusters a profile) follow the same sequences. Warp w of
+  // unit u starts at sequence w * units + u, so the units' warps 0 take the
+  // first sequences, one a unit (a row table's longest rows; see above)
   const int seqs = CLUSTER ? WARPS : blockDim.x / 32;
   const int first = CLUSTER ? static_cast<int>(cluster_id()) : static_cast<int>(blockIdx.x);
   const int units = CLUSTER ? static_cast<int>(cluster_count()) : static_cast<int>(gridDim.x);
-  int seq = a.row_at != nullptr ? warp * units + first : first * seqs + warp;
+  int seq = warp * units + first;
   while (seq < b_pad) {
     const float tr_loop = a.tr_rows[seq];
     const float tr_move = a.tr_rows[b_pad + seq];

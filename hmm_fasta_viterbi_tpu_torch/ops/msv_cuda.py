@@ -309,6 +309,23 @@ def init_carry(tr_rows: torch.Tensor, m_pad: int) -> tuple[torch.Tensor, torch.T
 
 # -- the plain version -----------------------------------------------------
 
+def _plain_step(emit_t, m, st_j, st_c, st_n, st_b, tr_loop, tr_move, tr_consts):
+    """One residue of the MSV recurrence for a batch of rows, in plain
+    PyTorch: ``emit_t [B, M_pad]`` the residues' score rows -> the new
+    ``(m, j, c, n, b)``. Float32 operations run in the order of
+    ``ops/recurrence.py::msv_step``."""
+    tr_b_mk, tr_e_c, tr_e_j = tr_consts[0], tr_consts[1], tr_consts[2]
+    col0 = torch.full((m.shape[0], 1), NEG_INF, dtype=torch.float32, device=m.device)
+    shifted = torch.cat([col0, m[:, :-1]], dim=1)
+    new_m = emit_t + torch.maximum(shifted, (st_b + tr_b_mk)[:, None])
+    e_st = new_m.amax(dim=1)
+    new_j = torch.maximum(st_j + tr_loop, e_st + tr_e_j)
+    new_c = torch.maximum(st_c + tr_loop, e_st + tr_e_c)
+    new_n = st_n + tr_loop
+    new_b = torch.maximum(new_n + tr_move, new_j + tr_move)
+    return new_m, new_j, new_c, new_n, new_b
+
+
 def msv_scan_plain(emit, tokens, lengths, tr_rows, tr_consts, m, s):
     """The scan in plain PyTorch; same arguments and results as
     :func:`msv_scan`. Float32 operations run in the order of
@@ -316,21 +333,14 @@ def msv_scan_plain(emit, tokens, lengths, tr_rows, tr_consts, m, s):
     for bit."""
     b_pad, l_pad = tokens.shape
     tr_loop, tr_move = tr_rows[0], tr_rows[1]
-    tr_b_mk, tr_e_c, tr_e_j = tr_consts[0], tr_consts[1], tr_consts[2]
     st_j, st_c, st_n, st_b = s[0], s[1], s[2], s[3]
     lengths = lengths.long()
     steps = min(l_pad, int(lengths.max())) if b_pad else 0
-    col0 = torch.full((b_pad, 1), NEG_INF, dtype=torch.float32, device=m.device)
     for t in range(steps):
         # clamp: PAD_TOKEN must not index a score row (the step is masked)
         emit_t = emit[tokens[:, t].long().clamp(0, NUM_AA - 1)]  # [B, M_pad]
-        shifted = torch.cat([col0, m[:, :-1]], dim=1)
-        new_m = emit_t + torch.maximum(shifted, (st_b + tr_b_mk)[:, None])
-        e_st = new_m.amax(dim=1)
-        new_j = torch.maximum(st_j + tr_loop, e_st + tr_e_j)
-        new_c = torch.maximum(st_c + tr_loop, e_st + tr_e_c)
-        new_n = st_n + tr_loop
-        new_b = torch.maximum(new_n + tr_move, new_j + tr_move)
+        new_m, new_j, new_c, new_n, new_b = _plain_step(emit_t, m, st_j, st_c, st_n, st_b,
+                                                        tr_loop, tr_move, tr_consts)
         valid = t < lengths
         m = torch.where(valid[:, None], new_m, m)
         st_j = torch.where(valid, new_j, st_j)
@@ -349,38 +359,32 @@ def msv_filter_scan_plain(emit, tokens, lengths, tr_rows, tr_consts, m, s):
     return msv_scan_plain(emit.float(), tokens, lengths, tr_rows, tr_consts, m, s)
 
 
-def _table_chunks(lengths: np.ndarray):
-    """``(start, end)`` runs of a row table's rows that the plain version
-    scans at one width: with ``lengths`` non-increasing, as a table lists
-    them, a run ends before the first row shorter than 3/4 of its first,
-    so it pads few steps (any order still gives runs that cover every
-    row once)."""
-    start, b = 0, len(lengths)
-    neg = -lengths.astype(np.int64)
-    while start < b:
-        end = int(np.searchsorted(neg, -((3 * int(lengths[start]) - 1) // 4), side="left"))
-        yield start, max(end, start + 1)
-        start = max(end, start + 1)
-
-
 def msv_table_scan_plain(emit, table: RowTable, tr_consts):
     """The row table scan in plain PyTorch; same arguments and results as
-    :func:`msv_table_scan`: runs of rows of like length, each gathered from
-    the token buffer and scanned from the row-0 carry by
-    :func:`msv_scan_plain` (a bf16 table widened, exact), each score put at
+    :func:`msv_table_scan`: the table's rows side by side, longest first,
+    from the row-0 carry (a bf16 table widened, exact); step t advances the
+    rows longer than t, a prefix of them, with :func:`msv_scan_plain`'s
+    step, as the kernel stops each row at its own length; each score put at
     its row's index."""
-    b = table.lengths.shape[0]
-    out = torch.empty(b, dtype=torch.float32, device=table.tokens.device)
-    lengths = table.lengths.cpu().numpy()
-    for start, end in _table_chunks(lengths):
-        n = table.lengths[start:end]
-        pos = torch.arange(max(int(lengths[start:end].max()), 1), device=table.tokens.device)
-        at = (table.row_at[start:end, None] + pos).clamp(max=max(table.tokens.shape[0] - 1, 0))
-        tokens = table.tokens[at].masked_fill(pos >= n[:, None], PAD_TOKEN)
-        tr_rows = table.tr_rows[:, start:end].contiguous()
-        m, s = init_carry(tr_rows, emit.shape[1])
-        scores, _, _ = msv_scan_plain(emit.float(), tokens, n, tr_rows, tr_consts, m, s)
-        out[table.dest[start:end].long()] = scores
+    order = torch.argsort(table.lengths, descending=True, stable=True)
+    lengths = table.lengths[order].long()
+    row_at = table.row_at[order]
+    tr_rows = table.tr_rows[:, order]
+    tr_loop, tr_move = tr_rows[0], tr_rows[1]
+    m, s = init_carry(tr_rows, emit.shape[1])
+    st_j, st_c, st_n, st_b = s.clone()
+    emit = emit.float()
+    neg = -lengths.cpu().numpy()
+    steps = min(int(-neg[0]), table.width) if neg.size else 0
+    # the rows longer than t at each step t
+    longer = np.searchsorted(neg, -np.arange(steps), side="left")
+    for t, k in enumerate(longer.tolist()):
+        emit_t = emit[table.tokens[row_at[:k] + t].long().clamp(0, NUM_AA - 1)]
+        m[:k], st_j[:k], st_c[:k], st_n[:k], st_b[:k] = _plain_step(
+            emit_t, m[:k], st_j[:k], st_c[:k], st_n[:k], st_b[:k], tr_loop[:k], tr_move[:k],
+            tr_consts)
+    out = torch.empty_like(st_c)
+    out[table.dest[order].long()] = st_c + tr_move
     return out
 
 

@@ -39,9 +39,10 @@ from the device:
   JAX package's default ``l_chunk``), so its bucket partition is the JAX
   package's; a bucket is staged at its longest sequence, not rounded. The
   kernels stop at each sequence's length, so buckets save staged bytes,
-  not DP cells: ``scan_bucketed`` scores every bucket in one MSV launch
-  over a row table of them all, longest rows first (``msv_cuda.
-  RowTable``), where the JAX package scans a bucket at a time;
+  not DP cells: on the card ``scan_bucketed`` scores every bucket in one
+  MSV launch over a row table of them all, longest rows first
+  (``msv_cuda.RowTable``), where the JAX package, and the plain versions
+  on the CPU, scan a bucket at a time;
 * a batch staged by ``SideStreamStager`` (the streamed producer's
   ``stage_fn`` on a CUDA device) was uploaded on a side stream from a
   pinned ring; every scan entry makes the caller's current stream wait on
@@ -142,9 +143,9 @@ class BucketedDatabase:
     sequence by more than ``waste_factor`` of its rounded length. A
     single-device scanner stages every bucket as a view of one token
     buffer and lists all their rows, longest first, in ``table``, which
-    :meth:`BatchScans.scan_bucketed` scans in one launch; a sharded
-    staging (``table`` None) and the stacked sweeps scan a bucket at a
-    time and scatter the scores back to the original order."""
+    :meth:`BatchScans.scan_bucketed` scans in one launch on the card; the
+    CPU, a sharded staging (``table`` None) and the stacked sweeps scan a
+    bucket at a time and scatter the scores back to the original order."""
 
     buckets: list  # StagedDatabase, or ShardedDatabase on a mesh
     order: list[np.ndarray]  # original indices per bucket
@@ -233,16 +234,17 @@ class BatchScans:
     ) -> np.ndarray:
         """Score every sequence of a bucketed database -> f32 [B] host
         array in the original order, as :meth:`scan` (or with
-        ``mode="filter"`` :meth:`scan_filter`) scores it: one launch over
-        the staging's row table, or without one (sharded) a launch a
-        bucket. ``bucketed_scans`` counts the calls, ``bucketed_launches``
-        the MSV launches they made."""
+        ``mode="filter"`` :meth:`scan_filter`) scores it: on a CUDA device
+        one launch over the staging's row table; without a table (sharded),
+        or on the CPU, whose plain versions step a whole bucket at a time
+        and have no warps to balance, a scan a bucket. ``bucketed_scans``
+        counts the calls, ``bucketed_launches`` the MSV scans they made."""
         if mode not in ("exact", "filter"):
             raise ValueError(f"mode must be 'exact' or 'filter', got {mode!r}")
         if not bucketed.buckets:
             return np.empty(0, dtype=np.float32)
         self.bucketed_scans += 1
-        if bucketed.table is not None:
+        if bucketed.table is not None and self.device.type == "cuda":
             self.bucketed_launches += 1
             return self._scan_table(profile, bucketed.table, mode).cpu().numpy()
         self.bucketed_launches += len(bucketed.buckets)
@@ -1044,8 +1046,8 @@ class SearchPipeline:
     ) -> SearchResult:
         """The cascade over a length-bucketed staging
         (:meth:`MSVScanner.stage_bucketed`): the MSV stage (with
-        ``fast_msv`` its filter) is :meth:`BatchScans.scan_bucketed`, one
-        launch over every bucket; the later stages restage survivors as
+        ``fast_msv`` its filter) is :meth:`BatchScans.scan_bucketed`, on
+        the card one launch over every bucket; the later stages restage survivors as
         :meth:`search` does."""
         with self._search_scope():
             msv_profile, p7 = self._derived(hmm)

@@ -1,17 +1,18 @@
 """The bucketed staging's row table on the CPU (the kernels' plain
 versions): ``MSVScanner.stage_bucketed`` stages every bucket as a view of
 one token buffer and lists all their rows longest first
-(``msv_cuda.RowTable``); ``scan_bucketed`` scores them in one MSV launch
-(``msv_cuda.msv_table_scan``), each score at its row's original index.
+(``msv_cuda.RowTable``); on the card ``scan_bucketed`` scores them in one
+MSV launch (``msv_cuda.msv_table_scan``), each score at its row's original
+index, and on the CPU a bucket at a time.
 
-The one-launch scan equals the bucket-at-a-time scan bit for bit, in both
-modes, on a ragged database whose buckets hold one or two rows and whose
-longest row is many times the median; the buckets and their ``order`` are
-what a bucket-at-a-time staging makes; ``msv_cuda.table_walk``, the model
-of how the kernel hands the table's rows to its warps, covers every row
-once, longest first, the longest rows one a block; the scanner counts one
-launch a bucketed scan (a sharded staging, which has no table, one a
-bucket), and the CLI's search line says so.
+The row table scan (the one launch's plain version) equals the
+bucket-at-a-time scan bit for bit, in both modes, on a ragged database
+whose buckets hold one or two rows and whose longest row is many times
+the median; the buckets and their ``order`` are what a bucket-at-a-time
+staging makes; ``msv_cuda.table_walk``, the model of how the kernel hands
+the table's rows to its warps, covers every row once, longest first, the longest rows one a block; the scanner counts one
+launch a bucketed scan on a CUDA device (the CPU and a sharded staging,
+which has no table, one scan a bucket), and the CLI's search line says so.
 """
 
 import numpy as np
@@ -64,10 +65,10 @@ def profiles(profile_dir):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_one_launch_equals_bucket_at_a_time(ragged, profiles, mode):
-    """scan_bucketed (one launch over the row table) equals the scan of
-    each bucket put back in order, and the scan of the whole batch, bit for
-    bit; the database has buckets of one and two rows and a row 50 times
-    the median."""
+    """The row table scan (the card's one launch over every bucket) equals
+    the scan of each bucket put back in order, which is scan_bucketed's on
+    the CPU, and the scan of the whole batch, bit for bit; the database has
+    buckets of one and two rows and a row 50 times the median."""
     tokens, lengths = ragged
     scanner = MSVScanner(device="cpu")
     bucketed = scanner.stage_bucketed(tokens, lengths)
@@ -77,10 +78,11 @@ def test_one_launch_equals_bucket_at_a_time(ragged, profiles, mode):
     scan = scanner.scan if mode == "exact" else scanner.scan_filter
     whole = scanner.stage(tokens, lengths)
     for p in profiles:
-        got = scanner.scan_bucketed(p, bucketed, mode=mode)
+        got = scanner._scan_table(p, bucketed.table, mode).numpy()
         per_bucket = bucketed.in_order([scan(p, staged) for staged in bucketed.buckets]).numpy()
         assert got.dtype == np.float32 and got.shape == lengths.shape
         np.testing.assert_array_equal(got, per_bucket)
+        np.testing.assert_array_equal(scanner.scan_bucketed(p, bucketed, mode=mode), per_bucket)
         np.testing.assert_array_equal(got, scan(p, whole).numpy())
     assert np.isneginf(got[lengths == 0]).all()
 
@@ -126,8 +128,9 @@ def test_row_table_is_longest_first_and_maps_every_row(ragged):
 
 
 def test_buckets_and_order_are_the_bucket_at_a_time_staging(ragged):
-    """Each bucket (a view of the one token buffer) equals the staging of its rows alone, field for field, and ``order``
-    partitions the rows in ascending length, as before the row table."""
+    """Each bucket (a view of the one token buffer) equals the staging of
+    its rows alone, field for field, and ``order`` partitions the rows in
+    ascending length, as before the row table."""
     tokens, lengths = ragged
     scanner = MSVScanner(device="cpu")
     bucketed = scanner.stage_bucketed(tokens, lengths)
@@ -185,17 +188,35 @@ def test_table_walk_leaves_the_longest_row_its_warp():
     assert max(len(held) for held in rows) > 1
 
 
-def test_counters_one_launch_a_bucketed_scan(ragged, profiles):
-    """One MSV launch a bucketed scan on a single device, in both modes; a
-    staging sharded over a mesh has no row table and launches a bucket at
-    a time."""
+def test_counters_one_launch_a_bucketed_scan(ragged, profiles, monkeypatch):
+    """One MSV launch a bucketed scan on a CUDA device, in both modes (the
+    row table scan's launch stood in for by its plain version); on the CPU
+    and for a staging sharded over a mesh, which has no row table, a scan
+    a bucket."""
     tokens, lengths = ragged
     scanner = MSVScanner(device="cpu")
     bucketed = scanner.stage_bucketed(tokens, lengths)
-    assert len(bucketed.buckets) >= 4
+    n = len(bucketed.buckets)
+    assert n >= 4
     for mode in MODES:
         scanner.scan_bucketed(profiles[0], bucketed, mode=mode)
-    assert (scanner.bucketed_scans, scanner.bucketed_launches) == (2, 2)
+    assert (scanner.bucketed_scans, scanner.bucketed_launches) == (2, 2 * n)
+
+    card = MSVScanner(device="cpu")
+    tables = []
+
+    def scan_table(profile, table, mode):
+        tables.append((table, mode))
+        return scanner._scan_table(profile, table, mode)
+
+    monkeypatch.setattr(card, "device", torch.device("cuda"))
+    monkeypatch.setattr(card, "_scan_table", scan_table)
+    for mode in MODES:
+        np.testing.assert_array_equal(card.scan_bucketed(profiles[0], bucketed, mode=mode),
+                                      scanner.scan_bucketed(profiles[0], bucketed, mode=mode))
+    assert tables == [(bucketed.table, mode) for mode in MODES]
+    assert (card.bucketed_scans, card.bucketed_launches) == (2, 2)
+
     sharded = MSVScanner(mesh=make_scan_mesh(db=2, devices=["cpu", "cpu"]))
     staged = sharded.stage_bucketed(tokens, lengths)
     assert staged.table is None
@@ -206,7 +227,7 @@ def test_counters_one_launch_a_bucketed_scan(ragged, profiles):
 
 def test_cli_search_line_gives_launches_a_bucketed_scan(profile_dir, tmp_path, caplog):
     """``scan --stage search --bucketed``'s search line gives the MSV
-    launches a bucketed scan: 1."""
+    launches a bucketed scan: on the CPU one a bucket (on the card 1)."""
     tokens, lengths = _ragged(5)
     fasta = tmp_path / "ragged.fsa"
     write_fasta(fasta, [FastaRecord(f"r{i}", "".join(AMINO_ACIDS[t] for t in tokens[i, :n]))
@@ -215,5 +236,8 @@ def test_cli_search_line_gives_launches_a_bucketed_scan(profile_dir, tmp_path, c
         assert port_cli.main(["scan", "--stage", "search", "--bucketed", "--device", "cpu",
                               "--hmm", str(profile_dir / "100.hmm"), "--fasta", str(fasta),
                               "--loader", "python", "--out", str(tmp_path / "out.tsv")]) == 0
-    line = next(r.getMessage() for r in caplog.records if r.getMessage().startswith("search "))
-    assert "packs built" in line and "1 MSV launches a bucketed scan" in line
+    messages = [r.getMessage() for r in caplog.records]
+    buckets = int(next(m for m in messages if m.startswith("bucketed staging:")).split()[2])
+    line = next(m for m in messages if m.startswith("search "))
+    assert buckets > 1
+    assert "packs built" in line and f", {buckets} MSV launches a bucketed scan" in line

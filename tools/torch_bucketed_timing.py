@@ -52,7 +52,6 @@ from hmm_fasta_viterbi_tpu_torch import MSVProfile, MSVScanner, parse_hmm  # noq
 from hmm_fasta_viterbi_tpu_torch.ops import msv_cuda  # noqa: E402
 from hmmbench.traffic import generator  # noqa: E402
 
-CONFIG = ROOT / "hmmbench" / "configs" / "pfam_scan_proteome.json"
 PROFILES = ROOT / "data" / "profile_HMMs"
 SEED = 20261018
 WIDE_JOINS = (("2405", "2365"), chip_smoke.MEM_JOINS[0], chip_smoke.MSV_MEM_JOIN)
@@ -81,14 +80,9 @@ def best_ms(fn, reps: int) -> float:
 
 
 def database(rows: np.ndarray | None = None):
-    """The proteome configuration's lengths (a subset ``rows`` of them, in
-    ascending order) and seeded random residues."""
-    lengths = generator.config_lengths(json.loads(CONFIG.read_text())).astype(np.int32)
-    if rows is not None:
-        lengths = lengths[rows]
-    rng = np.random.default_rng(SEED)
-    tokens = rng.integers(0, 20, size=(lengths.size, int(lengths.max())), dtype=np.int8)
-    return tokens, rng.permutation(lengths)
+    """The proteome configuration's lengths (a subset ``rows`` of them) in
+    a seeded order, and seeded random residues."""
+    return chip_smoke.proteome_database(rows, SEED)
 
 
 def per_bucket(scanner, profile, bucketed, mode: str) -> torch.Tensor:
@@ -142,7 +136,7 @@ def timings(scanner, profiles, reps: int, gpu: str) -> bool:
 
 
 def wide_checks(scanner, gpu: str) -> bool:
-    total = generator.config_lengths(json.loads(CONFIG.read_text())).size
+    total = generator.config_lengths(json.loads(chip_smoke.PROTEOME_CONFIG.read_text())).size
     rows = np.concatenate([np.linspace(0, total - 5, WIDE_BODY).astype(np.int64),
                            np.arange(total - 4, total)])
     tokens, lengths = database(rows)
@@ -153,7 +147,6 @@ def wide_checks(scanner, gpu: str) -> bool:
         profile = MSVProfile.from_profile(chip_smoke.wide_profile(stems))
         for mode in ("exact", "filter"):
             chip_smoke.zero_launches()
-            msv_cuda.zero_launches(msv_cuda.msv_table_scan_cuda)
             if mem:
                 with chip_smoke.no_block_clusters():
                     got = one_launch(scanner, profile, bucketed, mode)
